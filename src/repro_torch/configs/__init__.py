@@ -1,0 +1,50 @@
+"""Architecture registry: ``--arch <id>`` → ModelConfig.
+
+Only the presets whose model slices are ported are registered; asking
+for another raises ``KeyError`` naming what is ported (ROADMAP.md lists
+the rest).  ``smoke_config`` applies the reference's reductions
+(``repro/configs/__init__.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from repro_torch.configs.hetumoe_paper_16e import CONFIG as _paper
+from repro_torch.core.config import ModelConfig
+
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_paper,)}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(
+            f"arch {arch!r} is not ported to repro_torch yet; ported: "
+            f"{sorted(ARCHS)} (the other presets wait for their model "
+            f"slices, see ROADMAP.md)")
+    return ARCHS[arch]
+
+
+def smoke_config(arch: str) -> ModelConfig:
+    """Reduced same-family variant for CPU smoke tests."""
+    cfg = get_config(arch)
+    period = len(cfg.block_pattern)
+    kw = dict(
+        name=cfg.name + "-smoke",
+        num_layers=period if period > 1 else 2,
+        d_model=128,
+        d_ff=256,
+        vocab_size=512,
+        local_window=32,
+    )
+    if cfg.attention is not None:
+        kw["attention"] = dataclasses.replace(
+            cfg.attention, num_heads=4,
+            num_kv_heads=max(1, min(cfg.attention.num_kv_heads, 2)),
+            head_dim=32, window=32 if cfg.attention.window else None)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, d_ff_expert=256,
+            num_prototypes=min(cfg.moe.num_prototypes, 2),
+            num_groups=min(cfg.moe.num_groups, 2))
+    return cfg.replace(**kw)

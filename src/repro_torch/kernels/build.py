@@ -1,0 +1,161 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by its own ``nvcc`` process, all started together,
+for ``sm_90a`` (Hopper; ``-gencode arch=compute_90a,code=sm_90a -std=c++17
+-O3 -Xcompiler -fPIC``), and the objects are linked with ``-shared`` into one
+library with a plain C interface under ``build/repro_torch/`` at the repo
+root (``.gitignore`` lists it).  The library's name carries a hash of the
+sources and flags, so an edited source builds anew at first use and an
+unchanged one is loaded as it is.  It is bound with ``ctypes``: every
+pointer and the stream are ``c_void_p``; every entry point returns
+``cudaGetLastError()`` and :func:`check` raises when that is not 0.
+
+Nothing here runs at import: the CPU tests import every module, and no
+``nvcc`` is needed until a kernel is launched on a CUDA tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("topk_gate.cu", "layout_transform.cu", "grouped_ffn.cu")
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+SIGNATURES = {
+    "topk_gate_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "gather_rows": (_P, _P, _P, _LL, _LL, _LL, _P),
+    "grouped_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "grouped_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+# what the last build in this process did: seconds and the ptxas report
+# (registers, shared memory, spills per kernel); empty when the library
+# was already built
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if home and (pathlib.Path(home) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, "
+            "/usr/local/cuda and PATH): the CUDA kernels cannot be built")
+    return found
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def _compile(so: pathlib.Path) -> None:
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    tag = f"{so.stem}.{os.getpid()}"
+    procs = []
+    for name in SOURCES:
+        obj = BUILD_DIR / f"{tag}.{name}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        procs.append((name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    reports, failed = [], []
+    for name, _, p in procs:
+        out, _ = p.communicate()
+        reports.append(f"== {name}\n{out}")
+        if p.returncode:
+            failed.append(f"nvcc failed on {name} (exit {p.returncode}):\n"
+                          f"{out}")
+    objs = [obj for _, obj, _ in procs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = BUILD_DIR / f"{tag}.so.tmp"
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):"
+                               f"\n{link.stdout}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_info.update(seconds=time.perf_counter() - t0,
+                      ptxas="\n".join(reports), library=str(so))
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if its sources changed."""
+    global _LIB
+    if _LIB is None:
+        so = library_path()
+        if not so.exists():
+            _compile(so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(rc: int, kernel: str) -> None:
+    """Raise if a launch was refused (the C entry point's return code)."""
+    if rc != 0:
+        msg = load().repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def reject_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """The kernels have no backward in this slice: refuse a call that
+    autograd would differentiate, rather than return a wrong gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward yet: the backward kernels come with "
+            f"the training slice (ROADMAP.md)")
+
+
+def dispatch_device(kernel: str, t: torch.Tensor) -> bool:
+    """True to launch the CUDA kernel, False for the plain version — which
+    only a CPU tensor gets.  Any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{kernel}: unsupported device {t.device}")

@@ -1,0 +1,55 @@
+"""Public wrappers around the kernels — the port of ``repro/kernels/ops.py``.
+
+Each wrapper launches the CUDA kernel for a CUDA tensor and the kernel's
+plain PyTorch version for a CPU tensor (``kernels/build.dispatch_device``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import layout_transform, topk_gate
+
+gather_rows = layout_transform.gather_rows
+
+
+def topk_softmax_weights(logits: torch.Tensor, k: int):
+    """Top-k indices + their softmax(logits) probabilities + full probs,
+    all derived from the fused kernel's single pass (its ``rowmax`` is the
+    stable exp shift; Σexp is recomputed beside it, as the reference does
+    so that the router stays differentiable)."""
+    logits = logits.float()
+    _, idx, rowmax, _ = topk_gate.fused_topk_gate(logits, k)
+    u = torch.exp(logits - rowmax)
+    probs = u / u.sum(dim=-1, keepdim=True)
+    weights = probs.gather(-1, idx.long())
+    return idx, weights, probs
+
+
+def layout_dispatch(tokens: torch.Tensor, slot: torch.Tensor,
+                    num_experts: int, capacity: int,
+                    inv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(S, d), slot (S, K) → (E·C, d) contiguous-per-expert buffer: the
+    scatter re-expressed as a row gather over ``inv (E·C,)`` (a sort plan
+    carries it; otherwise it is inverted here)."""
+    if inv is None:
+        S, K = slot.shape
+        EC = num_experts * capacity
+        flat = slot.reshape(-1).long()
+        tok = torch.arange(S, dtype=torch.int32,
+                           device=slot.device).repeat_interleave(K)
+        inv = torch.full((EC + 1,), -1, dtype=torch.int32, device=slot.device)
+        inv[torch.where(flat >= 0, flat, EC)] = tok
+        inv = inv[:EC]
+    return gather_rows(tokens, inv.contiguous())
+
+
+def layout_combine(buffer: torch.Tensor, slot: torch.Tensor,
+                   weight: torch.Tensor) -> torch.Tensor:
+    """Inverse transform: gather rows back per (token, k), then the
+    weighted sum, rounded once to the buffer's dtype."""
+    S, K = slot.shape
+    rows = gather_rows(buffer, slot.reshape(-1).contiguous()).reshape(S, K, -1)
+    w = (weight * (slot >= 0)).to(buffer.dtype)
+    return (rows.float() * w.float()[..., None]).sum(dim=1).to(buffer.dtype)

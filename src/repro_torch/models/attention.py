@@ -1,0 +1,159 @@
+"""Grouped-query attention with RoPE and KV caches — the port of
+``repro/models/attention.py`` for prompts of at most ``q_chunk`` tokens.
+
+Longer prompts take the flash-attention kernel in the reference
+(``full_attention`` at S > q_chunk); that kernel comes with the flash
+slice, so here they raise rather than run the chunked baseline in its
+place.  Ring (sliding-window) caches come with the windowed presets.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.config import AttentionConfig
+from repro_torch.models.layers import rms_norm, softcap as _softcap
+
+
+def init_attention(generator: torch.Generator, cfg: AttentionConfig,
+                   d_model: int, *, device=None) -> Dict[str, torch.Tensor]:
+    hd = cfg.head_dim or d_model // cfg.num_heads
+
+    def randn(*shape):
+        return torch.randn(shape, generator=generator, device=device)
+
+    s = d_model ** -0.5
+    p = {"wq": randn(d_model, cfg.num_heads * hd) * s,
+         "wk": randn(d_model, cfg.num_kv_heads * hd) * s,
+         "wv": randn(d_model, cfg.num_kv_heads * hd) * s,
+         "wo": randn(cfg.num_heads * hd, d_model) * (cfg.num_heads * hd) ** -0.5}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), device=device)
+        p["k_norm"] = torch.zeros((hd,), device=device)
+    return p
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x (..., S, n, hd), positions (..., S) → rotated x."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].float() * freq                # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _qkv(params, x, cfg: AttentionConfig, positions):
+    B, S, d = x.shape
+    hd = cfg.head_dim or d // cfg.num_heads
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).reshape(B, S, cfg.num_heads, hd)
+    k = (x @ params["wk"].to(dt)).reshape(B, S, cfg.num_kv_heads, hd)
+    v = (x @ params["wv"].to(dt)).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attend(q, k, v, q_pos, k_pos, *, causal: bool, window: Optional[int],
+            cap: Optional[float], scale: float):
+    """q (B,Q,H,hd), k/v (B,S,KV,hd), positions (Q,)/(S,); k_pos < 0 marks
+    an invalid slot.  GQA: head h reads kv head h // (H/KV).  Scores and
+    softmax in f32, the value product in v's dtype.  Returns (B,Q,H,hd)."""
+    B, Q, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Q, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if cap is not None:
+        s = _softcap(s, cap)
+    m = (k_pos >= 0)[None, :]
+    if causal:
+        m = m & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        m = m & (k_pos[None, :] > q_pos[:, None] - window)
+    s = torch.where(m, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return o.reshape(B, Q, H, hd)
+
+
+def full_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                   cfg: AttentionConfig, *, positions: torch.Tensor,
+                   causal: bool = True, window: Optional[int] = None,
+                   q_chunk: int = 512
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill pass for S <= q_chunk.  Returns (y, kv) — kv fills caches."""
+    B, S, d = x.shape
+    if S > q_chunk:
+        raise NotImplementedError(
+            f"prompt length {S} > q_chunk={q_chunk}: the reference runs its "
+            f"flash-attention kernel here, which comes with the flash slice "
+            f"(ROADMAP.md)")
+    q, k, v = _qkv(params, x, cfg, positions[None, :])
+    win = window if window is not None else cfg.window
+    o = _attend(q, k, v, positions, positions, causal=causal, window=win,
+                cap=cfg.attn_softcap, scale=q.shape[-1] ** -0.5)
+    y = o.reshape(B, S, -1).to(x.dtype) @ params["wo"].to(x.dtype)
+    return y, {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# decode caches: {"k", "v": (B, L, KV, hd), "pos": int}, updated in place
+# (the reference returns new arrays; writing the slot in place saves a copy
+# of the whole cache per step)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: AttentionConfig, batch: int, cache_len: int,
+               d_model: int, dtype, device=None) -> Dict[str, object]:
+    hd = cfg.head_dim or d_model // cfg.num_heads
+    shape = (batch, cache_len, cfg.num_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
+
+
+def fill_cache(cache: Dict[str, object], kv: Dict[str, torch.Tensor]
+               ) -> Dict[str, object]:
+    """Write a prefill's (B, S, KV, hd) keys/values into the cache."""
+    S = kv["k"].shape[1]
+    if S > cache["k"].shape[1]:
+        raise ValueError(f"prefill of {S} tokens does not fit a cache of "
+                         f"{cache['k'].shape[1]}")
+    cache["k"][:, :S] = kv["k"].to(cache["k"].dtype)
+    cache["v"][:, :S] = kv["v"].to(cache["v"].dtype)
+    cache["pos"] = S
+    return cache
+
+
+def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                     cache: Dict[str, object], cfg: AttentionConfig, *,
+                     window: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, object]]:
+    """One-token decode.  x (B, 1, d)."""
+    B, one, d = x.shape
+    if one != 1:
+        raise ValueError(f"decode_attention takes one token, got {one}")
+    pos = cache["pos"]
+    W = cache["k"].shape[1]
+    if pos >= W:
+        raise ValueError(f"cache of {W} positions is full at pos={pos}")
+    # filled on the device: a host tensor copied over would wait for it
+    pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(params, x, cfg, pos_t[None, :])
+    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    idx = torch.arange(W, dtype=torch.int32, device=x.device)
+    k_pos = torch.where(idx <= pos, idx, -1)
+    win = window if window is not None else cfg.window
+    o = _attend(q, cache["k"], cache["v"], pos_t, k_pos, causal=True,
+                window=win, cap=cfg.attn_softcap, scale=q.shape[-1] ** -0.5)
+    y = o.reshape(B, 1, -1).to(x.dtype) @ params["wo"].to(x.dtype)
+    cache["pos"] = pos + 1
+    return y, cache

@@ -1,0 +1,205 @@
+"""The whole slice against the JAX package: the reference model's
+parameters (``init_model``) go through ``convert.params_from_numpy`` into
+the port's ``Transformer`` (CPU, plain kernel versions); the reference
+runs on ``mesh1`` with its Pallas kernels in interpret mode."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import transformer as JT
+from repro.serving import engine as jengine
+from repro_torch import configs
+from repro_torch.convert import params_from_numpy
+from repro_torch.launch import serve
+from repro_torch.models.transformer import Transformer
+from repro_torch.serving import engine
+
+ARCH = "hetumoe-paper-16e"
+RNG = jax.random.PRNGKey(5)
+
+
+def _cfgs(dtype="float32", dispatch="grouped"):
+    jc = jconfigs.smoke_config(ARCH)
+    jc = jc.replace(dtype=dtype, moe=dataclasses.replace(
+        jc.moe, use_pallas_gate=True, dispatch=dispatch))
+    tc = configs.smoke_config(ARCH)
+    tc = tc.replace(dtype=dtype, moe=dataclasses.replace(tc.moe,
+                                                         dispatch=dispatch))
+    return jc, tc
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    jc, _ = _cfgs()
+    return JT.init_model(RNG, jc)
+
+
+def _port(jax_params, tc):
+    tree = jax.tree.map(np.asarray, jax_params)
+    return Transformer(tc, device="cpu", params=params_from_numpy(tree, tc))
+
+
+def _prompt(B=2, S=16, seed=6):
+    return np.random.default_rng(seed).integers(0, 512, (B, S)).astype(
+        np.int32)
+
+
+def _jax_logits(params, cfg, toks, mesh):
+    def f(p, t):
+        h, _, _ = JT.forward(p, t, cfg, mesh=mesh)
+        return JT.logits_from_hidden(p, cfg, h, mesh)
+    return np.asarray(jax.jit(f)(params, jnp.asarray(toks)).astype(
+        jnp.float32))
+
+
+def _port_logits(model, toks):
+    with torch.inference_mode():
+        h, _, _ = model.forward(torch.from_numpy(toks).long())
+        return model.logits_from_hidden(h).float().numpy()
+
+
+@pytest.mark.parametrize("dispatch", ["grouped", "sort"])
+def test_prefill_logits_match_reference_f32(jax_params, mesh1, dispatch):
+    """f32 logits at every position, atol 1e-4."""
+    jc, tc = _cfgs(dispatch=dispatch)
+    toks = _prompt()
+    np.testing.assert_allclose(_port_logits(_port(jax_params, tc), toks),
+                               _jax_logits(jax_params, jc, toks, mesh1),
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dispatch", ["grouped", "sort"])
+def test_prefill_logits_match_reference_bf16(jax_params, mesh1, dispatch):
+    """bf16 logits within 0.05 of the reference's, against logits up to
+    ~4 (0.03 seen): both sides round every product to bf16, but their f32
+    sums add in other orders, so single roundings land one bf16 ulp
+    (2^-8 relative) apart and pass through two blocks and the lm head.
+    The argmax must agree on at least 90% of positions."""
+    jc, tc = _cfgs("bfloat16", dispatch)
+    toks = _prompt()
+    t = _port_logits(_port(jax_params, tc), toks)
+    j = _jax_logits(jax_params, jc, toks, mesh1)
+    assert np.abs(t - j).max() <= 0.05
+    assert (t.argmax(-1) == j.argmax(-1)).mean() >= 0.9
+
+
+@pytest.mark.parametrize("dispatch", ["grouped", "sort"])
+def test_greedy_generate_matches_reference(jax_params, mesh1, dispatch):
+    """Greedy token ids equal over 6 steps, f32, prompt (2, 16)."""
+    jc, tc = _cfgs(dispatch=dispatch)
+    toks = _prompt()
+    j = np.asarray(jengine.generate(jax_params, jc, jnp.asarray(toks),
+                                    steps=6, mesh=mesh1))
+    t = engine.generate(_port(jax_params, tc), torch.from_numpy(toks).long(),
+                        steps=6).numpy()
+    np.testing.assert_array_equal(t, j)
+
+
+def test_decode_step_matches_reference_expert_tp_quirk(jax_params, mesh1):
+    """The reference's decode at mesh (1, 1) takes the expert-TP branch at
+    degree 1 (an identity there, with two extra row gathers); the port has
+    no TP and still gives the same logits after prefill + 3 decode steps,
+    f32 atol 1e-4."""
+    jc, tc = _cfgs()
+    toks = _prompt(S=12)
+    prefill = jengine.build_prefill(jc, mesh1, cache_len=16)
+    step = jengine.build_decode(jc, mesh1, batch=2)
+    jl, jcache = prefill(jax_params, jnp.asarray(toks))
+    model = _port(jax_params, tc)
+    with torch.inference_mode():
+        caches = model.init_caches(2, 16)
+        h, _, caches = model.forward(torch.from_numpy(toks).long(),
+                                     caches=caches)
+        tl = model.logits_from_hidden(h[:, -1:])
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+        for i in range(3):
+            tok = np.array(jnp.argmax(jl[:, -1], -1))[:, None]
+            jl, jcache = step(jax_params, jnp.asarray(tok), jcache)
+            tl, caches = model.decode_step(torch.from_numpy(tok).long(),
+                                           caches)
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                       atol=1e-4, err_msg=f"step {i}")
+
+
+def test_serve_cli_runs_on_cpu(capsys):
+    serve.main(["--arch", ARCH, "--smoke", "--batch", "2", "--prompt-len",
+                "8", "--gen", "3", "--dispatch", "sort", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "dispatch=sort (flag)" in out and "-> (2, 11)" in out
+
+
+def test_serve_cli_repeat_serves_the_same_tokens(capsys):
+    """``--repeat`` serves the same prompts again on one model, with the
+    same tokens, and prints each run's prefill and decode times."""
+    stats = {}
+    out = serve.run(ARCH, smoke=True, batch=2, prompt_len=8, gen=3,
+                    device="cpu", repeat=2, stats=stats)
+    out_text = capsys.readouterr().out
+    lines = [ln for ln in out_text.splitlines() if "-> (2, 11)" in ln]
+    assert len(lines) == 2 and all("ms/step" in ln for ln in lines)
+    assert "median of runs 2-2: prefill" in out_text
+    assert stats["decode_steps"] == 2
+    torch.testing.assert_close(
+        out, serve.run(ARCH, smoke=True, batch=2, prompt_len=8, gen=3,
+                       device="cpu"))
+
+
+@pytest.mark.parametrize("argv", [["--mesh", "2x2"], ["--dispatch", "nope"],
+                                  ["--repeat", "0"]])
+def test_serve_cli_rejects_unported_flags(argv):
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", *argv])
+
+
+def test_generate_validates_like_reference():
+    _, tc = _cfgs()
+    model = Transformer(tc, device="cpu")
+    prompt = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(ValueError, match="valid options"):
+        engine.generate(model, prompt, steps=2, dispatch="scatter")
+    with pytest.raises(ValueError, match="cache_len"):
+        engine.generate(model, prompt, steps=2, cache_len=1)
+    with pytest.raises(NotImplementedError, match="flash"):
+        engine.generate(model, torch.zeros((1, 513), dtype=torch.long),
+                        steps=1)
+
+
+@pytest.mark.parametrize("act", ["relu", "swiglu", "gelu"])
+def test_layers_match_reference(act):
+    """rms_norm (the 1+scale form), softcap, the MLP, embed and rope in
+    f32 at 1e-5."""
+    from repro.models import attention as jattn
+    from repro.models import layers as jl
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import layers as tl
+    rng = np.random.default_rng(41)
+    x = rng.standard_normal((2, 5, 16)).astype(np.float32)
+    scale = rng.standard_normal(16).astype(np.float32) * 0.1
+    cols = 48 if act == "swiglu" else 24
+    mlp = {"w_in": rng.standard_normal((16, cols)).astype(np.float32),
+           "w_out": rng.standard_normal((24, 16)).astype(np.float32)}
+    table = rng.standard_normal((10, 16)).astype(np.float32)
+    ids = np.array([[1, 9, 0]], np.int32)
+    pos = np.arange(5, dtype=np.int32)
+    T = torch.from_numpy
+    pairs = [
+        (jl.rms_norm(jnp.asarray(x), jnp.asarray(scale)),
+         tl.rms_norm(T(x), T(scale))),
+        (jl.softcap(jnp.asarray(x), 2.0), tl.softcap(T(x), 2.0)),
+        (jl.apply_mlp({k: jnp.asarray(v) for k, v in mlp.items()},
+                      jnp.asarray(x), act),
+         tl.apply_mlp({k: T(v) for k, v in mlp.items()}, T(x), act)),
+        (jl.embed(jnp.asarray(table), jnp.asarray(ids), jnp.float32, True),
+         tl.embed(T(table), T(ids), torch.float32, True)),
+        (jattn.rope(jnp.asarray(x).reshape(2, 5, 2, 8), jnp.asarray(pos),
+                    1e4),
+         tattn.rope(T(x).reshape(2, 5, 2, 8), T(pos), 1e4)),
+    ]
+    for j, t in pairs:
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5,
+                                   atol=1e-5)
