@@ -7,7 +7,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
 
 1. Setup: the card's name and power limit, TF32 off, the kernel build.
 2. Each hand-written kernel against its plain PyTorch version on the card,
-   at the main path's shapes and at edge cases, with stated tolerances.
+   at the main paths' shapes and at edge cases, with stated tolerances:
+   the gate, the gather and the grouped matmul (2a-2c), the grouped
+   matmul's backward dlhs and drhs (2d, 2e) and the scatter-add (2f).
 3. Serving at full width: ``hetumoe-paper-16e`` (bf16, seeded random
    weights) through ``repro_torch.launch.serve.run`` → ``generate``, batch 8,
    prompt 512, 32 new tokens, once with ``grouped`` and once with ``sort``
@@ -16,12 +18,21 @@ Phases, in order; any failure ends the script with a non-zero exit:
 4. Card against CPU at full width: the same f32 weights, batch 1, prompt
    64, prefill last-token logits from the card (kernels) and the CPU (plain
    versions), both dispatch modes.
-5. Per-kernel timings at the main path's shapes (CUDA events, median of
+5. Per-kernel timings at the main paths' shapes (CUDA events, median of
    batches after warm-up) beside the bound, the plain version and the
    nearest single PyTorch call.
 6. Where the time goes: a profiled prefill and decode steps per dispatch
    mode (wall time, kernel time, the device's idle share, top kernels), and
-   the host's waits for the device in a forward, which must be none.
+   the host's waits for the device in a forward, which must be none; then
+   one profiled train step per dispatch mode, with its host waits reported.
+7. Training at full width: ``hetumoe-paper-16e`` through
+   ``repro_torch.launch.train.run`` (f32 masters, bf16 compute, batch 8,
+   seq 512, seeded weights and data, 2 warm-up + 8 timed AdamW steps), once
+   per dispatch mode; every metric finite, no step skipped, and every
+   kernel's launch counter risen by exactly the per-step count times the
+   steps.
+8. Card against CPU, one f32 train step's loss and gradients at full
+   width: the same f32 weights, batch 1, seq 64, both dispatch modes.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.  The script
@@ -234,6 +245,125 @@ def phase_kernels(torch, dev):
                   f"({tol}), tail rows zero={bool((tail == 0).all())}")
             check(ok, f"grouped_matmul {name} {dt} disagrees with its plain "
                       f"version")
+
+    errs.update(grouped_matmul_t=0.0, grouped_drhs=0.0, scatter_add_rows=0.0)
+    print("phase 2d: grouped_matmul_t, dlhs = g @ w[e]^T (f32 rtol/atol 1e-4; "
+          "bf16 within 1 ulp of the f32-accumulated plain result rounded "
+          "once, plus the f32 summation-order bound)")
+    for name, M, Kd, N, E_, offs in mcases:
+        g32 = torch.randn(M, N, generator=g)
+        rhs32 = torch.randn(E_, Kd, N, generator=g) * N ** -0.5
+        o = offs.to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            gd, rhs = g32.to(dt).to(dev), rhs32.to(dt).to(dev)
+            out = G.grouped_matmul_t(gd, rhs, o)
+            ref = G.grouped_matmul_t_plain(gd, rhs, o)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            errs["grouped_matmul_t"] = max(errs["grouped_matmul_t"],
+                                           err.max().item())
+            if dt == torch.float32:
+                ok = bool(torch.allclose(out, ref, rtol=1e-4, atol=1e-4))
+                tol = "rtol/atol 1e-4"
+            else:
+                order = N * 2.0 ** -24 * G.grouped_matmul_t_plain(
+                    gd.float().abs(), rhs.float().abs(), o)
+                ulp = bf16_ulp(torch, ref.float())
+                ok = bool((err <= ulp + order).all())
+                tol = (f"{(err / ulp).max().item():.2f} ulp max, within 1 "
+                       f"ulp + the f32 order bound: {ok}")
+            tail = out[int(offs[-1]):]
+            ok = ok and bool((tail == 0).all())
+            print(f"  {name} {dt}: max abs err {err.max().item():.3e} "
+                  f"({tol}), tail rows zero={bool((tail == 0).all())}")
+            check(ok, f"grouped_matmul_t {name} {dt} disagrees with its "
+                      f"plain version")
+
+    print("phase 2e: grouped_drhs, drhs[e] = lhs[seg_e]^T @ g[seg_e] in f32 "
+          "(f32 FMA variant: rtol 1e-4 plus the f32 summation-order bound "
+          "M*2^-24*sum|a*b|; bf16 inputs: within that order bound; empty "
+          "experts exactly 0)")
+    dcases = mcases + [("M=200 K=16 N=72 E=3, segment ends off the tiles, "
+                        "expert 1 empty", 200, 16, 72, 3,
+                        torch.tensor([0, 127, 127, 190], dtype=torch.int32))]
+    for name, M, Kd, N, E_, offs in dcases:
+        lhs32 = torch.randn(M, Kd, generator=g)
+        g32 = torch.randn(M, N, generator=g)
+        o = offs.to(dev)
+        empty = [e for e in range(E_) if offs[e + 1] <= offs[e]]
+        for dt in (torch.float32, torch.bfloat16):
+            lhs, gd = lhs32.to(dt).to(dev), g32.to(dt).to(dev)
+            out = G.grouped_drhs(lhs, gd, o)
+            ref = G.grouped_drhs_plain(lhs, gd, o)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            errs["grouped_drhs"] = max(errs["grouped_drhs"], err.max().item())
+            order = M * 2.0 ** -24 * G.grouped_drhs_plain(
+                lhs.float().abs(), gd.float().abs(), o)
+            bound = order + (1e-4 * ref.abs() if dt == torch.float32 else 0)
+            ok = bool((err <= bound + 1e-7).all())
+            zero = all(bool((out[e] == 0).all()) for e in empty)
+            print(f"  {name} {dt}: max abs err {err.max().item():.3e} "
+                  f"(max err/bound {(err / (bound + 1e-7)).max().item():.3f}),"
+                  f" empty experts {empty} zero={zero}")
+            check(ok and zero, f"grouped_drhs {name} {dt} disagrees with its "
+                               f"plain version")
+        del out, ref, order, bound
+
+    print("phase 2f: scatter_add_rows (bitwise with <= 2 addends per row; "
+          "with c > 2 the f32 atomics and the plain index_add_ add in other "
+          "orders: within 2c*2^-24*sum|g|, plus 1 ulp of the rounding to "
+          "bf16)")
+    d = 2048
+    perm = torch.randperm(4096, generator=g).to(torch.int32)
+    inv = torch.full((5120,), -1, dtype=torch.int32)
+    inv[torch.randperm(5120, generator=g)[:4096]] = perm
+    slot = torch.randperm(5120, generator=g)[:4096].to(torch.int32)
+    slot[torch.rand(4096, generator=g) < 0.05] = -1
+    pair = torch.cat([torch.randperm(4096, generator=g),
+                      torch.randperm(4096, generator=g)]).to(torch.int32)
+    pair[torch.rand(8192, generator=g) < 0.1] = -1
+    scases = [("grouped dispatch VJP (4096 -> 4096, a permutation)", 4096,
+               perm, 4096),
+              ("sort dispatch VJP (5120 -> 4096, -1 for empty slots)", 5120,
+               inv, 4096),
+              ("sort combine VJP (4096 -> 5120, -1 for dropped)", 4096, slot,
+               5120),
+              ("top_k=2 pairs (8192 -> 4096)", 8192, pair, 4096),
+              ("many duplicates (4096 -> 50)", 4096,
+               torch.randint(-1, 50, (4096,), generator=g, dtype=torch.int32),
+               50),
+              ("d=1001 (odd width) pairs", 600,
+               torch.cat([torch.randperm(300, generator=g)] * 2).to(
+                   torch.int32), 300)]
+    for name, M, idx, n in scases:
+        width = 1001 if "1001" in name else d
+        g32 = torch.randn(M, width, generator=g)
+        i = idx.to(dev)
+        valid = idx[idx >= 0]
+        c = int(torch.bincount(valid.long(), minlength=n).max()) if len(
+            valid) else 0
+        for dt in (torch.bfloat16, torch.float32):
+            gd = g32.to(dt).to(dev)
+            out = L.scatter_add_rows(gd, i, n)
+            ref = L.scatter_add_rows_plain(gd, i, n)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            errs["scatter_add_rows"] = max(errs["scatter_add_rows"],
+                                           err.max().item())
+            if c <= 2:
+                ok, tol = torch.equal(out, ref), "bitwise"
+            else:
+                bound = 2 * c * 2.0 ** -24 * L.scatter_add_rows_plain(
+                    gd.float().abs(), i, n)
+                if dt == torch.bfloat16:
+                    bound = bound + bf16_ulp(torch, ref.float())
+                ok = bool((err <= bound).all())
+                tol = f"c={c}: within 2c*2^-24*sum|g| (+1 ulp in bf16)"
+            print(f"  {name} {dt}: max abs err {err.max().item():.3e} "
+                  f"({tol}: {ok})")
+            check(ok, f"scatter_add_rows {name} {dt} disagrees with its plain "
+                      f"version")
     return errs
 
 
@@ -241,16 +371,30 @@ def phase_kernels(torch, dev):
 # phase 3: serving at full width
 # ---------------------------------------------------------------------------
 
+COUNTERS = (("topk_gate", "topk_gate", "launches"),
+            ("gather_rows", "layout_transform", "launches"),
+            ("grouped_matmul", "grouped_ffn", "launches"),
+            ("grouped_matmul_t", "grouped_ffn", "dlhs_launches"),
+            ("grouped_drhs", "grouped_ffn", "drhs_launches"),
+            ("scatter_add_rows", "layout_transform", "scatter_launches"))
+
+
+def _kernel_module(name):
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
 def reset_counts():
-    from repro_torch.kernels import grouped_ffn, layout_transform, topk_gate
-    topk_gate.launches = layout_transform.launches = grouped_ffn.launches = 0
+    for _, mod, attr in COUNTERS:
+        setattr(_kernel_module(mod), attr, 0)
 
 
-def read_counts():
-    from repro_torch.kernels import grouped_ffn, layout_transform, topk_gate
-    return {"topk_gate": topk_gate.launches,
-            "gather_rows": layout_transform.launches,
-            "grouped_matmul": grouped_ffn.launches}
+def read_counts(names=None):
+    """Launch counters of the kernels ``names`` (default: the three the
+    serving path runs)."""
+    names = names or ("topk_gate", "gather_rows", "grouped_matmul")
+    return {k: getattr(_kernel_module(mod), attr)
+            for k, mod, attr in COUNTERS if k in names}
 
 
 def phase_serve(torch, smi):
@@ -428,6 +572,58 @@ def phase_timings(torch, dev, smi):
             lib if hasattr(torch, "_grouped_mm") else None, nbytes, flops,
             BF16_FLOPS, f"M={M} K=N={d} E={E} ({active} experts active)")
         del rhs
+
+    # the training backward at the phase-7 shapes (T = 8 x 512 tokens, k=1);
+    # segments of a multiple of 8 rows: torch._grouped_mm's grouped-K form
+    # (the drhs yardstick) needs each group's rows to span 16 bytes
+    M = T
+    assign = torch.randint(0, E, (M // 8,), generator=g)
+    counts = torch.bincount(assign, minlength=E) * 8
+    offs = torch.zeros(E + 1, dtype=torch.int32)
+    offs[1:] = torch.cumsum(counts, 0)
+    o = offs.to(dev)
+    active = int((counts > 0).sum())
+    gd = torch.randn(M, d, generator=g).to(torch.bfloat16).to(dev)
+    lhs = torch.randn(M, d, generator=g).to(torch.bfloat16).to(dev)
+    rhs = (torch.randn(E, d, d, generator=g) * d ** -0.5).to(
+        torch.bfloat16).to(dev)
+    flops = 2 * M * d * d
+    gmm = hasattr(torch, "_grouped_mm")
+    row("grouped_matmul_t", "src/repro_torch/csrc/grouped_ffn.cu",
+        "src/repro/kernels/grouped_ffn.py:206",
+        lambda: G.grouped_matmul_t(gd, rhs, o),
+        lambda: G.grouped_matmul_t_plain(gd, rhs, o),
+        (lambda: torch._grouped_mm(gd, rhs.transpose(-2, -1), offs=o[1:]))
+        if gmm else None,
+        M * d * 2 + active * d * d * 2 + (E + 1) * 4 + M * d * 2, flops,
+        BF16_FLOPS, f"dlhs M={M} K=N={d} E={E} ({active} experts active)")
+    lhs_t = lhs.t().contiguous()     # the library call's (K, M) layout
+    row("grouped_drhs", "src/repro_torch/csrc/grouped_ffn.cu",
+        "src/repro/kernels/grouped_ffn.py:120",
+        lambda: G.grouped_drhs(lhs, gd, o),
+        lambda: G.grouped_drhs_plain(lhs, gd, o),
+        (lambda: torch._grouped_mm(lhs_t, gd, offs=o[1:])) if gmm else None,
+        2 * M * d * 2 + (E + 1) * 4 + E * d * d * 4, flops, BF16_FLOPS,
+        f"drhs M={M} K=N={d} E={E} ({active} experts active) -> f32")
+    del rhs, lhs_t
+    zeros = torch.zeros(M, d, dtype=torch.bfloat16, device=dev)
+    for src_rows, n, what in ((M, M, "grouped dispatch VJP"),
+                              (5120, M, "sort dispatch VJP")):
+        gs = torch.randn(src_rows, d, generator=g).to(torch.bfloat16).to(dev)
+        idx = torch.full((src_rows,), -1, dtype=torch.int32)
+        idx[torch.randperm(src_rows, generator=g)[:n]] = torch.randperm(
+            n, generator=g).to(torch.int32)
+        idx = idx.to(dev)
+        row("scatter_add_rows", "src/repro_torch/csrc/layout_transform.cu",
+            "src/repro/kernels/layout_transform.py:104",
+            lambda gs=gs, idx=idx, n=n: L.scatter_add_rows(gs, idx, n),
+            lambda gs=gs, idx=idx, n=n: L.scatter_add_rows_plain(gs, idx, n),
+            # index_add_ cannot skip -1 rows: a yardstick only for the
+            # permutation
+            (lambda gs=gs, idx=idx: torch.index_add(zeros, 0, idx, gs))
+            if src_rows == n else None,
+            src_rows * d * 2 + src_rows * 4 + n * d * 2, 0, BF16_FLOPS,
+            f"{what} {src_rows} -> {n} rows, d={d} bf16")
     return rows
 
 
@@ -538,6 +734,185 @@ def phase_profile(torch, smi):
     return out
 
 
+def phase_profile_train(torch, smi):
+    """One profiled train step per dispatch mode at the phase-7 shapes
+    (after a warm-up step): wall time (host clock to a synchronise), the
+    device time of all kernels, the device's idle share, the top kernels,
+    and the host's waits for the device inside one more step (reported;
+    the aim is none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.serving.engine import serve_config
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    print("phase 6b: train step profile (torch.profiler; device ms = sum of "
+          "kernel times, idle = 1 - device/wall)")
+    out = {}
+    for mode in ("grouped", "sort"):
+        cfg = serve_config(configs.get_config(ARCH), dispatch=mode)
+        tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=1,
+                           total_steps=10)
+        step = make_train_step(cfg, tcfg)
+        state = init_train_state(cfg, tcfg, device="cuda")
+        ds = SyntheticLM(cfg, B, S, seed=0, device="cuda")
+        state, _ = step(state, ds.next_batch(0))
+        batch = ds.next_batch(1)
+        waits = host_waits(torch, lambda: step(state, batch))
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        dev_ms = _device_ms(prof, DeviceType)
+        print(f"  [{smi}] {mode} train step: wall {wall:.3f} ms, device "
+              f"{dev_ms:.3f} ms, idle {1 - dev_ms / wall:.3f}, loss "
+              f"{float(m['loss']):.4f}")
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        for e in kernels[:10]:
+            print(f"      {e.self_device_time_total / 1e3:8.3f} ms "
+                  f"x{e.count:<4d} {e.key[:90]}")
+        host = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU]
+        launches = sum(e.count for e in host if e.key == "cudaLaunchKernel")
+        print(f"      host: {sum(e.count for e in host)} profiled calls, "
+              f"{launches} cudaLaunchKernel; waits found by the sync debug "
+              f"mode in one more step: {len(waits)} {sorted(set(waits))}")
+        out[f"{mode} train step"] = dict(wall_ms=wall, device_ms=dev_ms,
+                                         host_waits=len(waits),
+                                         wait_sites=sorted(set(waits)))
+        del state, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(batch=8, seq=512, warmup=2, timed=8)
+# launches per train step (2 layers, relu, k=1), forward + backward
+TRAIN_PER_STEP = {
+    "grouped": {"topk_gate": 2, "gather_rows": 2, "grouped_matmul": 4,
+                "grouped_matmul_t": 4, "grouped_drhs": 4,
+                "scatter_add_rows": 2},
+    "sort": {"topk_gate": 2, "gather_rows": 4, "grouped_matmul": 0,
+             "grouped_matmul_t": 0, "grouped_drhs": 0,
+             "scatter_add_rows": 4}}
+
+
+def phase_train(torch, smi):
+    from repro_torch.launch import train
+    steps = TRAIN["warmup"] + TRAIN["timed"]
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    names = [k for k, _, _ in COUNTERS]
+    totals = dict.fromkeys(names, 0)
+    results = {}
+    print(f"phase 7: training at full width, f32 masters + bf16 compute, "
+          f"batch {B} x seq {S}, {TRAIN['warmup']} warm-up + "
+          f"{TRAIN['timed']} timed AdamW steps")
+    for mode in ("grouped", "sort"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        reset_counts()
+        state, history = train.run(ARCH, steps=steps, batch=B, seq=S,
+                                   smoke=False, seed=0, log_every=1,
+                                   dispatch=mode, device="cuda", stats=stats)
+        counts = read_counts(names)
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: v * steps for k, v in TRAIN_PER_STEP[mode].items()}
+        timed = stats["step_s"][TRAIN["warmup"]:]
+        med = statistics.median(timed)
+        losses = [h["loss"] for h in history]
+        print(f"  [{smi}] {mode}: median step {1e3 * med:.3f} ms (of "
+              f"{len(timed)} timed; min {1e3 * min(timed):.3f}, max "
+              f"{1e3 * max(timed):.3f}), {B * S / med:.1f} tokens/s, peak "
+              f"memory {peak / 2 ** 30:.3f} GiB, launches {counts}")
+        print(f"    loss trajectory {[round(v, 4) for v in losses]}")
+        for k in counts:
+            totals[k] += counts[k]
+        check(counts == want, f"{mode}: training launch counts {counts} != "
+                              f"{want} ({steps} steps)")
+        bad = [(h["step"], k) for h in history for k, v in h.items()
+               if not math.isfinite(v)]
+        check(not bad, f"{mode}: non-finite metrics {bad}")
+        check(all(h["skipped"] == 0 for h in history),
+              f"{mode}: a step was skipped")
+        results[mode] = dict(step_ms_median=1e3 * med,
+                             step_ms=[1e3 * t for t in stats["step_s"]],
+                             tokens_per_s=B * S / med,
+                             peak_gib=peak / 2 ** 30, losses=losses)
+        del state
+    return totals, results
+
+
+# ---------------------------------------------------------------------------
+# phase 8: card against CPU, one f32 train step's gradients at full width
+# ---------------------------------------------------------------------------
+
+def phase_train_card_vs_cpu(torch):
+    from repro_torch import configs, tree
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import clip_by_global_norm
+    from repro_torch.serving.engine import serve_config
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = configs.get_config(ARCH).replace(dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator().manual_seed(11), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 65),
+                         generator=torch.Generator().manual_seed(12)).to(
+        torch.int32)
+    print(f"phase 8: f32 train-step gradients, card against CPU, batch 1, "
+          f"seq 64 (weights in {time.perf_counter() - t0:.1f} s); tolerances:"
+          f" loss and grad norm rtol 1e-4, every leaf max|dgrad|/max|grad| "
+          f"<= 1e-3 (f32 sums of up to 50304 terms in other orders)")
+    want = {"grouped": {"grouped_matmul_t": 4, "grouped_drhs": 4,
+                        "scatter_add_rows": 2},
+            "sort": {"grouped_matmul_t": 0, "grouped_drhs": 0,
+                     "scatter_add_rows": 4}}
+    out = {}
+    for mode in ("grouped", "sort"):
+        c = serve_config(cfg, dispatch=mode)
+        res = []
+        for dev in ("cpu", "cuda"):
+            masters = tree.map_(lambda p: p.to(dev, copy=True)
+                                .requires_grad_(True), params)
+            batch = {"inputs": toks[:, :-1].to(dev),
+                     "targets": toks[:, 1:].to(dev),
+                     "loss_mask": torch.ones((1, 64), device=dev)}
+            reset_counts()
+            loss, _, _, grads = loss_and_grads(masters, batch, c)
+            _, gn = clip_by_global_norm(grads, 1.0)
+            res.append((loss.item(), gn.item(),
+                        [g.cpu() for g in tree.leaves(grads)]))
+            del masters, grads
+        counts = read_counts(list(want[mode]))
+        check(counts == want[mode],
+              f"{mode}: card backward launches {counts} != {want[mode]}")
+        (lc, nc, gc), (lg, ng, gg) = res
+        worst = max((a - b).abs().max().item() / max(
+            a.abs().max().item(), 1e-30) for a, b in zip(gc, gg))
+        rl, rn = abs(lc - lg) / abs(lc), abs(nc - ng) / abs(nc)
+        print(f"  {mode}: loss cpu {lc:.6f} card {lg:.6f} (rel {rl:.2e}); "
+              f"grad norm cpu {nc:.6f} card {ng:.6f} (rel {rn:.2e}); worst "
+              f"leaf max|dgrad|/max|grad| {worst:.2e} over "
+              f"{len(gc)} leaves; card launches {counts}")
+        check(rl <= 1e-4 and rn <= 1e-4 and worst <= 1e-3,
+              f"{mode}: card and CPU gradients disagree")
+        out[mode] = dict(loss_rel=rl, grad_norm_rel=rn, worst_leaf_rel=worst)
+    del params
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -568,21 +943,27 @@ def main() -> int:
             print(f"    {line.strip()}")
 
     errs = phase_kernels(torch, dev)
-    counts, serving = phase_serve(torch, smi)
+    serve_counts, serving = phase_serve(torch, smi)
     phase_card_vs_cpu(torch)
+    counts, training = phase_train(torch, smi)
+    grads = phase_train_card_vs_cpu(torch)
     rows = phase_timings(torch, dev, smi)
     profile = phase_profile(torch, smi)
+    profile.update(phase_profile_train(torch, smi))
 
+    # launches: the counts of this slice's main path, the two phase-7
+    # training runs (all six kernels run there)
     kernels = []
     for r in rows:
         if any(k["name"] == r["name"] for k in kernels):
-            continue          # the first row of each kernel is the prefill shape
+            continue          # the first row of each kernel is the main shape
         kernels.append({k: r[k] for k in (
             "name", "route", "source", "replaces", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")}
             | {"launches": counts[r["name"]], "max_abs_err": errs[r["name"]]})
-    print(json.dumps({"serving": serving, "timings": rows,
-                      "profile": profile}))
+    print(json.dumps({"serving": serving, "serving_launches": serve_counts,
+                      "training": training, "train_grads_card_vs_cpu": grads,
+                      "timings": rows, "profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Parameters of the JAX package → the port's parameter tree.
+"""Parameters of the JAX package ↔ the port's parameter tree.
 
 The JAX model (``repro.models.transformer.init_model``) keeps its blocks
 as a tuple over the block pattern whose leaves are stacked over
@@ -6,7 +6,10 @@ super-blocks ``(nsb, ...)``.  :func:`params_from_numpy` takes that tree as
 nested dicts/tuples of numpy arrays (``jax.tree.map(np.asarray, params)``)
 and returns the port's tree — one dict per layer, layer
 ``s·period + j`` from super-block ``s`` and pattern slot ``j`` — as f32
-CPU tensors, ready for ``Transformer(cfg, params=...)``.
+CPU tensors, ready for ``Transformer(cfg, params=...)`` or a trainer's
+masters.  :func:`params_to_numpy` is its reverse: the port's tree (e.g. a
+trainer's parameters after some steps) as the reference's stacked tree of
+f32 numpy arrays.
 """
 from __future__ import annotations
 
@@ -99,4 +102,41 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig
            "embed": t(("embed",))}
     if not cfg.tie_embeddings:
         out["lm_head"] = t(("lm_head",))
+    return out
+
+
+def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
+                    ) -> Dict[str, Any]:
+    """The port's per-layer tree → the JAX package's tree (blocks a tuple
+    over the block pattern, leaves stacked over super-blocks) of f32 numpy
+    arrays.  Raises ``ValueError`` when the layer count does not match."""
+    _check_supported(cfg)
+    period = len(cfg.block_pattern)
+    if len(params["blocks"]) != cfg.num_layers:
+        raise ValueError(f"params_to_numpy({cfg.name}): "
+                         f"{len(params['blocks'])} layers, config has "
+                         f"{cfg.num_layers}")
+
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    def stack(j, *path):
+        rows = []
+        for s in range(cfg.num_super_blocks):
+            leaf = params["blocks"][s * period + j]
+            for k in path:
+                leaf = leaf[k]
+            rows.append(a(leaf))
+        return np.stack(rows)
+
+    blocks = []
+    for j in range(period):
+        layer = params["blocks"][j]
+        blocks.append({k: ({kk: stack(j, k, kk) for kk in v}
+                           if isinstance(v, dict) else stack(j, k))
+                       for k, v in layer.items()})
+    out = {"blocks": tuple(blocks), "final_norm": a(params["final_norm"]),
+           "embed": a(params["embed"])}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = a(params["lm_head"])
     return out

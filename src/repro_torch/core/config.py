@@ -2,8 +2,8 @@
 ``repro/core/config.py`` (the port imports nothing from the JAX package).
 
 The fields and ``ValueError``s match the reference so a preset reads the
-same in both packages.  Only what the ported block kinds need is here:
-the SSM/RWKV configs arrive with their model slices.
+same in both packages.  Only what the ported block kinds and the trainer
+need is here: the SSM/RWKV configs arrive with their model slices.
 """
 from __future__ import annotations
 
@@ -168,3 +168,48 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1              # gradient accumulation
+    remat: str = "none"                # none | block | full
+    optimizer_state_dtype: str = "float32"   # "bfloat16" for the giant configs
+    schedule: str = "cosine"
+    seed: int = 0
+    # -- fault tolerance (training/train_step.py skip-step guard) ----------
+    # Loss scaling for bf16 stability: a float is a static scale (1.0 = off);
+    # "dynamic" starts at 2^15, halves on every non-finite step, and doubles
+    # after loss_scale_growth_interval consecutive finite steps (capped).
+    loss_scale: object = 1.0           # float | "dynamic"
+    loss_scale_growth_interval: int = 200
+    # Non-finite steps are skipped (params/opt state untouched); the training
+    # loop fails fast once this many CONSECUTIVE steps have been skipped.
+    max_skipped_steps: int = 25
+
+    def __post_init__(self):
+        if self.loss_scale != "dynamic":
+            try:
+                ok = float(self.loss_scale) > 0
+            except (TypeError, ValueError):
+                ok = False
+            if not ok:
+                raise ValueError(
+                    f"TrainConfig.loss_scale must be a positive float or "
+                    f"'dynamic', got {self.loss_scale!r}")
+        if self.loss_scale_growth_interval < 1:
+            raise ValueError(
+                f"TrainConfig.loss_scale_growth_interval must be >= 1, got "
+                f"{self.loss_scale_growth_interval}")
+        if self.max_skipped_steps < 1:
+            raise ValueError(
+                f"TrainConfig.max_skipped_steps must be >= 1, got "
+                f"{self.max_skipped_steps}")

@@ -40,6 +40,11 @@ SIGNATURES = {
     "gather_rows": (_P, _P, _P, _LL, _LL, _LL, _P),
     "grouped_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "grouped_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "grouped_matmul_t_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "grouped_matmul_t_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "grouped_drhs_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "grouped_drhs_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "scatter_add_rows": (_P, _P, _P, _P, _LL, _LL, _LL, _I, _P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -143,12 +148,13 @@ def stream(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def reject_grad(kernel: str, *tensors: torch.Tensor) -> None:
-    """The kernels have no backward in this slice: refuse a call that
-    autograd would differentiate, rather than return a wrong gradient."""
+    """For a kernel with no backward (the gate's top-k selection, whose
+    gradient the reference stops): refuse a call that autograd would
+    differentiate, rather than return a wrong gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{kernel} has no backward yet: the backward kernels come with "
-            f"the training slice (ROADMAP.md)")
+            f"{kernel} has no backward: the reference stops the gradient "
+            f"at its input (pass a detached tensor)")
 
 
 def dispatch_device(kernel: str, t: torch.Tensor) -> bool:

@@ -1,16 +1,22 @@
 """Grouped (ragged) expert matmuls for the dropless dispatch mode:
-``y[offs[e]:offs[e+1]] = x[offs[e]:offs[e+1]] @ w[e]``.
+``y[offs[e]:offs[e+1]] = x[offs[e]:offs[e+1]] @ w[e]``, and its backward.
 
-Replaces the TPU kernel ``repro/kernels/grouped_ffn.py:
-_grouped_matmul_kernel`` in its forward form (``transpose_rhs=False``;
-the dlhs and drhs backward kernels come with the training slice) with the
-CUDA kernel ``csrc/grouped_ffn.cu``.  On the H100 the prefill product
-(M=4096, K=N=2048, E=16) is bound by the bytes of the expert weights;
-decode reads at most one expert's weights per routed token.  Design: a
-64x64 output tile per block, masked per-expert K loops accumulating in
-f32 (bf16 on the tensor cores through WMMA, f32 with FMAs); see the
-source.  The reference's ``grouped_block_m`` is a TPU tiling knob — the
-port resolves it for config parity, but this kernel picks its own tile.
+Replaces the TPU kernels ``repro/kernels/grouped_ffn.py:
+_grouped_matmul_kernel`` in both its forms (the forward, and
+``transpose_rhs=True`` for dlhs) and ``_grouped_drhs_kernel`` with the
+CUDA kernels of ``csrc/grouped_ffn.cu``.  On the H100 the prefill and
+training products (M=4096, K=N=2048, E=16) are bound by bytes: the
+forward and dlhs by the 128 MiB of expert weights, drhs by its 256 MiB
+f32 output; decode reads at most one expert's weights per routed token.
+Design: a 64x64 output tile per block, masked per-expert loops
+accumulating in f32 (bf16 on the tensor cores through WMMA, f32 with
+FMAs); dlhs reads the weights transposed tile by tile (no transposed copy
+in device memory); drhs gives each block one tile of one expert's
+gradient and walks that expert's rows; see the source.
+``grouped_matmul`` is differentiable through dlhs and drhs, as the
+reference's ``custom_vjp`` is.  The reference's ``grouped_block_m`` is a
+TPU tiling knob — the port resolves it for config parity, but these
+kernels pick their own tile.
 """
 from __future__ import annotations
 
@@ -21,7 +27,17 @@ import torch
 from repro_torch.kernels import build
 
 MAX_EXPERTS = 1024     # GMM_MAX_E in csrc/grouped_ffn.cu
-launches = 0           # kernel launches since the caller last reset it
+launches = 0           # forward kernel launches since the caller last reset
+dlhs_launches = 0      # transposed-rhs (dlhs) kernel launches, likewise
+drhs_launches = 0      # drhs kernel launches, likewise
+
+
+def _segments(offsets: torch.Tensor, M: int):
+    offs = offsets.tolist()
+    for e in range(len(offs) - 1):
+        lo, hi = max(offs[e], 0), min(offs[e + 1], M)
+        if hi > lo:
+            yield e, lo, hi
 
 
 def grouped_matmul_plain(lhs: torch.Tensor, rhs: torch.Tensor,
@@ -31,51 +47,154 @@ def grouped_matmul_plain(lhs: torch.Tensor, rhs: torch.Tensor,
     M = lhs.shape[0]
     out = torch.zeros((M, rhs.shape[2]), dtype=torch.float32,
                       device=lhs.device)
-    offs = offsets.tolist()
-    for e in range(rhs.shape[0]):
-        lo, hi = max(offs[e], 0), min(offs[e + 1], M)
-        if hi > lo:
-            out[lo:hi] = lhs[lo:hi].float() @ rhs[e].float()
+    for e, lo, hi in _segments(offsets, M):
+        out[lo:hi] = lhs[lo:hi].float() @ rhs[e].float()
     return out.to(lhs.dtype)
+
+
+def grouped_matmul_t_plain(g: torch.Tensor, rhs: torch.Tensor,
+                           offsets: torch.Tensor) -> torch.Tensor:
+    """Plain dlhs: ``out[seg_e] = g[seg_e] @ rhs[e]ᵀ`` per segment in f32,
+    rounded once to ``g.dtype``; rows past ``offsets[E]`` are zero."""
+    M = g.shape[0]
+    out = torch.zeros((M, rhs.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    for e, lo, hi in _segments(offsets, M):
+        out[lo:hi] = g[lo:hi].float() @ rhs[e].float().T
+    return out.to(g.dtype)
+
+
+def grouped_drhs_plain(lhs: torch.Tensor, g: torch.Tensor,
+                       offsets: torch.Tensor) -> torch.Tensor:
+    """Plain drhs: ``out[e] = lhs[seg_e]ᵀ @ g[seg_e]`` in f32, (E, K, N);
+    an empty segment gives zeros, rows past ``offsets[E]`` add nothing."""
+    E = offsets.shape[0] - 1
+    out = torch.zeros((E, lhs.shape[1], g.shape[1]), dtype=torch.float32,
+                      device=lhs.device)
+    for e, lo, hi in _segments(offsets, lhs.shape[0]):
+        out[e] = lhs[lo:hi].float().T @ g[lo:hi].float()
+    return out
+
+
+def _check(name: str, lhs: torch.Tensor, rhs: torch.Tensor,
+           offsets: torch.Tensor, transpose: bool = False) -> None:
+    """lhs (M, K) against rhs (E, K, N) — (M, N) with ``transpose``."""
+    if (lhs.dim() != 2 or rhs.dim() != 3
+            or lhs.shape[1] != rhs.shape[2 if transpose else 1]):
+        raise ValueError(f"{name}: operand shapes {tuple(lhs.shape)} and "
+                         f"{tuple(rhs.shape)} do not match")
+    E = rhs.shape[0]
+    if offsets.shape != (E + 1,) or offsets.dtype != torch.int32:
+        raise ValueError(f"{name}: offsets must be ({E + 1},) int32, "
+                         f"got {tuple(offsets.shape)} {offsets.dtype}")
+    if lhs.dtype != rhs.dtype or lhs.dtype not in (torch.bfloat16,
+                                                   torch.float32):
+        raise ValueError(f"{name}: operands must share bfloat16 or "
+                         f"float32, got {lhs.dtype} and {rhs.dtype}")
+    if not lhs.device == rhs.device == offsets.device:
+        raise ValueError(f"{name}: operands on different devices")
+
+
+def _launch(name: str, fn_bf16: str, fn_f32: str, a: torch.Tensor,
+            b: torch.Tensor, offsets: torch.Tensor, out: torch.Tensor,
+            M: int, K: int, N: int, E: int) -> None:
+    if not (a.is_contiguous() and b.is_contiguous()
+            and offsets.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if not 1 <= E <= MAX_EXPERTS:
+        raise ValueError(f"{name}: E={E} outside [1, {MAX_EXPERTS}]")
+    lib = build.load()
+    fn = getattr(lib, fn_bf16 if a.dtype == torch.bfloat16 else fn_f32)
+    rc = fn(build.ptr(a), build.ptr(b), build.ptr(offsets), build.ptr(out),
+            M, K, N, E, build.stream(a))
+    build.check(rc, name)
+
+
+def _grouped_matmul(lhs, rhs, offsets):
+    global launches
+    if not build.dispatch_device("grouped_matmul", lhs):
+        return grouped_matmul_plain(lhs, rhs, offsets)
+    (M, K), (E, _, N) = lhs.shape, rhs.shape
+    out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
+    _launch("grouped_matmul", "grouped_matmul_bf16", "grouped_matmul_f32",
+            lhs, rhs, offsets, out, M, K, N, E)
+    launches += 1
+    return out
+
+
+def grouped_matmul_t(g: torch.Tensor, rhs: torch.Tensor,
+                     offsets: torch.Tensor) -> torch.Tensor:
+    """dlhs (M, K) with dlhs[seg_e] = g[seg_e] @ rhs[e]ᵀ; g (M, N), rhs
+    (E, K, N) of one dtype (bfloat16 or float32), offsets (E+1,) int32."""
+    global dlhs_launches
+    _check("grouped_matmul_t", g, rhs, offsets, transpose=True)
+    if not build.dispatch_device("grouped_matmul_t", g):
+        return grouped_matmul_t_plain(g, rhs, offsets)
+    M, (E, K, N) = g.shape[0], rhs.shape
+    out = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    _launch("grouped_matmul_t", "grouped_matmul_t_bf16",
+            "grouped_matmul_t_f32", g, rhs, offsets, out, M, K, N, E)
+    dlhs_launches += 1
+    return out
+
+
+def grouped_drhs(lhs: torch.Tensor, g: torch.Tensor,
+                 offsets: torch.Tensor) -> torch.Tensor:
+    """drhs (E, K, N) f32 with drhs[e] = lhs[seg_e]ᵀ @ g[seg_e]; lhs (M, K)
+    and g (M, N) of one dtype (bfloat16 or float32), offsets (E+1,)
+    int32."""
+    global drhs_launches
+    if (lhs.dim() != 2 or g.dim() != 2 or lhs.shape[0] != g.shape[0]
+            or offsets.dim() != 1 or offsets.dtype != torch.int32):
+        raise ValueError(f"grouped_drhs: need lhs (M, K), g (M, N) and "
+                         f"offsets (E+1,) int32, got {tuple(lhs.shape)}, "
+                         f"{tuple(g.shape)}, {tuple(offsets.shape)} "
+                         f"{offsets.dtype}")
+    if lhs.dtype != g.dtype or lhs.dtype not in (torch.bfloat16,
+                                                 torch.float32):
+        raise ValueError(f"grouped_drhs: lhs and g must share bfloat16 or "
+                         f"float32, got {lhs.dtype} and {g.dtype}")
+    if not lhs.device == g.device == offsets.device:
+        raise ValueError("grouped_drhs: operands on different devices")
+    if not build.dispatch_device("grouped_drhs", lhs):
+        return grouped_drhs_plain(lhs, g, offsets)
+    (M, K), N, E = lhs.shape, g.shape[1], offsets.shape[0] - 1
+    out = torch.empty((E, K, N), dtype=torch.float32, device=lhs.device)
+    _launch("grouped_drhs", "grouped_drhs_bf16", "grouped_drhs_f32", lhs, g,
+            offsets, out, M, K, N, E)
+    drhs_launches += 1
+    return out
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """``grouped_matmul`` with the reference's ``_grouped_bwd``: ``g`` cast
+    to ``lhs.dtype``; dlhs (the transposed-rhs kernel) in ``lhs.dtype``;
+    drhs computed in f32 and returned in ``rhs.dtype``."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, offsets):
+        ctx.save_for_backward(lhs, rhs, offsets)
+        return _grouped_matmul(lhs, rhs, offsets)
+
+    @staticmethod
+    def backward(ctx, g):
+        lhs, rhs, offsets = ctx.saved_tensors
+        g = g.to(lhs.dtype).contiguous()
+        dlhs = drhs = None
+        if ctx.needs_input_grad[0]:
+            dlhs = grouped_matmul_t(g, rhs, offsets)
+        if ctx.needs_input_grad[1]:
+            drhs = grouped_drhs(lhs, g, offsets).to(rhs.dtype)
+        return dlhs, drhs, None
 
 
 def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
                    offsets: torch.Tensor) -> torch.Tensor:
     """y (M, N) with y[seg_e] = lhs[seg_e] @ rhs[e]; lhs (M, K), rhs
-    (E, K, N) of one dtype (bfloat16 or float32), offsets (E+1,) int32."""
-    global launches
-    if lhs.dim() != 2 or rhs.dim() != 3 or lhs.shape[1] != rhs.shape[1]:
-        raise ValueError(f"grouped_matmul: need lhs (M, K) and rhs (E, K, N),"
-                         f" got {tuple(lhs.shape)} and {tuple(rhs.shape)}")
-    E = rhs.shape[0]
-    if offsets.shape != (E + 1,) or offsets.dtype != torch.int32:
-        raise ValueError(f"grouped_matmul: offsets must be ({E + 1},) int32, "
-                         f"got {tuple(offsets.shape)} {offsets.dtype}")
-    if lhs.dtype != rhs.dtype or lhs.dtype not in (torch.bfloat16,
-                                                   torch.float32):
-        raise ValueError(f"grouped_matmul: lhs and rhs must share bfloat16 or"
-                         f" float32, got {lhs.dtype} and {rhs.dtype}")
-    if not lhs.device == rhs.device == offsets.device:
-        raise ValueError("grouped_matmul: operands on different devices")
-    build.reject_grad("grouped_matmul", lhs, rhs)
-    if not build.dispatch_device("grouped_matmul", lhs):
-        return grouped_matmul_plain(lhs, rhs, offsets)
-    if not (lhs.is_contiguous() and rhs.is_contiguous()
-            and offsets.is_contiguous()):
-        raise ValueError("grouped_matmul: operands must be contiguous")
-    if not 1 <= E <= MAX_EXPERTS:
-        raise ValueError(f"grouped_matmul: E={E} outside [1, {MAX_EXPERTS}]")
-    M, K = lhs.shape
-    N = rhs.shape[2]
-    out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
-    lib = build.load()
-    fn = (lib.grouped_matmul_bf16 if lhs.dtype == torch.bfloat16
-          else lib.grouped_matmul_f32)
-    rc = fn(build.ptr(lhs), build.ptr(rhs), build.ptr(offsets),
-            build.ptr(out), M, K, N, E, build.stream(lhs))
-    build.check(rc, "grouped_matmul")
-    launches += 1
-    return out
+    (E, K, N) of one dtype (bfloat16 or float32), offsets (E+1,) int32.
+    Differentiable in ``lhs`` and ``rhs``."""
+    _check("grouped_matmul", lhs, rhs, offsets)
+    return _GroupedMatmul.apply(lhs, rhs, offsets)
 
 
 def grouped_ffn(params: Dict[str, torch.Tensor], xs: torch.Tensor,

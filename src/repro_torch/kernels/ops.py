@@ -2,6 +2,8 @@
 
 Each wrapper launches the CUDA kernel for a CUDA tensor and the kernel's
 plain PyTorch version for a CPU tensor (``kernels/build.dispatch_device``).
+``layout_dispatch`` and ``layout_combine`` differentiate through
+``gather_rows``, whose backward is the scatter-add kernel.
 """
 from __future__ import annotations
 
@@ -16,11 +18,12 @@ gather_rows = layout_transform.gather_rows
 
 def topk_softmax_weights(logits: torch.Tensor, k: int):
     """Top-k indices + their softmax(logits) probabilities + full probs,
-    all derived from the fused kernel's single pass (its ``rowmax`` is the
-    stable exp shift; Σexp is recomputed beside it, as the reference does
-    so that the router stays differentiable)."""
+    all derived from the fused kernel's single pass.  The kernel sees the
+    logits detached (the reference's ``stop_gradient``): its ``rowmax`` is
+    a constant exp shift, softmax is shift-invariant, and Σexp is
+    recomputed beside it, so the router trains through ``u/Σu`` alone."""
     logits = logits.float()
-    _, idx, rowmax, _ = topk_gate.fused_topk_gate(logits, k)
+    _, idx, rowmax, _ = topk_gate.fused_topk_gate(logits.detach(), k)
     u = torch.exp(logits - rowmax)
     probs = u / u.sum(dim=-1, keepdim=True)
     weights = probs.gather(-1, idx.long())

@@ -5,8 +5,10 @@
 Parameters are a tree of f32 tensors in the reference's layout, with the
 ``(nsb, ...)`` stacked block leaves split per layer
 (:func:`init_params`, or ``convert.params_from_numpy`` from the JAX
-package's tree).  The reference keeps f32 masters and casts them at every
-use; :class:`Transformer` keeps one copy in the compute dtype instead,
+package's tree).  :func:`forward` and :func:`logits_from_hidden` run over
+that tree as the reference's do: each weight is cast to ``cfg.dtype`` at
+its use, so a trainer's gradients land in f32 on the masters.  For
+serving, :class:`Transformer` keeps one copy in the compute dtype instead,
 made when the weights are loaded — the same values, without re-reading
 2 GB of f32 weights at every decode step.  The router and the norm scales
 stay f32, as they are used.
@@ -72,8 +74,61 @@ def _leaf(name: str, t: torch.Tensor, dtype, device) -> nn.Parameter:
     return nn.Parameter(t.to(device=device, dtype=dt), requires_grad=False)
 
 
+def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
+                  positions=None, cache=None, decode: bool = False):
+    """One ``moe`` block over its parameter dict ``p``: attention + the
+    MoE FFN, pre-norm residuals.  Returns (x, cache, aux)."""
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if decode:
+        a, cache = attn_lib.decode_attention(p["attn"], h, cache,
+                                             cfg.attention)
+    else:
+        a, kv = attn_lib.full_attention(p["attn"], h, cfg.attention,
+                                        positions=positions,
+                                        causal=not cfg.encoder_only)
+        if cache is not None:
+            cache = attn_lib.fill_cache(cache, kv)
+    x = x + a
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, aux, _ = moe_lib.moe_apply(cfg.moe, p["moe"], h,
+                                  num_experts=cfg.moe.num_experts,
+                                  act=cfg.act)
+    return x + y, cache, aux
+
+
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
+            *, caches=None) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+    """Full-sequence pass (training, prefill) over a parameter tree — the
+    f32 masters, or a :class:`Transformer`'s compute-dtype copy — with
+    every weight cast to ``cfg.dtype`` at its use, as the reference's
+    ``forward``.  tokens (B, S) → (hidden (B, S, d), aux, caches);
+    ``caches`` (one per layer) are filled in place."""
+    _check_supported(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    x = layers.embed(params["embed"], tokens, dtype, cfg.scale_embeddings)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, p in enumerate(params["blocks"]):
+        x, _, a = block_forward(p, x, cfg, positions=positions,
+                                cache=None if caches is None else caches[i])
+        aux = aux + a
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, aux, caches
+
+
+def logits_from_hidden(params: Dict[str, Any], cfg: ModelConfig,
+                       h: torch.Tensor) -> torch.Tensor:
+    """The unembedding in ``h``'s dtype (the head cast at its use)."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = h @ w.to(h.dtype)
+    if cfg.final_softcap:
+        logits = layers.softcap(logits.float(), cfg.final_softcap)
+    return logits
+
+
 class Block(nn.Module):
-    """One ``moe`` block: attention + the MoE FFN, pre-norm residuals."""
+    """One ``moe`` block's serving weights (run by :func:`block_forward`)."""
 
     def __init__(self, p: Dict[str, Any], dtype, device):
         super().__init__()
@@ -84,25 +139,9 @@ class Block(nn.Module):
         self.moe = nn.ParameterDict(
             {k: _leaf(k, v, dtype, device) for k, v in p["moe"].items()})
 
-    def forward(self, x, cfg: ModelConfig, *, positions=None, cache=None,
-                decode: bool = False):
-        h = layers.rms_norm(x, self.ln1, cfg.norm_eps)
-        attn = dict(self.attn)
-        if decode:
-            a, cache = attn_lib.decode_attention(attn, h, cache,
-                                                 cfg.attention)
-        else:
-            a, kv = attn_lib.full_attention(attn, h, cfg.attention,
-                                            positions=positions,
-                                            causal=not cfg.encoder_only)
-            if cache is not None:
-                cache = attn_lib.fill_cache(cache, kv)
-        x = x + a
-        h = layers.rms_norm(x, self.ln2, cfg.norm_eps)
-        y, aux, _ = moe_lib.moe_apply(cfg.moe, dict(self.moe), h,
-                                      num_experts=cfg.moe.num_experts,
-                                      act=cfg.act)
-        return x + y, cache, aux
+    def tree(self) -> Dict[str, Any]:
+        return {"ln1": self.ln1, "ln2": self.ln2, "attn": dict(self.attn),
+                "moe": dict(self.moe)}
 
 
 class Transformer(nn.Module):
@@ -145,24 +184,13 @@ class Transformer(nn.Module):
         """Full-sequence pass (prefill).  tokens (B, S) → (hidden (B,S,d),
         aux_loss, caches); ``caches`` from :meth:`init_caches` are filled in
         place.  ``cfg`` overrides the served config (e.g. its dispatch)."""
-        cfg = cfg or self.cfg
-        x = layers.embed(self.embed, tokens, self.dtype, cfg.scale_embeddings)
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=x.device)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, blk in enumerate(self.blocks):
-            x, _, a = blk(x, cfg, positions=positions,
-                          cache=None if caches is None else caches[i])
-            aux = aux + a
-        x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
-        return x, aux, caches
+        tree = {"blocks": [blk.tree() for blk in self.blocks],
+                "final_norm": self.final_norm, "embed": self.embed}
+        return forward(tree, tokens, cfg or self.cfg, caches=caches)
 
     def logits_from_hidden(self, h: torch.Tensor) -> torch.Tensor:
-        w = self.embed.T if self.lm_head is None else self.lm_head
-        logits = h @ w.to(h.dtype)
-        if self.cfg.final_softcap:
-            logits = layers.softcap(logits.float(), self.cfg.final_softcap)
-        return logits
+        return logits_from_hidden({"embed": self.embed,
+                                   "lm_head": self.lm_head}, self.cfg, h)
 
     def decode_step(self, token: torch.Tensor, caches,
                     cfg: Optional[ModelConfig] = None):
@@ -170,7 +198,8 @@ class Transformer(nn.Module):
         the caches updated in place."""
         cfg = cfg or self.cfg
         x = layers.embed(self.embed, token, self.dtype, cfg.scale_embeddings)
-        for i, blk in enumerate(self.blocks):
-            x, _, _ = blk(x, cfg, cache=caches[i], decode=True)
+        for blk, cache in zip(self.blocks, caches, strict=True):
+            x, _, _ = block_forward(blk.tree(), x, cfg, cache=cache,
+                                    decode=True)
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         return self.logits_from_hidden(x), caches

@@ -1,0 +1,225 @@
+"""Train step: chunked CE loss, gradient accumulation, clipping, AdamW and
+the non-finite skip-step guard — the port of
+``repro/training/train_step.py`` on one device.
+
+The parameters are the f32 master tree of ``models/transformer`` with
+``requires_grad`` leaves; the forward casts each weight to ``cfg.dtype``
+at its use, so the gradients land in f32.  The MoE layers differentiate
+through the kernels' ``autograd.Function``s: the row gather's backward is
+the scatter-add kernel, the grouped matmul's the dlhs and drhs kernels.
+
+Skip-step guard: one NaN/Inf gradient must not corrupt the optimizer
+state — the update is selected away with ``torch.where`` (params,
+moments and the Adam count keep their bits) and ``TrainState`` counts
+``skipped`` / ``nonfinite_streak`` steps.  ``tcfg.loss_scale`` adds
+static or dynamic loss scaling: the loss is scaled before the backward,
+the gradients unscaled after the finite check, and in ``"dynamic"`` mode
+the scale halves on a bad step and doubles after
+``loss_scale_growth_interval`` good ones.  Every counter, the scale, the
+learning rate and the finite check stay on the device: a step never
+makes the host wait for it.
+
+Not ported yet (ROADMAP.md): ``remat`` other than ``"none"`` and the
+fault-injection seams (``faults``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import resolve_device, tree
+from repro_torch.core.config import ModelConfig, TrainConfig
+from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import (adamw_update, clip_by_global_norm,
+                                     init_opt_state, make_schedule)
+
+# dynamic loss scaling bounds (standard mixed-precision choices)
+_DYNAMIC_SCALE_INIT = 2.0 ** 15
+_SCALE_MIN = 1.0
+_SCALE_MAX = 2.0 ** 24
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: Dict
+    step: torch.Tensor                 # i32
+    skipped: torch.Tensor              # i32: total skipped (non-finite) steps
+    nonfinite_streak: torch.Tensor     # i32: CONSECUTIVE skipped steps
+    good_streak: torch.Tensor          # i32: consecutive finite steps
+    loss_scale: torch.Tensor           # f32: current loss scale
+
+
+def init_loss_scale(tcfg: TrainConfig) -> float:
+    return (_DYNAMIC_SCALE_INIT if tcfg.loss_scale == "dynamic"
+            else float(tcfg.loss_scale))
+
+
+def _master(p: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    return p.detach().to(device=dev, dtype=torch.float32,
+                         copy=True).requires_grad_(True)
+
+
+def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, *,
+                     params: Optional[Dict[str, Any]] = None,
+                     device=None) -> TrainState:
+    """A fresh state on ``device`` (``cuda`` unless given).  ``params`` (an
+    f32 tree from ``init_params`` or ``convert.params_from_numpy``) is
+    copied into f32 masters; without it the weights are drawn from a
+    ``torch.Generator`` seeded with ``tcfg.seed`` on the device."""
+    dev = resolve_device(device)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
+        params = T.init_params(cfg, gen, device=dev)
+    params = tree.map_(lambda p: _master(p, dev), params)
+
+    def zero():
+        return torch.zeros((), dtype=torch.int32, device=dev)
+    return TrainState(params, init_opt_state(params, tcfg), zero(),
+                      skipped=zero(), nonfinite_streak=zero(),
+                      good_streak=zero(),
+                      loss_scale=torch.tensor(init_loss_scale(tcfg),
+                                              dtype=torch.float32,
+                                              device=dev))
+
+
+def _auto_chunks(S: int, V: int) -> int:
+    """The reference's CE chunk count: one chunk's logits stay ~2^25
+    elements per batch row."""
+    target_tokens = max(16, 2 ** 25 // max(V, 1))
+    nc = 1
+    while S % (nc * 2) == 0 and S // nc > target_tokens and nc < 64:
+        nc *= 2
+    return nc
+
+
+def chunked_ce_loss(params, cfg: ModelConfig, h: torch.Tensor,
+                    targets: torch.Tensor, mask: torch.Tensor,
+                    num_chunks: Optional[int] = None) -> torch.Tensor:
+    """The unembed + CE over sequence chunks; h (B, S, d) → scalar.  With
+    more than one chunk each chunk's body is recomputed in the backward
+    (``torch.utils.checkpoint``), so only one chunk's (B, S/nc, V) logits
+    are alive at a time, as in the reference's remat'd scan."""
+    B, S, _ = h.shape
+    nc = num_chunks or _auto_chunks(S, cfg.vocab_size)
+    while S % nc:
+        nc -= 1
+
+    def body(hi, ti, mi):
+        logits = T.logits_from_hidden(params, cfg, hi).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, ti.long()[..., None])[..., 0]
+        nll = (lse - gold) * mi
+        return nll.sum(), mi.sum()
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    c = S // nc
+    for i in range(nc):
+        args = (h[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c],
+                mask[:, i * c:(i + 1) * c])
+        t, n = (body(*args) if nc == 1
+                else checkpoint(body, *args, use_reentrant=False))
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                   scale: Optional[torch.Tensor] = None):
+    """(loss, ce, aux, grads) of one batch: the forward, the chunked CE and
+    the backward, with the loss multiplied by ``scale`` (when given)
+    before the backward.  ``grads`` has ``params``' structure."""
+    h, aux, _ = T.forward(params, batch["inputs"], cfg)
+    ce = chunked_ce_loss(params, cfg, h, batch["targets"],
+                         batch["loss_mask"])
+    loss = ce + aux
+    scaled = loss if scale is None else loss * scale
+    grads = torch.autograd.grad(scaled, tree.leaves(params))
+    return (loss.detach(), ce.detach(), aux.detach(),
+            tree.unflatten(params, list(grads)))
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, faults=None):
+    """Returns ``train_step(state, batch) → (state, metrics)``.
+
+    ``batch`` holds the global batch; with ``tcfg.microbatches > 1`` it is
+    split on the batch axis and the gradients averaged."""
+    if tcfg.remat != "none":
+        raise NotImplementedError(
+            f"TrainConfig.remat={tcfg.remat!r}: rematerialisation is not "
+            f"ported to repro_torch yet (ROADMAP.md)")
+    if faults is not None:
+        raise NotImplementedError(
+            "fault plans (core/faults.py) are not ported to repro_torch yet "
+            "(ROADMAP.md)")
+    sched = make_schedule(tcfg)
+    dynamic = tcfg.loss_scale == "dynamic"
+    static_scale = not dynamic and float(tcfg.loss_scale) == 1.0
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        mbs = tcfg.microbatches
+        scale = None if static_scale else state.loss_scale
+        if mbs == 1:
+            loss, ce, aux, grads = loss_and_grads(state.params, batch, cfg,
+                                                  scale)
+        else:
+            B = batch["inputs"].shape[0]
+            if B % mbs:
+                raise ValueError(f"batch {B} is not divisible by "
+                                 f"microbatches={mbs}")
+            parts = [{k: v[i * (B // mbs):(i + 1) * (B // mbs)]
+                      for k, v in batch.items()} for i in range(mbs)]
+            loss, ce, aux, grads = loss_and_grads(state.params, parts[0],
+                                                  cfg, scale)
+            for mb in parts[1:]:
+                lo, c, a, g = loss_and_grads(state.params, mb, cfg, scale)
+                grads = tree.map_(torch.add, grads, g)
+                loss, ce, aux = loss + lo, ce + c, aux + a
+            grads = tree.map_(lambda g: g / mbs, grads)
+            loss, ce, aux = loss / mbs, ce / mbs, aux / mbs
+
+        with torch.no_grad():
+            # -- non-finite guard -------------------------------------------
+            ok = torch.isfinite(loss)
+            for g in tree.leaves(grads):
+                ok = ok & torch.all(torch.isfinite(g))
+            if not static_scale:
+                # unscale AFTER the finite check (an overflowed Inf grad
+                # must be seen as non-finite, not Inf/scale)
+                inv = 1.0 / scale
+                grads = tree.map_(lambda g: g * inv.to(g.dtype), grads)
+            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+            lr = sched(state.step)
+            new_params, new_opt = adamw_update(grads, state.opt,
+                                               state.params, tcfg, lr)
+            # bad step: params, moments AND the bias-correction count keep
+            # their old bits — the update never happened
+            new_params = tree.map_(
+                lambda n, o: torch.where(ok, n, o.detach()).requires_grad_(
+                    True), new_params, state.params)
+            new_opt = tree.map_(lambda n, o: torch.where(ok, n, o),
+                                new_opt, state.opt)
+
+            oki = ok.to(torch.int32)
+            skipped = state.skipped + (1 - oki)
+            streak = torch.where(ok, 0, state.nonfinite_streak + 1)
+            good = torch.where(ok, state.good_streak + 1, 0)
+            if dynamic:
+                grow = ok & (good >= tcfg.loss_scale_growth_interval)
+                new_scale = torch.where(
+                    ok, torch.where(grow, torch.clamp(scale * 2.0,
+                                                      max=_SCALE_MAX), scale),
+                    torch.clamp(scale * 0.5, min=_SCALE_MIN))
+                good = torch.where(grow, 0, good)
+            else:
+                new_scale = state.loss_scale
+
+        metrics = {"loss": loss, "ce": ce, "aux": aux, "grad_norm": gnorm,
+                   "lr": lr, "skipped": skipped, "nonfinite_streak": streak,
+                   "loss_scale": new_scale}
+        return TrainState(new_params, new_opt, state.step + 1,
+                          skipped=skipped, nonfinite_streak=streak,
+                          good_streak=good, loss_scale=new_scale), metrics
+
+    return train_step

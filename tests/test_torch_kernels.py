@@ -1,4 +1,5 @@
-"""The port's kernel modules against the JAX package's Pallas kernels.
+"""The port's kernel modules against the JAX package's Pallas kernels,
+forward and backward.
 
 On the CPU each port wrapper runs its kernel's plain PyTorch version; the
 JAX kernels run in Pallas interpret mode.  Inputs come from numpy seeds
@@ -7,6 +8,7 @@ same plain versions on the card by ``chip_smoke.py``.
 """
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -169,6 +171,198 @@ def test_grouped_ffn_relu_matches_reference():
 
 
 # ---------------------------------------------------------------------------
+# kernel 6: row scatter-add (the gather's VJP)
+# ---------------------------------------------------------------------------
+
+def _scatter_case(name):
+    """(g (M, d), idx (M,), n, max addends per output row)."""
+    rng = np.random.default_rng(18)
+    if name == "permutation with -1":
+        idx = rng.permutation(64).astype(np.int32)
+        idx[rng.random(64) < 0.2] = -1
+        return rng.standard_normal((64, 96)).astype(np.float32), idx, 64, 1
+    if name == "pairs (top_k=2), M>n":
+        idx = np.concatenate([rng.permutation(40), rng.permutation(40)])
+        idx = idx.astype(np.int32)
+        idx[rng.random(80) < 0.1] = -1
+        return rng.standard_normal((80, 33)).astype(np.float32), idx, 40, 2
+    if name == "many duplicates":
+        idx = rng.integers(-1, 5, 90).astype(np.int32)
+        return rng.standard_normal((90, 16)).astype(np.float32), idx, 5, 90
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["permutation with -1",
+                                  "pairs (top_k=2), M>n", "many duplicates"])
+def test_scatter_add_rows_matches_pallas(name, dtype):
+    """Bitwise with at most two addends per output row (f32 sums of two
+    bf16/f32 values are order-free and rounded once).  With many
+    duplicates the reference adds in g's dtype, rounding after each
+    addend, while the port rounds once from f32: f32 within 1e-5 of
+    Σ|g|; bf16 within (c-1)·ulp(Σ|g|) + ulp(|out|) for a row of c
+    addends — one rounding per extra addend in the reference."""
+    g, idx, n, most = _scatter_case(name)
+    jg = jnp.asarray(g).astype(dtype)
+    j = np.asarray(jlt.scatter_add_rows(jg, jnp.asarray(idx), n,
+                                        interpret=True).astype(jnp.float32))
+    tg = torch.from_numpy(g).to(getattr(torch, dtype))
+    before = L.scatter_launches
+    t = L.scatter_add_rows(tg, torch.from_numpy(idx), n)
+    assert L.scatter_launches == before      # the plain version on the CPU
+    assert t.dtype == tg.dtype and t.shape == (n, g.shape[1])
+    t = t.float().numpy()
+    if most <= 2:
+        np.testing.assert_array_equal(t, j)
+        return
+    absum = L.scatter_add_rows_plain(tg.float().abs(), torch.from_numpy(idx),
+                                     n).numpy()
+    if dtype == "float32":
+        assert (np.abs(t - j) <= 1e-5 * absum + 1e-7).all()
+    else:
+        c = np.bincount(idx[idx >= 0], minlength=n)[:, None]
+        tol = np.maximum(c - 1, 0) * _bf16_ulp(absum) + _bf16_ulp(j)
+        assert (np.abs(t - j) <= tol).all()
+
+
+def test_gather_rows_gradient_matches_reference_vjp():
+    """d src of gather_rows is the scatter-add: equal to jax.vjp of the
+    reference's custom_vjp gather (f32: rows of at most two addends, so
+    bitwise; bf16 likewise)."""
+    g, idx, n, _ = _scatter_case("pairs (top_k=2), M>n")
+    src = np.random.default_rng(19).standard_normal((n, g.shape[1])).astype(
+        np.float32)
+    for dtype in ("float32", "bfloat16"):
+        _, vjp = jax.vjp(lambda s: jlt.gather_rows(s, jnp.asarray(idx), True),
+                         jnp.asarray(src).astype(dtype))
+        j = np.asarray(vjp(jnp.asarray(g).astype(dtype))[0].astype(
+            jnp.float32))
+        ts = torch.from_numpy(src).to(getattr(torch, dtype)).requires_grad_()
+        out = L.gather_rows(ts, torch.from_numpy(idx))
+        out.backward(torch.from_numpy(g).to(getattr(torch, dtype)))
+        assert ts.grad.dtype == ts.dtype
+        np.testing.assert_array_equal(ts.grad.float().numpy(), j)
+
+
+# ---------------------------------------------------------------------------
+# kernels 4 and 5: grouped matmul backward (dlhs, drhs)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["skewed, empty expert, tail", "decode M=8",
+                                  "ragged K=20 N=12"])
+def test_grouped_matmul_t_matches_pallas(name, dtype):
+    """dlhs[seg_e] = g[seg_e] @ rhs[e]ᵀ against the reference kernel with
+    transpose_rhs=True.  f32: rtol/atol 1e-5; bf16: 1 ulp of the
+    reference plus the f32 summation-order bound N·2^-24·Σ|g·w| (as for
+    the forward)."""
+    M, Kd, N, offs = _gmm_case(name)
+    rng = np.random.default_rng(20)
+    E = len(offs) - 1
+    g = rng.standard_normal((M, N)).astype(np.float32)
+    rhs = (rng.standard_normal((E, Kd, N)) * N ** -0.5).astype(np.float32)
+    offs = np.asarray(offs, np.int32)
+    j = np.asarray(jgffn._grouped_matmul_impl(
+        jnp.asarray(g).astype(dtype), jnp.asarray(rhs).astype(dtype),
+        jnp.asarray(offs), interpret=True, transpose_rhs=True).astype(
+        jnp.float32))
+    tg = torch.from_numpy(g).to(getattr(torch, dtype))
+    tr = torch.from_numpy(rhs).to(getattr(torch, dtype))
+    before = G.dlhs_launches
+    t = G.grouped_matmul_t(tg, tr, torch.from_numpy(offs))
+    assert G.dlhs_launches == before
+    assert t.dtype == tg.dtype and t.shape == (M, Kd)
+    t = t.float().numpy()
+    assert (t[offs[-1]:] == 0).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-5)
+    else:
+        order = N * 2.0 ** -24 * G.grouped_matmul_t_plain(
+            tg.float().abs(), tr.float().abs(), torch.from_numpy(offs)).numpy()
+        assert (np.abs(t - j) <= _bf16_ulp(j) + order).all()
+
+
+def _drhs_case(name):
+    """(M, K, N, offsets): empty experts and a tail past offsets[E]; a
+    ragged last block (M not a multiple of the reference's block_m=128,
+    segments crossing block edges)."""
+    return {"empty experts, tail": (96, 40, 24, [0, 0, 30, 30, 81]),
+            "ragged last block": (200, 16, 72, [0, 127, 129, 200]),
+            "decode M=8": (8, 64, 32, [0, 1, 1, 3, 7])}[name]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["empty experts, tail", "ragged last block",
+                                  "decode M=8"])
+def test_grouped_drhs_matches_pallas(name, dtype):
+    """drhs[e] = lhs[seg_e]ᵀ @ g[seg_e] in f32 against the reference
+    kernel: empty experts exactly 0, rows past offsets[E] add nothing;
+    within the f32 summation-order bound M·2^-24·Σ|a·b| + 1e-7 (bf16
+    inputs: the products are exact in f32 on both sides)."""
+    M, Kd, N, offs = _drhs_case(name)
+    rng = np.random.default_rng(21)
+    lhs = rng.standard_normal((M, Kd)).astype(np.float32)
+    g = rng.standard_normal((M, N)).astype(np.float32)
+    offs = np.asarray(offs, np.int32)
+    j = np.asarray(jgffn._grouped_drhs_impl(
+        jnp.asarray(lhs).astype(dtype), jnp.asarray(g).astype(dtype),
+        jnp.asarray(offs), interpret=True))
+    tl = torch.from_numpy(lhs).to(getattr(torch, dtype))
+    tg = torch.from_numpy(g).to(getattr(torch, dtype))
+    before = G.drhs_launches
+    t = G.grouped_drhs(tl, tg, torch.from_numpy(offs))
+    assert G.drhs_launches == before
+    assert t.dtype == torch.float32 and t.shape == (len(offs) - 1, Kd, N)
+    t = t.numpy()
+    for e in range(len(offs) - 1):
+        if offs[e + 1] <= offs[e]:
+            assert (t[e] == 0).all() and (j[e] == 0).all()
+    order = M * 2.0 ** -24 * G.grouped_drhs_plain(
+        tl.float().abs(), tg.float().abs(), torch.from_numpy(offs)).numpy()
+    assert (np.abs(t - j) <= order + 1e-7).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_gradients_match_reference_vjp(dtype):
+    """Autograd through grouped_matmul (dlhs + drhs kernels' plain
+    versions) against jax.vjp of the reference's custom_vjp Pallas
+    grouped_matmul: dlhs in lhs.dtype, drhs in rhs.dtype.  f32: rtol/atol
+    1e-5; bf16: 1 ulp + the f32 order bound (dlhs), and drhs rounded to
+    bf16 once on both sides: 1 ulp + the order bound."""
+    M, Kd, N, offs = _gmm_case("skewed, empty expert, tail")
+    rng = np.random.default_rng(22)
+    E = len(offs) - 1
+    lhs = rng.standard_normal((M, Kd)).astype(np.float32)
+    rhs = (rng.standard_normal((E, Kd, N)) * Kd ** -0.5).astype(np.float32)
+    ct = rng.standard_normal((M, N)).astype(np.float32)
+    offs = np.asarray(offs, np.int32)
+    sizes = np.diff(offs)
+    _, vjp = jax.vjp(lambda a, b: jgffn.grouped_matmul(
+        a, b, jnp.asarray(sizes), True), jnp.asarray(lhs).astype(dtype),
+        jnp.asarray(rhs).astype(dtype))
+    jl, jr = (np.asarray(x.astype(jnp.float32)) for x in vjp(
+        jnp.asarray(ct).astype(dtype)))
+    tl = torch.from_numpy(lhs).to(getattr(torch, dtype)).requires_grad_()
+    tr = torch.from_numpy(rhs).to(getattr(torch, dtype)).requires_grad_()
+    out = G.grouped_matmul(tl, tr, torch.from_numpy(offs))
+    out.backward(torch.from_numpy(ct).to(getattr(torch, dtype)))
+    assert tl.grad.dtype == tl.dtype and tr.grad.dtype == tr.dtype
+    dl, dr = tl.grad.float().numpy(), tr.grad.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(dl, jl, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(dr, jr, rtol=1e-5, atol=1e-5)
+        return
+    to = torch.from_numpy(offs)
+    tc = torch.from_numpy(ct).to(torch.bfloat16).float()
+    ol = N * 2.0 ** -24 * G.grouped_matmul_t_plain(
+        tc.abs(), tr.detach().float().abs(), to).numpy()
+    orr = M * 2.0 ** -24 * G.grouped_drhs_plain(
+        tl.detach().float().abs(), tc.abs(), to).numpy()
+    assert (np.abs(dl - jl) <= _bf16_ulp(jl) + ol).all()
+    assert (np.abs(dr - jr) <= _bf16_ulp(jr) + orr).all()
+
+
+# ---------------------------------------------------------------------------
 # wrapper contracts
 # ---------------------------------------------------------------------------
 
@@ -181,6 +375,14 @@ def test_grouped_ffn_relu_matches_reference():
     lambda: G.grouped_matmul(torch.zeros(4, 8, dtype=torch.bfloat16),
                              torch.zeros(2, 8, 3),
                              torch.zeros(3, dtype=torch.int32)),
+    lambda: L.scatter_add_rows(torch.zeros(4, 8, dtype=torch.float16),
+                               torch.zeros(4, dtype=torch.int32), 3),
+    lambda: L.scatter_add_rows(torch.zeros(4, 8),
+                               torch.zeros(3, dtype=torch.int32), 3),
+    lambda: G.grouped_matmul_t(torch.zeros(4, 8), torch.zeros(2, 8, 3),
+                               torch.zeros(3, dtype=torch.int32)),
+    lambda: G.grouped_drhs(torch.zeros(4, 8), torch.zeros(5, 3),
+                           torch.zeros(3, dtype=torch.int32)),
 ])
 def test_wrappers_reject_bad_inputs(call):
     with pytest.raises(ValueError):
@@ -188,16 +390,38 @@ def test_wrappers_reject_bad_inputs(call):
 
 
 def test_wrappers_refuse_gradients():
-    """No backward kernels in this slice: a call autograd would
-    differentiate raises instead of returning a wrong gradient."""
+    """The gate's top-k selection has no backward (the reference stops its
+    gradient): a call autograd would differentiate raises instead of
+    returning a wrong gradient, and a detached call runs."""
     x = torch.randn(4, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        L.gather_rows(x, torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        G.grouped_matmul(x, torch.randn(1, 8, 3),
-                         torch.tensor([0, 4], dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        K.fused_topk_gate(x, 1)
     with torch.no_grad():
-        L.gather_rows(x, torch.zeros(2, dtype=torch.int32))
+        K.fused_topk_gate(x, 1)
+    K.fused_topk_gate(x.detach(), 1)
+
+
+def test_gate_weights_train_through_detached_kernel():
+    """ops.topk_softmax_weights hands the kernel detached logits, so the
+    router's gradient flows through u/Σu only — equal to jax.vjp of the
+    reference's weights (f32, rtol/atol 1e-6: the same softmax jacobian,
+    summed in other orders)."""
+    from repro.kernels import ops as jops
+    x = np.random.default_rng(15).standard_normal((24, 16)).astype(
+        np.float32)
+    r = np.random.default_rng(16).standard_normal((24, 2)).astype(np.float32)
+    q = np.random.default_rng(17).standard_normal((24, 16)).astype(
+        np.float32)
+
+    def jf(lg):
+        _, w, p = jops.topk_softmax_weights(lg, 2)
+        return jnp.sum(w * r) + jnp.sum(p * q)
+    jg = np.asarray(jax.grad(jf)(jnp.asarray(x)))
+    t = torch.from_numpy(x).requires_grad_()
+    _, w, p = ops.topk_softmax_weights(t, 2)
+    ((w * torch.from_numpy(r)).sum() + (p * torch.from_numpy(q)).sum()
+     ).backward()
+    np.testing.assert_allclose(t.grad.numpy(), jg, rtol=1e-6, atol=1e-6)
 
 
 def test_wrappers_reject_other_devices():

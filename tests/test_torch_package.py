@@ -70,6 +70,20 @@ def test_entry_points_raise_without_cuda(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_training_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.training.train_step import init_train_state
+    cfg = configs.smoke_config("hetumoe-paper-16e")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.run("hetumoe-paper-16e", steps=1, batch=1, seq=8, smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticLM(cfg, 1, 8)
+
+
 def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):
     """No result and a non-zero exit without CUDA — here, and in a
     directory that holds chip_smoke.py and nothing else."""
