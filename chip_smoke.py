@@ -9,30 +9,39 @@ Phases, in order; any failure ends the script with a non-zero exit:
 2. Each hand-written kernel against its plain PyTorch version on the card,
    at the main paths' shapes and at edge cases, with stated tolerances:
    the gate, the gather and the grouped matmul (2a-2c), the grouped
-   matmul's backward dlhs and drhs (2d, 2e) and the scatter-add (2f).
+   matmul's backward dlhs and drhs (2d, 2e), the scatter-add (2f), and
+   the flash forward, dq and dk/dv (2g-2i: the seq-1024 training shape,
+   GQA with a window and a softcap, ragged S=600 with invalid key slots
+   and a fully masked row, S=1, Sq != Sk).
 3. Serving at full width: ``hetumoe-paper-16e`` (bf16, seeded random
    weights) through ``repro_torch.launch.serve.run`` → ``generate``, batch 8,
-   prompt 512, 32 new tokens, once with ``grouped`` and once with ``sort``
-   dispatch; the kernels' launch counters must rise by what the path
-   implies.
-4. Card against CPU at full width: the same f32 weights, batch 1, prompt
-   64, prefill last-token logits from the card (kernels) and the CPU (plain
-   versions), both dispatch modes.
+   32 new tokens: prompt 512 with ``grouped`` and with ``sort`` dispatch,
+   and prompt 1024 (the flash forward) with ``grouped``; the kernels'
+   launch counters must rise by what the path implies (the flash forward
+   once per layer in a prefill past 512 tokens, never in a decode step).
+4. Card against CPU at full width: the same f32 weights, batch 1, prompts
+   of 64 and 600 tokens (the flash path), prefill last-token logits from
+   the card (kernels) and the CPU (plain versions), both dispatch modes.
 5. Per-kernel timings at the main paths' shapes (CUDA events, median of
    batches after warm-up) beside the bound, the plain version and the
-   nearest single PyTorch call.
-6. Where the time goes: a profiled prefill and decode steps per dispatch
-   mode (wall time, kernel time, the device's idle share, top kernels), and
-   the host's waits for the device in a forward, which must be none; then
-   one profiled train step per dispatch mode, with its host waits reported.
+   nearest single PyTorch call (SDPA for the flash kernels).
+6. Where the time goes: a profiled prefill and decode steps per serving
+   cell (wall time, kernel time, the device's idle share, top kernels),
+   and the host's waits for the device in a forward, which must be none;
+   then one profiled train step per training cell, with its host waits
+   reported.
 7. Training at full width: ``hetumoe-paper-16e`` through
    ``repro_torch.launch.train.run`` (f32 masters, bf16 compute, batch 8,
-   seq 512, seeded weights and data, 2 warm-up + 8 timed AdamW steps), once
-   per dispatch mode; every metric finite, no step skipped, and every
-   kernel's launch counter risen by exactly the per-step count times the
-   steps.
-8. Card against CPU, one f32 train step's loss and gradients at full
-   width: the same f32 weights, batch 1, seq 64, both dispatch modes.
+   seeded weights and data, 2 warm-up + 8 timed AdamW steps) at seq 512
+   per dispatch mode and at seq 1024 (the paper's length) with
+   ``grouped``; every metric finite, no step skipped, and every kernel's
+   launch counter risen by exactly the per-step count times the steps
+   (the flash kernels 2/2/2 per step at seq 1024, 0 at 512).
+8. Card against CPU at full width, f32: one attention layer's output and
+   gradients at seq 1024 (the flash path), then one train step's loss and
+   gradients from the same weights, batch 1, seq 64 in both dispatch modes
+   and seq 1024 with ``grouped`` (there replayed on the card with the
+   CPU's ReLU masks, since a few pre-activations lie within rounding of 0).
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.  The script
@@ -54,6 +63,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 BF16_FLOPS = 989e12                # dense tensor-core bf16
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 SERVE = dict(batch=8, prompt_len=512, gen=32)
+Q_CHUNK = 512                      # longer sequences take the flash kernels
+# (dispatch, prompt length) of the serving cells
+SERVE_CELLS = (("grouped", 512), ("sort", 512), ("grouped", 1024))
 
 
 class SmokeFailure(RuntimeError):
@@ -367,6 +379,163 @@ def phase_kernels(torch, dev):
     return errs
 
 
+# (name, B, H, KV, Sq, Sk, d, causal, window, cap, share of k_pos set to -1)
+FLASH_CASES = [
+    ("main B=8 H=KV=16 S=1024 d=128 causal", 8, 16, 16, 1024, 1024, 128,
+     True, None, None, 0.0),
+    ("GQA G=2, window 100, softcap 30 (B=2 H=8 KV=4 S=256 d=64)", 2, 8, 4,
+     256, 256, 64, True, 100, 30.0, 0.0),
+    ("S=600 (ragged), k_pos -1 slots, row 0 fully masked (d=128)", 1, 4, 2,
+     600, 600, 128, True, None, None, 0.1),
+    ("S=1 (d=32)", 2, 4, 2, 1, 1, 32, True, None, None, 0.0),
+    ("Sq=100 Sk=200 non-causal d=16, k_pos -1 slots", 1, 2, 1, 100, 200, 16,
+     False, None, None, 0.2),
+]
+
+
+def flash_order_bounds(torch, F, q, k, v, do, lse, q_pos, k_pos, st):
+    """Per-element f32 summation-order bounds of o, dq, dk and dv between
+    the kernels and their plain versions on the same inputs (the same o,
+    lse and delta for the backward): a score adds d products in another
+    order (|ds| <= d*2^-24*SA, SA = scale*|q|.|k|), which moves p by that
+    much relatively; dP likewise (d*2^-24*A, A = |dO|.|v|), so dS moves by
+    p*(A + D)*d*2^-24*(1 + SA) with |dS| <= p*(A + D), D = sum|dO*o|; then
+    the sums over Sk keys (o, dq) or G*Sq queries (dk, dv) add their own
+    length times 2^-24 of the sum of |terms|.  Twice the first-order terms:
+      o   2*(Sk + 2d*max_k SA)*2^-24 * (p@|v|)/l
+      dq  2*2^-24*scale * (p*(A + D)*(d*(1 + SA) + Sk)) @ |k|
+      dk  2*2^-24*scale * sum_g (p*(A + D)*(d*(1 + SA) + G*Sq))^T @ |q|
+      dv  2*2^-24 * sum_g (p*(G*Sq + d*SA))^T @ |dO|"""
+    B, H, Sq, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G, scale, u = H // KV, st[0], 2.0 ** -24
+    gq, gdo = F._grouped(q, KV), F._grouped(do, KV)
+    s, _, _ = F._scores(q, k, q_pos, k_pos, *st)
+    sa = torch.einsum("bkgqd,bksd->bkgqs", gq.abs(), k.float().abs()) * scale
+    p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None])
+    del s
+    pv = torch.einsum("bkgqs,bksd->bkgqd", p, v.float().abs())
+    o_b = (2 * (Sk + 2 * d * sa.amax(-1, keepdim=True)) * u * pv).reshape(
+        q.shape)
+    o_plain, _ = F.flash_fwd_plain(q, k, v, q_pos, k_pos, *st)
+    a = torch.einsum("bkgqd,bksd->bkgqs", gdo.abs(), v.float().abs())
+    dsum = (gdo.abs() * F._grouped(o_plain, KV).abs()).sum(-1)[..., None]
+    w = p * (a + dsum)
+    wd = d * (1 + sa)
+    del a
+    dq_b = (2 * u * scale * torch.einsum(
+        "bkgqs,bksd->bkgqd", w * (wd + Sk), k.float().abs())).reshape(q.shape)
+    dk_b = 2 * u * scale * torch.einsum(
+        "bkgqs,bkgqd->bksd", w * (wd + G * Sq), gq.abs())
+    del w, wd
+    dv_b = 2 * u * torch.einsum("bkgqs,bkgqd->bksd", p * (G * Sq + d * sa),
+                                gdo.abs())
+    return o_b, dq_b, dk_b, dv_b
+
+
+def flash_bf16p_plain(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st):
+    """o, dq, dk, dv of the plain versions with p and dS rounded to bf16
+    before their products (the chunked ``_attend``'s rounding of p): what
+    a kernel computes that rounds them.  The bf16 kernels must stay
+    measurably nearer the f32-p plain versions than this."""
+    KV, scale = k.shape[1], st[0]
+
+    def r(t):
+        return t.to(torch.bfloat16).float()
+    s, _, _ = F._scores(q, k, q_pos, k_pos, *st)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bkgqs,bksd->bkgqd", r(p), v.float()) / p.sum(
+        -1, keepdim=True)
+    del s, p
+    p, ds = F._probs_and_ds(q, k, v, do, lse, delta, q_pos, k_pos, *st)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", r(ds), k.float()) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", r(ds), F._grouped(q, KV)) * scale
+    dv = torch.einsum("bkgqs,bkgqd->bksd", r(p), F._grouped(do, KV))
+    return (o.reshape(q.shape).to(q.dtype), dq.reshape(q.shape).to(q.dtype),
+            dk.to(k.dtype), dv.to(v.dtype))
+
+
+def phase_flash_kernels(torch, dev):
+    """Phases 2g-2i: the flash forward, dq and dk/dv kernels against their
+    plain versions on the card, on the same inputs."""
+    from repro_torch.kernels import flash_attention as F
+    g = torch.Generator(device="cpu").manual_seed(4321)
+    errs = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    print("phase 2g-2i: flash forward (o, lse), dq, dk/dv against their plain "
+          "versions on the same inputs (the backward's o, lse and delta "
+          "from the plain forward). f32: rtol/atol 1e-4; bf16: within 1 ulp "
+          "of the plain result plus the f32 summation-order bound "
+          "(flash_order_bounds), and where Sk > 1 a Frobenius distance "
+          "from the plain result at most 1/4 of that of the plain versions "
+          "with p and dS rounded to bf16 (flash_bf16p_plain); lse (f32 in "
+          "both) rtol/atol 1e-4")
+    for (name, B, H, KV, Sq, Sk, d, causal, window, cap,
+         invalid) in FLASH_CASES:
+        shapes = ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d), (B, H, Sq, d))
+        x32 = [torch.randn(s, generator=g) for s in shapes]
+        q_pos = torch.arange(Sq, dtype=torch.int32)
+        k_pos = torch.arange(Sk, dtype=torch.int32)
+        if invalid:
+            k_pos[0] = -1
+            k_pos[torch.rand(Sk, generator=g) < invalid] = -1
+        qp, kp = q_pos.to(dev), k_pos.to(dev)
+        st = (d ** -0.5, causal, window, cap)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = (t.to(dt).to(dev) for t in x32)
+            o_k, lse_k = F.flash_fwd(q, k, v, qp, kp, *st)
+            o_p, lse_p = F.flash_fwd_plain(q, k, v, qp, kp, *st)
+            delta = (do.float() * o_p.float()).sum(-1)
+            bwd = (q, k, v, do, lse_p, delta, qp, kp, *st)
+            dq_k = F.flash_dq(*bwd)
+            dk_k, dv_k = F.flash_dkv(*bwd)
+            dq_p = F.flash_dq_plain(*bwd)
+            dk_p, dv_p = F.flash_dkv_plain(*bwd)
+            torch.cuda.synchronize()
+            bf16 = dt == torch.bfloat16
+            bounds = (flash_order_bounds(torch, F, q, k, v, do, lse_p, qp, kp,
+                                         st) if bf16 else (None,) * 4)
+            rounded = (flash_bf16p_plain(torch, F, q, k, v, do, lse_p, delta,
+                                         qp, kp, st) if bf16 and Sk > 1
+                       else (None,) * 4)
+            lse_ok = bool(torch.allclose(lse_k, lse_p, rtol=1e-4, atol=1e-4))
+            results = []
+            for what, key, out, ref, bound, rnd in (
+                    ("o", "flash_fwd", o_k, o_p, bounds[0], rounded[0]),
+                    ("dq", "flash_dq", dq_k, dq_p, bounds[1], rounded[1]),
+                    ("dk", "flash_dkv", dk_k, dk_p, bounds[2], rounded[2]),
+                    ("dv", "flash_dkv", dv_k, dv_p, bounds[3], rounded[3])):
+                err = (out.float() - ref.float()).abs()
+                errs[key] = max(errs[key], err.max().item())
+                if dt == torch.float32:
+                    ok = bool(torch.allclose(out, ref, rtol=1e-4, atol=1e-4))
+                    note = ""
+                else:
+                    ulp = bf16_ulp(torch, ref.float())
+                    ok = bool((err <= ulp + bound).all())
+                    note = (f", {(err / ulp).max().item():.2f} ulp max, "
+                            f"{int((err > ulp).sum())} past 1 ulp, max "
+                            f"err/(ulp + bound) "
+                            f"{(err / (ulp + bound)).max().item():.3f}")
+                    if rnd is not None:
+                        far = (rnd.float() - ref.float()).norm().item()
+                        near = err.norm().item()
+                        ok = ok and near <= far / 4
+                        note += (f", |kernel - plain|_F {near:.3e} vs "
+                                 f"|bf16-p plain - plain|_F {far:.3e}")
+                results.append(ok)
+                print(f"  {name} {dt} {what}: max abs err "
+                      f"{err.max().item():.3e}{note}: {ok}")
+            print(f"  {name} {dt} lse: max abs err "
+                  f"{(lse_k - lse_p).abs().max().item():.3e}: {lse_ok}")
+            check(all(results) and lse_ok,
+                  f"flash kernels {name} {dt} disagree with their plain "
+                  f"versions")
+            del q, k, v, do, o_k, o_p, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p
+            del bounds, rounded, bwd
+        torch.cuda.empty_cache()
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving at full width
 # ---------------------------------------------------------------------------
@@ -376,7 +545,11 @@ COUNTERS = (("topk_gate", "topk_gate", "launches"),
             ("grouped_matmul", "grouped_ffn", "launches"),
             ("grouped_matmul_t", "grouped_ffn", "dlhs_launches"),
             ("grouped_drhs", "grouped_ffn", "drhs_launches"),
-            ("scatter_add_rows", "layout_transform", "scatter_launches"))
+            ("scatter_add_rows", "layout_transform", "scatter_launches"),
+            ("flash_fwd", "flash_attention", "fwd_launches"),
+            ("flash_dq", "flash_attention", "dq_launches"),
+            ("flash_dkv", "flash_attention", "dkv_launches"))
+SERVE_KERNELS = ("topk_gate", "gather_rows", "grouped_matmul", "flash_fwd")
 
 
 def _kernel_module(name):
@@ -390,38 +563,42 @@ def reset_counts():
 
 
 def read_counts(names=None):
-    """Launch counters of the kernels ``names`` (default: the three the
+    """Launch counters of the kernels ``names`` (default: the four the
     serving path runs)."""
-    names = names or ("topk_gate", "gather_rows", "grouped_matmul")
+    names = names or SERVE_KERNELS
     return {k: getattr(_kernel_module(mod), attr)
             for k, mod, attr in COUNTERS if k in names}
 
 
 def phase_serve(torch, smi):
+    """Serving at batch 8 and 32 new tokens: prompt 512 in both dispatch
+    modes (the chunk-free ``_attend`` path, no flash launch) and prompt
+    1024 grouped (the flash forward, 2 launches in the prefill, none in a
+    decode step)."""
     from repro_torch import configs
     from repro_torch.launch import serve
     cfg = configs.get_config(ARCH)
     L = cfg.num_layers
     forwards = SERVE["gen"]                  # 1 prefill + gen-1 decode steps
-    expect = {"grouped": {"topk_gate": L * forwards,
-                          "gather_rows": L * forwards,
-                          "grouped_matmul": 2 * L * forwards},
-              "sort": {"topk_gate": L * forwards,
-                       "gather_rows": 2 * L * forwards,
-                       "grouped_matmul": 0}}
     print("phase 3: warm-up (grouped, 2 new tokens)")
     serve.run(ARCH, smoke=False, batch=SERVE["batch"],
               prompt_len=SERVE["prompt_len"], gen=2, dispatch="grouped",
               device="cuda")
-    totals = dict.fromkeys(expect["grouped"], 0)
+    totals = dict.fromkeys(SERVE_KERNELS, 0)
     results = {}
-    for mode in ("grouped", "sort"):
+    for mode, prompt_len in SERVE_CELLS:
+        expect = {"topk_gate": L * forwards,
+                  "gather_rows": (1 if mode == "grouped" else 2) * L * forwards,
+                  "grouped_matmul": (2 * L * forwards if mode == "grouped"
+                                     else 0),
+                  "flash_fwd": L if prompt_len > Q_CHUNK else 0}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         stats = {}
         reset_counts()
         out = serve.run(ARCH, smoke=False, dispatch=mode, device="cuda",
-                        stats=stats, **SERVE)
+                        stats=stats, batch=SERVE["batch"],
+                        prompt_len=prompt_len, gen=SERVE["gen"])
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
         for k, v in counts.items():
@@ -429,19 +606,20 @@ def phase_serve(torch, smi):
         B, gen = SERVE["batch"], SERVE["gen"]
         decode_ms = 1e3 * stats["decode_s"] / stats["decode_steps"]
         tok_s = B * gen / (stats["prefill_s"] + stats["decode_s"])
-        print(f"  [{smi}] {mode}: prefill {1e3 * stats['prefill_s']:.3f} ms, "
+        cell = f"{mode} prompt {prompt_len}"
+        print(f"  [{smi}] {cell}: prefill {1e3 * stats['prefill_s']:.3f} ms, "
               f"decode {decode_ms:.3f} ms/step, {tok_s:.1f} tokens/s "
               f"(batch {B} x {gen} new), peak memory "
               f"{peak / 2 ** 30:.3f} GiB, launches {counts}")
-        check(counts == expect[mode],
-              f"{mode}: launch counts {counts} != expected {expect[mode]}")
-        check(tuple(out.shape) == (B, SERVE["prompt_len"] + gen),
-              f"{mode}: output shape {tuple(out.shape)}")
-        new = out[:, SERVE["prompt_len"]:]
+        check(counts == expect,
+              f"{cell}: launch counts {counts} != expected {expect}")
+        check(tuple(out.shape) == (B, prompt_len + gen),
+              f"{cell}: output shape {tuple(out.shape)}")
+        new = out[:, prompt_len:]
         check(bool(((new >= 0) & (new < cfg.vocab_size)).all()),
-              f"{mode}: generated ids out of range")
-        check(stats["logits_finite"], f"{mode}: non-finite logits")
-        results[mode] = dict(prefill_ms=1e3 * stats["prefill_s"],
+              f"{cell}: generated ids out of range")
+        check(stats["logits_finite"], f"{cell}: non-finite logits")
+        results[cell] = dict(prefill_ms=1e3 * stats["prefill_s"],
                              decode_ms_per_step=decode_ms, tokens_per_s=tok_s,
                              peak_gib=peak / 2 ** 30)
     return totals, results
@@ -462,9 +640,10 @@ def phase_card_vs_cpu(torch):
     gpu = Transformer(cfg, device="cuda", params=params)
     print(f"phase 4: f32 weights on both devices in "
           f"{time.perf_counter() - t0:.1f} s")
-    prompt = torch.randint(0, cfg.vocab_size, (1, 64),
-                           generator=torch.Generator().manual_seed(8))
-    for mode in ("grouped", "sort"):
+    gen = torch.Generator().manual_seed(8)
+    for S, mode in ((64, "grouped"), (64, "sort"), (600, "grouped"),
+                    (600, "sort")):
+        prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen)
         c = serve_config(cfg, dispatch=mode)
         with torch.inference_mode():
             logits = []
@@ -472,19 +651,19 @@ def phase_card_vs_cpu(torch):
                 reset_counts()
                 h, _, _ = model.forward(prompt.to(model.device), cfg=c)
                 logits.append(model.logits_from_hidden(h[:, -1:]).cpu())
-        # the card's forward went through the kernels (2 layers)
-        want = {"grouped": {"topk_gate": 2, "gather_rows": 2,
-                            "grouped_matmul": 4},
-                "sort": {"topk_gate": 2, "gather_rows": 4,
-                         "grouped_matmul": 0}}[mode]
+        # the card's forward went through the kernels (2 layers), and
+        # through the flash forward past q_chunk
+        want = {"topk_gate": 2, "gather_rows": 2 if mode == "grouped" else 4,
+                "grouped_matmul": 4 if mode == "grouped" else 0,
+                "flash_fwd": 2 if S > Q_CHUNK else 0}
         check(read_counts() == want,
               f"{mode}: card forward launches {read_counts()} != {want}")
         diff = (logits[0] - logits[1]).abs().max().item()
         scale = logits[0].abs().max().item()
-        print(f"  {mode}: max |card - cpu| = {diff:.3e}, tol "
+        print(f"  {mode} prompt {S}: max |card - cpu| = {diff:.3e}, tol "
               f"1e-3 * max|logit| = {1e-3 * scale:.3e}")
         check(math.isfinite(diff) and diff <= 1e-3 * scale,
-              f"{mode}: card and CPU logits disagree")
+              f"{mode} prompt {S}: card and CPU logits disagree")
     del cpu, gpu, params
 
 
@@ -505,14 +684,17 @@ def phase_timings(torch, dev, smi):
         return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
     def row(name, source, replaces, kernel, plain, library, nbytes, flops,
-            peak, shape):
-        ms = time_ms(torch, kernel)
-        dev_ms = graph_ms(torch, kernel)
-        plain_ms = time_ms(torch, plain)
+            peak, shape, slow=False, **extra):
+        # a call of several ms: fewer batches of fewer calls
+        kw = dict(batches=10, per_batch=3, warmup=2) if slow else {}
+        ms = time_ms(torch, kernel, **kw)
+        dev_ms = graph_ms(torch, kernel, **(dict(reps=10, per_graph=3)
+                                            if slow else {}))
+        plain_ms = time_ms(torch, plain, **kw)
         lib_ms = None
         if library is not None:
             try:
-                lib_ms = time_ms(torch, library)
+                lib_ms = time_ms(torch, library, **kw)
             except RuntimeError as e:
                 print(f"    library call does not run on this build: "
                       f"{str(e).splitlines()[0]}")
@@ -521,11 +703,11 @@ def phase_timings(torch, dev, smi):
               f"{dev_ms if dev_ms is None else round(dev_ms, 4)}), plain_ms "
               f"{plain_ms:.4f}, library_ms "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)}, bound_us "
-              f"{1e3 * bound_ms:.2f} ({by})")
+              f"{1e3 * bound_ms:.2f} ({by}) {extra or ''}")
         rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
-                         device_ms=dev_ms, shape=shape))
+                         device_ms=dev_ms, shape=shape, **extra))
 
     print("phase 5: timings (CUDA events; median of 25 batches of 10 calls "
           "after warm-up)")
@@ -624,7 +806,60 @@ def phase_timings(torch, dev, smi):
             if src_rows == n else None,
             src_rows * d * 2 + src_rows * 4 + n * d * 2, 0, BF16_FLOPS,
             f"{what} {src_rows} -> {n} rows, d={d} bf16")
+    del zeros, gs
+    flash_timings(torch, dev, g, row)
     return rows
+
+
+def flash_timings(torch, dev, g, row):
+    """Kernels 7-9 at the seq-1024 training shapes (B=8, H=KV=16, S=1024,
+    d=128, bf16, causal).  ``bound_ms`` counts the work the causal function
+    needs: the (q, k) pairs its mask keeps on this run's positions
+    (S(S+1)/2 per (b, h)), 2*d operations per pair and product; the
+    forward does 2 products, dq 3, dk/dv 4.  ``all_tiles_bound_ms`` counts
+    every (q, k) pair, as these kernels compute them all (no tile is
+    skipped), and ``fma_bound_ms`` is the bound of their own arithmetic
+    over all pairs: the products of p and dS (1, 1 and 2 of them) at the
+    f32 FMA rate, q k^T and dO v^T (1, 2 and 2) at the bf16 rate.
+    Yardsticks: SDPA's forward, and one backward of SDPA for dq and dk/dv
+    together (the same number in both rows)."""
+    from repro_torch.kernels import flash_attention as F
+    B, H, S, d = 8, 16, 1024, 128
+    q, k, v, do = (torch.randn(B, H, S, d, generator=g).to(torch.bfloat16)
+                   .to(dev) for _ in range(4))
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    st = (d ** -0.5, True, None, None)
+    o, lse = F.flash_fwd(q, k, v, pos, pos, *st)
+    delta = (do.float() * o.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, pos, pos, *st)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = sdpa(*leaves, is_causal=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+    t_in, t_rows = B * H * S * d * 2, B * H * S * 4    # a (B,H,S,d) bf16 tensor
+    pairs = int(F._mask(pos, pos, True, None).sum())   # causal: S(S+1)/2
+    need = 2 * B * H * pairs * d                       # one product, needed
+    prod = 2 * B * H * S * S * d                       # one product, all tiles
+    shape = f"B={B} H=KV={H} S={S} d={d} bf16 causal"
+    src, ref = ("src/repro_torch/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py")
+    for name, line, kern, plain, lib, n_in, n_rows, n_f32, n_bf16 in (
+            ("flash_fwd", 49, lambda: F.flash_fwd(q, k, v, pos, pos, *st),
+             lambda: F.flash_fwd_plain(q, k, v, pos, pos, *st),
+             lambda: sdpa(q, k, v, is_causal=True), 4, 1, 1, 1),
+            ("flash_dq", 81, lambda: F.flash_dq(*bwd),
+             lambda: F.flash_dq_plain(*bwd), sdpa_bwd, 5, 2, 1, 2),
+            ("flash_dkv", 115, lambda: F.flash_dkv(*bwd),
+             lambda: F.flash_dkv_plain(*bwd), sdpa_bwd, 6, 2, 2, 2)):
+        nbytes = n_in * t_in + n_rows * t_rows + 2 * S * 4
+        fma_ms = 1e3 * (n_f32 * prod / F32_FLOPS + n_bf16 * prod / BF16_FLOPS)
+        all_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                           (n_f32 + n_bf16) * prod / BF16_FLOPS)
+        row(name, src, f"{ref}:{line}", kern, plain, lib, nbytes,
+            (n_f32 + n_bf16) * need, BF16_FLOPS, shape, slow=True,
+            all_tiles_bound_ms=all_ms, fma_bound_ms=fma_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -654,8 +889,8 @@ def host_waits(torch, fn) -> list:
 
 
 def phase_profile(torch, smi):
-    """One profiled prefill and 8 profiled decode steps per dispatch mode at
-    the serving shapes: wall time (host clock to a synchronise), the device
+    """One profiled prefill and 8 profiled decode steps per serving cell
+    (``SERVE_CELLS``): wall time (host clock to a synchronise), the device
     time of all kernels, the device's idle share, the top kernels and the
     host's waits for the device (none may remain in a forward)."""
     from torch.autograd import DeviceType
@@ -664,15 +899,16 @@ def phase_profile(torch, smi):
     from repro_torch.models.transformer import Transformer
     from repro_torch.serving.engine import resolve_decode_config, serve_config
     cfg = configs.get_config(ARCH)
-    B, S = SERVE["batch"], SERVE["prompt_len"]
+    B = SERVE["batch"]
     model = Transformer(cfg, device="cuda", seed=0)
-    prompt = torch.randint(0, cfg.vocab_size, (B, S),
-                           generator=torch.Generator().manual_seed(3)).cuda()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     print("phase 6: profile (torch.profiler; device ms = sum of kernel "
           "times, idle = 1 - device/wall)")
     out = {}
-    for mode in ("grouped", "sort"):
+    for mode, S in SERVE_CELLS:
+        prompt = torch.randint(0, cfg.vocab_size, (B, S),
+                               generator=torch.Generator().manual_seed(3)
+                               ).cuda()
         c = serve_config(cfg, dispatch=mode)
         dc = resolve_decode_config(c, B)
         with torch.inference_mode():
@@ -703,7 +939,7 @@ def phase_profile(torch, smi):
                                   ("decode step", pd, decode_wall)):
             n = 1 if label == "prefill" else 8
             dev_ms = _device_ms(prof, DeviceType) / n
-            print(f"  [{smi}] {mode} {label}: wall {wall:.3f} ms, device "
+            print(f"  [{smi}] {mode} prompt {S} {label}: wall {wall:.3f} ms, device "
                   f"{dev_ms:.3f} ms, idle {1 - dev_ms / wall:.3f}")
             kernels = sorted((e for e in prof.key_averages()
                               if e.device_type == DeviceType.CUDA),
@@ -723,20 +959,20 @@ def phase_profile(torch, smi):
                   f"debug mode in one more {label}: {len(waits[label])} "
                   f"{sorted(set(waits[label]))}")
             check(not waits[label],
-                  f"{mode} {label}: the host waits for the device "
+                  f"{mode} prompt {S} {label}: the host waits for the device "
                   f"{len(waits[label])} times")
             print("      top by self CPU time:")
             for e in host[:6]:
                 print(f"      {e.self_cpu_time_total / 1e3 / n:8.3f} ms "
                       f"x{e.count // n:<3d} {e.key[:90]}")
-            out[f"{mode} {label}"] = dict(wall_ms=wall, device_ms=dev_ms,
+            out[f"{mode} prompt {S} {label}"] = dict(wall_ms=wall, device_ms=dev_ms,
                                           host_waits=len(waits[label]))
     return out
 
 
 def phase_profile_train(torch, smi):
-    """One profiled train step per dispatch mode at the phase-7 shapes
-    (after a warm-up step): wall time (host clock to a synchronise), the
+    """One profiled train step per phase-7 cell (``TRAIN_CELLS``, after a
+    warm-up step): wall time (host clock to a synchronise), the
     device time of all kernels, the device's idle share, the top kernels,
     and the host's waits for the device inside one more step (reported;
     the aim is none)."""
@@ -748,12 +984,12 @@ def phase_profile_train(torch, smi):
     from repro_torch.serving.engine import serve_config
     from repro_torch.training.train_step import (init_train_state,
                                                  make_train_step)
-    B, S = TRAIN["batch"], TRAIN["seq"]
+    B = TRAIN["batch"]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     print("phase 6b: train step profile (torch.profiler; device ms = sum of "
           "kernel times, idle = 1 - device/wall)")
     out = {}
-    for mode in ("grouped", "sort"):
+    for mode, S in TRAIN_CELLS:
         cfg = serve_config(configs.get_config(ARCH), dispatch=mode)
         tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=1,
                            total_steps=10)
@@ -770,7 +1006,7 @@ def phase_profile_train(torch, smi):
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
         dev_ms = _device_ms(prof, DeviceType)
-        print(f"  [{smi}] {mode} train step: wall {wall:.3f} ms, device "
+        print(f"  [{smi}] {mode} seq {S} train step: wall {wall:.3f} ms, device "
               f"{dev_ms:.3f} ms, idle {1 - dev_ms / wall:.3f}, loss "
               f"{float(m['loss']):.4f}")
         kernels = sorted((e for e in prof.key_averages()
@@ -785,7 +1021,7 @@ def phase_profile_train(torch, smi):
         print(f"      host: {sum(e.count for e in host)} profiled calls, "
               f"{launches} cudaLaunchKernel; waits found by the sync debug "
               f"mode in one more step: {len(waits)} {sorted(set(waits))}")
-        out[f"{mode} train step"] = dict(wall_ms=wall, device_ms=dev_ms,
+        out[f"{mode} seq {S} train step"] = dict(wall_ms=wall, device_ms=dev_ms,
                                          host_waits=len(waits),
                                          wait_sites=sorted(set(waits)))
         del state, step, batch
@@ -797,7 +1033,9 @@ def phase_profile_train(torch, smi):
 # phase 7: training at full width
 # ---------------------------------------------------------------------------
 
-TRAIN = dict(batch=8, seq=512, warmup=2, timed=8)
+TRAIN = dict(batch=8, warmup=2, timed=8)
+# (dispatch, sequence length) of the training cells
+TRAIN_CELLS = (("grouped", 512), ("sort", 512), ("grouped", 1024))
 # launches per train step (2 layers, relu, k=1), forward + backward
 TRAIN_PER_STEP = {
     "grouped": {"topk_gate": 2, "gather_rows": 2, "grouped_matmul": 4,
@@ -808,17 +1046,26 @@ TRAIN_PER_STEP = {
              "scatter_add_rows": 4}}
 
 
+def train_per_step(mode: str, seq: int) -> dict:
+    """Launches per train step of each kernel; the flash kernels run once
+    per layer in the forward and once each in the backward past q_chunk."""
+    flash = 2 if seq > Q_CHUNK else 0
+    return TRAIN_PER_STEP[mode] | {"flash_fwd": flash, "flash_dq": flash,
+                                   "flash_dkv": flash}
+
+
 def phase_train(torch, smi):
     from repro_torch.launch import train
     steps = TRAIN["warmup"] + TRAIN["timed"]
-    B, S = TRAIN["batch"], TRAIN["seq"]
+    B = TRAIN["batch"]
     names = [k for k, _, _ in COUNTERS]
     totals = dict.fromkeys(names, 0)
     results = {}
     print(f"phase 7: training at full width, f32 masters + bf16 compute, "
-          f"batch {B} x seq {S}, {TRAIN['warmup']} warm-up + "
-          f"{TRAIN['timed']} timed AdamW steps")
-    for mode in ("grouped", "sort"):
+          f"batch {B}, {TRAIN['warmup']} warm-up + {TRAIN['timed']} timed "
+          f"AdamW steps per cell {TRAIN_CELLS}")
+    for mode, S in TRAIN_CELLS:
+        cell = f"{mode} seq {S}"
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -829,25 +1076,25 @@ def phase_train(torch, smi):
                                    dispatch=mode, device="cuda", stats=stats)
         counts = read_counts(names)
         peak = torch.cuda.max_memory_allocated()
-        want = {k: v * steps for k, v in TRAIN_PER_STEP[mode].items()}
+        want = {k: v * steps for k, v in train_per_step(mode, S).items()}
         timed = stats["step_s"][TRAIN["warmup"]:]
         med = statistics.median(timed)
         losses = [h["loss"] for h in history]
-        print(f"  [{smi}] {mode}: median step {1e3 * med:.3f} ms (of "
+        print(f"  [{smi}] {cell}: median step {1e3 * med:.3f} ms (of "
               f"{len(timed)} timed; min {1e3 * min(timed):.3f}, max "
               f"{1e3 * max(timed):.3f}), {B * S / med:.1f} tokens/s, peak "
               f"memory {peak / 2 ** 30:.3f} GiB, launches {counts}")
         print(f"    loss trajectory {[round(v, 4) for v in losses]}")
         for k in counts:
             totals[k] += counts[k]
-        check(counts == want, f"{mode}: training launch counts {counts} != "
+        check(counts == want, f"{cell}: training launch counts {counts} != "
                               f"{want} ({steps} steps)")
         bad = [(h["step"], k) for h in history for k, v in h.items()
                if not math.isfinite(v)]
-        check(not bad, f"{mode}: non-finite metrics {bad}")
+        check(not bad, f"{cell}: non-finite metrics {bad}")
         check(all(h["skipped"] == 0 for h in history),
-              f"{mode}: a step was skipped")
-        results[mode] = dict(step_ms_median=1e3 * med,
+              f"{cell}: a step was skipped")
+        results[cell] = dict(step_ms_median=1e3 * med,
                              step_ms=[1e3 * t for t in stats["step_s"]],
                              tokens_per_s=B * S / med,
                              peak_gib=peak / 2 ** 30, losses=losses)
@@ -859,8 +1106,70 @@ def phase_train(torch, smi):
 # phase 8: card against CPU, one f32 train step's gradients at full width
 # ---------------------------------------------------------------------------
 
+def phase_attention_card_vs_cpu(torch, params, cfg, S: int = 1024):
+    """One full-width attention layer (block 0's f32 weights, batch 1, seq
+    ``S`` > q_chunk, so the flash path) forward and backward, card against
+    CPU: y and the gradients of sum(y * r) with respect to x and the four
+    projections, each within 1e-4 of its max (f32 sums over S keys and
+    2048-wide projections in other orders).  Returns the worst ratio."""
+    from repro_torch.models import attention as A
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(1, S, cfg.d_model, generator=g)
+    r = torch.randn(1, S, cfg.d_model, generator=g)
+    pos = torch.arange(S, dtype=torch.int32)
+    res = []
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev, copy=True).requires_grad_(True)
+             for k, v in params["blocks"][0]["attn"].items()}
+        xx = x.to(dev, copy=True).requires_grad_(True)
+        reset_counts()
+        y, _ = A.full_attention(p, xx, cfg.attention, positions=pos.to(dev))
+        (y * r.to(dev)).sum().backward()
+        res.append([t.detach().cpu() for t in
+                    (y, xx.grad, *(p[k].grad for k in sorted(p)))])
+    counts = read_counts(("flash_fwd", "flash_dq", "flash_dkv"))
+    check(counts == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1},
+          f"attention layer at seq {S}: card launches {counts}")
+    worst = max((a - b).abs().max().item() / a.abs().max().item()
+                for a, b in zip(*res))
+    print(f"  attention layer, seq {S}, full width: y and gradients "
+          f"(x, wk, wo, wq, wv) worst max|d|/max {worst:.2e} (tol 1e-4); "
+          f"card launches {counts}")
+    check(worst <= 1e-4, f"attention layer at seq {S}: card and CPU disagree")
+    return worst
+
+
+def forced_relu_ffn(torch, G, masks):
+    """``grouped_ffn`` for relu experts with each layer's ReLU replaced by
+    the given mask (its value and its derivative), the masks taken in call
+    order: a train step that makes the ReLU decisions of another run."""
+    left = list(masks)
+
+    def fn(params, xs, offsets, act):
+        h = G.grouped_matmul(xs, params["w_up"], offsets)
+        h = torch.where(left.pop(0).to(h.device), h,
+                        torch.zeros((), dtype=h.dtype, device=h.device))
+        return G.grouped_matmul(h, params["w_out"], offsets)
+    return fn
+
+
 def phase_train_card_vs_cpu(torch):
+    """One f32 train step's loss and gradients, card against CPU, at seq 64
+    (both dispatch modes) and seq 1024 (grouped, the flash path).
+
+    Tolerances: loss and grad norm rtol 1e-4; every leaf max|dgrad|/max|grad|
+    <= 1e-3 (f32 sums of up to 50304 terms in other orders).  At 1024
+    tokens a few ReLU pre-activations lie within f32 rounding of 0 and
+    fall on the positive side on one device only (2 units of layer 0 and 1
+    of layer 1 on an H100 at seed 11/12, |pre| <= 2.3e-6); each moves a
+    whole column of that expert's w_up gradient and what flows back from
+    that token.  So the card's step at seq 1024 is replayed with the CPU's
+    ReLU masks forced (``forced_relu_ffn``) and every leaf of that replay
+    is held to the 1e-3 above; the unforced step's leaves are printed.
+    The attention layer this seq exercises is held on its own first
+    (``phase_attention_card_vs_cpu``)."""
     from repro_torch import configs, tree
+    from repro_torch.kernels import grouped_ffn as G
     from repro_torch.models.transformer import init_params
     from repro_torch.optim.adamw import clip_by_global_norm
     from repro_torch.serving.engine import serve_config
@@ -868,47 +1177,97 @@ def phase_train_card_vs_cpu(torch):
     cfg = configs.get_config(ARCH).replace(dtype="float32")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator().manual_seed(11), device="cpu")
-    toks = torch.randint(0, cfg.vocab_size, (1, 65),
-                         generator=torch.Generator().manual_seed(12)).to(
-        torch.int32)
-    print(f"phase 8: f32 train-step gradients, card against CPU, batch 1, "
-          f"seq 64 (weights in {time.perf_counter() - t0:.1f} s); tolerances:"
-          f" loss and grad norm rtol 1e-4, every leaf max|dgrad|/max|grad| "
-          f"<= 1e-3 (f32 sums of up to 50304 terms in other orders)")
-    want = {"grouped": {"grouped_matmul_t": 4, "grouped_drhs": 4,
-                        "scatter_add_rows": 2},
-            "sort": {"grouped_matmul_t": 0, "grouped_drhs": 0,
-                     "scatter_add_rows": 4}}
-    out = {}
-    for mode in ("grouped", "sort"):
-        c = serve_config(cfg, dispatch=mode)
-        res = []
-        for dev in ("cpu", "cuda"):
-            masters = tree.map_(lambda p: p.to(dev, copy=True)
-                                .requires_grad_(True), params)
-            batch = {"inputs": toks[:, :-1].to(dev),
-                     "targets": toks[:, 1:].to(dev),
-                     "loss_mask": torch.ones((1, 64), device=dev)}
-            reset_counts()
+    gen = torch.Generator().manual_seed(12)
+    grouped_matmul, grouped_ffn = G.grouped_matmul, G.grouped_ffn
+
+    def recording(store):
+        """grouped_matmul that keeps its outputs: with relu experts, every
+        other one is a layer's ReLU pre-activations (rows in the stable
+        expert order, the same on both devices)."""
+        def fn(lhs, rhs, offsets):
+            out = grouped_matmul(lhs, rhs, offsets)
+            store.append(out.detach().cpu())
+            return out
+        return fn
+
+    def step(dev, toks, c, S, ffn=None):
+        """(loss, grad norm, gradient leaves on the CPU, pre-activations)."""
+        masters = tree.map_(lambda p: p.to(dev, copy=True)
+                            .requires_grad_(True), params)
+        batch = {"inputs": toks[:, :-1].to(dev),
+                 "targets": toks[:, 1:].to(dev),
+                 "loss_mask": torch.ones((1, S), device=dev)}
+        pre = []
+        G.grouped_matmul = recording(pre)
+        G.grouped_ffn = ffn or grouped_ffn
+        try:
             loss, _, _, grads = loss_and_grads(masters, batch, c)
-            _, gn = clip_by_global_norm(grads, 1.0)
-            res.append((loss.item(), gn.item(),
-                        [g.cpu() for g in tree.leaves(grads)]))
-            del masters, grads
-        counts = read_counts(list(want[mode]))
-        check(counts == want[mode],
-              f"{mode}: card backward launches {counts} != {want[mode]}")
-        (lc, nc, gc), (lg, ng, gg) = res
+        finally:
+            G.grouped_matmul, G.grouped_ffn = grouped_matmul, grouped_ffn
+        _, gn = clip_by_global_norm(grads, 1.0)
+        return (loss.item(), gn.item(), [g.cpu() for g in tree.leaves(grads)],
+                pre[::2])
+
+    def leaf_rel(ga, gb):
         worst = max((a - b).abs().max().item() / max(
-            a.abs().max().item(), 1e-30) for a, b in zip(gc, gg))
+            a.abs().max().item(), 1e-30) for a, b in zip(ga, gb))
+        fro = max(((a - b).norm() / a.norm().clamp(min=1e-30)).item()
+                  for a, b in zip(ga, gb))
+        return worst, fro
+    print(f"phase 8: f32 train-step gradients, card against CPU, batch 1, "
+          f"seq 64 and 1024 (weights in {time.perf_counter() - t0:.1f} s); "
+          f"tolerances: loss and grad norm rtol 1e-4; every leaf "
+          f"max|dgrad|/max|grad| <= 1e-3 (f32 sums of up to 50304 terms in "
+          f"other orders), at seq 1024 in the card's replay with the CPU's "
+          f"ReLU masks (see the docstring)")
+    out = {"attention layer seq 1024 worst_rel":
+           phase_attention_card_vs_cpu(torch, params, cfg)}
+    names = ("grouped_matmul_t", "grouped_drhs", "scatter_add_rows",
+             "flash_fwd", "flash_dq", "flash_dkv")
+    for mode, S in (("grouped", 64), ("sort", 64), ("grouped", 1024)):
+        want = {k: v for k, v in train_per_step(mode, S).items()
+                if k in names}
+        toks = torch.randint(0, cfg.vocab_size, (1, S + 1),
+                             generator=gen).to(torch.int32)
+        c = serve_config(cfg, dispatch=mode)
+        lc, nc, gc, pre_c = step("cpu", toks, c, S)
+        reset_counts()
+        lg, ng, gg, pre_g = step("cuda", toks, c, S)
+        counts = read_counts(names)
+        check(counts == want,
+              f"{mode} seq {S}: card launches {counts} != {want}")
+        worst, fro = leaf_rel(gc, gg)
         rl, rn = abs(lc - lg) / abs(lc), abs(nc - ng) / abs(nc)
-        print(f"  {mode}: loss cpu {lc:.6f} card {lg:.6f} (rel {rl:.2e}); "
-              f"grad norm cpu {nc:.6f} card {ng:.6f} (rel {rn:.2e}); worst "
-              f"leaf max|dgrad|/max|grad| {worst:.2e} over "
-              f"{len(gc)} leaves; card launches {counts}")
-        check(rl <= 1e-4 and rn <= 1e-4 and worst <= 1e-3,
-              f"{mode}: card and CPU gradients disagree")
-        out[mode] = dict(loss_rel=rl, grad_norm_rel=rn, worst_leaf_rel=worst)
+        print(f"  {mode} seq {S}: loss cpu {lc:.6f} card {lg:.6f} (rel "
+              f"{rl:.2e}); grad norm cpu {nc:.6f} card {ng:.6f} (rel "
+              f"{rn:.2e}); worst leaf max|dgrad|/max|grad| {worst:.2e}, "
+              f"relative Frobenius {fro:.2e} over {len(gc)} leaves; card "
+              f"launches {counts}")
+        res = dict(loss_rel=rl, grad_norm_rel=rn, worst_leaf_rel=worst,
+                   worst_leaf_frobenius_rel=fro)
+        check(rl <= 1e-4 and rn <= 1e-4,
+              f"{mode} seq {S}: card and CPU loss or grad norm disagree")
+        if mode == "grouped":
+            flips = [(a > 0) != (b > 0) for a, b in zip(pre_c, pre_g)]
+            near = max((a.abs()[f].max().item() for a, f in
+                        zip(pre_c, flips) if f.any()), default=0.0)
+            res["relu_flips_per_layer"] = [int(f.sum()) for f in flips]
+            print(f"  {mode} seq {S}: ReLU units active on one device and "
+                  f"not the other, per layer: {res['relu_flips_per_layer']}"
+                  f" (largest |pre-activation| among them {near:.2e}, of "
+                  f"max {max(a.abs().max().item() for a in pre_c):.2e})")
+        if S > Q_CHUNK:
+            ffn = forced_relu_ffn(torch, G, [a > 0 for a in pre_c])
+            _, _, gf, _ = step("cuda", toks, c, S, ffn)
+            worst, fro = leaf_rel(gc, gf)
+            res.update(forced_worst_leaf_rel=worst,
+                       forced_worst_leaf_frobenius_rel=fro)
+            print(f"  {mode} seq {S}, the card's step with the CPU's ReLU "
+                  f"masks: worst leaf max|dgrad|/max|grad| {worst:.2e}, "
+                  f"relative Frobenius {fro:.2e} (tol 1e-3)")
+        check(worst <= 1e-3,
+              f"{mode} seq {S}: card and CPU gradients disagree")
+        out[f"{mode} seq {S}"] = res
     del params
     return out
 
@@ -943,6 +1302,7 @@ def main() -> int:
             print(f"    {line.strip()}")
 
     errs = phase_kernels(torch, dev)
+    errs.update(phase_flash_kernels(torch, dev))
     serve_counts, serving = phase_serve(torch, smi)
     phase_card_vs_cpu(torch)
     counts, training = phase_train(torch, smi)
@@ -951,8 +1311,9 @@ def main() -> int:
     profile = phase_profile(torch, smi)
     profile.update(phase_profile_train(torch, smi))
 
-    # launches: the counts of this slice's main path, the two phase-7
-    # training runs (all six kernels run there)
+    # launches: the counts of the main paths, the phase-7 training runs
+    # (each driven with the counts set to 0 just before it and read just
+    # after; all nine kernels run there)
     kernels = []
     for r in rows:
         if any(k["name"] == r["name"] for k in kernels):
@@ -961,6 +1322,10 @@ def main() -> int:
             "name", "route", "source", "replaces", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")}
             | {"launches": counts[r["name"]], "max_abs_err": errs[r["name"]]})
+    check(len(kernels) == len(COUNTERS) and all(k["launches"] > 0
+                                                for k in kernels),
+          f"a kernel was not launched on the main paths: "
+          f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"serving": serving, "serving_launches": serve_counts,
                       "training": training, "train_grads_card_vs_cpu": grads,
                       "timings": rows, "profile": profile}))

@@ -27,7 +27,8 @@ from typing import Optional
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("topk_gate.cu", "layout_transform.cu", "grouped_ffn.cu")
+SOURCES = ("topk_gate.cu", "layout_transform.cu", "grouped_ffn.cu",
+           "flash_attention.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,6 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
+# B, H, KV, Sq, Sk, d, then scale, causal, window, use_window, cap, use_cap
+_FLASH = (_I,) * 6 + (_F, _I, _I, _I, _F, _I, _P)
 SIGNATURES = {
     "topk_gate_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gather_rows": (_P, _P, _P, _LL, _LL, _LL, _P),
@@ -45,6 +49,12 @@ SIGNATURES = {
     "grouped_drhs_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "grouped_drhs_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "scatter_add_rows": (_P, _P, _P, _P, _LL, _LL, _LL, _I, _P),
+    "flash_fwd_bf16": (_P,) * 7 + _FLASH,
+    "flash_fwd_f32": (_P,) * 7 + _FLASH,
+    "flash_dq_bf16": (_P,) * 9 + _FLASH,
+    "flash_dq_f32": (_P,) * 9 + _FLASH,
+    "flash_dkv_bf16": (_P,) * 10 + _FLASH,
+    "flash_dkv_f32": (_P,) * 10 + _FLASH,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,7 +1,7 @@
 """Serving entry point: prefill a batch of prompts, decode with batched steps.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hetumoe-paper-16e \\
-      --batch 8 --prompt-len 512 --gen 32 --dispatch grouped
+      --batch 8 --prompt-len 1024 --gen 32 --dispatch grouped
 
 Runs on the GPU unless ``--device cpu`` is given.  The weights are drawn
 from a ``torch.Generator`` seeded with ``--seed`` on the device, and the

@@ -2,7 +2,7 @@
 device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch hetumoe-paper-16e \\
-      --steps 10 --batch 8 --seq 512
+      --steps 10 --batch 8 --seq 1024
 
 Runs on the GPU unless ``--device cpu`` is given.  The f32 master weights
 are drawn from a ``torch.Generator`` seeded with ``--seed`` on the device;

@@ -1,10 +1,15 @@
 """Grouped-query attention with RoPE and KV caches — the port of
-``repro/models/attention.py`` for prompts of at most ``q_chunk`` tokens.
+``repro/models/attention.py`` on one device.
 
-Longer prompts take the flash-attention kernel in the reference
-(``full_attention`` at S > q_chunk); that kernel comes with the flash
-slice, so here they raise rather than run the chunked baseline in its
-place.  Ring (sliding-window) caches come with the windowed presets.
+``full_attention`` (training, prefill) takes two paths, as the
+reference's does: up to ``q_chunk`` tokens the plain ``_attend`` (scores
+and softmax in f32, the value product with p rounded to v's dtype);
+longer sequences the flash-attention kernels
+(``kernels/flash_attention.py``: forward, dq and dk/dv, every product in
+f32), differentiable through their ``autograd.Function``.  Decode steps
+attend over the cache with ``_attend``.  The reference's chunked
+``REPRO_FLASH=0`` baseline, its context-parallel (``mesh``) flash and ring
+(sliding-window) caches are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.config import AttentionConfig
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import rms_norm, softcap as _softcap
 
 
@@ -90,19 +96,31 @@ def full_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                    causal: bool = True, window: Optional[int] = None,
                    q_chunk: int = 512
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Prefill pass for S <= q_chunk.  Returns (y, kv) — kv fills caches."""
+    """Train/prefill pass.  Returns (y, kv) — kv fills caches."""
     B, S, d = x.shape
-    if S > q_chunk:
-        raise NotImplementedError(
-            f"prompt length {S} > q_chunk={q_chunk}: the reference runs its "
-            f"flash-attention kernel here, which comes with the flash slice "
-            f"(ROADMAP.md)")
     q, k, v = _qkv(params, x, cfg, positions[None, :])
+    scale = q.shape[-1] ** -0.5
     win = window if window is not None else cfg.window
-    o = _attend(q, k, v, positions, positions, causal=causal, window=win,
-                cap=cfg.attn_softcap, scale=q.shape[-1] ** -0.5)
+    if S > q_chunk:
+        o = _flash_path(q, k, v, positions, causal=causal, window=win,
+                        cap=cfg.attn_softcap, scale=scale)
+    else:
+        o = _attend(q, k, v, positions, positions, causal=causal, window=win,
+                    cap=cfg.attn_softcap, scale=scale)
     y = o.reshape(B, S, -1).to(x.dtype) @ params["wo"].to(x.dtype)
     return y, {"k": k, "v": v}
+
+
+def _flash_path(q, k, v, positions, *, causal, window, cap, scale):
+    """The flash kernels over (B, S, H, hd) q and (B, S, KV, hd) k, v: to
+    the kernels' head-major layout and back, as the reference's
+    one-device ``_flash_path``."""
+    def heads(t):
+        return t.transpose(1, 2).contiguous()
+    pos = positions.to(torch.int32)
+    o = flash_attention(heads(q), heads(k), heads(v), pos, pos, scale,
+                        causal, window, cap)
+    return o.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------

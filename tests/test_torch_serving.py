@@ -100,6 +100,34 @@ def test_greedy_generate_matches_reference(jax_params, mesh1, dispatch):
     np.testing.assert_array_equal(t, j)
 
 
+@pytest.mark.parametrize("dispatch", ["grouped", "sort"])
+def test_long_prefill_logits_match_reference_f32(jax_params, mesh1,
+                                                 dispatch):
+    """A 600-token prompt (over q_chunk=512) takes the flash path on both
+    sides: the port's kernels' plain versions against the reference's
+    Pallas flash kernel in interpret mode.  f32 logits at every position,
+    atol 1e-4, as the short prefill."""
+    jc, tc = _cfgs(dispatch=dispatch)
+    toks = _prompt(B=1, S=600)
+    np.testing.assert_allclose(_port_logits(_port(jax_params, tc), toks),
+                               _jax_logits(jax_params, jc, toks, mesh1),
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dispatch", ["grouped", "sort"])
+def test_long_prompt_greedy_generate_matches_reference(jax_params, mesh1,
+                                                       dispatch):
+    """Greedy token ids equal over 4 steps after a flash-path prefill of
+    520 tokens, f32, then decode steps over a cache of 524."""
+    jc, tc = _cfgs(dispatch=dispatch)
+    toks = _prompt(B=1, S=520)
+    j = np.asarray(jengine.generate(jax_params, jc, jnp.asarray(toks),
+                                    steps=4, mesh=mesh1))
+    t = engine.generate(_port(jax_params, tc), torch.from_numpy(toks).long(),
+                        steps=4).numpy()
+    np.testing.assert_array_equal(t, j)
+
+
 def test_decode_step_matches_reference_expert_tp_quirk(jax_params, mesh1):
     """The reference's decode at mesh (1, 1) takes the expert-TP branch at
     degree 1 (an identity there, with two extra row gathers); the port has
@@ -156,17 +184,23 @@ def test_serve_cli_rejects_unported_flags(argv):
         serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", *argv])
 
 
-def test_generate_validates_like_reference():
-    _, tc = _cfgs()
+def test_generate_validates_like_reference(jax_params, mesh1):
+    """The reference's argument checks raise the same errors; a prompt of
+    513 tokens, one past q_chunk, is served through the flash path and
+    gives the reference's greedy tokens (f32)."""
+    jc, tc = _cfgs()
     model = Transformer(tc, device="cpu")
     prompt = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(ValueError, match="valid options"):
         engine.generate(model, prompt, steps=2, dispatch="scatter")
     with pytest.raises(ValueError, match="cache_len"):
         engine.generate(model, prompt, steps=2, cache_len=1)
-    with pytest.raises(NotImplementedError, match="flash"):
-        engine.generate(model, torch.zeros((1, 513), dtype=torch.long),
-                        steps=1)
+    toks = _prompt(B=1, S=513)
+    j = np.asarray(jengine.generate(jax_params, jc, jnp.asarray(toks),
+                                    steps=2, mesh=mesh1))
+    t = engine.generate(_port(jax_params, tc), torch.from_numpy(toks).long(),
+                        steps=2).numpy()
+    np.testing.assert_array_equal(t, j)
 
 
 @pytest.mark.parametrize("act", ["relu", "swiglu", "gelu"])

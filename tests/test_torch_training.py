@@ -252,6 +252,45 @@ def _port_state(jax_init, tc, tcfg):
                                device="cpu")
 
 
+def _train_steps_match(mesh1, jax_init, dispatch, *, steps, batch, seq,
+                       microbatches=1):
+    """``steps`` f32 AdamW steps of the smoke model on both sides from the
+    same parameters and SyntheticLM batches; the tolerances are
+    ``test_train_steps_match_reference``'s."""
+    jc, tc = _jcfg(dispatch), _tcfg(dispatch)
+    kw = dict(learning_rate=3e-3, warmup_steps=1, total_steps=steps,
+              microbatches=microbatches)
+    jtc, ttc = jconfig.TrainConfig(**kw), TrainConfig(**kw)
+    jstate = jts.TrainState(
+        jax.tree.map(jnp.asarray, jax_init),
+        jadamw.init_opt_state(jax.tree.map(jnp.asarray, jax_init), jtc),
+        jnp.zeros((), jnp.int32), skipped=jnp.zeros((), jnp.int32),
+        nonfinite_streak=jnp.zeros((), jnp.int32),
+        good_streak=jnp.zeros((), jnp.int32), loss_scale=jnp.float32(1.0))
+    tstate = _port_state(jax_init, tc, ttc)
+    jstep = jax.jit(jts.make_train_step(jc, jtc, mesh1))
+    tstep = ts.make_train_step(tc, ttc)
+    jd = JSyntheticLM(jc, batch, seq)
+    td = SyntheticLM(tc, batch, seq, device="cpu")
+    lrs = 0.0
+    for s in range(steps):
+        jstate, jm = jstep(jstate, jd.next_batch(s), RNG)
+        tstate, tm = tstep(tstate, td.next_batch(s))
+        for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=2e-6, atol=1e-9,
+                                       err_msg=f"step {s} {k}")
+        assert float(tm["skipped"]) == 0
+        lrs += float(jm["lr"])
+    assert int(tstate.opt["count"]) == steps and int(tstate.step) == steps
+    want = jax.tree.leaves(jax.tree.map(np.asarray, jstate.params))
+    got = jax.tree.leaves(params_to_numpy(tstate.params, tc))
+    diff = np.concatenate([np.abs(a - b).ravel() for a, b in zip(want, got,
+                                                                strict=True)])
+    assert (diff > 1e-5).mean() <= 1e-4, (diff > 1e-5).sum()
+    assert diff.max() <= 2 * lrs, diff.max()
+
+
 @pytest.mark.parametrize("dispatch,microbatches", [("grouped", 1),
                                                    ("sort", 1),
                                                    ("grouped", 2)])
@@ -264,37 +303,44 @@ def test_train_steps_match_reference(mesh1, jax_init, dispatch,
     the elements, and those within 2·Σlr — Adam's first steps move a
     parameter by about ±lr wherever |grad| ≫ eps, so a gradient near 0
     that differs in its last bits can flip the direction of one step."""
-    jc, tc = _jcfg(dispatch), _tcfg(dispatch)
-    kw = dict(learning_rate=3e-3, warmup_steps=1, total_steps=3,
-              microbatches=microbatches)
-    jtc, ttc = jconfig.TrainConfig(**kw), TrainConfig(**kw)
-    jstate = jts.TrainState(
-        jax.tree.map(jnp.asarray, jax_init),
-        jadamw.init_opt_state(jax.tree.map(jnp.asarray, jax_init), jtc),
-        jnp.zeros((), jnp.int32), skipped=jnp.zeros((), jnp.int32),
-        nonfinite_streak=jnp.zeros((), jnp.int32),
-        good_streak=jnp.zeros((), jnp.int32), loss_scale=jnp.float32(1.0))
-    tstate = _port_state(jax_init, tc, ttc)
-    jstep = jax.jit(jts.make_train_step(jc, jtc, mesh1))
-    tstep = ts.make_train_step(tc, ttc)
-    jd, td = JSyntheticLM(jc, 4, 32), SyntheticLM(tc, 4, 32, device="cpu")
-    lrs = 0.0
-    for s in range(3):
-        jstate, jm = jstep(jstate, jd.next_batch(s), RNG)
-        tstate, tm = tstep(tstate, td.next_batch(s))
-        for k in ("loss", "ce", "aux", "grad_norm", "lr"):
-            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
-                                       rtol=2e-6, atol=1e-9,
-                                       err_msg=f"step {s} {k}")
-        assert float(tm["skipped"]) == 0
-        lrs += float(jm["lr"])
-    assert int(tstate.opt["count"]) == 3 and int(tstate.step) == 3
-    want = jax.tree.leaves(jax.tree.map(np.asarray, jstate.params))
-    got = jax.tree.leaves(params_to_numpy(tstate.params, tc))
-    diff = np.concatenate([np.abs(a - b).ravel() for a, b in zip(want, got,
-                                                                strict=True)])
-    assert (diff > 1e-5).mean() <= 1e-4, (diff > 1e-5).sum()
-    assert diff.max() <= 2 * lrs, diff.max()
+    _train_steps_match(mesh1, jax_init, dispatch, steps=3, batch=4, seq=32,
+                       microbatches=microbatches)
+
+
+@pytest.mark.parametrize("dispatch", ["grouped", "sort"])
+def test_long_sequence_train_steps_match_reference(mesh1, jax_init,
+                                                   dispatch):
+    """Two f32 AdamW steps at batch 1 × seq 640, over q_chunk=512: the
+    attention and its backward take the flash path on both sides (the
+    port's forward, dq and dk/dv plain versions through
+    ``FlashAttention``; the reference's Pallas kernels in interpret mode
+    through its ``custom_vjp``), at the tolerances of
+    ``test_train_steps_match_reference``."""
+    _train_steps_match(mesh1, jax_init, dispatch, steps=2, batch=1, seq=640)
+
+
+def test_train_step_goes_through_the_flash_wrappers(monkeypatch):
+    """The flash wrappers are called as often as chip_smoke.py expects the
+    kernels to launch on the card: per train step of 2 layers at seq 640,
+    forward 2, dq 2, dk/dv 2; at seq 16 (<= q_chunk) none."""
+    from repro_torch.kernels import flash_attention as F
+    calls = {}
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        fn = getattr(F, name)
+
+        def wrapped(*a, _fn=fn, _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a)
+        monkeypatch.setattr(F, name, wrapped)
+    tc = _tcfg("grouped")
+    tcfg = TrainConfig(total_steps=2, warmup_steps=1)
+    step = ts.make_train_step(tc, tcfg)
+    for seq, want in ((16, {}), (640, {"flash_fwd": 2, "flash_dq": 2,
+                                       "flash_dkv": 2})):
+        calls.clear()
+        state = ts.init_train_state(tc, tcfg, device="cpu")
+        step(state, SyntheticLM(tc, 1, seq, device="cpu").next_batch(0))
+        assert calls == want, (seq, calls)
 
 
 def test_microbatches_two_equal_one(jax_init):
