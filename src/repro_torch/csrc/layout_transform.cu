@@ -142,6 +142,66 @@ extern "C" int scatter_add_rows(const void* g, const void* idx, void* acc,
   return (int)cudaGetLastError();
 }
 
+// gather_rows_rowstep replaces the TPU kernel repro/kernels/
+// layout_transform.py: _gather_row_kernel (pallas_call in
+// gather_rows_rowstep), the seed's tiling kept as the benchmark baseline of
+// the blocked gather (bench_layout's speedup_vs_rowstep): out[i] =
+// src[idx[i]], a zero row where idx[i] < 0 (or >= N, so that nothing is
+// read out of bounds).
+//
+// Bound on the H100: bytes, as the gather's (32 MiB at M=4096 rows of 4 KiB
+// bf16: 10.0 us).  Design: the seed's tiling is what this kernel exists to
+// measure, so it keeps it: one block per output row (grid (M,)), whose
+// threads copy that one row, 16-byte vectors where the row width and the
+// pointers allow, else one element per load.  It shares no code with
+// gather_rows_kernel, so that its time is its own.
+template <typename U>
+__global__ void gather_rowstep_kernel(const U* __restrict__ src,
+                                      const int* __restrict__ idx,
+                                      U* __restrict__ out, long long N,
+                                      long long units) {
+  const long long row = blockIdx.x;
+  const int r = idx[row];
+  U* o = out + row * units;
+  if (r < 0 || r >= N) {
+    const U zero{};
+    for (long long c = threadIdx.x; c < units; c += blockDim.x) o[c] = zero;
+    return;
+  }
+  const U* s = src + (long long)r * units;
+  for (long long c = threadIdx.x; c < units; c += blockDim.x) o[c] = s[c];
+}
+
+template <typename U>
+static void launch_rowstep(const void* src, const void* idx, void* out,
+                           long long N, long long M, long long row_bytes,
+                           cudaStream_t stream) {
+  const long long units = row_bytes / (long long)sizeof(U);
+  const int threads = units >= 256 ? 256 : (int)((units + 31) / 32 * 32);
+  gather_rowstep_kernel<U><<<(unsigned int)M, threads, 0, stream>>>(
+      (const U*)src, (const int*)idx, (U*)out, N, units);
+}
+
+// src (N, d) and out (M, d) of elements of elem_bytes (2: bf16, 4: f32)
+extern "C" int gather_rows_rowstep(const void* src, const void* idx,
+                                   void* out, long long N, long long M,
+                                   long long d, int elem_bytes,
+                                   void* stream) {
+  if (M == 0 || d == 0) return 0;
+  if (M > 2147483647LL || (elem_bytes != 2 && elem_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  const long long row_bytes = d * elem_bytes;
+  const uintptr_t a = (uintptr_t)src | (uintptr_t)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (row_bytes % 16 == 0 && a % 16 == 0)
+    launch_rowstep<uint4>(src, idx, out, N, M, row_bytes, s);
+  else if (elem_bytes == 4)
+    launch_rowstep<unsigned int>(src, idx, out, N, M, row_bytes, s);
+  else
+    launch_rowstep<unsigned short>(src, idx, out, N, M, row_bytes, s);
+  return (int)cudaGetLastError();
+}
+
 // Message for a code returned by any entry point of this library.
 extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -5,8 +5,9 @@ for ``sm_90a`` (Hopper; ``-gencode arch=compute_90a,code=sm_90a -std=c++17
 -O3 -Xcompiler -fPIC``), and the objects are linked with ``-shared`` into one
 library with a plain C interface under ``build/repro_torch/`` at the repo
 root (``.gitignore`` lists it).  The library's name carries a hash of the
-sources and flags, so an edited source builds anew at first use and an
-unchanged one is loaded as it is.  It is bound with ``ctypes``: every
+sources, the headers beside them (``csrc/*.cuh``) and the flags, so an
+edited source builds anew at first use and an unchanged one is loaded as
+it is.  It is bound with ``ctypes``: every
 pointer and the stream are ``c_void_p``; every entry point returns
 ``cudaGetLastError()`` and :func:`check` raises when that is not 0.
 
@@ -42,6 +43,7 @@ _FLASH = (_I,) * 6 + (_F, _I, _I, _I, _F, _I, _P)
 SIGNATURES = {
     "topk_gate_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gather_rows": (_P, _P, _P, _LL, _LL, _LL, _P),
+    "gather_rows_rowstep": (_P, _P, _P, _LL, _LL, _LL, _I, _P),
     "grouped_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "grouped_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "grouped_matmul_t_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -79,7 +81,8 @@ def _nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    headers = sorted(p.name for p in CSRC.glob("*.cuh"))
+    for name in (*SOURCES, *headers):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"

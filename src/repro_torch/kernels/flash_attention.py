@@ -9,14 +9,18 @@ q (B, H, Sq, d), k and v (B, KV, Sk, d), head ``h`` reading kv head
 ``h // (H / KV)``; positions are int32 (Sq,) and (Sk,).  The forward
 returns o in q's dtype and the per-row logsumexp in f32; the backward
 takes Δ = rowsum(dO∘O) and gives dq, and dk, dv summed over the G = H/KV
-query heads of each kv head.  Every product is in f32 (bf16 inputs
-widened exactly), as in the reference kernels, which is what sets this
-path apart from the chunked ``_attend`` (that one rounds p to v's dtype).
+query heads of each kv head.  p and dS stay in f32 (bf16 inputs widened
+exactly), as in the reference kernels, which is what sets this path apart
+from the chunked ``_attend`` (that one rounds p to v's dtype).
 
 ``flash_attention`` is differentiable through the dq and dk/dv kernels,
 as the reference's ``custom_vjp`` is.  The reference's ``block_q`` is a
 TPU tiling knob; the CUDA kernels pick their own 64-row tiles, which
-changes only the order of the f32 sums.
+changes only the order of the f32 sums.  The forward skips the k tiles
+that no row of a group of its queries may see (:func:`visited_k_tiles`
+is the plain twin of its rule), and in bf16 runs P·V on the tensor cores
+with p split into two bf16 parts, p = hi + lo, leaving at most 2⁻¹⁶·|p|
+of p out.
 """
 from __future__ import annotations
 
@@ -45,6 +49,39 @@ def _mask(q_pos, k_pos, causal: bool, window: Optional[int]):
     if window is not None:
         m = m & (k_pos[None, :] > q_pos[:, None] - window)
     return m
+
+
+TILE = 64              # FA_TILE in csrc/flash_attention.cu: keys per tile
+GROUP = 16             # FB_GROUP: query rows of a warp of the bf16 forward
+
+
+def visited_k_tiles(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                    window: Optional[int], rows: int = GROUP) -> torch.Tensor:
+    """(ceil(Sq/rows), ceil(Sk/64)) bool: the 64-key tiles each group of
+    ``rows`` queries visits in the CUDA forward — the plain twin of
+    ``plan_k_tiles`` (groups of 16 rows in bf16, of 64 in f32).  Every
+    tile when a row of the group has no allowed key (the reference then
+    gives it p = 1 for every key); else each tile holding a valid key at
+    most the group's largest q position (causal) and above its smallest
+    minus the window (window)."""
+    Sq, Sk = q_pos.shape[0], k_pos.shape[0]
+    allowed = _mask(q_pos, k_pos, causal, window).expand(Sq, Sk)
+    nk = -(-Sk // TILE)
+    kp = torch.nn.functional.pad(k_pos.long(), (0, nk * TILE - Sk),
+                                 value=-1)
+    out = []
+    for q0 in range(0, Sq, rows):
+        qp = q_pos[q0:q0 + rows].long()
+        if not bool(allowed[q0:q0 + rows].any(dim=1).all()):
+            out.append(torch.ones(nk, dtype=torch.bool))
+            continue
+        ok = kp >= 0
+        if causal:
+            ok = ok & (kp <= qp.max())
+        if window is not None:
+            ok = ok & (kp > qp.min() - window)
+        out.append(ok.reshape(nk, TILE).any(dim=1).cpu())
+    return torch.stack(out)
 
 
 def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:

@@ -8,11 +8,15 @@ CUDA kernels of ``csrc/grouped_ffn.cu``.  On the H100 the prefill and
 training products (M=4096, K=N=2048, E=16) are bound by bytes: the
 forward and dlhs by the 128 MiB of expert weights, drhs by its 256 MiB
 f32 output; decode reads at most one expert's weights per routed token.
-Design: a 64x64 output tile per block, masked per-expert loops
-accumulating in f32 (bf16 on the tensor cores through WMMA, f32 with
-FMAs); dlhs reads the weights transposed tile by tile (no transposed copy
-in device memory); drhs gives each block one tile of one expert's
-gradient and walks that expert's rows; see the source.
+Design of the forward and dlhs: a tile schedule over (segment, row tile,
+column tile) that each block finds on the device from ``offsets``
+(:func:`tile_schedule` is its plain twin), on a grid fixed by M, N and E
+alone, so no launch reads the offsets on the host; one expert per block;
+a cp.async-pipelined mma.sync main loop (bf16 in, f32 accumulators) on
+128x128 tiles, or 16x64 tiles for decode-sized M (:func:`block_m`); f32
+keeps FMAs.  dlhs reads the weights transposed tile by tile (no
+transposed copy in device memory); drhs gives each block one tile of one
+expert's gradient and walks that expert's rows; see the source.
 ``grouped_matmul`` is differentiable through dlhs and drhs, as the
 reference's ``custom_vjp`` is.  The reference's ``grouped_block_m`` is a
 TPU tiling knob — the port resolves it for config parity, but these
@@ -30,6 +34,35 @@ MAX_EXPERTS = 1024     # GMM_MAX_E in csrc/grouped_ffn.cu
 launches = 0           # forward kernel launches since the caller last reset
 dlhs_launches = 0      # transposed-rhs (dlhs) kernel launches, likewise
 drhs_launches = 0      # drhs kernel launches, likewise
+
+
+SMALL_M = 256          # SMALL_M in csrc/grouped_ffn.cu
+
+
+def block_m(M: int, dtype: torch.dtype) -> int:
+    """Rows per tile of the forward and dlhs kernels: 16 for bf16 at M <=
+    SMALL_M (decode), else 128; 64 for f32."""
+    if dtype == torch.float32:
+        return 64
+    return 16 if M <= SMALL_M else 128
+
+
+def tile_schedule(offsets, M: int, bm: int) -> list:
+    """The forward and dlhs kernels' row tiles, in schedule order, as
+    (expert, row0, row1) with expert -1 for a tile of zero rows — the plain
+    twin of ``find_tile`` in ``csrc/grouped_ffn.cu``.  Offsets clamped
+    into [0, M] cut the rows into a zero head [0, c_0), expert e's
+    [c_e, c_{e+1}) and a zero tail [c_E, M); each is cut into ``bm``-row
+    tiles from its first row, so there are at most ceil(M/bm) + E + 1
+    (the kernels' grid)."""
+    c = [min(max(int(x), 0), M) for x in offsets]
+    E = len(c) - 1
+    bounds = [(-1, 0, c[0])] + [(e, c[e], c[e + 1]) for e in range(E)] + [
+        (-1, c[E], M)]
+    tiles = []
+    for e, lo, hi in bounds:
+        tiles += [(e, r, min(hi, r + bm)) for r in range(lo, max(hi, lo), bm)]
+    return tiles
 
 
 def _segments(offsets: torch.Tensor, M: int):

@@ -14,6 +14,12 @@ dtype.  The same gather runs the grouped dispatch, the sort dispatch
 (inverse row map) and the sort combine (slot map); ``gather_rows`` is
 differentiable, with the scatter-add as its backward, as the reference's
 ``custom_vjp`` is.
+
+``gather_rows_rowstep`` replaces the seed's row-per-step kernel
+``_gather_row_kernel``, the baseline that ``benchmarks/bench_layout.py``
+measures the blocked gather against: one CUDA block per output row, its
+own kernel (no code shared with the gather), no backward.  It is on no
+serving or training path.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from repro_torch.kernels import build
 
 launches = 0           # gather kernel launches since the caller last reset it
 scatter_launches = 0   # scatter-add kernel launches, likewise
+rowstep_launches = 0   # row-per-step gather kernel launches, likewise
 
 
 def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -77,6 +84,46 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather_rows: src on {src.device}, idx on "
                          f"{idx.device}")
     return _GatherRows.apply(src, idx)
+
+
+def gather_rows_rowstep_plain(src: torch.Tensor,
+                              idx: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of ``gather_rows_rowstep``: the wrapper's
+    path for a CPU tensor (the same function as ``gather_rows_plain``)."""
+    return gather_rows_plain(src, idx)
+
+
+def gather_rows_rowstep(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out (M, d) with out[i] = src[idx[i]] (0 where idx[i] < 0); src (N, d)
+    bfloat16 or float32, idx (M,) int32.  The seed's one-row-per-step
+    kernel, kept as a benchmark baseline; it has no backward, as the
+    reference has none."""
+    global rowstep_launches
+    if src.dim() != 2 or idx.dim() != 1 or idx.dtype != torch.int32:
+        raise ValueError(f"gather_rows_rowstep: need src (N, d) and idx (M,) "
+                         f"int32, got {tuple(src.shape)} and "
+                         f"{tuple(idx.shape)} {idx.dtype}")
+    if src.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gather_rows_rowstep: src must be bfloat16 or "
+                         f"float32, got {src.dtype}")
+    if idx.device != src.device:
+        raise ValueError(f"gather_rows_rowstep: src on {src.device}, idx on "
+                         f"{idx.device}")
+    build.reject_grad("gather_rows_rowstep", src)
+    if not build.dispatch_device("gather_rows_rowstep", src):
+        return gather_rows_rowstep_plain(src, idx)
+    if not (src.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("gather_rows_rowstep: src and idx must be "
+                         "contiguous")
+    N, d = src.shape
+    M = idx.shape[0]
+    out = torch.empty((M, d), dtype=src.dtype, device=src.device)
+    rc = build.load().gather_rows_rowstep(
+        build.ptr(src), build.ptr(idx), build.ptr(out), N, M, d,
+        src.element_size(), build.stream(src))
+    build.check(rc, "gather_rows_rowstep")
+    rowstep_launches += 1
+    return out
 
 
 def scatter_add_rows_plain(g: torch.Tensor, idx: torch.Tensor,
