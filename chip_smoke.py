@@ -27,9 +27,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    of 64 and 600 tokens (the flash path), prefill last-token logits from
    the card (kernels) and the CPU (plain versions), both dispatch modes.
 5. Per-kernel timings at the main paths' shapes (CUDA events, median of
-   batches after warm-up) beside the bound, the plain version and the
-   nearest single PyTorch call (SDPA for the flash kernels); the
-   row-per-step gather beside the blocked one, with their ratio.
+   batches after warm-up; device-only from CUDA-graph replays, for the
+   kernel and for the library call) beside the bound, the plain version
+   and the nearest single PyTorch call (SDPA for the flash kernels); for
+   the flash kernels the bound of their own arithmetic over the tiles they
+   visit; the row-per-step gather beside the blocked one, with their
+   ratio.
 6. Where the time goes: a profiled prefill and decode steps per serving
    cell (wall time, kernel time, the device's idle share, top kernels),
    and the host's waits for the device in a forward, which must be none;
@@ -118,17 +121,20 @@ def time_ms(torch, fn, *, batches: int = 25, per_batch: int = 10,
     return statistics.median(times)
 
 
-def graph_ms(torch, fn, *, reps: int = 25, per_graph: int = 10):
+def graph_ms(torch, fn, *, reps: int = 25, per_graph: int = 10,
+             stream=None):
     """Device time per call from CUDA-graph replays (no host launch cost),
-    or None when the call cannot be captured."""
+    or None when the call cannot be captured.  ``stream``: the stream to
+    capture on (a backward runs on its forward's stream, so a backward is
+    captured on the stream its forward ran on)."""
     try:
-        side = torch.cuda.Stream()
+        side = stream or torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             fn()
         torch.cuda.current_stream().wait_stream(side)
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with torch.cuda.graph(g, stream=stream):
             for _ in range(per_graph):
                 fn()
     except RuntimeError as e:
@@ -450,47 +456,57 @@ FLASH_CASES = [
 ]
 
 
-def flash_order_bounds(torch, F, q, k, v, do, lse, q_pos, k_pos, st):
-    """Per-element f32 summation-order bounds of o, dq, dk and dv between
-    the kernels and their plain versions on the same inputs (the same o,
-    lse and delta for the backward): a score adds d products in another
-    order (|ds| <= d*2^-24*SA, SA = scale*|q|.|k|), which moves p by that
-    much relatively; dP likewise (d*2^-24*A, A = |dO|.|v|), so dS moves by
-    p*(A + D)*d*2^-24*(1 + SA) with |dS| <= p*(A + D), D = sum|dO*o|; then
-    the sums over Sk keys (o, dq) or G*Sq queries (dk, dv) add their own
-    length times 2^-24 of the sum of |terms|.  Twice the first-order terms:
+def flash_order_bounds(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st):
+    """Per-element bounds of o, dq, dk and dv between the bf16 kernels and
+    their plain versions on the same inputs (the same o, lse and delta for
+    the backward).  First the f32 summation order: a score adds d products
+    in another order (|ds| <= d*2^-24*SA, SA = scale*|q|.|k|), which moves
+    p by that much relatively; dP likewise (d*2^-24*A, A = |dO|.|v|), so dS
+    moves by p*(A + D)*d*2^-24*(1 + SA) with |dS| <= p*(A + D), D =
+    sum|dO*o|; then the sums over Sk keys (o, dq) or G*Sq queries (dk, dv)
+    add their own length times 2^-24 of the sum of |terms|.  Twice the
+    first-order terms:
       o   2*(Sk + 2d*max_k SA)*2^-24 * (p@|v|)/l
       dq  2*2^-24*scale * (p*(A + D)*(d*(1 + SA) + Sk)) @ |k|
       dk  2*2^-24*scale * sum_g (p*(A + D)*(d*(1 + SA) + G*Sq))^T @ |q|
       dv  2*2^-24 * sum_g (p*(G*Sq + d*SA))^T @ |dO|
-    and, fifth, the bf16 forward's split of p: P v runs as (hi + lo) v with
-    hi = bf16(p), lo = bf16(p - hi), which leaves out at most 2^-16*p of
-    each p, so o moves by at most 2^-16 * (p@|v|)/l."""
+    Then the split x = hi + lo of the f32 factor of each tensor-core
+    product (hi = bf16(x), lo = bf16(x - hi)), which leaves out at most
+    2^-16*|x| of each x: P v in the forward, dS k in dq, dS^T q and P^T dO
+    in dk/dv:
+      o   2^-16 * (p@|v|)/l
+      dq  2^-16*scale * |dS| @ |k|
+      dk  2^-16*scale * sum_g |dS|^T @ |q|
+      dv  2^-16 * sum_g p^T @ |dO|"""
     B, H, Sq, d = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    G, scale, u = H // KV, st[0], 2.0 ** -24
+    G, scale, u, r = H // KV, st[0], 2.0 ** -24, 2.0 ** -16
     gq, gdo = F._grouped(q, KV), F._grouped(do, KV)
+    ak = k.float().abs()
     s, _, _ = F._scores(q, k, q_pos, k_pos, *st)
-    sa = torch.einsum("bkgqd,bksd->bkgqs", gq.abs(), k.float().abs()) * scale
+    sa = torch.einsum("bkgqd,bksd->bkgqs", gq.abs(), ak) * scale
     p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None])
     del s
     pv = torch.einsum("bkgqs,bksd->bkgqd", p, v.float().abs())
-    o_b = (2 * (Sk + 2 * d * sa.amax(-1, keepdim=True)) * u * pv).reshape(
-        q.shape)
+    o_b = ((2 * (Sk + 2 * d * sa.amax(-1, keepdim=True)) * u + r) * pv
+           ).reshape(q.shape)
+    del pv
     o_plain, _ = F.flash_fwd_plain(q, k, v, q_pos, k_pos, *st)
     a = torch.einsum("bkgqd,bksd->bkgqs", gdo.abs(), v.float().abs())
     dsum = (gdo.abs() * F._grouped(o_plain, KV).abs()).sum(-1)[..., None]
     w = p * (a + dsum)
     wd = d * (1 + sa)
     del a
-    dq_b = (2 * u * scale * torch.einsum(
-        "bkgqs,bksd->bkgqd", w * (wd + Sk), k.float().abs())).reshape(q.shape)
-    dk_b = 2 * u * scale * torch.einsum(
-        "bkgqs,bkgqd->bksd", w * (wd + G * Sq), gq.abs())
-    del w, wd
-    dv_b = 2 * u * torch.einsum("bkgqs,bkgqd->bksd", p * (G * Sq + d * sa),
-                                gdo.abs())
-    return o_b, dq_b, dk_b, dv_b, (pv / 2 ** 16).reshape(q.shape)
+    ads = F._probs_and_ds(q, k, v, do, lse, delta, q_pos, k_pos, *st)[1].abs()
+    dq_b = scale * torch.einsum("bkgqs,bksd->bkgqd",
+                                2 * u * w * (wd + Sk) + r * ads, ak
+                                ).reshape(q.shape)
+    dk_b = scale * torch.einsum("bkgqs,bkgqd->bksd",
+                                2 * u * w * (wd + G * Sq) + r * ads, gq.abs())
+    del w, wd, ads
+    dv_b = torch.einsum("bkgqs,bkgqd->bksd",
+                        p * (2 * u * (G * Sq + d * sa) + r), gdo.abs())
+    return o_b, dq_b, dk_b, dv_b
 
 
 def flash_bf16p_plain(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st):
@@ -524,10 +540,11 @@ def phase_flash_kernels(torch, dev):
     print("phase 2g-2i: flash forward (o, lse), dq, dk/dv against their plain "
           "versions on the same inputs (the backward's o, lse and delta "
           "from the plain forward). f32: rtol/atol 1e-4; bf16: within 1 ulp "
-          "of the plain result plus the f32 summation-order bound "
-          "(flash_order_bounds; for o plus 2^-16*(p@|v|)/l, what the "
-          "forward's p = hi + lo split leaves out), and where Sk > 1 a "
-          "Frobenius distance "
+          "of the plain result plus the f32 summation-order bound and what "
+          "the split x = hi + lo of p and dS leaves out (flash_order_bounds:"
+          " 2^-16*(p@|v|)/l for o, 2^-16*scale*|dS|@|k| for dq, "
+          "2^-16*scale*|dS|^T@|q| for dk, 2^-16*p^T@|dO| for dv), and where "
+          "Sk > 1 a Frobenius distance "
           "from the plain result at most 1/4 of that of the plain versions "
           "with p and dS rounded to bf16 (flash_bf16p_plain); lse (f32 in "
           "both) rtol/atol 1e-4")
@@ -555,8 +572,8 @@ def phase_flash_kernels(torch, dev):
             dk_p, dv_p = F.flash_dkv_plain(*bwd)
             torch.cuda.synchronize()
             bf16 = dt == torch.bfloat16
-            bounds = (flash_order_bounds(torch, F, q, k, v, do, lse_p, qp, kp,
-                                         st) if bf16 else (None,) * 5)
+            bounds = (flash_order_bounds(torch, F, q, k, v, do, lse_p, delta,
+                                         qp, kp, st) if bf16 else (None,) * 4)
             rounded = (flash_bf16p_plain(torch, F, q, k, v, do, lse_p, delta,
                                          qp, kp, st) if bf16 and Sk > 1
                        else (None,) * 4)
@@ -574,10 +591,6 @@ def phase_flash_kernels(torch, dev):
                     note = ""
                 else:
                     ulp = bf16_ulp(torch, ref.float())
-                    if what == "o":
-                        # the forward's p = hi + lo split leaves out at
-                        # most 2^-16*p: 2^-16*(p@|v|)/l (flash_order_bounds)
-                        bound = bound + bounds[4]
                     ok = bool((err <= ulp + bound).all())
                     note = (f", {(err / ulp).max().item():.2f} ulp max, "
                             f"{int((err > ulp).sum())} past 1 ulp, max "
@@ -751,33 +764,42 @@ def phase_timings(torch, dev, smi):
         return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
     def row(name, source, replaces, kernel, plain, library, nbytes, flops,
-            peak, shape, slow=False, **extra):
+            peak, shape, slow=False, library_graph=None, **extra):
         # a call of several ms: fewer batches of fewer calls
         kw = dict(batches=10, per_batch=3, warmup=2) if slow else {}
+        gkw = dict(reps=10, per_graph=3) if slow else {}
         ms = time_ms(torch, kernel, **kw)
-        dev_ms = graph_ms(torch, kernel, **(dict(reps=10, per_graph=3)
-                                            if slow else {}))
+        dev_ms = graph_ms(torch, kernel, **gkw)
         plain_ms = time_ms(torch, plain, **kw)
-        lib_ms = None
+        lib_ms = lib_dev_ms = None
         if library is not None:
             try:
                 lib_ms = time_ms(torch, library, **kw)
             except RuntimeError as e:
                 print(f"    library call does not run on this build: "
                       f"{str(e).splitlines()[0]}")
+            else:
+                # (callable, capture stream) for the device-only time
+                fn, stream = library_graph or (library, None)
+                lib_dev_ms = graph_ms(torch, fn, stream=stream, **gkw)
         bound_ms, by = bound(nbytes, flops, peak)
+
+        def fmt(x):
+            return "not measured" if x is None else f"{x:.4f}"
         print(f"  [{smi}] {name} {shape}: kernel_ms {ms:.4f} (device-only "
-              f"{dev_ms if dev_ms is None else round(dev_ms, 4)}), plain_ms "
-              f"{plain_ms:.4f}, library_ms "
-              f"{lib_ms if lib_ms is None else round(lib_ms, 4)}, bound_us "
+              f"{fmt(dev_ms)}), plain_ms {plain_ms:.4f}, library_ms "
+              f"{fmt(lib_ms)} (device-only {fmt(lib_dev_ms)}), bound_us "
               f"{1e3 * bound_ms:.2f} ({by}) {extra or ''}")
         rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
-                         device_ms=dev_ms, shape=shape, **extra))
+                         device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                         shape=shape, **extra))
 
     print("phase 5: timings (CUDA events; median of 25 batches of 10 calls "
-          "after warm-up)")
+          "after warm-up; device-only: CUDA-graph replays, for the kernel "
+          "and for the library call, 'not measured' where a call cannot be "
+          "captured)")
     # gate at prefill: logits (T, E) f32, k=1
     for S in (T, SERVE["batch"]):
         x = torch.randn(S, E, generator=g).to(dev)
@@ -905,16 +927,16 @@ def flash_timings(torch, dev, g, row):
     d=128, bf16, causal).  ``bound_ms`` counts the work the causal function
     needs: the (q, k) pairs its mask keeps on this run's positions
     (S(S+1)/2 per (b, h)), 2*d operations per pair and product; the
-    forward does 2 products, dq 3, dk/dv 4.  For the forward,
-    ``visited_bound_ms`` is the bound of its own arithmetic over the tiles
-    it visits (``visited_k_tiles``: 136 of 256 64x64 tiles per (b, h)):
-    q k^T once and P v twice (p = hi + lo), all on the bf16 tensor cores.
-    For dq and dk/dv, which compute every tile, ``all_tiles_bound_ms``
-    counts every (q, k) pair and ``fma_bound_ms`` is the bound of their own
-    arithmetic over all pairs: the products of p and dS (1 and 2 of them)
-    at the f32 FMA rate, q k^T and dO v^T (2 and 2) at the bf16 rate.
-    Yardsticks: SDPA's forward, and one backward of SDPA for dq and dk/dv
-    together (the same number in both rows)."""
+    forward does 2 products, dq 3, dk/dv 4.  ``visited_bound_ms`` is the
+    bound of each kernel's own arithmetic over the 64x64 tiles it visits,
+    all on the bf16 tensor cores (the products of p and dS twice, as hi
+    and lo): the forward q k^T once and P v twice, dq q k^T, dO v^T once
+    and dS k twice, over the tiles of ``visited_k_tiles`` (its 16-row
+    warps); dk/dv K Q^T and V dO^T once and P^T dO, dS^T q twice each over
+    the tiles of ``visited_q_tiles`` (P^T dO only, twice, on a DV_ONLY
+    tile).  Yardsticks: SDPA's forward, and one backward of SDPA for dq
+    and dk/dv together (the same number in both rows), its device-only
+    time captured on the stream its forward ran on."""
     from repro_torch.kernels import flash_attention as F
     B, H, S, d = 8, 16, 1024, 128
     q, k, v, do = (torch.randn(B, H, S, d, generator=g).to(torch.bfloat16)
@@ -930,37 +952,50 @@ def flash_timings(torch, dev, g, row):
 
     def sdpa_bwd():
         return torch.autograd.grad(out, leaves, do, retain_graph=True)
+    # for the graph: leaves and a forward of their own on the capture
+    # stream (autograd runs a backward on its forward's stream, and a
+    # leaf's gradient accumulator on the stream of the leaf's first use)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        side_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out_side = sdpa(*side_leaves, is_causal=True)
+
+    def sdpa_bwd_side():
+        return torch.autograd.grad(out_side, side_leaves, do,
+                                   retain_graph=True)
+    bwd_graph = (sdpa_bwd_side, side)
     t_in, t_rows = B * H * S * d * 2, B * H * S * 4    # a (B,H,S,d) bf16 tensor
     pairs = int(F._mask(pos, pos, True, None).sum())   # causal: S(S+1)/2
     need = 2 * B * H * pairs * d                       # one product, needed
-    prod = 2 * B * H * S * S * d                       # one product, all tiles
-    visit = F.visited_k_tiles(pos.cpu(), pos.cpu(), True, None)
-    tiles = int(visit.sum()) * F.GROUP / F.TILE        # in 64x64 tiles
-    visited = 2 * B * H * tiles * F.TILE ** 2 * d      # one product, visited
+    tile = 2 * B * H * F.TILE ** 2 * d                 # one 64x64 tile product
+    k_tiles = int(F.visited_k_tiles(pos.cpu(), pos.cpu(), True, None).sum()
+                  ) * F.GROUP / F.TILE                 # in 64x64 tiles
+    codes = F.visited_q_tiles(pos.cpu(), pos.cpu(), True, None)
+    dv_only = int((codes == F.DV_ONLY).sum())
+    q_tiles = int((codes > 0).sum())
     shape = f"B={B} H=KV={H} S={S} d={d} bf16 causal"
     src, ref = ("src/repro_torch/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention.py")
-    for name, line, kern, plain, lib, n_in, n_rows, n_f32, n_bf16 in (
+    all_tiles = (S // F.TILE) ** 2
+    for (name, line, kern, plain, lib, lib_graph, n_in, n_rows, n_prod,
+         tiles, own) in (
             ("flash_fwd", 49, lambda: F.flash_fwd(q, k, v, pos, pos, *st),
              lambda: F.flash_fwd_plain(q, k, v, pos, pos, *st),
-             lambda: sdpa(q, k, v, is_causal=True), 4, 1, 0, 2),
+             lambda: sdpa(q, k, v, is_causal=True), None, 4, 1, 2, k_tiles,
+             3 * k_tiles),
             ("flash_dq", 81, lambda: F.flash_dq(*bwd),
-             lambda: F.flash_dq_plain(*bwd), sdpa_bwd, 5, 2, 1, 2),
+             lambda: F.flash_dq_plain(*bwd), sdpa_bwd, bwd_graph, 5, 2, 3,
+             k_tiles, 4 * k_tiles),
             ("flash_dkv", 115, lambda: F.flash_dkv(*bwd),
-             lambda: F.flash_dkv_plain(*bwd), sdpa_bwd, 6, 2, 2, 2)):
+             lambda: F.flash_dkv_plain(*bwd), sdpa_bwd, bwd_graph, 6, 2, 4,
+             q_tiles, 6 * (q_tiles - dv_only) + 2 * dv_only)):
         nbytes = n_in * t_in + n_rows * t_rows + 2 * S * 4
-        if name == "flash_fwd":
-            extra = dict(visited_tiles=f"{tiles:g} of {(S // F.TILE) ** 2}",
-                         visited_bound_ms=1e3 * 3 * visited / BF16_FLOPS)
-        else:
-            extra = dict(
-                all_tiles_bound_ms=1e3 * max(
-                    nbytes / HBM_BYTES_PER_S,
-                    (n_f32 + n_bf16) * prod / BF16_FLOPS),
-                fma_bound_ms=1e3 * (n_f32 * prod / F32_FLOPS
-                                    + n_bf16 * prod / BF16_FLOPS))
         row(name, src, f"{ref}:{line}", kern, plain, lib, nbytes,
-            (n_f32 + n_bf16) * need, BF16_FLOPS, shape, slow=True, **extra)
+            n_prod * need, BF16_FLOPS, shape, slow=True,
+            library_graph=lib_graph,
+            visited_tiles=f"{tiles:g} of {all_tiles}",
+            visited_bound_ms=1e3 * own * tile / BF16_FLOPS)
 
 
 # ---------------------------------------------------------------------------
@@ -1071,12 +1106,19 @@ def phase_profile(torch, smi):
     return out
 
 
+# the names of the kernels of csrc/*.cu, as the profiler shows them
+PORT_KERNEL_NAMES = ("topk_gate_kernel", "gather_rows_kernel",
+                     "gather_rowstep_kernel", "scatter_add_rows_kernel",
+                     "round_to_bf16_kernel", "grouped_mm_", "grouped_drhs_",
+                     "flash_")
+
+
 def phase_profile_train(torch, smi):
     """One profiled train step per phase-7 cell (``TRAIN_CELLS``, after a
     warm-up step): wall time (host clock to a synchronise), the
-    device time of all kernels, the device's idle share, the top kernels,
-    and the host's waits for the device inside one more step (reported;
-    the aim is none)."""
+    device time of all kernels, the device's idle share, the top kernels
+    and the port's own kernels, and the host's waits for the device inside
+    one more step (reported; the aim is none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
@@ -1116,15 +1158,25 @@ def phase_profile_train(torch, smi):
         for e in kernels[:10]:
             print(f"      {e.self_device_time_total / 1e3:8.3f} ms "
                   f"x{e.count:<4d} {e.key[:90]}")
+        # the port's own kernels (csrc/*.cu), wherever they rank
+        own = {}
+        for e in kernels:
+            name = e.key.removeprefix("void ").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            if name.startswith(PORT_KERNEL_NAMES):
+                own[name] = (e.self_device_time_total / 1e3, e.count)
+        print("      port kernels: " + ", ".join(
+            f"{k} {t:.3f} ms x{n}" for k, (t, n) in own.items()))
         host = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CPU]
         launches = sum(e.count for e in host if e.key == "cudaLaunchKernel")
         print(f"      host: {sum(e.count for e in host)} profiled calls, "
               f"{launches} cudaLaunchKernel; waits found by the sync debug "
               f"mode in one more step: {len(waits)} {sorted(set(waits))}")
-        out[f"{mode} seq {S} train step"] = dict(wall_ms=wall, device_ms=dev_ms,
-                                         host_waits=len(waits),
-                                         wait_sites=sorted(set(waits)))
+        out[f"{mode} seq {S} train step"] = dict(
+            wall_ms=wall, device_ms=dev_ms, host_waits=len(waits),
+            wait_sites=sorted(set(waits)),
+            port_kernels_ms={k: t for k, (t, _) in own.items()})
         del state, step, batch
         torch.cuda.empty_cache()
     return out

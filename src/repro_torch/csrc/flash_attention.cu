@@ -21,69 +21,79 @@
 // Every kernel keeps the reference's arithmetic: p and dS are f32, as the
 // TPU kernels keep them.
 //
-// The forward skips the k tiles in which no row of a group of its q rows
-// may see any key.  That is exact while every row of the group has an
-// allowed key: a masked key adds p = exp(NEG - m), which is 0 once the row
-// has met an allowed key and is wiped by alpha = exp(NEG - m) = 0 when it
-// meets one later.  So a block first scans qpos and kpos (plan_k_tiles):
-// if a row of a group has no allowed key at all, the group visits every
-// tile, as the reference does (p = 1 for every key: o = mean of v, lse =
-// NEG + log Sk); else it visits the tiles that hold a valid key between
-// its rows' lowest and highest allowed positions.  The rule reads the
-// positions only, so invalid slots (kpos < 0) and q offset against k are
-// handled.  At the causal training shape a group visits the k tiles up to
-// its diagonal: in 64x64 units, 136 of 256 (q tile, k tile) pairs per
-// (b, h), against 256 before.
+// Tile skip.  A masked key gives p = exp(NEG - m): 0 once its row has met
+// an allowed key, wiped by alpha = exp(NEG - m) = 0 when it meets one
+// later, but 1 for a row with no allowed key at all (lse = NEG + log Sk =
+// NEG in f32, so p = exp(NEG - NEG) = 1 for every key slot, as the
+// reference gives it).  So each block first reads the positions.  The
+// forward and dq (plan_k_tiles): a group of q rows with a row that has no
+// allowed key visits every k tile; else the tiles that hold a valid key
+// between its rows' lowest and highest allowed positions.  dk/dv
+// (plan_q_tiles): a k tile visits the q tiles by the same rule seen from
+// the keys, and also, for dv only, a q tile holding a row with no allowed
+// key (its dO lands in dv of every key; its dS is 0).  The rules read the
+// positions only, so invalid slots (kpos < 0), q offset against k,
+// windows and shuffled positions are exact.  At the causal training shape
+// each kernel visits 136 of the 256 (q tile, k tile) pairs of 64x64 per
+// (b, h).
 //
-// bf16 forward (redesigned for Hopper; flash_fwd_bf16_kernel): a 64-row q
-// tile per block and 4 warps, each owning 16 query rows and skipping on
-// its own the k tiles its rows may not see, FlashAttention-2 style on
-// mma.sync m16n8k16.  q stays in registers as A fragments; q k^T
-// accumulates in f32 registers; the scores, the row max and the row sum
-// stay in registers (max and sum reduced over the quad of lanes that share
-// a row with shuffles), and the accumulator fragments of the scores become
-// the A operands of P V without a trip through shared memory.  P V keeps p
-// in f32 through a split p = hi + lo into two bf16 values (hi = bf16(p),
-// lo = bf16(p - hi)): two bf16 products with exact f32 partial products
-// and f32 sums, leaving |p - hi - lo| <= 2^-16 |p|, 256 times below the
-// bf16 output's unit roundoff (2^-8).  The scores are kept in base 2 (s
-// log2 e), so each p is one exp2; a tile in which every (row, key) pair of
-// a warp is allowed skips the mask.  The head dim and the softcap are
-// template arguments, so the loops are straight-line code.  K and V tiles
-// (and their positions) arrive by cp.async into a double buffer: the copy
+// bf16 kernels (redesigned for Hopper): 64 rows (queries, or keys for
+// dk/dv) per block and 4 warps of 16, FlashAttention-2 style on mma.sync
+// m16n8k16.  Products accumulate in f32 registers, and the accumulator
+// fragments of the scores become the A operands of the next product
+// without a trip through shared memory.  The products of p and dS keep
+// them in f32 through a split x = hi + lo into two bf16 values (hi =
+// bf16(x), lo = bf16(x - hi)): two bf16 products with exact f32 partial
+// products and f32 sums, leaving |x - hi - lo| <= 2^-16 |x|, 256 times
+// below a bf16 output's unit roundoff (2^-8).  Scores are kept in base 2
+// (s log2 e), so each p is one exp2; a tile in which every (row, key) pair
+// of a warp is allowed skips the mask.  The head dim and the softcap are
+// template arguments, so the loops are straight-line code.  The tiles a
+// block walks (K and V for the forward and dq; q, dO, lse, delta and q
+// positions for dk/dv) arrive by cp.async into a double buffer: the copy
 // of the next visited tile runs under the products of this one.  Rows are
 // padded by 16 bytes in shared memory, so ldmatrix reads hit no bank
-// twice.  Blocks take their q tiles last-first, so the longest causal rows
-// start first.
+// twice.
+//   forward (flash_fwd_bf16_kernel): q stays in registers; the online
+//     softmax in registers; P V as (hi + lo) V.
+// The backward sums each 32 rows of its p and dS products in a fresh
+// fragment and adds that to its f32 accumulators: an mma that adds into a
+// large accumulator truncates at its last bits, so a long sum held there
+// drifts (by a bf16 ulp of dv where every key carries many fully masked
+// rows' dO).
+//   dq (flash_dq_bf16_kernel): S = q k^T and dP = dO v^T per visited k
+//     tile, q and dO read as A fragments from shared memory; dS in
+//     registers; dq += (hi + lo) k with k read through ldmatrix.trans.
+//   dk/dv (flash_dkv_bf16_kernel): keys are the M dimension.  Per visited
+//     q tile, in two halves of 32 queries, S^T = K Q^T and dP^T = V dO^T;
+//     p^T and dS^T per column (lse, delta and the q position come with the
+//     q tile); dv += (hi + lo) dO and dk += (hi + lo) q, dO and q read
+//     through ldmatrix.trans.  Each warp keeps dk and dv of its 16 keys in
+//     f32 registers over the G query heads of its kv head and their q
+//     tiles: no atomics, and the result does not depend on run order.
 //
 // f32 forward, dq and dk/dv (simple and right first): a 64-row tile of
 // queries or keys per block, 256 threads.  The TPU grid's sequential axes
-// become loops inside the block: the forward and dq walk the k tiles of one
-// (b, h, q tile); dk/dv walks the G query heads of one kv head and all
-// their q tiles, with f32 accumulators and no atomics, so its result does
-// not depend on run order.  Tiles of q, k, v and dO sit in dynamic shared
-// memory (up to 164 KB), with the 64x64 f32 score tile.  q k^T and dO v^T
-// run on the tensor cores (WMMA) when the inputs are bf16 (the products of
-// bf16 values are exact in f32; only the order of the sums changes) and
-// with f32 FMAs otherwise (never TF32); the products of p and dS are f32
-// FMAs.  The f32 forward skips tiles by the rule above; dq and dk/dv visit
-// every tile.  Keys past Sk (the ragged edge) count as nothing.
+// become loops inside the block over the tiles the rules above visit.
+// Tiles of q, k, v and dO sit in dynamic shared memory (up to 164 KB),
+// with the 64x64 f32 score tile; every product is f32 FMAs (never TF32).
+// Keys past Sk (the ragged edge) count as nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "sm90_mma.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
 constexpr int FA_TILE = 64;         // rows of a q tile and of a k tile
-constexpr int FA_THREADS = 256;     // 8 warps
+constexpr int FA_THREADS = 256;     // 8 warps (f32 kernels)
 constexpr int S_LD = FA_TILE + 4;   // row stride of the f32 score tiles
+constexpr int F_LD_PAD = 1;         // f32 rows: an odd stride, no bank twice
 constexpr int MAX_NJ = 8;           // d / 16 at the largest head dim, 128
 constexpr float NEG = -1e30f;
+constexpr int INT_HI = 0x7fffffff, INT_LO = -0x7fffffff - 1;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 struct Mask {
   float scale;
@@ -91,25 +101,6 @@ struct Mask {
   float cap;
   int use_cap;
 };
-
-// row padding of a tile in shared memory: bf16 rows stay 16-byte aligned
-// for WMMA; f32 rows get an odd stride, so a column walk hits no bank twice
-template <typename T> struct Pad;
-template <> struct Pad<__nv_bfloat16> { static constexpr int value = 8; };
-template <> struct Pad<float> { static constexpr int value = 1; };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float neg_inf() {
   return __int_as_float(0xff800000);
@@ -133,6 +124,44 @@ __device__ __forceinline__ bool allowed(int qp, int kp, const Mask& mk) {
   if (mk.causal) ok = ok && kp <= qp;
   if (mk.use_window) ok = ok && kp > qp - mk.window;
   return ok;
+}
+
+// whether a query at position qp has an allowed key among kpos[0, Sk): the
+// warp scans 32 keys a step and stops at the first step that finds one
+__device__ bool row_has_key(int qp, const int* __restrict__ kpos, int Sk,
+                            const Mask& mk) {
+  const int lane = threadIdx.x % 32;
+  for (int c0 = 0; c0 < Sk; c0 += 32) {
+    const int c = c0 + lane;
+    if (__any_sync(0xffffffffu, c < Sk && allowed(qp, kpos[c], mk)))
+      return true;
+  }
+  return false;
+}
+
+// whether some key position kp of the k tile [k0, k0 + FA_TILE) may be
+// seen by a row of q positions [qmin, qmax] (any) and whether every one is
+// seen by every row (every; all FA_TILE keys valid, kp <= qmin, kp > qmax -
+// window): the superset rule of both plans; warp-collective.  plan_k_tiles
+// spells this rule and row_has_key out inline: through these helpers the
+// bf16 forward and dq ran 5% and 8% slower on an H100 (flash_ab.py at the
+// causal training shape)
+__device__ __forceinline__ void tile_pairs(const int* __restrict__ kpos,
+                                           int k0, int Sk, long long qmin,
+                                           long long qmax, const Mask& mk,
+                                           bool& any, bool& every) {
+  const int lane = threadIdx.x % 32;
+  any = false;
+  every = true;
+  for (int c = k0 + lane; c < k0 + FA_TILE; c += 32) {
+    const int kp = c < Sk ? kpos[c] : -1;
+    any |= kp >= 0 && (!mk.causal || kp <= qmax) &&
+           (!mk.use_window || kp > qmin - mk.window);
+    every &= kp >= 0 && (!mk.causal || kp <= qmin) &&
+             (!mk.use_window || kp > qmax - mk.window);
+  }
+  any = __any_sync(0xffffffffu, any);
+  every = __all_sync(0xffffffffu, every);
 }
 
 // The k tiles (of FA_TILE keys) each group of `group` q rows of a block
@@ -198,26 +227,81 @@ __device__ void plan_k_tiles(const int* __restrict__ qpos,
   __syncthreads();
 }
 
-// the first visited tile at or after j (nkt when none is left)
-__device__ __forceinline__ int next_tile(const int* flags, int j, int nkt) {
-  while (j < nkt && !flags[j]) ++j;
+// The q tiles (of FA_TILE rows) the dk/dv block of k tile [k0, k0 +
+// FA_TILE) visits, as a code per q tile in flags[i] (i < ceil(Sq /
+// FA_TILE)): 0 skip, 1 visit, 2 visit and no mask needed (the codes of
+// plan_k_tiles, by the same rule with the q tile's lowest and highest
+// positions), 3 visit for dv only: a q tile that would be skipped but
+// holds a row with no allowed key at all.  The reference's dk/dv uses p
+// unmasked, and such a row's lse is NEG, so its p is 1 for every key slot
+// and its dO lands in dv of every key; its dS is 0.  Whether a row has a
+// key: without a window from the least valid key position kmin (causal:
+// kmin <= qp; else any valid key at all), with one by a scan of the keys.
+// red is one int of shared scratch.  Ends with a barrier.  Mirrored by
+// kernels/flash_attention.py:visited_q_tiles.
+__device__ void plan_q_tiles(const int* __restrict__ qpos,
+                             const int* __restrict__ kpos, int k0, int Sq,
+                             int Sk, const Mask& mk, int* flags, int* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nw = blockDim.x / 32, nqt = (Sq + FA_TILE - 1) / FA_TILE;
+  if (threadIdx.x == 0) *red = INT_HI;
+  __syncthreads();
+  if (!mk.use_window) {
+    int m = INT_HI;
+    for (int c = threadIdx.x; c < Sk; c += blockDim.x)
+      if (kpos[c] >= 0) m = min(m, kpos[c]);
+    m = __reduce_min_sync(0xffffffffu, m);
+    if (lane == 0) atomicMin(red, m);
+    __syncthreads();
+  }
+  const int kmin = *red;
+  for (int i = warp; i < nqt; i += nw) {
+    const int r1 = min(Sq, (i + 1) * FA_TILE);
+    int qmin = INT_HI, qmax = INT_LO;
+    bool nokey = false;
+    for (int r = i * FA_TILE + lane; r < r1; r += 32) {
+      const int qp = qpos[r];
+      qmin = min(qmin, qp);
+      qmax = max(qmax, qp);
+      nokey |= mk.causal ? qp < kmin : kmin == INT_HI;
+    }
+    qmin = __reduce_min_sync(0xffffffffu, qmin);
+    qmax = __reduce_max_sync(0xffffffffu, qmax);
+    if (mk.use_window) {
+      nokey = false;
+      for (int r = i * FA_TILE; r < r1 && !nokey; ++r)
+        nokey = !row_has_key(qpos[r], kpos, Sk, mk);
+    } else {
+      nokey = __any_sync(0xffffffffu, nokey);
+    }
+    bool any, every;
+    tile_pairs(kpos, k0, Sk, qmin, qmax, mk, any, every);
+    if (lane == 0) flags[i] = every ? 2 : any ? 1 : nokey ? 3 : 0;
+  }
+  __syncthreads();
+}
+
+// the first visited tile at or after j (n when none is left)
+__device__ __forceinline__ int next_tile(const int* flags, int j, int n) {
+  while (j < n && !flags[j]) ++j;
   return j;
 }
 
+// ---------------------------------------------------------------------------
+// the f32 kernels: 256 threads, f32 FMAs, tiles through shared memory
+// ---------------------------------------------------------------------------
+
 // rows [row0, row0 + FA_TILE) of a (nrows, d) matrix into dst (stride ld);
 // rows past nrows as 0
-template <typename T>
-__device__ void load_tile(T* dst, int ld, const T* __restrict__ src, int row0,
-                          int nrows, int d) {
-  const T zero = from_f<T>(0.f);
+__device__ void load_tile(float* dst, int ld, const float* __restrict__ src,
+                          int row0, int nrows, int d) {
   for (int i = threadIdx.x; i < FA_TILE * d; i += FA_THREADS) {
     const int r = i / d, c = i - r * d;
-    dst[r * ld + c] =
-        row0 + r < nrows ? src[(size_t)(row0 + r) * d + c] : zero;
+    dst[r * ld + c] = row0 + r < nrows ? src[(size_t)(row0 + r) * d + c] : 0.f;
   }
 }
 
-// S[r][c] = sum_k A[r][k] * B[c][k] over a 64x64 tile, f32 FMAs
+// S[r][c] = sum_k A[r][k] * B[c][k] over a 64x64 tile
 __device__ void tile_dot(const float* A, const float* B, int ld, float* S,
                          int d) {
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
@@ -244,39 +328,11 @@ __device__ void tile_dot(const float* A, const float* B, int ld, float* S,
       S[(rg + 16 * i) * S_LD + cg + 16 * j] = acc[i][j];
 }
 
-// the same with bf16 inputs on the tensor cores (f32 accumulation): each
-// warp a 16x32 piece, B read as a col_major fragment (B^T without a copy)
-__device__ void tile_dot(const __nv_bfloat16* A, const __nv_bfloat16* B,
-                         int ld, float* S, int d) {
-  const int warp = threadIdx.x / 32;
-  const int r0 = (warp >> 1) * 16, c0 = (warp & 1) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  for (int k = 0; k < d; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + r0 * ld + k, ld);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> b;
-      wmma::load_matrix_sync(b, B + (c0 + 16 * j) * ld + k, ld);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(S + r0 * S_LD + c0 + 16 * j, acc[j], S_LD,
-                            wmma::mem_row_major);
-}
-
-// acc[i][j] += sum_{t < n} P[r_i * prs + t * pts] * X[t][c_j] in f32, for
-// the thread's rows r_i = rg + 16 i and columns c_j = cg + 16 j (j < nj)
-template <typename T>
+// acc[i][j] += sum_{t < n} P[r_i * prs + t * pts] * X[t][c_j], for the
+// thread's rows r_i = rg + 16 i and columns c_j = cg + 16 j (j < nj)
 __device__ __forceinline__ void acc_product(float (&acc)[4][MAX_NJ],
                                             const float* P, int prs, int pts,
-                                            const T* X, int ld, int n,
+                                            const float* X, int ld, int n,
                                             int nj) {
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
   for (int t = 0; t < n; ++t) {
@@ -286,7 +342,7 @@ __device__ __forceinline__ void acc_product(float (&acc)[4][MAX_NJ],
 #pragma unroll
     for (int j = 0; j < MAX_NJ; ++j) {
       if (j < nj) {
-        const float x = to_f(X[t * ld + cg + 16 * j]);
+        const float x = X[t * ld + cg + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], x, acc[i][j]);
       }
@@ -303,10 +359,9 @@ __device__ __forceinline__ void zero_acc(float (&acc)[4][MAX_NJ]) {
 
 // acc rows (row0 + r_i < nrows) into out (nrows, d) rows, divided by div[r]
 // when div is given
-template <typename T>
 __device__ __forceinline__ void store_acc(const float (&acc)[4][MAX_NJ],
-                                          T* out, int row0, int nrows, int d,
-                                          const float* div) {
+                                          float* out, int row0, int nrows,
+                                          int d, const float* div) {
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16, nj = d / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -317,30 +372,29 @@ __device__ __forceinline__ void store_acc(const float (&acc)[4][MAX_NJ],
     for (int j = 0; j < MAX_NJ; ++j)
       if (j < nj)
         out[(size_t)(row0 + r) * d + cg + 16 * j] =
-            from_f<T>(div ? acc[i][j] / l : acc[i][j]);
+            div ? acc[i][j] / l : acc[i][j];
   }
 }
 
 // one block per (q tile, h, b); the visited k tiles in a loop (the TPU's
-// nk axis); the f32 forward
-template <typename T>
+// nk axis)
 __global__ void __launch_bounds__(FA_THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ qpos,
-                 const int* __restrict__ kpos, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ qpos,
+                 const int* __restrict__ kpos, float* __restrict__ o,
                  float* __restrict__ lse, int H, int KV, int Sq, int Sk,
                  int d, Mask mk) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = d + Pad<T>::value;
+  const int ld = d + F_LD_PAD;
   float* Ss = reinterpret_cast<float*>(smem);        // scores, then p
   float* m_s = Ss + FA_TILE * S_LD;                  // running max
   float* l_s = m_s + FA_TILE;                        // running sum
   float* a_s = l_s + FA_TILE;                        // this tile's alpha
   int* qp_s = reinterpret_cast<int*>(a_s + FA_TILE);
   int* kp_s = qp_s + FA_TILE;
-  T* Qs = reinterpret_cast<T*>(kp_s + FA_TILE);
-  T* Ks = Qs + FA_TILE * ld;
-  T* Vs = Ks + FA_TILE * ld;
+  float* Qs = reinterpret_cast<float*>(kp_s + FA_TILE);
+  float* Ks = Qs + FA_TILE * ld;
+  float* Vs = Ks + FA_TILE * ld;
   int* flags = reinterpret_cast<int*>(Vs + FA_TILE * ld);
   const int nkt = (Sk + FA_TILE - 1) / FA_TILE;
 
@@ -348,9 +402,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rg = tid / 16, nj = d / 16;
-  const T* qb = q + ((size_t)b * H + h) * Sq * d;
-  const T* kb = k + ((size_t)b * KV + kvh) * Sk * d;
-  const T* vb = v + ((size_t)b * KV + kvh) * Sk * d;
+  const float* qb = q + ((size_t)b * H + h) * Sq * d;
+  const float* kb = k + ((size_t)b * KV + kvh) * Sk * d;
+  const float* vb = v + ((size_t)b * KV + kvh) * Sk * d;
 
   load_tile(Qs, ld, qb, q0, Sq, d);
   for (int i = tid; i < FA_TILE; i += FA_THREADS) {
@@ -465,44 +519,47 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* dl_s,
   }
 }
 
-// one block per (q tile, h, b); the k tiles in a loop
-template <typename T>
+// one block per (q tile, h, b); the k tiles plan_k_tiles visits in a loop
 __global__ void __launch_bounds__(FA_THREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta,
                 const int* __restrict__ qpos, const int* __restrict__ kpos,
-                T* __restrict__ dq, int H, int KV, int Sq, int Sk, int d,
+                float* __restrict__ dq, int H, int KV, int Sq, int Sk, int d,
                 Mask mk) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = d + Pad<T>::value;
+  const int ld = d + F_LD_PAD;
   float* Ss = reinterpret_cast<float*>(smem);        // scores, then p
   float* Ps = Ss + FA_TILE * S_LD;                   // dO v^T, then dS
   float* lse_s = Ps + FA_TILE * S_LD;
   float* dl_s = lse_s + FA_TILE;
   int* qp_s = reinterpret_cast<int*>(dl_s + FA_TILE);
   int* kp_s = qp_s + FA_TILE;
-  T* Qs = reinterpret_cast<T*>(kp_s + FA_TILE);
-  T* Os = Qs + FA_TILE * ld;
-  T* Ks = Os + FA_TILE * ld;
-  T* Vs = Ks + FA_TILE * ld;
+  float* Qs = reinterpret_cast<float*>(kp_s + FA_TILE);
+  float* Os = Qs + FA_TILE * ld;
+  float* Ks = Os + FA_TILE * ld;
+  float* Vs = Ks + FA_TILE * ld;
+  int* flags = reinterpret_cast<int*>(Vs + FA_TILE * ld);
+  const int nkt = (Sk + FA_TILE - 1) / FA_TILE;
 
   const int q0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int qn = min(FA_TILE, Sq - q0), nj = d / 16;
   const size_t qoff = ((size_t)b * H + h) * Sq;
-  const T* kb = k + ((size_t)b * KV + kvh) * Sk * d;
-  const T* vb = v + ((size_t)b * KV + kvh) * Sk * d;
+  const float* kb = k + ((size_t)b * KV + kvh) * Sk * d;
+  const float* vb = v + ((size_t)b * KV + kvh) * Sk * d;
 
   load_tile(Qs, ld, q + qoff * d, q0, Sq, d);
   load_tile(Os, ld, dout + qoff * d, q0, Sq, d);
   load_rows(lse_s, dl_s, qp_s, lse + qoff, delta + qoff, qpos, q0, Sq);
   float acc[4][MAX_NJ];
   zero_acc(acc);
+  plan_k_tiles(qpos, kpos, q0, qn, FA_TILE, Sk, mk, flags, flags + nkt);
 
-  for (int k0 = 0; k0 < Sk; k0 += FA_TILE) {
-    const int kn = min(FA_TILE, Sk - k0);
+  for (int j = next_tile(flags, 0, nkt); j < nkt;
+       j = next_tile(flags, j + 1, nkt)) {
+    const int k0 = j * FA_TILE, kn = min(FA_TILE, Sk - k0);
     load_tile(Ks, ld, kb, k0, Sk, d);
     load_tile(Vs, ld, vb, k0, Sk, d);
     for (int i = threadIdx.x; i < FA_TILE; i += FA_THREADS)
@@ -520,28 +577,30 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // one block per (k tile, kv head, b); the G query heads of that kv head and
-// all their q tiles in a loop (the TPU's sequential (G, nq) axes)
-template <typename T>
+// the q tiles plan_q_tiles visits in a loop (the TPU's sequential (G, nq)
+// axes)
 __global__ void __launch_bounds__(FA_THREADS)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
                  const int* __restrict__ qpos, const int* __restrict__ kpos,
-                 T* __restrict__ dk, T* __restrict__ dv, int H, int KV,
-                 int Sq, int Sk, int d, Mask mk) {
+                 float* __restrict__ dk, float* __restrict__ dv, int H,
+                 int KV, int Sq, int Sk, int d, Mask mk) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = d + Pad<T>::value;
+  const int ld = d + F_LD_PAD;
   float* Ss = reinterpret_cast<float*>(smem);        // scores, then p
   float* Ps = Ss + FA_TILE * S_LD;                   // dO v^T, then dS
   float* lse_s = Ps + FA_TILE * S_LD;
   float* dl_s = lse_s + FA_TILE;
   int* qp_s = reinterpret_cast<int*>(dl_s + FA_TILE);
   int* kp_s = qp_s + FA_TILE;
-  T* Qs = reinterpret_cast<T*>(kp_s + FA_TILE);
-  T* Os = Qs + FA_TILE * ld;
-  T* Ks = Os + FA_TILE * ld;
-  T* Vs = Ks + FA_TILE * ld;
+  float* Qs = reinterpret_cast<float*>(kp_s + FA_TILE);
+  float* Os = Qs + FA_TILE * ld;
+  float* Ks = Os + FA_TILE * ld;
+  float* Vs = Ks + FA_TILE * ld;
+  int* flags = reinterpret_cast<int*>(Vs + FA_TILE * ld);
+  const int nqt = (Sq + FA_TILE - 1) / FA_TILE;
 
   const int k0 = blockIdx.x * FA_TILE, kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
@@ -555,11 +614,13 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc_k[4][MAX_NJ], acc_v[4][MAX_NJ];
   zero_acc(acc_k);
   zero_acc(acc_v);
+  plan_q_tiles(qpos, kpos, k0, Sq, Sk, mk, flags, flags + nqt);
 
   for (int g = 0; g < G; ++g) {
     const size_t qoff = ((size_t)b * H + kvh * G + g) * Sq;
-    for (int q0 = 0; q0 < Sq; q0 += FA_TILE) {
-      const int qn = min(FA_TILE, Sq - q0);
+    for (int i = next_tile(flags, 0, nqt); i < nqt;
+         i = next_tile(flags, i + 1, nqt)) {
+      const int q0 = i * FA_TILE, qn = min(FA_TILE, Sq - q0);
       load_tile(Qs, ld, q + qoff * d, q0, Sq, d);
       load_tile(Os, ld, dout + qoff * d, q0, Sq, d);
       load_rows(lse_s, dl_s, qp_s, lse + qoff, delta + qoff, qpos, q0, Sq);
@@ -579,18 +640,23 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 forward on mma.sync (see the header): block (q tile, h, b), 4
-// warps of 16 rows, the visited k tiles double-buffered through cp.async
+// the bf16 kernels on mma.sync (see the header): 64 rows per block, 4
+// warps of 16, the walked tiles double-buffered through cp.async
 // ---------------------------------------------------------------------------
 
 constexpr int FB_THREADS = 128;     // 4 warps
-constexpr int FB_GROUP = 16;        // query rows per warp (one m16 tile)
+constexpr int FB_GROUP = 16;        // rows per warp (one m16 tile)
 constexpr int FB_PAD = 8;           // bf16 elements of row padding (16 bytes)
+constexpr int DKV_HALF = 32;        // queries per half of a dk/dv q tile
+constexpr int SPLIT_KS = 2;         // 16-row steps per fresh fragment sum
+                                    // (1: dk/dv spills, 12% slower on an
+                                    // H100, flash_ab.py)
+using bf16 = __nv_bfloat16;
 
 // rows [row0, row0 + FA_TILE) of a (nrows, d) bf16 matrix into dst (stride
 // ld) by cp.async, 16 bytes a copy; rows past nrows as 0
-__device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, int ld,
-                                        const __nv_bfloat16* __restrict__ src,
+__device__ __forceinline__ void cp_tile(bf16* dst, int ld,
+                                        const bf16* __restrict__ src,
                                         int row0, int nrows, int d) {
   const int chunks = d / 8;
   for (int c = threadIdx.x; c < FA_TILE * chunks; c += FB_THREADS) {
@@ -602,10 +668,9 @@ __device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, int ld,
 }
 
 // k tile j's keys, values and key positions into stage st
-__device__ __forceinline__ void cp_kv(__nv_bfloat16* Ks, __nv_bfloat16* Vs,
-                                      int* kps, int ld, int st,
-                                      const __nv_bfloat16* __restrict__ kb,
-                                      const __nv_bfloat16* __restrict__ vb,
+__device__ __forceinline__ void cp_kv(bf16* Ks, bf16* Vs, int* kps, int ld,
+                                      int st, const bf16* __restrict__ kb,
+                                      const bf16* __restrict__ vb,
                                       const int* __restrict__ kpos, int j,
                                       int Sk, int d) {
   const int k0 = j * FA_TILE;
@@ -618,23 +683,106 @@ __device__ __forceinline__ void cp_kv(__nv_bfloat16* Ks, __nv_bfloat16* Vs,
   }
 }
 
+// ldmatrix lane offsets: rows and columns of an A tile (and of a B tile
+// read transposed), and of a B tile stored as its n rows
+struct Lanes {
+  int a_row, a_col, b_row, b_col;
+  __device__ Lanes() {
+    const int lane = threadIdx.x % 32;
+    a_row = (lane & 7) + 8 * ((lane >> 3) & 1);
+    a_col = 8 * (lane >> 4);
+    b_row = (lane & 7) + 8 * (lane >> 4);
+    b_col = 8 * ((lane >> 3) & 1);
+  }
+};
+
+// acc[n] += (hi + lo) X over 16 KS rows of X, X rows [x0, x0 + 16 KS) of
+// a (., 16 NJ) bf16 tile with stride ld read through ldmatrix.trans; the
+// warp's A tile of each 16 rows kk is held as C fragments c[2 kk] (columns
+// 0..7) and c[2 kk + 1] (8..15) of 16 rows.  The KS steps of each pair of
+// n tiles sum in a fresh fragment, lo first, which is then added to acc in
+// f32: the tensor cores' f32 accumulation truncates, so a long sum held in
+// their accumulator drifts by its own magnitude's last bits at every step
+template <int NJ, int KS>
+__device__ __forceinline__ void acc_split_product(float (&acc)[2 * NJ][4],
+                                                  const float (*c)[4],
+                                                  const bf16* X, int ld,
+                                                  int x0, const Lanes& ln) {
+  uint32_t hi[KS][4], lo[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    sm90::split_bf16(c[2 * kk][0], c[2 * kk][1], hi[kk][0], lo[kk][0]);
+    sm90::split_bf16(c[2 * kk][2], c[2 * kk][3], hi[kk][1], lo[kk][1]);
+    sm90::split_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1], hi[kk][2],
+                     lo[kk][2]);
+    sm90::split_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[kk][3],
+                     lo[kk][3]);
+  }
+#pragma unroll
+  for (int np = 0; np < NJ; ++np) {
+    float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t bf[4];
+      sm90::ldmatrix_x4_trans(
+          bf, X + (x0 + 16 * kk + ln.a_row) * ld + 16 * np + ln.a_col);
+      sm90::mma_bf16(t0, lo[kk], bf[0], bf[1]);
+      sm90::mma_bf16(t1, lo[kk], bf[2], bf[3]);
+      sm90::mma_bf16(t0, hi[kk], bf[0], bf[1]);
+      sm90::mma_bf16(t1, hi[kk], bf[2], bf[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * np][e] += t0[e];
+      acc[2 * np + 1][e] += t1[e];
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_frags(float (&c)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+}
+
+// rows r0 + g and r0 + g + 8 of a C-fragment accumulator, times mul, into
+// out (nrows, d) bf16
+template <int NJ>
+__device__ __forceinline__ void store_frags(const float (&acc)[2 * NJ][4],
+                                            bf16* out, int ra, int nrows,
+                                            float mul) {
+  constexpr int d = 16 * NJ;
+  const int t = threadIdx.x % 4, rb = ra + 8;
+#pragma unroll
+  for (int n = 0; n < 2 * NJ; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (ra < nrows)
+      *reinterpret_cast<uint32_t*>(out + (size_t)ra * d + c) =
+          sm90::pack_bf16(acc[n][0] * mul, acc[n][1] * mul);
+    if (rb < nrows)
+      *reinterpret_cast<uint32_t*>(out + (size_t)rb * d + c) =
+          sm90::pack_bf16(acc[n][2] * mul, acc[n][3] * mul);
+  }
+}
+
 // NJ = d / 16 and CAP (a softcap) are template arguments, so that every
 // loop over the head dim and the softmax are straight-line code
 template <int NJ, bool CAP>
 __global__ void __launch_bounds__(FB_THREADS, 2)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
                       const int* __restrict__ qpos,
-                      const int* __restrict__ kpos,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int H, int KV, int Sq, int Sk, Mask mk) {
+                      const int* __restrict__ kpos, bf16* __restrict__ o,
+                      float* __restrict__ lse, int H, int KV, int Sq, int Sk,
+                      Mask mk) {
   constexpr int d = 16 * NJ, ld = d + FB_PAD;
   extern __shared__ __align__(128) unsigned char smem[];
   const int nkt = (Sk + FA_TILE - 1) / FA_TILE;
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + FA_TILE * ld;              // 2 stages
-  __nv_bfloat16* Vs = Ks + 2 * FA_TILE * ld;          // 2 stages
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + FA_TILE * ld;                       // 2 stages
+  bf16* Vs = Ks + 2 * FA_TILE * ld;                   // 2 stages
   int* kps = reinterpret_cast<int*>(Vs + 2 * FA_TILE * ld);  // 2 stages
   int* flags = kps + 2 * FA_TILE;                     // nkt, then scratch
 
@@ -643,8 +791,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const size_t qoff = ((size_t)b * H + h) * Sq;
-  const __nv_bfloat16* kb = k + ((size_t)b * KV + kvh) * Sk * d;
-  const __nv_bfloat16* vb = v + ((size_t)b * KV + kvh) * Sk * d;
+  const bf16* kb = k + ((size_t)b * KV + kvh) * Sk * d;
+  const bf16* vb = v + ((size_t)b * KV + kvh) * Sk * d;
 
   cp_tile(Qs, ld, q + qoff * d, q0, Sq, d);    // in flight during the plan
   plan_k_tiles(qpos, kpos, q0, min(FA_TILE, Sq - q0), FB_GROUP, Sk, mk,
@@ -656,7 +804,6 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // scores are kept in base 2: s log2(e), so that p = exp2(s2 - m2); a
   // masked score stays NEG, and a row max of NEG (no allowed key) gives
   // lse = NEG + log(l) as in the reference
-  constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
   const float scale2 = CAP ? mk.scale : mk.scale * LOG2E;
   const float cap2 = mk.cap * LOG2E;
   // this thread's rows of the C fragments: ra = g, rb = g + 8 of its warp's
@@ -664,14 +811,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int qpa = ra < Sq ? qpos[ra] : 0, qpb = rb < Sq ? qpos[rb] : 0;
   float ma = NEG, mb = NEG, la = 0.f, lb = 0.f;  // la, lb: this lane's part
   float oacc[2 * NJ][4];
-#pragma unroll
-  for (int n = 0; n < 2 * NJ; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  zero_frags(oacc);
   uint32_t qf[NJ][4];
-  // ldmatrix lane offsets: A (and V^T) tiles, and K tiles (B fragments)
-  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
-  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+  const Lanes ln;
 
   for (int st = 0, first = 1; j < nkt; st ^= 1, first = 0) {
     const int jn = next_tile(flags, j + 1, nkt);
@@ -682,26 +824,24 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     if (first) {
 #pragma unroll
       for (int kk = 0; kk < NJ; ++kk)
-        sm90::ldmatrix_x4(qf[kk], Qs + (FB_GROUP * warp + a_row) * ld +
-                                      16 * kk + a_col);
+        sm90::ldmatrix_x4(qf[kk], Qs + (FB_GROUP * warp + ln.a_row) * ld +
+                                      16 * kk + ln.a_col);
     }
     const int code = (flags[j] >> (2 * warp)) & 3;   // this warp's rows
     if (code) {
-      const __nv_bfloat16* Kt = Ks + st * FA_TILE * ld;
-      const __nv_bfloat16* Vt = Vs + st * FA_TILE * ld;
+      const bf16* Kt = Ks + st * FA_TILE * ld;
+      const bf16* Vt = Vs + st * FA_TILE * ld;
 
       // s = q k^T: 16 rows x 64 keys per warp, 8 fragments of 8 keys
       float s[8][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      zero_frags(s);
 #pragma unroll
       for (int kk = 0; kk < NJ; ++kk) {
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t bf[4];
-          sm90::ldmatrix_x4(bf, Kt + (16 * np + b_row) * ld + 16 * kk + b_col);
+          sm90::ldmatrix_x4(bf, Kt + (16 * np + ln.b_row) * ld + 16 * kk +
+                                    ln.b_col);
           sm90::mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
           sm90::mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
         }
@@ -780,7 +920,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         for (int np = 0; np < NJ; ++np) {
           uint32_t bf[4];
           sm90::ldmatrix_x4_trans(
-              bf, Vt + (16 * kk + a_row) * ld + 16 * np + a_col);
+              bf, Vt + (16 * kk + ln.a_row) * ld + 16 * np + ln.a_col);
           sm90::mma_bf16(oacc[2 * np], pl, bf[0], bf[1]);
           sm90::mma_bf16(oacc[2 * np + 1], pl, bf[2], bf[3]);
           sm90::mma_bf16(oacc[2 * np], ph, bf[0], bf[1]);
@@ -815,6 +955,315 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// p in base 2 from a raw score x (s q.k, scaled by scale2 = scale log2 e,
+// or by scale and then capped) and lse2 = lse log2 e: lse2 and the masked
+// score NEG log2 e are products rounded on their own (__fmul_rn is never
+// contracted into an FMA), so that a row with no allowed key, whose lse is
+// NEG, gets p = exp2(0) = 1 exactly and a masked key of any other row 0
+__device__ __forceinline__ float lse_base2(float lse) {
+  return __fmul_rn(lse, LOG2E);
+}
+
+// dq: block (q tile, h, b), q tiles last-first (the longest causal rows
+// start first); each warp walks the k tiles its 16 rows visit
+template <int NJ, bool CAP>
+__global__ void __launch_bounds__(FB_THREADS, 2)
+flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const int* __restrict__ qpos,
+                     const int* __restrict__ kpos, bf16* __restrict__ dq,
+                     int H, int KV, int Sq, int Sk, Mask mk) {
+  constexpr int d = 16 * NJ, ld = d + FB_PAD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nkt = (Sk + FA_TILE - 1) / FA_TILE;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Os = Qs + FA_TILE * ld;                       // dO
+  bf16* Ks = Os + FA_TILE * ld;                       // 2 stages
+  bf16* Vs = Ks + 2 * FA_TILE * ld;                   // 2 stages
+  int* kps = reinterpret_cast<int*>(Vs + 2 * FA_TILE * ld);  // 2 stages
+  int* flags = kps + 2 * FA_TILE;                     // nkt, then scratch
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * FA_TILE;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const size_t qoff = ((size_t)b * H + h) * Sq;
+  const bf16* kb = k + ((size_t)b * KV + kvh) * Sk * d;
+  const bf16* vb = v + ((size_t)b * KV + kvh) * Sk * d;
+
+  cp_tile(Qs, ld, q + qoff * d, q0, Sq, d);    // in flight during the plan
+  cp_tile(Os, ld, dout + qoff * d, q0, Sq, d);
+  plan_k_tiles(qpos, kpos, q0, min(FA_TILE, Sq - q0), FB_GROUP, Sk, mk,
+               flags, flags + nkt);
+  int j = next_tile(flags, 0, nkt);
+  if (j < nkt) cp_kv(Ks, Vs, kps, ld, 0, kb, vb, kpos, j, Sk, d);
+  sm90::cp_async_commit();
+
+  const float scale2 = CAP ? mk.scale : mk.scale * LOG2E;
+  const float cap2 = mk.cap * LOG2E;
+  // this thread's rows: ra = g, rb = g + 8 of its warp's 16 (0 past Sq)
+  const int ra = q0 + FB_GROUP * warp + g, rb = ra + 8;
+  const int qpa = ra < Sq ? qpos[ra] : 0, qpb = rb < Sq ? qpos[rb] : 0;
+  const float l2a = ra < Sq ? lse_base2(lse[qoff + ra]) : 0.f;
+  const float l2b = rb < Sq ? lse_base2(lse[qoff + rb]) : 0.f;
+  const float dla = ra < Sq ? delta[qoff + ra] : 0.f;
+  const float dlb = rb < Sq ? delta[qoff + rb] : 0.f;
+  float acc[2 * NJ][4];
+  zero_frags(acc);
+  const Lanes ln;
+  const bf16* Qw = Qs + (FB_GROUP * warp + ln.a_row) * ld + ln.a_col;
+  const bf16* Ow = Os + (FB_GROUP * warp + ln.a_row) * ld + ln.a_col;
+
+  for (int st = 0; j < nkt; st ^= 1) {
+    const int jn = next_tile(flags, j + 1, nkt);
+    if (jn < nkt) cp_kv(Ks, Vs, kps, ld, st ^ 1, kb, vb, kpos, jn, Sk, d);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();                    // tile j (and q, dO) landed
+    __syncthreads();
+    const int code = (flags[j] >> (2 * warp)) & 3;   // this warp's rows
+    if (code) {
+      const bf16* Kt = Ks + st * FA_TILE * ld;
+      const bf16* Vt = Vs + st * FA_TILE * ld;
+
+      // s = q k^T and dp = dO v^T: 16 rows x 64 keys per warp
+      float s[8][4], dp[8][4];
+      zero_frags(s);
+      zero_frags(dp);
+#pragma unroll
+      for (int kk = 0; kk < NJ; ++kk) {
+        uint32_t qa[4], oa[4];
+        sm90::ldmatrix_x4(qa, Qw + 16 * kk);
+        sm90::ldmatrix_x4(oa, Ow + 16 * kk);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          const int off = (16 * np + ln.b_row) * ld + 16 * kk + ln.b_col;
+          uint32_t bk[4], bv[4];
+          sm90::ldmatrix_x4(bk, Kt + off);
+          sm90::ldmatrix_x4(bv, Vt + off);
+          sm90::mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+          sm90::mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+          sm90::mma_bf16(dp[2 * np], oa, bv[0], bv[1]);
+          sm90::mma_bf16(dp[2 * np + 1], oa, bv[2], bv[3]);
+        }
+      }
+
+      // dS = p (dp - delta) (1 - t^2), 0 where masked or past Sk; the mask
+      // unless the warp's rows see every key of the tile
+      const int* kp = kps + st * FA_TILE;
+      const int kn = min(FA_TILE, Sk - j * FA_TILE);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);
+          float x = s[n][e] * scale2, tt = 0.f;
+          if (CAP) {
+            tt = tanhf(x / mk.cap);
+            x = cap2 * tt;
+          }
+          const bool ok = code == 2 ||
+                          (c < kn && allowed(e < 2 ? qpa : qpb, kp[c], mk));
+          float ds = 0.f;
+          if (ok) {
+            const float p = exp2f(x - (e < 2 ? l2a : l2b));
+            ds = p * (dp[n][e] - (e < 2 ? dla : dlb));
+            if (CAP) ds *= 1.f - tt * tt;
+          }
+          s[n][e] = ds;
+        }
+
+      // dq += dS k with dS = hi + lo, 16 SPLIT_KS keys at a time
+#pragma unroll
+      for (int h = 0; h < 4 / SPLIT_KS; ++h)
+        acc_split_product<NJ, SPLIT_KS>(acc, s + 2 * SPLIT_KS * h, Kt, ld,
+                                        16 * SPLIT_KS * h, ln);
+    }
+    __syncthreads();                 // stage st is refilled next iteration
+    j = jn;
+  }
+  sm90::cp_async_wait<0>();
+  store_frags<NJ>(acc, dq + qoff * d, ra, Sq, mk.scale);
+}
+
+// q tile i of query head (b, hq)'s q, dO, lse, delta and q positions into
+// stage st (rows past Sq as 0); rows holds 3 FA_TILE words a stage
+__device__ __forceinline__ void cp_qtile(
+    bf16* Qs, bf16* Os, uint32_t* rows, int ld, int st,
+    const bf16* __restrict__ q, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ qpos, size_t qoff, int i, int Sq, int d) {
+  const int q0 = i * FA_TILE;
+  cp_tile(Qs + st * FA_TILE * ld, ld, q + qoff * d, q0, Sq, d);
+  cp_tile(Os + st * FA_TILE * ld, ld, dout + qoff * d, q0, Sq, d);
+  for (int e = threadIdx.x; e < 3 * FA_TILE; e += FB_THREADS) {
+    const int which = e / FA_TILE, r = e - which * FA_TILE;
+    const bool in = q0 + r < Sq;
+    const int at = in ? q0 + r : 0;
+    const void* src = which == 0 ? (const void*)(lse + qoff + at)
+                      : which == 1 ? (const void*)(delta + qoff + at)
+                                   : (const void*)(qpos + at);
+    sm90::cp_async4(rows + st * 3 * FA_TILE + e, src, in);
+  }
+}
+
+// dk/dv: block (k tile, kv head, b), k tiles first-first (under a causal
+// mask the first keys are seen by the most queries); the G query heads of
+// the kv head and the q tiles plan_q_tiles visits, in one sequence n =
+// g nqt + i, the next visited q tile's copy in flight under this one's
+// products
+template <int NJ, bool CAP>
+__global__ void __launch_bounds__(FB_THREADS, 2)
+flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const int* __restrict__ qpos,
+                      const int* __restrict__ kpos, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int H, int KV, int Sq, int Sk,
+                      Mask mk) {
+  constexpr int d = 16 * NJ, ld = d + FB_PAD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nqt = (Sq + FA_TILE - 1) / FA_TILE;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + FA_TILE * ld;
+  bf16* Qs = Vs + FA_TILE * ld;                       // 2 stages
+  bf16* Os = Qs + 2 * FA_TILE * ld;                   // dO, 2 stages
+  // lse, delta, q positions: 3 FA_TILE words a stage, 2 stages
+  uint32_t* rows = reinterpret_cast<uint32_t*>(Os + 2 * FA_TILE * ld);
+  int* flags = reinterpret_cast<int*>(rows + 6 * FA_TILE);  // nqt, scratch
+
+  const int k0 = blockIdx.x * FA_TILE, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV, total = G * nqt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const size_t koff = ((size_t)b * KV + kvh) * Sk * d;
+  const size_t qoff0 = ((size_t)b * H + (size_t)kvh * G) * Sq;
+
+  cp_tile(Ks, ld, k + koff, k0, Sk, d);        // in flight during the plan
+  cp_tile(Vs, ld, v + koff, k0, Sk, d);
+  plan_q_tiles(qpos, kpos, k0, Sq, Sk, mk, flags, flags + nqt);
+  int n = 0;
+  while (n < total && !flags[n % nqt]) ++n;
+  if (n < total)
+    cp_qtile(Qs, Os, rows, ld, 0, q, dout, lse, delta, qpos,
+             qoff0 + (size_t)(n / nqt) * Sq, n % nqt, Sq, d);
+  sm90::cp_async_commit();
+
+  const float scale2 = CAP ? mk.scale : mk.scale * LOG2E;
+  const float cap2 = mk.cap * LOG2E;
+  const float neg2 = lse_base2(NEG);
+  // this thread's keys: ka = g, kb = g + 8 of its warp's 16 (-1 past Sk)
+  const int ka = k0 + FB_GROUP * warp + g, kb = ka + 8;
+  const int kpa = ka < Sk ? kpos[ka] : -1, kpb = kb < Sk ? kpos[kb] : -1;
+  float dka[2 * NJ][4], dva[2 * NJ][4];
+  zero_frags(dka);
+  zero_frags(dva);
+  const Lanes ln;
+  const bf16* Kw = Ks + (FB_GROUP * warp + ln.a_row) * ld + ln.a_col;
+  const bf16* Vw = Vs + (FB_GROUP * warp + ln.a_row) * ld + ln.a_col;
+
+  for (int st = 0; n < total; st ^= 1) {
+    int nn = n + 1;
+    while (nn < total && !flags[nn % nqt]) ++nn;
+    if (nn < total)
+      cp_qtile(Qs, Os, rows, ld, st ^ 1, q, dout, lse, delta, qpos,
+               qoff0 + (size_t)(nn / nqt) * Sq, nn % nqt, Sq, d);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();             // q tile n (and k, v) landed
+    __syncthreads();
+    const int code = flags[n % nqt];
+    const bf16* Qt = Qs + st * FA_TILE * ld;
+    const bf16* Ot = Os + st * FA_TILE * ld;
+    const float* ls = reinterpret_cast<const float*>(rows + st * 3 * FA_TILE);
+    const float* dl = ls + FA_TILE;
+    const int* qp = reinterpret_cast<const int*>(dl + FA_TILE);
+
+    // the halves one after the other (unrolled, ptxas interleaves them,
+    // runs out of registers and spills: 6% slower on an H100, flash_ab.py)
+#pragma unroll 1
+    for (int c0 = 0; c0 < FA_TILE; c0 += DKV_HALF) {
+      // s^T = K Q^T and dp^T = V dO^T: 16 keys x 32 queries per warp
+      float s[4][4], dp[4][4];
+      zero_frags(s);
+      zero_frags(dp);
+      if (code != 3) {
+#pragma unroll
+        for (int kk = 0; kk < NJ; ++kk) {
+          uint32_t kf[4], vf[4];
+          sm90::ldmatrix_x4(kf, Kw + 16 * kk);
+          sm90::ldmatrix_x4(vf, Vw + 16 * kk);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            const int off =
+                (c0 + 16 * np + ln.b_row) * ld + 16 * kk + ln.b_col;
+            uint32_t bq[4], bo[4];
+            sm90::ldmatrix_x4(bq, Qt + off);
+            sm90::ldmatrix_x4(bo, Ot + off);
+            sm90::mma_bf16(s[2 * np], kf, bq[0], bq[1]);
+            sm90::mma_bf16(s[2 * np + 1], kf, bq[2], bq[3]);
+            sm90::mma_bf16(dp[2 * np], vf, bo[0], bo[1]);
+            sm90::mma_bf16(dp[2 * np + 1], vf, bo[2], bo[3]);
+          }
+        }
+      }
+
+      // p^T (unmasked, as the reference's dk/dv uses it) and dS^T, per
+      // column: lse, delta and the q position of query c.  Code 3: no
+      // allowed pair, p = exp2(NEG log2 e - lse2) needs no score
+#pragma unroll
+      for (int n8 = 0; n8 < 4; ++n8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + 8 * n8 + 2 * t + (e & 1);
+          const float l2 = lse_base2(ls[c]);
+          float p, ds = 0.f;
+          if (code == 3) {
+            p = exp2f(neg2 - l2);
+          } else {
+            float x = s[n8][e] * scale2, tt = 0.f;
+            if (CAP) {
+              tt = tanhf(x / mk.cap);
+              x = cap2 * tt;
+            }
+            const bool ok =
+                code == 2 || allowed(qp[c], e < 2 ? kpa : kpb, mk);
+            p = exp2f((ok ? x : neg2) - l2);
+            if (ok) {
+              ds = p * (dp[n8][e] - dl[c]);
+              if (CAP) ds *= 1.f - tt * tt;
+            }
+          }
+          s[n8][e] = p;
+          dp[n8][e] = ds;
+        }
+
+      // dv += p^T dO and dk += dS^T q over the 32 queries, each as hi + lo
+#pragma unroll
+      for (int h = 0; h < 2 / SPLIT_KS; ++h) {
+        const int x0 = c0 + 16 * SPLIT_KS * h;
+        acc_split_product<NJ, SPLIT_KS>(dva, s + 2 * SPLIT_KS * h, Ot, ld,
+                                        x0, ln);
+        if (code != 3)
+          acc_split_product<NJ, SPLIT_KS>(dka, dp + 2 * SPLIT_KS * h, Qt,
+                                          ld, x0, ln);
+      }
+    }
+    __syncthreads();                 // stage st is refilled next iteration
+    n = nn;
+  }
+  sm90::cp_async_wait<0>();
+  store_frags<NJ>(dka, dk + koff, ka, Sk, mk.scale);
+  store_frags<NJ>(dva, dv + koff, ka, Sk, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
 int check_shape(int B, int H, int KV, int Sq, int Sk, int d) {
   if (B < 0 || Sq < 0 || Sk < 1 || KV < 1 || H < KV || H % KV ||
       d < 16 || d > 16 * MAX_NJ || d % 16)
@@ -822,14 +1271,22 @@ int check_shape(int B, int H, int KV, int Sq, int Sk, int d) {
   return 0;
 }
 
-// a kernel's dynamic shared memory: score_tiles f32 score tiles, then
-// row_arrays 64-entry f32 or int arrays, then in_tiles input tiles (each
-// part a multiple of 32 bytes, so the WMMA operands stay aligned)
-template <typename T>
-size_t smem_bytes(int d, int score_tiles, int row_arrays, int in_tiles) {
+// an f32 kernel's dynamic shared memory: score_tiles f32 score tiles, then
+// row_arrays 64-entry f32 or int arrays, then in_tiles input tiles, then
+// flag_ints ints of the plan
+size_t smem_bytes(int d, int score_tiles, int row_arrays, int in_tiles,
+                  int flag_ints) {
   return (size_t)score_tiles * FA_TILE * S_LD * sizeof(float) +
          (size_t)row_arrays * FA_TILE * sizeof(float) +
-         (size_t)in_tiles * FA_TILE * (d + Pad<T>::value) * sizeof(T);
+         (size_t)in_tiles * FA_TILE * (d + F_LD_PAD) * sizeof(float) +
+         (size_t)flag_ints * sizeof(int);
+}
+
+// a bf16 kernel's: tiles padded bf16 tiles of head dim d, then words
+// 4-byte words (row arrays, positions and plan flags)
+size_t bf16_smem_bytes(int d, int tiles, int words) {
+  return (size_t)tiles * FA_TILE * (d + FB_PAD) * sizeof(bf16) +
+         (size_t)words * 4;
 }
 
 // raise a kernel's dynamic shared memory limit to bytes the first time it
@@ -844,78 +1301,129 @@ int set_smem(K kernel, size_t bytes, size_t& granted) {
   return rc;
 }
 
-// the forward's tile flags and plan scratch after its other shared memory
-size_t plan_bytes(int Sk) {
-  return (size_t)((Sk + FA_TILE - 1) / FA_TILE + 3 * PLAN_GROUPS) *
-         sizeof(int);
+// ints of plan_k_tiles' flags and scratch, and of plan_q_tiles'
+int k_plan_ints(int Sk) {
+  return (Sk + FA_TILE - 1) / FA_TILE + 3 * PLAN_GROUPS;
 }
+int q_plan_ints(int Sq) { return (Sq + FA_TILE - 1) / FA_TILE + 1; }
 
-int launch_fwd_f32(const void* q, const void* k, const void* v,
-                   const void* qpos, const void* kpos, void* o, void* lse,
-                   int B, int H, int KV, int Sq, int Sk, int d, Mask mk,
-                   void* stream) {
-  if (int rc = check_shape(B, H, KV, Sq, Sk, d)) return rc;
-  if (B == 0 || Sq == 0) return 0;
-  const size_t bytes = smem_bytes<float>(d, 1, 5, 3) + plan_bytes(Sk);
+// the operands of every entry point: the backward's (out0 dq or dk, out1
+// dv); the forward has no dout, lse or delta and writes o to out0, lse to
+// out1
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta, *qpos, *kpos;
+  void *out0, *out1;
+  int B, H, KV, Sq, Sk, d;
+  Mask mk;
+  cudaStream_t stream;
+};
+
+int launch_fwd_f32(const Args& a) {
+  const size_t bytes = smem_bytes(a.d, 1, 5, 3, k_plan_ints(a.Sk));
   static size_t granted = 0;
-  if (int rc = set_smem(flash_fwd_kernel<float>, bytes, granted)) return rc;
-  const dim3 grid((Sq + FA_TILE - 1) / FA_TILE, H, B);
-  flash_fwd_kernel<float><<<grid, FA_THREADS, bytes,
-                            (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)qpos,
-      (const int*)kpos, (float*)o, (float*)lse, H, KV, Sq, Sk, d, mk);
+  if (int rc = set_smem(flash_fwd_kernel, bytes, granted)) return rc;
+  const dim3 grid((a.Sq + FA_TILE - 1) / FA_TILE, a.H, a.B);
+  flash_fwd_kernel<<<grid, FA_THREADS, bytes, a.stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const int*)a.qpos, (const int*)a.kpos, (float*)a.out0,
+      (float*)a.out1, a.H, a.KV, a.Sq, a.Sk, a.d, a.mk);
   return (int)cudaGetLastError();
 }
 
-template <int NJ, bool CAP>
-int launch_fwd_bf16_t(const void* q, const void* k, const void* v,
-                      const void* qpos, const void* kpos, void* o, void* lse,
-                      int B, int H, int KV, int Sq, int Sk, Mask mk,
-                      cudaStream_t stream) {
-  const size_t bytes = (size_t)5 * FA_TILE * (16 * NJ + FB_PAD) *
-                           sizeof(__nv_bfloat16) +
-                       2 * FA_TILE * sizeof(int) + plan_bytes(Sk);
+int launch_dq_f32(const Args& a) {
+  const size_t bytes = smem_bytes(a.d, 2, 4, 4, k_plan_ints(a.Sk));
   static size_t granted = 0;
-  const auto kernel = flash_fwd_bf16_kernel<NJ, CAP>;
-  if (int rc = set_smem(kernel, bytes, granted)) return rc;
-  const dim3 grid((Sq + FA_TILE - 1) / FA_TILE, H, B);
-  kernel<<<grid, FB_THREADS, bytes, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int*)qpos, (const int*)kpos,
-      (__nv_bfloat16*)o, (float*)lse, H, KV, Sq, Sk, mk);
+  if (int rc = set_smem(flash_dq_kernel, bytes, granted)) return rc;
+  const dim3 grid((a.Sq + FA_TILE - 1) / FA_TILE, a.H, a.B);
+  flash_dq_kernel<<<grid, FA_THREADS, bytes, a.stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.dout, (const float*)a.lse, (const float*)a.delta,
+      (const int*)a.qpos, (const int*)a.kpos, (float*)a.out0, a.H, a.KV,
+      a.Sq, a.Sk, a.d, a.mk);
   return (int)cudaGetLastError();
 }
 
-template <int NJ>
-int launch_fwd_bf16_d(const void* q, const void* k, const void* v,
-                      const void* qpos, const void* kpos, void* o, void* lse,
-                      int B, int H, int KV, int Sq, int Sk, Mask mk,
-                      cudaStream_t stream) {
-  return mk.use_cap ? launch_fwd_bf16_t<NJ, true>(q, k, v, qpos, kpos, o,
-                                                  lse, B, H, KV, Sq, Sk, mk,
-                                                  stream)
-                    : launch_fwd_bf16_t<NJ, false>(q, k, v, qpos, kpos, o,
-                                                   lse, B, H, KV, Sq, Sk, mk,
-                                                   stream);
+int launch_dkv_f32(const Args& a) {
+  const size_t bytes = smem_bytes(a.d, 2, 4, 4, q_plan_ints(a.Sq));
+  static size_t granted = 0;
+  if (int rc = set_smem(flash_dkv_kernel, bytes, granted)) return rc;
+  const dim3 grid((a.Sk + FA_TILE - 1) / FA_TILE, a.KV, a.B);
+  flash_dkv_kernel<<<grid, FA_THREADS, bytes, a.stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.dout, (const float*)a.lse, (const float*)a.delta,
+      (const int*)a.qpos, (const int*)a.kpos, (float*)a.out0,
+      (float*)a.out1, a.H, a.KV, a.Sq, a.Sk, a.d, a.mk);
+  return (int)cudaGetLastError();
 }
 
-int launch_fwd_bf16(const void* q, const void* k, const void* v,
-                    const void* qpos, const void* kpos, void* o, void* lse,
-                    int B, int H, int KV, int Sq, int Sk, int d, Mask mk,
-                    void* stream) {
-  if (int rc = check_shape(B, H, KV, Sq, Sk, d)) return rc;
-  if (B == 0 || Sq == 0) return 0;
-  // cp.async moves 16-byte pieces: rows of d bf16 (d % 16 == 0) stay
-  // aligned if the bases are; positions move 4 bytes at a time
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 ||
-      ((uintptr_t)qpos | (uintptr_t)kpos) % 4)
+// the bf16 kernels, one struct per kernel with run<NJ, CAP>
+struct FwdBf16 {
+  template <int NJ, bool CAP>
+  static int run(const Args& a) {
+    const size_t bytes =
+        bf16_smem_bytes(16 * NJ, 5, 2 * FA_TILE + k_plan_ints(a.Sk));
+    static size_t granted = 0;
+    const auto kernel = flash_fwd_bf16_kernel<NJ, CAP>;
+    if (int rc = set_smem(kernel, bytes, granted)) return rc;
+    const dim3 grid((a.Sq + FA_TILE - 1) / FA_TILE, a.H, a.B);
+    kernel<<<grid, FB_THREADS, bytes, a.stream>>>(
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+        (const int*)a.qpos, (const int*)a.kpos, (bf16*)a.out0,
+        (float*)a.out1, a.H, a.KV, a.Sq, a.Sk, a.mk);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct DqBf16 {
+  template <int NJ, bool CAP>
+  static int run(const Args& a) {
+    const size_t bytes =
+        bf16_smem_bytes(16 * NJ, 6, 2 * FA_TILE + k_plan_ints(a.Sk));
+    static size_t granted = 0;
+    const auto kernel = flash_dq_bf16_kernel<NJ, CAP>;
+    if (int rc = set_smem(kernel, bytes, granted)) return rc;
+    const dim3 grid((a.Sq + FA_TILE - 1) / FA_TILE, a.H, a.B);
+    kernel<<<grid, FB_THREADS, bytes, a.stream>>>(
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+        (const bf16*)a.dout, (const float*)a.lse, (const float*)a.delta,
+        (const int*)a.qpos, (const int*)a.kpos, (bf16*)a.out0, a.H, a.KV,
+        a.Sq, a.Sk, a.mk);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct DkvBf16 {
+  template <int NJ, bool CAP>
+  static int run(const Args& a) {
+    const size_t bytes =
+        bf16_smem_bytes(16 * NJ, 6, 6 * FA_TILE + q_plan_ints(a.Sq));
+    static size_t granted = 0;
+    const auto kernel = flash_dkv_bf16_kernel<NJ, CAP>;
+    if (int rc = set_smem(kernel, bytes, granted)) return rc;
+    const dim3 grid((a.Sk + FA_TILE - 1) / FA_TILE, a.KV, a.B);
+    kernel<<<grid, FB_THREADS, bytes, a.stream>>>(
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+        (const bf16*)a.dout, (const float*)a.lse, (const float*)a.delta,
+        (const int*)a.qpos, (const int*)a.kpos, (bf16*)a.out0,
+        (bf16*)a.out1, a.H, a.KV, a.Sq, a.Sk, a.mk);
+    return (int)cudaGetLastError();
+  }
+};
+
+// K::run<d / 16, softcap?>; cp.async moves 16-byte pieces: rows of d bf16
+// (d % 16 == 0) stay aligned if the bases are; 4-byte words 4 bytes
+template <typename K>
+int launch_bf16(const Args& a) {
+  if ((uintptr_t)a.q % 16 || (uintptr_t)a.k % 16 || (uintptr_t)a.v % 16 ||
+      (uintptr_t)a.dout % 16 || (uintptr_t)a.qpos % 4 ||
+      (uintptr_t)a.kpos % 4 || (uintptr_t)a.lse % 4 ||
+      (uintptr_t)a.delta % 4)
     return (int)cudaErrorMisalignedAddress;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (d / 16) {
-#define FA_HEAD_DIM(nj)                                                   \
-  case nj:                                                                \
-    return launch_fwd_bf16_d<nj>(q, k, v, qpos, kpos, o, lse, B, H, KV, Sq, \
-                                 Sk, mk, s);
+  const bool cap = a.mk.use_cap;
+  switch (a.d / 16) {
+#define FA_HEAD_DIM(nj) \
+  case nj:              \
+    return cap ? K::template run<nj, true>(a) : K::template run<nj, false>(a);
     FA_HEAD_DIM(1) FA_HEAD_DIM(2) FA_HEAD_DIM(3) FA_HEAD_DIM(4)
     FA_HEAD_DIM(5) FA_HEAD_DIM(6) FA_HEAD_DIM(7) FA_HEAD_DIM(8)
 #undef FA_HEAD_DIM
@@ -923,40 +1431,12 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, const void* qpos,
-              const void* kpos, void* dq, int B, int H, int KV, int Sq,
-              int Sk, int d, Mask mk, void* stream) {
-  if (int rc = check_shape(B, H, KV, Sq, Sk, d)) return rc;
-  if (B == 0 || Sq == 0) return 0;
-  const size_t bytes = smem_bytes<T>(d, 2, 4, 4);
-  static size_t granted = 0;
-  if (int rc = set_smem(flash_dq_kernel<T>, bytes, granted)) return rc;
-  const dim3 grid((Sq + FA_TILE - 1) / FA_TILE, H, B);
-  flash_dq_kernel<T><<<grid, FA_THREADS, bytes, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (const int*)qpos,
-      (const int*)kpos, (T*)dq, H, KV, Sq, Sk, d, mk);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const void* qpos,
-               const void* kpos, void* dk, void* dv, int B, int H, int KV,
-               int Sq, int Sk, int d, Mask mk, void* stream) {
-  if (int rc = check_shape(B, H, KV, Sq, Sk, d)) return rc;
-  if (B == 0) return 0;
-  const size_t bytes = smem_bytes<T>(d, 2, 4, 4);
-  static size_t granted = 0;
-  if (int rc = set_smem(flash_dkv_kernel<T>, bytes, granted)) return rc;
-  const dim3 grid((Sk + FA_TILE - 1) / FA_TILE, KV, B);
-  flash_dkv_kernel<T><<<grid, FA_THREADS, bytes, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (const int*)qpos,
-      (const int*)kpos, (T*)dk, (T*)dv, H, KV, Sq, Sk, d, mk);
-  return (int)cudaGetLastError();
+// shape checks, then the launch unless there is nothing to compute (the
+// forward and dq with no query; dk/dv with no query still write zeros)
+int launch(int (*fn)(const Args&), const Args& a, bool need_rows) {
+  if (int rc = check_shape(a.B, a.H, a.KV, a.Sq, a.Sk, a.d)) return rc;
+  if (a.B == 0 || (need_rows && a.Sq == 0)) return 0;
+  return fn(a);
 }
 
 }  // namespace
@@ -964,22 +1444,25 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 #define FA_MASK_ARGS                                                    \
   float scale, int causal, int window, int use_window, float cap,      \
       int use_cap, void* stream
-#define FA_MASK Mask{scale, causal, window, use_window, cap, use_cap}
+#define FA_ARGS(dout, lse, delta, out0, out1)                              \
+  Args{q, k, v, dout, lse, delta, qpos, kpos, out0, out1, B, H, KV, Sq,    \
+       Sk, d, Mask{scale, causal, window, use_window, cap, use_cap},       \
+       (cudaStream_t)stream}
 
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               const void* qpos, const void* kpos, void* o,
                               void* lse, int B, int H, int KV, int Sq,
                               int Sk, int d, FA_MASK_ARGS) {
-  return launch_fwd_bf16(q, k, v, qpos, kpos, o, lse, B, H, KV, Sq, Sk, d,
-                         FA_MASK, stream);
+  return launch(launch_bf16<FwdBf16>,
+                FA_ARGS(nullptr, nullptr, nullptr, o, lse), true);
 }
 
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              const void* qpos, const void* kpos, void* o,
                              void* lse, int B, int H, int KV, int Sq, int Sk,
                              int d, FA_MASK_ARGS) {
-  return launch_fwd_f32(q, k, v, qpos, kpos, o, lse, B, H, KV, Sq, Sk, d,
-                        FA_MASK, stream);
+  return launch(launch_fwd_f32, FA_ARGS(nullptr, nullptr, nullptr, o, lse),
+                true);
 }
 
 extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
@@ -987,8 +1470,8 @@ extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
                              const void* delta, const void* qpos,
                              const void* kpos, void* dq, int B, int H, int KV,
                              int Sq, int Sk, int d, FA_MASK_ARGS) {
-  return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, qpos, kpos, dq,
-                                  B, H, KV, Sq, Sk, d, FA_MASK, stream);
+  return launch(launch_bf16<DqBf16>,
+                FA_ARGS(dout, lse, delta, dq, nullptr), true);
 }
 
 extern "C" int flash_dq_f32(const void* q, const void* k, const void* v,
@@ -996,8 +1479,7 @@ extern "C" int flash_dq_f32(const void* q, const void* k, const void* v,
                             const void* delta, const void* qpos,
                             const void* kpos, void* dq, int B, int H, int KV,
                             int Sq, int Sk, int d, FA_MASK_ARGS) {
-  return launch_dq<float>(q, k, v, dout, lse, delta, qpos, kpos, dq, B, H,
-                          KV, Sq, Sk, d, FA_MASK, stream);
+  return launch(launch_dq_f32, FA_ARGS(dout, lse, delta, dq, nullptr), true);
 }
 
 extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v,
@@ -1006,8 +1488,8 @@ extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v,
                               const void* kpos, void* dk, void* dv, int B,
                               int H, int KV, int Sq, int Sk, int d,
                               FA_MASK_ARGS) {
-  return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, qpos, kpos, dk,
-                                   dv, B, H, KV, Sq, Sk, d, FA_MASK, stream);
+  return launch(launch_bf16<DkvBf16>, FA_ARGS(dout, lse, delta, dk, dv),
+                false);
 }
 
 extern "C" int flash_dkv_f32(const void* q, const void* k, const void* v,
@@ -1016,6 +1498,5 @@ extern "C" int flash_dkv_f32(const void* q, const void* k, const void* v,
                              const void* kpos, void* dk, void* dv, int B,
                              int H, int KV, int Sq, int Sk, int d,
                              FA_MASK_ARGS) {
-  return launch_dkv<float>(q, k, v, dout, lse, delta, qpos, kpos, dk, dv, B,
-                           H, KV, Sq, Sk, d, FA_MASK, stream);
+  return launch(launch_dkv_f32, FA_ARGS(dout, lse, delta, dk, dv), false);
 }

@@ -16,11 +16,14 @@ from the chunked ``_attend`` (that one rounds p to v's dtype).
 ``flash_attention`` is differentiable through the dq and dk/dv kernels,
 as the reference's ``custom_vjp`` is.  The reference's ``block_q`` is a
 TPU tiling knob; the CUDA kernels pick their own 64-row tiles, which
-changes only the order of the f32 sums.  The forward skips the k tiles
-that no row of a group of its queries may see (:func:`visited_k_tiles`
-is the plain twin of its rule), and in bf16 runs P·V on the tensor cores
-with p split into two bf16 parts, p = hi + lo, leaving at most 2⁻¹⁶·|p|
-of p out.
+changes only the order of the f32 sums.  The forward and dq skip the k
+tiles that no row of a group of their queries may see
+(:func:`visited_k_tiles` is the plain twin of that rule); dk/dv skips the
+q tiles that may see none of its keys, but visits for dv a q tile that
+holds a row with no allowed key (:func:`visited_q_tiles`).  In bf16 every
+product runs on the tensor cores, the products of p and dS with each
+split into two bf16 parts, x = hi + lo, leaving at most 2⁻¹⁶·|x| of it
+out.
 """
 from __future__ import annotations
 
@@ -52,14 +55,14 @@ def _mask(q_pos, k_pos, causal: bool, window: Optional[int]):
 
 
 TILE = 64              # FA_TILE in csrc/flash_attention.cu: keys per tile
-GROUP = 16             # FB_GROUP: query rows of a warp of the bf16 forward
+GROUP = 16             # FB_GROUP: query rows of a warp of the bf16 kernels
 
 
 def visited_k_tiles(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
                     window: Optional[int], rows: int = GROUP) -> torch.Tensor:
     """(ceil(Sq/rows), ceil(Sk/64)) bool: the 64-key tiles each group of
-    ``rows`` queries visits in the CUDA forward — the plain twin of
-    ``plan_k_tiles`` (groups of 16 rows in bf16, of 64 in f32).  Every
+    ``rows`` queries visits in the CUDA forward and dq — the plain twin
+    of ``plan_k_tiles`` (groups of 16 rows in bf16, of 64 in f32).  Every
     tile when a row of the group has no allowed key (the reference then
     gives it p = 1 for every key); else each tile holding a valid key at
     most the group's largest q position (causal) and above its smallest
@@ -82,6 +85,41 @@ def visited_k_tiles(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
             ok = ok & (kp > qp.min() - window)
         out.append(ok.reshape(nk, TILE).any(dim=1).cpu())
     return torch.stack(out)
+
+
+SKIP, VISIT, NO_MASK, DV_ONLY = 0, 1, 2, 3    # the codes of plan_q_tiles
+
+
+def visited_q_tiles(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                    window: Optional[int]) -> torch.Tensor:
+    """(ceil(Sk/64), ceil(Sq/64)) int8: what the CUDA dk/dv block of each
+    64-key tile does with each 64-query tile — the plain twin of
+    ``plan_q_tiles``.  ``VISIT`` when the k tile holds a valid key at most
+    the q tile's largest position (causal) and above its smallest minus
+    the window (window), ``NO_MASK`` when all 64 keys are valid and every
+    row of the q tile may see every one of them; else ``DV_ONLY`` when a
+    row of the q tile has no allowed key at all (the reference's dk/dv
+    uses p unmasked, and such a row's lse is NEG, so p = 1 for every key
+    and its dO lands in dv of every key, while its dS is 0), else
+    ``SKIP``."""
+    Sq, Sk = q_pos.shape[0], k_pos.shape[0]
+    nokey = ~_mask(q_pos, k_pos, causal, window).expand(Sq, Sk).any(dim=1)
+    nk = -(-Sk // TILE)
+    kp = torch.nn.functional.pad(k_pos.long(), (0, nk * TILE - Sk),
+                                 value=-1).reshape(nk, TILE)
+    out = []
+    for q0 in range(0, Sq, TILE):
+        qp = q_pos[q0:q0 + TILE].long()
+        seen = every = kp >= 0
+        if causal:
+            seen, every = seen & (kp <= qp.max()), every & (kp <= qp.min())
+        if window is not None:
+            seen = seen & (kp > qp.min() - window)
+            every = every & (kp > qp.max() - window)
+        fallback = DV_ONLY if bool(nokey[q0:q0 + TILE].any()) else SKIP
+        code = torch.where(seen.any(dim=1), VISIT, fallback)
+        out.append(torch.where(every.all(dim=1), NO_MASK, code).cpu())
+    return torch.stack(out, dim=1).to(torch.int8)
 
 
 def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:

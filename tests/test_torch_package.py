@@ -23,7 +23,7 @@ from repro_torch.models.transformer import Transformer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "flash_ab.py"]
 
 
 def _imported_roots(path):
@@ -96,6 +96,17 @@ def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):
             continue
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_flash_ab_exits_without_a_gpu():
+    """The A/B tool of the flash kernels builds and times nothing without
+    CUDA: it exits 2 before it looks for nvcc."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the tool would build and time")
+    r = subprocess.run([sys.executable, str(ROOT / "flash_ab.py"),
+                        "a.cu", "b.cu"], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 2 and "no GPU" in r.stderr
 
 
 def test_presets_copy_the_reference():

@@ -1,10 +1,12 @@
 """The plain twins of the CUDA kernels' work schedules, against the masks
-and offsets they serve: the flash forward's k-tile skip
-(``flash_attention.visited_k_tiles``, mirroring ``plan_k_tiles``) and the
-grouped matmul's row-tile schedule (``grouped_ffn.tile_schedule``,
-mirroring ``find_tile``).  A schedule that leaves out an allowed (q, k)
-pair, or a row, or covers a row twice, would make a kernel wrong without
-any plain version noticing, so these hold the rules themselves."""
+and offsets they serve: the flash forward's and dq's k-tile skip
+(``flash_attention.visited_k_tiles``, mirroring ``plan_k_tiles``), dk/dv's
+q-tile skip (``flash_attention.visited_q_tiles``, mirroring
+``plan_q_tiles``) and the grouped matmul's row-tile schedule
+(``grouped_ffn.tile_schedule``, mirroring ``find_tile``).  A schedule that
+leaves out an allowed (q, k) pair, or a row, or covers a row twice, would
+make a kernel wrong without any plain version noticing, so these hold the
+rules themselves."""
 import math
 
 import numpy as np
@@ -153,6 +155,133 @@ def test_skipping_tiles_changes_nothing(name):
                                atol=1e-5)
     np.testing.assert_allclose(lse_skip, lse_p[0, 0].numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# dk/dv's q-tile skip, and the backward over the visited tiles
+# ---------------------------------------------------------------------------
+
+def _tile_pairs(allowed, T=F.TILE):
+    """(nk, nq, T, T) views of an (Sq, Sk) bool matrix padded with False to
+    whole tiles: [j, i] is q tile i against k tile j."""
+    Sq, Sk = allowed.shape
+    nq, nk = -(-Sq // T), -(-Sk // T)
+    pad = torch.zeros(nq * T, nk * T, dtype=torch.bool)
+    pad[:Sq, :Sk] = allowed
+    return pad.reshape(nq, T, nk, T).permute(2, 0, 1, 3)
+
+
+@pytest.mark.parametrize("name", FLASH_NAMES)
+def test_visited_q_tiles_cover_every_needed_pair(name):
+    """Every allowed (q, k) pair lies in a tile that dk/dv computes in full
+    (VISIT or NO_MASK); every pair of a row with no allowed key lies in a
+    visited tile (it adds p = 1 to dv); a NO_MASK tile has every pair
+    allowed and 64 valid keys; DV_ONLY and SKIP tiles hold no allowed
+    pair, and SKIP tiles no row without a key."""
+    q_pos, k_pos, causal, window = _positions(name)
+    codes = F.visited_q_tiles(q_pos, k_pos, causal, window)
+    Sq, Sk = len(q_pos), len(k_pos)
+    T = F.TILE
+    assert codes.shape == (math.ceil(Sk / T), math.ceil(Sq / T))
+    allowed = F._mask(q_pos, k_pos, causal, window).expand(Sq, Sk)
+    nokey = ~allowed.any(dim=1)
+    tiles = _tile_pairs(allowed)
+    any_pair = tiles.any(dim=(2, 3))
+    full = (codes == F.VISIT) | (codes == F.NO_MASK)
+    assert not (any_pair & ~full).any()
+    for i in range(codes.shape[1]):
+        if nokey[i * T:(i + 1) * T].any():
+            assert (codes[:, i] != F.SKIP).all()
+        else:
+            assert (codes[:, i] != F.DV_ONLY).all()
+    for j, i in (codes == F.NO_MASK).nonzero().tolist():
+        rows = min(Sq, (i + 1) * T) - i * T
+        assert j * T + T <= Sk
+        assert tiles[j, i, :rows].all()
+    assert not (any_pair & ((codes == F.DV_ONLY) | (codes == F.SKIP))).any()
+
+
+def test_visited_q_tiles_at_the_training_shape():
+    """Causal S=1024: k tile j visits q tiles j..15, 136 of 256 pairs, the
+    diagonal with the mask and the rest without; the first 100 invalid key
+    slots leave rows 0..99 without a key, so q tiles 0 and 1 are visited
+    for dv by every k tile (DV_ONLY where no pair is allowed), and k tile 0
+    (keys 0..63, all invalid) visits nothing else."""
+    codes = F.visited_q_tiles(*_positions("causal S=1024"))
+    assert int((codes > 0).sum()) == 136
+    tril = torch.ones(16, 16, dtype=torch.bool).tril()
+    assert torch.equal(codes > 0, tril.T)
+    assert torch.equal(codes == F.VISIT, torch.eye(16, dtype=torch.bool))
+    inv = F.visited_q_tiles(*_positions("first 100 key slots invalid"))
+    assert inv[0].tolist() == [F.DV_ONLY] * 2 + [F.SKIP] * 14
+    assert inv[1].tolist() == [F.DV_ONLY] + [F.VISIT] * 15
+    assert inv[2, :3].tolist() == [F.DV_ONLY, F.DV_ONLY, F.VISIT]
+    assert (inv[:, :2] != F.SKIP).all()
+
+
+def _tiled_backward(q, k, v, do, q_pos, k_pos, causal, window, dq_visit,
+                    dkv_codes, rows):
+    """dq, dk and dv in float64 over the tiles the kernels visit: dq per
+    group of ``rows`` queries over the k tiles ``dq_visit`` names, dk over
+    the q tiles ``dkv_codes`` computes in full and dv over every visited
+    one, with the reference's p = exp(s - lse) unmasked (NEG where
+    masked) and dS = p (dP - Δ) masked to 0; o, lse and Δ from the
+    float64 forward over all keys."""
+    T, NEG = F.TILE, F.NEG
+    Sq, Sk, d = q.shape[0], k.shape[0], q.shape[1]
+    scale = d ** -0.5
+    allowed = F._mask(q_pos, k_pos, causal, window).expand(Sq, Sk).numpy()
+    s = np.where(allowed, q @ k.T * scale, NEG)
+    m = s.max(axis=1, keepdims=True)
+    lse = m + np.log(np.exp(s - m).sum(axis=1, keepdims=True))
+    p = np.exp(s - lse)
+    delta = (do * (p @ v)).sum(axis=1, keepdims=True)
+    ds = np.where(allowed, p * (do @ v.T - delta), 0.0)
+    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+    for i in range(dq_visit.shape[0]):
+        r = slice(i * rows, (i + 1) * rows)
+        for j in np.nonzero(dq_visit[i].numpy())[0]:
+            c = slice(j * T, (j + 1) * T)
+            dq[r] += ds[r, c] @ k[c] * scale
+    for j in range(dkv_codes.shape[0]):
+        c = slice(j * T, (j + 1) * T)
+        for i in np.nonzero(dkv_codes[j].numpy())[0]:
+            r = slice(i * T, (i + 1) * T)
+            dv[c] += p[r, c].T @ do[r]
+            if dkv_codes[j, i] != F.DV_ONLY:
+                dk[c] += ds[r, c].T @ q[r] * scale
+    return dq, dk, dv, lse[:, 0], delta[:, 0]
+
+
+@pytest.mark.parametrize("rows", [16, 64])
+@pytest.mark.parametrize("name", FLASH_NAMES[1:])
+def test_skipping_tiles_changes_nothing_in_the_backward(name, rows):
+    """dq, dk and dv over the visited tiles only equal those over every
+    tile (float64, rtol/atol 1e-12: a skipped tile holds p = 0 and dS = 0,
+    and a DV_ONLY tile dS = 0), and both equal the plain dq and dk/dv (f32,
+    rtol/atol 1e-5, given the float64 run's lse and Δ), dq for groups of 16
+    rows (the bf16 kernel's warps) and of 64 (the f32 kernel's blocks).
+    "first 100 key slots invalid" has 100 rows with no key, over two q
+    tiles."""
+    q_pos, k_pos, causal, window = _positions(name)
+    rng = np.random.default_rng(34)
+    Sq, Sk, d = len(q_pos), len(k_pos), 16
+    q, k, v, do = (rng.standard_normal((n, d)) for n in (Sq, Sk, Sk, Sq))
+    args = (q, k, v, do, q_pos, k_pos, causal, window)
+    dq_visit = F.visited_k_tiles(q_pos, k_pos, causal, window, rows)
+    codes = F.visited_q_tiles(q_pos, k_pos, causal, window)
+    *skip, lse, delta = _tiled_backward(*args, dq_visit, codes, rows)
+    *every, _, _ = _tiled_backward(*args, torch.ones_like(dq_visit),
+                                   torch.full_like(codes, F.VISIT), rows)
+    for a, b in zip(skip, every):
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
+    t = lambda a: torch.from_numpy(a).float()[None, None]  # noqa: E731
+    bwd = (t(q), t(k), t(v), t(do), t(lse), t(delta), q_pos,
+           k_pos, d ** -0.5, causal, window, None)
+    dq_p = F.flash_dq_plain(*bwd)
+    dk_p, dv_p = F.flash_dkv_plain(*bwd)
+    for a, b in zip(skip, (dq_p, dk_p, dv_p)):
+        np.testing.assert_allclose(a, b[0, 0].numpy(), rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
