@@ -12,7 +12,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
    and the grouped matmul (2a-2c: decode with 8 distinct experts, M=1,
    one expert holding every row, M off the tile, rows past offsets[E],
    skewed and empty segments), the grouped matmul's backward dlhs and
-   drhs (2d, 2e), the scatter-add (2f), and the flash forward, dq and
+   drhs (2d, 2e; drhs's bf16 output bitwise its f32 output rounded), the
+   scatter-add (2f: bitwise against the plain version on the CPU for any
+   number of addends per row, top_k=3 included, and against its own
+   reruns), and the flash forward, dq and
    dk/dv (2g-2i: the seq-1024 training shape, GQA with a window and a
    softcap, ragged S=600 with invalid key slots and a fully masked row,
    S=1, Sq != Sk, q positions offset against k, the first 100 key slots
@@ -32,6 +35,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    and the nearest single PyTorch call (SDPA for the flash kernels); for
    the flash kernels the bound of their own arithmetic over the tiles they
    visit; the row-per-step gather beside the blocked one, with their
+   ratio; an empty kernel's device time (the launch floor) beside the
+   gate; the grouped drhs at M=4096 and 8192, uniform, skewed and (4096)
+   one-expert segments, in both output dtypes, with its skewed/uniform
    ratio.
 6. Where the time goes: a profiled prefill and decode steps per serving
    cell (wall time, kernel time, the device's idle share, top kernels),
@@ -154,6 +160,27 @@ def bf16_ulp(torch, v):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
+# Relative Frobenius distance ||drhs - plain|| / ||plain|| of the WMMA drhs
+# kernel that the cp.async + mma.sync one replaced, per phase-2e case with
+# bf16 inputs (the same shapes and offsets, drhs_ab.py's draws), from
+# drhs_ab.py on an H100 80GB HBM3 at 700 W; phase 2e holds the kernel
+# to at most 4x these.  (Its outputs and the new kernel's were bitwise
+# equal in every case: both add each 16 rows' products into the
+# accumulator by one tensor-core step, in row order.)
+WMMA_DRHS_FRO = {
+    "M=4096 K=N=2048 E=16 skewed, expert 9 empty, tail 96": 5.520e-07,
+    "decode M=8 K=N=2048 E=16": 3.717e-09,
+    "decode M=8, 8 distinct experts": 0.0,
+    "M=1 K=N=2048": 0.0,
+    "M=4096 all rows in one expert": 4.424e-06,
+    "M=1000 K=N=256 (off the 128-row tile), single-row segments": 4.635e-07,
+    "M=300 K=N=512, rows 250.. past offsets[E]": 1.451e-07,
+    "ragged M=100 K=72 N=40 E=3 (partial tiles)": 6.938e-08,
+    "M=50 K=20 N=12 E=2 (unvectorised loads)": 4.414e-08,
+    "M=200 K=16 N=72 E=3, segment ends off the tiles, expert 1 empty":
+    1.225e-07}
+
+
 def skewed_offsets(torch, M: int, E: int, tail: int, empty: int):
     """Offsets with geometrically skewed segments, expert ``empty`` empty
     and ``tail`` rows past offsets[E]."""
@@ -163,6 +190,39 @@ def skewed_offsets(torch, M: int, E: int, tail: int, empty: int):
     offs = torch.zeros(E + 1, dtype=torch.int32)
     offs[1:] = torch.cumsum(sizes, 0).to(torch.int32)
     return offs
+
+
+def grouped_cases(torch):
+    """(name, M, K, N, E, offsets) of phases 2c-2e."""
+    E = 16
+    return [("M=4096 K=N=2048 E=16 skewed, expert 9 empty, tail 96",
+            4096, 2048, 2048, E, skewed_offsets(torch, 4096, E, 96, 9)),
+           ("decode M=8 K=N=2048 E=16", 8, 2048, 2048, E,
+            torch.tensor([0, 1, 1, 3, 3, 3, 4, 4, 4, 4, 5, 6, 6, 6, 7, 7,
+                          8], dtype=torch.int32)),
+           ("decode M=8, 8 distinct experts", 8, 2048, 2048, E,
+            torch.tensor([0, 1, 1, 2, 3, 3, 4, 5, 5, 6, 6, 7, 8, 8, 8, 8,
+                          8], dtype=torch.int32)),
+           ("M=1 K=N=2048", 1, 2048, 2048, E,
+            torch.tensor([0] * 5 + [1] * 12, dtype=torch.int32)),
+           ("M=4096 all rows in one expert", 4096, 2048, 2048, E,
+            torch.tensor([0] * 4 + [4096] * 13, dtype=torch.int32)),
+           ("M=1000 K=N=256 (off the 128-row tile), single-row segments",
+            1000, 256, 256, 6,
+            torch.tensor([0, 1, 2, 3, 500, 999, 1000], dtype=torch.int32)),
+           ("M=300 K=N=512, rows 250.. past offsets[E]", 300, 512, 512, 3,
+            torch.tensor([0, 100, 100, 250], dtype=torch.int32)),
+           ("ragged M=100 K=72 N=40 E=3 (partial tiles)", 100, 72, 40, 3,
+            torch.tensor([0, 30, 31, 90], dtype=torch.int32)),
+           ("M=50 K=20 N=12 E=2 (unvectorised loads)", 50, 20, 12, 2,
+            torch.tensor([0, 25, 45], dtype=torch.int32))]
+
+
+def drhs_cases(torch):
+    """Phase 2e's cases: 2c's and a segment ending off the tiles."""
+    return grouped_cases(torch) + [
+        ("M=200 K=16 N=72 E=3, segment ends off the tiles, expert 1 empty",
+         200, 16, 72, 3, torch.tensor([0, 127, 127, 190], dtype=torch.int32))]
 
 
 def phase_kernels(torch, dev):
@@ -261,28 +321,7 @@ def phase_kernels(torch, dev):
     print("phase 2c: grouped_matmul (f32 rtol/atol 1e-4; bf16 within 1 ulp "
           "of the f32-accumulated plain result rounded once, plus the f32 "
           "summation-order bound)")
-    E = 16
-    mcases = [("M=4096 K=N=2048 E=16 skewed, expert 9 empty, tail 96",
-               4096, 2048, 2048, E, skewed_offsets(torch, 4096, E, 96, 9)),
-              ("decode M=8 K=N=2048 E=16", 8, 2048, 2048, E,
-               torch.tensor([0, 1, 1, 3, 3, 3, 4, 4, 4, 4, 5, 6, 6, 6, 7, 7,
-                             8], dtype=torch.int32)),
-              ("decode M=8, 8 distinct experts", 8, 2048, 2048, E,
-               torch.tensor([0, 1, 1, 2, 3, 3, 4, 5, 5, 6, 6, 7, 8, 8, 8, 8,
-                             8], dtype=torch.int32)),
-              ("M=1 K=N=2048", 1, 2048, 2048, E,
-               torch.tensor([0] * 5 + [1] * 12, dtype=torch.int32)),
-              ("M=4096 all rows in one expert", 4096, 2048, 2048, E,
-               torch.tensor([0] * 4 + [4096] * 13, dtype=torch.int32)),
-              ("M=1000 K=N=256 (off the 128-row tile), single-row segments",
-               1000, 256, 256, 6,
-               torch.tensor([0, 1, 2, 3, 500, 999, 1000], dtype=torch.int32)),
-              ("M=300 K=N=512, rows 250.. past offsets[E]", 300, 512, 512, 3,
-               torch.tensor([0, 100, 100, 250], dtype=torch.int32)),
-              ("ragged M=100 K=72 N=40 E=3 (partial tiles)", 100, 72, 40, 3,
-               torch.tensor([0, 30, 31, 90], dtype=torch.int32)),
-              ("M=50 K=20 N=12 E=2 (unvectorised loads)", 50, 20, 12, 2,
-               torch.tensor([0, 25, 45], dtype=torch.int32))]
+    mcases = grouped_cases(torch)
     for name, M, Kd, N, E_, offs in mcases:
         lhs32 = torch.randn(M, Kd, generator=g)
         rhs32 = torch.randn(E_, Kd, N, generator=g) * Kd ** -0.5
@@ -351,12 +390,11 @@ def phase_kernels(torch, dev):
 
     print("phase 2e: grouped_drhs, drhs[e] = lhs[seg_e]^T @ g[seg_e] in f32 "
           "(f32 FMA variant: rtol 1e-4 plus the f32 summation-order bound "
-          "M*2^-24*sum|a*b|; bf16 inputs: within that order bound; empty "
-          "experts exactly 0)")
-    dcases = mcases + [("M=200 K=16 N=72 E=3, segment ends off the tiles, "
-                        "expert 1 empty", 200, 16, 72, 3,
-                        torch.tensor([0, 127, 127, 190], dtype=torch.int32))]
-    for name, M, Kd, N, E_, offs in dcases:
+          "M*2^-24*sum|a*b|; bf16 inputs: within that order bound, and the "
+          "bf16-out form bitwise the f32 form rounded to bf16; empty "
+          "experts exactly 0; relative Frobenius distance from the plain "
+          "version beside the WMMA kernel this one replaced, at most 4x it)")
+    for name, M, Kd, N, E_, offs in drhs_cases(torch):
         lhs32 = torch.randn(M, Kd, generator=g)
         g32 = torch.randn(M, N, generator=g)
         o = offs.to(dev)
@@ -373,17 +411,28 @@ def phase_kernels(torch, dev):
             bound = order + (1e-4 * ref.abs() if dt == torch.float32 else 0)
             ok = bool((err <= bound + 1e-7).all())
             zero = all(bool((out[e] == 0).all()) for e in empty)
+            extra = ""
+            if dt == torch.bfloat16:
+                out16 = G.grouped_drhs(lhs, gd, o, out_dtype=torch.bfloat16)
+                rounded = torch.equal(out16, out.to(torch.bfloat16))
+                fro = (err.norm() / ref.norm().clamp(min=1e-30)).item()
+                was = WMMA_DRHS_FRO.get(name)
+                near = was is None or fro <= 4 * max(was, 1e-12)
+                ok = ok and rounded and near
+                extra = (f"; bf16 out == f32 out rounded: {rounded}; "
+                         f"Frobenius {fro:.3e} (WMMA kernel "
+                         f"{'not recorded' if was is None else f'{was:.3e}'})")
+                del out16
             print(f"  {name} {dt}: max abs err {err.max().item():.3e} "
                   f"(max err/bound {(err / (bound + 1e-7)).max().item():.3f}),"
-                  f" empty experts {empty} zero={zero}")
+                  f" empty experts {empty} zero={zero}{extra}")
             check(ok and zero, f"grouped_drhs {name} {dt} disagrees with its "
                                f"plain version")
         del out, ref, order, bound
 
-    print("phase 2f: scatter_add_rows (bitwise with <= 2 addends per row; "
-          "with c > 2 the f32 atomics and the plain index_add_ add in other "
-          "orders: within 2c*2^-24*sum|g|, plus 1 ulp of the rounding to "
-          "bf16)")
+    print("phase 2f: scatter_add_rows (bitwise against the plain version "
+          "computed on the CPU, for any number c of addends per row; the "
+          "kernel's output bitwise equal over 3 reruns)")
     d = 2048
     perm = torch.randperm(4096, generator=g).to(torch.int32)
     inv = torch.full((5120,), -1, dtype=torch.int32)
@@ -393,6 +442,9 @@ def phase_kernels(torch, dev):
     pair = torch.cat([torch.randperm(4096, generator=g),
                       torch.randperm(4096, generator=g)]).to(torch.int32)
     pair[torch.rand(8192, generator=g) < 0.1] = -1
+    triple = torch.cat([torch.randperm(4096, generator=g)
+                        for _ in range(3)]).to(torch.int32)
+    triple[torch.rand(12288, generator=g) < 0.05] = -1
     scases = [("grouped dispatch VJP (4096 -> 4096, a permutation)", 4096,
                perm, 4096),
               ("sort dispatch VJP (5120 -> 4096, -1 for empty slots)", 5120,
@@ -400,9 +452,14 @@ def phase_kernels(torch, dev):
               ("sort combine VJP (4096 -> 5120, -1 for dropped)", 4096, slot,
                5120),
               ("top_k=2 pairs (8192 -> 4096)", 8192, pair, 4096),
+              ("top_k=3 triples (12288 -> 4096)", 12288, triple, 4096),
               ("many duplicates (4096 -> 50)", 4096,
                torch.randint(-1, 50, (4096,), generator=g, dtype=torch.int32),
                50),
+              ("indices past n and n > the plan's shared memory (3000 -> "
+               "20000)", 3000,
+               torch.randint(-5, 20100, (3000,), generator=g,
+                             dtype=torch.int32), 20000),
               ("d=1001 (odd width) pairs", 600,
                torch.cat([torch.randperm(300, generator=g)] * 2).to(
                    torch.int32), 300)]
@@ -410,30 +467,28 @@ def phase_kernels(torch, dev):
         width = 1001 if "1001" in name else d
         g32 = torch.randn(M, width, generator=g)
         i = idx.to(dev)
-        valid = idx[idx >= 0]
+        valid = idx[(idx >= 0) & (idx < n)]
         c = int(torch.bincount(valid.long(), minlength=n).max()) if len(
             valid) else 0
         for dt in (torch.bfloat16, torch.float32):
-            gd = g32.to(dt).to(dev)
+            gd = g32.to(dt)
+            ref = L.scatter_add_rows_plain(gd, idx, n)      # on the CPU
+            gd = gd.to(dev)
             out = L.scatter_add_rows(gd, i, n)
-            ref = L.scatter_add_rows_plain(gd, i, n)
+            reruns = [L.scatter_add_rows(gd, i, n) for _ in range(3)]
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs()
+            out_cpu = out.cpu()
+            err = (out_cpu.float() - ref.float()).abs()
             errs["scatter_add_rows"] = max(errs["scatter_add_rows"],
                                            err.max().item())
-            if c <= 2:
-                ok, tol = torch.equal(out, ref), "bitwise"
-            else:
-                bound = 2 * c * 2.0 ** -24 * L.scatter_add_rows_plain(
-                    gd.float().abs(), i, n)
-                if dt == torch.bfloat16:
-                    bound = bound + bf16_ulp(torch, ref.float())
-                ok = bool((err <= bound).all())
-                tol = f"c={c}: within 2c*2^-24*sum|g| (+1 ulp in bf16)"
-            print(f"  {name} {dt}: max abs err {err.max().item():.3e} "
-                  f"({tol}: {ok})")
-            check(ok, f"scatter_add_rows {name} {dt} disagrees with its plain "
-                      f"version")
+            same = torch.equal(out_cpu, ref)
+            stable = all(torch.equal(r, out) for r in reruns)
+            print(f"  {name} {dt}: c={c}, max abs err {err.max().item():.3e}"
+                  f", bitwise equal to the CPU's plain version: {same}, to "
+                  f"its own 3 reruns: {stable}")
+            check(same and stable, f"scatter_add_rows {name} {dt} disagrees "
+                                   f"with its plain version or its reruns")
+        del reruns, out
     return errs
 
 
@@ -754,6 +809,7 @@ def phase_card_vs_cpu(torch):
 def phase_timings(torch, dev, smi):
     from repro_torch.kernels import grouped_ffn as G
     from repro_torch.kernels import layout_transform as L
+    from repro_torch.kernels import build
     from repro_torch.kernels import topk_gate as K
     g = torch.Generator(device="cpu").manual_seed(99)
     T, E, d = SERVE["batch"] * SERVE["prompt_len"], 16, 2048
@@ -809,6 +865,15 @@ def phase_timings(torch, dev, smi):
             lambda: K.fused_topk_gate(x, 1), lambda: K.topk_gate_plain(x, 1),
             lambda: torch.topk(x, 1, dim=-1), nbytes, 4 * S * E, F32_FLOPS,
             f"S={S} E={E} k=1")
+    # the launch floor beside the gate: an empty kernel's device time
+    lib = build.load()
+
+    def empty():
+        build.check(lib.launch_empty(build.stream(x)), "launch_empty")
+    floor_ms = graph_ms(torch, empty)
+    rows[0]["launch_floor_device_ms"] = floor_ms
+    print(f"  [{smi}] launch floor (an empty kernel, device-only): "
+          f"{'not measured' if floor_ms is None else f'{floor_ms:.4f}'} ms")
     # gather: the grouped dispatch's token map (a permutation) over (T, d)
     for M in (T, SERVE["batch"]):
         src = torch.randn(M, d, generator=g).to(torch.bfloat16).to(dev)
@@ -890,15 +955,63 @@ def phase_timings(torch, dev, smi):
         if gmm else None,
         M * d * 2 + active * d * d * 2 + (E + 1) * 4 + M * d * 2, flops,
         BF16_FLOPS, f"dlhs M={M} K=N={d} E={E} ({active} experts active)")
-    lhs_t = lhs.t().contiguous()     # the library call's (K, M) layout
-    row("grouped_drhs", "src/repro_torch/csrc/grouped_ffn.cu",
-        "src/repro/kernels/grouped_ffn.py:120",
-        lambda: G.grouped_drhs(lhs, gd, o),
-        lambda: G.grouped_drhs_plain(lhs, gd, o),
-        (lambda: torch._grouped_mm(lhs_t, gd, offs=o[1:])) if gmm else None,
-        2 * M * d * 2 + (E + 1) * 4 + E * d * d * 4, flops, BF16_FLOPS,
-        f"drhs M={M} K=N={d} E={E} ({active} experts active) -> f32")
-    del rhs, lhs_t
+    del rhs
+    # drhs at seq 512's M = 4096 and seq 1024's M = 8192: uniform segments
+    # (the first row, bf16 out, is the train step's call), geometrically
+    # skewed ones (expert 9 empty) and, at 4096, one expert holding every
+    # row; each in both output dtypes.  Bytes: lhs and g read once, the
+    # (E, K, N) gradient written once.
+    drhs_rows = {}
+    for Md, kind in ((T, "uniform"), (T, "skewed"), (T, "one expert"),
+                     (2 * T, "uniform"), (2 * T, "skewed")):
+        if kind == "uniform":
+            od = offs if Md == T else torch.cat(
+                [offs[:1], 2 * offs[1:]])
+        elif kind == "skewed":
+            od = skewed_offsets(torch, Md // 8, E, 0, 9) * 8
+        else:
+            od = torch.tensor([0] * 4 + [Md] * 13, dtype=torch.int32)
+        od_dev = od.to(dev)
+        sizes = (od[1:] - od[:-1]).tolist()
+        xl = torch.randn(Md, d, generator=g).to(torch.bfloat16).to(dev)
+        xg = torch.randn(Md, d, generator=g).to(torch.bfloat16).to(dev)
+        xl_t = xl.t().contiguous()     # the library call's (K, M) layout
+        for out_dt in (torch.bfloat16, torch.float32):
+            lib = None
+            if gmm:
+                def lib(xl_t=xl_t, xg=xg, od_dev=od_dev, out_dt=out_dt):
+                    if out_dt == torch.bfloat16:
+                        return torch._grouped_mm(xl_t, xg, offs=od_dev[1:])
+                    return torch._grouped_mm(xl_t, xg, offs=od_dev[1:],
+                                             out_dtype=out_dt)
+                try:
+                    lib()
+                except (RuntimeError, TypeError) as e:
+                    print(f"    torch._grouped_mm refuses out_dtype="
+                          f"{out_dt}: {str(e).splitlines()[0]}")
+                    lib = None
+            size = 2 if out_dt == torch.bfloat16 else 4
+            row("grouped_drhs", "src/repro_torch/csrc/grouped_ffn.cu",
+                "src/repro/kernels/grouped_ffn.py:120",
+                lambda xl=xl, xg=xg, od_dev=od_dev, out_dt=out_dt:
+                G.grouped_drhs(xl, xg, od_dev, out_dtype=out_dt),
+                lambda xl=xl, xg=xg, od_dev=od_dev, out_dt=out_dt:
+                G.grouped_drhs_plain(xl, xg, od_dev).to(out_dt),
+                lib, 2 * Md * d * 2 + (E + 1) * 4 + E * d * d * size,
+                2 * Md * d * d, BF16_FLOPS,
+                f"drhs M={Md} K=N={d} E={E} {kind} (rows per expert "
+                f"{min(sizes)}..{max(sizes)}) -> "
+                f"{str(out_dt).removeprefix('torch.')}")
+            drhs_rows[(Md, kind, out_dt)] = rows[-1]
+        del xl, xg, xl_t
+    for (Md, kind, out_dt), r in drhs_rows.items():
+        base = drhs_rows[(Md, "uniform", out_dt)]
+        if kind != "uniform" and None not in (r["device_ms"],
+                                              base["device_ms"]):
+            r["over_uniform_device"] = r["device_ms"] / base["device_ms"]
+            print(f"    drhs M={Md} {kind} {out_dt} / uniform, device-only: "
+                  f"{r['over_uniform_device']:.3f} (rows are split over "
+                  f"blocks only past 2)")
     zeros = torch.zeros(M, d, dtype=torch.bfloat16, device=dev)
     for src_rows, n, what in ((M, M, "grouped dispatch VJP"),
                               (5120, M, "sort dispatch VJP")):
@@ -1108,8 +1221,8 @@ def phase_profile(torch, smi):
 
 # the names of the kernels of csrc/*.cu, as the profiler shows them
 PORT_KERNEL_NAMES = ("topk_gate_kernel", "gather_rows_kernel",
-                     "gather_rowstep_kernel", "scatter_add_rows_kernel",
-                     "round_to_bf16_kernel", "grouped_mm_", "grouped_drhs_",
+                     "gather_rowstep_kernel", "scatter_plan_kernel",
+                     "scatter_sum_kernel", "grouped_mm_", "grouped_drhs_",
                      "flash_")
 
 

@@ -2,7 +2,7 @@
 // and backward:
 //   forward  y[seg_e]    = lhs[seg_e] @ rhs[e]       (transpose_rhs=False)
 //   dlhs     dlhs[seg_e] = g[seg_e] @ rhs[e]^T       (transpose_rhs=True)
-//   drhs     drhs[e]     = lhs[seg_e]^T @ g[seg_e]   (f32, (E, K, N))
+//   drhs     drhs[e]     = lhs[seg_e]^T @ g[seg_e]   ((E, K, N), f32 or bf16)
 // lhs (M, K), rhs (E, K, N), offsets (E+1,) int32 with seg_e =
 // [offsets[e], offsets[e+1]); f32 accumulation, the forward and dlhs cast
 // to lhs's dtype; rows at or past offsets[E] belong to no expert: they come
@@ -16,7 +16,10 @@
 // E=16, bf16): the forward and dlhs move 160 MiB — the 128 MiB of expert
 // weights dominate — against 34.4 GFLOP, so they are memory-bound near
 // 50 us; at decode (M=8) the forward reads at most 8 experts' weights.
-// drhs reads 32 MiB and writes the 256 MiB f32 gradient: 90 us.
+// drhs reads 32 MiB and writes the gradient: 256 MiB in f32 (90.1 us), or
+// 128 MiB rounded to bf16 (50.1 us); at M=8192 (the seq-1024 train step)
+// its 68.7 GFLOP bound the bf16 form (69.5 us).  (Bounds of an H100 SXM at
+// its full 700 W limit: 3.35 TB/s, 989 TFLOP/s bf16.)
 //
 // Forward and dlhs (redesigned for Hopper): a tile schedule over
 // (segment, row tile, column tile).  The rows fall into segments, clamping
@@ -49,25 +52,31 @@
 // through the same stages.  The f32 variant keeps f32 FMAs (never TF32) on
 // 64x64 tiles under the same schedule.
 //
-// drhs: the TPU kernel runs a sequential (E, M/block_m) grid with the
-// expert's (K, N) gradient resident and accumulated across row blocks.
-// CUDA blocks run in no order, so here a (N/64, K/64, E) grid gives each
-// block one 64x64 tile of drhs[e], and the walk over the expert's rows
-// becomes a loop inside the block: 32-row chunks of lhs (read transposed
-// through a col_major matrix_a fragment) and g, rows past the segment's
-// end loaded as 0, f32 accumulators; an empty segment writes zeros.  Every
-// block reads its expert's rows of lhs and g once per tile, so lhs and g
-// are read N/64 resp. K/64 times (from L2); the 256 MiB f32 store is the
-// bound.  The reference's grouped_block_m is a TPU tiling knob; these
-// kernels pick their own tile.
+// drhs (redesigned for Hopper): the TPU kernel runs a sequential
+// (E, M/block_m) grid with the expert's (K, N) gradient resident and
+// accumulated across row blocks.  CUDA blocks run in no order, so here a
+// (N/128, K/128, E) grid gives each block one 128x128 tile of drhs[e], and
+// the walk over the expert's rows is the block's contraction loop: the
+// forward's machinery with the rows as the k dimension.  cp.async fills a
+// ring of 3 stages of 64 rows of lhs and g (128 columns each; rows at or
+// past the segment's end zero-filled by the copy's src-size 0), 2 stages
+// ahead (4 stages of 32 rows, 6 of 32 and 8 of 16 ran 3-20% slower); A = lhs^T comes from the stage's lhs rows through ldmatrix.trans,
+// B = g rows through ldmatrix.trans as the forward reads its B; mma.sync
+// m16n8k16 into f32 accumulators, 8 warps of 64x32.  So lhs and g are read
+// N/128 resp. K/128 times (from L2, the expert's rows shared by its tiles)
+// and the loads run under the products.  The epilogue writes each f32 sum
+// from registers, or rounds it once to bf16 (RNE) there: the backward's
+// drhs.astype(rhs.dtype) done in the kernel, bitwise the f32 form followed
+// by .to(torch.bfloat16), so no f32 (E, K, N) temporary and no cast pass.
+// An empty segment writes zeros.  Segments are not split over blocks: a
+// tile's sum runs over all its expert's rows in one fixed order, so dW does
+// not depend on the run.  The reference's grouped_block_m is a TPU tiling
+// knob; these kernels pick their own tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "sm90_mma.cuh"
-
-using namespace nvcuda;
 
 #define GMM_MAX_E 1024
 
@@ -376,103 +385,148 @@ grouped_mm_f32_kernel(const float* __restrict__ lhs,
     }
 }
 
-// drhs[e] (K, N) f32 = lhs[seg_e]^T @ g[seg_e]; block (x: N tile, y: K
-// tile, z: expert) walks its expert's rows in DM-row chunks.
-constexpr int BM = 64, BN = 64;
-constexpr int C_LD = BN + 4;   // floats
-constexpr int DM = 32;
-constexpr int DA_LD = BM + 8;  // As[m][k]: lhs rows, read as col_major A
-constexpr int DB_LD = BN + 8;  // Bs[m][n]: g rows, row_major B
+// drhs[e] (K, N) = lhs[seg_e]^T @ g[seg_e], f32 accumulators, written as
+// f32 or rounded once to bf16 (OUT_BF16).  Block (x: N tile, y: K tile, z:
+// expert), DBT x DBT output tile, 8 warps of 64 x 32; the contraction runs
+// over the expert's rows, DRB rows a stage.
+constexpr int DBT = 128, DRB = 64, DSTAGES = 3;
+constexpr int D_LD = DBT + 8;              // bf16 per staged row (padded)
+constexpr int D_STAGE = DRB * D_LD;        // one operand's stage
+constexpr size_t D_SMEM = (size_t)DSTAGES * 2 * D_STAGE * sizeof(__nv_bfloat16);
 
-__global__ void __launch_bounds__(128)
+template <bool OUT_BF16>
+__global__ void __launch_bounds__(256)
 grouped_drhs_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
                          const __nv_bfloat16* __restrict__ g,
                          const int* __restrict__ offsets,
-                         float* __restrict__ out, int M, int K, int N,
+                         void* __restrict__ out, int M, int K, int N,
                          bool vec) {
-  __shared__ __align__(32) __nv_bfloat16 As[DM * DA_LD];
-  __shared__ __align__(32) __nv_bfloat16 Bs[DM * DB_LD];
-  __shared__ __align__(32) float Cs[BM * C_LD];
+  constexpr int MT = DBT / 2 / 16, NT = DBT / 4 / 8;  // 4 A rows, 4 C columns
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // lhs rows
+  __nv_bfloat16* Bs = As + DSTAGES * D_STAGE;                   // g rows
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int e = blockIdx.z;
-  const int k0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k0 = blockIdx.y * DBT, n0 = blockIdx.x * DBT;
+  const int wk0 = (warp / 4) * (DBT / 2), wn0 = (warp % 4) * (DBT / 4);
   const int lo = max(offsets[e], 0), hi = min(offsets[e + 1], M);
+  const int ns = hi > lo ? (hi - lo + DRB - 1) / DRB : 0;
 
-  const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  // rows [lo + s DRB, +DRB) into stage st; rows at or past hi as zeros
+  const auto load = [&](int s, int st) {
+    const int r0 = lo + s * DRB;
+    __nv_bfloat16* a = As + st * D_STAGE;
+    __nv_bfloat16* b = Bs + st * D_STAGE;
+    for (int c = tid; c < DRB * DBT / 8; c += 256) {
+      const int r = c / (DBT / 8), cc = (c % (DBT / 8)) * 8;
+      const bool in = r0 + r < hi;
+      const size_t row = in ? r0 + r : 0;
+      load_piece(a + r * D_LD + cc, lhs + row * K, in, k0 + cc, K, vec);
+      load_piece(b + r * D_LD + cc, g + row * N, in, n0 + cc, N, vec);
+    }
+  };
 
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int m0 = lo; m0 < hi; m0 += DM) {
-    // lhs chunk (DM x BM) and g chunk (DM x BN), rows at or past hi as 0
-    for (int c = tid; c < DM * BM / 8; c += blockDim.x) {
-      const int r = c / (BM / 8), kk = (c % (BM / 8)) * 8;
-      const int gr = m0 + r, gk = k0 + kk;
-      __nv_bfloat16* dst = As + r * DA_LD + kk;
-      const bool rv = gr < hi;
-      if (rv && vec && gk + 8 <= K) {
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(lhs + (size_t)gr * K + gk);
-      } else {
+  float acc[MT][NT][4];
 #pragma unroll
-        for (int t = 0; t < 8; ++t)
-          dst[t] = (rv && gk + t < K) ? lhs[(size_t)gr * K + gk + t] : zero;
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[i][j][x] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < DSTAGES - 1; ++st) {
+    if (st < ns) load(st, st);
+    sm90::cp_async_commit();
+  }
+  // ldmatrix.trans lane offsets.  A = lhs^T: the stage holds it as [row][k],
+  // so matrix i of an x4 is rows 8 (i / 2) .. and k 8 (i % 2) ..; B = g
+  // [row][n] is read as the forward reads its B.
+  const int at_row = (lane & 7) + 8 * (lane >> 4), at_col = 8 * ((lane >> 3) & 1);
+  const int b_row = (lane & 7) + 8 * ((lane >> 3) & 1), b_col = 8 * (lane >> 4);
+  for (int s = 0; s < ns; ++s) {
+    sm90::cp_async_wait<DSTAGES - 2>();          // stage s has landed
+    __syncthreads();                             // and stage s-1 is free
+    if (s + DSTAGES - 1 < ns) load(s + DSTAGES - 1, (s + DSTAGES - 1) % DSTAGES);
+    sm90::cp_async_commit();
+    const __nv_bfloat16* a = As + (s % DSTAGES) * D_STAGE;
+    const __nv_bfloat16* b = Bs + (s % DSTAGES) * D_STAGE;
+#pragma unroll
+    for (int rr = 0; rr < DRB; rr += 16) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        sm90::ldmatrix_x4_trans(
+            af[i], a + (rr + at_row) * D_LD + wk0 + 16 * i + at_col);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t bf[4];
+        sm90::ldmatrix_x4_trans(
+            bf, b + (rr + b_row) * D_LD + wn0 + 8 * j + b_col);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          sm90::mma_bf16(acc[i][j], af[i], bf[0], bf[1]);
+          sm90::mma_bf16(acc[i][j + 1], af[i], bf[2], bf[3]);
+        }
       }
     }
-    for (int c = tid; c < DM * BN / 8; c += blockDim.x) {
-      const int r = c / (BN / 8), nn = (c % (BN / 8)) * 8;
-      const int gr = m0 + r, gn = n0 + nn;
-      __nv_bfloat16* dst = Bs + r * DB_LD + nn;
-      const bool rv = gr < hi;
-      if (rv && vec && gn + 8 <= N) {
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(g + (size_t)gr * N + gn);
-      } else {
+  }
+  sm90::cp_async_wait<0>();
+
+  // each sum rounded once, in registers (bf16: RNE, as .to(torch.bfloat16))
+  const int gr = lane / 4, t = lane % 4;
 #pragma unroll
-        for (int t = 0; t < 8; ++t)
-          dst[t] = (rv && gn + t < N) ? g[(size_t)gr * N + gn + t] : zero;
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + wk0 + 16 * i + gr + 8 * h;
+      if (k >= K) continue;
+      const size_t base = ((size_t)e * K + k) * N;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + wn0 + 8 * j + 2 * t;
+        const float x = acc[i][j][2 * h], y = acc[i][j][2 * h + 1];
+        if constexpr (OUT_BF16) {
+          __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + base + n;
+          if (vec && n < N) {                    // N % 8 == 0: n + 1 too
+            *reinterpret_cast<uint32_t*>(o) = sm90::pack_bf16(x, y);
+          } else {
+            if (n < N) o[0] = __float2bfloat16(x);
+            if (n + 1 < N) o[1] = __float2bfloat16(y);
+          }
+        } else {
+          float* o = static_cast<float*>(out) + base + n;
+          if (vec && n < N) {
+            *reinterpret_cast<float2*>(o) = make_float2(x, y);
+          } else {
+            if (n < N) o[0] = x;
+            if (n + 1 < N) o[1] = y;
+          }
+        }
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < DM; mm += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + mm * DA_LD + wr + 16 * i, DA_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + mm * DB_LD + wc + 16 * j, DB_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wr + 16 * i) * C_LD + wc + 16 * j,
-                              acc[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-  float* o = out + (size_t)e * K * N;
-  for (int c = tid; c < BM * BN; c += blockDim.x) {
-    const int r = c / BN, n = c % BN;
-    const int gk = k0 + r, gn = n0 + n;
-    if (gk < K && gn < N) o[(size_t)gk * N + gn] = Cs[r * C_LD + n];
+template <bool OUT_BF16>
+int launch_drhs(const void* lhs, const void* g, const void* offsets,
+                void* out, int M, int K, int N, int E, bool vec,
+                cudaStream_t stream) {
+  const auto kernel = grouped_drhs_bf16_kernel<OUT_BF16>;
+  static bool raised = false;  // no attribute call under graph capture
+  if (!raised) {
+    if (const int rc = (int)cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)D_SMEM))
+      return rc;
+    raised = true;
   }
+  const dim3 grid((N + DBT - 1) / DBT, (K + DBT - 1) / DBT, E);
+  kernel<<<grid, 256, D_SMEM, stream>>>(
+      (const __nv_bfloat16*)lhs, (const __nv_bfloat16*)g,
+      (const int*)offsets, out, M, K, N, vec);
+  return (int)cudaGetLastError();
 }
 
 constexpr int FDM = 16;
@@ -616,19 +670,20 @@ extern "C" int grouped_matmul_t_f32(const void* g, const void* rhs,
   return launch_mm_f32<true>(g, rhs, offsets, out, M, K, N, E, stream);
 }
 
-// drhs: lhs (M, K), g (M, N) → out (E, K, N) f32, every element written
+// drhs: lhs (M, K), g (M, N) → out (E, K, N), f32 (out_bf16 = 0) or bf16
+// (1), every element written
 extern "C" int grouped_drhs_bf16(const void* lhs, const void* g,
                                  const void* offsets, void* out, int M,
-                                 int K, int N, int E, void* stream) {
+                                 int K, int N, int E, int out_bf16,
+                                 void* stream) {
   if (E < 1 || E > 65535) return (int)cudaErrorInvalidValue;
   if (K == 0 || N == 0) return 0;
   const bool vec = K % 8 == 0 && N % 8 == 0 &&
-                   ((uintptr_t)lhs | (uintptr_t)g) % 16 == 0;
-  const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, E);
-  grouped_drhs_bf16_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)lhs, (const __nv_bfloat16*)g,
-      (const int*)offsets, (float*)out, M, K, N, vec);
-  return (int)cudaGetLastError();
+                   ((uintptr_t)lhs | (uintptr_t)g | (uintptr_t)out) % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  return out_bf16 ? launch_drhs<true>(lhs, g, offsets, out, M, K, N, E, vec, s)
+                  : launch_drhs<false>(lhs, g, offsets, out, M, K, N, E, vec,
+                                       s);
 }
 
 extern "C" int grouped_drhs_f32(const void* lhs, const void* g,

@@ -23,19 +23,27 @@
 // duplicate indices accumulated.
 //
 // Bound on the H100: bytes — g is read once and out written once (at the
-// training shapes (4096, 2048) bf16 each way, 32 MiB: 10.0 us).  Design:
-// one warp per input row, f32 atomicAdd into a zeroed f32 scratch (the
-// wrapper's torch.zeros), then a second pass rounds it once to g's dtype
-// (for f32 g the scratch is the output and the second pass is skipped).
-// The TPU kernel keeps the whole (n, d) accumulator resident in VMEM across
-// a sequential grid; CUDA blocks run in no order, so the sum across blocks
-// goes through atomics instead.  With at most two addends per output row
-// (every MoE path at top_k <= 2) the f32 sum 0 + a + b is the same in any
-// order and is rounded once, so the result equals the reference bitwise;
-// with more addends the atomics add in a run-dependent order (f32 rounding
-// differences, then one bf16 rounding).  A sorted segmented reduction
-// would be deterministic but needs a sort of idx per call; the MoE paths
-// never have more than top_k addends per row, so atomics are kept.
+// training shapes (4096, 2048) bf16 each way, 32 MiB: 10.0 us at an H100
+// SXM's 3.35 TB/s, its 700 W limit); the plan's index bytes are ~0.1% of
+// that.  Design: a deterministic gather-form reduction in two launches.
+// scatter_plan_kernel, one block, inverts idx into compressed rows:
+// starts (n+1,) and slots, where slots[starts[r] .. starts[r+1]) are the
+// input rows i with idx[i] == r — counts by integer atomics (order-free),
+// an exclusive block scan, then placement by atomics on a cursor per row
+// (counts and cursors in shared memory when n fits, else in the global
+// scratch the wrapper passes).  scatter_sum_kernel then gives one warp to
+// each (output row, column chunk): it visits its row's input rows in
+// ascending i (each step the least slot above the last, by a warp min, so
+// the atomics' placement order does not matter), adds them in f32 with
+// plain adds (__fadd_rn: nothing contracted), rounds once to g's dtype and
+// writes the row — zeros for a row with no addend.  16-byte vectors where
+// the width and the pointers allow, else one element a lane.  The TPU
+// kernel keeps the (n, d) accumulator resident across a sequential grid;
+// here there is no (n, d) scratch, no memset and no rounding pass, and the
+// result is the same on every run for any number of addends per row:
+// bitwise the plain twin (kernels/layout_transform.py:scatter_add_rows_plain,
+// which adds in the same order).  The reference adds in g's dtype, so with
+// 3 or more addends in bf16 it rounds after each add where this rounds once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,57 +95,169 @@ extern "C" int gather_rows(const void* src, const void* idx, void* out,
   return (int)cudaGetLastError();
 }
 
+constexpr int PLAN_THREADS = 1024;
+constexpr long long PLAN_SMEM_ROWS = 12000;   // n + 1 counts, under 48 KiB
+
+// Inclusive sum of v over the block (PLAN_THREADS threads); total as well.
+__device__ long long block_scan(long long v, long long& total) {
+  __shared__ long long warp_sum[PLAN_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const long long y = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += y;
+  }
+  if (lane == 31) warp_sum[warp] = v;
+  __syncthreads();
+  long long before = 0;
+  total = 0;
+  for (int w = 0; w < PLAN_THREADS / 32; ++w) {
+    if (w < warp) before += warp_sum[w];
+    total += warp_sum[w];
+  }
+  __syncthreads();
+  return v + before;
+}
+
+// starts (n+1,): exclusive scan of the rows' addend counts; slots (M,): the
+// valid i grouped by idx[i] (within a row in no fixed order).  cursor: n
+// ints of global scratch, used when the counts do not fit shared memory.
+__global__ void __launch_bounds__(PLAN_THREADS)
+scatter_plan_kernel(const int* __restrict__ idx, int* __restrict__ starts,
+                    int* __restrict__ cursor, int* __restrict__ slots,
+                    long long n, long long M) {
+  extern __shared__ int cnt_smem[];
+  int* cnt = n + 1 <= PLAN_SMEM_ROWS ? cnt_smem : cursor;
+  const int tid = threadIdx.x;
+  for (long long r = tid; r < n; r += PLAN_THREADS) cnt[r] = 0;
+  __syncthreads();
+  for (long long i = tid; i < M; i += PLAN_THREADS) {
+    const int r = idx[i];
+    if (r >= 0 && r < n) atomicAdd(cnt + r, 1);
+  }
+  __syncthreads();
+  // each thread scans a contiguous chunk of the rows
+  const long long chunk = (n + PLAN_THREADS - 1) / PLAN_THREADS;
+  const long long r0 = min(n, tid * chunk), r1 = min(n, r0 + chunk);
+  long long mine = 0;
+  for (long long r = r0; r < r1; ++r) mine += cnt[r];
+  long long total;
+  long long at = block_scan(mine, total) - mine;
+  for (long long r = r0; r < r1; ++r) {
+    const int c = cnt[r];
+    starts[r] = (int)at;
+    cnt[r] = (int)at;                  // now the row's placement cursor
+    at += c;
+  }
+  if (tid == 0) starts[n] = (int)total;
+  __syncthreads();
+  for (long long i = tid; i < M; i += PLAN_THREADS) {
+    const int r = idx[i];
+    if (r >= 0 && r < n) slots[atomicAdd(cnt + r, 1)] = (int)i;
+  }
+}
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float from_f32(float v, float) { return v; }
+__device__ __forceinline__ __nv_bfloat16 from_f32(float v, __nv_bfloat16) {
+  return __float2bfloat16(v);
+}
 
-template <typename T>
-__global__ void scatter_add_rows_kernel(const T* __restrict__ g,
-                                        const int* __restrict__ idx,
-                                        float* __restrict__ acc, long long n,
-                                        long long M, long long d) {
-  const long long row =
+// One warp per (output row, chunk of 32 V columns): out[r] = the f32 sum of
+// g[i] over the row's slots in ascending i, rounded once to T.  V elements
+// a lane: a 16-byte vector (vec) or one element.
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+scatter_sum_kernel(const T* __restrict__ g, const int* __restrict__ starts,
+                   const int* __restrict__ slots, T* __restrict__ out,
+                   long long n, long long d) {
+  const long long w =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const int r = idx[row];
-  if (r < 0 || r >= n) return;
-  const T* s = g + row * d;
-  float* o = acc + (long long)r * d;
-  for (long long c = lane; c < d; c += 32) atomicAdd(o + c, to_f32(s[c]));
-}
-
-__global__ void round_to_bf16_kernel(const float* __restrict__ acc,
-                                     __nv_bfloat16* __restrict__ out,
-                                     long long count) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < count; i += (long long)gridDim.x * blockDim.x)
-    out[i] = __float2bfloat16(acc[i]);
-}
-
-// g (M, d) bf16 (is_bf16=1) or f32 (0); acc (n, d) f32 zeros; out (n, d)
-// bf16 for bf16 g, unused (acc is the result) for f32 g.
-extern "C" int scatter_add_rows(const void* g, const void* idx, void* acc,
-                                void* out, long long n, long long M,
-                                long long d, int is_bf16, void* stream) {
-  if (M == 0 || d == 0 || n == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int threads = 256;
-  const unsigned int blocks =
-      (unsigned int)((M + threads / 32 - 1) / (threads / 32));
-  if (is_bf16) {
-    scatter_add_rows_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        (const __nv_bfloat16*)g, (const int*)idx, (float*)acc, n, M, d);
-    const long long count = n * d;
-    const long long want = (count + threads - 1) / threads;
-    const unsigned int rblocks = (unsigned int)(want < 65535 * 8 ? want
-                                                                 : 65535 * 8);
-    round_to_bf16_kernel<<<rblocks, threads, 0, s>>>(
-        (const float*)acc, (__nv_bfloat16*)out, count);
+  const long long chunks = (d + 32 * V - 1) / (32 * V);
+  if (w >= n * chunks) return;
+  const long long r = w / chunks;
+  const long long c0 = (w - r * chunks) * 32 * V + (long long)lane * V;
+  const int s0 = starts[r], c = starts[r + 1] - s0;
+  const int* list = slots + s0;
+  float acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.f;
+  int prev = -1;
+  for (int step = 0; step < c; ++step) {
+    int next = 0x7fffffff;                       // the least slot above prev
+    for (int j = lane; j < c; j += 32) {
+      const int x = list[j];
+      if (x > prev && x < next) next = x;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      next = min(next, __shfl_xor_sync(0xffffffffu, next, off));
+    prev = next;
+    const T* src = g + (long long)next * d + c0;
+    if constexpr (V > 1) {
+      if (c0 < d) {
+        alignas(16) T x[V];
+        *reinterpret_cast<uint4*>(x) = *reinterpret_cast<const uint4*>(src);
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = __fadd_rn(acc[v], to_f32(x[v]));
+      }
+    } else if (c0 < d) {
+      acc[0] = __fadd_rn(acc[0], to_f32(src[0]));
+    }
+  }
+  if (c0 >= d) return;
+  T* dst = out + r * d + c0;
+  if constexpr (V > 1) {
+    alignas(16) T x[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) x[v] = from_f32(acc[v], T{});
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(x);
   } else {
-    scatter_add_rows_kernel<float><<<blocks, threads, 0, s>>>(
-        (const float*)g, (const int*)idx, (float*)acc, n, M, d);
+    dst[0] = from_f32(acc[0], T{});
+  }
+}
+
+template <typename T, int V>
+static void launch_sum(const void* g, const int* starts, const int* slots,
+                       void* out, long long n, long long d, cudaStream_t s) {
+  const long long warps = n * ((d + 32 * V - 1) / (32 * V));
+  const unsigned int blocks = (unsigned int)((warps + 7) / 8);
+  scatter_sum_kernel<T, V><<<blocks, 256, 0, s>>>(
+      (const T*)g, starts, slots, (T*)out, n, d);
+}
+
+// g (M, d) bf16 (is_bf16=1) or f32 (0) → out (n, d) of g's dtype.  Scratch
+// from the caller: starts (n+1,), cursor (n,) and slots (M,) int32.
+extern "C" int scatter_add_rows(const void* g, const void* idx, void* starts,
+                                void* cursor, void* slots, void* out,
+                                long long n, long long M, long long d,
+                                int is_bf16, void* stream) {
+  if (n == 0 || d == 0) return 0;
+  if (n >= 2147483647LL || M >= 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = n + 1 <= PLAN_SMEM_ROWS ? (size_t)(n + 1) * 4 : 0;
+  scatter_plan_kernel<<<1, PLAN_THREADS, smem, s>>>(
+      (const int*)idx, (int*)starts, (int*)cursor, (int*)slots, n, M);
+  const int* st = (const int*)starts;
+  const int* sl = (const int*)slots;
+  const size_t elem = is_bf16 ? 2 : 4;
+  const bool vec = (d * elem) % 16 == 0 &&
+                   ((uintptr_t)g | (uintptr_t)out) % 16 == 0;
+  if (is_bf16) {
+    if (vec)
+      launch_sum<__nv_bfloat16, 8>(g, st, sl, out, n, d, s);
+    else
+      launch_sum<__nv_bfloat16, 1>(g, st, sl, out, n, d, s);
+  } else {
+    if (vec)
+      launch_sum<float, 4>(g, st, sl, out, n, d, s);
+    else
+      launch_sum<float, 1>(g, st, sl, out, n, d, s);
   }
   return (int)cudaGetLastError();
 }

@@ -96,3 +96,13 @@ extern "C" int topk_gate_f32(const void* logits, void* vals, void* idx,
       (float*)sumexp, S, E, k);
   return (int)cudaGetLastError();
 }
+
+// The launch floor: a kernel that does nothing.  chip_smoke.py times it by
+// graph replay beside the gate, whose own work (0.1 us of bytes at S=4096)
+// lies far below one launch.
+__global__ void empty_kernel() {}
+
+extern "C" int launch_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}

@@ -42,15 +42,16 @@ _F = ctypes.c_float
 _FLASH = (_I,) * 6 + (_F, _I, _I, _I, _F, _I, _P)
 SIGNATURES = {
     "topk_gate_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "launch_empty": (_P,),
     "gather_rows": (_P, _P, _P, _LL, _LL, _LL, _P),
     "gather_rows_rowstep": (_P, _P, _P, _LL, _LL, _LL, _I, _P),
     "grouped_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "grouped_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "grouped_matmul_t_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "grouped_matmul_t_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "grouped_drhs_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "grouped_drhs_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "grouped_drhs_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "scatter_add_rows": (_P, _P, _P, _P, _LL, _LL, _LL, _I, _P),
+    "scatter_add_rows": (_P,) * 6 + (_LL, _LL, _LL, _I, _P),
     "flash_fwd_bf16": (_P,) * 7 + _FLASH,
     "flash_fwd_f32": (_P,) * 7 + _FLASH,
     "flash_dq_bf16": (_P,) * 9 + _FLASH,

@@ -6,17 +6,23 @@ _grouped_matmul_kernel`` in both its forms (the forward, and
 ``transpose_rhs=True`` for dlhs) and ``_grouped_drhs_kernel`` with the
 CUDA kernels of ``csrc/grouped_ffn.cu``.  On the H100 the prefill and
 training products (M=4096, K=N=2048, E=16) are bound by bytes: the
-forward and dlhs by the 128 MiB of expert weights, drhs by its 256 MiB
-f32 output; decode reads at most one expert's weights per routed token.
-Design of the forward and dlhs: a tile schedule over (segment, row tile,
-column tile) that each block finds on the device from ``offsets``
-(:func:`tile_schedule` is its plain twin), on a grid fixed by M, N and E
-alone, so no launch reads the offsets on the host; one expert per block;
-a cp.async-pipelined mma.sync main loop (bf16 in, f32 accumulators) on
-128x128 tiles, or 16x64 tiles for decode-sized M (:func:`block_m`); f32
-keeps FMAs.  dlhs reads the weights transposed tile by tile (no
-transposed copy in device memory); drhs gives each block one tile of one
-expert's gradient and walks that expert's rows; see the source.
+forward and dlhs by the 128 MiB of expert weights (50.1 us at an H100
+SXM's 3.35 TB/s, 700 W limit), drhs by its output (128 MiB in bf16, 50.1
+us; 256 MiB in f32, 90.1 us); decode reads at most one expert's weights
+per routed token.  Design of the forward and dlhs: a tile schedule over
+(segment, row tile, column tile) that each block finds on the device from
+``offsets`` (:func:`tile_schedule` is its plain twin), on a grid fixed by
+M, N and E alone, so no launch reads the offsets on the host; one expert
+per block; a cp.async-pipelined mma.sync main loop (bf16 in, f32
+accumulators) on 128x128 tiles, or 16x64 tiles for decode-sized M
+(:func:`block_m`); f32 keeps FMAs.  dlhs reads the weights transposed tile
+by tile (no transposed copy in device memory).  drhs runs the same
+machinery with the expert's rows as the contraction: one 128x128 tile of
+one expert's gradient per block, its rows through a 3-stage cp.async ring,
+both operands through ldmatrix.trans; its epilogue writes f32 or rounds
+each sum once to bf16 (``out_dtype``), which is where the backward's cast
+to ``rhs.dtype`` happens.  Nothing is split or added across blocks, so
+every gradient is the same on every run.
 ``grouped_matmul`` is differentiable through dlhs and drhs, as the
 reference's ``custom_vjp`` is.  The reference's ``grouped_block_m`` is a
 TPU tiling knob — the port resolves it for config parity, but these
@@ -130,16 +136,18 @@ def _check(name: str, lhs: torch.Tensor, rhs: torch.Tensor,
 
 def _launch(name: str, fn_bf16: str, fn_f32: str, a: torch.Tensor,
             b: torch.Tensor, offsets: torch.Tensor, out: torch.Tensor,
-            M: int, K: int, N: int, E: int) -> None:
+            M: int, K: int, N: int, E: int, *bf16_args: int) -> None:
+    """``bf16_args``: what the bf16 entry point takes after E."""
     if not (a.is_contiguous() and b.is_contiguous()
             and offsets.is_contiguous()):
         raise ValueError(f"{name}: operands must be contiguous")
     if not 1 <= E <= MAX_EXPERTS:
         raise ValueError(f"{name}: E={E} outside [1, {MAX_EXPERTS}]")
     lib = build.load()
-    fn = getattr(lib, fn_bf16 if a.dtype == torch.bfloat16 else fn_f32)
+    bf16 = a.dtype == torch.bfloat16
+    fn = getattr(lib, fn_bf16 if bf16 else fn_f32)
     rc = fn(build.ptr(a), build.ptr(b), build.ptr(offsets), build.ptr(out),
-            M, K, N, E, build.stream(a))
+            M, K, N, E, *(bf16_args if bf16 else ()), build.stream(a))
     build.check(rc, name)
 
 
@@ -171,11 +179,13 @@ def grouped_matmul_t(g: torch.Tensor, rhs: torch.Tensor,
     return out
 
 
-def grouped_drhs(lhs: torch.Tensor, g: torch.Tensor,
-                 offsets: torch.Tensor) -> torch.Tensor:
-    """drhs (E, K, N) f32 with drhs[e] = lhs[seg_e]ᵀ @ g[seg_e]; lhs (M, K)
-    and g (M, N) of one dtype (bfloat16 or float32), offsets (E+1,)
-    int32."""
+def grouped_drhs(lhs: torch.Tensor, g: torch.Tensor, offsets: torch.Tensor,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """drhs (E, K, N) with drhs[e] = lhs[seg_e]ᵀ @ g[seg_e], summed in f32;
+    lhs (M, K) and g (M, N) of one dtype (bfloat16 or float32), offsets
+    (E+1,) int32.  ``out_dtype`` float32 (the reference's
+    ``_grouped_drhs_impl``) or ``lhs.dtype``: each f32 sum rounded once,
+    in the kernel — the reference's ``drhs.astype(rhs.dtype)``, bitwise."""
     global drhs_launches
     if (lhs.dim() != 2 or g.dim() != 2 or lhs.shape[0] != g.shape[0]
             or offsets.dim() != 1 or offsets.dtype != torch.int32):
@@ -187,14 +197,17 @@ def grouped_drhs(lhs: torch.Tensor, g: torch.Tensor,
                                                  torch.float32):
         raise ValueError(f"grouped_drhs: lhs and g must share bfloat16 or "
                          f"float32, got {lhs.dtype} and {g.dtype}")
+    if out_dtype not in (torch.float32, lhs.dtype):
+        raise ValueError(f"grouped_drhs: out_dtype must be float32 or "
+                         f"{lhs.dtype}, got {out_dtype}")
     if not lhs.device == g.device == offsets.device:
         raise ValueError("grouped_drhs: operands on different devices")
     if not build.dispatch_device("grouped_drhs", lhs):
-        return grouped_drhs_plain(lhs, g, offsets)
+        return grouped_drhs_plain(lhs, g, offsets).to(out_dtype)
     (M, K), N, E = lhs.shape, g.shape[1], offsets.shape[0] - 1
-    out = torch.empty((E, K, N), dtype=torch.float32, device=lhs.device)
+    out = torch.empty((E, K, N), dtype=out_dtype, device=lhs.device)
     _launch("grouped_drhs", "grouped_drhs_bf16", "grouped_drhs_f32", lhs, g,
-            offsets, out, M, K, N, E)
+            offsets, out, M, K, N, E, int(out_dtype == torch.bfloat16))
     drhs_launches += 1
     return out
 
@@ -202,7 +215,7 @@ def grouped_drhs(lhs: torch.Tensor, g: torch.Tensor,
 class _GroupedMatmul(torch.autograd.Function):
     """``grouped_matmul`` with the reference's ``_grouped_bwd``: ``g`` cast
     to ``lhs.dtype``; dlhs (the transposed-rhs kernel) in ``lhs.dtype``;
-    drhs computed in f32 and returned in ``rhs.dtype``."""
+    drhs summed in f32 and rounded once to ``rhs.dtype`` by the kernel."""
 
     @staticmethod
     def forward(ctx, lhs, rhs, offsets):
@@ -217,7 +230,7 @@ class _GroupedMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dlhs = grouped_matmul_t(g, rhs, offsets)
         if ctx.needs_input_grad[1]:
-            drhs = grouped_drhs(lhs, g, offsets).to(rhs.dtype)
+            drhs = grouped_drhs(lhs, g, offsets, out_dtype=rhs.dtype)
         return dlhs, drhs, None
 
 

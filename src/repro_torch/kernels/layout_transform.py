@@ -6,14 +6,19 @@ the row scatter-add ``out[idx[i]] += g[i]``.
 _gather_rows_kernel`` and ``scatter_add_rows`` its VJP
 ``_scatter_add_kernel``, with the CUDA kernels of
 ``csrc/layout_transform.cu``.  On the H100 both are bound by bytes: every
-row is read once and written once.  Design: the paper's warp-per-row
-gather over raw bytes (one kernel for every dtype), 16-byte vectors where
-the row width and pointers allow; the scatter-add is a warp per input row
-adding into an f32 scratch with atomics, rounded once to the gradient's
-dtype.  The same gather runs the grouped dispatch, the sort dispatch
-(inverse row map) and the sort combine (slot map); ``gather_rows`` is
-differentiable, with the scatter-add as its backward, as the reference's
-``custom_vjp`` is.
+row is read once and written once (32 MiB at 4096 rows of d=2048 bf16:
+10.0 us at an H100 SXM's 3.35 TB/s, 700 W limit).  Design: the paper's
+warp-per-row gather over raw bytes (one kernel for every dtype), 16-byte
+vectors where the row width and pointers allow.  The scatter-add is the
+gather turned around, and deterministic: a one-block plan inverts ``idx``
+on the device into compressed rows (:func:`scatter_plan` is its plain
+twin), then a warp per (output row, column chunk) sums that row's input
+rows in ascending order in f32 and rounds once to the gradient's dtype —
+no (n, d) scratch, no atomics on the data, the same bits on every run and
+the plain version's for any number of addends per row.  The same gather
+runs the grouped dispatch, the sort dispatch (inverse row map) and the
+sort combine (slot map); ``gather_rows`` is differentiable, with the
+scatter-add as its backward, as the reference's ``custom_vjp`` is.
 
 ``gather_rows_rowstep`` replaces the seed's row-per-step kernel
 ``_gather_row_kernel``, the baseline that ``benchmarks/bench_layout.py``
@@ -126,22 +131,47 @@ def gather_rows_rowstep(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def scatter_plan(idx: torch.Tensor, n: int):
+    """The scatter-add's plan, inverse of ``idx``: (starts (n+1,) int32,
+    rows (V,) int32) with ``rows[starts[r]:starts[r+1]]`` the input rows i
+    with ``idx[i] == r`` in ascending i; rows with ``idx < 0`` or ``>= n``
+    appear nowhere.  The plain twin of ``scatter_plan_kernel`` followed by
+    the ascending walk of ``scatter_sum_kernel`` (``csrc/
+    layout_transform.cu``), whose placement is unordered within a row."""
+    i = idx.long()
+    key = torch.where((i >= 0) & (i < n), i, n)
+    order = torch.sort(key, stable=True).indices
+    counts = torch.zeros(n + 1, dtype=torch.int64, device=idx.device)
+    counts.index_add_(0, key, torch.ones_like(key))
+    starts = torch.zeros(n + 1, dtype=torch.int64, device=idx.device)
+    starts[1:] = torch.cumsum(counts[:n], 0)
+    return starts.to(torch.int32), order[:int(starts[n])].to(torch.int32)
+
+
 def scatter_add_rows_plain(g: torch.Tensor, idx: torch.Tensor,
                            n: int) -> torch.Tensor:
-    """The plain PyTorch version: an f32 ``index_add_`` of the rows with
-    ``0 <= idx < n``, rounded once to ``g``'s dtype."""
-    keep = (idx >= 0) & (idx < n)
-    acc = torch.zeros((n + 1, g.shape[1]), dtype=torch.float32,
-                      device=g.device)
-    acc.index_add_(0, torch.where(keep, idx, n).long(), g.float())
-    return acc[:n].to(g.dtype)
+    """The plain PyTorch version: for each output row the f32 sum of its
+    rows of ``g`` in ascending input row (:func:`scatter_plan`), rounded
+    once to ``g``'s dtype — on any device the same bits, since pass k adds
+    each row's k-th addend by an ``index_add_`` with no index twice."""
+    starts, rows = scatter_plan(idx, n)
+    counts = (starts[1:] - starts[:-1]).long()
+    owner = torch.repeat_interleave(
+        torch.arange(n, device=g.device), counts)
+    rank = torch.arange(rows.shape[0], device=g.device) - starts[owner].long()
+    acc = torch.zeros((n, g.shape[1]), dtype=torch.float32, device=g.device)
+    for k in range(int(counts.max()) if n else 0):
+        pick = rank == k
+        acc.index_add_(0, owner[pick], g[rows[pick].long()].float())
+    return acc.to(g.dtype)
 
 
 def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
                      n: int) -> torch.Tensor:
-    """out (n, d) with out[idx[i]] += g[i] (idx[i] < 0 skipped, duplicates
-    accumulated in f32 and rounded once); g (M, d) bfloat16 or float32,
-    idx (M,) int32.  Output in ``g``'s dtype."""
+    """out (n, d) with out[idx[i]] += g[i] (idx[i] < 0 or >= n skipped;
+    duplicates summed in f32 in ascending i and rounded once, so the
+    result is the same on every run); g (M, d) bfloat16 or float32, idx
+    (M,) int32.  Output in ``g``'s dtype."""
     global scatter_launches
     if g.dim() != 2 or idx.shape != (g.shape[0],) or idx.dtype != torch.int32:
         raise ValueError(f"scatter_add_rows: need g (M, d) and idx (M,) "
@@ -158,13 +188,13 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
     if not (g.is_contiguous() and idx.is_contiguous()):
         raise ValueError("scatter_add_rows: g and idx must be contiguous")
     M, d = g.shape
-    acc = torch.zeros((n, d), dtype=torch.float32, device=g.device)
-    bf16 = g.dtype == torch.bfloat16
-    out = torch.empty((n, d), dtype=g.dtype, device=g.device) if bf16 else acc
-    lib = build.load()
-    rc = lib.scatter_add_rows(build.ptr(g), build.ptr(idx), build.ptr(acc),
-                              build.ptr(out), n, M, d, int(bf16),
-                              build.stream(g))
+    out = torch.empty((n, d), dtype=g.dtype, device=g.device)
+    scratch = torch.empty(2 * n + 1 + M, dtype=torch.int32, device=g.device)
+    starts, cursor, slots = scratch.split([n + 1, n, M])
+    rc = build.load().scatter_add_rows(
+        build.ptr(g), build.ptr(idx), build.ptr(starts), build.ptr(cursor),
+        build.ptr(slots), build.ptr(out), n, M, d,
+        int(g.dtype == torch.bfloat16), build.stream(g))
     build.check(rc, "scatter_add_rows")
     scatter_launches += 1
     return out

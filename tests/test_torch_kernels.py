@@ -186,6 +186,11 @@ def _scatter_case(name):
         idx = idx.astype(np.int32)
         idx[rng.random(80) < 0.1] = -1
         return rng.standard_normal((80, 33)).astype(np.float32), idx, 40, 2
+    if name == "triples (top_k=3), M>n":
+        idx = np.concatenate([rng.permutation(30) for _ in range(3)])
+        idx = idx.astype(np.int32)
+        idx[rng.random(90) < 0.1] = -1
+        return rng.standard_normal((90, 40)).astype(np.float32), idx, 30, 3
     if name == "many duplicates":
         idx = rng.integers(-1, 5, 90).astype(np.int32)
         return rng.standard_normal((90, 16)).astype(np.float32), idx, 5, 90
@@ -194,7 +199,8 @@ def _scatter_case(name):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", ["permutation with -1",
-                                  "pairs (top_k=2), M>n", "many duplicates"])
+                                  "pairs (top_k=2), M>n",
+                                  "triples (top_k=3), M>n", "many duplicates"])
 def test_scatter_add_rows_matches_pallas(name, dtype):
     """Bitwise with at most two addends per output row (f32 sums of two
     bf16/f32 values are order-free and rounded once).  With many
@@ -223,6 +229,57 @@ def test_scatter_add_rows_matches_pallas(name, dtype):
         c = np.bincount(idx[idx >= 0], minlength=n)[:, None]
         tol = np.maximum(c - 1, 0) * _bf16_ulp(absum) + _bf16_ulp(j)
         assert (np.abs(t - j) <= tol).all()
+
+
+def _scatter_add_index_add(g, idx, n):
+    """The scatter-add's earlier plain form: one f32 ``index_add_`` over
+    all rows (duplicates in the order the CPU kernel takes), rounded once."""
+    keep = (idx >= 0) & (idx < n)
+    acc = torch.zeros((n + 1, g.shape[1]), dtype=torch.float32)
+    acc.index_add_(0, torch.where(keep, idx, n).long(), g.float())
+    return acc[:n].to(g.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["permutation with -1",
+                                  "pairs (top_k=2), M>n",
+                                  "triples (top_k=3), M>n", "many duplicates"])
+def test_scatter_add_plain_matches_index_add_form(name, dtype):
+    """The ordered plain scatter-add (ascending input row, f32, one
+    rounding) equals the one-pass ``index_add_`` form bitwise at <= 2
+    addends per row (a sum of two is order-free); beyond that both are f32
+    sums of the same c terms in other orders: within 2c·2^-24·Σ|g|, plus
+    one ulp of the rounding to bf16."""
+    g, idx, n, most = _scatter_case(name)
+    tg = torch.from_numpy(g).to(getattr(torch, dtype))
+    ti = torch.from_numpy(idx)
+    new = L.scatter_add_rows_plain(tg, ti, n)
+    old = _scatter_add_index_add(tg, ti, n)
+    assert new.dtype == tg.dtype
+    if most <= 2:
+        assert torch.equal(new, old)
+        return
+    c = torch.bincount(ti[ti >= 0].long(), minlength=n).max().item()
+    bound = 2 * c * 2.0 ** -24 * _scatter_add_index_add(tg.float().abs(), ti,
+                                                        n)
+    if dtype == "bfloat16":
+        bound = bound + torch.from_numpy(_bf16_ulp(old.float().numpy()))
+    assert ((new.float() - old.float()).abs() <= bound).all()
+
+
+def test_scatter_add_plain_is_its_own_rerun_and_order_free():
+    """The plain scatter-add depends on idx and g only: the same bits on a
+    rerun, and a row's addends summed in ascending input row — so the
+    result equals an explicit left-to-right f32 sum per row."""
+    g, idx, n, _ = _scatter_case("many duplicates")
+    tg, ti = torch.from_numpy(g), torch.from_numpy(idx)
+    out = L.scatter_add_rows_plain(tg, ti, n)
+    assert torch.equal(out, L.scatter_add_rows_plain(tg, ti, n))
+    for r in range(n):
+        acc = torch.zeros(g.shape[1])
+        for i in np.flatnonzero(idx == r):
+            acc = acc + tg[i]
+        assert torch.equal(out[r], acc)
 
 
 def test_gather_rows_gradient_matches_reference_vjp():
@@ -323,6 +380,26 @@ def test_grouped_drhs_matches_pallas(name, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["empty experts, tail", "ragged last block",
+                                  "decode M=8"])
+def test_grouped_drhs_out_dtype_is_one_rounding(name, dtype):
+    """``grouped_drhs(..., out_dtype=lhs.dtype)`` is the f32 result rounded
+    once: bitwise ``grouped_drhs_plain(...).to(dtype)`` on the CPU; the
+    default stays float32, as the reference's ``_grouped_drhs_impl``."""
+    M, Kd, N, offs = _drhs_case(name)
+    rng = np.random.default_rng(23)
+    tl = torch.from_numpy(rng.standard_normal((M, Kd)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    tg = torch.from_numpy(rng.standard_normal((M, N)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    to = torch.tensor(offs, dtype=torch.int32)
+    out = G.grouped_drhs(tl, tg, to, out_dtype=tl.dtype)
+    assert out.dtype == tl.dtype
+    assert torch.equal(out, G.grouped_drhs_plain(tl, tg, to).to(tl.dtype))
+    assert G.grouped_drhs(tl, tg, to).dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_grouped_matmul_gradients_match_reference_vjp(dtype):
     """Autograd through grouped_matmul (dlhs + drhs kernels' plain
     versions) against jax.vjp of the reference's custom_vjp Pallas
@@ -383,6 +460,9 @@ def test_grouped_matmul_gradients_match_reference_vjp(dtype):
                                torch.zeros(3, dtype=torch.int32)),
     lambda: G.grouped_drhs(torch.zeros(4, 8), torch.zeros(5, 3),
                            torch.zeros(3, dtype=torch.int32)),
+    lambda: G.grouped_drhs(torch.zeros(4, 8), torch.zeros(4, 3),
+                           torch.zeros(3, dtype=torch.int32),
+                           out_dtype=torch.bfloat16),
 ])
 def test_wrappers_reject_bad_inputs(call):
     with pytest.raises(ValueError):

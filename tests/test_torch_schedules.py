@@ -2,8 +2,11 @@
 and offsets they serve: the flash forward's and dq's k-tile skip
 (``flash_attention.visited_k_tiles``, mirroring ``plan_k_tiles``), dk/dv's
 q-tile skip (``flash_attention.visited_q_tiles``, mirroring
-``plan_q_tiles``) and the grouped matmul's row-tile schedule
-(``grouped_ffn.tile_schedule``, mirroring ``find_tile``).  A schedule that
+``plan_q_tiles``), the grouped matmul's row-tile schedule
+(``grouped_ffn.tile_schedule``, mirroring ``find_tile``) and the
+scatter-add's inverse of its index (``layout_transform.scatter_plan``,
+mirroring ``scatter_plan_kernel`` and the ascending walk of
+``scatter_sum_kernel``).  A schedule that
 leaves out an allowed (q, k) pair, or a row, or covers a row twice, would
 make a kernel wrong without any plain version noticing, so these hold the
 rules themselves."""
@@ -15,6 +18,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as F
 from repro_torch.kernels import grouped_ffn as G
+from repro_torch.kernels import layout_transform as L
 
 
 # ---------------------------------------------------------------------------
@@ -358,3 +362,52 @@ def test_block_m_follows_m():
     assert G.block_m(G.SMALL_M, torch.bfloat16) == 16
     assert G.block_m(4096, torch.bfloat16) == 128
     assert G.block_m(4096, torch.float32) == 64
+
+
+# ---------------------------------------------------------------------------
+# the scatter-add's plan: the inverse of idx as compressed rows
+# ---------------------------------------------------------------------------
+
+def _scatter_idx(name):
+    """(idx (M,) int32, n)."""
+    rng = np.random.default_rng(34)
+    if name == "permutation":
+        return rng.permutation(64).astype(np.int32), 64
+    if name == "pairs (top_k=2)":
+        idx = np.concatenate([rng.permutation(40), rng.permutation(40)])
+        idx[rng.random(80) < 0.1] = -1
+        return idx.astype(np.int32), 40
+    if name == "triples (top_k=3)":
+        idx = np.concatenate([rng.permutation(40) for _ in range(3)])
+        idx[rng.random(120) < 0.1] = -1
+        return idx.astype(np.int32), 40
+    if name == "many duplicates":
+        return rng.integers(-1, 5, 300).astype(np.int32), 5
+    if name == "all -1":
+        return np.full(50, -1, np.int32), 20
+    if name == "indices at or past n, and below -1":
+        return rng.integers(-7, 30, 200).astype(np.int32), 20
+    raise KeyError(name)
+
+
+SCATTER_NAMES = ["permutation", "pairs (top_k=2)", "triples (top_k=3)",
+                 "many duplicates", "all -1",
+                 "indices at or past n, and below -1"]
+
+
+@pytest.mark.parametrize("name", SCATTER_NAMES)
+def test_scatter_plan_is_the_inverse_of_idx(name):
+    """starts is non-decreasing from 0; row r's list is exactly the i with
+    idx[i] == r, ascending (a brute-force inverse); every valid i appears
+    once and no i with idx < 0 or >= n appears."""
+    idx, n = _scatter_idx(name)
+    starts, rows = L.scatter_plan(torch.from_numpy(idx), n)
+    assert starts.dtype == rows.dtype == torch.int32
+    starts, rows = starts.numpy(), rows.numpy()
+    assert starts.shape == (n + 1,) and starts[0] == 0
+    assert (np.diff(starts) >= 0).all() and starts[n] == len(rows)
+    for r in range(n):
+        np.testing.assert_array_equal(rows[starts[r]:starts[r + 1]],
+                                      np.flatnonzero(idx == r))
+    valid = np.flatnonzero((idx >= 0) & (idx < n))
+    np.testing.assert_array_equal(np.sort(rows), valid)
