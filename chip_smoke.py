@@ -56,16 +56,43 @@ Phases, in order; any failure ends the script with a non-zero exit:
    gradients from the same weights, batch 1, seq 64 in both dispatch modes
    and seq 1024 with ``grouped`` (there replayed on the card with the
    CPU's ReLU masks, since a few pre-activations lie within rounding of 0).
+9. Rematerialisation: the paper's model through ``launch.train.run`` at
+   batch 8 x seq 1024, ``grouped``, with ``remat`` none, block and full
+   (2 warm-up + 4 timed steps each, the same seeded state): params and
+   metrics bitwise equal across the modes, the forward kernels launched
+   twice a step under block and full, the backward kernels once; median
+   step and peak memory per mode, and in one more step the peak of the
+   forward + backward apart from that of the update.
+10. Crash and resume at full width (seq 512, ``grouped``): a run that
+   saves every 3 steps (keep 1) and crashes at step 5, resumed from step
+   3, bitwise the uninterrupted run in every metric and in the final
+   params and moments; a ``train.grads:nan@1`` step skipped bitwise with
+   no host wait; SIGKILL inside a save at the smoke config through the
+   CLI, resumed bitwise.  Prints the npz size, the save and restore
+   seconds and the free disk space.
+11. The gates at full width: ``gshard`` (also with ``sort``), ``ktop1``
+   (4 prototypes), ``sam`` (4 groups, top 2), ``base`` and
+   ``dense_to_sparse`` (top 2, at the anneal's start and end) through
+   ``launch.train.run``, batch 8 x seq 512, 3 AdamW steps each: finite
+   metrics, the top-k gate kernel never launched (these gates are plain
+   torch, as in the reference), the other kernels as the dispatch
+   implies; ``hash`` refused on the model path.  Then one MoE layer per
+   gate (``hash`` with token ids) on the card and the CPU, 512 tokens,
+   f32: routes equal except at near-ties within ``TIE_MARGIN``, and with
+   the CPU's routing decisions and ReLU masks replayed on the card,
+   combine weights, output and gradients within 1e-4 of their max.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all ten kernels; the row-per-step gather, on no
 serving or training path, with the launches of its phase-5 run), and
 ``{"ok": true, "device": {...}}``.  ``--phases kernels`` runs phases 1, 2
-and 5 only, for work on a kernel, and ends with ``"ok": false``.  The script
+and 5 only, for work on a kernel, and ``--phases trainer`` phases 1 and
+9-11; both end with ``"ok": false``.  The script
 imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -83,6 +110,7 @@ SERVE = dict(batch=8, prompt_len=512, gen=32)
 Q_CHUNK = 512                      # longer sequences take the flash kernels
 # (dispatch, prompt length) of the serving cells
 SERVE_CELLS = (("grouped", 512), ("sort", 512), ("grouped", 1024))
+CARD = "cuda"                      # the device phases 9-11 drive
 
 
 class SmokeFailure(RuntimeError):
@@ -1538,15 +1566,544 @@ def phase_train_card_vs_cpu(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: rematerialisation at full width
+# ---------------------------------------------------------------------------
+
+REMAT = dict(batch=8, seq=1024, warmup=2, timed=4)
+# the kernels a layer's forward launches: they run twice a step under remat
+FORWARD_KERNELS = ("topk_gate", "gather_rows", "grouped_matmul", "flash_fwd")
+
+
+def remat_per_step(remat: str, mode: str, seq: int) -> dict:
+    """Launches per train step under ``remat``: "block" and "full"
+    recompute each layer in the backward, so its forward kernels run
+    twice; the backward kernels once."""
+    per = train_per_step(mode, seq)
+    if remat != "none":
+        per = {k: (2 * v if k in FORWARD_KERNELS else v)
+               for k, v in per.items()}
+    return per
+
+
+def step_peaks(torch, state, remat: str, seq: int, step_index: int):
+    """One more grouped train step from ``state`` with the peak device
+    memory of its forward + backward (``loss_and_grads``) apart from the
+    peak of the rest (the finite check, clipping and the AdamW update):
+    where a mode's peak sits.  In GiB."""
+    from repro_torch import configs
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.serving.engine import serve_config
+    from repro_torch.training import train_step as ts
+    cfg = serve_config(configs.get_config(ARCH), dispatch="grouped")
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=1,
+                       total_steps=step_index + 1, remat=remat)
+    batch = SyntheticLM(cfg, REMAT["batch"], seq, seed=0,
+                        device=CARD).next_batch(step_index)
+    real, peaks = ts.loss_and_grads, {}
+
+    def measured(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        peaks["forward_backward_gib"] = (torch.cuda.max_memory_allocated()
+                                         / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        return out
+    ts.loss_and_grads = measured
+    try:
+        ts.make_train_step(cfg, tcfg)(state, batch, step=step_index)
+    finally:
+        ts.loss_and_grads = real
+    torch.cuda.synchronize()
+    peaks["update_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return peaks
+
+
+def phase_remat(torch, smi):
+    """The paper's model through ``launch.train.run`` at batch 8 x seq
+    1024, ``grouped``, once per remat mode from the same seeded state: 2
+    warm-up + 4 timed steps.  Every metric and every parameter after the
+    steps bitwise equal across the modes; launch counts exactly as the
+    mode implies; the median step and the peak memory per mode."""
+    from repro_torch import tree
+    from repro_torch.launch import train
+    B, S = REMAT["batch"], REMAT["seq"]
+    steps = REMAT["warmup"] + REMAT["timed"]
+    names = [k for k, _, _ in COUNTERS]
+    print(f"phase 9: remat at full width, batch {B} x seq {S}, grouped, "
+          f"{REMAT['warmup']} warm-up + {REMAT['timed']} timed AdamW steps "
+          f"per mode; params and metrics bitwise equal across modes")
+    out, ref = {}, None
+    for remat in ("none", "block", "full"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        reset_counts()
+        state, history = train.run(ARCH, steps=steps, batch=B, seq=S,
+                                   smoke=False, seed=0, log_every=100,
+                                   dispatch="grouped", remat=remat,
+                                   device=CARD, stats=stats)
+        counts = read_counts(names)
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: v * steps
+                for k, v in remat_per_step(remat, "grouped", S).items()}
+        timed = stats["step_s"][REMAT["warmup"]:]
+        med = statistics.median(timed)
+        print(f"  [{smi}] remat={remat}: median step {1e3 * med:.3f} ms (of "
+              f"{len(timed)} timed; min {1e3 * min(timed):.3f}, max "
+              f"{1e3 * max(timed):.3f}), peak memory "
+              f"{peak / 2 ** 30:.3f} GiB, launches {counts}")
+        check(counts == want, f"remat={remat}: launch counts {counts} != "
+                              f"{want} ({steps} steps)")
+        bad = [(h["step"], k) for h in history for k, v in h.items()
+               if not math.isfinite(v)]
+        check(not bad, f"remat={remat}: non-finite metrics {bad}")
+        check(all(h["skipped"] == 0 for h in history),
+              f"remat={remat}: a step was skipped")
+        # the first mode's params wait on the host, so that no mode's peak
+        # memory holds them
+        leaves = [p.detach().cpu() for p in tree.leaves(state.params)]
+        if ref is None:
+            ref = (history, leaves)
+        else:
+            check(history == ref[0], f"remat={remat}: metrics differ from "
+                                     f"remat=none")
+            same = all(torch.equal(a, b) for a, b in zip(ref[1], leaves,
+                                                         strict=True))
+            check(same, f"remat={remat}: params differ from remat=none")
+        peaks = step_peaks(torch, state, remat, S, steps)
+        print(f"    one more step: peak {peaks['forward_backward_gib']:.3f} "
+              f"GiB in the forward + backward, {peaks['update_gib']:.3f} "
+              f"GiB in the update")
+        out[remat] = dict(step_ms_median=1e3 * med,
+                          step_ms=[1e3 * t for t in stats["step_s"]],
+                          peak_gib=peak / 2 ** 30, launches=counts, **peaks)
+        del state, leaves
+    print("  params and every metric bitwise equal across none/block/full")
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: crash and resume at full width
+# ---------------------------------------------------------------------------
+
+RESUME = dict(batch=8, seq=512, steps=6, every=3, crash=5)
+
+
+def _train_cli(tmp, *extra):
+    """The smoke trainer through its CLI in a subprocess (on the card)."""
+    import os
+    import subprocess
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+           "--smoke", "--steps", "8", "--batch", "2", "--seq", "16",
+           "--log-every", "100", *extra]
+    return subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def phase_resume(torch, smi):
+    """Crash-safe checkpoint and resume of the paper's model at seq 512,
+    ``grouped``: an uninterrupted 6-step run; a run saving every 3 steps
+    (keep 1) that crashes at the top of step 5 (``train.loop:raise@5``);
+    its resume from step 3 — steps 3-5 bitwise the uninterrupted run's in
+    every metric, and the final params and moments too.  Then a
+    ``train.grads:nan@1`` step: skipped, params and moments bitwise
+    unchanged, and no host wait.  Then SIGKILL inside a save
+    (``ckpt.data_tmp_written:kill@6``) at the smoke config through the
+    CLI, resumed bitwise.  The npz size, the save and restore seconds and
+    the free disk space are printed; the temp directories are removed."""
+    import json as json_mod
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from repro_torch import configs, tree
+    from repro_torch.core import faults
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.serving.engine import serve_config
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    B, S, steps = RESUME["batch"], RESUME["seq"], RESUME["steps"]
+    kw = dict(batch=B, seq=S, smoke=False, seed=0, log_every=100,
+              dispatch="grouped", device=CARD)
+    keys = ("loss", "ce", "aux", "grad_norm", "lr", "skipped",
+            "nonfinite_streak", "loss_scale")
+    print(f"phase 10: crash and resume at full width, batch {B} x seq {S}, "
+          f"grouped, {steps} steps, a save every {RESUME['every']} (keep "
+          f"1), train.loop:raise@{RESUME['crash']}; bitwise")
+    ref_state, ref = train.run(ARCH, steps=steps, **kw)
+    ref_bits = [t.detach().clone() for t in tree.leaves(
+        (ref_state.params, ref_state.opt))]
+    del ref_state
+    out = {}
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(d).free
+        print(f"  checkpoint dir {d}: {free / 2 ** 30:.1f} GiB free before "
+              f"the first save")
+        plan = faults.plan_from_specs([f"train.loop:raise@{RESUME['crash']}"])
+        crashed = {}
+        raised = None
+        try:
+            train.run(ARCH, steps=steps, ckpt_dir=d,
+                      ckpt_every=RESUME["every"], ckpt_keep=1, faults=plan,
+                      stats=crashed, **kw)
+        except faults.FaultInjected as e:       # the injected preemption
+            raised = e
+        check(raised is not None, "train.loop:raise did not fire")
+        npz = os.path.join(d, f"ckpt_{RESUME['every']:08d}.npz")
+        size = os.path.getsize(npz)
+        resumed = {}
+        state, res = train.run(ARCH, steps=steps, ckpt_dir=d, ckpt_keep=1,
+                               resume=True, stats=resumed, **kw)
+        check([h["step"] for h in res] == list(range(RESUME["every"],
+                                                      steps)),
+              f"resume replayed steps {[h['step'] for h in res]}")
+        diff = [(h["step"], k) for h, g in zip(res, ref[RESUME["every"]:])
+                for k in keys if h[k] != g[k]]
+        check(not diff, f"resumed metrics differ from the uninterrupted run: "
+                        f"{diff}")
+        same = all(torch.equal(a, b) for a, b in zip(
+            ref_bits, tree.leaves((state.params, state.opt)), strict=True))
+        check(same, "resumed params or moments differ from the "
+                    "uninterrupted run")
+        left = sorted(f for f in os.listdir(d) if f.endswith(".npz"))
+        check(left == [f"ckpt_{steps:08d}.npz"],
+              f"keep=1 left {left}")
+        out.update(npz_bytes=size, free_disk_bytes=free,
+                   save_s=crashed["save_s"] + resumed["save_s"],
+                   restore_s=resumed["restore_s"])
+        print(f"  [{smi}] npz {size} bytes ({size / 2 ** 30:.3f} GiB); save "
+              f"{crashed['save_s'][0]:.2f} s (step 3), "
+              f"{resumed['save_s'][0]:.2f} s (step 6); restore "
+              f"{resumed['restore_s']:.2f} s; steps 3-5 and the final "
+              f"params and moments bitwise the uninterrupted run's")
+        del state
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    # an injected NaN gradient: the step is skipped bitwise, without a wait
+    cfg = serve_config(configs.get_config(ARCH), dispatch="grouped")
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=1,
+                       total_steps=steps)
+    plan = faults.plan_from_specs(["train.grads:nan@1"])
+    step = make_train_step(cfg, tcfg, faults=plan)
+    state = init_train_state(cfg, tcfg, device=CARD)
+    ds = SyntheticLM(cfg, B, S, seed=0, device=CARD)
+    state, _ = step(state, ds.next_batch(0), step=0)
+    before = [t.detach().clone() for t in tree.leaves((state.params,
+                                                       state.opt))]
+    batch = ds.next_batch(1)
+    got = {}
+    waits = host_waits(torch, lambda: got.update(r=step(state, batch,
+                                                        step=1)))
+    after, m = got["r"]
+    same = all(torch.equal(a, b) for a, b in zip(
+        before, tree.leaves((after.params, after.opt)), strict=True))
+    print(f"  train.grads:nan@1: skipped {float(m['skipped']):.0f}, params "
+          f"and moments bitwise unchanged: {same}, host waits {len(waits)} "
+          f"{sorted(set(waits))}")
+    check(float(m["skipped"]) == 1 and int(after.step) == 2,
+          "the NaN step was not counted as skipped")
+    check(same, "the skipped step changed params or moments")
+    check(not waits, f"the faulted step waits for the device {len(waits)} "
+                     f"times")
+    out["nan_step_host_waits"] = len(waits)
+    del state, after, before, step
+    torch.cuda.empty_cache()
+
+    # SIGKILL between the tmp file's fsync and its os.replace, via the CLI
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kill_")
+    try:
+        ck = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        r = _train_cli(tmp, "--history-out", "ref.json")
+        check(r.returncode == 0, f"smoke CLI run failed: {r.stderr[-2000:]}")
+        k = _train_cli(tmp, "--ckpt-dir", ck, "--ckpt-every", "3",
+                       "--inject", "ckpt.data_tmp_written:kill@6")
+        check(k.returncode == -signal.SIGKILL,
+              f"the kill run ended {k.returncode}, not SIGKILL: "
+              f"{k.stderr[-2000:]}")
+        r2 = _train_cli(tmp, "--ckpt-dir", ck, "--resume", "--history-out",
+                        "res.json")
+        check(r2.returncode == 0, f"resume failed: {r2.stderr[-2000:]}")
+        check("resumed from step 3" in r2.stdout, r2.stdout[-1000:])
+        with open(os.path.join(tmp, "ref.json")) as f:
+            want = json_mod.load(f)["history"][3:]
+        with open(os.path.join(tmp, "res.json")) as f:
+            res = json_mod.load(f)
+        check(res["resumed"] and res["start"] == 3, f"history {res}")
+        diff = [(h["step"], k) for h, g in zip(res["history"], want)
+                for k in ("loss", "ce", "aux", "grad_norm", "lr")
+                if h[k] != g[k]]
+        check(len(res["history"]) == len(want) and not diff,
+              f"SIGKILL resume differs: {diff}")
+        print(f"  SIGKILL in the step-6 save (smoke config, CLI on the "
+              f"card): resumed from step 3, steps 3-7 bitwise "
+              f"({time.perf_counter() - t0:.1f} s for 3 processes)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the gates at full width
+# ---------------------------------------------------------------------------
+
+GATES = dict(batch=8, seq=512, steps=3)
+
+
+def gate_cells():
+    """(label, MoEConfig fields, dispatch) of the phase-11 training runs:
+    the six plain-torch gates, gshard once more with sort, and
+    dense_to_sparse at the start and the end of its anneal."""
+    from repro_torch.training.anneal import d2s_temperature
+    t0, t1 = d2s_temperature(0), d2s_temperature(1000)
+    return (("gshard", dict(gate="gshard"), "grouped"),
+            ("gshard", dict(gate="gshard"), "sort"),
+            ("ktop1 P=4", dict(gate="ktop1", num_prototypes=4), "grouped"),
+            ("sam G=4 k=2", dict(gate="sam", num_groups=4, top_k=2),
+             "grouped"),
+            ("base", dict(gate="base"), "grouped"),
+            (f"dense_to_sparse k=2 T={t0:g}",
+             dict(gate="dense_to_sparse", top_k=2, gumbel_temperature=t0),
+             "grouped"),
+            (f"dense_to_sparse k=2 T={t1:g}",
+             dict(gate="dense_to_sparse", top_k=2, gumbel_temperature=t1),
+             "grouped"))
+
+
+class ArgmaxTape:
+    """Stands in for ``torch`` inside ``core/gating.py``: with no tape it
+    records every ``argmax`` (its input on the CPU and its output), with
+    one it returns the recorded outputs in call order — the gate's
+    decisions of another run, its arithmetic this run's."""
+
+    def __init__(self, torch, tape=None):
+        self._torch = torch
+        self.tape = None if tape is None else list(tape)
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def argmax(self, x, dim=None, keepdim=False):
+        if self.tape is not None:
+            return self.tape.pop(0).to(x.device)
+        out = self._torch.argmax(x, dim=dim, keepdim=keepdim)
+        self.calls.append((x.detach().cpu(), out.cpu()))
+        return out
+
+
+def near_ties(cpu_calls, card_calls):
+    """Each token whose route differs between the two runs' gates, at the
+    first argmax that decided differently for it, with that decision's
+    margin: the gap between the two choices in the CPU's scores."""
+    seen, out = set(), []
+    for (x, a), (_, b) in zip(cpu_calls, card_calls, strict=True):
+        a, b = a.reshape(x.shape[:-1]), b.reshape(x.shape[:-1])
+        for pos in (a != b).nonzero().tolist():
+            if pos[0] in seen:
+                continue
+            seen.add(pos[0])
+            row = x[tuple(pos)]
+            out.append((pos[0], abs(row[a[tuple(pos)]]
+                                    - row[b[tuple(pos)]]).item()))
+    return out
+
+
+# a differing route must sit within rounding of a tie: the gates' scores
+# are O(1-10), the two devices' f32 router products over d=2048 terms
+# differ by ~1e-6, and Sinkhorn's 8 sweeps carry that forward
+TIE_MARGIN = 1e-4
+
+
+def phase_gates_card_vs_cpu(torch, smi, cells):
+    """One MoE layer at full width (512 tokens, f32, grouped) per gate, on
+    the card and on the CPU, with the same weights, noise and token ids:
+    routes equal except at near-ties (``TIE_MARGIN``).  Then the card
+    replays the CPU's decisions — its routing (``ArgmaxTape``) and, as
+    phase 8 does, its ReLU masks (``forced_relu_ffn``: a few
+    pre-activations lie within f32 rounding of 0 and each flip moves a
+    column of an expert's w_up gradient) — and its combine weights,
+    output and gradients (x, gate_w, w_up, w_out) are held within 1e-4 of
+    their max, phase 8's budget.  ``hash`` runs here with token ids.
+    Kernel 1 never launches; the layer's other kernels once per product
+    each way."""
+    from repro_torch import configs
+    from repro_torch.core import gating, moe
+    from repro_torch.kernels import grouped_ffn as G
+    cfg = configs.get_config(ARCH)
+    d, E, f = cfg.d_model, cfg.moe.num_experts, cfg.d_ff
+    T = 512
+    g = torch.Generator().manual_seed(21)
+    params = {"gate_w": torch.randn(d, E, generator=g) * d ** -0.5,
+              "w_up": torch.randn(E, d, f, generator=g) * d ** -0.5,
+              "w_out": torch.randn(E, f, d, generator=g) * f ** -0.5}
+    x = torch.randn(T, d, generator=g)
+    r = torch.randn(T, d, generator=g)
+    ids = torch.randint(0, cfg.vocab_size, (T,), generator=g)
+    want = {"topk_gate": 0, "gather_rows": 1, "grouped_matmul": 2,
+            "grouped_matmul_t": 2, "grouped_drhs": 2, "scatter_add_rows": 1}
+    layer_cells = [(label, fields) for label, fields, mode in cells
+                   if mode == "grouped"] + [("hash", dict(gate="hash"))]
+    grouped_matmul, grouped_ffn = G.grouped_matmul, G.grouped_ffn
+
+    def recording(store):
+        def fn(lhs, rhs, offsets):
+            out = grouped_matmul(lhs, rhs, offsets)
+            store.append(out.detach().cpu())
+            return out
+        return fn
+    out = {}
+    for label, fields in layer_cells:
+        mcfg = dataclasses.replace(cfg.moe, dispatch="grouped", **fields)
+        noise = gating.draw_noise(mcfg, (T, E), g)
+        tid = ids if mcfg.gate == "hash" else None
+
+        def layer(dev, tape=None, masks=None):
+            """(argmax record, gate, launches, ReLU pre-activations,
+            [y, combine weights, dx, dgate_w, dw_up, dw_out])."""
+            p = {k: v.to(dev, copy=True).requires_grad_(True)
+                 for k, v in params.items()}
+            xx = x.to(dev, copy=True).requires_grad_(True)
+            nz = None if noise is None else noise.to(dev)
+            tt = None if tid is None else tid.to(dev)
+            proxy = ArgmaxTape(torch, tape)
+            pre = []
+            gating.torch = proxy
+            G.grouped_matmul = recording(pre)
+            if masks is not None:
+                G.grouped_ffn = forced_relu_ffn(torch, G, masks)
+            try:
+                gate = gating.route(mcfg, gating.router_logits(
+                    mcfg, xx, p["gate_w"]), noise=nz, token_ids=tt)
+                rec = list(proxy.calls)
+                if tape is not None:
+                    proxy.tape = list(tape)
+                reset_counts()
+                y, aux, _ = moe.moe_apply(mcfg, p, xx, num_experts=E,
+                                          act=cfg.act, noise=nz,
+                                          token_ids=tt)
+                ((y * r.to(dev)).sum() + aux).backward()
+                counts = read_counts(list(want))
+            finally:
+                gating.torch = torch
+                G.grouped_matmul, G.grouped_ffn = grouped_matmul, grouped_ffn
+            return (rec, gate, counts, pre[::2],
+                    [t.detach().cpu() for t in (y, gate.combine_weights,
+                                                xx.grad, p["gate_w"].grad,
+                                                p["w_up"].grad,
+                                                p["w_out"].grad)])
+
+        def rel(a_list, b_list):
+            names = ("y", "combine_weights", "dx", "dgate_w", "dw_up",
+                     "dw_out")
+            return {n: ((a - b).abs().max() / a.abs().max().clamp(
+                min=1e-30)).item() for n, a, b in zip(names, a_list, b_list)}
+        cpu_rec, cpu_gate, _, cpu_pre, cpu_out = layer("cpu")
+        card_rec, card_gate, counts, card_pre, card_out = layer(CARD)
+        routes = (cpu_gate.expert_index.cpu()
+                  != card_gate.expert_index.cpu()).any(-1)
+        ties = near_ties(cpu_rec, card_rec)
+        worst_tie = max((m for _, m in ties), default=0.0)
+        check(int(routes.sum()) == len(ties) and worst_tie <= TIE_MARGIN,
+              f"{label}: {int(routes.sum())} routes differ, margins {ties} "
+              f"(bound {TIE_MARGIN})")
+        check(counts == want, f"{label}: layer launches {counts} != {want}")
+        flips = ([int(((a > 0) != (b > 0)).sum())
+                  for a, b in zip(cpu_pre, card_pre)]
+                 if not routes.any() else None)
+        _, _, _, _, forced_out = layer(CARD, [o for _, o in cpu_rec],
+                                       [a > 0 for a in cpu_pre])
+        plain, forced = rel(cpu_out, card_out), rel(cpu_out, forced_out)
+        print(f"  [{smi}] {label} layer, card vs CPU (512 tokens, f32): "
+              f"{int(routes.sum())} routes differ {ties} (margin bound "
+              f"{TIE_MARGIN}); ReLU units flipped {flips}; launches "
+              f"{counts}\n    max|d|/max as run: "
+              + ", ".join(f"{n} {v:.2e}" for n, v in plain.items())
+              + "\n    with the CPU's routes and ReLU masks: "
+              + ", ".join(f"{n} {v:.2e}" for n, v in forced.items())
+              + " (tol 1e-4)")
+        check(max(forced.values()) <= 1e-4,
+              f"{label}: card and CPU layers disagree {forced}")
+        out[label] = dict(routes_differ=int(routes.sum()), margins=ties,
+                          relu_flips=flips, rel=plain, forced_rel=forced,
+                          launches=counts)
+    return out
+
+
+def phase_gates(torch, smi):
+    """Each gate (``gate_cells``) through ``launch.train.run``: the paper's
+    model at batch 8 x seq 512, 3 AdamW steps; every metric finite, kernel
+    1 never launched, the other kernels as the dispatch mode implies per
+    step.  ``hash`` through the model path raises (the model passes no
+    token ids, as the reference's); then the layer card-vs-CPU checks."""
+    from repro_torch.launch import train
+    B, S, steps = GATES["batch"], GATES["seq"], GATES["steps"]
+    names = [k for k, _, _ in COUNTERS]
+    cells = gate_cells()
+    print(f"phase 11: the gates at full width, batch {B} x seq {S}, "
+          f"{steps} AdamW steps each (the first is the warm-up)")
+    out = {}
+    for label, fields, mode in cells:
+        stats = {}
+        reset_counts()
+        state, history = train.run(ARCH, steps=steps, batch=B, seq=S,
+                                   smoke=False, seed=0, log_every=100,
+                                   dispatch=mode, moe=fields, device=CARD,
+                                   stats=stats)
+        counts = read_counts(names)
+        want = {k: (0 if k == "topk_gate" else v * steps)
+                for k, v in train_per_step(mode, S).items()}
+        med = statistics.median(stats["step_s"][1:])
+        cell = f"{label} {mode}"
+        print(f"  [{smi}] {cell}: median step {1e3 * med:.3f} ms (steps "
+              f"{[round(1e3 * t, 3) for t in stats['step_s']]} ms), losses "
+              f"{[round(h['loss'], 4) for h in history]}, launches {counts}")
+        check(counts == want, f"{cell}: launch counts {counts} != {want}")
+        bad = [(h["step"], k) for h in history for k, v in h.items()
+               if not math.isfinite(v)]
+        check(not bad, f"{cell}: non-finite metrics {bad}")
+        out[cell] = dict(step_ms_median=1e3 * med,
+                         step_ms=[1e3 * t for t in stats["step_s"]],
+                         losses=[h["loss"] for h in history],
+                         launches=counts)
+        del state
+    raised = None
+    try:
+        train.run(ARCH, steps=1, batch=B, seq=S, smoke=False, seed=0,
+                  dispatch="grouped", moe=dict(gate="hash"), device=CARD)
+    except ValueError as e:                     # the expected refusal
+        raised = e
+    check(raised is not None and "token_ids" in str(raised),
+          f"hash through the model path did not raise: {raised!r}")
+    print(f"  hash through the model path raises ValueError: {raised}")
+    torch.cuda.empty_cache()
+    out["layer card vs cpu"] = phase_gates_card_vs_cpu(torch, smi, cells)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one "
                                  "NVIDIA GPU (see the module docstring).")
-    ap.add_argument("--phases", choices=("all", "kernels"), default="all",
+    ap.add_argument("--phases", choices=("all", "kernels", "trainer"),
+                    default="all",
                     help="'kernels': only the build, the kernel checks and "
                          "the kernel timings (phases 1, 2 and 5), for "
-                         "working on a kernel; the last line then says "
-                         "ok: false")
+                         "working on a kernel; 'trainer': the build and "
+                         "phases 9-11 (remat, resume, gates); either ends "
+                         "with ok: false")
     phases = ap.parse_args(argv).phases
     import torch
     if not torch.cuda.is_available():
@@ -1578,6 +2135,13 @@ def main(argv=None) -> int:
         elif "Used" in line or "spill" in line or line.startswith("=="):
             print(f"      {line.strip()}")
 
+    if phases == "trainer":
+        print(json.dumps({"remat": phase_remat(torch, smi)}))
+        print(json.dumps({"resume": phase_resume(torch, smi)}))
+        print(json.dumps({"gates": phase_gates(torch, smi)}))
+        print(smi)
+        print(json.dumps({"ok": False, "partial": "phases 1, 9-11 only"}))
+        return 0
     errs = phase_kernels(torch, dev)
     errs.update(phase_flash_kernels(torch, dev))
     if phases == "kernels":
@@ -1589,6 +2153,12 @@ def main(argv=None) -> int:
     phase_card_vs_cpu(torch)
     counts, training = phase_train(torch, smi)
     grads = phase_train_card_vs_cpu(torch)
+    remat = phase_remat(torch, smi)
+    print(json.dumps({"remat": remat}))
+    resume = phase_resume(torch, smi)
+    print(json.dumps({"resume": resume}))
+    gates = phase_gates(torch, smi)
+    print(json.dumps({"gates": gates}))
     rows = phase_timings(torch, dev, smi)
     profile = phase_profile(torch, smi)
     profile.update(phase_profile_train(torch, smi))
@@ -1615,6 +2185,7 @@ def main(argv=None) -> int:
           f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"serving": serving, "serving_launches": serve_counts,
                       "training": training, "train_grads_card_vs_cpu": grads,
+                      "remat": remat, "resume": resume, "gates": gates,
                       "timings": rows, "profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,9 @@
 form of ``sharded_moe_apply``).
 
 Flow: gate → dispatch plan (one sort) → layout transform → expert FFN →
-reverse transform + combine.  ``dispatch="grouped"`` is the dropless path
+reverse transform + combine.  Every gate strategy routes (``gating``;
+``noise`` and ``token_ids`` reach the gate).  ``dispatch="grouped"`` is
+the dropless path
 (expert-sorted (T·K, d) buffer + grouped expert matmuls); ``"sort"`` is
 the paper's capacity-padded (E·C, d) layout.  The gate, the row gathers
 and the grouped matmuls always go through the kernels' wrappers, which
@@ -64,10 +66,13 @@ def expert_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor,
 def moe_block_local(cfg: MoEConfig, params: Dict[str, torch.Tensor],
                     x: torch.Tensor, *, num_experts: int, act: str,
                     valid: Optional[torch.Tensor] = None,
+                    noise: Optional[torch.Tensor] = None,
+                    token_ids: Optional[torch.Tensor] = None,
                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                Dict[str, torch.Tensor]]:
     """x: (T, d) → (y, aux_loss, metrics) on one device.  ``cfg`` must be
-    resolved (no ``"auto"``)."""
+    resolved (no ``"auto"``); ``noise`` (T, E) and ``token_ids`` (T,) go
+    to the gate (``gating.route``)."""
     T, d = x.shape
     E = num_experts
     if not cfg.use_pallas_gate and x.device.type != "cpu":
@@ -77,7 +82,7 @@ def moe_block_local(cfg: MoEConfig, params: Dict[str, torch.Tensor],
             f"versions); set it to True")
 
     logits = gating.router_logits(cfg, x, params["gate_w"])
-    gate = gating.route(cfg, logits)
+    gate = gating.route(cfg, logits, noise=noise, token_ids=token_ids)
     if valid is not None:
         # padded tokens → virtual expert E: dropped by the plan, weight 0
         gate = gate._replace(
@@ -136,13 +141,26 @@ def validate_dispatch_config(cfg: MoEConfig, *,
 
 def moe_apply(cfg: MoEConfig, params: Dict[str, torch.Tensor],
               x: torch.Tensor, *, num_experts: int, act: str = "swiglu",
+              noise: Optional[torch.Tensor] = None,
+              token_ids: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """The MoE layer on ``x: (..., d)``: leading dims flatten into one
     token axis.  Expert weights are cast to the compute dtype (a no-op
-    when the model already keeps them in it)."""
+    when the model already keeps them in it).  ``noise`` ((T, E), T the
+    flattened token count) is a noisy gate's draw
+    (``gating.draw_noise``); ``token_ids`` (``x``'s leading dims) route
+    the ``hash`` gate, which raises ``ValueError`` without them, as the
+    reference's ``sharded_moe_apply`` does."""
     lead, d = x.shape[:-1], x.shape[-1]
     toks = x.reshape(-1, d)
     T = toks.shape[0]
+    if token_ids is not None:
+        token_ids = token_ids.reshape(-1)
+    elif cfg.gate == "hash":
+        raise ValueError(
+            "cfg.gate='hash' routes by token id: pass token_ids to "
+            "moe_apply (without them every token would hash to one "
+            "expert)")
     valid = torch.ones((T,), dtype=torch.bool, device=x.device)
     params = {k: (v if k == "gate_w" else v.to(x.dtype))
               for k, v in params.items()}
@@ -150,5 +168,6 @@ def moe_apply(cfg: MoEConfig, params: Dict[str, torch.Tensor],
     validate_dispatch_config(cfg)
     y, aux, metrics = moe_block_local(cfg, params, toks,
                                       num_experts=num_experts, act=act,
-                                      valid=valid)
+                                      valid=valid, noise=noise,
+                                      token_ids=token_ids)
     return y.reshape(*lead, d), aux, metrics

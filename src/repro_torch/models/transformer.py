@@ -15,12 +15,14 @@ stay f32, as they are used.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.core import gating
 from repro_torch.core import moe as moe_lib
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -28,6 +30,7 @@ from repro_torch.models import layers
 
 # leaves used in f32 whatever the compute dtype
 _F32_LEAVES = ("ln1", "ln2", "final_norm", "gate_w")
+REMAT_MODES = ("none", "block", "full")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -75,9 +78,11 @@ def _leaf(name: str, t: torch.Tensor, dtype, device) -> nn.Parameter:
 
 
 def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
-                  positions=None, cache=None, decode: bool = False):
+                  positions=None, cache=None, decode: bool = False,
+                  noise: Optional[torch.Tensor] = None):
     """One ``moe`` block over its parameter dict ``p``: attention + the
-    MoE FFN, pre-norm residuals.  Returns (x, cache, aux)."""
+    MoE FFN, pre-norm residuals; ``noise`` is the layer's gate draw.
+    Returns (x, cache, aux)."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if decode:
         a, cache = attn_lib.decode_attention(p["attn"], h, cache,
@@ -92,29 +97,80 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux, _ = moe_lib.moe_apply(cfg.moe, p["moe"], h,
                                   num_experts=cfg.moe.num_experts,
-                                  act=cfg.act)
+                                  act=cfg.act, noise=noise)
     return x + y, cache, aux
 
 
+def draw_gate_noise(cfg: ModelConfig, tokens: int,
+                    generator: torch.Generator, device=None
+                    ) -> Optional[List[torch.Tensor]]:
+    """One (tokens, E) gate draw per layer, in layer order, from
+    ``generator`` (``gating.draw_noise``); None when the gate draws
+    nothing."""
+    if not gating.needs_noise(cfg.moe):
+        return None
+    return [gating.draw_noise(cfg.moe, (tokens, cfg.moe.num_experts),
+                              generator, device)
+            for _ in range(cfg.num_layers)]
+
+
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
-            *, caches=None) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+            *, caches=None, remat: str = "none",
+            noise: Optional[Sequence[torch.Tensor]] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """Full-sequence pass (training, prefill) over a parameter tree — the
     f32 masters, or a :class:`Transformer`'s compute-dtype copy — with
     every weight cast to ``cfg.dtype`` at its use, as the reference's
     ``forward``.  tokens (B, S) → (hidden (B, S, d), aux, caches);
-    ``caches`` (one per layer) are filled in place."""
+    ``caches`` (one per layer) are filled in place.
+
+    ``noise`` holds one gate draw per layer (:func:`draw_gate_noise`);
+    a noisy gate without it draws its own from a generator seeded 0 on
+    the device, as the reference falls back to ``PRNGKey(0)`` (the same
+    distribution, not JAX's bits).
+
+    ``remat``: ``"block"`` and ``"full"`` both wrap each layer in
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+    layer's inputs and recomputes the whole block in the backward — in the
+    reference too both recompute the whole block (``jax.checkpoint`` with
+    its default policy saves nothing inside it), so nothing tells the two
+    apart in the port either.  The layer's forward kernels run twice a
+    step under them (the gate, the gather, the grouped matmul and, past
+    ``q_chunk``, the flash forward); its backward kernels once.  The gate
+    noise is an input of the block, drawn before the forward: the
+    recomputation routes every token as the forward did, and no RNG
+    state is saved or restored (``preserve_rng_state=False``)."""
     _check_supported(cfg)
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat={remat!r} not in {REMAT_MODES}")
+    if remat != "none" and caches is not None:
+        raise ValueError("remat recomputes blocks in a backward; a pass "
+                         "that fills caches has none")
     dtype = getattr(torch, cfg.dtype)
     x = layers.embed(params["embed"], tokens, dtype, cfg.scale_embeddings)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
+    if noise is None and gating.needs_noise(cfg.moe):
+        gen = torch.Generator(device=x.device).manual_seed(0)
+        noise = draw_gate_noise(cfg, tokens.numel(), gen, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["blocks"]):
-        x, _, a = block_forward(p, x, cfg, positions=positions,
-                                cache=None if caches is None else caches[i])
+        nz = None if noise is None else noise[i]
+        if remat == "none":
+            x, _, a = block_forward(
+                p, x, cfg, positions=positions, noise=nz,
+                cache=None if caches is None else caches[i])
+        else:
+            x, a = checkpoint(_remat_block, p, x, positions, nz, cfg,
+                              use_reentrant=False, preserve_rng_state=False)
         aux = aux + a
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux, caches
+
+
+def _remat_block(p, x, positions, noise, cfg):
+    x, _, aux = block_forward(p, x, cfg, positions=positions, noise=noise)
+    return x, aux
 
 
 def logits_from_hidden(params: Dict[str, Any], cfg: ModelConfig,
@@ -198,8 +254,14 @@ class Transformer(nn.Module):
         the caches updated in place."""
         cfg = cfg or self.cfg
         x = layers.embed(self.embed, token, self.dtype, cfg.scale_embeddings)
-        for blk, cache in zip(self.blocks, caches, strict=True):
+        noise = None
+        if gating.needs_noise(cfg.moe):     # as forward: a seed-0 draw
+            gen = torch.Generator(device=x.device).manual_seed(0)
+            noise = draw_gate_noise(cfg, token.numel(), gen, x.device)
+        for i, (blk, cache) in enumerate(zip(self.blocks, caches,
+                                             strict=True)):
             x, _, _ = block_forward(blk.tree(), x, cfg, cache=cache,
-                                    decode=True)
+                                    decode=True,
+                                    noise=None if noise is None else noise[i])
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         return self.logits_from_hidden(x), caches

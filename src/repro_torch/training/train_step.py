@@ -19,17 +19,29 @@ the scale halves on a bad step and doubles after
 learning rate and the finite check stay on the device: a step never
 makes the host wait for it.
 
-Not ported yet (ROADMAP.md): ``remat`` other than ``"none"`` and the
-fault-injection seams (``faults``).
+``tcfg.remat`` ("block" | "full") recomputes each layer in the backward
+(``models/transformer.forward``).  Injection seams for the fault harness
+(``core/faults.py``), where the reference has them: ``train.activations``
+(the hidden states before the CE), ``train.loss`` and ``train.grads``
+(every leaf after accumulation); without a plan they add no op.
+
+Gate noise (``gshard``, ``dense_to_sparse``) is an input of the forward,
+drawn before it, one draw per layer per microbatch, from a
+``torch.Generator`` on the device keyed by ``(tcfg.seed, step)`` — the
+host's step index, which the caller passes (the reference's loop folds
+the same index into its rng), so drawing never waits for the device.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, tree
+from repro_torch.core import faults as faults_mod
+from repro_torch.core import gating
 from repro_torch.core.config import ModelConfig, TrainConfig
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import (adamw_update, clip_by_global_norm,
@@ -125,59 +137,89 @@ def chunked_ce_loss(params, cfg: ModelConfig, h: torch.Tensor,
 
 
 def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                   scale: Optional[torch.Tensor] = None):
-    """(loss, ce, aux, grads) of one batch: the forward, the chunked CE and
-    the backward, with the loss multiplied by ``scale`` (when given)
-    before the backward.  ``grads`` has ``params``' structure."""
-    h, aux, _ = T.forward(params, batch["inputs"], cfg)
+                   scale: Optional[torch.Tensor] = None, *,
+                   remat: str = "none",
+                   noise: Optional[List[torch.Tensor]] = None,
+                   faults: Optional[faults_mod.FaultPlan] = None,
+                   step: Optional[torch.Tensor] = None):
+    """(loss, ce, aux, grads) of one batch: the forward (``remat``, the
+    per-layer gate ``noise``), the chunked CE and the backward, with the
+    loss multiplied by ``scale`` (when given) before the backward.  The
+    ``train.activations`` and ``train.loss`` seams of ``faults`` fire at
+    the device counter ``step``.  ``grads`` has ``params``' structure."""
+    h, aux, _ = T.forward(params, batch["inputs"], cfg, remat=remat,
+                          noise=noise)
+    h = faults_mod.apply_traced(faults, "train.activations", step, h)
     ce = chunked_ce_loss(params, cfg, h, batch["targets"],
                          batch["loss_mask"])
-    loss = ce + aux
+    loss = faults_mod.apply_traced(faults, "train.loss", step, ce + aux)
     scaled = loss if scale is None else loss * scale
     grads = torch.autograd.grad(scaled, tree.leaves(params))
     return (loss.detach(), ce.detach(), aux.detach(),
             tree.unflatten(params, list(grads)))
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, faults=None):
-    """Returns ``train_step(state, batch) → (state, metrics)``.
+def noise_generator(tcfg: TrainConfig, step: int, device) -> torch.Generator:
+    """The gate-noise generator of host step ``step``: a
+    ``torch.Generator`` on ``device`` seeded from ``(tcfg.seed, step)``
+    (numpy's ``SeedSequence`` mixes the pair)."""
+    seed = int(np.random.SeedSequence((tcfg.seed, step)).generate_state(
+        1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    faults: Optional[faults_mod.FaultPlan] = None):
+    """Returns ``train_step(state, batch, step=None, noise=None) →
+    (state, metrics)``.
 
     ``batch`` holds the global batch; with ``tcfg.microbatches > 1`` it is
-    split on the batch axis and the gradients averaged."""
-    if tcfg.remat != "none":
-        raise NotImplementedError(
-            f"TrainConfig.remat={tcfg.remat!r}: rematerialisation is not "
-            f"ported to repro_torch yet (ROADMAP.md)")
-    if faults is not None:
-        raise NotImplementedError(
-            "fault plans (core/faults.py) are not ported to repro_torch yet "
-            "(ROADMAP.md)")
+    split on the batch axis and the gradients averaged.  ``faults`` arms
+    the traced seams; None inserts no op.  A noisy gate needs ``step``,
+    the host's index of ``state.step`` (its draws are keyed by it), or
+    ``noise``: one list of per-layer (tokens, E) draws per microbatch."""
     sched = make_schedule(tcfg)
     dynamic = tcfg.loss_scale == "dynamic"
     static_scale = not dynamic and float(tcfg.loss_scale) == 1.0
+    noisy = gating.needs_noise(cfg.moe)
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   step: Optional[int] = None,
+                   noise: Optional[List[List[torch.Tensor]]] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         mbs = tcfg.microbatches
         scale = None if static_scale else state.loss_scale
-        if mbs == 1:
-            loss, ce, aux, grads = loss_and_grads(state.params, batch, cfg,
-                                                  scale)
-        else:
-            B = batch["inputs"].shape[0]
-            if B % mbs:
-                raise ValueError(f"batch {B} is not divisible by "
-                                 f"microbatches={mbs}")
-            parts = [{k: v[i * (B // mbs):(i + 1) * (B // mbs)]
-                      for k, v in batch.items()} for i in range(mbs)]
-            loss, ce, aux, grads = loss_and_grads(state.params, parts[0],
-                                                  cfg, scale)
-            for mb in parts[1:]:
-                lo, c, a, g = loss_and_grads(state.params, mb, cfg, scale)
+        B = batch["inputs"].shape[0]
+        if B % mbs:
+            raise ValueError(f"batch {B} is not divisible by "
+                             f"microbatches={mbs}")
+        parts = [{k: v[i * (B // mbs):(i + 1) * (B // mbs)]
+                  for k, v in batch.items()} for i in range(mbs)]
+        if noisy and noise is None:
+            if step is None:
+                raise ValueError(
+                    f"gate={cfg.moe.gate!r} draws noise keyed by the step: "
+                    f"pass train_step(..., step=<host step index>) or "
+                    f"noise=")
+            dev = batch["inputs"].device
+            gen = noise_generator(tcfg, step, dev)
+            noise = [T.draw_gate_noise(cfg, mb["inputs"].numel(), gen, dev)
+                     for mb in parts]
+        kw = dict(remat=tcfg.remat, faults=faults, step=state.step)
+        loss, ce, aux, grads = loss_and_grads(
+            state.params, parts[0], cfg, scale,
+            noise=None if noise is None else noise[0], **kw)
+        if mbs > 1:
+            for i, mb in enumerate(parts[1:], 1):
+                lo, c, a, g = loss_and_grads(
+                    state.params, mb, cfg, scale,
+                    noise=None if noise is None else noise[i], **kw)
                 grads = tree.map_(torch.add, grads, g)
                 loss, ce, aux = loss + lo, ce + c, aux + a
             grads = tree.map_(lambda g: g / mbs, grads)
             loss, ce, aux = loss / mbs, ce / mbs, aux / mbs
+        grads = faults_mod.apply_traced(faults, "train.grads", state.step,
+                                        grads)
 
         with torch.no_grad():
             # -- non-finite guard -------------------------------------------

@@ -60,15 +60,6 @@ def test_route_matches_reference(gate, top_k, ties, kernels):
                                np.asarray(j.router_probs), atol=1e-6)
 
 
-@pytest.mark.parametrize("gate", ["gshard", "ktop1", "sam", "base", "hash",
-                                  "dense_to_sparse"])
-def test_unported_gates_raise(gate):
-    _, tc = _pair(gate, top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gating.route(tc, torch.zeros(4, 4))
-    assert gating.gate_k(tc) == jgating.gate_k(_pair(gate, top_k=2)[0])
-
-
 @pytest.mark.parametrize("top_k", [1, 2])
 @pytest.mark.parametrize("drop", [False, True])
 def test_plans_match_reference(top_k, drop):

@@ -470,14 +470,6 @@ def test_dynamic_loss_scale_halves_on_a_bad_step_and_grows(jax_init):
     assert float(m["loss_scale"]) == 2.0 ** 15 and int(state.good_streak) == 0
 
 
-def test_unported_train_options_raise():
-    tc = _tcfg("grouped")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.make_train_step(tc, TrainConfig(remat="block"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.make_train_step(tc, TrainConfig(), faults=object())
-
-
 # ---------------------------------------------------------------------------
 # the CLI
 # ---------------------------------------------------------------------------
@@ -513,11 +505,7 @@ def test_train_run_applies_the_dispatch_keyword(capsys):
                     dispatch="nope")
 
 
-@pytest.mark.parametrize("argv", [["--remat", "block"],
-                                  ["--ckpt-dir", "x"],
-                                  ["--ckpt-dir", "x", "--resume"],
-                                  ["--inject", "train.grads:nan@1"],
-                                  ["--mesh", "2x2"],
+@pytest.mark.parametrize("argv", [["--mesh", "2x2"],
                                   ["--tune", "calibrate"]])
 def test_train_cli_rejects_unported_flags(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
