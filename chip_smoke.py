@@ -81,18 +81,42 @@ Phases, in order; any failure ends the script with a non-zero exit:
    f32: routes equal except at near-ties within ``TIE_MARGIN``, and with
    the CPU's routing decisions and ReLU masks replayed on the card,
    combine weights, output and gradients within 1e-4 of their max.
+12. The presets at full width (bf16, seeded weights drawn leaf by leaf
+   straight into bf16): ``dbrx-132b`` at 2 layers and
+   ``llama4-maverick-400b-a17b`` at one ``("dense", "moe")`` period in
+   both dispatch modes, ``yi-6b`` and ``starcoder2-3b`` whole, through
+   ``Transformer`` → ``serving.engine.generate``, batch 8, 32 new tokens,
+   prompts 512 and 1024, two runs per cell: launches as the path implies
+   (per MoE layer per forward the gate 1, the gather 1 or 2, the grouped
+   matmul 3 and the scatter-add 1 in grouped; dense presets none of
+   these; the flash forward once per layer past 512), greedy tokens equal
+   over the two runs, finite logits; prefill and decode times, tokens/s, the peak memory of
+   the init and of serving; one profiled prefill and decode steps per
+   preset (0 host waits).  Then card against CPU in f32 at full width, 64
+   tokens: one dbrx ``moe`` block in both dispatch modes (routes that
+   differ must be near-ties, then replayed with the CPU's), one llama4
+   ``dense`` block and the llama4 shared expert, each within 1e-4 of its
+   max.  Phase 2 holds the kernels at every shape these presets' paths
+   give them (2j-2k: the gate at E=16 k=4 and E=128, the gather of T·4
+   rows and the combine's scatter-add back, the grouped matmul at
+   d=6144/f=10752 and d=5120/f=8192 with E=128 at M=8 and 8192, each at
+   prompts 512 and 1024 and at decode; 2g: the flash kernels at H:KV
+   48:8, 40:8, 32:4, 24:2, B=8, S=1024) and times the prompt-1024 and
+   decode shapes on the same inputs (rows of phase 5).
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all ten kernels; the row-per-step gather, on no
 serving or training path, with the launches of its phase-5 run), and
 ``{"ok": true, "device": {...}}``.  ``--phases kernels`` runs phases 1, 2
-and 5 only, for work on a kernel, and ``--phases trainer`` phases 1 and
-9-11; both end with ``"ok": false``.  The script
+and 5 only, for work on a kernel, ``--phases trainer`` phases 1 and
+9-11, and ``--phases presets`` phases 1 and 12; each ends with
+``"ok": false``.  The script
 imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -178,6 +202,52 @@ def graph_ms(torch, fn, *, reps: int = 25, per_graph: int = 10,
                    warmup=3) / per_graph
 
 
+class TimingRows(list):
+    """Phase 5's rows, one per kernel and shape: ``add`` times the kernel
+    (eager and device-only), its plain version and its library call, and
+    computes the bound of the work."""
+
+    def __init__(self, torch, smi):
+        super().__init__()
+        self.torch, self.smi = torch, smi
+
+    def add(self, name, source, replaces, kernel, plain, library, nbytes,
+            flops, peak, shape, slow=False, library_graph=None, **extra):
+        torch = self.torch
+        # a call of several ms: fewer batches of fewer calls
+        kw = dict(batches=10, per_batch=3, warmup=2) if slow else {}
+        gkw = dict(reps=10, per_graph=3) if slow else {}
+        ms = time_ms(torch, kernel, **kw)
+        dev_ms = graph_ms(torch, kernel, **gkw)
+        plain_ms = time_ms(torch, plain, **kw)
+        lib_ms = lib_dev_ms = None
+        if library is not None:
+            try:
+                lib_ms = time_ms(torch, library, **kw)
+            except RuntimeError as e:
+                print(f"    library call does not run on this build: "
+                      f"{str(e).splitlines()[0]}")
+            else:
+                # (callable, capture stream) for the device-only time
+                fn, stream = library_graph or (library, None)
+                lib_dev_ms = graph_ms(torch, fn, stream=stream, **gkw)
+        tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
+        bound_ms, by = 1e3 * max(tb, tf), ("bytes" if tb >= tf
+                                           else "operations")
+
+        def fmt(x):
+            return "not measured" if x is None else f"{x:.4f}"
+        print(f"  [{self.smi}] {name} {shape}: kernel_ms {ms:.4f} "
+              f"(device-only {fmt(dev_ms)}), plain_ms {plain_ms:.4f}, "
+              f"library_ms {fmt(lib_ms)} (device-only {fmt(lib_dev_ms)}), "
+              f"bound_us {1e3 * bound_ms:.2f} ({by}) {extra or ''}")
+        self.append(dict(name=name, route="cuda", source=source,
+                         replaces=replaces, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
+                         device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                         shape=shape, **extra))
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -253,6 +323,48 @@ def drhs_cases(torch):
          200, 16, 72, 3, torch.tensor([0, 127, 127, 190], dtype=torch.int32))]
 
 
+def check_gate(torch, K, name, xd, k, errs):
+    """Phase 2a's check of the gate on logits ``xd`` on the card: idx,
+    vals and rowmax equal to the plain version's, sumexp within rtol
+    1e-6."""
+    kv, ki, km, ks = K.fused_topk_gate(xd, k)
+    pv, pi, pm, ps = K.topk_gate_plain(xd, k)
+    torch.cuda.synchronize()
+    rel = ((ks - ps).abs() / ps.abs()).max().item()
+    errs["topk_gate"] = max(errs["topk_gate"], (kv - pv).abs().max().item(),
+                            (ks - ps).abs().max().item())
+    ok = (torch.equal(ki, pi) and torch.equal(kv, pv)
+          and torch.equal(km, pm) and rel <= 1e-6)
+    print(f"  {name}: idx/vals/rowmax equal={ok and True}, sumexp max "
+          f"rel err {rel:.3e} (tol 1e-6)")
+    check(ok, f"topk_gate {name} disagrees with its plain version")
+
+
+def check_grouped_bf16(torch, G, name, lhs, rhs, o, errs):
+    """Phase 2c's bf16 check of the grouped matmul: within 1 ulp of the
+    f32-accumulated plain result rounded once, plus the f32 summation-order
+    bound K·2^-24·Σ|a·b| (the two sums add in other orders; it only
+    matters where the products cancel to near 0); rows past offsets[E]
+    zero."""
+    out = G.grouped_matmul(lhs, rhs, o)
+    ref = G.grouped_matmul_plain(lhs, rhs, o)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    errs["grouped_matmul"] = max(errs["grouped_matmul"], err.max().item())
+    tail_zero = bool((out[int(o[-1]):] == 0).all())
+    del out
+    order = lhs.shape[1] * 2.0 ** -24 * G.grouped_matmul_plain(
+        lhs.float().abs(), rhs.abs(), o)
+    ulp = bf16_ulp(torch, ref.float())
+    ok = bool((err <= ulp + order).all())
+    print(f"  {name} bf16: max abs err {err.max().item():.3e} "
+          f"({(err / ulp).max().item():.2f} ulp max, "
+          f"{int((err > ulp).sum())} elements past 1 ulp, all within 1 ulp "
+          f"+ the f32 order bound: {ok}), tail rows zero={tail_zero}")
+    check(ok and tail_zero,
+          f"grouped_matmul {name} bf16 disagrees with its plain version")
+
+
 def phase_kernels(torch, dev):
     from repro_torch.kernels import grouped_ffn as G
     from repro_torch.kernels import layout_transform as L
@@ -271,19 +383,7 @@ def phase_kernels(torch, dev):
              ("E=40 (two columns per lane) k=3",
               torch.randn(300, 40, generator=g), 3)]
     for name, x, k in cases:
-        xd = x.to(dev)
-        kv, ki, km, ks = K.fused_topk_gate(xd, k)
-        pv, pi, pm, ps = K.topk_gate_plain(xd, k)
-        torch.cuda.synchronize()
-        rel = ((ks - ps).abs() / ps.abs()).max().item()
-        errs["topk_gate"] = max(errs["topk_gate"],
-                                (kv - pv).abs().max().item(),
-                                (ks - ps).abs().max().item())
-        ok = (torch.equal(ki, pi) and torch.equal(kv, pv)
-              and torch.equal(km, pm) and rel <= 1e-6)
-        print(f"  {name}: idx/vals/rowmax equal={ok and True}, sumexp max "
-              f"rel err {rel:.3e} (tol 1e-6)")
-        check(ok, f"topk_gate {name} disagrees with its plain version")
+        check_gate(torch, K, name, x.to(dev), k, errs)
 
     print("phase 2b: gather_rows (tolerance: bitwise)")
     gcases = []
@@ -354,34 +454,20 @@ def phase_kernels(torch, dev):
         lhs32 = torch.randn(M, Kd, generator=g)
         rhs32 = torch.randn(E_, Kd, N, generator=g) * Kd ** -0.5
         o = offs.to(dev)
-        for dt in (torch.float32, torch.bfloat16):
-            lhs, rhs = lhs32.to(dt).to(dev), rhs32.to(dt).to(dev)
-            out = G.grouped_matmul(lhs, rhs, o)
-            ref = G.grouped_matmul_plain(lhs, rhs, o)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs()
-            errs["grouped_matmul"] = max(errs["grouped_matmul"],
-                                         err.max().item())
-            if dt == torch.float32:
-                ok = bool(torch.allclose(out, ref, rtol=1e-4, atol=1e-4))
-                tol = "rtol/atol 1e-4"
-            else:
-                # 1 ulp of the plain result, plus the f32 summation-order
-                # bound K·2^-24·Σ|a·b| (the two sums add in other orders;
-                # it only matters where the products cancel to near 0)
-                order = Kd * 2.0 ** -24 * G.grouped_matmul_plain(
-                    lhs.float().abs(), rhs.float().abs(), o)
-                ulp = bf16_ulp(torch, ref.float())
-                ok = bool((err <= ulp + order).all())
-                tol = (f"{(err / ulp).max().item():.2f} ulp max, "
-                       f"{int((err > ulp).sum())} elements past 1 ulp, all "
-                       f"within 1 ulp + the f32 order bound: {ok}")
-            tail = out[int(offs[-1]):]
-            ok = ok and bool((tail == 0).all())
-            print(f"  {name} {dt}: max abs err {err.max().item():.3e} "
-                  f"({tol}), tail rows zero={bool((tail == 0).all())}")
-            check(ok, f"grouped_matmul {name} {dt} disagrees with its plain "
-                      f"version")
+        lhs, rhs = lhs32.to(dev), rhs32.to(dev)
+        out = G.grouped_matmul(lhs, rhs, o)
+        ref = G.grouped_matmul_plain(lhs, rhs, o)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        errs["grouped_matmul"] = max(errs["grouped_matmul"], err)
+        tail_zero = bool((out[int(offs[-1]):] == 0).all())
+        ok = bool(torch.allclose(out, ref, rtol=1e-4, atol=1e-4))
+        print(f"  {name} torch.float32: max abs err {err:.3e} (rtol/atol "
+              f"1e-4), tail rows zero={tail_zero}")
+        check(ok and tail_zero, f"grouped_matmul {name} torch.float32 "
+                                f"disagrees with its plain version")
+        check_grouped_bf16(torch, G, name, lhs.to(torch.bfloat16),
+                           rhs.to(torch.bfloat16), o, errs)
 
     errs.update(grouped_matmul_t=0.0, grouped_drhs=0.0, scatter_add_rows=0.0)
     print("phase 2d: grouped_matmul_t, dlhs = g @ w[e]^T (f32 rtol/atol 1e-4; "
@@ -520,6 +606,214 @@ def phase_kernels(torch, dev):
     return errs
 
 
+def uniform_offsets(torch, g, M: int, E: int, unit: int = 1):
+    """Offsets of ``M`` rows assigned uniformly at random to ``E`` experts,
+    in blocks of ``unit`` rows."""
+    assign = torch.randint(0, E, (M // unit,), generator=g)
+    offs = torch.zeros(E + 1, dtype=torch.int32)
+    offs[1:] = torch.cumsum(torch.bincount(assign, minlength=E) * unit, 0)
+    return offs
+
+
+def distinct_offsets(torch, g, M: int, E: int):
+    """Offsets of ``M`` rows, one in each of ``M`` distinct experts (a
+    decode batch of ``M`` tokens at top-1)."""
+    counts = torch.zeros(E, dtype=torch.int64)
+    counts[torch.randperm(E, generator=g)[:M]] = 1
+    offs = torch.zeros(E + 1, dtype=torch.int32)
+    offs[1:] = torch.cumsum(counts, 0)
+    return offs
+
+
+# The kernels at the shapes phase 12's presets give them, one table per
+# kernel; phase 2j-2k checks every case against its plain version and
+# times those marked ``timed`` on the same inputs (their rows join phase
+# 5's).  T = 8 x 1024 tokens (a prompt-1024 prefill), 8 x 512 at prompt
+# 512, 8 at decode.
+T_PRESET = 8 * 1024
+# (name, S, E, k, timed) of the gate: dbrx's top-4 over 16, llama4's top-1
+# over 128
+PRESET_GATES = (
+    ("dbrx prefill 1024", T_PRESET, 16, 4, True),
+    ("dbrx prefill 512", T_PRESET // 2, 16, 4, False),
+    ("dbrx decode", 8, 16, 4, False),
+    ("llama4 prefill 1024", T_PRESET, 128, 1, True),
+    ("llama4 prefill 512", T_PRESET // 2, 128, 1, False),
+    ("llama4 decode", 8, 128, 1, False))
+# (name, N tokens, M rows, d, timed) of the grouped dispatch's gather (each
+# token k times) and of the grouped combine's scatter-add (f32 rows back
+# onto N tokens, k addends each)
+PRESET_ROWS = (
+    ("dbrx prefill 1024 (k=4)", T_PRESET, 4 * T_PRESET, 6144, True),
+    ("dbrx prefill 512 (k=4)", T_PRESET // 2, 2 * T_PRESET, 6144, False),
+    ("dbrx decode (k=4)", 8, 32, 6144, False),
+    ("llama4 prefill 1024 (k=1)", T_PRESET, T_PRESET, 5120, True),
+    ("llama4 prefill 512 (k=1)", T_PRESET // 2, T_PRESET // 2, 5120, False))
+# (name, M, K, N, E, offsets kind, timed) of the grouped matmul, grouped by
+# weight shape (one draw of each): dbrx's up/gate (d=6144 -> f=10752) and
+# out projections over 16 experts, T·4 rows; llama4's (d=5120, f=8192)
+# over 128, T rows (at decode 8 rows on 8 distinct experts)
+PRESET_GROUPED = (
+    ("dbrx up prefill 1024", 4 * T_PRESET, 6144, 10752, 16, "uniform", True),
+    ("dbrx up prefill 512", 2 * T_PRESET, 6144, 10752, 16, "uniform", False),
+    ("dbrx up decode (8 tokens x 4)", 32, 6144, 10752, 16, "uniform", True),
+    ("dbrx out prefill 1024", 4 * T_PRESET, 10752, 6144, 16, "uniform",
+     False),
+    ("dbrx out prefill 512", 2 * T_PRESET, 10752, 6144, 16, "uniform", False),
+    ("llama4 up prefill 1024", T_PRESET, 5120, 8192, 128, "uniform", True),
+    ("llama4 up prefill 512", T_PRESET // 2, 5120, 8192, 128, "uniform",
+     False),
+    ("llama4 up prefill 1024 skewed (0.8^e, expert 9 empty, tail 96)",
+     T_PRESET, 5120, 8192, 128, "skewed", False),
+    ("llama4 up decode, 8 distinct experts", 8, 5120, 8192, 128, "distinct",
+     True),
+    ("llama4 out prefill 1024", T_PRESET, 8192, 5120, 128, "uniform", False))
+# (H, KV, preset) of the flash forward at B=8, S=1024, d=128 (phase 2g
+# checks them, phase 2k times them)
+PRESET_HEADS = ((48, 8, "dbrx"), (40, 8, "llama4"), (32, 4, "yi"),
+                (24, 2, "starcoder2"))
+
+
+def phase_preset_kernels(torch, dev, smi, errs):
+    """Phases 2j-2k: the gate, the gather, the scatter-add and the grouped
+    matmul at every shape of ``PRESET_GATES``, ``PRESET_ROWS`` and
+    ``PRESET_GROUPED``, against their plain versions with the tolerances
+    of 2a-2c and 2f; the cases marked ``timed`` (and the flash forward at
+    ``PRESET_HEADS``) then timed on the same inputs.  The expert weights
+    (up to 10.7 GB at E=128) are drawn on the card, in bf16, the serving
+    dtype.  Returns the timing rows."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import grouped_ffn as G
+    from repro_torch.kernels import layout_transform as L
+    from repro_torch.kernels import topk_gate as K
+    g = torch.Generator(device="cpu").manual_seed(818)
+    gd = torch.Generator(device=dev).manual_seed(818)
+    rows = TimingRows(torch, smi)
+    print("phase 2j: topk_gate, gather_rows and scatter_add_rows at the "
+          "presets' shapes (tolerances of 2a, 2b and 2f: the scatter-add "
+          "bitwise its plain version and its own rerun); the rows marked "
+          "timed then timed as in phase 5")
+    for name, S, E, k, timed in PRESET_GATES:
+        x = torch.randn(S, E, generator=g).to(dev)
+        check_gate(torch, K, f"{name} S={S} E={E} k={k}", x, k, errs)
+        if timed:
+            rows.add("topk_gate", "src/repro_torch/csrc/topk_gate.cu",
+                     "src/repro/kernels/topk_gate.py:24",
+                     lambda x=x, k=k: K.fused_topk_gate(x, k),
+                     lambda x=x, k=k: K.topk_gate_plain(x, k),
+                     lambda x=x, k=k: torch.topk(x, k, dim=-1),
+                     S * E * 4 + S * k * 8 + S * 8, (3 + k) * S * E,
+                     F32_FLOPS, f"{name} S={S} E={E} k={k}")
+    ties = torch.randint(0, 3, (4096, 128), generator=g).float()
+    check_gate(torch, K, "exact ties S=4096 E=128 k=4", ties.to(dev), 4, errs)
+    for name, N, M, d, timed in PRESET_ROWS:
+        src = torch.randn((N, d), generator=gd, device=dev).to(torch.bfloat16)
+        # token of each expert-sorted row: every token M // N times
+        idx = (torch.randperm(M, generator=g) % N).to(torch.int32).to(dev)
+        out = L.gather_rows(src, idx)
+        ref = L.gather_rows_plain(src, idx)
+        contrib = torch.randn((M, d), generator=gd, device=dev)
+        acc = L.scatter_add_rows(contrib, idx, N)
+        again = L.scatter_add_rows(contrib, idx, N)
+        plain = L.scatter_add_rows_plain(contrib, idx, N)
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref)
+        s_same = torch.equal(acc, plain) and torch.equal(acc, again)
+        err = (out.float() - ref.float()).abs().max().item()
+        s_err = (acc - plain).abs().max().item()
+        errs["gather_rows"] = max(errs["gather_rows"], err)
+        errs["scatter_add_rows"] = max(errs["scatter_add_rows"], s_err)
+        print(f"  gather {name}: M={M} rows of d={d} bf16 from N={N}: "
+              f"bitwise equal={same}, max abs err {err:.3e}")
+        print(f"  scatter-add {name}: M={M} f32 rows of d={d} onto N={N}: "
+              f"bitwise equal to the plain version and to a rerun="
+              f"{s_same}, max abs err {s_err:.3e}")
+        check(same, f"gather_rows {name} disagrees with its plain version")
+        check(s_same, f"scatter_add_rows {name} disagrees with its plain "
+                      f"version or its rerun")
+        del out, ref, acc, again, plain
+        if timed:
+            rows.add("gather_rows", "src/repro_torch/csrc/layout_transform.cu",
+                     "src/repro/kernels/layout_transform.py:42",
+                     lambda src=src, idx=idx: L.gather_rows(src, idx),
+                     lambda src=src, idx=idx: L.gather_rows_plain(src, idx),
+                     lambda src=src, idx=idx: torch.index_select(src, 0, idx),
+                     N * d * 2 + M * 4 + M * d * 2, 0, BF16_FLOPS,
+                     f"{name} M={M} from N={N} d={d} bf16")
+            zeros = torch.zeros((N, d), device=dev)
+            rows.add("scatter_add_rows",
+                     "src/repro_torch/csrc/layout_transform.cu",
+                     "src/repro/kernels/layout_transform.py:104",
+                     lambda c=contrib, idx=idx: L.scatter_add_rows(c, idx, N),
+                     lambda c=contrib, idx=idx: L.scatter_add_rows_plain(
+                         c, idx, N),
+                     lambda c=contrib, idx=idx: torch.index_add(
+                         zeros, 0, idx, c),
+                     M * d * 4 + M * 4 + N * d * 4, M * d, F32_FLOPS,
+                     f"grouped combine {name} M={M} f32 rows onto N={N} "
+                     f"d={d}")
+            del zeros
+        del src, idx, contrib
+    print("phase 2k: grouped_matmul at the presets' expert widths, bf16 "
+          "(tolerance of 2c: within 1 ulp of the f32-accumulated plain "
+          "result rounded once, plus the f32 summation-order bound)")
+    gmm = hasattr(torch, "_grouped_mm")
+    rhs, key = None, None
+    for name, M, Kd, N, E, kind, timed in PRESET_GROUPED:
+        if key != (E, Kd, N):
+            rhs = None
+            torch.cuda.empty_cache()
+            rhs = torch.randn((E, Kd, N), generator=gd, device=dev,
+                              dtype=torch.bfloat16).mul_(Kd ** -0.5)
+            key = (E, Kd, N)
+        offs = {"uniform": lambda: uniform_offsets(torch, g, M, E),
+                "skewed": lambda: skewed_offsets(torch, M, E, 96, 9),
+                "distinct": lambda: distinct_offsets(torch, g, M, E)}[kind]()
+        o = offs.to(dev)
+        lhs = torch.randn((M, Kd), generator=gd, device=dev).to(
+            torch.bfloat16)
+        shape = f"{name} M={M} K={Kd} N={N} E={E}"
+        check_grouped_bf16(torch, G, shape, lhs, rhs, o, errs)
+        if timed:
+            active = int((offs[1:] > offs[:-1]).sum())
+            rows.add("grouped_matmul", "src/repro_torch/csrc/grouped_ffn.cu",
+                     "src/repro/kernels/grouped_ffn.py:60",
+                     lambda lhs=lhs, o=o: G.grouped_matmul(lhs, rhs, o),
+                     lambda lhs=lhs, o=o: G.grouped_matmul_plain(lhs, rhs, o),
+                     (lambda lhs=lhs, o=o: torch._grouped_mm(
+                         lhs, rhs, offs=o[1:])) if gmm else None,
+                     M * Kd * 2 + active * Kd * N * 2 + (E + 1) * 4
+                     + M * N * 2, 2 * M * Kd * N, BF16_FLOPS,
+                     f"{shape} ({active} experts active)", slow=M >= T_PRESET)
+        del lhs
+    del rhs
+    torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, S, d = 8, 1024, 128
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    st = (d ** -0.5, True, None, None)
+    pairs = S * (S + 1) // 2
+    for H, KV, who in PRESET_HEADS:
+        q = torch.randn((B, H, S, d), generator=gd, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((B, KV, S, d), generator=gd, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        nbytes = 2 * B * H * S * d * 2 + 2 * B * KV * S * d * 2 + \
+            B * H * S * 4 + 2 * S * 4
+        rows.add("flash_fwd", "src/repro_torch/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:49",
+                 lambda q=q, k=k, v=v: F.flash_fwd(q, k, v, pos, pos, *st),
+                 lambda q=q, k=k, v=v: F.flash_fwd_plain(q, k, v, pos, pos,
+                                                         *st),
+                 lambda q=q, k=k, v=v: sdpa(q, k, v, is_causal=True,
+                                            enable_gqa=True),
+                 nbytes, 2 * 2 * B * H * pairs * d, BF16_FLOPS,
+                 f"{who} B={B} H:KV={H}:{KV} S={S} d={d} bf16 causal "
+                 f"(checked in 2g)", slow=True)
+        del q, k, v
+    return rows
+
+
 # (name, B, H, KV, Sq, Sk, d, causal, window, cap, share of k_pos set to -1,
 #  first q position, leading k slots set to -1)
 FLASH_CASES = [
@@ -536,7 +830,10 @@ FLASH_CASES = [
      4, 512, 1024, 128, True, None, None, 0.0, 512, 0),
     ("first 100 key slots invalid (B=2 H=KV=4 S=1024 d=128)", 2, 4, 4, 1024,
      1024, 128, True, None, None, 0.0, 0, 100),
-]
+] + [
+    # the presets' head ratios at phase 12's prefill shape: G = 6, 5, 8, 12
+    (f"{who} GQA {H}:{KV} (B=8 S=1024 d=128 causal)", 8, H, KV, 1024, 1024,
+     128, True, None, None, 0.0, 0, 0) for H, KV, who in PRESET_HEADS]
 
 
 def flash_order_bounds(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st):
@@ -712,7 +1009,9 @@ COUNTERS = (("topk_gate", "topk_gate", "launches"),
             ("flash_fwd", "flash_attention", "fwd_launches"),
             ("flash_dq", "flash_attention", "dq_launches"),
             ("flash_dkv", "flash_attention", "dkv_launches"))
-SERVE_KERNELS = ("topk_gate", "gather_rows", "grouped_matmul", "flash_fwd")
+# the kernels a forward launches (the grouped combine is the scatter-add)
+SERVE_KERNELS = ("topk_gate", "gather_rows", "grouped_matmul",
+                 "scatter_add_rows", "flash_fwd")
 
 
 def _kernel_module(name):
@@ -754,6 +1053,8 @@ def phase_serve(torch, smi):
                   "gather_rows": (1 if mode == "grouped" else 2) * L * forwards,
                   "grouped_matmul": (2 * L * forwards if mode == "grouped"
                                      else 0),
+                  "scatter_add_rows": (L * forwards if mode == "grouped"
+                                       else 0),
                   "flash_fwd": L if prompt_len > Q_CHUNK else 0}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -818,6 +1119,7 @@ def phase_card_vs_cpu(torch):
         # through the flash forward past q_chunk
         want = {"topk_gate": 2, "gather_rows": 2 if mode == "grouped" else 4,
                 "grouped_matmul": 4 if mode == "grouped" else 0,
+                "scatter_add_rows": 2 if mode == "grouped" else 0,
                 "flash_fwd": 2 if S > Q_CHUNK else 0}
         check(read_counts() == want,
               f"{mode}: card forward launches {read_counts()} != {want}")
@@ -841,44 +1143,8 @@ def phase_timings(torch, dev, smi):
     from repro_torch.kernels import topk_gate as K
     g = torch.Generator(device="cpu").manual_seed(99)
     T, E, d = SERVE["batch"] * SERVE["prompt_len"], 16, 2048
-    rows = []
-
-    def bound(nbytes, flops, peak):
-        tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
-        return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
-
-    def row(name, source, replaces, kernel, plain, library, nbytes, flops,
-            peak, shape, slow=False, library_graph=None, **extra):
-        # a call of several ms: fewer batches of fewer calls
-        kw = dict(batches=10, per_batch=3, warmup=2) if slow else {}
-        gkw = dict(reps=10, per_graph=3) if slow else {}
-        ms = time_ms(torch, kernel, **kw)
-        dev_ms = graph_ms(torch, kernel, **gkw)
-        plain_ms = time_ms(torch, plain, **kw)
-        lib_ms = lib_dev_ms = None
-        if library is not None:
-            try:
-                lib_ms = time_ms(torch, library, **kw)
-            except RuntimeError as e:
-                print(f"    library call does not run on this build: "
-                      f"{str(e).splitlines()[0]}")
-            else:
-                # (callable, capture stream) for the device-only time
-                fn, stream = library_graph or (library, None)
-                lib_dev_ms = graph_ms(torch, fn, stream=stream, **gkw)
-        bound_ms, by = bound(nbytes, flops, peak)
-
-        def fmt(x):
-            return "not measured" if x is None else f"{x:.4f}"
-        print(f"  [{smi}] {name} {shape}: kernel_ms {ms:.4f} (device-only "
-              f"{fmt(dev_ms)}), plain_ms {plain_ms:.4f}, library_ms "
-              f"{fmt(lib_ms)} (device-only {fmt(lib_dev_ms)}), bound_us "
-              f"{1e3 * bound_ms:.2f} ({by}) {extra or ''}")
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
-                         device_ms=dev_ms, library_device_ms=lib_dev_ms,
-                         shape=shape, **extra))
+    rows = TimingRows(torch, smi)
+    row = rows.add
 
     print("phase 5: timings (CUDA events; median of 25 batches of 10 calls "
           "after warm-up; device-only: CUDA-graph replays, for the kernel "
@@ -937,10 +1203,8 @@ def phase_timings(torch, dev, smi):
           f"{L.rowstep_launches} launches of the rowstep kernel")
     # grouped matmul: routed segments of a uniform random assignment
     for M in (T, SERVE["batch"]):
-        assign = torch.randint(0, E, (M,), generator=g)
-        counts = torch.bincount(assign, minlength=E)
-        offs = torch.zeros(E + 1, dtype=torch.int32)
-        offs[1:] = torch.cumsum(counts, 0)
+        offs = uniform_offsets(torch, g, M, E)
+        counts = offs[1:] - offs[:-1]
         lhs = torch.randn(M, d, generator=g).to(torch.bfloat16).to(dev)
         rhs = (torch.randn(E, d, d, generator=g) * d ** -0.5).to(
             torch.bfloat16).to(dev)
@@ -963,10 +1227,8 @@ def phase_timings(torch, dev, smi):
     # segments of a multiple of 8 rows: torch._grouped_mm's grouped-K form
     # (the drhs yardstick) needs each group's rows to span 16 bytes
     M = T
-    assign = torch.randint(0, E, (M // 8,), generator=g)
-    counts = torch.bincount(assign, minlength=E) * 8
-    offs = torch.zeros(E + 1, dtype=torch.int32)
-    offs[1:] = torch.cumsum(counts, 0)
+    offs = uniform_offsets(torch, g, M, E, unit=8)
+    counts = offs[1:] - offs[:-1]
     o = offs.to(dev)
     active = int((counts > 0).sum())
     gd = torch.randn(M, d, generator=g).to(torch.bfloat16).to(dev)
@@ -1165,85 +1427,101 @@ def host_waits(torch, fn) -> list:
             if "called a synchronizing CUDA operation" in str(w.message)]
 
 
-def phase_profile(torch, smi):
-    """One profiled prefill and 8 profiled decode steps per serving cell
-    (``SERVE_CELLS``): wall time (host clock to a synchronise), the device
-    time of all kernels, the device's idle share, the top kernels and the
-    host's waits for the device (none may remain in a forward)."""
+def profile_serving(torch, smi, model, cfg, mode, S, B, *, seed=3,
+                    decode_steps=8, name=""):
+    """One profiled prefill of B prompts of S tokens and ``decode_steps``
+    profiled decode steps on ``model`` under dispatch ``mode`` (None for a
+    dense model): wall time (host clock to a synchronise), the device time
+    of all kernels, the device's idle share, the top kernels, the launches
+    and the host's waits for the device (none may remain in a forward).
+    ``name`` prefixes the cell's label.  Returns {label: numbers}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import resolve_decode_config, serve_config
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    prompt = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(seed)
+                           ).cuda()
+    c = serve_config(cfg, dispatch=mode)
+    dc = resolve_decode_config(c, B)
+    cell = f"{name}{mode or 'dense'} prompt {S}"
+    with torch.inference_mode():
+        caches = model.init_caches(B, S + 16)
+        model.forward(prompt, caches=model.init_caches(B, S + 16), cfg=c)
+        waits = {"prefill": host_waits(torch, lambda: model.forward(
+            prompt, caches=model.init_caches(B, S + 16), cfg=c))}
+        torch.cuda.synchronize()
+        with profile(activities=acts) as pp:
+            t0 = time.perf_counter()
+            h, _, caches = model.forward(prompt, caches=caches, cfg=c)
+            tok = model.logits_from_hidden(h[:, -1:])[:, -1].argmax(
+                -1, keepdim=True)
+            torch.cuda.synchronize()
+            prefill_wall = 1e3 * (time.perf_counter() - t0)
+        model.decode_step(tok, caches, cfg=dc)          # warm decode
+        waits["decode step"] = host_waits(
+            torch, lambda: model.decode_step(tok, caches, cfg=dc))
+        torch.cuda.synchronize()
+        with profile(activities=acts) as pd:
+            t0 = time.perf_counter()
+            for _ in range(decode_steps):
+                lg, caches = model.decode_step(tok, caches, cfg=dc)
+                tok = lg[:, -1].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            decode_wall = 1e3 * (time.perf_counter() - t0) / decode_steps
+    out = {}
+    for label, prof, wall in (("prefill", pp, prefill_wall),
+                              ("decode step", pd, decode_wall)):
+        n = 1 if label == "prefill" else decode_steps
+        dev_ms = _device_ms(prof, DeviceType) / n
+        print(f"  [{smi}] {cell} {label}: wall {wall:.3f} ms, device "
+              f"{dev_ms:.3f} ms, idle {1 - dev_ms / wall:.3f}")
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        for e in kernels[:6]:
+            print(f"      {e.self_device_time_total / 1e3 / n:8.3f} ms "
+                  f"x{e.count // n:<3d} {e.key[:90]}")
+        host = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)
+        calls = sum(e.count for e in host) // n
+        launches = sum(e.count for e in host
+                       if e.key == "cudaLaunchKernel") / n
+        syncs = {e.key: e.count / n for e in host if "Synchronize" in e.key}
+        print(f"      host: {calls} profiled calls, {launches:g} "
+              f"cudaLaunchKernel per {label}; synchronise calls {syncs} "
+              f"(the profiled region ends in one cudaDeviceSynchronize); "
+              f"waits found by the sync debug mode in one more {label}: "
+              f"{len(waits[label])} {sorted(set(waits[label]))}")
+        check(not waits[label],
+              f"{cell} {label}: the host waits for the device "
+              f"{len(waits[label])} times")
+        print("      top by self CPU time:")
+        for e in host[:6]:
+            print(f"      {e.self_cpu_time_total / 1e3 / n:8.3f} ms "
+                  f"x{e.count // n:<3d} {e.key[:90]}")
+        out[f"{cell} {label}"] = dict(
+            wall_ms=wall, device_ms=dev_ms, idle=1 - dev_ms / wall,
+            launches=launches, host_waits=len(waits[label]),
+            top_kernels=[(e.key[:90], e.self_device_time_total / 1e3 / n)
+                         for e in kernels[:6]])
+    return out
+
+
+def phase_profile(torch, smi):
+    """One profiled prefill and 8 profiled decode steps per serving cell
+    (``SERVE_CELLS``, :func:`profile_serving`)."""
     from repro_torch import configs
     from repro_torch.models.transformer import Transformer
-    from repro_torch.serving.engine import resolve_decode_config, serve_config
     cfg = configs.get_config(ARCH)
-    B = SERVE["batch"]
     model = Transformer(cfg, device="cuda", seed=0)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     print("phase 6: profile (torch.profiler; device ms = sum of kernel "
           "times, idle = 1 - device/wall)")
     out = {}
     for mode, S in SERVE_CELLS:
-        prompt = torch.randint(0, cfg.vocab_size, (B, S),
-                               generator=torch.Generator().manual_seed(3)
-                               ).cuda()
-        c = serve_config(cfg, dispatch=mode)
-        dc = resolve_decode_config(c, B)
-        with torch.inference_mode():
-            caches = model.init_caches(B, S + 16)
-            model.forward(prompt, caches=model.init_caches(B, S + 16), cfg=c)
-            waits = {"prefill": host_waits(torch, lambda: model.forward(
-                prompt, caches=model.init_caches(B, S + 16), cfg=c))}
-            torch.cuda.synchronize()
-            with profile(activities=acts) as pp:
-                t0 = time.perf_counter()
-                h, _, caches = model.forward(prompt, caches=caches, cfg=c)
-                tok = model.logits_from_hidden(h[:, -1:])[:, -1].argmax(
-                    -1, keepdim=True)
-                torch.cuda.synchronize()
-                prefill_wall = 1e3 * (time.perf_counter() - t0)
-            model.decode_step(tok, caches, cfg=dc)          # warm decode
-            waits["decode step"] = host_waits(
-                torch, lambda: model.decode_step(tok, caches, cfg=dc))
-            torch.cuda.synchronize()
-            with profile(activities=acts) as pd:
-                t0 = time.perf_counter()
-                for _ in range(8):
-                    lg, caches = model.decode_step(tok, caches, cfg=dc)
-                    tok = lg[:, -1].argmax(-1, keepdim=True)
-                torch.cuda.synchronize()
-                decode_wall = 1e3 * (time.perf_counter() - t0) / 8
-        for label, prof, wall in (("prefill", pp, prefill_wall),
-                                  ("decode step", pd, decode_wall)):
-            n = 1 if label == "prefill" else 8
-            dev_ms = _device_ms(prof, DeviceType) / n
-            print(f"  [{smi}] {mode} prompt {S} {label}: wall {wall:.3f} ms, device "
-                  f"{dev_ms:.3f} ms, idle {1 - dev_ms / wall:.3f}")
-            kernels = sorted((e for e in prof.key_averages()
-                              if e.device_type == DeviceType.CUDA),
-                             key=lambda e: -e.self_device_time_total)
-            for e in kernels[:6]:
-                print(f"      {e.self_device_time_total / 1e3 / n:8.3f} ms "
-                      f"x{e.count // n:<3d} {e.key[:90]}")
-            host = sorted((e for e in prof.key_averages()
-                           if e.device_type == DeviceType.CPU),
-                          key=lambda e: -e.self_cpu_time_total)
-            calls = sum(e.count for e in host) // n
-            syncs = {e.key: e.count / n for e in host
-                     if "Synchronize" in e.key}
-            print(f"      host: {calls} profiled calls per {label}; "
-                  f"synchronise calls {syncs} (the profiled region ends in "
-                  f"one cudaDeviceSynchronize); waits found by the sync "
-                  f"debug mode in one more {label}: {len(waits[label])} "
-                  f"{sorted(set(waits[label]))}")
-            check(not waits[label],
-                  f"{mode} prompt {S} {label}: the host waits for the device "
-                  f"{len(waits[label])} times")
-            print("      top by self CPU time:")
-            for e in host[:6]:
-                print(f"      {e.self_cpu_time_total / 1e3 / n:8.3f} ms "
-                      f"x{e.count // n:<3d} {e.key[:90]}")
-            out[f"{mode} prompt {S} {label}"] = dict(wall_ms=wall, device_ms=dev_ms,
-                                          host_waits=len(waits[label]))
+        out.update(profile_serving(torch, smi, model, cfg, mode, S,
+                                   SERVE["batch"]))
     return out
 
 
@@ -1330,22 +1608,33 @@ def phase_profile_train(torch, smi):
 TRAIN = dict(batch=8, warmup=2, timed=8)
 # (dispatch, sequence length) of the training cells
 TRAIN_CELLS = (("grouped", 512), ("sort", 512), ("grouped", 1024))
-# launches per train step (2 layers, relu, k=1), forward + backward
-TRAIN_PER_STEP = {
-    "grouped": {"topk_gate": 2, "gather_rows": 2, "grouped_matmul": 4,
-                "grouped_matmul_t": 4, "grouped_drhs": 4,
-                "scatter_add_rows": 2},
-    "sort": {"topk_gate": 2, "gather_rows": 4, "grouped_matmul": 0,
-             "grouped_matmul_t": 0, "grouped_drhs": 0,
-             "scatter_add_rows": 4}}
+# launches per MoE layer (relu, any k) in a forward and in a backward:
+# the grouped dispatch is a gather (its VJP the scatter-add), the grouped
+# combine a scatter-add (its VJP the gather)
+LAYER_FORWARD = {
+    "grouped": {"topk_gate": 1, "gather_rows": 1, "grouped_matmul": 2,
+                "scatter_add_rows": 1},
+    "sort": {"topk_gate": 1, "gather_rows": 2}}
+LAYER_BACKWARD = {
+    "grouped": {"gather_rows": 1, "grouped_matmul_t": 2, "grouped_drhs": 2,
+                "scatter_add_rows": 1},
+    "sort": {"scatter_add_rows": 2}}
+TRAIN_KERNELS = ("topk_gate", "gather_rows", "grouped_matmul",
+                 "grouped_matmul_t", "grouped_drhs", "scatter_add_rows")
 
 
-def train_per_step(mode: str, seq: int) -> dict:
-    """Launches per train step of each kernel; the flash kernels run once
-    per layer in the forward and once each in the backward past q_chunk."""
-    flash = 2 if seq > Q_CHUNK else 0
-    return TRAIN_PER_STEP[mode] | {"flash_fwd": flash, "flash_dq": flash,
-                                   "flash_dkv": flash}
+def train_per_step(mode: str, seq: int, forwards: int = 1,
+                   layers: int = 2) -> dict:
+    """Launches per train step of each kernel: each layer's forward
+    ``forwards`` times (2 when remat recomputes it in the backward), its
+    backward once; past q_chunk the flash forward once per layer and
+    forward, dq and dk/dv once per layer."""
+    flash = layers if seq > Q_CHUNK else 0
+    per = {k: layers * (forwards * LAYER_FORWARD[mode].get(k, 0)
+                        + LAYER_BACKWARD[mode].get(k, 0))
+           for k in TRAIN_KERNELS}
+    return per | {"flash_fwd": forwards * flash, "flash_dq": flash,
+                  "flash_dkv": flash}
 
 
 def phase_train(torch, smi):
@@ -1571,19 +1860,13 @@ def phase_train_card_vs_cpu(torch):
 # ---------------------------------------------------------------------------
 
 REMAT = dict(batch=8, seq=1024, warmup=2, timed=4)
-# the kernels a layer's forward launches: they run twice a step under remat
-FORWARD_KERNELS = ("topk_gate", "gather_rows", "grouped_matmul", "flash_fwd")
 
 
 def remat_per_step(remat: str, mode: str, seq: int) -> dict:
     """Launches per train step under ``remat``: "block" and "full"
     recompute each layer in the backward, so its forward kernels run
     twice; the backward kernels once."""
-    per = train_per_step(mode, seq)
-    if remat != "none":
-        per = {k: (2 * v if k in FORWARD_KERNELS else v)
-               for k, v in per.items()}
-    return per
+    return train_per_step(mode, seq, forwards=1 if remat == "none" else 2)
 
 
 def step_peaks(torch, state, remat: str, seq: int, step_index: int):
@@ -1952,8 +2235,7 @@ def phase_gates_card_vs_cpu(torch, smi, cells):
     x = torch.randn(T, d, generator=g)
     r = torch.randn(T, d, generator=g)
     ids = torch.randint(0, cfg.vocab_size, (T,), generator=g)
-    want = {"topk_gate": 0, "gather_rows": 1, "grouped_matmul": 2,
-            "grouped_matmul_t": 2, "grouped_drhs": 2, "scatter_add_rows": 1}
+    want = train_per_step("grouped", T, layers=1) | {"topk_gate": 0}
     layer_cells = [(label, fields) for label, fields, mode in cells
                    if mode == "grouped"] + [("hash", dict(gate="hash"))]
     grouped_matmul, grouped_ffn = G.grouped_matmul, G.grouped_ffn
@@ -2093,17 +2375,310 @@ def phase_gates(torch, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the presets at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers served — None for the published depth — and why the cut)
+PRESETS = (
+    ("dbrx-132b", 2, "one layer with the embeddings is 4.49B parameters: "
+     "the published 40 do not fit one card"),
+    ("llama4-maverick-400b-a17b", 2, "one ('dense', 'moe') period is 18.55B "
+     "parameters: the published 24 periods do not fit one card"),
+    ("yi-6b", None, None),
+    ("starcoder2-3b", None, None))
+PRESET_SERVE = dict(batch=8, gen=32, prompts=(512, 1024))
+
+
+def preset_expect(cfg, mode, prompt_len: int, forwards: int) -> dict:
+    """Launches of kernels 1, 2, 3 and 7 in ``forwards`` forwards (1
+    prefill + decode steps) of ``cfg`` under dispatch ``mode``: per MoE
+    layer per forward the gate once (all k in one launch), the gather once
+    (grouped) or twice (sort), the grouped matmul once per expert
+    product (3 with a gated MLP) and the scatter-add once (the combine),
+    grouped only; the flash forward once per layer in a prefill past
+    q_chunk; a dense layer none of 1-3 and 6."""
+    n_moe = cfg.block_pattern.count("moe") * cfg.num_super_blocks
+    flash = cfg.num_layers if prompt_len > Q_CHUNK else 0
+    if cfg.moe is None:
+        return {"topk_gate": 0, "gather_rows": 0, "grouped_matmul": 0,
+                "scatter_add_rows": 0, "flash_fwd": flash}
+    mats = 3 if cfg.act in ("swiglu", "geglu") else 2
+    grouped = mode == "grouped"
+    return {"topk_gate": n_moe * forwards,
+            "gather_rows": (1 if grouped else 2) * n_moe * forwards,
+            "grouped_matmul": mats * n_moe * forwards if grouped else 0,
+            "scatter_add_rows": n_moe * forwards if grouped else 0,
+            "flash_fwd": flash}
+
+
+def mem_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def release(torch):
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_presets(torch, smi):
+    """Phase 12: each preset of ``PRESETS`` at its published widths (bf16,
+    weights drawn from seed 0 straight into bf16, leaf by leaf) through
+    ``Transformer`` → ``serving.engine.generate``, batch 8, 32 new tokens,
+    prompts of 512 and 1024, each MoE preset in both dispatch modes, two
+    runs per cell: launches as ``preset_expect`` says in each run, greedy
+    tokens equal over the two runs, every sampled logits row finite; the
+    second run's times.  Then one profiled prompt-1024 prefill and 8
+    decode steps per preset (grouped for the MoE ones:
+    ``profile_serving``, 0 host waits), and the blocks card against CPU in
+    f32 (``phase_presets_card_vs_cpu``).  Each model is released before
+    the next is built."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import engine
+    B, gen = PRESET_SERVE["batch"], PRESET_SERVE["gen"]
+    print(f"phase 12: the presets at full width, bf16, batch {B}, {gen} new "
+          f"tokens, prompts {PRESET_SERVE['prompts']}, 2 runs per cell "
+          f"(times from the second)")
+    out, totals = {}, dict.fromkeys(SERVE_KERNELS, 0)
+    for arch, layers, why in PRESETS:
+        cfg = configs.get_config(arch)
+        reduced = []
+        if layers is not None:
+            reduced.append(f"num_layers {cfg.num_layers} -> {layers} ({why})")
+            cfg = cfg.replace(num_layers=layers)
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Transformer(cfg, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in model.parameters())
+        weights = torch.cuda.memory_allocated() / 2 ** 30
+        print(f"  [{smi}] {arch}: {cfg.num_layers} layers "
+              f"{cfg.block_pattern}, {n_params / 1e9:.3f}B parameters, "
+              f"weights {weights:.3f} GiB, init {init_s:.1f} s with peak "
+              f"{init_peak:.3f} GiB; reduced {reduced}")
+        modes = ("grouped", "sort") if cfg.moe is not None else (None,)
+        gcpu = torch.Generator().manual_seed(12)
+        prompts = {S: torch.randint(0, cfg.vocab_size, (B, S), generator=gcpu)
+                   for S in PRESET_SERVE["prompts"]}
+        engine.generate(model, prompts[PRESET_SERVE["prompts"][0]], steps=2,
+                        dispatch=modes[0])                       # warm-up
+        cells = {}
+        for mode in modes:
+            for S, prompt in prompts.items():
+                cell = f"{arch} {mode or 'dense'} prompt {S}"
+                want = preset_expect(cfg, mode, S, gen)
+                release(torch)
+                torch.cuda.reset_peak_memory_stats()
+                runs = []
+                for _ in range(2):
+                    st = {}
+                    reset_counts()
+                    toks = engine.generate(model, prompt, steps=gen,
+                                           dispatch=mode, stats=st)
+                    counts = read_counts()
+                    runs.append((toks.cpu(), st, counts))
+                    check(counts == want,
+                          f"{cell}: launches {counts} != expected {want}")
+                    check(st["logits_finite"], f"{cell}: non-finite logits")
+                    for k in totals:
+                        totals[k] += counts[k]
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                toks, st, counts = runs[1]
+                check(tuple(toks.shape) == (B, S + gen),
+                      f"{cell}: output shape {tuple(toks.shape)}")
+                new = toks[:, S:]
+                check(bool(((new >= 0) & (new < cfg.vocab_size)).all()),
+                      f"{cell}: generated ids out of range")
+                same = torch.equal(runs[0][0], toks)
+                check(same, f"{cell}: greedy tokens differ between two runs")
+                decode_ms = 1e3 * st["decode_s"] / st["decode_steps"]
+                tok_s = B * gen / (st["prefill_s"] + st["decode_s"])
+                print(f"  [{smi}] {cell}: prefill "
+                      f"{1e3 * st['prefill_s']:.3f} ms (first run "
+                      f"{1e3 * runs[0][1]['prefill_s']:.3f}), decode "
+                      f"{decode_ms:.3f} ms/step, {tok_s:.1f} tokens/s, peak "
+                      f"memory {peak:.3f} GiB, greedy tokens equal over 2 "
+                      f"runs={same}, launches {counts}")
+                cells[cell] = dict(prefill_ms=1e3 * st["prefill_s"],
+                                   decode_ms_per_step=decode_ms,
+                                   tokens_per_s=tok_s, peak_gib=peak,
+                                   launches=counts)
+        profile = profile_serving(torch, smi, model, cfg, modes[0], 1024,
+                                  B, name=f"{arch} ")
+        out[arch] = dict(layers=cfg.num_layers, params=n_params,
+                         weights_gib=weights, init_s=init_s,
+                         init_peak_gib=init_peak, reduced=reduced,
+                         cells=cells, profile=profile)
+        del model
+    release(torch)
+    out["card vs cpu"] = phase_presets_card_vs_cpu(torch, smi)
+    return totals, out
+
+
+class GateTape:
+    """Stands in for ``topk_gate.fused_topk_gate``: with no tape it records
+    each call's logits (on the CPU) and chosen experts; with one it runs
+    the gate as usual (the kernel launches on the card) and hands back the
+    recorded experts instead — another run's routes, this run's
+    arithmetic.  The MoE layer reads only the experts and the row max of
+    the gate (``ops.topk_softmax_weights``)."""
+
+    def __init__(self, fn, tape=None):
+        self.fn = fn
+        self.tape = None if tape is None else list(tape)
+        self.calls = []
+
+    def __call__(self, logits, k):
+        vals, idx, rowmax, sumexp = self.fn(logits, k)
+        if self.tape is not None:
+            idx = self.tape.pop(0).to(idx.device)
+        else:
+            self.calls.append((logits.cpu(), idx.cpu()))
+        return vals, idx, rowmax, sumexp
+
+
+def gate_near_ties(cpu_calls, card_calls):
+    """Each token whose experts differ between the two runs' gates, with
+    the margin of the first pick that differs: the gap between the two
+    choices in the CPU's logits."""
+    out = []
+    for (x, a), (_, b) in zip(cpu_calls, card_calls, strict=True):
+        for r in (a != b).any(-1).nonzero().flatten().tolist():
+            j = int((a[r] != b[r]).nonzero()[0])
+            out.append((r, abs(x[r, a[r, j]] - x[r, b[r, j]]).item()))
+    return out
+
+
+def phase_presets_card_vs_cpu(torch, smi):
+    """Phase 12, card against CPU at full width in f32, 64 tokens: one
+    dbrx-132b ``moe`` block (attention + the MoE FFN, 3.26B weights,
+    13 GB on each side) in both dispatch modes, one llama4 ``dense`` block
+    and the llama4 ``moe`` block's shared expert; each output within 1e-4
+    of its max.  Where a near-tie (within ``TIE_MARGIN`` in the CPU's
+    router logits) sends a token elsewhere on the card, the card's block
+    is run again with the CPU's routes (``GateTape``) and that run is
+    held to the budget; routes that differ elsewhere fail.  Llama 4's
+    16.1B routed-expert weights (64 GB in f32) are held instead by the
+    phase-2k cases at E=128 and by the CPU parity tests at smoke size.
+    The weights are drawn on the card and copied to the CPU."""
+    from repro_torch import configs, tree
+    from repro_torch.kernels import topk_gate as K
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import block_forward, init_block
+    from repro_torch.serving.engine import serve_config
+    S = 64
+    print(f"phase 12 (card vs CPU): host MemAvailable "
+          f"{mem_available_gib():.1f} GiB; f32, {S} tokens; tolerance: "
+          f"max|card - cpu| <= 1e-4 * max|cpu|; Llama 4's routed experts "
+          f"(16.1B weights, 64 GB in f32) are held by phase 2k's E=128 "
+          f"cases and the CPU parity tests instead")
+    gd = torch.Generator(device="cuda").manual_seed(31)
+    out = {}
+
+    def compare(label, cpu, card, extra=""):
+        diff = (cpu - card).abs().max().item()
+        scale = cpu.abs().max().item()
+        rel = diff / scale
+        print(f"  [{smi}] {label}: max|card - cpu| {diff:.3e}, "
+              f"/ max|cpu| {rel:.3e} (tol 1e-4){extra}")
+        check(math.isfinite(rel) and rel <= 1e-4,
+              f"{label}: card and CPU disagree ({rel:.3e})")
+        return rel
+
+    def block_params(cfg, kind):
+        return init_block(cfg, kind, gd, device="cuda")
+
+    def run_block(p, x, cfg):
+        with torch.inference_mode():
+            pos = torch.arange(S, dtype=torch.int32, device=x.device)
+            y, _, _ = block_forward(p, x, cfg, positions=pos)
+        return y.cpu()
+
+    # dbrx: one moe block, both dispatch modes
+    cfg = configs.get_config("dbrx-132b").replace(dtype="float32")
+    t0 = time.perf_counter()
+    p_card = block_params(cfg, "moe")
+    p_cpu = tree.map_(lambda t: t.cpu(), p_card)
+    n = sum(t.numel() for t in tree.leaves(p_cpu))
+    x = torch.randn((1, S, cfg.d_model), generator=gd, device="cuda")
+    print(f"  dbrx moe block: {n / 1e9:.3f}B f32 weights on both devices in "
+          f"{time.perf_counter() - t0:.1f} s")
+    fused = K.fused_topk_gate
+    for mode in ("grouped", "sort"):
+        c = serve_config(cfg, dispatch=mode)
+        try:
+            K.fused_topk_gate = cpu_tape = GateTape(fused)
+            y_cpu = run_block(p_cpu, x.cpu(), c)
+            K.fused_topk_gate = card_tape = GateTape(fused)
+            reset_counts()
+            y_card = run_block(p_card, x, c)
+            counts = read_counts()
+            ties = gate_near_ties(cpu_tape.calls, card_tape.calls)
+            replay = None
+            if ties:
+                K.fused_topk_gate = GateTape(fused, [i for _, i in
+                                                     cpu_tape.calls])
+                replay = run_block(p_card, x, c)
+        finally:
+            K.fused_topk_gate = fused
+        want = preset_expect(cfg.replace(num_layers=1), mode, S, 1)
+        check(counts == want, f"dbrx block {mode}: launches {counts} != "
+                              f"{want}")
+        worst = max((m for _, m in ties), default=0.0)
+        check(worst <= TIE_MARGIN, f"dbrx block {mode}: routes differ "
+                                   f"beyond a near-tie {ties}")
+        rel = compare(f"dbrx-132b moe block {mode}", y_cpu,
+                      y_card if replay is None else replay,
+                      f"; routes differing {ties} (margin bound "
+                      f"{TIE_MARGIN}){' replayed' if ties else ''}; launches "
+                      f"{counts}")
+        out[f"dbrx moe block {mode}"] = dict(rel=rel, ties=ties,
+                                             launches=counts)
+    del p_card, p_cpu
+    release(torch)
+    # llama4: one dense block, and the moe block's shared expert
+    cfg = configs.get_config("llama4-maverick-400b-a17b").replace(
+        dtype="float32")
+    p_card = block_params(cfg, "dense")
+    p_cpu = tree.map_(lambda t: t.cpu(), p_card)
+    x = torch.randn((1, S, cfg.d_model), generator=gd, device="cuda")
+    out["llama4 dense block"] = dict(rel=compare(
+        "llama4 dense block (qk-norm, GQA 40:8, SwiGLU d_ff 8192)",
+        run_block(p_cpu, x.cpu(), cfg), run_block(p_card, x, cfg)))
+    f = cfg.moe.d_ff_expert * cfg.moe.num_shared_experts
+    shared = layers.init_mlp(gd, cfg.d_model, f, cfg.act, device="cuda")
+    shared_cpu = tree.map_(lambda t: t.cpu(), shared)
+    with torch.inference_mode():
+        ys = [layers.apply_mlp(sp, xx, cfg.act).cpu()
+              for sp, xx in ((shared_cpu, x.cpu()), (shared, x))]
+    out["llama4 shared expert"] = dict(rel=compare(
+        f"llama4 moe block's shared expert (SwiGLU, {f} wide)", *ys))
+    del p_card, p_cpu, shared, shared_cpu
+    release(torch)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one "
                                  "NVIDIA GPU (see the module docstring).")
-    ap.add_argument("--phases", choices=("all", "kernels", "trainer"),
+    ap.add_argument("--phases", choices=("all", "kernels", "trainer",
+                                         "presets"),
                     default="all",
                     help="'kernels': only the build, the kernel checks and "
                          "the kernel timings (phases 1, 2 and 5), for "
                          "working on a kernel; 'trainer': the build and "
-                         "phases 9-11 (remat, resume, gates); either ends "
-                         "with ok: false")
+                         "phases 9-11 (remat, resume, gates); 'presets': "
+                         "the build and phase 12; each ends with ok: false")
     phases = ap.parse_args(argv).phases
     import torch
     if not torch.cuda.is_available():
@@ -2142,7 +2717,13 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"ok": False, "partial": "phases 1, 9-11 only"}))
         return 0
+    if phases == "presets":
+        print(json.dumps({"presets": phase_presets(torch, smi)[1]}))
+        print(smi)
+        print(json.dumps({"ok": False, "partial": "phases 1 and 12 only"}))
+        return 0
     errs = phase_kernels(torch, dev)
+    preset_rows = phase_preset_kernels(torch, dev, smi, errs)
     errs.update(phase_flash_kernels(torch, dev))
     if phases == "kernels":
         phase_timings(torch, dev, smi)
@@ -2159,7 +2740,10 @@ def main(argv=None) -> int:
     print(json.dumps({"resume": resume}))
     gates = phase_gates(torch, smi)
     print(json.dumps({"gates": gates}))
-    rows = phase_timings(torch, dev, smi)
+    release(torch)
+    preset_counts, presets = phase_presets(torch, smi)
+    print(json.dumps({"presets": presets}))
+    rows = phase_timings(torch, dev, smi) + preset_rows
     profile = phase_profile(torch, smi)
     profile.update(phase_profile_train(torch, smi))
 
@@ -2176,6 +2760,8 @@ def main(argv=None) -> int:
             "bound_ms", "bound_by", "library_ms")}
             | {"launches": r.get("launches", counts.get(r["name"])),
                "max_abs_err": errs[r["name"]]})
+        if r["name"] in preset_counts:
+            kernels[-1]["launches_presets"] = preset_counts[r["name"]]
         if r["name"] == "gather_rows_rowstep":
             kernels[-1]["path"] = ("benchmark baseline (bench_layout), not "
                                    "on a serving or training path")
@@ -2183,9 +2769,13 @@ def main(argv=None) -> int:
                                                     for k in kernels),
           f"a kernel was not launched on its path: "
           f"{[(k['name'], k['launches']) for k in kernels]}")
+    check(all(preset_counts[k] for k in SERVE_KERNELS),
+          f"a kernel of the presets' path was not launched there: "
+          f"{preset_counts}")
     print(json.dumps({"serving": serving, "serving_launches": serve_counts,
                       "training": training, "train_grads_card_vs_cpu": grads,
                       "remat": remat, "resume": resume, "gates": gates,
+                      "presets": presets, "presets_launches": preset_counts,
                       "timings": rows, "profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

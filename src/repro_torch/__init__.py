@@ -32,3 +32,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(f"device={device!r} requested but CUDA is not "
                            f"available")
     return dev
+
+
+def draw(generator: torch.Generator, shape, scale: float, *, device=None,
+         dtype=torch.float32) -> torch.Tensor:
+    """An f32 normal draw of ``shape`` times ``scale`` (in place), cast to
+    ``dtype`` right away: a compute-dtype model never holds more than one
+    f32 leaf."""
+    return torch.randn(shape, generator=generator, device=device).mul_(
+        scale).to(dtype)

@@ -34,30 +34,45 @@ from repro_torch.models.transformer import _check_supported
 from repro_torch.training.train_step import TrainState
 
 
-def _expected_shapes(cfg: ModelConfig) -> Dict[Tuple, Tuple[int, ...]]:
-    """Path → shape of every leaf the JAX tree holds for ``cfg``."""
-    d, nsb = cfg.d_model, cfg.num_super_blocks
-    a, m = cfg.attention, cfg.moe
-    hd = cfg.head_dim
-    f = m.d_ff_expert or cfg.d_ff
-    E = m.num_experts
+def _block_shapes(cfg: ModelConfig, kind: str) -> Dict[Tuple, Tuple[int, ...]]:
+    """Path → shape of one block of ``kind``'s leaves (unstacked)."""
+    d, a, hd = cfg.d_model, cfg.attention, cfg.head_dim
+    gated = cfg.act in ("swiglu", "geglu")
+
+    def mlp(name, f):
+        return {(name, "w_in"): (d, 2 * f if gated else f),
+                (name, "w_out"): (f, d)}
     block = {("ln1",): (d,), ("ln2",): (d,),
              ("attn", "wq"): (d, a.num_heads * hd),
              ("attn", "wk"): (d, a.num_kv_heads * hd),
              ("attn", "wv"): (d, a.num_kv_heads * hd),
-             ("attn", "wo"): (a.num_heads * hd, d),
-             ("moe", "gate_w"): (d, E),
-             ("moe", "w_up"): (E, d, f),
-             ("moe", "w_out"): (E, f, d)}
+             ("attn", "wo"): (a.num_heads * hd, d)}
     if a.qk_norm:
         block.update({("attn", "q_norm"): (hd,), ("attn", "k_norm"): (hd,)})
-    if cfg.act in ("swiglu", "geglu"):
+    if kind != "moe":
+        block.update(mlp("mlp", cfg.d_ff))
+        return block
+    m = cfg.moe
+    f, E = m.d_ff_expert or cfg.d_ff, m.num_experts
+    block.update({("moe", "gate_w"): (d, E), ("moe", "w_up"): (E, d, f),
+                  ("moe", "w_out"): (E, f, d)})
+    if gated:
         block[("moe", "w_gate")] = (E, d, f)
+    if m.num_shared_experts:
+        block.update(mlp("shared_mlp", f * m.num_shared_experts))
+    return block
+
+
+def _expected_shapes(cfg: ModelConfig) -> Dict[Tuple, Tuple[int, ...]]:
+    """Path → shape of every leaf the JAX tree holds for ``cfg``: pattern
+    slot ``j``'s leaves under ``("blocks", j, ...)``, stacked over the
+    super-blocks ``(nsb, ...)``."""
+    d, nsb = cfg.d_model, cfg.num_super_blocks
     out = {("final_norm",): (d,), ("embed",): (cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
         out[("lm_head",)] = (d, cfg.vocab_size)
-    for j in range(len(cfg.block_pattern)):
-        for path, shape in block.items():
+    for j, kind in enumerate(cfg.block_pattern):
+        for path, shape in _block_shapes(cfg, kind).items():
             out[("blocks", j) + path] = (nsb,) + shape
     return out
 
@@ -100,7 +115,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig
     blocks = []
     for s in range(cfg.num_super_blocks):
         for j in range(period):
-            layer: Dict[str, Any] = {"attn": {}, "moe": {}}
+            layer: Dict[str, Any] = {}
             for path in want:
                 if path[:2] != ("blocks", j):
                     continue
@@ -108,7 +123,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig
                 if len(rest) == 1:
                     layer[rest[0]] = t(path, s)
                 else:
-                    layer[rest[0]][rest[1]] = t(path, s)
+                    layer.setdefault(rest[0], {})[rest[1]] = t(path, s)
             blocks.append(layer)
     out = {"blocks": blocks, "final_norm": t(("final_norm",)),
            "embed": t(("embed",))}

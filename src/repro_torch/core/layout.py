@@ -12,10 +12,10 @@ the single-device part of ``repro/core/layout.py``.
 Index tensors are int32, as in the reference and as the kernels take
 them.  Padded tokens may route to a virtual expert E (``drop_bucket``):
 they sort last and never reach a buffer, the counts or the combine.  The
-row moves go through the gather kernel's wrapper (its plain version on a
-CPU tensor), and nothing here waits on the device: the counts come from
-an ``index_add_`` into a fixed-size vector, not from ``bincount``, whose
-output size is read back to the host.
+row moves go through the gather and scatter-add kernels' wrappers (their
+plain versions on a CPU tensor), and nothing here waits on the device:
+the counts come from an ``index_add_`` into a fixed-size vector, not from
+``bincount``, whose output size is read back to the host.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.gating import GateOutput
-from repro_torch.kernels import ops
+from repro_torch.kernels import layout_transform, ops
 
 # out[i] = src[idx[i]], zeros where idx < 0 — the gather kernel's wrapper
 take_rows = ops.gather_rows
@@ -138,11 +138,11 @@ def dispatch_grouped(tokens: torch.Tensor, plan: GroupedPlan) -> torch.Tensor:
 
 def combine_grouped(expert_out: torch.Tensor, plan: GroupedPlan,
                     num_tokens: int) -> torch.Tensor:
-    """(S·K, d) expert-sorted FFN output → (S, d) weighted combine.  The
-    scatter-add runs in f32 (one rounding at the end, not one per
-    addend)."""
-    w = plan.weight.float()
-    out = torch.zeros((num_tokens, expert_out.shape[-1]), dtype=torch.float32,
-                      device=expert_out.device)
-    out.index_add_(0, plan.token.long(), expert_out.float() * w[:, None])
-    return out.to(expert_out.dtype)
+    """(S·K, d) expert-sorted FFN output → (S, d) weighted combine: the
+    scatter-add kernel's ordered sum, in f32 over each token's K rows in
+    ascending buffer order (the order of the reference's scatter-add), one
+    rounding at the end — the same bits on every run (not ``index_add_``,
+    whose CUDA atomics add a token's rows in whatever order they land)."""
+    contrib = expert_out.float() * plan.weight.float()[:, None]
+    return layout_transform.scatter_add_rows(contrib, plan.token,
+                                             num_tokens).to(expert_out.dtype)

@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import draw
 from repro_torch.core import balance, capacity, gating, layout, tuning
 from repro_torch.core.config import MoEConfig
 from repro_torch.kernels import grouped_ffn as gffn
@@ -28,19 +29,19 @@ def init_moe_params(generator: torch.Generator, cfg: MoEConfig, d_model: int,
                     d_ff: int, num_experts: int, *, act: str = "swiglu",
                     dtype=torch.float32, device=None
                     ) -> Dict[str, torch.Tensor]:
-    """Router (f32) + expert weights, drawn from ``generator``."""
+    """Router (f32) + expert weights in ``dtype``, drawn from
+    ``generator`` (each cast right after its draw)."""
     d_ff = cfg.d_ff_expert or d_ff
 
-    def randn(*shape):
-        return torch.randn(shape, generator=generator, dtype=torch.float32,
-                           device=device)
+    def randn(scale, *shape, dtype=dtype):
+        return draw(generator, shape, scale, device=device, dtype=dtype)
 
     scale_in, scale_out = d_model ** -0.5, d_ff ** -0.5
-    p = {"gate_w": randn(d_model, num_experts) * scale_in,
-         "w_up": (randn(num_experts, d_model, d_ff) * scale_in).to(dtype),
-         "w_out": (randn(num_experts, d_ff, d_model) * scale_out).to(dtype)}
+    p = {"gate_w": randn(scale_in, d_model, num_experts, dtype=torch.float32),
+         "w_up": randn(scale_in, num_experts, d_model, d_ff),
+         "w_out": randn(scale_out, num_experts, d_ff, d_model)}
     if act in ("swiglu", "geglu"):
-        p["w_gate"] = (randn(num_experts, d_model, d_ff) * scale_in).to(dtype)
+        p["w_gate"] = randn(scale_in, num_experts, d_model, d_ff)
     return p
 
 

@@ -17,8 +17,9 @@ rows in ascending order in f32 and rounds once to the gradient's dtype —
 no (n, d) scratch, no atomics on the data, the same bits on every run and
 the plain version's for any number of addends per row.  The same gather
 runs the grouped dispatch, the sort dispatch (inverse row map) and the
-sort combine (slot map); ``gather_rows`` is differentiable, with the
-scatter-add as its backward, as the reference's ``custom_vjp`` is.
+sort combine (slot map); the scatter-add runs the grouped combine.  Each
+is differentiable, with the other as its backward, as the reference's
+``custom_vjp`` of the gather is.
 
 ``gather_rows_rowstep`` replaces the seed's row-per-step kernel
 ``_gather_row_kernel``, the baseline that ``benchmarks/bench_layout.py``
@@ -166,12 +167,8 @@ def scatter_add_rows_plain(g: torch.Tensor, idx: torch.Tensor,
     return acc.to(g.dtype)
 
 
-def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
-                     n: int) -> torch.Tensor:
-    """out (n, d) with out[idx[i]] += g[i] (idx[i] < 0 or >= n skipped;
-    duplicates summed in f32 in ascending i and rounded once, so the
-    result is the same on every run); g (M, d) bfloat16 or float32, idx
-    (M,) int32.  Output in ``g``'s dtype."""
+def _scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
+                      n: int) -> torch.Tensor:
     global scatter_launches
     if g.dim() != 2 or idx.shape != (g.shape[0],) or idx.dtype != torch.int32:
         raise ValueError(f"scatter_add_rows: need g (M, d) and idx (M,) "
@@ -198,3 +195,29 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
     build.check(rc, "scatter_add_rows")
     scatter_launches += 1
     return out
+
+
+class _ScatterAddRows(torch.autograd.Function):
+    """``scatter_add_rows`` with the gather kernel as its backward:
+    d g[i] = dout[idx[i]], 0 where ``idx[i]`` was skipped."""
+
+    @staticmethod
+    def forward(ctx, g, idx, n):
+        ctx.save_for_backward(idx)
+        ctx.n = n
+        return _scatter_add_rows(g, idx, n)
+
+    @staticmethod
+    def backward(ctx, dout):
+        idx, = ctx.saved_tensors
+        kept = torch.where(idx < ctx.n, idx, -1)
+        return _gather_rows(dout.contiguous(), kept), None, None
+
+
+def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """out (n, d) with out[idx[i]] += g[i] (idx[i] < 0 or >= n skipped;
+    duplicates summed in f32 in ascending i and rounded once, so the
+    result is the same on every run); g (M, d) bfloat16 or float32, idx
+    (M,) int32.  Output in ``g``'s dtype; differentiable in ``g``."""
+    return _ScatterAddRows.apply(g, idx, n)

@@ -6,7 +6,8 @@
 Runs on the GPU unless ``--device cpu`` is given.  The weights are drawn
 from a ``torch.Generator`` seeded with ``--seed`` on the device, and the
 prompts from one seeded on the CPU.  ``--dispatch {sort,grouped}``
-overrides the preset's MoE dispatch mode (validated; a typo fails fast).
+overrides the preset's MoE dispatch mode (validated; a typo fails fast,
+and so does the flag on a dense preset such as ``yi-6b``).
 ``--repeat N`` serves the same prompts N times on one model and prints
 each run's prefill and per-step decode time, then their medians over the
 runs after the first (which includes the kernels' build and the
@@ -55,8 +56,10 @@ def run(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
         raise ValueError(f"{arch} is encoder-only")
     cfg = serve_config(cfg, dispatch=dispatch)
     dev = resolve_device(device)
-    print(f"dispatch={cfg.moe.dispatch} "
-          f"({'flag' if dispatch else 'config default'}) device={dev}")
+    moe = (f"dispatch={cfg.moe.dispatch} "
+           f"({'flag' if dispatch else 'config default'}) "
+           if cfg.moe is not None else "")
+    print(f"{moe}device={dev}")
     model = Transformer(cfg, device=dev, seed=seed)
     gen_cpu = torch.Generator().manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),

@@ -87,6 +87,9 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
         raise _unported(f"--tune {tune}")
     cfg = configs.smoke_config(arch) if smoke else configs.get_config(arch)
     if moe:
+        if cfg.moe is None:
+            raise ValueError(f"moe={moe!r} requested but {cfg.name} has no "
+                             f"MoE layer (cfg.moe is None)")
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
     cfg = serve_config(cfg, dispatch=dispatch)
     ls = 1.0 if loss_scale in (None, "none") else (
@@ -116,7 +119,8 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
 
     n_params = sum(p.numel() for p in tree.leaves(state.params))
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh=1x1 "
-          f"dispatch={cfg.moe.dispatch} gate={cfg.moe.gate} remat={remat} "
+          + (f"dispatch={cfg.moe.dispatch} gate={cfg.moe.gate} "
+             if cfg.moe is not None else "") + f"remat={remat} "
           f"device={dev}")
     ds = SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed, device=dev)
     history = []

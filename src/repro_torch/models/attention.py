@@ -17,23 +17,28 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import draw
 from repro_torch.core.config import AttentionConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import rms_norm, softcap as _softcap
 
 
 def init_attention(generator: torch.Generator, cfg: AttentionConfig,
-                   d_model: int, *, device=None) -> Dict[str, torch.Tensor]:
+                   d_model: int, *, device=None,
+                   dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """The projections drawn in ``dtype`` (each cast after its draw); the
+    qk-norm scales stay f32, as they are used."""
     hd = cfg.head_dim or d_model // cfg.num_heads
 
-    def randn(*shape):
-        return torch.randn(shape, generator=generator, device=device)
+    def randn(scale, *shape):
+        return draw(generator, shape, scale, device=device, dtype=dtype)
 
     s = d_model ** -0.5
-    p = {"wq": randn(d_model, cfg.num_heads * hd) * s,
-         "wk": randn(d_model, cfg.num_kv_heads * hd) * s,
-         "wv": randn(d_model, cfg.num_kv_heads * hd) * s,
-         "wo": randn(cfg.num_heads * hd, d_model) * (cfg.num_heads * hd) ** -0.5}
+    p = {"wq": randn(s, d_model, cfg.num_heads * hd),
+         "wk": randn(s, d_model, cfg.num_kv_heads * hd),
+         "wv": randn(s, d_model, cfg.num_kv_heads * hd),
+         "wo": randn((cfg.num_heads * hd) ** -0.5, cfg.num_heads * hd,
+                     d_model)}
     if cfg.qk_norm:
         p["q_norm"] = torch.zeros((hd,), device=device)
         p["k_norm"] = torch.zeros((hd,), device=device)

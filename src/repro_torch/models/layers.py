@@ -8,6 +8,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch import draw
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -24,13 +26,13 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def init_mlp(generator: torch.Generator, d: int, f: int, act: str, *,
-             device=None) -> Dict[str, torch.Tensor]:
+             device=None, dtype=torch.float32) -> Dict[str, torch.Tensor]:
     cols = 2 * f if act in ("swiglu", "geglu") else f
     return {
-        "w_in": torch.randn((d, cols), generator=generator,
-                            device=device) * d ** -0.5,
-        "w_out": torch.randn((f, d), generator=generator,
-                             device=device) * f ** -0.5,
+        "w_in": draw(generator, (d, cols), d ** -0.5, device=device,
+                     dtype=dtype),
+        "w_out": draw(generator, (f, d), f ** -0.5, device=device,
+                      dtype=dtype),
     }
 
 

@@ -1,6 +1,13 @@
-"""Model assembly for the ``moe`` block kind — the port of
-``repro/models/transformer.py`` (init, ``forward``, ``init_caches``,
-``decode_step``, ``logits_from_hidden``).
+"""Model assembly for the ``attn``, ``dense`` and ``moe`` block kinds — the
+port of ``repro/models/transformer.py`` (init, ``forward``,
+``init_caches``, ``decode_step``, ``logits_from_hidden``).
+
+Every ported kind is pre-norm attention followed by an FFN: an MLP
+(``attn``, ``dense``) or the HetuMoE layer (``moe``), plus the shared
+experts' MLP where the config has them.  Layer ``i·P + j`` is pattern slot
+``j`` of super-block ``i`` (``P = len(cfg.block_pattern)``), the order of
+the reference's scan over super-blocks.  The windowed and local/global
+kinds (ring caches), the recurrent ones and frontends raise.
 
 Parameters are a tree of f32 tensors in the reference's layout, with the
 ``(nsb, ...)`` stacked block leaves split per layer
@@ -9,9 +16,9 @@ package's tree).  :func:`forward` and :func:`logits_from_hidden` run over
 that tree as the reference's do: each weight is cast to ``cfg.dtype`` at
 its use, so a trainer's gradients land in f32 on the masters.  For
 serving, :class:`Transformer` keeps one copy in the compute dtype instead,
-made when the weights are loaded — the same values, without re-reading
-2 GB of f32 weights at every decode step.  The router and the norm scales
-stay f32, as they are used.
+made when the weights are loaded (or drawn straight in it, leaf by leaf)
+— the same values, without re-reading the f32 weights at every decode
+step.  The router and the norm scales stay f32, as they are used.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import draw, resolve_device
 from repro_torch.core import gating
 from repro_torch.core import moe as moe_lib
 from repro_torch.core.config import ModelConfig
@@ -29,46 +36,78 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 
 # leaves used in f32 whatever the compute dtype
-_F32_LEAVES = ("ln1", "ln2", "final_norm", "gate_w")
+_F32_LEAVES = ("ln1", "ln2", "final_norm", "gate_w", "q_norm", "k_norm")
 REMAT_MODES = ("none", "block", "full")
+# the ported block kinds: attention + an MLP (attn, dense) or + the MoE
+# layer (moe); the reference's dense is its attn under another name
+BLOCK_KINDS = ("attn", "dense", "moe")
+# the FFN sub-trees a block may hold
+_FFN_KEYS = ("mlp", "moe", "shared_mlp")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if set(cfg.block_pattern) != {"moe"}:
+    unported = sorted(set(cfg.block_pattern) - set(BLOCK_KINDS))
+    if unported:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {cfg.block_pattern} — only 'moe' "
-            f"blocks are ported to repro_torch (ROADMAP.md)")
-    if cfg.frontend is not None or cfg.moe.num_shared_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: frontends and shared experts are not ported yet "
+            f"{cfg.name}: block kinds {unported} of {cfg.block_pattern} are "
+            f"not ported to repro_torch yet; ported: {BLOCK_KINDS} "
             f"(ROADMAP.md)")
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: frontends are not ported yet (ROADMAP.md)")
+    if cfg.attention.window is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: windowed attention serves from ring caches, which "
+            f"are not ported yet (ROADMAP.md)")
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """The block kind of each layer: layer ``i·P + j`` is pattern slot
+    ``j`` of super-block ``i``."""
+    P = len(cfg.block_pattern)
+    return [cfg.block_pattern[i % P] for i in range(cfg.num_layers)]
+
+
+def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator, *,
+               device=None, dtype=torch.float32) -> Dict[str, Any]:
+    """One block of ``kind``, drawn from ``generator`` in a fixed order:
+    ln1, attention, ln2, then the MLP, or the MoE layer and the shared
+    experts' MLP.  Each leaf is cast to ``dtype`` right after its draw."""
+    d = cfg.d_model
+    kw = dict(device=device, dtype=dtype)
+    blk = {"ln1": torch.zeros((d,), device=device),
+           "attn": attn_lib.init_attention(generator, cfg.attention, d, **kw),
+           "ln2": torch.zeros((d,), device=device)}
+    if kind == "moe":
+        m = cfg.moe
+        f = m.d_ff_expert or cfg.d_ff
+        blk["moe"] = moe_lib.init_moe_params(generator, m, d, f,
+                                             m.num_experts, act=cfg.act, **kw)
+        if m.num_shared_experts:
+            blk["shared_mlp"] = layers.init_mlp(
+                generator, d, f * m.num_shared_experts, cfg.act, **kw)
+    else:
+        blk["mlp"] = layers.init_mlp(generator, d, cfg.d_ff, cfg.act, **kw)
+    return blk
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
-                device=None) -> Dict[str, Any]:
-    """Random f32 parameters in the port's tree layout, drawn in a fixed
-    order from ``generator``."""
+                device=None, dtype=torch.float32) -> Dict[str, Any]:
+    """Random parameters in the port's tree layout, drawn in a fixed order
+    from ``generator``, layer by layer (:func:`init_block`), then the
+    embeddings.  With ``dtype`` each leaf is cast right after its draw
+    (the f32 leaves excepted): the same values as the f32 tree cast
+    afterwards, with one f32 leaf alive at a time."""
     _check_supported(cfg)
     d = cfg.d_model
-
-    def randn(*shape):
-        return torch.randn(shape, generator=generator, device=device)
-
-    blocks = []
-    for _ in range(cfg.num_layers):
-        blocks.append({
-            "ln1": torch.zeros((d,), device=device),
-            "attn": attn_lib.init_attention(generator, cfg.attention, d,
-                                            device=device),
-            "ln2": torch.zeros((d,), device=device),
-            "moe": moe_lib.init_moe_params(
-                generator, cfg.moe, d, cfg.moe.d_ff_expert or cfg.d_ff,
-                cfg.moe.num_experts, act=cfg.act, device=device)})
-    params = {"blocks": blocks,
+    kw = dict(device=device, dtype=dtype)
+    params = {"blocks": [init_block(cfg, kind, generator, **kw)
+                         for kind in layer_kinds(cfg)],
               "final_norm": torch.zeros((d,), device=device),
-              "embed": randn(cfg.vocab_size, d) * d ** -0.5}
+              "embed": draw(generator, (cfg.vocab_size, d), d ** -0.5, **kw)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = randn(d, cfg.vocab_size) * d ** -0.5
+        params["lm_head"] = draw(generator, (d, cfg.vocab_size), d ** -0.5,
+                                 **kw)
     return params
 
 
@@ -80,9 +119,11 @@ def _leaf(name: str, t: torch.Tensor, dtype, device) -> nn.Parameter:
 def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                   positions=None, cache=None, decode: bool = False,
                   noise: Optional[torch.Tensor] = None):
-    """One ``moe`` block over its parameter dict ``p``: attention + the
-    MoE FFN, pre-norm residuals; ``noise`` is the layer's gate draw.
-    Returns (x, cache, aux)."""
+    """One block over its parameter dict ``p``: attention, then the MLP
+    (``attn``, ``dense``) or the MoE layer plus the shared experts' MLP
+    (``moe``), pre-norm residuals; ``noise`` is a MoE layer's gate draw.
+    Returns (x, cache, aux); a block without a MoE layer has no aux loss
+    (None: the reference adds its zero)."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if decode:
         a, cache = attn_lib.decode_attention(p["attn"], h, cache,
@@ -95,23 +136,32 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
             cache = attn_lib.fill_cache(cache, kv)
     x = x + a
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" not in p:
+        return x + layers.apply_mlp(p["mlp"], h, cfg.act), cache, None
     y, aux, _ = moe_lib.moe_apply(cfg.moe, p["moe"], h,
                                   num_experts=cfg.moe.num_experts,
                                   act=cfg.act, noise=noise)
+    if "shared_mlp" in p:
+        y = y + layers.apply_mlp(p["shared_mlp"], h, cfg.act)
     return x + y, cache, aux
 
 
 def draw_gate_noise(cfg: ModelConfig, tokens: int,
                     generator: torch.Generator, device=None
                     ) -> Optional[List[torch.Tensor]]:
-    """One (tokens, E) gate draw per layer, in layer order, from
-    ``generator`` (``gating.draw_noise``); None when the gate draws
-    nothing."""
-    if not gating.needs_noise(cfg.moe):
+    """One (tokens, E) gate draw per MoE layer, in layer order, from
+    ``generator`` (``gating.draw_noise``), None in the place of a layer
+    without one; None when the gate draws nothing."""
+    if not noisy(cfg):
         return None
     return [gating.draw_noise(cfg.moe, (tokens, cfg.moe.num_experts),
-                              generator, device)
-            for _ in range(cfg.num_layers)]
+                              generator, device) if kind == "moe" else None
+            for kind in layer_kinds(cfg)]
+
+
+def noisy(cfg: ModelConfig) -> bool:
+    """Whether the config's gate draws noise (``gating.needs_noise``)."""
+    return cfg.moe is not None and gating.needs_noise(cfg.moe)
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
@@ -150,7 +200,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     x = layers.embed(params["embed"], tokens, dtype, cfg.scale_embeddings)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
-    if noise is None and gating.needs_noise(cfg.moe):
+    if noise is None and noisy(cfg):
         gen = torch.Generator(device=x.device).manual_seed(0)
         noise = draw_gate_noise(cfg, tokens.numel(), gen, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -163,7 +213,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
         else:
             x, a = checkpoint(_remat_block, p, x, positions, nz, cfg,
                               use_reentrant=False, preserve_rng_state=False)
-        aux = aux + a
+        if a is not None:
+            aux = aux + a
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux, caches
 
@@ -184,7 +235,9 @@ def logits_from_hidden(params: Dict[str, Any], cfg: ModelConfig,
 
 
 class Block(nn.Module):
-    """One ``moe`` block's serving weights (run by :func:`block_forward`)."""
+    """One block's serving weights (run by :func:`block_forward`): the
+    norms, the attention, and the block kind's FFN — ``mlp``, or ``moe``
+    with ``shared_mlp`` where the config has shared experts."""
 
     def __init__(self, p: Dict[str, Any], dtype, device):
         super().__init__()
@@ -192,22 +245,27 @@ class Block(nn.Module):
         self.ln2 = _leaf("ln2", p["ln2"], dtype, device)
         self.attn = nn.ParameterDict(
             {k: _leaf(k, v, dtype, device) for k, v in p["attn"].items()})
-        self.moe = nn.ParameterDict(
-            {k: _leaf(k, v, dtype, device) for k, v in p["moe"].items()})
+        self.ffn = [k for k in _FFN_KEYS if k in p]
+        for k in self.ffn:
+            setattr(self, k, nn.ParameterDict(
+                {n: _leaf(n, v, dtype, device) for n, v in p[k].items()}))
 
     def tree(self) -> Dict[str, Any]:
         return {"ln1": self.ln1, "ln2": self.ln2, "attn": dict(self.attn),
-                "moe": dict(self.moe)}
+                **{k: dict(getattr(self, k)) for k in self.ffn}}
 
 
 class Transformer(nn.Module):
-    """The MoE transformer on one device, for inference.
+    """The transformer on one device, for inference.
 
     ``Transformer(cfg)`` runs on ``cuda`` (raising without a GPU) unless
     ``device="cpu"`` is passed.  ``params`` is an f32 tree from
-    :func:`init_params` or ``convert.params_from_numpy``; without it the
-    weights are drawn from a ``torch.Generator`` seeded with ``seed`` on the
-    target device.
+    :func:`init_params` or ``convert.params_from_numpy``, copied into the
+    compute dtype; without it the weights are drawn from a
+    ``torch.Generator`` seeded with ``seed`` on the target device straight
+    into the compute dtype, leaf by leaf (:func:`init_params` with
+    ``dtype``): the values of the f32 tree cast afterwards, without holding
+    that tree.
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
@@ -219,7 +277,8 @@ class Transformer(nn.Module):
         self.dtype = getattr(torch, cfg.dtype)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(cfg, gen, device=self.device)
+            params = init_params(cfg, gen, device=self.device,
+                                 dtype=self.dtype)
         self.blocks = nn.ModuleList(
             Block(p, self.dtype, self.device) for p in params["blocks"])
         self.final_norm = _leaf("final_norm", params["final_norm"],
@@ -255,7 +314,7 @@ class Transformer(nn.Module):
         cfg = cfg or self.cfg
         x = layers.embed(self.embed, token, self.dtype, cfg.scale_embeddings)
         noise = None
-        if gating.needs_noise(cfg.moe):     # as forward: a seed-0 draw
+        if noisy(cfg):                      # as forward: a seed-0 draw
             gen = torch.Generator(device=x.device).manual_seed(0)
             noise = draw_gate_noise(cfg, token.numel(), gen, x.device)
         for i, (blk, cache) in enumerate(zip(self.blocks, caches,

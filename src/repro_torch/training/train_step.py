@@ -41,7 +41,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, tree
 from repro_torch.core import faults as faults_mod
-from repro_torch.core import gating
 from repro_torch.core.config import ModelConfig, TrainConfig
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import (adamw_update, clip_by_global_norm,
@@ -181,7 +180,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     sched = make_schedule(tcfg)
     dynamic = tcfg.loss_scale == "dynamic"
     static_scale = not dynamic and float(tcfg.loss_scale) == 1.0
-    noisy = gating.needs_noise(cfg.moe)
+    noisy = T.noisy(cfg)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    step: Optional[int] = None,

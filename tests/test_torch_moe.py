@@ -182,7 +182,7 @@ def test_moe_block_local_valid_masks_padding():
 @pytest.mark.parametrize("kernels", [True, False])
 @pytest.mark.parametrize("dispatch,wrappers", [
     ("grouped", ["fused_topk_gate", "gather_rows", "grouped_matmul",
-                 "grouped_matmul"]),
+                 "grouped_matmul", "scatter_add_rows"]),
     ("sort", ["fused_topk_gate", "gather_rows", "gather_rows"]),
 ])
 def test_moe_layer_goes_through_every_kernel_wrapper(monkeypatch, dispatch,

@@ -136,7 +136,7 @@ def test_presets_copy_the_reference():
             if f.name not in ("moe", "attention"):
                 assert getattr(t, f.name) == getattr(j, f.name), f.name
     with pytest.raises(KeyError, match="hetumoe-paper-16e"):
-        configs.get_config("dbrx-132b")
+        configs.get_config("rwkv6-1.6b")
 
 
 def test_model_config_rejects_malformed():
@@ -147,7 +147,7 @@ def test_model_config_rejects_malformed():
         configs.smoke_config("hetumoe-paper-16e").replace(moe=None)
     with pytest.raises(NotImplementedError, match="block kinds"):
         Transformer(configs.smoke_config("hetumoe-paper-16e").replace(
-            block_pattern=("moe", "attn")), device="cpu")
+            block_pattern=("moe", "rwkv")), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -136,9 +136,10 @@ def test_remat_steps_match_reference(mesh1, jax_init, gate, remat):
 @pytest.mark.parametrize("seq,flash", [(16, False), (640, True)])
 def test_remat_runs_the_forward_kernels_twice(monkeypatch, seq, flash):
     """Kernel wrappers called per train step (2 layers, grouped, switch):
-    under remat the gate, the gather and the grouped matmul forward — and
-    past q_chunk the flash forward — run twice, the backward kernels
-    once."""
+    under remat the gate, the gather and the grouped matmul forward, the
+    combine's scatter-add — and past q_chunk the flash forward — run
+    twice, the backward kernels (the gather among them, the combine's
+    VJP) once."""
     seen = collections.Counter()
     real = build.dispatch_device
     monkeypatch.setattr(build, "dispatch_device",
@@ -153,13 +154,13 @@ def test_remat_runs_the_forward_kernels_twice(monkeypatch, seq, flash):
             state, SyntheticLM(tc, 1, seq, device="cpu").next_batch(0))
         counts[remat] = dict(seen)
     f = 2 if flash else 0
-    want = {"none": {"fused_topk_gate": 2, "gather_rows": 2,
+    want = {"none": {"fused_topk_gate": 2, "gather_rows": 4,
                      "grouped_matmul": 4, "grouped_matmul_t": 4,
-                     "grouped_drhs": 4, "scatter_add_rows": 2,
+                     "grouped_drhs": 4, "scatter_add_rows": 4,
                      "flash_fwd": f, "flash_dq": f, "flash_dkv": f}}
     want["block"] = want["full"] = {
-        **want["none"], "fused_topk_gate": 4, "gather_rows": 4,
-        "grouped_matmul": 8, "flash_fwd": 2 * f}
+        **want["none"], "fused_topk_gate": 4, "gather_rows": 6,
+        "grouped_matmul": 8, "scatter_add_rows": 6, "flash_fwd": 2 * f}
     for remat in want:
         assert counts[remat] == {k: v for k, v in want[remat].items() if v}, (
             remat, counts[remat])

@@ -115,7 +115,8 @@ def test_train_step_goes_through_the_backward_wrappers(monkeypatch):
     """One train step per dispatch mode calls the backward kernels'
     wrappers as many times as chip_smoke.py expects their kernels to
     launch on the card (2 layers, relu, k=1): grouped — 4 dlhs, 4 drhs,
-    2 scatter-adds; sort — 4 scatter-adds."""
+    4 scatter-adds (2 in the forward's combine, 2 in the dispatch's VJP);
+    sort — 4 scatter-adds."""
     calls = {}
 
     def counting(mod, name):
@@ -128,7 +129,7 @@ def test_train_step_goes_through_the_backward_wrappers(monkeypatch):
     counting(L, "scatter_add_rows")
     counting(G, "grouped_matmul_t")
     counting(G, "grouped_drhs")
-    want = {"grouped": {"scatter_add_rows": 2, "grouped_matmul_t": 4,
+    want = {"grouped": {"scatter_add_rows": 4, "grouped_matmul_t": 4,
                         "grouped_drhs": 4},
             "sort": {"scatter_add_rows": 4}}
     for dispatch in ("grouped", "sort"):
