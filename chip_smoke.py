@@ -8,8 +8,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
 1. Setup: the card's name and power limit, TF32 off, the kernel build.
 2. Each hand-written kernel against its plain PyTorch version on the card,
    at the main paths' shapes and at edge cases, with stated tolerances:
-   the gate, the gather, the seed's row-per-step gather (2b', bitwise)
-   and the grouped matmul (2a-2c: decode with 8 distinct experts, M=1,
+   the gate (2a: exact, ties at k=2 and k=4, E=10 on the scalar path),
+   the gather in both forms (2b, bitwise: the fan-out form with the
+   maps of the port's own grouped and sort plans, drops and empty
+   capacity slots included), the seed's row-per-step gather (2b',
+   bitwise) and the grouped matmul (2a-2c: decode with 8 distinct experts, M=1,
    one expert holding every row, M off the tile, rows past offsets[E],
    skewed and empty segments), the grouped matmul's backward dlhs and
    drhs (2d, 2e; drhs's bf16 output bitwise its f32 output rounded), the
@@ -36,9 +39,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    the flash kernels the bound of their own arithmetic over the tiles they
    visit; the row-per-step gather beside the blocked one, with their
    ratio; an empty kernel's device time (the launch floor) beside the
-   gate; the grouped drhs at M=4096 and 8192, uniform, skewed and (4096)
-   one-expert segments, in both output dtypes, with its skewed/uniform
-   ratio.
+   gate; the gather in its fan-out form (the dispatch's) and its gather
+   form; the byte-bound rows (kernels 2, 6 and 10, ``index_select``,
+   ``index_add``) also L2-cold, a 128 MB read before each call
+   (``graph_cold_ms``); the grouped drhs at M=4096 and 8192, uniform,
+   skewed and (4096) one-expert segments, in both output dtypes, with its
+   skewed/uniform ratio.
 6. Where the time goes: a profiled prefill and decode steps per serving
    cell (wall time, kernel time, the device's idle share, top kernels),
    and the host's waits for the device in a forward, which must be none;
@@ -98,7 +104,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ``dense`` block and the llama4 shared expert, each within 1e-4 of its
    max.  Phase 2 holds the kernels at every shape these presets' paths
    give them (2j-2k: the gate at E=16 k=4 and E=128, the gather of T·4
-   rows and the combine's scatter-add back, the grouped matmul at
+   rows in the served expert-sorted order in both forms, dbrx's sort
+   dispatch with its empty slots, and the combine's scatter-add back,
+   the grouped matmul at
    d=6144/f=10752 and d=5120/f=8192 with E=128 at M=8 and 8192, each at
    prompts 512 and 1024 and at decode; 2g: the flash kernels at H:KV
    48:8, 40:8, 32:4, 24:2, B=8, S=1024) and times the prompt-1024 and
@@ -202,6 +210,56 @@ def graph_ms(torch, fn, *, reps: int = 25, per_graph: int = 10,
                    warmup=3) / per_graph
 
 
+FLUSH_BYTES = 128 * 2 ** 20        # 2.5x an H100's 50 MB L2
+
+
+def l2_flush(torch):
+    """A call that reads 128 MB of device memory: run between two calls of
+    a kernel, it leaves none of that kernel's inputs in the L2."""
+    buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    return lambda: buf.sum()
+
+
+def graph_cold_ms(torch, fn, flush, *, reps: int = 25, per_graph: int = 10):
+    """Device time per call of ``fn`` with the L2 flushed before each call
+    (the way a caller finds it whose input was not just written): a graph
+    of ``per_graph`` (flush, fn) pairs and one of ``per_graph`` flushes,
+    replayed in turns; the median over ``reps`` of their difference.
+    None when ``fn`` cannot be captured."""
+    graphs = []
+    for body in ((lambda: (flush(), fn())), flush):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        try:
+            with torch.cuda.stream(side):
+                body()
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(per_graph):
+                    body()
+        except RuntimeError as e:
+            print(f"    (graph capture failed: {str(e).splitlines()[0]})")
+            return None
+        graphs.append(g)
+    for g in graphs * 2:
+        g.replay()
+    torch.cuda.synchronize()
+    diffs = []
+    for _ in range(reps):
+        ms = []
+        for g in graphs:
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            g.replay()
+            e.record()
+            e.synchronize()
+            ms.append(s.elapsed_time(e))
+        diffs.append((ms[0] - ms[1]) / per_graph)
+    return statistics.median(diffs)
+
+
 class TimingRows(list):
     """Phase 5's rows, one per kernel and shape: ``add`` times the kernel
     (eager and device-only), its plain version and its library call, and
@@ -210,9 +268,15 @@ class TimingRows(list):
     def __init__(self, torch, smi):
         super().__init__()
         self.torch, self.smi = torch, smi
+        self.flush = None
 
     def add(self, name, source, replaces, kernel, plain, library, nbytes,
-            flops, peak, shape, slow=False, library_graph=None, **extra):
+            flops, peak, shape, slow=False, library_graph=None, cold=False,
+            **extra):
+        """``cold``: also the device-only times of the kernel and of the
+        library call with the L2 flushed before each call
+        (``graph_cold_ms``), for a byte-bound kernel whose caller finds
+        its input cold."""
         torch = self.torch
         # a call of several ms: fewer batches of fewer calls
         kw = dict(batches=10, per_batch=3, warmup=2) if slow else {}
@@ -231,21 +295,33 @@ class TimingRows(list):
                 # (callable, capture stream) for the device-only time
                 fn, stream = library_graph or (library, None)
                 lib_dev_ms = graph_ms(torch, fn, stream=stream, **gkw)
+        dev_cold = lib_cold = None
+        if cold:
+            if self.flush is None:
+                self.flush = l2_flush(torch)
+            dev_cold = graph_cold_ms(torch, kernel, self.flush, **gkw)
+            if lib_ms is not None:
+                lib_cold = graph_cold_ms(torch, library, self.flush, **gkw)
         tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
         bound_ms, by = 1e3 * max(tb, tf), ("bytes" if tb >= tf
                                            else "operations")
 
         def fmt(x):
             return "not measured" if x is None else f"{x:.4f}"
+        cold_txt = (f", L2-cold device-only {fmt(dev_cold)} (library "
+                    f"{fmt(lib_cold)})" if cold else "")
         print(f"  [{self.smi}] {name} {shape}: kernel_ms {ms:.4f} "
               f"(device-only {fmt(dev_ms)}), plain_ms {plain_ms:.4f}, "
-              f"library_ms {fmt(lib_ms)} (device-only {fmt(lib_dev_ms)}), "
-              f"bound_us {1e3 * bound_ms:.2f} ({by}) {extra or ''}")
+              f"library_ms {fmt(lib_ms)} (device-only {fmt(lib_dev_ms)})"
+              f"{cold_txt}, bound_us {1e3 * bound_ms:.2f} ({by}) "
+              f"{extra or ''}")
         self.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
                          device_ms=dev_ms, library_device_ms=lib_dev_ms,
-                         shape=shape, **extra))
+                         device_cold_ms=dev_cold,
+                         library_device_cold_ms=lib_cold, shape=shape,
+                         **extra))
 
 
 # ---------------------------------------------------------------------------
@@ -323,6 +399,52 @@ def drhs_cases(torch):
          200, 16, 72, 3, torch.tensor([0, 127, 127, 190], dtype=torch.int32))]
 
 
+def routed_maps(torch, g, S: int, E: int, K: int, dispatch: str,
+                capacity: int = 0):
+    """The index maps a dispatch hands the gather, from the port's own
+    plan over ``S`` tokens routed to ``K`` distinct of ``E`` experts
+    uniformly at random (on the CPU): ``grouped`` gives (token, dest),
+    the expert-sorted buffer's source tokens and their inverse; ``sort``
+    gives (inv, slot) at ``capacity`` rows an expert, -1 for an empty
+    capacity slot and for a dropped assignment."""
+    from repro_torch.core import gating, layout
+    experts = torch.rand(S, E, generator=g).argsort(-1)[:, :K].to(
+        torch.int32)
+    gate = gating.GateOutput(experts, torch.ones(S, K), torch.zeros(S, E),
+                             torch.zeros(S, E))
+    if dispatch == "grouped":
+        plan = layout.plan_grouped(gate, E)
+        return plan.token, plan.dest
+    plan = layout.plan_sort(gate, E, capacity)
+    return plan.inv, plan.slot
+
+
+def check_gather(torch, L, name, src, idx, dest, errs):
+    """Phase 2b's check of the gather on the card, bitwise against the
+    plain version of the gather form; with ``dest`` the fan-out form."""
+    out = L.gather_rows(src, idx, dest)
+    ref = L.gather_rows_plain(src, idx)
+    torch.cuda.synchronize()
+    same = torch.equal(out, ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    errs["gather_rows"] = max(errs["gather_rows"], err)
+    form = "gather" if dest is None else f"fan-out K={dest.shape[1]}"
+    print(f"  {name} ({form}): bitwise equal={same}, max abs err {err:.3e}")
+    check(same, f"gather_rows {name} ({form}) disagrees with its plain "
+                f"version")
+
+
+def launch_floor_ms(torch):
+    """An empty kernel's device-only time: the launch floor."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    dummy = torch.empty(0, device="cuda")
+
+    def empty():
+        build.check(lib.launch_empty(build.stream(dummy)), "launch_empty")
+    return graph_ms(torch, empty)
+
+
 def check_gate(torch, K, name, xd, k, errs):
     """Phase 2a's check of the gate on logits ``xd`` on the card: idx,
     vals and rowmax equal to the plain version's, sumexp within rtol
@@ -380,39 +502,51 @@ def phase_kernels(torch, dev):
               torch.randn(1000, 16, generator=g), 2),
              ("exact ties S=777 k=2", ties, 2),
              ("decode S=8 k=1", torch.randn(8, 16, generator=g), 1),
-             ("E=40 (two columns per lane) k=3",
-              torch.randn(300, 40, generator=g), 3)]
+             ("E=40 k=3", torch.randn(300, 40, generator=g), 3),
+             ("exact ties S=4096 E=16 k=4",
+              torch.randint(0, 3, (4096, 16), generator=g).float(), 4),
+             ("E=10 (not a multiple of 4: the scalar path) k=3",
+              torch.randn(1000, 10, generator=g), 3),
+             ("E=384 (the widest instance) k=8",
+              torch.randn(500, 384, generator=g), 8)]
     for name, x, k in cases:
         check_gate(torch, K, name, x.to(dev), k, errs)
 
-    print("phase 2b: gather_rows (tolerance: bitwise)")
+    print("phase 2b: gather_rows, the gather form and the fan-out form "
+          "with the dispatches' maps (tolerance: bitwise)")
     gcases = []
     for dt in (torch.bfloat16, torch.float32):
         src = torch.randn(4096, 2048, generator=g).to(dt)
         idx = torch.randint(-1, 4096, (4096,), generator=g, dtype=torch.int32)
         idx[torch.rand(4096, generator=g) < 0.1] = -1
-        gcases.append((f"M=N=4096 d=2048 {dt} with -1 rows", src, idx))
+        gcases.append((f"M=N=4096 d=2048 {dt} with -1 rows", src, idx, None))
+        gcases.append((f"grouped dispatch T=4096 E=16 k=1 d=2048 {dt}", src,
+                       *routed_maps(torch, g, 4096, 16, 1, "grouped")))
     src = torch.randn(4096, 2048, generator=g).to(torch.bfloat16)
     gcases.append(("decode M=8 bf16", src,
                    torch.tensor([5, -1, 4095, 0, 17, 17, -1, 3],
-                                dtype=torch.int32)))
-    gcases.append(("d=1001 bf16 (byte path)",
-                   torch.randn(300, 1001, generator=g).to(torch.bfloat16),
-                   torch.randint(-1, 300, (500,), generator=g,
-                                 dtype=torch.int32)))
+                                dtype=torch.int32), None))
+    gcases.append(("sort dispatch T=4096 E=16 k=2 C=512 (drops, empty "
+                   "slots) d=2048 bf16", src,
+                   *routed_maps(torch, g, 4096, 16, 2, "sort", 512)))
+    src = torch.randn(8, 2048, generator=g).to(torch.bfloat16)
+    gcases.append(("decode grouped T=8 E=16 k=4 bf16", src,
+                   *routed_maps(torch, g, 8, 16, 4, "grouped")))
+    gcases.append(("decode sort T=8 E=16 k=4 C=8 bf16", src,
+                   *routed_maps(torch, g, 8, 16, 4, "sort", 8)))
+    src = torch.randn(300, 1001, generator=g).to(torch.bfloat16)
+    gcases.append(("d=1001 bf16 (byte path)", src, torch.randint(
+        -1, 300, (500,), generator=g, dtype=torch.int32), None))
+    gcases.append(("d=1001 bf16 (byte path)", src,
+                   *routed_maps(torch, g, 300, 8, 2, "sort", 64)))
     gcases.append(("d=3 f32 (word path)", torch.randn(50, 3, generator=g),
                    torch.randint(-1, 50, (70,), generator=g,
-                                 dtype=torch.int32)))
-    for name, src, idx in gcases:
-        s, i = src.to(dev), idx.to(dev)
-        out = L.gather_rows(s, i)
-        ref = L.gather_rows_plain(s, i)
-        torch.cuda.synchronize()
-        same = torch.equal(out, ref)
-        err = (out.float() - ref.float()).abs().max().item()
-        errs["gather_rows"] = max(errs["gather_rows"], err)
-        print(f"  {name}: bitwise equal={same}, max abs err {err:.3e}")
-        check(same, f"gather_rows {name} disagrees with its plain version")
+                                 dtype=torch.int32), None))
+    gcases.append(("d=3 f32 (word path)", torch.randn(50, 3, generator=g),
+                   *routed_maps(torch, g, 50, 4, 2, "grouped")))
+    for name, src, idx, dest in gcases:
+        check_gather(torch, L, name, src.to(dev), idx.to(dev),
+                     None if dest is None else dest.to(dev), errs)
 
     errs["gather_rows_rowstep"] = 0.0
     print("phase 2b': gather_rows_rowstep, the seed's row-per-step baseline "
@@ -640,15 +774,17 @@ PRESET_GATES = (
     ("llama4 prefill 1024", T_PRESET, 128, 1, True),
     ("llama4 prefill 512", T_PRESET // 2, 128, 1, False),
     ("llama4 decode", 8, 128, 1, False))
-# (name, N tokens, M rows, d, timed) of the grouped dispatch's gather (each
-# token k times) and of the grouped combine's scatter-add (f32 rows back
-# onto N tokens, k addends each)
+# (name, N tokens, E, k, d, timed) of the grouped dispatch's gather (M =
+# N·k rows in the served expert-sorted order, in both forms) and of the
+# grouped combine's scatter-add (f32 rows back onto N tokens, k addends
+# each); and dbrx's sort dispatch (E·C rows, the empty capacity slots zero)
 PRESET_ROWS = (
-    ("dbrx prefill 1024 (k=4)", T_PRESET, 4 * T_PRESET, 6144, True),
-    ("dbrx prefill 512 (k=4)", T_PRESET // 2, 2 * T_PRESET, 6144, False),
-    ("dbrx decode (k=4)", 8, 32, 6144, False),
-    ("llama4 prefill 1024 (k=1)", T_PRESET, T_PRESET, 5120, True),
-    ("llama4 prefill 512 (k=1)", T_PRESET // 2, T_PRESET // 2, 5120, False))
+    ("dbrx prefill 1024 (k=4)", T_PRESET, 16, 4, 6144, True),
+    ("dbrx prefill 512 (k=4)", T_PRESET // 2, 16, 4, 6144, False),
+    ("dbrx decode (k=4)", 8, 16, 4, 6144, False),
+    ("llama4 prefill 1024 (k=1)", T_PRESET, 128, 1, 5120, True),
+    ("llama4 prefill 512 (k=1)", T_PRESET // 2, 128, 1, 5120, False),
+    ("llama4 decode (k=1)", 8, 128, 1, 5120, False))
 # (name, M, K, N, E, offsets kind, timed) of the grouped matmul, grouped by
 # weight shape (one draw of each): dbrx's up/gate (d=6144 -> f=10752) and
 # out projections over 16 experts, T·4 rows; llama4's (d=5120, f=8192)
@@ -706,40 +842,49 @@ def phase_preset_kernels(torch, dev, smi, errs):
                      F32_FLOPS, f"{name} S={S} E={E} k={k}")
     ties = torch.randint(0, 3, (4096, 128), generator=g).float()
     check_gate(torch, K, "exact ties S=4096 E=128 k=4", ties.to(dev), 4, errs)
-    for name, N, M, d, timed in PRESET_ROWS:
+    floor_ms = launch_floor_ms(torch)
+    print(f"  [{smi}] launch floor (an empty kernel, device-only): "
+          f"{floor_ms:.4f} ms; the gate's bound is the larger of its bytes "
+          f"and this")
+    for r in rows:
+        r["launch_floor_device_ms"] = floor_ms
+    for name, N, E, k, d, timed in PRESET_ROWS:
+        M = N * k
         src = torch.randn((N, d), generator=gd, device=dev).to(torch.bfloat16)
-        # token of each expert-sorted row: every token M // N times
-        idx = (torch.randperm(M, generator=g) % N).to(torch.int32).to(dev)
-        out = L.gather_rows(src, idx)
-        ref = L.gather_rows_plain(src, idx)
+        idx, dest = (t.to(dev) for t in routed_maps(torch, g, N, E, k,
+                                                     "grouped"))
+        for form in (dest, None):
+            check_gather(torch, L, f"{name}: M={M} rows of d={d} bf16 from "
+                         f"N={N}, expert-sorted", src, idx, form, errs)
         contrib = torch.randn((M, d), generator=gd, device=dev)
         acc = L.scatter_add_rows(contrib, idx, N)
         again = L.scatter_add_rows(contrib, idx, N)
         plain = L.scatter_add_rows_plain(contrib, idx, N)
         torch.cuda.synchronize()
-        same = torch.equal(out, ref)
         s_same = torch.equal(acc, plain) and torch.equal(acc, again)
-        err = (out.float() - ref.float()).abs().max().item()
         s_err = (acc - plain).abs().max().item()
-        errs["gather_rows"] = max(errs["gather_rows"], err)
         errs["scatter_add_rows"] = max(errs["scatter_add_rows"], s_err)
-        print(f"  gather {name}: M={M} rows of d={d} bf16 from N={N}: "
-              f"bitwise equal={same}, max abs err {err:.3e}")
         print(f"  scatter-add {name}: M={M} f32 rows of d={d} onto N={N}: "
               f"bitwise equal to the plain version and to a rerun="
               f"{s_same}, max abs err {s_err:.3e}")
-        check(same, f"gather_rows {name} disagrees with its plain version")
         check(s_same, f"scatter_add_rows {name} disagrees with its plain "
                       f"version or its rerun")
-        del out, ref, acc, again, plain
+        del acc, again, plain
         if timed:
-            rows.add("gather_rows", "src/repro_torch/csrc/layout_transform.cu",
-                     "src/repro/kernels/layout_transform.py:42",
-                     lambda src=src, idx=idx: L.gather_rows(src, idx),
-                     lambda src=src, idx=idx: L.gather_rows_plain(src, idx),
-                     lambda src=src, idx=idx: torch.index_select(src, 0, idx),
-                     N * d * 2 + M * 4 + M * d * 2, 0, BF16_FLOPS,
-                     f"{name} M={M} from N={N} d={d} bf16")
+            for form, dst in (("fan-out", dest), ("gather", None)):
+                rows.add("gather_rows",
+                         "src/repro_torch/csrc/layout_transform.cu",
+                         "src/repro/kernels/layout_transform.py:42",
+                         lambda src=src, idx=idx, dst=dst: L.gather_rows(
+                             src, idx, dst),
+                         lambda src=src, idx=idx: L.gather_rows_plain(
+                             src, idx),
+                         lambda src=src, idx=idx: torch.index_select(
+                             src, 0, idx),
+                         N * d * 2 + M * 4 + M * d * 2
+                         + (dest.numel() * 4 if dst is not None else 0), 0,
+                         BF16_FLOPS, f"{name} M={M} from N={N} d={d} bf16, "
+                         f"{form} form", cold=True, form=form)
             zeros = torch.zeros((N, d), device=dev)
             rows.add("scatter_add_rows",
                      "src/repro_torch/csrc/layout_transform.cu",
@@ -751,9 +896,31 @@ def phase_preset_kernels(torch, dev, smi, errs):
                          zeros, 0, idx, c),
                      M * d * 4 + M * 4 + N * d * 4, M * d, F32_FLOPS,
                      f"grouped combine {name} M={M} f32 rows onto N={N} "
-                     f"d={d}")
+                     f"d={d}", cold=True)
             del zeros
-        del src, idx, contrib
+        del src, idx, dest, contrib
+    # dbrx's sort dispatch at prompt 1024: capacity as the preset's
+    # capacity_factor gives it, the empty capacity slots zero
+    from repro_torch import configs
+    from repro_torch.core import capacity
+    N, E, k, d = T_PRESET, 16, 4, 6144
+    C = capacity.expert_capacity(configs.get_config("dbrx-132b").moe, N, E)
+    src = torch.randn((N, d), generator=gd, device=dev).to(torch.bfloat16)
+    inv, slot = (t.to(dev) for t in routed_maps(torch, g, N, E, k, "sort", C))
+    empty = int((inv < 0).sum())
+    check_gather(torch, L, f"dbrx sort dispatch prefill 1024: E*C={E * C} "
+                 f"rows (C={C}, {empty} empty) of d={d} bf16 from N={N}",
+                 src, inv, slot, errs)
+    rows.add("gather_rows", "src/repro_torch/csrc/layout_transform.cu",
+             "src/repro/kernels/layout_transform.py:42",
+             lambda: L.gather_rows(src, inv, slot),
+             lambda: L.gather_rows_plain(src, inv),
+             lambda: torch.index_select(src, 0, inv.clamp(min=0)),
+             N * d * 2 + E * C * 4 + slot.numel() * 4 + E * C * d * 2, 0,
+             BF16_FLOPS, f"dbrx sort dispatch prefill 1024 E*C={E * C} "
+             f"({empty} empty) from N={N} d={d} bf16, fan-out form",
+             cold=True, form="fan-out")
+    del src, inv, slot
     print("phase 2k: grouped_matmul at the presets' expert widths, bf16 "
           "(tolerance of 2c: within 1 ulp of the f32-accumulated plain "
           "result rounded once, plus the f32 summation-order bound)")
@@ -1139,7 +1306,6 @@ def phase_card_vs_cpu(torch):
 def phase_timings(torch, dev, smi):
     from repro_torch.kernels import grouped_ffn as G
     from repro_torch.kernels import layout_transform as L
-    from repro_torch.kernels import build
     from repro_torch.kernels import topk_gate as K
     g = torch.Generator(device="cpu").manual_seed(99)
     T, E, d = SERVE["batch"] * SERVE["prompt_len"], 16, 2048
@@ -1149,7 +1315,8 @@ def phase_timings(torch, dev, smi):
     print("phase 5: timings (CUDA events; median of 25 batches of 10 calls "
           "after warm-up; device-only: CUDA-graph replays, for the kernel "
           "and for the library call, 'not measured' where a call cannot be "
-          "captured)")
+          "captured; the byte-bound rows also L2-cold: a 128 MB read "
+          "before each call)")
     # gate at prefill: logits (T, E) f32, k=1
     for S in (T, SERVE["batch"]):
         x = torch.randn(S, E, generator=g).to(dev)
@@ -1160,38 +1327,45 @@ def phase_timings(torch, dev, smi):
             lambda: torch.topk(x, 1, dim=-1), nbytes, 4 * S * E, F32_FLOPS,
             f"S={S} E={E} k=1")
     # the launch floor beside the gate: an empty kernel's device time
-    lib = build.load()
-
-    def empty():
-        build.check(lib.launch_empty(build.stream(x)), "launch_empty")
-    floor_ms = graph_ms(torch, empty)
-    rows[0]["launch_floor_device_ms"] = floor_ms
+    floor_ms = launch_floor_ms(torch)
+    for r in rows:
+        r["launch_floor_device_ms"] = floor_ms
     print(f"  [{smi}] launch floor (an empty kernel, device-only): "
           f"{'not measured' if floor_ms is None else f'{floor_ms:.4f}'} ms")
-    # gather: the grouped dispatch's token map (a permutation) over (T, d)
+    # gather: the grouped dispatch's maps at k=1 (a permutation) over
+    # (T, d), in the fan-out form the dispatch runs and in the gather form;
+    # L2-cold beside warm (the dispatch's input was written one kernel
+    # earlier, but the 16 MB source fits the L2 only in a replay loop)
     for M in (T, SERVE["batch"]):
         src = torch.randn(M, d, generator=g).to(torch.bfloat16).to(dev)
-        idx = torch.randperm(M, generator=g).to(torch.int32).to(dev)
-        nbytes = M * d * 2 + M * 4 + M * d * 2
-        row("gather_rows", "src/repro_torch/csrc/layout_transform.cu",
-            "src/repro/kernels/layout_transform.py:42",
-            lambda: L.gather_rows(src, idx),
-            lambda: L.gather_rows_plain(src, idx),
-            lambda: torch.index_select(src, 0, idx.clamp(min=0)), nbytes, 0,
-            BF16_FLOPS, f"M=N={M} d={d} bf16")
+        idx, dest = (t.to(dev) for t in routed_maps(torch, g, M, E, 1,
+                                                     "grouped"))
+        for form, dst in (("fan-out", dest), ("gather", None)):
+            row("gather_rows", "src/repro_torch/csrc/layout_transform.cu",
+                "src/repro/kernels/layout_transform.py:42",
+                lambda src=src, idx=idx, dst=dst: L.gather_rows(src, idx,
+                                                                dst),
+                lambda src=src, idx=idx: L.gather_rows_plain(src, idx),
+                lambda src=src, idx=idx: torch.index_select(src, 0, idx),
+                M * d * 2 + M * 4 + M * d * 2
+                + (M * 4 if dst is not None else 0), 0, BF16_FLOPS,
+                f"M=N={M} d={d} bf16, {form} form", cold=True, form=form)
     # kernel 10, the seed's row-per-step gather, at kernel 2's main shape
-    # beside it: its own entry point is its path (bench_layout's baseline),
-    # so its launches are counted over this timing run
+    # beside its gather form (the same index map): its own entry point is
+    # its path (bench_layout's baseline), so its launches are counted over
+    # this timing run
     src = torch.randn(T, d, generator=g).to(torch.bfloat16).to(dev)
-    idx = torch.randperm(T, generator=g).to(torch.int32).to(dev)
-    blocked = next(r for r in rows if r["name"] == "gather_rows")
+    idx = routed_maps(torch, g, T, E, 1, "grouped")[0].to(dev)
+    blocked = next(r for r in rows if r["name"] == "gather_rows"
+                   and r["form"] == "gather")
     L.rowstep_launches = 0
     row("gather_rows_rowstep", "src/repro_torch/csrc/layout_transform.cu",
         "src/repro/kernels/layout_transform.py:150",
         lambda: L.gather_rows_rowstep(src, idx),
         lambda: L.gather_rows_rowstep_plain(src, idx),
-        lambda: torch.index_select(src, 0, idx.clamp(min=0)),
-        T * d * 2 + T * 4 + T * d * 2, 0, BF16_FLOPS, f"M=N={T} d={d} bf16")
+        lambda: torch.index_select(src, 0, idx),
+        T * d * 2 + T * 4 + T * d * 2, 0, BF16_FLOPS, f"M=N={T} d={d} bf16",
+        cold=True)
     rows[-1]["launches"] = L.rowstep_launches
     rows[-1]["rowstep_over_blocked"] = rows[-1]["ms"] / blocked["ms"]
     rows[-1]["rowstep_over_blocked_device"] = (
@@ -1319,7 +1493,7 @@ def phase_timings(torch, dev, smi):
             (lambda gs=gs, idx=idx: torch.index_add(zeros, 0, idx, gs))
             if src_rows == n else None,
             src_rows * d * 2 + src_rows * 4 + n * d * 2, 0, BF16_FLOPS,
-            f"{what} {src_rows} -> {n} rows, d={d} bf16")
+            f"{what} {src_rows} -> {n} rows, d={d} bf16", cold=True)
     del zeros, gs
     flash_timings(torch, dev, g, row)
     return rows
@@ -2667,6 +2841,33 @@ def phase_presets_card_vs_cpu(torch, smi):
     return out
 
 
+def print_ptxas(report: str, most: int = 24) -> None:
+    """Registers and spills of each kernel from the build's ptxas report;
+    a source with more than ``most`` instances (the gate's one per k and
+    row layout) as one line: instances, registers at most, spill bytes."""
+    import re
+    for block in report.split("== ")[1:]:
+        name, _, body = block.partition("\n")
+        entries = []
+        for line in body.splitlines():
+            if "Compiling entry" in line:
+                entries.append([line.split(chr(39))[1][:100]])
+            elif entries and ("Used" in line or "spill" in line):
+                entries[-1].append(line.strip())
+        print(f"      == {name}")
+        if len(entries) <= most:
+            for e in entries:
+                print(f"    {e[0]}")
+                for line in e[1:]:
+                    print(f"      {line}")
+            continue
+        text = "\n".join(" ".join(e) for e in entries)
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", text))
+        print(f"      {len(entries)} kernels: at most {max(regs, default=0)} "
+              f"registers, {spill} bytes of spill stores and loads in all")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one "
@@ -2704,11 +2905,7 @@ def main(argv=None) -> int:
     build.load()
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({build.build_info.get('library', 'already built')})")
-    for line in build.build_info.get("ptxas", "").splitlines():
-        if "Compiling entry" in line:
-            print(f"    {line.split(chr(39))[1][:100]}")
-        elif "Used" in line or "spill" in line or line.startswith("=="):
-            print(f"      {line.strip()}")
+    print_ptxas(build.build_info.get("ptxas", ""))
 
     if phases == "trainer":
         print(json.dumps({"remat": phase_remat(torch, smi)}))

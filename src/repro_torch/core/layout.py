@@ -15,7 +15,10 @@ they sort last and never reach a buffer, the counts or the combine.  The
 row moves go through the gather and scatter-add kernels' wrappers (their
 plain versions on a CPU tensor), and nothing here waits on the device:
 the counts come from an ``index_add_`` into a fixed-size vector, not from
-``bincount``, whose output size is read back to the host.
+``bincount``, whose output size is read back to the host.  Each plan also
+carries the inverse of its row map, (S, K) — the sort plan's ``slot``, the
+grouped plan's ``dest`` — so the dispatches run the gather's fan-out form
+(each token read once, written to its K rows).
 """
 from __future__ import annotations
 
@@ -47,12 +50,16 @@ class GroupedPlan(NamedTuple):
     """``sort_order`` (S·K,) k-major flat slot per sorted row, ``token``
     (S·K,) source token per sorted row, ``weight`` (S·K,) combine weight,
     ``counts`` (E,) rows per expert, ``offsets`` (E+1,) their prefix sum
-    (rows past ``offsets[E]`` are the virtual bucket's tail)."""
+    (rows past ``offsets[E]`` are the virtual bucket's tail), ``dest``
+    (S, K) the sorted row of each (token, k) — the inverse of ``token``,
+    which the dispatch's fan-out gather writes through.  The first five
+    fields are the reference's."""
     sort_order: torch.Tensor
     token: torch.Tensor
     weight: torch.Tensor
     counts: torch.Tensor
     offsets: torch.Tensor
+    dest: torch.Tensor
 
 
 def _offsets(counts: torch.Tensor) -> torch.Tensor:
@@ -112,16 +119,22 @@ def plan_grouped(gate: GateOutput, num_experts: int,
     counts = counts[:E]
     flat_w = gate.combine_weights.T.reshape(K * S)
     weight = torch.where(sorted_e < E, flat_w[order], 0.0)
+    # the inverse of the stable order: sorted row of each k-major slot
+    row = torch.empty_like(order)
+    row[order] = torch.arange(K * S, device=order.device)
     return GroupedPlan(sort_order=order.to(torch.int32),
                        token=(order % S).to(torch.int32),
                        weight=weight,
                        counts=counts.to(torch.int32),
-                       offsets=_offsets(counts))
+                       offsets=_offsets(counts),
+                       dest=row.reshape(K, S).T.to(torch.int32).contiguous())
 
 
 def dispatch_scatter(tokens: torch.Tensor, plan: DispatchPlan) -> torch.Tensor:
-    """(S, d) → (E·C, d) off the plan's inverse row map."""
-    return take_rows(tokens, plan.inv)
+    """(S, d) → (E·C, d) off the plan's inverse row map; the fan-out gather
+    reads each token once and writes it to its ``slot`` rows (the inverse
+    of ``inv``), zeros in the empty capacity slots."""
+    return take_rows(tokens, plan.inv, plan.slot)
 
 
 def combine_gather(expert_out: torch.Tensor,
@@ -132,8 +145,9 @@ def combine_gather(expert_out: torch.Tensor,
 
 
 def dispatch_grouped(tokens: torch.Tensor, plan: GroupedPlan) -> torch.Tensor:
-    """(S, d) → (S·K, d) expert-sorted buffer — no padding, no drops."""
-    return take_rows(tokens, plan.token)
+    """(S, d) → (S·K, d) expert-sorted buffer — no padding, no drops: the
+    fan-out gather reads each token once and writes its K ``dest`` rows."""
+    return take_rows(tokens, plan.token, plan.dest)
 
 
 def combine_grouped(expert_out: torch.Tensor, plan: GroupedPlan,

@@ -7,15 +7,28 @@
 // the grouped dispatch (token map), the sort dispatch (inverse row map) and
 // the sort combine (slot map).
 //
-// Bound on the H100: bytes — each output row is read once and written once
-// (M=4096 rows of 4 KiB bf16 move 32 MiB, about 10 us at 3.35 TB/s).
-// Design: the paper's warp-per-row gather.  It copies bytes, so one kernel
-// serves every dtype; lanes move 16-byte vectors when the row width and the
-// pointers allow it (neighbouring lanes on neighbouring addresses), else
-// 4-byte words, else single bytes.  Unlike the TPU version nothing has to
-// stay resident: each warp reads its source row straight from device
-// memory.  An index at or past N also writes a zero row, so the kernel
-// never reads out of bounds.
+// Bound on the H100: bytes — each source row read once and each output row
+// written once (M=4096 rows of 4 KiB bf16 move 32 MiB, about 10 us at
+// 3.35 TB/s).  Design: it copies bytes, so one kernel serves every dtype;
+// a warp moves a row in steps of 8 independent 16-byte loads a lane (4 KiB
+// a warp in flight), then their stores, neighbouring lanes on neighbouring
+// addresses (4-byte words, else bytes, where the width or the pointers are
+// off 16).  An index at or past N also writes a zero row, so the kernel
+// never reads out of bounds.  It has two forms:
+// - the gather, a warp per output row i reading src[idx[i]] — the combine
+//   and the scatter-add's backward, which read each source row at most
+//   once;
+// - the fan-out, for the dispatches, where the caller also passes dest
+//   (N, K), the inverse of idx: a warp per source row reads it once and
+//   writes it to its K rows, and further warps write the zero rows.  At
+//   dbrx's top-4 dispatch (32,768 rows of 12 KiB from 8192) the gather
+//   read each source row 4 times, in expert-sorted order, far apart: the
+//   100 MB source is twice the L2, so the re-reads went back to device
+//   memory (0.269 ms on an H100 80GB HBM3 at 700 W, against 0.150 of
+//   bound).  Each row read once brings
+//   the traffic to the bound's 503 MB.  A TMA form (cp.async.bulk into a
+//   ring of shared-memory stages, one issuing thread per block) was no
+//   faster at 12 KiB rows and slower at 4 KiB (gate_gather_ab.py).
 //
 // scatter_add_rows replaces the TPU kernel repro/kernels/layout_transform.py:
 // _scatter_add_kernel (pallas_call in scatter_add_rows), the gather's VJP:
@@ -48,51 +61,119 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-template <typename U>
-__global__ void gather_rows_kernel(const U* __restrict__ src,
-                                   const int* __restrict__ idx,
-                                   U* __restrict__ out, long long N,
-                                   long long M, long long units) {
-  const long long row =
+// Both forms of the gather on one kernel: a warp per unit row, copying it
+// in steps of U vectors of T a lane (with T = uint4, 4 KiB a warp in
+// flight per step: U independent 16-byte loads a lane, then their stores),
+// neighbouring lanes on neighbouring addresses.
+//  FAN = false, the gather form: warp i loads output row i from
+//    src[idx[i]], or writes zeros when idx[i] < 0 or >= N.
+//  FAN = true, the fan-out form: warp t < N loads source row t once and
+//    stores each step to out[dest[t, k]] for every k with 0 <= dest[t, k]
+//    < M; a row with no destination is not read.  Warps N.. each scan 32
+//    rows of idx and write zeros to the rows with idx < 0 or >= N (the sort
+//    dispatch's empty capacity slots).  dest must be the inverse of idx:
+//    every i with 0 <= idx[i] < N is some dest[idx[i], k].
+template <typename T, bool FAN, int U>
+__global__ void __launch_bounds__(256)
+gather_rows_kernel(const T* __restrict__ src, const int* __restrict__ idx,
+                   const int* __restrict__ dest, T* __restrict__ out,
+                   long long N, long long M, int K, long long units) {
+  const long long w =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const int r = idx[row];
-  U* o = out + row * units;
-  if (r < 0 || r >= N) {
-    const U zero{};
+  const T zero{};
+  if (FAN && w >= N) {
+    const long long i0 = (w - N) * 32, i = i0 + lane;
+    bool empty = false;
+    if (i < M) {
+      const int r = idx[i];
+      empty = r < 0 || r >= N;
+    }
+    for (unsigned mask = __ballot_sync(0xffffffffu, empty); mask;
+         mask &= mask - 1) {
+      T* o = out + (i0 + __ffs(mask) - 1) * units;
+      for (long long c = lane; c < units; c += 32) o[c] = zero;
+    }
+    return;
+  }
+  if (!FAN && w >= M) return;
+  long long r = FAN ? w : idx[w];
+  if (FAN) {
+    bool any = false;
+    for (int k = 0; k < K; ++k) {
+      const int d = dest[w * K + k];
+      any |= d >= 0 && d < M;
+    }
+    if (!any) return;
+  } else if (r < 0 || r >= N) {
+    T* o = out + w * units;
     for (long long c = lane; c < units; c += 32) o[c] = zero;
     return;
   }
-  const U* s = src + (long long)r * units;
-  for (long long c = lane; c < units; c += 32) o[c] = s[c];
+  const T* s = src + r * units;
+  for (long long c0 = lane; c0 < units; c0 += 32 * U) {
+    T v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (c0 + 32 * u < units) v[u] = s[c0 + 32 * u];
+    for (int k = 0; k < (FAN ? K : 1); ++k) {
+      const long long d = FAN ? dest[w * K + k] : w;
+      if (d < 0 || d >= M) continue;
+      T* o = out + d * units;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (c0 + 32 * u < units) o[c0 + 32 * u] = v[u];
+    }
+  }
 }
 
-template <typename U>
-static void launch(const void* src, const void* idx, void* out, long long N,
-                   long long M, long long row_bytes, cudaStream_t stream) {
-  const int threads = 256;
-  const long long rows_per_block = threads / 32;
-  const unsigned int blocks =
-      (unsigned int)((M + rows_per_block - 1) / rows_per_block);
-  gather_rows_kernel<U><<<blocks, threads, 0, stream>>>(
-      (const U*)src, (const int*)idx, (U*)out, N, M,
-      row_bytes / (long long)sizeof(U));
+template <typename T, bool FAN>
+static void launch_gather(const void* src, const void* idx, const void* dest,
+                          void* out, long long N, long long M, int K,
+                          long long row_bytes, cudaStream_t stream) {
+  const long long warps = FAN ? N + (M + 31) / 32 : M;
+  const unsigned int blocks = (unsigned int)((warps + 7) / 8);
+  gather_rows_kernel<T, FAN, 8><<<blocks, 256, 0, stream>>>(
+      (const T*)src, (const int*)idx, (const int*)dest, (T*)out, N, M, K,
+      row_bytes / (long long)sizeof(T));
+}
+
+// 16-byte vectors when the row width and the pointers allow, else 4-byte
+// words, else bytes
+template <bool FAN>
+static int gather_any(const void* src, const void* idx, const void* dest,
+                      void* out, long long N, long long M, int K,
+                      long long row_bytes, cudaStream_t s) {
+  const uintptr_t a = (uintptr_t)src | (uintptr_t)out;
+  if (row_bytes % 16 == 0 && a % 16 == 0)
+    launch_gather<uint4, FAN>(src, idx, dest, out, N, M, K, row_bytes, s);
+  else if (row_bytes % 4 == 0 && a % 4 == 0)
+    launch_gather<unsigned int, FAN>(src, idx, dest, out, N, M, K,
+                                     row_bytes, s);
+  else
+    launch_gather<unsigned char, FAN>(src, idx, dest, out, N, M, K,
+                                      row_bytes, s);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int gather_rows(const void* src, const void* idx, void* out,
                            long long N, long long M, long long row_bytes,
                            void* stream) {
   if (M == 0 || row_bytes == 0) return 0;
-  const uintptr_t a = (uintptr_t)src | (uintptr_t)out;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (row_bytes % 16 == 0 && a % 16 == 0)
-    launch<uint4>(src, idx, out, N, M, row_bytes, s);
-  else if (row_bytes % 4 == 0 && a % 4 == 0)
-    launch<unsigned int>(src, idx, out, N, M, row_bytes, s);
-  else
-    launch<unsigned char>(src, idx, out, N, M, row_bytes, s);
-  return (int)cudaGetLastError();
+  return gather_any<false>(src, idx, nullptr, out, N, M, 1, row_bytes,
+                           (cudaStream_t)stream);
+}
+
+// The fan-out form: dest (N, K) int32, the output rows of each source row
+// (-1 for none), the inverse of idx (M,).  Same result as gather_rows.
+extern "C" int gather_rows_fanout(const void* src, const void* idx,
+                                  const void* dest, void* out, long long N,
+                                  long long M, int K, long long row_bytes,
+                                  void* stream) {
+  if (M == 0 || row_bytes == 0) return 0;
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  return gather_any<true>(src, idx, dest, out, N, M, K, row_bytes,
+                          (cudaStream_t)stream);
 }
 
 constexpr int PLAN_THREADS = 1024;

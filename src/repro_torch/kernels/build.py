@@ -44,6 +44,7 @@ SIGNATURES = {
     "topk_gate_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "launch_empty": (_P,),
     "gather_rows": (_P, _P, _P, _LL, _LL, _LL, _P),
+    "gather_rows_fanout": (_P, _P, _P, _P, _LL, _LL, _I, _LL, _P),
     "gather_rows_rowstep": (_P, _P, _P, _LL, _LL, _LL, _I, _P),
     "grouped_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "grouped_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -7,18 +7,22 @@ _gather_rows_kernel`` and ``scatter_add_rows`` its VJP
 ``_scatter_add_kernel``, with the CUDA kernels of
 ``csrc/layout_transform.cu``.  On the H100 both are bound by bytes: every
 row is read once and written once (32 MiB at 4096 rows of d=2048 bf16:
-10.0 us at an H100 SXM's 3.35 TB/s, 700 W limit).  Design: the paper's
-warp-per-row gather over raw bytes (one kernel for every dtype), 16-byte
-vectors where the row width and pointers allow.  The scatter-add is the
+10.0 us at an H100 SXM's 3.35 TB/s, 700 W limit).  Design: a warp per row
+over raw bytes (one kernel for every dtype), 8 independent 16-byte loads a
+lane in flight.  The gather has two forms.  Given only ``idx`` a warp per
+output row reads ``src[idx[i]]``.  Given also ``dest`` (N, K), the inverse
+of ``idx`` that the layout plans carry, the fan-out form reads each source
+row once and writes it to its K rows (zeros where ``idx < 0``): at top-4
+the plain gather read every token 4 times from device memory.  The
+dispatches pass ``dest``; the combine and the scatter-add's backward read
+each row at most once and keep the gather form.  The scatter-add is the
 gather turned around, and deterministic: a one-block plan inverts ``idx``
 on the device into compressed rows (:func:`scatter_plan` is its plain
 twin), then a warp per (output row, column chunk) sums that row's input
 rows in ascending order in f32 and rounds once to the gradient's dtype —
 no (n, d) scratch, no atomics on the data, the same bits on every run and
-the plain version's for any number of addends per row.  The same gather
-runs the grouped dispatch, the sort dispatch (inverse row map) and the
-sort combine (slot map); the scatter-add runs the grouped combine.  Each
-is differentiable, with the other as its backward, as the reference's
+the plain version's for any number of addends per row.  Each is
+differentiable, with the other as its backward, as the reference's
 ``custom_vjp`` of the gather is.
 
 ``gather_rows_rowstep`` replaces the seed's row-per-step kernel
@@ -28,6 +32,8 @@ own kernel (no code shared with the gather), no backward.  It is on no
 serving or training path.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -46,18 +52,43 @@ def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                                device=src.device))
 
 
-def _gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows_fanout_plain(src: torch.Tensor, idx: torch.Tensor,
+                             dest: torch.Tensor) -> torch.Tensor:
+    """The plain twin of the fan-out form: each source row ``t`` written
+    to the output rows ``dest[t, k] >= 0``, zeros elsewhere — the gather
+    ``out[i] = src[idx[i]]`` when ``dest`` is the inverse of ``idx``.  The
+    wrapper's path for a CPU tensor with ``dest``."""
+    N, K = dest.shape
+    flat = dest.reshape(-1).long()
+    tok = torch.arange(N, device=src.device).repeat_interleave(K)
+    keep = flat >= 0
+    out = torch.zeros((idx.shape[0], src.shape[1]), dtype=src.dtype,
+                      device=src.device)
+    out[flat[keep]] = src[tok[keep]]
+    return out
+
+
+def _gather_rows(src: torch.Tensor, idx: torch.Tensor,
+                 dest: Optional[torch.Tensor] = None) -> torch.Tensor:
     global launches
     if not build.dispatch_device("gather_rows", src):
-        return gather_rows_plain(src, idx)
-    if not (src.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("gather_rows: src and idx must be contiguous")
+        if dest is None:
+            return gather_rows_plain(src, idx)
+        return gather_rows_fanout_plain(src, idx, dest)
+    if not (src.is_contiguous() and idx.is_contiguous()
+            and (dest is None or dest.is_contiguous())):
+        raise ValueError("gather_rows: src, idx and dest must be contiguous")
     N, d = src.shape
     M = idx.shape[0]
     out = torch.empty((M, d), dtype=src.dtype, device=src.device)
     lib = build.load()
-    rc = lib.gather_rows(build.ptr(src), build.ptr(idx), build.ptr(out),
-                         N, M, d * src.element_size(), build.stream(src))
+    if dest is None:
+        rc = lib.gather_rows(build.ptr(src), build.ptr(idx), build.ptr(out),
+                             N, M, d * src.element_size(), build.stream(src))
+    else:
+        rc = lib.gather_rows_fanout(
+            build.ptr(src), build.ptr(idx), build.ptr(dest), build.ptr(out),
+            N, M, dest.shape[1], d * src.element_size(), build.stream(src))
     build.check(rc, "gather_rows")
     launches += 1
     return out
@@ -65,23 +96,29 @@ def _gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 class _GatherRows(torch.autograd.Function):
     """``gather_rows`` with the scatter-add kernel as its backward (the
-    reference's ``_gather_rows_bwd``): d src = scatter_add(g, idx, N)."""
+    reference's ``_gather_rows_bwd``): d src = scatter_add(g, idx, N),
+    whichever form ran forward."""
 
     @staticmethod
-    def forward(ctx, src, idx):
+    def forward(ctx, src, idx, dest):
         ctx.save_for_backward(idx)
         ctx.n = src.shape[0]
-        return _gather_rows(src, idx)
+        return _gather_rows(src, idx, dest)
 
     @staticmethod
     def backward(ctx, g):
         idx, = ctx.saved_tensors
-        return scatter_add_rows(g.contiguous(), idx, ctx.n), None
+        return scatter_add_rows(g.contiguous(), idx, ctx.n), None, None
 
 
-def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(src: torch.Tensor, idx: torch.Tensor,
+                dest: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out (M, d) with out[i] = src[idx[i]] (0 where idx[i] < 0);
-    src (N, d) of any dtype, idx (M,) int32.  Differentiable in ``src``."""
+    src (N, d) of any dtype, idx (M,) int32.  With ``dest`` (N, K) int32,
+    the inverse of ``idx`` (the output rows of source row t, -1 for none:
+    ``idx[dest[t, k]] == t``, every i with ``idx[i] >= 0`` among them),
+    the fan-out form runs: each source row is read once and written to
+    its K rows — the same result.  Differentiable in ``src``."""
     if src.dim() != 2 or idx.dim() != 1 or idx.dtype != torch.int32:
         raise ValueError(f"gather_rows: need src (N, d) and idx (M,) int32, "
                          f"got {tuple(src.shape)} and {tuple(idx.shape)} "
@@ -89,7 +126,16 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if idx.device != src.device:
         raise ValueError(f"gather_rows: src on {src.device}, idx on "
                          f"{idx.device}")
-    return _GatherRows.apply(src, idx)
+    if dest is not None:
+        if (dest.dim() != 2 or dest.shape[0] != src.shape[0]
+                or dest.dtype != torch.int32):
+            raise ValueError(f"gather_rows: dest must be (N={src.shape[0]}, "
+                             f"K) int32, got {tuple(dest.shape)} "
+                             f"{dest.dtype}")
+        if dest.device != src.device:
+            raise ValueError(f"gather_rows: src on {src.device}, dest on "
+                             f"{dest.device}")
+    return _GatherRows.apply(src, idx, dest)
 
 
 def gather_rows_rowstep_plain(src: torch.Tensor,

@@ -35,7 +35,8 @@ def layout_dispatch(tokens: torch.Tensor, slot: torch.Tensor,
                     inv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(S, d), slot (S, K) → (E·C, d) contiguous-per-expert buffer: the
     scatter re-expressed as a row gather over ``inv (E·C,)`` (a sort plan
-    carries it; otherwise it is inverted here)."""
+    carries it; otherwise it is inverted here), run in its fan-out form
+    through ``slot``, the inverse of ``inv``."""
     if inv is None:
         S, K = slot.shape
         EC = num_experts * capacity
@@ -45,7 +46,7 @@ def layout_dispatch(tokens: torch.Tensor, slot: torch.Tensor,
         inv = torch.full((EC + 1,), -1, dtype=torch.int32, device=slot.device)
         inv[torch.where(flat >= 0, flat, EC)] = tok
         inv = inv[:EC]
-    return gather_rows(tokens, inv.contiguous())
+    return gather_rows(tokens, inv.contiguous(), slot.contiguous())
 
 
 def layout_combine(buffer: torch.Tensor, slot: torch.Tensor,

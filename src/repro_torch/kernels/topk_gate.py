@@ -1,11 +1,16 @@
 """Fused softmax statistics + top-k gate (paper §3.2 "Gate Optimization").
 
 Replaces the TPU kernel ``repro/kernels/topk_gate.py:_topk_gate_kernel``
-with the CUDA kernel ``csrc/topk_gate.cu``.  On the H100 it is bound by
-its bytes — 256 KiB of logits at S=4096, E=16 — so the launch is most of
-its cost.  Design: one warp per row, warp-shuffle reductions for the max,
-Σexp (``expf``) and k rounds of argmax with lowest-index ties; no -inf
-padding, since rows are bounded by S.
+with the CUDA kernel ``csrc/topk_gate.cu``.  On the H100 its bytes are
+tiny (4 MiB of logits at S=8192, E=128), so one launch is most of its
+cost.  Design: each row held in registers, loaded once as 16-byte vectors
+over a row's lanes (4 lanes and 8 rows a warp at E=16, 16 lanes of two
+vectors at E=128); sub-warp shuffle butterflies for the argmax, whose
+first round is the row max, and for Σexp (``expf``); a winner masked to
+-inf in the register that holds it, lowest-index ties; one instance per k
+(1..8) and lanes per row, picked by the host.  A scalar path serves E
+that is not a multiple of 4 (E up to ``MAX_E``).  No -inf padding, since
+rows are bounded by S.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import torch
 from repro_torch.kernels import build
 
 MAX_K = 8          # TOPK_MAX_K in csrc/topk_gate.cu
+MAX_E = 512        # TOPK_MAX_E
 launches = 0       # kernel launches since the caller last reset it
 
 
@@ -45,6 +51,8 @@ def fused_topk_gate(logits: torch.Tensor, k: int):
     if not 1 <= k <= min(E, MAX_K):
         raise ValueError(f"fused_topk_gate: k={k} must be in [1, "
                          f"min(E={E}, {MAX_K})]")
+    if E > MAX_E:
+        raise ValueError(f"fused_topk_gate: E={E} experts, at most {MAX_E}")
     build.reject_grad("fused_topk_gate", logits)
     if not build.dispatch_device("fused_topk_gate", logits):
         return topk_gate_plain(logits, k)

@@ -35,19 +35,27 @@ def _bf16_ulp(v: np.ndarray) -> np.ndarray:
 
 def _gate_case(name):
     rng = np.random.default_rng(11)
-    if name == "ties":
-        return rng.integers(0, 3, (77, 16)).astype(np.float32), 2
+    ties = {"ties": (77, 16, 2), "ties E=16 k=4": (64, 16, 4),
+            "ties E=128 k=4": (40, 128, 4)}
+    if name in ties:
+        S, E, k = ties[name]
+        return rng.integers(0, 3, (S, E)).astype(np.float32), k
     S, E, k = {"S=64 k=1": (64, 16, 1), "S=64 k=2": (64, 16, 2),
                "S=37 k=2": (37, 16, 2), "decode S=8": (8, 16, 1),
-               "E=40 k=3": (50, 40, 3)}[name]
+               "E=40 k=3": (50, 40, 3), "E=16 k=4": (64, 16, 4),
+               "E=128 k=1": (40, 128, 1), "E=10 k=3": (33, 10, 3)}[name]
     return rng.standard_normal((S, E)).astype(np.float32), k
 
 
 @pytest.mark.parametrize("name", ["S=64 k=1", "S=64 k=2", "S=37 k=2", "ties",
-                                  "decode S=8", "E=40 k=3"])
+                                  "decode S=8", "E=40 k=3", "E=16 k=4",
+                                  "E=128 k=1", "ties E=16 k=4",
+                                  "ties E=128 k=4", "E=10 k=3"])
 def test_topk_gate_matches_pallas(name):
     """idx, vals and rowmax exact (lowest-index ties); sumexp rtol 1e-6
-    (the two sums add in other orders)."""
+    (the two sums add in other orders).  Beside the paper's E=16 k=1-2:
+    the presets' (E, k) — dbrx's (16, 4), llama4's (128, 1) — exact ties
+    at k=4 and E not a multiple of 4 (the kernel's scalar path)."""
     x, k = _gate_case(name)
     jv, ji, jm, js = (np.asarray(a) for a in jtopk.fused_topk_gate(
         jnp.asarray(x), k, interpret=True))
@@ -447,6 +455,16 @@ def test_grouped_matmul_gradients_match_reference_vjp(dtype):
     lambda: K.fused_topk_gate(torch.zeros(4, 8, dtype=torch.float64), 1),
     lambda: K.fused_topk_gate(torch.zeros(4, 8), 9),
     lambda: L.gather_rows(torch.zeros(4, 8), torch.zeros(3, dtype=torch.int64)),
+    # the fan-out form's dest: (N, K) int32 on src's device
+    lambda: L.gather_rows(torch.zeros(4, 8), torch.zeros(3, dtype=torch.int32),
+                          torch.zeros(3, 2, dtype=torch.int32)),
+    lambda: L.gather_rows(torch.zeros(4, 8), torch.zeros(3, dtype=torch.int32),
+                          torch.zeros(4, dtype=torch.int32)),
+    lambda: L.gather_rows(torch.zeros(4, 8), torch.zeros(3, dtype=torch.int32),
+                          torch.zeros(4, 2, dtype=torch.int64)),
+    lambda: L.gather_rows(torch.zeros(4, 8), torch.zeros(3, dtype=torch.int32),
+                          torch.zeros(4, 2, dtype=torch.int32, device="meta")),
+    lambda: K.fused_topk_gate(torch.zeros(4, 513), 1),
     lambda: G.grouped_matmul(torch.zeros(4, 8), torch.zeros(2, 8, 3),
                              torch.zeros(2, dtype=torch.int32)),
     lambda: G.grouped_matmul(torch.zeros(4, 8, dtype=torch.bfloat16),

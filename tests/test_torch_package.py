@@ -23,7 +23,8 @@ from repro_torch.models.transformer import Transformer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "flash_ab.py", ROOT / "drhs_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "flash_ab.py", ROOT / "drhs_ab.py",
+    ROOT / "gate_gather_ab.py"]
 
 
 def _imported_roots(path):
@@ -116,6 +117,17 @@ def test_drhs_ab_exits_without_a_gpu():
         pytest.skip("a GPU is present: the tool would build and time")
     r = subprocess.run([sys.executable, str(ROOT / "drhs_ab.py"),
                         "a.cu", "b.cu"], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 2 and "no GPU" in r.stderr
+
+
+def test_gate_gather_ab_exits_without_a_gpu():
+    """The A/B tool of the gate and the gather likewise exits 2 without
+    CUDA, before it looks for nvcc."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the tool would build and time")
+    r = subprocess.run([sys.executable, str(ROOT / "gate_gather_ab.py"),
+                        "a", "b"], cwd=ROOT, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 2 and "no GPU" in r.stderr
 

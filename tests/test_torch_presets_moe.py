@@ -160,7 +160,7 @@ def test_grouped_combine_is_ordered_through_the_scatter_add_kernel(
     want = torch.zeros(S, ys.shape[1])
     for i in range(ys.shape[0]):
         want[plan.token[i]] += ys[i].float() * plan.weight[i]
-    jplan = jlayout.GroupedPlan(*(jnp.asarray(t.numpy()) for t in plan))
+    jplan = jlayout.GroupedPlan(*(jnp.asarray(t.numpy()) for t in plan[:5]))
     calls = []
     real = L._scatter_add_rows
     monkeypatch.setattr(L, "_scatter_add_rows",
