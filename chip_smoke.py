@@ -22,7 +22,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    dk/dv (2g-2i: the seq-1024 training shape, GQA with a window and a
    softcap, ragged S=600 with invalid key slots and a fully masked row,
    S=1, Sq != Sk, q positions offset against k, the first 100 key slots
-   invalid).
+   invalid); the forward alone also at head dims 120 and 256 (2l-2m,
+   with phase 13).
 3. Serving at full width: ``hetumoe-paper-16e`` (bf16, seeded random
    weights) through ``repro_torch.launch.serve.run`` → ``generate``, batch 8,
    32 new tokens: prompt 512 with ``grouped`` and with ``sort`` dispatch,
@@ -111,13 +112,38 @@ Phases, in order; any failure ends the script with a non-zero exit:
    prompts 512 and 1024 and at decode; 2g: the flash kernels at H:KV
    48:8, 40:8, 32:4, 24:2, B=8, S=1024) and times the prompt-1024 and
    decode shapes on the same inputs (rows of phase 5).
+13. The windowed presets whole (bf16, seeded weights drawn leaf by leaf
+   into bf16): ``gemma2-9b`` (42 layers: ``local`` with window 4096 and
+   ``global``, attention softcap 50, head dim 256) and
+   ``h2o-danube-3-4b`` (24 layers, window 4096, head dim 120) through
+   ``Transformer`` → ``serving.engine.generate``, batch 4, prompts 8064 +
+   128 new tokens (the prefill overflows the 4096-slot ring caches) and
+   4064 + 64 (the rings wrap at decode step 32), two runs per cell: the
+   flash forward once per layer per prefill and no other kernel, greedy
+   tokens equal over the two runs, finite logits; prefill and decode
+   times, tokens/s, the peak memory of the init and of serving; one
+   profiled prefill and decode steps per preset (0 host waits).  Then
+   danube's decode through its ring caches against linear caches of the
+   full length under the same window, teacher-forced (logits within
+   ``RING_BOUND`` of their max, differing greedy choices only at
+   near-ties within it), and card against CPU in f32 at prompt 640 (the
+   flash path): a gemma2 ``local`` and a ``global`` block and a danube
+   block, each within 1e-4 of its max.  Phase 2 holds the flash forward
+   at those head dims against its plain version, kv head by kv head, in
+   f32 and bf16: 2l at edge cases (fully masked rows, -1 slots, shuffled
+   key positions under a window, Sq != Sk), 2m at the prefill shapes at
+   B=4, which it also times (beside its bound over the pairs the window
+   keeps, the bound of its own arithmetic over the tiles it visits, and
+   ``flex_attention`` with the window as a block mask and the softcap as
+   a score_mod, the same function, held to the plain version too; SDPA
+   with a boolean window mask, or without the cap, labelled beside it).
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all ten kernels; the row-per-step gather, on no
 serving or training path, with the launches of its phase-5 run), and
 ``{"ok": true, "device": {...}}``.  ``--phases kernels`` runs phases 1, 2
 and 5 only, for work on a kernel, ``--phases trainer`` phases 1 and
-9-11, and ``--phases presets`` phases 1 and 12; each ends with
+9-11, and ``--phases presets`` phases 1, 12 and 13; each ends with
 ``"ok": false``.  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -1003,6 +1029,36 @@ FLASH_CASES = [
      128, True, None, None, 0.0, 0, 0) for H, KV, who in PRESET_HEADS]
 
 
+def fwd_order_bound(torch, F, q, k, v, q_pos, k_pos, st, lse):
+    """The forward's part of ``flash_order_bounds``, per element of o:
+    2*(Sk + 2*dp*max_k SA)*2^-24*(p@|v|)/l for the f32 summation order
+    (dp: the head dim the tensor cores sum over, d padded to a multiple of
+    16 with zeros) and 2^-16*(p@|v|)/l for the split p = hi + lo."""
+    B, H, Sq, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G, scale = H // KV, st[0]
+    dp = -(-d // 16) * 16
+    s, _, _ = F._scores(q, k, q_pos, k_pos, *st)
+    sa = torch.einsum("bkgqd,bksd->bkgqs", F._grouped(q, KV).abs(),
+                      k.float().abs()) * scale
+    p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None])
+    del s
+    pv = torch.einsum("bkgqs,bksd->bkgqd", p, v.float().abs())
+    m = sa.amax(-1, keepdim=True)
+    return ((2 * (Sk + 2 * dp * m) * 2.0 ** -24 + 2.0 ** -16) * pv
+            ).reshape(q.shape)
+
+
+def flash_fwd_bf16p_plain(torch, F, q, k, v, q_pos, k_pos, st):
+    """o of the plain forward with p rounded to bf16 before its product
+    (the chunked ``_attend``'s rounding of p)."""
+    s, _, _ = F._scores(q, k, q_pos, k_pos, *st)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bkgqs,bksd->bkgqd", p.to(torch.bfloat16).float(),
+                     v.float()) / p.sum(-1, keepdim=True)
+    return o.reshape(q.shape).to(q.dtype)
+
+
 def flash_order_bounds(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st):
     """Per-element bounds of o, dq, dk and dv between the bf16 kernels and
     their plain versions on the same inputs (the same o, lse and delta for
@@ -1028,16 +1084,13 @@ def flash_order_bounds(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st):
     B, H, Sq, d = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G, scale, u, r = H // KV, st[0], 2.0 ** -24, 2.0 ** -16
+    o_b = fwd_order_bound(torch, F, q, k, v, q_pos, k_pos, st, lse)
     gq, gdo = F._grouped(q, KV), F._grouped(do, KV)
     ak = k.float().abs()
     s, _, _ = F._scores(q, k, q_pos, k_pos, *st)
     sa = torch.einsum("bkgqd,bksd->bkgqs", gq.abs(), ak) * scale
     p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None])
     del s
-    pv = torch.einsum("bkgqs,bksd->bkgqd", p, v.float().abs())
-    o_b = ((2 * (Sk + 2 * d * sa.amax(-1, keepdim=True)) * u + r) * pv
-           ).reshape(q.shape)
-    del pv
     o_plain, _ = F.flash_fwd_plain(q, k, v, q_pos, k_pos, *st)
     a = torch.einsum("bkgqd,bksd->bkgqs", gdo.abs(), v.float().abs())
     dsum = (gdo.abs() * F._grouped(o_plain, KV).abs()).sum(-1)[..., None]
@@ -1065,17 +1118,13 @@ def flash_bf16p_plain(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st):
 
     def r(t):
         return t.to(torch.bfloat16).float()
-    s, _, _ = F._scores(q, k, q_pos, k_pos, *st)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    o = torch.einsum("bkgqs,bksd->bkgqd", r(p), v.float()) / p.sum(
-        -1, keepdim=True)
-    del s, p
+    o = flash_fwd_bf16p_plain(torch, F, q, k, v, q_pos, k_pos, st)
     p, ds = F._probs_and_ds(q, k, v, do, lse, delta, q_pos, k_pos, *st)
     dq = torch.einsum("bkgqs,bksd->bkgqd", r(ds), k.float()) * scale
     dk = torch.einsum("bkgqs,bkgqd->bksd", r(ds), F._grouped(q, KV)) * scale
     dv = torch.einsum("bkgqs,bkgqd->bksd", r(p), F._grouped(do, KV))
-    return (o.reshape(q.shape).to(q.dtype), dq.reshape(q.shape).to(q.dtype),
-            dk.to(k.dtype), dv.to(v.dtype))
+    return (o, dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def phase_flash_kernels(torch, dev):
@@ -1161,6 +1210,259 @@ def phase_flash_kernels(torch, dev):
             del bounds, rounded, bwd
         torch.cuda.empty_cache()
     return errs
+
+
+# The windowed presets' flash forward at 4 prompts of 8064 tokens, phase
+# 13's prefill: (name, H, KV, d, window, cap); phase 2m checks and times
+# each at that batch
+WINDOWED_FLASH = (("gemma2-9b local", 16, 8, 256, 4096, 50.0),
+                  ("gemma2-9b global", 16, 8, 256, None, 50.0),
+                  ("h2o-danube-3-4b", 32, 8, 120, 4096, None))
+WINDOWED_B, WINDOWED_S = 4, 8064
+# (name, B, H, KV, Sq, Sk, d, causal, window, cap, share of k_pos set to -1
+#  (and the key at the first query's position: that row has no key),
+#  shuffled key positions) of phase 2l: edge cases at the head dims only
+#  the forward takes
+FLASH_WIDE_CASES = [
+    ("d=120 window 100, k_pos -1 slots, row 0 fully masked (S=600)", 1, 4,
+     2, 600, 600, 120, True, 100, None, 0.1, False),
+    ("d=256 window 100, softcap 50, shuffled key positions (S=700)", 1, 4,
+     2, 700, 700, 256, True, 100, 50.0, 0.0, True),
+    ("d=120 window 64, shuffled key positions, -1 slots, row 0 fully "
+     "masked (B=2 Sq=300 Sk=900)", 2, 8, 2, 300, 900, 120, True, 64, None,
+     0.1, True),
+    ("d=256 non-causal, softcap 50, Sq=100 Sk=333 (ragged)", 1, 4, 4, 100,
+     333, 256, False, None, 50.0, 0.0, False)]
+WIDE_TOLERANCES = ("f32 rtol/atol 1e-4; bf16 1 ulp + fwd_order_bound, "
+                   "Frobenius distance <= 1/4 of the bf16-p plain "
+                   "version's; lse rtol/atol 1e-4")
+
+
+def check_fwd_by_kv_head(torch, F, q, k, v, qp, kp, st, o_k, lse_k,
+                         others=None):
+    """The forward's ``o_k``, ``lse_k`` against its plain version on the
+    same inputs, kv head by kv head (the plain version's scores at
+    S=8064 take 1-2 GB a kv head), to 2g's tolerances (``WIDE_TOLERANCES``).
+    ``others``: {name: o} of further bf16 computations of the same
+    function, whose Frobenius distance from the plain result is returned
+    beside the kernel's.  Returns (ok, max abs err, note, {name: distance}
+    with "kernel" and, in bf16, "bf16-p plain")."""
+    B, H, _, _ = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    bf16 = q.dtype == torch.bfloat16
+    others = others or {}
+    ok, worst, ratio, past, lse_err = True, 0.0, 0.0, 0, 0.0
+    sq = dict.fromkeys(["kernel", "bf16-p plain", *others], 0.0)
+    for b in range(B):
+        for kh in range(KV):
+            hs = slice(kh * G, (kh + 1) * G)
+            qs, ks, vs = (q[b:b + 1, hs], k[b:b + 1, kh:kh + 1],
+                          v[b:b + 1, kh:kh + 1])
+            o_p, lse_p = F.flash_fwd_plain(qs, ks, vs, qp, kp, *st)
+            out, lk = o_k[b:b + 1, hs], lse_k[b:b + 1, hs]
+            err = (out.float() - o_p.float()).abs()
+            worst = max(worst, err.max().item())
+            lse_err = max(lse_err, (lk - lse_p).abs().max().item())
+            ok &= bool(torch.allclose(lk, lse_p, rtol=1e-4, atol=1e-4))
+            if not bf16:
+                ok &= bool(torch.allclose(out, o_p, rtol=1e-4, atol=1e-4))
+                continue
+            ulp = bf16_ulp(torch, o_p.float())
+            bound = fwd_order_bound(torch, F, qs, ks, vs, qp, kp, st, lse_p)
+            ok &= bool((err <= ulp + bound).all())
+            ratio = max(ratio, (err / (ulp + bound)).max().item())
+            past += int((err > ulp).sum())
+            sq["kernel"] += err.norm().item() ** 2
+            sq["bf16-p plain"] += (flash_fwd_bf16p_plain(
+                torch, F, qs, ks, vs, qp, kp, st).float()
+                - o_p.float()).norm().item() ** 2
+            for name, o in others.items():
+                sq[name] += (o[b:b + 1, hs].float()
+                             - o_p.float()).norm().item() ** 2
+            del bound, o_p, err
+    note = f"; lse max abs err {lse_err:.3e}"
+    dist = {}
+    if bf16:
+        dist = {name: s ** 0.5 for name, s in sq.items()}
+        ok &= dist["kernel"] <= dist["bf16-p plain"] / 4
+        note = (f", {past} past 1 ulp, max err/(ulp + bound) {ratio:.3f}, "
+                + ", ".join(f"|{n} - plain|_F {x:.3e}"
+                            for n, x in dist.items()) + note)
+    return ok, worst, note, dist
+
+
+def phase_flash_wide(torch, dev, errs):
+    """Phase 2l: the flash forward at the head dims that only it takes (120
+    and 256) against its plain version on the card, on the same inputs, at
+    edge cases (fully masked rows, -1 slots, shuffled key positions under
+    a window, Sq != Sk), in f32 and bf16, to ``WIDE_TOLERANCES``; phase
+    2m checks the served shapes."""
+    from repro_torch.kernels import flash_attention as F
+    g = torch.Generator(device="cpu").manual_seed(2020)
+    print(f"phase 2l: flash forward at head dims 120 and 256 (forward only: "
+          f"dq and dk/dv refuse them), edge cases, against its plain "
+          f"version; {WIDE_TOLERANCES}")
+    for (name, B, H, KV, Sq, Sk, d, causal, window, cap, invalid,
+         shuffle) in FLASH_WIDE_CASES:
+        x32 = [torch.randn(s, generator=g) for s in
+               ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d))]
+        q_pos = torch.arange(Sq, dtype=torch.int32)
+        k_pos = (torch.randperm(Sk, generator=g).to(torch.int32) if shuffle
+                 else torch.arange(Sk, dtype=torch.int32))
+        if invalid:
+            k_pos[k_pos == 0] = -1          # query 0 keeps no key
+            k_pos[torch.rand(Sk, generator=g) < invalid] = -1
+        qp, kp = q_pos.to(dev), k_pos.to(dev)
+        st = (d ** -0.5, causal, window, cap)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dt).to(dev) for t in x32)
+            o_k, lse_k = F.flash_fwd(q, k, v, qp, kp, *st)
+            torch.cuda.synchronize()
+            ok, worst, note, _ = check_fwd_by_kv_head(torch, F, q, k, v, qp,
+                                                      kp, st, o_k, lse_k)
+            errs["flash_fwd_wide"] = max(errs.get("flash_fwd_wide", 0.0),
+                                         worst)
+            print(f"  {name} {dt} o: max abs err {worst:.3e}{note}: {ok}")
+            check(ok, f"flash forward {name} {dt} disagrees with its plain "
+                      f"version")
+            del q, k, v, o_k, lse_k
+        torch.cuda.empty_cache()
+
+
+def flex_yardstick(torch, q, k, v, scale, window, cap):
+    """One call of ``torch.nn.attention.flex_attention`` computing the
+    kernel's function on the same inputs (positions 0..S-1): the causal
+    window as a block mask, the softcap as a score_mod, GQA in the call;
+    compiled here, once, outside any timing.  Returns (call, seconds to
+    compile) or (None, why not)."""
+    import os
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        S = q.shape[2]
+
+        def mask_mod(b, h, qi, ki):
+            keep = ki <= qi
+            return keep if window is None else keep & (ki > qi - window)
+
+        def softcap(s, b, h, qi, ki):
+            return cap * torch.tanh(s / cap)
+        block_mask = create_block_mask(mask_mod, None, None, S, S,
+                                       device=q.device)
+        fn = torch.compile(flex_attention, dynamic=False)
+
+        def call():
+            return fn(q, k, v, score_mod=None if cap is None else softcap,
+                      block_mask=block_mask, scale=scale, enable_gqa=True)
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return call, time.perf_counter() - t0
+    except Exception as e:                     # noqa: BLE001 - reported
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def phase_windowed_flash(torch, dev, smi, errs):
+    """Phase 2m: the flash forward at the windowed presets' prefill of
+    ``WINDOWED_B`` prompts of ``WINDOWED_S`` tokens (``WINDOWED_FLASH``),
+    checked in f32 and bf16 against its plain version on the same inputs
+    (``check_fwd_by_kv_head``, ``WIDE_TOLERANCES``) and timed in bf16 as
+    phase 5 times it: ``bound_ms`` from the (q, k) pairs the causal
+    window keeps (2 products of 2d operations each) or the bytes of q, k,
+    v, o and lse, whichever is larger; ``visited_bound_ms`` the bound of
+    the kernel's own arithmetic over the tiles it visits (q k^T over dp =
+    d padded to 16, P v twice over d, as hi and lo).  The plain version
+    runs kv head by kv head, the same function in 32 calls.  Yardstick:
+    ``flex_attention`` with the window as a block mask and the softcap as
+    a score_mod (``flex_yardstick``), the same function, held to the
+    plain version as the kernel's bf16-p plain twin is (Frobenius
+    distance at most that of the plain version with p rounded to bf16,
+    which flex also rounds p to, times 2); beside it, labelled, SDPA:
+    with a boolean mask of the window over k and v expanded to the query
+    heads (danube, the same function), or without the cap (gemma2, a
+    different function)."""
+    from repro_torch.kernels import flash_attention as F
+    gd = torch.Generator(device=dev).manual_seed(2021)
+    rows = TimingRows(torch, smi)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, S = WINDOWED_B, WINDOWED_S
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    print(f"phase 2m: flash forward at the windowed presets' prefill (B={B}"
+          f" S={S} causal): f32 and bf16 against its plain version "
+          f"({WIDE_TOLERANCES}); bf16 timed as in phase 5, beside "
+          f"flex_attention")
+    for name, H, KV, d, window, cap in WINDOWED_FLASH:
+        G = H // KV
+        q = torch.randn((B, H, S, d), generator=gd, device=dev)
+        k, v = (torch.randn((B, KV, S, d), generator=gd, device=dev)
+                for _ in range(2))
+        st = (d ** -0.5, True, window, cap)
+        o_k, lse_k = F.flash_fwd(q, k, v, pos, pos, *st)
+        ok, worst, note, _ = check_fwd_by_kv_head(torch, F, q, k, v, pos,
+                                                  pos, st, o_k, lse_k)
+        print(f"  {name} f32 o: max abs err {worst:.3e}{note}: {ok}")
+        check(ok, f"flash forward {name} f32 disagrees with its plain "
+                  f"version")
+        del o_k, lse_k
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        torch.cuda.empty_cache()
+        flex, built = flex_yardstick(torch, q, k, v, st[0], window, cap)
+        o_k, lse_k = F.flash_fwd(q, k, v, pos, pos, *st)
+        others = {} if flex is None else {"flex_attention": flex()}
+        ok, worst, note, dist = check_fwd_by_kv_head(
+            torch, F, q, k, v, pos, pos, st, o_k, lse_k, others)
+        errs["flash_fwd_wide"] = max(errs.get("flash_fwd_wide", 0.0), worst)
+        print(f"  {name} bf16 o: max abs err {worst:.3e}{note}: {ok}")
+        check(ok, f"flash forward {name} bf16 disagrees with its plain "
+                  f"version")
+        if flex is None:
+            print(f"    flex_attention does not run here: {built}")
+        else:
+            print(f"    flex_attention compiled in {built:.1f} s")
+            check(dist["flex_attention"] <= 2 * dist["bf16-p plain"],
+                  f"flex_attention computes another function than the "
+                  f"kernel at {name}: {dist}")
+        del o_k, lse_k, others
+        allowed = F._mask(pos, pos, True, window)
+        pairs = int(allowed.sum())
+        visited = int(F.visited_k_tiles(pos.cpu(), pos.cpu(), True, window)
+                      .sum()) * F.GROUP / F.TILE     # in 64x64 tiles
+        dp = -(-d // 16) * 16
+        own = visited * B * H * 2 * F.TILE ** 2 * (dp + 2 * d)
+        nbytes = (2 * B * H * S * d * 2 + 2 * B * KV * S * d * 2
+                  + B * H * S * 4 + 2 * S * 4)
+        ke, ve = (t.repeat_interleave(G, dim=1) for t in (k, v))
+        mask = None if window is None else allowed
+
+        def sdpa_call(ke=ke, ve=ve, mask=mask):
+            return sdpa(q, ke, ve, attn_mask=mask, is_causal=mask is None)
+        extra = {"flex_attention_compile_s": built} if flex else {
+            "library_note": f"flex_attention does not run: {built}"}
+        extra["sdpa_masked_device_ms" if cap is None
+              else "sdpa_uncapped_device_ms"] = graph_ms(
+            torch, sdpa_call, reps=10, per_graph=3)
+        rows.add("flash_fwd", "src/repro_torch/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:49",
+                 lambda q=q, k=k, v=v, st=st: F.flash_fwd(q, k, v, pos, pos,
+                                                          *st),
+                 lambda q=q, k=k, v=v, st=st, G=G, KV=KV: [
+                     F.flash_fwd_plain(q[b:b + 1, h * G:(h + 1) * G],
+                                       k[b:b + 1, h:h + 1],
+                                       v[b:b + 1, h:h + 1], pos, pos, *st)
+                     for b in range(B) for h in range(KV)],
+                 flex, nbytes, 2 * 2 * d * B * H * pairs, BF16_FLOPS,
+                 f"{name} B={B} H:KV={H}:{KV} S={S} d={d} bf16 causal "
+                 f"window={window} cap={cap}", slow=True,
+                 visited_tiles=f"{visited:g} of {(S // F.TILE) ** 2}",
+                 visited_bound_ms=1e3 * own / BF16_FLOPS, **extra)
+        del q, k, v, ke, ve, allowed, mask, flex
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2771,10 +3073,10 @@ def phase_presets_card_vs_cpu(torch, smi):
     def block_params(cfg, kind):
         return init_block(cfg, kind, gd, device="cuda")
 
-    def run_block(p, x, cfg):
+    def run_block(p, x, cfg, kind="moe"):
         with torch.inference_mode():
             pos = torch.arange(S, dtype=torch.int32, device=x.device)
-            y, _, _ = block_forward(p, x, cfg, positions=pos)
+            y, _, _ = block_forward(p, x, cfg, kind=kind, positions=pos)
         return y.cpu()
 
     # dbrx: one moe block, both dispatch modes
@@ -2827,7 +3129,8 @@ def phase_presets_card_vs_cpu(torch, smi):
     x = torch.randn((1, S, cfg.d_model), generator=gd, device="cuda")
     out["llama4 dense block"] = dict(rel=compare(
         "llama4 dense block (qk-norm, GQA 40:8, SwiGLU d_ff 8192)",
-        run_block(p_cpu, x.cpu(), cfg), run_block(p_card, x, cfg)))
+        run_block(p_cpu, x.cpu(), cfg, "dense"),
+        run_block(p_card, x, cfg, "dense")))
     f = cfg.moe.d_ff_expert * cfg.moe.num_shared_experts
     shared = layers.init_mlp(gd, cfg.d_model, f, cfg.act, device="cuda")
     shared_cpu = tree.map_(lambda t: t.cpu(), shared)
@@ -2838,6 +3141,233 @@ def phase_presets_card_vs_cpu(torch, smi):
         f"llama4 moe block's shared expert (SwiGLU, {f} wide)", *ys))
     del p_card, p_cpu, shared, shared_cpu
     release(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the windowed presets, whole
+# ---------------------------------------------------------------------------
+
+WINDOWED = ("gemma2-9b", "h2o-danube-3-4b")
+# batch, and (prompt, new tokens) of the cells: 8064 + 128 fills both
+# models' 8192 context and overflows the 4096-slot rings in the prefill;
+# 4064 + 64 wraps them at decode step 32
+WINDOWED_SERVE = dict(batch=WINDOWED_B, cells=((WINDOWED_S, 128),
+                                               (4064, 64)))
+# ring against linear caches: greedy tokens that differ must be near-ties,
+# within the logits' bound: RING_BOUND * max|logit| (16 bf16 ulps of the
+# largest logit; the two runs sum each decode step's softmax and p v over
+# the slots in other orders, and a 1-ulp flip of a bf16 p or o in one of
+# 24 layers moves the logits by a few ulps)
+RING_BOUND = 2.0 ** -4
+
+
+def cache_lengths(cfg, cache_len: int):
+    """The layers' cache lengths, as ``Transformer.init_caches`` sizes
+    them (a ring where that is the window)."""
+    from repro_torch.models.transformer import block_window, layer_kinds
+    wins = {block_window(kind, cfg) for kind in layer_kinds(cfg)}
+    return sorted({cache_len if w is None else min(cache_len, w)
+                   for w in wins})
+
+
+def phase_windowed(torch, smi):
+    """Phase 13: ``gemma2-9b`` (42 layers, local/global, d=256, softcaps)
+    and ``h2o-danube-3-4b`` (24 layers, window 4096, d=120) whole, bf16,
+    weights drawn from seed 0 straight into bf16, through ``Transformer``
+    → ``serving.engine.generate``, batch 4, prompts 8064 + 128 new tokens
+    and 4064 + 64, two runs per cell: the flash forward once per layer per
+    prefill and no other kernel, greedy tokens equal over the two runs,
+    every sampled logits row finite; the second run's times.  Then one
+    profiled prefill of 8064 tokens and 8 decode steps per preset (0 host
+    waits), danube's ring caches against linear ones
+    (``ring_vs_linear``), and the blocks card against CPU in f32
+    (``phase_windowed_card_vs_cpu``)."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import engine
+    B = WINDOWED_SERVE["batch"]
+    print(f"phase 13: the windowed presets whole, bf16, batch {B}, cells "
+          f"(prompt, new tokens) {WINDOWED_SERVE['cells']}, 2 runs per cell "
+          f"(times from the second)")
+    out, totals = {}, dict.fromkeys(SERVE_KERNELS, 0)
+    for arch in WINDOWED:
+        cfg = configs.get_config(arch)
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Transformer(cfg, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in model.parameters())
+        weights = torch.cuda.memory_allocated() / 2 ** 30
+        print(f"  [{smi}] {arch}: {cfg.num_layers} layers "
+              f"{cfg.block_pattern}, head dim {cfg.head_dim}, "
+              f"{n_params / 1e9:.3f}B parameters, weights {weights:.3f} GiB, "
+              f"init {init_s:.1f} s with peak {init_peak:.3f} GiB")
+        gcpu = torch.Generator().manual_seed(13)
+        prompts = {S: torch.randint(0, cfg.vocab_size, (B, S), generator=gcpu)
+                   for S, _ in WINDOWED_SERVE["cells"]}
+        engine.generate(model, prompts[WINDOWED_S][:, :600], steps=2)
+        cells = {}
+        for S, gen in WINDOWED_SERVE["cells"]:
+            cell = f"{arch} prompt {S} + {gen}"
+            want = preset_expect(cfg, None, S, gen)
+            lens = cache_lengths(cfg, S + gen)
+            release(torch)
+            torch.cuda.reset_peak_memory_stats()
+            runs = []
+            for _ in range(2):
+                st = {}
+                reset_counts()
+                toks = engine.generate(model, prompts[S], steps=gen, stats=st)
+                counts = read_counts()
+                runs.append((toks.cpu(), st, counts))
+                check(counts == want,
+                      f"{cell}: launches {counts} != expected {want}")
+                check(st["logits_finite"], f"{cell}: non-finite logits")
+                for k in totals:
+                    totals[k] += counts[k]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            toks, st, counts = runs[1]
+            check(tuple(toks.shape) == (B, S + gen),
+                  f"{cell}: output shape {tuple(toks.shape)}")
+            new = toks[:, S:]
+            check(bool(((new >= 0) & (new < cfg.vocab_size)).all()),
+                  f"{cell}: generated ids out of range")
+            same = torch.equal(runs[0][0], toks)
+            check(same, f"{cell}: greedy tokens differ between two runs")
+            decode_ms = 1e3 * st["decode_s"] / st["decode_steps"]
+            tok_s = B * gen / (st["prefill_s"] + st["decode_s"])
+            prefill_tok_s = B * S / st["prefill_s"]
+            print(f"  [{smi}] {cell}: prefill {1e3 * st['prefill_s']:.3f} ms "
+                  f"({prefill_tok_s:.1f} prompt tokens/s; first run "
+                  f"{1e3 * runs[0][1]['prefill_s']:.3f}), decode "
+                  f"{decode_ms:.3f} ms/step, {tok_s:.1f} generated tokens/s, "
+                  f"peak memory {peak:.3f} GiB, cache lengths {lens} (rings "
+                  f"of {sorted(set(lens) - {S + gen})}), greedy tokens equal "
+                  f"over 2 runs={same}, launches {counts}")
+            cells[cell] = dict(prefill_ms=1e3 * st["prefill_s"],
+                               decode_ms_per_step=decode_ms,
+                               tokens_per_s=tok_s,
+                               prefill_tokens_per_s=prefill_tok_s,
+                               peak_gib=peak, launches=counts,
+                               cache_lengths=lens)
+        profile = profile_serving(torch, smi, model, cfg, None, WINDOWED_S,
+                                  B, name=f"{arch} ")
+        out[arch] = dict(layers=cfg.num_layers, params=n_params,
+                         weights_gib=weights, init_s=init_s,
+                         init_peak_gib=init_peak, cells=cells,
+                         profile=profile)
+        if arch == "h2o-danube-3-4b":       # the cell whose rings wrap
+            S, gen = WINDOWED_SERVE["cells"][1]
+            out["ring vs linear"] = ring_vs_linear(
+                torch, smi, model, cfg, prompts[S], gen)
+        del model
+    release(torch)
+    out["card vs cpu"] = phase_windowed_card_vs_cpu(torch, smi)
+    return totals, out
+
+
+def ring_vs_linear(torch, smi, model, cfg, prompt, steps):
+    """Greedy decode of ``steps`` tokens after ``prompt`` through the
+    served caches (rings of the window's 4096 slots, which wrap at step
+    4096 - S) and through linear caches of the full length under the same
+    window, the linear run fed the ring run's tokens, so that every step's
+    logits compare: max|ring - linear| <= RING_BOUND * max|linear|, and a
+    step whose two argmaxes differ must be a near-tie within that bound in
+    the linear run's logits."""
+    from repro_torch.models import attention as attn_lib
+    B, S = prompt.shape
+    L = S + steps
+    prompt = prompt.to(model.device)
+
+    def run(caches, feed=None):
+        with torch.inference_mode():
+            h, _, caches = model.forward(prompt, caches=caches)
+            outs = [model.logits_from_hidden(h[:, -1:])[:, -1].float()]
+            toks = []
+            for i in range(steps - 1):
+                tok = (outs[-1].argmax(-1, keepdim=True) if feed is None
+                       else feed[i])
+                toks.append(tok)
+                lg, caches = model.decode_step(tok, caches)
+                outs.append(lg[:, -1].float())
+        return torch.stack(outs), toks, caches
+
+    ring, toks, rc = run(model.init_caches(B, L))
+    linear, _, lc = run([attn_lib.init_cache(cfg.attention, B, L,
+                                             cfg.d_model, model.dtype,
+                                             model.device)
+                         for _ in model.blocks], feed=toks)
+    check({c["k"].shape[1] for c in rc} == {cfg.attention.window}
+          and {c["k"].shape[1] for c in lc} == {L},
+          f"ring vs linear: cache lengths {rc[0]['k'].shape[1]}, "
+          f"{lc[0]['k'].shape[1]}")
+    scale = linear.abs().max().item()
+    diff = (ring - linear).abs().max().item()
+    a, b = ring.argmax(-1), linear.argmax(-1)
+    differ = (a != b).nonzero().tolist()
+    margins = [(linear[i, r, b[i, r]] - linear[i, r, a[i, r]]).item()
+               for i, r in differ]
+    wraps = cfg.attention.window - S
+    print(f"  [{smi}] ring vs linear ({cfg.name}, prompt {S}, {steps} "
+          f"steps, the rings wrap at step {wraps}): max|ring - linear| "
+          f"{diff:.4e} / max|logit| {scale:.4e} = {diff / scale:.4e} (bound "
+          f"{RING_BOUND:g}); greedy choices differing at (step, row) "
+          f"{differ} with margins {margins} (near-tie bound "
+          f"{RING_BOUND * scale:.4e})")
+    check(diff <= RING_BOUND * scale,
+          f"ring vs linear: logits differ by {diff:.4e}")
+    check(all(m <= RING_BOUND * scale for m in margins),
+          f"ring vs linear: greedy tokens differ beyond a near-tie "
+          f"{list(zip(differ, margins))}")
+    return dict(max_abs_diff=diff, max_abs_logit=scale, bound=RING_BOUND,
+                differing=differ, margins=margins, wraps_at_step=wraps)
+
+
+def phase_windowed_card_vs_cpu(torch, smi):
+    """Phase 13, card against CPU at full width in f32, batch 1, prompt
+    640 (past q_chunk: the flash forward, once): one gemma2 ``local``
+    block (window 4096, softcap 50, d=256, GeGLU), one ``global`` block
+    and one h2o-danube3 block (window 4096, d=120); each output within
+    1e-4 of its max.  The weights are drawn on the card and copied to the
+    CPU, whose flash path is the plain version."""
+    from repro_torch import configs, tree
+    from repro_torch.models.transformer import block_forward, init_block
+    S = 640
+    print(f"phase 13 (card vs CPU): f32, batch 1, prompt {S} (the flash "
+          f"path); tolerance max|card - cpu| <= 1e-4 * max|cpu|")
+    gd = torch.Generator(device="cuda").manual_seed(37)
+    out = {}
+    for arch, kind in (("gemma2-9b", "local"), ("gemma2-9b", "global"),
+                       ("h2o-danube-3-4b", "attn")):
+        cfg = configs.get_config(arch).replace(dtype="float32")
+        p_card = init_block(cfg, kind, gd, device="cuda")
+        p_cpu = tree.map_(lambda t: t.cpu(), p_card)
+        x = torch.randn((1, S, cfg.d_model), generator=gd, device="cuda")
+        ys = []
+        for p, xx in ((p_cpu, x.cpu()), (p_card, x)):
+            reset_counts()
+            with torch.inference_mode():
+                pos = torch.arange(S, dtype=torch.int32, device=xx.device)
+                y, _, _ = block_forward(p, xx, cfg, kind=kind, positions=pos)
+            ys.append(y.cpu())
+        counts = read_counts(("flash_fwd",))
+        check(counts == {"flash_fwd": 1},
+              f"{arch} {kind} block: launches {counts}")
+        diff = (ys[0] - ys[1]).abs().max().item()
+        scale = ys[0].abs().max().item()
+        rel = diff / scale
+        label = f"{arch} {kind} block (d={cfg.head_dim})"
+        print(f"  [{smi}] {label}: max|card - cpu| {diff:.3e}, / max|cpu| "
+              f"{rel:.3e} (tol 1e-4); flash launches on the card {counts}")
+        check(math.isfinite(rel) and rel <= 1e-4,
+              f"{label}: card and CPU disagree ({rel:.3e})")
+        out[label] = dict(rel=rel)
+        del p_card, p_cpu
+        release(torch)
     return out
 
 
@@ -2879,7 +3409,8 @@ def main(argv=None) -> int:
                          "the kernel timings (phases 1, 2 and 5), for "
                          "working on a kernel; 'trainer': the build and "
                          "phases 9-11 (remat, resume, gates); 'presets': "
-                         "the build and phase 12; each ends with ok: false")
+                         "the build and phases 12 and 13; each ends with "
+                         "ok: false")
     phases = ap.parse_args(argv).phases
     import torch
     if not torch.cuda.is_available():
@@ -2916,12 +3447,17 @@ def main(argv=None) -> int:
         return 0
     if phases == "presets":
         print(json.dumps({"presets": phase_presets(torch, smi)[1]}))
+        release(torch)
+        print(json.dumps({"windowed": phase_windowed(torch, smi)[1]}))
         print(smi)
-        print(json.dumps({"ok": False, "partial": "phases 1 and 12 only"}))
+        print(json.dumps({"ok": False,
+                          "partial": "phases 1, 12 and 13 only"}))
         return 0
     errs = phase_kernels(torch, dev)
     preset_rows = phase_preset_kernels(torch, dev, smi, errs)
     errs.update(phase_flash_kernels(torch, dev))
+    phase_flash_wide(torch, dev, errs)
+    wide_rows = phase_windowed_flash(torch, dev, smi, errs)
     if phases == "kernels":
         phase_timings(torch, dev, smi)
         print(smi)
@@ -2940,7 +3476,10 @@ def main(argv=None) -> int:
     release(torch)
     preset_counts, presets = phase_presets(torch, smi)
     print(json.dumps({"presets": presets}))
-    rows = phase_timings(torch, dev, smi) + preset_rows
+    release(torch)
+    windowed_counts, windowed = phase_windowed(torch, smi)
+    print(json.dumps({"windowed": windowed}))
+    rows = phase_timings(torch, dev, smi) + preset_rows + wide_rows
     profile = phase_profile(torch, smi)
     profile.update(phase_profile_train(torch, smi))
 
@@ -2959,6 +3498,10 @@ def main(argv=None) -> int:
                "max_abs_err": errs[r["name"]]})
         if r["name"] in preset_counts:
             kernels[-1]["launches_presets"] = preset_counts[r["name"]]
+        if windowed_counts.get(r["name"]):
+            kernels[-1]["launches_windowed"] = windowed_counts[r["name"]]
+            # phases 2l-2m: head dims 120 and 256, f32 and bf16
+            kernels[-1]["max_abs_err_windowed"] = errs["flash_fwd_wide"]
         if r["name"] == "gather_rows_rowstep":
             kernels[-1]["path"] = ("benchmark baseline (bench_layout), not "
                                    "on a serving or training path")
@@ -2969,10 +3512,15 @@ def main(argv=None) -> int:
     check(all(preset_counts[k] for k in SERVE_KERNELS),
           f"a kernel of the presets' path was not launched there: "
           f"{preset_counts}")
+    check(windowed_counts["flash_fwd"] > 0,
+          f"the flash forward was not launched on the windowed presets' "
+          f"path: {windowed_counts}")
     print(json.dumps({"serving": serving, "serving_launches": serve_counts,
                       "training": training, "train_grads_card_vs_cpu": grads,
                       "remat": remat, "resume": resume, "gates": gates,
                       "presets": presets, "presets_launches": preset_counts,
+                      "windowed": windowed,
+                      "windowed_launches": windowed_counts,
                       "timings": rows, "profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

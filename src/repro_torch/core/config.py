@@ -163,6 +163,22 @@ class ModelConfig:
         return self.num_layers // len(self.block_pattern)
 
     @property
+    def is_subquadratic(self) -> bool:
+        """True if every block is O(seq) at decode with bounded state (the
+        reference's rule, kinds the port has not ported included)."""
+        for kind in self.block_pattern:
+            if kind in ("mamba", "rwkv", "mamba_sa"):
+                continue  # mamba_sa's shared attention decodes windowed
+            if kind == "local":
+                continue
+            if kind == "attn" and self.attention.window is not None:
+                continue
+            # global layers (gemma2) are capped to a window only in the
+            # long-context serving variant
+            return False
+        return True
+
+    @property
     def has_decode(self) -> bool:
         return not self.encoder_only
 

@@ -54,8 +54,12 @@
 // of the next visited tile runs under the products of this one.  Rows are
 // padded by 16 bytes in shared memory, so ldmatrix reads hit no bank
 // twice.
-//   forward (flash_fwd_bf16_kernel): q stays in registers; the online
-//     softmax in registers; P V as (hi + lo) V.
+//   forward (flash_fwd_bf16_kernel): q stays in registers up to d = 128;
+//     the online softmax in registers; P V as (hi + lo) V.  Head dims:
+//     multiples of 16 up to 128, and 120 (padded to 128 in shared memory)
+//     and 256 (two warps per 16 rows, each with half the head dim), which
+//     only the forward takes (the windowed presets serve, and serving
+//     needs no gradient).
 // The backward sums each 32 rows of its p and dS products in a fresh
 // fragment and adds that to its f32 accumulators: an mma that adds into a
 // large accumulator truncates at its last bits, so a long sum held there
@@ -75,8 +79,9 @@
 // f32 forward, dq and dk/dv (simple and right first): a 64-row tile of
 // queries or keys per block, 256 threads.  The TPU grid's sequential axes
 // become loops inside the block over the tiles the rules above visit.
-// Tiles of q, k, v and dO sit in dynamic shared memory (up to 164 KB),
-// with the 64x64 f32 score tile; every product is f32 FMAs (never TF32).
+// Tiles of q, k, v and dO sit in dynamic shared memory (up to 164 KB; the
+// forward's three at d = 256 212 KB), with the 64x64 f32 score tile; every
+// product is f32 FMAs (never TF32).
 // Keys past Sk (the ragged edge) count as nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,7 +95,8 @@ constexpr int FA_TILE = 64;         // rows of a q tile and of a k tile
 constexpr int FA_THREADS = 256;     // 8 warps (f32 kernels)
 constexpr int S_LD = FA_TILE + 4;   // row stride of the f32 score tiles
 constexpr int F_LD_PAD = 1;         // f32 rows: an odd stride, no bank twice
-constexpr int MAX_NJ = 8;           // d / 16 at the largest head dim, 128
+constexpr int MAX_NJ = 8;           // d / 16 at dq's and dk/dv's largest, 128
+constexpr int FWD_NJ = 16;          // the forward's: column groups at d = 256
 constexpr float NEG = -1e30f;
 constexpr int INT_HI = 0x7fffffff, INT_LO = -0x7fffffff - 1;
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
@@ -330,7 +336,8 @@ __device__ void tile_dot(const float* A, const float* B, int ld, float* S,
 
 // acc[i][j] += sum_{t < n} P[r_i * prs + t * pts] * X[t][c_j], for the
 // thread's rows r_i = rg + 16 i and columns c_j = cg + 16 j (j < nj)
-__device__ __forceinline__ void acc_product(float (&acc)[4][MAX_NJ],
+template <int N>
+__device__ __forceinline__ void acc_product(float (&acc)[4][N],
                                             const float* P, int prs, int pts,
                                             const float* X, int ld, int n,
                                             int nj) {
@@ -340,7 +347,7 @@ __device__ __forceinline__ void acc_product(float (&acc)[4][MAX_NJ],
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[i] = P[(rg + 16 * i) * prs + t * pts];
 #pragma unroll
-    for (int j = 0; j < MAX_NJ; ++j) {
+    for (int j = 0; j < N; ++j) {
       if (j < nj) {
         const float x = X[t * ld + cg + 16 * j];
 #pragma unroll
@@ -350,16 +357,20 @@ __device__ __forceinline__ void acc_product(float (&acc)[4][MAX_NJ],
   }
 }
 
-__device__ __forceinline__ void zero_acc(float (&acc)[4][MAX_NJ]) {
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[4][N]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < MAX_NJ; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
 }
 
 // acc rows (row0 + r_i < nrows) into out (nrows, d) rows, divided by div[r]
-// when div is given
-__device__ __forceinline__ void store_acc(const float (&acc)[4][MAX_NJ],
+// when div is given; RAGGED: d need not be a multiple of 16 (the forward's
+// d = 120; a column test the backward's d % 16 == 0 does without: with it
+// ptxas spilled 12 bytes in the f32 dk/dv kernel)
+template <bool RAGGED = false, int N>
+__device__ __forceinline__ void store_acc(const float (&acc)[4][N],
                                           float* out, int row0, int nrows,
                                           int d, const float* div) {
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16, nj = d / 16;
@@ -369,15 +380,16 @@ __device__ __forceinline__ void store_acc(const float (&acc)[4][MAX_NJ],
     if (row0 + r >= nrows) continue;
     const float l = div ? div[r] : 1.f;
 #pragma unroll
-    for (int j = 0; j < MAX_NJ; ++j)
-      if (j < nj)
+    for (int j = 0; j < N; ++j)
+      if (RAGGED ? cg + 16 * j < d : j < nj)
         out[(size_t)(row0 + r) * d + cg + 16 * j] =
             div ? acc[i][j] / l : acc[i][j];
   }
 }
 
 // one block per (q tile, h, b); the visited k tiles in a loop (the TPU's
-// nk axis)
+// nk axis).  Head dims up to 16 FWD_NJ = 256 (dq and dk/dv stop at 128,
+// so that their two accumulators stay 64 registers)
 __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ qpos,
@@ -385,7 +397,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ lse, int H, int KV, int Sq, int Sk,
                  int d, Mask mk) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = d + F_LD_PAD;
+  // rows of 16 ceil(d / 16) columns (+ the pad): p v reads whole 16-column
+  // groups of V, and the columns past d (zeroed below) add nothing
+  const int ld = 16 * ((d + 15) / 16) + F_LD_PAD;
   float* Ss = reinterpret_cast<float*>(smem);        // scores, then p
   float* m_s = Ss + FA_TILE * S_LD;                  // running max
   float* l_s = m_s + FA_TILE;                        // running sum
@@ -401,18 +415,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rg = tid / 16, nj = d / 16;
+  const int rg = tid / 16, nj = (d + 15) / 16;
   const float* qb = q + ((size_t)b * H + h) * Sq * d;
   const float* kb = k + ((size_t)b * KV + kvh) * Sk * d;
   const float* vb = v + ((size_t)b * KV + kvh) * Sk * d;
 
   load_tile(Qs, ld, qb, q0, Sq, d);
+  for (int i = tid; i < FA_TILE * (ld - d); i += FA_THREADS)
+    Vs[(i / (ld - d)) * ld + d + i % (ld - d)] = 0.f;
   for (int i = tid; i < FA_TILE; i += FA_THREADS) {
     qp_s[i] = q0 + i < Sq ? qpos[q0 + i] : 0;
     m_s[i] = NEG;
     l_s[i] = 0.f;
   }
-  float acc[4][MAX_NJ];
+  float acc[4][FWD_NJ];
   zero_acc(acc);
   plan_k_tiles(qpos, kpos, q0, min(FA_TILE, Sq - q0), FA_TILE, Sk, mk,
                flags, flags + nkt);
@@ -463,13 +479,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const float alpha = a_s[rg + 16 * i];
 #pragma unroll
-      for (int j = 0; j < MAX_NJ; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < FWD_NJ; ++j) acc[i][j] *= alpha;
     }
     acc_product(acc, Ss, S_LD, 1, Vs, ld, kn, nj);
     __syncthreads();
   }
 
-  store_acc(acc, o + ((size_t)b * H + h) * Sq * d, q0, Sq, d, l_s);
+  store_acc<true>(acc, o + ((size_t)b * H + h) * Sq * d, q0, Sq, d, l_s);
   for (int i = tid; i < FA_TILE; i += FA_THREADS)
     if (q0 + i < Sq)
       lse[((size_t)b * H + h) * Sq + q0 + i] = m_s[i] + logf(l_s[i]);
@@ -654,12 +670,15 @@ constexpr int SPLIT_KS = 2;         // 16-row steps per fresh fragment sum
 using bf16 = __nv_bfloat16;
 
 // rows [row0, row0 + FA_TILE) of a (nrows, d) bf16 matrix into dst (stride
-// ld) by cp.async, 16 bytes a copy; rows past nrows as 0
+// ld) by cp.async, 16 bytes a copy, by a block of THREADS threads (a
+// constant stride: with blockDim.x the forward and dq ran 4% and 2% slower,
+// flash_ab.py on an H100); rows past nrows as 0
+template <int THREADS = FB_THREADS>
 __device__ __forceinline__ void cp_tile(bf16* dst, int ld,
                                         const bf16* __restrict__ src,
                                         int row0, int nrows, int d) {
   const int chunks = d / 8;
-  for (int c = threadIdx.x; c < FA_TILE * chunks; c += FB_THREADS) {
+  for (int c = threadIdx.x; c < FA_TILE * chunks; c += THREADS) {
     const int r = c / chunks, col = (c - r * chunks) * 8;
     const bool in = row0 + r < nrows;
     sm90::cp_async16(dst + r * ld + col,
@@ -668,14 +687,15 @@ __device__ __forceinline__ void cp_tile(bf16* dst, int ld,
 }
 
 // k tile j's keys, values and key positions into stage st
+template <int THREADS = FB_THREADS>
 __device__ __forceinline__ void cp_kv(bf16* Ks, bf16* Vs, int* kps, int ld,
                                       int st, const bf16* __restrict__ kb,
                                       const bf16* __restrict__ vb,
                                       const int* __restrict__ kpos, int j,
                                       int Sk, int d) {
   const int k0 = j * FA_TILE;
-  cp_tile(Ks + st * FA_TILE * ld, ld, kb, k0, Sk, d);
-  cp_tile(Vs + st * FA_TILE * ld, ld, vb, k0, Sk, d);
+  cp_tile<THREADS>(Ks + st * FA_TILE * ld, ld, kb, k0, Sk, d);
+  cp_tile<THREADS>(Vs + st * FA_TILE * ld, ld, vb, k0, Sk, d);
   if (threadIdx.x < FA_TILE) {
     const bool in = k0 + (int)threadIdx.x < Sk;
     sm90::cp_async4(kps + st * FA_TILE + threadIdx.x,
@@ -767,17 +787,74 @@ __device__ __forceinline__ void store_frags(const float (&acc)[2 * NJ][4],
   }
 }
 
-// NJ = d / 16 and CAP (a softcap) are template arguments, so that every
-// loop over the head dim and the softmax are straight-line code
-template <int NJ, bool CAP>
-__global__ void __launch_bounds__(FB_THREADS, 2)
+// s += q k^T over head-dim columns [16 kk, 16 kk + 16): the warp's q A
+// fragment qa against the 64 keys of K tile Kt
+__device__ __forceinline__ void qk_step(float (&s)[8][4],
+                                        const uint32_t (&qa)[4],
+                                        const bf16* Kt, int ld, int kk,
+                                        const Lanes& ln) {
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    uint32_t bf[4];
+    sm90::ldmatrix_x4(bf, Kt + (16 * np + ln.b_row) * ld + 16 * kk +
+                              ln.b_col);
+    sm90::mma_bf16(s[2 * np], qa, bf[0], bf[1]);
+    sm90::mma_bf16(s[2 * np + 1], qa, bf[2], bf[3]);
+  }
+}
+
+// The forward's shape at head dim D: NJ 16-column groups (DP = 16 NJ, D
+// padded to the mma's k step), NT 8-column fragments of o, and NH warps
+// sharing each 16-row group, each owning NJW of the NJ column groups
+template <int D>
+struct FwdShape {
+  static constexpr int NJ = (D + 15) / 16, DP = 16 * NJ, NT = D / 8;
+  static constexpr int NH = NJ > MAX_NJ ? 2 : 1;
+  static constexpr int NJW = NJ / NH, THREADS = FB_THREADS * NH;
+  static constexpr int XS_WORDS = NH > 1 ? THREADS * 32 : 0;  // exchange
+};
+
+// bar.sync on barrier id (1..15; 0 is __syncthreads) among n threads
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// D (the head dim) and CAP (a softcap) are template arguments, so that
+// every loop over the head dim and the softmax are straight-line code.  D
+// is a multiple of 16 up to 128, or 120 (h2o-danube3: 3840 / 32) or 256
+// (gemma2), the forward's own set; dq and dk/dv take the first only.
+//   - A head dim off the mma's k step of 16 (120) is padded in shared
+//     memory to DP = 16 ceil(D / 16) columns.  Columns D..DP-1 of every
+//     tile are zeroed once (cp.async writes columns < D only), so q k^T
+//     gets nothing from them; o's 8-column fragments past D are neither
+//     computed nor stored.  Global rows stay D wide (240 bytes, 15 pieces
+//     of 16 bytes), so the wrapper copies nothing.
+//   - Past d = 128 one warp's O accumulator would be 2 DP = 128 f32
+//     registers a thread at d = 256, and ptxas spilled (72-116 bytes at
+//     255 registers, whole or half k tiles, q held or re-read; flash_ab.py
+//     on an H100).  So two warps share each 16-row group (8 warps, 256
+//     threads): each sums q k^T over its half of the head dim, q read
+//     from shared memory, the pair adds the two partial score tiles
+//     through shared memory (a + b = b + a: both hold the same scores and
+//     run the same online softmax), and each accumulates the P V columns
+//     of its half, 64 registers.  Q and two stages of K and V take 5 * 64
+//     * 264 * 2 = 169 KB and the exchange 32 KB: one block of 8 warps per
+//     SM.
+template <int D, bool CAP>
+__global__ void __launch_bounds__(FwdShape<D>::THREADS,
+                                  FwdShape<D>::NH > 1 ? 1 : 2)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const int* __restrict__ qpos,
                       const int* __restrict__ kpos, bf16* __restrict__ o,
                       float* __restrict__ lse, int H, int KV, int Sq, int Sk,
                       Mask mk) {
-  constexpr int d = 16 * NJ, ld = d + FB_PAD;
+  using Sh = FwdShape<D>;
+  constexpr int NJ = Sh::NJ, DP = Sh::DP, ld = DP + FB_PAD, NT = Sh::NT;
+  constexpr int NH = Sh::NH, NJW = Sh::NJW;
+  constexpr bool QREG = NH == 1;            // q held in registers
+  static_assert(D % 8 == 0 && DP - D <= 8 && NJW <= MAX_NJ &&
+                (NH == 1 || NT == 2 * NJ), "head dim");
   extern __shared__ __align__(128) unsigned char smem[];
   const int nkt = (Sk + FA_TILE - 1) / FA_TILE;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -785,20 +862,29 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Vs = Ks + 2 * FA_TILE * ld;                   // 2 stages
   int* kps = reinterpret_cast<int*>(Vs + 2 * FA_TILE * ld);  // 2 stages
   int* flags = kps + 2 * FA_TILE;                     // nkt, then scratch
+  float* xs = reinterpret_cast<float*>(flags + nkt + 3 * PLAN_GROUPS);
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * FA_TILE;  // longest first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the warp's 16-row group and head-dim half (0 with one warp a group)
+  const int rw = NH > 1 ? warp % 4 : warp, half = NH > 1 ? warp / 4 : 0;
   const int g = lane / 4, t = lane % 4;
   const size_t qoff = ((size_t)b * H + h) * Sq;
-  const bf16* kb = k + ((size_t)b * KV + kvh) * Sk * d;
-  const bf16* vb = v + ((size_t)b * KV + kvh) * Sk * d;
+  const bf16* kb = k + ((size_t)b * KV + kvh) * Sk * D;
+  const bf16* vb = v + ((size_t)b * KV + kvh) * Sk * D;
 
-  cp_tile(Qs, ld, q + qoff * d, q0, Sq, d);    // in flight during the plan
+  if constexpr (DP != D) {     // the pad columns of Q and both K, V stages
+    for (int r = threadIdx.x; r < 5 * FA_TILE; r += Sh::THREADS)
+      *reinterpret_cast<uint4*>(Qs + r * ld + D) = make_uint4(0, 0, 0, 0);
+  }
+  cp_tile<Sh::THREADS>(Qs, ld, q + qoff * D, q0, Sq, D);  // in flight during
+                                                          // the plan
   plan_k_tiles(qpos, kpos, q0, min(FA_TILE, Sq - q0), FB_GROUP, Sk, mk,
                flags, flags + nkt);
   int j = next_tile(flags, 0, nkt);
-  if (j < nkt) cp_kv(Ks, Vs, kps, ld, 0, kb, vb, kpos, j, Sk, d);
+  if (j < nkt)
+    cp_kv<Sh::THREADS>(Ks, Vs, kps, ld, 0, kb, vb, kpos, j, Sk, D);
   sm90::cp_async_commit();
 
   // scores are kept in base 2: s log2(e), so that p = exp2(s2 - m2); a
@@ -807,44 +893,57 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float scale2 = CAP ? mk.scale : mk.scale * LOG2E;
   const float cap2 = mk.cap * LOG2E;
   // this thread's rows of the C fragments: ra = g, rb = g + 8 of its warp's
-  const int ra = q0 + FB_GROUP * warp + g, rb = ra + 8;
+  const int ra = q0 + FB_GROUP * rw + g, rb = ra + 8;
   const int qpa = ra < Sq ? qpos[ra] : 0, qpb = rb < Sq ? qpos[rb] : 0;
   float ma = NEG, mb = NEG, la = 0.f, lb = 0.f;  // la, lb: this lane's part
-  float oacc[2 * NJ][4];
+  float oacc[2 * NJW][4];       // the warp's columns; fragments < NT in use
   zero_frags(oacc);
-  uint32_t qf[NJ][4];
+  uint32_t qf[QREG ? NJ : 1][4];
   const Lanes ln;
+  const int kk0 = NJW * half;                   // the warp's first group
+  const bf16* Qw = Qs + (FB_GROUP * rw + ln.a_row) * ld + ln.a_col;
 
   for (int st = 0, first = 1; j < nkt; st ^= 1, first = 0) {
     const int jn = next_tile(flags, j + 1, nkt);
-    if (jn < nkt) cp_kv(Ks, Vs, kps, ld, st ^ 1, kb, vb, kpos, jn, Sk, d);
+    if (jn < nkt)
+      cp_kv<Sh::THREADS>(Ks, Vs, kps, ld, st ^ 1, kb, vb, kpos, jn, Sk, D);
     sm90::cp_async_commit();
     sm90::cp_async_wait<1>();                    // tile j (and q) landed
     __syncthreads();
-    if (first) {
+    if constexpr (QREG) {
+      if (first) {
 #pragma unroll
-      for (int kk = 0; kk < NJ; ++kk)
-        sm90::ldmatrix_x4(qf[kk], Qs + (FB_GROUP * warp + ln.a_row) * ld +
-                                      16 * kk + ln.a_col);
+        for (int kk = 0; kk < NJ; ++kk) sm90::ldmatrix_x4(qf[kk], Qw + 16 * kk);
+      }
     }
-    const int code = (flags[j] >> (2 * warp)) & 3;   // this warp's rows
+    const int code = (flags[j] >> (2 * rw)) & 3;     // this warp's rows
     if (code) {
       const bf16* Kt = Ks + st * FA_TILE * ld;
       const bf16* Vt = Vs + st * FA_TILE * ld;
 
-      // s = q k^T: 16 rows x 64 keys per warp, 8 fragments of 8 keys
+      // s = q k^T: 16 rows x 64 keys per warp, 8 fragments of 8 keys (the
+      // warp's half of the head dim, then the pair's two halves added)
       float s[8][4];
       zero_frags(s);
 #pragma unroll
-      for (int kk = 0; kk < NJ; ++kk) {
+      for (int kk = 0; kk < NJW; ++kk) {
+        uint32_t qa[4];
+        if constexpr (QREG) {
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bf[4];
-          sm90::ldmatrix_x4(bf, Kt + (16 * np + ln.b_row) * ld + 16 * kk +
-                                    ln.b_col);
-          sm90::mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-          sm90::mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        } else {
+          sm90::ldmatrix_x4(qa, Qw + 16 * (kk0 + kk));
         }
+        qk_step(s, qa, Kt, ld, kk0 + kk, ln);
+      }
+      if constexpr (NH > 1) {
+        float* mine = xs + warp * 32 * 32 + lane;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) mine[32 * i] = s[i / 4][i % 4];
+        named_barrier(1 + rw, 64);                   // the pair's two warps
+        const float* theirs = xs + (warp ^ 4) * 32 * 32 + lane;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i / 4][i % 4] += theirs[32 * i];
       }
 
       // scale, cap, then in base 2 (x log2 e); the mask (NEG, as in the
@@ -900,15 +999,17 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       la = la * alpha_a + sa;
       lb = lb * alpha_b + sb;
 #pragma unroll
-      for (int n = 0; n < 2 * NJ; ++n) {
+      for (int n = 0; n < 2 * NJW; ++n) {
         oacc[n][0] *= alpha_a;
         oacc[n][1] *= alpha_a;
         oacc[n][2] *= alpha_b;
         oacc[n][3] *= alpha_b;
       }
 
-      // o += p v with p = hi + lo, each a bf16 A fragment made from the
-      // score fragments of 16 keys; every V fragment feeds 2 products
+      // o += p v over the warp's columns, p = hi + lo, each a bf16 A
+      // fragment made from the score fragments of 16 keys; every V
+      // fragment feeds 2 products (1 for the last 8 columns of a head dim
+      // of 16 n + 8)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         uint32_t ph[4], pl[4];
@@ -917,14 +1018,16 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         sm90::split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
         sm90::split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-        for (int np = 0; np < NJ; ++np) {
+        for (int np = 0; np < NJW; ++np) {
           uint32_t bf[4];
           sm90::ldmatrix_x4_trans(
-              bf, Vt + (16 * kk + ln.a_row) * ld + 16 * np + ln.a_col);
+              bf, Vt + (16 * kk + ln.a_row) * ld + 16 * (kk0 + np) +
+                      ln.a_col);
+          const bool second = 2 * np + 1 < NT;     // unrolled: a constant
           sm90::mma_bf16(oacc[2 * np], pl, bf[0], bf[1]);
-          sm90::mma_bf16(oacc[2 * np + 1], pl, bf[2], bf[3]);
+          if (second) sm90::mma_bf16(oacc[2 * np + 1], pl, bf[2], bf[3]);
           sm90::mma_bf16(oacc[2 * np], ph, bf[0], bf[1]);
-          sm90::mma_bf16(oacc[2 * np + 1], ph, bf[2], bf[3]);
+          if (second) sm90::mma_bf16(oacc[2 * np + 1], ph, bf[2], bf[3]);
         }
       }
     }
@@ -938,18 +1041,19 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     la += __shfl_xor_sync(0xffffffffu, la, off);
     lb += __shfl_xor_sync(0xffffffffu, lb, off);
   }
-  __nv_bfloat16* ob = o + qoff * d;
+  __nv_bfloat16* ob = o + qoff * D + 16 * kk0;
 #pragma unroll
-  for (int n = 0; n < 2 * NJ; ++n) {
+  for (int n = 0; n < 2 * NJW; ++n) {
+    if (n >= NT) continue;           // past D (NH = 1); unrolled: constant
     const int c = 8 * n + 2 * t;
     if (ra < Sq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)ra * d + c) =
+      *reinterpret_cast<uint32_t*>(ob + (size_t)ra * D + c) =
           sm90::pack_bf16(oacc[n][0] / la, oacc[n][1] / la);
     if (rb < Sq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)rb * d + c) =
+      *reinterpret_cast<uint32_t*>(ob + (size_t)rb * D + c) =
           sm90::pack_bf16(oacc[n][2] / lb, oacc[n][3] / lb);
   }
-  if (t == 0) {
+  if (t == 0 && half == 0) {
     if (ra < Sq) lse[qoff + ra] = (ma == NEG ? NEG : ma * LN2) + logf(la);
     if (rb < Sq) lse[qoff + rb] = (mb == NEG ? NEG : mb * LN2) + logf(lb);
   }
@@ -1264,9 +1368,17 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // launchers
 // ---------------------------------------------------------------------------
 
-int check_shape(int B, int H, int KV, int Sq, int Sk, int d) {
+// the head dims each kernel takes: dq and dk/dv multiples of 16 up to 128;
+// the forward those and 120 and 256 (kernels/flash_attention.py mirrors
+// both sets)
+bool bwd_head_dim(int d) {
+  return d >= 16 && d <= 16 * MAX_NJ && d % 16 == 0;
+}
+bool fwd_head_dim(int d) { return bwd_head_dim(d) || d == 120 || d == 256; }
+
+int check_shape(int B, int H, int KV, int Sq, int Sk, int d, bool fwd) {
   if (B < 0 || Sq < 0 || Sk < 1 || KV < 1 || H < KV || H % KV ||
-      d < 16 || d > 16 * MAX_NJ || d % 16)
+      !(fwd ? fwd_head_dim(d) : bwd_head_dim(d)))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -1319,7 +1431,8 @@ struct Args {
 };
 
 int launch_fwd_f32(const Args& a) {
-  const size_t bytes = smem_bytes(a.d, 1, 5, 3, k_plan_ints(a.Sk));
+  const size_t bytes =
+      smem_bytes(16 * ((a.d + 15) / 16), 1, 5, 3, k_plan_ints(a.Sk));
   static size_t granted = 0;
   if (int rc = set_smem(flash_fwd_kernel, bytes, granted)) return rc;
   const dim3 grid((a.Sq + FA_TILE - 1) / FA_TILE, a.H, a.B);
@@ -1356,17 +1469,20 @@ int launch_dkv_f32(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// the bf16 kernels, one struct per kernel with run<NJ, CAP>
+// the bf16 kernels, one struct per kernel with run<D, CAP> (D the head
+// dim); WIDE: the kernel also takes the head dims 120 and 256
 struct FwdBf16 {
-  template <int NJ, bool CAP>
+  static constexpr bool WIDE = true;
+  template <int D, bool CAP>
   static int run(const Args& a) {
-    const size_t bytes =
-        bf16_smem_bytes(16 * NJ, 5, 2 * FA_TILE + k_plan_ints(a.Sk));
+    using Sh = FwdShape<D>;
+    const size_t bytes = bf16_smem_bytes(
+        Sh::DP, 5, 2 * FA_TILE + k_plan_ints(a.Sk) + Sh::XS_WORDS);
     static size_t granted = 0;
-    const auto kernel = flash_fwd_bf16_kernel<NJ, CAP>;
+    const auto kernel = flash_fwd_bf16_kernel<D, CAP>;
     if (int rc = set_smem(kernel, bytes, granted)) return rc;
     const dim3 grid((a.Sq + FA_TILE - 1) / FA_TILE, a.H, a.B);
-    kernel<<<grid, FB_THREADS, bytes, a.stream>>>(
+    kernel<<<grid, Sh::THREADS, bytes, a.stream>>>(
         (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
         (const int*)a.qpos, (const int*)a.kpos, (bf16*)a.out0,
         (float*)a.out1, a.H, a.KV, a.Sq, a.Sk, a.mk);
@@ -1375,12 +1491,13 @@ struct FwdBf16 {
 };
 
 struct DqBf16 {
-  template <int NJ, bool CAP>
+  static constexpr bool WIDE = false;
+  template <int D, bool CAP>
   static int run(const Args& a) {
     const size_t bytes =
-        bf16_smem_bytes(16 * NJ, 6, 2 * FA_TILE + k_plan_ints(a.Sk));
+        bf16_smem_bytes(D, 6, 2 * FA_TILE + k_plan_ints(a.Sk));
     static size_t granted = 0;
-    const auto kernel = flash_dq_bf16_kernel<NJ, CAP>;
+    const auto kernel = flash_dq_bf16_kernel<D / 16, CAP>;
     if (int rc = set_smem(kernel, bytes, granted)) return rc;
     const dim3 grid((a.Sq + FA_TILE - 1) / FA_TILE, a.H, a.B);
     kernel<<<grid, FB_THREADS, bytes, a.stream>>>(
@@ -1393,12 +1510,13 @@ struct DqBf16 {
 };
 
 struct DkvBf16 {
-  template <int NJ, bool CAP>
+  static constexpr bool WIDE = false;
+  template <int D, bool CAP>
   static int run(const Args& a) {
     const size_t bytes =
-        bf16_smem_bytes(16 * NJ, 6, 6 * FA_TILE + q_plan_ints(a.Sq));
+        bf16_smem_bytes(D, 6, 6 * FA_TILE + q_plan_ints(a.Sq));
     static size_t granted = 0;
-    const auto kernel = flash_dkv_bf16_kernel<NJ, CAP>;
+    const auto kernel = flash_dkv_bf16_kernel<D / 16, CAP>;
     if (int rc = set_smem(kernel, bytes, granted)) return rc;
     const dim3 grid((a.Sk + FA_TILE - 1) / FA_TILE, a.KV, a.B);
     kernel<<<grid, FB_THREADS, bytes, a.stream>>>(
@@ -1410,8 +1528,10 @@ struct DkvBf16 {
   }
 };
 
-// K::run<d / 16, softcap?>; cp.async moves 16-byte pieces: rows of d bf16
-// (d % 16 == 0) stay aligned if the bases are; 4-byte words 4 bytes
+// K::run<d, softcap?>, one instance per head dim (only the forward's
+// have the dims 120 and 256: 52 bf16 instances in all); cp.async moves
+// 16-byte pieces: rows of d bf16 (d % 8 == 0) stay aligned if the bases
+// are; 4-byte words 4 bytes
 template <typename K>
 int launch_bf16(const Args& a) {
   if ((uintptr_t)a.q % 16 || (uintptr_t)a.k % 16 || (uintptr_t)a.v % 16 ||
@@ -1420,21 +1540,26 @@ int launch_bf16(const Args& a) {
       (uintptr_t)a.delta % 4)
     return (int)cudaErrorMisalignedAddress;
   const bool cap = a.mk.use_cap;
-  switch (a.d / 16) {
-#define FA_HEAD_DIM(nj) \
-  case nj:              \
-    return cap ? K::template run<nj, true>(a) : K::template run<nj, false>(a);
-    FA_HEAD_DIM(1) FA_HEAD_DIM(2) FA_HEAD_DIM(3) FA_HEAD_DIM(4)
-    FA_HEAD_DIM(5) FA_HEAD_DIM(6) FA_HEAD_DIM(7) FA_HEAD_DIM(8)
-#undef FA_HEAD_DIM
+#define FA_HEAD_DIM(dd) \
+  case dd:              \
+    return cap ? K::template run<dd, true>(a) : K::template run<dd, false>(a);
+  switch (a.d) {
+    FA_HEAD_DIM(16) FA_HEAD_DIM(32) FA_HEAD_DIM(48) FA_HEAD_DIM(64)
+    FA_HEAD_DIM(80) FA_HEAD_DIM(96) FA_HEAD_DIM(112) FA_HEAD_DIM(128)
   }
+  if constexpr (K::WIDE) {
+    switch (a.d) { FA_HEAD_DIM(120) FA_HEAD_DIM(256) }
+  }
+#undef FA_HEAD_DIM
   return (int)cudaErrorInvalidValue;
 }
 
-// shape checks, then the launch unless there is nothing to compute (the
-// forward and dq with no query; dk/dv with no query still write zeros)
-int launch(int (*fn)(const Args&), const Args& a, bool need_rows) {
-  if (int rc = check_shape(a.B, a.H, a.KV, a.Sq, a.Sk, a.d)) return rc;
+// shape checks (fwd: the forward's head dims), then the launch unless
+// there is nothing to compute (the forward and dq with no query; dk/dv
+// with no query still write zeros)
+int launch(int (*fn)(const Args&), const Args& a, bool need_rows,
+           bool fwd = false) {
+  if (int rc = check_shape(a.B, a.H, a.KV, a.Sq, a.Sk, a.d, fwd)) return rc;
   if (a.B == 0 || (need_rows && a.Sq == 0)) return 0;
   return fn(a);
 }
@@ -1454,7 +1579,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* lse, int B, int H, int KV, int Sq,
                               int Sk, int d, FA_MASK_ARGS) {
   return launch(launch_bf16<FwdBf16>,
-                FA_ARGS(nullptr, nullptr, nullptr, o, lse), true);
+                FA_ARGS(nullptr, nullptr, nullptr, o, lse), true, true);
 }
 
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
@@ -1462,7 +1587,7 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              void* lse, int B, int H, int KV, int Sq, int Sk,
                              int d, FA_MASK_ARGS) {
   return launch(launch_fwd_f32, FA_ARGS(nullptr, nullptr, nullptr, o, lse),
-                true);
+                true, true);
 }
 
 extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,

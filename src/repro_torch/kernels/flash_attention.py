@@ -13,6 +13,12 @@ query heads of each kv head.  p and dS stay in f32 (bf16 inputs widened
 exactly), as in the reference kernels, which is what sets this path apart
 from the chunked ``_attend`` (that one rounds p to v's dtype).
 
+Head dims: the backward kernels take multiples of 16 up to 128
+(:data:`BWD_HEAD_DIMS`); the forward those and 120 (h2o-danube3) and 256
+(gemma2) as well (:data:`FWD_HEAD_DIMS`), which serve without a gradient.
+``flash_attention`` refuses a head dim outside the backward's set before
+its forward when autograd would need the backward.
+
 ``flash_attention`` is differentiable through the dq and dk/dv kernels,
 as the reference's ``custom_vjp`` is.  The reference's ``block_q`` is a
 TPU tiling knob; the CUDA kernels pick their own 64-row tiles, which
@@ -34,6 +40,10 @@ import torch
 from repro_torch.kernels import build
 
 NEG = -1e30            # the reference's mask value (flash_attention.py:37)
+# the head dims the CUDA kernels take (fwd_head_dim, bwd_head_dim in
+# csrc/flash_attention.cu)
+BWD_HEAD_DIMS = tuple(range(16, 129, 16))
+FWD_HEAD_DIMS = BWD_HEAD_DIMS + (120, 256)
 fwd_launches = 0       # forward kernel launches since the caller last reset
 dq_launches = 0        # dq kernel launches, likewise
 dkv_launches = 0       # dk/dv kernel launches, likewise
@@ -233,9 +243,10 @@ def _launch(name: str, fn: str, q, k, tensors, outs, scale, causal, window,
     KV, Sk = k.shape[1], k.shape[2]
     if not all(t.is_contiguous() for t in (*tensors, *outs)):
         raise ValueError(f"{name}: operands must be contiguous")
-    if d % 16 or not 16 <= d <= 128:
+    dims = FWD_HEAD_DIMS if fn == "flash_fwd" else BWD_HEAD_DIMS
+    if d not in dims:
         raise ValueError(f"{name}: head dim {d} not taken by the kernel "
-                         f"(16..128 in multiples of 16)")
+                         f"({dims})")
     lib = build.load()
     suffix = "bf16" if q.dtype == torch.bfloat16 else "f32"
     rc = getattr(lib, f"{fn}_{suffix}")(
@@ -342,7 +353,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> torch.Tensor:
     """q (B, H, Sq, d), k/v (B, KV, Sk, d), positions int32 (Sq,)/(Sk,) →
     o (B, H, Sq, d); ``k_pos < 0`` marks invalid slots.  Differentiable in
-    q, k and v.  ``block_q`` keeps the reference's signature and is
-    ignored: the kernels tile by 64 rows."""
+    q, k and v at the backward's head dims (:data:`BWD_HEAD_DIMS`); at the
+    forward's others a call that autograd would differentiate raises
+    before the forward runs, on any device.  ``block_q`` keeps the
+    reference's signature and is ignored: the kernels tile by 64 rows."""
+    d = q.shape[-1]
+    if d not in BWD_HEAD_DIMS and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            f"flash_attention: no backward at head dim {d} (dq and dk/dv "
+            f"take {BWD_HEAD_DIMS}); run it without a gradient, e.g. under "
+            f"torch.inference_mode()")
     return FlashAttention.apply(q, k, v, q_pos, k_pos, scale, causal,
                                 window, cap)

@@ -2,10 +2,14 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hetumoe-paper-16e \\
       --batch 8 --prompt-len 1024 --gen 32 --dispatch grouped
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+      --batch 4 --prompt-len 8064 --gen 128
 
-Runs on the GPU unless ``--device cpu`` is given.  The weights are drawn
-from a ``torch.Generator`` seeded with ``--seed`` on the device, and the
-prompts from one seeded on the CPU.  ``--dispatch {sort,grouped}``
+Every registered preset serves (``configs.ARCHS``); a windowed one
+(``h2o-danube-3-4b``, ``gemma2-9b``'s local layers) decodes through ring
+caches of its window's length.  Runs on the GPU unless ``--device cpu``
+is given.  The weights are drawn from a ``torch.Generator`` seeded with
+``--seed`` on the device, and the prompts from one seeded on the CPU.  ``--dispatch {sort,grouped}``
 overrides the preset's MoE dispatch mode (validated; a typo fails fast,
 and so does the flag on a dense preset such as ``yi-6b``).
 ``--repeat N`` serves the same prompts N times on one model and prints

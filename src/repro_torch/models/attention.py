@@ -7,9 +7,11 @@ and softmax in f32, the value product with p rounded to v's dtype);
 longer sequences the flash-attention kernels
 (``kernels/flash_attention.py``: forward, dq and dk/dv, every product in
 f32), differentiable through their ``autograd.Function``.  Decode steps
-attend over the cache with ``_attend``.  The reference's chunked
-``REPRO_FLASH=0`` baseline, its context-parallel (``mesh``) flash and ring
-(sliding-window) caches are not ported (ROADMAP.md).
+attend over the cache with ``_attend``: a linear cache (slot = position)
+or, for a windowed layer whose cache is as long as its window, a ring
+(position p at slot p % W), which holds a window's keys at any sequence
+length.  The reference's chunked ``REPRO_FLASH=0`` baseline and its
+context-parallel (``mesh``) flash are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -142,13 +144,23 @@ def init_cache(cfg: AttentionConfig, batch: int, cache_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
 
 
-def fill_cache(cache: Dict[str, object], kv: Dict[str, torch.Tensor]
-               ) -> Dict[str, object]:
-    """Write a prefill's (B, S, KV, hd) keys/values into the cache."""
+def fill_cache(cache: Dict[str, object], kv: Dict[str, torch.Tensor], *,
+               ring: bool = False) -> Dict[str, object]:
+    """Write a prefill's (B, S, KV, hd) keys/values into the cache.  A ring
+    cache of W slots keeps position p at slot p % W, so that decode's slot
+    arithmetic continues after a prefill of S >= W tokens, of which it
+    keeps the last W (the reference's ``fill_cache(ring=True)``)."""
     S = kv["k"].shape[1]
-    if S > cache["k"].shape[1]:
+    W = cache["k"].shape[1]
+    if ring and S >= W:
+        # row i of the last W holds position S - W + i, slot (S - W + i) % W
+        for n in ("k", "v"):
+            cache[n].copy_(torch.roll(kv[n][:, S - W:], shifts=S % W, dims=1))
+        cache["pos"] = S
+        return cache
+    if S > W:
         raise ValueError(f"prefill of {S} tokens does not fit a cache of "
-                         f"{cache['k'].shape[1]}")
+                         f"{W}")
     cache["k"][:, :S] = kv["k"].to(cache["k"].dtype)
     cache["v"][:, :S] = kv["v"].to(cache["v"].dtype)
     cache["pos"] = S
@@ -157,23 +169,31 @@ def fill_cache(cache: Dict[str, object], kv: Dict[str, torch.Tensor]
 
 def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                      cache: Dict[str, object], cfg: AttentionConfig, *,
-                     window: Optional[int] = None
+                     ring: bool = False, window: Optional[int] = None
                      ) -> Tuple[torch.Tensor, Dict[str, object]]:
-    """One-token decode.  x (B, 1, d)."""
+    """One-token decode.  x (B, 1, d).  ``ring=True``: the cache is a ring
+    of W slots (its length the window), written at slot pos % W — W
+    positions of memory at any sequence length."""
     B, one, d = x.shape
     if one != 1:
         raise ValueError(f"decode_attention takes one token, got {one}")
     pos = cache["pos"]
     W = cache["k"].shape[1]
-    if pos >= W:
+    if not ring and pos >= W:
         raise ValueError(f"cache of {W} positions is full at pos={pos}")
     # filled on the device: a host tensor copied over would wait for it
     pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(params, x, cfg, pos_t[None, :])
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    slot = pos % W if ring else pos
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
     idx = torch.arange(W, dtype=torch.int32, device=x.device)
-    k_pos = torch.where(idx <= pos, idx, -1)
+    if ring:
+        # slot s holds position pos - ((pos - s) mod W); negatives invalid
+        k_pos = pos - torch.remainder(pos - idx, W)
+        k_pos = torch.where(k_pos >= 0, k_pos, -1)
+    else:
+        k_pos = torch.where(idx <= pos, idx, -1)
     win = window if window is not None else cfg.window
     o = _attend(q, cache["k"], cache["v"], pos_t, k_pos, causal=True,
                 window=win, cap=cfg.attn_softcap, scale=q.shape[-1] ** -0.5)

@@ -1,13 +1,17 @@
-"""Model assembly for the ``attn``, ``dense`` and ``moe`` block kinds — the
-port of ``repro/models/transformer.py`` (init, ``forward``,
-``init_caches``, ``decode_step``, ``logits_from_hidden``).
+"""Model assembly for the ``attn``, ``local``, ``global``, ``dense`` and
+``moe`` block kinds — the port of ``repro/models/transformer.py`` (init,
+``forward``, ``init_caches``, ``decode_step``, ``logits_from_hidden``).
 
 Every ported kind is pre-norm attention followed by an FFN: an MLP
-(``attn``, ``dense``) or the HetuMoE layer (``moe``), plus the shared
-experts' MLP where the config has them.  Layer ``i·P + j`` is pattern slot
-``j`` of super-block ``i`` (``P = len(cfg.block_pattern)``), the order of
-the reference's scan over super-blocks.  The windowed and local/global
-kinds (ring caches), the recurrent ones and frontends raise.
+(``attn``, ``local``, ``global``, ``dense``) or the HetuMoE layer
+(``moe``), plus the shared experts' MLP where the config has them.  Layer
+``i·P + j`` is pattern slot ``j`` of super-block ``i`` (``P =
+len(cfg.block_pattern)``), the order of the reference's scan over
+super-blocks.  A layer's attention window is :func:`block_window`'s: the
+config's ``attention.window`` (``attn``, ``dense``, ``moe``),
+``local_window`` (``local``, and ``global`` with ``long_context``), else
+none; a windowed layer's cache is a ring of the window's length once the
+requested cache is longer.  The recurrent kinds and frontends raise.
 
 Parameters are a tree of f32 tensors in the reference's layout, with the
 ``(nsb, ...)`` stacked block leaves split per layer
@@ -38,9 +42,10 @@ from repro_torch.models import layers
 # leaves used in f32 whatever the compute dtype
 _F32_LEAVES = ("ln1", "ln2", "final_norm", "gate_w", "q_norm", "k_norm")
 REMAT_MODES = ("none", "block", "full")
-# the ported block kinds: attention + an MLP (attn, dense) or + the MoE
-# layer (moe); the reference's dense is its attn under another name
-BLOCK_KINDS = ("attn", "dense", "moe")
+# the ported block kinds: attention + an MLP (attn, local, global, dense)
+# or + the MoE layer (moe); the reference's dense is its attn under another
+# name, local and global differ from it in their window only
+BLOCK_KINDS = ("attn", "local", "global", "dense", "moe")
 # the FFN sub-trees a block may hold
 _FFN_KEYS = ("mlp", "moe", "shared_mlp")
 
@@ -55,10 +60,21 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: frontends are not ported yet (ROADMAP.md)")
-    if cfg.attention.window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: windowed attention serves from ring caches, which "
-            f"are not ported yet (ROADMAP.md)")
+
+
+def block_window(kind: str, cfg: ModelConfig,
+                 long_context: bool = False) -> Optional[int]:
+    """The attention window of a ``kind`` layer (the reference's
+    ``_block_window``): ``local_window`` for ``local`` layers, and for
+    ``global`` ones in the long-context variant; else the config's."""
+    if kind == "local" or (kind == "global" and long_context):
+        return cfg.local_window
+    return cfg.attention.window
+
+
+def _is_ring(cache, window: Optional[int]) -> bool:
+    """A windowed layer's cache of the window's length is a ring."""
+    return window is not None and cache["k"].shape[1] == window
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -117,23 +133,29 @@ def _leaf(name: str, t: torch.Tensor, dtype, device) -> nn.Parameter:
 
 
 def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
-                  positions=None, cache=None, decode: bool = False,
+                  kind: str, positions=None, cache=None,
+                  decode: bool = False, long_context: bool = False,
                   noise: Optional[torch.Tensor] = None):
-    """One block over its parameter dict ``p``: attention, then the MLP
-    (``attn``, ``dense``) or the MoE layer plus the shared experts' MLP
-    (``moe``), pre-norm residuals; ``noise`` is a MoE layer's gate draw.
-    Returns (x, cache, aux); a block without a MoE layer has no aux loss
-    (None: the reference adds its zero)."""
+    """One ``kind`` block over its parameter dict ``p``: attention over
+    the kind's window (:func:`block_window`), then the MLP or the MoE
+    layer plus the shared experts' MLP (``moe``), pre-norm residuals;
+    ``noise`` is a MoE layer's gate draw.  Returns (x, cache, aux); a
+    block without a MoE layer has no aux loss (None: the reference adds
+    its zero)."""
+    win = block_window(kind, cfg, long_context)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if decode:
         a, cache = attn_lib.decode_attention(p["attn"], h, cache,
-                                             cfg.attention)
+                                             cfg.attention,
+                                             ring=_is_ring(cache, win),
+                                             window=win)
     else:
         a, kv = attn_lib.full_attention(p["attn"], h, cfg.attention,
                                         positions=positions,
-                                        causal=not cfg.encoder_only)
+                                        causal=not cfg.encoder_only,
+                                        window=win)
         if cache is not None:
-            cache = attn_lib.fill_cache(cache, kv)
+            cache = attn_lib.fill_cache(cache, kv, ring=_is_ring(cache, win))
     x = x + a
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" not in p:
@@ -166,13 +188,15 @@ def noisy(cfg: ModelConfig) -> bool:
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             *, caches=None, remat: str = "none",
-            noise: Optional[Sequence[torch.Tensor]] = None
+            noise: Optional[Sequence[torch.Tensor]] = None,
+            long_context: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """Full-sequence pass (training, prefill) over a parameter tree — the
     f32 masters, or a :class:`Transformer`'s compute-dtype copy — with
     every weight cast to ``cfg.dtype`` at its use, as the reference's
     ``forward``.  tokens (B, S) → (hidden (B, S, d), aux, caches);
-    ``caches`` (one per layer) are filled in place.
+    ``caches`` (one per layer) are filled in place.  ``long_context``
+    caps the ``global`` layers to ``local_window`` (:func:`block_window`).
 
     ``noise`` holds one gate draw per layer (:func:`draw_gate_noise`);
     a noisy gate without it draws its own from a generator seeded 0 on
@@ -204,23 +228,27 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
         gen = torch.Generator(device=x.device).manual_seed(0)
         noise = draw_gate_noise(cfg, tokens.numel(), gen, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, p in enumerate(params["blocks"]):
+    for i, (p, kind) in enumerate(zip(params["blocks"], layer_kinds(cfg),
+                                      strict=True)):
         nz = None if noise is None else noise[i]
         if remat == "none":
             x, _, a = block_forward(
-                p, x, cfg, positions=positions, noise=nz,
-                cache=None if caches is None else caches[i])
+                p, x, cfg, kind=kind, positions=positions, noise=nz,
+                cache=None if caches is None else caches[i],
+                long_context=long_context)
         else:
-            x, a = checkpoint(_remat_block, p, x, positions, nz, cfg,
-                              use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(_remat_block, p, x, positions, nz, cfg, kind,
+                              long_context, use_reentrant=False,
+                              preserve_rng_state=False)
         if a is not None:
             aux = aux + a
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux, caches
 
 
-def _remat_block(p, x, positions, noise, cfg):
-    x, _, aux = block_forward(p, x, cfg, positions=positions, noise=noise)
+def _remat_block(p, x, positions, noise, cfg, kind, long_context):
+    x, _, aux = block_forward(p, x, cfg, kind=kind, positions=positions,
+                              noise=noise, long_context=long_context)
     return x, aux
 
 
@@ -288,27 +316,39 @@ class Transformer(nn.Module):
                         _leaf("lm_head", params["lm_head"], self.dtype,
                               self.device))
 
-    def init_caches(self, batch: int, cache_len: int) -> List[Dict[str, Any]]:
-        return [attn_lib.init_cache(self.cfg.attention, batch, cache_len,
-                                    self.cfg.d_model, self.dtype, self.device)
-                for _ in self.blocks]
+    def init_caches(self, batch: int, cache_len: int, *,
+                    long_context: bool = False) -> List[Dict[str, Any]]:
+        """One cache per layer, of ``min(cache_len, window)`` positions for
+        a windowed layer (a ring when that is the window) and
+        ``cache_len`` for the others."""
+        out = []
+        for kind in layer_kinds(self.cfg):
+            win = block_window(kind, self.cfg, long_context)
+            L = cache_len if win is None else min(cache_len, win)
+            out.append(attn_lib.init_cache(self.cfg.attention, batch, L,
+                                           self.cfg.d_model, self.dtype,
+                                           self.device))
+        return out
 
     def forward(self, tokens: torch.Tensor, *, caches=None,
-                cfg: Optional[ModelConfig] = None
+                cfg: Optional[ModelConfig] = None,
+                long_context: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
         """Full-sequence pass (prefill).  tokens (B, S) → (hidden (B,S,d),
         aux_loss, caches); ``caches`` from :meth:`init_caches` are filled in
         place.  ``cfg`` overrides the served config (e.g. its dispatch)."""
         tree = {"blocks": [blk.tree() for blk in self.blocks],
                 "final_norm": self.final_norm, "embed": self.embed}
-        return forward(tree, tokens, cfg or self.cfg, caches=caches)
+        return forward(tree, tokens, cfg or self.cfg, caches=caches,
+                       long_context=long_context)
 
     def logits_from_hidden(self, h: torch.Tensor) -> torch.Tensor:
         return logits_from_hidden({"embed": self.embed,
                                    "lm_head": self.lm_head}, self.cfg, h)
 
     def decode_step(self, token: torch.Tensor, caches,
-                    cfg: Optional[ModelConfig] = None):
+                    cfg: Optional[ModelConfig] = None, *,
+                    long_context: bool = False):
         """One-token serve step: token (B, 1) → (logits (B, 1, V), caches),
         the caches updated in place."""
         cfg = cfg or self.cfg
@@ -317,10 +357,11 @@ class Transformer(nn.Module):
         if noisy(cfg):                      # as forward: a seed-0 draw
             gen = torch.Generator(device=x.device).manual_seed(0)
             noise = draw_gate_noise(cfg, token.numel(), gen, x.device)
-        for i, (blk, cache) in enumerate(zip(self.blocks, caches,
-                                             strict=True)):
-            x, _, _ = block_forward(blk.tree(), x, cfg, cache=cache,
-                                    decode=True,
+        for i, (blk, cache, kind) in enumerate(zip(
+                self.blocks, caches, layer_kinds(cfg), strict=True)):
+            x, _, _ = block_forward(blk.tree(), x, cfg, kind=kind,
+                                    cache=cache, decode=True,
+                                    long_context=long_context,
                                     noise=None if noise is None else noise[i])
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         return self.logits_from_hidden(x), caches

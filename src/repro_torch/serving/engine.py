@@ -79,12 +79,13 @@ def _sync(device: torch.device) -> None:
 def generate(model, prompt: torch.Tensor, *, steps: int,
              cache_len: Optional[int] = None, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             dispatch: Optional[str] = None,
+             dispatch: Optional[str] = None, long_context: bool = False,
              stats: Optional[dict] = None) -> torch.Tensor:
     """Greedy/temperature generation.  prompt (B, S) → (B, S+steps).
 
     ``model`` is a ``models.transformer.Transformer``; ``dispatch``
-    overrides the MoE dispatch mode.  As in the reference, the last token
+    overrides the MoE dispatch mode; ``long_context`` serves the
+    long-context variant (``global`` layers capped to ``local_window``).  As in the reference, the last token
     is sampled without a further decode step (1 prefill + steps-1 decode
     steps).  With ``stats`` given, the device is synchronised after the
     prefill and at the end, and ``prefill_s``, ``decode_s`` and
@@ -98,8 +99,9 @@ def generate(model, prompt: torch.Tensor, *, steps: int,
     step_cfg = resolve_decode_config(cfg, B)
     prompt = prompt.to(model.device)
     t0 = time.perf_counter()
-    caches = model.init_caches(B, cache_len)
-    h, _, caches = model.forward(prompt, caches=caches, cfg=cfg)
+    caches = model.init_caches(B, cache_len, long_context=long_context)
+    h, _, caches = model.forward(prompt, caches=caches, cfg=cfg,
+                                 long_context=long_context)
     logits = model.logits_from_hidden(h[:, -1:])
     if stats is not None:
         _sync(model.device)
@@ -117,7 +119,8 @@ def generate(model, prompt: torch.Tensor, *, steps: int,
             tok = last.argmax(dim=-1, keepdim=True)
         out.append(tok.to(prompt.dtype))
         if i + 1 < steps:
-            logits, caches = model.decode_step(tok, caches, cfg=step_cfg)
+            logits, caches = model.decode_step(tok, caches, cfg=step_cfg,
+                                               long_context=long_context)
     result = torch.cat(out, dim=1)
     if stats is not None:
         _sync(model.device)

@@ -53,6 +53,19 @@ CASES = [
      None, True),
 ]
 IDS = [c[0] for c in CASES]
+# the forward alone also takes head dims 120 (h2o-danube3) and 256 (gemma2),
+# with the masks and the cap those presets serve with
+WIDE_CASES = [
+    ("d=120 causal", 1, 4, 2, 80, 80, 120, True, None, None, False),
+    ("d=120 window16", 1, 8, 2, 96, 96, 120, True, 16, None, False),
+    ("d=120 window16, -1 slots, row 0 fully masked", 1, 4, 2, 64, 64, 120,
+     True, 16, None, True),
+    ("d=256 causal", 1, 4, 2, 80, 80, 256, True, None, None, False),
+    ("d=256 window16 cap50", 1, 4, 2, 96, 96, 256, True, 16, 50.0, False),
+    ("d=256 cap50", 2, 4, 2, 64, 64, 256, True, None, 50.0, False),
+]
+FWD_CASES = CASES + WIDE_CASES
+FWD_IDS = [c[0] for c in FWD_CASES]
 
 
 def _inputs(case, dtype, seed=0):
@@ -91,6 +104,29 @@ def _assert_close(t: torch.Tensor, j, dtype: str, what: str,
         assert (err <= tol).all(), (what, (err / tol).max())
 
 
+def _fwd_slack(q, k, v, q_pos, k_pos, scale, causal, window, cap):
+    """What a bf16 o may differ by beyond 1 ulp, per element: twice the
+    f32 summation-order bound of its sums, as ``chip_smoke.py``'s
+    ``flash_order_bounds`` states it — a score sums d products (|ds| <=
+    d·2⁻²⁴·SA, SA = scale·|q|·|k|, moving p by that much relatively, and
+    the softcap passes it on at most unchanged), o sums Sk of them:
+    2·(Sk + 2d·max_k SA)·2⁻²⁴·(p@|v|)/l.  At d = 120 and 256 an o near 0
+    (terms of both signs cancelling) is smaller than that, and one bf16
+    ulp of it does not cover the two sides' sums."""
+    B, H, Sq, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    _, lse = F.flash_fwd_plain(q, k, v, q_pos, k_pos, scale, causal, window,
+                               cap)
+    s, _, _ = F._scores(q, k, q_pos, k_pos, scale, causal, window, cap)
+    p = torch.exp(s - lse.reshape(s.shape[:-1])[..., None])
+    sa = torch.einsum("bkgqd,bksd->bkgqs", F._grouped(q, KV).abs(),
+                      k.float().abs()) * scale
+    pv = torch.einsum("bkgqs,bksd->bkgqd", p, v.float().abs())
+    u = 2.0 ** -24
+    return (2 * (Sk + 2 * d * sa.amax(-1, keepdim=True)) * u * pv
+            ).reshape(q.shape)
+
+
 def _bwd_slack(q, k, v, do, q_pos, k_pos, scale, causal, window, cap):
     """What bf16 gradients may differ by beyond 1 ulp, per element of dq,
     dk and dv.  Each side computes Δ = rowsum(dO∘o) from its OWN bf16 o,
@@ -125,17 +161,21 @@ def _bwd_slack(q, k, v, do, q_pos, k_pos, scale, causal, window, cap):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", CASES, ids=IDS)
+@pytest.mark.parametrize("case", FWD_CASES, ids=FWD_IDS)
 def test_forward_matches_reference(case, dtype):
     """o and lse of ``flash_fwd`` (the plain version on a CPU tensor)
     against the Pallas forward; lse is f32 on both sides (rtol 1e-5 /
-    atol 2e-5 for either dtype, as its inputs are the same)."""
+    atol 2e-5 for either dtype, as its inputs are the same).  In bf16 the
+    head dims 120 and 256 (``WIDE_CASES``, forward only) add the f32
+    summation-order bound of ``_fwd_slack`` to the 1 ulp."""
     (jq, jk, jv, _), (tq, tk, tv, _), (jqp, jkp, tqp, tkp), st = _inputs(
         case, dtype)
     jo, jlse = _jax_fwd(jq, jk, jv, jqp, jkp, *st)
     to, tlse = F.flash_fwd(tq, tk, tv, tqp, tkp, *st)
     assert to.dtype == tq.dtype and tlse.dtype == torch.float32
-    _assert_close(to, jo, dtype, "o")
+    extra = (_fwd_slack(tq, tk, tv, tqp, tkp, *st) if case in WIDE_CASES
+             else None)
+    _assert_close(to, jo, dtype, "o", extra)
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=1e-5,
                                atol=2e-5)
 
@@ -202,6 +242,31 @@ def test_wrappers_validate_their_operands():
     with pytest.raises(ValueError, match="lse and delta"):
         F.flash_dq(q, k, k, q, lse.double(), lse, pos, pos, 0.25, True, None,
                    None)
+
+
+
+@pytest.mark.parametrize("d", [120, 256])
+def test_flash_refuses_a_gradient_at_forward_only_head_dims(d):
+    """At d = 120 and 256 ``flash_attention`` runs under inference mode,
+    as serving calls it (the plain version here), and a call that
+    autograd would differentiate raises before the forward runs (the
+    wrapper is never called)."""
+    q = torch.randn(1, 2, 8, d)
+    k = torch.randn(1, 1, 8, d)
+    pos = torch.arange(8, dtype=torch.int32)
+    with torch.inference_mode():
+        o = F.flash_attention(q, k, k, pos, pos, d ** -0.5, True, 4, None)
+    assert o.shape == q.shape
+    calls = []
+    fwd = F.flash_fwd
+    try:
+        F.flash_fwd = lambda *a: calls.append(1) or fwd(*a)
+        with pytest.raises(NotImplementedError, match="no backward"):
+            F.flash_attention(q.requires_grad_(), k, k, pos, pos, d ** -0.5,
+                              True, 4, None)
+    finally:
+        F.flash_fwd = fwd
+    assert calls == []
 
 
 # ---------------------------------------------------------------------------

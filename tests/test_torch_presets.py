@@ -242,7 +242,7 @@ def test_presets_copy_the_reference(arch):
 
 
 def test_unported_presets_raise_naming_the_ported():
-    for arch in ("rwkv6-1.6b", "gemma2-9b", "zamba2-7b"):
+    for arch in ("rwkv6-1.6b", "zamba2-7b"):
         with pytest.raises(KeyError, match="dbrx-132b"):
             configs.get_config(arch)
 
