@@ -22,8 +22,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
    dk/dv (2g-2i: the seq-1024 training shape, GQA with a window and a
    softcap, ragged S=600 with invalid key slots and a fully masked row,
    S=1, Sq != Sk, q positions offset against k, the first 100 key slots
-   invalid); the forward alone also at head dims 120 and 256 (2l-2m,
-   with phase 13).
+   invalid); the forward at head dims 120 and 256 (2l-2m, with phase
+   13), and dq and dk/dv there (2n: 2l's edge cases and the windowed
+   presets' training shapes of phase 14, B=2 S=8192, kv head by kv head,
+   timed beside ``flex_attention``'s backward).
 3. Serving at full width: ``hetumoe-paper-16e`` (bf16, seeded random
    weights) through ``repro_torch.launch.serve.run`` → ``generate``, batch 8,
    32 new tokens: prompt 512 with ``grouped`` and with ``sort`` dispatch,
@@ -137,13 +139,27 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ``flex_attention`` with the window as a block mask and the softcap as
    a score_mod, the same function, held to the plain version too; SDPA
    with a boolean window mask, or without the cap, labelled beside it).
+14. The windowed presets trained at their published widths (f32 masters,
+   bf16 compute, seeded weights and data): ``h2o-danube-3-4b`` at 8 of
+   24 layers and ``gemma2-9b`` at one ``("local", "global")`` period
+   (an AdamW step holds ~40 bytes a parameter, so neither trains whole
+   on one card), batch 2 x seq 8192 (the window of 4096 acts on every
+   windowed layer), through ``make_train_step``, 2 warm-up + 8 timed
+   AdamW steps: finite metrics, no skipped step, the flash forward, dq
+   and dk/dv exactly once per layer and step, no host wait in a step;
+   step ms, tokens/s, peak memory and one profiled step each.  Then a
+   danube block and a gemma2 ``local`` and ``global`` block card against
+   CPU in f32, forward and backward at seq 640 (every gradient leaf
+   within 1e-3 of its max), and the training CLI on gemma2's smoke
+   config at seq 1024 in a subprocess on the card.  Phase 2n holds dq
+   and dk/dv at these shapes against their plain versions.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all ten kernels; the row-per-step gather, on no
 serving or training path, with the launches of its phase-5 run), and
 ``{"ok": true, "device": {...}}``.  ``--phases kernels`` runs phases 1, 2
-and 5 only, for work on a kernel, ``--phases trainer`` phases 1 and
-9-11, and ``--phases presets`` phases 1, 12 and 13; each ends with
+and 5 only, for work on a kernel, ``--phases trainer`` phases 1, 9-11
+and 14, and ``--phases presets`` phases 1, 12 and 13; each ends with
 ``"ok": false``.  The script
 imports nothing of JAX or of the JAX package.
 """
@@ -299,17 +315,19 @@ class TimingRows(list):
     def add(self, name, source, replaces, kernel, plain, library, nbytes,
             flops, peak, shape, slow=False, library_graph=None, cold=False,
             **extra):
-        """``cold``: also the device-only times of the kernel and of the
-        library call with the L2 flushed before each call
-        (``graph_cold_ms``), for a byte-bound kernel whose caller finds
-        its input cold."""
+        """``slow``: a kernel call of several ms, timed in fewer batches
+        of fewer calls, and a plain version of up to seconds a call,
+        timed in 3 single calls after one.  ``cold``: also the
+        device-only times of the kernel and of the library call with the
+        L2 flushed before each call (``graph_cold_ms``), for a byte-bound
+        kernel whose caller finds its input cold."""
         torch = self.torch
-        # a call of several ms: fewer batches of fewer calls
         kw = dict(batches=10, per_batch=3, warmup=2) if slow else {}
         gkw = dict(reps=10, per_graph=3) if slow else {}
         ms = time_ms(torch, kernel, **kw)
         dev_ms = graph_ms(torch, kernel, **gkw)
-        plain_ms = time_ms(torch, plain, **kw)
+        plain_ms = time_ms(torch, plain, **(dict(batches=3, per_batch=1,
+                                                 warmup=1) if slow else {}))
         lib_ms = lib_dev_ms = None
         if library is not None:
             try:
@@ -1081,17 +1099,25 @@ def flash_order_bounds(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st):
       dq  2^-16*scale * |dS| @ |k|
       dk  2^-16*scale * sum_g |dS|^T @ |q|
       dv  2^-16 * sum_g p^T @ |dO|"""
+    o_plain, _ = F.flash_fwd_plain(q, k, v, q_pos, k_pos, *st)
+    return (fwd_order_bound(torch, F, q, k, v, q_pos, k_pos, st, lse),
+            *bwd_order_bounds(torch, F, q, k, v, do, lse, delta, q_pos,
+                              k_pos, st, o_plain))
+
+
+def bwd_order_bounds(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st,
+                     o_plain):
+    """dq's, dk's and dv's bounds of ``flash_order_bounds`` (``o_plain``:
+    the plain forward's o)."""
     B, H, Sq, d = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G, scale, u, r = H // KV, st[0], 2.0 ** -24, 2.0 ** -16
-    o_b = fwd_order_bound(torch, F, q, k, v, q_pos, k_pos, st, lse)
     gq, gdo = F._grouped(q, KV), F._grouped(do, KV)
     ak = k.float().abs()
     s, _, _ = F._scores(q, k, q_pos, k_pos, *st)
     sa = torch.einsum("bkgqd,bksd->bkgqs", gq.abs(), ak) * scale
     p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None])
     del s
-    o_plain, _ = F.flash_fwd_plain(q, k, v, q_pos, k_pos, *st)
     a = torch.einsum("bkgqd,bksd->bkgqs", gdo.abs(), v.float().abs())
     dsum = (gdo.abs() * F._grouped(o_plain, KV).abs()).sum(-1)[..., None]
     w = p * (a + dsum)
@@ -1106,7 +1132,7 @@ def flash_order_bounds(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st):
     del w, wd, ads
     dv_b = torch.einsum("bkgqs,bkgqd->bksd",
                         p * (2 * u * (G * Sq + d * sa) + r), gdo.abs())
-    return o_b, dq_b, dk_b, dv_b
+    return dq_b, dk_b, dv_b
 
 
 def flash_bf16p_plain(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st):
@@ -1114,17 +1140,95 @@ def flash_bf16p_plain(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st):
     before their products (the chunked ``_attend``'s rounding of p): what
     a kernel computes that rounds them.  The bf16 kernels must stay
     measurably nearer the f32-p plain versions than this."""
+    return (flash_fwd_bf16p_plain(torch, F, q, k, v, q_pos, k_pos, st),
+            *bwd_bf16p_plain(torch, F, q, k, v, do, lse, delta, q_pos, k_pos,
+                             st))
+
+
+def bwd_bf16p_plain(torch, F, q, k, v, do, lse, delta, q_pos, k_pos, st):
+    """dq, dk and dv of ``flash_bf16p_plain``."""
     KV, scale = k.shape[1], st[0]
 
     def r(t):
         return t.to(torch.bfloat16).float()
-    o = flash_fwd_bf16p_plain(torch, F, q, k, v, q_pos, k_pos, st)
     p, ds = F._probs_and_ds(q, k, v, do, lse, delta, q_pos, k_pos, *st)
     dq = torch.einsum("bkgqs,bksd->bkgqd", r(ds), k.float()) * scale
     dk = torch.einsum("bkgqs,bkgqd->bksd", r(ds), F._grouped(q, KV)) * scale
     dv = torch.einsum("bkgqs,bkgqd->bksd", r(p), F._grouped(do, KV))
-    return (o, dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+FLASH_TOLERANCES = (
+    "f32: rtol/atol 1e-4; bf16: within 1 ulp of the plain result plus the "
+    "f32 summation-order bound and what the split x = hi + lo of p and dS "
+    "leaves out (flash_order_bounds: 2^-16*(p@|v|)/l for o, "
+    "2^-16*scale*|dS|@|k| for dq, 2^-16*scale*|dS|^T@|q| for dk, "
+    "2^-16*p^T@|dO| for dv), and where Sk > 1 a Frobenius distance from the "
+    "plain result at most 1/4 of that of the plain versions with p and dS "
+    "rounded to bf16 (flash_bf16p_plain); lse (f32 in both) rtol/atol 1e-4")
+
+
+def check_flash_case(torch, F, x32, qp, kp, st, name, errs, suffix=""):
+    """The flash forward, dq and dk/dv on the card against their plain
+    versions on the same inputs (``x32``: q, k, v, dO in f32 on the card;
+    the backward's o, lse and delta from the plain forward), in f32 and
+    bf16, to ``FLASH_TOLERANCES``.  Each kernel's largest error lands in
+    ``errs[kernel + suffix]``."""
+    Sk = x32[1].shape[2]
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = (t.to(dt) for t in x32)
+        o_k, lse_k = F.flash_fwd(q, k, v, qp, kp, *st)
+        o_p, lse_p = F.flash_fwd_plain(q, k, v, qp, kp, *st)
+        delta = (do.float() * o_p.float()).sum(-1)
+        bwd = (q, k, v, do, lse_p, delta, qp, kp, *st)
+        dq_k = F.flash_dq(*bwd)
+        dk_k, dv_k = F.flash_dkv(*bwd)
+        dq_p = F.flash_dq_plain(*bwd)
+        dk_p, dv_p = F.flash_dkv_plain(*bwd)
+        torch.cuda.synchronize()
+        bf16 = dt == torch.bfloat16
+        bounds = (flash_order_bounds(torch, F, q, k, v, do, lse_p, delta,
+                                     qp, kp, st) if bf16 else (None,) * 4)
+        rounded = (flash_bf16p_plain(torch, F, q, k, v, do, lse_p, delta,
+                                     qp, kp, st) if bf16 and Sk > 1
+                   else (None,) * 4)
+        lse_ok = bool(torch.allclose(lse_k, lse_p, rtol=1e-4, atol=1e-4))
+        results = []
+        for what, key, out, ref, bound, rnd in (
+                ("o", "flash_fwd", o_k, o_p, bounds[0], rounded[0]),
+                ("dq", "flash_dq", dq_k, dq_p, bounds[1], rounded[1]),
+                ("dk", "flash_dkv", dk_k, dk_p, bounds[2], rounded[2]),
+                ("dv", "flash_dkv", dv_k, dv_p, bounds[3], rounded[3])):
+            err = (out.float() - ref.float()).abs()
+            errs[key + suffix] = max(errs.get(key + suffix, 0.0),
+                                     err.max().item())
+            if dt == torch.float32:
+                ok = bool(torch.allclose(out, ref, rtol=1e-4, atol=1e-4))
+                note = ""
+            else:
+                ulp = bf16_ulp(torch, ref.float())
+                ok = bool((err <= ulp + bound).all())
+                note = (f", {(err / ulp).max().item():.2f} ulp max, "
+                        f"{int((err > ulp).sum())} past 1 ulp, max "
+                        f"err/(ulp + bound) "
+                        f"{(err / (ulp + bound)).max().item():.3f}")
+                if rnd is not None:
+                    far = (rnd.float() - ref.float()).norm().item()
+                    near = err.norm().item()
+                    ok = ok and near <= far / 4
+                    note += (f", |kernel - plain|_F {near:.3e} vs "
+                             f"|bf16-p plain - plain|_F {far:.3e}")
+            results.append(ok)
+            print(f"  {name} {dt} {what}: max abs err "
+                  f"{err.max().item():.3e}{note}: {ok}")
+        print(f"  {name} {dt} lse: max abs err "
+              f"{(lse_k - lse_p).abs().max().item():.3e}: {lse_ok}")
+        check(all(results) and lse_ok,
+              f"flash kernels {name} {dt} disagree with their plain "
+              f"versions")
+        del q, k, v, do, o_k, o_p, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p
+        del bounds, rounded, bwd
+    torch.cuda.empty_cache()
 
 
 def phase_flash_kernels(torch, dev):
@@ -1133,17 +1237,9 @@ def phase_flash_kernels(torch, dev):
     from repro_torch.kernels import flash_attention as F
     g = torch.Generator(device="cpu").manual_seed(4321)
     errs = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
-    print("phase 2g-2i: flash forward (o, lse), dq, dk/dv against their plain "
-          "versions on the same inputs (the backward's o, lse and delta "
-          "from the plain forward). f32: rtol/atol 1e-4; bf16: within 1 ulp "
-          "of the plain result plus the f32 summation-order bound and what "
-          "the split x = hi + lo of p and dS leaves out (flash_order_bounds:"
-          " 2^-16*(p@|v|)/l for o, 2^-16*scale*|dS|@|k| for dq, "
-          "2^-16*scale*|dS|^T@|q| for dk, 2^-16*p^T@|dO| for dv), and where "
-          "Sk > 1 a Frobenius distance "
-          "from the plain result at most 1/4 of that of the plain versions "
-          "with p and dS rounded to bf16 (flash_bf16p_plain); lse (f32 in "
-          "both) rtol/atol 1e-4")
+    print(f"phase 2g-2i: flash forward (o, lse), dq, dk/dv against their "
+          f"plain versions on the same inputs (the backward's o, lse and "
+          f"delta from the plain forward). {FLASH_TOLERANCES}")
     for (name, B, H, KV, Sq, Sk, d, causal, window, cap, invalid, q_first,
          dead) in FLASH_CASES:
         shapes = ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d), (B, H, Sq, d))
@@ -1154,61 +1250,9 @@ def phase_flash_kernels(torch, dev):
         if invalid:
             k_pos[0] = -1
             k_pos[torch.rand(Sk, generator=g) < invalid] = -1
-        qp, kp = q_pos.to(dev), k_pos.to(dev)
-        st = (d ** -0.5, causal, window, cap)
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v, do = (t.to(dt).to(dev) for t in x32)
-            o_k, lse_k = F.flash_fwd(q, k, v, qp, kp, *st)
-            o_p, lse_p = F.flash_fwd_plain(q, k, v, qp, kp, *st)
-            delta = (do.float() * o_p.float()).sum(-1)
-            bwd = (q, k, v, do, lse_p, delta, qp, kp, *st)
-            dq_k = F.flash_dq(*bwd)
-            dk_k, dv_k = F.flash_dkv(*bwd)
-            dq_p = F.flash_dq_plain(*bwd)
-            dk_p, dv_p = F.flash_dkv_plain(*bwd)
-            torch.cuda.synchronize()
-            bf16 = dt == torch.bfloat16
-            bounds = (flash_order_bounds(torch, F, q, k, v, do, lse_p, delta,
-                                         qp, kp, st) if bf16 else (None,) * 4)
-            rounded = (flash_bf16p_plain(torch, F, q, k, v, do, lse_p, delta,
-                                         qp, kp, st) if bf16 and Sk > 1
-                       else (None,) * 4)
-            lse_ok = bool(torch.allclose(lse_k, lse_p, rtol=1e-4, atol=1e-4))
-            results = []
-            for what, key, out, ref, bound, rnd in (
-                    ("o", "flash_fwd", o_k, o_p, bounds[0], rounded[0]),
-                    ("dq", "flash_dq", dq_k, dq_p, bounds[1], rounded[1]),
-                    ("dk", "flash_dkv", dk_k, dk_p, bounds[2], rounded[2]),
-                    ("dv", "flash_dkv", dv_k, dv_p, bounds[3], rounded[3])):
-                err = (out.float() - ref.float()).abs()
-                errs[key] = max(errs[key], err.max().item())
-                if dt == torch.float32:
-                    ok = bool(torch.allclose(out, ref, rtol=1e-4, atol=1e-4))
-                    note = ""
-                else:
-                    ulp = bf16_ulp(torch, ref.float())
-                    ok = bool((err <= ulp + bound).all())
-                    note = (f", {(err / ulp).max().item():.2f} ulp max, "
-                            f"{int((err > ulp).sum())} past 1 ulp, max "
-                            f"err/(ulp + bound) "
-                            f"{(err / (ulp + bound)).max().item():.3f}")
-                    if rnd is not None:
-                        far = (rnd.float() - ref.float()).norm().item()
-                        near = err.norm().item()
-                        ok = ok and near <= far / 4
-                        note += (f", |kernel - plain|_F {near:.3e} vs "
-                                 f"|bf16-p plain - plain|_F {far:.3e}")
-                results.append(ok)
-                print(f"  {name} {dt} {what}: max abs err "
-                      f"{err.max().item():.3e}{note}: {ok}")
-            print(f"  {name} {dt} lse: max abs err "
-                  f"{(lse_k - lse_p).abs().max().item():.3e}: {lse_ok}")
-            check(all(results) and lse_ok,
-                  f"flash kernels {name} {dt} disagree with their plain "
-                  f"versions")
-            del q, k, v, do, o_k, o_p, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p
-            del bounds, rounded, bwd
-        torch.cuda.empty_cache()
+        check_flash_case(torch, F, [t.to(dev) for t in x32], q_pos.to(dev),
+                         k_pos.to(dev), (d ** -0.5, causal, window, cap),
+                         name, errs)
     return errs
 
 
@@ -1221,8 +1265,8 @@ WINDOWED_FLASH = (("gemma2-9b local", 16, 8, 256, 4096, 50.0),
 WINDOWED_B, WINDOWED_S = 4, 8064
 # (name, B, H, KV, Sq, Sk, d, causal, window, cap, share of k_pos set to -1
 #  (and the key at the first query's position: that row has no key),
-#  shuffled key positions) of phase 2l: edge cases at the head dims only
-#  the forward takes
+#  shuffled key positions) of phases 2l and 2n: edge cases at head dims
+#  120 and 256
 FLASH_WIDE_CASES = [
     ("d=120 window 100, k_pos -1 slots, row 0 fully masked (S=600)", 1, 4,
      2, 600, 600, 120, True, 100, None, 0.1, False),
@@ -1238,71 +1282,107 @@ WIDE_TOLERANCES = ("f32 rtol/atol 1e-4; bf16 1 ulp + fwd_order_bound, "
                    "version's; lse rtol/atol 1e-4")
 
 
-def check_fwd_by_kv_head(torch, F, q, k, v, qp, kp, st, o_k, lse_k,
-                         others=None):
-    """The forward's ``o_k``, ``lse_k`` against its plain version on the
-    same inputs, kv head by kv head (the plain version's scores at
-    S=8064 take 1-2 GB a kv head), to 2g's tolerances (``WIDE_TOLERANCES``).
-    ``others``: {name: o} of further bf16 computations of the same
-    function, whose Frobenius distance from the plain result is returned
-    beside the kernel's.  Returns (ok, max abs err, note, {name: distance}
-    with "kernel" and, in bf16, "bf16-p plain")."""
-    B, H, _, _ = q.shape
+def check_by_kv_head(torch, F, q, k, v, qp, kp, st, o_k, lse_k, do=None,
+                     others=None):
+    """The flash forward's ``o_k``, ``lse_k`` against its plain version on
+    the same inputs, kv head by kv head (the plain versions' scores at
+    S=8192 take 0.5-1 GiB a kv head), to 2g's tolerances
+    (``FLASH_TOLERANCES``; ``fwd_order_bound`` for o).  Given the
+    cotangent ``do``, also dq and dk/dv, launched here on the whole
+    tensors with the forward's own lse and delta = sum(do * o_k), as
+    training feeds them, against their plain versions given the same.
+    ``others``: {name: {"o" | "dq" | "dk" | "dv": tensor}} of further bf16
+    computations of the same function, whose Frobenius distances from the
+    plain results are returned beside the kernels'.  Returns (ok, {what:
+    max abs err}, note, {name: {what: distance}} with "kernel" and, in
+    bf16, "bf16-p plain")."""
+    B, H = q.shape[:2]
     KV = k.shape[1]
     G = H // KV
     bf16 = q.dtype == torch.bfloat16
+    outs, whats = (o_k,), ("o",)
+    if do is not None:
+        delta_k = (do.float() * o_k.float()).sum(-1)
+        bwd = (q, k, v, do, lse_k, delta_k, qp, kp, *st)
+        outs, whats = (o_k, F.flash_dq(*bwd), *F.flash_dkv(*bwd)), (
+            "o", "dq", "dk", "dv")
+        torch.cuda.synchronize()
     others = others or {}
-    ok, worst, ratio, past, lse_err = True, 0.0, 0.0, 0, 0.0
-    sq = dict.fromkeys(["kernel", "bf16-p plain", *others], 0.0)
+    ok, lse_err = True, 0.0
+    worst, ratio = dict.fromkeys(whats, 0.0), dict.fromkeys(whats, 0.0)
+    past = dict.fromkeys(whats, 0)
+    sq = {n: dict.fromkeys(whats, 0.0) for n in ("kernel", "bf16-p plain")}
+    sq.update({n: dict.fromkeys(got, 0.0) for n, got in others.items()})
     for b in range(B):
         for kh in range(KV):
-            hs = slice(kh * G, (kh + 1) * G)
-            qs, ks, vs = (q[b:b + 1, hs], k[b:b + 1, kh:kh + 1],
-                          v[b:b + 1, kh:kh + 1])
+            # the heads of o and dq, and of dk and dv
+            hs, ks_ = slice(kh * G, (kh + 1) * G), slice(kh, kh + 1)
+            parts = dict(o=hs, dq=hs, dk=ks_, dv=ks_)
+            qs, ks, vs = q[b:b + 1, hs], k[b:b + 1, ks_], v[b:b + 1, ks_]
             o_p, lse_p = F.flash_fwd_plain(qs, ks, vs, qp, kp, *st)
-            out, lk = o_k[b:b + 1, hs], lse_k[b:b + 1, hs]
-            err = (out.float() - o_p.float()).abs()
-            worst = max(worst, err.max().item())
+            lk = lse_k[b:b + 1, hs]
             lse_err = max(lse_err, (lk - lse_p).abs().max().item())
             ok &= bool(torch.allclose(lk, lse_p, rtol=1e-4, atol=1e-4))
-            if not bf16:
-                ok &= bool(torch.allclose(out, o_p, rtol=1e-4, atol=1e-4))
-                continue
-            ulp = bf16_ulp(torch, o_p.float())
-            bound = fwd_order_bound(torch, F, qs, ks, vs, qp, kp, st, lse_p)
-            ok &= bool((err <= ulp + bound).all())
-            ratio = max(ratio, (err / (ulp + bound)).max().item())
-            past += int((err > ulp).sum())
-            sq["kernel"] += err.norm().item() ** 2
-            sq["bf16-p plain"] += (flash_fwd_bf16p_plain(
-                torch, F, qs, ks, vs, qp, kp, st).float()
-                - o_p.float()).norm().item() ** 2
-            for name, o in others.items():
-                sq[name] += (o[b:b + 1, hs].float()
-                             - o_p.float()).norm().item() ** 2
-            del bound, o_p, err
-    note = f"; lse max abs err {lse_err:.3e}"
-    dist = {}
+            refs = [o_p]
+            if bf16:
+                bounds = [fwd_order_bound(torch, F, qs, ks, vs, qp, kp, st,
+                                          lse_p)]
+                rounded = [flash_fwd_bf16p_plain(torch, F, qs, ks, vs, qp, kp,
+                                                 st)]
+            if do is not None:
+                args = (qs, ks, vs, do[b:b + 1, hs], lk, delta_k[b:b + 1, hs],
+                        qp, kp)
+                refs += [F.flash_dq_plain(*args, *st),
+                         *F.flash_dkv_plain(*args, *st)]
+                if bf16:
+                    bounds += bwd_order_bounds(torch, F, *args, st, o_p)
+                    rounded += bwd_bf16p_plain(torch, F, *args, st)
+            for i, what in enumerate(whats):
+                out, ref = outs[i][b:b + 1, parts[what]], refs[i].float()
+                err = (out.float() - ref).abs()
+                worst[what] = max(worst[what], err.max().item())
+                if not bf16:
+                    ok &= bool(torch.allclose(out.float(), ref, rtol=1e-4,
+                                              atol=1e-4))
+                    continue
+                ulp = bf16_ulp(torch, ref)
+                ok &= bool((err <= ulp + bounds[i]).all())
+                ratio[what] = max(ratio[what],
+                                  (err / (ulp + bounds[i])).max().item())
+                past[what] += int((err > ulp).sum())
+                sq["kernel"][what] += err.norm().item() ** 2
+                sq["bf16-p plain"][what] += (rounded[i].float()
+                                             - ref).norm().item() ** 2
+                for name, got in others.items():
+                    if what in got:
+                        sq[name][what] += (got[what][b:b + 1, parts[what]]
+                                           .float() - ref).norm().item() ** 2
+            del refs, o_p
+            if bf16:
+                del bounds, rounded
+    note, dist = f"; lse max abs err {lse_err:.3e}", {}
     if bf16:
-        dist = {name: s ** 0.5 for name, s in sq.items()}
-        ok &= dist["kernel"] <= dist["bf16-p plain"] / 4
-        note = (f", {past} past 1 ulp, max err/(ulp + bound) {ratio:.3f}, "
-                + ", ".join(f"|{n} - plain|_F {x:.3e}"
-                            for n, x in dist.items()) + note)
+        dist = {n: {w: x ** 0.5 for w, x in d.items()} for n, d in sq.items()}
+        for what in whats:
+            ok &= dist["kernel"][what] <= dist["bf16-p plain"][what] / 4
+            note += (f"; {what}: {past[what]} past 1 ulp, max err/(ulp + "
+                     f"bound) {ratio[what]:.3f}, " + ", ".join(
+                         f"|{n} - plain|_F {d[what]:.3e}"
+                         for n, d in dist.items() if what in d))
     return ok, worst, note, dist
 
 
 def phase_flash_wide(torch, dev, errs):
-    """Phase 2l: the flash forward at the head dims that only it takes (120
-    and 256) against its plain version on the card, on the same inputs, at
+    """Phase 2l: the flash forward at head dims 120 and 256 against its
+    plain version on the card, on the same inputs, at
     edge cases (fully masked rows, -1 slots, shuffled key positions under
     a window, Sq != Sk), in f32 and bf16, to ``WIDE_TOLERANCES``; phase
     2m checks the served shapes."""
     from repro_torch.kernels import flash_attention as F
     g = torch.Generator(device="cpu").manual_seed(2020)
-    print(f"phase 2l: flash forward at head dims 120 and 256 (forward only: "
-          f"dq and dk/dv refuse them), edge cases, against its plain "
-          f"version; {WIDE_TOLERANCES}")
+    print(f"phase 2l: flash forward at head dims 120 and 256, edge cases, "
+          f"against its plain version (phase 2n holds dq and dk/dv there); "
+          f"{WIDE_TOLERANCES}")
     for (name, B, H, KV, Sq, Sk, d, causal, window, cap, invalid,
          shuffle) in FLASH_WIDE_CASES:
         x32 = [torch.randn(s, generator=g) for s in
@@ -1319,11 +1399,12 @@ def phase_flash_wide(torch, dev, errs):
             q, k, v = (t.to(dt).to(dev) for t in x32)
             o_k, lse_k = F.flash_fwd(q, k, v, qp, kp, *st)
             torch.cuda.synchronize()
-            ok, worst, note, _ = check_fwd_by_kv_head(torch, F, q, k, v, qp,
-                                                      kp, st, o_k, lse_k)
+            ok, worst, note, _ = check_by_kv_head(torch, F, q, k, v, qp, kp,
+                                                  st, o_k, lse_k)
             errs["flash_fwd_wide"] = max(errs.get("flash_fwd_wide", 0.0),
-                                         worst)
-            print(f"  {name} {dt} o: max abs err {worst:.3e}{note}: {ok}")
+                                         worst["o"])
+            print(f"  {name} {dt} o: max abs err {worst['o']:.3e}{note}: "
+                  f"{ok}")
             check(ok, f"flash forward {name} {dt} disagrees with its plain "
                       f"version")
             del q, k, v, o_k, lse_k
@@ -1371,7 +1452,7 @@ def phase_windowed_flash(torch, dev, smi, errs):
     """Phase 2m: the flash forward at the windowed presets' prefill of
     ``WINDOWED_B`` prompts of ``WINDOWED_S`` tokens (``WINDOWED_FLASH``),
     checked in f32 and bf16 against its plain version on the same inputs
-    (``check_fwd_by_kv_head``, ``WIDE_TOLERANCES``) and timed in bf16 as
+    (``check_by_kv_head``, ``WIDE_TOLERANCES``) and timed in bf16 as
     phase 5 times it: ``bound_ms`` from the (q, k) pairs the causal
     window keeps (2 products of 2d operations each) or the bytes of q, k,
     v, o and lse, whichever is larger; ``visited_bound_ms`` the bound of
@@ -1403,9 +1484,9 @@ def phase_windowed_flash(torch, dev, smi, errs):
                 for _ in range(2))
         st = (d ** -0.5, True, window, cap)
         o_k, lse_k = F.flash_fwd(q, k, v, pos, pos, *st)
-        ok, worst, note, _ = check_fwd_by_kv_head(torch, F, q, k, v, pos,
-                                                  pos, st, o_k, lse_k)
-        print(f"  {name} f32 o: max abs err {worst:.3e}{note}: {ok}")
+        ok, worst, note, _ = check_by_kv_head(torch, F, q, k, v, pos, pos,
+                                              st, o_k, lse_k)
+        print(f"  {name} f32 o: max abs err {worst['o']:.3e}{note}: {ok}")
         check(ok, f"flash forward {name} f32 disagrees with its plain "
                   f"version")
         del o_k, lse_k
@@ -1413,18 +1494,20 @@ def phase_windowed_flash(torch, dev, smi, errs):
         torch.cuda.empty_cache()
         flex, built = flex_yardstick(torch, q, k, v, st[0], window, cap)
         o_k, lse_k = F.flash_fwd(q, k, v, pos, pos, *st)
-        others = {} if flex is None else {"flex_attention": flex()}
-        ok, worst, note, dist = check_fwd_by_kv_head(
-            torch, F, q, k, v, pos, pos, st, o_k, lse_k, others)
-        errs["flash_fwd_wide"] = max(errs.get("flash_fwd_wide", 0.0), worst)
-        print(f"  {name} bf16 o: max abs err {worst:.3e}{note}: {ok}")
+        others = {} if flex is None else {"flex_attention": {"o": flex()}}
+        ok, worst, note, dist = check_by_kv_head(
+            torch, F, q, k, v, pos, pos, st, o_k, lse_k, others=others)
+        errs["flash_fwd_wide"] = max(errs.get("flash_fwd_wide", 0.0),
+                                     worst["o"])
+        print(f"  {name} bf16 o: max abs err {worst['o']:.3e}{note}: {ok}")
         check(ok, f"flash forward {name} bf16 disagrees with its plain "
                   f"version")
         if flex is None:
             print(f"    flex_attention does not run here: {built}")
         else:
             print(f"    flex_attention compiled in {built:.1f} s")
-            check(dist["flex_attention"] <= 2 * dist["bf16-p plain"],
+            check(dist["flex_attention"]["o"]
+                  <= 2 * dist["bf16-p plain"]["o"],
                   f"flex_attention computes another function than the "
                   f"kernel at {name}: {dist}")
         del o_k, lse_k, others
@@ -1461,6 +1544,187 @@ def phase_windowed_flash(torch, dev, smi, errs):
                  visited_tiles=f"{visited:g} of {(S // F.TILE) ** 2}",
                  visited_bound_ms=1e3 * own / BF16_FLOPS, **extra)
         del q, k, v, ke, ve, allowed, mask, flex
+        torch.cuda.empty_cache()
+    return rows
+
+
+# The windowed presets' training shapes, phase 14's batch 2 x seq 8192:
+# (name, H, KV, d, window, cap); phase 2n checks dq and dk/dv there, kv
+# head by kv head, and times them
+WINDOWED_TRAIN = (("h2o-danube-3-4b", 32, 8, 120, 4096, None),
+                  ("gemma2-9b local", 16, 8, 256, 4096, 50.0),
+                  ("gemma2-9b global", 16, 8, 256, None, 50.0))
+WINDOWED_TRAIN_B, WINDOWED_TRAIN_S = 2, 8192
+
+
+def flex_bwd_yardstick(torch, q, k, v, do, scale, window, cap):
+    """``flex_attention``'s backward (``flex_yardstick``'s call: the
+    window as a block mask, the softcap as a score_mod, GQA in the call)
+    on the same inputs and cotangent: (call, graph, seconds, grads) where
+    ``call()`` runs the backward of one saved forward (dq, dk, dv),
+    ``graph`` is (callable, stream) of the same on a side stream for the
+    device-only time (a backward runs on its forward's stream), the
+    seconds those compiles took outside any timing, and ``grads`` one
+    call's result; or (None, None, why not, None)."""
+    try:
+        t0 = time.perf_counter()
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        fwd, _ = flex_yardstick(torch, *leaves, scale, window, cap)
+        if fwd is None:
+            raise RuntimeError("the forward does not run")
+        out = fwd()
+
+        def call():
+            return torch.autograd.grad(out, leaves, do, retain_graph=True)
+        grads = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            side_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            side_fwd, _ = flex_yardstick(torch, *side_leaves, scale, window,
+                                         cap)
+            out_side = side_fwd()
+        torch.cuda.current_stream().wait_stream(side)
+
+        def call_side():
+            return torch.autograd.grad(out_side, side_leaves, do,
+                                       retain_graph=True)
+        torch.cuda.synchronize()
+        return call, (call_side, side), time.perf_counter() - t0, grads
+    except Exception as e:                     # noqa: BLE001 - reported
+        return None, None, (f"{type(e).__name__}: "
+                            f"{str(e).splitlines()[0][:200]}"), None
+
+
+def phase_flash_wide_bwd(torch, dev, smi, errs):
+    """Phase 2n: dq and dk/dv (with the forward) at head dims 120 and 256
+    against their plain versions on the card, on the same inputs, in f32
+    and bf16, to ``FLASH_TOLERANCES``: the edge cases of 2l
+    (``FLASH_WIDE_CASES``: fully masked rows, -1 slots, shuffled key
+    positions under a window, a softcap, Sq != Sk), then the windowed
+    presets' training shapes (``WINDOWED_TRAIN``, B=2 S=8192, o, lse, dq
+    and dk/dv kv head by kv head, the backward fed the forward kernel's lse
+    and o as training feeds it: ``check_by_kv_head``).  The largest errors
+    land in errs[``flash_*_wide``] (the forward's beside 2l-2m's).  At the
+    training shapes dq and dk/dv
+    are timed in bf16 as phase 5 times them (``bound_ms`` over the (q, k)
+    pairs the causal window keeps: 3 products of 2d operations each for
+    dq, 4 for dk/dv; ``visited_bound_ms`` the bound of the kernels' own
+    arithmetic over the tiles they visit, the score products twice at d
+    = 256, where two warps compute them, the products of dS and p twice,
+    as hi and lo), beside ``flex_attention``'s backward
+    (``flex_bwd_yardstick``: dq, dk and dv in one call, the same number
+    in both rows), held to the plain versions as 2m holds its forward
+    (Frobenius distance at most twice that of the plain versions with p
+    and dS rounded to bf16).  Returns the timing rows."""
+    from repro_torch.kernels import flash_attention as F
+    g = torch.Generator(device="cpu").manual_seed(2121)
+    rows = TimingRows(torch, smi)
+    print(f"phase 2n: flash dq and dk/dv at head dims 120 and 256 against "
+          f"their plain versions, the edge cases of 2l and the windowed "
+          f"presets' training shapes (there with the forward's o and lse, "
+          f"the backward fed the forward kernel's lse and o); "
+          f"{FLASH_TOLERANCES}")
+    for (name, B, H, KV, Sq, Sk, d, causal, window, cap, invalid,
+         shuffle) in FLASH_WIDE_CASES:
+        x32 = [torch.randn(s, generator=g) for s in
+               ((B, H, Sq, d), (B, KV, Sk, d), (B, KV, Sk, d), (B, H, Sq, d))]
+        q_pos = torch.arange(Sq, dtype=torch.int32)
+        k_pos = (torch.randperm(Sk, generator=g).to(torch.int32) if shuffle
+                 else torch.arange(Sk, dtype=torch.int32))
+        if invalid:
+            k_pos[k_pos == 0] = -1          # query 0 keeps no key
+            k_pos[torch.rand(Sk, generator=g) < invalid] = -1
+        check_flash_case(torch, F, [t.to(dev) for t in x32], q_pos.to(dev),
+                         k_pos.to(dev), (d ** -0.5, causal, window, cap),
+                         name, errs, suffix="_wide")
+    gd = torch.Generator(device=dev).manual_seed(2122)
+    B, S = WINDOWED_TRAIN_B, WINDOWED_TRAIN_S
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    src, ref = ("src/repro_torch/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py")
+    for name, H, KV, d, window, cap in WINDOWED_TRAIN:
+        x32 = [torch.randn(s, generator=gd, device=dev) for s in
+               ((B, H, S, d), (B, KV, S, d), (B, KV, S, d), (B, H, S, d))]
+        st = (d ** -0.5, True, window, cap)
+        label = f"{name} B={B} H:KV={H}:{KV} S={S} d={d}"
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = (t.to(dt) for t in x32)
+            others, flex = {}, (None, None, None, None)
+            if dt == torch.bfloat16:
+                flex = flex_bwd_yardstick(torch, q, k, v, do, st[0], window,
+                                          cap)
+                if flex[0] is not None:
+                    others = {"flex_attention": dict(zip(("dq", "dk", "dv"),
+                                                         flex[3]))}
+            o, lse = F.flash_fwd(q, k, v, pos, pos, *st)
+            ok, worst, note, dist = check_by_kv_head(
+                torch, F, q, k, v, pos, pos, st, o, lse, do=do, others=others)
+            for key, whats in (("flash_fwd_wide", ("o",)),
+                               ("flash_dq_wide", ("dq",)),
+                               ("flash_dkv_wide", ("dk", "dv"))):
+                errs[key] = max(errs.get(key, 0.0),
+                                *(worst[w] for w in whats))
+            print(f"  {label} {dt}: max abs err " + ", ".join(
+                f"{w} {x:.3e}" for w, x in worst.items()) + f"{note}: {ok}")
+            check(ok, f"flash forward, dq or dk/dv {name} {dt} disagree "
+                      f"with their plain versions")
+            torch.cuda.empty_cache()
+        if flex[0] is None:
+            print(f"    flex_attention's backward does not run here: "
+                  f"{flex[2]}")
+        else:
+            print(f"    flex_attention forward + backward compiled in "
+                  f"{flex[2]:.1f} s")
+            far = dist["flex_attention"]
+            check(all(far[w] <= 2 * dist["bf16-p plain"][w] for w in far),
+                  f"flex_attention's backward computes another function "
+                  f"than the kernels at {name}: {dist}")
+        # timings, bf16, on these inputs and the forward's lse and o
+        G = H // KV
+        delta = (do.float() * o.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, pos, pos, *st)
+
+        def by_kv_head(fn, bwd=bwd, G=G, KV=KV):
+            q, k, v, do, lse, delta = bwd[:6]
+            return [fn(q[b:b + 1, h * G:(h + 1) * G], k[b:b + 1, h:h + 1],
+                       v[b:b + 1, h:h + 1], do[b:b + 1, h * G:(h + 1) * G],
+                       lse[b:b + 1, h * G:(h + 1) * G],
+                       delta[b:b + 1, h * G:(h + 1) * G], *bwd[6:])
+                    for b in range(B) for h in range(KV)]
+        pairs = int(F._mask(pos, pos, True, window).sum())
+        need = 2 * B * H * pairs * d                 # one product, needed
+        tile = 2 * B * H * F.TILE ** 2               # per head-dim column
+        nh, dp = (2 if d > 128 else 1), -(-d // 16) * 16
+        k_tiles = int(F.visited_k_tiles(pos.cpu(), pos.cpu(), True, window)
+                      .sum()) * F.GROUP / F.TILE     # in 64x64 tiles
+        codes = F.visited_q_tiles(pos.cpu(), pos.cpu(), True, window)
+        dv_only = int((codes == F.DV_ONLY).sum())
+        q_tiles = int((codes > 0).sum())
+        t_q, t_kv = B * H * S * d * 2, B * KV * S * d * 2
+        t_rows = B * H * S * 4
+        extra = ({"library_note": f"flex_attention's backward does not "
+                                  f"run: {flex[2]}"} if flex[0] is None
+                 else {"flex_attention_compile_s": flex[2],
+                       "library_call": "flex_attention's backward (dq, dk "
+                                       "and dv in one call)"})
+        for kname, line, kern, plain, nbytes, n_prod, tiles, own in (
+                ("flash_dq", 81, lambda bwd=bwd: F.flash_dq(*bwd),
+                 lambda: by_kv_head(F.flash_dq_plain),
+                 3 * t_q + 2 * t_kv + 2 * t_rows + 2 * S * 4, 3, k_tiles,
+                 k_tiles * (nh * 2 * dp + 2 * d)),
+                ("flash_dkv", 115, lambda bwd=bwd: F.flash_dkv(*bwd),
+                 lambda: by_kv_head(F.flash_dkv_plain),
+                 2 * t_q + 4 * t_kv + 2 * t_rows + 2 * S * 4, 4, q_tiles,
+                 (q_tiles - dv_only) * (nh * 2 * dp + 4 * d)
+                 + dv_only * 2 * d)):
+            rows.add(kname, src, f"{ref}:{line}", kern, plain, flex[0],
+                     nbytes, n_prod * need, BF16_FLOPS,
+                     f"{label} bf16 causal window={window} cap={cap}",
+                     slow=True, library_graph=flex[1],
+                     visited_tiles=f"{tiles:g} of {(S // F.TILE) ** 2}",
+                     visited_bound_ms=1e3 * own * tile / BF16_FLOPS, **extra)
+        del x32, q, k, v, do, o, lse, delta, bwd, flex, others
         torch.cuda.empty_cache()
     return rows
 
@@ -3371,6 +3635,234 @@ def phase_windowed_card_vs_cpu(torch, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the windowed presets trained at full width
+# ---------------------------------------------------------------------------
+
+# (preset, layers trained): every width, window and cap as published, the
+# depth cut to fit one card's 80 GB.  An AdamW step holds for a moment
+# the old and the new f32 params and moments, the f32 grads and the skip
+# guard's torch.where copies: ~40 bytes a parameter, not the state's 16,
+# so danube's 3.96B (24 layers) and gemma2's 9.24B (42) do not train
+# whole on one card.  Danube at 8 of 24 layers: 1.49B parameters;
+# gemma2 at one ("local", "global") period, 2 of 42: 1.31B, of which
+# 0.92B the tied 256000 x 3584 embedding.
+WINDOWED_TRAIN_RUNS = (("h2o-danube-3-4b", 8), ("gemma2-9b", 2))
+WINDOWED_TRAIN_STEPS = dict(warmup=2, timed=8)
+# a block of each kind card against CPU, f32, forward + backward at this
+# length (past q_chunk: the flash kernels, once each)
+WINDOWED_BLOCK_S = 640
+
+
+def phase_windowed_train(torch, smi):
+    """Phase 14: the windowed presets trained at their published widths
+    (``WINDOWED_TRAIN_RUNS``: h2o-danube-3-4b at 8 of 24 layers, gemma2-9b
+    at one local/global period) at batch ``WINDOWED_TRAIN_B`` x seq
+    ``WINDOWED_TRAIN_S`` (the models' context: the window of 4096 acts on
+    every windowed layer), f32 masters, bf16 compute, remat none,
+    seeded weights and data, through ``make_train_step`` (the depth cut
+    through ``cfg.replace(num_layers=)``), 2 warm-up + 8 timed AdamW
+    steps: every metric finite, no step skipped, launches exactly the
+    flash forward, dq and dk/dv once per layer and step and no other
+    kernel, and no host wait in a step (``torch.cuda.set_sync_debug_mode``);
+    step ms, tokens/s and peak memory, and one profiled step.  Then a
+    block of each kind card against CPU in f32
+    (``windowed_blocks_card_vs_cpu``) and the training CLI on gemma2's
+    smoke config at seq 1024 (the flash path at head dim 32) in a
+    subprocess on the card.  Returns (launch totals, results)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs, tree
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    B, S = WINDOWED_TRAIN_B, WINDOWED_TRAIN_S
+    steps = WINDOWED_TRAIN_STEPS["warmup"] + WINDOWED_TRAIN_STEPS["timed"]
+    names = [k for k, _, _ in COUNTERS]
+    totals = dict.fromkeys(names, 0)
+    print(f"phase 14: the windowed presets trained at published widths, "
+          f"batch {B} x seq {S}, f32 masters + bf16 compute, remat none, "
+          f"{WINDOWED_TRAIN_STEPS['warmup']} warm-up + "
+          f"{WINDOWED_TRAIN_STEPS['timed']} timed AdamW steps; depths "
+          f"{WINDOWED_TRAIN_RUNS} of 24 and 42 layers: an AdamW step holds "
+          f"~40 bytes a parameter (old and new f32 params and moments, f32 "
+          f"grads, the skip guard's copies), so neither model trains whole "
+          f"on one 80 GB card")
+    out = {}
+    for arch, layers in WINDOWED_TRAIN_RUNS:
+        full = configs.get_config(arch)
+        cfg = full.replace(num_layers=layers)
+        tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=1,
+                           total_steps=steps)
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        step = make_train_step(cfg, tcfg)
+        state = init_train_state(cfg, tcfg, device="cuda")
+        n_params = sum(p.numel() for p in tree.leaves(state.params))
+        ds = SyntheticLM(cfg, B, S, seed=0, device="cuda")
+        kinds = sorted(set(cfg.block_pattern))
+        print(f"  [{smi}] {arch}: {layers} of {full.num_layers} layers "
+              f"{cfg.block_pattern}, head dim {cfg.head_dim}, window "
+              f"{cfg.attention.window or cfg.local_window}, "
+              f"{n_params / 1e9:.3f}B parameters")
+        reset_counts()
+        times, history = [], []
+        for i in range(steps):
+            batch = ds.next_batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, step=i)
+            m = {k: float(v) for k, v in m.items()}
+            times.append(time.perf_counter() - t0)
+            history.append(m)
+        counts = read_counts(names)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = dict.fromkeys(names, 0) | {
+            k: layers * steps for k in ("flash_fwd", "flash_dq",
+                                        "flash_dkv")}
+        timed = times[WINDOWED_TRAIN_STEPS["warmup"]:]
+        med = statistics.median(timed)
+        losses = [h["loss"] for h in history]
+        print(f"  [{smi}] {arch} ({layers} layers) B={B} S={S}: median step "
+              f"{1e3 * med:.3f} ms (of {len(timed)} timed; min "
+              f"{1e3 * min(timed):.3f}, max {1e3 * max(timed):.3f}), "
+              f"{B * S / med:.1f} tokens/s, peak memory {peak:.3f} GiB, "
+              f"launches {counts}")
+        print(f"    loss trajectory {[round(v, 4) for v in losses]}")
+        check(counts == want, f"{arch}: training launch counts {counts} != "
+                              f"{want} ({steps} steps)")
+        bad = [(i, k) for i, h in enumerate(history) for k, v in h.items()
+               if not math.isfinite(v)]
+        check(not bad, f"{arch}: non-finite metrics {bad}")
+        check(all(h["skipped"] == 0 for h in history),
+              f"{arch}: a step was skipped")
+        for k in counts:
+            totals[k] += counts[k]
+        batch = ds.next_batch(steps)
+        waits = host_waits(torch, lambda: step(state, batch, step=steps))
+        print(f"    host waits in one more step (sync debug mode): "
+              f"{len(waits)} {sorted(set(waits))}")
+        check(not waits, f"{arch}: a train step made the host wait: "
+                         f"{waits}")
+        release(torch)
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            step(state, batch, step=steps)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        dev_ms = _device_ms(prof, DeviceType)
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        print(f"  [{smi}] {arch} profiled step: wall {wall:.3f} ms, device "
+              f"{dev_ms:.3f} ms, idle {1 - dev_ms / wall:.3f}")
+        top = []
+        for e in kernels[:10]:
+            ms = e.self_device_time_total / 1e3
+            top.append((e.key[:90], ms, e.count))
+            print(f"      {ms:8.3f} ms x{e.count:<4d} {e.key[:90]}")
+        out[arch] = dict(layers=layers, of_layers=full.num_layers,
+                         kinds=kinds, params=n_params,
+                         step_ms_median=1e3 * med,
+                         step_ms=[1e3 * t for t in times],
+                         tokens_per_s=B * S / med, peak_gib=peak,
+                         losses=losses, launches=counts,
+                         host_waits=len(waits),
+                         profile=dict(wall_ms=wall, device_ms=dev_ms,
+                                      idle=1 - dev_ms / wall, top=top))
+        del state, step, batch, ds, prof
+        release(torch)
+    out["card vs cpu"] = windowed_blocks_card_vs_cpu(torch, smi)
+    out["cli"] = windowed_train_cli(smi)
+    return totals, out
+
+
+def windowed_blocks_card_vs_cpu(torch, smi):
+    """Phase 14, card against CPU at full width in f32: one h2o-danube3
+    block (window 4096, d=120), one gemma2 ``local`` and one ``global``
+    block (softcap 50, d=256, GeGLU), batch 1, seq ``WINDOWED_BLOCK_S``
+    (past q_chunk: the flash forward, dq and dk/dv once each on the card,
+    their plain versions on the CPU), forward and backward from the same
+    weights, input and cotangent: the output and every gradient leaf (the
+    input's and each weight's) within 1e-3 of that leaf's max, phase 8's
+    limit.  SwiGLU and GeGLU are smooth, so no activation mask is
+    replayed (phase 8's ReLU masks).  At this length the window of 4096
+    does not act: phase 2n holds the kernels where it does."""
+    from repro_torch import configs, tree
+    from repro_torch.models.transformer import block_forward, init_block
+    S = WINDOWED_BLOCK_S
+    print(f"phase 14 (card vs CPU): f32, batch 1, seq {S}, forward + "
+          f"backward of one block; tolerance max|card - cpu| <= 1e-3 * "
+          f"max|cpu| per leaf")
+    gd = torch.Generator(device="cuda").manual_seed(41)
+    out = {}
+    for arch, kind in (("h2o-danube-3-4b", "attn"), ("gemma2-9b", "local"),
+                       ("gemma2-9b", "global")):
+        cfg = configs.get_config(arch).replace(dtype="float32")
+        p_card = init_block(cfg, kind, gd, device="cuda")
+        x = torch.randn((1, S, cfg.d_model), generator=gd, device="cuda")
+        dy = torch.randn((1, S, cfg.d_model), generator=gd, device="cuda")
+        results = []
+        for dev in ("cpu", "cuda"):
+            p = tree.map_(lambda t: t.detach().to(dev).requires_grad_(),
+                          p_card)
+            xx = x.to(dev).requires_grad_()
+            reset_counts()
+            pos = torch.arange(S, dtype=torch.int32, device=dev)
+            y, _, _ = block_forward(p, xx, cfg, kind=kind, positions=pos)
+            leaves = [xx, *tree.leaves(p)]
+            grads = torch.autograd.grad(y, leaves, dy.to(dev))
+            results.append([t.detach().cpu() for t in (y, *grads)])
+            counts = read_counts(("flash_fwd", "flash_dq", "flash_dkv"))
+        check(counts == dict.fromkeys(counts, 1),
+              f"{arch} {kind} block: launches {counts}")
+        worst = 0.0
+        for a, b in zip(*results, strict=True):
+            scale = a.abs().max().item()
+            rel = (a - b).abs().max().item() / max(scale, 1e-30)
+            worst = max(worst, rel)
+        label = f"{arch} {kind} block (d={cfg.head_dim})"
+        print(f"  [{smi}] {label}: output and {len(results[0]) - 1} "
+              f"gradient leaves, max over leaves of max|card - cpu| / "
+              f"max|cpu| {worst:.3e} (tol 1e-3); launches on the card "
+              f"{counts}")
+        check(math.isfinite(worst) and worst <= 1e-3,
+              f"{label}: card and CPU gradients disagree ({worst:.3e})")
+        out[label] = dict(rel=worst)
+        del p_card, results
+        release(torch)
+    return out
+
+
+def windowed_train_cli(smi):
+    """``python -m repro_torch.launch.train --arch gemma2-9b --smoke --seq
+    1024 --steps 2`` in a subprocess on the card: exit code 0 and two
+    logged steps with finite losses."""
+    import os
+    import re
+    import tempfile
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "gemma2-9b", "--smoke", "--seq", "1024", "--steps", "2",
+           "--log-every", "1"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                           text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    losses = [float(x) for x in re.findall(r"step +\d+ loss (\S+)",
+                                           r.stdout)]
+    print(f"  [{smi}] {' '.join(cmd[1:])}: exit {r.returncode} in "
+          f"{secs:.1f} s, losses {losses}")
+    check(r.returncode == 0 and len(losses) == 2
+          and all(math.isfinite(x) for x in losses),
+          f"the training CLI on gemma2-9b --smoke --seq 1024 failed:\n"
+          f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    return dict(exit=r.returncode, seconds=secs, losses=losses)
+
+
 def print_ptxas(report: str, most: int = 24) -> None:
     """Registers and spills of each kernel from the build's ptxas report;
     a source with more than ``most`` instances (the gate's one per k and
@@ -3398,6 +3890,15 @@ def print_ptxas(report: str, most: int = 24) -> None:
               f"registers, {spill} bytes of spill stores and loads in all")
 
 
+T_START = time.perf_counter()
+
+
+def stamp(what):
+    """The seconds since the script started, printed after ``what``."""
+    print(f"  [{time.perf_counter() - T_START:.1f} s since the start, after "
+          f"{what}]")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one "
@@ -3408,9 +3909,9 @@ def main(argv=None) -> int:
                     help="'kernels': only the build, the kernel checks and "
                          "the kernel timings (phases 1, 2 and 5), for "
                          "working on a kernel; 'trainer': the build and "
-                         "phases 9-11 (remat, resume, gates); 'presets': "
-                         "the build and phases 12 and 13; each ends with "
-                         "ok: false")
+                         "phases 9-11 and 14 (remat, resume, gates, the "
+                         "windowed presets' training); 'presets': the build "
+                         "and phases 12 and 13; each ends with ok: false")
     phases = ap.parse_args(argv).phases
     import torch
     if not torch.cuda.is_available():
@@ -3442,8 +3943,12 @@ def main(argv=None) -> int:
         print(json.dumps({"remat": phase_remat(torch, smi)}))
         print(json.dumps({"resume": phase_resume(torch, smi)}))
         print(json.dumps({"gates": phase_gates(torch, smi)}))
+        release(torch)
+        print(json.dumps({"windowed_train": phase_windowed_train(
+            torch, smi)[1]}))
         print(smi)
-        print(json.dumps({"ok": False, "partial": "phases 1, 9-11 only"}))
+        print(json.dumps({"ok": False,
+                          "partial": "phases 1, 9-11 and 14 only"}))
         return 0
     if phases == "presets":
         print(json.dumps({"presets": phase_presets(torch, smi)[1]}))
@@ -3453,11 +3958,19 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": False,
                           "partial": "phases 1, 12 and 13 only"}))
         return 0
+    stamp("phase 1")
     errs = phase_kernels(torch, dev)
+    stamp("phases 2a-2f")
     preset_rows = phase_preset_kernels(torch, dev, smi, errs)
+    stamp("phases 2j-2k")
     errs.update(phase_flash_kernels(torch, dev))
+    stamp("phases 2g-2i")
     phase_flash_wide(torch, dev, errs)
+    stamp("phase 2l")
     wide_rows = phase_windowed_flash(torch, dev, smi, errs)
+    stamp("phase 2m")
+    wide_rows += phase_flash_wide_bwd(torch, dev, smi, errs)
+    stamp("phase 2n")
     if phases == "kernels":
         phase_timings(torch, dev, smi)
         print(smi)
@@ -3465,23 +3978,34 @@ def main(argv=None) -> int:
         return 0
     serve_counts, serving = phase_serve(torch, smi)
     phase_card_vs_cpu(torch)
+    stamp("phases 3-4")
     counts, training = phase_train(torch, smi)
     grads = phase_train_card_vs_cpu(torch)
+    stamp("phases 7-8")
     remat = phase_remat(torch, smi)
     print(json.dumps({"remat": remat}))
     resume = phase_resume(torch, smi)
     print(json.dumps({"resume": resume}))
     gates = phase_gates(torch, smi)
     print(json.dumps({"gates": gates}))
+    stamp("phases 9-11")
     release(torch)
     preset_counts, presets = phase_presets(torch, smi)
     print(json.dumps({"presets": presets}))
+    stamp("phase 12")
     release(torch)
     windowed_counts, windowed = phase_windowed(torch, smi)
     print(json.dumps({"windowed": windowed}))
+    stamp("phase 13")
+    release(torch)
+    wtrain_counts, wtrain = phase_windowed_train(torch, smi)
+    print(json.dumps({"windowed_train": wtrain}))
+    stamp("phase 14")
     rows = phase_timings(torch, dev, smi) + preset_rows + wide_rows
+    stamp("phase 5")
     profile = phase_profile(torch, smi)
     profile.update(phase_profile_train(torch, smi))
+    stamp("phases 6-6b")
 
     # launches: the counts of the main paths, the phase-7 training runs
     # (each driven with the counts set to 0 just before it and read just
@@ -3500,8 +4024,12 @@ def main(argv=None) -> int:
             kernels[-1]["launches_presets"] = preset_counts[r["name"]]
         if windowed_counts.get(r["name"]):
             kernels[-1]["launches_windowed"] = windowed_counts[r["name"]]
-            # phases 2l-2m: head dims 120 and 256, f32 and bf16
-            kernels[-1]["max_abs_err_windowed"] = errs["flash_fwd_wide"]
+        if wtrain_counts.get(r["name"]):
+            kernels[-1]["launches_windowed_train"] = wtrain_counts[
+                r["name"]]
+        if r["name"] + "_wide" in errs:
+            # phases 2l-2n: head dims 120 and 256, f32 and bf16
+            kernels[-1]["max_abs_err_windowed"] = errs[r["name"] + "_wide"]
         if r["name"] == "gather_rows_rowstep":
             kernels[-1]["path"] = ("benchmark baseline (bench_layout), not "
                                    "on a serving or training path")
@@ -3515,12 +4043,18 @@ def main(argv=None) -> int:
     check(windowed_counts["flash_fwd"] > 0,
           f"the flash forward was not launched on the windowed presets' "
           f"path: {windowed_counts}")
+    check(all(wtrain_counts[k] > 0 for k in ("flash_fwd", "flash_dq",
+                                              "flash_dkv")),
+          f"a flash kernel was not launched in the windowed presets' "
+          f"training: {wtrain_counts}")
     print(json.dumps({"serving": serving, "serving_launches": serve_counts,
                       "training": training, "train_grads_card_vs_cpu": grads,
                       "remat": remat, "resume": resume, "gates": gates,
                       "presets": presets, "presets_launches": preset_counts,
                       "windowed": windowed,
                       "windowed_launches": windowed_counts,
+                      "windowed_train": wtrain,
+                      "windowed_train_launches": wtrain_counts,
                       "timings": rows, "profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -22,11 +22,17 @@ kernel, and in how many rounds each later build beat the first.
 
 ``--shape`` (repeatable): ``train`` (the default) times the bf16 forward, dq and dk/dv
 at the seq-1024 training shape (B=8, H=KV=16, S=1024, d=128, causal);
+``train-f32`` the f32 forward, dq and dk/dv at the same shape;
 ``gemma2-local``, ``gemma2-global`` and ``danube`` time the bf16 forward
-alone (the backward does not take their head dims) at the windowed
-presets' prefill of 4 prompts of 8064 tokens: gemma2's local layers (16:8
-heads, d=256, window 4096, softcap 50), its global ones (no window) and
-h2o-danube3's layers (32:8, d=120, window 4096).  Exits 2 without a GPU.
+at the windowed presets' prefill of 4 prompts of 8064 tokens: gemma2's
+local layers (16:8 heads, d=256, window 4096, softcap 50), its global
+ones (no window) and h2o-danube3's layers (32:8, d=120, window 4096);
+``gemma2-local-train``, ``gemma2-global-train`` and ``danube-train`` time
+the forward, dq and dk/dv at the same layers' training shape, batch 2 x
+seq 8192.  The ptxas lines of every dq and dk/dv instance are printed
+(the bf16 ones at every head dim, and the f32 ones), with those of the
+forward at the shapes' head dims and of any flash kernel that spills.
+Exits 2 without a GPU.
 """
 from __future__ import annotations
 
@@ -41,25 +47,29 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-# (B, H, KV, S, d, window, cap, kernels timed)
+KERNELS = ("flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16")
+KERNELS_F32 = ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32")
+# (B, H, KV, S, d, window, cap, kernels timed; the first is the forward)
 SHAPES = {
-    "train": (8, 16, 16, 1024, 128, None, None,
-              ("flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16")),
+    "train": (8, 16, 16, 1024, 128, None, None, KERNELS),
+    "train-f32": (8, 16, 16, 1024, 128, None, None, KERNELS_F32),
     "gemma2-local": (4, 16, 8, 8064, 256, 4096, 50.0, ("flash_fwd_bf16",)),
     "gemma2-global": (4, 16, 8, 8064, 256, None, 50.0, ("flash_fwd_bf16",)),
     "danube": (4, 32, 8, 8064, 120, 4096, None, ("flash_fwd_bf16",)),
+    "gemma2-local-train": (2, 16, 8, 8192, 256, 4096, 50.0, KERNELS),
+    "gemma2-global-train": (2, 16, 8, 8192, 256, None, 50.0, KERNELS),
+    "danube-train": (2, 32, 8, 8192, 120, 4096, None, KERNELS),
 }
-KERNELS = ("flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16")
 # a bf16 kernel instance in ptxas's report: kernel, template head dim
-# argument (NJ = d / 16 in older sources, d in the forward since it took
+# argument (NJ = d / 16 in older sources' dq and dk/dv, d since they took
 # d = 120 and 256) and softcap flag; an f32 kernel's name
 ENTRY = re.compile(r"flash_(fwd|dq|dkv)_bf16_kernelILi(\d+)ELb(\d)E")
 ENTRY_F32 = re.compile(r"flash_(fwd|dq|dkv)_kernel")
 
 
 def build_one(build, i: int, src: pathlib.Path, dims):
-    """(library, ptxas lines of the bf16 kernels at the head dims ``dims``
-    and of every bf16 kernel that spills)."""
+    """(library, ptxas lines of every dq and dk/dv instance, of the
+    forward at the head dims ``dims`` and of every kernel that spills)."""
     out = ROOT / "build" / "flash_ab"
     out.mkdir(parents=True, exist_ok=True)
     so = out / f"lib{i}_{src.stem}.so"
@@ -81,18 +91,24 @@ def build_one(build, i: int, src: pathlib.Path, dims):
         m, m32 = ENTRY.search(line), ENTRY_F32.search(line)
         if m is not None:
             kind, arg, cap = m.group(1), int(m.group(2)), m.group(3) == "1"
-            ours = arg in dims if kind == "fwd" else 16 * arg in dims
+            ours = kind != "fwd" or arg in dims
             name = f"{kind}<{arg}, {'softcap' if cap else 'no cap'}>"
         elif m32 is not None:
-            ours, name = False, f"{m32.group(1)} f32"
+            kind = m32.group(1)
+            ours, name = kind != "fwd", f"{kind} f32"
         else:
             continue
         if ours or not spill.startswith("0 bytes stack"):
             report.append(f"{name}: {spill}; {regs}")
     lib = ctypes.CDLL(str(so))
-    for name in KERNELS:
+    # sources before dk/dv took the plan's scratch pointer take one less
+    lib.dkv_scratch = "void* nokey" in src.read_text()
+    for name in KERNELS + KERNELS_F32:
+        argtypes = list(build.SIGNATURES[name])
+        if name.startswith("flash_dkv") and not lib.dkv_scratch:
+            argtypes.pop(10)
         fn = getattr(lib, name)
-        fn.argtypes = list(build.SIGNATURES[name])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, report
 
@@ -129,10 +145,12 @@ def compare(torch, build, built, names, shape: str, rounds: int) -> None:
     ``shape``; a build whose kernels refuse the shape's head dim (a
     parent's, before the forward took d = 120 and 256) is left out."""
     B, H, KV, S, d, window, cap, timed = SHAPES[shape]
+    fwd = timed[0]
+    dt = torch.float32 if fwd.endswith("f32") else torch.bfloat16
     g = torch.Generator().manual_seed(7)
-    q, do = (torch.randn(B, H, S, d, generator=g).to(torch.bfloat16).cuda()
+    q, do = (torch.randn(B, H, S, d, generator=g).to(dt).cuda()
              for _ in range(2))
-    k, v = (torch.randn(B, KV, S, d, generator=g).to(torch.bfloat16).cuda()
+    k, v = (torch.randn(B, KV, S, d, generator=g).to(dt).cuda()
             for _ in range(2))
     pos = torch.arange(S, dtype=torch.int32, device="cuda")
     tail = (B, H, KV, S, S, d, d ** -0.5, 1, int(window or 0),
@@ -141,13 +159,17 @@ def compare(torch, build, built, names, shape: str, rounds: int) -> None:
     ptr = build.ptr
 
     def run(lib, kernel, lse=None, delta=None):
-        if kernel == "flash_fwd_bf16":
+        if kernel == fwd:
             outs = (torch.empty_like(q),
                     torch.empty(B, H, S, device="cuda"))
             ins = (q, k, v, pos, pos)
         else:
-            outs = ((torch.empty_like(q),) if kernel == "flash_dq_bf16"
-                    else (torch.empty_like(k), torch.empty_like(v)))
+            # dk/dv: dk, dv and the plan's scratch of ceil(S / 64) ints
+            outs = ((torch.empty_like(q),) if kernel.startswith("flash_dq")
+                    else (torch.empty_like(k), torch.empty_like(v),
+                          torch.empty(-(-S // 64), dtype=torch.int32,
+                                      device="cuda"))[:3 if lib.dkv_scratch
+                                                      else 2])
             ins = (q, k, v, do, lse, delta, pos, pos)
         rc = getattr(lib, kernel)(*(ptr(t) for t in (*ins, *outs)), *tail)
         if rc:
@@ -157,24 +179,25 @@ def compare(torch, build, built, names, shape: str, rounds: int) -> None:
     taken = []
     for name, b in zip(names, built):
         try:
-            run(b[0], "flash_fwd_bf16")
+            run(b[0], fwd)
             taken.append((name, b))
         except RuntimeError as e:
             print(f"{name} at {shape}: left out ({e})")
     names, built = [n for n, _ in taken], [b for _, b in taken]
-    o, lse = run(built[0][0], "flash_fwd_bf16")
+    o, lse = run(built[0][0], fwd)
     delta = (do.float() * o.float()).sum(-1)
     first = {kn: run(built[0][0], kn, lse, delta) for kn in timed}
     for name, (lib, _) in zip(names[1:], built[1:]):
         for kn in timed:
             outs = run(lib, kn, lse, delta)
-            same = all(torch.equal(a, b) for a, b in zip(outs, first[kn]))
+            same = all(torch.equal(a, b) for a, b in zip(outs[:2],
+                                                          first[kn]))
             diff = max((a.float() - b.float()).abs().max().item()
-                       for a, b in zip(outs, first[kn]))
+                       for a, b in zip(outs[:2], first[kn]))
             print(f"{name} {kn}: " + ("bitwise equal to build 0" if same
                                       else f"max |diff| {diff:.3e}"))
 
-    calls = 20 if shape == "train" else 5
+    calls = 20 if shape.startswith("train") else 5
 
     def time_ms(lib, kn):
         for _ in range(2):
@@ -199,7 +222,7 @@ def compare(torch, build, built, names, shape: str, rounds: int) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"[{smi}] ms per call at {shape}: B={B} H={H} KV={KV} S={S} "
-          f"d={d} bf16 causal window={window} cap={cap}, {rounds} "
+          f"d={d} {dt} causal window={window} cap={cap}, {rounds} "
           f"rounds of {calls} calls")
     for kn in timed:
         for i, name in enumerate(names):

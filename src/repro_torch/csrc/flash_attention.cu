@@ -54,12 +54,15 @@
 // of the next visited tile runs under the products of this one.  Rows are
 // padded by 16 bytes in shared memory, so ldmatrix reads hit no bank
 // twice.
+// Head dims: multiples of 16 up to 128, 120 (h2o-danube3: padded to 128
+// zeroed columns in shared memory, the last 8-column fragment of o, dq, dk
+// and dv neither computed nor stored) and 256 (gemma2: two warps per 16
+// rows, each keeping the outputs of its half of the head dim), in every
+// kernel.
 //   forward (flash_fwd_bf16_kernel): q stays in registers up to d = 128;
-//     the online softmax in registers; P V as (hi + lo) V.  Head dims:
-//     multiples of 16 up to 128, and 120 (padded to 128 in shared memory)
-//     and 256 (two warps per 16 rows, each with half the head dim), which
-//     only the forward takes (the windowed presets serve, and serving
-//     needs no gradient).
+//     the online softmax in registers; P V as (hi + lo) V.  At d = 256
+//     each warp of a pair sums q k^T over its half of the head dim and
+//     the pair adds the partial scores through shared memory.
 // The backward sums each 32 rows of its p and dS products in a fresh
 // fragment and adds that to its f32 accumulators: an mma that adds into a
 // large accumulator truncates at its last bits, so a long sum held there
@@ -75,13 +78,18 @@
 //     through ldmatrix.trans.  Each warp keeps dk and dv of its 16 keys in
 //     f32 registers over the G query heads of its kv head and their q
 //     tiles: no atomics, and the result does not depend on run order.
+//   At d = 256 (BwdShape) the two warps of a pair compute the same scores
+//     over the whole head dim and each keeps dq, or dk and dv, for its
+//     128 columns: d = 128's registers; the six tiles take 203 KB.
 //
 // f32 forward, dq and dk/dv (simple and right first): a 64-row tile of
 // queries or keys per block, 256 threads.  The TPU grid's sequential axes
 // become loops inside the block over the tiles the rules above visit.
-// Tiles of q, k, v and dO sit in dynamic shared memory (up to 164 KB; the
-// forward's three at d = 256 212 KB), with the 64x64 f32 score tile; every
-// product is f32 FMAs (never TF32).
+// Tiles of q, k, v and dO sit in dynamic shared memory with the 64x64
+// f32 score tiles: the forward's three resident (212 KB at d = 256), dq's
+// and dk/dv's four streamed through two (167 KB at d = 256), the
+// gradients' columns split in chunks of 128 over blocks.  Every product
+// is f32 FMAs (never TF32).
 // Keys past Sk (the ragged edge) count as nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,8 +103,10 @@ constexpr int FA_TILE = 64;         // rows of a q tile and of a k tile
 constexpr int FA_THREADS = 256;     // 8 warps (f32 kernels)
 constexpr int S_LD = FA_TILE + 4;   // row stride of the f32 score tiles
 constexpr int F_LD_PAD = 1;         // f32 rows: an odd stride, no bank twice
-constexpr int MAX_NJ = 8;           // d / 16 at dq's and dk/dv's largest, 128
-constexpr int FWD_NJ = 16;          // the forward's: column groups at d = 256
+constexpr int MAX_NJ = 8;           // 16-column groups a warp (bf16) or an
+                                    // f32 backward block accumulates
+constexpr int FWD_NJ = 16;          // the f32 forward's: column groups at
+                                    // d = 256
 constexpr float NEG = -1e30f;
 constexpr int INT_HI = 0x7fffffff, INT_LO = -0x7fffffff - 1;
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
@@ -107,6 +117,12 @@ struct Mask {
   float cap;
   int use_cap;
 };
+
+// blocks per row tile of an f32 backward at head dim d: one for each 16
+// MAX_NJ columns of the gradients
+__host__ __device__ constexpr int f32_chunks(int d) {
+  return (d + 16 * MAX_NJ - 1) / (16 * MAX_NJ);
+}
 
 __device__ __forceinline__ float neg_inf() {
   return __int_as_float(0xff800000);
@@ -233,56 +249,57 @@ __device__ void plan_k_tiles(const int* __restrict__ qpos,
   __syncthreads();
 }
 
+// Whether each q tile (of FA_TILE rows) holds a row with no allowed key
+// among kpos[0, Sk), in nokey[i]: one block per q tile, a warp per row.
+// Run once before dk/dv, whose every block needs the answer for every q
+// tile: a row's scan reads keys up to its first allowed one, so all rows
+// take up to Sq Sk / 32 warp steps, which a scan in each dk/dv block
+// repeated over the grid (under h2o-danube3's window of 4096 at S = 8192,
+// several times dk/dv's own work)
+__global__ void __launch_bounds__(FA_THREADS)
+plan_nokey_kernel(const int* __restrict__ qpos,
+                  const int* __restrict__ kpos, int Sq, int Sk, Mask mk,
+                  int* __restrict__ nokey) {
+  __shared__ int found;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * FA_TILE, r1 = min(Sq, q0 + FA_TILE);
+  if (threadIdx.x == 0) found = 0;
+  __syncthreads();
+  for (int r = q0 + warp; r < r1; r += FA_THREADS / 32)
+    if (!row_has_key(qpos[r], kpos, Sk, mk) && lane == 0) found = 1;
+  __syncthreads();
+  if (threadIdx.x == 0) nokey[blockIdx.x] = found;
+}
+
 // The q tiles (of FA_TILE rows) the dk/dv block of k tile [k0, k0 +
 // FA_TILE) visits, as a code per q tile in flags[i] (i < ceil(Sq /
 // FA_TILE)): 0 skip, 1 visit, 2 visit and no mask needed (the codes of
 // plan_k_tiles, by the same rule with the q tile's lowest and highest
 // positions), 3 visit for dv only: a q tile that would be skipped but
-// holds a row with no allowed key at all.  The reference's dk/dv uses p
-// unmasked, and such a row's lse is NEG, so its p is 1 for every key slot
-// and its dO lands in dv of every key; its dS is 0.  Whether a row has a
-// key: without a window from the least valid key position kmin (causal:
-// kmin <= qp; else any valid key at all), with one by a scan of the keys.
-// red is one int of shared scratch.  Ends with a barrier.  Mirrored by
+// holds a row with no allowed key at all (nokey, from plan_nokey_kernel).
+// The reference's dk/dv uses p unmasked, and such a row's lse is NEG, so
+// its p is 1 for every key slot and its dO lands in dv of every key; its
+// dS is 0.  Ends with a barrier.  Mirrored by
 // kernels/flash_attention.py:visited_q_tiles.
 __device__ void plan_q_tiles(const int* __restrict__ qpos,
-                             const int* __restrict__ kpos, int k0, int Sq,
-                             int Sk, const Mask& mk, int* flags, int* red) {
+                             const int* __restrict__ kpos,
+                             const int* __restrict__ nokey, int k0, int Sq,
+                             int Sk, const Mask& mk, int* flags) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nw = blockDim.x / 32, nqt = (Sq + FA_TILE - 1) / FA_TILE;
-  if (threadIdx.x == 0) *red = INT_HI;
-  __syncthreads();
-  if (!mk.use_window) {
-    int m = INT_HI;
-    for (int c = threadIdx.x; c < Sk; c += blockDim.x)
-      if (kpos[c] >= 0) m = min(m, kpos[c]);
-    m = __reduce_min_sync(0xffffffffu, m);
-    if (lane == 0) atomicMin(red, m);
-    __syncthreads();
-  }
-  const int kmin = *red;
   for (int i = warp; i < nqt; i += nw) {
     const int r1 = min(Sq, (i + 1) * FA_TILE);
     int qmin = INT_HI, qmax = INT_LO;
-    bool nokey = false;
     for (int r = i * FA_TILE + lane; r < r1; r += 32) {
       const int qp = qpos[r];
       qmin = min(qmin, qp);
       qmax = max(qmax, qp);
-      nokey |= mk.causal ? qp < kmin : kmin == INT_HI;
     }
     qmin = __reduce_min_sync(0xffffffffu, qmin);
     qmax = __reduce_max_sync(0xffffffffu, qmax);
-    if (mk.use_window) {
-      nokey = false;
-      for (int r = i * FA_TILE; r < r1 && !nokey; ++r)
-        nokey = !row_has_key(qpos[r], kpos, Sk, mk);
-    } else {
-      nokey = __any_sync(0xffffffffu, nokey);
-    }
     bool any, every;
     tile_pairs(kpos, k0, Sk, qmin, qmax, mk, any, every);
-    if (lane == 0) flags[i] = every ? 2 : any ? 1 : nokey ? 3 : 0;
+    if (lane == 0) flags[i] = every ? 2 : any ? 1 : nokey[i] ? 3 : 0;
   }
   __syncthreads();
 }
@@ -365,15 +382,14 @@ __device__ __forceinline__ void zero_acc(float (&acc)[4][N]) {
     for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
 }
 
-// acc rows (row0 + r_i < nrows) into out (nrows, d) rows, divided by div[r]
-// when div is given; RAGGED: d need not be a multiple of 16 (the forward's
-// d = 120; a column test the backward's d % 16 == 0 does without: with it
-// ptxas spilled 12 bytes in the f32 dk/dv kernel)
-template <bool RAGGED = false, int N>
+// acc rows (row0 + r_i < nrows) into columns c0 + ... (< d) of out (nrows,
+// d) rows, divided by div[r] when div is given
+template <int N>
 __device__ __forceinline__ void store_acc(const float (&acc)[4][N],
                                           float* out, int row0, int nrows,
-                                          int d, const float* div) {
-  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16, nj = d / 16;
+                                          int d, const float* div,
+                                          int c0 = 0) {
+  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = rg + 16 * i;
@@ -381,15 +397,14 @@ __device__ __forceinline__ void store_acc(const float (&acc)[4][N],
     const float l = div ? div[r] : 1.f;
 #pragma unroll
     for (int j = 0; j < N; ++j)
-      if (RAGGED ? cg + 16 * j < d : j < nj)
-        out[(size_t)(row0 + r) * d + cg + 16 * j] =
+      if (c0 + cg + 16 * j < d)
+        out[(size_t)(row0 + r) * d + c0 + cg + 16 * j] =
             div ? acc[i][j] / l : acc[i][j];
   }
 }
 
 // one block per (q tile, h, b); the visited k tiles in a loop (the TPU's
-// nk axis).  Head dims up to 16 FWD_NJ = 256 (dq and dk/dv stop at 128,
-// so that their two accumulators stay 64 registers)
+// nk axis).  Head dims up to 16 FWD_NJ = 256
 __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ qpos,
@@ -485,7 +500,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
   }
 
-  store_acc<true>(acc, o + ((size_t)b * H + h) * Sq * d, q0, Sq, d, l_s);
+  store_acc(acc, o + ((size_t)b * H + h) * Sq * d, q0, Sq, d, l_s);
   for (int i = tid; i < FA_TILE; i += FA_THREADS)
     if (q0 + i < Sq)
       lse[((size_t)b * H + h) * Sq + q0 + i] = m_s[i] + logf(l_s[i]);
@@ -535,7 +550,13 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* dl_s,
   }
 }
 
-// one block per (q tile, h, b); the k tiles plan_k_tiles visits in a loop
+// one block per (q tile, column chunk, h, b) (the chunk the fastest of the
+// x index); the k tiles plan_k_tiles visits in a loop.  q, dO, k and v
+// stream through two tiles, q then dO in one, k then v then k again in the
+// other, reloaded per k tile (four resident tiles of 64 x 257 f32 would be
+// 263 KB at d = 256, past the 227 KB a block may have), and dq is split in
+// chunks of 16 MAX_NJ columns, a block each, so that the accumulator stays
+// 4 MAX_NJ registers
 __global__ void __launch_bounds__(FA_THREADS)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
@@ -545,29 +566,31 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 float* __restrict__ dq, int H, int KV, int Sq, int Sk, int d,
                 Mask mk) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = d + F_LD_PAD;
+  const int ld = 16 * ((d + 15) / 16) + F_LD_PAD;
   float* Ss = reinterpret_cast<float*>(smem);        // scores, then p
   float* Ps = Ss + FA_TILE * S_LD;                   // dO v^T, then dS
   float* lse_s = Ps + FA_TILE * S_LD;
   float* dl_s = lse_s + FA_TILE;
   int* qp_s = reinterpret_cast<int*>(dl_s + FA_TILE);
   int* kp_s = qp_s + FA_TILE;
-  float* Qs = reinterpret_cast<float*>(kp_s + FA_TILE);
-  float* Os = Qs + FA_TILE * ld;
-  float* Ks = Os + FA_TILE * ld;
-  float* Vs = Ks + FA_TILE * ld;
-  int* flags = reinterpret_cast<int*>(Vs + FA_TILE * ld);
+  float* Xs = reinterpret_cast<float*>(kp_s + FA_TILE);  // q, then dO
+  float* Ys = Xs + FA_TILE * ld;                     // k, then v, then k
+  int* flags = reinterpret_cast<int*>(Ys + FA_TILE * ld);
   const int nkt = (Sk + FA_TILE - 1) / FA_TILE;
 
-  const int q0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
+  const int nch = f32_chunks(d);
+  const int c0 = 16 * MAX_NJ * (blockIdx.x % nch);  // the block's columns
+  const int q0 = blockIdx.x / nch * FA_TILE, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int qn = min(FA_TILE, Sq - q0), nj = d / 16;
+  const int qn = min(FA_TILE, Sq - q0);
+  const int nj = min(MAX_NJ, (d - c0 + 15) / 16);
   const size_t qoff = ((size_t)b * H + h) * Sq;
   const float* kb = k + ((size_t)b * KV + kvh) * Sk * d;
   const float* vb = v + ((size_t)b * KV + kvh) * Sk * d;
 
-  load_tile(Qs, ld, q + qoff * d, q0, Sq, d);
-  load_tile(Os, ld, dout + qoff * d, q0, Sq, d);
+  // the pad columns the products read (d = 120): 0 throughout
+  for (int i = threadIdx.x; i < 2 * FA_TILE * (ld - d); i += FA_THREADS)
+    Xs[(i / (ld - d)) * ld + d + i % (ld - d)] = 0.f;
   load_rows(lse_s, dl_s, qp_s, lse + qoff, delta + qoff, qpos, q0, Sq);
   float acc[4][MAX_NJ];
   zero_acc(acc);
@@ -576,83 +599,100 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = next_tile(flags, 0, nkt); j < nkt;
        j = next_tile(flags, j + 1, nkt)) {
     const int k0 = j * FA_TILE, kn = min(FA_TILE, Sk - k0);
-    load_tile(Ks, ld, kb, k0, Sk, d);
-    load_tile(Vs, ld, vb, k0, Sk, d);
     for (int i = threadIdx.x; i < FA_TILE; i += FA_THREADS)
       kp_s[i] = i < kn ? kpos[k0 + i] : 0;
+    load_tile(Xs, ld, q + qoff * d, q0, Sq, d);
+    load_tile(Ys, ld, kb, k0, Sk, d);
     __syncthreads();
-    tile_dot(Qs, Ks, ld, Ss, d);
-    tile_dot(Os, Vs, ld, Ps, d);
+    tile_dot(Xs, Ys, ld, Ss, d);                       // s = q k^T
+    __syncthreads();
+    load_tile(Xs, ld, dout + qoff * d, q0, Sq, d);
+    load_tile(Ys, ld, vb, k0, Sk, d);
+    __syncthreads();
+    tile_dot(Xs, Ys, ld, Ps, d);                       // dO v^T
     __syncthreads();
     probs_and_ds(Ss, Ps, lse_s, dl_s, qp_s, kp_s, qn, kn, mk);
+    load_tile(Ys, ld, kb, k0, Sk, d);
     __syncthreads();
-    acc_product(acc, Ps, S_LD, 1, Ks, ld, kn, nj);    // dq += dS k
+    acc_product(acc, Ps, S_LD, 1, Ys + c0, ld, kn, nj);    // dq += dS k
     __syncthreads();
   }
-  store_acc(acc, dq + qoff * d, q0, Sq, d, nullptr);
+  store_acc(acc, dq + qoff * d, q0, Sq, d, nullptr, c0);
 }
 
-// one block per (k tile, kv head, b); the G query heads of that kv head and
-// the q tiles plan_q_tiles visits in a loop (the TPU's sequential (G, nq)
-// axes)
+// one block per (k tile, column chunk, kv head, b); the G query heads of
+// that kv head and the q tiles plan_q_tiles visits in a loop (the TPU's
+// sequential (G, nq) axes).  The operands stream through two tiles as in
+// dq: q then dO then q again in one, k then v in the other, per q tile;
+// dk and dv in chunks of 16 MAX_NJ columns, a block each
 __global__ void __launch_bounds__(FA_THREADS)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
                  const int* __restrict__ qpos, const int* __restrict__ kpos,
-                 float* __restrict__ dk, float* __restrict__ dv, int H,
-                 int KV, int Sq, int Sk, int d, Mask mk) {
+                 const int* __restrict__ nokey, float* __restrict__ dk,
+                 float* __restrict__ dv, int H, int KV, int Sq, int Sk,
+                 int d, Mask mk) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = d + F_LD_PAD;
+  const int ld = 16 * ((d + 15) / 16) + F_LD_PAD;
   float* Ss = reinterpret_cast<float*>(smem);        // scores, then p
   float* Ps = Ss + FA_TILE * S_LD;                   // dO v^T, then dS
   float* lse_s = Ps + FA_TILE * S_LD;
   float* dl_s = lse_s + FA_TILE;
   int* qp_s = reinterpret_cast<int*>(dl_s + FA_TILE);
   int* kp_s = qp_s + FA_TILE;
-  float* Qs = reinterpret_cast<float*>(kp_s + FA_TILE);
-  float* Os = Qs + FA_TILE * ld;
-  float* Ks = Os + FA_TILE * ld;
-  float* Vs = Ks + FA_TILE * ld;
-  int* flags = reinterpret_cast<int*>(Vs + FA_TILE * ld);
+  float* Xs = reinterpret_cast<float*>(kp_s + FA_TILE);  // q, dO, q
+  float* Ys = Xs + FA_TILE * ld;                     // k, then v
+  int* flags = reinterpret_cast<int*>(Ys + FA_TILE * ld);
   const int nqt = (Sq + FA_TILE - 1) / FA_TILE;
 
-  const int k0 = blockIdx.x * FA_TILE, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KV;
-  const int kn = min(FA_TILE, Sk - k0), nj = d / 16;
+  const int nch = f32_chunks(d);
+  const int c0 = 16 * MAX_NJ * (blockIdx.x % nch);  // the block's columns
+  const int k0 = blockIdx.x / nch * FA_TILE, kvh = blockIdx.y;
+  const int b = blockIdx.z, G = H / KV;
+  const int kn = min(FA_TILE, Sk - k0);
+  const int nj = min(MAX_NJ, (d - c0 + 15) / 16);
   const size_t koff = ((size_t)b * KV + kvh) * Sk * d;
 
-  load_tile(Ks, ld, k + koff, k0, Sk, d);
-  load_tile(Vs, ld, v + koff, k0, Sk, d);
+  // the pad columns the products read (d = 120): 0 throughout
+  for (int i = threadIdx.x; i < 2 * FA_TILE * (ld - d); i += FA_THREADS)
+    Xs[(i / (ld - d)) * ld + d + i % (ld - d)] = 0.f;
   for (int i = threadIdx.x; i < FA_TILE; i += FA_THREADS)
     kp_s[i] = i < kn ? kpos[k0 + i] : 0;
   float acc_k[4][MAX_NJ], acc_v[4][MAX_NJ];
   zero_acc(acc_k);
   zero_acc(acc_v);
-  plan_q_tiles(qpos, kpos, k0, Sq, Sk, mk, flags, flags + nqt);
+  plan_q_tiles(qpos, kpos, nokey, k0, Sq, Sk, mk, flags);
 
   for (int g = 0; g < G; ++g) {
     const size_t qoff = ((size_t)b * H + kvh * G + g) * Sq;
     for (int i = next_tile(flags, 0, nqt); i < nqt;
          i = next_tile(flags, i + 1, nqt)) {
       const int q0 = i * FA_TILE, qn = min(FA_TILE, Sq - q0);
-      load_tile(Qs, ld, q + qoff * d, q0, Sq, d);
-      load_tile(Os, ld, dout + qoff * d, q0, Sq, d);
+      load_tile(Xs, ld, q + qoff * d, q0, Sq, d);
+      load_tile(Ys, ld, k + koff, k0, Sk, d);
       load_rows(lse_s, dl_s, qp_s, lse + qoff, delta + qoff, qpos, q0, Sq);
       __syncthreads();
-      tile_dot(Qs, Ks, ld, Ss, d);
-      tile_dot(Os, Vs, ld, Ps, d);
+      tile_dot(Xs, Ys, ld, Ss, d);                     // s = q k^T
+      __syncthreads();
+      load_tile(Xs, ld, dout + qoff * d, q0, Sq, d);
+      load_tile(Ys, ld, v + koff, k0, Sk, d);
+      __syncthreads();
+      tile_dot(Xs, Ys, ld, Ps, d);                     // dO v^T
       __syncthreads();
       probs_and_ds(Ss, Ps, lse_s, dl_s, qp_s, kp_s, qn, kn, mk);
       __syncthreads();
-      acc_product(acc_v, Ss, 1, S_LD, Os, ld, qn, nj);   // dv += p^T dO
-      acc_product(acc_k, Ps, 1, S_LD, Qs, ld, qn, nj);   // dk += dS^T q
+      acc_product(acc_v, Ss, 1, S_LD, Xs + c0, ld, qn, nj);  // dv += p^T dO
+      __syncthreads();
+      load_tile(Xs, ld, q + qoff * d, q0, Sq, d);
+      __syncthreads();
+      acc_product(acc_k, Ps, 1, S_LD, Xs + c0, ld, qn, nj);  // dk += dS^T q
       __syncthreads();
     }
   }
-  store_acc(acc_k, dk + koff, k0, Sk, d, nullptr);
-  store_acc(acc_v, dv + koff, k0, Sk, d, nullptr);
+  store_acc(acc_k, dk + koff, k0, Sk, d, nullptr, c0);
+  store_acc(acc_v, dv + koff, k0, Sk, d, nullptr, c0);
 }
 
 // ---------------------------------------------------------------------------
@@ -672,30 +712,33 @@ using bf16 = __nv_bfloat16;
 // rows [row0, row0 + FA_TILE) of a (nrows, d) bf16 matrix into dst (stride
 // ld) by cp.async, 16 bytes a copy, by a block of THREADS threads (a
 // constant stride: with blockDim.x the forward and dq ran 4% and 2% slower,
-// flash_ab.py on an H100); rows past nrows as 0
-template <int THREADS = FB_THREADS>
+// flash_ab.py on an H100); rows past nrows as 0.  DP > 0: DP columns, those
+// past d written as 0 (a head dim of 16 n + 8 padded to the mma's k step
+// with the same copy count for every tile row: with the d / 8 copies of
+// d = 120, ptxas spilled 16 bytes in dq, flash_ab.py)
+template <int THREADS = FB_THREADS, int DP = 0>
 __device__ __forceinline__ void cp_tile(bf16* dst, int ld,
                                         const bf16* __restrict__ src,
                                         int row0, int nrows, int d) {
-  const int chunks = d / 8;
+  const int chunks = (DP ? DP : d) / 8;
   for (int c = threadIdx.x; c < FA_TILE * chunks; c += THREADS) {
     const int r = c / chunks, col = (c - r * chunks) * 8;
-    const bool in = row0 + r < nrows;
+    const bool in = row0 + r < nrows && (!DP || col < d);
     sm90::cp_async16(dst + r * ld + col,
                      in ? src + (size_t)(row0 + r) * d + col : src, in);
   }
 }
 
 // k tile j's keys, values and key positions into stage st
-template <int THREADS = FB_THREADS>
+template <int THREADS = FB_THREADS, int DP = 0>
 __device__ __forceinline__ void cp_kv(bf16* Ks, bf16* Vs, int* kps, int ld,
                                       int st, const bf16* __restrict__ kb,
                                       const bf16* __restrict__ vb,
                                       const int* __restrict__ kpos, int j,
                                       int Sk, int d) {
   const int k0 = j * FA_TILE;
-  cp_tile<THREADS>(Ks + st * FA_TILE * ld, ld, kb, k0, Sk, d);
-  cp_tile<THREADS>(Vs + st * FA_TILE * ld, ld, vb, k0, Sk, d);
+  cp_tile<THREADS, DP>(Ks + st * FA_TILE * ld, ld, kb, k0, Sk, d);
+  cp_tile<THREADS, DP>(Vs + st * FA_TILE * ld, ld, vb, k0, Sk, d);
   if (threadIdx.x < FA_TILE) {
     const bool in = k0 + (int)threadIdx.x < Sk;
     sm90::cp_async4(kps + st * FA_TILE + threadIdx.x,
@@ -722,8 +765,10 @@ struct Lanes {
 // 0..7) and c[2 kk + 1] (8..15) of 16 rows.  The KS steps of each pair of
 // n tiles sum in a fresh fragment, lo first, which is then added to acc in
 // f32: the tensor cores' f32 accumulation truncates, so a long sum held in
-// their accumulator drifts by its own magnitude's last bits at every step
-template <int NJ, int KS>
+// their accumulator drifts by its own magnitude's last bits at every step.
+// Only the first NT of the 2 NJ 8-column fragments are computed (a head
+// dim of 16 n + 8 leaves the last one out)
+template <int NJ, int KS, int NT = 2 * NJ>
 __device__ __forceinline__ void acc_split_product(float (&acc)[2 * NJ][4],
                                                   const float (*c)[4],
                                                   const bf16* X, int ld,
@@ -740,6 +785,7 @@ __device__ __forceinline__ void acc_split_product(float (&acc)[2 * NJ][4],
   }
 #pragma unroll
   for (int np = 0; np < NJ; ++np) {
+    const bool second = 2 * np + 1 < NT;       // unrolled: a constant
     float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
@@ -747,14 +793,14 @@ __device__ __forceinline__ void acc_split_product(float (&acc)[2 * NJ][4],
       sm90::ldmatrix_x4_trans(
           bf, X + (x0 + 16 * kk + ln.a_row) * ld + 16 * np + ln.a_col);
       sm90::mma_bf16(t0, lo[kk], bf[0], bf[1]);
-      sm90::mma_bf16(t1, lo[kk], bf[2], bf[3]);
+      if (second) sm90::mma_bf16(t1, lo[kk], bf[2], bf[3]);
       sm90::mma_bf16(t0, hi[kk], bf[0], bf[1]);
-      sm90::mma_bf16(t1, hi[kk], bf[2], bf[3]);
+      if (second) sm90::mma_bf16(t1, hi[kk], bf[2], bf[3]);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       acc[2 * np][e] += t0[e];
-      acc[2 * np + 1][e] += t1[e];
+      if (second) acc[2 * np + 1][e] += t1[e];
     }
   }
 }
@@ -767,22 +813,22 @@ __device__ __forceinline__ void zero_frags(float (&c)[N][4]) {
     for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
 }
 
-// rows r0 + g and r0 + g + 8 of a C-fragment accumulator, times mul, into
-// out (nrows, d) bf16
-template <int NJ>
-__device__ __forceinline__ void store_frags(const float (&acc)[2 * NJ][4],
+// rows ra and ra + 8 of the first NF 8-column fragments of a C-fragment
+// accumulator, times mul, into out (nrows rows of stride D) bf16
+template <int D, int NF, int N>
+__device__ __forceinline__ void store_frags(const float (&acc)[N][4],
                                             bf16* out, int ra, int nrows,
                                             float mul) {
-  constexpr int d = 16 * NJ;
+  static_assert(NF <= N, "fragments");
   const int t = threadIdx.x % 4, rb = ra + 8;
 #pragma unroll
-  for (int n = 0; n < 2 * NJ; ++n) {
+  for (int n = 0; n < NF; ++n) {
     const int c = 8 * n + 2 * t;
     if (ra < nrows)
-      *reinterpret_cast<uint32_t*>(out + (size_t)ra * d + c) =
+      *reinterpret_cast<uint32_t*>(out + (size_t)ra * D + c) =
           sm90::pack_bf16(acc[n][0] * mul, acc[n][1] * mul);
     if (rb < nrows)
-      *reinterpret_cast<uint32_t*>(out + (size_t)rb * d + c) =
+      *reinterpret_cast<uint32_t*>(out + (size_t)rb * D + c) =
           sm90::pack_bf16(acc[n][2] * mul, acc[n][3] * mul);
   }
 }
@@ -822,7 +868,7 @@ __device__ __forceinline__ void named_barrier(int id, int n) {
 // D (the head dim) and CAP (a softcap) are template arguments, so that
 // every loop over the head dim and the softmax are straight-line code.  D
 // is a multiple of 16 up to 128, or 120 (h2o-danube3: 3840 / 32) or 256
-// (gemma2), the forward's own set; dq and dk/dv take the first only.
+// (gemma2), as in dq and dk/dv.
 //   - A head dim off the mma's k step of 16 (120) is padded in shared
 //     memory to DP = 16 ceil(D / 16) columns.  Columns D..DP-1 of every
 //     tile are zeroed once (cp.async writes columns < D only), so q k^T
@@ -1068,10 +1114,37 @@ __device__ __forceinline__ float lse_base2(float lse) {
   return __fmul_rn(lse, LOG2E);
 }
 
+// The backward's shape at head dim D: NJ 16-column groups (DP = 16 NJ, D
+// padded to the mma's k step), NT 8-column fragments of dq, dk and dv, and
+// NH warps sharing each 16 rows (queries for dq, keys for dk/dv), each
+// keeping the NJW groups (NTW fragments) of its own columns.  Up to d =
+// 128 one warp keeps all of them (NH = 1): dq is 2 DP f32 registers a
+// thread, dk and dv 4 DP, 128 at d = 128.  At d = 256 that would be 256,
+// past the 255 a thread may have, so two warps share the rows (8 warps,
+// 256 threads), each computing the same scores over the whole head dim
+// and keeping the gradients of its 128 columns: the register set of d =
+// 128, the score products done twice (the price of no exchange: the six
+// 64 x 264 bf16 tiles take 203 KB of the 227 KB a block may have, which
+// leaves no room for the forward's 32 KB partial-score exchange)
+template <int D>
+struct BwdShape {
+  static constexpr int NJ = (D + 15) / 16, DP = 16 * NJ, NT = D / 8;
+  static constexpr int NH = NJ > MAX_NJ ? 2 : 1;
+  static constexpr int NJW = NJ / NH, NTW = NT / NH;
+  static constexpr int THREADS = FB_THREADS * NH;
+  // dq's passes over a k tile, each of 64 / KP keys: 2 past d = 128 and at
+  // d = 120, where with the whole tile's scores (s and dp, 64 registers)
+  // ptxas spilled 8-20 bytes (flash_ab.py), 1 elsewhere
+  static constexpr int KP = NH > 1 || DP != D ? 2 : 1;
+  static_assert(D % 8 == 0 && DP - D <= 8 && NJW <= MAX_NJ &&
+                (NH == 1 || NT == 2 * NJ), "head dim");
+};
+
 // dq: block (q tile, h, b), q tiles last-first (the longest causal rows
 // start first); each warp walks the k tiles its 16 rows visit
-template <int NJ, bool CAP>
-__global__ void __launch_bounds__(FB_THREADS, 2)
+template <int D, bool CAP>
+__global__ void __launch_bounds__(BwdShape<D>::THREADS,
+                                  BwdShape<D>::NH > 1 ? 1 : 2)
 flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const bf16* __restrict__ dout,
@@ -1080,7 +1153,9 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const int* __restrict__ qpos,
                      const int* __restrict__ kpos, bf16* __restrict__ dq,
                      int H, int KV, int Sq, int Sk, Mask mk) {
-  constexpr int d = 16 * NJ, ld = d + FB_PAD;
+  using Sh = BwdShape<D>;
+  constexpr int NJ = Sh::NJ, DP = Sh::DP, ld = DP + FB_PAD, NJW = Sh::NJW;
+  constexpr int THREADS = Sh::THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
   const int nkt = (Sk + FA_TILE - 1) / FA_TILE;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -1093,116 +1168,133 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * FA_TILE;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the warp's 16 rows and its columns of dq (0 with one warp a group)
+  const int rw = Sh::NH > 1 ? warp % 4 : warp;
+  const int col0 = Sh::NH > 1 ? 16 * NJW * (warp / 4) : 0;
   const int g = lane / 4, t = lane % 4;
   const size_t qoff = ((size_t)b * H + h) * Sq;
-  const bf16* kb = k + ((size_t)b * KV + kvh) * Sk * d;
-  const bf16* vb = v + ((size_t)b * KV + kvh) * Sk * d;
+  const bf16* kb = k + ((size_t)b * KV + kvh) * Sk * D;
+  const bf16* vb = v + ((size_t)b * KV + kvh) * Sk * D;
 
-  cp_tile(Qs, ld, q + qoff * d, q0, Sq, d);    // in flight during the plan
-  cp_tile(Os, ld, dout + qoff * d, q0, Sq, d);
+  // every copy writes DP columns, zeros past D
+  cp_tile<THREADS, DP>(Qs, ld, q + qoff * D, q0, Sq, D);  // in flight
+  cp_tile<THREADS, DP>(Os, ld, dout + qoff * D, q0, Sq, D);  // during
   plan_k_tiles(qpos, kpos, q0, min(FA_TILE, Sq - q0), FB_GROUP, Sk, mk,
-               flags, flags + nkt);
+               flags, flags + nkt);                            // the plan
   int j = next_tile(flags, 0, nkt);
-  if (j < nkt) cp_kv(Ks, Vs, kps, ld, 0, kb, vb, kpos, j, Sk, d);
+  if (j < nkt)
+    cp_kv<THREADS, DP>(Ks, Vs, kps, ld, 0, kb, vb, kpos, j, Sk, D);
   sm90::cp_async_commit();
 
   const float scale2 = CAP ? mk.scale : mk.scale * LOG2E;
   const float cap2 = mk.cap * LOG2E;
   // this thread's rows: ra = g, rb = g + 8 of its warp's 16 (0 past Sq)
-  const int ra = q0 + FB_GROUP * warp + g, rb = ra + 8;
+  const int ra = q0 + FB_GROUP * rw + g, rb = ra + 8;
   const int qpa = ra < Sq ? qpos[ra] : 0, qpb = rb < Sq ? qpos[rb] : 0;
   const float l2a = ra < Sq ? lse_base2(lse[qoff + ra]) : 0.f;
   const float l2b = rb < Sq ? lse_base2(lse[qoff + rb]) : 0.f;
   const float dla = ra < Sq ? delta[qoff + ra] : 0.f;
   const float dlb = rb < Sq ? delta[qoff + rb] : 0.f;
-  float acc[2 * NJ][4];
+  float acc[2 * NJW][4];
   zero_frags(acc);
   const Lanes ln;
-  const bf16* Qw = Qs + (FB_GROUP * warp + ln.a_row) * ld + ln.a_col;
-  const bf16* Ow = Os + (FB_GROUP * warp + ln.a_row) * ld + ln.a_col;
+  const bf16* Qw = Qs + (FB_GROUP * rw + ln.a_row) * ld + ln.a_col;
+  const bf16* Ow = Os + (FB_GROUP * rw + ln.a_row) * ld + ln.a_col;
 
   for (int st = 0; j < nkt; st ^= 1) {
     const int jn = next_tile(flags, j + 1, nkt);
-    if (jn < nkt) cp_kv(Ks, Vs, kps, ld, st ^ 1, kb, vb, kpos, jn, Sk, d);
+    if (jn < nkt)
+      cp_kv<THREADS, DP>(Ks, Vs, kps, ld, st ^ 1, kb, vb, kpos, jn, Sk, D);
     sm90::cp_async_commit();
     sm90::cp_async_wait<1>();                    // tile j (and q, dO) landed
     __syncthreads();
-    const int code = (flags[j] >> (2 * warp)) & 3;   // this warp's rows
+    const int code = (flags[j] >> (2 * rw)) & 3;     // this warp's rows
     if (code) {
       const bf16* Kt = Ks + st * FA_TILE * ld;
       const bf16* Vt = Vs + st * FA_TILE * ld;
 
-      // s = q k^T and dp = dO v^T: 16 rows x 64 keys per warp
-      float s[8][4], dp[8][4];
-      zero_frags(s);
-      zero_frags(dp);
-#pragma unroll
-      for (int kk = 0; kk < NJ; ++kk) {
-        uint32_t qa[4], oa[4];
-        sm90::ldmatrix_x4(qa, Qw + 16 * kk);
-        sm90::ldmatrix_x4(oa, Ow + 16 * kk);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          const int off = (16 * np + ln.b_row) * ld + 16 * kk + ln.b_col;
-          uint32_t bk[4], bv[4];
-          sm90::ldmatrix_x4(bk, Kt + off);
-          sm90::ldmatrix_x4(bv, Vt + off);
-          sm90::mma_bf16(s[2 * np], qa, bk[0], bk[1]);
-          sm90::mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
-          sm90::mma_bf16(dp[2 * np], oa, bv[0], bv[1]);
-          sm90::mma_bf16(dp[2 * np + 1], oa, bv[2], bv[3]);
-        }
-      }
-
-      // dS = p (dp - delta) (1 - t^2), 0 where masked or past Sk; the mask
-      // unless the warp's rows see every key of the tile
       const int* kp = kps + st * FA_TILE;
       const int kn = min(FA_TILE, Sk - j * FA_TILE);
+      constexpr int KW = FA_TILE / Sh::KP;           // keys a pass
+#pragma unroll 1
+      for (int c0 = 0; c0 < FA_TILE; c0 += KW) {
+        // s = q k^T and dp = dO v^T: 16 rows x KW keys per warp, over the
+        // whole head dim
+        float s[KW / 8][4], dp[KW / 8][4];
+        zero_frags(s);
+        zero_frags(dp);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+        for (int kk = 0; kk < NJ; ++kk) {
+          uint32_t qa[4], oa[4];
+          sm90::ldmatrix_x4(qa, Qw + 16 * kk);
+          sm90::ldmatrix_x4(oa, Ow + 16 * kk);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * n + 2 * t + (e & 1);
-          float x = s[n][e] * scale2, tt = 0.f;
-          if (CAP) {
-            tt = tanhf(x / mk.cap);
-            x = cap2 * tt;
+          for (int np = 0; np < KW / 16; ++np) {
+            const int off =
+                (c0 + 16 * np + ln.b_row) * ld + 16 * kk + ln.b_col;
+            uint32_t bk[4], bv[4];
+            sm90::ldmatrix_x4(bk, Kt + off);
+            sm90::ldmatrix_x4(bv, Vt + off);
+            sm90::mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+            sm90::mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+            sm90::mma_bf16(dp[2 * np], oa, bv[0], bv[1]);
+            sm90::mma_bf16(dp[2 * np + 1], oa, bv[2], bv[3]);
           }
-          const bool ok = code == 2 ||
-                          (c < kn && allowed(e < 2 ? qpa : qpb, kp[c], mk));
-          float ds = 0.f;
-          if (ok) {
-            const float p = exp2f(x - (e < 2 ? l2a : l2b));
-            ds = p * (dp[n][e] - (e < 2 ? dla : dlb));
-            if (CAP) ds *= 1.f - tt * tt;
-          }
-          s[n][e] = ds;
         }
 
-      // dq += dS k with dS = hi + lo, 16 SPLIT_KS keys at a time
+        // dS = p (dp - delta) (1 - t^2), 0 where masked or past Sk; the
+        // mask unless the warp's rows see every key of the tile
 #pragma unroll
-      for (int h = 0; h < 4 / SPLIT_KS; ++h)
-        acc_split_product<NJ, SPLIT_KS>(acc, s + 2 * SPLIT_KS * h, Kt, ld,
-                                        16 * SPLIT_KS * h, ln);
+        for (int n = 0; n < KW / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = c0 + 8 * n + 2 * t + (e & 1);
+            float x = s[n][e] * scale2, tt = 0.f;
+            if (CAP) {
+              tt = tanhf(x / mk.cap);
+              x = cap2 * tt;
+            }
+            const bool ok =
+                code == 2 ||
+                (c < kn && allowed(e < 2 ? qpa : qpb, kp[c], mk));
+            float ds = 0.f;
+            if (ok) {
+              const float p = exp2f(x - (e < 2 ? l2a : l2b));
+              ds = p * (dp[n][e] - (e < 2 ? dla : dlb));
+              if (CAP) ds *= 1.f - tt * tt;
+            }
+            s[n][e] = ds;
+          }
+
+        // dq += dS k over the warp's columns with dS = hi + lo, 16
+        // SPLIT_KS keys at a time
+#pragma unroll
+        for (int hh = 0; hh < KW / (16 * SPLIT_KS); ++hh)
+          acc_split_product<NJW, SPLIT_KS, Sh::NTW>(
+              acc, s + 2 * SPLIT_KS * hh, Kt + col0, ld,
+              c0 + 16 * SPLIT_KS * hh, ln);
+      }
     }
     __syncthreads();                 // stage st is refilled next iteration
     j = jn;
   }
   sm90::cp_async_wait<0>();
-  store_frags<NJ>(acc, dq + qoff * d, ra, Sq, mk.scale);
+  store_frags<D, Sh::NTW>(acc, dq + qoff * D + col0, ra, Sq, mk.scale);
 }
 
 // q tile i of query head (b, hq)'s q, dO, lse, delta and q positions into
 // stage st (rows past Sq as 0); rows holds 3 FA_TILE words a stage
+template <int THREADS, int DP>
 __device__ __forceinline__ void cp_qtile(
     bf16* Qs, bf16* Os, uint32_t* rows, int ld, int st,
     const bf16* __restrict__ q, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ qpos, size_t qoff, int i, int Sq, int d) {
   const int q0 = i * FA_TILE;
-  cp_tile(Qs + st * FA_TILE * ld, ld, q + qoff * d, q0, Sq, d);
-  cp_tile(Os + st * FA_TILE * ld, ld, dout + qoff * d, q0, Sq, d);
-  for (int e = threadIdx.x; e < 3 * FA_TILE; e += FB_THREADS) {
+  cp_tile<THREADS, DP>(Qs + st * FA_TILE * ld, ld, q + qoff * d, q0, Sq, d);
+  cp_tile<THREADS, DP>(Os + st * FA_TILE * ld, ld, dout + qoff * d, q0, Sq,
+                       d);
+  for (int e = threadIdx.x; e < 3 * FA_TILE; e += THREADS) {
     const int which = e / FA_TILE, r = e - which * FA_TILE;
     const bool in = q0 + r < Sq;
     const int at = in ? q0 + r : 0;
@@ -1218,18 +1310,22 @@ __device__ __forceinline__ void cp_qtile(
 // the kv head and the q tiles plan_q_tiles visits, in one sequence n =
 // g nqt + i, the next visited q tile's copy in flight under this one's
 // products
-template <int NJ, bool CAP>
-__global__ void __launch_bounds__(FB_THREADS, 2)
+template <int D, bool CAP>
+__global__ void __launch_bounds__(BwdShape<D>::THREADS,
+                                  BwdShape<D>::NH > 1 ? 1 : 2)
 flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const bf16* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       const int* __restrict__ qpos,
-                      const int* __restrict__ kpos, bf16* __restrict__ dk,
+                      const int* __restrict__ kpos,
+                      const int* __restrict__ nokey, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, int H, int KV, int Sq, int Sk,
                       Mask mk) {
-  constexpr int d = 16 * NJ, ld = d + FB_PAD;
+  using Sh = BwdShape<D>;
+  constexpr int NJ = Sh::NJ, DP = Sh::DP, ld = DP + FB_PAD, NJW = Sh::NJW;
+  constexpr int THREADS = Sh::THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
   const int nqt = (Sq + FA_TILE - 1) / FA_TILE;
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -1238,44 +1334,49 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Os = Qs + 2 * FA_TILE * ld;                   // dO, 2 stages
   // lse, delta, q positions: 3 FA_TILE words a stage, 2 stages
   uint32_t* rows = reinterpret_cast<uint32_t*>(Os + 2 * FA_TILE * ld);
-  int* flags = reinterpret_cast<int*>(rows + 6 * FA_TILE);  // nqt, scratch
+  int* flags = reinterpret_cast<int*>(rows + 6 * FA_TILE);  // nqt
 
   const int k0 = blockIdx.x * FA_TILE, kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV, total = G * nqt;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the warp's 16 keys and its columns of dk and dv (0 with one warp)
+  const int rw = Sh::NH > 1 ? warp % 4 : warp;
+  const int col0 = Sh::NH > 1 ? 16 * NJW * (warp / 4) : 0;
   const int g = lane / 4, t = lane % 4;
-  const size_t koff = ((size_t)b * KV + kvh) * Sk * d;
+  const size_t koff = ((size_t)b * KV + kvh) * Sk * D;
   const size_t qoff0 = ((size_t)b * H + (size_t)kvh * G) * Sq;
 
-  cp_tile(Ks, ld, k + koff, k0, Sk, d);        // in flight during the plan
-  cp_tile(Vs, ld, v + koff, k0, Sk, d);
-  plan_q_tiles(qpos, kpos, k0, Sq, Sk, mk, flags, flags + nqt);
+  // every copy writes DP columns, zeros past D
+  cp_tile<THREADS, DP>(Ks, ld, k + koff, k0, Sk, D);  // in flight during
+  cp_tile<THREADS, DP>(Vs, ld, v + koff, k0, Sk, D);  // the plan
+  plan_q_tiles(qpos, kpos, nokey, k0, Sq, Sk, mk, flags);
   int n = 0;
   while (n < total && !flags[n % nqt]) ++n;
   if (n < total)
-    cp_qtile(Qs, Os, rows, ld, 0, q, dout, lse, delta, qpos,
-             qoff0 + (size_t)(n / nqt) * Sq, n % nqt, Sq, d);
+    cp_qtile<THREADS, DP>(Qs, Os, rows, ld, 0, q, dout, lse, delta, qpos,
+                          qoff0 + (size_t)(n / nqt) * Sq, n % nqt, Sq, D);
   sm90::cp_async_commit();
 
   const float scale2 = CAP ? mk.scale : mk.scale * LOG2E;
   const float cap2 = mk.cap * LOG2E;
   const float neg2 = lse_base2(NEG);
   // this thread's keys: ka = g, kb = g + 8 of its warp's 16 (-1 past Sk)
-  const int ka = k0 + FB_GROUP * warp + g, kb = ka + 8;
+  const int ka = k0 + FB_GROUP * rw + g, kb = ka + 8;
   const int kpa = ka < Sk ? kpos[ka] : -1, kpb = kb < Sk ? kpos[kb] : -1;
-  float dka[2 * NJ][4], dva[2 * NJ][4];
+  float dka[2 * NJW][4], dva[2 * NJW][4];
   zero_frags(dka);
   zero_frags(dva);
   const Lanes ln;
-  const bf16* Kw = Ks + (FB_GROUP * warp + ln.a_row) * ld + ln.a_col;
-  const bf16* Vw = Vs + (FB_GROUP * warp + ln.a_row) * ld + ln.a_col;
+  const bf16* Kw = Ks + (FB_GROUP * rw + ln.a_row) * ld + ln.a_col;
+  const bf16* Vw = Vs + (FB_GROUP * rw + ln.a_row) * ld + ln.a_col;
 
   for (int st = 0; n < total; st ^= 1) {
     int nn = n + 1;
     while (nn < total && !flags[nn % nqt]) ++nn;
     if (nn < total)
-      cp_qtile(Qs, Os, rows, ld, st ^ 1, q, dout, lse, delta, qpos,
-               qoff0 + (size_t)(nn / nqt) * Sq, nn % nqt, Sq, d);
+      cp_qtile<THREADS, DP>(Qs, Os, rows, ld, st ^ 1, q, dout, lse, delta,
+                            qpos, qoff0 + (size_t)(nn / nqt) * Sq, nn % nqt,
+                            Sq, D);
     sm90::cp_async_commit();
     sm90::cp_async_wait<1>();             // q tile n (and k, v) landed
     __syncthreads();
@@ -1290,7 +1391,8 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // runs out of registers and spills: 6% slower on an H100, flash_ab.py)
 #pragma unroll 1
     for (int c0 = 0; c0 < FA_TILE; c0 += DKV_HALF) {
-      // s^T = K Q^T and dp^T = V dO^T: 16 keys x 32 queries per warp
+      // s^T = K Q^T and dp^T = V dO^T: 16 keys x 32 queries per warp, over
+      // the whole head dim
       float s[4][4], dp[4][4];
       zero_frags(s);
       zero_frags(dp);
@@ -1345,40 +1447,40 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           dp[n8][e] = ds;
         }
 
-      // dv += p^T dO and dk += dS^T q over the 32 queries, each as hi + lo
+      // dv += p^T dO and dk += dS^T q over the 32 queries and the warp's
+      // columns, each as hi + lo
 #pragma unroll
-      for (int h = 0; h < 2 / SPLIT_KS; ++h) {
-        const int x0 = c0 + 16 * SPLIT_KS * h;
-        acc_split_product<NJ, SPLIT_KS>(dva, s + 2 * SPLIT_KS * h, Ot, ld,
-                                        x0, ln);
+      for (int hh = 0; hh < 2 / SPLIT_KS; ++hh) {
+        const int x0 = c0 + 16 * SPLIT_KS * hh;
+        acc_split_product<NJW, SPLIT_KS, Sh::NTW>(
+            dva, s + 2 * SPLIT_KS * hh, Ot + col0, ld, x0, ln);
         if (code != 3)
-          acc_split_product<NJ, SPLIT_KS>(dka, dp + 2 * SPLIT_KS * h, Qt,
-                                          ld, x0, ln);
+          acc_split_product<NJW, SPLIT_KS, Sh::NTW>(
+              dka, dp + 2 * SPLIT_KS * hh, Qt + col0, ld, x0, ln);
       }
     }
     __syncthreads();                 // stage st is refilled next iteration
     n = nn;
   }
   sm90::cp_async_wait<0>();
-  store_frags<NJ>(dka, dk + koff, ka, Sk, mk.scale);
-  store_frags<NJ>(dva, dv + koff, ka, Sk, 1.f);
+  store_frags<D, Sh::NTW>(dka, dk + koff + col0, ka, Sk, mk.scale);
+  store_frags<D, Sh::NTW>(dva, dv + koff + col0, ka, Sk, 1.f);
 }
 
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
-// the head dims each kernel takes: dq and dk/dv multiples of 16 up to 128;
-// the forward those and 120 and 256 (kernels/flash_attention.py mirrors
-// both sets)
-bool bwd_head_dim(int d) {
-  return d >= 16 && d <= 16 * MAX_NJ && d % 16 == 0;
+// the head dims every kernel takes: multiples of 16 up to 128, 120 and
+// 256 (kernels/flash_attention.py mirrors the set)
+bool head_dim(int d) {
+  return (d >= 16 && d <= 16 * MAX_NJ && d % 16 == 0) || d == 120 ||
+         d == 256;
 }
-bool fwd_head_dim(int d) { return bwd_head_dim(d) || d == 120 || d == 256; }
 
-int check_shape(int B, int H, int KV, int Sq, int Sk, int d, bool fwd) {
+int check_shape(int B, int H, int KV, int Sq, int Sk, int d) {
   if (B < 0 || Sq < 0 || Sk < 1 || KV < 1 || H < KV || H % KV ||
-      !(fwd ? fwd_head_dim(d) : bwd_head_dim(d)))
+      !head_dim(d))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -1413,18 +1515,18 @@ int set_smem(K kernel, size_t bytes, size_t& granted) {
   return rc;
 }
 
-// ints of plan_k_tiles' flags and scratch, and of plan_q_tiles'
+// ints of plan_k_tiles' flags and scratch, and of plan_q_tiles' flags
 int k_plan_ints(int Sk) {
   return (Sk + FA_TILE - 1) / FA_TILE + 3 * PLAN_GROUPS;
 }
-int q_plan_ints(int Sq) { return (Sq + FA_TILE - 1) / FA_TILE + 1; }
+int q_plan_ints(int Sq) { return (Sq + FA_TILE - 1) / FA_TILE; }
 
 // the operands of every entry point: the backward's (out0 dq or dk, out1
-// dv); the forward has no dout, lse or delta and writes o to out0, lse to
-// out1
+// dv, dk/dv's scratch: ceil(Sq / FA_TILE) ints for plan_nokey_kernel); the
+// forward has no dout, lse or delta and writes o to out0, lse to out1
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *qpos, *kpos;
-  void *out0, *out1;
+  void *out0, *out1, *scratch;
   int B, H, KV, Sq, Sk, d;
   Mask mk;
   cudaStream_t stream;
@@ -1443,11 +1545,25 @@ int launch_fwd_f32(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// plan_nokey_kernel into a.scratch, before either dk/dv kernel
+int launch_nokey(const Args& a) {
+  const int nqt = (a.Sq + FA_TILE - 1) / FA_TILE;
+  if (nqt == 0) return 0;
+  plan_nokey_kernel<<<nqt, FA_THREADS, 0, a.stream>>>(
+      (const int*)a.qpos, (const int*)a.kpos, a.Sq, a.Sk, a.mk,
+      (int*)a.scratch);
+  return (int)cudaGetLastError();
+}
+
+// the f32 backward's shared memory (two input tiles), blocks (one for
+// each chunk of 16 MAX_NJ columns of the gradients) and launch
 int launch_dq_f32(const Args& a) {
-  const size_t bytes = smem_bytes(a.d, 2, 4, 4, k_plan_ints(a.Sk));
+  const int dp = 16 * ((a.d + 15) / 16);
+  const size_t bytes = smem_bytes(dp, 2, 4, 2, k_plan_ints(a.Sk));
   static size_t granted = 0;
   if (int rc = set_smem(flash_dq_kernel, bytes, granted)) return rc;
-  const dim3 grid((a.Sq + FA_TILE - 1) / FA_TILE, a.H, a.B);
+  const dim3 grid((a.Sq + FA_TILE - 1) / FA_TILE * f32_chunks(a.d), a.H,
+                  a.B);
   flash_dq_kernel<<<grid, FA_THREADS, bytes, a.stream>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v,
       (const float*)a.dout, (const float*)a.lse, (const float*)a.delta,
@@ -1457,22 +1573,24 @@ int launch_dq_f32(const Args& a) {
 }
 
 int launch_dkv_f32(const Args& a) {
-  const size_t bytes = smem_bytes(a.d, 2, 4, 4, q_plan_ints(a.Sq));
+  if (int rc = launch_nokey(a)) return rc;
+  const int dp = 16 * ((a.d + 15) / 16);
+  const size_t bytes = smem_bytes(dp, 2, 4, 2, q_plan_ints(a.Sq));
   static size_t granted = 0;
   if (int rc = set_smem(flash_dkv_kernel, bytes, granted)) return rc;
-  const dim3 grid((a.Sk + FA_TILE - 1) / FA_TILE, a.KV, a.B);
+  const dim3 grid((a.Sk + FA_TILE - 1) / FA_TILE * f32_chunks(a.d), a.KV,
+                  a.B);
   flash_dkv_kernel<<<grid, FA_THREADS, bytes, a.stream>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v,
       (const float*)a.dout, (const float*)a.lse, (const float*)a.delta,
-      (const int*)a.qpos, (const int*)a.kpos, (float*)a.out0,
-      (float*)a.out1, a.H, a.KV, a.Sq, a.Sk, a.d, a.mk);
+      (const int*)a.qpos, (const int*)a.kpos, (const int*)a.scratch,
+      (float*)a.out0, (float*)a.out1, a.H, a.KV, a.Sq, a.Sk, a.d, a.mk);
   return (int)cudaGetLastError();
 }
 
 // the bf16 kernels, one struct per kernel with run<D, CAP> (D the head
-// dim); WIDE: the kernel also takes the head dims 120 and 256
+// dim)
 struct FwdBf16 {
-  static constexpr bool WIDE = true;
   template <int D, bool CAP>
   static int run(const Args& a) {
     using Sh = FwdShape<D>;
@@ -1491,16 +1609,16 @@ struct FwdBf16 {
 };
 
 struct DqBf16 {
-  static constexpr bool WIDE = false;
   template <int D, bool CAP>
   static int run(const Args& a) {
+    using Sh = BwdShape<D>;
     const size_t bytes =
-        bf16_smem_bytes(D, 6, 2 * FA_TILE + k_plan_ints(a.Sk));
+        bf16_smem_bytes(Sh::DP, 6, 2 * FA_TILE + k_plan_ints(a.Sk));
     static size_t granted = 0;
-    const auto kernel = flash_dq_bf16_kernel<D / 16, CAP>;
+    const auto kernel = flash_dq_bf16_kernel<D, CAP>;
     if (int rc = set_smem(kernel, bytes, granted)) return rc;
     const dim3 grid((a.Sq + FA_TILE - 1) / FA_TILE, a.H, a.B);
-    kernel<<<grid, FB_THREADS, bytes, a.stream>>>(
+    kernel<<<grid, Sh::THREADS, bytes, a.stream>>>(
         (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
         (const bf16*)a.dout, (const float*)a.lse, (const float*)a.delta,
         (const int*)a.qpos, (const int*)a.kpos, (bf16*)a.out0, a.H, a.KV,
@@ -1510,28 +1628,28 @@ struct DqBf16 {
 };
 
 struct DkvBf16 {
-  static constexpr bool WIDE = false;
   template <int D, bool CAP>
   static int run(const Args& a) {
+    if (int rc = launch_nokey(a)) return rc;
+    using Sh = BwdShape<D>;
     const size_t bytes =
-        bf16_smem_bytes(D, 6, 6 * FA_TILE + q_plan_ints(a.Sq));
+        bf16_smem_bytes(Sh::DP, 6, 6 * FA_TILE + q_plan_ints(a.Sq));
     static size_t granted = 0;
-    const auto kernel = flash_dkv_bf16_kernel<D / 16, CAP>;
+    const auto kernel = flash_dkv_bf16_kernel<D, CAP>;
     if (int rc = set_smem(kernel, bytes, granted)) return rc;
     const dim3 grid((a.Sk + FA_TILE - 1) / FA_TILE, a.KV, a.B);
-    kernel<<<grid, FB_THREADS, bytes, a.stream>>>(
+    kernel<<<grid, Sh::THREADS, bytes, a.stream>>>(
         (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
         (const bf16*)a.dout, (const float*)a.lse, (const float*)a.delta,
-        (const int*)a.qpos, (const int*)a.kpos, (bf16*)a.out0,
-        (bf16*)a.out1, a.H, a.KV, a.Sq, a.Sk, a.mk);
+        (const int*)a.qpos, (const int*)a.kpos, (const int*)a.scratch,
+        (bf16*)a.out0, (bf16*)a.out1, a.H, a.KV, a.Sq, a.Sk, a.mk);
     return (int)cudaGetLastError();
   }
 };
 
-// K::run<d, softcap?>, one instance per head dim (only the forward's
-// have the dims 120 and 256: 52 bf16 instances in all); cp.async moves
-// 16-byte pieces: rows of d bf16 (d % 8 == 0) stay aligned if the bases
-// are; 4-byte words 4 bytes
+// K::run<d, softcap?>, one instance per head dim (60 bf16 instances in
+// all); cp.async moves 16-byte pieces: rows of d bf16 (d % 8 == 0) stay
+// aligned if the bases are; 4-byte words 4 bytes
 template <typename K>
 int launch_bf16(const Args& a) {
   if ((uintptr_t)a.q % 16 || (uintptr_t)a.k % 16 || (uintptr_t)a.v % 16 ||
@@ -1546,20 +1664,16 @@ int launch_bf16(const Args& a) {
   switch (a.d) {
     FA_HEAD_DIM(16) FA_HEAD_DIM(32) FA_HEAD_DIM(48) FA_HEAD_DIM(64)
     FA_HEAD_DIM(80) FA_HEAD_DIM(96) FA_HEAD_DIM(112) FA_HEAD_DIM(128)
-  }
-  if constexpr (K::WIDE) {
-    switch (a.d) { FA_HEAD_DIM(120) FA_HEAD_DIM(256) }
+    FA_HEAD_DIM(120) FA_HEAD_DIM(256)
   }
 #undef FA_HEAD_DIM
   return (int)cudaErrorInvalidValue;
 }
 
-// shape checks (fwd: the forward's head dims), then the launch unless
-// there is nothing to compute (the forward and dq with no query; dk/dv
-// with no query still write zeros)
-int launch(int (*fn)(const Args&), const Args& a, bool need_rows,
-           bool fwd = false) {
-  if (int rc = check_shape(a.B, a.H, a.KV, a.Sq, a.Sk, a.d, fwd)) return rc;
+// shape checks, then the launch unless there is nothing to compute (the
+// forward and dq with no query; dk/dv with no query still write zeros)
+int launch(int (*fn)(const Args&), const Args& a, bool need_rows) {
+  if (int rc = check_shape(a.B, a.H, a.KV, a.Sq, a.Sk, a.d)) return rc;
   if (a.B == 0 || (need_rows && a.Sq == 0)) return 0;
   return fn(a);
 }
@@ -1569,9 +1683,9 @@ int launch(int (*fn)(const Args&), const Args& a, bool need_rows,
 #define FA_MASK_ARGS                                                    \
   float scale, int causal, int window, int use_window, float cap,      \
       int use_cap, void* stream
-#define FA_ARGS(dout, lse, delta, out0, out1)                              \
-  Args{q, k, v, dout, lse, delta, qpos, kpos, out0, out1, B, H, KV, Sq,    \
-       Sk, d, Mask{scale, causal, window, use_window, cap, use_cap},       \
+#define FA_ARGS(dout, lse, delta, out0, out1, scratch)                     \
+  Args{q, k, v, dout, lse, delta, qpos, kpos, out0, out1, scratch, B, H,   \
+       KV, Sq, Sk, d, Mask{scale, causal, window, use_window, cap, use_cap}, \
        (cudaStream_t)stream}
 
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
@@ -1579,15 +1693,15 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* lse, int B, int H, int KV, int Sq,
                               int Sk, int d, FA_MASK_ARGS) {
   return launch(launch_bf16<FwdBf16>,
-                FA_ARGS(nullptr, nullptr, nullptr, o, lse), true, true);
+                FA_ARGS(nullptr, nullptr, nullptr, o, lse, nullptr), true);
 }
 
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              const void* qpos, const void* kpos, void* o,
                              void* lse, int B, int H, int KV, int Sq, int Sk,
                              int d, FA_MASK_ARGS) {
-  return launch(launch_fwd_f32, FA_ARGS(nullptr, nullptr, nullptr, o, lse),
-                true, true);
+  return launch(launch_fwd_f32, FA_ARGS(nullptr, nullptr, nullptr, o, lse, nullptr),
+                true);
 }
 
 extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
@@ -1596,7 +1710,7 @@ extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
                              const void* kpos, void* dq, int B, int H, int KV,
                              int Sq, int Sk, int d, FA_MASK_ARGS) {
   return launch(launch_bf16<DqBf16>,
-                FA_ARGS(dout, lse, delta, dq, nullptr), true);
+                FA_ARGS(dout, lse, delta, dq, nullptr, nullptr), true);
 }
 
 extern "C" int flash_dq_f32(const void* q, const void* k, const void* v,
@@ -1604,24 +1718,28 @@ extern "C" int flash_dq_f32(const void* q, const void* k, const void* v,
                             const void* delta, const void* qpos,
                             const void* kpos, void* dq, int B, int H, int KV,
                             int Sq, int Sk, int d, FA_MASK_ARGS) {
-  return launch(launch_dq_f32, FA_ARGS(dout, lse, delta, dq, nullptr), true);
+  return launch(launch_dq_f32, FA_ARGS(dout, lse, delta, dq, nullptr, nullptr),
+                true);
 }
 
 extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* qpos,
-                              const void* kpos, void* dk, void* dv, int B,
-                              int H, int KV, int Sq, int Sk, int d,
+                              const void* kpos, void* dk, void* dv,
+                              void* nokey, int B, int H, int KV, int Sq,
+                              int Sk, int d,
                               FA_MASK_ARGS) {
-  return launch(launch_bf16<DkvBf16>, FA_ARGS(dout, lse, delta, dk, dv),
+  return launch(launch_bf16<DkvBf16>, FA_ARGS(dout, lse, delta, dk, dv, nokey),
                 false);
 }
 
 extern "C" int flash_dkv_f32(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, const void* qpos,
-                             const void* kpos, void* dk, void* dv, int B,
-                             int H, int KV, int Sq, int Sk, int d,
+                             const void* kpos, void* dk, void* dv,
+                             void* nokey, int B, int H, int KV, int Sq,
+                             int Sk, int d,
                              FA_MASK_ARGS) {
-  return launch(launch_dkv_f32, FA_ARGS(dout, lse, delta, dk, dv), false);
+  return launch(launch_dkv_f32, FA_ARGS(dout, lse, delta, dk, dv, nokey),
+                false);
 }

@@ -57,8 +57,8 @@ SIGNATURES = {
     "flash_fwd_f32": (_P,) * 7 + _FLASH,
     "flash_dq_bf16": (_P,) * 9 + _FLASH,
     "flash_dq_f32": (_P,) * 9 + _FLASH,
-    "flash_dkv_bf16": (_P,) * 10 + _FLASH,
-    "flash_dkv_f32": (_P,) * 10 + _FLASH,
+    "flash_dkv_bf16": (_P,) * 11 + _FLASH,
+    "flash_dkv_f32": (_P,) * 11 + _FLASH,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

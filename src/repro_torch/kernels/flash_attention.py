@@ -13,11 +13,9 @@ query heads of each kv head.  p and dS stay in f32 (bf16 inputs widened
 exactly), as in the reference kernels, which is what sets this path apart
 from the chunked ``_attend`` (that one rounds p to v's dtype).
 
-Head dims: the backward kernels take multiples of 16 up to 128
-(:data:`BWD_HEAD_DIMS`); the forward those and 120 (h2o-danube3) and 256
-(gemma2) as well (:data:`FWD_HEAD_DIMS`), which serve without a gradient.
-``flash_attention`` refuses a head dim outside the backward's set before
-its forward when autograd would need the backward.
+Head dims: every kernel takes the multiples of 16 up to 128, 120
+(h2o-danube3) and 256 (gemma2) (:data:`HEAD_DIMS`), in the forward and
+the backward.
 
 ``flash_attention`` is differentiable through the dq and dk/dv kernels,
 as the reference's ``custom_vjp`` is.  The reference's ``block_q`` is a
@@ -40,10 +38,8 @@ import torch
 from repro_torch.kernels import build
 
 NEG = -1e30            # the reference's mask value (flash_attention.py:37)
-# the head dims the CUDA kernels take (fwd_head_dim, bwd_head_dim in
-# csrc/flash_attention.cu)
-BWD_HEAD_DIMS = tuple(range(16, 129, 16))
-FWD_HEAD_DIMS = BWD_HEAD_DIMS + (120, 256)
+# the head dims the CUDA kernels take (head_dim in csrc/flash_attention.cu)
+HEAD_DIMS = tuple(range(16, 129, 16)) + (120, 256)
 fwd_launches = 0       # forward kernel launches since the caller last reset
 dq_launches = 0        # dq kernel launches, likewise
 dkv_launches = 0       # dk/dv kernel launches, likewise
@@ -243,10 +239,9 @@ def _launch(name: str, fn: str, q, k, tensors, outs, scale, causal, window,
     KV, Sk = k.shape[1], k.shape[2]
     if not all(t.is_contiguous() for t in (*tensors, *outs)):
         raise ValueError(f"{name}: operands must be contiguous")
-    dims = FWD_HEAD_DIMS if fn == "flash_fwd" else BWD_HEAD_DIMS
-    if d not in dims:
+    if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not taken by the kernel "
-                         f"({dims})")
+                         f"({HEAD_DIMS})")
     lib = build.load()
     suffix = "bf16" if q.dtype == torch.bfloat16 else "f32"
     rc = getattr(lib, f"{fn}_{suffix}")(
@@ -313,8 +308,11 @@ def flash_dkv(q, k, v, do, lse, delta, q_pos, k_pos, scale: float,
         return flash_dkv_plain(q, k, v, do, lse, delta, q_pos, k_pos, scale,
                                causal, window, cap)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # scratch: whether each 64-row q tile holds a row with no allowed key
+    nokey = torch.empty(-(-q.shape[2] // TILE), dtype=torch.int32,
+                        device=q.device)
     _launch("flash_dkv", "flash_dkv", q, k,
-            (q, k, v, do, lse, delta, q_pos, k_pos), (dk, dv), scale,
+            (q, k, v, do, lse, delta, q_pos, k_pos), (dk, dv, nokey), scale,
             causal, window, cap)
     dkv_launches += 1
     return dk, dv
@@ -353,16 +351,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> torch.Tensor:
     """q (B, H, Sq, d), k/v (B, KV, Sk, d), positions int32 (Sq,)/(Sk,) →
     o (B, H, Sq, d); ``k_pos < 0`` marks invalid slots.  Differentiable in
-    q, k and v at the backward's head dims (:data:`BWD_HEAD_DIMS`); at the
-    forward's others a call that autograd would differentiate raises
-    before the forward runs, on any device.  ``block_q`` keeps the
-    reference's signature and is ignored: the kernels tile by 64 rows."""
-    d = q.shape[-1]
-    if d not in BWD_HEAD_DIMS and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            f"flash_attention: no backward at head dim {d} (dq and dk/dv "
-            f"take {BWD_HEAD_DIMS}); run it without a gradient, e.g. under "
-            f"torch.inference_mode()")
+    q, k and v.  ``block_q`` keeps the reference's signature and is
+    ignored: the kernels tile by 64 rows."""
     return FlashAttention.apply(q, k, v, q_pos, k_pos, scale, causal,
                                 window, cap)

@@ -53,8 +53,8 @@ CASES = [
      None, True),
 ]
 IDS = [c[0] for c in CASES]
-# the forward alone also takes head dims 120 (h2o-danube3) and 256 (gemma2),
-# with the masks and the cap those presets serve with
+# head dims 120 (h2o-danube3) and 256 (gemma2), with the masks and the cap
+# those presets serve and train with
 WIDE_CASES = [
     ("d=120 causal", 1, 4, 2, 80, 80, 120, True, None, None, False),
     ("d=120 window16", 1, 8, 2, 96, 96, 120, True, 16, None, False),
@@ -127,16 +127,18 @@ def _fwd_slack(q, k, v, q_pos, k_pos, scale, causal, window, cap):
             ).reshape(q.shape)
 
 
-def _bwd_slack(q, k, v, do, q_pos, k_pos, scale, causal, window, cap):
+def _bwd_slack(q, k, v, do, q_pos, k_pos, scale, causal, window, cap,
+               o_extra=None):
     """What bf16 gradients may differ by beyond 1 ulp, per element of dq,
     dk and dv.  Each side computes Δ = rowsum(dO∘o) from its OWN bf16 o,
-    and the two o may be 1 bf16 ulp apart (above): Δ_q then differs by up
-    to δ_q = Σ_c |dO_qc|·ulp(o_qc), which reaches dq and dk through
-    ds = p·(dP - Δ), where dP and Δ cancel (a query with one key has
-    ds = 0 exactly, and every rounding shows).  On top of that, twice the
-    f32 summation-order bound n·2⁻²⁴·Σ|terms| of sums of n = d + Sk (dq),
-    d + G·Sq (dk) and G·Sq (dv) terms, with |ds| ≤ p·(|dO|·|v|ᵀ + Σ|dO∘o|)
-    (the softcap factor 1 - t² ≤ 1 dropped)."""
+    and the two o may be 1 bf16 ulp apart (above), plus ``o_extra`` (the
+    forward's ``_fwd_slack`` at d = 120 and 256): Δ_q then differs by up
+    to δ_q = Σ_c |dO_qc|·(ulp(o_qc) + o_extra_qc), which reaches dq and dk
+    through ds = p·(dP - Δ), where dP and Δ cancel (a query with one key
+    has ds = 0 exactly, and every rounding shows).  On top of that, twice
+    the f32 summation-order bound n·2⁻²⁴·Σ|terms| of sums of n = d + Sk
+    (dq), d + G·Sq (dk) and G·Sq (dv) terms, with |ds| ≤ p·(|dO|·|v|ᵀ +
+    Σ|dO∘o|) (the softcap factor 1 - t² ≤ 1 dropped)."""
     B, H, Sq, d = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     u = 2.0 ** -24
@@ -146,6 +148,8 @@ def _bwd_slack(q, k, v, do, q_pos, k_pos, scale, causal, window, cap):
     p = torch.exp(s - lse.reshape(s.shape[:-1])[..., None])
     ado = F._grouped(do, KV).abs()
     ulp_o = torch.from_numpy(_bf16_ulp(o.float().numpy()))
+    if o_extra is not None:
+        ulp_o = ulp_o + o_extra
     delta_err = (ado * F._grouped(ulp_o, KV)).sum(-1)[..., None]
     terms = p * (torch.einsum("bkgqd,bksd->bkgqs", ado, v.float().abs())
                  + (ado * F._grouped(o, KV).abs()).sum(-1)[..., None])
@@ -181,19 +185,24 @@ def test_forward_matches_reference(case, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", CASES, ids=IDS)
+@pytest.mark.parametrize("case", FWD_CASES, ids=FWD_IDS)
 def test_backward_matches_reference(case, dtype):
     """dq, dk, dv from ``FlashAttention``'s backward (Δ from the saved o,
     then the dq and dk/dv plain versions) against ``jax.vjp`` of the
     reference's ``flash_attention`` with the same cotangent: f32 at rtol
-    1e-5 / atol 2e-5; bf16 within 1 ulp plus ``_bwd_slack``."""
+    1e-5 / atol 2e-5; bf16 within 1 ulp plus ``_bwd_slack``, whose Δ
+    term at head dims 120 and 256 (``WIDE_CASES``) also carries the
+    forward's ``_fwd_slack`` (the two sides' o differ by that beyond 1
+    ulp, as ``test_forward_matches_reference`` holds them)."""
     (jq, jk, jv, jdo), (tq, tk, tv, tdo), (jqp, jkp, tqp, tkp), st = \
         _inputs(case, dtype)
     jdq, jdk, jdv = _jax_vjp(jq, jk, jv, jdo, jqp, jkp, *st)
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
     o = F.flash_attention(*leaves, tqp, tkp, *st)
     o.backward(tdo)
-    slack = _bwd_slack(tq, tk, tv, tdo, tqp, tkp, *st)
+    o_extra = (_fwd_slack(tq, tk, tv, tqp, tkp, *st) if case in WIDE_CASES
+               else None)
+    slack = _bwd_slack(tq, tk, tv, tdo, tqp, tkp, *st, o_extra=o_extra)
     for t, j, name, extra in zip(leaves, (jdq, jdk, jdv), ("dq", "dk", "dv"),
                                  slack):
         assert t.grad.dtype == t.dtype
@@ -246,27 +255,28 @@ def test_wrappers_validate_their_operands():
 
 
 @pytest.mark.parametrize("d", [120, 256])
-def test_flash_refuses_a_gradient_at_forward_only_head_dims(d):
-    """At d = 120 and 256 ``flash_attention`` runs under inference mode,
-    as serving calls it (the plain version here), and a call that
-    autograd would differentiate raises before the forward runs (the
-    wrapper is never called)."""
+def test_flash_differentiates_through_dq_and_dkv_at_the_windowed_dims(d):
+    """At d = 120 and 256 ``flash_attention`` is differentiable: one
+    forward and one backward call the forward, dq and dk/dv wrappers once
+    each, and the gradients have the leaves' shapes and dtype."""
     q = torch.randn(1, 2, 8, d)
     k = torch.randn(1, 1, 8, d)
     pos = torch.arange(8, dtype=torch.int32)
-    with torch.inference_mode():
-        o = F.flash_attention(q, k, k, pos, pos, d ** -0.5, True, 4, None)
-    assert o.shape == q.shape
     calls = []
-    fwd = F.flash_fwd
+    saved = {n: getattr(F, n) for n in ("flash_fwd", "flash_dq",
+                                        "flash_dkv")}
     try:
-        F.flash_fwd = lambda *a: calls.append(1) or fwd(*a)
-        with pytest.raises(NotImplementedError, match="no backward"):
-            F.flash_attention(q.requires_grad_(), k, k, pos, pos, d ** -0.5,
-                              True, 4, None)
+        for n, fn in saved.items():
+            setattr(F, n, lambda *a, n=n, fn=fn: calls.append(n) or fn(*a))
+        leaves = [t.clone().requires_grad_() for t in (q, k, k)]
+        o = F.flash_attention(*leaves, pos, pos, d ** -0.5, True, 4, None)
+        o.sum().backward()
     finally:
-        F.flash_fwd = fwd
-    assert calls == []
+        for n, fn in saved.items():
+            setattr(F, n, fn)
+    assert sorted(calls) == ["flash_dkv", "flash_dq", "flash_fwd"]
+    for t in leaves:
+        assert t.grad.shape == t.shape and t.grad.dtype == t.dtype
 
 
 # ---------------------------------------------------------------------------

@@ -7,12 +7,15 @@ weights through ``convert.params_from_numpy``.  Prefill logits past the
 window (prompt 48 on ``_attend``, prompt 600 on the flash path), greedy
 tokens and decode-step logits through ring caches (a prefill longer than
 the ring, and a ring that wraps during decode), gemma2's long-context
-variant, ring caches against linear ones under the same window, one train
-step, ``convert`` over ``("local", "global")``, ``is_subquadratic`` and the
-serving CLI.
+variant, ring caches against linear ones under the same window, a train
+step on ``_attend`` (2 x 32) and one on the flash path at the presets' own
+head dims (120, 256; seq 600, the window acting), ``convert`` over
+``("local", "global")``, ``is_subquadratic`` and the serving and training
+CLIs.
 The reference runs on ``mesh1`` with its Pallas kernels in interpret mode;
 every tolerance is stated at its assertion."""
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -23,17 +26,22 @@ import torch
 from repro import configs as jconfigs
 from repro.checkpoint import io as jio
 from repro.core import config as jconfig
+from repro.data import SyntheticLM as JSyntheticLM
 from repro.models import transformer as JT
 from repro.serving import engine as jengine
 from repro.training import train_step as jts
 from repro_torch import configs
 from repro_torch.convert import (params_from_numpy, params_to_numpy,
                                  state_from_numpy, state_to_numpy)
+from repro_torch.core.config import TrainConfig
+from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.kernels import flash_attention as F
 from repro_torch.models import attention as tattn
 from repro_torch.launch import serve
+from repro_torch.launch import train as tlaunch
 from repro_torch.models import transformer as T
 from repro_torch.serving import engine
+from repro_torch.training import train_step as ts
 from test_torch_presets import (RNG, cfgs, check_train_step, jax_logits,
                                 jax_params, port_logits, port_model, prompt)
 
@@ -277,12 +285,81 @@ def test_ring_fill_and_decode_slots():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_windowed_train_step_matches_reference(mesh1, arch):
-    """One f32 batch (2 x 32, on ``_attend``: no backward kernel): the
+    """One f32 batch (2 x 32, on ``_attend``, below q_chunk): the
     loss, the gradients and one AdamW step against the reference, with
     ``test_torch_presets.check_train_step``'s tolerances (loss rtol 2e-6,
     each gradient leaf within 1e-5 of its max, metrics rtol 2e-6,
     parameters atol 1e-5 but for 1e-4 of them within 2·lr)."""
     check_train_step(arch, None, mesh1)
+
+
+# the presets' own head dims, at smoke width otherwise
+HEAD_DIMS = {"h2o-danube-3-4b": 120, "gemma2-9b": 256}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_windowed_train_step_on_the_flash_path(mesh1, arch, monkeypatch):
+    """One f32 batch of 1 x 600 (past q_chunk = 512: the flash forward and
+    its dq and dk/dv backward, the 32-wide window acting on every row past
+    32) at the preset's own head dim (danube 120, gemma2 256) and smoke
+    width otherwise, from the reference's ``init_model`` weights: the loss
+    within rtol 2e-6 and every gradient leaf within 1e-5 of its max |grad|
+    against ``jax.value_and_grad`` of the reference's forward + chunked CE
+    on its Pallas flash kernels (interpret mode) — ``check_train_step``'s
+    tolerances; and the step's flash launches: the forward, dq and dk/dv
+    once per layer, each layer given its own window."""
+    calls = {n: [] for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+    for n in calls:
+        fn = getattr(F, n)
+        monkeypatch.setattr(F, n, lambda *a, n=n, fn=fn: (
+            calls[n].append(a[-2]) or fn(*a)))          # the window
+    jc, tc = cfgs(arch)
+    d = HEAD_DIMS[arch]
+    jc = jc.replace(attention=dataclasses.replace(jc.attention, head_dim=d))
+    tc = tc.replace(attention=dataclasses.replace(tc.attention, head_dim=d))
+    p0 = jax.tree.map(np.asarray, JT.init_model(RNG, jc))
+    jb = JSyntheticLM(jc, 1, 600).next_batch(0)
+    tb = SyntheticLM(tc, 1, 600, device="cpu").next_batch(0)
+
+    def jloss(p, b):
+        h, aux, _ = JT.forward(p, b["inputs"], jc, mesh=mesh1)
+        return jts.chunked_ce_loss(p, jc, h, b["targets"], b["loss_mask"],
+                                   mesh1) + aux
+    jv, jg = jax.jit(jax.value_and_grad(jloss))(
+        jax.tree.map(jnp.asarray, p0), jb)
+    kw = dict(learning_rate=3e-3, warmup_steps=1, total_steps=1)
+    state = ts.init_train_state(tc, TrainConfig(**kw),
+                                params=params_from_numpy(p0, tc),
+                                device="cpu")
+    loss, _, _, grads = ts.loss_and_grads(state.params, tb, tc)
+    np.testing.assert_allclose(float(loss), float(jv), rtol=2e-6)
+    for (path, j), t in zip(
+            jax.tree_util.tree_flatten_with_path(jg)[0],
+            jax.tree.leaves(params_to_numpy(grads, tc)), strict=True):
+        j = np.asarray(j)
+        err = np.abs(t - j).max() / max(np.abs(j).max(), 1e-30)
+        assert err <= 1e-5, (jax.tree_util.keystr(path), err)
+    windows = [T.block_window(k, tc) for k in T.layer_kinds(tc)]
+    assert {n: len(c) for n, c in calls.items()} == dict.fromkeys(
+        calls, tc.num_layers)
+    assert calls["flash_fwd"] == windows and 32 in windows
+    # the backward walks the layers last to first
+    assert calls["flash_dq"] == calls["flash_dkv"] == windows[::-1]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_cli_trains_a_windowed_preset(capsys, arch):
+    """The training CLI on a windowed preset's smoke config, 2 steps of
+    batch 2 x 40 (past the window of 32, on ``_attend``): a finite loss
+    and no skipped step at each logged step, and no dispatch printed."""
+    tlaunch.main(["--arch", arch, "--smoke", "--steps", "2", "--batch",
+                  "2", "--seq", "40", "--log-every", "1", "--device",
+                  "cpu"])
+    out = capsys.readouterr().out
+    steps = re.findall(r"step +(\d+) loss (\S+) .* skip (\d+)", out)
+    assert [s for s, _, _ in steps] == ["0", "1"], out
+    assert all(np.isfinite(float(x)) and k == "0" for _, x, k in steps)
+    assert "dispatch=" not in out
 
 
 def test_local_global_params_round_trip(mesh1):
