@@ -25,7 +25,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    invalid); the forward at head dims 120 and 256 (2l-2m, with phase
    13), and dq and dk/dv there (2n: 2l's edge cases and the windowed
    presets' training shapes of phase 14, B=2 S=8192, kv head by kv head,
-   timed beside ``flex_attention``'s backward).
+   timed beside ``flex_attention``'s backward); 2g's cases include
+   hubert-xlarge's attention (d=80, non-causal, S=781: a last tile of 13
+   rows), and 2o holds the forward, dq and dk/dv at the frontend presets'
+   training shapes of phase 15 (hubert B=8 H=KV=16 S=781 d=80
+   non-causal; internvl2 B=2 16:8 S=4096 d=128 causal), kv head by kv
+   head, in f32 and bf16.
 3. Serving at full width: ``hetumoe-paper-16e`` (bf16, seeded random
    weights) through ``repro_torch.launch.serve.run`` → ``generate``, batch 8,
    32 new tokens: prompt 512 with ``grouped`` and with ``sort`` dispatch,
@@ -102,15 +107,16 @@ Phases, in order; any failure ends the script with a non-zero exit:
    over the two runs, finite logits; prefill and decode times, tokens/s, the peak memory of
    the init and of serving; one profiled prefill and decode steps per
    preset (0 host waits).  Then card against CPU in f32 at full width, 64
-   tokens: one dbrx ``moe`` block in both dispatch modes (routes that
-   differ must be near-ties, then replayed with the CPU's), one llama4
-   ``dense`` block and the llama4 shared expert, each within 1e-4 of its
-   max.  Phase 2 holds the kernels at every shape these presets' paths
-   give them (2j-2k: the gate at E=16 k=4 and E=128, the gather of T·4
-   rows in the served expert-sorted order in both forms, dbrx's sort
-   dispatch with its empty slots, and the combine's scatter-add back,
-   the grouped matmul at
-   d=6144/f=10752 and d=5120/f=8192 with E=128 at M=8 and 8192, each at
+   tokens: one dbrx ``moe`` block and one llama4 ``moe`` block (128
+   routed experts and the shared expert, 65 GB of f32 weights on each
+   side) in both dispatch modes (routes that differ must be near-ties,
+   then replayed with the CPU's), one llama4 ``dense`` block and the
+   llama4 shared expert, each within 1e-4 of its max.  Phase 2 holds
+   the kernels at every shape these presets' paths give them (2j-2k: the
+   gate at E=16 k=4 and E=128, the gather of T·4 rows in the served
+   expert-sorted order in both forms, dbrx's sort dispatch with its
+   empty slots, and the combine's scatter-add back, the grouped matmul
+   at d=6144/f=10752 and d=5120/f=8192 with E=128 at M=8 and 8192, each at
    prompts 512 and 1024 and at decode; 2g: the flash kernels at H:KV
    48:8, 40:8, 32:4, 24:2, B=8, S=1024) and times the prompt-1024 and
    decode shapes on the same inputs (rows of phase 5).
@@ -153,14 +159,34 @@ Phases, in order; any failure ends the script with a non-zero exit:
    within 1e-3 of its max), and the training CLI on gemma2's smoke
    config at seq 1024 in a subprocess on the card.  Phase 2n holds dq
    and dk/dv at these shapes against their plain versions.
+15. The frontend presets whole, at their published widths and depths
+   (f32 masters, bf16 compute, seeded weights and data, (B, S, d)
+   embeddings in place of tokens): ``hubert-xlarge`` (48 layers,
+   encoder-only, bidirectional, d=80) at batch 8 x 781 frames and
+   ``internvl2-2b`` (24 layers, untied head over 92553 entries) at batch
+   2 x 4096, through ``launch.train.run``, 2 warm-up + 8 timed AdamW
+   steps: finite metrics, no skipped step, the flash forward, dq and
+   dk/dv exactly once per layer and step and no other kernel; step ms,
+   tokens/s, peak memory (and bytes a parameter), one profiled step, no
+   host wait.  Then hubert's inference forward of the same batch to its
+   (8, 781, 504) cluster logits (bf16, the second of two runs), and
+   internvl2 served through the API: a prefill of 4 x 3,584 embeddings
+   into caches, then 64 ``decode_step``s fed (4, 1, d) embeddings (the
+   second of two runs, a profile, 0 host waits).  Then card against CPU
+   in f32 at full width: hubert at 2 of 48 layers over 781 frames and
+   internvl2 at 2 of 24 over 640 positions (with a prefill into caches
+   and 4 embedding-fed decode steps): logits within 1e-3 of their max,
+   loss and grad norm 1e-4 relative, every gradient leaf within 1e-3 of
+   its max.  Phases 2o and 5 hold and time kernels 7-9 at these shapes.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all ten kernels; the row-per-step gather, on no
 serving or training path, with the launches of its phase-5 run), and
 ``{"ok": true, "device": {...}}``.  ``--phases kernels`` runs phases 1, 2
 and 5 only, for work on a kernel, ``--phases trainer`` phases 1, 9-11
-and 14, and ``--phases presets`` phases 1, 12 and 13; each ends with
-``"ok": false``.  The script
+and 14, ``--phases presets`` phases 1, 12 and 13, and ``--phases
+frontends`` phases 1, 2g-2i, 2o, phase 5's rows at the frontend presets'
+shapes and 15; each ends with ``"ok": false``.  The script
 imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -1041,6 +1067,10 @@ FLASH_CASES = [
      4, 512, 1024, 128, True, None, None, 0.0, 512, 0),
     ("first 100 key slots invalid (B=2 H=KV=4 S=1024 d=128)", 2, 4, 4, 1024,
      1024, 128, True, None, None, 0.0, 0, 100),
+    # hubert-xlarge's attention: bidirectional at d=80, and 781 frames
+    # leave a last q and k tile of 13 rows
+    ("d=80 non-causal, S=781 (12 x 64 + 13), k_pos -1 slots (B=2 H=KV=8)",
+     2, 8, 8, 781, 781, 80, False, None, None, 0.1, 0, 0),
 ] + [
     # the presets' head ratios at phase 12's prefill shape: G = 6, 5, 8, 12
     (f"{who} GQA {H}:{KV} (B=8 S=1024 d=128 causal)", 8, H, KV, 1024, 1024,
@@ -1729,6 +1759,47 @@ def phase_flash_wide_bwd(torch, dev, smi, errs):
     return rows
 
 
+def phase_flash_frontends(torch, dev, errs):
+    """Phase 2o: kernels 7-9 at the frontend presets' training shapes
+    (``FRONTEND_FLASH``: hubert-xlarge non-causal at d=80 with a last tile
+    of 13 rows, internvl2-2b causal GQA 16:8 at S=4096) against their plain
+    versions on the card, on the same inputs, in f32 and bf16, to 2g's
+    tolerances (``FLASH_TOLERANCES``), kv head by kv head
+    (``check_by_kv_head``: o and lse, then dq and dk/dv fed the forward
+    kernel's lse and o as training feeds them; the bf16 bound sums over
+    dp = 80 at hubert's head dim).  The largest errors land in
+    errs[``flash_*_frontends``]; phase 5 times the kernels there."""
+    from repro_torch.kernels import flash_attention as F
+    gd = torch.Generator(device=dev).manual_seed(2222)
+    print(f"phase 2o: flash forward, dq and dk/dv at the frontend presets' "
+          f"training shapes, kv head by kv head (the backward fed the "
+          f"forward kernel's lse and o); {FLASH_TOLERANCES}")
+    for name, B, H, KV, S, d, causal in FRONTEND_FLASH:
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        st = (d ** -0.5, causal, None, None)
+        x32 = [torch.randn(s, generator=gd, device=dev) for s in
+               ((B, H, S, d), (B, KV, S, d), (B, KV, S, d), (B, H, S, d))]
+        label = (f"{name} B={B} H:KV={H}:{KV} S={S} d={d} "
+                 f"{'causal' if causal else 'non-causal'}")
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = (t.to(dt) for t in x32)
+            o, lse = F.flash_fwd(q, k, v, pos, pos, *st)
+            ok, worst, note, _ = check_by_kv_head(
+                torch, F, q, k, v, pos, pos, st, o, lse, do=do)
+            for key, whats in (("flash_fwd", ("o",)), ("flash_dq", ("dq",)),
+                               ("flash_dkv", ("dk", "dv"))):
+                key += "_frontends"
+                errs[key] = max(errs.get(key, 0.0),
+                                *(worst[w] for w in whats))
+            print(f"  {label} {dt}: max abs err " + ", ".join(
+                f"{w} {x:.3e}" for w, x in worst.items()) + f"{note}: {ok}")
+            check(ok, f"flash forward, dq or dk/dv {label} {dt} disagree "
+                      f"with their plain versions")
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+        del x32
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving at full width
 # ---------------------------------------------------------------------------
@@ -2065,33 +2136,47 @@ def phase_timings(torch, dev, smi):
     return rows
 
 
-def flash_timings(torch, dev, g, row):
-    """Kernels 7-9 at the seq-1024 training shapes (B=8, H=KV=16, S=1024,
-    d=128, bf16, causal).  ``bound_ms`` counts the work the causal function
-    needs: the (q, k) pairs its mask keeps on this run's positions
-    (S(S+1)/2 per (b, h)), 2*d operations per pair and product; the
-    forward does 2 products, dq 3, dk/dv 4.  ``visited_bound_ms`` is the
-    bound of each kernel's own arithmetic over the 64x64 tiles it visits,
-    all on the bf16 tensor cores (the products of p and dS twice, as hi
-    and lo): the forward q k^T once and P v twice, dq q k^T, dO v^T once
-    and dS k twice, over the tiles of ``visited_k_tiles`` (its 16-row
-    warps); dk/dv K Q^T and V dO^T once and P^T dO, dS^T q twice each over
-    the tiles of ``visited_q_tiles`` (P^T dO only, twice, on a DV_ONLY
-    tile).  Yardsticks: SDPA's forward, and one backward of SDPA for dq
-    and dk/dv together (the same number in both rows), its device-only
-    time captured on the stream its forward ran on."""
+def flash_timings(torch, dev, g, row, B=8, H=16, KV=16, S=1024, d=128,
+                  causal=True, name=None):
+    """Kernels 7-9 in bf16 at B, H:KV, S, d and ``causal``, by default the
+    seq-1024 training shapes (B=8, H=KV=16, S=1024, d=128, causal).
+    ``bound_ms`` counts the work the function needs: the (q, k) pairs its
+    mask keeps on this run's positions (S(S+1)/2 per (b, h) causal, S^2
+    not), 2*d operations per pair and product; the forward does 2
+    products, dq 3, dk/dv 4.  ``visited_bound_ms`` is the bound of each
+    kernel's own arithmetic over the 64x64 tiles it visits, all on the
+    bf16 tensor cores (the products of p and dS twice, as hi and lo): the
+    forward q k^T once and P v twice, dq q k^T, dO v^T once and dS k
+    twice, over the tiles of ``visited_k_tiles`` (its 16-row warps);
+    dk/dv K Q^T and V dO^T once and P^T dO, dS^T q twice each over the
+    tiles of ``visited_q_tiles`` (P^T dO only, twice, on a DV_ONLY tile).
+    Yardsticks: SDPA's forward (``is_causal``, ``enable_gqa`` where KV <
+    H: the same function), and one backward of SDPA for dq and dk/dv
+    together (the same number in both rows), its device-only time
+    captured on the stream its forward ran on.  With ``name`` (a preset's
+    shape) the forward's row also gives SDPA's forward + backward in one
+    call and the kernels' (``flash_attention``'s forward and backward:
+    the forward, delta, dq and dk/dv), eager and device-only (fresh
+    leaves in each call: a graph kept alive from a forward on another
+    stream made the capture fail at hubert's shape, and the calls after
+    that failure ran slower, so both eager times come first)."""
     from repro_torch.kernels import flash_attention as F
-    B, H, S, d = 8, 16, 1024, 128
-    q, k, v, do = (torch.randn(B, H, S, d, generator=g).to(torch.bfloat16)
-                   .to(dev) for _ in range(4))
+    G = H // KV
+    q, do = (torch.randn(B, H, S, d, generator=g).to(torch.bfloat16).to(dev)
+             for _ in range(2))
+    k, v = (torch.randn(B, KV, S, d, generator=g).to(torch.bfloat16).to(dev)
+            for _ in range(2))
     pos = torch.arange(S, dtype=torch.int32, device=dev)
-    st = (d ** -0.5, True, None, None)
+    st = (d ** -0.5, causal, None, None)
     o, lse = F.flash_fwd(q, k, v, pos, pos, *st)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, pos, pos, *st)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = dict(is_causal=causal, enable_gqa=G > 1)
+
+    def sdpa(*x):
+        return torch.nn.functional.scaled_dot_product_attention(*x, **kw)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = sdpa(*leaves, is_causal=True)
+    out = sdpa(*leaves)
 
     def sdpa_bwd():
         return torch.autograd.grad(out, leaves, do, retain_graph=True)
@@ -2102,43 +2187,87 @@ def flash_timings(torch, dev, g, row):
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         side_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out_side = sdpa(*side_leaves, is_causal=True)
+        out_side = sdpa(*side_leaves)
 
     def sdpa_bwd_side():
         return torch.autograd.grad(out_side, side_leaves, do,
                                    retain_graph=True)
     bwd_graph = (sdpa_bwd_side, side)
-    t_in, t_rows = B * H * S * d * 2, B * H * S * 4    # a (B,H,S,d) bf16 tensor
-    pairs = int(F._mask(pos, pos, True, None).sum())   # causal: S(S+1)/2
+    extra = {}
+    if name is not None:
+        def both(attn):
+            def call():             # fresh leaves: no graph kept alive
+                x = [t.detach().requires_grad_() for t in (q, k, v)]
+                return torch.autograd.grad(attn(*x), x, do)
+            return call
+        pair = (("sdpa", both(sdpa)), ("kernels", both(
+            lambda *x: F.flash_attention(*x, pos, pos, *st))))
+        for key, fn in pair:
+            extra[f"{key}_fwd_bwd_ms"] = time_ms(torch, fn, batches=10,
+                                                 per_batch=3, warmup=2)
+        for key, fn in pair:
+            extra[f"{key}_fwd_bwd_device_ms"] = graph_ms(torch, fn, reps=10,
+                                                         per_graph=3)
+    t_q, t_kv = B * H * S * d * 2, B * KV * S * d * 2   # bf16 tensors
+    t_rows = B * H * S * 4
+    # S(S+1)/2 or S^2 (a non-causal mask comes as one broadcast row)
+    pairs = int(F._mask(pos, pos, causal, None).expand(S, S).sum())
     need = 2 * B * H * pairs * d                       # one product, needed
     tile = 2 * B * H * F.TILE ** 2 * d                 # one 64x64 tile product
-    k_tiles = int(F.visited_k_tiles(pos.cpu(), pos.cpu(), True, None).sum()
+    k_tiles = int(F.visited_k_tiles(pos.cpu(), pos.cpu(), causal, None).sum()
                   ) * F.GROUP / F.TILE                 # in 64x64 tiles
-    codes = F.visited_q_tiles(pos.cpu(), pos.cpu(), True, None)
+    codes = F.visited_q_tiles(pos.cpu(), pos.cpu(), causal, None)
     dv_only = int((codes == F.DV_ONLY).sum())
     q_tiles = int((codes > 0).sum())
-    shape = f"B={B} H=KV={H} S={S} d={d} bf16 causal"
+    shape = (f"{name + ' ' if name else ''}B={B} "
+             f"{f'H=KV={H}' if G == 1 else f'H:KV={H}:{KV}'} S={S} d={d} "
+             f"bf16 {'causal' if causal else 'non-causal'}")
     src, ref = ("src/repro_torch/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention.py")
-    all_tiles = (S // F.TILE) ** 2
-    for (name, line, kern, plain, lib, lib_graph, n_in, n_rows, n_prod,
-         tiles, own) in (
+    all_tiles = (-(-S // F.TILE)) ** 2
+    # (name, line, kernel, plain, library, its graph, (B, H, S, d) tensors
+    #  and (B, KV, S, d) ones read or written, f32 rows, products, tiles,
+    #  own tile products)
+    for (kname, line, kern, plain, lib, lib_graph, n_q, n_kv, n_rows,
+         n_prod, tiles, own) in (
             ("flash_fwd", 49, lambda: F.flash_fwd(q, k, v, pos, pos, *st),
              lambda: F.flash_fwd_plain(q, k, v, pos, pos, *st),
-             lambda: sdpa(q, k, v, is_causal=True), None, 4, 1, 2, k_tiles,
+             lambda: sdpa(q, k, v), None, 2, 2, 1, 2, k_tiles,
              3 * k_tiles),
             ("flash_dq", 81, lambda: F.flash_dq(*bwd),
-             lambda: F.flash_dq_plain(*bwd), sdpa_bwd, bwd_graph, 5, 2, 3,
-             k_tiles, 4 * k_tiles),
+             lambda: F.flash_dq_plain(*bwd), sdpa_bwd, bwd_graph, 3, 2, 2,
+             3, k_tiles, 4 * k_tiles),
             ("flash_dkv", 115, lambda: F.flash_dkv(*bwd),
-             lambda: F.flash_dkv_plain(*bwd), sdpa_bwd, bwd_graph, 6, 2, 4,
-             q_tiles, 6 * (q_tiles - dv_only) + 2 * dv_only)):
-        nbytes = n_in * t_in + n_rows * t_rows + 2 * S * 4
-        row(name, src, f"{ref}:{line}", kern, plain, lib, nbytes,
+             lambda: F.flash_dkv_plain(*bwd), sdpa_bwd, bwd_graph, 2, 4, 2,
+             4, q_tiles, 6 * (q_tiles - dv_only) + 2 * dv_only)):
+        nbytes = n_q * t_q + n_kv * t_kv + n_rows * t_rows + 2 * S * 4
+        row(kname, src, f"{ref}:{line}", kern, plain, lib, nbytes,
             n_prod * need, BF16_FLOPS, shape, slow=True,
             library_graph=lib_graph,
             visited_tiles=f"{tiles:g} of {all_tiles}",
-            visited_bound_ms=1e3 * own * tile / BF16_FLOPS)
+            visited_bound_ms=1e3 * own * tile / BF16_FLOPS,
+            **(extra if kname == "flash_fwd" else {}))
+
+
+# The frontend presets' attention at their training shapes, phase 15's
+# batches: hubert-xlarge 8 x 781 frames (non-causal, d = 1280 / 16 = 80)
+# and internvl2-2b 2 x 4096 (causal, GQA 16:8, d=128); phase 2o checks
+# kernels 7-9 there and phase 5 times them:
+# (name, B, H, KV, S, d, causal)
+FRONTEND_FLASH = (("hubert-xlarge", 8, 16, 16, 781, 80, False),
+                  ("internvl2-2b", 2, 16, 8, 4096, 128, True))
+
+
+def frontend_timings(torch, dev, smi):
+    """Phase 5's rows of kernels 7-9 at ``FRONTEND_FLASH`` (``flash_timings``
+    with each preset's name: SDPA's forward + backward beside the
+    kernels')."""
+    g = torch.Generator(device="cpu").manual_seed(98)
+    rows = TimingRows(torch, smi)
+    for name, B, H, KV, S, d, causal in FRONTEND_FLASH:
+        flash_timings(torch, dev, g, rows.add, B, H, KV, S, d, causal, name)
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2169,19 +2298,33 @@ def host_waits(torch, fn) -> list:
 
 def profile_serving(torch, smi, model, cfg, mode, S, B, *, seed=3,
                     decode_steps=8, name=""):
-    """One profiled prefill of B prompts of S tokens and ``decode_steps``
-    profiled decode steps on ``model`` under dispatch ``mode`` (None for a
-    dense model): wall time (host clock to a synchronise), the device time
-    of all kernels, the device's idle share, the top kernels, the launches
-    and the host's waits for the device (none may remain in a forward).
+    """One profiled prefill of B prompts of S tokens (for a frontend
+    config, embeddings fed to the prefill and to each step) and
+    ``decode_steps`` profiled decode steps on ``model`` under dispatch
+    ``mode`` (None for a dense model): wall time (host clock to a
+    synchronise), the device time of all kernels, the device's idle
+    share, the top kernels, the launches and the host's waits for the
+    device (none may remain in a forward).
     ``name`` prefixes the cell's label.  Returns {label: numbers}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.frontend import synthetic_embeddings
     from repro_torch.serving.engine import resolve_decode_config, serve_config
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    prompt = torch.randint(0, cfg.vocab_size, (B, S),
-                           generator=torch.Generator().manual_seed(seed)
-                           ).cuda()
+    if cfg.frontend is None:
+        prompt = torch.randint(0, cfg.vocab_size, (B, S),
+                               generator=torch.Generator().manual_seed(seed)
+                               ).cuda()
+
+        def feed(logits):                   # greedy
+            return logits[:, -1].argmax(-1, keepdim=True)
+    else:                                   # the API: embeddings in
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        prompt = synthetic_embeddings(g, cfg, B, S, device="cuda")
+        x = synthetic_embeddings(g, cfg, B, 1, device="cuda")
+
+        def feed(logits):
+            return x
     c = serve_config(cfg, dispatch=mode)
     dc = resolve_decode_config(c, B)
     cell = f"{name}{mode or 'dense'} prompt {S}"
@@ -2194,8 +2337,7 @@ def profile_serving(torch, smi, model, cfg, mode, S, B, *, seed=3,
         with profile(activities=acts) as pp:
             t0 = time.perf_counter()
             h, _, caches = model.forward(prompt, caches=caches, cfg=c)
-            tok = model.logits_from_hidden(h[:, -1:])[:, -1].argmax(
-                -1, keepdim=True)
+            tok = feed(model.logits_from_hidden(h[:, -1:]))
             torch.cuda.synchronize()
             prefill_wall = 1e3 * (time.perf_counter() - t0)
         model.decode_step(tok, caches, cfg=dc)          # warm decode
@@ -2206,7 +2348,7 @@ def profile_serving(torch, smi, model, cfg, mode, S, B, *, seed=3,
             t0 = time.perf_counter()
             for _ in range(decode_steps):
                 lg, caches = model.decode_step(tok, caches, cfg=dc)
-                tok = lg[:, -1].argmax(-1, keepdim=True)
+                tok = feed(lg)
             torch.cuda.synchronize()
             decode_wall = 1e3 * (time.perf_counter() - t0) / decode_steps
     out = {}
@@ -3301,15 +3443,15 @@ def gate_near_ties(cpu_calls, card_calls):
 def phase_presets_card_vs_cpu(torch, smi):
     """Phase 12, card against CPU at full width in f32, 64 tokens: one
     dbrx-132b ``moe`` block (attention + the MoE FFN, 3.26B weights,
-    13 GB on each side) in both dispatch modes, one llama4 ``dense`` block
-    and the llama4 ``moe`` block's shared expert; each output within 1e-4
+    13 GB on each side) and one llama4 ``moe`` block (attention, 128
+    routed experts and the shared expert, 16.3B weights, 65 GB on each
+    side), each in both dispatch modes, one llama4 ``dense`` block and the
+    llama4 ``moe`` block's shared expert alone; each output within 1e-4
     of its max.  Where a near-tie (within ``TIE_MARGIN`` in the CPU's
     router logits) sends a token elsewhere on the card, the card's block
     is run again with the CPU's routes (``GateTape``) and that run is
-    held to the budget; routes that differ elsewhere fail.  Llama 4's
-    16.1B routed-expert weights (64 GB in f32) are held instead by the
-    phase-2k cases at E=128 and by the CPU parity tests at smoke size.
-    The weights are drawn on the card and copied to the CPU."""
+    held to the budget; routes that differ elsewhere fail.  The weights
+    are drawn on the card and copied to the CPU, one block at a time."""
     from repro_torch import configs, tree
     from repro_torch.kernels import topk_gate as K
     from repro_torch.models import layers
@@ -3318,9 +3460,7 @@ def phase_presets_card_vs_cpu(torch, smi):
     S = 64
     print(f"phase 12 (card vs CPU): host MemAvailable "
           f"{mem_available_gib():.1f} GiB; f32, {S} tokens; tolerance: "
-          f"max|card - cpu| <= 1e-4 * max|cpu|; Llama 4's routed experts "
-          f"(16.1B weights, 64 GB in f32) are held by phase 2k's E=128 "
-          f"cases and the CPU parity tests instead")
+          f"max|card - cpu| <= 1e-4 * max|cpu|")
     gd = torch.Generator(device="cuda").manual_seed(31)
     out = {}
 
@@ -3343,48 +3483,52 @@ def phase_presets_card_vs_cpu(torch, smi):
             y, _, _ = block_forward(p, x, cfg, kind=kind, positions=pos)
         return y.cpu()
 
-    # dbrx: one moe block, both dispatch modes
-    cfg = configs.get_config("dbrx-132b").replace(dtype="float32")
-    t0 = time.perf_counter()
-    p_card = block_params(cfg, "moe")
-    p_cpu = tree.map_(lambda t: t.cpu(), p_card)
-    n = sum(t.numel() for t in tree.leaves(p_cpu))
-    x = torch.randn((1, S, cfg.d_model), generator=gd, device="cuda")
-    print(f"  dbrx moe block: {n / 1e9:.3f}B f32 weights on both devices in "
-          f"{time.perf_counter() - t0:.1f} s")
+    # one moe block of each MoE preset, both dispatch modes
     fused = K.fused_topk_gate
-    for mode in ("grouped", "sort"):
-        c = serve_config(cfg, dispatch=mode)
-        try:
-            K.fused_topk_gate = cpu_tape = GateTape(fused)
-            y_cpu = run_block(p_cpu, x.cpu(), c)
-            K.fused_topk_gate = card_tape = GateTape(fused)
-            reset_counts()
-            y_card = run_block(p_card, x, c)
-            counts = read_counts()
-            ties = gate_near_ties(cpu_tape.calls, card_tape.calls)
-            replay = None
-            if ties:
-                K.fused_topk_gate = GateTape(fused, [i for _, i in
-                                                     cpu_tape.calls])
-                replay = run_block(p_card, x, c)
-        finally:
-            K.fused_topk_gate = fused
-        want = preset_expect(cfg.replace(num_layers=1), mode, S, 1)
-        check(counts == want, f"dbrx block {mode}: launches {counts} != "
-                              f"{want}")
-        worst = max((m for _, m in ties), default=0.0)
-        check(worst <= TIE_MARGIN, f"dbrx block {mode}: routes differ "
-                                   f"beyond a near-tie {ties}")
-        rel = compare(f"dbrx-132b moe block {mode}", y_cpu,
-                      y_card if replay is None else replay,
-                      f"; routes differing {ties} (margin bound "
-                      f"{TIE_MARGIN}){' replayed' if ties else ''}; launches "
-                      f"{counts}")
-        out[f"dbrx moe block {mode}"] = dict(rel=rel, ties=ties,
-                                             launches=counts)
-    del p_card, p_cpu
-    release(torch)
+    for arch, short in (("dbrx-132b", "dbrx"),
+                        ("llama4-maverick-400b-a17b", "llama4")):
+        cfg = configs.get_config(arch).replace(dtype="float32")
+        t0 = time.perf_counter()
+        p_card = block_params(cfg, "moe")
+        p_cpu = tree.map_(lambda t: t.cpu(), p_card)
+        n = sum(t.numel() for t in tree.leaves(p_cpu))
+        x = torch.randn((1, S, cfg.d_model), generator=gd, device="cuda")
+        print(f"  {short} moe block: {n / 1e9:.3f}B f32 weights on both "
+              f"devices in {time.perf_counter() - t0:.1f} s; host "
+              f"MemAvailable {mem_available_gib():.1f} GiB")
+        for mode in ("grouped", "sort"):
+            c = serve_config(cfg, dispatch=mode)
+            try:
+                K.fused_topk_gate = cpu_tape = GateTape(fused)
+                y_cpu = run_block(p_cpu, x.cpu(), c)
+                K.fused_topk_gate = card_tape = GateTape(fused)
+                reset_counts()
+                y_card = run_block(p_card, x, c)
+                counts = read_counts()
+                ties = gate_near_ties(cpu_tape.calls, card_tape.calls)
+                replay = None
+                if ties:
+                    K.fused_topk_gate = GateTape(fused, [i for _, i in
+                                                         cpu_tape.calls])
+                    replay = run_block(p_card, x, c)
+            finally:
+                K.fused_topk_gate = fused
+            want = preset_expect(cfg.replace(block_pattern=("moe",),
+                                             num_layers=1), mode, S, 1)
+            check(counts == want, f"{short} block {mode}: launches {counts} "
+                                  f"!= {want}")
+            worst = max((m for _, m in ties), default=0.0)
+            check(worst <= TIE_MARGIN, f"{short} block {mode}: routes "
+                                       f"differ beyond a near-tie {ties}")
+            rel = compare(f"{arch} moe block {mode}", y_cpu,
+                          y_card if replay is None else replay,
+                          f"; routes differing {ties} (margin bound "
+                          f"{TIE_MARGIN}){' replayed' if ties else ''}; "
+                          f"launches {counts}")
+            out[f"{short} moe block {mode}"] = dict(rel=rel, ties=ties,
+                                                    launches=counts)
+        del p_card, p_cpu
+        release(torch)
     # llama4: one dense block, and the moe block's shared expert
     cfg = configs.get_config("llama4-maverick-400b-a17b").replace(
         dtype="float32")
@@ -3670,8 +3814,6 @@ def phase_windowed_train(torch, smi):
     (``windowed_blocks_card_vs_cpu``) and the training CLI on gemma2's
     smoke config at seq 1024 (the flash path at head dim 32) in a
     subprocess on the card.  Returns (launch totals, results)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs, tree
     from repro_torch.core.config import TrainConfig
     from repro_torch.data.pipeline import SyntheticLM
@@ -3739,44 +3881,56 @@ def phase_windowed_train(torch, smi):
               f"{arch}: a step was skipped")
         for k in counts:
             totals[k] += counts[k]
-        batch = ds.next_batch(steps)
-        waits = host_waits(torch, lambda: step(state, batch, step=steps))
-        print(f"    host waits in one more step (sync debug mode): "
-              f"{len(waits)} {sorted(set(waits))}")
-        check(not waits, f"{arch}: a train step made the host wait: "
-                         f"{waits}")
-        release(torch)
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            step(state, batch, step=steps)
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-        dev_ms = _device_ms(prof, DeviceType)
-        kernels = sorted((e for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA),
-                         key=lambda e: -e.self_device_time_total)
-        print(f"  [{smi}] {arch} profiled step: wall {wall:.3f} ms, device "
-              f"{dev_ms:.3f} ms, idle {1 - dev_ms / wall:.3f}")
-        top = []
-        for e in kernels[:10]:
-            ms = e.self_device_time_total / 1e3
-            top.append((e.key[:90], ms, e.count))
-            print(f"      {ms:8.3f} ms x{e.count:<4d} {e.key[:90]}")
+        waits, prof = profile_train_step(torch, smi, arch, step, state,
+                                         ds.next_batch(steps), steps)
         out[arch] = dict(layers=layers, of_layers=full.num_layers,
                          kinds=kinds, params=n_params,
                          step_ms_median=1e3 * med,
                          step_ms=[1e3 * t for t in times],
                          tokens_per_s=B * S / med, peak_gib=peak,
                          losses=losses, launches=counts,
-                         host_waits=len(waits),
-                         profile=dict(wall_ms=wall, device_ms=dev_ms,
-                                      idle=1 - dev_ms / wall, top=top))
-        del state, step, batch, ds, prof
+                         host_waits=waits, profile=prof)
+        del state, step, ds
         release(torch)
     out["card vs cpu"] = windowed_blocks_card_vs_cpu(torch, smi)
     out["cli"] = windowed_train_cli(smi)
     return totals, out
+
+
+def profile_train_step(torch, smi, label, step, state, batch, index):
+    """One more train step ``step(state, batch, step=index)`` under
+    ``torch.cuda.set_sync_debug_mode`` (``host_waits``: none may remain),
+    then one profiled: wall (host clock to a synchronise), the device
+    time of all kernels, the idle share, the top 10 kernels.  Returns
+    (host waits, profile numbers)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    waits = host_waits(torch, lambda: step(state, batch, step=index))
+    print(f"    host waits in one more step (sync debug mode): "
+          f"{len(waits)} {sorted(set(waits))}")
+    check(not waits, f"{label}: a train step made the host wait: {waits}")
+    release(torch)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, step=index)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    dev_ms = _device_ms(prof, DeviceType)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    print(f"  [{smi}] {label} profiled step: wall {wall:.3f} ms, device "
+          f"{dev_ms:.3f} ms, idle {1 - dev_ms / wall:.3f}")
+    top = []
+    for e in kernels[:10]:
+        ms = e.self_device_time_total / 1e3
+        top.append((e.key[:90], ms, e.count))
+        print(f"      {ms:8.3f} ms x{e.count:<4d} {e.key[:90]}")
+    del prof
+    release(torch)
+    return len(waits), dict(wall_ms=wall, device_ms=dev_ms,
+                            idle=1 - dev_ms / wall, top=top)
 
 
 def windowed_blocks_card_vs_cpu(torch, smi):
@@ -3863,10 +4017,318 @@ def windowed_train_cli(smi):
     return dict(exit=r.returncode, seconds=secs, losses=losses)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the frontend presets, whole
+# ---------------------------------------------------------------------------
+
+# (preset, batch, seq, remat) of the training cells, at the published
+# widths and depths: hubert-xlarge on 781 frames, what the wav2vec 2.0
+# conv stack makes of a 250,000-sample crop (15.6 s at 16 kHz: fairseq's
+# HuBERT pre-training max_sample_size); internvl2-2b at 4096 tokens,
+# InternVL2 fine-tuning's max_seq_length
+FRONTEND_TRAIN = (("hubert-xlarge", 8, 781, "none"),
+                  ("internvl2-2b", 2, 4096, "none"))
+FRONTEND_STEPS = dict(warmup=2, timed=8)
+# internvl2-2b served through the API: 4 prompts of 12 dynamic 448 px
+# tiles and a thumbnail at 256 tokens each (3,328) plus 256 text
+# positions, then embedding-fed decode steps
+FRONTEND_SERVE = dict(batch=4, prompt=3584, steps=64)
+# card against CPU in f32: (preset, layers, seq), batch 1
+FRONTEND_CPU = (("hubert-xlarge", 2, 781), ("internvl2-2b", 2, 640))
+FLASH_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
+ALL_KERNELS = tuple(k for k, _, _ in COUNTERS)
+
+
+def phase_frontends(torch, smi):
+    """Phase 15: the frontend presets whole, at their published widths and
+    depths (f32 masters, bf16 compute, seeded weights and data), trained
+    through ``launch.train.run`` (``FRONTEND_TRAIN``), 2 warm-up + 8 timed
+    AdamW steps: every metric finite, no step skipped, launches exactly
+    the flash forward, dq and dk/dv once per layer and step (hubert's
+    non-causal at d=80) and no other kernel; step ms, tokens/s, peak
+    memory, host waits and one profiled step (``profile_train_step``).
+    Then hubert's inference forward of the same batch to its cluster
+    logits (bf16, ``inference_mode``, the second of two runs), and
+    internvl2 served through the API (``FRONTEND_SERVE``: a prefill into
+    caches, then ``decode_step`` fed (B, 1, d) embeddings; the second of
+    two runs, a profile, 0 host waits).  Then card against CPU in f32
+    (``frontends_card_vs_cpu``).  Returns (launch totals of the training
+    runs, results)."""
+    from repro_torch import configs, tree
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.training.train_step import make_train_step
+    steps = FRONTEND_STEPS["warmup"] + FRONTEND_STEPS["timed"]
+    names = ALL_KERNELS
+    totals = dict.fromkeys(names, 0)
+    print(f"phase 15: the frontend presets whole at published widths, f32 "
+          f"masters + bf16 compute, {FRONTEND_STEPS['warmup']} warm-up + "
+          f"{FRONTEND_STEPS['timed']} timed AdamW steps through "
+          f"launch.train.run: {FRONTEND_TRAIN}")
+    out = {}
+    for arch, B, S, remat in FRONTEND_TRAIN:
+        cfg = configs.get_config(arch)
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        reset_counts()
+        state, history = train.run(arch, steps=steps, batch=B, seq=S,
+                                   smoke=False, seed=0, log_every=steps,
+                                   remat=remat, device="cuda", stats=stats)
+        counts = read_counts(names)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in tree.leaves(state.params))
+        want = dict.fromkeys(names, 0) | dict.fromkeys(
+            FLASH_NAMES, cfg.num_layers * steps)
+        timed = stats["step_s"][FRONTEND_STEPS["warmup"]:]
+        med = statistics.median(timed)
+        losses = [h["loss"] for h in history]
+        label = (f"{arch} ({cfg.num_layers} layers, {n_params / 1e9:.3f}B "
+                 f"parameters, head dim {cfg.head_dim}, "
+                 f"{'non-causal' if cfg.encoder_only else 'causal'}) B={B} "
+                 f"S={S} remat={remat}")
+        print(f"  [{smi}] {label}: median step {1e3 * med:.3f} ms (of "
+              f"{len(timed)} timed; min {1e3 * min(timed):.3f}, max "
+              f"{1e3 * max(timed):.3f}), {B * S / med:.1f} tokens/s, peak "
+              f"memory {peak:.3f} GiB ({peak * 2 ** 30 / n_params:.1f} bytes "
+              f"a parameter), launches {counts}")
+        print(f"    loss trajectory {[round(v, 4) for v in losses]}")
+        check(counts == want, f"{arch}: training launch counts {counts} != "
+                              f"{want} ({steps} steps)")
+        bad = [(h["step"], k) for h in history for k, v in h.items()
+               if not math.isfinite(v)]
+        check(not bad, f"{arch}: non-finite metrics {bad}")
+        check(all(h["skipped"] == 0 for h in history),
+              f"{arch}: a step was skipped")
+        for k in counts:
+            totals[k] += counts[k]
+        # the step train.run ran, for one more step under the sync debug
+        # mode and one profiled
+        tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=max(steps // 10,
+                                                                1),
+                           total_steps=steps, remat=remat, seed=0)
+        ds = SyntheticLM(cfg, B, S, seed=0, device="cuda")
+        batch = ds.next_batch(steps)
+        waits, prof = profile_train_step(torch, smi, arch,
+                                         make_train_step(cfg, tcfg), state,
+                                         batch, steps)
+        out[arch] = dict(layers=cfg.num_layers, params=n_params, batch=B,
+                         seq=S, remat=remat, step_ms_median=1e3 * med,
+                         step_ms=[1e3 * t for t in stats["step_s"]],
+                         tokens_per_s=B * S / med, peak_gib=peak,
+                         bytes_per_param=peak * 2 ** 30 / n_params,
+                         losses=losses, launches=counts, host_waits=waits,
+                         profile=prof,
+                         idle_of_median_step=1 - prof["device_ms"]
+                         / (1e3 * med))
+        print(f"    device {prof['device_ms']:.3f} ms of the median step "
+              f"{1e3 * med:.3f} ms: idle "
+              f"{out[arch]['idle_of_median_step']:.3f} (the profiler slows "
+              f"the host)")
+        params = tree.map_(lambda t: t.detach(), state.params)
+        del state
+        release(torch)
+        if not cfg.has_decode:
+            out[arch]["inference"] = encoder_inference(
+                torch, smi, T.Transformer(cfg, device="cuda", params=params),
+                batch["inputs"])
+        del params, batch, ds
+        release(torch)
+    out["internvl2-2b API"] = serve_frontend(torch, smi, "internvl2-2b")
+    release(torch)
+    out["card vs cpu"] = frontends_card_vs_cpu(torch, smi)
+    return totals, out
+
+
+def encoder_inference(torch, smi, model, inputs):
+    """An encoder-only model's inference forward of ``inputs`` (B, S, d) to
+    its (B, S, V) logits in the compute dtype under ``inference_mode``,
+    twice: finite logits of that shape, the flash forward once per layer
+    past q_chunk, nothing else; the second run's time."""
+    cfg = model.cfg
+    B, S = inputs.shape[:2]
+    runs = []
+    for _ in range(2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            h, _, _ = model.forward(inputs)
+            logits = model.logits_from_hidden(h)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, read_counts(ALL_KERNELS)))
+    ms, counts = 1e3 * runs[1][0], runs[1][1]
+    want = dict.fromkeys(counts, 0) | {
+        "flash_fwd": cfg.num_layers if S > Q_CHUNK else 0}
+    finite = bool(torch.isfinite(logits).all())
+    print(f"  [{smi}] {cfg.name} inference forward B={B} S={S} -> "
+          f"{tuple(logits.shape)} {logits.dtype}: {ms:.3f} ms (first run "
+          f"{1e3 * runs[0][0]:.3f}), {B * S / ms * 1e3:.1f} frames/s, "
+          f"finite={finite}, launches {counts}")
+    check(tuple(logits.shape) == (B, S, cfg.vocab_size) and finite,
+          f"{cfg.name} inference: logits {tuple(logits.shape)}, "
+          f"finite={finite}")
+    check(counts == want, f"{cfg.name} inference: launches {counts} != "
+                          f"{want}")
+    return dict(ms=ms, first_ms=1e3 * runs[0][0], frames_per_s=B * S / ms
+                * 1e3, launches=counts)
+
+
+def serve_frontend(torch, smi, arch):
+    """``arch`` served through the API at ``FRONTEND_SERVE``: weights drawn
+    from seed 0 straight into bf16, a prefill of (B, S, d) embeddings from
+    ``synthetic_embeddings`` into caches of S + steps, then ``steps``
+    ``decode_step``s fed (B, 1, d) embeddings, twice: the flash forward
+    once per layer in the prefill and nothing else, every step's logits
+    finite; the second run's prefill and per-step decode times, the peak
+    memory; then a profiled prefill and decode steps
+    (``profile_serving``, 0 host waits)."""
+    from repro_torch import configs
+    from repro_torch.models.frontend import synthetic_embeddings
+    from repro_torch.models.transformer import Transformer
+    cfg = configs.get_config(arch)
+    B, S, n = (FRONTEND_SERVE[k] for k in ("batch", "prompt", "steps"))
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(cfg, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    prompt = synthetic_embeddings(g, cfg, B, S, device="cuda")
+    feed = [synthetic_embeddings(g, cfg, B, 1, device="cuda")
+            for _ in range(n)]
+    runs = []
+    for _ in range(2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            finite = torch.ones((), dtype=torch.bool, device="cuda")
+            caches = model.init_caches(B, S + n)
+            h, _, caches = model.forward(prompt, caches=caches)
+            finite &= torch.isfinite(model.logits_from_hidden(h[:, -1:])
+                                     ).all()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for x in feed:
+                logits, caches = model.decode_step(x, caches)
+                finite &= torch.isfinite(logits).all()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        runs.append((t1 - t0, (t2 - t1) / n, read_counts(ALL_KERNELS),
+                     bool(finite)))
+    prefill_s, step_s, counts, finite = runs[1]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict.fromkeys(counts, 0) | {"flash_fwd": cfg.num_layers}
+    print(f"  [{smi}] {arch} API: prefill {B} x {S} embeddings "
+          f"{1e3 * prefill_s:.3f} ms (first run {1e3 * runs[0][0]:.3f}), "
+          f"{n} embedding-fed decode steps {1e3 * step_s:.3f} ms/step, "
+          f"{B / step_s:.1f} tokens/s in decode, peak memory {peak:.3f} GiB, "
+          f"finite={finite}, launches {counts}")
+    check(finite and runs[0][3], f"{arch} API: non-finite logits")
+    check(counts == want and runs[0][2] == want,
+          f"{arch} API: launches {counts} != {want}")
+    profile = profile_serving(torch, smi, model, cfg, None, S, B,
+                              name=f"{arch} API ")
+    return dict(prefill_ms=1e3 * prefill_s, decode_ms_per_step=1e3 * step_s,
+                peak_gib=peak, launches=counts, profile=profile)
+
+
+def frontends_card_vs_cpu(torch, smi):
+    """Phase 15, card against CPU in f32 at full width (``FRONTEND_CPU``,
+    batch 1, the weights drawn on the card and copied): hubert-xlarge at 2
+    of 48 layers over 781 frames (the f32 flash kernels at d=80,
+    non-causal) and internvl2-2b at 2 of 24 layers over 640 positions:
+    the logits of a forward (internvl2's through ``Transformer``: a
+    prefill into caches, then 4 embedding-fed decode steps) within 1e-3 of
+    max|logit|; one train step's loss and gradient norm within 1e-4
+    relative and every gradient leaf within 1e-3 of its max (phases 8 and
+    14's limits).  GELU and SwiGLU are smooth, so no activation mask is
+    replayed (phase 8's ReLU masks)."""
+    from repro_torch import configs, tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.frontend import synthetic_embeddings
+    from repro_torch.training.train_step import loss_and_grads
+    print("phase 15 (card vs CPU): f32, batch 1; logits within 1e-3 * "
+          "max|logit|, loss and grad norm 1e-4 relative, each gradient leaf "
+          "within 1e-3 of its max")
+    gd = torch.Generator(device="cuda").manual_seed(151)
+    out = {}
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+    for arch, layers, S in FRONTEND_CPU:
+        cfg = configs.get_config(arch).replace(num_layers=layers,
+                                               dtype="float32")
+        p_card = T.init_params(cfg, gd, device="cuda")
+        batch = SyntheticLM(cfg, 1, S, seed=1, device="cpu").next_batch(0)
+        feed = [synthetic_embeddings(torch.Generator().manual_seed(i), cfg,
+                                     1, 1, dtype=torch.float32)
+                for i in range(4 if cfg.has_decode else 0)]
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p = tree.map_(lambda t: t.detach().to(dev), p_card)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            reset_counts()
+            model = T.Transformer(cfg, device=dev, params=p)
+            with torch.inference_mode():
+                caches = model.init_caches(1, S + len(feed)) \
+                    if feed else None
+                h, _, _ = model.forward(b["inputs"], caches=caches)
+                logits = [model.logits_from_hidden(h).cpu()]
+                for x in feed:
+                    lg, caches = model.decode_step(x.to(dev), caches)
+                    logits.append(lg.cpu())
+            fwd = read_counts(FLASH_NAMES)
+            del model
+            reset_counts()
+            p = tree.map_(lambda t: t.requires_grad_(), p)
+            loss, _, _, grads = loss_and_grads(p, b, cfg)
+            leaves = [g.detach().cpu() for g in tree.leaves(grads)]
+            gnorm = torch.sqrt(sum((g.double() ** 2).sum() for g in leaves))
+            res[dev] = (logits, loss.item(), gnorm.item(), leaves, fwd,
+                        read_counts(FLASH_NAMES))
+            del p, b, grads
+            release(torch)
+        (lc, loss_c, gn_c, gc, _, _), (lg, loss_g, gn_g, gg, fwd, bwd) = (
+            res["cpu"], res["cuda"])
+        logit_rel = max(rel(a, b) for a, b in zip(lg, lc, strict=True))
+        leaf_rel = max(rel(a, b) for a, b in zip(gg, gc, strict=True))
+        loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+        gn_rel = abs(gn_g - gn_c) / gn_c
+        flash = S > Q_CHUNK
+        want_f = dict.fromkeys(FLASH_NAMES, 0) | {
+            "flash_fwd": layers if flash else 0}
+        want_b = dict.fromkeys(FLASH_NAMES, layers if flash else 0)
+        label = (f"{arch} {layers} of {configs.get_config(arch).num_layers}"
+                 f" layers S={S}")
+        print(f"  [{smi}] {label}: logits ({len(lc)} passes: the forward"
+              f"{' and ' + str(len(feed)) + ' decode steps' if feed else ''}"
+              f") max|card - cpu| / max|cpu| {logit_rel:.3e} (tol 1e-3); "
+              f"loss {loss_g:.6f} vs {loss_c:.6f} (rel {loss_rel:.2e}), grad "
+              f"norm {gn_g:.6f} vs {gn_c:.6f} (rel {gn_rel:.2e}) (tol 1e-4); "
+              f"{len(gc)} gradient leaves, max over leaves {leaf_rel:.3e} "
+              f"(tol 1e-3); launches on the card: forward {fwd}, train step "
+              f"{bwd}")
+        check(max(logit_rel, leaf_rel) <= 1e-3
+              and max(loss_rel, gn_rel) <= 1e-4,
+              f"{label}: card and CPU disagree")
+        check(fwd == want_f and bwd == want_b,
+              f"{label}: launches {fwd} / {bwd} != {want_f} / {want_b}")
+        out[label] = dict(logits_rel=logit_rel, loss_rel=loss_rel,
+                          grad_norm_rel=gn_rel, leaf_rel=leaf_rel)
+        del p_card, res
+        release(torch)
+    return out
+
+
 def print_ptxas(report: str, most: int = 24) -> None:
     """Registers and spills of each kernel from the build's ptxas report;
     a source with more than ``most`` instances (the gate's one per k and
-    row layout) as one line: instances, registers at most, spill bytes."""
+    row layout, the flash kernels' one per head dim) as one line:
+    instances, registers at most, spill bytes; then the instances at head
+    dim 80 (hubert-xlarge's, ``<80, ...>`` mangled as ``ILi80E``) on their
+    own."""
     import re
     for block in report.split("== ")[1:]:
         name, _, body = block.partition("\n")
@@ -3888,6 +4350,9 @@ def print_ptxas(report: str, most: int = 24) -> None:
         spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", text))
         print(f"      {len(entries)} kernels: at most {max(regs, default=0)} "
               f"registers, {spill} bytes of spill stores and loads in all")
+        for e in entries:
+            if "ILi80E" in e[0]:
+                print(f"    {e[0]}\n      " + "\n      ".join(e[1:]))
 
 
 T_START = time.perf_counter()
@@ -3904,14 +4369,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one "
                                  "NVIDIA GPU (see the module docstring).")
     ap.add_argument("--phases", choices=("all", "kernels", "trainer",
-                                         "presets"),
+                                         "presets", "frontends"),
                     default="all",
                     help="'kernels': only the build, the kernel checks and "
                          "the kernel timings (phases 1, 2 and 5), for "
                          "working on a kernel; 'trainer': the build and "
                          "phases 9-11 and 14 (remat, resume, gates, the "
                          "windowed presets' training); 'presets': the build "
-                         "and phases 12 and 13; each ends with ok: false")
+                         "and phases 12 and 13; 'frontends': the build, "
+                         "phases 2g-2i, 2o, phase 5's rows at the frontend "
+                         "presets' shapes and phase 15; each ends with ok: "
+                         "false")
     phases = ap.parse_args(argv).phases
     import torch
     if not torch.cuda.is_available():
@@ -3950,6 +4418,15 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": False,
                           "partial": "phases 1, 9-11 and 14 only"}))
         return 0
+    if phases == "frontends":
+        errs = phase_flash_kernels(torch, dev)
+        phase_flash_frontends(torch, dev, errs)
+        frontend_timings(torch, dev, smi)
+        print(json.dumps({"frontends": phase_frontends(torch, smi)[1]}))
+        print(smi)
+        print(json.dumps({"ok": False, "partial": "phases 1, 2g-2i, 2o, "
+                                                  "5 (frontend rows), 15"}))
+        return 0
     if phases == "presets":
         print(json.dumps({"presets": phase_presets(torch, smi)[1]}))
         release(torch)
@@ -3971,6 +4448,8 @@ def main(argv=None) -> int:
     stamp("phase 2m")
     wide_rows += phase_flash_wide_bwd(torch, dev, smi, errs)
     stamp("phase 2n")
+    phase_flash_frontends(torch, dev, errs)
+    stamp("phase 2o")
     if phases == "kernels":
         phase_timings(torch, dev, smi)
         print(smi)
@@ -4001,7 +4480,12 @@ def main(argv=None) -> int:
     wtrain_counts, wtrain = phase_windowed_train(torch, smi)
     print(json.dumps({"windowed_train": wtrain}))
     stamp("phase 14")
-    rows = phase_timings(torch, dev, smi) + preset_rows + wide_rows
+    release(torch)
+    front_counts, front = phase_frontends(torch, smi)
+    print(json.dumps({"frontends": front}))
+    stamp("phase 15")
+    rows = (phase_timings(torch, dev, smi) + frontend_timings(torch, dev, smi)
+            + preset_rows + wide_rows)
     stamp("phase 5")
     profile = phase_profile(torch, smi)
     profile.update(phase_profile_train(torch, smi))
@@ -4030,6 +4514,12 @@ def main(argv=None) -> int:
         if r["name"] + "_wide" in errs:
             # phases 2l-2n: head dims 120 and 256, f32 and bf16
             kernels[-1]["max_abs_err_windowed"] = errs[r["name"] + "_wide"]
+        if front_counts.get(r["name"]):
+            kernels[-1]["launches_frontends_train"] = front_counts[r["name"]]
+        if r["name"] + "_frontends" in errs:
+            # phase 2o: the frontend presets' training shapes
+            kernels[-1]["max_abs_err_frontends"] = errs[
+                r["name"] + "_frontends"]
         if r["name"] == "gather_rows_rowstep":
             kernels[-1]["path"] = ("benchmark baseline (bench_layout), not "
                                    "on a serving or training path")
@@ -4047,6 +4537,9 @@ def main(argv=None) -> int:
                                               "flash_dkv")),
           f"a flash kernel was not launched in the windowed presets' "
           f"training: {wtrain_counts}")
+    check(all(front_counts[k] > 0 for k in FLASH_NAMES),
+          f"a flash kernel was not launched in the frontend presets' "
+          f"training: {front_counts}")
     print(json.dumps({"serving": serving, "serving_launches": serve_counts,
                       "training": training, "train_grads_card_vs_cpu": grads,
                       "remat": remat, "resume": resume, "gates": gates,
@@ -4055,6 +4548,7 @@ def main(argv=None) -> int:
                       "windowed_launches": windowed_counts,
                       "windowed_train": wtrain,
                       "windowed_train_launches": wtrain_counts,
+                      "frontends": front, "frontends_launches": front_counts,
                       "timings": rows, "profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

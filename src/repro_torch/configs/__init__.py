@@ -14,13 +14,16 @@ from repro_torch.configs.dbrx_132b import CONFIG as _dbrx
 from repro_torch.configs.gemma2_9b import CONFIG as _gemma2
 from repro_torch.configs.h2o_danube_3_4b import CONFIG as _danube
 from repro_torch.configs.hetumoe_paper_16e import CONFIG as _paper
+from repro_torch.configs.hubert_xlarge import CONFIG as _hubert
+from repro_torch.configs.internvl2_2b import CONFIG as _internvl
 from repro_torch.configs.llama4_maverick_400b_a17b import CONFIG as _llama4
 from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder
 from repro_torch.configs.yi_6b import CONFIG as _yi
 from repro_torch.core.config import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (
-    _danube, _yi, _llama4, _dbrx, _gemma2, _starcoder, _paper)}
+    _danube, _yi, _llama4, _dbrx, _internvl, _gemma2, _hubert, _starcoder,
+    _paper)}
 
 
 def get_config(arch: str) -> ModelConfig:

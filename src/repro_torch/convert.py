@@ -30,7 +30,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core.config import ModelConfig
-from repro_torch.models.transformer import _check_supported
+from repro_torch.models.transformer import _check_supported, untied_head
 from repro_torch.training.train_step import TrainState
 
 
@@ -68,12 +68,24 @@ def _expected_shapes(cfg: ModelConfig) -> Dict[Tuple, Tuple[int, ...]]:
     slot ``j``'s leaves under ``("blocks", j, ...)``, stacked over the
     super-blocks ``(nsb, ...)``."""
     d, nsb = cfg.d_model, cfg.num_super_blocks
-    out = {("final_norm",): (d,), ("embed",): (cfg.vocab_size, d)}
-    if not cfg.tie_embeddings:
-        out[("lm_head",)] = (d, cfg.vocab_size)
+    out = {("final_norm",): (d,)}
+    out.update(_top_shapes(cfg))
     for j, kind in enumerate(cfg.block_pattern):
         for path, shape in _block_shapes(cfg, kind).items():
             out[("blocks", j) + path] = (nsb,) + shape
+    return out
+
+
+def _top_shapes(cfg: ModelConfig) -> Dict[Tuple, Tuple[int, ...]]:
+    """The embedding table (none for a frontend config) and the head
+    (an untied config's, always a frontend's), as the reference's
+    ``init_model`` keeps them."""
+    d, V = cfg.d_model, cfg.vocab_size
+    out = {}
+    if cfg.frontend is None:
+        out[("embed",)] = (V, d)
+    if untied_head(cfg):
+        out[("lm_head",)] = (d, V)
     return out
 
 
@@ -125,10 +137,8 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig
                 else:
                     layer.setdefault(rest[0], {})[rest[1]] = t(path, s)
             blocks.append(layer)
-    out = {"blocks": blocks, "final_norm": t(("final_norm",)),
-           "embed": t(("embed",))}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = t(("lm_head",))
+    out = {"blocks": blocks, "final_norm": t(("final_norm",))}
+    out.update({p[0]: t(p) for p in _top_shapes(cfg)})
     return out
 
 
@@ -162,10 +172,8 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
         blocks.append({k: ({kk: stack(j, k, kk) for kk in v}
                            if isinstance(v, dict) else stack(j, k))
                        for k, v in layer.items()})
-    out = {"blocks": tuple(blocks), "final_norm": a(params["final_norm"]),
-           "embed": a(params["embed"])}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = a(params["lm_head"])
+    out = {"blocks": tuple(blocks), "final_norm": a(params["final_norm"])}
+    out.update({p[0]: a(params[p[0]]) for p in _top_shapes(cfg)})
     return out
 
 

@@ -5,7 +5,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
       --batch 4 --prompt-len 8064 --gen 128
 
-Every registered preset serves (``configs.ARCHS``); a windowed one
+Every registered preset with token inputs serves (``configs.ARCHS``);
+the frontend presets (``hubert-xlarge``, encoder-only, and
+``internvl2-2b``) are refused, as the reference's entry point refuses them:
+``internvl2-2b`` is served through the API (``serving.engine
+.refuse_frontend``).  A windowed one
 (``h2o-danube-3-4b``, ``gemma2-9b``'s local layers) decodes through ring
 caches of its window's length.  Runs on the GPU unless ``--device cpu``
 is given.  The weights are drawn from a ``torch.Generator`` seeded with
@@ -29,7 +33,8 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.models.transformer import Transformer
-from repro_torch.serving.engine import generate, serve_config, validate_dispatch
+from repro_torch.serving.engine import (generate, refuse_frontend,
+                                        serve_config, validate_dispatch)
 
 
 def dispatch_cli_arg(name: str) -> str:
@@ -58,6 +63,7 @@ def run(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
     cfg = configs.smoke_config(arch) if smoke else configs.get_config(arch)
     if not cfg.has_decode:
         raise ValueError(f"{arch} is encoder-only")
+    refuse_frontend(cfg)
     cfg = serve_config(cfg, dispatch=dispatch)
     dev = resolve_device(device)
     moe = (f"dispatch={cfg.moe.dispatch} "

@@ -11,7 +11,12 @@ super-blocks.  A layer's attention window is :func:`block_window`'s: the
 config's ``attention.window`` (``attn``, ``dense``, ``moe``),
 ``local_window`` (``local``, and ``global`` with ``long_context``), else
 none; a windowed layer's cache is a ring of the window's length once the
-requested cache is longer.  The recurrent kinds and frontends raise.
+requested cache is longer.  The recurrent kinds raise.
+
+A frontend config (``cfg.frontend``: ``hubert-xlarge``'s audio,
+``internvl2-2b``'s vision) takes (B, S, d) embeddings in place of token
+ids (``models/frontend.py``), as the reference's ``_embed_inputs`` does:
+its tree holds no ``embed`` table, and always an untied ``lm_head``.
 
 Parameters are a tree of f32 tensors in the reference's layout, with the
 ``(nsb, ...)`` stacked block leaves split per layer
@@ -57,9 +62,6 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: block kinds {unported} of {cfg.block_pattern} are "
             f"not ported to repro_torch yet; ported: {BLOCK_KINDS} "
             f"(ROADMAP.md)")
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: frontends are not ported yet (ROADMAP.md)")
 
 
 def block_window(kind: str, cfg: ModelConfig,
@@ -111,20 +113,40 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device=None, dtype=torch.float32) -> Dict[str, Any]:
     """Random parameters in the port's tree layout, drawn in a fixed order
     from ``generator``, layer by layer (:func:`init_block`), then the
-    embeddings.  With ``dtype`` each leaf is cast right after its draw
-    (the f32 leaves excepted): the same values as the f32 tree cast
+    embedding table (none for a frontend config) and the head (untied,
+    or a frontend's).  With ``dtype`` each leaf is cast right after its
+    draw (the f32 leaves excepted): the same values as the f32 tree cast
     afterwards, with one f32 leaf alive at a time."""
     _check_supported(cfg)
     d = cfg.d_model
     kw = dict(device=device, dtype=dtype)
     params = {"blocks": [init_block(cfg, kind, generator, **kw)
                          for kind in layer_kinds(cfg)],
-              "final_norm": torch.zeros((d,), device=device),
-              "embed": draw(generator, (cfg.vocab_size, d), d ** -0.5, **kw)}
-    if not cfg.tie_embeddings:
+              "final_norm": torch.zeros((d,), device=device)}
+    if cfg.frontend is None:
+        params["embed"] = draw(generator, (cfg.vocab_size, d), d ** -0.5,
+                               **kw)
+    if untied_head(cfg):
         params["lm_head"] = draw(generator, (d, cfg.vocab_size), d ** -0.5,
                                  **kw)
     return params
+
+
+def untied_head(cfg: ModelConfig) -> bool:
+    """Whether the tree holds an ``lm_head``: an untied config's, and
+    always a frontend's, which has no table to tie it to."""
+    return not cfg.tie_embeddings or cfg.frontend is not None
+
+
+def embed_inputs(params: Dict[str, Any], cfg: ModelConfig,
+                 inputs: torch.Tensor, dtype) -> torch.Tensor:
+    """The reference's ``_embed_inputs`` on one device: token ids (B, S)
+    through the table, or a frontend's precomputed (B, S, d) embeddings
+    cast to ``dtype``."""
+    if cfg.frontend is not None:
+        return inputs.to(dtype)
+    return layers.embed(params["embed"], inputs, dtype,
+                        cfg.scale_embeddings)
 
 
 def _leaf(name: str, t: torch.Tensor, dtype, device) -> nn.Parameter:
@@ -194,7 +216,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     """Full-sequence pass (training, prefill) over a parameter tree — the
     f32 masters, or a :class:`Transformer`'s compute-dtype copy — with
     every weight cast to ``cfg.dtype`` at its use, as the reference's
-    ``forward``.  tokens (B, S) → (hidden (B, S, d), aux, caches);
+    ``forward``.  tokens (B, S) — or a frontend's (B, S, d) embeddings —
+    → (hidden (B, S, d), aux, caches);
     ``caches`` (one per layer) are filled in place.  ``long_context``
     caps the ``global`` layers to ``local_window`` (:func:`block_window`).
 
@@ -221,12 +244,12 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
         raise ValueError("remat recomputes blocks in a backward; a pass "
                          "that fills caches has none")
     dtype = getattr(torch, cfg.dtype)
-    x = layers.embed(params["embed"], tokens, dtype, cfg.scale_embeddings)
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=x.device)
+    x = embed_inputs(params, cfg, tokens, dtype)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
     if noise is None and noisy(cfg):
         gen = torch.Generator(device=x.device).manual_seed(0)
-        noise = draw_gate_noise(cfg, tokens.numel(), gen, x.device)
+        noise = draw_gate_noise(cfg, B * S, gen, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (p, kind) in enumerate(zip(params["blocks"], layer_kinds(cfg),
                                       strict=True)):
@@ -255,7 +278,7 @@ def _remat_block(p, x, positions, noise, cfg, kind, long_context):
 def logits_from_hidden(params: Dict[str, Any], cfg: ModelConfig,
                        h: torch.Tensor) -> torch.Tensor:
     """The unembedding in ``h``'s dtype (the head cast at its use)."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = params["lm_head"] if untied_head(cfg) else params["embed"].T
     logits = h @ w.to(h.dtype)
     if cfg.final_softcap:
         logits = layers.softcap(logits.float(), cfg.final_softcap)
@@ -311,10 +334,11 @@ class Transformer(nn.Module):
             Block(p, self.dtype, self.device) for p in params["blocks"])
         self.final_norm = _leaf("final_norm", params["final_norm"],
                                 self.dtype, self.device)
-        self.embed = _leaf("embed", params["embed"], self.dtype, self.device)
-        self.lm_head = (None if cfg.tie_embeddings else
-                        _leaf("lm_head", params["lm_head"], self.dtype,
-                              self.device))
+        self.embed = (None if cfg.frontend is not None else
+                      _leaf("embed", params["embed"], self.dtype,
+                            self.device))
+        self.lm_head = (_leaf("lm_head", params["lm_head"], self.dtype,
+                              self.device) if untied_head(cfg) else None)
 
     def init_caches(self, batch: int, cache_len: int, *,
                     long_context: bool = False) -> List[Dict[str, Any]]:
@@ -334,9 +358,10 @@ class Transformer(nn.Module):
                 cfg: Optional[ModelConfig] = None,
                 long_context: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
-        """Full-sequence pass (prefill).  tokens (B, S) → (hidden (B,S,d),
-        aux_loss, caches); ``caches`` from :meth:`init_caches` are filled in
-        place.  ``cfg`` overrides the served config (e.g. its dispatch)."""
+        """Full-sequence pass (prefill).  tokens (B, S), or a frontend's
+        (B, S, d) embeddings → (hidden (B,S,d), aux_loss, caches);
+        ``caches`` from :meth:`init_caches` are filled in place.  ``cfg``
+        overrides the served config (e.g. its dispatch)."""
         tree = {"blocks": [blk.tree() for blk in self.blocks],
                 "final_norm": self.final_norm, "embed": self.embed}
         return forward(tree, tokens, cfg or self.cfg, caches=caches,
@@ -349,14 +374,15 @@ class Transformer(nn.Module):
     def decode_step(self, token: torch.Tensor, caches,
                     cfg: Optional[ModelConfig] = None, *,
                     long_context: bool = False):
-        """One-token serve step: token (B, 1) → (logits (B, 1, V), caches),
-        the caches updated in place."""
+        """One-token serve step: token (B, 1), or a frontend's (B, 1, d)
+        embeddings → (logits (B, 1, V), caches), the caches updated in
+        place."""
         cfg = cfg or self.cfg
-        x = layers.embed(self.embed, token, self.dtype, cfg.scale_embeddings)
+        x = embed_inputs({"embed": self.embed}, cfg, token, self.dtype)
         noise = None
         if noisy(cfg):                      # as forward: a seed-0 draw
             gen = torch.Generator(device=x.device).manual_seed(0)
-            noise = draw_gate_noise(cfg, token.numel(), gen, x.device)
+            noise = draw_gate_noise(cfg, x.shape[0], gen, x.device)
         for i, (blk, cache, kind) in enumerate(zip(
                 self.blocks, caches, layer_kinds(cfg), strict=True)):
             x, _, _ = block_forward(blk.tree(), x, cfg, kind=kind,

@@ -5,6 +5,8 @@
 PyTorch runs eagerly, so there is no step-builder cache or retrace probe
 here (a CUDA-graph step cache comes in a later slice, with ``SlotServer``
 and the fault seam).  ``generate`` runs under ``torch.inference_mode()``.
+It takes token prompts: a frontend preset is served through the API
+(:func:`refuse_frontend`).
 """
 from __future__ import annotations
 
@@ -61,6 +63,19 @@ def validate_decode_config(cfg: ModelConfig, batch: int, *,
         moe_lib.validate_dispatch_config(cfg.moe, tokens_per_shard=batch)
 
 
+def refuse_frontend(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a frontend config (audio, vision), which
+    takes embeddings, not the token prompts ``generate`` samples from;
+    the reference's serving entry point refuses it the same way."""
+    if cfg.frontend is not None:
+        raise ValueError(
+            f"{cfg.name}: a {cfg.frontend} frontend takes (B, S, d) "
+            f"embeddings, not token prompts; serve it through the API: "
+            f"Transformer.forward(embeddings, caches=model.init_caches(B, "
+            f"L)), then Transformer.decode_step fed (B, 1, d) embeddings "
+            f"(models/frontend.synthetic_embeddings)")
+
+
 def resolve_decode_config(cfg: ModelConfig, batch: int) -> ModelConfig:
     """The decode-step config: ``"auto"`` MoE knobs resolved at the decode
     batch's token count (one token per row)."""
@@ -96,6 +111,7 @@ def generate(model, prompt: torch.Tensor, *, steps: int,
     B, S = prompt.shape[:2]
     cache_len = cache_len or (S + steps)
     validate_decode_config(cfg, B, cache_len=cache_len)
+    refuse_frontend(cfg)
     step_cfg = resolve_decode_config(cfg, B)
     prompt = prompt.to(model.device)
     t0 = time.perf_counter()

@@ -33,6 +33,7 @@ the same index into its rng), so drawing never waits for the device.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -202,8 +203,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     f"noise=")
             dev = batch["inputs"].device
             gen = noise_generator(tcfg, step, dev)
-            noise = [T.draw_gate_noise(cfg, mb["inputs"].numel(), gen, dev)
-                     for mb in parts]
+            # one row per token: B·S, for token ids and embeddings alike
+            noise = [T.draw_gate_noise(
+                cfg, math.prod(mb["inputs"].shape[:2]), gen, dev)
+                for mb in parts]
         kw = dict(remat=tcfg.remat, faults=faults, step=state.step)
         loss, ce, aux, grads = loss_and_grads(
             state.params, parts[0], cfg, scale,

@@ -53,8 +53,10 @@ CASES = [
      None, True),
 ]
 IDS = [c[0] for c in CASES]
-# head dims 120 (h2o-danube3) and 256 (gemma2), with the masks and the cap
-# those presets serve and train with
+# head dims 120 (h2o-danube3), 256 (gemma2) and 80 (hubert-xlarge), with
+# the masks and the cap those presets serve and train with: hubert's
+# attention is non-causal, and its 781 frames leave a last tile of 13 rows
+# (77 = 64 + 13 here)
 WIDE_CASES = [
     ("d=120 causal", 1, 4, 2, 80, 80, 120, True, None, None, False),
     ("d=120 window16", 1, 8, 2, 96, 96, 120, True, 16, None, False),
@@ -63,6 +65,8 @@ WIDE_CASES = [
     ("d=256 causal", 1, 4, 2, 80, 80, 256, True, None, None, False),
     ("d=256 window16 cap50", 1, 4, 2, 96, 96, 256, True, 16, 50.0, False),
     ("d=256 cap50", 2, 4, 2, 64, 64, 256, True, None, 50.0, False),
+    ("d=80 noncausal, ragged S=77, -1 slots", 2, 4, 4, 77, 77, 80, False,
+     None, None, True),
 ]
 FWD_CASES = CASES + WIDE_CASES
 FWD_IDS = [c[0] for c in FWD_CASES]
@@ -170,7 +174,7 @@ def test_forward_matches_reference(case, dtype):
     """o and lse of ``flash_fwd`` (the plain version on a CPU tensor)
     against the Pallas forward; lse is f32 on both sides (rtol 1e-5 /
     atol 2e-5 for either dtype, as its inputs are the same).  In bf16 the
-    head dims 120 and 256 (``WIDE_CASES``, forward only) add the f32
+    head dims 120, 256 and 80 (``WIDE_CASES``) add the f32
     summation-order bound of ``_fwd_slack`` to the 1 ulp."""
     (jq, jk, jv, _), (tq, tk, tv, _), (jqp, jkp, tqp, tkp), st = _inputs(
         case, dtype)
@@ -191,7 +195,7 @@ def test_backward_matches_reference(case, dtype):
     then the dq and dk/dv plain versions) against ``jax.vjp`` of the
     reference's ``flash_attention`` with the same cotangent: f32 at rtol
     1e-5 / atol 2e-5; bf16 within 1 ulp plus ``_bwd_slack``, whose Δ
-    term at head dims 120 and 256 (``WIDE_CASES``) also carries the
+    term at head dims 120, 256 and 80 (``WIDE_CASES``) also carries the
     forward's ``_fwd_slack`` (the two sides' o differ by that beyond 1
     ulp, as ``test_forward_matches_reference`` holds them)."""
     (jq, jk, jv, jdo), (tq, tk, tv, tdo), (jqp, jkp, tqp, tkp), st = \
