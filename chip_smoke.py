@@ -34,9 +34,14 @@ Phases, in order; any failure ends the script with a non-zero exit:
 3. Serving at full width: ``hetumoe-paper-16e`` (bf16, seeded random
    weights) through ``repro_torch.launch.serve.run`` → ``generate``, batch 8,
    32 new tokens: prompt 512 with ``grouped`` and with ``sort`` dispatch,
-   and prompt 1024 (the flash forward) with ``grouped``; the kernels'
-   launch counters must rise by what the path implies (the flash forward
-   once per layer in a prefill past 512 tokens, never in a decode step).
+   and prompt 1024 (the flash forward) with ``grouped``; the decode steps
+   are replays of one captured CUDA graph (``engine.build_decode``); the
+   kernels' launch counters must rise by what the path implies (the
+   capture's eager warm-up step included; the flash forward once per
+   layer in a prefill past 512 tokens, never in a decode step).  Then per
+   cell, on the same prefilled caches, the graph step against the eager
+   one (``decode_graph_vs_eager``): logits bitwise equal, wall and device
+   ms, idle share and launches a step of each.
 4. Card against CPU at full width: the same f32 weights, batch 1, prompts
    of 64 and 600 tokens (the flash path), prefill last-token logits from
    the card (kernels) and the CPU (plain versions), both dispatch modes.
@@ -104,9 +109,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    (per MoE layer per forward the gate 1, the gather 1 or 2, the grouped
    matmul 3 and the scatter-add 1 in grouped; dense presets none of
    these; the flash forward once per layer past 512), greedy tokens equal
-   over the two runs, finite logits; prefill and decode times, tokens/s, the peak memory of
-   the init and of serving; one profiled prefill and decode steps per
-   preset (0 host waits).  Then card against CPU in f32 at full width, 64
+   over the two runs, finite logits, one decode capture in the first run
+   and none in the second (its warm-up step in the counts); prefill and
+   decode times, tokens/s, the peak memory of the init and of serving; one
+   profiled prefill and decode steps per preset (0 host waits), and the
+   graph step against the eager one at prompt 1024.  Then card against
+   CPU in f32 at full width, 64
    tokens: one dbrx ``moe`` block and one llama4 ``moe`` block (128
    routed experts and the shared expert, 65 GB of f32 weights on each
    side) in both dispatch modes (routes that differ must be near-ties,
@@ -128,10 +136,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
    128 new tokens (the prefill overflows the 4096-slot ring caches) and
    4064 + 64 (the rings wrap at decode step 32), two runs per cell: the
    flash forward once per layer per prefill and no other kernel, greedy
-   tokens equal over the two runs, finite logits; prefill and decode
-   times, tokens/s, the peak memory of the init and of serving; one
-   profiled prefill and decode steps per preset (0 host waits).  Then
-   danube's decode through its ring caches against linear caches of the
+   tokens equal over the two runs, finite logits, one decode capture in
+   the first run and none in the second; prefill and decode times,
+   tokens/s, the peak memory of the init and of serving; one profiled
+   prefill and decode steps per preset (0 host waits) and the graph step
+   against the eager one at prompt 8064.  Then danube's decode through its ring caches against linear caches of the
    full length under the same window, teacher-forced (logits within
    ``RING_BOUND`` of their max, differing greedy choices only at
    near-ties within it), and card against CPU in f32 at prompt 640 (the
@@ -178,15 +187,30 @@ Phases, in order; any failure ends the script with a non-zero exit:
    and 4 embedding-fed decode steps): logits within 1e-3 of their max,
    loss and grad norm 1e-4 relative, every gradient leaf within 1e-3 of
    its max.  Phases 2o and 5 hold and time kernels 7-9 at these shapes.
+16. The serving path at full width: ``SlotServer`` (8 slots, caches of
+   1088, grouped, a queue of 32) over ``hetumoe-paper-16e`` (bf16, seed
+   0) replays ``benchmarks/bench_traffic.py``'s three scenarios (poisson
+   rate 0.4 seed 7; bursty 6 every 8 steps seed 11; that one over a
+   router skewed to expert 0 by 16) at 24 requests of prompts 256, 512
+   and 1024 and budgets 16, 32 and 64, twice each (statuses, decode steps
+   and tokens equal), the bursty one once more through the eager step
+   (tokens equal); 8 prompts of 512 filling every slot, clean and under
+   ``serve.decode_row:nan@1`` (exactly one request fails, the others'
+   tokens unchanged); ``dbrx-132b`` at 2 of 40 layers replays the skewed
+   scenario twice.  Every request ends ``ok`` without a plan, every
+   replay's launches are what its prefills, decode steps and capture
+   imply, each ``TrafficReport`` is printed whole, with the idle share of
+   a profiled stretch of 16 busy decode steps and the peak memory.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all ten kernels; the row-per-step gather, on no
 serving or training path, with the launches of its phase-5 run), and
 ``{"ok": true, "device": {...}}``.  ``--phases kernels`` runs phases 1, 2
 and 5 only, for work on a kernel, ``--phases trainer`` phases 1, 9-11
-and 14, ``--phases presets`` phases 1, 12 and 13, and ``--phases
+and 14, ``--phases presets`` phases 1, 12 and 13, ``--phases
 frontends`` phases 1, 2g-2i, 2o, phase 5's rows at the frontend presets'
-shapes and 15; each ends with ``"ok": false``.  The script
+shapes and 15, and ``--phases serving`` phases 1, 3 and 16; each ends
+with ``"ok": false``.  The script
 imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -1836,16 +1860,125 @@ def read_counts(names=None):
             for k, mod, attr in COUNTERS if k in names}
 
 
+def decode_captures() -> int:
+    """Decode steps captured (built, where no graph) since the step cache
+    was last cleared: each capture runs one eager warm-up step first."""
+    from repro_torch.serving import engine
+    return sum(n for k, n in engine.trace_counts.items() if k[0] == "decode")
+
+
+# decode steps of the graph-against-eager comparison: checked one by one,
+# then timed (and profiled) per form
+GRAPH_CHECK_STEPS, GRAPH_TIMED_STEPS = 4, 8
+
+
+def decode_graph_vs_eager(torch, smi, model, cfg, B: int, S: int,
+                          label: str, *, seed: int = 5) -> dict:
+    """The decode step captured in a CUDA graph (``engine.build_decode``)
+    against the eager step (``engine.make_serve_step``) on the same
+    prefilled caches: B prompts of S tokens prefilled into the graph
+    step's caches, then ``GRAPH_CHECK_STEPS`` steps each run by the graph,
+    the position stepped back, and run again eagerly from the same state
+    (the eager step rewrites the slot the graph wrote, with its own k and
+    v): the logits must be bitwise equal, since both run the same kernels
+    in the same order (else within one bf16 ulp of max|logit| with equal
+    greedy tokens, reported as not bitwise).  Then ``GRAPH_TIMED_STEPS``
+    greedy steps of each form timed (host clock to a synchronise) and as
+    many profiled: device ms, idle share, kernel launches and graph
+    launches per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import engine
+    n, m = GRAPH_CHECK_STEPS, GRAPH_TIMED_STEPS
+    cache_len = S + n + 4 * m + 1
+    prompt = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(seed))
+    prefill = engine.build_prefill(model, cfg, cache_len=cache_len, batch=B)
+    out = dict(bitwise=True, max_abs_diff=0.0, greedy_equal=True)
+    with torch.inference_mode(), engine.holding_decode(
+            model, cfg, batch=B, cache_len=cache_len) as step:
+        check(step.graph is not None,
+              f"{label}: the decode step is not a graph")
+        eager = engine.make_serve_step(step.cfg)
+        step.reset()
+        logits, _ = prefill(prompt, step.caches)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        for _ in range(n):
+            lg_g = step(tok).clone()
+            for c in step.caches:
+                c["pos"].sub_(1)
+            lg_e, _ = eager(model, tok, step.caches)
+            if not torch.equal(lg_g, lg_e):
+                out["bitwise"] = False
+                diff = (lg_g.float() - lg_e.float()).abs().max().item()
+                out["max_abs_diff"] = max(out["max_abs_diff"], diff)
+                ulp = bf16_ulp(torch, lg_e.float().abs().max()).item()
+                out["greedy_equal"] &= torch.equal(lg_g.argmax(-1),
+                                                   lg_e.argmax(-1))
+                check(diff <= ulp and out["greedy_equal"],
+                      f"{label}: graph and eager decode logits differ by "
+                      f"{diff:.4e} (one bf16 ulp of the max: {ulp:.4e})")
+            tok = lg_e[:, -1].argmax(-1, keepdim=True)
+
+        def run(fn):
+            nonlocal tok
+            for _ in range(m):
+                tok = fn(tok)[:, -1].argmax(-1, keepdim=True)
+
+        forms = (("graph", lambda t: step(t)),
+                 ("eager", lambda t: eager(model, t, step.caches)[0]))
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        for name, fn in forms:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(fn)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / m
+            with profile(activities=acts) as prof:
+                run(fn)
+                torch.cuda.synchronize()
+            dev_ms = _device_ms(prof, DeviceType) / m
+            host = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CPU]
+            out[name] = dict(
+                wall_ms=wall, device_ms=dev_ms, idle=1 - dev_ms / wall,
+                kernel_launches=sum(e.count for e in host
+                                    if "LaunchKernel" in e.key) / m,
+                graph_launches=sum(e.count for e in host
+                                   if e.key == "cudaGraphLaunch") / m)
+    g, e = out["graph"], out["eager"]
+    print(f"  [{smi}] {label} decode step, batch {B} after {S} tokens: "
+          f"graph {g['wall_ms']:.3f} ms wall / {g['device_ms']:.3f} device "
+          f"(idle {g['idle']:.3f}; a step: graph launches "
+          f"{g['graph_launches']:g}, kernel launches "
+          f"{g['kernel_launches']:g}, the argmax between steps included), "
+          f"eager {e['wall_ms']:.3f} / "
+          f"{e['device_ms']:.3f} (idle {e['idle']:.3f}; "
+          f"{e['kernel_launches']:g} kernel launches); logits of {n} steps "
+          f"bitwise equal={out['bitwise']} (max|diff| "
+          f"{out['max_abs_diff']:.4e})")
+    check(g["graph_launches"] == 1,
+          f"{label}: {g['graph_launches']} graph launches a step")
+    return out
+
+
 def phase_serve(torch, smi):
     """Serving at batch 8 and 32 new tokens: prompt 512 in both dispatch
     modes (the chunk-free ``_attend`` path, no flash launch) and prompt
     1024 grouped (the flash forward, 2 launches in the prefill, none in a
-    decode step)."""
+    decode step).  Each ``serve.run`` draws its model, so its ``generate``
+    captures the decode step once: one eager warm-up step, which really
+    launches the kernels, then the graph's replays, each of which adds the
+    launches its capture recorded.  Then, per cell, the graph step
+    against the eager one on one model (``decode_graph_vs_eager``)."""
     from repro_torch import configs
     from repro_torch.launch import serve
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import engine
     cfg = configs.get_config(ARCH)
     L = cfg.num_layers
-    forwards = SERVE["gen"]                  # 1 prefill + gen-1 decode steps
+    # 1 prefill + gen-1 decode steps + the capture's warm-up step
+    forwards = SERVE["gen"] + 1
     print("phase 3: warm-up (grouped, 2 new tokens)")
     serve.run(ARCH, smoke=False, batch=SERVE["batch"],
               prompt_len=SERVE["prompt_len"], gen=2, dispatch="grouped",
@@ -1876,8 +2009,8 @@ def phase_serve(torch, smi):
         tok_s = B * gen / (stats["prefill_s"] + stats["decode_s"])
         cell = f"{mode} prompt {prompt_len}"
         print(f"  [{smi}] {cell}: prefill {1e3 * stats['prefill_s']:.3f} ms, "
-              f"decode {decode_ms:.3f} ms/step, {tok_s:.1f} tokens/s "
-              f"(batch {B} x {gen} new), peak memory "
+              f"decode {decode_ms:.3f} ms/step (the graph), {tok_s:.1f} "
+              f"tokens/s (batch {B} x {gen} new), peak memory "
               f"{peak / 2 ** 30:.3f} GiB, launches {counts}")
         check(counts == expect,
               f"{cell}: launch counts {counts} != expected {expect}")
@@ -1890,6 +2023,13 @@ def phase_serve(torch, smi):
         results[cell] = dict(prefill_ms=1e3 * stats["prefill_s"],
                              decode_ms_per_step=decode_ms, tokens_per_s=tok_s,
                              peak_gib=peak / 2 ** 30)
+    model = Transformer(cfg, device="cuda", seed=0)
+    for mode, prompt_len in SERVE_CELLS:
+        cell = f"{mode} prompt {prompt_len}"
+        results[cell]["graph_vs_eager"] = decode_graph_vs_eager(
+            torch, smi, model, engine.serve_config(cfg, dispatch=mode),
+            SERVE["batch"], prompt_len, f"{ARCH} {cell}")
+    engine.clear_step_cache(model)
     return totals, results
 
 
@@ -3357,24 +3497,30 @@ def phase_presets(torch, smi):
         for mode in modes:
             for S, prompt in prompts.items():
                 cell = f"{arch} {mode or 'dense'} prompt {S}"
-                want = preset_expect(cfg, mode, S, gen)
                 release(torch)
                 torch.cuda.reset_peak_memory_stats()
                 runs = []
                 for _ in range(2):
                     st = {}
                     reset_counts()
+                    caps = decode_captures()
                     toks = engine.generate(model, prompt, steps=gen,
                                            dispatch=mode, stats=st)
                     counts = read_counts()
-                    runs.append((toks.cpu(), st, counts))
+                    # the first run captures its step: one warm-up step more
+                    caps = decode_captures() - caps
+                    want = preset_expect(cfg, mode, S, gen + caps)
+                    runs.append((toks.cpu(), st, counts, caps))
                     check(counts == want,
                           f"{cell}: launches {counts} != expected {want}")
                     check(st["logits_finite"], f"{cell}: non-finite logits")
                     for k in totals:
                         totals[k] += counts[k]
                 peak = torch.cuda.max_memory_allocated() / 2 ** 30
-                toks, st, counts = runs[1]
+                toks, st, counts, _ = runs[1]
+                check([r[3] for r in runs] == [1, 0],
+                      f"{cell}: decode captures per run "
+                      f"{[r[3] for r in runs]}, not [1, 0]")
                 check(tuple(toks.shape) == (B, S + gen),
                       f"{cell}: output shape {tuple(toks.shape)}")
                 new = toks[:, S:]
@@ -3394,12 +3540,17 @@ def phase_presets(torch, smi):
                                    decode_ms_per_step=decode_ms,
                                    tokens_per_s=tok_s, peak_gib=peak,
                                    launches=counts)
+                engine.clear_step_cache(model)    # free the cell's caches
         profile = profile_serving(torch, smi, model, cfg, modes[0], 1024,
                                   B, name=f"{arch} ")
+        graph = decode_graph_vs_eager(
+            torch, smi, model, engine.serve_config(cfg, dispatch=modes[0]),
+            B, 1024, f"{arch} {modes[0] or 'dense'} prompt 1024")
         out[arch] = dict(layers=cfg.num_layers, params=n_params,
                          weights_gib=weights, init_s=init_s,
                          init_peak_gib=init_peak, reduced=reduced,
-                         cells=cells, profile=profile)
+                         cells=cells, profile=profile, graph_vs_eager=graph)
+        engine.clear_step_cache(model)      # the cache holds the model
         del model
     release(torch)
     out["card vs cpu"] = phase_presets_card_vs_cpu(torch, smi)
@@ -3621,7 +3772,6 @@ def phase_windowed(torch, smi):
         cells = {}
         for S, gen in WINDOWED_SERVE["cells"]:
             cell = f"{arch} prompt {S} + {gen}"
-            want = preset_expect(cfg, None, S, gen)
             lens = cache_lengths(cfg, S + gen)
             release(torch)
             torch.cuda.reset_peak_memory_stats()
@@ -3629,16 +3779,22 @@ def phase_windowed(torch, smi):
             for _ in range(2):
                 st = {}
                 reset_counts()
+                caps = decode_captures()
                 toks = engine.generate(model, prompts[S], steps=gen, stats=st)
                 counts = read_counts()
-                runs.append((toks.cpu(), st, counts))
+                caps = decode_captures() - caps
+                want = preset_expect(cfg, None, S, gen + caps)
+                runs.append((toks.cpu(), st, counts, caps))
                 check(counts == want,
                       f"{cell}: launches {counts} != expected {want}")
                 check(st["logits_finite"], f"{cell}: non-finite logits")
                 for k in totals:
                     totals[k] += counts[k]
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            toks, st, counts = runs[1]
+            toks, st, counts, _ = runs[1]
+            check([r[3] for r in runs] == [1, 0],
+                  f"{cell}: decode captures per run {[r[3] for r in runs]}, "
+                  f"not [1, 0]")
             check(tuple(toks.shape) == (B, S + gen),
                   f"{cell}: output shape {tuple(toks.shape)}")
             new = toks[:, S:]
@@ -3662,16 +3818,20 @@ def phase_windowed(torch, smi):
                                prefill_tokens_per_s=prefill_tok_s,
                                peak_gib=peak, launches=counts,
                                cache_lengths=lens)
+            engine.clear_step_cache(model)        # free the cell's caches
         profile = profile_serving(torch, smi, model, cfg, None, WINDOWED_S,
                                   B, name=f"{arch} ")
+        graph = decode_graph_vs_eager(torch, smi, model, cfg, B, WINDOWED_S,
+                                      f"{arch} prompt {WINDOWED_S}")
         out[arch] = dict(layers=cfg.num_layers, params=n_params,
                          weights_gib=weights, init_s=init_s,
                          init_peak_gib=init_peak, cells=cells,
-                         profile=profile)
+                         profile=profile, graph_vs_eager=graph)
         if arch == "h2o-danube-3-4b":       # the cell whose rings wrap
             S, gen = WINDOWED_SERVE["cells"][1]
             out["ring vs linear"] = ring_vs_linear(
                 torch, smi, model, cfg, prompts[S], gen)
+        engine.clear_step_cache(model)      # the cache holds the model
         del model
     release(torch)
     out["card vs cpu"] = phase_windowed_card_vs_cpu(torch, smi)
@@ -4322,6 +4482,219 @@ def frontends_card_vs_cpu(torch, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the serving path at full width
+# ---------------------------------------------------------------------------
+
+# SlotServer at the paper's lengths: 8 slots over caches of 1088 positions
+# (a 1024-token prompt and 64 new tokens), grouped, a queue of 32
+TRAFFIC = dict(slots=8, cache_len=1088, dispatch="grouped", queue_limit=32)
+# benchmarks/bench_traffic.py's arrivals, seeds and skew over 24 requests
+# of the paper's lengths: (name, TrafficConfig fields, skewed router)
+TRAFFIC_SHAPES = dict(num_requests=24, prompt_lens=(256, 512, 1024),
+                      max_new_choices=(16, 32, 64))
+TRAFFIC_SCENARIOS = (
+    ("poisson", dict(arrival="poisson", rate=0.4, seed=7), False),
+    ("bursty", dict(arrival="bursty", burst_size=6, burst_every=8, seed=11),
+     False),
+    ("skewed", dict(arrival="bursty", burst_size=6, burst_every=8, seed=11),
+     True))
+# the fault run's workload: 8 prompts of 512 at step 0 fill every slot, so
+# the one element serve.decode_row poisons at decode step 1 lies in an
+# active request's row wherever the seeded draw puts it
+TRAFFIC_FAULT = dict(TRAFFIC_SHAPES, num_requests=16, arrival="bursty",
+                     burst_size=8, burst_every=8, seed=11, prompt_lens=(512,))
+TRAFFIC_DBRX_LAYERS = 2                  # phase 12's cut
+TRAFFIC_PROFILED_STEPS = 16
+
+
+def replay_once(torch, model, fields, *, graph=True, plan=None):
+    """One replay of the workload ``fields`` (``TrafficConfig``'s) on a
+    new ``SlotServer`` over ``model``, the counters set to 0 just before
+    the server is built (a capture's warm-up step counts) and read after:
+    every request must end ``ok`` without ``plan``, and the counters must
+    have risen by exactly what the path implies (per MoE layer and
+    forward, ``preset_expect``; a forward is a slot prefill, a decode step
+    or the warm-up; the flash forward once per layer in a prefill past
+    512).  Returns (report, {uid: tokens}, counts, facts of the run)."""
+    from repro_torch.core import faults
+    from repro_torch.serving import (SlotServer, TrafficConfig, replay,
+                                     synthesize_workload)
+    cfg = model.cfg
+    wl = synthesize_workload(TrafficConfig(**fields), cfg)
+    reset_counts()
+    caps = decode_captures()
+    srv = SlotServer(model, graph=graph, **TRAFFIC)
+    warm = decode_captures() - caps if graph else 0
+    calls = srv._step.calls
+    with faults.active(plan):
+        rep = replay(srv, wl)
+    counts = read_counts()
+    served = [r for _, r in wl if r.out]          # each ran one prefill
+    long = sum(r.prompt.numel() > Q_CHUNK for r in served)
+    facts = dict(decode_steps_run=srv._decode_steps,
+                 step_calls=srv._step.calls - calls, graph=graph,
+                 warmup_steps=warm, prefills=len(served),
+                 prefills_past_512=long)
+    want = preset_expect(cfg, "grouped", 0, srv._decode_steps + len(served)
+                         + warm) | {"flash_fwd": cfg.num_layers * long}
+    check(counts == want, f"replay {fields}: launches {counts} != {want}")
+    check(facts["step_calls"] == srv._decode_steps,
+          f"replay: {facts['step_calls']} step calls for "
+          f"{srv._decode_steps} decode steps")
+    if plan is None:
+        check(rep.completed == len(wl) and not srv.active
+              and set(rep.statuses.values()) == {"ok"},
+              f"replay {fields}: statuses {rep.statuses}")
+    return rep, {r.uid: list(r.out) for _, r in wl}, counts, facts
+
+
+def profile_slot_steps(torch, smi, model, label):
+    """``TRAFFIC_PROFILED_STEPS`` decode steps of a ``SlotServer`` with
+    every slot busy (8 prompts of 512 tokens), unprofiled then profiled:
+    the wall a step (host clock; each step ends in its host copy of the
+    tokens), the device time of its kernels and the device's idle share,
+    the scheduler's host work included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import Request, SlotServer
+    n = TRAFFIC_PROFILED_STEPS
+    srv = SlotServer(model, **TRAFFIC)
+    g = torch.Generator().manual_seed(16)
+    for uid in range(TRAFFIC["slots"]):
+        srv.submit(Request(uid=uid, prompt=torch.randint(
+            0, model.cfg.vocab_size, (512,), generator=g), max_new=2 * n + 4))
+    srv.step()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        srv.step()
+    wall = 1e3 * (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            srv.step()
+        prof_wall = 1e3 * (time.perf_counter() - t0) / n
+    dev = _device_ms(prof, DeviceType) / n
+    check(len(srv.active) == TRAFFIC["slots"], f"{label}: a slot finished")
+    out = dict(wall_ms=wall, profiled_wall_ms=prof_wall, device_ms=dev,
+               idle=1 - dev / wall, idle_profiled=1 - dev / prof_wall)
+    print(f"  [{smi}] {label}: a SlotServer step with {TRAFFIC['slots']} "
+          f"busy slots (after 512 tokens): wall {wall:.3f} ms (profiled "
+          f"{prof_wall:.3f}), device {dev:.3f} ms, idle {out['idle']:.3f} "
+          f"(of the profiled wall {out['idle_profiled']:.3f})")
+    return out
+
+
+def report_line(smi, label, rep, facts):
+    d = dataclasses.asdict(rep)
+    print(f"  [{smi}] {label}: {rep.summary()}; p50/p99 first token "
+          f"{1e3 * rep.p50_first_token_s:.3f} / "
+          f"{1e3 * rep.p99_first_token_s:.3f} ms, tokens {rep.tokens_out}, "
+          f"wall {rep.wall_s:.3f} s; {facts}")
+    print(f"      report: {json.dumps(d)}")
+    return d | {"facts": facts}
+
+
+def phase_traffic(torch, smi):
+    """Phase 16: the serving path at full width — ``SlotServer`` (slots 8,
+    cache 1088, grouped, queue 32) over ``hetumoe-paper-16e`` (bf16, seed
+    0) replaying ``TRAFFIC_SCENARIOS`` twice each (statuses, decode steps
+    and tokens equal over the two), the bursty one once more through the
+    eager step (tokens equal to the graph's), ``TRAFFIC_FAULT`` clean and
+    under ``serve.decode_row:nan@1`` (exactly one request fails, with
+    ``non_finite_decode_logits``; every other one's tokens are the clean
+    run's), a profiled stretch of decode steps; then ``dbrx-132b`` at
+    ``TRAFFIC_DBRX_LAYERS`` of 40 layers at its published widths replaying
+    the skewed scenario twice (top-4 over 16 experts with every token on
+    the hot one), and its profiled stretch.  Each replay's launches are
+    checked (``replay_once``)."""
+    from repro_torch import configs
+    from repro_torch.core import faults
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import engine, skew_router
+    print(f"phase 16: the serving path at full width, SlotServer {TRAFFIC}, "
+          f"workloads {TRAFFIC_SHAPES}")
+    out, totals = {}, dict.fromkeys(SERVE_KERNELS, 0)
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(configs.get_config(ARCH), device="cuda", seed=0)
+    skewed = skew_router(model)
+
+    def run(label, m, fields, **kw):
+        rep, toks, counts, facts = replay_once(torch, m, fields, **kw)
+        for k in totals:
+            totals[k] += counts[k]
+        out[label] = report_line(smi, label, rep, facts)
+        return rep, toks
+
+    for name, kw, skew in TRAFFIC_SCENARIOS:
+        fields = TRAFFIC_SHAPES | kw
+        m = skewed if skew else model
+        first = run(f"{ARCH} {name}", m, fields)
+        second = run(f"{ARCH} {name} (again)", m, fields)
+        same = (first[0].statuses == second[0].statuses
+                and first[0].decode_steps == second[0].decode_steps
+                and first[1] == second[1])
+        check(same, f"{name}: two replays differ")
+        if name == "bursty":
+            eager = run(f"{ARCH} {name} (eager step)", m, fields,
+                        graph=False)
+            check(eager[1] == first[1] and eager[0].statuses
+                  == first[0].statuses,
+                  f"{name}: the eager step's tokens differ from the graph's")
+    clean = run(f"{ARCH} fault workload", model, TRAFFIC_FAULT)
+    plan = faults.plan_from_specs(["serve.decode_row:nan@1"])
+    bad = run(f"{ARCH} fault workload under serve.decode_row:nan@1", model,
+              TRAFFIC_FAULT, plan=plan)
+    failed = [u for u, st in bad[0].statuses.items() if st != "ok"]
+    check(plan.fired == [("serve.decode_row", 1)] and bad[0].failed == 1
+          and len(failed) == 1,
+          f"decode_row: fired {plan.fired}, statuses {bad[0].statuses}")
+    check(all(bad[1][u] == clean[1][u] for u in clean[1] if u != failed[0])
+          and bad[1][failed[0]] == clean[1][failed[0]][:2],
+          "decode_row: a request other than the poisoned one changed")
+    out["fault"] = dict(failed_uid=failed[0], fired=plan.fired)
+    print(f"  decode_row:nan@1 failed request {failed[0]} only (2 tokens, "
+          f"then non_finite_decode_logits); every other request's tokens "
+          f"equal the clean run's")
+    out[f"{ARCH} profiled steps"] = profile_slot_steps(torch, smi, model,
+                                                       ARCH)
+    out[f"{ARCH} peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    engine.clear_step_cache(model)
+    engine.clear_step_cache(skewed)
+    del model, skewed
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config("dbrx-132b").replace(
+        num_layers=TRAFFIC_DBRX_LAYERS)
+    t0 = time.perf_counter()
+    base = Transformer(cfg, device="cuda", seed=0)
+    hot = skew_router(base)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    name, kw, _ = TRAFFIC_SCENARIOS[2]
+    fields = TRAFFIC_SHAPES | kw
+    first = run(f"dbrx-132b ({cfg.num_layers} layers) {name}", hot, fields)
+    second = run(f"dbrx-132b ({cfg.num_layers} layers) {name} (again)", hot,
+                 fields)
+    check(first[0].statuses == second[0].statuses
+          and first[0].decode_steps == second[0].decode_steps
+          and first[1] == second[1], "dbrx skewed: two replays differ")
+    out["dbrx-132b profiled steps"] = profile_slot_steps(
+        torch, smi, hot, f"dbrx-132b ({cfg.num_layers} layers) skewed")
+    out["dbrx-132b peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["dbrx-132b init_s"] = init_s
+    print(f"  [{smi}] peak memory: {ARCH} {out[f'{ARCH} peak_gib']:.3f} GiB, "
+          f"dbrx-132b {out['dbrx-132b peak_gib']:.3f} GiB (init {init_s:.1f} "
+          f"s)")
+    engine.clear_step_cache(base)
+    engine.clear_step_cache(hot)
+    del base, hot
+    release(torch)
+    return totals, out
+
+
 def print_ptxas(report: str, most: int = 24) -> None:
     """Registers and spills of each kernel from the build's ptxas report;
     a source with more than ``most`` instances (the gate's one per k and
@@ -4369,7 +4742,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one "
                                  "NVIDIA GPU (see the module docstring).")
     ap.add_argument("--phases", choices=("all", "kernels", "trainer",
-                                         "presets", "frontends"),
+                                         "presets", "frontends", "serving"),
                     default="all",
                     help="'kernels': only the build, the kernel checks and "
                          "the kernel timings (phases 1, 2 and 5), for "
@@ -4378,8 +4751,9 @@ def main(argv=None) -> int:
                          "windowed presets' training); 'presets': the build "
                          "and phases 12 and 13; 'frontends': the build, "
                          "phases 2g-2i, 2o, phase 5's rows at the frontend "
-                         "presets' shapes and phase 15; each ends with ok: "
-                         "false")
+                         "presets' shapes and phase 15; 'serving': the "
+                         "build and phases 3 and 16 (generate, SlotServer and "
+                         "the traffic replay); each ends with ok: false")
     phases = ap.parse_args(argv).phases
     import torch
     if not torch.cuda.is_available():
@@ -4426,6 +4800,13 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"ok": False, "partial": "phases 1, 2g-2i, 2o, "
                                                   "5 (frontend rows), 15"}))
+        return 0
+    if phases == "serving":
+        print(json.dumps({"serving": phase_serve(torch, smi)[1]}))
+        release(torch)
+        print(json.dumps({"traffic": phase_traffic(torch, smi)[1]}))
+        print(smi)
+        print(json.dumps({"ok": False, "partial": "phases 1, 3 and 16 only"}))
         return 0
     if phases == "presets":
         print(json.dumps({"presets": phase_presets(torch, smi)[1]}))
@@ -4484,6 +4865,10 @@ def main(argv=None) -> int:
     front_counts, front = phase_frontends(torch, smi)
     print(json.dumps({"frontends": front}))
     stamp("phase 15")
+    release(torch)
+    traffic_counts, traffic = phase_traffic(torch, smi)
+    print(json.dumps({"traffic": traffic}))
+    stamp("phase 16")
     rows = (phase_timings(torch, dev, smi) + frontend_timings(torch, dev, smi)
             + preset_rows + wide_rows)
     stamp("phase 5")
@@ -4516,6 +4901,8 @@ def main(argv=None) -> int:
             kernels[-1]["max_abs_err_windowed"] = errs[r["name"] + "_wide"]
         if front_counts.get(r["name"]):
             kernels[-1]["launches_frontends_train"] = front_counts[r["name"]]
+        if traffic_counts.get(r["name"]):
+            kernels[-1]["launches_traffic"] = traffic_counts[r["name"]]
         if r["name"] + "_frontends" in errs:
             # phase 2o: the frontend presets' training shapes
             kernels[-1]["max_abs_err_frontends"] = errs[
@@ -4540,6 +4927,9 @@ def main(argv=None) -> int:
     check(all(front_counts[k] > 0 for k in FLASH_NAMES),
           f"a flash kernel was not launched in the frontend presets' "
           f"training: {front_counts}")
+    check(all(traffic_counts[k] > 0 for k in SERVE_KERNELS),
+          f"a kernel of the serving path was not launched in the traffic "
+          f"replays: {traffic_counts}")
     print(json.dumps({"serving": serving, "serving_launches": serve_counts,
                       "training": training, "train_grads_card_vs_cpu": grads,
                       "remat": remat, "resume": resume, "gates": gates,
@@ -4549,6 +4939,7 @@ def main(argv=None) -> int:
                       "windowed_train": wtrain,
                       "windowed_train_launches": wtrain_counts,
                       "frontends": front, "frontends_launches": front_counts,
+                      "traffic": traffic, "traffic_launches": traffic_counts,
                       "timings": rows, "profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -30,12 +30,27 @@ site                                  seam (who calls it, with what index)
                                       yet written (step)
 ``ckpt.manifest_step_written``        host: per-step manifest written,
                                       ``manifest.json`` not yet updated (step)
+``serve.prefill``                     host: before a request's prefill
+                                      (``serving/scheduler.SlotServer``,
+                                      request uid) — ``raise`` = prefill
+                                      blows up
+``serve.prefill_logits``              host: the request's prefill logits
+                                      (uid) — ``nan``/``inf`` = poisoned
+``serve.step_logits``                 host: one slot's decode logits (uid)
+``serve.step``                        host: before each batched decode step
+                                      (decode-step counter) — ``stall``
+                                      simulates a step-time stall
+``serve.decode_row``                  host: the batched decode logits as a
+                                      decode step returns them
+                                      (``serving/engine.DecodeStep``, after
+                                      the graph replay; decode-step
+                                      counter) — ``nan``/``inf`` poisons ONE
+                                      seeded element, i.e. one slot's row
 ====================================  =======================================
 
-The reference's ``serve.*`` sites (``serve.prefill``,
-``serve.prefill_logits``, ``serve.step_logits``, ``serve.step``,
-``serve.decode_row``) are seams of its ``SlotServer``, which the port does
-not have yet (ROADMAP.md, Queue 1 item 10): no port code calls them.
+The ``serve.*`` seams pull logits to the host only when a plan is active;
+without one the logits stay on the device (a ``SlotServer`` step copies
+each row's argmax and finiteness, 2·slots values).
 
 Two delivery mechanisms:
 

@@ -4,14 +4,27 @@ Each wrapper launches the CUDA kernel for a CUDA tensor and the kernel's
 plain PyTorch version for a CPU tensor (``kernels/build.dispatch_device``).
 ``layout_dispatch`` and ``layout_combine`` differentiate through
 ``gather_rows``, whose backward is the scatter-add kernel.
+:func:`launch_counts` reads every wrapper's launch counter, and
+:func:`add_launch_counts` adds to them what a replayed CUDA graph
+launched without calling a wrapper (``serving/engine.py``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import layout_transform, topk_gate
+from repro_torch.kernels import (flash_attention, grouped_ffn,
+                                 layout_transform, topk_gate)
+
+# (module, attribute) of every wrapper's launch counter
+COUNTERS = ((topk_gate, "launches"), (layout_transform, "launches"),
+            (layout_transform, "scatter_launches"),
+            (layout_transform, "rowstep_launches"), (grouped_ffn, "launches"),
+            (grouped_ffn, "dlhs_launches"), (grouped_ffn, "drhs_launches"),
+            (flash_attention, "fwd_launches"),
+            (flash_attention, "dq_launches"),
+            (flash_attention, "dkv_launches"))
 
 gather_rows = layout_transform.gather_rows
 
@@ -57,3 +70,18 @@ def layout_combine(buffer: torch.Tensor, slot: torch.Tensor,
     rows = gather_rows(buffer, slot.reshape(-1).contiguous()).reshape(S, K, -1)
     w = (weight * (slot >= 0)).to(buffer.dtype)
     return (rows.float() * w.float()[..., None]).sum(dim=1).to(buffer.dtype)
+
+
+def _key(module, attr: str) -> str:
+    return f"{module.__name__.rsplit('.', 1)[1]}.{attr}"
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every launch counter, keyed ``module.attribute``."""
+    return {_key(m, a): getattr(m, a) for m, a in COUNTERS}
+
+
+def add_launch_counts(rise: Dict[str, int]) -> None:
+    """Add ``rise`` (keyed as :func:`launch_counts`) to the counters."""
+    for m, a in COUNTERS:
+        setattr(m, a, getattr(m, a) + rise.get(_key(m, a), 0))

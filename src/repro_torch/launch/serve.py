@@ -18,9 +18,9 @@ overrides the preset's MoE dispatch mode (validated; a typo fails fast,
 and so does the flag on a dense preset such as ``yi-6b``).
 ``--repeat N`` serves the same prompts N times on one model and prints
 each run's prefill and per-step decode time, then their medians over the
-runs after the first (which includes the kernels' build and the
-libraries' warm-up).  Only the one-device mesh
-``1x1`` is ported.
+runs after the first (which includes the kernels' build, the libraries'
+warm-up and the capture of the decode step's CUDA graph).  Only the
+one-device mesh ``1x1`` is ported.
 """
 from __future__ import annotations
 
@@ -33,8 +33,9 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.models.transformer import Transformer
-from repro_torch.serving.engine import (generate, refuse_frontend,
-                                        serve_config, validate_dispatch)
+from repro_torch.serving.engine import (clear_step_cache, generate,
+                                        refuse_frontend, serve_config,
+                                        validate_dispatch)
 
 
 def dispatch_cli_arg(name: str) -> str:
@@ -89,6 +90,7 @@ def run(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
               f"{1e3 * st['prefill_s']:.3f} ms, decode {decode_ms:.3f} "
               f"ms/step")
         times.append((1e3 * st["prefill_s"], decode_ms))
+    clear_step_cache(model)        # the model's last user: free its steps
     if repeat > 1:
         warm = times[1:]
         print(f"median of runs 2-{repeat}: prefill "

@@ -131,9 +131,11 @@ def _flash_path(q, k, v, positions, *, causal, window, cap, scale):
 
 
 # ---------------------------------------------------------------------------
-# decode caches: {"k", "v": (B, L, KV, hd), "pos": int}, updated in place
-# (the reference returns new arrays; writing the slot in place saves a copy
-# of the whole cache per step)
+# decode caches: {"k", "v": (B, L, KV, hd), "pos": 0-d int32 tensor on the
+# cache's device}, updated in place (the reference returns new arrays;
+# writing the slot in place saves a copy of the whole cache per step).  No
+# tensor of a cache changes its address, and a decode step reads nothing
+# on the host, so a CUDA graph can hold the step (serving/engine.py).
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: AttentionConfig, batch: int, cache_len: int,
@@ -141,7 +143,8 @@ def init_cache(cfg: AttentionConfig, batch: int, cache_len: int,
     hd = cfg.head_dim or d_model // cfg.num_heads
     shape = (batch, cache_len, cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def fill_cache(cache: Dict[str, object], kv: Dict[str, torch.Tensor], *,
@@ -156,14 +159,14 @@ def fill_cache(cache: Dict[str, object], kv: Dict[str, torch.Tensor], *,
         # row i of the last W holds position S - W + i, slot (S - W + i) % W
         for n in ("k", "v"):
             cache[n].copy_(torch.roll(kv[n][:, S - W:], shifts=S % W, dims=1))
-        cache["pos"] = S
+        cache["pos"].fill_(S)
         return cache
     if S > W:
         raise ValueError(f"prefill of {S} tokens does not fit a cache of "
                          f"{W}")
     cache["k"][:, :S] = kv["k"].to(cache["k"].dtype)
     cache["v"][:, :S] = kv["v"].to(cache["v"].dtype)
-    cache["pos"] = S
+    cache["pos"].fill_(S)
     return cache
 
 
@@ -173,20 +176,19 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                      ) -> Tuple[torch.Tensor, Dict[str, object]]:
     """One-token decode.  x (B, 1, d).  ``ring=True``: the cache is a ring
     of W slots (its length the window), written at slot pos % W — W
-    positions of memory at any sequence length."""
+    positions of memory at any sequence length.  The position is read on
+    the device only: a linear cache that is full is the caller's to refuse
+    (the host mirrors of ``engine.generate`` and ``SlotServer``)."""
     B, one, d = x.shape
     if one != 1:
         raise ValueError(f"decode_attention takes one token, got {one}")
     pos = cache["pos"]
     W = cache["k"].shape[1]
-    if not ring and pos >= W:
-        raise ValueError(f"cache of {W} positions is full at pos={pos}")
-    # filled on the device: a host tensor copied over would wait for it
-    pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    pos_t = pos.reshape(1)
     q, k_new, v_new = _qkv(params, x, cfg, pos_t[None, :])
-    slot = pos % W if ring else pos
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    slot = (torch.remainder(pos_t, W) if ring else pos_t).long()
+    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
     idx = torch.arange(W, dtype=torch.int32, device=x.device)
     if ring:
         # slot s holds position pos - ((pos - s) mod W); negatives invalid
@@ -198,5 +200,5 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     o = _attend(q, cache["k"], cache["v"], pos_t, k_pos, causal=True,
                 window=win, cap=cfg.attn_softcap, scale=q.shape[-1] ** -0.5)
     y = o.reshape(B, 1, -1).to(x.dtype) @ params["wo"].to(x.dtype)
-    cache["pos"] = pos + 1
+    pos.add_(1)
     return y, cache

@@ -79,6 +79,16 @@ def _is_ring(cache, window: Optional[int]) -> bool:
     return window is not None and cache["k"].shape[1] == window
 
 
+def linear_capacity(cfg: ModelConfig, caches,
+                    long_context: bool = False) -> Optional[int]:
+    """The positions ``caches`` hold before the shortest linear one is
+    full; None when every layer's cache is a ring, which never fills."""
+    lens = [c["k"].shape[1] for c, kind in zip(caches, layer_kinds(cfg),
+                                               strict=True)
+            if not _is_ring(c, block_window(kind, cfg, long_context))]
+    return min(lens) if lens else None
+
+
 def layer_kinds(cfg: ModelConfig) -> List[str]:
     """The block kind of each layer: layer ``i·P + j`` is pattern slot
     ``j`` of super-block ``i``."""
@@ -344,7 +354,8 @@ class Transformer(nn.Module):
                     long_context: bool = False) -> List[Dict[str, Any]]:
         """One cache per layer, of ``min(cache_len, window)`` positions for
         a windowed layer (a ring when that is the window) and
-        ``cache_len`` for the others."""
+        ``cache_len`` for the others; each position a 0-d int32 tensor on
+        the device (``attention.init_cache``)."""
         out = []
         for kind in layer_kinds(self.cfg):
             win = block_window(kind, self.cfg, long_context)
@@ -373,16 +384,16 @@ class Transformer(nn.Module):
 
     def decode_step(self, token: torch.Tensor, caches,
                     cfg: Optional[ModelConfig] = None, *,
-                    long_context: bool = False):
+                    long_context: bool = False,
+                    noise: Optional[Sequence[torch.Tensor]] = None):
         """One-token serve step: token (B, 1), or a frontend's (B, 1, d)
         embeddings → (logits (B, 1, V), caches), the caches updated in
-        place."""
+        place.  ``noise``: a noisy gate's draws (:func:`decode_noise`),
+        drawn here when not given; the step reads nothing on the host."""
         cfg = cfg or self.cfg
         x = embed_inputs({"embed": self.embed}, cfg, token, self.dtype)
-        noise = None
-        if noisy(cfg):                      # as forward: a seed-0 draw
-            gen = torch.Generator(device=x.device).manual_seed(0)
-            noise = draw_gate_noise(cfg, x.shape[0], gen, x.device)
+        if noise is None:
+            noise = decode_noise(cfg, x.shape[0], x.device)
         for i, (blk, cache, kind) in enumerate(zip(
                 self.blocks, caches, layer_kinds(cfg), strict=True)):
             x, _, _ = block_forward(blk.tree(), x, cfg, kind=kind,
@@ -391,3 +402,15 @@ class Transformer(nn.Module):
                                     noise=None if noise is None else noise[i])
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         return self.logits_from_hidden(x), caches
+
+
+def decode_noise(cfg: ModelConfig, batch: int, device
+                 ) -> Optional[List[torch.Tensor]]:
+    """A decode step's gate draws for ``batch`` tokens: the same at every
+    step, from a generator seeded 0 on ``device`` (the reference draws
+    from ``PRNGKey(0)`` at each step); None for a gate that draws
+    nothing.  A captured step takes them drawn once, as an input."""
+    if not noisy(cfg):
+        return None
+    gen = torch.Generator(device=device).manual_seed(0)
+    return draw_gate_noise(cfg, batch, gen, device)

@@ -1,24 +1,123 @@
-"""Serving: prefill + batched single-token decode steps — the port of
-``repro/serving/engine.py`` (``serve_config``, ``validate_dispatch``,
-``validate_decode_config``, ``resolve_decode_config``, ``generate``).
+"""Serving: prefill + batched single-token decode steps, built through
+one step builder with a process-wide step cache — the port of
+``repro/serving/engine.py``.
 
-PyTorch runs eagerly, so there is no step-builder cache or retrace probe
-here (a CUDA-graph step cache comes in a later slice, with ``SlotServer``
-and the fault seam).  ``generate`` runs under ``torch.inference_mode()``.
-It takes token prompts: a frontend preset is served through the API
+Step-builder / cache contract
+-----------------------------
+
+Every serving entry point (``generate`` here, ``SlotServer`` in
+``serving/scheduler.py``, the ``launch/serve.py`` CLI) takes its steps
+from the builders below:
+
+* ``build_prefill(model, cfg, cache_len=, batch=, long_context=)`` —
+  ``(tokens (B, S), caches) -> (last logits (B, 1, V), caches)``, the
+  caches (the decode step's) filled in place; eager;
+* ``build_decode(model, cfg, batch=, cache_len=, long_context=, graph=)``
+  — a :class:`DecodeStep`, ``(token (B, 1), step_index=0) -> logits (B,
+  1, V)`` over the caches it owns;
+* ``build_slot_prefill(model, cfg, cache_len=, long_context=)`` —
+  ``(prompt (1, S)) -> (last logits (V,), single-row caches)``, eager;
+  :func:`put_slot` commits those into row ``slot`` of the decode step's
+  caches (``SlotServer``'s per-slot refill; a failed prefill commits
+  nothing).
+
+Each builder returns the SAME object for the same cache key ``(kind,
+cfg, model, cache_len, batch, long_context)`` (a decode key adds
+``graph``, and an instance number past the first: see below): the
+reference's key, with the model in the place of the mesh.  ``ModelConfig`` is a frozen
+dataclass, so the key holds the dispatch mode and every other knob.  The
+model is in the key because a CUDA graph binds addresses: a second model
+of the same config (``traffic.skew_router``'s copy beside the uniform
+one) gets its own step instead of replaying the first model's weights.
+
+On ``cuda`` a decode entry owns one captured ``torch.cuda.CUDAGraph``
+and everything it reads or writes, at fixed addresses: the model, one
+cache per layer (``batch`` rows, ``cache_len`` positions, the position a
+0-d device tensor), the token buffer, the gate noise (drawn once,
+``transformer.decode_noise``), the graph's private memory pool and the
+logits it returns, which the next call overwrites.  The build runs one
+eager step on a side stream on the zeroed buffers (it really launches its
+kernels), zeroes them again and captures one step; a call copies the
+token in and replays the graph, which launches no wrapper: the rise of
+the kernels' launch counters during the capture is taken back after it
+and added at each replay (``kernels/ops.add_launch_counts``), so the
+counters count the launches that ran.  On the CPU the same entry runs the
+step eagerly.  ``trace_counts[key]`` counts captures on ``cuda`` and
+builds on the CPU: one per key either way (the contract of PR 7).
+:func:`clear_step_cache` drops the cache's entries (or one model's) and
+their counts, and with them the cache's hold on the models, caches,
+graphs and pools; an entry a caller still holds (a live ``SlotServer``'s
+step) stays usable.  ``generate`` and each ``SlotServer`` prefill into
+the step's caches in place: they never allocate caches per call.  Each
+claims its step for as long as it serves (``build_decode(owner=)``), and
+a second live user of one key gets its own instance of the key, with its
+own caches and graph: two users never share caches.
+
+* ``serve_config(cfg, dispatch=)`` derives the serving config: the MoE
+  dispatch override is validated against ``DISPATCH_MODES``.
+* ``validate_decode_config(cfg, batch, cache_len=)`` raises at step-build
+  time for a configuration that cannot run.
+
+Fault seam (``core/faults.py``): a decode step applies the host-side
+``serve.decode_row`` site to its logits (indexed by the caller's
+``step_index``).  With no ambient plan it adds no op and no host wait;
+with one it pulls the logits to the host, poisons one seeded element (one
+row) and puts them back.  ``generate`` runs under
+``torch.inference_mode()``, as every builder's step does, and takes token
+prompts: a frontend preset is served through the API
 (:func:`refuse_frontend`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import time
-from typing import Optional
+import weakref
+from collections import Counter
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import moe as moe_lib
 from repro_torch.core import tuning
 from repro_torch.core.config import DISPATCH_MODES, ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as T
+
+# process-wide step cache: key -> step.  Keys are (kind, cfg, model,
+# cache_len, batch, long_context[, graph[, instance]]); an nn.Module
+# hashes by identity, and the entry holds the model, so its id is never
+# reused while the entry lives.
+_STEP_CACHE: Dict[tuple, Any] = {}
+trace_counts: Counter = Counter()
+
+
+def clear_step_cache(model=None) -> None:
+    """Drop every cached step (only those of ``model`` when given) and
+    their ``trace_counts``."""
+    for key in [k for k in _STEP_CACHE if model is None or k[2] is model]:
+        del _STEP_CACHE[key]
+    for key in [k for k in trace_counts if model is None or k[2] is model]:
+        del trace_counts[key]
+
+
+def trace_budget_report(budget: int = 1, counts=None) -> Dict[tuple, int]:
+    """Step-builder keys that were captured (built, on the CPU) MORE than
+    ``budget`` times since the last ``clear_step_cache`` — the probe of a
+    cache-key leak (a key that does not find its cached step).
+    ``counts`` defaults to the live ``trace_counts``."""
+    counts = trace_counts if counts is None else counts
+    return {k: int(v) for k, v in counts.items() if int(v) > budget}
+
+
+def _cached(key: tuple, make: Callable[[], Any]) -> Any:
+    fn = _STEP_CACHE.get(key)
+    if fn is None:
+        fn = make()
+        _STEP_CACHE[key] = fn
+    return fn
 
 
 def validate_dispatch(dispatch: str) -> str:
@@ -90,6 +189,232 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# ---------------------------------------------------------------------------
+# raw (uncached) step factories — the eager steps, kept for the checks that
+# drive them beside the built ones; the builders below wrap these
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg: ModelConfig, *, cache_len: int,
+                      long_context: bool = False):
+    """``prefill(model, tokens (B, S)) -> (last logits (B, 1, V), caches)``
+    into fresh caches of ``cache_len``."""
+    @torch.inference_mode()
+    def prefill(model, tokens):
+        caches = model.init_caches(tokens.shape[0], cache_len,
+                                   long_context=long_context)
+        h, _, caches = model.forward(tokens.to(model.device), caches=caches,
+                                     cfg=cfg, long_context=long_context)
+        return model.logits_from_hidden(h[:, -1:]), caches
+    return prefill
+
+
+def make_serve_step(cfg: ModelConfig, *, long_context: bool = False):
+    """The eager decode step: ``serve_step(model, token (B, 1), caches) ->
+    (logits (B, 1, V), caches)``, the caches updated in place."""
+    @torch.inference_mode()
+    def serve_step(model, token, caches):
+        return model.decode_step(token.to(model.device), caches, cfg,
+                                 long_context=long_context)
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# cached step builders
+# ---------------------------------------------------------------------------
+
+def build_prefill(model, cfg: Optional[ModelConfig] = None, *,
+                  cache_len: int, batch: Optional[int] = None,
+                  long_context: bool = False):
+    """Cached prefill ``(tokens (B, S), caches) -> (last logits (B, 1, V),
+    caches)``, ``caches`` (a decode step's) filled in place."""
+    cfg = cfg or model.cfg
+    key = ("prefill", cfg, model, cache_len, batch, long_context)
+
+    def make():
+        trace_counts[key] += 1
+
+        @torch.inference_mode()
+        def prefill(tokens, caches):
+            h, _, caches = model.forward(tokens.to(model.device),
+                                         caches=caches, cfg=cfg,
+                                         long_context=long_context)
+            return model.logits_from_hidden(h[:, -1:]), caches
+        return prefill
+    return _cached(key, make)
+
+
+class DecodeStep:
+    """One cached decode step over the caches it owns (see the module
+    docstring): ``step(token (B, 1), step_index=0) -> logits (B, 1, V)``.
+    ``graph`` is the captured ``torch.cuda.CUDAGraph`` (None: eager, on
+    the CPU or when built with ``graph=False``), ``rise`` the launches a
+    replay adds to the counters, ``calls`` the steps run (graph replays,
+    or eager steps), ``capacity`` the positions the caches hold before a
+    linear one is full (None: rings only)."""
+
+    @torch.inference_mode()
+    def __init__(self, key: tuple, model, cfg: ModelConfig, *, batch: int,
+                 cache_len: int, long_context: bool, graph: bool):
+        dev = model.device
+        self.model, self.cfg = model, cfg
+        self.long_context = long_context
+        self.caches = model.init_caches(batch, cache_len,
+                                        long_context=long_context)
+        self.capacity = T.linear_capacity(cfg, self.caches, long_context)
+        self.token = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        self.noise = T.decode_noise(cfg, batch, dev)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.rise: Dict[str, int] = {}
+        self.calls = 0
+        self._owner = None
+        if graph and dev.type == "cuda":
+            self._capture()
+        trace_counts[key] += 1
+
+    def _run(self) -> torch.Tensor:
+        logits, _ = self.model.decode_step(self.token, self.caches, self.cfg,
+                                           long_context=self.long_context,
+                                           noise=self.noise)
+        return logits
+
+    def _capture(self) -> None:
+        dev = self.model.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._run()               # warm-up: launches for real
+        main.wait_stream(side)
+        self.reset()
+        before = ops.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.logits = self._run()
+        after = ops.launch_counts()
+        self.rise = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+        ops.add_launch_counts({k: -n for k, n in self.rise.items()})
+        self.graph = graph
+
+    @torch.inference_mode()
+    def reset(self) -> None:
+        """Zero the caches and their positions, as a fresh init leaves
+        them."""
+        for c in self.caches:
+            for t in c.values():
+                t.zero_()
+
+    def claim(self, owner) -> bool:
+        """Hold the caches for ``owner`` until it is collected or gives
+        them back (:meth:`release`); False when another live owner holds
+        them."""
+        held = self._owner() if self._owner is not None else None
+        if held is not None and held is not owner:
+            return False
+        self._owner = weakref.ref(owner)
+        return True
+
+    def release(self, owner) -> None:
+        if self._owner is not None and self._owner() is owner:
+            self._owner = None
+
+    @torch.inference_mode()
+    def __call__(self, token: torch.Tensor,
+                 step_index: int = 0) -> torch.Tensor:
+        self.token.copy_(token)
+        if self.graph is None:
+            logits = self._run()
+        else:
+            self.graph.replay()
+            ops.add_launch_counts(self.rise)
+            logits = self.logits
+        self.calls += 1
+        if faults_mod.get_active() is not None:
+            poisoned = faults_mod.inject_array(
+                "serve.decode_row", logits.float().cpu().numpy(),
+                index=step_index)
+            logits = torch.from_numpy(poisoned).to(logits.device,
+                                                   logits.dtype)
+        return logits
+
+
+def build_decode(model, cfg: Optional[ModelConfig] = None, *, batch: int,
+                 cache_len: int, long_context: bool = False,
+                 graph: bool = True, owner=None) -> DecodeStep:
+    """The cached :class:`DecodeStep` of ``batch`` rows over caches of
+    ``cache_len``: a captured CUDA graph on ``cuda`` (``graph=False``:
+    the same step run eagerly, for comparison), eager on the CPU.
+    ``"auto"`` MoE knobs resolve here (:func:`resolve_decode_config`), so
+    the resolved config is the key.  With ``owner`` (a ``SlotServer``, a
+    ``generate`` call) the step is claimed for it: the key's step when no
+    other live owner holds it, else the first free further instance of
+    the key (its own caches and graph, built at first use), so that two
+    live users never share caches."""
+    cfg = resolve_decode_config(cfg or model.cfg, batch)
+    base = ("decode", cfg, model, cache_len, batch, long_context, graph)
+    for i in itertools.count():
+        key = base + ((i,) if i else ())
+        step = _cached(key, lambda: DecodeStep(
+            key, model, cfg, batch=batch, cache_len=cache_len,
+            long_context=long_context, graph=graph))
+        if owner is None or step.claim(owner):
+            return step
+
+
+class _Holder:
+    """The owner a :func:`holding_decode` block claims a step with."""
+
+
+@contextlib.contextmanager
+def holding_decode(model, cfg: Optional[ModelConfig] = None, **kw):
+    """:func:`build_decode` with an owner for the length of a ``with``
+    block, which the block's step is given back by."""
+    owner = _Holder()
+    step = build_decode(model, cfg, owner=owner, **kw)
+    try:
+        yield step
+    finally:
+        step.release(owner)
+
+
+def build_slot_prefill(model, cfg: Optional[ModelConfig] = None, *,
+                       cache_len: int, long_context: bool = False):
+    """Cached per-slot prefill for ``SlotServer``: the full forward of a
+    ``(1, S)`` prompt into fresh single-row caches of ``cache_len``;
+    ``(prompt) -> (last logits (V,), caches)``.  :func:`put_slot`
+    commits them; until then the served caches are untouched."""
+    cfg = cfg or model.cfg
+    key = ("slot_prefill", cfg, model, cache_len, None, long_context)
+
+    def make():
+        trace_counts[key] += 1
+
+        @torch.inference_mode()
+        def slot_prefill(prompt):
+            sub = model.init_caches(1, cache_len, long_context=long_context)
+            h, _, sub = model.forward(prompt.to(model.device), caches=sub,
+                                      cfg=cfg, long_context=long_context)
+            return model.logits_from_hidden(h[:, -1:])[0, -1], sub
+        return slot_prefill
+    return _cached(key, make)
+
+
+@torch.inference_mode()
+def put_slot(caches, sub, slot: int) -> None:
+    """Copy single-row caches ``sub`` into row ``slot`` of ``caches`` and
+    set the shared position to theirs, in place (the reference's ``put``
+    in ``build_slot_prefill``)."""
+    for full, one in zip(caches, sub, strict=True):
+        full["k"][slot].copy_(one["k"][0])
+        full["v"][slot].copy_(one["v"][0])
+        full["pos"].copy_(one["pos"])
+
+
+# ---------------------------------------------------------------------------
+# host-side generation loop
+# ---------------------------------------------------------------------------
+
 @torch.inference_mode()
 def generate(model, prompt: torch.Tensor, *, steps: int,
              cache_len: Optional[int] = None, temperature: float = 0.0,
@@ -100,47 +425,56 @@ def generate(model, prompt: torch.Tensor, *, steps: int,
 
     ``model`` is a ``models.transformer.Transformer``; ``dispatch``
     overrides the MoE dispatch mode; ``long_context`` serves the
-    long-context variant (``global`` layers capped to ``local_window``).  As in the reference, the last token
-    is sampled without a further decode step (1 prefill + steps-1 decode
-    steps).  With ``stats`` given, the device is synchronised after the
-    prefill and at the end, and ``prefill_s``, ``decode_s`` and
-    ``decode_steps`` are written into it, with ``logits_finite``: whether
-    every logits row sampled from was finite.
+    long-context variant (``global`` layers capped to ``local_window``).
+    Steps come from the step cache (``build_prefill``, ``build_decode``):
+    a repeated call with the same shapes builds and captures nothing.  As
+    in the reference, the last token is sampled without a further decode
+    step (1 prefill + steps-1 decode steps).  With ``stats`` given, the
+    device is synchronised after the prefill and at the end, and
+    ``prefill_s``, ``decode_s`` and ``decode_steps`` are written into it,
+    with ``logits_finite``: whether every logits row sampled from was
+    finite.
     """
     cfg = serve_config(model.cfg, dispatch=dispatch)
     B, S = prompt.shape[:2]
     cache_len = cache_len or (S + steps)
     validate_decode_config(cfg, B, cache_len=cache_len)
     refuse_frontend(cfg)
-    step_cfg = resolve_decode_config(cfg, B)
+    prefill = build_prefill(model, cfg, cache_len=cache_len, batch=B,
+                            long_context=long_context)
     prompt = prompt.to(model.device)
-    t0 = time.perf_counter()
-    caches = model.init_caches(B, cache_len, long_context=long_context)
-    h, _, caches = model.forward(prompt, caches=caches, cfg=cfg,
-                                 long_context=long_context)
-    logits = model.logits_from_hidden(h[:, -1:])
-    if stats is not None:
-        _sync(model.device)
-        t1 = time.perf_counter()
-    out = [prompt]
-    finite = torch.ones((), dtype=torch.bool, device=model.device)
-    for i in range(steps):
-        last = logits[:, -1].float()
+    with holding_decode(model, cfg, batch=B, cache_len=cache_len,
+                        long_context=long_context) as step:
+        # the host mirror of the position: decode step i writes S + i
+        if (steps > 1 and step.capacity is not None
+                and S + steps - 2 >= step.capacity):
+            raise ValueError(f"cache of {step.capacity} positions is full "
+                             f"at pos={step.capacity}")
+        t0 = time.perf_counter()
+        step.reset()
+        logits, _ = prefill(prompt, step.caches)
         if stats is not None:
-            finite &= torch.isfinite(last).all()
-        if temperature > 0:
-            probs = torch.softmax(last / temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=generator)
-        else:
-            tok = last.argmax(dim=-1, keepdim=True)
-        out.append(tok.to(prompt.dtype))
-        if i + 1 < steps:
-            logits, caches = model.decode_step(tok, caches, cfg=step_cfg,
-                                               long_context=long_context)
-    result = torch.cat(out, dim=1)
-    if stats is not None:
-        _sync(model.device)
-        stats.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1,
-                     decode_steps=max(steps - 1, 0),
-                     logits_finite=bool(finite))
+            _sync(model.device)
+            t1 = time.perf_counter()
+        out = [prompt]
+        finite = torch.ones((), dtype=torch.bool, device=model.device)
+        for i in range(steps):
+            last = logits[:, -1].float()
+            if stats is not None:
+                finite &= torch.isfinite(last).all()
+            if temperature > 0:
+                probs = torch.softmax(last / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=generator)
+            else:
+                tok = last.argmax(dim=-1, keepdim=True)
+            out.append(tok.to(prompt.dtype))
+            if i + 1 < steps:
+                logits = step(tok, step_index=i)
+        result = torch.cat(out, dim=1)
+        if stats is not None:
+            _sync(model.device)
+            stats.update(prefill_s=t1 - t0,
+                         decode_s=time.perf_counter() - t1,
+                         decode_steps=max(steps - 1, 0),
+                         logits_finite=bool(finite))
     return result

@@ -237,3 +237,136 @@ def test_layers_match_reference(act):
     for j, t in pairs:
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5,
                                    atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the step-builder cache (one step per key; on the CPU a build counts)
+# ---------------------------------------------------------------------------
+
+def test_same_key_same_step_and_distinct_batches_distinct_steps(jax_params):
+    _, tc = _cfgs()
+    model = _port(jax_params, tc)
+    engine.clear_step_cache()
+    s1 = engine.build_decode(model, batch=2, cache_len=12)
+    s2 = engine.build_decode(model, batch=2, cache_len=12)
+    s3 = engine.build_decode(model, batch=4, cache_len=12)
+    assert s1 is s2 and s1 is not s3
+    assert s1.graph is None and s1.capacity == 12        # eager on the CPU
+    assert engine.build_decode(model, batch=2, cache_len=16) is not s1
+    p1 = engine.build_prefill(model, cache_len=12, batch=2)
+    assert p1 is engine.build_prefill(model, cache_len=12, batch=2)
+    assert engine.trace_budget_report() == {}
+    engine.clear_step_cache(model)
+    assert not engine.trace_counts
+
+
+def test_generate_reuses_its_steps(jax_params, mesh1):
+    """The first ``generate`` builds its prefill and decode steps once
+    each; a second identical call builds nothing, gives the same tokens
+    (the reference's greedy tokens), and ``trace_budget_report`` reports
+    a key only past its budget."""
+    jc, tc = _cfgs()
+    model = _port(jax_params, tc)
+    toks = _prompt(S=8)
+    engine.clear_step_cache()
+    a = engine.generate(model, torch.from_numpy(toks).long(), steps=5)
+    first = dict(engine.trace_counts)
+    assert sorted(k[0] for k in first) == ["decode", "prefill"]
+    assert all(v == 1 for v in first.values()), first
+    b = engine.generate(model, torch.from_numpy(toks).long(), steps=5)
+    assert dict(engine.trace_counts) == first
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    j = np.asarray(jengine.generate(jax_params, jc, jnp.asarray(toks),
+                                    steps=5, mesh=mesh1))
+    np.testing.assert_array_equal(a.numpy(), j)
+    assert engine.trace_budget_report() == {}
+    over = dict(first)
+    over[next(iter(over))] = 3
+    assert list(engine.trace_budget_report(counts=over).values()) == [3]
+    assert engine.trace_budget_report(budget=3, counts=over) == {}
+
+
+def test_two_models_of_one_config_generate_their_own_tokens(jax_params):
+    """The model is in the key: two models of one config with other
+    weights each decode through their own step (a captured graph binds
+    its model's weights), each giving the tokens it gives alone."""
+    _, tc = _cfgs()
+    a = _port(jax_params, tc)
+    b = Transformer(tc, device="cpu", seed=3)
+    toks = torch.from_numpy(_prompt(S=8)).long()
+    engine.clear_step_cache()
+    ta = engine.generate(a, toks, steps=5)
+    alone_b = engine.generate(b, toks, steps=5)
+    engine.clear_step_cache()
+    tb = engine.generate(b, toks, steps=5)
+    assert not torch.equal(ta, tb)
+    torch.testing.assert_close(tb, alone_b, rtol=0, atol=0)
+    torch.testing.assert_close(engine.generate(a, toks, steps=5), ta,
+                               rtol=0, atol=0)
+    assert len([k for k in engine.trace_counts if k[0] == "decode"]) == 2
+
+
+def test_generate_refuses_a_full_linear_cache(jax_params):
+    """The full-cache check lives in the caller's host mirror of the
+    position: decode step i writes position S + i."""
+    _, tc = _cfgs()
+    model = _port(jax_params, tc)
+    toks = torch.from_numpy(_prompt(S=8)).long()
+    engine.generate(model, toks, steps=3, cache_len=10)      # positions 8, 9
+    with pytest.raises(ValueError, match="cache of 10 positions is full"):
+        engine.generate(model, toks, steps=4, cache_len=10)
+
+
+def test_decode_step_takes_its_gate_noise_as_an_input():
+    """A noisy gate's decode draws (``decode_noise``, seed 0, the same at
+    every step) passed in give the step's own draws' logits bitwise; the
+    cache position is a 0-d int32 tensor advanced in place."""
+    from repro_torch.models import transformer as T
+    _, tc = _cfgs()
+    tc = tc.replace(moe=dataclasses.replace(tc.moe, gate="gshard", top_k=2))
+    model = Transformer(tc, device="cpu", seed=1)
+    toks = torch.from_numpy(_prompt(S=8)).long()
+    outs = []
+    with torch.inference_mode():
+        for noise in (None, T.decode_noise(tc, 2, model.device)):
+            caches = model.init_caches(2, 12)
+            pos = [c["pos"] for c in caches]
+            model.forward(toks, caches=caches)
+            lg, caches = model.decode_step(toks[:, -1:], caches, noise=noise)
+            outs.append(lg)
+            assert all(c["pos"] is p and p.dtype == torch.int32
+                       and p.dim() == 0 and int(p) == 9
+                       for c, p in zip(caches, pos))
+    assert T.decode_noise(tc.replace(moe=dataclasses.replace(
+        tc.moe, gate="topk")), 2, model.device) is None
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+
+
+def test_raw_step_factories_match_reference(jax_params, mesh1):
+    """The eager factories ``make_prefill_step`` (fresh caches) and
+    ``make_serve_step`` against the reference's: prefill's last logits and
+    two decode steps' within f32 atol 1e-4, and the built steps
+    (``build_prefill``, ``build_decode``) bitwise the eager ones."""
+    jc, tc = _cfgs()
+    model = _port(jax_params, tc)
+    toks = _prompt(S=10)
+    jl, jcache = jengine.make_prefill_step(jc, mesh1, cache_len=14)(
+        jax_params, jnp.asarray(toks))
+    tl, caches = engine.make_prefill_step(tc, cache_len=14)(
+        model, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    jstep = jengine.make_serve_step(jc, mesh1)
+    tstep = engine.make_serve_step(engine.resolve_decode_config(tc, 2))
+    with engine.holding_decode(model, batch=2, cache_len=14) as built:
+        built.reset()
+        bl, _ = engine.build_prefill(model, cache_len=14, batch=2)(
+            torch.from_numpy(toks).long(), built.caches)
+        torch.testing.assert_close(bl, tl, rtol=0, atol=0)
+        for i in range(2):
+            tok = np.array(jnp.argmax(jl[:, -1], -1))[:, None]
+            jl, jcache = jstep(jax_params, jnp.asarray(tok), jcache)
+            tl, caches = tstep(model, torch.from_numpy(tok).long(), caches)
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                       atol=1e-4, err_msg=f"step {i}")
+            torch.testing.assert_close(
+                built(torch.from_numpy(tok).long()), tl, rtol=0, atol=0)
