@@ -30,7 +30,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
    rows), and 2o holds the forward, dq and dk/dv at the frontend presets'
    training shapes of phase 15 (hubert B=8 H=KV=16 S=781 d=80
    non-causal; internvl2 B=2 16:8 S=4096 d=128 causal), kv head by kv
-   head, in f32 and bf16.
+   head, in f32 and bf16; 2p holds them at zamba2-7b's shared attention
+   (MHA 32:32, head dim 112, whose build instances must not spill):
+   the forward, dq and dk/dv at its training shape (B=2 S=4096 causal)
+   and the forward at its long-context prefill (B=4 S=8064, window
+   4096), timed beside SDPA and ``flex_attention``.
 3. Serving at full width: ``hetumoe-paper-16e`` (bf16, seeded random
    weights) through ``repro_torch.launch.serve.run`` → ``generate``, batch 8,
    32 new tokens: prompt 512 with ``grouped`` and with ``sort`` dispatch,
@@ -201,6 +205,25 @@ Phases, in order; any failure ends the script with a non-zero exit:
    replay's launches are what its prefills, decode steps and capture
    imply, each ``TrafficReport`` is printed whole, with the idle share of
    a profiled stretch of 16 busy decode steps and the peak memory.
+17. The recurrent kinds (bf16, seeded weights): ``rwkv6-1.6b`` (24
+   ``rwkv`` layers) and ``zamba2-7b`` (81 layers, Mamba-2 and the shared
+   attention block at 27 of them) served whole at their published widths,
+   batch 4, through ``launch.serve.run`` → ``generate``: rwkv6 at prompts
+   1024 and 8192 (64 chunks of 128) + 64, zamba2 at 1024 + 64 and, through
+   ``generate(long_context=True)``, 8064 + 128 (the shared block's rings
+   of 4096 overflow in the prefill and wrap in decode), two runs per cell
+   (greedy tokens equal, finite logits, the flash forward once per
+   attending layer per prefill past 512 tokens and no other kernel);
+   prefill and decode times, tokens/s and peaks; a profiled prefill and
+   decode steps per preset and the graph decode step against the eager
+   one (bitwise; the recurrent states put back between the two).  Then
+   an ``rwkv`` and a ``mamba_sa`` block card against CPU in f32 at seq
+   1024 (output and final states within 1e-4 of their max) and the
+   chunked prefill against 16 recurrent decode steps on the card; both
+   presets trained at seq 4096 (rwkv6 whole through ``launch.train.run``,
+   zamba2 cut to whole periods, the first of the tries that fits), 2 + 8
+   AdamW steps: no step skipped, finite metrics, kernels 7-9 once per
+   attending layer a step; a ``SlotServer`` replay over rwkv6 twice.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all ten kernels; the row-per-step gather, on no
@@ -209,8 +232,8 @@ serving or training path, with the launches of its phase-5 run), and
 and 5 only, for work on a kernel, ``--phases trainer`` phases 1, 9-11
 and 14, ``--phases presets`` phases 1, 12 and 13, ``--phases
 frontends`` phases 1, 2g-2i, 2o, phase 5's rows at the frontend presets'
-shapes and 15, and ``--phases serving`` phases 1, 3 and 16; each ends
-with ``"ok": false``.  The script
+shapes and 15, ``--phases serving`` phases 1, 3 and 16, and ``--phases
+recurrent`` phases 1, 2p and 17; each ends with ``"ok": false``.  The script
 imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -1502,9 +1525,12 @@ def flex_yardstick(torch, q, k, v, scale, window, cap):
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
 
 
-def phase_windowed_flash(torch, dev, smi, errs):
+def phase_windowed_flash(torch, dev, smi, errs, shapes=None, phase="2m",
+                         key="flash_fwd_wide"):
     """Phase 2m: the flash forward at the windowed presets' prefill of
-    ``WINDOWED_B`` prompts of ``WINDOWED_S`` tokens (``WINDOWED_FLASH``),
+    ``WINDOWED_B`` prompts of ``WINDOWED_S`` tokens (``shapes``, by
+    default ``WINDOWED_FLASH``; phase 2p gives zamba2's, its largest
+    error under ``key``),
     checked in f32 and bf16 against its plain version on the same inputs
     (``check_by_kv_head``, ``WIDE_TOLERANCES``) and timed in bf16 as
     phase 5 times it: ``bound_ms`` from the (q, k) pairs the causal
@@ -1527,11 +1553,11 @@ def phase_windowed_flash(torch, dev, smi, errs):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     B, S = WINDOWED_B, WINDOWED_S
     pos = torch.arange(S, dtype=torch.int32, device=dev)
-    print(f"phase 2m: flash forward at the windowed presets' prefill (B={B}"
+    print(f"phase {phase}: flash forward at the windowed prefill (B={B}"
           f" S={S} causal): f32 and bf16 against its plain version "
           f"({WIDE_TOLERANCES}); bf16 timed as in phase 5, beside "
           f"flex_attention")
-    for name, H, KV, d, window, cap in WINDOWED_FLASH:
+    for name, H, KV, d, window, cap in shapes or WINDOWED_FLASH:
         G = H // KV
         q = torch.randn((B, H, S, d), generator=gd, device=dev)
         k, v = (torch.randn((B, KV, S, d), generator=gd, device=dev)
@@ -1551,8 +1577,7 @@ def phase_windowed_flash(torch, dev, smi, errs):
         others = {} if flex is None else {"flex_attention": {"o": flex()}}
         ok, worst, note, dist = check_by_kv_head(
             torch, F, q, k, v, pos, pos, st, o_k, lse_k, others=others)
-        errs["flash_fwd_wide"] = max(errs.get("flash_fwd_wide", 0.0),
-                                     worst["o"])
+        errs[key] = max(errs.get(key, 0.0), worst["o"])
         print(f"  {name} bf16 o: max abs err {worst['o']:.3e}{note}: {ok}")
         check(ok, f"flash forward {name} bf16 disagrees with its plain "
                   f"version")
@@ -1783,22 +1808,25 @@ def phase_flash_wide_bwd(torch, dev, smi, errs):
     return rows
 
 
-def phase_flash_frontends(torch, dev, errs):
+def phase_flash_frontends(torch, dev, errs, shapes=None, phase="2o",
+                          suffix="_frontends"):
     """Phase 2o: kernels 7-9 at the frontend presets' training shapes
-    (``FRONTEND_FLASH``: hubert-xlarge non-causal at d=80 with a last tile
-    of 13 rows, internvl2-2b causal GQA 16:8 at S=4096) against their plain
+    (``shapes``, by default ``FRONTEND_FLASH``: hubert-xlarge non-causal at
+    d=80 with a last tile of 13 rows, internvl2-2b causal GQA 16:8 at
+    S=4096; phase 2p gives zamba2's) against their plain
     versions on the card, on the same inputs, in f32 and bf16, to 2g's
     tolerances (``FLASH_TOLERANCES``), kv head by kv head
     (``check_by_kv_head``: o and lse, then dq and dk/dv fed the forward
     kernel's lse and o as training feeds them; the bf16 bound sums over
     dp = 80 at hubert's head dim).  The largest errors land in
-    errs[``flash_*_frontends``]; phase 5 times the kernels there."""
+    errs[``flash_*`` + ``suffix``]; phase 5 times the kernels there."""
     from repro_torch.kernels import flash_attention as F
     gd = torch.Generator(device=dev).manual_seed(2222)
-    print(f"phase 2o: flash forward, dq and dk/dv at the frontend presets' "
-          f"training shapes, kv head by kv head (the backward fed the "
-          f"forward kernel's lse and o); {FLASH_TOLERANCES}")
-    for name, B, H, KV, S, d, causal in FRONTEND_FLASH:
+    print(f"phase {phase}: flash forward, dq and dk/dv at the training "
+          f"shapes {[t[0] for t in shapes or FRONTEND_FLASH]}, kv head by kv "
+          f"head (the backward fed the forward kernel's lse and o); "
+          f"{FLASH_TOLERANCES}")
+    for name, B, H, KV, S, d, causal in shapes or FRONTEND_FLASH:
         pos = torch.arange(S, dtype=torch.int32, device=dev)
         st = (d ** -0.5, causal, None, None)
         x32 = [torch.randn(s, generator=gd, device=dev) for s in
@@ -1812,7 +1840,7 @@ def phase_flash_frontends(torch, dev, errs):
                 torch, F, q, k, v, pos, pos, st, o, lse, do=do)
             for key, whats in (("flash_fwd", ("o",)), ("flash_dq", ("dq",)),
                                ("flash_dkv", ("dk", "dv"))):
-                key += "_frontends"
+                key += suffix
                 errs[key] = max(errs.get(key, 0.0),
                                 *(worst[w] for w in whats))
             print(f"  {label} {dt}: max abs err " + ", ".join(
@@ -1867,29 +1895,46 @@ def decode_captures() -> int:
     return sum(n for k, n in engine.trace_counts.items() if k[0] == "decode")
 
 
+def state_leaves(caches) -> list:
+    """The cache tensors a decode step rewrites whole: the positions and
+    the recurrent states (``s``, ``x_last``, ``conv``); not the attention
+    keys and values, of which a step writes one slot that a rerun from the
+    same position rewrites."""
+    out = []
+    for c in caches:
+        for name, t in c.items():
+            if isinstance(t, dict):
+                out += state_leaves([t])
+            elif name not in ("k", "v"):
+                out.append(t)
+    return out
+
+
 # decode steps of the graph-against-eager comparison: checked one by one,
 # then timed (and profiled) per form
 GRAPH_CHECK_STEPS, GRAPH_TIMED_STEPS = 4, 8
 
 
 def decode_graph_vs_eager(torch, smi, model, cfg, B: int, S: int,
-                          label: str, *, seed: int = 5) -> dict:
+                          label: str, *, seed: int = 5,
+                          timed: int = GRAPH_TIMED_STEPS) -> dict:
     """The decode step captured in a CUDA graph (``engine.build_decode``)
     against the eager step (``engine.make_serve_step``) on the same
     prefilled caches: B prompts of S tokens prefilled into the graph
     step's caches, then ``GRAPH_CHECK_STEPS`` steps each run by the graph,
-    the position stepped back, and run again eagerly from the same state
-    (the eager step rewrites the slot the graph wrote, with its own k and
-    v): the logits must be bitwise equal, since both run the same kernels
+    the positions and recurrent states put back (``state_leaves``), and
+    run again eagerly from the same state (the eager step rewrites the
+    slot the graph wrote, with its own k and v): the logits must be
+    bitwise equal, since both run the same kernels
     in the same order (else within one bf16 ulp of max|logit| with equal
-    greedy tokens, reported as not bitwise).  Then ``GRAPH_TIMED_STEPS``
-    greedy steps of each form timed (host clock to a synchronise) and as
-    many profiled: device ms, idle share, kernel launches and graph
-    launches per step."""
+    greedy tokens, reported as not bitwise).  Then ``timed``
+    (``GRAPH_TIMED_STEPS``) greedy steps of each form timed (host clock to
+    a synchronise) and as many profiled: device ms, idle share, kernel
+    launches and graph launches per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import engine
-    n, m = GRAPH_CHECK_STEPS, GRAPH_TIMED_STEPS
+    n, m = GRAPH_CHECK_STEPS, timed
     cache_len = S + n + 4 * m + 1
     prompt = torch.randint(0, cfg.vocab_size, (B, S),
                            generator=torch.Generator().manual_seed(seed))
@@ -1904,9 +1949,10 @@ def decode_graph_vs_eager(torch, smi, model, cfg, B: int, S: int,
         logits, _ = prefill(prompt, step.caches)
         tok = logits[:, -1].argmax(-1, keepdim=True)
         for _ in range(n):
+            saved = [t.clone() for t in state_leaves(step.caches)]
             lg_g = step(tok).clone()
-            for c in step.caches:
-                c["pos"].sub_(1)
+            for t, was in zip(state_leaves(step.caches), saved):
+                t.copy_(was)
             lg_e, _ = eager(model, tok, step.caches)
             if not torch.equal(lg_g, lg_e):
                 out["bitwise"] = False
@@ -1938,7 +1984,7 @@ def decode_graph_vs_eager(torch, smi, model, cfg, B: int, S: int,
                 run(fn)
                 torch.cuda.synchronize()
             dev_ms = _device_ms(prof, DeviceType) / m
-            host = [e for e in prof.key_averages()
+            host = [e for e in _averages(prof)
                     if e.device_type == DeviceType.CPU]
             out[name] = dict(
                 wall_ms=wall, device_ms=dev_ms, idle=1 - dev_ms / wall,
@@ -2398,13 +2444,13 @@ FRONTEND_FLASH = (("hubert-xlarge", 8, 16, 16, 781, 80, False),
                   ("internvl2-2b", 2, 16, 8, 4096, 128, True))
 
 
-def frontend_timings(torch, dev, smi):
-    """Phase 5's rows of kernels 7-9 at ``FRONTEND_FLASH`` (``flash_timings``
-    with each preset's name: SDPA's forward + backward beside the
-    kernels')."""
+def frontend_timings(torch, dev, smi, shapes=None):
+    """Phase 5's rows of kernels 7-9 at ``shapes`` (by default
+    ``FRONTEND_FLASH``; ``flash_timings`` with each preset's name: SDPA's
+    forward + backward beside the kernels')."""
     g = torch.Generator(device="cpu").manual_seed(98)
     rows = TimingRows(torch, smi)
-    for name, B, H, KV, S, d, causal in FRONTEND_FLASH:
+    for name, B, H, KV, S, d, causal in shapes or FRONTEND_FLASH:
         flash_timings(torch, dev, g, rows.add, B, H, KV, S, d, causal, name)
         torch.cuda.empty_cache()
     return rows
@@ -2414,9 +2460,18 @@ def frontend_timings(torch, dev, smi):
 # phase 6: where the time goes
 # ---------------------------------------------------------------------------
 
+def _averages(prof):
+    """``prof.key_averages()``, aggregated once per profile (each call
+    walks every event anew)."""
+    avgs = getattr(prof, "chip_smoke_averages", None)
+    if avgs is None:
+        avgs = prof.chip_smoke_averages = prof.key_averages()
+    return avgs
+
+
 def _device_ms(prof, DeviceType) -> float:
     """Sum of the device time of every kernel the profiler saw, in ms."""
-    return sum(e.self_device_time_total for e in prof.key_averages()
+    return sum(e.self_device_time_total for e in _averages(prof)
                if e.device_type == DeviceType.CUDA) / 1e3
 
 
@@ -2498,13 +2553,13 @@ def profile_serving(torch, smi, model, cfg, mode, S, B, *, seed=3,
         dev_ms = _device_ms(prof, DeviceType) / n
         print(f"  [{smi}] {cell} {label}: wall {wall:.3f} ms, device "
               f"{dev_ms:.3f} ms, idle {1 - dev_ms / wall:.3f}")
-        kernels = sorted((e for e in prof.key_averages()
+        kernels = sorted((e for e in _averages(prof)
                           if e.device_type == DeviceType.CUDA),
                          key=lambda e: -e.self_device_time_total)
         for e in kernels[:6]:
             print(f"      {e.self_device_time_total / 1e3 / n:8.3f} ms "
                   f"x{e.count // n:<3d} {e.key[:90]}")
-        host = sorted((e for e in prof.key_averages()
+        host = sorted((e for e in _averages(prof)
                        if e.device_type == DeviceType.CPU),
                       key=lambda e: -e.self_cpu_time_total)
         calls = sum(e.count for e in host) // n
@@ -2593,7 +2648,7 @@ def phase_profile_train(torch, smi):
         print(f"  [{smi}] {mode} seq {S} train step: wall {wall:.3f} ms, device "
               f"{dev_ms:.3f} ms, idle {1 - dev_ms / wall:.3f}, loss "
               f"{float(m['loss']):.4f}")
-        kernels = sorted((e for e in prof.key_averages()
+        kernels = sorted((e for e in _averages(prof)
                           if e.device_type == DeviceType.CUDA),
                          key=lambda e: -e.self_device_time_total)
         for e in kernels[:10]:
@@ -2608,7 +2663,7 @@ def phase_profile_train(torch, smi):
                 own[name] = (e.self_device_time_total / 1e3, e.count)
         print("      port kernels: " + ", ".join(
             f"{k} {t:.3f} ms x{n}" for k, (t, n) in own.items()))
-        host = [e for e in prof.key_averages()
+        host = [e for e in _averages(prof)
                 if e.device_type == DeviceType.CPU]
         launches = sum(e.count for e in host if e.key == "cudaLaunchKernel")
         print(f"      host: {sum(e.count for e in host)} profiled calls, "
@@ -3421,7 +3476,7 @@ def preset_expect(cfg, mode, prompt_len: int, forwards: int) -> dict:
     grouped only; the flash forward once per layer in a prefill past
     q_chunk; a dense layer none of 1-3 and 6."""
     n_moe = cfg.block_pattern.count("moe") * cfg.num_super_blocks
-    flash = cfg.num_layers if prompt_len > Q_CHUNK else 0
+    flash = attention_layers(cfg) if prompt_len > Q_CHUNK else 0
     if cfg.moe is None:
         return {"topk_gate": 0, "gather_rows": 0, "grouped_matmul": 0,
                 "scatter_add_rows": 0, "flash_fwd": flash}
@@ -3432,6 +3487,13 @@ def preset_expect(cfg, mode, prompt_len: int, forwards: int) -> dict:
             "grouped_matmul": mats * n_moe * forwards if grouped else 0,
             "scatter_add_rows": n_moe * forwards if grouped else 0,
             "flash_fwd": flash}
+
+
+def attention_layers(cfg) -> int:
+    """The layers that attend: all but ``rwkv`` and ``mamba`` ones
+    (``mamba_sa`` attends through the shared block)."""
+    from repro_torch.models.transformer import layer_kinds
+    return sum(k not in ("rwkv", "mamba") for k in layer_kinds(cfg))
 
 
 def mem_available_gib() -> float:
@@ -3551,9 +3613,11 @@ def phase_presets(torch, smi):
                          init_peak_gib=init_peak, reduced=reduced,
                          cells=cells, profile=profile, graph_vs_eager=graph)
         engine.clear_step_cache(model)      # the cache holds the model
+        stamp(f"{arch} served")
         del model
     release(torch)
     out["card vs cpu"] = phase_presets_card_vs_cpu(torch, smi)
+    stamp("phase 12 card vs CPU")
     return totals, out
 
 
@@ -3832,9 +3896,11 @@ def phase_windowed(torch, smi):
             out["ring vs linear"] = ring_vs_linear(
                 torch, smi, model, cfg, prompts[S], gen)
         engine.clear_step_cache(model)      # the cache holds the model
+        stamp(f"{arch} served")
         del model
     release(torch)
     out["card vs cpu"] = phase_windowed_card_vs_cpu(torch, smi)
+    stamp("phase 13 card vs CPU")
     return totals, out
 
 
@@ -4057,12 +4123,15 @@ def phase_windowed_train(torch, smi):
     return totals, out
 
 
-def profile_train_step(torch, smi, label, step, state, batch, index):
+def profile_train_step(torch, smi, label, step, state, batch, index, *,
+                       cuda_only=False):
     """One more train step ``step(state, batch, step=index)`` under
     ``torch.cuda.set_sync_debug_mode`` (``host_waits``: none may remain),
     then one profiled: wall (host clock to a synchronise), the device
     time of all kernels, the idle share, the top 10 kernels.  Returns
-    (host waits, profile numbers)."""
+    (host waits, profile numbers).  ``cuda_only``: the device's kernels
+    only, no host events (a step of ~10^5 host events takes the profiler
+    tens of seconds to parse)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     waits = host_waits(torch, lambda: step(state, batch, step=index))
@@ -4070,14 +4139,15 @@ def profile_train_step(torch, smi, label, step, state, batch, index):
           f"{len(waits)} {sorted(set(waits))}")
     check(not waits, f"{label}: a train step made the host wait: {waits}")
     release(torch)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA] + ([] if cuda_only
+                                      else [ProfilerActivity.CPU])
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         step(state, batch, step=index)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     dev_ms = _device_ms(prof, DeviceType)
-    kernels = sorted((e for e in prof.key_averages()
+    kernels = sorted((e for e in _averages(prof)
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     print(f"  [{smi}] {label} profiled step: wall {wall:.3f} ms, device "
@@ -4508,7 +4578,8 @@ TRAFFIC_DBRX_LAYERS = 2                  # phase 12's cut
 TRAFFIC_PROFILED_STEPS = 16
 
 
-def replay_once(torch, model, fields, *, graph=True, plan=None):
+def replay_once(torch, model, fields, *, graph=True, plan=None,
+                server=None):
     """One replay of the workload ``fields`` (``TrafficConfig``'s) on a
     new ``SlotServer`` over ``model``, the counters set to 0 just before
     the server is built (a capture's warm-up step counts) and read after:
@@ -4516,7 +4587,8 @@ def replay_once(torch, model, fields, *, graph=True, plan=None):
     have risen by exactly what the path implies (per MoE layer and
     forward, ``preset_expect``; a forward is a slot prefill, a decode step
     or the warm-up; the flash forward once per layer in a prefill past
-    512).  Returns (report, {uid: tokens}, counts, facts of the run)."""
+    512).  ``server``: the ``SlotServer`` arguments (default ``TRAFFIC``).
+    Returns (report, {uid: tokens}, counts, facts of the run)."""
     from repro_torch.core import faults
     from repro_torch.serving import (SlotServer, TrafficConfig, replay,
                                      synthesize_workload)
@@ -4524,7 +4596,7 @@ def replay_once(torch, model, fields, *, graph=True, plan=None):
     wl = synthesize_workload(TrafficConfig(**fields), cfg)
     reset_counts()
     caps = decode_captures()
-    srv = SlotServer(model, graph=graph, **TRAFFIC)
+    srv = SlotServer(model, graph=graph, **(server or TRAFFIC))
     warm = decode_captures() - caps if graph else 0
     calls = srv._step.calls
     with faults.active(plan):
@@ -4537,7 +4609,7 @@ def replay_once(torch, model, fields, *, graph=True, plan=None):
                  warmup_steps=warm, prefills=len(served),
                  prefills_past_512=long)
     want = preset_expect(cfg, "grouped", 0, srv._decode_steps + len(served)
-                         + warm) | {"flash_fwd": cfg.num_layers * long}
+                         + warm) | {"flash_fwd": attention_layers(cfg) * long}
     check(counts == want, f"replay {fields}: launches {counts} != {want}")
     check(facts["step_calls"] == srv._decode_steps,
           f"replay: {facts['step_calls']} step calls for "
@@ -4695,6 +4767,451 @@ def phase_traffic(torch, smi):
     return totals, out
 
 
+# ---------------------------------------------------------------------------
+# phase 2p: kernels 7-9 at zamba2-7b's shared attention (head dim 112)
+# ---------------------------------------------------------------------------
+
+# zamba2-7b's shared block: MHA 32:32 at head dim 3584 / 32 = 112; the
+# training shape of phase 17d, batch 2 x seq 4096 causal (name, B, H, KV,
+# S, d, causal), and the long-context prefill of phase 17b, batch 4 x 8064
+# under the window of 4096 (name, H, KV, d, window, cap; B and S are
+# WINDOWED_B, WINDOWED_S)
+ZAMBA_FLASH_TRAIN = (("zamba2-7b", 2, 32, 32, 4096, 112, True),)
+ZAMBA_FLASH_PREFILL = (("zamba2-7b long-context", 32, 32, 112, 4096, None),)
+
+
+def ptxas_spills(report: str, dim: int) -> list:
+    """(kernel, spill bytes) of each instance at head dim ``dim`` (``<dim,
+    ...>`` mangled as ``ILi<dim>E``) in the build's ptxas report."""
+    import re
+    out, entry = [], None
+    for line in report.splitlines():
+        if "Compiling entry" in line:
+            entry = line.split(chr(39))[1]
+            if f"ILi{dim}E" in entry:
+                out.append([entry[:100], 0])
+            else:
+                entry = None
+        elif entry is not None and "spill" in line:
+            out[-1][1] += sum(int(x) for x in
+                              re.findall(r"(\d+) bytes spill", line))
+    return out
+
+
+def phase_flash_zamba2(torch, dev, smi, errs):
+    """Phase 2p: kernels 7-9 at head dim 112, first launched here: the
+    build's instances at d=112 must not spill (ptxas -v); the forward, dq
+    and dk/dv at ``ZAMBA_FLASH_TRAIN`` and the forward at
+    ``ZAMBA_FLASH_PREFILL``, f32 and bf16, against their plain versions
+    kv head by kv head under phase 2's bounds (``phase_flash_frontends``,
+    ``phase_windowed_flash``); then timed as phase 5 times them, beside
+    SDPA (the training shape: the same causal function) and
+    ``flex_attention`` (the windowed prefill).  Returns the timing rows;
+    the largest errors land in errs[``flash_*_zamba2``]."""
+    from repro_torch.kernels import build
+    spills = ptxas_spills(build.build_info.get("ptxas", ""), 112)
+    print(f"phase 2p: kernels 7-9 at zamba2-7b's head dim 112: "
+          f"{len(spills)} instances at d=112 in the build, spill bytes "
+          f"{sum(b for _, b in spills)}")
+    for entry, nbytes in spills:
+        print(f"    {entry}: {nbytes} bytes spill")
+    check(spills and not any(b for _, b in spills),
+          f"the d=112 flash instances spill or are missing: {spills}")
+    phase_flash_frontends(torch, dev, errs, ZAMBA_FLASH_TRAIN, "2p",
+                          "_zamba2")
+    rows = phase_windowed_flash(torch, dev, smi, errs, ZAMBA_FLASH_PREFILL,
+                                "2p", "flash_fwd_zamba2")
+    rows += frontend_timings(torch, dev, smi, ZAMBA_FLASH_TRAIN)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the recurrent kinds, rwkv6-1.6b and zamba2-7b
+# ---------------------------------------------------------------------------
+
+# (arch, serving cells (prompt, new tokens, long_context)): rwkv6's 8192
+# gives 64 chunks of 128; zamba2's 8064 + 128 under long_context wraps the
+# shared block's rings of local_window = 4096 (the prefill overflows them)
+RECURRENT_SERVE = (("rwkv6-1.6b", ((1024, 64, False), (8192, 64, False))),
+                   ("zamba2-7b", ((1024, 64, False), (8064, 128, True))))
+RECURRENT_B = 4
+RECURRENT_BLOCK_S = 1024           # card against CPU, f32
+RECURRENT_DECODE_TAIL = 16         # chunked prefill against decode steps
+RECURRENT_TRAIN_S = 4096           # the reference's train_4k length
+RECURRENT_TRAIN_STEPS = dict(warmup=2, timed=8)
+# decode steps profiled, and timed per form against the graph, in 17a/17b:
+# an eager zamba2 step is ~6,400 launches and ~31,000 host events, which
+# take the profiler seconds to parse
+RECURRENT_PROFILED_STEPS = 2
+# (arch, tries in order: (periods, None for the published depth; batch;
+# remat)); the first that fits one card runs.  Reckoned from ~37 bytes a
+# parameter at the update (PERF.md section 7) and the activations of a
+# forward at seq 4096 (measured: 5 zamba2 periods, 1.451B parameters,
+# peaked at 49.2 GiB: ~21.6 of f32 params, moments and grads, ~1.8 a
+# Mamba-2 layer): 7 of 27 periods (21 layers, 1.919B) ~28.6 + 38 GiB in
+# the backward, ~65 GiB at the update; 8 (2.153B) ~75 GiB, too close to
+# the card's 79.2 GiB.  rwkv6 whole (1.499B) at batch 2 x 4096 peaked at
+# 57.4 GiB
+RECURRENT_TRAIN = (("rwkv6-1.6b", ((None, 2, "none"), (None, 1, "none"),
+                                   (None, 2, "block"))),
+                   ("zamba2-7b", ((7, 1, "none"), (6, 1, "none"),
+                                  (5, 1, "none"))))
+# SlotServer over rwkv6 at full width: phase 16's slots, caches and queue
+# (no dispatch: no MoE layer), replaying its poisson scenario
+RECURRENT_TRAFFIC = dict(slots=8, cache_len=1088, queue_limit=32)
+
+
+def phase_recurrent(torch, smi):
+    """Phase 17: the recurrent kinds.  17a/17b serve rwkv6-1.6b (24
+    ``rwkv`` layers) and zamba2-7b (81: ``mamba``, ``mamba``,
+    ``mamba_sa``) whole at their published widths, bf16, batch
+    ``RECURRENT_B``, through ``launch.serve.run`` → ``generate`` (the
+    long-context cell through ``generate(long_context=True)``: the serving
+    CLI has no such flag, as the reference's has none), two runs per cell:
+    greedy tokens equal, finite logits, the flash forward once per
+    attending layer per prefill past 512 tokens and no other kernel; then
+    per preset, at its first prompt (1024), a profiled prefill and decode
+    steps and the graph decode step against the eager one (bitwise).  17c holds one ``rwkv`` block
+    and one ``mamba_sa`` block card against CPU in f32, and the chunked
+    prefill against the recurrent decode on the card.  17d trains both
+    (``phase_recurrent_train``), 17e replays a ``SlotServer`` workload over
+    rwkv6.  Returns (launch totals, results)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import engine
+    B = RECURRENT_B
+    names = [k for k, _, _ in COUNTERS]
+    totals = dict.fromkeys(names, 0)
+    print(f"phase 17: the recurrent kinds whole at published widths, bf16, "
+          f"batch {B}, cells (prompt, new tokens, long_context) "
+          f"{dict(RECURRENT_SERVE)}, 2 runs per cell (times from the second)")
+    out = {}
+    for arch, cells in RECURRENT_SERVE:
+        cfg = configs.get_config(arch)
+        res = out[arch] = {}
+        for S, gen, long_context in cells:
+            cell = (f"{arch} prompt {S} + {gen}"
+                    + (" long_context" if long_context else ""))
+            release(torch)
+            torch.cuda.reset_peak_memory_stats()
+            runs = []
+            for _ in range(2):
+                st = {}
+                reset_counts()
+                if long_context:
+                    model = Transformer(cfg, device="cuda", seed=0)
+                    prompt = torch.randint(
+                        0, cfg.vocab_size, (B, S),
+                        generator=torch.Generator().manual_seed(0))
+                    toks = engine.generate(model, prompt, steps=gen,
+                                           long_context=True, stats=st)
+                    engine.clear_step_cache(model)
+                    del model
+                else:
+                    toks = serve_launch.run(arch, smoke=False, batch=B,
+                                            prompt_len=S, gen=gen, seed=0,
+                                            device="cuda", stats=st)
+                counts = read_counts(names)
+                runs.append((toks.cpu(), st, counts))
+                want = dict.fromkeys(names, 0) | {
+                    "flash_fwd": attention_layers(cfg) * (S > Q_CHUNK)}
+                check(counts == want,
+                      f"{cell}: launches {counts} != expected {want}")
+                check(st["logits_finite"], f"{cell}: non-finite logits")
+                for k in totals:
+                    totals[k] += counts[k]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            toks, st, counts = runs[1]
+            check(tuple(toks.shape) == (B, S + gen),
+                  f"{cell}: output shape {tuple(toks.shape)}")
+            same = torch.equal(runs[0][0], toks)
+            check(same, f"{cell}: greedy tokens differ between two runs")
+            decode_ms = 1e3 * st["decode_s"] / st["decode_steps"]
+            tok_s = B * gen / (st["prefill_s"] + st["decode_s"])
+            print(f"  [{smi}] {cell}: prefill {1e3 * st['prefill_s']:.3f} ms "
+                  f"({B * S / st['prefill_s']:.1f} prompt tokens/s; first "
+                  f"run {1e3 * runs[0][1]['prefill_s']:.3f}), decode "
+                  f"{decode_ms:.3f} ms/step, {tok_s:.1f} generated tokens/s, "
+                  f"peak memory {peak:.3f} GiB, greedy tokens equal over 2 "
+                  f"runs={same}, launches {counts}")
+            res[cell] = dict(prefill_ms=1e3 * st["prefill_s"],
+                             decode_ms_per_step=decode_ms,
+                             tokens_per_s=tok_s, peak_gib=peak,
+                             launches=counts)
+            stamp(cell)
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        model = Transformer(cfg, device="cuda", seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        weights = torch.cuda.memory_allocated() / 2 ** 30
+        print(f"  [{smi}] {arch}: {cfg.num_layers} layers "
+              f"{cfg.block_pattern}, {n_params / 1e9:.3f}B parameters, "
+              f"weights {weights:.3f} GiB")
+        S = cells[0][0]
+        res["params"], res["weights_gib"] = n_params, weights
+        res["profile"] = profile_serving(
+            torch, smi, model, cfg, None, S, B, name=f"{arch} ",
+            decode_steps=RECURRENT_PROFILED_STEPS)
+        res["graph_vs_eager"] = decode_graph_vs_eager(
+            torch, smi, model, cfg, B, S, f"{arch} prompt {S}",
+            timed=RECURRENT_PROFILED_STEPS)
+        engine.clear_step_cache(model)
+        del model
+        stamp(f"phase 17{'ab'[arch == 'zamba2-7b']} ({arch} served)")
+    release(torch)
+    out["card vs cpu"] = recurrent_blocks_card_vs_cpu(torch, smi)
+    stamp("phase 17c")
+    train_counts, out["train"] = phase_recurrent_train(torch, smi)
+    stamp("phase 17d")
+    out["traffic"] = recurrent_traffic(torch, smi)
+    for k in totals:
+        totals[k] += train_counts[k]
+    check(all(totals[k] > 0 for k in FLASH_NAMES),
+          f"a flash kernel was not launched on the recurrent presets' path: "
+          f"{totals}")
+    return totals, out
+
+
+def recurrent_blocks_card_vs_cpu(torch, smi):
+    """Phase 17c, card against CPU at full width in f32, batch 1, seq
+    ``RECURRENT_BLOCK_S`` (past q_chunk: the flash forward on the card, its
+    plain version on the CPU): one rwkv6 ``rwkv`` block and one zamba2
+    ``mamba_sa`` block with the shared attention, from the same weights
+    (drawn on the CPU; the leaves that init to zero or one — the LoRA's
+    ``sa_lora_b``, Mamba's ``norm``, RWKV's ``ln_x`` — drawn non-zero),
+    each block's output and final state (the caches' recurrent tensors
+    and the shared attention's keys and values) within 1e-4 of their max,
+    phase 12's budget.  Then, on the card, the chunked prefill of all S
+    tokens against a prefill of S - ``RECURRENT_DECODE_TAIL`` tokens and
+    that many recurrent decode steps: the last outputs within 1e-4 of
+    their max."""
+    from repro_torch import configs, tree
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models.transformer import (block_forward, init_block,
+                                                init_cache)
+    S, n = RECURRENT_BLOCK_S, RECURRENT_DECODE_TAIL
+    print(f"phase 17c (card vs CPU): f32, batch 1, seq {S}; tolerance "
+          f"max|card - cpu| <= 1e-4 * max|cpu| for the output and each "
+          f"state tensor; chunked prefill against {n} decode steps on the "
+          f"card, 1e-4 of the max")
+    out = {}
+    for arch, kind in (("rwkv6-1.6b", "rwkv"), ("zamba2-7b", "mamba_sa")):
+        cfg = configs.get_config(arch).replace(dtype="float32")
+        g = torch.Generator().manual_seed(171)
+        p = init_block(cfg, kind, g)
+        shared = None
+        if kind == "mamba_sa":
+            p["sa_lora_b"] = torch.randn(p["sa_lora_b"].shape, generator=g) \
+                * cfg.d_model ** -0.5
+            p["mamba"]["norm"] = 0.1 * torch.randn(p["mamba"]["norm"].shape,
+                                                   generator=g)
+            shared = {"ln": 0.1 * torch.randn((cfg.d_model,), generator=g),
+                      "attn": attn_lib.init_attention(g, cfg.attention,
+                                                      cfg.d_model)}
+        else:
+            p["rwkv"]["ln_x"] = 1 + 0.1 * torch.randn(
+                p["rwkv"]["ln_x"].shape, generator=g)
+        x = torch.randn((1, S, cfg.d_model), generator=g)
+        results = []
+        for dev in ("cpu", "cuda"):
+            pd, sd = (tree.map_(lambda t: t.to(dev), t) if t is not None
+                      else None for t in (p, shared))
+            cache = init_cache(cfg, kind, 1, S, dtype=torch.float32,
+                               device=dev)
+            pos = torch.arange(S, dtype=torch.int32, device=dev)
+            with torch.inference_mode():
+                y, cache, _ = block_forward(pd, x.to(dev), cfg, kind=kind,
+                                            positions=pos, cache=cache,
+                                            shared=sd)
+            results.append([t.cpu() for t in (y, *tree.leaves(cache))
+                            if t.is_floating_point()])
+        worst = max((a - b).abs().max().item()
+                    / max(a.abs().max().item(), 1e-30)
+                    for a, b in zip(*results, strict=True))
+        # on the card: the prefill of S - n tokens, then n decode steps
+        dev = "cuda"
+        pd, sd = (tree.map_(lambda t: t.to(dev), t) if t is not None
+                  else None for t in (p, shared))
+        xd = x.to(dev)
+        cache = init_cache(cfg, kind, 1, S, dtype=torch.float32, device=dev)
+        with torch.inference_mode():
+            block_forward(pd, xd[:, :S - n], cfg, kind=kind,
+                          positions=torch.arange(S - n, dtype=torch.int32,
+                                                 device=dev),
+                          cache=cache, shared=sd)
+            steps = [block_forward(pd, xd[:, t:t + 1], cfg, kind=kind,
+                                   cache=cache, decode=True, shared=sd)[0]
+                     for t in range(S - n, S)]
+        full = results[1][0][:, S - n:]
+        dec = torch.cat(steps, dim=1).cpu()
+        tail = (full - dec).abs().max().item() / full.abs().max().item()
+        label = f"{arch} {kind} block"
+        print(f"  [{smi}] {label}: output and {len(results[0]) - 1} state "
+              f"tensors, max over them of max|card - cpu| / max|cpu| "
+              f"{worst:.3e} (tol 1e-4); chunked prefill vs {n} decode steps "
+              f"on the card {tail:.3e} (tol 1e-4)")
+        check(math.isfinite(worst) and worst <= 1e-4,
+              f"{label}: card and CPU disagree ({worst:.3e})")
+        check(math.isfinite(tail) and tail <= 1e-4,
+              f"{label}: chunked prefill and decode steps disagree "
+              f"({tail:.3e})")
+        out[label] = dict(rel=worst, prefill_vs_decode=tail)
+        del p, shared, results, pd, sd, cache
+        release(torch)
+    return out
+
+
+def phase_recurrent_train(torch, smi):
+    """Phase 17d: both presets trained at their published widths, f32
+    masters + bf16 compute, seq ``RECURRENT_TRAIN_S``, seeded weights and
+    data, 2 warm-up + 8 timed AdamW steps, the first of each preset's
+    ``RECURRENT_TRAIN`` tries that fits the card: rwkv6 whole through
+    ``launch.train.run``, zamba2 cut to whole periods through
+    ``make_train_step`` (``cfg.replace(num_layers=)``: the CLI has no depth
+    flag, as the reference's has none).  Every metric finite, no step
+    skipped (the Mamba-2 chunk's gradient is finite at chunk 128), the
+    flash forward, dq and dk/dv once per attending layer a step and no
+    other kernel; step ms, tokens/s, peak memory and bytes a parameter, a
+    profiled step with no host wait.  Returns (launch totals, results)."""
+    from repro_torch import configs, tree
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as train_launch
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    S = RECURRENT_TRAIN_S
+    steps = RECURRENT_TRAIN_STEPS["warmup"] + RECURRENT_TRAIN_STEPS["timed"]
+    names = [k for k, _, _ in COUNTERS]
+    totals = dict.fromkeys(names, 0)
+    print(f"phase 17d: the recurrent presets trained at published widths, "
+          f"seq {S}, f32 masters + bf16 compute, "
+          f"{RECURRENT_TRAIN_STEPS['warmup']} warm-up + "
+          f"{RECURRENT_TRAIN_STEPS['timed']} timed AdamW steps; tries "
+          f"(periods, batch, remat) {dict(RECURRENT_TRAIN)}")
+    out = {}
+    for arch, tries in RECURRENT_TRAIN:
+        full = configs.get_config(arch)
+        for periods, B, remat in tries:
+            cfg = full if periods is None else full.replace(
+                num_layers=periods * len(full.block_pattern))
+            tcfg = TrainConfig(learning_rate=3e-3,
+                               warmup_steps=max(steps // 10, 1),
+                               total_steps=steps, remat=remat, seed=0)
+            release(torch)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            st = {}
+            label = f"{arch} ({cfg.num_layers} layers) B={B} S={S} {remat}"
+            try:
+                if periods is None:
+                    state, history = train_launch.run(
+                        arch, steps=steps, batch=B, seq=S, smoke=False,
+                        remat=remat, log_every=steps - 1, device="cuda",
+                        stats=st)
+                    times = st["step_s"]
+                    step = make_train_step(cfg, tcfg)
+                else:
+                    step = make_train_step(cfg, tcfg)
+                    state = init_train_state(cfg, tcfg, device="cuda")
+                    ds = SyntheticLM(cfg, B, S, seed=0, device="cuda")
+                    times, history = [], []
+                    for i in range(steps):
+                        batch = ds.next_batch(i)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        state, m = step(state, batch, step=i)
+                        history.append({k: float(v) for k, v in m.items()})
+                        times.append(time.perf_counter() - t0)
+            except torch.cuda.OutOfMemoryError as e:
+                why = str(e).splitlines()[0][:160]
+            else:
+                break
+            state = step = None
+            print(f"  [{smi}] {label}: does not fit ({why})")
+            release(torch)
+        else:
+            check(False, f"{arch}: no training try fits the card")
+        counts = read_counts(names)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in tree.leaves(state.params))
+        n_attn = attention_layers(cfg)
+        want = dict.fromkeys(names, 0) | {k: n_attn * steps
+                                          for k in FLASH_NAMES}
+        timed = times[RECURRENT_TRAIN_STEPS["warmup"]:]
+        med = statistics.median(timed)
+        losses = [h["loss"] for h in history]
+        print(f"  [{smi}] {label}: {n_params / 1e9:.3f}B parameters, "
+              f"median step {1e3 * med:.3f} ms (of {len(timed)} timed; min "
+              f"{1e3 * min(timed):.3f}, max {1e3 * max(timed):.3f}), "
+              f"{B * S / med:.1f} tokens/s, peak memory {peak:.3f} GiB "
+              f"({peak * 2 ** 30 / n_params:.2f} bytes a parameter), "
+              f"launches {counts}")
+        print(f"    loss trajectory {[round(v, 4) for v in losses]}; skipped "
+              f"{[h['skipped'] for h in history]}")
+        check(counts == want, f"{arch}: training launch counts {counts} != "
+                              f"{want} ({steps} steps)")
+        bad = [(i, k) for i, h in enumerate(history) for k, v in h.items()
+               if not math.isfinite(v)]
+        check(not bad, f"{arch}: non-finite metrics {bad}")
+        check(all(h["skipped"] == 0 for h in history),
+              f"{arch}: a step was skipped")
+        for k in counts:
+            totals[k] += counts[k]
+        ds = SyntheticLM(cfg, B, S, seed=0, device="cuda")
+        waits, prof = profile_train_step(torch, smi, label, step, state,
+                                         ds.next_batch(steps), steps,
+                                         cuda_only=True)
+        out[arch] = dict(layers=cfg.num_layers, of_layers=full.num_layers,
+                         batch=B, seq=S, remat=remat, params=n_params,
+                         step_ms_median=1e3 * med,
+                         step_ms=[1e3 * t for t in times],
+                         tokens_per_s=B * S / med, peak_gib=peak,
+                         bytes_per_param=peak * 2 ** 30 / n_params,
+                         losses=losses, launches=counts, host_waits=waits,
+                         profile=prof)
+        del state, step, ds
+        release(torch)
+    return totals, out
+
+
+def recurrent_traffic(torch, smi):
+    """Phase 17e: ``SlotServer`` (``RECURRENT_TRAFFIC``) over rwkv6-1.6b at
+    full width (bf16, seed 0) replaying phase 16's poisson scenario twice:
+    every request ``ok``, launches as the path implies (none: rwkv6 has no
+    kernel on its path), statuses, decode steps and tokens equal over the
+    two replays; each slot prefill commits its recurrent states through
+    ``engine.put_slot``."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import engine
+    name, kw, _ = TRAFFIC_SCENARIOS[0]
+    fields = TRAFFIC_SHAPES | kw
+    print(f"phase 17e: SlotServer {RECURRENT_TRAFFIC} over rwkv6-1.6b, "
+          f"{name} {fields}, twice")
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(configs.get_config("rwkv6-1.6b"), device="cuda",
+                        seed=0)
+    out, reps = {}, []
+    for again in ("", " (again)"):
+        label = f"rwkv6-1.6b {name}{again}"
+        rep, toks, counts, facts = replay_once(torch, model, fields,
+                                               server=RECURRENT_TRAFFIC)
+        out[label] = report_line(smi, label, rep, facts)
+        reps.append((rep, toks))
+    check(reps[0][0].statuses == reps[1][0].statuses
+          and reps[0][0].decode_steps == reps[1][0].decode_steps
+          and reps[0][1] == reps[1][1], "rwkv6 poisson: two replays differ")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  [{smi}] rwkv6-1.6b SlotServer: peak memory "
+          f"{out['peak_gib']:.3f} GiB; two replays equal")
+    engine.clear_step_cache(model)
+    del model
+    release(torch)
+    return out
+
+
 def print_ptxas(report: str, most: int = 24) -> None:
     """Registers and spills of each kernel from the build's ptxas report;
     a source with more than ``most`` instances (the gate's one per k and
@@ -4742,7 +5259,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one "
                                  "NVIDIA GPU (see the module docstring).")
     ap.add_argument("--phases", choices=("all", "kernels", "trainer",
-                                         "presets", "frontends", "serving"),
+                                         "presets", "frontends", "serving",
+                                         "recurrent"),
                     default="all",
                     help="'kernels': only the build, the kernel checks and "
                          "the kernel timings (phases 1, 2 and 5), for "
@@ -4753,7 +5271,10 @@ def main(argv=None) -> int:
                          "phases 2g-2i, 2o, phase 5's rows at the frontend "
                          "presets' shapes and phase 15; 'serving': the "
                          "build and phases 3 and 16 (generate, SlotServer and "
-                         "the traffic replay); each ends with ok: false")
+                         "the traffic replay); 'recurrent': the build, phase "
+                         "2p (kernels 7-9 at head dim 112) and phase 17 "
+                         "(rwkv6-1.6b and zamba2-7b); each ends with ok: "
+                         "false")
     phases = ap.parse_args(argv).phases
     import torch
     if not torch.cuda.is_available():
@@ -4808,6 +5329,19 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"ok": False, "partial": "phases 1, 3 and 16 only"}))
         return 0
+    if phases == "recurrent":
+        errs = {}
+        stamp("phase 1")
+        rows = phase_flash_zamba2(torch, dev, smi, errs)
+        stamp("phase 2p")
+        print(json.dumps({"zamba2_flash": {"errs": errs, "timings": rows}}))
+        counts, recurrent = phase_recurrent(torch, smi)
+        print(json.dumps({"recurrent": recurrent,
+                          "recurrent_launches": counts}))
+        print(smi)
+        print(json.dumps({"ok": False, "partial": "phases 1, 2p and 17 "
+                                                  "only"}))
+        return 0
     if phases == "presets":
         print(json.dumps({"presets": phase_presets(torch, smi)[1]}))
         release(torch)
@@ -4831,6 +5365,8 @@ def main(argv=None) -> int:
     stamp("phase 2n")
     phase_flash_frontends(torch, dev, errs)
     stamp("phase 2o")
+    wide_rows += phase_flash_zamba2(torch, dev, smi, errs)
+    stamp("phase 2p")
     if phases == "kernels":
         phase_timings(torch, dev, smi)
         print(smi)
@@ -4869,6 +5405,10 @@ def main(argv=None) -> int:
     traffic_counts, traffic = phase_traffic(torch, smi)
     print(json.dumps({"traffic": traffic}))
     stamp("phase 16")
+    release(torch)
+    recurrent_counts, recurrent = phase_recurrent(torch, smi)
+    print(json.dumps({"recurrent": recurrent}))
+    stamp("phase 17")
     rows = (phase_timings(torch, dev, smi) + frontend_timings(torch, dev, smi)
             + preset_rows + wide_rows)
     stamp("phase 5")
@@ -4903,6 +5443,11 @@ def main(argv=None) -> int:
             kernels[-1]["launches_frontends_train"] = front_counts[r["name"]]
         if traffic_counts.get(r["name"]):
             kernels[-1]["launches_traffic"] = traffic_counts[r["name"]]
+        if recurrent_counts.get(r["name"]):
+            kernels[-1]["launches_recurrent"] = recurrent_counts[r["name"]]
+        if r["name"] + "_zamba2" in errs:
+            # phase 2p: zamba2's head dim 112, f32 and bf16
+            kernels[-1]["max_abs_err_zamba2"] = errs[r["name"] + "_zamba2"]
         if r["name"] + "_frontends" in errs:
             # phase 2o: the frontend presets' training shapes
             kernels[-1]["max_abs_err_frontends"] = errs[
@@ -4940,6 +5485,8 @@ def main(argv=None) -> int:
                       "windowed_train_launches": wtrain_counts,
                       "frontends": front, "frontends_launches": front_counts,
                       "traffic": traffic, "traffic_launches": traffic_counts,
+                      "recurrent": recurrent,
+                      "recurrent_launches": recurrent_counts,
                       "timings": rows, "profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -30,25 +30,58 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core.config import ModelConfig
-from repro_torch.models.transformer import _check_supported, untied_head
+from repro_torch.models.transformer import (LORA_R, _check_supported,
+                                            untied_head)
 from repro_torch.training.train_step import TrainState
+
+
+def _attn_shapes(cfg: ModelConfig, prefix: Tuple
+                 ) -> Dict[Tuple, Tuple[int, ...]]:
+    d, a, hd = cfg.d_model, cfg.attention, cfg.head_dim
+    out = {prefix + ("wq",): (d, a.num_heads * hd),
+           prefix + ("wk",): (d, a.num_kv_heads * hd),
+           prefix + ("wv",): (d, a.num_kv_heads * hd),
+           prefix + ("wo",): (a.num_heads * hd, d)}
+    if a.qk_norm:
+        out.update({prefix + ("q_norm",): (hd,), prefix + ("k_norm",): (hd,)})
+    return out
 
 
 def _block_shapes(cfg: ModelConfig, kind: str) -> Dict[Tuple, Tuple[int, ...]]:
     """Path → shape of one block of ``kind``'s leaves (unstacked)."""
-    d, a, hd = cfg.d_model, cfg.attention, cfg.head_dim
+    d = cfg.d_model
     gated = cfg.act in ("swiglu", "geglu")
 
     def mlp(name, f):
         return {(name, "w_in"): (d, 2 * f if gated else f),
                 (name, "w_out"): (f, d)}
-    block = {("ln1",): (d,), ("ln2",): (d,),
-             ("attn", "wq"): (d, a.num_heads * hd),
-             ("attn", "wk"): (d, a.num_kv_heads * hd),
-             ("attn", "wv"): (d, a.num_kv_heads * hd),
-             ("attn", "wo"): (a.num_heads * hd, d)}
-    if a.qk_norm:
-        block.update({("attn", "q_norm"): (hd,), ("attn", "k_norm"): (hd,)})
+    if kind == "rwkv":
+        r = cfg.rwkv
+        block = {("ln1",): (d,), ("ln2",): (d,), ("rwkv", "mu"): (5, d),
+                 ("rwkv", "mix_a"): (d, 5 * r.mix_lora),
+                 ("rwkv", "mix_b"): (5, r.mix_lora, d),
+                 ("rwkv", "decay_a"): (d, r.decay_lora),
+                 ("rwkv", "decay_b"): (r.decay_lora, d)}
+        block.update({("rwkv", n): (d, d) for n in ("wr", "wk", "wv", "wg",
+                                                    "wo")})
+        block.update({("rwkv", n): (d,) for n in ("w0", "u", "ln_x")})
+        block.update(mlp("mlp", cfg.d_ff))
+        return block
+    if kind in ("mamba", "mamba_sa"):
+        m = cfg.ssm
+        d_in = m.expand * d
+        H, gn = d_in // m.head_dim, 2 * m.n_groups * m.d_state
+        block = {("ln1",): (d,), ("mamba", "w_in"): (d, 2 * d_in + gn + H),
+                 ("mamba", "conv_w"): (m.conv_width, d_in + gn),
+                 ("mamba", "conv_b"): (d_in + gn,), ("mamba", "A_log"): (H,),
+                 ("mamba", "D"): (H,), ("mamba", "dt_bias"): (H,),
+                 ("mamba", "norm"): (d_in,), ("mamba", "w_out"): (d_in, d)}
+        if kind == "mamba_sa":
+            block.update({("sa_ln",): (d,), ("sa_lora_a",): (d, LORA_R),
+                          ("sa_lora_b",): (LORA_R, d)})
+        return block
+    block = {("ln1",): (d,), ("ln2",): (d,)}
+    block.update(_attn_shapes(cfg, ("attn",)))
     if kind != "moe":
         block.update(mlp("mlp", cfg.d_ff))
         return block
@@ -77,16 +110,28 @@ def _expected_shapes(cfg: ModelConfig) -> Dict[Tuple, Tuple[int, ...]]:
 
 
 def _top_shapes(cfg: ModelConfig) -> Dict[Tuple, Tuple[int, ...]]:
-    """The embedding table (none for a frontend config) and the head
-    (an untied config's, always a frontend's), as the reference's
-    ``init_model`` keeps them."""
+    """The embedding table (none for a frontend config), the head (an
+    untied config's, always a frontend's) and zamba2's shared attention
+    block (``mamba_sa`` configs), as the reference's ``init_model`` keeps
+    them."""
     d, V = cfg.d_model, cfg.vocab_size
     out = {}
     if cfg.frontend is None:
         out[("embed",)] = (V, d)
     if untied_head(cfg):
         out[("lm_head",)] = (d, V)
+    if "mamba_sa" in cfg.block_pattern:
+        out[("shared_attn", "ln")] = (d,)
+        out.update(_attn_shapes(cfg, ("shared_attn", "attn")))
     return out
+
+
+def _put(tree: Dict[Any, Any], path: Tuple, leaf) -> None:
+    """Set ``leaf`` at ``path`` in nested dicts, making the dicts on the
+    way."""
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = leaf
 
 
 def _flatten(tree: Any, prefix: Tuple = ()) -> Dict[Tuple, Any]:
@@ -129,16 +174,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig
         for j in range(period):
             layer: Dict[str, Any] = {}
             for path in want:
-                if path[:2] != ("blocks", j):
-                    continue
-                rest = path[2:]
-                if len(rest) == 1:
-                    layer[rest[0]] = t(path, s)
-                else:
-                    layer.setdefault(rest[0], {})[rest[1]] = t(path, s)
+                if path[:2] == ("blocks", j):
+                    _put(layer, path[2:], t(path, s))
             blocks.append(layer)
     out = {"blocks": blocks, "final_norm": t(("final_norm",))}
-    out.update({p[0]: t(p) for p in _top_shapes(cfg)})
+    for p in _top_shapes(cfg):
+        _put(out, p, t(p))
     return out
 
 
@@ -173,7 +214,11 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
                            if isinstance(v, dict) else stack(j, k))
                        for k, v in layer.items()})
     out = {"blocks": tuple(blocks), "final_norm": a(params["final_norm"])}
-    out.update({p[0]: a(params[p[0]]) for p in _top_shapes(cfg)})
+    for p in _top_shapes(cfg):
+        leaf = params
+        for k in p:
+            leaf = leaf[k]
+        _put(out, p, a(leaf))
     return out
 
 

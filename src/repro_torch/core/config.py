@@ -2,8 +2,7 @@
 ``repro/core/config.py`` (the port imports nothing from the JAX package).
 
 The fields and ``ValueError``s match the reference so a preset reads the
-same in both packages.  Only what the ported block kinds and the trainer
-need is here: the SSM/RWKV configs arrive with their model slices.
+same in both packages.
 """
 from __future__ import annotations
 
@@ -117,6 +116,26 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block configuration."""
+    d_state: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    chunk_size: int = 128
+    conv_width: int = 4
+    n_groups: int = 1
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV-6 'Finch' time-mix configuration."""
+    head_dim: int = 64
+    chunk_size: int = 128
+    decay_lora: int = 64       # low-rank dim for data-dependent decay
+    mix_lora: int = 32         # low-rank dim for token-shift interpolation
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -127,6 +146,8 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ("attn",)
     attention: Optional[AttentionConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
     encoder_only: bool = False
     frontend: Optional[str] = None
     act: str = "swiglu"
@@ -145,11 +166,15 @@ class ModelConfig:
                 f"{self.name}: num_layers={self.num_layers} not divisible "
                 f"by pattern period {len(self.block_pattern)}")
         kinds = set(self.block_pattern)
-        if kinds & {"attn", "local", "global", "moe", "dense"} \
+        if kinds & {"attn", "local", "global", "moe", "dense", "mamba_sa"} \
                 and self.attention is None:
             raise ValueError(f"{self.name}: needs AttentionConfig")
         if "moe" in kinds and self.moe is None:
             raise ValueError(f"{self.name}: needs MoEConfig")
+        if kinds & {"mamba", "mamba_sa"} and self.ssm is None:
+            raise ValueError(f"{self.name}: needs SSMConfig")
+        if "rwkv" in kinds and self.rwkv is None:
+            raise ValueError(f"{self.name}: needs RWKVConfig")
 
     @property
     def head_dim(self) -> int:
@@ -165,7 +190,7 @@ class ModelConfig:
     @property
     def is_subquadratic(self) -> bool:
         """True if every block is O(seq) at decode with bounded state (the
-        reference's rule, kinds the port has not ported included)."""
+        reference's rule)."""
         for kind in self.block_pattern:
             if kind in ("mamba", "rwkv", "mamba_sa"):
                 continue  # mamba_sa's shared attention decodes windowed

@@ -91,13 +91,37 @@
 // gradients' columns split in chunks of 128 over blocks.  Every product
 // is f32 FMAs (never TF32).
 // Keys past Sk (the ragged edge) count as nothing.
+//
+// Built whole (FA_PART unset: flash_ab.py builds a version so) or in
+// parts, one nvcc each, all at once (kernels/build.py's FLASH_PARTS = 5:
+// the 60 bf16 instances take most of the library's build): part 0 holds
+// the entry points, the f32 kernels and the bf16 instances of head dims
+// 16 and 32; parts 1-4 those of 48..80, of 96 and 112, of 120 and 128,
+// and of 256, each behind its extern "C" fa_bf16_part<p>, which part 0
+// calls.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "sm90_mma.cuh"
 
+#ifndef FA_PART
+#define FA_PART -1
+#endif
+
+extern "C" int fa_bf16_part1(int kind, const void* args);
+extern "C" int fa_bf16_part2(int kind, const void* args);
+extern "C" int fa_bf16_part3(int kind, const void* args);
+extern "C" int fa_bf16_part4(int kind, const void* args);
+
 namespace {
+
+// the part that builds the bf16 instances of head dim d, and whether this
+// translation unit builds them
+constexpr int fa_part_of(int d) {
+  return d <= 32 ? 0 : d <= 80 ? 1 : d <= 112 ? 2 : d == 256 ? 4 : 3;
+}
+constexpr bool fa_local(int d) { return FA_PART < 0 || fa_part_of(d) == FA_PART; }
 
 constexpr int FA_TILE = 64;         // rows of a q tile and of a k tile
 constexpr int FA_THREADS = 256;     // 8 warps (f32 kernels)
@@ -310,6 +334,7 @@ __device__ __forceinline__ int next_tile(const int* flags, int j, int n) {
   return j;
 }
 
+#if FA_PART <= 0
 // ---------------------------------------------------------------------------
 // the f32 kernels: 256 threads, f32 FMAs, tiles through shared memory
 // ---------------------------------------------------------------------------
@@ -694,6 +719,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_acc(acc_k, dk + koff, k0, Sk, d, nullptr, c0);
   store_acc(acc_v, dv + koff, k0, Sk, d, nullptr, c0);
 }
+#endif  // FA_PART <= 0
 
 // ---------------------------------------------------------------------------
 // the bf16 kernels on mma.sync (see the header): 64 rows per block, 4
@@ -1532,6 +1558,7 @@ struct Args {
   cudaStream_t stream;
 };
 
+#if FA_PART <= 0
 int launch_fwd_f32(const Args& a) {
   const size_t bytes =
       smem_bytes(16 * ((a.d + 15) / 16), 1, 5, 3, k_plan_ints(a.Sk));
@@ -1544,6 +1571,7 @@ int launch_fwd_f32(const Args& a) {
       (float*)a.out1, a.H, a.KV, a.Sq, a.Sk, a.d, a.mk);
   return (int)cudaGetLastError();
 }
+#endif  // FA_PART <= 0
 
 // plan_nokey_kernel into a.scratch, before either dk/dv kernel
 int launch_nokey(const Args& a) {
@@ -1555,6 +1583,7 @@ int launch_nokey(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+#if FA_PART <= 0
 // the f32 backward's shared memory (two input tiles), blocks (one for
 // each chunk of 16 MAX_NJ columns of the gradients) and launch
 int launch_dq_f32(const Args& a) {
@@ -1587,10 +1616,12 @@ int launch_dkv_f32(const Args& a) {
       (float*)a.out0, (float*)a.out1, a.H, a.KV, a.Sq, a.Sk, a.d, a.mk);
   return (int)cudaGetLastError();
 }
+#endif  // FA_PART <= 0
 
-// the bf16 kernels, one struct per kernel with run<D, CAP> (D the head
-// dim)
+// the bf16 kernels, one struct per kernel (kind: its number across the
+// parts) with run<D, CAP> (D the head dim)
 struct FwdBf16 {
+  static constexpr int kind = 0;
   template <int D, bool CAP>
   static int run(const Args& a) {
     using Sh = FwdShape<D>;
@@ -1609,6 +1640,7 @@ struct FwdBf16 {
 };
 
 struct DqBf16 {
+  static constexpr int kind = 1;
   template <int D, bool CAP>
   static int run(const Args& a) {
     using Sh = BwdShape<D>;
@@ -1628,6 +1660,7 @@ struct DqBf16 {
 };
 
 struct DkvBf16 {
+  static constexpr int kind = 2;
   template <int D, bool CAP>
   static int run(const Args& a) {
     if (int rc = launch_nokey(a)) return rc;
@@ -1647,9 +1680,25 @@ struct DkvBf16 {
   }
 };
 
+// the bf16 kernel of kind at a head dim that another part builds (only
+// declared when built whole: nothing calls it then)
+int remote_bf16(int part, int kind, const Args& a);
+#if FA_PART >= 0
+int remote_bf16(int part, int kind, const Args& a) {
+  switch (part) {
+    case 1: return fa_bf16_part1(kind, &a);
+    case 2: return fa_bf16_part2(kind, &a);
+    case 3: return fa_bf16_part3(kind, &a);
+    case 4: return fa_bf16_part4(kind, &a);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+#endif
+
 // K::run<d, softcap?>, one instance per head dim (60 bf16 instances in
-// all); cp.async moves 16-byte pieces: rows of d bf16 (d % 8 == 0) stay
-// aligned if the bases are; 4-byte words 4 bytes
+// all), here or in the part that builds it; cp.async moves 16-byte
+// pieces: rows of d bf16 (d % 8 == 0) stay aligned if the bases are;
+// 4-byte words 4 bytes
 template <typename K>
 int launch_bf16(const Args& a) {
   if ((uintptr_t)a.q % 16 || (uintptr_t)a.k % 16 || (uintptr_t)a.v % 16 ||
@@ -1658,9 +1707,13 @@ int launch_bf16(const Args& a) {
       (uintptr_t)a.delta % 4)
     return (int)cudaErrorMisalignedAddress;
   const bool cap = a.mk.use_cap;
-#define FA_HEAD_DIM(dd) \
-  case dd:              \
-    return cap ? K::template run<dd, true>(a) : K::template run<dd, false>(a);
+#define FA_HEAD_DIM(dd)                                              \
+  case dd:                                                           \
+    if constexpr (fa_local(dd))                                      \
+      return cap ? K::template run<dd, true>(a)                      \
+                 : K::template run<dd, false>(a);                    \
+    else                                                             \
+      return remote_bf16(fa_part_of(dd), K::kind, a);
   switch (a.d) {
     FA_HEAD_DIM(16) FA_HEAD_DIM(32) FA_HEAD_DIM(48) FA_HEAD_DIM(64)
     FA_HEAD_DIM(80) FA_HEAD_DIM(96) FA_HEAD_DIM(112) FA_HEAD_DIM(128)
@@ -1679,6 +1732,18 @@ int launch(int (*fn)(const Args&), const Args& a, bool need_rows) {
 }
 
 }  // namespace
+
+#if FA_PART > 0
+// this part's bf16 instances, for part 0's entry points (args: its Args)
+#define FA_PART_FN_(p) fa_bf16_part##p
+#define FA_PART_FN(p) FA_PART_FN_(p)
+extern "C" int FA_PART_FN(FA_PART)(int kind, const void* args) {
+  const Args& a = *static_cast<const Args*>(args);
+  return kind == 0   ? launch_bf16<FwdBf16>(a)
+         : kind == 1 ? launch_bf16<DqBf16>(a)
+                     : launch_bf16<DkvBf16>(a);
+}
+#else
 
 #define FA_MASK_ARGS                                                    \
   float scale, int causal, int window, int use_window, float cap,      \
@@ -1743,3 +1808,4 @@ extern "C" int flash_dkv_f32(const void* q, const void* k, const void* v,
   return launch(launch_dkv_f32, FA_ARGS(dout, lse, delta, dk, dv, nokey),
                 false);
 }
+#endif  // FA_PART > 0

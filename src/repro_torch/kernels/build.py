@@ -2,7 +2,10 @@
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a`` (Hopper; ``-gencode arch=compute_90a,code=sm_90a -std=c++17
--O3 -Xcompiler -fPIC``), and the objects are linked with ``-shared`` into one
+-O3 -Xcompiler -fPIC``) — ``flash_attention.cu``, whose 60 bf16 instances
+were the build's long pole, by ``FLASH_PARTS`` of them, one part of its
+head dims each (``-DFA_PART=p``) — and the objects are linked with
+``-shared`` into one
 library with a plain C interface under ``build/repro_torch/`` at the repo
 root (``.gitignore`` lists it).  The library's name carries a hash of the
 sources, the headers beside them (``csrc/*.cuh``) and the flags, so an
@@ -33,6 +36,9 @@ SOURCES = ("topk_gate.cu", "layout_transform.cu", "grouped_ffn.cu",
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flash_attention.cu is compiled in this many parts (its FA_PART; the
+# source's fa_part_of assigns the head dims to them)
+FLASH_PARTS = 5
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,7 +88,8 @@ def _nvcc() -> str:
 
 
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
+                       + f" flash parts {FLASH_PARTS}".encode())
     headers = sorted(p.name for p in CSRC.glob("*.cuh"))
     for name in (*SOURCES, *headers):
         h.update(name.encode())
@@ -95,20 +102,29 @@ def _compile(so: pathlib.Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     tag = f"{so.stem}.{os.getpid()}"
+    jobs = [(name, ()) for name in SOURCES if name != "flash_attention.cu"]
+    jobs += [(f"flash_attention.cu part {p}", (f"-DFA_PART={p}",))
+             for p in range(FLASH_PARTS)]
     procs = []
-    for name in SOURCES:
-        obj = BUILD_DIR / f"{tag}.{name}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
-        procs.append((name, obj, subprocess.Popen(
+    for i, (label, defs) in enumerate(jobs):
+        obj = BUILD_DIR / f"{tag}.{i}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *defs, "-c",
+               str(CSRC / label.split()[0]), "-o", str(obj)]
+        procs.append((label, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    reports, failed = [], []
-    for name, _, p in procs:
+    reports, failed, done = [], [], {}
+    while len(done) < len(procs):          # each job's seconds to its end
+        for label, _, p in procs:
+            if label not in done and p.poll() is not None:
+                done[label] = time.perf_counter() - t0
+        time.sleep(0.05)
+    for label, _, p in procs:
         out, _ = p.communicate()
-        reports.append(f"== {name}\n{out}")
+        reports.append(f"== {label} ({done[label]:.1f} s)\n{out}")
         if p.returncode:
-            failed.append(f"nvcc failed on {name} (exit {p.returncode}):\n"
-                          f"{out}")
+            failed.append(f"nvcc failed on {label} (exit {p.returncode}):"
+                          f"\n{out}")
     objs = [obj for _, obj, _ in procs]
     try:
         if failed:

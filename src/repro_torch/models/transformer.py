@@ -1,17 +1,33 @@
-"""Model assembly for the ``attn``, ``local``, ``global``, ``dense`` and
-``moe`` block kinds — the port of ``repro/models/transformer.py`` (init,
-``forward``, ``init_caches``, ``decode_step``, ``logits_from_hidden``).
+"""Model assembly for every block kind of the reference — the port of
+``repro/models/transformer.py`` (init, ``forward``, ``init_caches``,
+``decode_step``, ``logits_from_hidden``).
 
-Every ported kind is pre-norm attention followed by an FFN: an MLP
-(``attn``, ``local``, ``global``, ``dense``) or the HetuMoE layer
-(``moe``), plus the shared experts' MLP where the config has them.  Layer
-``i·P + j`` is pattern slot ``j`` of super-block ``i`` (``P =
+Block kinds (``cfg.block_pattern``), each pre-norm with residuals:
+
+* ``attn``, ``local``, ``global``, ``dense``: attention, then an MLP;
+* ``moe``: attention, then the HetuMoE layer (plus the shared experts'
+  MLP where the config has them);
+* ``rwkv``: the RWKV-6 time mix (``models/rwkv6.py``), then the config's
+  MLP as the channel mix (the reference's: a plain MLP, no token shift);
+* ``mamba``: a Mamba-2 block (``models/mamba2.py``), no MLP;
+* ``mamba_sa``: a Mamba-2 block, then zamba2's SHARED attention block:
+  one parameter set (the tree's top-level ``shared_attn``, ``{ln,
+  attn}``) used at every ``mamba_sa`` layer, its input adapted per layer
+  by ``sa_ln`` and a rank-``LORA_R`` LoRA (``sa_lora_a``, ``sa_lora_b``).
+
+Layer ``i·P + j`` is pattern slot ``j`` of super-block ``i`` (``P =
 len(cfg.block_pattern)``), the order of the reference's scan over
 super-blocks.  A layer's attention window is :func:`block_window`'s: the
-config's ``attention.window`` (``attn``, ``dense``, ``moe``),
-``local_window`` (``local``, and ``global`` with ``long_context``), else
-none; a windowed layer's cache is a ring of the window's length once the
-requested cache is longer.  The recurrent kinds raise.
+config's ``attention.window`` (``attn``, ``dense``, ``moe``, and
+``mamba_sa`` unless ``long_context``), ``local_window`` (``local``, and
+``global`` and ``mamba_sa`` with ``long_context``), else none; a windowed
+layer's attention cache is a ring of the window's length once the
+requested cache is longer.  A layer's cache (:func:`init_cache`) is the
+attention cache ``{k, v, pos}`` of an attention kind, ``{"rwkv": {s,
+x_last}}`` of an ``rwkv`` layer, ``{"mamba": {s, conv, pos}}`` of a
+``mamba`` layer and that plus ``"sa"``, the shared attention's cache, of
+a ``mamba_sa`` layer; every tensor of it is written in place, so a CUDA
+graph can hold the decode step (``serving/engine.py``).
 
 A frontend config (``cfg.frontend``: ``hubert-xlarge``'s audio,
 ``internvl2-2b``'s vision) takes (B, S, d) embeddings in place of token
@@ -27,7 +43,10 @@ its use, so a trainer's gradients land in f32 on the masters.  For
 serving, :class:`Transformer` keeps one copy in the compute dtype instead,
 made when the weights are loaded (or drawn straight in it, leaf by leaf)
 — the same values, without re-reading the f32 weights at every decode
-step.  The router and the norm scales stay f32, as they are used.
+step.  The leaves the reference uses in f32 (``_F32_LEAVES``: the norm
+scales, the router, the qk-norm scales, RWKV's decay LoRA, bonus and
+group-norm scale, Mamba's ``A_log``, ``D``, ``dt_bias`` and norm) stay
+f32.
 """
 from __future__ import annotations
 
@@ -42,35 +61,39 @@ from repro_torch.core import gating
 from repro_torch.core import moe as moe_lib
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba2, rwkv6
 
 # leaves used in f32 whatever the compute dtype
-_F32_LEAVES = ("ln1", "ln2", "final_norm", "gate_w", "q_norm", "k_norm")
+_F32_LEAVES = (("ln1", "ln2", "final_norm", "gate_w", "q_norm", "k_norm",
+                "sa_ln", "ln") + rwkv6.F32_LEAVES + mamba2.F32_LEAVES)
 REMAT_MODES = ("none", "block", "full")
-# the ported block kinds: attention + an MLP (attn, local, global, dense)
-# or + the MoE layer (moe); the reference's dense is its attn under another
-# name, local and global differ from it in their window only
-BLOCK_KINDS = ("attn", "local", "global", "dense", "moe")
-# the FFN sub-trees a block may hold
-_FFN_KEYS = ("mlp", "moe", "shared_mlp")
+# attention + an MLP (attn, local, global, dense) or + the MoE layer (moe):
+# the reference's dense is its attn under another name, local and global
+# differ from it in their window only
+ATTN_KINDS = ("attn", "local", "global", "dense", "moe")
+BLOCK_KINDS = ATTN_KINDS + ("rwkv", "mamba", "mamba_sa")
+LORA_R = 16   # zamba2's per-occurrence adapter rank of the shared block
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    unported = sorted(set(cfg.block_pattern) - set(BLOCK_KINDS))
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {unported} of {cfg.block_pattern} are "
-            f"not ported to repro_torch yet; ported: {BLOCK_KINDS} "
-            f"(ROADMAP.md)")
+    unknown = sorted(set(cfg.block_pattern) - set(BLOCK_KINDS))
+    if unknown:
+        raise ValueError(
+            f"{cfg.name}: unknown block kinds {unknown} in "
+            f"{cfg.block_pattern}; known: {BLOCK_KINDS}")
 
 
 def block_window(kind: str, cfg: ModelConfig,
                  long_context: bool = False) -> Optional[int]:
     """The attention window of a ``kind`` layer (the reference's
-    ``_block_window``): ``local_window`` for ``local`` layers, and for
-    ``global`` ones in the long-context variant; else the config's."""
-    if kind == "local" or (kind == "global" and long_context):
+    ``_block_window``, and its ``mamba_sa`` rule): ``local_window`` for
+    ``local`` layers, and for ``global`` and ``mamba_sa`` ones in the
+    long-context variant; none for ``rwkv`` and ``mamba``, which do not
+    attend; else the config's."""
+    if kind == "local" or (kind in ("global", "mamba_sa") and long_context):
         return cfg.local_window
+    if kind in ("rwkv", "mamba"):
+        return None
     return cfg.attention.window
 
 
@@ -79,13 +102,25 @@ def _is_ring(cache, window: Optional[int]) -> bool:
     return window is not None and cache["k"].shape[1] == window
 
 
+def attention_cache(cache, kind: str):
+    """The attention cache inside a layer's cache: the whole of an
+    attention kind's, ``"sa"`` of a ``mamba_sa`` layer's, else None."""
+    if kind == "mamba_sa":
+        return cache["sa"]
+    return cache if kind in ATTN_KINDS else None
+
+
 def linear_capacity(cfg: ModelConfig, caches,
                     long_context: bool = False) -> Optional[int]:
-    """The positions ``caches`` hold before the shortest linear one is
-    full; None when every layer's cache is a ring, which never fills."""
-    lens = [c["k"].shape[1] for c, kind in zip(caches, layer_kinds(cfg),
-                                               strict=True)
-            if not _is_ring(c, block_window(kind, cfg, long_context))]
+    """The positions ``caches`` hold before the shortest linear attention
+    cache is full; None when every attention cache is a ring, which never
+    fills, or there is none (a recurrent state never fills)."""
+    lens = []
+    for c, kind in zip(caches, layer_kinds(cfg), strict=True):
+        a = attention_cache(c, kind)
+        if a is not None and not _is_ring(a, block_window(kind, cfg,
+                                                          long_context)):
+            lens.append(a["k"].shape[1])
     return min(lens) if lens else None
 
 
@@ -99,10 +134,27 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator, *,
                device=None, dtype=torch.float32) -> Dict[str, Any]:
     """One block of ``kind``, drawn from ``generator`` in a fixed order:
-    ln1, attention, ln2, then the MLP, or the MoE layer and the shared
-    experts' MLP.  Each leaf is cast to ``dtype`` right after its draw."""
+    ln1, then attention, ln2 and the MLP, or the MoE layer and the shared
+    experts' MLP; ``rwkv``: ln1, the time mix, ln2, the MLP; ``mamba``:
+    ln1, the Mamba-2 block, and for ``mamba_sa`` then ``sa_ln`` and the
+    LoRA (``sa_lora_b`` zero, as in the reference).  Each leaf is cast to
+    ``dtype`` right after its draw (the f32 leaves excepted)."""
     d = cfg.d_model
     kw = dict(device=device, dtype=dtype)
+    if kind == "rwkv":
+        return {"ln1": torch.zeros((d,), device=device),
+                "rwkv": rwkv6.init_rwkv_block(generator, cfg.rwkv, d, **kw),
+                "ln2": torch.zeros((d,), device=device),
+                "mlp": layers.init_mlp(generator, d, cfg.d_ff, cfg.act,
+                                       **kw)}
+    if kind in ("mamba", "mamba_sa"):
+        blk = {"ln1": torch.zeros((d,), device=device),
+               "mamba": mamba2.init_mamba_block(generator, cfg.ssm, d, **kw)}
+        if kind == "mamba_sa":
+            blk["sa_ln"] = torch.zeros((d,), device=device)
+            blk["sa_lora_a"] = draw(generator, (d, LORA_R), d ** -0.5, **kw)
+            blk["sa_lora_b"] = torch.zeros((LORA_R, d), **kw)
+        return blk
     blk = {"ln1": torch.zeros((d,), device=device),
            "attn": attn_lib.init_attention(generator, cfg.attention, d, **kw),
            "ln2": torch.zeros((d,), device=device)}
@@ -123,9 +175,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device=None, dtype=torch.float32) -> Dict[str, Any]:
     """Random parameters in the port's tree layout, drawn in a fixed order
     from ``generator``, layer by layer (:func:`init_block`), then the
-    embedding table (none for a frontend config) and the head (untied,
-    or a frontend's).  With ``dtype`` each leaf is cast right after its
-    draw (the f32 leaves excepted): the same values as the f32 tree cast
+    embedding table (none for a frontend config), the head (untied, or a
+    frontend's) and zamba2's shared attention block (``mamba_sa``
+    configs).  With ``dtype`` each leaf is cast right after its draw (the
+    f32 leaves excepted): the same values as the f32 tree cast
     afterwards, with one f32 leaf alive at a time."""
     _check_supported(cfg)
     d = cfg.d_model
@@ -139,6 +192,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     if untied_head(cfg):
         params["lm_head"] = draw(generator, (d, cfg.vocab_size), d ** -0.5,
                                  **kw)
+    if "mamba_sa" in cfg.block_pattern:
+        params["shared_attn"] = {
+            "ln": torch.zeros((d,), device=device),
+            "attn": attn_lib.init_attention(generator, cfg.attention, d,
+                                            **kw)}
     return params
 
 
@@ -164,30 +222,79 @@ def _leaf(name: str, t: torch.Tensor, dtype, device) -> nn.Parameter:
     return nn.Parameter(t.to(device=device, dtype=dt), requires_grad=False)
 
 
+def init_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+               *, long_context: bool = False, dtype=torch.bfloat16,
+               device=None) -> Dict[str, Any]:
+    """One ``kind`` layer's cache (the reference's ``init_caches``, one
+    layer): attention ``{k, v, pos}`` of ``min(cache_len, window)``
+    positions for a windowed layer (a ring when that is the window) and
+    ``cache_len`` otherwise; ``{"rwkv": {s, x_last}}``; ``{"mamba": {s,
+    conv, pos}}``, with the shared attention's ``"sa"`` for ``mamba_sa``.
+    The recurrent states are f32; every position a 0-d int32 tensor on
+    the device."""
+    def attention():
+        win = block_window(kind, cfg, long_context)
+        L = cache_len if win is None else min(cache_len, win)
+        return attn_lib.init_cache(cfg.attention, batch, L, cfg.d_model,
+                                   dtype, device)
+    if kind == "rwkv":
+        return {"rwkv": rwkv6.init_rwkv_state(cfg.rwkv, batch, cfg.d_model,
+                                              device)}
+    if kind in ("mamba", "mamba_sa"):
+        c = {"mamba": mamba2.init_mamba_state(cfg.ssm, batch, cfg.d_model,
+                                              device)}
+        if kind == "mamba_sa":
+            c["sa"] = attention()
+        return c
+    return attention()
+
+
+def _write_state(cache: Dict[str, torch.Tensor],
+                 new: Dict[str, torch.Tensor]) -> None:
+    """Copy a recurrent state into its cache's tensors, in place (the new
+    tensors are never views of the cache's, so no copy reads what an
+    earlier one wrote)."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+
+
+def _attention(p, h, cfg: ModelConfig, window, *, positions, cache,
+               decode: bool, causal: bool):
+    """Attention over ``window``: a decode step into ``cache``, or a full
+    pass that fills ``cache`` when given.  Returns (y, cache)."""
+    if decode:
+        return attn_lib.decode_attention(p, h, cache, cfg.attention,
+                                         ring=_is_ring(cache, window),
+                                         window=window)
+    a, kv = attn_lib.full_attention(p, h, cfg.attention, positions=positions,
+                                    causal=causal, window=window)
+    if cache is not None:
+        cache = attn_lib.fill_cache(cache, kv, ring=_is_ring(cache, window))
+    return a, cache
+
+
 def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                   kind: str, positions=None, cache=None,
                   decode: bool = False, long_context: bool = False,
-                  noise: Optional[torch.Tensor] = None):
-    """One ``kind`` block over its parameter dict ``p``: attention over
-    the kind's window (:func:`block_window`), then the MLP or the MoE
-    layer plus the shared experts' MLP (``moe``), pre-norm residuals;
-    ``noise`` is a MoE layer's gate draw.  Returns (x, cache, aux); a
-    block without a MoE layer has no aux loss (None: the reference adds
-    its zero)."""
-    win = block_window(kind, cfg, long_context)
+                  noise: Optional[torch.Tensor] = None,
+                  shared: Optional[Dict[str, Any]] = None):
+    """One ``kind`` block over its parameter dict ``p`` (see the module
+    docstring), pre-norm residuals: attention over the kind's window
+    (:func:`block_window`), then the MLP or the MoE layer plus the shared
+    experts' MLP (``moe``); ``noise`` is a MoE layer's gate draw;
+    ``shared`` the tree's ``shared_attn`` (``mamba_sa``).  Returns (x,
+    cache, aux); a block without a MoE layer has no aux loss (None: the
+    reference adds its zero)."""
+    if kind == "rwkv":
+        return _rwkv_block(p, x, cfg, cache, decode)
+    if kind in ("mamba", "mamba_sa"):
+        return _mamba_block(p, x, cfg, kind, cache, decode, positions,
+                            long_context, shared)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if decode:
-        a, cache = attn_lib.decode_attention(p["attn"], h, cache,
-                                             cfg.attention,
-                                             ring=_is_ring(cache, win),
-                                             window=win)
-    else:
-        a, kv = attn_lib.full_attention(p["attn"], h, cfg.attention,
-                                        positions=positions,
-                                        causal=not cfg.encoder_only,
-                                        window=win)
-        if cache is not None:
-            cache = attn_lib.fill_cache(cache, kv, ring=_is_ring(cache, win))
+    a, cache = _attention(p["attn"], h, cfg,
+                          block_window(kind, cfg, long_context),
+                          positions=positions, cache=cache, decode=decode,
+                          causal=not cfg.encoder_only)
     x = x + a
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" not in p:
@@ -198,6 +305,53 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     if "shared_mlp" in p:
         y = y + layers.apply_mlp(p["shared_mlp"], h, cfg.act)
     return x + y, cache, aux
+
+
+def _rwkv_block(p, x, cfg: ModelConfig, cache, decode: bool):
+    """The time mix over ln1, then ln2 and the MLP as the channel mix.
+    The cache keeps the final state and ``x_last``, the last token's
+    normed input (what the next token's shift reads)."""
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if decode:
+        y, state = rwkv6.rwkv_decode_step(p["rwkv"], h, cache["rwkv"],
+                                          cfg.rwkv)
+        _write_state(cache["rwkv"], state)
+    else:
+        y, s = rwkv6.rwkv_time_mix(p["rwkv"], h, cfg.rwkv)
+        if cache is not None:
+            _write_state(cache["rwkv"], {"s": s, "x_last": h[:, -1].float()})
+    x = x + y
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + layers.apply_mlp(p["mlp"], h, cfg.act), cache, None
+
+
+def _mamba_block(p, x, cfg: ModelConfig, kind: str, cache, decode: bool,
+                 positions, long_context: bool, shared):
+    """The Mamba-2 block over ln1; for ``mamba_sa`` then the shared
+    attention block over ``sa_ln`` + the layer's LoRA + the shared
+    ``ln``."""
+    d = cfg.d_model
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if decode:
+        y, state = mamba2.mamba_decode_step(p["mamba"], h, cache["mamba"],
+                                            cfg.ssm, d)
+        _write_state(cache["mamba"], state)
+    else:
+        y, state = mamba2.mamba_forward(p["mamba"], h, cfg.ssm, d)
+        if cache is not None:
+            _write_state(cache["mamba"], state)
+    x = x + y
+    if kind == "mamba_sa":
+        h = layers.rms_norm(x, p["sa_ln"], cfg.norm_eps)
+        h = h + (h @ p["sa_lora_a"].to(h.dtype)) @ p["sa_lora_b"].to(h.dtype)
+        h = layers.rms_norm(h, shared["ln"], cfg.norm_eps)
+        a, _ = _attention(shared["attn"], h, cfg,
+                          block_window(kind, cfg, long_context),
+                          positions=positions,
+                          cache=None if cache is None else cache["sa"],
+                          decode=decode, causal=True)
+        x = x + a
+    return x, cache, None
 
 
 def draw_gate_noise(cfg: ModelConfig, tokens: int,
@@ -261,6 +415,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
         gen = torch.Generator(device=x.device).manual_seed(0)
         noise = draw_gate_noise(cfg, B * S, gen, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = params.get("shared_attn")
     for i, (p, kind) in enumerate(zip(params["blocks"], layer_kinds(cfg),
                                       strict=True)):
         nz = None if noise is None else noise[i]
@@ -268,10 +423,10 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             x, _, a = block_forward(
                 p, x, cfg, kind=kind, positions=positions, noise=nz,
                 cache=None if caches is None else caches[i],
-                long_context=long_context)
+                long_context=long_context, shared=shared)
         else:
             x, a = checkpoint(_remat_block, p, x, positions, nz, cfg, kind,
-                              long_context, use_reentrant=False,
+                              long_context, shared, use_reentrant=False,
                               preserve_rng_state=False)
         if a is not None:
             aux = aux + a
@@ -279,9 +434,10 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     return x, aux, caches
 
 
-def _remat_block(p, x, positions, noise, cfg, kind, long_context):
+def _remat_block(p, x, positions, noise, cfg, kind, long_context, shared):
     x, _, aux = block_forward(p, x, cfg, kind=kind, positions=positions,
-                              noise=noise, long_context=long_context)
+                              noise=noise, long_context=long_context,
+                              shared=shared)
     return x, aux
 
 
@@ -296,24 +452,24 @@ def logits_from_hidden(params: Dict[str, Any], cfg: ModelConfig,
 
 
 class Block(nn.Module):
-    """One block's serving weights (run by :func:`block_forward`): the
-    norms, the attention, and the block kind's FFN — ``mlp``, or ``moe``
-    with ``shared_mlp`` where the config has shared experts."""
+    """One block's serving weights (run by :func:`block_forward`), the
+    parameter dict's keys as attributes: a leaf as a parameter (``ln1``,
+    ``sa_lora_a``, ...), a sub-tree as a ``ParameterDict`` (``attn``,
+    ``mlp``, ``moe``, ``rwkv``, ``mamba``, ...)."""
 
     def __init__(self, p: Dict[str, Any], dtype, device):
         super().__init__()
-        self.ln1 = _leaf("ln1", p["ln1"], dtype, device)
-        self.ln2 = _leaf("ln2", p["ln2"], dtype, device)
-        self.attn = nn.ParameterDict(
-            {k: _leaf(k, v, dtype, device) for k, v in p["attn"].items()})
-        self.ffn = [k for k in _FFN_KEYS if k in p]
-        for k in self.ffn:
+        self.names = list(p)
+        for k, v in p.items():
             setattr(self, k, nn.ParameterDict(
-                {n: _leaf(n, v, dtype, device) for n, v in p[k].items()}))
+                {n: _leaf(n, t, dtype, device) for n, t in v.items()})
+                if isinstance(v, dict) else _leaf(k, v, dtype, device))
 
     def tree(self) -> Dict[str, Any]:
-        return {"ln1": self.ln1, "ln2": self.ln2, "attn": dict(self.attn),
-                **{k: dict(getattr(self, k)) for k in self.ffn}}
+        def one(k):
+            v = getattr(self, k)
+            return dict(v) if isinstance(v, nn.ParameterDict) else v
+        return {k: one(k) for k in self.names}
 
 
 class Transformer(nn.Module):
@@ -349,21 +505,36 @@ class Transformer(nn.Module):
                             self.device))
         self.lm_head = (_leaf("lm_head", params["lm_head"], self.dtype,
                               self.device) if untied_head(cfg) else None)
+        self.shared_attn = (Block(params["shared_attn"], self.dtype,
+                                  self.device)
+                            if "shared_attn" in params else None)
+
+    def _shared(self) -> Optional[Dict[str, Any]]:
+        return None if self.shared_attn is None else self.shared_attn.tree()
+
+    def tree(self) -> Dict[str, Any]:
+        """The served weights as a parameter tree (the compute-dtype copy,
+        the f32 leaves f32), with the keys :func:`init_params` gives."""
+        out = {"blocks": [blk.tree() for blk in self.blocks],
+               "final_norm": self.final_norm}
+        for name in ("embed", "lm_head"):
+            if getattr(self, name) is not None:
+                out[name] = getattr(self, name)
+        if self.shared_attn is not None:
+            out["shared_attn"] = self._shared()
+        return out
 
     def init_caches(self, batch: int, cache_len: int, *,
                     long_context: bool = False) -> List[Dict[str, Any]]:
-        """One cache per layer, of ``min(cache_len, window)`` positions for
-        a windowed layer (a ring when that is the window) and
-        ``cache_len`` for the others; each position a 0-d int32 tensor on
-        the device (``attention.init_cache``)."""
-        out = []
-        for kind in layer_kinds(self.cfg):
-            win = block_window(kind, self.cfg, long_context)
-            L = cache_len if win is None else min(cache_len, win)
-            out.append(attn_lib.init_cache(self.cfg.attention, batch, L,
-                                           self.cfg.d_model, self.dtype,
-                                           self.device))
-        return out
+        """One cache per layer (:func:`init_cache`): attention caches of
+        ``min(cache_len, window)`` positions for a windowed layer (a ring
+        when that is the window) and ``cache_len`` for the others, the
+        recurrent states of ``rwkv`` and ``mamba`` layers; each position a
+        0-d int32 tensor on the device."""
+        return [init_cache(self.cfg, kind, batch, cache_len,
+                           long_context=long_context, dtype=self.dtype,
+                           device=self.device)
+                for kind in layer_kinds(self.cfg)]
 
     def forward(self, tokens: torch.Tensor, *, caches=None,
                 cfg: Optional[ModelConfig] = None,
@@ -373,9 +544,7 @@ class Transformer(nn.Module):
         (B, S, d) embeddings → (hidden (B,S,d), aux_loss, caches);
         ``caches`` from :meth:`init_caches` are filled in place.  ``cfg``
         overrides the served config (e.g. its dispatch)."""
-        tree = {"blocks": [blk.tree() for blk in self.blocks],
-                "final_norm": self.final_norm, "embed": self.embed}
-        return forward(tree, tokens, cfg or self.cfg, caches=caches,
+        return forward(self.tree(), tokens, cfg or self.cfg, caches=caches,
                        long_context=long_context)
 
     def logits_from_hidden(self, h: torch.Tensor) -> torch.Tensor:
@@ -394,12 +563,14 @@ class Transformer(nn.Module):
         x = embed_inputs({"embed": self.embed}, cfg, token, self.dtype)
         if noise is None:
             noise = decode_noise(cfg, x.shape[0], x.device)
+        shared = self._shared()
         for i, (blk, cache, kind) in enumerate(zip(
                 self.blocks, caches, layer_kinds(cfg), strict=True)):
             x, _, _ = block_forward(blk.tree(), x, cfg, kind=kind,
                                     cache=cache, decode=True,
                                     long_context=long_context,
-                                    noise=None if noise is None else noise[i])
+                                    noise=None if noise is None else noise[i],
+                                    shared=shared)
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         return self.logits_from_hidden(x), caches
 

@@ -299,11 +299,10 @@ class DecodeStep:
 
     @torch.inference_mode()
     def reset(self) -> None:
-        """Zero the caches and their positions, as a fresh init leaves
-        them."""
-        for c in self.caches:
-            for t in c.values():
-                t.zero_()
+        """Zero the caches, their positions and the recurrent states, as a
+        fresh init leaves them."""
+        for t in _cache_leaves(self.caches):
+            t.zero_()
 
     def claim(self, owner) -> bool:
         """Hold the caches for ``owner`` until it is collected or gives
@@ -400,15 +399,29 @@ def build_slot_prefill(model, cfg: Optional[ModelConfig] = None, *,
     return _cached(key, make)
 
 
+def _cache_leaves(caches):
+    """Every tensor of the per-layer caches (attention ``k``, ``v``,
+    ``pos``; recurrent ``s``, ``x_last``, ``conv``, ``pos``), in a fixed
+    order."""
+    out = []
+    for c in caches:
+        for v in c.values():
+            out.extend(_cache_leaves([v]) if isinstance(v, dict) else [v])
+    return out
+
+
 @torch.inference_mode()
 def put_slot(caches, sub, slot: int) -> None:
-    """Copy single-row caches ``sub`` into row ``slot`` of ``caches`` and
-    set the shared position to theirs, in place (the reference's ``put``
-    in ``build_slot_prefill``)."""
-    for full, one in zip(caches, sub, strict=True):
-        full["k"][slot].copy_(one["k"][0])
-        full["v"][slot].copy_(one["v"][0])
-        full["pos"].copy_(one["pos"])
+    """Copy single-row caches ``sub`` into row ``slot`` of ``caches`` in
+    place — the attention keys and values and the recurrent states — and
+    set the shared positions (the 0-d tensors) to theirs: the reference's
+    ``put`` in ``build_slot_prefill``."""
+    for full, one in zip(_cache_leaves(caches), _cache_leaves(sub),
+                         strict=True):
+        if full.ndim == 0:
+            full.copy_(one)
+        else:
+            full[slot].copy_(one[0])
 
 
 # ---------------------------------------------------------------------------

@@ -152,12 +152,8 @@ def skew_router(params, bias: float = 16.0, expert: int = 0):
     if not isinstance(params, Transformer):
         return walk(params)
     model = params
-    tree = {"blocks": [blk.tree() for blk in model.blocks],
-            "final_norm": model.final_norm}
-    for name in ("embed", "lm_head"):
-        if getattr(model, name) is not None:
-            tree[name] = getattr(model, name)
-    return Transformer(model.cfg, device=model.device, params=walk(tree))
+    return Transformer(model.cfg, device=model.device,
+                       params=walk(model.tree()))
 
 
 def replay(server: SlotServer, workload: List[Tuple[int, Request]],

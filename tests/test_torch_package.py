@@ -147,8 +147,8 @@ def test_presets_copy_the_reference():
         for f in dataclasses.fields(t):
             if f.name not in ("moe", "attention"):
                 assert getattr(t, f.name) == getattr(j, f.name), f.name
-    with pytest.raises(KeyError, match="hetumoe-paper-16e"):
-        configs.get_config("rwkv6-1.6b")
+    with pytest.raises(KeyError, match="rwkv6-1.6b.*zamba2-7b"):
+        configs.get_config("no-such-arch")
 
 
 def test_model_config_rejects_malformed():
@@ -157,9 +157,17 @@ def test_model_config_rejects_malformed():
                     vocab_size=8, block_pattern=("moe", "moe"))
     with pytest.raises(ValueError, match="needs MoEConfig"):
         configs.smoke_config("hetumoe-paper-16e").replace(moe=None)
-    with pytest.raises(NotImplementedError, match="block kinds"):
+    with pytest.raises(ValueError, match="needs RWKVConfig"):
+        configs.smoke_config("hetumoe-paper-16e").replace(
+            block_pattern=("moe", "rwkv"))
+    with pytest.raises(ValueError, match="needs SSMConfig"):
+        configs.smoke_config("hetumoe-paper-16e").replace(
+            block_pattern=("moe", "mamba_sa"))
+    with pytest.raises(ValueError, match="needs AttentionConfig"):
+        configs.smoke_config("zamba2-7b").replace(attention=None)
+    with pytest.raises(ValueError, match="unknown block kinds"):
         Transformer(configs.smoke_config("hetumoe-paper-16e").replace(
-            block_pattern=("moe", "rwkv")), device="cpu")
+            block_pattern=("moe", "ssm")), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -241,10 +241,17 @@ def test_presets_copy_the_reference(arch):
         assert smoke.moe.num_shared_experts == 1 and smoke.attention.qk_norm
 
 
-def test_unported_presets_raise_naming_the_ported():
+def test_every_reference_preset_is_registered():
+    """The port registers the reference's eleven presets, the recurrent
+    two included, each equal to the reference's field by field (nested
+    configs as dicts; the MoE ones with the port's kernels on)."""
+    assert set(configs.ARCHS) == set(jconfigs.ARCHS)
     for arch in ("rwkv6-1.6b", "zamba2-7b"):
-        with pytest.raises(KeyError, match="dbrx-132b"):
-            configs.get_config(arch)
+        t, j = configs.get_config(arch), jconfigs.get_config(arch)
+        for f in dataclasses.fields(t):
+            a, b = getattr(t, f.name), getattr(j, f.name)
+            assert (dataclasses.asdict(a) == dataclasses.asdict(b)
+                    if dataclasses.is_dataclass(a) else a == b), f.name
 
 
 # ---------------------------------------------------------------------------
