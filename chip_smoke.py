@@ -224,6 +224,27 @@ Phases, in order; any failure ends the script with a non-zero exit:
    zamba2 cut to whole periods, the first of the tries that fits), 2 + 8
    AdamW steps: no step skipped, finite metrics, kernels 7-9 once per
    attending layer a step; a ``SlotServer`` replay over rwkv6 twice.
+18. Expert parallelism: four rank processes share the card over gloo
+   (``launch.mesh.spawn``; NCCL refuses two ranks on one device, gloo
+   stages CUDA tensors through the host, so no time here is a speed of
+   EP).  18a: the flat and the hierarchical (inner 2) AllToAll of 16 MB a
+   rank at 1x4, bitwise equal and equal to the host permutation of every
+   rank's input.  18b: the paper's layer (d=2048, 16 experts, d_ff 2048,
+   2048 tokens a rank, f32, gelu: relu's derivative flips at
+   pre-activations within rounding of 0 between card and CPU) at 1x4
+   (hierarchical) and 2x2, sort / dense / grouped, forward and backward,
+   each rank on the card then on the CPU over the same group: every
+   output within 1e-4 of its max; grouped 1x4 against one process on the
+   8192 global tokens; kernels 3-5 (1e-4) and 6 (bitwise) against their
+   plain versions at the receive side's group sizes.  18c: the paper
+   model whole (2 layers) trained 4 AdamW steps at 1x4 through
+   ``launch.train.run``, batch 8 x 1024, sort (``--tune calibrate``
+   over the gloo group, the calibration's label and fit printed) and
+   grouped (4 overlap windows), every plain version made to raise in the
+   ranks: finite losses, none skipped, the ranks' losses equal, the
+   replicated leaves bitwise equal across ranks, grouped's first loss
+   within 1e-3 of one process's, per-rank peak memory, and rank 0's
+   profiled step with kernels 1-9.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all ten kernels; the row-per-step gather, on no
@@ -232,8 +253,9 @@ serving or training path, with the launches of its phase-5 run), and
 and 5 only, for work on a kernel, ``--phases trainer`` phases 1, 9-11
 and 14, ``--phases presets`` phases 1, 12 and 13, ``--phases
 frontends`` phases 1, 2g-2i, 2o, phase 5's rows at the frontend presets'
-shapes and 15, ``--phases serving`` phases 1, 3 and 16, and ``--phases
-recurrent`` phases 1, 2p and 17; each ends with ``"ok": false``.  The script
+shapes and 15, ``--phases serving`` phases 1, 3 and 16, ``--phases
+recurrent`` phases 1, 2p and 17, and ``--phases ep`` phases 1, 2 and 18;
+each ends with ``"ok": false``.  The script
 imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -5212,6 +5234,461 @@ def recurrent_traffic(torch, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: expert parallelism — ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+# what every time of phase 18 measures: several rank processes take turns
+# on one card and exchange through the host (gloo), so no time here is a
+# speed of expert parallelism on a fabric
+EP_LABEL = "ranks time-sharing one card over gloo"
+# the paper's layer (PAPER_LAYER): width, experts, expert FFN, tokens a rank
+EP_LAYER = dict(d=2048, E=16, f=2048, T=2048)
+EP_LAYER_MESHES = ((1, 4), (2, 2))
+EP_LAYER_CASES = (("sort", dict(dispatch="sort")),
+                  ("dense", dict(dispatch="dense")),
+                  ("grouped", dict(dispatch="grouped")))
+# the kernels each dispatch launches in a layer's forward and backward
+# (dense: the one-hot products are plain matrix products)
+EP_LAYER_KERNELS = {
+    "sort": ("topk_gate", "gather_rows", "scatter_add_rows"),
+    "dense": ("topk_gate",),
+    "grouped": ("topk_gate", "gather_rows", "grouped_matmul",
+                "grouped_matmul_t", "grouped_drhs", "scatter_add_rows")}
+# card against CPU: within this share of each output's max (f32)
+EP_TOL = 1e-4
+# routing kept this far from a tie (f64 logits): card and CPU logits
+# differ by ~1e-6, and a flipped route is not a rounding difference
+EP_TIE_MARGIN = 1e-3
+# 18c: the paper model whole, trained at 1x4
+EP_TRAIN = dict(mesh=(1, 4), batch=8, seq=1024, steps=4)
+# (dispatch, --tune, --fabric): sort's a2a from a calibration over the
+# gloo group; grouped scored on the paper's pair (4 overlap windows)
+EP_TRAIN_CELLS = (("sort", "calibrate", None),
+                  ("grouped", "auto", "pcie_eth100"))
+# every kernel's plain version: a rank of 18c must never run one
+PLAIN_VERSIONS = (("topk_gate", "topk_gate_plain"),
+                  ("layout_transform", "gather_rows_plain"),
+                  ("layout_transform", "gather_rows_fanout_plain"),
+                  ("layout_transform", "scatter_add_rows_plain"),
+                  ("grouped_ffn", "grouped_matmul_plain"),
+                  ("grouped_ffn", "grouped_matmul_t_plain"),
+                  ("grouped_ffn", "grouped_drhs_plain"),
+                  ("flash_attention", "flash_fwd_plain"),
+                  ("flash_attention", "flash_dq_plain"),
+                  ("flash_attention", "flash_dkv_plain"))
+
+
+def ep_label(world: int) -> str:
+    return f"{world} {EP_LABEL}"
+
+
+def forbid_plain_versions():
+    """Make every kernel's plain version raise in this process."""
+    for mod, name in PLAIN_VERSIONS:
+        def refuse(*args, _what=f"{mod}.{name}", **kw):
+            raise SmokeFailure(f"{_what} ran on the card's EP path")
+        setattr(_kernel_module(mod), name, refuse)
+
+
+def ep_layer_inputs(torch, n_tokens: int):
+    """The paper layer's global inputs from seed 18 on the CPU (gelu
+    experts: relu's derivative flips at pre-activations within rounding of
+    0 between card and CPU, phase 8), tokens nudged along their chosen
+    expert's router column until every route clears ``EP_TIE_MARGIN``."""
+    d, E, f = EP_LAYER["d"], EP_LAYER["E"], EP_LAYER["f"]
+    g = torch.Generator().manual_seed(18)
+    x = torch.randn(n_tokens, d, generator=g)
+    p = {"gate_w": torch.randn(d, E, generator=g) * d ** -0.5,
+         "w_up": torch.randn(E, d, f, generator=g) * d ** -0.5,
+         "w_out": torch.randn(E, f, d, generator=g) * f ** -0.5}
+    gy = torch.randn(n_tokens, d, generator=g)
+    w = p["gate_w"].double()
+    for _ in range(8):
+        top2 = (x.double() @ w).topk(2, dim=-1)
+        bad = (top2.values[:, 0] - top2.values[:, 1]) < EP_TIE_MARGIN
+        if not bool(bad.any()):
+            break
+        col = w.T[top2.indices[bad, 0]]
+        x[bad] += (2 * EP_TIE_MARGIN * col / (col * col).sum(
+            dim=1, keepdim=True)).float()
+    else:
+        raise SmokeFailure("ep_layer_inputs: routes stay near ties")
+    return x, gy, p
+
+
+def _max_rel(torch, a, b) -> float:
+    """max |a - b| over max |b| (b the CPU's)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def ep_exchange_check(torch, mesh):
+    """18a: flat and hierarchical (inner 2) AllToAll of CUDA tensors, bitwise
+    equal and equal to the host permutation of every rank's input."""
+    from repro_torch.core import alltoall
+    M = mesh.shape["model"]
+
+    def chunk(r):
+        return torch.randn((M, 512, EP_LAYER["d"]),
+                           generator=torch.Generator().manual_seed(100 + r))
+    x = chunk(mesh.rank).to(mesh.device)
+    times = {}
+    outs = {}
+    for name, fn in (("flat", lambda v: alltoall.flat_all_to_all(
+            v, mesh.model_group)), ("hierarchical", lambda v:
+            alltoall.all_to_all(v, mesh, mode="hierarchical", inner=2))):
+        fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            outs[name] = fn(x)
+        torch.cuda.synchronize()
+        times[name] = 1e3 * (time.perf_counter() - t0) / 5
+    want = torch.stack([chunk(m)[mesh.model_index] for m in range(M)])
+    return dict(flat_eq_hier=bool(torch.equal(outs["flat"],
+                                              outs["hierarchical"])),
+                eq_host_permutation=bool(torch.equal(outs["flat"].cpu(),
+                                                     want)),
+                bytes=x.numel() * 4, ms=times)
+
+
+def ep_receive_side_kernels(torch, rec, w_up):
+    """Kernels 3-6 at the shapes the grouped EP path gave them (recorded
+    on the card): the grouped matmul, dlhs and drhs against their plain
+    versions on the CPU (``EP_TOL`` of the max), the scatter-add bitwise."""
+    from repro_torch.kernels import grouped_ffn as G
+    from repro_torch.kernels import layout_transform as L
+    xs, offs = rec["ffn"]
+    g = torch.randn((xs.shape[0], w_up.shape[2]),
+                    generator=torch.Generator(device=xs.device).manual_seed(
+                        5), device=xs.device)
+    c, idx, n = rec["scatter"]
+    out = {"rows": int(xs.shape[0]), "group_sizes": torch.diff(
+        offs).tolist()}
+    with torch.no_grad():
+        out["grouped_matmul"] = _max_rel(
+            torch, G.grouped_matmul(xs, w_up, offs),
+            G.grouped_matmul_plain(xs.cpu(), w_up.cpu(), offs.cpu()))
+        out["grouped_matmul_t"] = _max_rel(
+            torch, G.grouped_matmul_t(g, w_up, offs),
+            G.grouped_matmul_t_plain(g.cpu(), w_up.cpu(), offs.cpu()))
+        out["grouped_drhs"] = _max_rel(
+            torch, G.grouped_drhs(xs, g, offs),
+            G.grouped_drhs_plain(xs.cpu(), g.cpu(), offs.cpu()))
+        out["scatter_add_rows_bitwise"] = bool(torch.equal(
+            L.scatter_add_rows(c, idx, n).cpu(),
+            L.scatter_add_rows_plain(c.cpu(), idx.cpu(), n)))
+    return out
+
+
+def ep_layer_checks(torch, rank, shape, ref_path):
+    """18a (at 1x4) and 18b on one rank: the paper's layer through
+    ``sharded_moe_apply`` on the card and then on the CPU over the same
+    gloo group, forward and backward of ``sum(y·gy) + aux``; returns the
+    card's distance from the CPU per output, its launches and times."""
+    from repro_torch.core import moe
+    from repro_torch.core.config import MoEConfig
+    from repro_torch.kernels import grouped_ffn as G
+    from repro_torch.kernels import layout_transform as L
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, backend="gloo")
+    E, T = EP_LAYER["E"], EP_LAYER["T"]
+    M, m = shape[1], mesh.model_index
+    n = E // M
+    x, gy, params = ep_layer_inputs(torch, T * mesh.world)
+    xl, valid, _, _ = moe.rank_tokens(mesh, x)
+    gyl = moe.rank_tokens(mesh, gy)[0]
+    out = {"exchange": ep_exchange_check(torch, mesh)
+           if shape == (1, 4) else None}
+    for name, fields in EP_LAYER_CASES:
+        a2a = dict(a2a="hierarchical", a2a_inner=2) if M == 4 else {}
+        cfg = MoEConfig(num_experts=E, top_k=1, gate="switch",
+                        capacity_factor=1.25, d_ff_expert=EP_LAYER["f"],
+                        **fields, **a2a)
+        res, rec = {}, {}
+        for dev in ("cuda", "cpu"):
+            p = {k: (v if k == "gate_w" else v[m * n:(m + 1) * n]).to(
+                mesh.device if dev == "cuda" else "cpu").requires_grad_(True)
+                for k, v in params.items()}
+            xr = xl.to(p["gate_w"].device).requires_grad_(True)
+            ffn, sca = G.grouped_ffn, L.scatter_add_rows
+            if dev == "cuda" and name == "grouped":
+                def rec_ffn(params_, xs, offsets, act):
+                    rec.setdefault("ffn", (xs.detach(), offsets))
+                    return ffn(params_, xs, offsets, act)
+
+                def rec_sca(c, idx, k):
+                    rec.setdefault("scatter", (c.detach(), idx, k))
+                    return sca(c, idx, k)
+                G.grouped_ffn, L.scatter_add_rows = rec_ffn, rec_sca
+            reset_counts()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, aux, met = moe.sharded_moe_apply(
+                mesh, cfg, p, xr, num_experts=E, act="gelu",
+                valid=valid.to(xr.device))
+            loss = (y * gyl.to(xr.device)).sum() + aux
+            keys = sorted(p)
+            grads = torch.autograd.grad(loss, [xr] + [p[k] for k in keys])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            G.grouped_ffn, L.scatter_add_rows = ffn, sca
+            res[dev] = dict(ms=1e3 * (time.perf_counter() - t0),
+                            counts=read_counts([k for k, _, _ in COUNTERS]),
+                            y=y.detach(), aux=aux.detach(), dx=grads[0],
+                            **{k: g for k, g in zip(keys, grads[1:])})
+        card, cpu = res["cuda"], res["cpu"]
+        errs = {k: _max_rel(torch, card[k], cpu[k])
+                for k in ("y", "aux", "dx", "gate_w", "w_up", "w_out")}
+        cell = dict(errs=errs, card_ms=card["ms"], cpu_ms=cpu["ms"],
+                    launches={k: v for k, v in card["counts"].items() if v})
+        if name == "grouped":
+            cell["receive_side"] = ep_receive_side_kernels(
+                torch, rec, params["w_up"][m * n:(m + 1) * n].to(
+                    mesh.device))
+            if shape == (1, 4):
+                import numpy as np
+                ref = np.load(ref_path)
+                rows = slice(rank * T, (rank + 1) * T)
+                cell["vs_one_process"] = {
+                    "y": _max_rel(torch, card["y"],
+                                  torch.from_numpy(ref["y"][rows])),
+                    "dx": _max_rel(torch, card["dx"],
+                                   torch.from_numpy(ref["dx"][rows])),
+                    "aux": _max_rel(torch, card["aux"],
+                                    torch.tensor(float(ref["aux"])))}
+        out[name] = cell
+        del res, card, cpu
+    return out
+
+
+def ep_one_process_reference(torch, path):
+    """The grouped layer in one process on the card over the global
+    tokens (what 1x4 grouped must equal), saved for the ranks."""
+    import numpy as np
+    from repro_torch.core import moe
+    from repro_torch.core.config import MoEConfig
+    x, gy, params = ep_layer_inputs(torch, EP_LAYER["T"] * 4)
+    cfg = MoEConfig(num_experts=EP_LAYER["E"], top_k=1, gate="switch",
+                    capacity_factor=1.25, d_ff_expert=EP_LAYER["f"],
+                    dispatch="grouped")
+    p = {k: v.cuda() for k, v in params.items()}
+    xr = x.cuda().requires_grad_(True)
+    y, aux, _ = moe.moe_apply(cfg, p, xr, num_experts=EP_LAYER["E"],
+                              act="gelu")
+    (dx,) = torch.autograd.grad((y * gy.cuda()).sum() + aux, [xr])
+    np.savez(path, y=y.detach().cpu().numpy(), dx=dx.cpu().numpy(),
+             aux=np.float32(aux.detach().cpu()))
+
+
+def ep_train_run(torch, rank, shape, dispatch, tune, fabric):
+    """18c on one rank: the paper model whole through ``launch.train.run``
+    at ``shape`` (bf16 compute, f32 masters, seed 0); then one more step,
+    rank 0's under the profiler.  Returns the history, the step times, the
+    launches, the peak memory, a digest of the replicated leaves, rank 0's
+    profiled kernel counts and the fabric the tuner scored against."""
+    import hashlib
+
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs, tree
+    from repro_torch.core import tuning
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh, parse_fabric
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import serve_config
+    from repro_torch.training.train_step import make_train_step
+    B, S, steps = EP_TRAIN["batch"], EP_TRAIN["seq"], EP_TRAIN["steps"]
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    state, hist = train.run(ARCH, steps=steps, batch=B, seq=S, smoke=False,
+                            seed=0, log_every=1, mesh_shape=shape,
+                            dispatch=dispatch, tune=tune, stats=stats,
+                            fabric=fabric and parse_fabric(fabric))
+    counts = read_counts([k for k, _, _ in COUNTERS])
+    peak = torch.cuda.max_memory_allocated()
+    fab_name, (fast, slow) = tuning.get_tuning()[1]
+    fabric = dict(name=fab_name, fast=dataclasses.asdict(fast),
+                  slow=dataclasses.asdict(slow))
+    digest = hashlib.sha256()
+    for p, f in zip(tree.leaves(state.params),
+                    tree.leaves(T.expert_leaf_mask(state.params))):
+        if not f:
+            digest.update(p.detach().cpu().numpy().tobytes())
+    # one more step, rank 0's under the profiler
+    cfg = serve_config(configs.get_config(ARCH), dispatch=dispatch)
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=1,
+                       total_steps=steps + 1)
+    mesh = make_mesh(shape, backend="gloo")
+    step = make_train_step(cfg, tcfg, mesh=mesh)
+    batch = SyntheticLM(cfg, B, S, seed=0, device=mesh.device).next_batch(
+        steps)
+    prof_counts = None
+    torch.cuda.synchronize()
+    if rank == 0:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, batch, step=steps)
+            torch.cuda.synchronize()
+        prof_counts = {}
+        for e in prof.key_averages():
+            name = e.key.removeprefix("void ").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            if name.startswith(PORT_KERNEL_NAMES):
+                prof_counts[name] = prof_counts.get(name, 0) + e.count
+    else:
+        state, _ = step(state, batch, step=steps)
+        torch.cuda.synchronize()
+    del state
+    return dict(history=hist, step_s=stats["step_s"], counts=counts,
+                peak_gib=peak / 2 ** 30, digest=digest.hexdigest(),
+                profiled=prof_counts, fabric=fabric)
+
+
+def ep_rank(rank, ref_path):
+    """Phase 18 on one of four ranks sharing the card over one gloo group:
+    18a-b at meshes 1x4 and 2x2 (``ep_layer_checks``), then, with every
+    kernel's plain version made to raise, 18c's training runs."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {f"{D}x{M}": ep_layer_checks(torch, rank, (D, M), ref_path)
+           for D, M in EP_LAYER_MESHES}
+    forbid_plain_versions()
+    for dispatch, tune, fabric in EP_TRAIN_CELLS:
+        out[f"{dispatch} 1x4"] = ep_train_run(torch, rank, EP_TRAIN["mesh"],
+                                              dispatch, tune, fabric)
+    return out
+
+
+def phase_ep(torch, smi):
+    """Phase 18: expert parallelism with four ranks sharing the one card
+    over gloo (``launch.mesh.spawn``, one spawn for the whole phase; NCCL
+    refuses two ranks on one device).  18a: flat ≡ hierarchical bitwise at
+    1x4 on CUDA tensors and both the host permutation; 18b: the paper's
+    layer (f32) at 1x4 and 2x2, sort / dense / grouped, card ranks against
+    the same ranks on the CPU, grouped 1x4 against one process, kernels 3-6
+    at the receive side; 18c: the paper model whole trained at 1x4, sort
+    (``--tune calibrate``) and grouped, against one process's first loss.
+    Returns (rank 0's launches in 18c, results)."""
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import spawn
+    names = [k for k, _, _ in COUNTERS]
+    B, S, steps = EP_TRAIN["batch"], EP_TRAIN["seq"], EP_TRAIN["steps"]
+    world = 4
+    out = {"label": ep_label(world), "card": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
+        ref = str(pathlib.Path(tmp) / "one_process.npz")
+        ep_one_process_reference(torch, ref)
+        _, one = train.run(ARCH, steps=1, batch=B, seq=S, smoke=False,
+                           seed=0, log_every=1, dispatch="grouped",
+                           device="cuda")
+        release(torch)
+        print(f"phase 18: backend=gloo ranks={world} on 1 device: 18a-b at "
+              f"meshes {EP_LAYER_MESHES}, then 18c: {ARCH} whole, batch {B} "
+              f"x seq {S}, {steps} AdamW steps at mesh 1x4 for "
+              f"{EP_TRAIN_CELLS} (dispatch, --tune, --fabric)")
+        t0 = time.perf_counter()
+        ranks = spawn(ep_rank, world, backend="gloo", threads=2,
+                      args=(ref,), timeout=900)
+    print(f"  [{smi}; {ep_label(world)}] the ranks took "
+          f"{time.perf_counter() - t0:.1f} s")
+    for D, M in EP_LAYER_MESHES:
+        key = f"{D}x{M}"
+        out[key] = [r[key] for r in ranks]
+        print(f"  18{'a-' if M == 4 else ''}b, mesh {key}:")
+        for r, res in enumerate(out[key]):
+            if res["exchange"] is not None:
+                ex = res["exchange"]
+                print(f"    rank {r} 18a: flat == hierarchical "
+                      f"{ex['flat_eq_hier']}, == host permutation "
+                      f"{ex['eq_host_permutation']}, {ex['bytes']} bytes a "
+                      f"rank: flat {ex['ms']['flat']:.2f} ms, hierarchical "
+                      f"{ex['ms']['hierarchical']:.2f} ms")
+                check(ex["flat_eq_hier"] and ex["eq_host_permutation"],
+                      f"18a rank {r}: {ex}")
+            for name, _ in EP_LAYER_CASES:
+                cell = res[name]
+                errs = {k: f"{v:.2e}" for k, v in cell["errs"].items()}
+                print(f"    rank {r} {name}: card vs CPU {errs}, card "
+                      f"fwd+bwd {cell['card_ms']:.1f} ms, CPU "
+                      f"{cell['cpu_ms']:.1f} ms, launches "
+                      f"{cell['launches']}")
+                check(max(cell["errs"].values()) <= EP_TOL,
+                      f"18b {key} rank {r} {name}: card vs CPU "
+                      f"{cell['errs']} > {EP_TOL}")
+                check(all(cell["launches"].get(k, 0) > 0
+                          for k in EP_LAYER_KERNELS[name]),
+                      f"18b {key} rank {r} {name}: a kernel of "
+                      f"{EP_LAYER_KERNELS[name]} not launched: "
+                      f"{cell['launches']}")
+                if name != "grouped":
+                    continue
+                rs = cell["receive_side"]
+                print(f"      receive side: kernels 3-6 vs plain {rs}")
+                check(max(rs[k] for k in ("grouped_matmul",
+                                          "grouped_matmul_t",
+                                          "grouped_drhs")) <= EP_TOL
+                      and rs["scatter_add_rows_bitwise"],
+                      f"18b {key} rank {r}: receive-side kernels {rs}")
+                if "vs_one_process" in cell:
+                    print(f"      vs one process: {cell['vs_one_process']}")
+                    check(max(cell["vs_one_process"].values()) <= EP_TOL,
+                          f"18b 1x4 grouped rank {r} vs one process "
+                          f"{cell['vs_one_process']}")
+    totals = dict.fromkeys(names, 0)
+    for dispatch, tune, _ in EP_TRAIN_CELLS:
+        cell = f"{dispatch} 1x4"
+        runs = [r[cell] for r in ranks]
+        hist = [r["history"] for r in runs]
+        losses = [h["loss"] for h in hist[0]]
+        print(f"  18c {cell}, --tune {tune}: fabric {runs[0]['fabric']}")
+        for r, res in enumerate(runs):
+            print(f"    [{smi}; {ep_label(world)}] rank {r}: step s "
+                  f"{[round(t, 3) for t in res['step_s']]}, peak memory "
+                  f"{res['peak_gib']:.2f} GiB, launches {res['counts']}")
+        print(f"    losses {losses}")
+        check(all(math.isfinite(v) for h in hist for m in h
+                  for v in m.values()), f"18c {cell}: non-finite metrics")
+        check(all(m["skipped"] == 0 for h in hist for m in h),
+              f"18c {cell}: a step was skipped")
+        check(all([m["loss"] for m in h] == losses for h in hist),
+              f"18c {cell}: the ranks' losses differ")
+        check(len({r["digest"] for r in runs}) == 1,
+              f"18c {cell}: replicated leaves differ across ranks")
+        prof = runs[0]["profiled"]
+        print(f"    rank 0 profiled step, port kernels: {prof}")
+        if dispatch == "grouped":
+            rel = abs(losses[0] - one[0]["loss"]) / abs(one[0]["loss"])
+            print(f"    step 1 loss {losses[0]:.6f} vs one process "
+                  f"{one[0]['loss']:.6f}: relative {rel:.2e}")
+            check(rel <= 1e-3, f"18c grouped step 1 loss {losses[0]} vs one "
+                               f"process {one[0]['loss']}")
+            check(all(runs[0]["counts"][k] > 0 for k in names),
+                  f"18c grouped: a kernel of the path was not launched "
+                  f"{runs[0]['counts']}")
+            check(all(any(k.startswith(p) for k in prof) for p in (
+                "topk_gate_kernel", "gather_rows_kernel", "scatter_",
+                "grouped_mm_", "grouped_drhs_", "flash_")),
+                f"18c grouped: the profiler missed a port kernel: {prof}")
+            out["one_process_step1_loss"] = one[0]["loss"]
+        for k in names:
+            totals[k] += runs[0]["counts"][k]
+        out[cell] = dict(losses=losses, step_s=[r["step_s"] for r in runs],
+                         peak_gib=[r["peak_gib"] for r in runs],
+                         fabric=runs[0]["fabric"],
+                         launches_rank0=runs[0]["counts"],
+                         profiled_rank0=prof)
+    return totals, out
+
+
 def print_ptxas(report: str, most: int = 24) -> None:
     """Registers and spills of each kernel from the build's ptxas report;
     a source with more than ``most`` instances (the gate's one per k and
@@ -5260,7 +5737,7 @@ def main(argv=None) -> int:
                                  "NVIDIA GPU (see the module docstring).")
     ap.add_argument("--phases", choices=("all", "kernels", "trainer",
                                          "presets", "frontends", "serving",
-                                         "recurrent"),
+                                         "recurrent", "ep"),
                     default="all",
                     help="'kernels': only the build, the kernel checks and "
                          "the kernel timings (phases 1, 2 and 5), for "
@@ -5273,7 +5750,9 @@ def main(argv=None) -> int:
                          "build and phases 3 and 16 (generate, SlotServer and "
                          "the traffic replay); 'recurrent': the build, phase "
                          "2p (kernels 7-9 at head dim 112) and phase 17 "
-                         "(rwkv6-1.6b and zamba2-7b); each ends with ok: "
+                         "(rwkv6-1.6b and zamba2-7b); 'ep': the build, "
+                         "phase 2 and phase 18 (expert parallelism, ranks "
+                         "sharing the card over gloo); each ends with ok: "
                          "false")
     phases = ap.parse_args(argv).phases
     import torch
@@ -5372,6 +5851,15 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"ok": False, "partial": "phases 1, 2 and 5 only"}))
         return 0
+    if phases == "ep":
+        release(torch)
+        ep_counts, ep = phase_ep(torch, smi)
+        stamp("phase 18")
+        print(json.dumps({"ep": ep, "ep_launches": ep_counts}))
+        print(smi)
+        print(json.dumps({"ok": False, "partial": "phases 1, 2 and 18 "
+                                                  "only"}))
+        return 0
     serve_counts, serving = phase_serve(torch, smi)
     phase_card_vs_cpu(torch)
     stamp("phases 3-4")
@@ -5409,6 +5897,10 @@ def main(argv=None) -> int:
     recurrent_counts, recurrent = phase_recurrent(torch, smi)
     print(json.dumps({"recurrent": recurrent}))
     stamp("phase 17")
+    release(torch)
+    ep_counts, ep = phase_ep(torch, smi)
+    print(json.dumps({"ep": ep}))
+    stamp("phase 18")
     rows = (phase_timings(torch, dev, smi) + frontend_timings(torch, dev, smi)
             + preset_rows + wide_rows)
     stamp("phase 5")
@@ -5445,6 +5937,9 @@ def main(argv=None) -> int:
             kernels[-1]["launches_traffic"] = traffic_counts[r["name"]]
         if recurrent_counts.get(r["name"]):
             kernels[-1]["launches_recurrent"] = recurrent_counts[r["name"]]
+        if ep_counts.get(r["name"]):
+            # phase 18c: rank 0 of the 1x4 runs (sort + grouped)
+            kernels[-1]["launches_ep"] = ep_counts[r["name"]]
         if r["name"] + "_zamba2" in errs:
             # phase 2p: zamba2's head dim 112, f32 and bf16
             kernels[-1]["max_abs_err_zamba2"] = errs[r["name"] + "_zamba2"]
@@ -5487,6 +5982,7 @@ def main(argv=None) -> int:
                       "traffic": traffic, "traffic_launches": traffic_counts,
                       "recurrent": recurrent,
                       "recurrent_launches": recurrent_counts,
+                      "ep": ep, "ep_launches": ep_counts,
                       "timings": rows, "profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -31,7 +31,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.transformer import (LORA_R, _check_supported,
-                                            untied_head)
+                                            shard_experts, untied_head)
 from repro_torch.training.train_step import TrainState
 
 
@@ -147,10 +147,12 @@ def _flatten(tree: Any, prefix: Tuple = ()) -> Dict[Tuple, Any]:
     return flat
 
 
-def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig
-                      ) -> Dict[str, Any]:
-    """The JAX parameter tree (numpy leaves) → the port's f32 tree.
-    Raises ``ValueError`` naming missing keys, unexpected keys and shape
+def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                      mesh=None) -> Dict[str, Any]:
+    """The JAX parameter tree (numpy leaves) → the port's f32 tree; with
+    ``mesh`` (a ``launch/mesh.Mesh``) this rank's share: each expert leaf
+    (E, …) cut to the rank's E/M slice, the rest replicated.  Raises
+    ``ValueError`` naming missing keys, unexpected keys and shape
     mismatches."""
     _check_supported(cfg)
     want = _expected_shapes(cfg)
@@ -180,7 +182,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig
     out = {"blocks": blocks, "final_norm": t(("final_norm",))}
     for p in _top_shapes(cfg):
         _put(out, p, t(p))
-    return out
+    return shard_experts(out, cfg, mesh)
 
 
 def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig

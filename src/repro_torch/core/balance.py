@@ -1,15 +1,21 @@
 """Router auxiliary losses + load metrics (Switch/GShard style) — the port
-of ``repro/core/balance.py`` on one device (no mesh axes).
+of ``repro/core/balance.py``.
 
 Every serving step computes them, so nothing here waits on the device:
 expert counts are ``index_add_`` into a fixed-size vector (``one_hot``
-checks its input's range on the host)."""
+checks its input's range on the host).  ``group`` (a process group, the
+reference's mesh ``axes``; None for one device, ``dist.group.WORLD`` for
+every rank) makes the means global over its ranks: each
+(sum, count) pair is all-reduced BEFORE the divide, so every valid token
+weighs the same wherever it lives (``core/alltoall.all_reduce_sum``, whose
+backward leaves each rank its own contribution)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.alltoall import all_reduce_sum
 from repro_torch.core.config import MoEConfig
 from repro_torch.core.gating import GateOutput
 
@@ -18,15 +24,22 @@ METRIC_KEYS = ("load_balance_loss", "router_z_loss",
                "expert_load_max", "expert_load_min")
 
 
-def _masked_mean(x: torch.Tensor,
-                 valid: Optional[torch.Tensor]) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, valid: Optional[torch.Tensor],
+                 group=None) -> torch.Tensor:
     """Mean over the leading (token) axis, restricted to ``valid`` rows
-    (padded tokens must not bias the router statistics)."""
+    (padded tokens must not bias the router statistics); over the ranks of
+    ``group`` too when one is given."""
     if valid is None:
-        return x.sum(dim=0) / max(x.shape[0], 1)
-    w = valid.to(x.dtype)
-    s = (x * (w[:, None] if x.dim() > 1 else w)).sum(dim=0)
-    return s / w.sum().clamp(min=1.0)
+        s = x.sum(dim=0)
+        n = torch.full((), float(x.shape[0]), dtype=s.dtype,
+                       device=s.device)
+    else:
+        w = valid.to(x.dtype)
+        s = (x * (w[:, None] if x.dim() > 1 else w)).sum(dim=0)
+        n = w.sum()
+    if group is not None:
+        s, n = all_reduce_sum(s, group), all_reduce_sum(n, group)
+    return s / n.clamp(min=1.0)
 
 
 def _expert_counts(expert_index: torch.Tensor, num_experts: int,
@@ -41,32 +54,40 @@ def _expert_counts(expert_index: torch.Tensor, num_experts: int,
 
 
 def load_balance_loss(gate: GateOutput,
-                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      valid: Optional[torch.Tensor] = None,
+                      group=None) -> torch.Tensor:
     """E · Σ_e f_e · P_e (f_e: share of first choices, P_e: mean prob)."""
     E = gate.router_probs.shape[-1]
     first = gate.expert_index[:, 0]
-    w = None if valid is None else valid.to(torch.float32)
-    n = max(first.shape[0], 1) if w is None else w.sum().clamp(min=1.0)
-    f = _expert_counts(first, E, w) / n
-    p = _masked_mean(gate.router_probs, valid)
+    w = (torch.ones(first.shape, dtype=torch.float32, device=first.device)
+         if valid is None else valid.to(torch.float32))
+    s, n = _expert_counts(first, E, w), w.sum()
+    if group is not None:
+        s, n = all_reduce_sum(s, group), all_reduce_sum(n, group)
+    f = s / n.clamp(min=1.0)
+    p = _masked_mean(gate.router_probs, valid, group)
     return E * (f * p).sum()
 
 
 def router_z_loss(gate: GateOutput,
-                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  valid: Optional[torch.Tensor] = None,
+                  group=None) -> torch.Tensor:
     """ST-MoE z-loss: mean (logsumexp logits)²."""
-    return _masked_mean(torch.logsumexp(gate.logits, dim=-1) ** 2, valid)
+    return _masked_mean(torch.logsumexp(gate.logits, dim=-1) ** 2, valid,
+                        group)
 
 
 def aux_losses(cfg: MoEConfig, gate: GateOutput,
                expert_counts: Optional[torch.Tensor] = None,
-               valid: Optional[torch.Tensor] = None,
+               valid: Optional[torch.Tensor] = None, group=None,
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weighted aux-loss scalar + the router metrics of ``METRIC_KEYS``.
-    ``expert_counts`` (E,) come from the dispatch plan's single sort."""
+    ``expert_counts`` (E,) come from the dispatch plan's single sort;
+    with ``group`` the two losses are global masked means over its ranks
+    (the load metrics stay this rank's: the layer averages them)."""
     E = gate.router_probs.shape[-1]
-    lb = load_balance_loss(gate, valid)
-    zl = router_z_loss(gate, valid)
+    lb = load_balance_loss(gate, valid, group)
+    zl = router_z_loss(gate, valid, group)
     loss = cfg.aux_loss_weight * lb + cfg.router_z_loss_weight * zl
     counts = (expert_counts.float() if expert_counts is not None
               else _expert_counts(gate.expert_index, E))

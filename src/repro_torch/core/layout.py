@@ -1,13 +1,21 @@
 """Data layout transform (paper §3.2, Fig. 4) and its inverse — the port of
-the single-device part of ``repro/core/layout.py``.
+``repro/core/layout.py``.
 
 ``sort``    ONE stable sort over expert ids gives each assignment's
             position within its expert; tokens past capacity drop.  The
             plan carries the permutation, counts, offsets and the
             buffer-side inverse row map for the (E·C, d) buffer.
+``dense``   the GShard/DeepSpeed baseline: positions from running one-hot
+            cumsums (``plan_cumsum``, the same slots as ``plan_sort``) and
+            a (S·K, E·C) one-hot product for dispatch and combine — a plain
+            matrix product, outside any kernel in the reference too.
 ``grouped`` the same sort packs the S·K assignments into an expert-sorted
             (S·K, d) buffer with no padding and no drops; the expert FFN
-            runs as grouped matmuls over the segments.
+            runs as grouped matmuls over the segments.  Under expert
+            parallelism (M ranks) ``plan_grouped_ep`` freezes it into the
+            static (M, B, d) exchange layout, and the receive side rebuilds
+            expert-major offsets from the exchanged counts
+            (``grouped_ep_receive_maps``) — offset arithmetic, no sort.
 
 Index tensors are int32, as in the reference and as the kernels take
 them.  Padded tokens may route to a virtual expert E (``drop_bucket``):
@@ -62,6 +70,19 @@ class GroupedPlan(NamedTuple):
     dest: torch.Tensor
 
 
+class GroupedEPPlan(NamedTuple):
+    """Send-side state of the grouped expert-parallel AllToAll: ``bound``
+    B (rows per destination-rank chunk, a Python int), ``send_counts``
+    (M, E_local) rows packed per (destination rank, local expert),
+    ``pack_map`` (M·B,) exchange slot → source token (-1 padding),
+    ``back_map`` (S·K,) sorted row → exchange slot (-1 bound-dropped or
+    virtual-bucket row)."""
+    bound: int
+    send_counts: torch.Tensor
+    pack_map: torch.Tensor
+    back_map: torch.Tensor
+
+
 def _offsets(counts: torch.Tensor) -> torch.Tensor:
     z = torch.zeros((1,), dtype=counts.dtype, device=counts.device)
     return torch.cat([z, torch.cumsum(counts, 0)]).to(torch.int32)
@@ -107,6 +128,33 @@ def plan_sort(gate: GateOutput, num_experts: int, capacity: int,
                         counts=counts[:E].to(torch.int32),
                         offsets=_offsets(counts[:E]),
                         inv=inv[:E * C])
+
+
+def plan_cumsum(gate: GateOutput, num_experts: int, capacity: int,
+                drop_bucket: bool = False) -> DispatchPlan:
+    """GShard baseline: position via running one-hot cumsums, slot k
+    counting every token of slots < k — the same slots as
+    :func:`plan_sort`; counts and offsets from the running totals, no sort
+    permutation.  The one-hot is a comparison with an arange (``one_hot``
+    reads its input's range on the host)."""
+    S, K = gate.expert_index.shape
+    E = num_experts
+    n_buckets = E + 1 if drop_bucket else E
+    ei = gate.expert_index.long()
+    oh = (ei[..., None] == torch.arange(n_buckets, device=ei.device)
+          ).to(torch.int32)                                       # (S,K,B)
+    pos = torch.zeros((S, K), dtype=torch.int32, device=ei.device)
+    running = torch.zeros((n_buckets,), dtype=torch.int32, device=ei.device)
+    for k in range(K):
+        csum = torch.cumsum(oh[:, k], dim=0, dtype=torch.int32) - oh[:, k]
+        pos[:, k] = (oh[:, k] * (csum + running[None])).sum(dim=-1)
+        running = running + oh[:, k].sum(dim=0, dtype=torch.int32)
+    keep = (pos < capacity) & (ei < E)
+    slot = torch.where(keep, ei * capacity + pos, -1)
+    weight = torch.where(keep, gate.combine_weights, 0.0)
+    counts = running[:E]
+    return DispatchPlan(slot.to(torch.int32).contiguous(), weight,
+                        counts=counts, offsets=_offsets(counts))
 
 
 def plan_grouped(gate: GateOutput, num_experts: int,
@@ -160,3 +208,122 @@ def combine_grouped(expert_out: torch.Tensor, plan: GroupedPlan,
     contrib = expert_out.float() * plan.weight.float()[:, None]
     return layout_transform.scatter_add_rows(contrib, plan.token,
                                              num_tokens).to(expert_out.dtype)
+
+
+def plan_grouped_ep(gplan: GroupedPlan, num_experts: int, model_size: int,
+                    bound: int) -> GroupedEPPlan:
+    """Freeze a :class:`GroupedPlan` into the static grouped-EP exchange
+    layout: the expert-sorted buffer is destination-rank-sorted too
+    (experts shard contiguously over ranks), so rank m's rows are the
+    segment ``offsets[m·E_local] : offsets[(m+1)·E_local]``, cut at
+    ``bound`` (its later experts first)."""
+    E, M, B = num_experts, model_size, bound
+    if E % M:
+        raise ValueError(f"num_experts={E} does not divide over "
+                         f"model_size={M}")
+    E_local = E // M
+    TK = gplan.token.shape[0]
+    dev = gplan.offsets.device
+    offs = gplan.offsets.long()
+    bounds = offs[torch.arange(M + 1, device=dev) * E_local]       # (M+1,)
+    rank_start = bounds[:-1]
+    g_off = offs[torch.arange(M, device=dev)[:, None] * E_local
+                 + torch.arange(E_local + 1, device=dev)[None, :]]
+    rel = torch.clamp(g_off - rank_start[:, None], max=B)
+    send_counts = (rel[:, 1:] - rel[:, :-1]).to(torch.int32)
+    sent = rel[:, -1]
+    j = torch.arange(B, device=dev)
+    rows = rank_start[:, None] + j[None, :]
+    tok = gplan.token[torch.clamp(rows, 0, max(TK - 1, 0))]
+    pack_map = torch.where(j[None, :] < sent[:, None], tok, -1)
+    r = torch.arange(TK, device=dev)
+    m_of = (r[:, None] >= bounds[None, 1:]).sum(dim=-1)           # 0..M
+    m_safe = torch.clamp(m_of, 0, M - 1)
+    jj = r - bounds[m_safe]
+    ok = (m_of < M) & (jj < B)
+    back_map = torch.where(ok, m_safe * B + jj, -1)
+    return GroupedEPPlan(bound=B, send_counts=send_counts,
+                         pack_map=pack_map.reshape(M * B).to(torch.int32),
+                         back_map=back_map.to(torch.int32))
+
+
+def grouped_ep_receive_maps(recv_counts: torch.Tensor, bound: int):
+    """Receive side: rebuild the expert-major FFN order from the exchanged
+    ``recv_counts`` (M, E_local), source-major.  Returns ``ffn_src`` (M·B,)
+    FFN row → received row (-1 past the live rows), ``dst_map`` (M·B,)
+    received row → FFN row (-1 padding) and ``group_sizes`` (E_local,)
+    FFN rows per local expert: destination row = expert base + rows from
+    earlier source ranks + the row's place in its segment."""
+    M, E_local = recv_counts.shape
+    B = bound
+    dev = recv_counts.device
+    rc = recv_counts.long()
+    src_off = torch.cat([torch.zeros((M, 1), dtype=torch.long, device=dev),
+                         torch.cumsum(rc, dim=1)], dim=1)
+    chunk_tot = src_off[:, -1]
+    j = torch.arange(B, device=dev)
+    e_id = (j[None, :, None] >= src_off[:, None, 1:]).sum(dim=-1)   # (M, B)
+    e_safe = torch.clamp(e_id, 0, E_local - 1)
+    group_sizes = rc.sum(dim=0)
+    e_base = torch.cat([torch.zeros((1,), dtype=torch.long, device=dev),
+                        torch.cumsum(group_sizes, 0)[:-1]])
+    from_prev = torch.cumsum(rc, dim=0) - rc
+    dst = (e_base[e_safe] + torch.gather(from_prev, 1, e_safe)
+           + (j[None, :] - torch.gather(src_off, 1, e_safe)))
+    dst = torch.where(j[None, :] < chunk_tot[:, None], dst, -1)
+    dst_map = dst.reshape(M * B)
+    ffn_src = torch.full((M * B + 1,), -1, dtype=torch.int32, device=dev)
+    ffn_src[torch.where(dst_map >= 0, dst_map, M * B)] = torch.arange(
+        M * B, dtype=torch.int32, device=dev)
+    return (ffn_src[:M * B], dst_map.to(torch.int32),
+            group_sizes.to(torch.int32))
+
+
+def grouped_tp_gather_maps(counts: torch.Tensor, bound: int):
+    """:func:`grouped_ep_receive_maps` over ``counts`` flattened to
+    (chunks, E_seg) — the form the EP compute path calls (the reference
+    merges expert-TP ranks' chunks through it too; expert TP is a later
+    slice)."""
+    return grouped_ep_receive_maps(counts.reshape(-1, counts.shape[-1]),
+                                   bound)
+
+
+def grouped_chunk_counts(counts: torch.Tensor, bound: int,
+                         n_chunks: int) -> torch.Tensor:
+    """Split ``counts`` (N, E_seg) of bounded expert-sorted segments into
+    the (n_chunks, N, E_seg) counts of the overlap pipeline's windows of
+    ``bound / n_chunks`` rows; each window again satisfies the receive-map
+    contract, and the windows sum back to ``counts``."""
+    N = counts.shape[0]
+    bc = bound // n_chunks
+    dev = counts.device
+    off = torch.cat([torch.zeros((N, 1), dtype=torch.int32, device=dev),
+                     torch.cumsum(counts, dim=1, dtype=torch.int32)], dim=1)
+    win = (torch.arange(n_chunks, dtype=torch.int32, device=dev) * bc
+           )[:, None, None]
+    rel = torch.clamp(off[None] - win, 0, bc)
+    return (rel[..., 1:] - rel[..., :-1]).to(torch.int32)
+
+
+def dispatch_dense(tokens: torch.Tensor, plan: DispatchPlan,
+                   num_experts: int, capacity: int) -> torch.Tensor:
+    """Dense one-hot dispatch (the baseline of the paper's Fig. 4):
+    (S, K, E·C) one-hot × (S, d) → (E·C, d), O(S·E·C·d)."""
+    mask = _slot_one_hot(plan.slot, num_experts * capacity, tokens.dtype)
+    return torch.einsum("skc,sd->cd", mask, tokens)
+
+
+def combine_dense(expert_out: torch.Tensor, plan: DispatchPlan,
+                  num_experts: int, capacity: int) -> torch.Tensor:
+    """Dense combine: (S, K, E·C) weighted one-hot × (E·C, d)."""
+    keep = plan.slot >= 0
+    mask = _slot_one_hot(plan.slot, num_experts * capacity,
+                         expert_out.dtype)
+    w = (plan.weight * keep).to(expert_out.dtype)
+    return torch.einsum("skc,sk,cd->sd", mask, w, expert_out)
+
+
+def _slot_one_hot(slot: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """(S, K, n) one-hot of ``slot``, all zeros where ``slot`` < 0."""
+    return (slot.long()[..., None]
+            == torch.arange(n, device=slot.device)).to(dtype)

@@ -1,26 +1,51 @@
-"""The HetuMoE layer on one device — the port of ``repro/core/moe.py``
-(``moe_block_local`` at ``model_size=1``; ``moe_apply`` is the one-device
-form of ``sharded_moe_apply``).
+"""The HetuMoE layer — paper Algorithm 1, expert-parallel over the ranks of
+a ``launch/mesh.Mesh`` — the port of ``repro/core/moe.py`` (``moe_apply``
+is ``sharded_moe_apply`` on one device).
 
-Flow: gate → dispatch plan (one sort) → layout transform → expert FFN →
-reverse transform + combine.  Every gate strategy routes (``gating``;
-``noise`` and ``token_ids`` reach the gate).  ``dispatch="grouped"`` is
-the dropless path
-(expert-sorted (T·K, d) buffer + grouped expert matmuls); ``"sort"`` is
-the paper's capacity-padded (E·C, d) layout.  The gate, the row gathers
-and the grouped matmuls always go through the kernels' wrappers, which
-launch the hand-written kernels on a CUDA tensor and run their plain
-versions on a CPU one.  Expert parallelism, expert TP and the overlap
-pipeline come with later slices.
+Per-rank flow (one process per rank; the reference's ``shard_map`` body):
+
+    1. gate            route(cfg, x·W)                     [core/gating]
+    2. layout xform    plan + dispatch → (E·C, d)           [core/layout]
+    3. AllToAll        flat | hierarchical over ``model``   [core/alltoall]
+    4. experts         the batched FFN over local experts
+    5. AllToAll        return path (same mode)
+    6. reverse xform   gather + weighted combine            [core/layout]
+
+``dispatch="sort"`` builds the capacity-padded buffer off one stable sort
+(the gather kernel), ``"dense"`` off one-hot cumsums and a one-hot matrix
+product (the paper's baseline), ``"grouped"`` is the dropless path: an
+expert-sorted buffer and grouped matmuls (kernels 3–5).  Under expert
+parallelism the grouped AllToAll runs instead: per-expert counts cross the
+model group first (an (M, E_local) int32 exchange), then each destination
+rank's rows packed to a static bound B (``capacity.grouped_segment_bound``;
+B = T·K by default, which never drops); the receive side rebuilds its
+expert-major offsets from the counts (``layout.grouped_tp_gather_maps``),
+and the combine reverses the path.  ``overlap_chunks = P > 1`` splits the
+bounded buffer into P windows: window i+1's dispatch exchange is issued
+(``async_op=True``) before window i's grouped matmuls, and each window's
+combine is waited on at the drain.  ``payload_dtype`` sends the payloads
+as int8/fp8 with per-chunk scales (``alltoall.quantized_exchange``;
+those exchanges run synchronously).
+
+Tokens are split over every rank, data-major: rank r holds the r-th
+contiguous block of the flattened tokens (``rank_tokens`` cuts it from the
+global tokens, padding them to a multiple of the world as the reference
+does; padded tokens route to a virtual expert E, which the plans drop).
+Experts shard over ``model`` and replicate over ``data``: ``params`` hold
+the rank's E/M experts.  The aux loss is a global masked mean over the
+world (``balance``); the load metrics are averaged over it.  Expert TP is
+a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import draw
-from repro_torch.core import balance, capacity, gating, layout, tuning
+from repro_torch.core import (alltoall, balance, capacity, gating, layout,
+                              tuning)
 from repro_torch.core.config import MoEConfig
 from repro_torch.kernels import grouped_ffn as gffn
 
@@ -57,25 +82,43 @@ def _act(h: torch.Tensor, g: Optional[torch.Tensor], act: str):
 
 def expert_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor,
                act: str) -> torch.Tensor:
-    """(E, C, d) × expert weights → (E, C, d): the sort path's batched
-    expert product (an XLA einsum in the reference, not a kernel)."""
+    """(E, C, d) × expert weights → (E, C, d): the sort and dense paths'
+    batched expert product (an XLA einsum in the reference, not a kernel)."""
     h = torch.bmm(x, params["w_up"])
     g = torch.bmm(x, params["w_gate"]) if act in ("swiglu", "geglu") else None
     return torch.bmm(_act(h, g, act), params["w_out"])
 
 
+def _pmean(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """The metrics averaged over every rank (one all-reduce)."""
+    with torch.no_grad():
+        v = torch.stack([metrics[k].detach().float()
+                         for k in balance.METRIC_KEYS])
+        dist.all_reduce(v)
+        v = v / mesh.world
+    return dict(zip(balance.METRIC_KEYS, v.unbind(0), strict=True))
+
+
 def moe_block_local(cfg: MoEConfig, params: Dict[str, torch.Tensor],
                     x: torch.Tensor, *, num_experts: int, act: str,
-                    valid: Optional[torch.Tensor] = None,
+                    mesh=None, valid: Optional[torch.Tensor] = None,
                     noise: Optional[torch.Tensor] = None,
                     token_ids: Optional[torch.Tensor] = None,
                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                Dict[str, torch.Tensor]]:
-    """x: (T, d) → (y, aux_loss, metrics) on one device.  ``cfg`` must be
-    resolved (no ``"auto"``); ``noise`` (T, E) and ``token_ids`` (T,) go
-    to the gate (``gating.route``)."""
+    """x: (T, d) this rank's tokens → (y, aux_loss, metrics).  ``cfg`` must
+    be resolved (no ``"auto"``); ``params`` hold the rank's E/M experts;
+    ``mesh`` None is one device.  ``noise`` (T, E) and ``token_ids`` (T,)
+    go to the gate (``gating.route``)."""
     T, d = x.shape
     E = num_experts
+    M = 1 if mesh is None else mesh.shape["model"]
+    E_local = E // M
+    group = None if mesh is None else dist.group.WORLD
+    if params["w_up"].shape[0] != E_local:
+        raise ValueError(f"params hold {params['w_up'].shape[0]} experts, "
+                         f"the rank's share of {E} over model={M} is "
+                         f"{E_local}")
     if not cfg.use_pallas_gate and x.device.type != "cpu":
         raise ValueError(
             f"MoEConfig.use_pallas_gate=False: the port has no layer without "
@@ -96,79 +139,296 @@ def moe_block_local(cfg: MoEConfig, params: Dict[str, torch.Tensor],
         gplan = layout.plan_grouped(gate, E, drop_bucket=True)
         aux, metrics = balance.aux_losses(cfg, gate,
                                           expert_counts=gplan.counts,
-                                          valid=valid)
-        xs = layout.dispatch_grouped(x, gplan)
-        ys = gffn.grouped_ffn(params, xs.to(params["w_up"].dtype),
-                              gplan.offsets, act)
+                                          valid=valid, group=group)
+        if M == 1 and cfg.overlap_chunks == 1:
+            xs = layout.dispatch_grouped(x, gplan)
+            ys = gffn.grouped_ffn(params, xs.to(params["w_up"].dtype),
+                                  gplan.offsets, act)
+        else:
+            ys = _grouped_exchange(cfg, params, x, gplan, mesh, act)
         y = layout.combine_grouped(ys, gplan, T)
-        return y.to(x.dtype), aux, metrics
-
-    if cfg.dispatch != "sort":
-        raise NotImplementedError(
-            f"dispatch={cfg.dispatch!r} is not ported to repro_torch yet "
-            f"(ported: grouped, sort); see ROADMAP.md")
-    C = capacity.expert_capacity(cfg, T, E)
-    plan = layout.plan_sort(gate, E, C, drop_bucket=True)
-    buf = layout.dispatch_scatter(x, plan)
-    aux, metrics = balance.aux_losses(cfg, gate, expert_counts=plan.counts,
-                                      valid=valid)
-    h = expert_ffn(params, buf.reshape(E, C, d).to(params["w_up"].dtype),
-                   act).reshape(E * C, d)
-    y = layout.combine_gather(h, plan)
+    else:
+        C = capacity.expert_capacity(cfg, T, E)
+        if cfg.dispatch == "sort":
+            plan = layout.plan_sort(gate, E, C, drop_bucket=True)
+            buf = layout.dispatch_scatter(x, plan)
+        else:
+            plan = layout.plan_cumsum(gate, E, C, drop_bucket=True)
+            buf = layout.dispatch_dense(x, plan, E, C)
+        aux, metrics = balance.aux_losses(cfg, gate, expert_counts=plan.counts,
+                                          valid=valid, group=group)
+        if M > 1:
+            buf = alltoall.all_to_all(buf.reshape(M, E_local * C, d), mesh,
+                                      mode=cfg.a2a, inner=cfg.a2a_inner)
+            # (M, E_local·C, d) source-major → (E_local, M·C, d)
+            buf = buf.reshape(M, E_local, C, d).transpose(0, 1).reshape(
+                E_local, M * C, d)
+        else:
+            buf = buf.reshape(E, C, d)
+        h = expert_ffn(params, buf.to(params["w_up"].dtype), act)
+        if M > 1:
+            h = h.reshape(E_local, M, C, d).transpose(0, 1).reshape(
+                M, E_local * C, d)
+            h = alltoall.all_to_all(h, mesh, mode=cfg.a2a,
+                                    inner=cfg.a2a_inner)
+        h = h.reshape(E * C, d)
+        y = (layout.combine_gather(h, plan) if cfg.dispatch == "sort"
+             else layout.combine_dense(h, plan, E, C))
+    if mesh is not None:
+        metrics = _pmean(metrics, mesh)
     return y.to(x.dtype), aux, metrics
 
 
-def validate_dispatch_config(cfg: MoEConfig, *,
-                             tokens_per_shard: Optional[int] = None) -> None:
-    """Raise ``ValueError`` for a configuration the layer cannot run on one
-    device (the reference's one-device checks), and
-    ``NotImplementedError`` for what later slices bring.  ``"auto"`` knobs
-    are resolved first when the token count is known."""
+def _grouped_exchange(cfg: MoEConfig, params, x: torch.Tensor,
+                      gplan: layout.GroupedPlan, mesh, act: str
+                      ) -> torch.Tensor:
+    """The grouped path's bounded exchange (the reference's
+    ``moe_block_local`` grouped branch at ``model_size > 1`` or
+    ``overlap_chunks > 1``): (T·K, d) sorted FFN rows of this rank's
+    assignments, computed by the ranks that own their experts."""
+    T, d = x.shape
+    E = gplan.counts.shape[0]
+    M = 1 if mesh is None else mesh.shape["model"]
+    gather = layout.take_rows
+    if M > 1:
+        B = capacity.grouped_segment_bound(cfg, T, M)
+        eplan = layout.plan_grouped_ep(gplan, E, M, B)
+        packed = gather(x, eplan.pack_map).reshape(M, B, d)
+        send_counts = eplan.send_counts                  # (M, E_local)
+    else:
+        B = capacity.grouped_tp_gather_bound(cfg, T)
+        packed = gather(x, gplan.token).reshape(1, B, d)
+        send_counts = gplan.counts[None]                 # (1, E)
+    n_src = packed.shape[0]
+    qdt = cfg.payload_dtype if M > 1 else None
+
+    def exchange(chunk, counts, pending):
+        if M == 1:
+            return chunk, counts
+        if qdt is not None:
+            return alltoall.quantized_exchange(
+                chunk, counts, mesh, mode=cfg.a2a, inner=cfg.a2a_inner,
+                payload_dtype=qdt)
+        return alltoall.grouped_all_to_all(
+            chunk, counts, mesh, mode=cfg.a2a, inner=cfg.a2a_inner,
+            pending=pending)
+
+    def compute(recv, counts, bc, pending):
+        """Grouped matmuls over one received window (n_src, bc, d); the
+        FFN rows go back to the window's source ranks (with ``pending``
+        the combine's last stage is issued asynchronously)."""
+        if M > 1:
+            ffn_src, dst_map, group_sizes = layout.grouped_tp_gather_maps(
+                counts, bc)
+            xs = gather(recv.reshape(n_src * bc, d), ffn_src)
+        else:
+            xs, group_sizes = recv.reshape(bc, d), counts[0]
+        ys = gffn.grouped_ffn(params, xs.to(params["w_up"].dtype),
+                              layout._offsets(group_sizes), act)
+        if M == 1:
+            return ys.reshape(1, bc, d)
+        h = gather(ys, dst_map).reshape(M, bc, d)
+        if qdt is not None:
+            # dequantized into f32: the combine's reduction stays f32
+            out, _ = alltoall.quantized_exchange(
+                h, None, mesh, mode=cfg.a2a, inner=cfg.a2a_inner,
+                payload_dtype=qdt, out_dtype=torch.float32)
+            return out
+        return alltoall.all_to_all(h, mesh, mode=cfg.a2a,
+                                   inner=cfg.a2a_inner, pending=pending)
+
+    P = cfg.overlap_chunks
+    if P > 1:
+        Bc = capacity.grouped_overlap_chunk_bound(cfg, B)
+        chunk_counts = layout.grouped_chunk_counts(send_counts, B, P)
+        windows = packed.reshape(n_src, P, Bc, d)
+        asyn = qdt is None
+        dispatched = [[] if asyn else None for _ in range(P)]
+        combined = [] if asyn else None
+        recv = exchange(windows[:, 0], chunk_counts[0], dispatched[0])
+        outs = []
+        for i in range(P):
+            if i + 1 < P:    # issue the next window's exchange first
+                nxt = exchange(windows[:, i + 1], chunk_counts[i + 1],
+                               dispatched[i + 1])
+            if asyn:
+                alltoall.wait(dispatched[i])
+            outs.append(compute(*recv, Bc, combined))
+            if i + 1 < P:
+                recv = nxt
+        if asyn:
+            alltoall.wait(combined)                   # the drain
+        out = torch.stack(outs, dim=1).reshape(n_src, B, d)
+    else:
+        out = compute(*exchange(packed, send_counts, None), B, None)
+    if M > 1:
+        # combined exchange layout → this rank's sorted rows
+        return gather(out.reshape(M * B, d), eplan.back_map)
+    return out.reshape(B, d)
+
+
+# ---------------------------------------------------------------------------
+# the layer over the ranks
+# ---------------------------------------------------------------------------
+
+def _pad_to(x: torch.Tensor, mult: int):
+    n = x.shape[0]
+    pad = (-n) % mult
+    if pad == 0:
+        return x, n
+    return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]), n
+
+
+def rank_tokens(mesh, x: torch.Tensor,
+                token_ids: Optional[torch.Tensor] = None):
+    """This rank's block of the global tokens ``x`` (..., d): the
+    flattened tokens padded to a multiple of the world (the reference's
+    ``_pad_to``) and cut into contiguous blocks in rank order.  Returns
+    ``(tokens (T_local, d), valid (T_local,), token_ids or None,
+    n_real)``."""
+    d = x.shape[-1]
+    toks = x.reshape(-1, d)
+    world = 1 if mesh is None else mesh.world
+    rank = 0 if mesh is None else mesh.rank
+    toks, n_real = _pad_to(toks, world)
+    n = toks.shape[0] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    valid = torch.arange(toks.shape[0], device=x.device)[rows] < n_real
+    tid = None
+    if token_ids is not None:
+        tid = _pad_to(token_ids.reshape(-1), world)[0][rows]
+    return toks[rows], valid, tid, n_real
+
+
+def grouped_a2a_stages(cfg: MoEConfig, model_size: int) -> int:
+    """Exchanges one payload AllToAll issues: 1 flat, 2 for an effective
+    two-stage one (``1 < a2a_inner < model_size``, dividing it)."""
+    if (cfg.a2a == "hierarchical" and 1 < cfg.a2a_inner
+            and model_size % cfg.a2a_inner == 0
+            and model_size // cfg.a2a_inner > 1):
+        return 2
+    return 1
+
+
+def expected_grouped_a2a_eqns(cfg: MoEConfig, model_size: int) -> int:
+    """AllToAll collectives the grouped path issues per layer forward —
+    what ``alltoall.exchanges`` rises by: per overlap window one flat
+    counts exchange plus a dispatch and a combine payload exchange of
+    :func:`grouped_a2a_stages` each, plus one scales exchange in the
+    combine direction with ``payload_dtype``."""
+    if tuning.has_auto_knobs(cfg):
+        raise ValueError(
+            "expected_grouped_a2a_eqns needs a concrete config — resolve "
+            "'auto' knobs first (core/tuning.resolve_moe_config)")
+    if cfg.dispatch != "grouped" or model_size <= 1:
+        return 0
+    stages = grouped_a2a_stages(cfg, model_size)
+    per_window = 1 + 2 * stages
+    if cfg.payload_dtype is not None:
+        per_window += 1
+    return cfg.overlap_chunks * per_window
+
+
+def validate_dispatch_config(cfg: MoEConfig, *, model_size: int = 1,
+                             model_axis: str = "model",
+                             tokens_per_shard: Optional[int] = None,
+                             d_model: Optional[int] = None,
+                             dtype=None) -> None:
+    """Raise ``ValueError`` for a cfg × mesh combination the layer cannot
+    run (the reference's checks and messages).  ``"auto"`` knobs are
+    resolved first when ``tokens_per_shard`` is known, and an error then
+    names the resolved values."""
+    auto_cfg = None
     if tuning.has_auto_knobs(cfg):
         if tokens_per_shard is None:
             return
-        cfg = tuning.resolve_moe_config(cfg, model_size=1,
-                                        tokens_per_shard=tokens_per_shard)
+        auto_cfg = cfg
+        cfg = tuning.resolve_moe_config(
+            cfg, model_size=model_size, tokens_per_shard=tokens_per_shard,
+            d_model=d_model if d_model is not None else 1024, dtype=dtype)
+    try:
+        _validate_concrete(cfg, model_size=model_size, model_axis=model_axis,
+                           tokens_per_shard=tokens_per_shard)
+    except ValueError as e:
+        if auto_cfg is not None:
+            raise ValueError(
+                f"{e} [{tuning.describe_resolution(auto_cfg, cfg)}]"
+            ) from None
+        raise
+
+
+def _validate_concrete(cfg: MoEConfig, *, model_size: int, model_axis: str,
+                       tokens_per_shard: Optional[int]) -> None:
     if cfg.overlap_chunks > 1 and cfg.dispatch != "grouped":
         raise ValueError(
             f"MoEConfig.overlap_chunks={cfg.overlap_chunks} requires "
             f"dispatch='grouped' (the overlapped pipeline chunks the "
-            f"grouped dispatch buffer), got dispatch={cfg.dispatch!r}")
-    if cfg.overlap_chunks > 1:
-        raise NotImplementedError(
-            f"MoEConfig.overlap_chunks={cfg.overlap_chunks}: the overlapped "
-            f"pipeline comes with the EP slice (ROADMAP.md)")
+            f"grouped dispatch buffer), got dispatch="
+            f"{cfg.dispatch!r}")
+    if (cfg.a2a == "hierarchical" and cfg.a2a_inner > 1
+            and model_size > 1 and model_size % cfg.a2a_inner != 0):
+        raise ValueError(
+            f"MoEConfig.a2a='hierarchical' with a2a_inner={cfg.a2a_inner} "
+            f"does not divide the mesh {model_axis!r} axis size "
+            f"{model_size} — pick a2a_inner from its divisors or use "
+            f"a2a='flat'")
+    if (tokens_per_shard is not None and cfg.dispatch == "grouped"
+            and cfg.overlap_chunks > 1):
+        B = (capacity.grouped_segment_bound(cfg, tokens_per_shard, model_size)
+             if model_size > 1
+             else capacity.grouped_tp_gather_bound(cfg, tokens_per_shard))
+        capacity.grouped_overlap_chunk_bound(cfg, B)   # raises when P ∤ B
 
 
-def moe_apply(cfg: MoEConfig, params: Dict[str, torch.Tensor],
-              x: torch.Tensor, *, num_experts: int, act: str = "swiglu",
-              noise: Optional[torch.Tensor] = None,
-              token_ids: Optional[torch.Tensor] = None,
-              ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
-    """The MoE layer on ``x: (..., d)``: leading dims flatten into one
-    token axis.  Expert weights are cast to the compute dtype (a no-op
-    when the model already keeps them in it).  ``noise`` ((T, E), T the
-    flattened token count) is a noisy gate's draw
+def sharded_moe_apply(mesh, cfg: MoEConfig, params: Dict[str, torch.Tensor],
+                      x: torch.Tensor, *, num_experts: int,
+                      act: str = "swiglu",
+                      noise: Optional[torch.Tensor] = None,
+                      token_ids: Optional[torch.Tensor] = None,
+                      valid: Optional[torch.Tensor] = None,
+                      expert_tp_axis: Optional[str] = None,
+                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                 Dict[str, torch.Tensor]]:
+    """The MoE layer on this rank's tokens ``x: (..., d)`` under ``mesh``
+    (None: one device).  Leading dims flatten into one token axis; every
+    rank must hold as many tokens (:func:`rank_tokens` cuts and pads them
+    from the global ones and gives their ``valid`` mask).  ``params`` hold
+    the router and the rank's E/M experts, cast here to the compute dtype
+    (a no-op when the model already keeps them in it); ``noise`` (T, E)
+    is this rank's rows of a noisy gate's global draw
     (``gating.draw_noise``); ``token_ids`` (``x``'s leading dims) route
-    the ``hash`` gate, which raises ``ValueError`` without them, as the
-    reference's ``sharded_moe_apply`` does."""
+    the ``hash`` gate, which raises ``ValueError`` without them."""
+    if expert_tp_axis is not None:
+        raise NotImplementedError(
+            f"expert_tp_axis={expert_tp_axis!r}: expert tensor parallelism "
+            f"is not ported to repro_torch yet (ROADMAP.md)")
     lead, d = x.shape[:-1], x.shape[-1]
     toks = x.reshape(-1, d)
     T = toks.shape[0]
+    M = 1 if mesh is None else mesh.shape["model"]
     if token_ids is not None:
         token_ids = token_ids.reshape(-1)
     elif cfg.gate == "hash":
         raise ValueError(
-            "cfg.gate='hash' routes by token id: pass token_ids to "
-            "moe_apply (without them every token would hash to one "
-            "expert)")
-    valid = torch.ones((T,), dtype=torch.bool, device=x.device)
+            "cfg.gate='hash' routes by token id: pass token_ids to the MoE "
+            "layer (without them every token would hash to one expert)")
+    if valid is None:
+        valid = torch.ones((T,), dtype=torch.bool, device=x.device)
     params = {k: (v if k == "gate_w" else v.to(x.dtype))
               for k, v in params.items()}
-    cfg = tuning.resolve_moe_config(cfg, model_size=1, tokens_per_shard=T)
-    validate_dispatch_config(cfg)
+    cfg = tuning.resolve_moe_config(cfg, model_size=M, tokens_per_shard=T,
+                                    d_model=d, dtype=x.dtype)
+    validate_dispatch_config(cfg, model_size=M, tokens_per_shard=T)
     y, aux, metrics = moe_block_local(cfg, params, toks,
                                       num_experts=num_experts, act=act,
-                                      valid=valid, noise=noise,
+                                      mesh=mesh, valid=valid, noise=noise,
                                       token_ids=token_ids)
     return y.reshape(*lead, d), aux, metrics
+
+
+def moe_apply(cfg: MoEConfig, params: Dict[str, torch.Tensor],
+              x: torch.Tensor, **kw
+              ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """The MoE layer on one device: :func:`sharded_moe_apply` without a
+    mesh (``x``'s flattened tokens all this device's)."""
+    return sharded_moe_apply(None, cfg, params, x, **kw)

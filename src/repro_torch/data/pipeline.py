@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.config import ModelConfig
+from repro_torch.launch.mesh import rank_block
 
 
 class SyntheticLM:
@@ -68,3 +69,14 @@ class SyntheticLM:
                 "targets": torch.from_numpy(np.ascontiguousarray(tok[:, 1:])),
                 "loss_mask": torch.ones((B, S), dtype=torch.float32)}
         return {k: v.to(self.device) for k, v in host.items()}
+
+
+def rank_rows(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch: the batch cut into contiguous
+    blocks in rank order (data-major), as the reference shards its batch
+    over ``("data", "model")``.  Raises ``ValueError`` when the rows do
+    not divide over the ranks; None ``mesh`` returns ``batch``."""
+    if mesh is None:
+        return batch
+    rows = rank_block(mesh, next(iter(batch.values())).shape[0])
+    return {k: v[rows] for k, v in batch.items()}

@@ -1,0 +1,324 @@
+"""The ``(data, model)`` grid of ranks — the port of ``repro/launch/mesh.py``
+for one process per rank.
+
+The reference runs one SPMD program over a ``jax.sharding.Mesh``; the port
+runs one process per rank with explicit ``torch.distributed`` collectives.
+:func:`make_mesh` lays the ranks of an initialized process group out as the
+reference lays out its devices: global rank ``r = d·M + m`` (data-major),
+so rank r holds the r-th contiguous block of the flattened (B·S) tokens,
+as ``P(("data", "model"))`` gives device r.  Experts shard over ``model``
+(rank m holds experts ``[m·E/M, (m+1)·E/M)``) and replicate over ``data``.
+
+Groups (every rank creates every group, in the same order, as
+``torch.distributed.new_group`` requires):
+
+* one ``model`` group per data row — where the AllToAll runs;
+* one ``data`` group per model column — where expert gradients reduce;
+* for every two-stage factoring ``model = outer × inner`` (``1 < inner <
+  M``, inner dividing M), the hierarchical AllToAll's ``inner`` groups of
+  consecutive model ranks (one "node") and ``outer`` groups of strided
+  ones (rank i of every node), as ``core/alltoall.py:45-52`` of the
+  reference.
+
+The backend is always the caller's: ``nccl`` on a host with one card per
+rank, ``gloo`` on the CPU (and on a card only where the caller names it,
+as ``chip_smoke.py`` does to run several ranks on one card).  Nothing here
+picks another backend when one fails.  A rank's device is
+``cuda:{LOCAL_RANK % device_count}`` unless the caller passes
+``device="cpu"``.
+
+:func:`spawn` starts local ranks (the tests, ``chip_smoke.py``) over a
+``file://`` rendezvous in a temporary directory, so no port is fixed;
+``launch/train.py`` also runs under ``torchrun``, which sets ``RANK``,
+``WORLD_SIZE`` and ``LOCAL_RANK``.  Production meshes, FSDP and the
+parameter sharding rules (``param_shardings``) come with later slices
+(ROADMAP.md).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+import multiprocessing as mp
+import os
+import pathlib
+import queue
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import resolve_device
+
+BACKENDS = ("nccl", "gloo")
+
+
+def parse_mesh(spec: str) -> Tuple[int, ...]:
+    """Parse a ``--mesh`` string like ``1x1`` / ``2x4`` into a shape
+    tuple, with a clear error for typos (``16x``, ``axb``, ``0x4``)."""
+    parts = str(spec).split("x")
+    try:
+        dims = tuple(int(p) for p in parts)
+    except ValueError:
+        dims = ()
+    if not dims or any(d < 1 for d in dims):
+        raise ValueError(
+            f"--mesh expects 'DxM' with positive integers (e.g. '1x1', "
+            f"'16x16', or '2x16x16' for multi-pod), got {spec!r}")
+    return dims
+
+
+def mesh_cli_arg(spec: str):
+    """argparse ``type=`` adapter for :func:`parse_mesh`."""
+    try:
+        return parse_mesh(spec)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+
+
+def parse_fabric(name: str):
+    """Parse a ``--fabric`` name into ``(name, (fast, slow))``, a named
+    ``LinkSpec`` pair of ``core/alltoall.FABRICS`` (``pcie_eth100``).  A
+    typo raises a ValueError listing the valid fabrics."""
+    from repro_torch.core import alltoall
+    key = str(name).strip().lower()
+    if key not in alltoall.FABRICS:
+        raise ValueError(
+            f"--fabric expects one of {tuple(alltoall.FABRICS)} (named "
+            f"fast/slow LinkSpec pairs in core/alltoall.py), got {name!r}")
+    return key, alltoall.FABRICS[key]
+
+
+def fabric_cli_arg(name: str):
+    """argparse ``type=`` adapter for :func:`parse_fabric`."""
+    try:
+        return parse_fabric(name)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+
+
+def _inner_groups(outer: int, inner: int) -> List[List[int]]:
+    """Groups of consecutive model ranks — one per 'node'."""
+    return [[o * inner + i for i in range(inner)] for o in range(outer)]
+
+
+def _outer_groups(outer: int, inner: int) -> List[List[int]]:
+    """Strided groups — model rank i of every node."""
+    return [[o * inner + i for o in range(outer)] for i in range(inner)]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """This rank's place in the ``(data, model)`` grid and its groups.
+
+    ``shape`` is ``{"data": D, "model": M}`` (the reference's
+    ``mesh.shape``); ``model_group`` and ``data_group`` are the process
+    groups of this rank's data row and model column; ``hier`` maps each
+    two-stage ``inner`` to this rank's ``(inner_group, outer_group)``;
+    the default group spans the world."""
+    shape: Dict[str, int]
+    rank: int
+    backend: str
+    device: torch.device
+    model_group: Any
+    data_group: Any
+    hier: Dict[int, Tuple[Any, Any]]
+
+    @property
+    def world(self) -> int:
+        return self.shape["data"] * self.shape["model"]
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.shape["model"]
+
+    def hierarchical_groups(self, inner: int) -> Tuple[Any, Any]:
+        """``(inner_group, outer_group)`` of this rank for a two-stage
+        AllToAll with ``inner`` consecutive ranks per node."""
+        if inner not in self.hier:
+            raise ValueError(
+                f"no hierarchical groups for inner={inner} on a model axis "
+                f"of {self.shape['model']} (two-stage factorings: "
+                f"{sorted(self.hier)})")
+        return self.hier[inner]
+
+    def describe(self) -> str:
+        return (f"{self.shape['data']}x{self.shape['model']} "
+                f"backend={self.backend} ranks={self.world}")
+
+
+def _two_stage_inners(M: int) -> List[int]:
+    return [i for i in range(2, M) if M % i == 0]
+
+
+def make_mesh(shape: Sequence[int], *, backend: Optional[str] = None,
+              device=None) -> Mesh:
+    """The mesh of this rank over the initialized default process group.
+    ``shape`` is ``(D, M)``; the world size must be ``D·M``.  ``backend``
+    defaults to the process group's own; ``device`` to
+    ``cuda:{LOCAL_RANK % device_count}`` (pass ``"cpu"`` for the CPU)."""
+    if len(shape) != 2:
+        raise ValueError(f"mesh shape must be (data, model), got "
+                         f"{tuple(shape)}")
+    D, M = (int(s) for s in shape)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"make_mesh({D}x{M}) needs an initialized process group (run "
+            f"under torchrun, or through launch.mesh.spawn)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != D * M:
+        raise ValueError(f"mesh {D}x{M} needs {D * M} ranks, the process "
+                         f"group has {world}")
+    pg_backend = dist.get_backend()
+    if backend is not None and backend != pg_backend:
+        raise ValueError(f"backend={backend!r} but the process group runs "
+                         f"{pg_backend!r}")
+    dev = resolve_device(device)                 # raises without a GPU
+    if dev.type == "cuda" and dev.index is None:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    # every rank creates every group, in this order
+    model_group = data_group = None
+    for d in range(D):
+        g = dist.new_group([d * M + m for m in range(M)])
+        if d == rank // M:
+            model_group = g
+    for m in range(M):
+        g = dist.new_group([d * M + m for d in range(D)])
+        if m == rank % M:
+            data_group = g
+    hier = {}
+    for inner in _two_stage_inners(M):
+        outer = M // inner
+        mine = [None, None]
+        for stage, groups in enumerate((_inner_groups(outer, inner),
+                                        _outer_groups(outer, inner))):
+            for d in range(D):
+                for members in groups:
+                    g = dist.new_group([d * M + r for r in members])
+                    if rank in [d * M + r for r in members]:
+                        mine[stage] = g
+        hier[inner] = tuple(mine)
+    return Mesh({"data": D, "model": M}, rank, pg_backend, dev, model_group,
+                data_group, hier)
+
+
+def make_smoke_mesh(shape: Tuple[int, ...] = (1, 1), *,
+                    backend: Optional[str] = None, device=None
+                    ) -> Optional[Mesh]:
+    """The reference's name for a small mesh: None for ``1x1`` (the
+    one-device path needs no group), else :func:`make_mesh`."""
+    if math.prod(shape) == 1:
+        return None
+    return make_mesh(shape, backend=backend, device=device)
+
+
+def dp_axes(mesh: Optional[Mesh]) -> Tuple[str, ...]:
+    return () if mesh is None else ("data",)
+
+
+def rank_block(mesh: Optional[Mesh], n: int) -> slice:
+    """This rank's rows of ``n`` rows cut into ``world`` contiguous blocks
+    in rank order (``n`` must divide evenly)."""
+    if mesh is None:
+        return slice(0, n)
+    if n % mesh.world:
+        raise ValueError(f"{n} rows do not divide over the {mesh.world} "
+                         f"ranks of mesh {mesh.describe()}")
+    b = n // mesh.world
+    return slice(mesh.rank * b, (mesh.rank + 1) * b)
+
+
+# ---------------------------------------------------------------------------
+# local ranks
+# ---------------------------------------------------------------------------
+
+def _entry(rank: int, world: int, backend: str, init_file: str,
+           threads: Optional[int], fn: Callable, args: tuple, results) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    if threads is not None:
+        torch.set_num_threads(threads)
+    try:
+        dist.init_process_group(backend, init_method=f"file://{init_file}",
+                                rank=rank, world_size=world)
+        try:
+            out = fn(rank, *args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, "ok", out))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def spawn(fn: Callable, world: int, *, backend: str, args: tuple = (),
+          init_file: Optional[str] = None, threads: Optional[int] = None,
+          timeout: float = 600.0) -> List[Any]:
+    """Run ``fn(rank, *args)`` in ``world`` fresh processes (the ``spawn``
+    start method) that share one process group of ``backend`` through a
+    ``file://`` rendezvous (``init_file``, default a file in a new
+    temporary directory: no port is fixed).  ``fn`` must be importable by
+    name and its return value picklable.  Returns the ranks' return
+    values in rank order; raises with the failing ranks' tracebacks if
+    any rank fails or the ranks outlast ``timeout`` seconds.  Every
+    process started is ended before it returns.  ``threads`` sets
+    ``torch.set_num_threads`` in each rank."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+        path = init_file or str(pathlib.Path(tmp) / "rendezvous")
+        procs = [ctx.Process(target=_entry,
+                             args=(r, world, backend, path, threads, fn,
+                                   tuple(args), results), daemon=True)
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        got: Dict[int, Tuple[str, Any]] = {}
+        try:
+            # drain the queue before joining (a full pipe blocks a writer)
+            deadline = time.monotonic() + timeout
+            while len(got) < world:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"spawn: {world - len(got)} of {world} ranks gave no "
+                        f"result within {timeout:.0f} s")
+                try:
+                    rank, status, out = results.get(timeout=min(left, 1.0))
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(procs)
+                            if p.exitcode not in (None, 0) and r not in got]
+                    if dead:
+                        # a rank died without reporting (killed, segfault)
+                        raise RuntimeError(
+                            f"spawn: ranks {dead} exited with codes "
+                            f"{[procs[r].exitcode for r in dead]}")
+                    continue
+                got[rank] = (status, out)
+                if status == "error":
+                    break
+            for p in procs:
+                p.join(timeout=max(deadline - time.monotonic(), 1.0)
+                       if len(got) == world else 1.0)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    errors = {r: out for r, (s, out) in got.items() if s == "error"}
+    if errors:
+        raise RuntimeError("spawn: ranks failed:\n" + "\n".join(
+            f"--- rank {r} ---\n{tb}" for r, tb in sorted(errors.items())))
+    return [got[r][1] for r in range(world)]

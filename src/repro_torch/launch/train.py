@@ -1,10 +1,22 @@
 """Training entry point with crash-safe resume — the port of
-``repro/launch/train.py`` on one device.
+``repro/launch/train.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch hetumoe-paper-16e \\
       --steps 10 --batch 8 --seq 1024 [--remat block] \\
       [--ckpt-dir DIR --ckpt-every N --ckpt-keep K --resume] \\
-      [--inject site:mode@steps]
+      [--inject site:mode@steps] [--tune auto|off|calibrate] [--fabric F]
+
+Across ranks (expert parallelism × data parallelism), one process per rank:
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch hetumoe-paper-16e --mesh 1x4 --batch 8 --seq 1024
+
+runs under ``torchrun`` (``--backend nccl``, the default: one card per
+rank), or calls :func:`run` with ``mesh_shape=`` from ranks that
+``launch.mesh.spawn`` started (``backend="gloo"`` for the CPU or for
+several ranks on one card).  Every rank draws the same global batch and
+trains on its rows (``batch`` must divide over the D·M ranks); rank 0
+prints the banner (mesh, backend, the resolved MoE knobs) and the log.
 
 Runs on the GPU unless ``--device cpu`` is given.  The f32 master weights
 are drawn from a ``torch.Generator`` seeded with ``--seed`` on the device;
@@ -26,44 +38,57 @@ step, the checkpoint's crash points and the train step's traced seams.
 ``--history-out`` dumps the per-step metrics (and ``start``,
 ``resumed``) as JSON.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-meshes other than ``1x1`` and ``--tune`` other than ``auto``.  ``run``
-also takes a ``dispatch`` keyword (no CLI flag, as the reference has
-none) that overrides the MoE dispatch mode the way
-``serving.engine.serve_config`` does, and ``moe`` keywords (e.g.
-``gate=``) that replace fields of the preset's ``MoEConfig``.
+``--tune`` and ``--fabric`` are the reference's: ``auto`` resolves the
+``"auto"`` MoE knobs from the α–β model over the named fabric, ``off``
+pins them to the static defaults, ``calibrate`` measures a few AllToAll
+payloads over the mesh's model group once and fits α–β
+(``core/tuning.calibrate_fabric``).  Not ported yet: ``--ckpt-dir`` with a
+mesh (a sharded train state's checkpoint) raises ``NotImplementedError``
+naming ROADMAP.md.  ``run`` also takes a ``dispatch`` keyword (no CLI
+flag, as the reference has none) that overrides the MoE dispatch mode
+the way ``serving.engine.serve_config`` does, ``moe`` keywords (e.g.
+``gate=``) that replace fields of the preset's ``MoEConfig``, and
+``init_params``: a whole parameter tree in the reference's layout (numpy
+leaves, e.g. a JAX trainer's initial parameters) to start from.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import Optional
+
+import torch
+import torch.distributed as dist
 
 from repro_torch import configs, resolve_device, tree
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
+from repro_torch.convert import params_from_numpy
 from repro_torch.core import faults as faults_mod
+from repro_torch.core import tuning
 from repro_torch.core.config import TrainConfig
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.serving.engine import serve_config
 from repro_torch.training.train_step import init_train_state, make_train_step
 
 
-def mesh_cli_arg(spec: str):
-    """'DxM' → (D, M); only (1, 1) runs (``run`` raises for the rest)."""
-    try:
-        d, m = (int(x) for x in str(spec).split("x"))
-    except ValueError:
-        raise argparse.ArgumentTypeError(
-            f"--mesh {spec!r}: expected DxM, e.g. 1x1") from None
-    return (d, m)
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md)")
+def _resolved_knobs(cfg, mesh, tokens_per_rank: int) -> str:
+    """The MoE knobs as this run resolves them, for the banner."""
+    if cfg.moe is None:
+        return ""
+    M = 1 if mesh is None else mesh.shape["model"]
+    r = tuning.resolve_moe_config(cfg.moe, model_size=M,
+                                  tokens_per_shard=tokens_per_rank,
+                                  d_model=cfg.d_model,
+                                  dtype=getattr(torch, cfg.dtype))
+    return (f"dispatch={r.dispatch} gate={r.gate} a2a={r.a2a} "
+            f"a2a_inner={r.a2a_inner} overlap_chunks={r.overlap_chunks} "
+            f"payload_dtype={r.payload_dtype} "
+            f"grouped_ep_bound_factor={r.grouped_ep_bound_factor} ")
 
 
 def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
@@ -72,19 +97,25 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
         ckpt_every: int = None, ckpt_keep: int = 3, resume: bool = False,
         seed: int = 0, loss_scale="none", history_out: str = None,
         faults: Optional[faults_mod.FaultPlan] = None, tune: str = "auto",
-        dispatch: Optional[str] = None, moe: Optional[dict] = None,
-        device=None, stats: Optional[dict] = None):
-    """Train ``steps`` AdamW steps; returns ``(state, history)``.
-    ``stats`` (when given) receives, as the run goes (so a run cut by a
-    fault leaves what it reached), ``step_s``: each step's host-clock
-    seconds up to its metrics' arrival on the host; ``save_s``: seconds
-    per checkpoint save; ``restore_s``: the resume's restore, or None."""
+        fabric=None, dispatch: Optional[str] = None,
+        moe: Optional[dict] = None, device=None,
+        stats: Optional[dict] = None, init_params=None):
+    """Train ``steps`` AdamW steps; returns ``(state, history)`` (under a
+    mesh, this rank's state).  ``stats`` (when given) receives, as the run
+    goes (so a run cut by a fault leaves what it reached), ``step_s``:
+    each step's host-clock seconds up to its metrics' arrival on the
+    host; ``save_s``: seconds per checkpoint save; ``restore_s``: the
+    resume's restore, or None.  A ``mesh_shape`` other than (1, 1) needs
+    an initialized process group of D·M ranks."""
     if (ckpt_every or resume) and not ckpt_dir:
         raise ValueError("--ckpt-every/--resume require --ckpt-dir")
-    if tuple(mesh_shape) != (1, 1):
-        raise _unported(f"mesh {tuple(mesh_shape)} (only 1x1)")
-    if tune != "auto":
-        raise _unported(f"--tune {tune}")
+    mesh = mesh_lib.make_smoke_mesh(tuple(mesh_shape), device=device)
+    if mesh is not None and ckpt_dir:
+        raise NotImplementedError(
+            f"--ckpt-dir with mesh {mesh.describe()}: checkpoints of a "
+            f"sharded train state are not ported to repro_torch yet "
+            f"(ROADMAP.md)")
+    lead = mesh is None or mesh.rank == 0
     cfg = configs.smoke_config(arch) if smoke else configs.get_config(arch)
     if moe:
         if cfg.moe is None:
@@ -97,9 +128,18 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
     tcfg = TrainConfig(learning_rate=lr, warmup_steps=max(steps // 10, 1),
                        total_steps=steps, microbatches=microbatches,
                        remat=remat, seed=seed, loss_scale=ls)
-    step_fn = make_train_step(cfg, tcfg, faults=faults)
-    dev = resolve_device(device)
-    state = init_train_state(cfg, tcfg, device=dev)
+    tmode, tfab = tuning.configure(tune, fabric, mesh=mesh)
+    if cfg.moe is not None and lead:
+        print(f"tune={tmode} fabric={tfab}")
+    if mesh is not None and batch % mesh.world:
+        raise ValueError(f"--batch {batch} does not divide over the "
+                         f"{mesh.world} ranks of mesh {mesh.describe()}")
+    step_fn = make_train_step(cfg, tcfg, faults=faults, mesh=mesh)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    state = init_train_state(
+        cfg, tcfg, device=dev, mesh=mesh,
+        params=(None if init_params is None
+                else params_from_numpy(init_params, cfg, mesh)))
     stats = {} if stats is None else stats
     stats.update(step_s=[], save_s=[], restore_s=None)
     start = 0
@@ -118,10 +158,13 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
         stats["save_s"].append(time.perf_counter() - t)
 
     n_params = sum(p.numel() for p in tree.leaves(state.params))
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh=1x1 "
-          + (f"dispatch={cfg.moe.dispatch} gate={cfg.moe.gate} "
-             if cfg.moe is not None else "") + f"remat={remat} "
-          f"device={dev}")
+    if lead:
+        where = ("mesh=1x1 " if mesh is None
+                 else f"mesh={mesh.describe()} (params per rank) ")
+        world = 1 if mesh is None else mesh.world
+        print(f"arch={cfg.name} params={n_params / 1e6:.1f}M {where}"
+              + _resolved_knobs(cfg, mesh, batch // world * seq)
+              + f"remat={remat} device={dev}")
     ds = SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed, device=dev)
     history = []
     t0 = time.time()
@@ -134,7 +177,7 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
             m = {k: float(v) for k, v in m.items()}
             stats["step_s"].append(time.perf_counter() - ts)
             history.append({"step": s, **m})
-            if s % log_every == 0 or s == steps - 1:
+            if lead and (s % log_every == 0 or s == steps - 1):
                 dt = time.time() - t0
                 tput = batch * seq * (s + 1 - start) / max(dt, 1e-9)
                 print(f"step {s:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
@@ -153,7 +196,7 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
     if ckpt_dir:
         save(steps)
         print("checkpoint saved to", ckpt_dir)
-    if history_out:
+    if history_out and lead:
         with open(history_out, "w") as f:
             json.dump({"arch": cfg.name, "steps": steps, "start": start,
                        "resumed": bool(resume and start), "seed": seed,
@@ -174,7 +217,9 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--remat", default="none",
                     choices=["none", "block", "full"])
-    ap.add_argument("--mesh", default="1x1", type=mesh_cli_arg)
+    ap.add_argument("--mesh", default="1x1", type=mesh_lib.mesh_cli_arg,
+                    help="DxM data×model mesh of ranks (D·M processes, "
+                         "e.g. under torchrun)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=None,
                     help="save an atomic checkpoint every N steps")
@@ -193,18 +238,45 @@ def main(argv=None):
                          "'train.grads:nan@3' or "
                          "'ckpt.data_tmp_written:kill@20'")
     ap.add_argument("--tune", default="auto",
-                    choices=["auto", "off", "calibrate"])
+                    choices=list(tuning.TUNE_MODES),
+                    help="'auto' resolves MoEConfig 'auto' knobs from the "
+                         "α–β cost model, 'off' pins them to the static "
+                         "defaults, 'calibrate' measures a few AllToAll "
+                         "payloads over the mesh once and fits α–β "
+                         "(persisted to TUNE_moe_torch.json)")
+    ap.add_argument("--fabric", default="pcie_eth100",
+                    type=mesh_lib.fabric_cli_arg,
+                    help="named fast/slow LinkSpec pair the tuner scores "
+                         "against (pcie_eth100)")
+    ap.add_argument("--backend", default="nccl", choices=mesh_lib.BACKENDS,
+                    help="process-group backend of a mesh run started "
+                         "here (torchrun): nccl (one card per rank) or "
+                         "gloo (the CPU)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
     faults = faults_mod.plan_from_specs(args.inject) if args.inject else None
-    run(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
-        smoke=args.smoke, lr=args.lr, microbatches=args.microbatches,
-        remat=args.remat, mesh_shape=args.mesh, log_every=args.log_every,
-        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-        ckpt_keep=args.ckpt_keep, resume=args.resume, seed=args.seed,
-        loss_scale=args.loss_scale, history_out=args.history_out,
-        faults=faults, tune=args.tune, device=args.device)
+    started = False
+    if tuple(args.mesh) != (1, 1) and not dist.is_initialized():
+        if "RANK" not in os.environ:
+            raise RuntimeError(
+                f"--mesh {'x'.join(map(str, args.mesh))} runs one process "
+                f"per rank: start it under torchrun (or call run() from "
+                f"ranks that launch.mesh.spawn started)")
+        dist.init_process_group(args.backend, init_method="env://")
+        started = True
+    try:
+        run(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
+            smoke=args.smoke, lr=args.lr, microbatches=args.microbatches,
+            remat=args.remat, mesh_shape=args.mesh,
+            log_every=args.log_every, ckpt_dir=args.ckpt_dir,
+            ckpt_every=args.ckpt_every, ckpt_keep=args.ckpt_keep,
+            resume=args.resume, seed=args.seed, loss_scale=args.loss_scale,
+            history_out=args.history_out, faults=faults, tune=args.tune,
+            fabric=args.fabric, device=args.device)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

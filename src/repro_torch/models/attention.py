@@ -10,8 +10,10 @@ f32), differentiable through their ``autograd.Function``.  Decode steps
 attend over the cache with ``_attend``: a linear cache (slot = position)
 or, for a windowed layer whose cache is as long as its window, a ring
 (position p at slot p % W), which holds a window's keys at any sequence
-length.  The reference's chunked ``REPRO_FLASH=0`` baseline and its
-context-parallel (``mesh``) flash are not ported (ROADMAP.md).
+length.  Across ranks each rank attends over its own batch rows, which
+is the reference's result; the reference's chunked ``REPRO_FLASH=0``
+baseline and its context-parallel flash (q's sequence sharded over the
+``model`` axis, ``full_attention(mesh=)``) are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -101,9 +103,16 @@ def _attend(q, k, v, q_pos, k_pos, *, causal: bool, window: Optional[int],
 def full_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                    cfg: AttentionConfig, *, positions: torch.Tensor,
                    causal: bool = True, window: Optional[int] = None,
-                   q_chunk: int = 512
+                   q_chunk: int = 512, mesh=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Train/prefill pass.  Returns (y, kv) — kv fills caches."""
+    """Train/prefill pass.  Returns (y, kv) — kv fills caches.  ``mesh``
+    asks for the reference's context-parallel flash, which is not ported:
+    a mesh with a model axis > 1 raises ``NotImplementedError``."""
+    if mesh is not None and mesh.shape["model"] > 1:
+        raise NotImplementedError(
+            f"context-parallel flash attention over a model axis of "
+            f"{mesh.shape['model']} is not ported to repro_torch yet "
+            f"(ROADMAP.md); each rank attends over its own batch rows")
     B, S, d = x.shape
     q, k, v = _qkv(params, x, cfg, positions[None, :])
     scale = q.shape[-1] ** -0.5

@@ -47,6 +47,11 @@ step.  The leaves the reference uses in f32 (``_F32_LEAVES``: the norm
 scales, the router, the qk-norm scales, RWKV's decay LoRA, bonus and
 group-norm scale, Mamba's ``A_log``, ``D``, ``dt_bias`` and norm) stay
 f32.
+
+Across ranks (``mesh``, a ``launch/mesh.Mesh``): each rank's activations
+are its own batch rows, and a ``moe`` block runs ``moe.sharded_moe_apply``
+over the rank's tokens with the rank's E/M experts (:func:`shard_experts`
+cuts them from a whole tree; :func:`expert_leaf_mask` marks them).
 """
 from __future__ import annotations
 
@@ -56,7 +61,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import draw, resolve_device
+from repro_torch import draw, resolve_device, tree
 from repro_torch.core import gating
 from repro_torch.core import moe as moe_lib
 from repro_torch.core.config import ModelConfig
@@ -73,6 +78,8 @@ REMAT_MODES = ("none", "block", "full")
 ATTN_KINDS = ("attn", "local", "global", "dense", "moe")
 BLOCK_KINDS = ATTN_KINDS + ("rwkv", "mamba", "mamba_sa")
 LORA_R = 16   # zamba2's per-occurrence adapter rank of the shared block
+# the expert leaves of a moe block: sharded over the model axis
+EXPERT_LEAVES = ("w_up", "w_gate", "w_out")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -200,6 +207,41 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     return params
 
 
+def expert_leaf_mask(params: Dict[str, Any]) -> Dict[str, Any]:
+    """A tree of ``params``' structure: True at the expert leaves of the
+    ``moe`` blocks (sharded over the model axis), False elsewhere
+    (replicated on every rank)."""
+    mask = tree.map_(lambda _: False, params)
+    for blk in mask["blocks"]:
+        for k in EXPERT_LEAVES:
+            if k in blk.get("moe", {}):
+                blk["moe"][k] = True
+    return mask
+
+
+def shard_experts(params: Dict[str, Any], cfg: ModelConfig,
+                  mesh) -> Dict[str, Any]:
+    """``params`` with every expert leaf (E, …) cut to this rank's
+    ``[m·E/M, (m+1)·E/M)`` slice (a copy; m its model index); the rest
+    shared with ``params`` (replicated).  None ``mesh`` returns
+    ``params``."""
+    if mesh is None:
+        return params
+    M, m = mesh.shape["model"], mesh.model_index
+    if cfg.moe is not None and cfg.moe.num_experts % M:
+        raise ValueError(f"{cfg.moe.num_experts} experts do not divide over "
+                         f"model={M}")
+    out = dict(params, blocks=[dict(b) for b in params["blocks"]])
+    for blk in out["blocks"]:
+        if "moe" in blk:
+            moe = blk["moe"] = dict(blk["moe"])
+            for k in EXPERT_LEAVES:
+                if k in moe:
+                    n = moe[k].shape[0] // M
+                    moe[k] = moe[k][m * n:(m + 1) * n].clone()
+    return out
+
+
 def untied_head(cfg: ModelConfig) -> bool:
     """Whether the tree holds an ``lm_head``: an untied config's, and
     always a frontend's, which has no table to tie it to."""
@@ -277,14 +319,15 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                   kind: str, positions=None, cache=None,
                   decode: bool = False, long_context: bool = False,
                   noise: Optional[torch.Tensor] = None,
-                  shared: Optional[Dict[str, Any]] = None):
+                  shared: Optional[Dict[str, Any]] = None, mesh=None):
     """One ``kind`` block over its parameter dict ``p`` (see the module
     docstring), pre-norm residuals: attention over the kind's window
     (:func:`block_window`), then the MLP or the MoE layer plus the shared
     experts' MLP (``moe``); ``noise`` is a MoE layer's gate draw;
-    ``shared`` the tree's ``shared_attn`` (``mamba_sa``).  Returns (x,
-    cache, aux); a block without a MoE layer has no aux loss (None: the
-    reference adds its zero)."""
+    ``shared`` the tree's ``shared_attn`` (``mamba_sa``); ``mesh`` runs
+    the MoE layer across its ranks.  Returns (x, cache, aux); a block
+    without a MoE layer has no aux loss (None: the reference adds its
+    zero)."""
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, cache, decode)
     if kind in ("mamba", "mamba_sa"):
@@ -299,9 +342,9 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" not in p:
         return x + layers.apply_mlp(p["mlp"], h, cfg.act), cache, None
-    y, aux, _ = moe_lib.moe_apply(cfg.moe, p["moe"], h,
-                                  num_experts=cfg.moe.num_experts,
-                                  act=cfg.act, noise=noise)
+    y, aux, _ = moe_lib.sharded_moe_apply(
+        mesh, cfg.moe, p["moe"], h, num_experts=cfg.moe.num_experts,
+        act=cfg.act, noise=noise)
     if "shared_mlp" in p:
         y = y + layers.apply_mlp(p["shared_mlp"], h, cfg.act)
     return x + y, cache, aux
@@ -375,7 +418,7 @@ def noisy(cfg: ModelConfig) -> bool:
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             *, caches=None, remat: str = "none",
             noise: Optional[Sequence[torch.Tensor]] = None,
-            long_context: bool = False
+            long_context: bool = False, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """Full-sequence pass (training, prefill) over a parameter tree — the
     f32 masters, or a :class:`Transformer`'s compute-dtype copy — with
@@ -384,6 +427,9 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     → (hidden (B, S, d), aux, caches);
     ``caches`` (one per layer) are filled in place.  ``long_context``
     caps the ``global`` layers to ``local_window`` (:func:`block_window`).
+    ``mesh`` (a ``launch/mesh.Mesh``) runs the ``moe`` blocks across its
+    ranks: ``tokens`` are this rank's batch rows, ``params`` hold its
+    experts, and ``noise`` its rows of each layer's draw.
 
     ``noise`` holds one gate draw per layer (:func:`draw_gate_noise`);
     a noisy gate without it draws its own from a generator seeded 0 on
@@ -423,21 +469,22 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             x, _, a = block_forward(
                 p, x, cfg, kind=kind, positions=positions, noise=nz,
                 cache=None if caches is None else caches[i],
-                long_context=long_context, shared=shared)
+                long_context=long_context, shared=shared, mesh=mesh)
         else:
             x, a = checkpoint(_remat_block, p, x, positions, nz, cfg, kind,
-                              long_context, shared, use_reentrant=False,
-                              preserve_rng_state=False)
+                              long_context, shared, mesh,
+                              use_reentrant=False, preserve_rng_state=False)
         if a is not None:
             aux = aux + a
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux, caches
 
 
-def _remat_block(p, x, positions, noise, cfg, kind, long_context, shared):
+def _remat_block(p, x, positions, noise, cfg, kind, long_context, shared,
+                 mesh):
     x, _, aux = block_forward(p, x, cfg, kind=kind, positions=positions,
                               noise=noise, long_context=long_context,
-                              shared=shared)
+                              shared=shared, mesh=mesh)
     return x, aux
 
 

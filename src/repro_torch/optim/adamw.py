@@ -12,6 +12,7 @@ import math
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.core.config import TrainConfig
@@ -27,11 +28,24 @@ def init_opt_state(params, cfg: TrainConfig) -> Dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, expert_mask=None,
+                        group=None):
     """(grads scaled so their global L2 norm is at most ``max_norm``, the
-    norm before scaling)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                        for g in tree.leaves(grads)))
+    norm before scaling).  Across ranks ``expert_mask`` (a tree of bools,
+    ``transformer.expert_leaf_mask``) marks the leaves each rank holds a
+    shard of: their squares are summed over ``group`` (the model group),
+    while each replicated leaf counts once."""
+    if group is None:
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                            for g in tree.leaves(grads)))
+    else:
+        sq = [torch.sum(torch.square(g.float())) for g in tree.leaves(grads)]
+        flags = tree.leaves(expert_mask)
+        rep = sum(s for s, f in zip(sq, flags, strict=True) if not f)
+        shard = sum((s for s, f in zip(sq, flags) if f),
+                    torch.zeros((), device=sq[0].device))
+        dist.all_reduce(shard, group=group)
+        gn = torch.sqrt(rep + shard)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree.map_(lambda g: (g * scale).to(g.dtype), grads), gn
 

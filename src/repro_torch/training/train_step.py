@@ -30,6 +30,21 @@ drawn before it, one draw per layer per microbatch, from a
 ``torch.Generator`` on the device keyed by ``(tcfg.seed, step)`` — the
 host's step index, which the caller passes (the reference's loop folds
 the same index into its rng), so drawing never waits for the device.
+
+Across ranks (``mesh``, a ``launch/mesh.Mesh``): the batch is the global
+one, and each rank takes its rows of each microbatch
+(``data/pipeline.rank_rows``, data-major; the rows must divide evenly);
+gate noise is drawn for the global tokens and each rank takes its rows,
+so the routing is the reference's.  The CE is the global masked mean (its
+numerator and denominator all-reduced), the aux loss global already
+(``core/balance``); each rank back-propagates that global loss into its
+own contributions (``alltoall.all_reduce_sum``), then the replicated
+leaves' gradients are summed over the world and the expert leaves' over
+the ``data`` group, so every rank holds the reference's gradients.
+``clip_by_global_norm`` counts each replicated leaf once and sums the
+expert shards' squares over the ``model`` group; the skip guard's ``ok``
+is all-reduced with MIN, so every rank skips the same steps.  Nothing
+here reads a value back to the host.
 """
 from __future__ import annotations
 
@@ -38,11 +53,15 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, tree
 from repro_torch.core import faults as faults_mod
+from repro_torch.core.alltoall import all_reduce_sum
 from repro_torch.core.config import ModelConfig, TrainConfig
+from repro_torch.data.pipeline import rank_rows
+from repro_torch.launch.mesh import rank_block
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import (adamw_update, clip_by_global_norm,
                                      init_opt_state, make_schedule)
@@ -75,15 +94,18 @@ def _master(p: torch.Tensor, dev: torch.device) -> torch.Tensor:
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, *,
                      params: Optional[Dict[str, Any]] = None,
-                     device=None) -> TrainState:
+                     device=None, mesh=None) -> TrainState:
     """A fresh state on ``device`` (``cuda`` unless given).  ``params`` (an
-    f32 tree from ``init_params`` or ``convert.params_from_numpy``) is
-    copied into f32 masters; without it the weights are drawn from a
-    ``torch.Generator`` seeded with ``tcfg.seed`` on the device."""
+    f32 tree from ``init_params`` or ``convert.params_from_numpy``; under
+    ``mesh`` already the rank's share) is copied into f32 masters; without
+    it the weights are drawn from a ``torch.Generator`` seeded with
+    ``tcfg.seed`` on the device — the whole model on every rank, which
+    then keeps its experts (``transformer.shard_experts``)."""
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
-        params = T.init_params(cfg, gen, device=dev)
+        params = T.shard_experts(T.init_params(cfg, gen, device=dev), cfg,
+                                 mesh)
     params = tree.map_(lambda p: _master(p, dev), params)
 
     def zero():
@@ -108,11 +130,13 @@ def _auto_chunks(S: int, V: int) -> int:
 
 def chunked_ce_loss(params, cfg: ModelConfig, h: torch.Tensor,
                     targets: torch.Tensor, mask: torch.Tensor,
-                    num_chunks: Optional[int] = None) -> torch.Tensor:
+                    num_chunks: Optional[int] = None,
+                    group=None) -> torch.Tensor:
     """The unembed + CE over sequence chunks; h (B, S, d) → scalar.  With
     more than one chunk each chunk's body is recomputed in the backward
     (``torch.utils.checkpoint``), so only one chunk's (B, S/nc, V) logits
-    are alive at a time, as in the reference's remat'd scan."""
+    are alive at a time, as in the reference's remat'd scan.  ``group``
+    (a process group) makes it the mean over its ranks' tokens."""
     B, S, _ = h.shape
     nc = num_chunks or _auto_chunks(S, cfg.vocab_size)
     while S % nc:
@@ -133,6 +157,8 @@ def chunked_ce_loss(params, cfg: ModelConfig, h: torch.Tensor,
         t, n = (body(*args) if nc == 1
                 else checkpoint(body, *args, use_reentrant=False))
         tot, cnt = tot + t, cnt + n
+    if group is not None:
+        tot, cnt = all_reduce_sum(tot, group), all_reduce_sum(cnt, group)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -141,17 +167,20 @@ def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                    remat: str = "none",
                    noise: Optional[List[torch.Tensor]] = None,
                    faults: Optional[faults_mod.FaultPlan] = None,
-                   step: Optional[torch.Tensor] = None):
+                   step: Optional[torch.Tensor] = None, mesh=None):
     """(loss, ce, aux, grads) of one batch: the forward (``remat``, the
     per-layer gate ``noise``), the chunked CE and the backward, with the
     loss multiplied by ``scale`` (when given) before the backward.  The
     ``train.activations`` and ``train.loss`` seams of ``faults`` fire at
-    the device counter ``step``.  ``grads`` has ``params``' structure."""
+    the device counter ``step``.  ``grads`` has ``params``' structure.
+    Under ``mesh`` ``batch`` holds this rank's rows, the losses are the
+    global ones and ``grads`` this rank's contributions to them."""
     h, aux, _ = T.forward(params, batch["inputs"], cfg, remat=remat,
-                          noise=noise)
+                          noise=noise, mesh=mesh)
     h = faults_mod.apply_traced(faults, "train.activations", step, h)
     ce = chunked_ce_loss(params, cfg, h, batch["targets"],
-                         batch["loss_mask"])
+                         batch["loss_mask"],
+                         group=None if mesh is None else dist.group.WORLD)
     loss = faults_mod.apply_traced(faults, "train.loss", step, ce + aux)
     scaled = loss if scale is None else loss * scale
     grads = torch.autograd.grad(scaled, tree.leaves(params))
@@ -168,8 +197,27 @@ def noise_generator(tcfg: TrainConfig, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _reduce_grads(grads, mask, mesh):
+    """Sum the replicated leaves' gradients over the world and the expert
+    leaves' over the data group, each set in one flat buffer."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+    leaves, flags = tree.leaves(grads), tree.leaves(mask)
+    out = list(leaves)
+    for expert, group in ((False, None), (True, mesh.data_group)):
+        idx = [i for i, f in enumerate(flags) if f == expert]
+        if not idx or (expert and mesh.shape["data"] == 1):
+            continue
+        flat = _flatten_dense_tensors([leaves[i] for i in idx])
+        dist.all_reduce(flat, group=group)
+        for i, g in zip(idx, _unflatten_dense_tensors(
+                flat, [leaves[i] for i in idx]), strict=True):
+            out[i] = g
+    return tree.unflatten(grads, out)
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    faults: Optional[faults_mod.FaultPlan] = None):
+                    faults: Optional[faults_mod.FaultPlan] = None,
+                    mesh=None):
     """Returns ``train_step(state, batch, step=None, noise=None) →
     (state, metrics)``.
 
@@ -177,7 +225,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     split on the batch axis and the gradients averaged.  ``faults`` arms
     the traced seams; None inserts no op.  A noisy gate needs ``step``,
     the host's index of ``state.step`` (its draws are keyed by it), or
-    ``noise``: one list of per-layer (tokens, E) draws per microbatch."""
+    ``noise``: one list of per-layer (tokens, E) draws per microbatch,
+    over the microbatch's global tokens.  ``mesh`` trains across its
+    ranks (the module docstring): ``state`` holds this rank's experts,
+    and each microbatch's rows must divide over the ranks."""
     sched = make_schedule(tcfg)
     dynamic = tcfg.loss_scale == "dynamic"
     static_scale = not dynamic and float(tcfg.loss_scale) == 1.0
@@ -195,6 +246,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                              f"microbatches={mbs}")
         parts = [{k: v[i * (B // mbs):(i + 1) * (B // mbs)]
                   for k, v in batch.items()} for i in range(mbs)]
+        if mesh is not None and (B // mbs) % mesh.world:
+            raise ValueError(
+                f"batch {B} / microbatches {mbs} = {B // mbs} rows do not "
+                f"divide over the {mesh.world} ranks of mesh "
+                f"{mesh.describe()}")
         if noisy and noise is None:
             if step is None:
                 raise ValueError(
@@ -207,7 +263,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             noise = [T.draw_gate_noise(
                 cfg, math.prod(mb["inputs"].shape[:2]), gen, dev)
                 for mb in parts]
-        kw = dict(remat=tcfg.remat, faults=faults, step=state.step)
+        if mesh is not None:
+            # this rank's rows of each microbatch and of its noise
+            parts = [rank_rows(mb, mesh) for mb in parts]
+            if noise is not None:
+                rows = rank_block(mesh, math.prod(
+                    batch["inputs"].shape[:2]) // mbs)
+                noise = [[None if n is None else n[rows] for n in nz]
+                         for nz in noise]
+        kw = dict(remat=tcfg.remat, faults=faults, step=state.step,
+                  mesh=mesh)
         loss, ce, aux, grads = loss_and_grads(
             state.params, parts[0], cfg, scale,
             noise=None if noise is None else noise[0], **kw)
@@ -220,6 +285,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                 loss, ce, aux = loss + lo, ce + c, aux + a
             grads = tree.map_(lambda g: g / mbs, grads)
             loss, ce, aux = loss / mbs, ce / mbs, aux / mbs
+        mask = None
+        if mesh is not None:
+            mask = T.expert_leaf_mask(state.params)
+            with torch.no_grad():
+                grads = _reduce_grads(grads, mask, mesh)
         grads = faults_mod.apply_traced(faults, "train.grads", state.step,
                                         grads)
 
@@ -228,12 +298,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             ok = torch.isfinite(loss)
             for g in tree.leaves(grads):
                 ok = ok & torch.all(torch.isfinite(g))
+            if mesh is not None:
+                # every rank skips the same steps
+                oki = ok.to(torch.int32)
+                dist.all_reduce(oki, op=dist.ReduceOp.MIN)
+                ok = oki.bool()
             if not static_scale:
                 # unscale AFTER the finite check (an overflowed Inf grad
                 # must be seen as non-finite, not Inf/scale)
                 inv = 1.0 / scale
                 grads = tree.map_(lambda g: g * inv.to(g.dtype), grads)
-            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+            grads, gnorm = clip_by_global_norm(
+                grads, tcfg.grad_clip, expert_mask=mask,
+                group=None if mesh is None else mesh.model_group)
             lr = sched(state.step)
             new_params, new_opt = adamw_update(grads, state.opt,
                                                state.params, tcfg, lr)

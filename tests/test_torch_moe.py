@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from repro.core import alltoall as jalltoall
 from repro.core import capacity as jcap
 from repro.core import config as jconfig
 from repro.core import gating as jgating
@@ -112,8 +113,24 @@ def test_capacity_and_tuning_match_reference(T, dispatch):
     assert not tuning.has_auto_knobs(tr)
     assert tuning.resolve_moe_config(tr, model_size=1,
                                      tokens_per_shard=T) is tr
-    with pytest.raises(NotImplementedError, match="EP slice"):
-        tuning.resolve_moe_config(tcfg, model_size=2, tokens_per_shard=T)
+    # across ranks (M = 2): the α–β resolution, on one explicit fabric
+    # pair read from the reference's module
+    fab = ("pcie_eth100", (jalltoall.PCIE, jalltoall.ETH100))
+    prev = tuning.set_tuning(flops=jtuning.NOMINAL_FLOPS)
+    try:
+        jr = jtuning.resolve_moe_config(jcfg, model_size=2,
+                                        tokens_per_shard=T, d_model=2048,
+                                        dtype=jnp.bfloat16, fabric=fab)
+        tr = tuning.resolve_moe_config(
+            tcfg, model_size=2, tokens_per_shard=T, d_model=2048,
+            dtype=torch.bfloat16, fabric=("pcie_eth100", (
+                tuning.LinkSpec(jalltoall.PCIE.alpha, jalltoall.PCIE.beta),
+                tuning.LinkSpec(jalltoall.ETH100.alpha,
+                                jalltoall.ETH100.beta))))
+    finally:
+        tuning.set_tuning(*prev)
+    for knob in tuning.TUNED_KNOBS + ("a2a_inner",):
+        assert getattr(tr, knob) == getattr(jr, knob), knob
 
 
 # ---------------------------------------------------------------------------
@@ -212,15 +229,33 @@ def test_moe_layer_without_kernels_raises_off_the_cpu():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(dispatch="dense"), NotImplementedError),
+    (dict(dispatch="dense"), None),
     (dict(overlap_chunks=2, dispatch="sort"), ValueError),
-    (dict(overlap_chunks=2, dispatch="grouped"), NotImplementedError),
+    (dict(overlap_chunks=2, dispatch="grouped"), None),
 ])
 def test_moe_apply_rejects_unported_configs(kw, exc):
+    """overlap_chunks > 1 needs the grouped dispatch (ValueError, as in the
+    reference).  The dense dispatch and the grouped overlap pipeline are
+    ported: dense equals sort (the same slots, capacity ample) and two
+    windows equal one (f32, 1e-6)."""
     _, tc = _pair("switch", **{"dispatch": "grouped", **kw})
     p = {k: torch.from_numpy(v) for k, v in _params().items()}
-    with pytest.raises(exc):
-        moe.moe_apply(tc, p, torch.zeros(4, 32), num_experts=4, act="relu")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (4, 32)).astype(np.float32))
+    if exc is not None:
+        with pytest.raises(exc):
+            moe.moe_apply(tc, p, x, num_experts=4, act="relu")
+        return
+    y, aux, _ = moe.moe_apply(tc, p, x, num_experts=4, act="relu")
+    base = dataclasses.replace(tc, overlap_chunks=1, dispatch=(
+        "sort" if tc.dispatch == "dense" else tc.dispatch),
+        capacity_factor=8.0)
+    if tc.dispatch == "dense":
+        tc = dataclasses.replace(tc, capacity_factor=8.0)
+        y, aux, _ = moe.moe_apply(tc, p, x, num_experts=4, act="relu")
+    y0, aux0, _ = moe.moe_apply(base, p, x, num_experts=4, act="relu")
+    np.testing.assert_allclose(y.numpy(), y0.numpy(), atol=1e-6)
+    np.testing.assert_allclose(float(aux), float(aux0), atol=1e-7)
 
 
 @pytest.mark.parametrize("bad", [

@@ -506,9 +506,19 @@ def test_train_run_applies_the_dispatch_keyword(capsys):
                     dispatch="nope")
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "2x2"],
-                                  ["--tune", "calibrate"]])
-def test_train_cli_rejects_unported_flags(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlaunch.main(["--arch", ARCH, "--smoke", "--steps", "1",
-                      "--device", "cpu", *argv])
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--mesh", "2x2"], RuntimeError, "torchrun"),
+    (["--tune", "calibrate"], None, "tune=calibrate fabric=pcie_eth100")])
+def test_train_cli_rejects_unported_flags(argv, exc, match, capsys):
+    """A mesh run needs its ranks (torchrun, or launch.mesh.spawn: the
+    expert-parallel runs are tests/test_torch_ep_train.py's); --tune
+    calibrate at 1x1 has no model axis to measure and keeps the named
+    fabric."""
+    args = ["--arch", ARCH, "--smoke", "--steps", "1", "--batch", "2",
+            "--seq", "16", "--device", "cpu", *argv]
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            tlaunch.main(args)
+        return
+    tlaunch.main(args)
+    assert match in capsys.readouterr().out

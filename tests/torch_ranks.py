@@ -1,0 +1,189 @@
+"""Rank bodies for the expert-parallel tests (``test_torch_alltoall.py``,
+``test_torch_ep.py``, ``test_torch_ep_train.py``): each runs in a process
+that ``repro_torch.launch.mesh.spawn`` starts, over gloo on the CPU, and
+returns numpy arrays.  Imports no JAX: the spawned ranks load only the
+port."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import alltoall, moe, tuning
+from repro_torch.core.config import MoEConfig
+from repro_torch.launch.mesh import make_mesh
+
+
+def _np(t):
+    return None if t is None else t.detach().float().numpy()
+
+
+def exchange_rank(rank, shape, x, g, inners, counts, qdts):
+    """The AllToAll forms on this rank's chunk array ``x[rank]`` (M, c, d):
+    flat, hierarchical per ``inner``, their backwards against cotangent
+    ``g[rank]``, the grouped exchange with ``counts[rank]`` and the
+    quantized exchange per wire dtype (forward and backward)."""
+    mesh = make_mesh(shape, device="cpu")
+    xl = torch.from_numpy(x[rank]).requires_grad_(True)
+    gl = torch.from_numpy(g[rank])
+    out = {}
+
+    def fwd_bwd(name, fn):
+        alltoall.exchanges = 0
+        y = fn(xl)
+        out[name + "/n"] = alltoall.exchanges
+        (dx,) = torch.autograd.grad(y, xl, gl)
+        out[name] = _np(y)
+        out[name + "/dx"] = _np(dx)
+
+    fwd_bwd("flat", lambda v: alltoall.flat_all_to_all(v, mesh.model_group))
+    M = shape[1]
+    for inner in inners:
+        fwd_bwd(f"hier{inner}", lambda v, i=inner: alltoall.all_to_all(
+            v, mesh, mode="hierarchical", inner=i))
+        fwd_bwd(f"direct{inner}", lambda v, i=inner:
+                alltoall.hierarchical_all_to_all(v, mesh, inner=i,
+                                                 outer=M // i))
+    c = torch.from_numpy(counts[rank])
+    for mode, inner in [("flat", 1)] + [("hierarchical", i) for i in inners]:
+        rt, rc = alltoall.grouped_all_to_all(xl.detach(), c, mesh, mode=mode,
+                                             inner=inner)
+        out[f"grouped/{mode}{inner}"] = _np(rt)
+        out[f"grouped/{mode}{inner}/counts"] = rc.numpy()
+        for q in qdts:
+            key = f"q/{q}/{mode}{inner}"
+            y, rc = alltoall.quantized_exchange(xl, c, mesh, mode=mode,
+                                                inner=inner, payload_dtype=q)
+            (dx,) = torch.autograd.grad(y, xl, gl)
+            out[key], out[key + "/counts"] = _np(y), rc.numpy()
+            out[key + "/dx"] = _np(dx)
+            y, none = alltoall.quantized_exchange(
+                xl.detach().to(torch.bfloat16), None, mesh, mode=mode,
+                inner=inner, payload_dtype=q, out_dtype=torch.float32)
+            assert none is None and y.dtype == torch.float32
+            out[key + "/combine"] = _np(y)
+    return out
+
+
+def layer_rank(rank, shape, inputs, cases, fabric):
+    """``sharded_moe_apply`` on this rank's tokens for every case
+    ``(name, MoEConfig fields, act)``: y, aux, metrics, the exchanges of
+    the forward and this rank's gradients of ``sum(y·gy) + aux``."""
+    tuning.set_tuning(fabric=fabric)
+    mesh = make_mesh(shape, device="cpu")
+    M, m = shape[1], mesh.model_index
+    x = torch.from_numpy(inputs["x"])
+    gy = torch.from_numpy(inputs["gy"])
+    xl, valid, _, _ = moe.rank_tokens(mesh, x)
+    gyl = moe.rank_tokens(mesh, gy)[0]
+    out = {}
+    for name, fields, act in cases:
+        cfg = MoEConfig(**fields)
+        E = cfg.num_experts
+        n = E // M
+        p = {k: torch.from_numpy(v if k == "gate_w"
+                                 else v[m * n:(m + 1) * n]).requires_grad_(
+            True) for k, v in inputs["params"].items()
+            if act in ("swiglu", "geglu") or k != "w_gate"}
+        xr = xl.clone().requires_grad_(True)
+        alltoall.exchanges = 0
+        y, aux, met = moe.sharded_moe_apply(mesh, cfg, p, xr, num_experts=E,
+                                            act=act, valid=valid)
+        ex = alltoall.exchanges
+        loss = (y * gyl).sum() + aux
+        keys = sorted(p)
+        grads = torch.autograd.grad(loss, [xr] + [p[k] for k in keys])
+        resolved = tuning.resolve_moe_config(
+            cfg, model_size=M, tokens_per_shard=xl.shape[0],
+            d_model=xl.shape[1], dtype=xl.dtype)
+        out[name] = {"y": _np(y), "aux": float(aux),
+                     "metrics": {k: float(v) for k, v in met.items()},
+                     "exchanges": ex,
+                     "expected": moe.expected_grouped_a2a_eqns(resolved, M),
+                     "stages": moe.grouped_a2a_stages(resolved, M),
+                     "dx": _np(grads[0]),
+                     "grads": {k: _np(g) for k, g in zip(keys, grads[1:])}}
+    return out
+
+
+def _f32_smoke(monkeypatch_target, **moe_kw):
+    """Make ``configs.smoke_config`` give the f32 variant (the parity
+    tests' precision), with ``moe_kw`` replacing MoE fields."""
+    from repro_torch import configs
+    base = configs.smoke_config
+
+    def f32(arch):
+        cfg = base(arch)
+        return cfg.replace(dtype="float32", moe=dataclasses.replace(
+            cfg.moe, **moe_kw))
+    monkeypatch_target.smoke_config = f32
+
+
+def train_rank(rank, shape, arch, init_params, kw, tune, flops, skip,
+               noisy=None):
+    """``launch.train.run`` at ``shape`` from the reference's initial
+    parameters (f32 smoke model): the history and this rank's final
+    parameters (replicated and expert leaves); with ``skip`` then
+    :func:`skip_rank`'s check; with ``noisy`` (run keywords) the history
+    of one more run, e.g. a noisy gate's."""
+    from repro_torch import tree
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    _f32_smoke(train.configs)
+    tuning.set_tuning(flops=flops)
+    state, hist = train.run(arch, smoke=True, mesh_shape=shape,
+                            device="cpu", init_params=init_params,
+                            log_every=1000, **kw, **tune)
+    leaves = tree.leaves(state.params)
+    mask = tree.leaves(T.expert_leaf_mask(state.params))
+    return {"history": hist,
+            "replicated": [_np(p) for p, f in zip(leaves, mask) if not f],
+            "experts": [_np(p) for p, f in zip(leaves, mask) if f],
+            "skip": skip_rank(rank, shape, arch, init_params) if skip
+            else None,
+            "noisy": None if noisy is None else train.run(
+                arch, smoke=True, mesh_shape=shape, device="cpu",
+                init_params=init_params, log_every=1000, **noisy)[1]}
+
+
+def skip_rank(rank, shape, arch, init_params):
+    """Three f32 steps of ``make_train_step`` at ``shape`` with a NaN
+    injected into this rank's gradients at step 1 on rank 1 only: each
+    rank's skipped counts, and whether step 1 left its params and moments
+    bitwise unchanged."""
+    from repro_torch import configs, tree
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import faults
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.training import train_step as ts
+    mesh = make_mesh(shape, device="cpu")
+    cfg = configs.smoke_config(arch)
+    cfg = cfg.replace(dtype="float32")
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=1, total_steps=3)
+    plan = faults.plan_from_specs(["train.grads:nan@1"]) if rank == 1 \
+        else None
+    step = ts.make_train_step(cfg, tcfg, faults=plan, mesh=mesh)
+    state = ts.init_train_state(cfg, tcfg, device="cpu", mesh=mesh,
+                                params=params_from_numpy(init_params, cfg,
+                                                         mesh))
+    ds = SyntheticLM(cfg, batch=4, seq_len=16, device="cpu")
+    skipped, unchanged = [], []
+    with faults.active(plan):
+        for s in range(3):
+            new, m = step(state, ds.next_batch(s), step=s)
+            skipped.append(int(m["skipped"]))
+            unchanged.append(all(
+                torch.equal(a, b) for a, b in zip(
+                    tree.leaves((new.params, new.opt)),
+                    tree.leaves((state.params, state.opt)))))
+            state = new
+    try:
+        from repro_torch.launch import train
+        train.run(arch, steps=1, batch=4, seq=16, smoke=True, device="cpu",
+                  mesh_shape=shape, ckpt_dir="unused")
+        ckpt = "ran"
+    except NotImplementedError as e:
+        ckpt = str(e)
+    return {"skipped": skipped, "unchanged": unchanged, "ckpt": ckpt}
