@@ -244,11 +244,30 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ranks: finite losses, none skipped, the ranks' losses equal, the
    replicated leaves bitwise equal across ranks, grouped's first loss
    within 1e-3 of one process's, per-rank peak memory, and rank 0's
-   profiled step with kernels 1-9.
+   profiled step with kernels 1-9.  18d: expert tensor parallelism over
+   the data group (the paper's layer, f32, at 2x2 and 4x1, 32 tokens over
+   the world and 2048 a rank, sort and grouped): card ranks against the
+   same ranks on the CPU (1e-4 of each max, forward and backward, 4 / 5
+   TP collectives), grouped against one process, kernels 3-6 on the
+   experts' f-slice views; the int8 and fp8 wire at 1x4, card against CPU
+   ranks within the reference's QWIRE_TOLS.  18e: ``dbrx-132b`` (2 of 40
+   layers, published widths, bf16, grouped) served at 2x2 through
+   ``launch.serve.run`` (batch 8, prompt 1024, 16 new tokens; prefill
+   expert parallel, decode expert TP, the decode step eager), every plain
+   version made to raise: the tokens bitwise equal on all four ranks;
+   teacher-forced on one process's tokens (the parent, before the spawn,
+   which also holds kernel 3 on the f-slice views at dbrx's shapes), the
+   router logits within 2^-4 of each call's max, the routes that differ
+   printed with their margins, and, replaying one process's routes, each
+   step's logits within 2^-4 of its largest |logit| and the greedy token
+   equal wherever one process's top-2 margin clears that; the per-rank
+   peak, the prefill and the eager decode ms a step (host-staged); rank
+   0's launches of kernels 1, 2, 3, 6 and 7.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all ten kernels; the row-per-step gather, on no
-serving or training path, with the launches of its phase-5 run), and
+serving or training path, with the launches of its phase-5 run;
+``launches_ep_serve``: rank 0's in 18e), and
 ``{"ok": true, "device": {...}}``.  ``--phases kernels`` runs phases 1, 2
 and 5 only, for work on a kernel, ``--phases trainer`` phases 1, 9-11
 and 14, ``--phases presets`` phases 1, 12 and 13, ``--phases
@@ -5266,6 +5285,31 @@ EP_TRAIN = dict(mesh=(1, 4), batch=8, seq=1024, steps=4)
 # gloo group; grouped scored on the paper's pair (4 overlap windows)
 EP_TRAIN_CELLS = (("sort", "calibrate", None),
                   ("grouped", "auto", "pcie_eth100"))
+# 18d: expert TP over the data group — the paper's layer at decode size (32
+# tokens over the world) and at EP_LAYER's 2048 tokens a rank, sort and
+# grouped, card ranks against the same ranks on the CPU and grouped against
+# one process; the quantized wire (grouped, 1x4) card against CPU ranks
+# within the reference's QWIRE_TOLS (tests/test_grouped.py:688): normwise
+# (output, gradient) budgets per wire dtype
+EP_TP_MESHES = ((2, 2), (4, 1))
+EP_TP_TOKENS = (("decode", 32), ("prefill", EP_LAYER["T"] * 4))
+EP_TP_CASES = ("sort", "grouped")
+EP_QWIRE = (("int8", 5e-2, 1e-1), ("float8_e4m3fn", 1.5e-1, 3e-1))
+# 18e: dbrx-132b served at its published widths, 2 of 40 layers (phase 12's
+# cut), bf16, grouped, at 2x2 through launch.serve.run; teacher-forced on
+# one process's tokens, each step's logits within EP_SERVE_BOUND of that
+# step's largest |logit| (the bound ring against linear caches keep,
+# phase 13: the 4-way split of the f-contraction and the exchange rows
+# round in bf16 in other places than one process).  The top-4 gate turns
+# such rounding into another expert where two of a token's router logits
+# nearly tie (one row of one step moved by ~0.3 of the largest logit in
+# the builder's runs), so the logits are held on the ranks' replay of one
+# process's routes (GateTape, as phase 12 does), and the free routes are
+# held to the same bound on the router logits, each route that differs
+# printed with its margin
+EP_SERVE = dict(arch="dbrx-132b", layers=2, batch=8, prompt_len=1024,
+                gen=16, mesh=(2, 2))
+EP_SERVE_BOUND = 2.0 ** -4
 # every kernel's plain version: a rank of 18c must never run one
 PLAIN_VERSIONS = (("topk_gate", "topk_gate_plain"),
                   ("layout_transform", "gather_rows_plain"),
@@ -5353,19 +5397,21 @@ def ep_exchange_check(torch, mesh):
                 bytes=x.numel() * 4, ms=times)
 
 
-def ep_receive_side_kernels(torch, rec, w_up):
+def ep_receive_side_kernels(torch, rec):
     """Kernels 3-6 at the shapes the grouped EP path gave them (recorded
-    on the card): the grouped matmul, dlhs and drhs against their plain
-    versions on the CPU (``EP_TOL`` of the max), the scatter-add bitwise."""
+    on the card, the experts' ``w_up`` as the FFN saw it: under expert TP
+    a view of its f-slice, read in place): the grouped matmul, dlhs and
+    drhs against their plain versions on the CPU (``EP_TOL`` of the max),
+    the scatter-add bitwise."""
     from repro_torch.kernels import grouped_ffn as G
     from repro_torch.kernels import layout_transform as L
-    xs, offs = rec["ffn"]
+    xs, offs, w_up = rec["ffn"]
     g = torch.randn((xs.shape[0], w_up.shape[2]),
                     generator=torch.Generator(device=xs.device).manual_seed(
                         5), device=xs.device)
     c, idx, n = rec["scatter"]
     out = {"rows": int(xs.shape[0]), "group_sizes": torch.diff(
-        offs).tolist()}
+        offs).tolist(), "w_up": [list(w_up.shape), list(w_up.stride())]}
     with torch.no_grad():
         out["grouped_matmul"] = _max_rel(
             torch, G.grouped_matmul(xs, w_up, offs),
@@ -5382,20 +5428,83 @@ def ep_receive_side_kernels(torch, rec, w_up):
     return out
 
 
+def ep_layer_run(torch, mesh, cfg, params, xl, gyl, valid, *, record=False,
+                 tp=None):
+    """The paper's layer (gelu) through ``sharded_moe_apply`` on the card
+    and then on the CPU over the same gloo group, forward and backward of
+    ``sum(y·gy) + aux`` from the global ``params`` (this rank's experts
+    cut here; ``tp`` the ``expert_tp_axis``).  Returns the per-device
+    results (outputs, gradients, launches, expert-TP collectives, ms) and,
+    with ``record``, the card's grouped FFN and scatter-add inputs."""
+    from repro_torch.core import alltoall, moe
+    from repro_torch.kernels import grouped_ffn as G
+    from repro_torch.kernels import layout_transform as L
+    E = cfg.num_experts
+    n = E // mesh.shape["model"]
+    m = mesh.model_index
+    res, rec = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = {k: (v if k == "gate_w" else v[m * n:(m + 1) * n]).to(
+            mesh.device if dev == "cuda" else "cpu").requires_grad_(True)
+            for k, v in params.items()}
+        xr = xl.to(p["gate_w"].device).requires_grad_(True)
+        ffn, sca = G.grouped_ffn, L.scatter_add_rows
+        if dev == "cuda" and record:
+            def rec_ffn(params_, xs, offsets, act):
+                rec.setdefault("ffn", (xs.detach(), offsets,
+                                       params_["w_up"].detach()))
+                return ffn(params_, xs, offsets, act)
+
+            def rec_sca(c, idx, k):
+                rec.setdefault("scatter", (c.detach(), idx, k))
+                return sca(c, idx, k)
+            G.grouped_ffn, L.scatter_add_rows = rec_ffn, rec_sca
+        reset_counts()
+        alltoall.tp_collectives = 0
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            y, aux, met = moe.sharded_moe_apply(
+                mesh, cfg, p, xr, num_experts=E, act="gelu",
+                valid=valid.to(xr.device), expert_tp_axis=tp)
+            loss = (y * gyl.to(xr.device)).sum() + aux
+            keys = sorted(p)
+            grads = torch.autograd.grad(loss, [xr] + [p[k] for k in keys])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            G.grouped_ffn, L.scatter_add_rows = ffn, sca
+        res[dev] = dict(ms=1e3 * (time.perf_counter() - t0),
+                        counts=read_counts([k for k, _, _ in COUNTERS]),
+                        tp_collectives=alltoall.tp_collectives,
+                        y=y.detach(), aux=aux.detach(), dx=grads[0],
+                        **{k: g for k, g in zip(keys, grads[1:])})
+    return res, rec
+
+
+def vs_one_process(torch, card, ref, rows):
+    """The card's y, dx and aux against one process's on the same global
+    tokens (``ref``: the npz of :func:`ep_one_process_reference`)."""
+    return {"y": _max_rel(torch, card["y"], torch.from_numpy(ref["y"][rows])),
+            "dx": _max_rel(torch, card["dx"],
+                           torch.from_numpy(ref["dx"][rows])),
+            "aux": _max_rel(torch, card["aux"],
+                            torch.tensor(float(ref["aux"])))}
+
+
 def ep_layer_checks(torch, rank, shape, ref_path):
     """18a (at 1x4) and 18b on one rank: the paper's layer through
     ``sharded_moe_apply`` on the card and then on the CPU over the same
     gloo group, forward and backward of ``sum(y·gy) + aux``; returns the
     card's distance from the CPU per output, its launches and times."""
+    import numpy as np
     from repro_torch.core import moe
     from repro_torch.core.config import MoEConfig
-    from repro_torch.kernels import grouped_ffn as G
-    from repro_torch.kernels import layout_transform as L
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(shape, backend="gloo")
     E, T = EP_LAYER["E"], EP_LAYER["T"]
-    M, m = shape[1], mesh.model_index
-    n = E // M
+    M = shape[1]
     x, gy, params = ep_layer_inputs(torch, T * mesh.world)
     xl, valid, _, _ = moe.rank_tokens(mesh, x)
     gyl = moe.rank_tokens(mesh, gy)[0]
@@ -5406,71 +5515,32 @@ def ep_layer_checks(torch, rank, shape, ref_path):
         cfg = MoEConfig(num_experts=E, top_k=1, gate="switch",
                         capacity_factor=1.25, d_ff_expert=EP_LAYER["f"],
                         **fields, **a2a)
-        res, rec = {}, {}
-        for dev in ("cuda", "cpu"):
-            p = {k: (v if k == "gate_w" else v[m * n:(m + 1) * n]).to(
-                mesh.device if dev == "cuda" else "cpu").requires_grad_(True)
-                for k, v in params.items()}
-            xr = xl.to(p["gate_w"].device).requires_grad_(True)
-            ffn, sca = G.grouped_ffn, L.scatter_add_rows
-            if dev == "cuda" and name == "grouped":
-                def rec_ffn(params_, xs, offsets, act):
-                    rec.setdefault("ffn", (xs.detach(), offsets))
-                    return ffn(params_, xs, offsets, act)
-
-                def rec_sca(c, idx, k):
-                    rec.setdefault("scatter", (c.detach(), idx, k))
-                    return sca(c, idx, k)
-                G.grouped_ffn, L.scatter_add_rows = rec_ffn, rec_sca
-            reset_counts()
-            if dev == "cuda":
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            y, aux, met = moe.sharded_moe_apply(
-                mesh, cfg, p, xr, num_experts=E, act="gelu",
-                valid=valid.to(xr.device))
-            loss = (y * gyl.to(xr.device)).sum() + aux
-            keys = sorted(p)
-            grads = torch.autograd.grad(loss, [xr] + [p[k] for k in keys])
-            if dev == "cuda":
-                torch.cuda.synchronize()
-            G.grouped_ffn, L.scatter_add_rows = ffn, sca
-            res[dev] = dict(ms=1e3 * (time.perf_counter() - t0),
-                            counts=read_counts([k for k, _, _ in COUNTERS]),
-                            y=y.detach(), aux=aux.detach(), dx=grads[0],
-                            **{k: g for k, g in zip(keys, grads[1:])})
+        res, rec = ep_layer_run(torch, mesh, cfg, params, xl, gyl, valid,
+                                record=name == "grouped")
         card, cpu = res["cuda"], res["cpu"]
         errs = {k: _max_rel(torch, card[k], cpu[k])
                 for k in ("y", "aux", "dx", "gate_w", "w_up", "w_out")}
         cell = dict(errs=errs, card_ms=card["ms"], cpu_ms=cpu["ms"],
                     launches={k: v for k, v in card["counts"].items() if v})
         if name == "grouped":
-            cell["receive_side"] = ep_receive_side_kernels(
-                torch, rec, params["w_up"][m * n:(m + 1) * n].to(
-                    mesh.device))
+            cell["receive_side"] = ep_receive_side_kernels(torch, rec)
             if shape == (1, 4):
-                import numpy as np
-                ref = np.load(ref_path)
-                rows = slice(rank * T, (rank + 1) * T)
-                cell["vs_one_process"] = {
-                    "y": _max_rel(torch, card["y"],
-                                  torch.from_numpy(ref["y"][rows])),
-                    "dx": _max_rel(torch, card["dx"],
-                                   torch.from_numpy(ref["dx"][rows])),
-                    "aux": _max_rel(torch, card["aux"],
-                                    torch.tensor(float(ref["aux"])))}
+                cell["vs_one_process"] = vs_one_process(
+                    torch, card, np.load(ref_path),
+                    slice(rank * T, (rank + 1) * T))
         out[name] = cell
         del res, card, cpu
     return out
 
 
-def ep_one_process_reference(torch, path):
-    """The grouped layer in one process on the card over the global
-    tokens (what 1x4 grouped must equal), saved for the ranks."""
+def ep_one_process_reference(torch, path, n_tokens=EP_LAYER["T"] * 4):
+    """The grouped layer in one process on the card over ``n_tokens``
+    global tokens (what 1x4 grouped, and grouped under expert TP, must
+    equal), saved for the ranks."""
     import numpy as np
     from repro_torch.core import moe
     from repro_torch.core.config import MoEConfig
-    x, gy, params = ep_layer_inputs(torch, EP_LAYER["T"] * 4)
+    x, gy, params = ep_layer_inputs(torch, n_tokens)
     cfg = MoEConfig(num_experts=EP_LAYER["E"], top_k=1, gate="switch",
                     capacity_factor=1.25, d_ff_expert=EP_LAYER["f"],
                     dispatch="grouped")
@@ -5550,19 +5620,290 @@ def ep_train_run(torch, rank, shape, dispatch, tune, fabric):
                 profiled=prof_counts, fabric=fabric)
 
 
-def ep_rank(rank, ref_path):
+def ep_tp_checks(torch, rank, ref_paths):
+    """18d on one rank: the paper's layer under expert TP over the data
+    group (``expert_tp_axis="data"``) at each mesh of ``EP_TP_MESHES``,
+    token count of ``EP_TP_TOKENS`` and dispatch of ``EP_TP_CASES``: the
+    card against the same ranks on the CPU, grouped against one process
+    (``ref_paths[tokens]``) and kernels 3-6 at the f-slice shapes; then the
+    quantized wire at 1x4 (no TP), card against CPU ranks."""
+    import numpy as np
+    from repro_torch.core import moe
+    from repro_torch.core.config import MoEConfig
+    from repro_torch.launch.mesh import make_mesh
+    E, f = EP_LAYER["E"], EP_LAYER["f"]
+    out = {}
+    for shape in EP_TP_MESHES:
+        mesh = make_mesh(shape, backend="gloo")
+        for tokens, n_glob in EP_TP_TOKENS:
+            x, gy, params = ep_layer_inputs(torch, n_glob)
+            xl, valid, _, _ = moe.rank_tokens(mesh, x)
+            gyl = moe.rank_tokens(mesh, gy)[0]
+            for name in EP_TP_CASES:
+                cfg = MoEConfig(num_experts=E, top_k=1, gate="switch",
+                                capacity_factor=1.25, d_ff_expert=f,
+                                dispatch=name)
+                res, rec = ep_layer_run(torch, mesh, cfg, params, xl, gyl,
+                                        valid, record=name == "grouped",
+                                        tp="data")
+                card, cpu = res["cuda"], res["cpu"]
+                cell = dict(
+                    errs={k: _max_rel(torch, card[k], cpu[k])
+                          for k in ("y", "aux", "dx", "gate_w", "w_up",
+                                    "w_out")},
+                    card_ms=card["ms"], cpu_ms=cpu["ms"],
+                    tp_collectives=card["tp_collectives"],
+                    launches={k: v for k, v in card["counts"].items() if v})
+                if name == "grouped":
+                    cell["receive_side"] = ep_receive_side_kernels(torch, rec)
+                    n = xl.shape[0]
+                    cell["vs_one_process"] = vs_one_process(
+                        torch, card, np.load(ref_paths[tokens]),
+                        slice(rank * n, (rank + 1) * n))
+                out[f"{shape[0]}x{shape[1]} {tokens} {name}"] = cell
+                del res, card, cpu, rec
+    mesh = make_mesh((1, 4), backend="gloo")
+    x, gy, params = ep_layer_inputs(torch, EP_LAYER["T"] * 4)
+    xl, valid, _, _ = moe.rank_tokens(mesh, x)
+    gyl = moe.rank_tokens(mesh, gy)[0]
+    for q, _, _ in EP_QWIRE:
+        cfg = MoEConfig(num_experts=E, top_k=1, gate="switch",
+                        capacity_factor=1.25, d_ff_expert=f,
+                        dispatch="grouped", payload_dtype=q)
+        res, _ = ep_layer_run(torch, mesh, cfg, params, xl, gyl, valid)
+        card, cpu = res["cuda"], res["cpu"]
+        rel = {k: float((card[k].float().cpu() - cpu[k].float()).norm()
+                        / cpu[k].float().norm().clamp(min=1e-30))
+               for k in ("y", "dx", "gate_w", "w_up", "w_out")}
+        out[f"1x4 qwire {q}"] = dict(rel=rel, card_ms=card["ms"],
+                                     cpu_ms=cpu["ms"])
+        del res, card, cpu
+    return out
+
+
+def greedy_with_logits(torch, model, prompt, steps, forced=None,
+                       graph=None):
+    """Greedy generation through the step builders, each step's logits
+    (f32) kept: ``(tokens (B, S + steps), logits (steps, B, V))``; with
+    ``forced`` (B, S + steps) the decode steps are fed its tokens
+    (teacher forcing) instead of their own; ``graph`` as
+    ``engine.build_decode`` takes it."""
+    from repro_torch.serving import engine
+    B, S = prompt.shape
+    out, logits = [prompt], []
+    with torch.inference_mode():
+        prefill = engine.build_prefill(model, cache_len=S + steps, batch=B)
+        with engine.holding_decode(model, batch=B, cache_len=S + steps,
+                                   graph=graph) as step:
+            step.reset()
+            last, _ = prefill(prompt, step.caches)
+            for i in range(steps):
+                logits.append(last[:, -1].float().cpu())
+                tok = last[:, -1].argmax(-1, keepdim=True)
+                out.append(tok)
+                if i + 1 < steps:
+                    feed = tok if forced is None else forced[
+                        :, S + i:S + i + 1].to(tok.device)
+                    last = step(feed, step_index=i)
+    return torch.cat(out, 1).cpu(), torch.stack(logits)
+
+
+def ep_serve_prompt(torch, cfg):
+    """The prompts ``launch.serve.run`` draws for ``EP_SERVE`` (its seed
+    0 CPU generator)."""
+    return torch.randint(0, cfg.vocab_size,
+                         (EP_SERVE["batch"], EP_SERVE["prompt_len"]),
+                         generator=torch.Generator().manual_seed(0))
+
+
+def ep_serve_cfg():
+    """18e's config: the preset cut to ``EP_SERVE["layers"]``, grouped."""
+    from repro_torch import configs
+    from repro_torch.serving.engine import serve_config
+    return serve_config(configs.get_config(EP_SERVE["arch"]).replace(
+        num_layers=EP_SERVE["layers"]), dispatch="grouped")
+
+
+def ep_serve_reference(torch, path):
+    """18e's one process: dbrx-132b (2 layers, bf16, grouped, seed 0) served
+    greedy on the card over ``launch.serve.run``'s prompts, each step's
+    logits and every gate call's router logits and experts kept (the eager
+    decode step, bitwise the graph one: phase 3), saved for the ranks;
+    returns its seconds."""
+    import numpy as np
+    from repro_torch.kernels import topk_gate as K
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import engine
+    cfg = ep_serve_cfg()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", seed=0)
+    prompt = ep_serve_prompt(torch, cfg).cuda()
+    fused = K.fused_topk_gate
+    K.fused_topk_gate = tape = GateTape(fused)
+    try:
+        tokens, logits = greedy_with_logits(torch, model, prompt,
+                                            EP_SERVE["gen"], graph=False)
+    finally:
+        K.fused_topk_gate = fused
+    top2 = logits.topk(2, dim=-1).values
+    gates = {}
+    for i, (x, idx) in enumerate(tape.calls):
+        gates[f"gate_logits_{i}"] = x.float().numpy()
+        gates[f"gate_idx_{i}"] = idx.numpy()
+    np.savez(path, tokens=tokens.numpy(), logits=logits.numpy(),
+             margin=(top2[..., 0] - top2[..., 1]).numpy(),
+             gate_calls=len(tape.calls), **gates)
+    engine.clear_step_cache(model)
+    del model
+    release(torch)
+    return time.perf_counter() - t0
+
+
+def ep_fslice_kernel3(torch):
+    """Kernel 3 at the f-slice shapes expert TP gives it in 18e (dbrx at
+    2x2: 8 experts a rank, half of each expert's f, a view read in place)
+    against its plain version, bf16 (phase 2c's bound), at decode's 32
+    rows and a prefill-sized 4096; returns the largest error."""
+    from repro_torch.kernels import grouped_ffn as G
+    cfg = ep_serve_cfg()
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    g = torch.Generator(device="cuda").manual_seed(26)
+    w_up = torch.randn((8, d, f), generator=g, device="cuda").to(
+        torch.bfloat16)
+    w_out = torch.randn((8, f, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    errs = {"grouped_matmul": 0.0}
+    for M in (32, 4096):
+        o = torch.tensor([0] + [M * (e + 1) // 8 for e in range(8)],
+                         dtype=torch.int32, device="cuda")
+        lhs = torch.randn((M, d), generator=g, device="cuda").to(
+            torch.bfloat16)
+        check_grouped_bf16(torch, G, f"18e f-slice w_up M={M} K={d} "
+                           f"N={f // 2} (row stride {f})", lhs,
+                           w_up[..., f // 2:], o, errs)
+        h = torch.randn((M, f // 2), generator=g, device="cuda").to(
+            torch.bfloat16)
+        check_grouped_bf16(torch, G, f"18e f-slice w_out M={M} K={f // 2} "
+                           f"N={d} (expert stride {f * d})", h,
+                           w_out[:, f // 2:], o, errs)
+    del w_up, w_out
+    release(torch)
+    return errs["grouped_matmul"]
+
+
+def ep_serve_routes(torch, rank, one, calls):
+    """This rank's gate calls against one process's on the same rows (the
+    rank's block of each call's tokens): the router logits' distance over
+    each call's largest |logit|, and each token whose experts differ, with
+    the margin of the first pick that differs in one process's logits."""
+    dist, flips = [], []
+    for i, (x, idx) in enumerate(calls):
+        n = x.shape[0]
+        rows = slice(rank * n, (rank + 1) * n)
+        ref_x = torch.from_numpy(one[f"gate_logits_{i}"][rows])
+        ref_i = torch.from_numpy(one[f"gate_idx_{i}"][rows])
+        dist.append(float((x.float() - ref_x).abs().max()
+                          / ref_x.abs().max()))
+        flips += [(i, r, m) for r, m in gate_near_ties([(ref_x, ref_i)],
+                                                       [(x, idx)])]
+    return dist, flips
+
+
+def ep_serve_run(torch, rank, one_path):
+    """18e on one rank (every plain version made to raise): dbrx-132b at
+    2x2, teacher-forced on one process's tokens, first with its own routes
+    (the router logits against one process's, the routes that differ),
+    then replaying one process's routes (each step's logits against that
+    process's, argmax agreement where its top-2 margin clears the bound);
+    then served greedy through ``launch.serve.run``; returns the
+    distances, the tokens, rank 0's launches, the times and the peak
+    memory."""
+    import hashlib
+
+    import numpy as np
+    from repro_torch.kernels import topk_gate as K
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import engine
+    one = np.load(one_path)
+    cfg = ep_serve_cfg()
+    mesh = make_mesh(EP_SERVE["mesh"], backend="gloo")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(cfg, mesh=mesh, seed=0)
+    forced = torch.from_numpy(one["tokens"])
+    S = EP_SERVE["prompt_len"]
+    ref = torch.from_numpy(one["logits"])
+    scale = ref.abs().amax(dim=(1, 2))                   # per step
+    fused = K.fused_topk_gate
+    try:
+        K.fused_topk_gate = tape = GateTape(fused)
+        _, free = greedy_with_logits(torch, model, forced[:, :S].cuda(),
+                                     EP_SERVE["gen"], forced=forced)
+        router_err, flips = ep_serve_routes(torch, rank, one, tape.calls)
+        K.fused_topk_gate = GateTape(fused, [
+            torch.from_numpy(one[f"gate_idx_{i}"][rank * x.shape[0]:(
+                rank + 1) * x.shape[0]]) for i, (x, _) in enumerate(
+                tape.calls)])
+        _, logits = greedy_with_logits(torch, model, forced[:, :S].cuda(),
+                                       EP_SERVE["gen"], forced=forced)
+    finally:
+        K.fused_topk_gate = fused
+    free_err = ((free - ref).abs().amax(dim=(1, 2)) / scale).tolist()
+    step_err = ((logits - ref).abs().amax(dim=(1, 2)) / scale).tolist()
+    clear = torch.from_numpy(one["margin"]) > EP_SERVE_BOUND * scale[:, None]
+    agree = logits.argmax(-1) == ref.argmax(-1)
+    engine.clear_step_cache(model)
+    del model
+    release(torch)
+    reset_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    tokens = serve.run(EP_SERVE["arch"], smoke=False,
+                       batch=EP_SERVE["batch"], prompt_len=S,
+                       gen=EP_SERVE["gen"], mesh_shape=EP_SERVE["mesh"],
+                       dispatch="grouped", stats=stats,
+                       num_layers=EP_SERVE["layers"])
+    wall = time.perf_counter() - t0
+    counts = read_counts([k for k, _, _ in COUNTERS])
+    return dict(step_err=step_err, free_step_err=free_err,
+                router_err=max(router_err), route_flips=flips,
+                gate_calls=len(router_err),
+                disagree_clear=int((~agree & clear).sum()),
+                disagree_near_tie=int((~agree & ~clear).sum()),
+                near_ties=int((~clear).sum()),
+                logits_digest=hashlib.sha256(logits.numpy().tobytes()
+                                             ).hexdigest(),
+                tokens=tokens.cpu().numpy().tolist(),
+                generated_eq_one_process=int((tokens.cpu()[:, S:]
+                                              == forced[:, S:]).sum()),
+                counts=counts, prefill_s=stats["prefill_s"],
+                decode_ms=1e3 * stats["decode_s"] / stats["decode_steps"],
+                wall_s=wall, peak_gib=torch.cuda.max_memory_allocated()
+                / 2 ** 30)
+
+
+def ep_rank(rank, refs):
     """Phase 18 on one of four ranks sharing the card over one gloo group:
-    18a-b at meshes 1x4 and 2x2 (``ep_layer_checks``), then, with every
-    kernel's plain version made to raise, 18c's training runs."""
+    18a-b at meshes 1x4 and 2x2 (``ep_layer_checks``), 18d (expert TP and
+    the quantized wire, ``ep_tp_checks``), then, with every kernel's plain
+    version made to raise, 18c's training runs and 18e's serving."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out = {f"{D}x{M}": ep_layer_checks(torch, rank, (D, M), ref_path)
+    out = {f"{D}x{M}": ep_layer_checks(torch, rank, (D, M), refs["prefill"])
            for D, M in EP_LAYER_MESHES}
+    t0 = time.perf_counter()
+    out["18d"] = ep_tp_checks(torch, rank, refs)
+    out["18d_s"] = time.perf_counter() - t0
     forbid_plain_versions()
     for dispatch, tune, fabric in EP_TRAIN_CELLS:
         out[f"{dispatch} 1x4"] = ep_train_run(torch, rank, EP_TRAIN["mesh"],
                                               dispatch, tune, fabric)
+    t0 = time.perf_counter()
+    out["18e"] = ep_serve_run(torch, rank, refs["serve"])
+    out["18e_s"] = time.perf_counter() - t0
     return out
 
 
@@ -5585,19 +5926,27 @@ def phase_ep(torch, smi):
     world = 4
     out = {"label": ep_label(world), "card": smi}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
-        ref = str(pathlib.Path(tmp) / "one_process.npz")
-        ep_one_process_reference(torch, ref)
+        refs = {k: str(pathlib.Path(tmp) / f"{k}.npz")
+                for k in ("prefill", "decode", "serve")}
+        for tokens, n_glob in EP_TP_TOKENS:
+            ep_one_process_reference(torch, refs[tokens], n_glob)
         _, one = train.run(ARCH, steps=1, batch=B, seq=S, smoke=False,
                            seed=0, log_every=1, dispatch="grouped",
                            device="cuda")
         release(torch)
+        out["18e_one_process_s"] = ep_serve_reference(torch, refs["serve"])
+        out["18e_kernel3_fslice_max_abs_err"] = ep_fslice_kernel3(torch)
+        print(f"  18e one process ({EP_SERVE}): "
+              f"{out['18e_one_process_s']:.1f} s")
         print(f"phase 18: backend=gloo ranks={world} on 1 device: 18a-b at "
-              f"meshes {EP_LAYER_MESHES}, then 18c: {ARCH} whole, batch {B} "
-              f"x seq {S}, {steps} AdamW steps at mesh 1x4 for "
-              f"{EP_TRAIN_CELLS} (dispatch, --tune, --fabric)")
+              f"meshes {EP_LAYER_MESHES}, 18d expert TP at {EP_TP_MESHES} "
+              f"x {EP_TP_TOKENS} x {EP_TP_CASES} and the wire {EP_QWIRE} at "
+              f"1x4, then 18c: {ARCH} whole, batch {B} x seq {S}, {steps} "
+              f"AdamW steps at mesh 1x4 for {EP_TRAIN_CELLS} (dispatch, "
+              f"--tune, --fabric), then 18e: {EP_SERVE}")
         t0 = time.perf_counter()
         ranks = spawn(ep_rank, world, backend="gloo", threads=2,
-                      args=(ref,), timeout=900)
+                      args=(refs,), timeout=900)
     print(f"  [{smi}; {ep_label(world)}] the ranks took "
           f"{time.perf_counter() - t0:.1f} s")
     for D, M in EP_LAYER_MESHES:
@@ -5686,7 +6035,104 @@ def phase_ep(torch, smi):
                          fabric=runs[0]["fabric"],
                          launches_rank0=runs[0]["counts"],
                          profiled_rank0=prof)
+    out["18d"] = report_ep_tp(ranks, smi, world)
+    out["18e"] = report_ep_serve(ranks, smi, world)
     return totals, out
+
+
+def report_ep_tp(ranks, smi, world):
+    """18d's checks and printout: every cell card vs CPU within ``EP_TOL``
+    of each max, grouped vs one process likewise, kernels 3-6 at the
+    f-slice shapes, the expert-TP collectives of a forward and backward
+    (sort: 2 and 2; grouped: 3 and 2, the count matrices' gather having
+    no gradient), the wire within its QWIRE budgets."""
+    print(f"  18d, expert TP over the data group [{smi}; "
+          f"{ep_label(world)}], {max(r['18d_s'] for r in ranks):.1f} s:")
+    for key in ranks[0]["18d"]:
+        for r, res in enumerate(ranks):
+            cell = res["18d"][key]
+            if "qwire" in key:
+                q = key.split()[-1]
+                _, tol_out, tol_grad = next(t for t in EP_QWIRE if t[0] == q)
+                print(f"    rank {r} {key}: card vs CPU normwise "
+                      f"{ {k: f'{v:.2e}' for k, v in cell['rel'].items()} } "
+                      f"(budgets {tol_out} / {tol_grad}), card "
+                      f"{cell['card_ms']:.1f} ms, CPU {cell['cpu_ms']:.1f} ms")
+                check(cell["rel"]["y"] <= tol_out
+                      and max(v for k, v in cell["rel"].items() if k != "y")
+                      <= tol_grad, f"18d {key} rank {r}: {cell['rel']}")
+                continue
+            errs = {k: f"{v:.2e}" for k, v in cell["errs"].items()}
+            print(f"    rank {r} {key}: card vs CPU {errs}, TP collectives "
+                  f"{cell['tp_collectives']}, card fwd+bwd "
+                  f"{cell['card_ms']:.1f} ms, CPU {cell['cpu_ms']:.1f} ms, "
+                  f"launches {cell['launches']}")
+            check(max(cell["errs"].values()) <= EP_TOL,
+                  f"18d {key} rank {r}: card vs CPU {cell['errs']}")
+            check(cell["tp_collectives"] == (5 if "grouped" in key else 4),
+                  f"18d {key} rank {r}: {cell['tp_collectives']} expert-TP "
+                  f"collectives")
+            if "grouped" not in key:
+                continue
+            rs, one = cell["receive_side"], cell["vs_one_process"]
+            print(f"      f-slice kernels 3-6 vs plain {rs}; vs one "
+                  f"process {one}")
+            check(max(rs[k] for k in ("grouped_matmul", "grouped_matmul_t",
+                                      "grouped_drhs")) <= EP_TOL
+                  and rs["scatter_add_rows_bitwise"],
+                  f"18d {key} rank {r}: f-slice kernels {rs}")
+            check(max(one.values()) <= EP_TOL,
+                  f"18d {key} rank {r} vs one process {one}")
+    return [r["18d"] for r in ranks]
+
+
+def report_ep_serve(ranks, smi, world):
+    """18e's checks and printout: the tokens bitwise equal on every rank,
+    the teacher-forced logits of every rank bitwise equal and within
+    ``EP_SERVE_BOUND`` of each step's largest |logit| from one process,
+    the argmax equal wherever one process's top-2 margin clears that
+    bound, rank 0's launches of kernels 1, 2, 3, 6 and 7."""
+    res = [r["18e"] for r in ranks]
+    r0 = res[0]
+    print(f"  18e, {EP_SERVE} [{smi}; {ep_label(world)}: host-staged, not "
+          f"a speed of expert parallelism], "
+          f"{max(r['18e_s'] for r in ranks):.1f} s:")
+    for r, x in enumerate(res):
+        print(f"    rank {r}: own routes: router logits within "
+              f"{x['router_err']:.2e} of each call's max over "
+              f"{x['gate_calls']} gate calls, {len(x['route_flips'])} "
+              f"routes differ (call, row, margin) {x['route_flips']}, step "
+              f"err / max|logit| {[f'{e:.2e}' for e in x['free_step_err']]}")
+        print(f"    rank {r}: one process's routes replayed: step err / "
+              f"max|logit| {[f'{e:.2e}' for e in x['step_err']]} (bound "
+              f"{EP_SERVE_BOUND}); argmax differs at {x['disagree_clear']} "
+              f"positions past the margin, {x['disagree_near_tie']} of "
+              f"{x['near_ties']} near-ties; served: prefill "
+              f"{1e3 * x['prefill_s']:.1f} ms, eager decode "
+              f"{x['decode_ms']:.1f} ms a step, {x['wall_s']:.1f} s whole, "
+              f"peak {x['peak_gib']:.2f} GiB; generated tokens equal to one "
+              f"process's {x['generated_eq_one_process']} of "
+              f"{EP_SERVE['batch'] * EP_SERVE['gen']}")
+    print(f"    rank 0 launches {r0['counts']}")
+    check(all(x["tokens"] == r0["tokens"] for x in res),
+          "18e: the ranks' tokens differ")
+    check(len({x["logits_digest"] for x in res}) == 1,
+          "18e: the ranks' teacher-forced logits differ")
+    check(all(x["router_err"] <= EP_SERVE_BOUND for x in res),
+          f"18e: router logits past the bound "
+          f"{[x['router_err'] for x in res]}")
+    check(all(e <= EP_SERVE_BOUND for x in res for e in x["step_err"]),
+          f"18e: teacher-forced logits past the bound {r0['step_err']}")
+    check(all(x["disagree_clear"] == 0 for x in res),
+          f"18e: a greedy token differs from one process's past the margin")
+    check(all(r0["counts"][k] > 0 for k in SERVE_KERNELS),
+          f"18e: a kernel of the serving path was not launched on rank 0: "
+          f"{r0['counts']}")
+    return {k: v for k, v in r0.items() if k != "tokens"} | {
+        "peak_gib": [x["peak_gib"] for x in res],
+        "prefill_s": [x["prefill_s"] for x in res],
+        "decode_ms": [x["decode_ms"] for x in res],
+        "launches_rank0": r0["counts"]}
 
 
 def print_ptxas(report: str, most: int = 24) -> None:
@@ -5940,6 +6386,10 @@ def main(argv=None) -> int:
         if ep_counts.get(r["name"]):
             # phase 18c: rank 0 of the 1x4 runs (sort + grouped)
             kernels[-1]["launches_ep"] = ep_counts[r["name"]]
+        if ep["18e"]["launches_rank0"].get(r["name"]):
+            # phase 18e: rank 0 of dbrx-132b served at 2x2
+            kernels[-1]["launches_ep_serve"] = ep["18e"]["launches_rank0"][
+                r["name"]]
         if r["name"] + "_zamba2" in errs:
             # phase 2p: zamba2's head dim 112, f32 and bf16
             kernels[-1]["max_abs_err_zamba2"] = errs[r["name"] + "_zamba2"]

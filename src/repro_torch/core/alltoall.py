@@ -24,6 +24,11 @@ reverse order).  Nothing reads a count back to the host: the count
 matrices travel as device tensors.  ``exchanges`` counts the AllToAll
 collectives issued (one per stage); it stands in for the reference's
 jaxpr witness ``moe.expected_grouped_a2a_eqns``.
+
+Expert tensor parallelism (decode) runs two more collectives over the
+data group: the tiled all-gather (:func:`tp_all_gather`, its backward a
+reduce-scatter) and the tiled reduce-scatter (:func:`tp_reduce_scatter`,
+its backward an all-gather); ``tp_collectives`` counts them.
 """
 from __future__ import annotations
 
@@ -334,6 +339,95 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Differentiable sum of ``x`` over ``group`` (None = the world)."""
     return _AllReduceSum.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# Expert tensor parallelism: the tiled all-gather and reduce-scatter over the
+# data group (the reference's lax.all_gather / psum_scatter, tiled=True)
+# ---------------------------------------------------------------------------
+
+tp_collectives = 0     # TP all-gathers and reduce-scatters since the reset
+
+
+def gather_rows(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """Every rank's ``x`` of the ``n``-rank ``group`` (None = the world)
+    concatenated along dim 0 in group-rank order; the bytes cross (any
+    dtype crosses any backend).  Not differentiable."""
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    if x.numel():
+        dist.all_gather_into_tensor(out.view(torch.uint8).reshape(-1),
+                                    x.view(torch.uint8).reshape(-1),
+                                    group=group)
+    return out
+
+
+def _tp_gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """Group rank r's ``x`` as block r of the output along ``dim``."""
+    global tp_collectives
+    out = gather_rows(x.movedim(dim, 0), group, n)
+    tp_collectives += 1
+    return out.movedim(0, dim)
+
+
+def _tp_reduce_scatter(x: torch.Tensor, group, n: int,
+                       dim: int) -> torch.Tensor:
+    """Block r (of ``n`` along ``dim``) of the sum of every group rank's
+    ``x``, to group rank r."""
+    global tp_collectives
+    xm = x.movedim(dim, 0).contiguous()
+    if xm.shape[0] % n:
+        raise ValueError(f"reduce-scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not divide over {n} ranks")
+    out = xm.new_empty((xm.shape[0] // n, *xm.shape[1:]))
+    if xm.numel():
+        dist.reduce_scatter_tensor(out, xm, group=group)
+    tp_collectives += 1
+    return out.movedim(0, dim)
+
+
+class _TPAllGather(torch.autograd.Function):
+    """Tiled all-gather; the backward reduce-scatters the cotangent (each
+    gathered block's cotangent summed over the ranks that used it)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.meta = (group, n, dim)
+        return _tp_gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tp_reduce_scatter(g, *ctx.meta), None, None, None
+
+
+class _TPReduceScatter(torch.autograd.Function):
+    """Tiled reduce-scatter; the backward all-gathers the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.meta = (group, n, dim)
+        return _tp_reduce_scatter(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tp_gather(g, *ctx.meta), None, None, None
+
+
+def tp_all_gather(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """Every data rank's ``x`` concatenated along ``dim`` in data-index
+    order (the reference's ``lax.all_gather(x, "data", axis=dim,
+    tiled=True)``), differentiable; an integer tensor (the count matrices)
+    crosses the same way, without a gradient."""
+    return _TPAllGather.apply(x, mesh.data_group, mesh.shape["data"], dim)
+
+
+def tp_reduce_scatter(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """The sum of every data rank's ``x``, cut into ``D`` blocks along
+    ``dim``: block ``di`` to the rank of data index ``di`` (the reference's
+    ``lax.psum_scatter(x, "data", scatter_dimension=dim, tiled=True)``),
+    differentiable."""
+    return _TPReduceScatter.apply(x, mesh.data_group, mesh.shape["data"],
+                                  dim)
 
 
 # ---------------------------------------------------------------------------

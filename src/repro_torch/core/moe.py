@@ -33,8 +33,20 @@ global tokens, padding them to a multiple of the world as the reference
 does; padded tokens route to a virtual expert E, which the plans drop).
 Experts shard over ``model`` and replicate over ``data``: ``params`` hold
 the rank's E/M experts.  The aux loss is a global masked mean over the
-world (``balance``); the load metrics are averaged over it.  Expert TP is
-a later slice (ROADMAP.md).
+world (``balance``); the load metrics are averaged over it.
+
+Expert tensor parallelism (``expert_tp_axis="data"``, the reference's
+decode-time layout): the rank of data index ``di`` of D computes with the
+f-slice ``[di·f/D, (di+1)·f/D)`` of its experts (views of ``w_up`` /
+``w_gate``'s last dim and ``w_out``'s middle one, what the reference's
+``P(model, None, "data")`` gives that device), on the received rows of
+every rank of its data group (``alltoall.tp_all_gather``), and a
+reduce-scatter (``alltoall.tp_reduce_scatter``) hands each rank its rows
+back with the f-contraction summed.
+
+Serving keeps its activations whole on every rank:
+:func:`replicated_moe_apply` takes the global tokens, runs the layer on
+the rank's block of them and all-gathers the outputs over the world.
 """
 from __future__ import annotations
 
@@ -52,21 +64,29 @@ from repro_torch.kernels import grouped_ffn as gffn
 
 def init_moe_params(generator: torch.Generator, cfg: MoEConfig, d_model: int,
                     d_ff: int, num_experts: int, *, act: str = "swiglu",
-                    dtype=torch.float32, device=None
+                    dtype=torch.float32, device=None,
+                    experts: Optional[slice] = None
                     ) -> Dict[str, torch.Tensor]:
     """Router (f32) + expert weights in ``dtype``, drawn from
-    ``generator`` (each cast right after its draw)."""
+    ``generator`` (each cast right after its draw).  ``experts`` keeps
+    only that slice of each expert leaf (a rank's E/M experts): the leaf
+    is drawn whole, so the values are one process's, and freed once its
+    slice is copied out."""
     d_ff = cfg.d_ff_expert or d_ff
 
     def randn(scale, *shape, dtype=dtype):
         return draw(generator, shape, scale, device=device, dtype=dtype)
 
+    def expert(scale, *shape):
+        t = randn(scale, num_experts, *shape)
+        return t if experts is None else t[experts].clone()
+
     scale_in, scale_out = d_model ** -0.5, d_ff ** -0.5
     p = {"gate_w": randn(scale_in, d_model, num_experts, dtype=torch.float32),
-         "w_up": randn(scale_in, num_experts, d_model, d_ff),
-         "w_out": randn(scale_out, num_experts, d_ff, d_model)}
+         "w_up": expert(scale_in, d_model, d_ff),
+         "w_out": expert(scale_out, d_ff, d_model)}
     if act in ("swiglu", "geglu"):
-        p["w_gate"] = randn(scale_in, num_experts, d_model, d_ff)
+        p["w_gate"] = expert(scale_in, d_model, d_ff)
     return p
 
 
@@ -104,12 +124,23 @@ def moe_block_local(cfg: MoEConfig, params: Dict[str, torch.Tensor],
                     mesh=None, valid: Optional[torch.Tensor] = None,
                     noise: Optional[torch.Tensor] = None,
                     token_ids: Optional[torch.Tensor] = None,
+                    expert_tp: bool = False,
                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                Dict[str, torch.Tensor]]:
     """x: (T, d) this rank's tokens → (y, aux_loss, metrics).  ``cfg`` must
-    be resolved (no ``"auto"``); ``params`` hold the rank's E/M experts;
-    ``mesh`` None is one device.  ``noise`` (T, E) and ``token_ids`` (T,)
-    go to the gate (``gating.route``)."""
+    be resolved (no ``"auto"``); ``params`` hold the rank's E/M experts
+    (with ``expert_tp``, the rank's f-slice of them); ``mesh`` None is one
+    device.  ``noise`` (T, E) and ``token_ids`` (T,) go to the gate
+    (``gating.route``).
+
+    ``expert_tp`` (the reference's ``expert_tp_axis="data"``, mesh data
+    size D > 1): sort/dense gather the received ``(E_local, M·C, d)``
+    buffer over the data group along its rows, run the f-slice, and
+    reduce-scatter the rows back; grouped gathers each window's received
+    chunks and their count matrices, merges them into one expert-major
+    order (``layout.grouped_tp_gather_maps``), runs the grouped matmuls on
+    the f-slice and reduce-scatters the rows in chunk layout, so the EP
+    combine runs on the reduced rows."""
     T, d = x.shape
     E = num_experts
     M = 1 if mesh is None else mesh.shape["model"]
@@ -140,12 +171,13 @@ def moe_block_local(cfg: MoEConfig, params: Dict[str, torch.Tensor],
         aux, metrics = balance.aux_losses(cfg, gate,
                                           expert_counts=gplan.counts,
                                           valid=valid, group=group)
-        if M == 1 and cfg.overlap_chunks == 1:
+        if M == 1 and cfg.overlap_chunks == 1 and not expert_tp:
             xs = layout.dispatch_grouped(x, gplan)
             ys = gffn.grouped_ffn(params, xs.to(params["w_up"].dtype),
                                   gplan.offsets, act)
         else:
-            ys = _grouped_exchange(cfg, params, x, gplan, mesh, act)
+            ys = _grouped_exchange(cfg, params, x, gplan, mesh, act,
+                                   expert_tp)
         y = layout.combine_grouped(ys, gplan, T)
     else:
         C = capacity.expert_capacity(cfg, T, E)
@@ -165,7 +197,13 @@ def moe_block_local(cfg: MoEConfig, params: Dict[str, torch.Tensor],
                 E_local, M * C, d)
         else:
             buf = buf.reshape(E, C, d)
+        if expert_tp:
+            # every data rank's received rows, each rank its f-slice, the
+            # f-contraction reduced while each rank takes its rows back
+            buf = alltoall.tp_all_gather(buf, mesh, dim=1)
         h = expert_ffn(params, buf.to(params["w_up"].dtype), act)
+        if expert_tp:
+            h = alltoall.tp_reduce_scatter(h, mesh, dim=1)
         if M > 1:
             h = h.reshape(E_local, M, C, d).transpose(0, 1).reshape(
                 M, E_local * C, d)
@@ -180,12 +218,13 @@ def moe_block_local(cfg: MoEConfig, params: Dict[str, torch.Tensor],
 
 
 def _grouped_exchange(cfg: MoEConfig, params, x: torch.Tensor,
-                      gplan: layout.GroupedPlan, mesh, act: str
-                      ) -> torch.Tensor:
+                      gplan: layout.GroupedPlan, mesh, act: str,
+                      expert_tp: bool = False) -> torch.Tensor:
     """The grouped path's bounded exchange (the reference's
-    ``moe_block_local`` grouped branch at ``model_size > 1`` or
-    ``overlap_chunks > 1``): (T·K, d) sorted FFN rows of this rank's
-    assignments, computed by the ranks that own their experts."""
+    ``moe_block_local`` grouped branch at ``model_size > 1``,
+    ``overlap_chunks > 1`` or under expert TP): (T·K, d) sorted FFN rows
+    of this rank's assignments, computed by the ranks that own their
+    experts."""
     T, d = x.shape
     E = gplan.counts.shape[0]
     M = 1 if mesh is None else mesh.shape["model"]
@@ -217,17 +256,27 @@ def _grouped_exchange(cfg: MoEConfig, params, x: torch.Tensor,
         """Grouped matmuls over one received window (n_src, bc, d); the
         FFN rows go back to the window's source ranks (with ``pending``
         the combine's last stage is issued asynchronously)."""
-        if M > 1:
+        if expert_tp:
+            # every data rank's chunks and counts: the chunk layout is the
+            # same on all of them (its bound comes from static shapes)
+            recv = alltoall.tp_all_gather(recv, mesh)
+            counts = alltoall.tp_all_gather(counts, mesh)
+        n_chunks = recv.shape[0]
+        if M > 1 or expert_tp:
             ffn_src, dst_map, group_sizes = layout.grouped_tp_gather_maps(
                 counts, bc)
-            xs = gather(recv.reshape(n_src * bc, d), ffn_src)
+            xs = gather(recv.reshape(n_chunks * bc, d), ffn_src)
         else:
             xs, group_sizes = recv.reshape(bc, d), counts[0]
         ys = gffn.grouped_ffn(params, xs.to(params["w_up"].dtype),
                               layout._offsets(group_sizes), act)
+        if expert_tp:
+            # back to chunk layout, the f-contraction reduced while each
+            # data rank takes its own chunks (n_src·bc rows)
+            ys = alltoall.tp_reduce_scatter(gather(ys, dst_map), mesh)
         if M == 1:
             return ys.reshape(1, bc, d)
-        h = gather(ys, dst_map).reshape(M, bc, d)
+        h = (ys if expert_tp else gather(ys, dst_map)).reshape(M, bc, d)
         if qdt is not None:
             # dequantized into f32: the combine's reduction stays f32
             out, _ = alltoall.quantized_exchange(
@@ -279,6 +328,16 @@ def _pad_to(x: torch.Tensor, mult: int):
     return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]), n
 
 
+def _rank_rows(mesh, rows: torch.Tensor) -> torch.Tensor:
+    """This rank's block of ``rows`` (N, ...) padded with zeros to a
+    multiple of the world."""
+    world = 1 if mesh is None else mesh.world
+    rank = 0 if mesh is None else mesh.rank
+    rows = _pad_to(rows, world)[0]
+    n = rows.shape[0] // world
+    return rows[rank * n:(rank + 1) * n]
+
+
 def rank_tokens(mesh, x: torch.Tensor,
                 token_ids: Optional[torch.Tensor] = None):
     """This rank's block of the global tokens ``x`` (..., d): the
@@ -286,18 +345,13 @@ def rank_tokens(mesh, x: torch.Tensor,
     ``_pad_to``) and cut into contiguous blocks in rank order.  Returns
     ``(tokens (T_local, d), valid (T_local,), token_ids or None,
     n_real)``."""
-    d = x.shape[-1]
-    toks = x.reshape(-1, d)
-    world = 1 if mesh is None else mesh.world
-    rank = 0 if mesh is None else mesh.rank
-    toks, n_real = _pad_to(toks, world)
-    n = toks.shape[0] // world
-    rows = slice(rank * n, (rank + 1) * n)
-    valid = torch.arange(toks.shape[0], device=x.device)[rows] < n_real
-    tid = None
-    if token_ids is not None:
-        tid = _pad_to(token_ids.reshape(-1), world)[0][rows]
-    return toks[rows], valid, tid, n_real
+    toks = x.reshape(-1, x.shape[-1])
+    n_real = toks.shape[0]
+    valid = _rank_rows(mesh, torch.ones((n_real,), dtype=torch.bool,
+                                        device=x.device))
+    tid = (None if token_ids is None
+           else _rank_rows(mesh, token_ids.reshape(-1)))
+    return _rank_rows(mesh, toks), valid, tid, n_real
 
 
 def grouped_a2a_stages(cfg: MoEConfig, model_size: int) -> int:
@@ -397,15 +451,26 @@ def sharded_moe_apply(mesh, cfg: MoEConfig, params: Dict[str, torch.Tensor],
     (a no-op when the model already keeps them in it); ``noise`` (T, E)
     is this rank's rows of a noisy gate's global draw
     (``gating.draw_noise``); ``token_ids`` (``x``'s leading dims) route
-    the ``hash`` gate, which raises ``ValueError`` without them."""
-    if expert_tp_axis is not None:
-        raise NotImplementedError(
-            f"expert_tp_axis={expert_tp_axis!r}: expert tensor parallelism "
-            f"is not ported to repro_torch yet (ROADMAP.md)")
+    the ``hash`` gate, which raises ``ValueError`` without them.
+
+    ``expert_tp_axis="data"`` runs expert TP over the data group (see the
+    module docstring): the rank computes with views of its experts'
+    f-slice, and f must divide over D (``ValueError`` otherwise).  At
+    data size 1 (and without a mesh) it is the identity.  Any other axis
+    raises the reference's ``ValueError`` naming the mesh's axes."""
+    if expert_tp_axis is not None and expert_tp_axis != "data":
+        # a typo'd axis must not silently disable expert TP
+        raise ValueError(
+            f"expert_tp_axis={expert_tp_axis!r} is not an axis of the mesh; "
+            f"valid axis names: {MESH_AXES}")
     lead, d = x.shape[:-1], x.shape[-1]
     toks = x.reshape(-1, d)
     T = toks.shape[0]
     M = 1 if mesh is None else mesh.shape["model"]
+    D = 1 if mesh is None else mesh.shape["data"]
+    tp = expert_tp_axis is not None and D > 1
+    if tp:
+        params = _f_slice(params, D, mesh.data_index)
     if token_ids is not None:
         token_ids = token_ids.reshape(-1)
     elif cfg.gate == "hash":
@@ -422,8 +487,68 @@ def sharded_moe_apply(mesh, cfg: MoEConfig, params: Dict[str, torch.Tensor],
     y, aux, metrics = moe_block_local(cfg, params, toks,
                                       num_experts=num_experts, act=act,
                                       mesh=mesh, valid=valid, noise=noise,
-                                      token_ids=token_ids)
+                                      token_ids=token_ids, expert_tp=tp)
     return y.reshape(*lead, d), aux, metrics
+
+
+MESH_AXES = ("data", "model")
+
+
+def _f_slice(params: Dict[str, torch.Tensor], D: int, di: int
+             ) -> Dict[str, torch.Tensor]:
+    """``params`` with the expert leaves cut to data index ``di``'s f-slice
+    ``[di·f/D, (di+1)·f/D)``: views of ``w_up``/``w_gate``'s last dim and
+    ``w_out``'s middle one."""
+    f = params["w_up"].shape[-1]
+    if f % D:
+        raise ValueError(
+            f"expert TP: the expert FFN width f={f} does not divide over "
+            f"the data axis of size {D}")
+    n = f // D
+    cut = slice(di * n, (di + 1) * n)
+    out = dict(params, w_up=params["w_up"][..., cut],
+               w_out=params["w_out"][:, cut])
+    if "w_gate" in params:
+        out["w_gate"] = params["w_gate"][..., cut]
+    return out
+
+
+def replicated_moe_apply(mesh, cfg: MoEConfig,
+                         params: Dict[str, torch.Tensor], x: torch.Tensor, *,
+                         num_experts: int, act: str = "swiglu",
+                         noise: Optional[torch.Tensor] = None,
+                         token_ids: Optional[torch.Tensor] = None,
+                         expert_tp_axis: Optional[str] = None,
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    Dict[str, torch.Tensor]]:
+    """The MoE layer over activations that every rank holds whole
+    (serving): ``x`` (..., d) the global tokens, the same on every rank;
+    each rank runs :func:`sharded_moe_apply` on its block of them
+    (:func:`rank_tokens`: padded to the world, in rank order), so every
+    rank routes exactly the reference's tokens at any token count, and
+    the outputs are all-gathered over the world and the padding cut.
+    ``noise`` (the global (T, E) draw) and ``token_ids`` are cut the same
+    way.  Returns the same ``(y, aux, metrics)`` on every rank.  For
+    inference: the gather passes no gradient.  ``mesh`` None is
+    :func:`sharded_moe_apply` on one device."""
+    if mesh is None:
+        return sharded_moe_apply(None, cfg, params, x,
+                                 num_experts=num_experts, act=act,
+                                 noise=noise, token_ids=token_ids,
+                                 expert_tp_axis=expert_tp_axis)
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError(
+            "replicated_moe_apply serves (its output gather passes no "
+            "gradient); a trainer runs sharded_moe_apply on each rank's "
+            "own rows")
+    lead, d = x.shape[:-1], x.shape[-1]
+    xl, valid, tid, n_real = rank_tokens(mesh, x, token_ids)
+    nl = None if noise is None else _rank_rows(mesh, noise)
+    yl, aux, metrics = sharded_moe_apply(
+        mesh, cfg, params, xl, num_experts=num_experts, act=act, noise=nl,
+        token_ids=tid, valid=valid, expert_tp_axis=expert_tp_axis)
+    y = alltoall.gather_rows(yl, None, mesh.world)
+    return y[:n_real].reshape(*lead, d), aux, metrics
 
 
 def moe_apply(cfg: MoEConfig, params: Dict[str, torch.Tensor],

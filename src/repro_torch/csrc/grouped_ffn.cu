@@ -192,7 +192,8 @@ grouped_mm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
                        const __nv_bfloat16* __restrict__ rhs,
                        const int* __restrict__ offsets,
                        __nv_bfloat16* __restrict__ out, int M, int Kc,
-                       int Nout, int E, bool vec) {
+                       int Nout, int E, long long w_se, long long w_ld,
+                       bool vec) {
   using G = Gemm<BM, BN, BK, WM, WN, STAGES, TRANS>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -206,7 +207,7 @@ grouped_mm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
     zero_tile(out, __float2bfloat16(0.f), row0, row1, col0, BN, Nout);
     return;
   }
-  const __nv_bfloat16* w = rhs + (size_t)e * Kc * Nout;
+  const __nv_bfloat16* w = rhs + (size_t)e * w_se;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm0 = (warp / WN) * (BM / WM), wn0 = (warp % WN) * (BN / WN);
   const int nk = (Kc + BK - 1) / BK;
@@ -228,7 +229,7 @@ grouped_mm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
         const int n = c / (BK / 8), kk = (c % (BK / 8)) * 8;
         const bool in = col0 + n < Nout;
         load_piece(b + n * G::B_LD + kk,
-                   w + (size_t)(in ? col0 + n : 0) * Kc, in, k0 + kk, Kc,
+                   w + (size_t)(in ? col0 + n : 0) * w_ld, in, k0 + kk, Kc,
                    vec);
       }
     } else {                     // BK rows of w[e] (Kc, Nout), BN columns
@@ -236,7 +237,7 @@ grouped_mm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
         const int r = c / (BN / 8), nn = (c % (BN / 8)) * 8;
         const bool in = k0 + r < Kc;
         load_piece(b + r * G::B_LD + nn,
-                   w + (size_t)(in ? k0 + r : 0) * Nout, in, col0 + nn, Nout,
+                   w + (size_t)(in ? k0 + r : 0) * w_ld, in, col0 + nn, Nout,
                    vec);
       }
     }
@@ -323,7 +324,7 @@ grouped_mm_f32_kernel(const float* __restrict__ lhs,
                       const float* __restrict__ rhs,
                       const int* __restrict__ offsets,
                       float* __restrict__ out, int M, int Kc, int Nout,
-                      int E) {
+                      int E, long long w_se, long long w_ld) {
   __shared__ float As[FBK][FBM + 4];  // transposed: As[k][row]
   __shared__ float Bs[FBK][FBN + 4];
 
@@ -342,7 +343,7 @@ grouped_mm_f32_kernel(const float* __restrict__ lhs,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  const float* w = rhs + (size_t)e * Kc * Nout;
+  const float* w = rhs + (size_t)e * w_se;
   for (int k0 = 0; k0 < Kc; k0 += FBK) {
     for (int c = tid; c < FBM * FBK; c += blockDim.x) {
       const int r = c / FBK, kk = c % FBK;
@@ -353,11 +354,11 @@ grouped_mm_f32_kernel(const float* __restrict__ lhs,
       if constexpr (TRANS) {  // along rows of w[e] (Nout, Kc)
         const int n = c / FBK, kk = c % FBK;
         const int gk = k0 + kk, gn = col0 + n;
-        Bs[kk][n] = (gk < Kc && gn < Nout) ? w[(size_t)gn * Kc + gk] : 0.f;
+        Bs[kk][n] = (gk < Kc && gn < Nout) ? w[(size_t)gn * w_ld + gk] : 0.f;
       } else {
         const int r = c / FBN, n = c % FBN;
         const int gk = k0 + r, gn = col0 + n;
-        Bs[r][n] = (gk < Kc && gn < Nout) ? w[(size_t)gk * Nout + gn] : 0.f;
+        Bs[r][n] = (gk < Kc && gn < Nout) ? w[(size_t)gk * w_ld + gn] : 0.f;
       }
     }
     __syncthreads();
@@ -588,13 +589,17 @@ grouped_drhs_f32_kernel(const float* __restrict__ lhs,
     }
 }
 
-// rhs (E, K, N) in every entry point; the forward's lhs/out are (M, K) /
-// (M, N), the transposed form's (M, N) / (M, K).  The grid: column tiles
-// by the most row tiles any offsets can give (see the header).
+// rhs (E, K, N) in every entry point, each rhs[e] (K, N) with unit column
+// stride: expert e at rhs + e * rhs_se, row k at + k * rhs_ld (rhs_se = K*N,
+// rhs_ld = N when rhs is contiguous; an f-slice view of a wider weight, as
+// expert tensor parallelism computes with, has rhs_ld = the whole width).
+// The forward's lhs/out are (M, K) / (M, N), the transposed form's (M, N) /
+// (M, K).  The grid: column tiles by the most row tiles any offsets can
+// give (see the header).
 template <int BM_, int BN_, int BK_, int WM, int WN, int STAGES, bool TRANS>
 int launch_gemm(const void* lhs, const void* rhs, const void* offsets,
-                void* out, int M, int Kc, int Nout, int E, bool vec,
-                cudaStream_t stream) {
+                void* out, int M, int Kc, int Nout, int E, long long rhs_se,
+                long long rhs_ld, bool vec, cudaStream_t stream) {
   using G = Gemm<BM_, BN_, BK_, WM, WN, STAGES, TRANS>;
   const auto kernel = grouped_mm_bf16_kernel<BM_, BN_, BK_, WM, WN, STAGES,
                                              TRANS>;
@@ -609,37 +614,41 @@ int launch_gemm(const void* lhs, const void* rhs, const void* offsets,
   const dim3 grid((Nout + BN_ - 1) / BN_, (M + BM_ - 1) / BM_ + E + 1);
   kernel<<<grid, G::THREADS, G::SMEM, stream>>>(
       (const __nv_bfloat16*)lhs, (const __nv_bfloat16*)rhs,
-      (const int*)offsets, (__nv_bfloat16*)out, M, Kc, Nout, E, vec);
+      (const int*)offsets, (__nv_bfloat16*)out, M, Kc, Nout, E, rhs_se,
+      rhs_ld, vec);
   return (int)cudaGetLastError();
 }
 
 template <bool TRANS>
 int launch_mm_bf16(const void* lhs, const void* rhs, const void* offsets,
-                   void* out, int M, int K, int N, int E, void* stream) {
+                   void* out, int M, int K, int N, int E, long long rhs_se,
+                   long long rhs_ld, void* stream) {
   if (E < 1 || E > GMM_MAX_E) return (int)cudaErrorInvalidValue;
   const int Kc = TRANS ? N : K, Nout = TRANS ? K : N;
   if (M == 0 || Nout == 0) return 0;
-  const bool vec = Kc % 8 == 0 && Nout % 8 == 0 &&
+  const bool vec = Kc % 8 == 0 && Nout % 8 == 0 && rhs_se % 8 == 0 &&
+                   rhs_ld % 8 == 0 &&
                    ((uintptr_t)lhs | (uintptr_t)rhs | (uintptr_t)out) % 16 ==
                        0;
   cudaStream_t s = (cudaStream_t)stream;
   if (M <= SMALL_M)
-    return launch_gemm<16, 64, 64, 1, 4, 4, TRANS>(lhs, rhs, offsets, out, M,
-                                                   Kc, Nout, E, vec, s);
-  return launch_gemm<128, 128, 64, 2, 4, 3, TRANS>(lhs, rhs, offsets, out, M,
-                                                   Kc, Nout, E, vec, s);
+    return launch_gemm<16, 64, 64, 1, 4, 4, TRANS>(
+        lhs, rhs, offsets, out, M, Kc, Nout, E, rhs_se, rhs_ld, vec, s);
+  return launch_gemm<128, 128, 64, 2, 4, 3, TRANS>(
+      lhs, rhs, offsets, out, M, Kc, Nout, E, rhs_se, rhs_ld, vec, s);
 }
 
 template <bool TRANS>
 int launch_mm_f32(const void* lhs, const void* rhs, const void* offsets,
-                  void* out, int M, int K, int N, int E, void* stream) {
+                  void* out, int M, int K, int N, int E, long long rhs_se,
+                  long long rhs_ld, void* stream) {
   if (E < 1 || E > GMM_MAX_E) return (int)cudaErrorInvalidValue;
   const int Kc = TRANS ? N : K, Nout = TRANS ? K : N;
   if (M == 0 || Nout == 0) return 0;
   const dim3 grid((Nout + FBN - 1) / FBN, (M + FBM - 1) / FBM + E + 1);
   grouped_mm_f32_kernel<TRANS><<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const float*)lhs, (const float*)rhs, (const int*)offsets, (float*)out,
-      M, Kc, Nout, E);
+      M, Kc, Nout, E, rhs_se, rhs_ld);
   return (int)cudaGetLastError();
 }
 
@@ -647,27 +656,35 @@ int launch_mm_f32(const void* lhs, const void* rhs, const void* offsets,
 
 extern "C" int grouped_matmul_bf16(const void* lhs, const void* rhs,
                                    const void* offsets, void* out, int M,
-                                   int K, int N, int E, void* stream) {
-  return launch_mm_bf16<false>(lhs, rhs, offsets, out, M, K, N, E, stream);
+                                   int K, int N, int E, long long rhs_se,
+                                   long long rhs_ld, void* stream) {
+  return launch_mm_bf16<false>(lhs, rhs, offsets, out, M, K, N, E, rhs_se,
+                               rhs_ld, stream);
 }
 
 extern "C" int grouped_matmul_f32(const void* lhs, const void* rhs,
                                   const void* offsets, void* out, int M,
-                                  int K, int N, int E, void* stream) {
-  return launch_mm_f32<false>(lhs, rhs, offsets, out, M, K, N, E, stream);
+                                  int K, int N, int E, long long rhs_se,
+                                  long long rhs_ld, void* stream) {
+  return launch_mm_f32<false>(lhs, rhs, offsets, out, M, K, N, E, rhs_se,
+                              rhs_ld, stream);
 }
 
 // dlhs: g (M, N) @ rhs[e]^T → out (M, K)
 extern "C" int grouped_matmul_t_bf16(const void* g, const void* rhs,
                                      const void* offsets, void* out, int M,
-                                     int K, int N, int E, void* stream) {
-  return launch_mm_bf16<true>(g, rhs, offsets, out, M, K, N, E, stream);
+                                     int K, int N, int E, long long rhs_se,
+                                     long long rhs_ld, void* stream) {
+  return launch_mm_bf16<true>(g, rhs, offsets, out, M, K, N, E, rhs_se,
+                              rhs_ld, stream);
 }
 
 extern "C" int grouped_matmul_t_f32(const void* g, const void* rhs,
                                     const void* offsets, void* out, int M,
-                                    int K, int N, int E, void* stream) {
-  return launch_mm_f32<true>(g, rhs, offsets, out, M, K, N, E, stream);
+                                    int K, int N, int E, long long rhs_se,
+                                    long long rhs_ld, void* stream) {
+  return launch_mm_f32<true>(g, rhs, offsets, out, M, K, N, E, rhs_se,
+                             rhs_ld, stream);
 }
 
 // drhs: lhs (M, K), g (M, N) → out (E, K, N), f32 (out_bf16 = 0) or bf16

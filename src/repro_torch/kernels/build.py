@@ -52,10 +52,11 @@ SIGNATURES = {
     "gather_rows": (_P, _P, _P, _LL, _LL, _LL, _P),
     "gather_rows_fanout": (_P, _P, _P, _P, _LL, _LL, _I, _LL, _P),
     "gather_rows_rowstep": (_P, _P, _P, _LL, _LL, _LL, _I, _P),
-    "grouped_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "grouped_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "grouped_matmul_t_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "grouped_matmul_t_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # then rhs's expert and row strides
+    "grouped_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P),
+    "grouped_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P),
+    "grouped_matmul_t_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P),
+    "grouped_matmul_t_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P),
     "grouped_drhs_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "grouped_drhs_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "scatter_add_rows": (_P,) * 6 + (_LL, _LL, _LL, _I, _P),

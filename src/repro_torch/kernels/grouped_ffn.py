@@ -136,10 +136,22 @@ def _check(name: str, lhs: torch.Tensor, rhs: torch.Tensor,
 
 def _launch(name: str, fn_bf16: str, fn_f32: str, a: torch.Tensor,
             b: torch.Tensor, offsets: torch.Tensor, out: torch.Tensor,
-            M: int, K: int, N: int, E: int, *bf16_args: int) -> None:
-    """``bf16_args``: what the bf16 entry point takes after E."""
-    if not (a.is_contiguous() and b.is_contiguous()
-            and offsets.is_contiguous()):
+            M: int, K: int, N: int, E: int, *bf16_args: int,
+            strided_rhs: bool = False) -> None:
+    """``bf16_args``: what the bf16 entry point takes after E.  With
+    ``strided_rhs`` ``b`` is the (E, K, N) weight, which may be a view with
+    unit column stride (an expert-TP f-slice): its expert and row strides
+    are passed after E."""
+    if strided_rhs:
+        if b.stride(2) != 1:
+            raise ValueError(f"{name}: rhs needs unit column stride, got "
+                             f"strides {b.stride()}")
+        strides = (b.stride(0), b.stride(1))
+    elif b.is_contiguous():
+        strides = ()
+    else:
+        raise ValueError(f"{name}: operands must be contiguous")
+    if not (a.is_contiguous() and offsets.is_contiguous()):
         raise ValueError(f"{name}: operands must be contiguous")
     if not 1 <= E <= MAX_EXPERTS:
         raise ValueError(f"{name}: E={E} outside [1, {MAX_EXPERTS}]")
@@ -147,7 +159,8 @@ def _launch(name: str, fn_bf16: str, fn_f32: str, a: torch.Tensor,
     bf16 = a.dtype == torch.bfloat16
     fn = getattr(lib, fn_bf16 if bf16 else fn_f32)
     rc = fn(build.ptr(a), build.ptr(b), build.ptr(offsets), build.ptr(out),
-            M, K, N, E, *(bf16_args if bf16 else ()), build.stream(a))
+            M, K, N, E, *strides, *(bf16_args if bf16 else ()),
+            build.stream(a))
     build.check(rc, name)
 
 
@@ -158,7 +171,7 @@ def _grouped_matmul(lhs, rhs, offsets):
     (M, K), (E, _, N) = lhs.shape, rhs.shape
     out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
     _launch("grouped_matmul", "grouped_matmul_bf16", "grouped_matmul_f32",
-            lhs, rhs, offsets, out, M, K, N, E)
+            lhs, rhs, offsets, out, M, K, N, E, strided_rhs=True)
     launches += 1
     return out
 
@@ -174,7 +187,8 @@ def grouped_matmul_t(g: torch.Tensor, rhs: torch.Tensor,
     M, (E, K, N) = g.shape[0], rhs.shape
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     _launch("grouped_matmul_t", "grouped_matmul_t_bf16",
-            "grouped_matmul_t_f32", g, rhs, offsets, out, M, K, N, E)
+            "grouped_matmul_t_f32", g, rhs, offsets, out, M, K, N, E,
+            strided_rhs=True)
     dlhs_launches += 1
     return out
 
@@ -238,6 +252,8 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
                    offsets: torch.Tensor) -> torch.Tensor:
     """y (M, N) with y[seg_e] = lhs[seg_e] @ rhs[e]; lhs (M, K), rhs
     (E, K, N) of one dtype (bfloat16 or float32), offsets (E+1,) int32.
+    ``rhs`` may be a view with unit column stride (expert TP's f-slice of
+    a wider weight): the kernels read it in place, forward and dlhs.
     Differentiable in ``lhs`` and ``rhs``."""
     _check("grouped_matmul", lhs, rhs, offsets)
     return _GroupedMatmul.apply(lhs, rhs, offsets)

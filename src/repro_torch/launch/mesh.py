@@ -13,7 +13,9 @@ Groups (every rank creates every group, in the same order, as
 ``torch.distributed.new_group`` requires):
 
 * one ``model`` group per data row — where the AllToAll runs;
-* one ``data`` group per model column — where expert gradients reduce;
+* one ``data`` group per model column — where expert gradients reduce,
+  and where expert TP gathers and reduce-scatters (data index ``di`` =
+  ``rank // M`` is the rank's place in it);
 * for every two-stage factoring ``model = outer × inner`` (``1 < inner <
   M``, inner dividing M), the hierarchical AllToAll's ``inner`` groups of
   consecutive model ranks (one "node") and ``outer`` groups of strided
@@ -134,6 +136,12 @@ class Mesh:
     @property
     def model_index(self) -> int:
         return self.rank % self.shape["model"]
+
+    @property
+    def data_index(self) -> int:
+        """This rank's place in its data group (and the f-slice of its
+        experts that expert TP computes with)."""
+        return self.rank // self.shape["model"]
 
     def hierarchical_groups(self, inner: int) -> Tuple[Any, Any]:
         """``(inner_group, outer_group)`` of this rank for a two-stage

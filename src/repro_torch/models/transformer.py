@@ -48,13 +48,21 @@ scales, the router, the qk-norm scales, RWKV's decay LoRA, bonus and
 group-norm scale, Mamba's ``A_log``, ``D``, ``dt_bias`` and norm) stay
 f32.
 
-Across ranks (``mesh``, a ``launch/mesh.Mesh``): each rank's activations
-are its own batch rows, and a ``moe`` block runs ``moe.sharded_moe_apply``
-over the rank's tokens with the rank's E/M experts (:func:`shard_experts`
-cuts them from a whole tree; :func:`expert_leaf_mask` marks them).
+Across ranks (``mesh``, a ``launch/mesh.Mesh``): in training each rank's
+activations are its own batch rows, and a ``moe`` block runs
+``moe.sharded_moe_apply`` over the rank's tokens with the rank's E/M
+experts (:func:`shard_experts` cuts them from a whole tree;
+:func:`expert_leaf_mask` marks them).  Serving (:class:`Transformer` with
+a mesh) keeps every activation and cache whole on every rank
+(``replicated``): embeddings, attention, norms and the head run on all
+rows everywhere, and each ``moe`` block splits its tokens over the ranks
+(``moe.replicated_moe_apply``).  A decode step's ``moe`` blocks run
+expert tensor parallelism over the data group
+(:func:`decode_expert_tp_axis`), as the reference's decode does.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -80,6 +88,23 @@ BLOCK_KINDS = ATTN_KINDS + ("rwkv", "mamba", "mamba_sa")
 LORA_R = 16   # zamba2's per-occurrence adapter rank of the shared block
 # the expert leaves of a moe block: sharded over the model axis
 EXPERT_LEAVES = ("w_up", "w_gate", "w_out")
+
+
+def use_expert_tp() -> bool:
+    """The expert-TP decode toggle: ``REPRO_EXPERT_TP`` (default ``"1"``);
+    ``"0"`` decodes without it (each rank's experts are whole already, so
+    nothing is gathered instead)."""
+    return os.environ.get("REPRO_EXPERT_TP", "1") == "1"
+
+
+def decode_expert_tp_axis(mesh) -> Optional[str]:
+    """The axis a decode step's ``moe`` blocks shard the expert f dim over:
+    ``"data"`` when :func:`use_expert_tp` and ``mesh`` has more than one
+    rank, else None (one device has no TP).  The one decision point for
+    the decode blocks and the step builders."""
+    if not use_expert_tp() or mesh is None or mesh.world == 1:
+        return None
+    return "data"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -139,13 +164,15 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 
 def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator, *,
-               device=None, dtype=torch.float32) -> Dict[str, Any]:
+               device=None, dtype=torch.float32,
+               experts: Optional[slice] = None) -> Dict[str, Any]:
     """One block of ``kind``, drawn from ``generator`` in a fixed order:
     ln1, then attention, ln2 and the MLP, or the MoE layer and the shared
     experts' MLP; ``rwkv``: ln1, the time mix, ln2, the MLP; ``mamba``:
     ln1, the Mamba-2 block, and for ``mamba_sa`` then ``sa_ln`` and the
     LoRA (``sa_lora_b`` zero, as in the reference).  Each leaf is cast to
-    ``dtype`` right after its draw (the f32 leaves excepted)."""
+    ``dtype`` right after its draw (the f32 leaves excepted); ``experts``
+    keeps that slice of each expert leaf (``moe.init_moe_params``)."""
     d = cfg.d_model
     kw = dict(device=device, dtype=dtype)
     if kind == "rwkv":
@@ -169,7 +196,8 @@ def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator, *,
         m = cfg.moe
         f = m.d_ff_expert or cfg.d_ff
         blk["moe"] = moe_lib.init_moe_params(generator, m, d, f,
-                                             m.num_experts, act=cfg.act, **kw)
+                                             m.num_experts, act=cfg.act,
+                                             experts=experts, **kw)
         if m.num_shared_experts:
             blk["shared_mlp"] = layers.init_mlp(
                 generator, d, f * m.num_shared_experts, cfg.act, **kw)
@@ -179,18 +207,22 @@ def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator, *,
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
-                device=None, dtype=torch.float32) -> Dict[str, Any]:
+                device=None, dtype=torch.float32,
+                experts: Optional[slice] = None) -> Dict[str, Any]:
     """Random parameters in the port's tree layout, drawn in a fixed order
     from ``generator``, layer by layer (:func:`init_block`), then the
     embedding table (none for a frontend config), the head (untied, or a
     frontend's) and zamba2's shared attention block (``mamba_sa``
     configs).  With ``dtype`` each leaf is cast right after its draw (the
     f32 leaves excepted): the same values as the f32 tree cast
-    afterwards, with one f32 leaf alive at a time."""
+    afterwards, with one f32 leaf alive at a time.  ``experts`` keeps
+    that slice of each expert leaf (a rank's share: :func:`rank_experts`),
+    the values those of the whole draw."""
     _check_supported(cfg)
     d = cfg.d_model
     kw = dict(device=device, dtype=dtype)
-    params = {"blocks": [init_block(cfg, kind, generator, **kw)
+    params = {"blocks": [init_block(cfg, kind, generator, experts=experts,
+                                    **kw)
                          for kind in layer_kinds(cfg)],
               "final_norm": torch.zeros((d,), device=device)}
     if cfg.frontend is None:
@@ -219,26 +251,36 @@ def expert_leaf_mask(params: Dict[str, Any]) -> Dict[str, Any]:
     return mask
 
 
+def rank_experts(cfg: ModelConfig, mesh) -> Optional[slice]:
+    """The experts ``[m·E/M, (m+1)·E/M)`` this rank holds (m its model
+    index); None without a mesh (all of them).  Raises when E does not
+    divide over M."""
+    if mesh is None or cfg.moe is None:
+        return None
+    M, m = mesh.shape["model"], mesh.model_index
+    if cfg.moe.num_experts % M:
+        raise ValueError(f"{cfg.moe.num_experts} experts do not divide over "
+                         f"model={M}")
+    n = cfg.moe.num_experts // M
+    return slice(m * n, (m + 1) * n)
+
+
 def shard_experts(params: Dict[str, Any], cfg: ModelConfig,
                   mesh) -> Dict[str, Any]:
     """``params`` with every expert leaf (E, …) cut to this rank's
     ``[m·E/M, (m+1)·E/M)`` slice (a copy; m its model index); the rest
     shared with ``params`` (replicated).  None ``mesh`` returns
     ``params``."""
-    if mesh is None:
+    cut = rank_experts(cfg, mesh)
+    if cut is None:
         return params
-    M, m = mesh.shape["model"], mesh.model_index
-    if cfg.moe is not None and cfg.moe.num_experts % M:
-        raise ValueError(f"{cfg.moe.num_experts} experts do not divide over "
-                         f"model={M}")
     out = dict(params, blocks=[dict(b) for b in params["blocks"]])
     for blk in out["blocks"]:
         if "moe" in blk:
             moe = blk["moe"] = dict(blk["moe"])
             for k in EXPERT_LEAVES:
                 if k in moe:
-                    n = moe[k].shape[0] // M
-                    moe[k] = moe[k][m * n:(m + 1) * n].clone()
+                    moe[k] = moe[k][cut].clone()
     return out
 
 
@@ -319,13 +361,17 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                   kind: str, positions=None, cache=None,
                   decode: bool = False, long_context: bool = False,
                   noise: Optional[torch.Tensor] = None,
-                  shared: Optional[Dict[str, Any]] = None, mesh=None):
+                  shared: Optional[Dict[str, Any]] = None, mesh=None,
+                  replicated: bool = False):
     """One ``kind`` block over its parameter dict ``p`` (see the module
     docstring), pre-norm residuals: attention over the kind's window
     (:func:`block_window`), then the MLP or the MoE layer plus the shared
     experts' MLP (``moe``); ``noise`` is a MoE layer's gate draw;
     ``shared`` the tree's ``shared_attn`` (``mamba_sa``); ``mesh`` runs
-    the MoE layer across its ranks.  Returns (x, cache, aux); a block
+    the MoE layer across its ranks: over the rank's own rows, or with
+    ``replicated`` (serving) over its block of the rows every rank holds
+    (``moe.replicated_moe_apply``); a decode step's runs expert TP
+    (:func:`decode_expert_tp_axis`).  Returns (x, cache, aux); a block
     without a MoE layer has no aux loss (None: the reference adds its
     zero)."""
     if kind == "rwkv":
@@ -342,9 +388,12 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" not in p:
         return x + layers.apply_mlp(p["mlp"], h, cfg.act), cache, None
-    y, aux, _ = moe_lib.sharded_moe_apply(
+    moe_fn = (moe_lib.replicated_moe_apply if replicated
+              else moe_lib.sharded_moe_apply)
+    y, aux, _ = moe_fn(
         mesh, cfg.moe, p["moe"], h, num_experts=cfg.moe.num_experts,
-        act=cfg.act, noise=noise)
+        act=cfg.act, noise=noise,
+        expert_tp_axis=decode_expert_tp_axis(mesh) if decode else None)
     if "shared_mlp" in p:
         y = y + layers.apply_mlp(p["shared_mlp"], h, cfg.act)
     return x + y, cache, aux
@@ -418,7 +467,7 @@ def noisy(cfg: ModelConfig) -> bool:
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             *, caches=None, remat: str = "none",
             noise: Optional[Sequence[torch.Tensor]] = None,
-            long_context: bool = False, mesh=None
+            long_context: bool = False, mesh=None, replicated: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """Full-sequence pass (training, prefill) over a parameter tree — the
     f32 masters, or a :class:`Transformer`'s compute-dtype copy — with
@@ -429,7 +478,9 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     caps the ``global`` layers to ``local_window`` (:func:`block_window`).
     ``mesh`` (a ``launch/mesh.Mesh``) runs the ``moe`` blocks across its
     ranks: ``tokens`` are this rank's batch rows, ``params`` hold its
-    experts, and ``noise`` its rows of each layer's draw.
+    experts, and ``noise`` its rows of each layer's draw; with
+    ``replicated`` (serving) ``tokens`` and ``noise`` are the whole batch's
+    on every rank, and the ``moe`` blocks split the tokens.
 
     ``noise`` holds one gate draw per layer (:func:`draw_gate_noise`);
     a noisy gate without it draws its own from a generator seeded 0 on
@@ -469,10 +520,11 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             x, _, a = block_forward(
                 p, x, cfg, kind=kind, positions=positions, noise=nz,
                 cache=None if caches is None else caches[i],
-                long_context=long_context, shared=shared, mesh=mesh)
+                long_context=long_context, shared=shared, mesh=mesh,
+                replicated=replicated)
         else:
             x, a = checkpoint(_remat_block, p, x, positions, nz, cfg, kind,
-                              long_context, shared, mesh,
+                              long_context, shared, mesh, replicated,
                               use_reentrant=False, preserve_rng_state=False)
         if a is not None:
             aux = aux + a
@@ -481,10 +533,10 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def _remat_block(p, x, positions, noise, cfg, kind, long_context, shared,
-                 mesh):
+                 mesh, replicated):
     x, _, aux = block_forward(p, x, cfg, kind=kind, positions=positions,
                               noise=noise, long_context=long_context,
-                              shared=shared, mesh=mesh)
+                              shared=shared, mesh=mesh, replicated=replicated)
     return x, aux
 
 
@@ -520,7 +572,8 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The transformer on one device, for inference.
+    """The transformer for inference, on one device or across the ranks of
+    a mesh.
 
     ``Transformer(cfg)`` runs on ``cuda`` (raising without a GPU) unless
     ``device="cpu"`` is passed.  ``params`` is an f32 tree from
@@ -530,19 +583,42 @@ class Transformer(nn.Module):
     into the compute dtype, leaf by leaf (:func:`init_params` with
     ``dtype``): the values of the f32 tree cast afterwards, without holding
     that tree.
+
+    With ``mesh`` (a ``launch/mesh.Mesh``; ``device`` defaults to the
+    mesh's) the model is this rank's: its experts are the rank's E/M
+    (drawn whole leaf by leaf and cut, so its values are one process's;
+    a given ``params`` must already be the rank's share, as
+    ``convert.params_from_numpy(..., mesh)`` or :func:`shard_experts`
+    give it), every other leaf whole, and :meth:`forward` /
+    :meth:`decode_step` take the whole batch on every rank (module
+    docstring: ``replicated``).  The step builders' keys hold the model,
+    and with it the mesh.
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None, mesh=None):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
+        experts = rank_experts(cfg, mesh)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, gen, device=self.device,
-                                 dtype=self.dtype)
+                                 dtype=self.dtype, experts=experts)
+        elif experts is not None:
+            n = experts.stop - experts.start
+            held = {blk["moe"]["w_up"].shape[0] for blk in params["blocks"]
+                    if "moe" in blk}
+            if held - {n}:
+                raise ValueError(
+                    f"Transformer(mesh={mesh.describe()}): params hold "
+                    f"{sorted(held)} experts a moe block, the rank's share "
+                    f"is {n} (transformer.shard_experts)")
         self.blocks = nn.ModuleList(
             Block(p, self.dtype, self.device) for p in params["blocks"])
         self.final_norm = _leaf("final_norm", params["final_norm"],
@@ -592,7 +668,8 @@ class Transformer(nn.Module):
         ``caches`` from :meth:`init_caches` are filled in place.  ``cfg``
         overrides the served config (e.g. its dispatch)."""
         return forward(self.tree(), tokens, cfg or self.cfg, caches=caches,
-                       long_context=long_context)
+                       long_context=long_context, mesh=self.mesh,
+                       replicated=True)
 
     def logits_from_hidden(self, h: torch.Tensor) -> torch.Tensor:
         return logits_from_hidden({"embed": self.embed,
@@ -617,7 +694,8 @@ class Transformer(nn.Module):
                                     cache=cache, decode=True,
                                     long_context=long_context,
                                     noise=None if noise is None else noise[i],
-                                    shared=shared)
+                                    shared=shared, mesh=self.mesh,
+                                    replicated=True)
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         return self.logits_from_hidden(x), caches
 

@@ -24,11 +24,24 @@ from the builders below:
 Each builder returns the SAME object for the same cache key ``(kind,
 cfg, model, cache_len, batch, long_context)`` (a decode key adds
 ``graph``, and an instance number past the first: see below): the
-reference's key, with the model in the place of the mesh.  ``ModelConfig`` is a frozen
-dataclass, so the key holds the dispatch mode and every other knob.  The
-model is in the key because a CUDA graph binds addresses: a second model
-of the same config (``traffic.skew_router``'s copy beside the uniform
-one) gets its own step instead of replaying the first model's weights.
+reference's key, with the model in the place of the mesh — the model
+carries its mesh (``Transformer(mesh=)``), so the key holds it too.
+``ModelConfig`` is a frozen dataclass, so the key holds the dispatch mode
+and every other knob.  The model is in the key because a CUDA graph binds
+addresses: a second model of the same config (``traffic.skew_router``'s
+copy beside the uniform one) gets its own step instead of replaying the
+first model's weights.
+
+Across ranks (a model with a mesh) every rank runs the same host loop —
+the same prefills, decode steps, sampling and admission — so their
+collectives match in number and order; the greedy tokens come from
+logits that are bitwise equal on every rank (the activations are
+replicated and the ``moe`` outputs all-gathered), a temperature draw from
+a generator seeded equally on every rank.  The decode step across ranks
+is eager (``graph=False``): a gloo collective on CUDA tensors stages
+through the host and synchronises, which ``torch.cuda.graph`` cannot
+capture, and a step's expert-TP and AllToAll collectives are issued on
+the host each step.
 
 On ``cuda`` a decode entry owns one captured ``torch.cuda.CUDAGraph``
 and everything it reads or writes, at fixed addresses: the model, one
@@ -53,10 +66,12 @@ claims its step for as long as it serves (``build_decode(owner=)``), and
 a second live user of one key gets its own instance of the key, with its
 own caches and graph: two users never share caches.
 
-* ``serve_config(cfg, dispatch=)`` derives the serving config: the MoE
-  dispatch override is validated against ``DISPATCH_MODES``.
-* ``validate_decode_config(cfg, batch, cache_len=)`` raises at step-build
-  time for a configuration that cannot run.
+* ``serve_config(cfg, dispatch=, payload_dtype=)`` derives the serving
+  config: the MoE dispatch override is validated against
+  ``DISPATCH_MODES``, the wire dtype by ``MoEConfig``.
+* ``validate_decode_config(cfg, batch, cache_len=, mesh=)`` raises at
+  step-build time for a configuration that cannot run, at the decode
+  step's tokens a rank (:func:`_tokens_per_shard`).
 
 Fault seam (``core/faults.py``): a decode step applies the host-side
 ``serve.decode_row`` site to its logits (indexed by the caller's
@@ -129,27 +144,50 @@ def validate_dispatch(dispatch: str) -> str:
     return dispatch
 
 
-def serve_config(cfg: ModelConfig, *,
-                 dispatch: Optional[str] = None) -> ModelConfig:
-    """The config actually served: ``dispatch`` (when given) overrides the
-    MoE dispatch mode — validated, never silently dropped."""
-    if dispatch is None:
+def serve_config(cfg: ModelConfig, *, dispatch: Optional[str] = None,
+                 payload_dtype: Optional[str] = None) -> ModelConfig:
+    """The config actually served: ``dispatch`` / ``payload_dtype`` (when
+    given) override the MoE dispatch mode and the grouped exchange's wire
+    dtype — validated (``MoEConfig`` checks the wire dtype), never
+    silently dropped."""
+    if dispatch is None and payload_dtype is None:
         return cfg
-    validate_dispatch(dispatch)
+    if dispatch is not None:
+        validate_dispatch(dispatch)
     if cfg.moe is None:
+        knob = "dispatch" if dispatch is not None else "payload_dtype"
         raise ValueError(
-            f"dispatch={dispatch!r} requested but {cfg.name} has no MoE "
-            f"layer (cfg.moe is None) — MoE serving overrides only apply "
-            f"to MoE architectures")
-    if cfg.moe.dispatch == dispatch:
+            f"{knob}={dispatch or payload_dtype!r} requested but {cfg.name} "
+            f"has no MoE layer (cfg.moe is None) — MoE serving overrides "
+            f"only apply to MoE architectures")
+    kw = {}
+    if dispatch is not None and cfg.moe.dispatch != dispatch:
+        kw["dispatch"] = dispatch
+    if payload_dtype is not None and cfg.moe.payload_dtype != payload_dtype:
+        kw["payload_dtype"] = payload_dtype
+    if not kw:
         return cfg
-    return cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, **kw))
+
+
+def _tokens_per_shard(mesh, batch: int) -> int:
+    """A decode step's tokens a rank: ``batch`` single tokens padded to
+    the world (``moe.rank_tokens``) and split over it."""
+    world = 1 if mesh is None else mesh.world
+    return -(-batch // world)
+
+
+def _model_size(mesh) -> int:
+    return 1 if mesh is None else mesh.shape["model"]
 
 
 def validate_decode_config(cfg: ModelConfig, batch: int, *,
-                           cache_len: Optional[int] = None) -> None:
+                           cache_len: Optional[int] = None,
+                           mesh=None) -> None:
     """Raise ``ValueError`` for a decode configuration that cannot run,
-    before any step does."""
+    before any step does: the dispatch, a2a and overlap combination and
+    the overlap windows' bound at the decode step's tokens a rank
+    (``mesh``: the model's)."""
     if not cfg.has_decode:
         raise ValueError(f"{cfg.name} is encoder-only — no decode step")
     if batch < 1:
@@ -159,7 +197,10 @@ def validate_decode_config(cfg: ModelConfig, batch: int, *,
             f"cache_len must be >= 2 (one prompt token + one generated), "
             f"got {cache_len}")
     if cfg.moe is not None:
-        moe_lib.validate_dispatch_config(cfg.moe, tokens_per_shard=batch)
+        moe_lib.validate_dispatch_config(
+            cfg.moe, model_size=_model_size(mesh),
+            tokens_per_shard=_tokens_per_shard(mesh, batch),
+            d_model=cfg.d_model, dtype=getattr(torch, cfg.dtype))
 
 
 def refuse_frontend(cfg: ModelConfig) -> None:
@@ -175,13 +216,16 @@ def refuse_frontend(cfg: ModelConfig) -> None:
             f"(models/frontend.synthetic_embeddings)")
 
 
-def resolve_decode_config(cfg: ModelConfig, batch: int) -> ModelConfig:
+def resolve_decode_config(cfg: ModelConfig, batch: int,
+                          mesh=None) -> ModelConfig:
     """The decode-step config: ``"auto"`` MoE knobs resolved at the decode
-    batch's token count (one token per row)."""
+    step's tokens a rank (one token per row; ``mesh``: the model's)."""
     if cfg.moe is None or not tuning.has_auto_knobs(cfg.moe):
         return cfg
     return cfg.replace(moe=tuning.resolve_moe_config(
-        cfg.moe, model_size=1, tokens_per_shard=batch))
+        cfg.moe, model_size=_model_size(mesh),
+        tokens_per_shard=_tokens_per_shard(mesh, batch),
+        d_model=cfg.d_model, dtype=getattr(torch, cfg.dtype)))
 
 
 def _sync(device: torch.device) -> None:
@@ -338,19 +382,40 @@ class DecodeStep:
         return logits
 
 
+def decode_graph(model, graph: Optional[bool] = None) -> bool:
+    """Whether a decode step of ``model`` is captured: ``graph`` as given,
+    by default True on one device (eager on the CPU all the same) and
+    False across ranks.  ``graph=True`` with a mesh raises: a gloo
+    collective on CUDA tensors stages through the host and synchronises,
+    which a CUDA graph cannot capture."""
+    mesh = model.mesh
+    if graph is None:
+        return mesh is None
+    if graph and mesh is not None:
+        raise ValueError(
+            f"graph=True with mesh {mesh.describe()}: a decode step across "
+            f"ranks issues its collectives from the host each step (gloo "
+            f"stages CUDA tensors through the host and synchronises), which "
+            f"CUDA graph capture cannot hold; serve it eagerly (graph=False "
+            f"or the default)")
+    return graph
+
+
 def build_decode(model, cfg: Optional[ModelConfig] = None, *, batch: int,
                  cache_len: int, long_context: bool = False,
-                 graph: bool = True, owner=None) -> DecodeStep:
+                 graph: Optional[bool] = None, owner=None) -> DecodeStep:
     """The cached :class:`DecodeStep` of ``batch`` rows over caches of
     ``cache_len``: a captured CUDA graph on ``cuda`` (``graph=False``:
-    the same step run eagerly, for comparison), eager on the CPU.
-    ``"auto"`` MoE knobs resolve here (:func:`resolve_decode_config`), so
-    the resolved config is the key.  With ``owner`` (a ``SlotServer``, a
-    ``generate`` call) the step is claimed for it: the key's step when no
-    other live owner holds it, else the first free further instance of
-    the key (its own caches and graph, built at first use), so that two
-    live users never share caches."""
-    cfg = resolve_decode_config(cfg or model.cfg, batch)
+    the same step run eagerly, for comparison), eager on the CPU and
+    across ranks (:func:`decode_graph`).  ``"auto"`` MoE knobs resolve
+    here (:func:`resolve_decode_config`), so the resolved config is the
+    key.  With ``owner`` (a ``SlotServer``, a ``generate`` call) the step
+    is claimed for it: the key's step when no other live owner holds it,
+    else the first free further instance of the key (its own caches and
+    graph, built at first use), so that two live users never share
+    caches."""
+    graph = decode_graph(model, graph)
+    cfg = resolve_decode_config(cfg or model.cfg, batch, model.mesh)
     base = ("decode", cfg, model, cache_len, batch, long_context, graph)
     for i in itertools.count():
         key = base + ((i,) if i else ())
@@ -433,11 +498,15 @@ def generate(model, prompt: torch.Tensor, *, steps: int,
              cache_len: Optional[int] = None, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
              dispatch: Optional[str] = None, long_context: bool = False,
-             stats: Optional[dict] = None) -> torch.Tensor:
+             stats: Optional[dict] = None,
+             payload_dtype: Optional[str] = None) -> torch.Tensor:
     """Greedy/temperature generation.  prompt (B, S) → (B, S+steps).
 
-    ``model`` is a ``models.transformer.Transformer``; ``dispatch``
-    overrides the MoE dispatch mode; ``long_context`` serves the
+    ``model`` is a ``models.transformer.Transformer`` (with a mesh: every
+    rank calls this with the same prompt and an equally seeded
+    ``generator``, and gets the same tokens); ``dispatch`` overrides the
+    MoE dispatch mode and ``payload_dtype`` the grouped exchange's wire
+    dtype (:func:`serve_config`); ``long_context`` serves the
     long-context variant (``global`` layers capped to ``local_window``).
     Steps come from the step cache (``build_prefill``, ``build_decode``):
     a repeated call with the same shapes builds and captures nothing.  As
@@ -448,10 +517,11 @@ def generate(model, prompt: torch.Tensor, *, steps: int,
     with ``logits_finite``: whether every logits row sampled from was
     finite.
     """
-    cfg = serve_config(model.cfg, dispatch=dispatch)
+    cfg = serve_config(model.cfg, dispatch=dispatch,
+                       payload_dtype=payload_dtype)
     B, S = prompt.shape[:2]
     cache_len = cache_len or (S + steps)
-    validate_decode_config(cfg, B, cache_len=cache_len)
+    validate_decode_config(cfg, B, cache_len=cache_len, mesh=model.mesh)
     refuse_frontend(cfg)
     prefill = build_prefill(model, cfg, cache_len=cache_len, batch=B,
                             long_context=long_context)

@@ -98,14 +98,21 @@ class SlotServer:
     """Fixed-slot continuous batching over one cached decode step.
 
     ``model`` is a ``models.transformer.Transformer``; ``graph=False``
-    serves through the same step run eagerly (for comparison)."""
+    serves through the same step run eagerly (for comparison; the default
+    across ranks, ``engine.decode_graph``).  A model with a mesh (the
+    reference's ``mesh=``) is served by one server per rank, every rank
+    given the same requests in the same order: admission, prefills, the
+    fault seams and every decode step run alike on all of them, so their
+    collectives match, and each reads the same tokens from logits that
+    are bitwise equal on every rank."""
 
     @torch.inference_mode()
     def __init__(self, model, *, slots: int, cache_len: int,
                  eos_id: Optional[int] = None,
                  queue_limit: Optional[int] = None,
                  default_deadline_steps: Optional[int] = None,
-                 dispatch: Optional[str] = None, graph: bool = True):
+                 dispatch: Optional[str] = None,
+                 graph: Optional[bool] = None):
         cfg = model.cfg
         if not cfg.has_decode or cfg.frontend is not None:
             raise ValueError(
@@ -118,7 +125,8 @@ class SlotServer:
                 f"got {queue_limit}")
         cfg = engine.serve_config(cfg, dispatch=dispatch)
         # fail HERE, at server construction, not at the first decode step
-        engine.validate_decode_config(cfg, slots, cache_len=cache_len)
+        engine.validate_decode_config(cfg, slots, cache_len=cache_len,
+                                      mesh=model.mesh)
         self.cfg, self.model = cfg, model
         self.slots = slots
         self.cache_len = cache_len

@@ -153,7 +153,7 @@ def skew_router(params, bias: float = 16.0, expert: int = 0):
         return walk(params)
     model = params
     return Transformer(model.cfg, device=model.device,
-                       params=walk(model.tree()))
+                       params=walk(model.tree()), mesh=model.mesh)
 
 
 def replay(server: SlotServer, workload: List[Tuple[int, Request]],

@@ -294,14 +294,25 @@ def test_resolution_at_model_sizes_matches_reference(M, dispatch, T_shard):
 
 
 def test_expert_tp_and_context_parallel_flash_raise_naming_roadmap():
-    """Not ported: expert TP (``expert_tp_axis``) and the reference's
-    context-parallel flash (attention given a mesh with a model axis)."""
+    """Expert TP is ported: on one device (no mesh: a data axis of size 1)
+    ``expert_tp_axis="data"`` is the identity, bitwise the layer without
+    it, and an axis outside the mesh's raises ValueError (the layer under
+    TP across ranks: test_torch_expert_tp.py).  Still not ported: the
+    reference's context-parallel flash (attention given a mesh with a
+    model axis) raises naming ROADMAP.md."""
     import types
     from repro_torch.models import attention
     cfg = tconfig.MoEConfig(**BASE)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        moe.sharded_moe_apply(None, cfg, {}, torch.zeros(2, D),
-                              num_experts=E, expert_tp_axis="data")
+    inputs = _inputs()
+    p = {k: torch.from_numpy(v) for k, v in inputs["params"].items()}
+    x = torch.from_numpy(inputs["x"])
+    y, aux, _ = moe.sharded_moe_apply(None, cfg, p, x, num_experts=E,
+                                      expert_tp_axis="data")
+    y0, aux0, _ = moe.sharded_moe_apply(None, cfg, p, x, num_experts=E)
+    assert torch.equal(y, y0) and torch.equal(aux, aux0)
+    with pytest.raises(ValueError, match="valid axis names"):
+        moe.sharded_moe_apply(None, cfg, p, x, num_experts=E,
+                              expert_tp_axis="pod")
     acfg = tconfig.AttentionConfig(num_heads=2, num_kv_heads=2)
     p = attention.init_attention(torch.Generator().manual_seed(0), acfg, D)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -177,9 +177,11 @@ def test_serve_cli_repeat_serves_the_same_tokens(capsys):
                        device="cpu"))
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "2x2"], ["--dispatch", "nope"],
+@pytest.mark.parametrize("argv", [["--mesh", "0x2"], ["--dispatch", "nope"],
                                   ["--repeat", "0"]])
 def test_serve_cli_rejects_unported_flags(argv):
+    """Bad flags exit through argparse (a mesh across ranks serves since
+    slice 16: tests/test_torch_serve_ranks.py)."""
     with pytest.raises(SystemExit):
         serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", *argv])
 

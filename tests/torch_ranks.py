@@ -1,8 +1,8 @@
 """Rank bodies for the expert-parallel tests (``test_torch_alltoall.py``,
-``test_torch_ep.py``, ``test_torch_ep_train.py``): each runs in a process
-that ``repro_torch.launch.mesh.spawn`` starts, over gloo on the CPU, and
-returns numpy arrays.  Imports no JAX: the spawned ranks load only the
-port."""
+``test_torch_ep.py``, ``test_torch_ep_train.py``, ``test_torch_expert_tp.py``,
+``test_torch_serve_ranks.py``): each runs in a process that
+``repro_torch.launch.mesh.spawn`` starts, over gloo on the CPU, and returns
+numpy arrays.  Imports no JAX: the spawned ranks load only the port."""
 from __future__ import annotations
 
 import dataclasses
@@ -66,10 +66,11 @@ def exchange_rank(rank, shape, x, g, inners, counts, qdts):
     return out
 
 
-def layer_rank(rank, shape, inputs, cases, fabric):
+def layer_rank(rank, shape, inputs, cases, fabric, tp=None):
     """``sharded_moe_apply`` on this rank's tokens for every case
-    ``(name, MoEConfig fields, act)``: y, aux, metrics, the exchanges of
-    the forward and this rank's gradients of ``sum(y·gy) + aux``."""
+    ``(name, MoEConfig fields, act)``: y, aux, metrics, the exchanges (and
+    expert-TP collectives) of the forward and this rank's gradients of
+    ``sum(y·gy) + aux``; ``tp`` is the ``expert_tp_axis``."""
     tuning.set_tuning(fabric=fabric)
     mesh = make_mesh(shape, device="cpu")
     M, m = shape[1], mesh.model_index
@@ -87,10 +88,11 @@ def layer_rank(rank, shape, inputs, cases, fabric):
             True) for k, v in inputs["params"].items()
             if act in ("swiglu", "geglu") or k != "w_gate"}
         xr = xl.clone().requires_grad_(True)
-        alltoall.exchanges = 0
+        alltoall.exchanges = alltoall.tp_collectives = 0
         y, aux, met = moe.sharded_moe_apply(mesh, cfg, p, xr, num_experts=E,
-                                            act=act, valid=valid)
-        ex = alltoall.exchanges
+                                            act=act, valid=valid,
+                                            expert_tp_axis=tp)
+        ex, tpc = alltoall.exchanges, alltoall.tp_collectives
         loss = (y * gyl).sum() + aux
         keys = sorted(p)
         grads = torch.autograd.grad(loss, [xr] + [p[k] for k in keys])
@@ -99,7 +101,7 @@ def layer_rank(rank, shape, inputs, cases, fabric):
             d_model=xl.shape[1], dtype=xl.dtype)
         out[name] = {"y": _np(y), "aux": float(aux),
                      "metrics": {k: float(v) for k, v in met.items()},
-                     "exchanges": ex,
+                     "exchanges": ex, "tp_collectives": tpc,
                      "expected": moe.expected_grouped_a2a_eqns(resolved, M),
                      "stages": moe.grouped_a2a_stages(resolved, M),
                      "dx": _np(grads[0]),
@@ -187,3 +189,88 @@ def skip_rank(rank, shape, arch, init_params):
     except NotImplementedError as e:
         ckpt = str(e)
     return {"skipped": skipped, "unchanged": unchanged, "ckpt": ckpt}
+
+
+def _serve_model(shape, cfg, tree, dispatch):
+    """This rank's ``Transformer`` of the reference's parameter tree at
+    mesh ``shape`` (its experts cut by ``convert.params_from_numpy``)."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving.engine import serve_config
+    mesh = make_smoke_mesh(shape, device="cpu")
+    cfg = serve_config(cfg, dispatch=dispatch)
+    return Transformer(cfg, device="cpu", mesh=mesh,
+                       params=params_from_numpy(tree, cfg, mesh))
+
+
+def greedy_logits(model, prompt, steps):
+    """Greedy generation through the step builders, recording the logits
+    each token is read from: ``(tokens (B, S + steps), logits (steps, B,
+    V))``, the tokens those of ``engine.generate``."""
+    from repro_torch.serving import engine
+    B, S = prompt.shape
+    out, logits = [prompt], []
+    with torch.inference_mode():
+        prefill = engine.build_prefill(model, cache_len=S + steps, batch=B)
+        with engine.holding_decode(model, batch=B,
+                                   cache_len=S + steps) as step:
+            step.reset()
+            last, _ = prefill(prompt, step.caches)
+            for i in range(steps):
+                logits.append(last[:, -1].float().clone())
+                tok = last[:, -1].argmax(-1, keepdim=True)
+                out.append(tok)
+                if i + 1 < steps:
+                    last = step(tok, step_index=i)
+    return torch.cat(out, 1).numpy(), torch.stack(logits).numpy()
+
+
+def serve_rank(rank, shape, cfg, tree, prompts, steps, dispatches, slot_run,
+               cli_argv):
+    """Serving at mesh ``shape`` on this rank: per dispatch mode and prompt
+    batch, ``generate``'s tokens, the same greedy run's logits
+    (:func:`greedy_logits`) and ``generate``'s tokens again under
+    ``REPRO_EXPERT_TP=0``; ``SlotServer`` over ``slot_run`` (its keyword
+    arguments and request specs ``(uid, prompt, max_new)``) with the first
+    dispatch mode; then ``launch.serve.main(cli_argv)``'s printout."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import Request, SlotServer, engine, generate
+    torch.manual_seed(0)
+    out = {}
+    for dispatch in dispatches:
+        model = _serve_model(shape, cfg, tree, dispatch)
+        for name, p in prompts.items():
+            prompt = torch.from_numpy(p).long()
+            toks = generate(model, prompt, steps=steps).numpy()
+            ref_toks, logits = greedy_logits(model, prompt, steps)
+            os.environ["REPRO_EXPERT_TP"] = "0"
+            try:
+                no_tp = generate(model, prompt, steps=steps).numpy()
+            finally:
+                del os.environ["REPRO_EXPERT_TP"]
+            out[dispatch, name] = dict(tokens=toks, loop_tokens=ref_toks,
+                                       logits=logits, no_tp=no_tp)
+        if dispatch == dispatches[0]:
+            kw, specs = slot_run
+            srv = SlotServer(model, **kw)
+            done = srv.run([Request(uid=u, prompt=torch.from_numpy(
+                p.astype(np.int64)), max_new=m) for u, p, m in specs])
+            out["slot"] = [(r.uid, r.status, r.error, [int(t) for t in r.out],
+                            r.steps_used) for r in done]
+            out["slot_graph"] = srv._step.graph is not None
+            try:
+                engine.build_decode(model, batch=2, cache_len=8, graph=True)
+                out["graph_refusal"] = None
+            except ValueError as e:
+                out["graph_refusal"] = str(e)
+        engine.clear_step_cache(model)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        serve.main(cli_argv)
+    out["cli"] = text.getvalue()
+    return out
