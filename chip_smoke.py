@@ -262,12 +262,27 @@ Phases, in order; any failure ends the script with a non-zero exit:
    step's logits within 2^-4 of its largest |logit| and the greedy token
    equal wherever one process's top-2 margin clears that; the per-rank
    peak, the prefill and the eager decode ms a step (host-staged); rank
-   0's launches of kernels 1, 2, 3, 6 and 7.
+   0's launches of kernels 1, 2, 3, 6 and 7.  18b also runs the paper's
+   own ReLU experts (``grouped-relu``) at 1x4, the card replaying the CPU
+   ranks' ReLU masks (``forced_relu_ffn``), at 1e-4.  18f: the paper
+   model whole trained at 2x2 under FSDP (ZeRO-3, the state stored by the
+   reference's ``param_shardings``) through ``launch.train.run(fsdp=
+   True)``, grouped, batch 8 x 1024: 3 steps (the first loss within 1e-3
+   of one process's, rank 0's launches of kernels 1-9, the all-gathers a
+   step); the same 3 steps cut at the top of step 2 after a save there,
+   then ``run(resume=True)`` from it: step 3 and the save at the run's
+   end (every block and metric bitwise the uninterrupted run's); in the
+   parent that last checkpoint restored on one process and cut into every
+   rank's blocks (bitwise the ranks' blocks, by digest); each rank's peak
+   below a 1-step ``fsdp=False`` run's at
+   2x2; the checkpoint's bytes, save / restore seconds and step walls
+   printed as host-staged.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all ten kernels; the row-per-step gather, on no
 serving or training path, with the launches of its phase-5 run;
-``launches_ep_serve``: rank 0's in 18e), and
+``launches_ep_serve``: rank 0's in 18e; ``launches_fsdp``: rank 0's in
+18f), and
 ``{"ok": true, "device": {...}}``.  ``--phases kernels`` runs phases 1, 2
 and 5 only, for work on a kernel, ``--phases trainer`` phases 1, 9-11
 and 14, ``--phases presets`` phases 1, 12 and 13, ``--phases
@@ -2501,12 +2516,167 @@ def frontend_timings(torch, dev, smi, shapes=None):
 # phase 6: where the time goes
 # ---------------------------------------------------------------------------
 
+class EventAvg:
+    """One key of :func:`read_profile`: the fields of
+    ``FunctionEventAvg`` that this script reads (times in us; a host
+    event's self device time, the kernels it launched, is not read:
+    None)."""
+    __slots__ = ("key", "device_type", "count", "self_cpu_time_total",
+                 "self_device_time_total")
+
+    def __init__(self, key, device_type):
+        self.key, self.device_type = key, device_type
+        self.count = 0
+        self.self_cpu_time_total = self.self_device_time_total = 0.0
+
+
+# the names torch.autograd.profiler leaves out of its event list
+PROFILER_SKIPPED = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
+def read_profile(prof) -> list:
+    """``prof.key_averages()``'s count, self CPU time and (for a device
+    event) self device time per (name, device type), read from the
+    profiler's raw events: the
+    same rules as ``torch.autograd.profiler`` (the names it skips; an
+    async event has no time; a runtime call nests on the thread of the op
+    that issued it; a CPU event's children are the events of its thread
+    inside its interval, and one whose only child has its name gives it
+    up), without a Python object per event, whose making takes ~70 us an
+    event: an eager decode step of a 42-layer model is ~40,000 events."""
+    from torch.autograd import DeviceType
+    CPU = int(DeviceType.CPU)
+    types = {}               # the device types by value (cheap to hash)
+    rows = []                # [name, device type, start, end, thread, async]
+    thread_of = {}           # an op's correlation id -> its thread
+    linked = []              # (row, linked correlation id) of runtime calls
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        hidden = getattr(e, "is_hidden_event", None)
+        if name in PROFILER_SKIPPED or (hidden is not None and hidden()):
+            continue
+        code = int(e.device_type())
+        dt = types.setdefault(code, e.device_type()) and code
+        row = [name, dt, e.start_ns(), e.end_ns(), e.start_thread_id(),
+               e.is_async() or e.start_thread_id() != e.end_thread_id()]
+        corr = e.linked_correlation_id()
+        if corr == 0:
+            if dt == CPU and not row[5]:
+                thread_of[e.correlation_id()] = row[4]
+        elif dt == CPU:
+            linked.append((row, corr))
+        rows.append(row)
+    for row, corr in linked:
+        if corr in thread_of:
+            row[4] = thread_of[corr]
+    # the CPU nesting, per thread (a stack over intervals by start)
+    n = len(rows)
+    parent = [-1] * n
+    children = [[] for _ in range(n)]
+    order = sorted((i for i in range(n) if rows[i][1] == CPU
+                    and not rows[i][5]),
+                   key=lambda i: (rows[i][4], rows[i][2], -rows[i][3]))
+    stack, thread = [], None
+    for i in order:
+        if rows[i][4] != thread:
+            stack, thread = [], rows[i][4]
+        while stack and (rows[i][2] >= rows[stack[-1]][3]
+                         or rows[i][3] > rows[stack[-1]][3]):
+            stack.pop()
+        if stack:
+            parent[i] = stack[-1]
+            children[stack[-1]].append(i)
+        stack.append(i)
+    gone = set()
+    while True:                     # a child named as its only parent
+        drop = [i for i in range(n) if i not in gone and parent[i] >= 0
+                and rows[parent[i]][0] == rows[i][0]
+                and len(children[parent[i]]) == 1]
+        if not drop:
+            break
+        for i in drop:
+            p = parent[i]
+            children[p] = children[i]
+            for c in children[i]:
+                parent[c] = p
+            gone.add(i)
+    avgs = {}
+    for i, (name, dt, t0, t1, _, is_async) in enumerate(rows):
+        if i in gone:
+            continue
+        if name.startswith("ProfilerStep#"):
+            name = "ProfilerStep*"
+        a = avgs.get((name, dt))
+        if a is None:
+            a = avgs[(name, dt)] = EventAvg(name, types[dt])
+        a.count += 1
+        if dt == CPU:
+            a.self_device_time_total = None
+        if is_async:
+            continue
+        us = (t1 - t0) / 1e3
+        if dt == CPU:
+            a.self_cpu_time_total += us - sum(
+                (rows[c][3] - rows[c][2]) / 1e3 for c in children[i])
+        else:
+            a.self_device_time_total += us
+    return list(avgs.values())
+
+
+def check_profile_reader(prof, label: str) -> None:
+    """:func:`read_profile` against ``prof.key_averages()`` on one
+    profile: every (name, device type)'s count, its self CPU time and a
+    device event's self device time, each within 0.01 us."""
+    want = {}
+    for e in prof.key_averages():
+        a = want.setdefault((e.key, e.device_type),
+                            EventAvg(e.key, e.device_type))
+        a.count += e.count
+        a.self_cpu_time_total += e.self_cpu_time_total
+        a.self_device_time_total += e.self_device_time_total
+    got = {(a.key, a.device_type): a for a in read_profile(prof)}
+    bad = [(k, (w.count, w.self_cpu_time_total, w.self_device_time_total),
+            None if k not in got else (got[k].count,
+                                       got[k].self_cpu_time_total,
+                                       got[k].self_device_time_total))
+           for k, w in want.items()
+           if k not in got or got[k].count != w.count
+           or abs(got[k].self_cpu_time_total - w.self_cpu_time_total) > 1e-2
+           or (got[k].self_device_time_total is not None
+               and abs(got[k].self_device_time_total
+                       - w.self_device_time_total) > 1e-2)]
+    bad += [(k, None, "extra") for k in set(got) - set(want)]
+    bad.sort(key=lambda b: int(b[0][1]) == 0)    # device events first
+    print(f"  the profile reader against key_averages on {label}: "
+          f"{len(want)} keys, {sum(w.count for w in want.values())} "
+          f"events, {len(bad)} differ {bad[:4]}")
+    check(not bad, f"the profile reader disagrees with key_averages on "
+                   f"{label}: {bad[:8]}")
+
+
+PROFILE_READER_CHECKED = []
+PROFILE_READ_S = [0.0]      # seconds spent reading profiles, for stamp()
+
+
 def _averages(prof):
-    """``prof.key_averages()``, aggregated once per profile (each call
-    walks every event anew)."""
+    """:func:`read_profile` of ``prof``, read once per profile; the first
+    profile of the run is also read by ``key_averages`` and the two held
+    equal (:func:`check_profile_reader`)."""
     avgs = getattr(prof, "chip_smoke_averages", None)
     if avgs is None:
-        avgs = prof.chip_smoke_averages = prof.key_averages()
+        if not PROFILE_READER_CHECKED:
+            check_profile_reader(prof, "the run's first profile")
+            PROFILE_READER_CHECKED.append(True)
+        t0 = time.perf_counter()
+        gc.disable()        # a million small lists: no collection midway
+        try:
+            avgs = prof.chip_smoke_averages = read_profile(prof)
+        finally:
+            gc.enable()
+        PROFILE_READ_S[0] += time.perf_counter() - t0
     return avgs
 
 
@@ -3537,6 +3707,31 @@ def attention_layers(cfg) -> int:
     return sum(k not in ("rwkv", "mamba") for k in layer_kinds(cfg))
 
 
+STAGING = []          # one pinned host buffer, made on first use
+
+
+def host_copy(torch, t, chunk: int = 1 << 28):
+    """``t.cpu()`` for a tensor on the card, through one pinned buffer of
+    ``chunk`` bytes: a copy to pageable memory crawls at ~1.8 GB/s (the
+    65 GB of a llama4 block in f32 took 37 s), the pinned copy runs at the
+    link's rate and the host copy after it on every core."""
+    if STAGING and STAGING[0].numel() != chunk:
+        STAGING.clear()
+    if not STAGING:
+        STAGING.append(torch.empty(chunk, dtype=torch.uint8,
+                                   pin_memory=True))
+    buf = STAGING[0]
+    t = t.detach().contiguous()
+    out = torch.empty(t.shape, dtype=t.dtype)
+    src = t.reshape(-1).view(torch.uint8)
+    dst = out.reshape(-1).view(torch.uint8)
+    for i in range(0, src.numel(), chunk):
+        n = min(chunk, src.numel() - i)
+        buf[:n].copy_(src[i:i + n])
+        dst[i:i + n].copy_(buf[:n])
+    return out
+
+
 def mem_available_gib() -> float:
     with open("/proc/meminfo") as f:
         for line in f:
@@ -3644,8 +3839,10 @@ def phase_presets(torch, smi):
                                    tokens_per_s=tok_s, peak_gib=peak,
                                    launches=counts)
                 engine.clear_step_cache(model)    # free the cell's caches
+        stamp(f"{arch}'s cells")
         profile = profile_serving(torch, smi, model, cfg, modes[0], 1024,
                                   B, name=f"{arch} ")
+        stamp(f"{arch}'s profile")
         graph = decode_graph_vs_eager(
             torch, smi, model, engine.serve_config(cfg, dispatch=modes[0]),
             B, 1024, f"{arch} {modes[0] or 'dense'} prompt 1024")
@@ -3746,7 +3943,7 @@ def phase_presets_card_vs_cpu(torch, smi):
         cfg = configs.get_config(arch).replace(dtype="float32")
         t0 = time.perf_counter()
         p_card = block_params(cfg, "moe")
-        p_cpu = tree.map_(lambda t: t.cpu(), p_card)
+        p_cpu = tree.map_(lambda t: host_copy(torch, t), p_card)
         n = sum(t.numel() for t in tree.leaves(p_cpu))
         x = torch.randn((1, S, cfg.d_model), generator=gd, device="cuda")
         print(f"  {short} moe block: {n / 1e9:.3f}B f32 weights on both "
@@ -3789,7 +3986,7 @@ def phase_presets_card_vs_cpu(torch, smi):
     cfg = configs.get_config("llama4-maverick-400b-a17b").replace(
         dtype="float32")
     p_card = block_params(cfg, "dense")
-    p_cpu = tree.map_(lambda t: t.cpu(), p_card)
+    p_cpu = tree.map_(lambda t: host_copy(torch, t), p_card)
     x = torch.randn((1, S, cfg.d_model), generator=gd, device="cuda")
     out["llama4 dense block"] = dict(rel=compare(
         "llama4 dense block (qk-norm, GQA 40:8, SwiGLU d_ff 8192)",
@@ -3797,13 +3994,14 @@ def phase_presets_card_vs_cpu(torch, smi):
         run_block(p_card, x, cfg, "dense")))
     f = cfg.moe.d_ff_expert * cfg.moe.num_shared_experts
     shared = layers.init_mlp(gd, cfg.d_model, f, cfg.act, device="cuda")
-    shared_cpu = tree.map_(lambda t: t.cpu(), shared)
+    shared_cpu = tree.map_(lambda t: host_copy(torch, t), shared)
     with torch.inference_mode():
         ys = [layers.apply_mlp(sp, xx, cfg.act).cpu()
               for sp, xx in ((shared_cpu, x.cpu()), (shared, x))]
     out["llama4 shared expert"] = dict(rel=compare(
         f"llama4 moe block's shared expert (SwiGLU, {f} wide)", *ys))
     del p_card, p_cpu, shared, shared_cpu
+    STAGING.clear()
     release(torch)
     return out
 
@@ -3924,10 +4122,13 @@ def phase_windowed(torch, smi):
                                peak_gib=peak, launches=counts,
                                cache_lengths=lens)
             engine.clear_step_cache(model)        # free the cell's caches
+        stamp(f"{arch}'s cells")
         profile = profile_serving(torch, smi, model, cfg, None, WINDOWED_S,
                                   B, name=f"{arch} ")
+        stamp(f"{arch}'s profile")
         graph = decode_graph_vs_eager(torch, smi, model, cfg, B, WINDOWED_S,
                                       f"{arch} prompt {WINDOWED_S}")
+        stamp(f"{arch}'s graph against eager")
         out[arch] = dict(layers=cfg.num_layers, params=n_params,
                          weights_gib=weights, init_s=init_s,
                          init_peak_gib=init_peak, cells=cells,
@@ -5267,6 +5468,10 @@ EP_LAYER_MESHES = ((1, 4), (2, 2))
 EP_LAYER_CASES = (("sort", dict(dispatch="sort")),
                   ("dense", dict(dispatch="dense")),
                   ("grouped", dict(dispatch="grouped")))
+# the paper's own ReLU experts, grouped, at 1x4 only: the card's run
+# replays the CPU ranks' ReLU masks (forced_relu_ffn, as phase 8 does:
+# relu's derivative flips at pre-activations within rounding of 0)
+EP_RELU_CASE = ("grouped-relu", dict(dispatch="grouped"))
 # the kernels each dispatch launches in a layer's forward and backward
 # (dense: the one-hot products are plain matrix products)
 EP_LAYER_KERNELS = {
@@ -5274,6 +5479,7 @@ EP_LAYER_KERNELS = {
     "dense": ("topk_gate",),
     "grouped": ("topk_gate", "gather_rows", "grouped_matmul",
                 "grouped_matmul_t", "grouped_drhs", "scatter_add_rows")}
+EP_LAYER_KERNELS["grouped-relu"] = EP_LAYER_KERNELS["grouped"]
 # card against CPU: within this share of each output's max (f32)
 EP_TOL = 1e-4
 # routing kept this far from a tie (f64 logits): card and CPU logits
@@ -5310,6 +5516,14 @@ EP_QWIRE = (("int8", 5e-2, 1e-1), ("float8_e4m3fn", 1.5e-1, 3e-1))
 EP_SERVE = dict(arch="dbrx-132b", layers=2, batch=8, prompt_len=1024,
                 gen=16, mesh=(2, 2))
 EP_SERVE_BOUND = 2.0 ** -4
+# 18f: the paper model whole trained at 2x2 under FSDP (ZeRO-3) through
+# launch.train.run(fsdp=True), grouped: 3 steps uninterrupted; 3 steps
+# saving at step 2 and cut at the top of step 2 (train.loop:raise@2), then
+# run(resume=True): the restore, step 3 and the save at the run's end; a
+# 1-step fsdp=False run at 2x2 for the peak memory (its first step holds
+# the peak: the optimizer's update)
+EP_FSDP = dict(mesh=(2, 2), batch=8, seq=1024, steps=3, save_at=2,
+               nofsdp_steps=1)
 # every kernel's plain version: a rank of 18c must never run one
 PLAIN_VERSIONS = (("topk_gate", "topk_gate_plain"),
                   ("layout_transform", "gather_rows_plain"),
@@ -5429,13 +5643,16 @@ def ep_receive_side_kernels(torch, rec):
 
 
 def ep_layer_run(torch, mesh, cfg, params, xl, gyl, valid, *, record=False,
-                 tp=None):
-    """The paper's layer (gelu) through ``sharded_moe_apply`` on the card
-    and then on the CPU over the same gloo group, forward and backward of
-    ``sum(y·gy) + aux`` from the global ``params`` (this rank's experts
-    cut here; ``tp`` the ``expert_tp_axis``).  Returns the per-device
-    results (outputs, gradients, launches, expert-TP collectives, ms) and,
-    with ``record``, the card's grouped FFN and scatter-add inputs."""
+                 tp=None, act="gelu"):
+    """The paper's layer (``act`` experts, gelu unless given) through
+    ``sharded_moe_apply`` on the card and then on the CPU over the same
+    gloo group, forward and backward of ``sum(y·gy) + aux`` from the
+    global ``params`` (this rank's experts cut here; ``tp`` the
+    ``expert_tp_axis``).  With relu (grouped) the CPU runs first and its
+    ReLU masks are replayed on the card (``forced_relu_ffn``).  Returns
+    the per-device results (outputs, gradients, launches, expert-TP
+    collectives, ms) and, with ``record``, the card's grouped FFN and
+    scatter-add inputs."""
     from repro_torch.core import alltoall, moe
     from repro_torch.kernels import grouped_ffn as G
     from repro_torch.kernels import layout_transform as L
@@ -5443,17 +5660,30 @@ def ep_layer_run(torch, mesh, cfg, params, xl, gyl, valid, *, record=False,
     n = E // mesh.shape["model"]
     m = mesh.model_index
     res, rec = {}, {}
-    for dev in ("cuda", "cpu"):
+    relu = act == "relu"
+    masks = []
+    for dev in ("cpu", "cuda") if relu else ("cuda", "cpu"):
         p = {k: (v if k == "gate_w" else v[m * n:(m + 1) * n]).to(
             mesh.device if dev == "cuda" else "cpu").requires_grad_(True)
             for k, v in params.items()}
         xr = xl.to(p["gate_w"].device).requires_grad_(True)
         ffn, sca = G.grouped_ffn, L.scatter_add_rows
+        if relu and dev == "cpu":
+            def mask_ffn(params_, xs, offsets, act_):
+                with torch.no_grad():
+                    masks.append(G.grouped_matmul(
+                        xs, params_["w_up"], offsets) > 0)
+                return ffn(params_, xs, offsets, act_)
+            G.grouped_ffn = mask_ffn
+        elif relu:
+            G.grouped_ffn = forced_relu_ffn(torch, G, list(masks))
         if dev == "cuda" and record:
-            def rec_ffn(params_, xs, offsets, act):
+            base = G.grouped_ffn
+
+            def rec_ffn(params_, xs, offsets, act_):
                 rec.setdefault("ffn", (xs.detach(), offsets,
                                        params_["w_up"].detach()))
-                return ffn(params_, xs, offsets, act)
+                return base(params_, xs, offsets, act_)
 
             def rec_sca(c, idx, k):
                 rec.setdefault("scatter", (c.detach(), idx, k))
@@ -5466,7 +5696,7 @@ def ep_layer_run(torch, mesh, cfg, params, xl, gyl, valid, *, record=False,
         t0 = time.perf_counter()
         try:
             y, aux, met = moe.sharded_moe_apply(
-                mesh, cfg, p, xr, num_experts=E, act="gelu",
+                mesh, cfg, p, xr, num_experts=E, act=act,
                 valid=valid.to(xr.device), expert_tp_axis=tp)
             loss = (y * gyl.to(xr.device)).sum() + aux
             keys = sorted(p)
@@ -5510,13 +5740,16 @@ def ep_layer_checks(torch, rank, shape, ref_path):
     gyl = moe.rank_tokens(mesh, gy)[0]
     out = {"exchange": ep_exchange_check(torch, mesh)
            if shape == (1, 4) else None}
-    for name, fields in EP_LAYER_CASES:
+    cases = EP_LAYER_CASES + ((EP_RELU_CASE,) if shape == (1, 4) else ())
+    for name, fields in cases:
         a2a = dict(a2a="hierarchical", a2a_inner=2) if M == 4 else {}
         cfg = MoEConfig(num_experts=E, top_k=1, gate="switch",
                         capacity_factor=1.25, d_ff_expert=EP_LAYER["f"],
                         **fields, **a2a)
         res, rec = ep_layer_run(torch, mesh, cfg, params, xl, gyl, valid,
-                                record=name == "grouped")
+                                record=name == "grouped",
+                                act="relu" if name == EP_RELU_CASE[0]
+                                else "gelu")
         card, cpu = res["cuda"], res["cpu"]
         errs = {k: _max_rel(torch, card[k], cpu[k])
                 for k in ("y", "aux", "dx", "gate_w", "w_up", "w_out")}
@@ -5606,7 +5839,7 @@ def ep_train_run(torch, rank, shape, dispatch, tune, fabric):
             state, _ = step(state, batch, step=steps)
             torch.cuda.synchronize()
         prof_counts = {}
-        for e in prof.key_averages():
+        for e in read_profile(prof):
             name = e.key.removeprefix("void ").replace(
                 "(anonymous namespace)::", "").split("(")[0]
             if name.startswith(PORT_KERNEL_NAMES):
@@ -5618,6 +5851,197 @@ def ep_train_run(torch, rank, shape, dispatch, tune, fabric):
     return dict(history=hist, step_s=stats["step_s"], counts=counts,
                 peak_gib=peak / 2 ** 30, digest=digest.hexdigest(),
                 profiled=prof_counts, fabric=fabric)
+
+
+def state_digest(torch, leaves) -> str:
+    """sha256 over the sha256 of each of ``leaves``' bytes, in order: the
+    leaves copied to the host and hashed on 8 threads (both let go of the
+    interpreter lock), a state being gigabytes."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(t):
+        return hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                              .reshape(-1).view("uint8")).digest()
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        return hashlib.sha256(b"".join(ex.map(one, leaves))).hexdigest()
+
+
+def _state_leaves(state):
+    from repro_torch import tree
+    return (tree.leaves((state.params, state.opt["m"], state.opt["v"]))
+            + [state.opt["count"], state.step, state.skipped,
+               state.nonfinite_streak, state.good_streak, state.loss_scale])
+
+
+def ep_fsdp_run(torch, rank, ckpt_dir):
+    """18f on one rank (every plain version made to raise): the paper
+    model whole at 2x2 under FSDP through ``launch.train.run(fsdp=True)``,
+    grouped — 3 steps uninterrupted (the launches counted from 0, the
+    peak, the all-gathers); the same 3 steps saving at step 2 into
+    ``ckpt_dir`` and cut at the top of step 2 (``train.loop:raise@2``);
+    then the trainer's own resume, ``run(resume=True)``: the restore, step
+    3 and the save at its end, every block bitwise the uninterrupted
+    run's (and the digest of its blocks, for the parent); a 1-step
+    ``fsdp=False`` run's peak."""
+    from repro_torch.core import faults
+    from repro_torch.launch import shard, train
+    B, S, steps = EP_FSDP["batch"], EP_FSDP["seq"], EP_FSDP["steps"]
+    at = EP_FSDP["save_at"]
+    kw = dict(batch=B, seq=S, smoke=False, seed=0, log_every=1,
+              mesh_shape=EP_FSDP["mesh"], dispatch="grouped")
+    out = {}
+
+    def fresh():
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+
+    fresh()
+    reset_counts()
+    shard.gathers = 0
+    st = {}
+    done, hist = train.run(ARCH, steps=steps, fsdp=True, stats=st, **kw)
+    out["counts"] = read_counts([k for k, _, _ in COUNTERS])
+    out["gathers_per_step"] = shard.gathers / steps
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["history"], out["step_s"] = hist, st["step_s"]
+    out["stored_gb"] = sum(t.numel() * t.element_size()
+                           for t in _state_leaves(done)) / 1e9
+    fresh()
+    plan = faults.plan_from_specs([f"train.loop:raise@{at}"])
+    cut = {}
+    try:
+        train.run(ARCH, steps=steps, fsdp=True, ckpt_dir=ckpt_dir,
+                  ckpt_every=at, faults=plan, stats=cut, **kw)
+        raise SmokeFailure(f"18f: the run was not cut at step {at}")
+    except faults.FaultInjected:
+        pass
+    fresh()
+    rs = {}
+    state, resumed = train.run(ARCH, steps=steps, fsdp=True,
+                               ckpt_dir=ckpt_dir, resume=True, stats=rs,
+                               **kw)
+    out["save_s"] = cut["save_s"] + rs["save_s"]
+    out["restore_s"] = rs["restore_s"]
+    out["resumed_steps"] = [m["step"] for m in resumed]
+    out["resumed_history_equal"] = resumed == hist[at:]
+    out["resume_bitwise"] = all(
+        torch.equal(a, b) for a, b in zip(_state_leaves(state),
+                                          _state_leaves(done), strict=True))
+    out["digest"] = state_digest(torch, _state_leaves(state))
+    del state, done
+    fresh()
+    nf = {}
+    state, _ = train.run(ARCH, steps=EP_FSDP["nofsdp_steps"], fsdp=False,
+                         stats=nf, **kw)
+    out["nofsdp_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["nofsdp_stored_gb"] = sum(t.numel() * t.element_size()
+                                  for t in _state_leaves(state)) / 1e9
+    out["nofsdp_step_s"] = nf["step_s"]
+    del state
+    release(torch)
+    return out
+
+
+def fsdp_one_process_restore(torch, ckpt_dir, world_shape):
+    """18f's parent side: the ranks' checkpoint restored on one process on
+    the card (``restore_checkpoint`` into a one-device template), then cut
+    into each rank's blocks (``launch/shard`` layouts, no group needed)
+    and digested as the ranks digest theirs."""
+    from repro_torch import configs, convert, tree
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.launch import shard
+    from repro_torch.launch.mesh import tree_paths
+    from repro_torch.training.train_step import init_train_state
+    cfg = configs.get_config(ARCH)
+    tpl = init_train_state(cfg, TrainConfig(), device="cuda")
+    t0 = time.perf_counter()
+    state, step = restore_checkpoint(ckpt_dir, tpl, cfg=cfg)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del tpl
+    shapes = convert.param_shapes(cfg)
+    D, M = world_shape
+    digests = []
+    for r in range(D * M):
+        lay = shard.make_layout(shapes, {"data": D, "model": M}, r,
+                                fsdp=True)
+        cut = [lay.cut(p, t) for sec in (state.params, state.opt["m"],
+                                         state.opt["v"])
+               for p, t in tree_paths(sec)]
+        digests.append(state_digest(torch, cut + _state_leaves(state)[
+            len(tree.leaves(state.params)) * 3:]))
+        del cut
+    del state
+    release(torch)
+    return dict(step=step, restore_s=restore_s, digests=digests)
+
+
+def report_ep_fsdp(ranks, smi, world, one_loss, parent):
+    """18f's checks and printout (see :func:`ep_fsdp_run`)."""
+    res = [r["18f"] for r in ranks]
+    label = f"[{smi}; {ep_label(world)}: host-staged, not a speed of FSDP]"
+    losses = [h["loss"] for h in res[0]["history"]]
+    print(f"  18f, {ARCH} whole at 2x2 under FSDP, grouped, batch "
+          f"{EP_FSDP['batch']} x {EP_FSDP['seq']}, "
+          f"{max(r['18f_s'] for r in ranks):.1f} s {label}:")
+    for r, x in enumerate(res):
+        print(f"    rank {r}: stored {x['stored_gb']:.3f} GB (fsdp=False "
+              f"{x['nofsdp_stored_gb']:.3f} GB), peak {x['peak_gib']:.2f} "
+              f"GiB (fsdp=False 2x2 {x['nofsdp_peak_gib']:.2f} GiB), step s "
+              f"{[round(t, 3) for t in x['step_s']]} (fsdp=False "
+              f"{[round(t, 3) for t in x['nofsdp_step_s']]}), save s "
+              f"{[round(t, 3) for t in x['save_s']]}, restore s "
+              f"{x['restore_s']:.3f}, all-gathers a step "
+              f"{x['gathers_per_step']:g}, launches {x['counts']}")
+    rel = abs(losses[0] - one_loss) / abs(one_loss)
+    print(f"    losses {losses}; step 1 loss vs one process {one_loss:.6f}: "
+          f"relative {rel:.2e}")
+    print(f"    checkpoint {parent['bytes']} bytes at step "
+          f"{parent['step']}; one-process restore on the card "
+          f"{parent['restore_s']:.3f} s {label}")
+    hist = [x["history"] for x in res]
+    check(all(math.isfinite(v) for h in hist for m in h
+              for v in m.values()), "18f: non-finite metrics")
+    check(all(m["skipped"] == 0 for h in hist for m in h),
+          "18f: a step was skipped")
+    check(all([m["loss"] for m in h] == losses for h in hist),
+          "18f: the ranks' losses differ")
+    check(rel <= 1e-3, f"18f step 1 loss {losses[0]} vs one process "
+                       f"{one_loss}")
+    check(all(x["resumed_steps"] == list(range(EP_FSDP["save_at"],
+                                                EP_FSDP["steps"]))
+              for x in res),
+          f"18f: the resumed runs took steps "
+          f"{[x['resumed_steps'] for x in res]}")
+    check(all(x["resume_bitwise"] and x["resumed_history_equal"]
+              for x in res),
+          "18f: the resumed state or metrics differ from the uninterrupted "
+          "run's")
+    check(parent["step"] == EP_FSDP["steps"]
+          and parent["digests"] == [x["digest"] for x in res],
+          "18f: the one-process restore differs from the ranks' state")
+    check(all(x["peak_gib"] < x["nofsdp_peak_gib"] for x in res),
+          f"18f: a rank's peak under FSDP is not below fsdp=False's: "
+          f"{[(x['peak_gib'], x['nofsdp_peak_gib']) for x in res]}")
+    check(all(res[0]["counts"][k] > 0 for k, _, _ in COUNTERS),
+          f"18f: a kernel of the path was not launched on rank 0: "
+          f"{res[0]['counts']}")
+    return dict(losses=losses, one_process_step1_loss=one_loss,
+                launches_rank0=res[0]["counts"],
+                peak_gib=[x["peak_gib"] for x in res],
+                nofsdp_peak_gib=[x["nofsdp_peak_gib"] for x in res],
+                stored_gb=[x["stored_gb"] for x in res],
+                gathers_per_step=res[0]["gathers_per_step"],
+                nofsdp_stored_gb=[x["nofsdp_stored_gb"] for x in res],
+                step_s=[x["step_s"] for x in res],
+                nofsdp_step_s=[x["nofsdp_step_s"] for x in res],
+                save_s=[x["save_s"] for x in res],
+                restore_s=[x["restore_s"] for x in res],
+                checkpoint_bytes=parent["bytes"],
+                one_process_restore_s=parent["restore_s"],
+                seconds=max(r["18f_s"] for r in ranks))
 
 
 def ep_tp_checks(torch, rank, ref_paths):
@@ -5902,6 +6326,9 @@ def ep_rank(rank, refs):
         out[f"{dispatch} 1x4"] = ep_train_run(torch, rank, EP_TRAIN["mesh"],
                                               dispatch, tune, fabric)
     t0 = time.perf_counter()
+    out["18f"] = ep_fsdp_run(torch, rank, refs["fsdp"])
+    out["18f_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     out["18e"] = ep_serve_run(torch, rank, refs["serve"])
     out["18e_s"] = time.perf_counter() - t0
     return out
@@ -5928,6 +6355,7 @@ def phase_ep(torch, smi):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
         refs = {k: str(pathlib.Path(tmp) / f"{k}.npz")
                 for k in ("prefill", "decode", "serve")}
+        refs["fsdp"] = str(pathlib.Path(tmp) / "fsdp_ckpt")
         for tokens, n_glob in EP_TP_TOKENS:
             ep_one_process_reference(torch, refs[tokens], n_glob)
         _, one = train.run(ARCH, steps=1, batch=B, seq=S, smoke=False,
@@ -5947,8 +6375,13 @@ def phase_ep(torch, smi):
         t0 = time.perf_counter()
         ranks = spawn(ep_rank, world, backend="gloo", threads=2,
                       args=(refs,), timeout=900)
-    print(f"  [{smi}; {ep_label(world)}] the ranks took "
-          f"{time.perf_counter() - t0:.1f} s")
+        ranks_s = time.perf_counter() - t0
+        fsdp_parent = fsdp_one_process_restore(torch, refs["fsdp"],
+                                               EP_FSDP["mesh"])
+        fsdp_parent["bytes"] = sum(
+            f.stat().st_size for f in pathlib.Path(refs["fsdp"]).glob(
+                f"ckpt_{EP_FSDP['steps']:08d}.npz"))
+    print(f"  [{smi}; {ep_label(world)}] the ranks took {ranks_s:.1f} s")
     for D, M in EP_LAYER_MESHES:
         key = f"{D}x{M}"
         out[key] = [r[key] for r in ranks]
@@ -5963,7 +6396,9 @@ def phase_ep(torch, smi):
                       f"{ex['ms']['hierarchical']:.2f} ms")
                 check(ex["flat_eq_hier"] and ex["eq_host_permutation"],
                       f"18a rank {r}: {ex}")
-            for name, _ in EP_LAYER_CASES:
+            for name, _ in EP_LAYER_CASES + (EP_RELU_CASE,):
+                if name not in res:
+                    continue                  # relu: 1x4 only
                 cell = res[name]
                 errs = {k: f"{v:.2e}" for k, v in cell["errs"].items()}
                 print(f"    rank {r} {name}: card vs CPU {errs}, card "
@@ -6037,6 +6472,8 @@ def phase_ep(torch, smi):
                          profiled_rank0=prof)
     out["18d"] = report_ep_tp(ranks, smi, world)
     out["18e"] = report_ep_serve(ranks, smi, world)
+    out["18f"] = report_ep_fsdp(ranks, smi, world, one[0]["loss"],
+                                fsdp_parent)
     return totals, out
 
 
@@ -6172,9 +6609,10 @@ T_START = time.perf_counter()
 
 
 def stamp(what):
-    """The seconds since the script started, printed after ``what``."""
+    """The seconds since the script started, printed after ``what`` (and
+    of them, those spent reading profiles)."""
     print(f"  [{time.perf_counter() - T_START:.1f} s since the start, after "
-          f"{what}]")
+          f"{what}; {PROFILE_READ_S[0]:.1f} s of it reading profiles]")
 
 
 def main(argv=None) -> int:
@@ -6389,6 +6827,10 @@ def main(argv=None) -> int:
         if ep["18e"]["launches_rank0"].get(r["name"]):
             # phase 18e: rank 0 of dbrx-132b served at 2x2
             kernels[-1]["launches_ep_serve"] = ep["18e"]["launches_rank0"][
+                r["name"]]
+        if ep["18f"]["launches_rank0"].get(r["name"]):
+            # phase 18f: rank 0 of the paper model's 3 FSDP steps at 2x2
+            kernels[-1]["launches_fsdp"] = ep["18f"]["launches_rank0"][
                 r["name"]]
         if r["name"] + "_zamba2" in errs:
             # phase 2p: zamba2's head dim 112, f32 and bf16

@@ -27,18 +27,36 @@ Crash safety (a preempted worker must NEVER leave the run unrestorable):
 Deterministic kill/crash points for the fault harness
 (``core/faults.py``, indexed by step): ``ckpt.data_tmp_written``,
 ``ckpt.data_replaced``, ``ckpt.manifest_step_written``.
+
+A train state stored across ranks (``layout``, a ``launch/shard.Layout``;
+every rank calls save and restore) is saved in the same one file, so a
+checkpoint written at one mesh, with or without FSDP, restores at any
+other, on one device and in the reference, and the reverse: the save
+gathers each leaf whole onto rank 0's host, leaf by leaf
+(``convert.state_to_numpy``), rank 0 writes as above (crash points and
+``keep`` included) while the other ranks wait at a barrier; the restore
+walks the candidates on every rank as on one device, and each rank cuts
+its blocks from the host arrays key by key (``convert.state_from_numpy``):
+no rank puts the whole state on its device.
 """
 from __future__ import annotations
 
 import glob
+import io
 import json
+import math
+import mmap
 import os
 import re
+import zipfile
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from numpy.lib import format as npy_format
 
 from repro_torch import convert
 from repro_torch.core import faults as faults_mod
@@ -75,12 +93,13 @@ def _to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _flat_arrays(state, cfg: Optional[ModelConfig]) -> Dict[str, np.ndarray]:
+def _flat_arrays(state, cfg: Optional[ModelConfig], layout=None
+                 ) -> Optional[Dict[str, np.ndarray]]:
     if isinstance(state, TrainState):
         if cfg is None:
             raise ValueError("a TrainState is saved and restored under the "
                              "reference's stacked keys: pass cfg=")
-        return convert.state_to_numpy(state, cfg)
+        return convert.state_to_numpy(state, cfg, layout=layout)
     return {k: _to_numpy(v) for k, v in _flatten(state).items()}
 
 
@@ -90,6 +109,14 @@ def _checksum(arr: np.ndarray) -> int:
     meta = f"{arr.dtype.str}{arr.shape}".encode()
     raw = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
     return zlib.crc32(raw, zlib.crc32(meta))
+
+
+def _checksums(arrays: Dict[str, np.ndarray]) -> Dict[str, int]:
+    """:func:`_checksum` of every array, on a few threads (``zlib.crc32``
+    lets go of the interpreter lock over a large buffer): a whole train
+    state is gigabytes."""
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        return dict(zip(arrays, ex.map(_checksum, arrays.values())))
 
 
 def _atomic_write(path: str, write, *, crash_site: Optional[str] = None,
@@ -116,15 +143,26 @@ def _manifest_path(direc: str, step: int) -> str:
 
 def save_checkpoint(direc: str, state, step: int,
                     keep: Optional[int] = None, *,
-                    cfg: Optional[ModelConfig] = None) -> str:
+                    cfg: Optional[ModelConfig] = None, layout=None) -> str:
     """Atomically save ``state``; returns the ``.npz`` path.  A port
     ``TrainState`` needs its ``cfg`` (its keys are the reference's).
 
     ``keep`` prunes all but the newest K checkpoints (and stray ``.tmp``
-    leftovers from killed saves)."""
-    os.makedirs(direc, exist_ok=True)
-    flat = _flat_arrays(state, cfg)
+    leftovers from killed saves).  ``layout``: the state is stored across
+    the ranks, every rank calls this (module docstring)."""
+    flat = _flat_arrays(state, cfg, layout)
     path = _npz_path(direc, step)
+    if layout is None:
+        return _write(direc, flat, path, step, keep)
+    if layout.rank == 0:
+        _write(direc, flat, path, step, keep)
+    dist.barrier()                # the save is complete on every rank
+    return path
+
+
+def _write(direc: str, flat: Dict[str, np.ndarray], path: str, step: int,
+           keep: Optional[int]) -> str:
+    os.makedirs(direc, exist_ok=True)
     # data first (atomic): a kill before the manifests leaves an orphan
     # .npz that restore simply never considers.
     _atomic_write(path, lambda f: np.savez(f, **flat),
@@ -135,7 +173,7 @@ def save_checkpoint(direc: str, state, step: int,
         "step": step,
         "latest": os.path.basename(path),
         "keys": sorted(flat.keys()),
-        "checksums": {k: _checksum(v) for k, v in flat.items()},
+        "checksums": _checksums(flat),
     }
     mdata = json.dumps(manifest, indent=1).encode()
     # per-step manifest (the restore candidates), then the latest-pointer
@@ -201,15 +239,60 @@ def latest_step(direc: str) -> Optional[int]:
     return cands[0][0] if cands else None
 
 
+def _map_npz(path: str) -> Optional[Dict[str, np.ndarray]]:
+    """The arrays of an ``np.savez`` file as read-only views of the file
+    mapped into memory, or None where a member is not a stored ``.npy``
+    of version 1.0 or 2.0 without objects (``np.load`` reads those).
+    ``np.load`` copies each member out of the zip and checks its zip CRC
+    on one core, where a mapping copies nothing and the manifest's CRC32s
+    run on threads (``PERF.md``: phase 10's restore).  A malformed file
+    raises."""
+    with open(path, "rb") as f:
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for info in zf.infolist():
+            if (info.compress_type != zipfile.ZIP_STORED
+                    or not info.filename.endswith(".npy")):
+                return None
+            off = info.header_offset
+            if mm[off:off + 4] != b"PK\x03\x04":
+                raise zipfile.BadZipFile(f"{info.filename}: no local header")
+            start = (off + 30 + int.from_bytes(mm[off + 26:off + 28], "little")
+                     + int.from_bytes(mm[off + 28:off + 30], "little"))
+            head = io.BytesIO(mm[start:start + min(info.file_size, 1 << 20)])
+            version = npy_format.read_magic(head)
+            if version not in ((1, 0), (2, 0)):
+                return None
+            shape, fortran, dtype = (
+                npy_format.read_array_header_1_0 if version == (1, 0)
+                else npy_format.read_array_header_2_0)(head)
+            if dtype.hasobject:
+                return None
+            count = math.prod(shape)
+            if head.tell() + count * dtype.itemsize != info.file_size:
+                raise ValueError(f"{info.filename}: {info.file_size} bytes "
+                                 f"for {shape} {dtype}")
+            a = np.frombuffer(mm, dtype=dtype, count=count,
+                              offset=start + head.tell())
+            out[info.filename[:-len(".npy")]] = (
+                a.reshape(shape[::-1]).T if fortran else a.reshape(shape))
+    return out
+
+
 def _load_verified(direc: str, manifest: Dict) -> Dict[str, np.ndarray]:
     """Load the manifest's ``.npz`` and verify keys + checksums; any
     failure mode (missing/truncated/bit-rotted file, zip errors, checksum
-    mismatch) raises :class:`CheckpointCorruptError`."""
+    mismatch) raises :class:`CheckpointCorruptError`.  With checksums in
+    the manifest the file is mapped (:func:`_map_npz`: the checksums
+    cover every byte the zip's CRCs would), else read by ``np.load``."""
     latest = manifest["latest"]
     path = latest if os.path.isabs(latest) else os.path.join(direc, latest)
     try:
-        with np.load(path) as data:
-            arrays = {k: data[k] for k in data.files}
+        arrays = _map_npz(path) if manifest.get("checksums") else None
+        if arrays is None:
+            with np.load(path) as data:
+                arrays = {k: data[k] for k in data.files}
     except Exception as e:  # zipfile.BadZipFile, OSError, EOFError, ValueError…
         raise CheckpointCorruptError(
             f"checkpoint {path!r} is unreadable ({type(e).__name__}: {e})")
@@ -221,8 +304,8 @@ def _load_verified(direc: str, manifest: Dict) -> Dict[str, np.ndarray]:
             f"unexpected {sorted(set(arrays) - want)[:5]}")
     sums = manifest.get("checksums")
     if sums:
-        bad = [k for k, a in arrays.items()
-               if k in sums and _checksum(a) != sums[k]]
+        got = _checksums({k: a for k, a in arrays.items() if k in sums})
+        bad = [k for k, c in got.items() if c != sums[k]]
         if bad:
             raise CheckpointCorruptError(
                 f"checkpoint {path!r} failed checksum verification for "
@@ -263,10 +346,11 @@ def _rebuild(template, arrays: Dict[str, np.ndarray], prefix: str = ""):
 
 
 def restore_checkpoint(direc: str, state_template, *, fallback: bool = True,
-                       cfg: Optional[ModelConfig] = None):
+                       cfg: Optional[ModelConfig] = None, layout=None):
     """Restore into the structure of ``state_template`` → (state, step).
     A port ``TrainState`` template needs its ``cfg``; the state comes back
-    on the template's device (``convert.state_from_numpy``).
+    on the template's device (``convert.state_from_numpy``), as this
+    rank's blocks of ``layout`` when given.
 
     Walks candidates newest-first; a corrupt/truncated checkpoint is
     skipped (with a warning) in favour of the newest *intact* one unless
@@ -299,7 +383,8 @@ def restore_checkpoint(direc: str, state_template, *, fallback: bool = True,
                 f"{unexpected[:10]} (+{max(len(unexpected) - 10, 0)} more)")
         if isinstance(state_template, TrainState):
             dev = state_template.step.device
-            return convert.state_from_numpy(arrays, cfg, device=dev), step
+            return convert.state_from_numpy(arrays, cfg, device=dev,
+                                            layout=layout), step
         return _rebuild(state_template, arrays), step
     raise CheckpointCorruptError(
         f"no intact checkpoint under {direc!r}; tried {len(candidates)} "

@@ -20,18 +20,29 @@ reference's checkpoint gives its ``TrainState``
 super-blocks.  The port's checkpoints (``checkpoint/io.py``) use them for
 their keys, so a checkpoint moves between the JAX trainer and the port in
 either direction.
+
+Across ranks each of them takes this rank's ``launch/shard.Layout``:
+:func:`params_from_numpy` (given a mesh) and :func:`state_from_numpy` cut
+each leaf to the rank's block of its spec on the host, leaf by leaf,
+before it reaches the device; :func:`state_to_numpy` gathers each leaf
+whole onto rank 0's host over the groups of its spec, one leaf at a
+time (the other ranks send their blocks and get None).
+:func:`param_shapes` gives the port's tree of shapes for the sharding
+rules without drawing a weight.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import tree
 from repro_torch.core.config import ModelConfig
+from repro_torch.launch import shard
+from repro_torch.launch.mesh import map_paths
 from repro_torch.models.transformer import (LORA_R, _check_supported,
-                                            shard_experts, untied_head)
+                                            layer_kinds, untied_head)
 from repro_torch.training.train_step import TrainState
 
 
@@ -147,13 +158,40 @@ def _flatten(tree: Any, prefix: Tuple = ()) -> Dict[Tuple, Any]:
     return flat
 
 
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's parameter tree of ``cfg`` with ``meta`` tensors for
+    leaves: the shapes, no storage (the sharding rules' input)."""
+    _check_supported(cfg)
+
+    def meta(shape):
+        return torch.empty(shape, device="meta")
+    blocks = []
+    for kind in layer_kinds(cfg):
+        layer: Dict[str, Any] = {}
+        for path, shape in _block_shapes(cfg, kind).items():
+            _put(layer, path, meta(shape))
+        blocks.append(layer)
+    out = {"blocks": blocks, "final_norm": meta((cfg.d_model,))}
+    for path, shape in _top_shapes(cfg).items():
+        _put(out, path, meta(shape))
+    return out
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
-                      mesh=None) -> Dict[str, Any]:
+                      mesh=None, *, fsdp: bool = False) -> Dict[str, Any]:
     """The JAX parameter tree (numpy leaves) → the port's f32 tree; with
-    ``mesh`` (a ``launch/mesh.Mesh``) this rank's share: each expert leaf
-    (E, …) cut to the rank's E/M slice, the rest replicated.  Raises
+    ``mesh`` (a ``launch/mesh.Mesh``) this rank's share by its layout
+    (``launch/shard.layout_for(cfg, mesh, fsdp)``): under ``fsdp=False``
+    each expert leaf (E, …) cut to the rank's E/M slice and the rest
+    whole, under ``fsdp=True`` every leaf as its spec says.  Raises
     ``ValueError`` naming missing keys, unexpected keys and shape
     mismatches."""
+    return _params_from_numpy(tree, cfg,
+                              shard.layout_for(cfg, mesh, fsdp=fsdp))
+
+
+def _params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                       layout: Optional[shard.Layout]) -> Dict[str, Any]:
     _check_supported(cfg)
     want = _expected_shapes(cfg)
     got = _flatten(tree)
@@ -167,22 +205,28 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
             f"params_from_numpy({cfg.name}): missing keys {fmt(missing)}; "
             f"unexpected keys {fmt(extra)}; shape mismatches {bad}")
 
-    def t(p, *index):
-        return torch.from_numpy(np.array(got[p][index], dtype=np.float32))
+    def t(p, port_path, *index):
+        # the rank's block of the leaf, cut before the copy
+        a = np.asarray(got[p])[index]
+        if layout is not None:
+            a = layout.cut(port_path, a)
+        return torch.from_numpy(np.array(a, dtype=np.float32))
 
     period = len(cfg.block_pattern)
     blocks = []
     for s in range(cfg.num_super_blocks):
         for j in range(period):
+            i = s * period + j
             layer: Dict[str, Any] = {}
             for path in want:
                 if path[:2] == ("blocks", j):
-                    _put(layer, path[2:], t(path, s))
+                    _put(layer, path[2:], t(path, _key("blocks", i,
+                                                       *path[2:]), s))
             blocks.append(layer)
-    out = {"blocks": blocks, "final_norm": t(("final_norm",))}
+    out = {"blocks": blocks, "final_norm": t(("final_norm",), "final_norm")}
     for p in _top_shapes(cfg):
-        _put(out, p, t(p))
-    return shard_experts(out, cfg, mesh)
+        _put(out, p, t(p, _key(*p)))
+    return out
 
 
 def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
@@ -254,11 +298,15 @@ def state_keys(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
             **{"." + n: ((), np.dtype(dt)) for n, dt in _COUNTERS}}
 
 
-def state_to_numpy(state: TrainState, cfg: ModelConfig
-                   ) -> Dict[str, np.ndarray]:
+def state_to_numpy(state: TrainState, cfg: ModelConfig, *,
+                   layout: Optional[shard.Layout] = None
+                   ) -> Optional[Dict[str, np.ndarray]]:
     """A port ``TrainState`` → {reference checkpoint key: numpy array}
     (params and moments stacked as the reference keeps them).  Only f32
-    moments are carried: numpy has no bfloat16."""
+    moments are carried: numpy has no bfloat16.  With ``layout`` (the
+    state stored across ranks; every rank calls it) each leaf is gathered
+    whole onto rank 0's host, one at a time (``Layout.to_host``): rank 0
+    gets the arrays, the other ranks None."""
     for mom in ("m", "v"):
         dt = {t.dtype for t in tree.leaves(state.opt[mom])}
         if dt != {torch.float32}:
@@ -266,6 +314,11 @@ def state_to_numpy(state: TrainState, cfg: ModelConfig
                 f"state_to_numpy: opt/{mom} is {sorted(map(str, dt))}; only "
                 f"f32 moments are carried (numpy has no bfloat16)")
     trees = dict(zip(_TREES, (state.params, state.opt["m"], state.opt["v"])))
+    if layout is not None:
+        trees = {sec: map_paths(layout.to_host, t)
+                 for sec, t in trees.items()}
+        if layout.rank != 0:
+            return None
     stacked = {sec: _flatten(params_to_numpy(t, cfg))
                for sec, t in trees.items()}
     flat = {}
@@ -280,11 +333,13 @@ def state_to_numpy(state: TrainState, cfg: ModelConfig
 
 
 def state_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
-                     device=None) -> TrainState:
+                     device=None, layout: Optional[shard.Layout] = None
+                     ) -> TrainState:
     """{reference checkpoint key: array} → a port ``TrainState`` on
     ``device`` (the CPU unless given): f32 masters that require grad, f32
-    moments, int32 counters, an f32 loss scale.  Raises ``ValueError``
-    naming missing and unexpected keys."""
+    moments, int32 counters, an f32 loss scale; with ``layout`` this
+    rank's blocks of params and moments (cut on the host).  Raises
+    ``ValueError`` naming missing and unexpected keys."""
     want = state_keys(cfg)
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
@@ -302,7 +357,7 @@ def state_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
                     node.setdefault(part, {})
             node[path[-1]] = np.asarray(flat[_key(sec, *path)])
         return tree.map_(lambda t: t.to(device),
-                         params_from_numpy(nested, cfg))
+                         _params_from_numpy(nested, cfg, layout))
 
     def scalar(key, dt):
         return torch.from_numpy(np.array(flat[key], dtype=dt)).to(device)

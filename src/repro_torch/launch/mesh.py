@@ -32,8 +32,18 @@ picks another backend when one fails.  A rank's device is
 :func:`spawn` starts local ranks (the tests, ``chip_smoke.py``) over a
 ``file://`` rendezvous in a temporary directory, so no port is fixed;
 ``launch/train.py`` also runs under ``torchrun``, which sets ``RANK``,
-``WORLD_SIZE`` and ``LOCAL_RANK``.  Production meshes, FSDP and the
-parameter sharding rules (``param_shardings``) come with later slices
+``WORLD_SIZE`` and ``LOCAL_RANK``.
+
+The parameter sharding rules are the reference's (``_RULES``,
+:func:`fit_spec`, :func:`needs_fsdp`, :func:`param_shardings`,
+:func:`state_shardings`) as pure functions of the mesh's shape, a mapping
+such as ``{"data": 2, "model": 2}``: a spec is a tuple with one entry per
+dim, an axis name, a tuple of axis names or None, where the reference has
+a ``PartitionSpec``.  The port keeps one dict per layer where the
+reference stacks its blocks over super-blocks, so a port leaf's spec is
+the reference's for the same key without the scan dim.  How the port
+stores a train state by these specs, and gathers it for use, is
+``launch/shard.py``.  Production meshes come with a later slice
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -228,6 +238,174 @@ def make_smoke_mesh(shape: Tuple[int, ...] = (1, 1), *,
 
 def dp_axes(mesh: Optional[Mesh]) -> Tuple[str, ...]:
     return () if mesh is None else ("data",)
+
+
+# ---------------------------------------------------------------------------
+# parameter sharding rules (path + ndim -> spec), the reference's
+# ---------------------------------------------------------------------------
+
+# trailing-dim specs keyed by leaf name; leading dims (the reference's scan
+# dim) are unsharded
+_RULES = {
+    # embeddings / head
+    "embed":   ("model", "data"),
+    "lm_head": ("data", "model"),
+    # attention
+    "wq": ("data", "model"), "wk": ("data", "model"), "wv": ("data", "model"),
+    "wo": ("model", "data"),
+    # mlp (and rwkv channel-mix)
+    "w_in_mlp":  ("data", "model"),
+    "w_out_mlp": ("model", "data"),
+    # moe experts: (E, d, f) / (E, f, d) — EP over model + FSDP(d) over data
+    "w_up_moe":   ("model", "data", None),
+    "w_gate_moe": ("model", "data", None),
+    "w_out_moe":  ("model", None, "data"),
+    # expert-TP serving layout (decode): f dim over data
+    "w_up_moe_tp":   ("model", None, "data"),
+    "w_gate_moe_tp": ("model", None, "data"),
+    "w_out_moe_tp":  ("model", "data", None),
+    "gate_w": (None, None),
+    # mamba2
+    "w_in_mamba":  ("data", "model"),
+    "w_out_mamba": ("model", "data"),
+    "conv_w": (None, "model"), "conv_b": ("model",),
+    # rwkv6
+    "wr": ("data", "model"), "wg": ("data", "model"),
+    "mix_a": ("data", None), "decay_a": ("data", None),
+    # zamba2 lora
+    "sa_lora_a": ("data", None), "sa_lora_b": (None, "data"),
+}
+Spec = Tuple[Any, ...]
+
+
+def _leaf_spec(path: str, ndim: int, expert_tp: bool = False) -> Spec:
+    """The rule of the leaf at ``path`` (``/``-joined keys), padded with
+    leading Nones to ``ndim`` dims; norms, biases and vectors replicate."""
+    parts = path.split("/")
+    name = parts[-1]
+    parent = parts[-2] if len(parts) > 1 else ""
+    key = name
+    if name in ("w_in", "w_out", "w_up", "w_gate"):
+        if parent == "moe":
+            key = f"{name}_moe" + ("_tp" if expert_tp else "")
+        elif parent == "mamba":
+            key = f"{name}_mamba"
+        else:
+            key = f"{name}_mlp"
+    spec = tuple(_RULES.get(key, ()))
+    lead = ndim - len(spec)
+    if lead < 0:
+        raise ValueError(f"{path}: {ndim} dims, rule {spec}")
+    return (None,) * lead + spec
+
+
+def fit_spec(mesh_shape: Dict[str, int], spec: Spec, shape) -> Spec:
+    """Drop spec axes that don't exist in the mesh or don't divide the
+    dimension (e.g. vocab 92553 on a 16-wide axis, batch 1 on data); one
+    entry per dim of ``shape``."""
+    dims = []
+    for i, s in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if s is None:
+            dims.append(None)
+            continue
+        axes = tuple(a for a in (s if isinstance(s, tuple) else (s,))
+                     if a in mesh_shape)
+        n = math.prod(mesh_shape[a] for a in axes)
+        if n <= 1 or shape[i] % n != 0:
+            dims.append(None)
+        else:
+            dims.append(axes if len(axes) > 1 else axes[0])
+    return tuple(dims)
+
+
+def tree_paths(tree, prefix: str = ""):
+    """``(path, leaf)`` of a parameter tree in ``tree.leaves`` order (dict
+    keys sorted, sequence indices), paths ``/``-joined as the reference
+    names them."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], f"{prefix}/{k}" if prefix
+                                  else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, f"{prefix}/{i}" if prefix else str(i))
+    else:
+        yield prefix, tree
+
+
+def spec_paths(specs, prefix: str = ""):
+    """``(path, spec)`` of a tree of specs (:func:`param_shardings`), in
+    :func:`tree_paths` order: a spec is a tuple, so only dicts and lists
+    are walked into."""
+    if isinstance(specs, dict):
+        for k in sorted(specs):
+            yield from spec_paths(specs[k], f"{prefix}/{k}" if prefix
+                                  else str(k))
+    elif isinstance(specs, list):
+        for i, v in enumerate(specs):
+            yield from spec_paths(v, f"{prefix}/{i}" if prefix else str(i))
+    else:
+        yield prefix, specs
+
+
+def map_paths(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over a parameter tree, in its structure."""
+    if isinstance(tree, dict):
+        return {k: map_paths(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_paths(fn, v, f"{prefix}/{i}" if prefix
+                                     else str(i)) for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def needs_fsdp(mesh_shape: Dict[str, int], params_shapes, *,
+               budget_bytes: float = 6e9) -> bool:
+    """FSDP-shard weights over data iff master+moments (12 B/param) would
+    exceed ``budget_bytes`` per device under model-axis sharding alone."""
+    total = sum(math.prod(leaf.shape) for _, leaf in tree_paths(
+        params_shapes))
+    return total * 12.0 / mesh_shape.get("model", 1) > budget_bytes
+
+
+def param_shardings(mesh_shape: Dict[str, int], params_shapes, *,
+                    fsdp: bool = True, expert_tp: bool = False):
+    """A tree of specs matching a params (or moments) tree, whose leaves
+    have ``.shape``.  ``fsdp=False`` drops the data-axis (ZeRO) sharding;
+    ``expert_tp=True`` gives the expert weights the serving (decode)
+    layout, f over data."""
+    return map_paths(lambda path, leaf: leaf_spec(
+        mesh_shape, path, leaf.shape, fsdp=fsdp, expert_tp=expert_tp),
+        params_shapes)
+
+
+def leaf_spec(mesh_shape: Dict[str, int], path: str, shape, *,
+              fsdp: bool = True, expert_tp: bool = False) -> Spec:
+    """:func:`param_shardings`' spec of the one leaf at ``path``."""
+    spec = _leaf_spec(path, len(shape), expert_tp)
+    if not fsdp and not (expert_tp and "/moe/" in path):
+        spec = tuple(None if s == "data" else s for s in spec)
+    return fit_spec(mesh_shape, spec, shape)
+
+
+def state_shardings(mesh_shape: Dict[str, int], state_shapes, *,
+                    fsdp: Optional[bool] = None):
+    """Specs for a ``TrainState``: params and moments by the rules, every
+    other field (step and the fault-tolerance scalars) replicated
+    (``()``); ``fsdp=None`` asks :func:`needs_fsdp`."""
+    if fsdp is None:
+        fsdp = needs_fsdp(mesh_shape, state_shapes.params)
+    scalars = {f: (None if getattr(state_shapes, f) is None else ())
+               for f in type(state_shapes)._fields
+               if f not in ("params", "opt")}
+    return type(state_shapes)(
+        params=param_shardings(mesh_shape, state_shapes.params, fsdp=fsdp),
+        opt={"m": param_shardings(mesh_shape, state_shapes.opt["m"],
+                                  fsdp=fsdp),
+             "v": param_shardings(mesh_shape, state_shapes.opt["v"],
+                                  fsdp=fsdp),
+             "count": ()},
+        **scalars)
 
 
 def rank_block(mesh: Optional[Mesh], n: int) -> slice:

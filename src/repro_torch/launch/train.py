@@ -16,7 +16,14 @@ rank), or calls :func:`run` with ``mesh_shape=`` from ranks that
 ``launch.mesh.spawn`` started (``backend="gloo"`` for the CPU or for
 several ranks on one card).  Every rank draws the same global batch and
 trains on its rows (``batch`` must divide over the D·M ranks); rank 0
-prints the banner (mesh, backend, the resolved MoE knobs) and the log.
+prints the banner (mesh, backend, ``fsdp=``, the state's bytes a rank,
+the resolved MoE knobs) and the log.  The train state is laid out by the
+reference's sharding rules (``launch/mesh.state_shardings``, stored as
+``launch/shard.py`` says): FSDP (ZeRO-3 over the ranks) where the
+reference's ``needs_fsdp`` asks for it (master + moments over 6e9 bytes
+a device under the model axis alone), else the experts over ``model``
+and every other leaf whole; ``run(fsdp=True|False)`` decides it instead
+(no CLI flag, as the reference has none).
 
 Runs on the GPU unless ``--device cpu`` is given.  The f32 master weights
 are drawn from a ``torch.Generator`` seeded with ``--seed`` on the device;
@@ -30,9 +37,13 @@ and continues — because data, gate noise and the lr schedule are keyed by
 the global step, a killed-and-resumed run reproduces the uninterrupted
 trajectory bitwise.  The checkpoint format and keys are the reference's
 (``checkpoint/io.py``), so a run may resume from a checkpoint of the JAX
-trainer and the reverse.  Non-finite steps are skipped by the train step;
-the loop fails fast once ``TrainConfig.max_skipped_steps`` consecutive
-steps were skipped.  ``--inject site:mode@steps`` arms the fault harness
+trainer and the reverse.  ``--ckpt-dir`` works with ``--mesh``: the state
+is saved whole into the same one file (each leaf gathered onto rank 0's
+host, rank 0 writes, the others wait), and every rank restores its own
+blocks from it, so a checkpoint moves between meshes, with or without
+FSDP, and to and from one device and the JAX trainer.  Non-finite steps
+are skipped by the train step; the loop fails fast once
+``TrainConfig.max_skipped_steps`` consecutive steps were skipped.  ``--inject site:mode@steps`` arms the fault harness
 (``core/faults.py``): the ``train.loop`` crash point at the top of each
 step, the checkpoint's crash points and the train step's traced seams.
 ``--history-out`` dumps the per-step metrics (and ``start``,
@@ -42,14 +53,13 @@ step, the checkpoint's crash points and the train step's traced seams.
 ``"auto"`` MoE knobs from the α–β model over the named fabric, ``off``
 pins them to the static defaults, ``calibrate`` measures a few AllToAll
 payloads over the mesh's model group once and fits α–β
-(``core/tuning.calibrate_fabric``).  Not ported yet: ``--ckpt-dir`` with a
-mesh (a sharded train state's checkpoint) raises ``NotImplementedError``
-naming ROADMAP.md.  ``run`` also takes a ``dispatch`` keyword (no CLI
-flag, as the reference has none) that overrides the MoE dispatch mode
-the way ``serving.engine.serve_config`` does, ``moe`` keywords (e.g.
-``gate=``) that replace fields of the preset's ``MoEConfig``, and
-``init_params``: a whole parameter tree in the reference's layout (numpy
-leaves, e.g. a JAX trainer's initial parameters) to start from.
+(``core/tuning.calibrate_fabric``).  ``run`` also takes a ``dispatch``
+keyword (no CLI flag, as the reference has none) that overrides the MoE
+dispatch mode the way ``serving.engine.serve_config`` does, ``moe``
+keywords (e.g. ``gate=``) that replace fields of the preset's
+``MoEConfig``, ``init_params``: a whole parameter tree in the
+reference's layout (numpy leaves, e.g. a JAX trainer's initial
+parameters) to start from, and ``fsdp`` (above).
 """
 from __future__ import annotations
 
@@ -72,6 +82,7 @@ from repro_torch.core import tuning
 from repro_torch.core.config import TrainConfig
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import shard
 from repro_torch.serving.engine import serve_config
 from repro_torch.training.train_step import init_train_state, make_train_step
 
@@ -99,22 +110,21 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
         faults: Optional[faults_mod.FaultPlan] = None, tune: str = "auto",
         fabric=None, dispatch: Optional[str] = None,
         moe: Optional[dict] = None, device=None,
-        stats: Optional[dict] = None, init_params=None):
+        stats: Optional[dict] = None, init_params=None,
+        fsdp: Optional[bool] = None):
     """Train ``steps`` AdamW steps; returns ``(state, history)`` (under a
-    mesh, this rank's state).  ``stats`` (when given) receives, as the run
-    goes (so a run cut by a fault leaves what it reached), ``step_s``:
-    each step's host-clock seconds up to its metrics' arrival on the
-    host; ``save_s``: seconds per checkpoint save; ``restore_s``: the
-    resume's restore, or None.  A ``mesh_shape`` other than (1, 1) needs
-    an initialized process group of D·M ranks."""
+    mesh, this rank's state: its blocks of the layout).  ``stats`` (when
+    given) receives, as the run goes (so a run cut by a fault leaves what
+    it reached), ``step_s``: each step's host-clock seconds up to its
+    metrics' arrival on the host; ``save_s``: seconds per checkpoint
+    save; ``restore_s``: the resume's restore, or None; ``layout``: the
+    state's ``launch/shard.Layout`` (None on one device).  A
+    ``mesh_shape`` other than (1, 1) needs an initialized process group of
+    D·M ranks; ``fsdp`` (None: the reference's ``needs_fsdp``) decides
+    whether the state is stored FSDP-sharded there."""
     if (ckpt_every or resume) and not ckpt_dir:
         raise ValueError("--ckpt-every/--resume require --ckpt-dir")
     mesh = mesh_lib.make_smoke_mesh(tuple(mesh_shape), device=device)
-    if mesh is not None and ckpt_dir:
-        raise NotImplementedError(
-            f"--ckpt-dir with mesh {mesh.describe()}: checkpoints of a "
-            f"sharded train state are not ported to repro_torch yet "
-            f"(ROADMAP.md)")
     lead = mesh is None or mesh.rank == 0
     cfg = configs.smoke_config(arch) if smoke else configs.get_config(arch)
     if moe:
@@ -134,35 +144,46 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
     if mesh is not None and batch % mesh.world:
         raise ValueError(f"--batch {batch} does not divide over the "
                          f"{mesh.world} ranks of mesh {mesh.describe()}")
-    step_fn = make_train_step(cfg, tcfg, faults=faults, mesh=mesh)
+    layout = shard.layout_for(cfg, mesh, fsdp)
+    step_fn = make_train_step(cfg, tcfg, faults=faults, mesh=mesh,
+                              layout=layout)
     dev = resolve_device(device) if mesh is None else mesh.device
     state = init_train_state(
-        cfg, tcfg, device=dev, mesh=mesh,
+        cfg, tcfg, device=dev, mesh=mesh, layout=layout,
         params=(None if init_params is None
-                else params_from_numpy(init_params, cfg, mesh)))
+                else params_from_numpy(init_params, cfg, mesh,
+                                       fsdp=layout is not None
+                                       and layout.fsdp)))
     stats = {} if stats is None else stats
-    stats.update(step_s=[], save_s=[], restore_s=None)
+    stats.update(step_s=[], save_s=[], restore_s=None, layout=layout)
     start = 0
     if resume:
         if latest_step(ckpt_dir) is not None:
             t = time.perf_counter()
-            state, start = restore_checkpoint(ckpt_dir, state, cfg=cfg)
+            state, start = restore_checkpoint(ckpt_dir, state, cfg=cfg,
+                                              layout=layout)
             stats["restore_s"] = time.perf_counter() - t
-            print(f"resumed from step {start} ({ckpt_dir})")
-        else:
+            if lead:
+                print(f"resumed from step {start} ({ckpt_dir})")
+        elif lead:
             print(f"--resume: no checkpoint under {ckpt_dir}, starting fresh")
 
     def save(at: int):
         t = time.perf_counter()
-        save_checkpoint(ckpt_dir, state, at, keep=ckpt_keep, cfg=cfg)
+        save_checkpoint(ckpt_dir, state, at, keep=ckpt_keep, cfg=cfg,
+                        layout=layout)
         stats["save_s"].append(time.perf_counter() - t)
 
     n_params = sum(p.numel() for p in tree.leaves(state.params))
     if lead:
-        where = ("mesh=1x1 " if mesh is None
-                 else f"mesh={mesh.describe()} (params per rank) ")
         world = 1 if mesh is None else mesh.world
+        where = ("mesh=1x1 " if mesh is None
+                 else f"mesh={mesh.describe()} fsdp={layout.fsdp} (params "
+                      f"per rank) ")
+        state_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(
+            (state.params, state.opt["m"], state.opt["v"])))
         print(f"arch={cfg.name} params={n_params / 1e6:.1f}M {where}"
+              f"state={state_bytes / 1e9:.3f} GB a rank "
               + _resolved_knobs(cfg, mesh, batch // world * seq)
               + f"remat={remat} device={dev}")
     ds = SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed, device=dev)
@@ -195,7 +216,8 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
                 save(s + 1)
     if ckpt_dir:
         save(steps)
-        print("checkpoint saved to", ckpt_dir)
+        if lead:
+            print("checkpoint saved to", ckpt_dir)
     if history_out and lead:
         with open(history_out, "w") as f:
             json.dump({"arch": cfg.name, "steps": steps, "start": start,

@@ -51,8 +51,14 @@ f32.
 Across ranks (``mesh``, a ``launch/mesh.Mesh``): in training each rank's
 activations are its own batch rows, and a ``moe`` block runs
 ``moe.sharded_moe_apply`` over the rank's tokens with the rank's E/M
-experts (:func:`shard_experts` cuts them from a whole tree;
-:func:`expert_leaf_mask` marks them).  Serving (:class:`Transformer` with
+experts (:func:`expert_leaf_mask` marks them).  The trainer's tree is
+stored by a ``launch/shard.Layout`` (``layout``): under FSDP (ZeRO-3)
+each block gathers its stored blocks whole at its start, inside a
+``torch.utils.checkpoint`` region, so the whole weights live only while
+the block runs forward and again while it recomputes in the backward
+(whatever ``remat``); the embedding is gathered for its lookup (which
+keeps only the ids for its backward), the head once for the chunked CE
+(:func:`head_params`).  Serving (:class:`Transformer` with
 a mesh) keeps every activation and cache whole on every rank
 (``replicated``): embeddings, attention, norms and the head run on all
 rows everywhere, and each ``moe`` block splits its tokens over the ranks
@@ -208,7 +214,8 @@ def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator, *,
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device=None, dtype=torch.float32,
-                experts: Optional[slice] = None) -> Dict[str, Any]:
+                experts: Optional[slice] = None,
+                layout=None) -> Dict[str, Any]:
     """Random parameters in the port's tree layout, drawn in a fixed order
     from ``generator``, layer by layer (:func:`init_block`), then the
     embedding table (none for a frontend config), the head (untied, or a
@@ -217,25 +224,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     f32 leaves excepted): the same values as the f32 tree cast
     afterwards, with one f32 leaf alive at a time.  ``experts`` keeps
     that slice of each expert leaf (a rank's share: :func:`rank_experts`),
-    the values those of the whole draw."""
+    the values those of the whole draw.  ``layout`` (a
+    ``launch/shard.Layout``) keeps the rank's block of every leaf: each
+    layer (and the embedding, the head) is cut right after it is drawn
+    whole, so the values are those of the unsharded draw and the whole
+    model is never held."""
     _check_supported(cfg)
     d = cfg.d_model
     kw = dict(device=device, dtype=dtype)
-    params = {"blocks": [init_block(cfg, kind, generator, experts=experts,
-                                    **kw)
-                         for kind in layer_kinds(cfg)],
-              "final_norm": torch.zeros((d,), device=device)}
+
+    def keep(path, t):
+        return t if layout is None else layout.cut_tree(t, path)
+    params = {"blocks": [keep(f"blocks/{i}", init_block(
+        cfg, kind, generator, experts=experts, **kw))
+        for i, kind in enumerate(layer_kinds(cfg))],
+        "final_norm": torch.zeros((d,), device=device)}
     if cfg.frontend is None:
-        params["embed"] = draw(generator, (cfg.vocab_size, d), d ** -0.5,
-                               **kw)
+        params["embed"] = keep("embed", draw(
+            generator, (cfg.vocab_size, d), d ** -0.5, **kw))
     if untied_head(cfg):
-        params["lm_head"] = draw(generator, (d, cfg.vocab_size), d ** -0.5,
-                                 **kw)
+        params["lm_head"] = keep("lm_head", draw(
+            generator, (d, cfg.vocab_size), d ** -0.5, **kw))
     if "mamba_sa" in cfg.block_pattern:
-        params["shared_attn"] = {
+        params["shared_attn"] = keep("shared_attn", {
             "ln": torch.zeros((d,), device=device),
             "attn": attn_lib.init_attention(generator, cfg.attention, d,
-                                            **kw)}
+                                            **kw)})
     return params
 
 
@@ -265,25 +279,6 @@ def rank_experts(cfg: ModelConfig, mesh) -> Optional[slice]:
     return slice(m * n, (m + 1) * n)
 
 
-def shard_experts(params: Dict[str, Any], cfg: ModelConfig,
-                  mesh) -> Dict[str, Any]:
-    """``params`` with every expert leaf (E, …) cut to this rank's
-    ``[m·E/M, (m+1)·E/M)`` slice (a copy; m its model index); the rest
-    shared with ``params`` (replicated).  None ``mesh`` returns
-    ``params``."""
-    cut = rank_experts(cfg, mesh)
-    if cut is None:
-        return params
-    out = dict(params, blocks=[dict(b) for b in params["blocks"]])
-    for blk in out["blocks"]:
-        if "moe" in blk:
-            moe = blk["moe"] = dict(blk["moe"])
-            for k in EXPERT_LEAVES:
-                if k in moe:
-                    moe[k] = moe[k][cut].clone()
-    return out
-
-
 def untied_head(cfg: ModelConfig) -> bool:
     """Whether the tree holds an ``lm_head``: an untied config's, and
     always a frontend's, which has no table to tie it to."""
@@ -291,14 +286,22 @@ def untied_head(cfg: ModelConfig) -> bool:
 
 
 def embed_inputs(params: Dict[str, Any], cfg: ModelConfig,
-                 inputs: torch.Tensor, dtype) -> torch.Tensor:
+                 inputs: torch.Tensor, dtype, layout=None) -> torch.Tensor:
     """The reference's ``_embed_inputs`` on one device: token ids (B, S)
-    through the table, or a frontend's precomputed (B, S, d) embeddings
-    cast to ``dtype``."""
+    through the table (gathered whole by ``layout`` when it is stored
+    sharded), or a frontend's precomputed (B, S, d) embeddings cast to
+    ``dtype``."""
     if cfg.frontend is not None:
         return inputs.to(dtype)
-    return layers.embed(params["embed"], inputs, dtype,
-                        cfg.scale_embeddings)
+    return layers.embed(_whole(params, "embed", layout, dtype), inputs,
+                        dtype, cfg.scale_embeddings)
+
+
+def _whole(params: Dict[str, Any], name: str, layout, dtype):
+    """The top-level leaf ``name``, gathered whole by ``layout`` in
+    ``dtype``."""
+    t = params[name]
+    return t if layout is None else layout.whole(t, name, dtype)
 
 
 def _leaf(name: str, t: torch.Tensor, dtype, device) -> nn.Parameter:
@@ -467,8 +470,8 @@ def noisy(cfg: ModelConfig) -> bool:
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             *, caches=None, remat: str = "none",
             noise: Optional[Sequence[torch.Tensor]] = None,
-            long_context: bool = False, mesh=None, replicated: bool = False
-            ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+            long_context: bool = False, mesh=None, replicated: bool = False,
+            layout=None) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """Full-sequence pass (training, prefill) over a parameter tree — the
     f32 masters, or a :class:`Transformer`'s compute-dtype copy — with
     every weight cast to ``cfg.dtype`` at its use, as the reference's
@@ -480,7 +483,12 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     ranks: ``tokens`` are this rank's batch rows, ``params`` hold its
     experts, and ``noise`` its rows of each layer's draw; with
     ``replicated`` (serving) ``tokens`` and ``noise`` are the whole batch's
-    on every rank, and the ``moe`` blocks split the tokens.
+    on every rank, and the ``moe`` blocks split the tokens.  ``layout`` (a
+    ``launch/shard.Layout``) says how ``params`` are stored across the
+    ranks; when it gathers leaves (FSDP) every block runs in a
+    ``torch.utils.checkpoint`` region that gathers its weights first
+    (module docstring), so ``remat="none"`` then recomputes each block
+    as ``"block"`` does.
 
     ``noise`` holds one gate draw per layer (:func:`draw_gate_noise`);
     a noisy gate without it draws its own from a generator seeded 0 on
@@ -505,7 +513,9 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
         raise ValueError("remat recomputes blocks in a backward; a pass "
                          "that fills caches has none")
     dtype = getattr(torch, cfg.dtype)
-    x = embed_inputs(params, cfg, tokens, dtype)
+    if layout is not None and not layout.gathered:
+        layout = None                 # every leaf is used as stored
+    x = embed_inputs(params, cfg, tokens, dtype, layout)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     if noise is None and noisy(cfg):
@@ -516,7 +526,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     for i, (p, kind) in enumerate(zip(params["blocks"], layer_kinds(cfg),
                                       strict=True)):
         nz = None if noise is None else noise[i]
-        if remat == "none":
+        if remat == "none" and layout is None:
             x, _, a = block_forward(
                 p, x, cfg, kind=kind, positions=positions, noise=nz,
                 cache=None if caches is None else caches[i],
@@ -525,7 +535,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
         else:
             x, a = checkpoint(_remat_block, p, x, positions, nz, cfg, kind,
                               long_context, shared, mesh, replicated,
-                              use_reentrant=False, preserve_rng_state=False)
+                              layout, i, use_reentrant=False,
+                              preserve_rng_state=False)
         if a is not None:
             aux = aux + a
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -533,11 +544,25 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def _remat_block(p, x, positions, noise, cfg, kind, long_context, shared,
-                 mesh, replicated):
+                 mesh, replicated, layout=None, index=0):
+    if layout is not None:
+        # ZeRO-3: the whole weights exist only inside this region
+        dt = getattr(torch, cfg.dtype)
+        p = layout.whole(p, f"blocks/{index}", dt)
+        if shared is not None:
+            shared = layout.whole(shared, "shared_attn", dt)
     x, _, aux = block_forward(p, x, cfg, kind=kind, positions=positions,
                               noise=noise, long_context=long_context,
                               shared=shared, mesh=mesh, replicated=replicated)
     return x, aux
+
+
+def head_params(params: Dict[str, Any], cfg: ModelConfig,
+                layout=None) -> Dict[str, Any]:
+    """The leaf :func:`logits_from_hidden` reads (``lm_head``, or the tied
+    ``embed``), gathered whole by ``layout`` when it is stored sharded."""
+    name = "lm_head" if untied_head(cfg) else "embed"
+    return {name: _whole(params, name, layout, getattr(torch, cfg.dtype))}
 
 
 def logits_from_hidden(params: Dict[str, Any], cfg: ModelConfig,
@@ -588,8 +613,7 @@ class Transformer(nn.Module):
     mesh's) the model is this rank's: its experts are the rank's E/M
     (drawn whole leaf by leaf and cut, so its values are one process's;
     a given ``params`` must already be the rank's share, as
-    ``convert.params_from_numpy(..., mesh)`` or :func:`shard_experts`
-    give it), every other leaf whole, and :meth:`forward` /
+    ``convert.params_from_numpy(..., mesh)`` gives it), every other leaf whole, and :meth:`forward` /
     :meth:`decode_step` take the whole batch on every rank (module
     docstring: ``replicated``).  The step builders' keys hold the model,
     and with it the mesh.
@@ -618,7 +642,7 @@ class Transformer(nn.Module):
                 raise ValueError(
                     f"Transformer(mesh={mesh.describe()}): params hold "
                     f"{sorted(held)} experts a moe block, the rank's share "
-                    f"is {n} (transformer.shard_experts)")
+                    f"is {n} (convert.params_from_numpy(..., mesh))")
         self.blocks = nn.ModuleList(
             Block(p, self.dtype, self.device) for p in params["blocks"])
         self.final_norm = _leaf("final_norm", params["final_norm"],

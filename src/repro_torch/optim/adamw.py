@@ -28,24 +28,28 @@ def init_opt_state(params, cfg: TrainConfig) -> Dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def clip_by_global_norm(grads, max_norm: float, *, expert_mask=None,
+def clip_by_global_norm(grads, max_norm: float, *, norm_axes=None,
                         group=None):
     """(grads scaled so their global L2 norm is at most ``max_norm``, the
-    norm before scaling).  Across ranks ``expert_mask`` (a tree of bools,
-    ``transformer.expert_leaf_mask``) marks the leaves each rank holds a
-    shard of: their squares are summed over ``group`` (the model group),
-    while each replicated leaf counts once."""
-    if group is None:
-        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                            for g in tree.leaves(grads)))
+    norm before scaling).  Across ranks ``norm_axes`` (in the order of
+    ``tree.leaves(grads)``) names for each leaf the mesh axes whose ranks
+    hold disjoint blocks of it (``launch/shard.Layout.norm_axes``): its
+    squares are summed with the other leaves of those axes and the sum
+    all-reduced over ``group(axes)``, while a leaf on no axis (the same
+    on every rank) counts once."""
+    sq = [torch.sum(torch.square(g.float())) for g in tree.leaves(grads)]
+    if norm_axes is None:
+        gn = torch.sqrt(sum(sq))
     else:
-        sq = [torch.sum(torch.square(g.float())) for g in tree.leaves(grads)]
-        flags = tree.leaves(expert_mask)
-        rep = sum(s for s, f in zip(sq, flags, strict=True) if not f)
-        shard = sum((s for s, f in zip(sq, flags) if f),
-                    torch.zeros((), device=sq[0].device))
-        dist.all_reduce(shard, group=group)
-        gn = torch.sqrt(rep + shard)
+        sums: Dict = {}
+        for s, axes in zip(sq, norm_axes, strict=True):
+            sums[axes] = sums[axes] + s if axes in sums else s
+        total = torch.zeros((), device=sq[0].device)
+        for axes in sorted(sums):          # the same order on every rank
+            if axes:
+                dist.all_reduce(sums[axes], group=group(axes))
+            total = total + sums[axes]
+        gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree.map_(lambda g: (g * scale).to(g.dtype), grads), gn
 

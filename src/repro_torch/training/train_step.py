@@ -38,13 +38,20 @@ gate noise is drawn for the global tokens and each rank takes its rows,
 so the routing is the reference's.  The CE is the global masked mean (its
 numerator and denominator all-reduced), the aux loss global already
 (``core/balance``); each rank back-propagates that global loss into its
-own contributions (``alltoall.all_reduce_sum``), then the replicated
-leaves' gradients are summed over the world and the expert leaves' over
-the ``data`` group, so every rank holds the reference's gradients.
-``clip_by_global_norm`` counts each replicated leaf once and sums the
-expert shards' squares over the ``model`` group; the skip guard's ``ok``
-is all-reduced with MIN, so every rank skips the same steps.  Nothing
-here reads a value back to the host.
+own contributions (``alltoall.all_reduce_sum``).  The state is stored by
+a ``launch/shard.Layout`` (``layout``; by default today's: the experts
+over ``model``, every other leaf whole): a leaf that FSDP shards is
+gathered for use and its gradient arrives reduce-scattered from the
+gather's backward; every gradient is then summed over the axes its leaf
+is neither gathered nor computed sharded on (``Layout.reduce_axes``: a
+replicated leaf over the world, an expert leaf without FSDP over
+``data``), so every rank holds its block of the reference's gradients.
+``clip_by_global_norm`` sums each leaf's squares over the axes whose
+ranks hold disjoint blocks of it (``Layout.norm_axes``), counting every
+element once; AdamW runs on the blocks; the skip guard's ``ok`` is
+all-reduced with MIN, so every rank skips the same steps (a skipped step
+leaves every block's bits).  Nothing here reads a value back to the
+host.
 """
 from __future__ import annotations
 
@@ -61,7 +68,8 @@ from repro_torch.core import faults as faults_mod
 from repro_torch.core.alltoall import all_reduce_sum
 from repro_torch.core.config import ModelConfig, TrainConfig
 from repro_torch.data.pipeline import rank_rows
-from repro_torch.launch.mesh import rank_block
+from repro_torch.launch import shard
+from repro_torch.launch.mesh import rank_block, tree_paths
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import (adamw_update, clip_by_global_norm,
                                      init_opt_state, make_schedule)
@@ -94,18 +102,21 @@ def _master(p: torch.Tensor, dev: torch.device) -> torch.Tensor:
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, *,
                      params: Optional[Dict[str, Any]] = None,
-                     device=None, mesh=None) -> TrainState:
+                     device=None, mesh=None, layout=None) -> TrainState:
     """A fresh state on ``device`` (``cuda`` unless given).  ``params`` (an
     f32 tree from ``init_params`` or ``convert.params_from_numpy``; under
     ``mesh`` already the rank's share) is copied into f32 masters; without
     it the weights are drawn from a ``torch.Generator`` seeded with
-    ``tcfg.seed`` on the device — the whole model on every rank, which
-    then keeps its experts (``transformer.shard_experts``)."""
+    ``tcfg.seed`` on the device, each leaf whole and then cut to the
+    rank's block of ``layout`` (``launch/shard.layout_for(cfg, mesh)``,
+    without FSDP, unless given).  The moments take the params' layout;
+    the scalars are the same on every rank."""
     dev = resolve_device(device)
+    if mesh is not None and layout is None:
+        layout = shard.layout_for(cfg, mesh, fsdp=False)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
-        params = T.shard_experts(T.init_params(cfg, gen, device=dev), cfg,
-                                 mesh)
+        params = T.init_params(cfg, gen, device=dev, layout=layout)
     params = tree.map_(lambda p: _master(p, dev), params)
 
     def zero():
@@ -131,19 +142,22 @@ def _auto_chunks(S: int, V: int) -> int:
 def chunked_ce_loss(params, cfg: ModelConfig, h: torch.Tensor,
                     targets: torch.Tensor, mask: torch.Tensor,
                     num_chunks: Optional[int] = None,
-                    group=None) -> torch.Tensor:
+                    group=None, layout=None) -> torch.Tensor:
     """The unembed + CE over sequence chunks; h (B, S, d) → scalar.  With
     more than one chunk each chunk's body is recomputed in the backward
     (``torch.utils.checkpoint``), so only one chunk's (B, S/nc, V) logits
     are alive at a time, as in the reference's remat'd scan.  ``group``
-    (a process group) makes it the mean over its ranks' tokens."""
+    (a process group) makes it the mean over its ranks' tokens; ``layout``
+    gathers a sharded head once, before the chunks (its gradient
+    reduce-scattered once, after them)."""
     B, S, _ = h.shape
+    head = T.head_params(params, cfg, layout)
     nc = num_chunks or _auto_chunks(S, cfg.vocab_size)
     while S % nc:
         nc -= 1
 
     def body(hi, ti, mi):
-        logits = T.logits_from_hidden(params, cfg, hi).float()
+        logits = T.logits_from_hidden(head, cfg, hi).float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, ti.long()[..., None])[..., 0]
         nll = (lse - gold) * mi
@@ -167,20 +181,24 @@ def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                    remat: str = "none",
                    noise: Optional[List[torch.Tensor]] = None,
                    faults: Optional[faults_mod.FaultPlan] = None,
-                   step: Optional[torch.Tensor] = None, mesh=None):
+                   step: Optional[torch.Tensor] = None, mesh=None,
+                   layout=None):
     """(loss, ce, aux, grads) of one batch: the forward (``remat``, the
     per-layer gate ``noise``), the chunked CE and the backward, with the
     loss multiplied by ``scale`` (when given) before the backward.  The
     ``train.activations`` and ``train.loss`` seams of ``faults`` fire at
     the device counter ``step``.  ``grads`` has ``params``' structure.
     Under ``mesh`` ``batch`` holds this rank's rows, the losses are the
-    global ones and ``grads`` this rank's contributions to them."""
+    global ones and ``grads`` this rank's contributions to them (a leaf
+    ``layout`` gathers: summed over the gather's groups, the rank's
+    block)."""
     h, aux, _ = T.forward(params, batch["inputs"], cfg, remat=remat,
-                          noise=noise, mesh=mesh)
+                          noise=noise, mesh=mesh, layout=layout)
     h = faults_mod.apply_traced(faults, "train.activations", step, h)
     ce = chunked_ce_loss(params, cfg, h, batch["targets"],
                          batch["loss_mask"],
-                         group=None if mesh is None else dist.group.WORLD)
+                         group=None if mesh is None else dist.group.WORLD,
+                         layout=layout)
     loss = faults_mod.apply_traced(faults, "train.loss", step, ce + aux)
     scaled = loss if scale is None else loss * scale
     grads = torch.autograd.grad(scaled, tree.leaves(params))
@@ -197,18 +215,23 @@ def noise_generator(tcfg: TrainConfig, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _reduce_grads(grads, mask, mesh):
-    """Sum the replicated leaves' gradients over the world and the expert
-    leaves' over the data group, each set in one flat buffer."""
+def _reduce_grads(grads, layout):
+    """Sum each leaf's gradient over its ``layout.reduce_axes``: the
+    leaves of one set of axes in one flat buffer, the sets in a fixed
+    order (every rank runs the same collectives)."""
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
-    leaves, flags = tree.leaves(grads), tree.leaves(mask)
+    paths = [p for p, _ in tree_paths(grads)]
+    leaves = tree.leaves(grads)
     out = list(leaves)
-    for expert, group in ((False, None), (True, mesh.data_group)):
-        idx = [i for i, f in enumerate(flags) if f == expert]
-        if not idx or (expert and mesh.shape["data"] == 1):
-            continue
+    buckets: Dict[Tuple[str, ...], List[int]] = {}
+    for i, p in enumerate(paths):
+        axes = layout.reduce_axes(p)
+        if axes:
+            buckets.setdefault(axes, []).append(i)
+    for axes in sorted(buckets):
+        idx = buckets[axes]
         flat = _flatten_dense_tensors([leaves[i] for i in idx])
-        dist.all_reduce(flat, group=group)
+        dist.all_reduce(flat, group=layout.group(axes))
         for i, g in zip(idx, _unflatten_dense_tensors(
                 flat, [leaves[i] for i in idx]), strict=True):
             out[i] = g
@@ -217,7 +240,7 @@ def _reduce_grads(grads, mask, mesh):
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     faults: Optional[faults_mod.FaultPlan] = None,
-                    mesh=None):
+                    mesh=None, layout=None):
     """Returns ``train_step(state, batch, step=None, noise=None) →
     (state, metrics)``.
 
@@ -227,8 +250,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     the host's index of ``state.step`` (its draws are keyed by it), or
     ``noise``: one list of per-layer (tokens, E) draws per microbatch,
     over the microbatch's global tokens.  ``mesh`` trains across its
-    ranks (the module docstring): ``state`` holds this rank's experts,
-    and each microbatch's rows must divide over the ranks."""
+    ranks (the module docstring): ``state`` holds this rank's blocks of
+    ``layout`` (``launch/shard.layout_for(cfg, mesh)``, without FSDP,
+    unless given: the one ``init_train_state`` was given), and each
+    microbatch's rows must divide over the ranks."""
+    if mesh is not None and layout is None:
+        layout = shard.layout_for(cfg, mesh, fsdp=False)
     sched = make_schedule(tcfg)
     dynamic = tcfg.loss_scale == "dynamic"
     static_scale = not dynamic and float(tcfg.loss_scale) == 1.0
@@ -272,7 +299,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                 noise = [[None if n is None else n[rows] for n in nz]
                          for nz in noise]
         kw = dict(remat=tcfg.remat, faults=faults, step=state.step,
-                  mesh=mesh)
+                  mesh=mesh, layout=layout)
         loss, ce, aux, grads = loss_and_grads(
             state.params, parts[0], cfg, scale,
             noise=None if noise is None else noise[0], **kw)
@@ -285,11 +312,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                 loss, ce, aux = loss + lo, ce + c, aux + a
             grads = tree.map_(lambda g: g / mbs, grads)
             loss, ce, aux = loss / mbs, ce / mbs, aux / mbs
-        mask = None
-        if mesh is not None:
-            mask = T.expert_leaf_mask(state.params)
+        if layout is not None:
             with torch.no_grad():
-                grads = _reduce_grads(grads, mask, mesh)
+                grads = _reduce_grads(grads, layout)
         grads = faults_mod.apply_traced(faults, "train.grads", state.step,
                                         grads)
 
@@ -309,8 +334,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                 inv = 1.0 / scale
                 grads = tree.map_(lambda g: g * inv.to(g.dtype), grads)
             grads, gnorm = clip_by_global_norm(
-                grads, tcfg.grad_clip, expert_mask=mask,
-                group=None if mesh is None else mesh.model_group)
+                grads, tcfg.grad_clip, norm_axes=None if layout is None
+                else [layout.norm_axes(p) for p, _ in tree_paths(grads)],
+                group=None if layout is None else layout.group)
             lr = sched(state.step)
             new_params, new_opt = adamw_update(grads, state.opt,
                                                state.params, tcfg, lr)

@@ -4,7 +4,7 @@ trainer at the same mesh on the conftest's fake devices — the paper
 preset's smoke model (2 layers, d=128, 4 experts) in f32 from the same
 initial parameters and ``SyntheticLM`` batches; the replicated leaves
 bitwise equal on every rank; a NaN injected on one rank skipped on
-every rank."""
+every rank; a checkpoint saved at 2x2 resumed there."""
 import dataclasses
 
 import jax
@@ -61,15 +61,17 @@ def _reference(monkeypatch, shape, dispatch):
 
 
 @pytest.fixture(scope="module")
-def port_runs(init_params):
+def port_runs(init_params, tmp_path_factory):
     out = {}
     for shape, dispatch in CELLS:
+        ckpt = (str(tmp_path_factory.mktemp("ckpt_2x2")) if shape == (2, 2)
+                else None)
         out[shape, dispatch] = spawn(
             torch_ranks.train_rank, shape[0] * shape[1], backend="gloo",
             threads=1, args=(shape, ARCH, init_params, dict(
                 steps=STEPS, batch=BATCH, seq=SEQ, dispatch=dispatch),
                 dict(tune="auto", fabric=TFABRIC), jtuning.NOMINAL_FLOPS,
-                shape == (2, 2), NOISY if shape == (1, 2) else None))
+                ckpt, NOISY if shape == (1, 2) else None))
     return out
 
 
@@ -119,12 +121,19 @@ def test_nan_on_one_rank_is_skipped_on_every_rank(port_runs):
         assert r["skip"]["unchanged"] == [False, True, False]
 
 
-def test_checkpoint_dir_with_a_mesh_raises_naming_roadmap(port_runs):
-    """A sharded train state's checkpoint is not ported: run() with a mesh
-    and --ckpt-dir raises NotImplementedError naming ROADMAP.md on every
-    rank, before touching the directory."""
-    for r in port_runs[(2, 2), "grouped"]:
-        assert "ROADMAP.md" in r["skip"]["ckpt"], r["skip"]["ckpt"]
+def test_checkpoint_dir_with_a_mesh_saves_and_resumes(port_runs):
+    """run() at 2x2 with --ckpt-dir saves every 2 of 4 steps (and at the
+    end); resumed from the step-2 checkpoint on every rank, it ends
+    bitwise equal to the uninterrupted run, every leaf of params, moments
+    and counters."""
+    ranks = port_runs[(2, 2), "grouped"]
+    for r in ranks:
+        assert r["skip"]["ckpt"]["start"] == 2
+        assert r["skip"]["ckpt"]["saves"] == 1
+    ck = ranks[0]["skip"]["ckpt"]
+    assert set(ck["whole"]) == set(ck["resumed"])
+    for k, v in ck["whole"].items():
+        np.testing.assert_array_equal(ck["resumed"][k], v, err_msg=k)
 
 
 def test_noisy_gate_across_ranks_equals_one_device(port_runs, init_params):

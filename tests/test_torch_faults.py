@@ -315,6 +315,48 @@ def test_legacy_manifest_only_dir_still_restores(tmp_path):
     assert step == 7 and torch.equal(state["w"], torch.ones(2, 2))
 
 
+@pytest.mark.parametrize("kind", ["stored", "compressed"])
+def test_mapped_restore_reads_what_np_load_reads(tmp_path, kind):
+    """A stored npz is mapped on restore (``io._map_npz``): every array
+    the dtype, shape and bits ``np.load`` gives (C and Fortran order,
+    0-d, empty, bool); a compressed one is left to ``np.load``.  Either
+    restores through a manifest with checksums."""
+    from repro_torch.checkpoint import io as cio
+    rng = np.random.default_rng(3)
+    arrays = {"w": rng.standard_normal((4, 3)).astype(np.float32),
+              "f": np.asfortranarray(rng.standard_normal((2, 5))),
+              "s": np.array(3, np.int32),
+              "e": np.zeros((0, 5), np.float16),
+              "opt/b": np.array([True, False, True])}
+    d = tmp_path / "ck"
+    d.mkdir()
+    path = d / "ckpt_00000005.npz"
+    (np.savez if kind == "stored" else np.savez_compressed)(path, **arrays)
+    mapped = cio._map_npz(str(path))
+    if kind == "compressed":
+        assert mapped is None
+    else:
+        with np.load(path) as z:
+            assert sorted(mapped) == sorted(z.files)
+            for k in z.files:
+                assert mapped[k].dtype == z[k].dtype, k
+                assert mapped[k].shape == z[k].shape, k
+                assert np.array_equal(mapped[k], z[k]), k
+    with open(d / "ckpt_00000005.json", "w") as f:
+        json.dump({"latest": path.name, "step": 5, "keys": sorted(arrays),
+                   "checksums": {k: cio._checksum(a)
+                                 for k, a in arrays.items()}}, f)
+    tpl = {"w": torch.zeros(4, 3), "f": torch.zeros(2, 5, dtype=torch.float64),
+           "s": torch.zeros((), dtype=torch.int32),
+           "e": torch.zeros(0, 5, dtype=torch.float16),
+           "opt": {"b": torch.zeros(3, dtype=torch.bool)}}
+    state, step = restore_checkpoint(str(d), tpl, fallback=False)
+    assert step == 5
+    for k, t in (("w", state["w"]), ("f", state["f"]), ("s", state["s"]),
+                 ("e", state["e"]), ("opt/b", state["opt"]["b"])):
+        assert np.array_equal(t.numpy(), arrays[k]), k
+
+
 def test_format_is_the_references_in_both_directions(tmp_path):
     """The same toy state saved by the port and by the reference: equal
     manifests (keys, checksums, format) and equal arrays; each package

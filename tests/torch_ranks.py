@@ -1,6 +1,7 @@
-"""Rank bodies for the expert-parallel tests (``test_torch_alltoall.py``,
+"""Rank bodies for the tests across ranks (``test_torch_alltoall.py``,
 ``test_torch_ep.py``, ``test_torch_ep_train.py``, ``test_torch_expert_tp.py``,
-``test_torch_serve_ranks.py``): each runs in a process that
+``test_torch_serve_ranks.py``, ``test_torch_fsdp.py``,
+``test_torch_ckpt_ranks.py``): each runs in a process that
 ``repro_torch.launch.mesh.spawn`` starts, over gloo on the CPU, and returns
 numpy arrays.  Imports no JAX: the spawned ranks load only the port."""
 from __future__ import annotations
@@ -126,9 +127,9 @@ def train_rank(rank, shape, arch, init_params, kw, tune, flops, skip,
                noisy=None):
     """``launch.train.run`` at ``shape`` from the reference's initial
     parameters (f32 smoke model): the history and this rank's final
-    parameters (replicated and expert leaves); with ``skip`` then
-    :func:`skip_rank`'s check; with ``noisy`` (run keywords) the history
-    of one more run, e.g. a noisy gate's."""
+    parameters (replicated and expert leaves); with ``skip`` (a
+    checkpoint directory) then :func:`skip_rank`'s check; with ``noisy``
+    (run keywords) the history of one more run, e.g. a noisy gate's."""
     from repro_torch import tree
     from repro_torch.launch import train
     from repro_torch.models import transformer as T
@@ -142,18 +143,18 @@ def train_rank(rank, shape, arch, init_params, kw, tune, flops, skip,
     return {"history": hist,
             "replicated": [_np(p) for p, f in zip(leaves, mask) if not f],
             "experts": [_np(p) for p, f in zip(leaves, mask) if f],
-            "skip": skip_rank(rank, shape, arch, init_params) if skip
+            "skip": skip_rank(rank, shape, arch, init_params, skip) if skip
             else None,
             "noisy": None if noisy is None else train.run(
                 arch, smoke=True, mesh_shape=shape, device="cpu",
                 init_params=init_params, log_every=1000, **noisy)[1]}
 
 
-def skip_rank(rank, shape, arch, init_params):
+def skip_rank(rank, shape, arch, init_params, ckpt_dir):
     """Three f32 steps of ``make_train_step`` at ``shape`` with a NaN
     injected into this rank's gradients at step 1 on rank 1 only: each
     rank's skipped counts, and whether step 1 left its params and moments
-    bitwise unchanged."""
+    bitwise unchanged; then :func:`ckpt_rank` into ``ckpt_dir``."""
     from repro_torch import configs, tree
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import faults
@@ -181,14 +182,153 @@ def skip_rank(rank, shape, arch, init_params):
                     tree.leaves((new.params, new.opt)),
                     tree.leaves((state.params, state.opt)))))
             state = new
-    try:
-        from repro_torch.launch import train
-        train.run(arch, steps=1, batch=4, seq=16, smoke=True, device="cpu",
-                  mesh_shape=shape, ckpt_dir="unused")
-        ckpt = "ran"
-    except NotImplementedError as e:
-        ckpt = str(e)
-    return {"skipped": skipped, "unchanged": unchanged, "ckpt": ckpt}
+    return {"skipped": skipped, "unchanged": unchanged,
+            "ckpt": ckpt_rank(rank, shape, arch, init_params, ckpt_dir)}
+
+
+def ckpt_rank(rank, shape, arch, init_params, ckpt_dir):
+    """``launch.train.run`` at ``shape`` (f32 smoke, the stored layout its
+    own) saving every 2 of 4 steps into ``ckpt_dir``, then a resume there
+    from the step-2 checkpoint (the step-4 files removed on rank 0) to
+    step 4: the two runs' final states (reference checkpoint keys, rank
+    0) and the resume's start."""
+    import glob
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch import configs, convert
+    from repro_torch.launch import train
+    kw = dict(steps=4, batch=4, seq=16, smoke=True, device="cpu",
+              mesh_shape=shape, init_params=init_params, log_every=1000,
+              ckpt_dir=ckpt_dir)
+    cfg = configs.smoke_config(arch)
+    st = {}
+    state, _ = train.run(arch, ckpt_every=2, stats=st, **kw)
+    whole = convert.state_to_numpy(state, cfg, layout=st["layout"])
+    if rank == 0:
+        for f in glob.glob(os.path.join(ckpt_dir, "ckpt_00000004.*")):
+            os.remove(f)
+    dist.barrier()
+    state, hist = train.run(arch, resume=True, stats=st, **kw)
+    return {"start": hist[0]["step"], "saves": len(st["save_s"]),
+            "whole": whole,
+            "resumed": convert.state_to_numpy(state, cfg,
+                                              layout=st["layout"])}
+
+
+def _scalars(state):
+    """The state's replicated scalars as Python numbers."""
+    return [float(t) for t in (state.opt["count"], state.step,
+                               state.skipped, state.nonfinite_streak,
+                               state.good_streak, state.loss_scale)]
+
+
+def load_tree(path):
+    """A tree the test process pickled to ``path`` (a spawned rank's
+    arguments cross a pipe that blocks the next rank's start while this
+    one imports: megabytes of arguments serialise the ranks' startup)."""
+    import pickle
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def fsdp_train_rank(rank, arch, init_path, cells, shape_skip):
+    """Per cell ``(key, shape, run keywords, twin)``: ``launch.train.run``
+    with ``fsdp=True`` and, where ``twin``, then ``fsdp=False`` from the
+    reference's initial parameters (f32 smoke model, pickled at
+    ``init_path``: :func:`load_tree`): the histories, the
+    final states whole (reference checkpoint keys, rank 0), the
+    replicated scalars and the parameters this rank stores; then the FSDP
+    draw against one process's (:func:`fsdp_draw_check`) and the skip
+    check at ``shape_skip`` (:func:`fsdp_skip_rank`)."""
+    from repro_torch import configs, convert, tree
+    from repro_torch.launch import train
+    _f32_smoke(train.configs)
+    cfg = configs.smoke_config(arch)
+    init_params = load_tree(init_path)
+    out = {}
+    for key, shape, kw, twin in cells:
+        for fsdp in (True, False)[:1 + twin]:
+            st = {}
+            state, hist = train.run(arch, steps=3, smoke=True, device="cpu",
+                                    mesh_shape=shape,
+                                    init_params=init_params, log_every=1000,
+                                    fsdp=fsdp, stats=st, **kw)
+            out[key, fsdp] = dict(
+                history=hist, scalars=_scalars(state),
+                whole=convert.state_to_numpy(state, cfg,
+                                             layout=st["layout"]),
+                stored=sum(t.numel() for t in tree.leaves(state.params)))
+    out["draw"] = fsdp_draw_check(shape_skip, arch)
+    out["skip"] = fsdp_skip_rank(rank, shape_skip, arch, init_params)
+    return out
+
+
+def fsdp_draw_check(shape, arch):
+    """``init_train_state`` at ``shape`` under FSDP, drawing its own
+    weights (each leaf whole, then cut): gathered whole on rank 0, bitwise
+    one process's draw; and each stored leaf's shape, the layout's
+    block."""
+    from repro_torch import configs, convert, tree
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.launch import shard
+    from repro_torch.launch.mesh import make_mesh, tree_paths
+    from repro_torch.training import train_step as ts
+    cfg = configs.smoke_config(arch)
+    tcfg = TrainConfig()
+    mesh = make_mesh(shape, device="cpu")
+    layout = shard.layout_for(cfg, mesh, fsdp=True)
+    state = ts.init_train_state(cfg, tcfg, device="cpu", mesh=mesh,
+                                layout=layout)
+    one = ts.init_train_state(cfg, tcfg, device="cpu")
+    shapes = convert.param_shapes(cfg)
+    blocks = all(tuple(t.shape) == layout.block_shape(p, s.shape)
+                 for (p, t), (_, s) in zip(tree_paths(state.params),
+                                           tree_paths(shapes), strict=True))
+    whole = [layout.to_host(p, t) for p, t in tree_paths(state.params)]
+    equal = mesh.rank != 0 or all(
+        torch.equal(w, o.detach())
+        for w, o in zip(whole, tree.leaves(one.params), strict=True))
+    return {"blocks": blocks, "equal": equal}
+
+
+def fsdp_skip_rank(rank, shape, arch, init_params):
+    """:func:`skip_rank`'s check under FSDP: three f32 steps with a NaN in
+    rank 1's gradients at step 1; each rank's skipped counts and whether
+    step 1 left every block of its params and moments bitwise
+    unchanged."""
+    from repro_torch import configs, tree
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import faults
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import shard
+    from repro_torch.training import train_step as ts
+    mesh = make_mesh(shape, device="cpu")
+    cfg = configs.smoke_config(arch)
+    layout = shard.layout_for(cfg, mesh, fsdp=True)
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=1, total_steps=3)
+    plan = faults.plan_from_specs(["train.grads:nan@1"]) if rank == 1 \
+        else None
+    step = ts.make_train_step(cfg, tcfg, faults=plan, mesh=mesh,
+                              layout=layout)
+    state = ts.init_train_state(cfg, tcfg, device="cpu", mesh=mesh,
+                                layout=layout,
+                                params=params_from_numpy(init_params, cfg,
+                                                         mesh, fsdp=True))
+    ds = SyntheticLM(cfg, batch=4, seq_len=16, device="cpu")
+    skipped, unchanged = [], []
+    with faults.active(plan):
+        for s in range(3):
+            new, m = step(state, ds.next_batch(s), step=s)
+            skipped.append(int(m["skipped"]))
+            unchanged.append(all(
+                torch.equal(a, b) for a, b in zip(
+                    tree.leaves((new.params, new.opt)),
+                    tree.leaves((state.params, state.opt)))))
+            state = new
+    return {"skipped": skipped, "unchanged": unchanged}
 
 
 def _serve_model(shape, cfg, tree, dispatch):
@@ -274,3 +414,91 @@ def serve_rank(rank, shape, cfg, tree, prompts, steps, dispatches, slot_run,
         serve.main(cli_argv)
     out["cli"] = text.getvalue()
     return out
+
+
+def _ckpt_run(arch, init_params, ckpt_dir, **kw):
+    """``launch.train.run`` of the f32 smoke model at 2x2 under FSDP, 4
+    steps saving every 2 into ``ckpt_dir``: (state, history, stats)."""
+    from repro_torch.launch import train
+    _f32_smoke(train.configs)
+    st = {}
+    state, hist = train.run(arch, steps=4, batch=4, seq=16, smoke=True,
+                            device="cpu", mesh_shape=(2, 2), fsdp=True,
+                            init_params=init_params, log_every=1000,
+                            ckpt_dir=ckpt_dir, ckpt_every=2, stats=st, **kw)
+    return state, hist, st
+
+
+def _restore_whole(arch, shape, fsdp, direc):
+    """A fresh state at ``shape`` restored from ``direc`` into this
+    rank's blocks: (step, the whole state on rank 0, the stored shapes of
+    the params' leaves)."""
+    from repro_torch import configs, convert, tree
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.launch import shard
+    from repro_torch.training import train_step as ts
+    cfg = configs.smoke_config(arch)
+    mesh = make_mesh(shape, device="cpu")
+    layout = shard.layout_for(cfg, mesh, fsdp=fsdp)
+    tpl = ts.init_train_state(cfg, TrainConfig(), device="cpu", mesh=mesh,
+                              layout=layout)
+    state, step = restore_checkpoint(direc, tpl, cfg=cfg, layout=layout)
+    return (step, convert.state_to_numpy(state, cfg, layout=layout),
+            [tuple(t.shape) for t in tree.leaves(state.params)])
+
+
+def ckpt_main_rank(rank, arch, init_params, dirs):
+    """The checkpoint across ranks: a 2x2 FSDP run saving every 2 of 4
+    steps into ``dirs["run"]`` (its final state whole); that directory
+    restored at 1x4 without FSDP; a copy with the step-4 npz truncated
+    (rank 0) restored at 2x2 under FSDP (the fallback); the reference's
+    checkpoint ``dirs["ref"]`` restored at 2x2 under FSDP."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch import configs, convert
+    from repro_torch.core import faults
+    state, hist, st = _ckpt_run(arch, init_params, dirs["run"])
+    cfg = configs.smoke_config(arch)
+    out = {"whole": convert.state_to_numpy(state, cfg, layout=st["layout"]),
+           "saves": len(st["save_s"])}
+    out["1x4"] = _restore_whole(arch, (1, 4), False, dirs["run"])
+    if rank == 0:
+        shutil.copytree(dirs["run"], dirs["truncated"])
+        faults.corrupt_file(f"{dirs['truncated']}/ckpt_00000004.npz")
+    dist.barrier()
+    out["fallback"] = _restore_whole(arch, (2, 2), True, dirs["truncated"])
+    out["ref"] = _restore_whole(arch, (2, 2), True, dirs["ref"])
+    return out
+
+
+def ckpt_kill_rank(rank, arch, init_params, ckpt_dir, seam):
+    """The 2x2 FSDP run of :func:`ckpt_main_rank` under
+    ``--inject ckpt.<seam>:kill@2``: rank 0 SIGKILLs itself at that seam
+    of the step-2 save (the other ranks wait at the save's barrier until
+    ``spawn`` ends them)."""
+    from repro_torch.core import faults
+    plan = faults.plan_from_specs([f"ckpt.{seam}:kill@2"])
+    _ckpt_run(arch, init_params, ckpt_dir, faults=plan)
+    return "not killed"
+
+
+def ckpt_resume_rank(rank, arch, init_params, dirs):
+    """For each directory a killed run left: what ``latest_step`` finds
+    there, then the run again with ``--resume``: the step it started
+    from and its final state whole (rank 0)."""
+    from repro_torch import configs, convert
+    from repro_torch.checkpoint import latest_step
+    _f32_smoke(configs)
+    cfg = configs.smoke_config(arch)
+    out = []
+    for d in dirs:
+        found = latest_step(d)
+        state, hist, st = _ckpt_run(arch, init_params, d, resume=True)
+        out.append({"latest": found, "start": hist[0]["step"],
+                    "whole": convert.state_to_numpy(state, cfg,
+                                                    layout=st["layout"])})
+    return out
+
