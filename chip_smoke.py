@@ -25,7 +25,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    invalid); the forward at head dims 120 and 256 (2l-2m, with phase
    13), and dq and dk/dv there (2n: 2l's edge cases and the windowed
    presets' training shapes of phase 14, B=2 S=8192, kv head by kv head,
-   timed beside ``flex_attention``'s backward); 2g's cases include
+   timed beside ``flex_attention``'s backward; and the context-parallel
+   shapes of 18g, gemma2's local and global attention with one row's
+   chunk of 4096 or 2048 queries at every offset against its 8192 keys,
+   the dk and dv of keys no query sees exactly 0, the 2x2 chunks timed
+   beside ``flex_attention``'s forward and backward);
+   2g's cases include
    hubert-xlarge's attention (d=80, non-causal, S=781: a last tile of 13
    rows), and 2o holds the forward, dq and dk/dv at the frontend presets'
    training shapes of phase 15 (hubert B=8 H=KV=16 S=781 d=80
@@ -276,13 +281,28 @@ Phases, in order; any failure ends the script with a non-zero exit:
    rank's blocks (bitwise the ranks' blocks, by digest); each rank's peak
    below a 1-step ``fsdp=False`` run's at
    2x2; the checkpoint's bytes, save / restore seconds and step walls
-   printed as host-staged.
+   printed as host-staged.  18g: context parallelism, a batch with fewer
+   rows than ranks.  18g-a: a ``gemma2-9b`` local and global block (f32,
+   published widths) at 1x4 over 2 rows of 8192 (two ranks a row, the
+   chunk's queries against the row's keys gathered over the row group),
+   forward and backward against one process (the parent): y and dx
+   within 1e-4, every gradient leaf summed over the ranks within 1e-3 of
+   its max, kernels 7-9 once each and one row-group gather a rank.  18g-b:
+   ``gemma2-9b`` at one local/global period trained at 2x2 through
+   ``launch.train.run`` (FSDP by ``needs_fsdp``), batch 2 x 8192, 2 AdamW
+   steps: finite, none skipped, the ranks' losses equal, each step's loss
+   within 1e-5 and gradient norm within 1e-3 of the same run on one
+   process (the parent's, before the spawn), rank 0's
+   launches of kernels 7-9 exactly the path's (the forward twice a layer
+   and step under FSDP's recompute), the row-group gathers a step; the
+   per-rank peak, stored bytes and step walls printed as host-staged.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all ten kernels; the row-per-step gather, on no
 serving or training path, with the launches of its phase-5 run;
 ``launches_ep_serve``: rank 0's in 18e; ``launches_fsdp``: rank 0's in
-18f), and
+18f; ``launches_cp``: rank 0's in 18g-b; ``max_abs_err_cp``: 2n's
+context-parallel shapes), and
 ``{"ok": true, "device": {...}}``.  ``--phases kernels`` runs phases 1, 2
 and 5 only, for work on a kernel, ``--phases trainer`` phases 1, 9-11
 and 14, ``--phases presets`` phases 1, 12 and 13, ``--phases
@@ -298,6 +318,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -1862,6 +1883,233 @@ def phase_flash_wide_bwd(torch, dev, smi, errs):
         del x32, q, k, v, do, o, lse, delta, bwd, flex, others
         torch.cuda.empty_cache()
     return rows
+
+
+# Phase 2n's context-parallel shapes: gemma2's training attention as a
+# rank of a split row sees it (18g: B=1, H:KV 16:8, d=256, the row's
+# Sk=8192 keys): its chunk of Sq queries at positions off..off+Sq-1 —
+# (Sq, offsets checked, offsets timed): 2x2 (two ranks a row), 1x4 (four)
+CP_KINDS = (("gemma2-9b local", 16, 8, 256, 4096, 50.0),
+            ("gemma2-9b global", 16, 8, 256, None, 50.0))
+CP_SK = 8192
+CP_SHAPES = ((4096, (0, 4096), (0, 4096)), (2048, (0, 2048, 4096, 6144), ()))
+
+
+def phase_flash_cp(torch, dev, smi, errs):
+    """Phase 2n at the context-parallel shapes (``CP_SHAPES``): kernels
+    7-9 in bf16 with a chunk's q positions offset against the whole row's
+    keys, kv head by kv head against their plain versions to 2n's
+    tolerances (``check_by_kv_head``: o, lse, dq, dk, dv, the backward fed
+    the forward kernel's lse and o); dk and dv of the keys no query of the
+    chunk may see (past its last position; before its first minus the
+    window) exactly 0 — the dk/dv blocks of those k tiles visit no q
+    tile and store their zeroed accumulators.  The 2x2 shapes timed as
+    2n times its training shapes (``bound_ms`` over the pairs the chunk's
+    mask keeps), beside ``flex_attention``'s forward and backward at the
+    same shape (``flex_cp_yardstick``: one compile for every kind and
+    offset), held to the plain versions as 2n holds its backward.
+    Returns the timing rows."""
+    from repro_torch.kernels import flash_attention as F
+    gd = torch.Generator(device=dev).manual_seed(2123)
+    rows = TimingRows(torch, smi)
+    memo = {}
+    kp = torch.arange(CP_SK, dtype=torch.int32, device=dev)
+    src, ref = ("src/repro_torch/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py")
+    unseen_total = 0
+    print(f"phase 2n (context-parallel shapes): kernels 7-9 bf16, one row "
+          f"of Sk={CP_SK} keys, a chunk of Sq queries at offset q "
+          f"positions, {CP_SHAPES} (Sq, offsets, timed); "
+          f"{FLASH_TOLERANCES}; dk, dv of the keys no query sees exactly 0")
+    for name, H, KV, d, window, cap in CP_KINDS:
+        k, v = (torch.randn((1, KV, CP_SK, d), generator=gd, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        st = (d ** -0.5, True, window, cap)
+        for Sq, offsets, timed in CP_SHAPES:
+            for off in offsets:
+                q, do = (torch.randn((1, H, Sq, d), generator=gd,
+                                     device=dev).to(torch.bfloat16)
+                         for _ in range(2))
+                qp = torch.arange(off, off + Sq, dtype=torch.int32,
+                                  device=dev)
+                flex = (flex_cp_yardstick(torch, memo, q, k, v, do, off,
+                                          st[0], window, cap)
+                        if off in timed else None)
+                others = ({"flex_attention": flex[3]}
+                          if flex and flex[0] else {})
+                o, lse = F.flash_fwd(q, k, v, qp, kp, *st)
+                ok, worst, note, dist = check_by_kv_head(
+                    torch, F, q, k, v, qp, kp, st, o, lse, do=do,
+                    others=others)
+                delta = (do.float() * o.float()).sum(-1)
+                bwd = (q, k, v, do, lse, delta, qp, kp, *st)
+                dk, dv = F.flash_dkv(*bwd)
+                unseen = ~F._mask(qp, kp, True, window).any(dim=0)
+                n_unseen = int(unseen.sum())
+                zero = bool((dk[:, :, unseen] == 0).all()
+                            and (dv[:, :, unseen] == 0).all())
+                for key, whats in (("flash_fwd_cp", ("o",)),
+                                   ("flash_dq_cp", ("dq",)),
+                                   ("flash_dkv_cp", ("dk", "dv"))):
+                    errs[key] = max(errs.get(key, 0.0),
+                                    *(worst[w] for w in whats))
+                label = (f"{name} B=1 H:KV={H}:{KV} Sq={Sq} at q offset "
+                         f"{off} Sk={CP_SK} d={d}")
+                print(f"  {label} bf16: max abs err " + ", ".join(
+                    f"{w} {x:.3e}" for w, x in worst.items()) + f"{note}; "
+                    f"{n_unseen} keys no query sees, their dk and dv "
+                    f"exactly 0: {zero}: {ok and zero}")
+                check(ok, f"kernels 7-9 at {label} disagree with their "
+                          f"plain versions")
+                check(zero, f"{label}: dk/dv of the {n_unseen} keys no "
+                            f"query sees are not 0")
+                unseen_total += n_unseen
+                if flex and flex[0] is None:
+                    print(f"    flex_attention does not run here: {flex[4]}")
+                elif flex:
+                    print(f"    flex_attention forward and backward "
+                          f"compiled and run in {flex[4]:.1f} s")
+                    far = dist["flex_attention"]
+                    check(all(far[w] <= 2 * dist["bf16-p plain"][w]
+                              for w in far),
+                          f"flex_attention computes another function than "
+                          f"kernels 7-9 at {label}: {dist}")
+                if off in timed:
+                    cp_timing_rows(torch, F, rows, bwd, H, KV, d, window,
+                                   label, src, ref, flex)
+                del q, do, o, lse, delta, bwd, dk, dv, flex, others
+                torch.cuda.empty_cache()
+        del k, v
+    check(unseen_total > 0, "2n: no context-parallel case has a key that "
+                            "no query sees")
+    return rows
+
+
+def flex_cp_yardstick(torch, memo, q, k, v, do, off, scale, window, cap):
+    """``flex_attention`` at one context-parallel shape of phase 2n: the
+    chunk's queries at positions ``off``.. against the row's keys at
+    0..Sk-1, the causal window as a mask that reads the offset and the
+    window from two tensors (a global layer's window past every key),
+    the softcap as a score_mod, GQA in the call.  ``memo`` keeps the
+    compiled call and those tensors, so every kind and offset of one cap
+    shares the compiles.  Returns (forward call, backward call of one
+    saved forward (dq, dk, dv), (the same backward on a side stream,
+    the stream) for its device-only time, {"o", "dq", "dk", "dv"},
+    seconds this call took with any compile) or (None, None, None, None,
+    why not)."""
+    t0 = time.perf_counter()
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        if not memo:
+            for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                             ("TRITON_CACHE_DIR", "triton")):
+                os.environ.setdefault(var, str(ROOT / "build" / sub))
+            os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+            at0, win = (torch.zeros((), dtype=torch.int32, device=q.device)
+                        for _ in range(2))
+
+            def mask_mod(b, h, qi, ki):
+                at = qi + at0
+                return (ki <= at) & (ki > at - win)
+
+            def softcap(s, b, h, qi, ki):
+                return memo["cap"] * torch.tanh(s / memo["cap"])
+            memo.update(at0=at0, win=win, mask_mod=mask_mod, cap=cap,
+                        softcap=softcap,
+                        fn=torch.compile(flex_attention, dynamic=False))
+        if memo["cap"] != cap:
+            raise ValueError(f"softcap {cap} after {memo['cap']}")
+        memo["at0"].fill_(off)
+        memo["win"].fill_(1 << 30 if window is None else window)
+        bm = create_block_mask(memo["mask_mod"], None, None, q.shape[2],
+                               k.shape[2], device=q.device)
+
+        def call(*t):
+            return memo["fn"](*t, score_mod=memo["softcap"], block_mask=bm,
+                              scale=scale, enable_gqa=True)
+
+        def fwd():
+            return call(q, k, v)
+        o = fwd()
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = call(*leaves)
+
+        def bwd():
+            return torch.autograd.grad(out, leaves, do, retain_graph=True)
+        grads = bwd()
+        # a backward runs on its forward's stream: a forward on a side
+        # stream for the backward's graph
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            side_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out_side = call(*side_leaves)
+        torch.cuda.current_stream().wait_stream(side)
+
+        def bwd_side():
+            return torch.autograd.grad(out_side, side_leaves, do,
+                                       retain_graph=True)
+        torch.cuda.synchronize()
+        return (fwd, bwd, (bwd_side, side),
+                dict(zip(("o", "dq", "dk", "dv"), (o, *grads))),
+                time.perf_counter() - t0)
+    except Exception as e:                     # noqa: BLE001 - reported
+        return None, None, None, None, (f"{type(e).__name__}: "
+                                        f"{str(e).splitlines()[0][:200]}")
+
+
+def cp_timing_rows(torch, F, rows, bwd, H, KV, d, window, label, src, ref,
+                   flex):
+    """Kernels 7-9 timed at one context-parallel shape (``bwd``: the
+    backward's arguments), as phases 2m and 2n time theirs: bound_ms from
+    the pairs the chunk's mask keeps (2 products of 2d operations for the
+    forward, 3 for dq, 4 for dk/dv) or the bytes each reads and writes;
+    the plain versions kv head by kv head; beside them ``flex``
+    (``flex_cp_yardstick``'s result): its forward, and its backward (dq,
+    dk and dv in one call) for both backward kernels."""
+    q, k, v, do, lse, delta, qp, kp = bwd[:8]
+    st = bwd[8:]
+    G, Sq, Sk = H // KV, q.shape[2], k.shape[2]
+
+    def by_kv_head(fn, fwd=False):
+        heads = [(slice(h * G, (h + 1) * G), slice(h, h + 1))
+                 for h in range(KV)]
+        if fwd:
+            return [fn(q[:, hs], k[:, ks], v[:, ks], qp, kp, *st)
+                    for hs, ks in heads]
+        return [fn(q[:, hs], k[:, ks], v[:, ks], do[:, hs], lse[:, hs],
+                   delta[:, hs], qp, kp, *st) for hs, ks in heads]
+    pairs = int(F._mask(qp, kp, True, window).sum())
+    need = 2 * H * pairs * d
+    t_q, t_kv, t_rows = H * Sq * d * 2, KV * Sk * d * 2, H * Sq * 4
+    pos = (Sq + Sk) * 4
+    fwd_lib, bwd_lib, bwd_graph, _, why = flex
+    if fwd_lib is None:
+        note = {"library_note": f"flex_attention does not run: {why}"}
+        libs = [(None, None, note)] * 3
+    else:
+        seen = {"flex_attention_s": why}
+        back = (bwd_lib, bwd_graph, dict(seen, library_call=(
+            "flex_attention's backward (dq, dk and dv in one call)")))
+        libs = [(fwd_lib, None, dict(seen, library_call="flex_attention")),
+                back, back]
+    kernels = (
+            ("flash_fwd", 49, lambda: F.flash_fwd(q, k, v, qp, kp, *st),
+             lambda: by_kv_head(F.flash_fwd_plain, fwd=True),
+             2 * t_q + 2 * t_kv + t_rows + pos, 2),
+            ("flash_dq", 81, lambda: F.flash_dq(*bwd),
+             lambda: by_kv_head(F.flash_dq_plain),
+             3 * t_q + 2 * t_kv + 2 * t_rows + pos, 3),
+            ("flash_dkv", 115, lambda: F.flash_dkv(*bwd),
+             lambda: by_kv_head(F.flash_dkv_plain),
+             2 * t_q + 4 * t_kv + 2 * t_rows + pos, 4))
+    for (kname, line, kern, plain, nbytes, n_prod), (lib, graph, extra) in (
+            zip(kernels, libs)):
+        rows.add(kname, src, f"{ref}:{line}", kern, plain, lib, nbytes,
+                 n_prod * need, BF16_FLOPS,
+                 f"{label} bf16 causal window={window} cap={st[3]}",
+                 slow=True, library_graph=graph, **extra)
 
 
 def phase_flash_frontends(torch, dev, errs, shapes=None, phase="2o",
@@ -5524,6 +5772,30 @@ EP_SERVE_BOUND = 2.0 ** -4
 # the peak: the optimizer's update)
 EP_FSDP = dict(mesh=(2, 2), batch=8, seq=1024, steps=3, save_at=2,
                nofsdp_steps=1)
+# 18g: context parallelism, a batch with fewer rows than ranks.  18g-a: a
+# gemma2-9b local and a global block (published widths, f32) at 1x4 over
+# 2 rows of 8192 (row groups {0, 1} and {2, 3}: 4096 positions a rank,
+# the window of 4096 reaching across the chunks), forward and backward
+# against one process on the card (the parent, before the spawn): the
+# output and dx within EP_TOL of their max, every gradient leaf (summed
+# over the ranks) within 1e-3 of its max, phase 14's block tolerances.
+# 18g-b: gemma2-9b at one local/global period (1.31B parameters, phase
+# 14's cut) trained at 2x2 through launch.train.run, FSDP by needs_fsdp
+# (1.31B x 12 B over model=2 > 6e9), batch 2 x 8192 (each rank 4096
+# positions of one row), 2 AdamW steps (the first at lr 0, a warm-up
+# step), against the same run on one process (the parent, before the
+# spawn: launch.train.run with the same arguments but the mesh): each
+# step's loss within EP_CP_LOSS_TOL of it, each step's gradient norm (the
+# backward through the row groups) within EP_CP_NORM_TOL (bf16 compute:
+# the ranks' bf16 partial gradients summed in f32)
+EP_CP = dict(arch="gemma2-9b", batch=2, seq=8192)
+EP_CP_BLOCKS = dict(mesh=(1, 4), kinds=("local", "global"), seed=43)
+EP_CP_BLOCK_TOL = 1e-3
+EP_CP_TRAIN = dict(mesh=(2, 2), layers=2, steps=2)
+EP_CP_RUN = dict(steps=EP_CP_TRAIN["steps"], batch=EP_CP["batch"],
+                 seq=EP_CP["seq"], smoke=False, seed=0, log_every=1,
+                 num_layers=EP_CP_TRAIN["layers"])
+EP_CP_LOSS_TOL, EP_CP_NORM_TOL = 1e-5, 1e-3
 # every kernel's plain version: a rank of 18c must never run one
 PLAIN_VERSIONS = (("topk_gate", "topk_gate_plain"),
                   ("layout_transform", "gather_rows_plain"),
@@ -6044,6 +6316,224 @@ def report_ep_fsdp(ranks, smi, world, one_loss, parent):
                 seconds=max(r["18f_s"] for r in ranks))
 
 
+def cp_blocks_inputs(torch, cfg, kind, index):
+    """18g-a's block weights, input and output cotangent, drawn on the card
+    from ``EP_CP_BLOCKS["seed"]`` + ``index`` (the same bits in the parent
+    and in every rank)."""
+    from repro_torch import tree
+    from repro_torch.models.transformer import init_block
+    gd = torch.Generator(device="cuda").manual_seed(
+        EP_CP_BLOCKS["seed"] + index)
+    p = init_block(cfg, kind, gd, device="cuda")
+    B, S, d = EP_CP["batch"], EP_CP["seq"], cfg.d_model
+    x = torch.randn((B, S, d), generator=gd, device="cuda")
+    dy = torch.randn((B, S, d), generator=gd, device="cuda")
+    return tree.map_(lambda t: t.requires_grad_(), p), x, dy
+
+
+def cp_blocks_reference(torch, path):
+    """18g-a's parent side: each block forward and backward in one process
+    on the card (f32, the whole rows, the flash kernels over S=8192);
+    y and dx saved to ``path`` + ``.{kind}.io``, every leaf's gradient
+    to ``.{kind}.grads``, then freed.  Returns the seconds taken."""
+    from repro_torch import configs, tree
+    from repro_torch.models.transformer import block_forward
+    t0 = time.perf_counter()
+    cfg = configs.get_config(EP_CP["arch"]).replace(dtype="float32")
+    for i, kind in enumerate(EP_CP_BLOCKS["kinds"]):
+        p, x, dy = cp_blocks_inputs(torch, cfg, kind, i)
+        x.requires_grad_()
+        pos = torch.arange(EP_CP["seq"], dtype=torch.int32, device="cuda")
+        y, _, _ = block_forward(p, x, cfg, kind=kind, positions=pos)
+        grads = torch.autograd.grad(y, [x, *tree.leaves(p)], dy)
+        torch.save({"y": y.detach().cpu(), "dx": grads[0].cpu()},
+                   f"{path}.{kind}.io")
+        torch.save([g.cpu() for g in grads[1:]], f"{path}.{kind}.grads")
+        del p, x, dy, y, grads
+        release(torch)
+    return time.perf_counter() - t0
+
+
+def ep_cp_blocks(torch, rank, path):
+    """18g-a on one rank (every plain version made to raise): each block
+    over this rank's chunk of its row at 1x4 (``launch/mesh.token_block``:
+    attention context-parallel over the row group), forward and backward
+    from the parent's weights, input and cotangent; the chunk's y and dx
+    against the parent's, the gradients summed over the ranks (one
+    all-reduce) against the parent's on rank 0; the flash launches and
+    the row-group gathers of the pass."""
+    import torch.distributed as dist
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    from repro_torch import configs, tree
+    from repro_torch.launch import shard
+    from repro_torch.launch.mesh import cut_tokens, make_mesh, token_block
+    from repro_torch.models.transformer import block_forward
+    cfg = configs.get_config(EP_CP["arch"]).replace(dtype="float32")
+    mesh = make_mesh(EP_CP_BLOCKS["mesh"], backend="gloo", rows=(cut_tokens(
+        EP_CP_BLOCKS["mesh"], 0, EP_CP["batch"], EP_CP["seq"]).n,))
+    blk = token_block(mesh, EP_CP["batch"], EP_CP["seq"])
+    out = {"block": (blk.rows.start, blk.seq.start, blk.seq.stop, blk.n)}
+    for i, kind in enumerate(EP_CP_BLOCKS["kinds"]):
+        p, x, dy = cp_blocks_inputs(torch, cfg, kind, i)
+        xl = x[blk.rows, blk.seq].clone().requires_grad_()
+        dyl = dy[blk.rows, blk.seq]
+        del x, dy
+        reset_counts()
+        shard.row_gathers = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _, _ = block_forward(p, xl, cfg, kind=kind,
+                                positions=blk.positions("cuda"), mesh=mesh,
+                                block=blk)
+        grads = list(torch.autograd.grad(y, [xl, *tree.leaves(p)], dyl))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts(FLASH_NAMES)
+        gathers = shard.row_gathers
+        flat = _flatten_dense_tensors(grads[1:])
+        dist.all_reduce(flat)
+        summed = _unflatten_dense_tensors(flat, grads[1:])
+        ref = torch.load(f"{path}.{kind}.io")
+
+        def rel(got, want):
+            want = want.to(got.device)
+            return ((got.detach() - want).abs().max()
+                    / want.abs().max().clamp(min=1e-30)).item()
+        res = dict(y=rel(y, ref["y"][blk.rows, blk.seq]),
+                   dx=rel(grads[0], ref["dx"][blk.rows, blk.seq]),
+                   counts=counts, gathers=gathers, seconds=secs)
+        if rank == 0:
+            res["leaves"] = max(rel(g, w) for g, w in zip(
+                summed, torch.load(f"{path}.{kind}.grads"), strict=True))
+        out[kind] = res
+        del p, xl, dyl, y, grads, flat, summed, ref
+        release(torch)
+    return out
+
+
+def ep_cp_train(torch, rank):
+    """18g-b on one rank (every plain version made to raise): gemma2-9b at
+    one local/global period trained at 2x2 through ``launch.train.run``
+    (FSDP by ``needs_fsdp``), batch 2 x 8192 — each rank 4096 positions
+    of one row — 2 AdamW steps from seed 0: the history, the step walls,
+    the launches, the row-group and FSDP gathers a step, the peak and
+    the stored bytes."""
+    from repro_torch.launch import shard, train
+    c = EP_CP_TRAIN
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
+    reset_counts()
+    shard.row_gathers = shard.gathers = 0
+    st = {}
+    state, hist = train.run(EP_CP["arch"], mesh_shape=c["mesh"], stats=st,
+                            **EP_CP_RUN)
+    out = dict(history=hist, step_s=st["step_s"], free_gib=free_gib,
+               counts=read_counts([k for k, _, _ in COUNTERS]),
+               row_gathers_per_step=shard.row_gathers / c["steps"],
+               fsdp_gathers_per_step=shard.gathers / c["steps"],
+               fsdp=st["layout"].fsdp,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+               stored_gb=sum(t.numel() * t.element_size()
+                             for t in _state_leaves(state)) / 1e9)
+    del state
+    release(torch)
+    return out
+
+
+def cp_one_process_run(torch):
+    """18g-b's parent side: the same run on one process (``EP_CP_RUN``,
+    no mesh), its history; its state freed after."""
+    from repro_torch.launch import train
+    state, hist = train.run(EP_CP["arch"], device="cuda", **EP_CP_RUN)
+    del state
+    release(torch)
+    return hist
+
+
+def report_ep_cp(ranks, smi, world, one, parent_s):
+    """18g's checks and printout (``ep_cp_blocks``, ``ep_cp_train``);
+    ``one``: the history of 18g-b's run on one process."""
+    label = f"[{smi}; {ep_label(world)}: host-staged, not a speed of CP]"
+    print(f"  18g-a, {EP_CP['arch']} blocks {EP_CP_BLOCKS['kinds']} f32 at "
+          f"1x4, batch {EP_CP['batch']} x {EP_CP['seq']} (two ranks a row), "
+          f"against one process ({parent_s:.1f} s in the parent) {label}:")
+    out = {"a": [r["18g-a"] for r in ranks]}
+    for r, res in enumerate(out["a"]):
+        print(f"    rank {r} block {res['block']}: " + "; ".join(
+            f"{k} y {res[k]['y']:.2e} dx {res[k]['dx']:.2e}"
+            + (f" leaves {res[k]['leaves']:.2e}" if "leaves" in res[k]
+               else "") + f", launches {res[k]['counts']}, row gathers "
+            f"{res[k]['gathers']}, fwd + bwd {res[k]['seconds']:.2f} s"
+            for k in EP_CP_BLOCKS["kinds"]))
+        for k in EP_CP_BLOCKS["kinds"]:
+            x = res[k]
+            check(x["y"] <= EP_TOL and x["dx"] <= EP_TOL
+                  and x.get("leaves", 0.0) <= EP_CP_BLOCK_TOL,
+                  f"18g-a rank {r} {k}: against one process {x}")
+            check(x["counts"] == dict.fromkeys(FLASH_NAMES, 1)
+                  and x["gathers"] == 1,
+                  f"18g-a rank {r} {k}: launches {x['counts']}, row "
+                  f"gathers {x['gathers']}")
+    res = [r["18g-b"] for r in ranks]
+    c = EP_CP_TRAIN
+    losses = [h["loss"] for h in res[0]["history"]]
+    print(f"  18g-b, {EP_CP['arch']} at {c['layers']} layers trained at "
+          f"2x2, batch {EP_CP['batch']} x {EP_CP['seq']} (two ranks a "
+          f"row), {c['steps']} steps, {max(r['18g-b_s'] for r in ranks):.1f}"
+          f" s {label}:")
+    for r, x in enumerate(res):
+        print(f"    rank {r}: fsdp={x['fsdp']}, stored {x['stored_gb']:.3f}"
+              f" GB, peak {x['peak_gib']:.2f} GiB (reserved "
+              f"{x['reserved_gib']:.2f}; the card's free memory at its start "
+              f"{x['free_gib']:.2f} GiB), step s "
+              f"{[round(t, 3) for t in x['step_s']]}, row gathers a step "
+              f"{x['row_gathers_per_step']:g}, FSDP all-gathers a step "
+              f"{x['fsdp_gathers_per_step']:g}, launches {x['counts']}")
+    rel = {k: [abs(m[k] - o[k]) / abs(o[k])
+               for m, o in zip(res[0]["history"], one, strict=True)]
+           for k in ("loss", "grad_norm")}
+    print(f"    losses {losses}, grad norms "
+          f"{[m['grad_norm'] for m in res[0]['history']]}; one process "
+          f"{[m['loss'] for m in one]}, {[m['grad_norm'] for m in one]}: "
+          f"relative {[f'{x:.2e}' for x in rel['loss']]}, "
+          f"{[f'{x:.2e}' for x in rel['grad_norm']]}")
+    hist = [x["history"] for x in res]
+    check(all(math.isfinite(v) for h in hist for m in h
+              for v in m.values()), "18g-b: non-finite metrics")
+    check(all(m["skipped"] == 0 for h in hist for m in h),
+          "18g-b: a step was skipped")
+    check(all([m["loss"] for m in h] == losses for h in hist),
+          "18g-b: the ranks' losses differ")
+    check(max(rel["loss"]) <= EP_CP_LOSS_TOL
+          and max(rel["grad_norm"]) <= EP_CP_NORM_TOL,
+          f"18g-b against one process: relative {rel}")
+    check(all(x["fsdp"] for x in res), "18g-b: needs_fsdp did not ask for "
+                                       "FSDP")
+    L, n = c["layers"], c["steps"]
+    want = dict.fromkeys((k for k, _, _ in COUNTERS), 0) | {
+        "flash_fwd": 2 * L * n, "flash_dq": L * n, "flash_dkv": L * n}
+    check(res[0]["counts"] == want,
+          f"18g-b: rank 0's launches {res[0]['counts']} != {want} (the "
+          f"forward twice a layer and step: forward and recompute)")
+    check(all(x["row_gathers_per_step"] == 2 * L for x in res),
+          f"18g-b: row-group gathers a step "
+          f"{[x['row_gathers_per_step'] for x in res]} != {2 * L}")
+    out["b"] = dict(losses=losses, one_process=one, relative=rel,
+                    launches_rank0=res[0]["counts"],
+                    row_gathers_per_step=res[0]["row_gathers_per_step"],
+                    fsdp_gathers_per_step=res[0]["fsdp_gathers_per_step"],
+                    peak_gib=[x["peak_gib"] for x in res],
+                    reserved_gib=[x["reserved_gib"] for x in res],
+                    stored_gb=[x["stored_gb"] for x in res],
+                    step_s=[x["step_s"] for x in res],
+                    seconds=max(r["18g-b_s"] for r in ranks))
+    out["launches_rank0"] = res[0]["counts"]
+    return out
+
+
 def ep_tp_checks(torch, rank, ref_paths):
     """18d on one rank: the paper's layer under expert TP over the data
     group (``expert_tp_axis="data"``) at each mesh of ``EP_TP_MESHES``,
@@ -6331,6 +6821,11 @@ def ep_rank(rank, refs):
     t0 = time.perf_counter()
     out["18e"] = ep_serve_run(torch, rank, refs["serve"])
     out["18e_s"] = time.perf_counter() - t0
+    release(torch)
+    out["18g-a"] = ep_cp_blocks(torch, rank, refs["cp"])
+    t0 = time.perf_counter()
+    out["18g-b"] = ep_cp_train(torch, rank)
+    out["18g-b_s"] = time.perf_counter() - t0
     return out
 
 
@@ -6342,8 +6837,10 @@ def phase_ep(torch, smi):
     layer (f32) at 1x4 and 2x2, sort / dense / grouped, card ranks against
     the same ranks on the CPU, grouped 1x4 against one process, kernels 3-6
     at the receive side; 18c: the paper model whole trained at 1x4, sort
-    (``--tune calibrate``) and grouped, against one process's first loss.
-    Returns (rank 0's launches in 18c, results)."""
+    (``--tune calibrate``) and grouped, against one process's first loss;
+    18d-18g (``ep_rank``; the parent first takes each one-process
+    reference, 18g-b's by ``cp_one_process_run``).  Returns (rank 0's
+    launches in 18c, results)."""
     import tempfile
 
     from repro_torch.launch import train
@@ -6356,12 +6853,15 @@ def phase_ep(torch, smi):
         refs = {k: str(pathlib.Path(tmp) / f"{k}.npz")
                 for k in ("prefill", "decode", "serve")}
         refs["fsdp"] = str(pathlib.Path(tmp) / "fsdp_ckpt")
+        refs["cp"] = str(pathlib.Path(tmp) / "cp_blocks")
         for tokens, n_glob in EP_TP_TOKENS:
             ep_one_process_reference(torch, refs[tokens], n_glob)
         _, one = train.run(ARCH, steps=1, batch=B, seq=S, smoke=False,
                            seed=0, log_every=1, dispatch="grouped",
                            device="cuda")
         release(torch)
+        cp_one = cp_one_process_run(torch)
+        cp_parent_s = cp_blocks_reference(torch, refs["cp"])
         out["18e_one_process_s"] = ep_serve_reference(torch, refs["serve"])
         out["18e_kernel3_fslice_max_abs_err"] = ep_fslice_kernel3(torch)
         print(f"  18e one process ({EP_SERVE}): "
@@ -6372,9 +6872,24 @@ def phase_ep(torch, smi):
               f"1x4, then 18c: {ARCH} whole, batch {B} x seq {S}, {steps} "
               f"AdamW steps at mesh 1x4 for {EP_TRAIN_CELLS} (dispatch, "
               f"--tune, --fabric), then 18e: {EP_SERVE}")
+        release(torch)
+        free, total = torch.cuda.mem_get_info()
+        print(f"  the parent holds {torch.cuda.memory_reserved() / 2 ** 30:.2f}"
+              f" GiB of its allocator's; the card has {free / 2 ** 30:.2f} "
+              f"of {total / 2 ** 30:.2f} GiB free for the ranks")
         t0 = time.perf_counter()
-        ranks = spawn(ep_rank, world, backend="gloo", threads=2,
-                      args=(refs,), timeout=900)
+        # the ranks' allocators map memory in pages as they grow: four
+        # ranks' cached blocks leave no free segment of a large size
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            ranks = spawn(ep_rank, world, backend="gloo", threads=2,
+                          args=(refs,), timeout=900)
+        finally:
+            if alloc is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
         ranks_s = time.perf_counter() - t0
         fsdp_parent = fsdp_one_process_restore(torch, refs["fsdp"],
                                                EP_FSDP["mesh"])
@@ -6474,6 +6989,7 @@ def phase_ep(torch, smi):
     out["18e"] = report_ep_serve(ranks, smi, world)
     out["18f"] = report_ep_fsdp(ranks, smi, world, one[0]["loss"],
                                 fsdp_parent)
+    out["18g"] = report_ep_cp(ranks, smi, world, cp_one, cp_parent_s)
     return totals, out
 
 
@@ -6725,6 +7241,7 @@ def main(argv=None) -> int:
     wide_rows = phase_windowed_flash(torch, dev, smi, errs)
     stamp("phase 2m")
     wide_rows += phase_flash_wide_bwd(torch, dev, smi, errs)
+    wide_rows += phase_flash_cp(torch, dev, smi, errs)
     stamp("phase 2n")
     phase_flash_frontends(torch, dev, errs)
     stamp("phase 2o")
@@ -6832,6 +7349,13 @@ def main(argv=None) -> int:
             # phase 18f: rank 0 of the paper model's 3 FSDP steps at 2x2
             kernels[-1]["launches_fsdp"] = ep["18f"]["launches_rank0"][
                 r["name"]]
+        if ep["18g"]["launches_rank0"].get(r["name"]):
+            # phase 18g-b: rank 0 of gemma2-9b's 2 steps at 2x2, rows split
+            kernels[-1]["launches_cp"] = ep["18g"]["launches_rank0"][
+                r["name"]]
+        if r["name"] + "_cp" in errs:
+            # phase 2n: the context-parallel shapes (q positions offset)
+            kernels[-1]["max_abs_err_cp"] = errs[r["name"] + "_cp"]
         if r["name"] + "_zamba2" in errs:
             # phase 2p: zamba2's head dim 112, f32 and bf16
             kernels[-1]["max_abs_err_zamba2"] = errs[r["name"] + "_zamba2"]

@@ -12,14 +12,14 @@ batches over as torch tensors on the requested device.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.config import ModelConfig
-from repro_torch.launch.mesh import rank_block
+from repro_torch.launch.mesh import TokenBlock
 
 
 class SyntheticLM:
@@ -71,12 +71,12 @@ class SyntheticLM:
         return {k: v.to(self.device) for k, v in host.items()}
 
 
-def rank_rows(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
-    """This rank's rows of a global batch: the batch cut into contiguous
-    blocks in rank order (data-major), as the reference shards its batch
-    over ``("data", "model")``.  Raises ``ValueError`` when the rows do
-    not divide over the ranks; None ``mesh`` returns ``batch``."""
-    if mesh is None:
+def cut_batch(batch: Dict[str, torch.Tensor],
+              block: Optional[TokenBlock]) -> Dict[str, torch.Tensor]:
+    """This rank's block of every (B, S) or (B, S, d) leaf of a global
+    batch (``launch/mesh.token_block``: whole rows, or the rank's chunk of
+    one row's positions), as the reference shards the flattened tokens
+    over ``("data", "model")``; None ``block`` returns ``batch``."""
+    if block is None:
         return batch
-    rows = rank_block(mesh, next(iter(batch.values())).shape[0])
-    return {k: v[rows] for k, v in batch.items()}
+    return {k: v[block.rows, block.seq] for k, v in batch.items()}

@@ -20,7 +20,17 @@ Groups (every rank creates every group, in the same order, as
   M``, inner dividing M), the hierarchical AllToAll's ``inner`` groups of
   consecutive model ranks (one "node") and ``outer`` groups of strided
   ones (rank i of every node), as ``core/alltoall.py:45-52`` of the
-  reference.
+  reference;
+* for each size ``n`` the caller names (``rows=``), the ``row`` groups
+  of ``n`` consecutive ranks — the ranks that share a batch row when a
+  batch of W/n rows trains over W ranks (:func:`token_block`); a group
+  with the members of a model, inner or the world group is that group.
+
+Rank r holds the r-th contiguous block of the flattened (B·S) tokens of
+a training batch (:func:`token_block`): B/W whole rows when the world W
+divides B, else, when B divides W and n = W/B divides S, the chunk of S/n
+positions ``(r mod n)`` of row ``r // n``, attended context-parallel over
+its row group (``models/attention.full_attention``).
 
 The backend is always the caller's: ``nccl`` on a host with one card per
 rank, ``gloo`` on the CPU (and on a card only where the caller names it,
@@ -129,8 +139,9 @@ class Mesh:
     ``shape`` is ``{"data": D, "model": M}`` (the reference's
     ``mesh.shape``); ``model_group`` and ``data_group`` are the process
     groups of this rank's data row and model column; ``hier`` maps each
-    two-stage ``inner`` to this rank's ``(inner_group, outer_group)``;
-    the default group spans the world."""
+    two-stage ``inner`` to this rank's ``(inner_group, outer_group)``,
+    ``rows`` each row-group size n to this rank's group of n consecutive
+    ranks; the default group spans the world."""
     shape: Dict[str, int]
     rank: int
     backend: str
@@ -138,6 +149,7 @@ class Mesh:
     model_group: Any
     data_group: Any
     hier: Dict[int, Tuple[Any, Any]]
+    rows: Dict[int, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def world(self) -> int:
@@ -173,11 +185,13 @@ def _two_stage_inners(M: int) -> List[int]:
 
 
 def make_mesh(shape: Sequence[int], *, backend: Optional[str] = None,
-              device=None) -> Mesh:
+              device=None, rows: Sequence[int] = ()) -> Mesh:
     """The mesh of this rank over the initialized default process group.
     ``shape`` is ``(D, M)``; the world size must be ``D·M``.  ``backend``
     defaults to the process group's own; ``device`` to
-    ``cuda:{LOCAL_RANK % device_count}`` (pass ``"cpu"`` for the CPU)."""
+    ``cuda:{LOCAL_RANK % device_count}`` (pass ``"cpu"`` for the CPU);
+    ``rows`` the sizes n > 1 of the row groups a training batch splits
+    its rows over (``cut_tokens(...).n``)."""
     if len(shape) != 2:
         raise ValueError(f"mesh shape must be (data, model), got "
                          f"{tuple(shape)}")
@@ -222,18 +236,33 @@ def make_mesh(shape: Sequence[int], *, backend: Optional[str] = None,
                     if rank in [d * M + r for r in members]:
                         mine[stage] = g
         hier[inner] = tuple(mine)
+    row_groups = {}
+    for n in sorted(set(rows) - {1}):
+        if (D * M) % n:
+            raise ValueError(f"no row groups of {n} ranks on mesh {D}x{M}")
+        if n == D * M:
+            row_groups[n] = dist.group.WORLD
+        elif n == M:
+            row_groups[n] = model_group
+        elif n in hier:
+            row_groups[n] = hier[n][0]
+        else:
+            for start in range(0, D * M, n):
+                g = dist.new_group(list(range(start, start + n)))
+                if start <= rank < start + n:
+                    row_groups[n] = g
     return Mesh({"data": D, "model": M}, rank, pg_backend, dev, model_group,
-                data_group, hier)
+                data_group, hier, row_groups)
 
 
 def make_smoke_mesh(shape: Tuple[int, ...] = (1, 1), *,
-                    backend: Optional[str] = None, device=None
-                    ) -> Optional[Mesh]:
+                    backend: Optional[str] = None, device=None,
+                    rows: Sequence[int] = ()) -> Optional[Mesh]:
     """The reference's name for a small mesh: None for ``1x1`` (the
     one-device path needs no group), else :func:`make_mesh`."""
     if math.prod(shape) == 1:
         return None
-    return make_mesh(shape, backend=backend, device=device)
+    return make_mesh(shape, backend=backend, device=device, rows=rows)
 
 
 def dp_axes(mesh: Optional[Mesh]) -> Tuple[str, ...]:
@@ -408,16 +437,73 @@ def state_shardings(mesh_shape: Dict[str, int], state_shapes, *,
         **scalars)
 
 
-def rank_block(mesh: Optional[Mesh], n: int) -> slice:
-    """This rank's rows of ``n`` rows cut into ``world`` contiguous blocks
-    in rank order (``n`` must divide evenly)."""
+@dataclasses.dataclass(frozen=True)
+class TokenBlock:
+    """A rank's block of a (B, S) batch's flattened tokens: ``rows`` of the
+    batch and ``seq`` of each row.  ``n`` ranks share each row (1: the
+    block is whole rows), ``S`` is a whole row's length and ``group`` the
+    row group (None when ``n`` is 1)."""
+    rows: slice
+    seq: slice
+    n: int
+    S: int
+    group: Any = None
+
+    @property
+    def flat(self) -> slice:
+        """The block's tokens among the batch's flattened B·S."""
+        start = self.rows.start * self.S + self.seq.start
+        size = (self.rows.stop - self.rows.start) * (
+            self.seq.stop - self.seq.start)
+        return slice(start, start + size)
+
+    def positions(self, device=None) -> torch.Tensor:
+        """The block's positions in its rows, int32."""
+        return torch.arange(self.seq.start, self.seq.stop, dtype=torch.int32,
+                            device=device)
+
+
+def cut_tokens(shape: Sequence[int], rank: int, B: int, S: int
+               ) -> TokenBlock:
+    """Rank ``rank``'s block of a (B, S) batch on a mesh of ``shape`` (D,
+    M) (no group): B/W whole rows when the world W = D·M divides B; the
+    chunk ``rank mod n`` of S/n positions of row ``rank // n`` when n =
+    W/B is a whole number that divides S; else ``ValueError`` naming B,
+    S and the mesh."""
+    world = math.prod(shape)
+    if B % world == 0:
+        b = B // world
+        return TokenBlock(slice(rank * b, (rank + 1) * b), slice(0, S), 1, S)
+    n = world // B if B and world % B == 0 else 0
+    if n and S % n == 0:
+        L = S // n
+        c = rank % n
+        return TokenBlock(slice(rank // n, rank // n + 1),
+                          slice(c * L, (c + 1) * L), n, S)
+    raise ValueError(
+        f"batch {B} x seq {S} does not cut into {world} token blocks on "
+        f"mesh {'x'.join(str(int(d)) for d in shape)}: the batch's rows "
+        f"must divide over the {world} ranks, or the ranks over the rows "
+        f"with the sequence divisible by the {world}/{B} ranks that share "
+        f"a row")
+
+
+def token_block(mesh: Optional[Mesh], B: int, S: int) -> TokenBlock:
+    """This rank's :class:`TokenBlock` of a (B, S) batch on ``mesh`` (None:
+    the whole batch), its row group attached.  Raises ``ValueError``
+    naming B, S and the mesh when the batch does not cut
+    (:func:`cut_tokens`)."""
     if mesh is None:
-        return slice(0, n)
-    if n % mesh.world:
-        raise ValueError(f"{n} rows do not divide over the {mesh.world} "
-                         f"ranks of mesh {mesh.describe()}")
-    b = n // mesh.world
-    return slice(mesh.rank * b, (mesh.rank + 1) * b)
+        return TokenBlock(slice(0, B), slice(0, S), 1, S)
+    blk = cut_tokens((mesh.shape["data"], mesh.shape["model"]), mesh.rank,
+                     B, S)
+    if blk.n == 1:
+        return blk
+    if blk.n not in mesh.rows:
+        raise ValueError(f"batch {B} x seq {S} splits each row over {blk.n} "
+                         f"ranks, and mesh {mesh.describe()} has no row "
+                         f"groups of {blk.n} (make_mesh(rows=({blk.n},)))")
+    return dataclasses.replace(blk, group=mesh.rows[blk.n])
 
 
 # ---------------------------------------------------------------------------

@@ -52,6 +52,7 @@ from repro_torch.models.transformer import EXPERT_LEAVES, _F32_LEAVES
 GATHER_ORDER = ("model", "data")
 
 gathers = 0     # all-gathers of stored blocks for use since the reset
+row_gathers = 0  # all-gathers over a row group (context parallelism)
 
 
 def is_expert(path: str) -> bool:
@@ -190,9 +191,11 @@ class Layout:
         leaf in f32 (``transformer._F32_LEAVES``); a leaf stored whole is
         returned as it is."""
         def one(path, t):
+            global gathers
             axes = self.gather_axes(path)
             if not axes:
                 return t
+            gathers += len(axes)
             dt = (t.dtype if dtype is None
                   or path.split("/")[-1] in _F32_LEAVES else dtype)
             return gather(t, self._steps(axes), dt)
@@ -234,25 +237,49 @@ class Layout:
 
 
 def _all_gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
-    global gathers
     out = alltoall.gather_rows(x.movedim(dim, 0), group, n)
-    gathers += 1
     return out.movedim(0, dim).contiguous()
 
 
-def _reduce_scatter(x: torch.Tensor, group, n: int, dim: int
-                    ) -> torch.Tensor:
-    xm = x.movedim(dim, 0).contiguous()
-    out = xm.new_empty((xm.shape[0] // n, *xm.shape[1:]))
-    dist.reduce_scatter_tensor(out, xm, group=group)
+# the most bytes of a rank's blocks that one exchange of a reduce-scatter
+# sends: a whole table's gradient crosses in pieces, not in a second
+# whole-size copy
+_PIECE_BYTES = 1 << 28
+
+
+def _reduce_scatter(x: torch.Tensor, group, n: int, dim: int,
+                    dtype) -> torch.Tensor:
+    """Block r (of ``n`` along ``dim``) of the sum over ``group`` of ``x``,
+    in ``dtype``.  The blocks cross in ``x``'s own dtype (a bf16
+    cotangent: half the bytes of an f32 one) and each rank sums the ``n``
+    it receives in ``dtype``, in group-rank order — at n = 2 exactly the
+    sum of the blocks cast first — a piece of at most ``_PIECE_BYTES``
+    at a time."""
+    xm = x.movedim(dim, 0)
+    rows = xm.shape[0] // n
+    blocks = xm.unflatten(0, (n, rows))
+    out = torch.empty((rows, *xm.shape[1:]), dtype=dtype, device=x.device)
+    step = max(1, _PIECE_BYTES // max(1, blocks[:, :1].numel()
+                                      * x.element_size()))
+    for i in range(0, rows, step):
+        send = blocks[:, i:i + step].contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv.view(torch.uint8).reshape(-1),
+                               send.view(torch.uint8).reshape(-1),
+                               group=group)
+        del send
+        piece = out[i:i + step]
+        piece.copy_(recv[0])
+        for j in range(1, n):
+            piece.add_(recv[j])
     return out.movedim(0, dim).contiguous()
 
 
 class _Gather(torch.autograd.Function):
     """Casts to ``dtype``, then all-gathers in ``steps`` order; the
-    backward casts the cotangent back to the block's dtype and
-    reduce-scatters it in reverse order (each block's gradient summed
-    over the ranks that used it, in the block's precision)."""
+    backward reduce-scatters the cotangent in reverse order (each block's
+    gradient summed over the ranks that used it, in the block's
+    precision: :func:`_reduce_scatter`)."""
 
     @staticmethod
     def forward(ctx, x, steps, dtype):
@@ -264,9 +291,8 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.to(ctx.dtype)
         for group, n, dim in reversed(ctx.steps):
-            g = _reduce_scatter(g, group, n, dim)
+            g = _reduce_scatter(g, group, n, dim, ctx.dtype)
         return g, None, None
 
 
@@ -276,6 +302,17 @@ def gather(x: torch.Tensor, steps, dtype=None) -> torch.Tensor:
     ``dim``), differentiable: the same values as gathering first and
     casting after, with half the bytes for bf16."""
     return _Gather.apply(x, steps, x.dtype if dtype is None else dtype)
+
+
+def row_gather(x: torch.Tensor, block, dim: int = 1) -> torch.Tensor:
+    """Every chunk of this rank's rows along ``dim``, from the ranks of its
+    row group (``block``, a ``launch/mesh.TokenBlock`` with ``n > 1``) in
+    chunk order (:func:`gather`: differentiable, the backward a
+    reduce-scatter of the cotangent over the group); counted in
+    ``row_gathers``."""
+    global row_gathers
+    row_gathers += 1
+    return gather(x, ((block.group, block.n, dim),))
 
 
 def make_layout(shapes, mesh_shape: Dict[str, int], rank: int, *,

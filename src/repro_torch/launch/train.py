@@ -15,15 +15,21 @@ runs under ``torchrun`` (``--backend nccl``, the default: one card per
 rank), or calls :func:`run` with ``mesh_shape=`` from ranks that
 ``launch.mesh.spawn`` started (``backend="gloo"`` for the CPU or for
 several ranks on one card).  Every rank draws the same global batch and
-trains on its rows (``batch`` must divide over the D·M ranks); rank 0
-prints the banner (mesh, backend, ``fsdp=``, the state's bytes a rank,
-the resolved MoE knobs) and the log.  The train state is laid out by the
-reference's sharding rules (``launch/mesh.state_shardings``, stored as
+trains on its token block, the r-th contiguous block of the flattened
+batch·seq tokens (``launch/mesh.token_block``): ``batch`` / (D·M) whole
+rows when D·M divides ``batch``; else, when ``batch`` divides D·M and n =
+D·M / ``batch`` divides ``seq``, a chunk of seq/n positions of one row,
+attention context-parallel over the n ranks sharing the row (e.g.
+``--mesh 2x2 --batch 2``, ``--mesh 1x4 --batch 1``); any other batch
+raises ``ValueError`` before any work.  Rank 0 prints the banner (mesh,
+backend, ``fsdp=``, the ranks a row is split over, the state's bytes a
+rank, the resolved MoE knobs) and the log.  The train state is laid out by
+the reference's sharding rules (``launch/mesh.state_shardings``, stored as
 ``launch/shard.py`` says): FSDP (ZeRO-3 over the ranks) where the
-reference's ``needs_fsdp`` asks for it (master + moments over 6e9 bytes
-a device under the model axis alone), else the experts over ``model``
-and every other leaf whole; ``run(fsdp=True|False)`` decides it instead
-(no CLI flag, as the reference has none).
+reference's ``needs_fsdp`` asks for it (master + moments over 6e9 bytes a
+device under the model axis alone), else the experts over ``model`` and
+every other leaf whole; ``run(fsdp=True|False)`` decides it instead (no
+CLI flag, as the reference has none).
 
 Runs on the GPU unless ``--device cpu`` is given.  The f32 master weights
 are drawn from a ``torch.Generator`` seeded with ``--seed`` on the device;
@@ -59,7 +65,9 @@ dispatch mode the way ``serving.engine.serve_config`` does, ``moe``
 keywords (e.g. ``gate=``) that replace fields of the preset's
 ``MoEConfig``, ``init_params``: a whole parameter tree in the
 reference's layout (numpy leaves, e.g. a JAX trainer's initial
-parameters) to start from, and ``fsdp`` (above).
+parameters) to start from, ``fsdp`` (above) and ``num_layers``, which
+cuts the preset's depth (no CLI flag, as the reference has none; a
+full-width run on one card, as ``launch.serve.run(num_layers=)``).
 """
 from __future__ import annotations
 
@@ -111,7 +119,7 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
         fabric=None, dispatch: Optional[str] = None,
         moe: Optional[dict] = None, device=None,
         stats: Optional[dict] = None, init_params=None,
-        fsdp: Optional[bool] = None):
+        fsdp: Optional[bool] = None, num_layers: Optional[int] = None):
     """Train ``steps`` AdamW steps; returns ``(state, history)`` (under a
     mesh, this rank's state: its blocks of the layout).  ``stats`` (when
     given) receives, as the run goes (so a run cut by a fault leaves what
@@ -121,12 +129,23 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
     state's ``launch/shard.Layout`` (None on one device).  A
     ``mesh_shape`` other than (1, 1) needs an initialized process group of
     D·M ranks; ``fsdp`` (None: the reference's ``needs_fsdp``) decides
-    whether the state is stored FSDP-sharded there."""
+    whether the state is stored FSDP-sharded there.  A batch that does
+    not cut into the mesh's token blocks raises ``ValueError`` first."""
     if (ckpt_every or resume) and not ckpt_dir:
         raise ValueError("--ckpt-every/--resume require --ckpt-dir")
-    mesh = mesh_lib.make_smoke_mesh(tuple(mesh_shape), device=device)
+    if batch % microbatches:
+        raise ValueError(f"batch {batch} is not divisible by "
+                         f"microbatches={microbatches}")
+    # a microbatch that does not cut over the mesh raises before any work;
+    # the mesh makes the row groups its cut splits rows over
+    split = mesh_lib.cut_tokens(tuple(mesh_shape), 0, batch // microbatches,
+                                seq).n
+    mesh = mesh_lib.make_smoke_mesh(tuple(mesh_shape), device=device,
+                                    rows=(split,))
     lead = mesh is None or mesh.rank == 0
     cfg = configs.smoke_config(arch) if smoke else configs.get_config(arch)
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
     if moe:
         if cfg.moe is None:
             raise ValueError(f"moe={moe!r} requested but {cfg.name} has no "
@@ -141,9 +160,6 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
     tmode, tfab = tuning.configure(tune, fabric, mesh=mesh)
     if cfg.moe is not None and lead:
         print(f"tune={tmode} fabric={tfab}")
-    if mesh is not None and batch % mesh.world:
-        raise ValueError(f"--batch {batch} does not divide over the "
-                         f"{mesh.world} ranks of mesh {mesh.describe()}")
     layout = shard.layout_for(cfg, mesh, fsdp)
     step_fn = make_train_step(cfg, tcfg, faults=faults, mesh=mesh,
                               layout=layout)
@@ -179,12 +195,12 @@ def run(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
         world = 1 if mesh is None else mesh.world
         where = ("mesh=1x1 " if mesh is None
                  else f"mesh={mesh.describe()} fsdp={layout.fsdp} (params "
-                      f"per rank) ")
+                      f"per rank) row_split={split} ")
         state_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(
             (state.params, state.opt["m"], state.opt["v"])))
         print(f"arch={cfg.name} params={n_params / 1e6:.1f}M {where}"
               f"state={state_bytes / 1e9:.3f} GB a rank "
-              + _resolved_knobs(cfg, mesh, batch // world * seq)
+              + _resolved_knobs(cfg, mesh, batch * seq // world)
               + f"remat={remat} device={dev}")
     ds = SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed, device=dev)
     history = []

@@ -10,16 +10,29 @@ f32), differentiable through their ``autograd.Function``.  Decode steps
 attend over the cache with ``_attend``: a linear cache (slot = position)
 or, for a windowed layer whose cache is as long as its window, a ring
 (position p at slot p % W), which holds a window's keys at any sequence
-length.  Across ranks each rank attends over its own batch rows, which
-is the reference's result; the reference's chunked ``REPRO_FLASH=0``
-baseline and its context-parallel flash (q's sequence sharded over the
-``model`` axis, ``full_attention(mesh=)``) are not ported (ROADMAP.md).
+length.  ``REPRO_FLASH=0`` (:func:`use_flash`) turns the flash path
+into the reference's chunked baseline: each chunk of ``q_chunk`` query
+rows attended by ``_attend`` against every key, under
+``torch.utils.checkpoint``, so one chunk's scores live at a time.
+
+Across ranks a rank's queries are its own token block
+(``launch/mesh.token_block``).  When ``n`` ranks share a row (``block``
+with ``n > 1``) each holds a chunk of S/n positions: q stays local, k and
+v are all-gathered over the row group (``launch/shard.row_gather``, whose
+backward reduce-scatters dk and dv back to their chunks), and the
+chunk's q positions attend the whole row's k positions — the
+reference's context-parallel ``_flash_path`` (q's sequence over
+``model``, k and v gathered once), as a layout of the same function.
+The path is chosen by the whole row's length against ``q_chunk``, as
+the reference chooses by its global S.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import draw
 from repro_torch.core.config import AttentionConfig
@@ -103,38 +116,69 @@ def _attend(q, k, v, q_pos, k_pos, *, causal: bool, window: Optional[int],
 def full_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                    cfg: AttentionConfig, *, positions: torch.Tensor,
                    causal: bool = True, window: Optional[int] = None,
-                   q_chunk: int = 512, mesh=None
+                   q_chunk: int = 512, block=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Train/prefill pass.  Returns (y, kv) — kv fills caches.  ``mesh``
-    asks for the reference's context-parallel flash, which is not ported:
-    a mesh with a model axis > 1 raises ``NotImplementedError``."""
-    if mesh is not None and mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"context-parallel flash attention over a model axis of "
-            f"{mesh.shape['model']} is not ported to repro_torch yet "
-            f"(ROADMAP.md); each rank attends over its own batch rows")
+    """Train/prefill pass over x (B, S, d) at ``positions`` (S,).  Returns
+    (y, kv) — kv, this rank's (B, S, KV, hd) keys and values, fills caches.
+    ``block`` (a ``launch/mesh.TokenBlock`` with ``n > 1``: x is this
+    rank's chunk of its rows, ``positions`` the chunk's) attends over
+    the whole rows, k and v gathered over the row group (module
+    docstring)."""
     B, S, d = x.shape
     q, k, v = _qkv(params, x, cfg, positions[None, :])
+    kv = {"k": k, "v": v}
+    k_pos = positions
+    if block is not None and block.n > 1:
+        from repro_torch.launch import shard
+        both = shard.row_gather(torch.stack([k, v]), block, dim=2)
+        k, v = both[0], both[1]
+        k_pos = torch.arange(block.S, dtype=positions.dtype,
+                             device=positions.device)
+    row = k.shape[1]                       # the whole row's length
     scale = q.shape[-1] ** -0.5
-    win = window if window is not None else cfg.window
-    if S > q_chunk:
-        o = _flash_path(q, k, v, positions, causal=causal, window=win,
-                        cap=cfg.attn_softcap, scale=scale)
+    st = dict(causal=causal, window=window if window is not None
+              else cfg.window, cap=cfg.attn_softcap, scale=scale)
+    if row <= q_chunk:
+        o = _attend(q, k, v, positions, k_pos, **st)
+    elif use_flash():
+        o = _flash_path(q, k, v, positions, k_pos, **st)
     else:
-        o = _attend(q, k, v, positions, positions, causal=causal, window=win,
-                    cap=cfg.attn_softcap, scale=scale)
+        if row % q_chunk:
+            raise ValueError(f"the chunked path (REPRO_FLASH=0) needs S={row} "
+                             f"divisible by q_chunk={q_chunk}")
+        o = _chunked_path(q, k, v, positions, k_pos, q_chunk, **st)
     y = o.reshape(B, S, -1).to(x.dtype) @ params["wo"].to(x.dtype)
-    return y, {"k": k, "v": v}
+    return y, kv
 
 
-def _flash_path(q, k, v, positions, *, causal, window, cap, scale):
-    """The flash kernels over (B, S, H, hd) q and (B, S, KV, hd) k, v: to
+def use_flash() -> bool:
+    """The flash path toggle: on unless ``REPRO_FLASH=0``, which turns
+    sequences past ``q_chunk`` to the reference's chunked baseline."""
+    return os.environ.get("REPRO_FLASH", "1") == "1"
+
+
+def _chunked_path(q, k, v, q_pos, k_pos, q_chunk, **st):
+    """The reference's ``REPRO_FLASH=0`` path: ``_attend`` over chunks of
+    at most ``q_chunk`` of this rank's query rows, each against every key
+    and recomputed in the backward (``torch.utils.checkpoint``), so only
+    one chunk's (q_chunk, S) scores are kept."""
+    def one(qi, pi):
+        return _attend(qi, k, v, pi, k_pos, **st)
+    outs = [checkpoint(one, qi, pi, use_reentrant=False)
+            if torch.is_grad_enabled() else one(qi, pi)
+            for qi, pi in zip(q.split(q_chunk, dim=1),
+                              q_pos.split(q_chunk), strict=True)]
+    return torch.cat(outs, dim=1)
+
+
+def _flash_path(q, k, v, q_pos, k_pos, *, causal, window, cap, scale):
+    """The flash kernels over (B, Sq, H, hd) q and (B, Sk, KV, hd) k, v: to
     the kernels' head-major layout and back, as the reference's
-    one-device ``_flash_path``."""
+    ``_flash_path``."""
     def heads(t):
         return t.transpose(1, 2).contiguous()
-    pos = positions.to(torch.int32)
-    o = flash_attention(heads(q), heads(k), heads(v), pos, pos, scale,
+    o = flash_attention(heads(q), heads(k), heads(v),
+                        q_pos.to(torch.int32), k_pos.to(torch.int32), scale,
                         causal, window, cap)
     return o.transpose(1, 2)
 

@@ -49,21 +49,23 @@ group-norm scale, Mamba's ``A_log``, ``D``, ``dt_bias`` and norm) stay
 f32.
 
 Across ranks (``mesh``, a ``launch/mesh.Mesh``): in training each rank's
-activations are its own batch rows, and a ``moe`` block runs
-``moe.sharded_moe_apply`` over the rank's tokens with the rank's E/M
-experts (:func:`expert_leaf_mask` marks them).  The trainer's tree is
-stored by a ``launch/shard.Layout`` (``layout``): under FSDP (ZeRO-3)
-each block gathers its stored blocks whole at its start, inside a
-``torch.utils.checkpoint`` region, so the whole weights live only while
-the block runs forward and again while it recomputes in the backward
-(whatever ``remat``); the embedding is gathered for its lookup (which
-keeps only the ids for its backward), the head once for the chunked CE
-(:func:`head_params`).  Serving (:class:`Transformer` with
-a mesh) keeps every activation and cache whole on every rank
-(``replicated``): embeddings, attention, norms and the head run on all
-rows everywhere, and each ``moe`` block splits its tokens over the ranks
-(``moe.replicated_moe_apply``).  A decode step's ``moe`` blocks run
-expert tensor parallelism over the data group
+activations are its own token block (``launch/mesh.token_block``: whole
+rows, or a chunk of one row's positions, attention then context-parallel
+over the row group and each recurrent block run over its gathered whole
+rows), and a ``moe`` block runs ``moe.sharded_moe_apply`` over the rank's
+tokens with the rank's E/M experts (:func:`expert_leaf_mask` marks them).
+The trainer's tree is stored by a ``launch/shard.Layout`` (``layout``):
+under FSDP (ZeRO-3) each block gathers its stored blocks whole at its
+start, inside a ``torch.utils.checkpoint`` region, so the whole weights
+live only while the block runs forward and again while it recomputes in
+the backward (whatever ``remat``); the embedding is gathered for its
+lookup (which keeps only the ids for its backward), the head once for the
+chunked CE (:func:`head_params`).  Serving
+(:class:`Transformer` with a mesh) keeps every activation and cache whole
+on every rank (``replicated``): embeddings, attention, norms and the head
+run on all rows everywhere, and each ``moe`` block splits its tokens over
+the ranks (``moe.replicated_moe_apply``).  A decode step's ``moe`` blocks
+run expert tensor parallelism over the data group
 (:func:`decode_expert_tp_axis`), as the reference's decode does.
 """
 from __future__ import annotations
@@ -346,15 +348,17 @@ def _write_state(cache: Dict[str, torch.Tensor],
 
 
 def _attention(p, h, cfg: ModelConfig, window, *, positions, cache,
-               decode: bool, causal: bool):
+               decode: bool, causal: bool, block=None):
     """Attention over ``window``: a decode step into ``cache``, or a full
-    pass that fills ``cache`` when given.  Returns (y, cache)."""
+    pass that fills ``cache`` when given (context-parallel over ``block``'s
+    row group when it splits rows).  Returns (y, cache)."""
     if decode:
         return attn_lib.decode_attention(p, h, cache, cfg.attention,
                                          ring=_is_ring(cache, window),
                                          window=window)
     a, kv = attn_lib.full_attention(p, h, cfg.attention, positions=positions,
-                                    causal=causal, window=window)
+                                    causal=causal, window=window,
+                                    block=block)
     if cache is not None:
         cache = attn_lib.fill_cache(cache, kv, ring=_is_ring(cache, window))
     return a, cache
@@ -365,18 +369,27 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                   decode: bool = False, long_context: bool = False,
                   noise: Optional[torch.Tensor] = None,
                   shared: Optional[Dict[str, Any]] = None, mesh=None,
-                  replicated: bool = False):
+                  replicated: bool = False, block=None):
     """One ``kind`` block over its parameter dict ``p`` (see the module
     docstring), pre-norm residuals: attention over the kind's window
     (:func:`block_window`), then the MLP or the MoE layer plus the shared
     experts' MLP (``moe``); ``noise`` is a MoE layer's gate draw;
     ``shared`` the tree's ``shared_attn`` (``mamba_sa``); ``mesh`` runs
-    the MoE layer across its ranks: over the rank's own rows, or with
+    the MoE layer across its ranks: over the rank's own tokens, or with
     ``replicated`` (serving) over its block of the rows every rank holds
     (``moe.replicated_moe_apply``); a decode step's runs expert TP
-    (:func:`decode_expert_tp_axis`).  Returns (x, cache, aux); a block
+    (:func:`decode_expert_tp_axis`).  ``block`` (a
+    ``launch/mesh.TokenBlock``) splitting rows (``n > 1``): x is this
+    rank's chunk of its rows, attention runs context-parallel over the
+    row group, and a recurrent block (``rwkv``, ``mamba``, ``mamba_sa``)
+    gathers its input's whole rows over the group, runs them and keeps
+    its chunk (:func:`_whole_rows`).  Returns (x, cache, aux); a block
     without a MoE layer has no aux loss (None: the reference adds its
     zero)."""
+    if kind in ("rwkv", "mamba", "mamba_sa") and block is not None \
+            and block.n > 1:
+        return _whole_rows(p, x, cfg, kind, block, cache, decode,
+                           long_context, shared)
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, cache, decode)
     if kind in ("mamba", "mamba_sa"):
@@ -386,7 +399,7 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     a, cache = _attention(p["attn"], h, cfg,
                           block_window(kind, cfg, long_context),
                           positions=positions, cache=cache, decode=decode,
-                          causal=not cfg.encoder_only)
+                          causal=not cfg.encoder_only, block=block)
     x = x + a
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" not in p:
@@ -400,6 +413,27 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     if "shared_mlp" in p:
         y = y + layers.apply_mlp(p["shared_mlp"], h, cfg.act)
     return x + y, cache, aux
+
+
+def _whole_rows(p, x, cfg: ModelConfig, kind: str, block, cache,
+                decode: bool, long_context: bool, shared):
+    """A recurrent block over a split row: its input's chunks gathered over
+    the row group into whole rows (``launch/shard.row_gather``: the
+    gradient reduce-scattered back), the block run over them, this rank's
+    chunk of the output kept — the gather XLA inserts for these blocks in
+    the reference (``shard_act``), not a parallel scan."""
+    if decode or cache is not None:
+        raise ValueError(f"a {kind} block over a split row runs training "
+                         f"passes only (no cache, no decode step)")
+    from repro_torch.launch import shard
+    xw = shard.row_gather(x, block, dim=1)
+    if kind == "rwkv":
+        y, _, _ = _rwkv_block(p, xw, cfg, None, False)
+    else:
+        pos = torch.arange(block.S, dtype=torch.int32, device=x.device)
+        y, _, _ = _mamba_block(p, xw, cfg, kind, None, False, pos,
+                               long_context, shared)
+    return y[:, block.seq], None, None
 
 
 def _rwkv_block(p, x, cfg: ModelConfig, cache, decode: bool):
@@ -471,7 +505,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             *, caches=None, remat: str = "none",
             noise: Optional[Sequence[torch.Tensor]] = None,
             long_context: bool = False, mesh=None, replicated: bool = False,
-            layout=None) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+            layout=None, block=None
+            ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """Full-sequence pass (training, prefill) over a parameter tree — the
     f32 masters, or a :class:`Transformer`'s compute-dtype copy — with
     every weight cast to ``cfg.dtype`` at its use, as the reference's
@@ -480,8 +515,12 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     ``caches`` (one per layer) are filled in place.  ``long_context``
     caps the ``global`` layers to ``local_window`` (:func:`block_window`).
     ``mesh`` (a ``launch/mesh.Mesh``) runs the ``moe`` blocks across its
-    ranks: ``tokens`` are this rank's batch rows, ``params`` hold its
-    experts, and ``noise`` its rows of each layer's draw; with
+    ranks: ``tokens`` are this rank's token block, ``block`` (a
+    ``launch/mesh.TokenBlock``; None: whole rows from position 0), whose
+    positions they take and whose row group, when ranks share a row,
+    every attending block attends over (context parallelism) and every
+    recurrent block gathers its whole rows over; ``params`` hold the
+    rank's experts, and ``noise`` its rows of each layer's draw; with
     ``replicated`` (serving) ``tokens`` and ``noise`` are the whole batch's
     on every rank, and the ``moe`` blocks split the tokens.  ``layout`` (a
     ``launch/shard.Layout``) says how ``params`` are stored across the
@@ -517,7 +556,15 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
         layout = None                 # every leaf is used as stored
     x = embed_inputs(params, cfg, tokens, dtype, layout)
     B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    if block is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    else:
+        positions = block.positions(x.device)
+        if positions.shape[0] != S:
+            raise ValueError(f"tokens hold {S} positions a row, the token "
+                             f"block {block.seq.start}:{block.seq.stop}")
+        if block.n == 1:
+            block = None
     if noise is None and noisy(cfg):
         gen = torch.Generator(device=x.device).manual_seed(0)
         noise = draw_gate_noise(cfg, B * S, gen, x.device)
@@ -531,11 +578,11 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
                 p, x, cfg, kind=kind, positions=positions, noise=nz,
                 cache=None if caches is None else caches[i],
                 long_context=long_context, shared=shared, mesh=mesh,
-                replicated=replicated)
+                replicated=replicated, block=block)
         else:
             x, a = checkpoint(_remat_block, p, x, positions, nz, cfg, kind,
                               long_context, shared, mesh, replicated,
-                              layout, i, use_reentrant=False,
+                              layout, i, block, use_reentrant=False,
                               preserve_rng_state=False)
         if a is not None:
             aux = aux + a
@@ -544,7 +591,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def _remat_block(p, x, positions, noise, cfg, kind, long_context, shared,
-                 mesh, replicated, layout=None, index=0):
+                 mesh, replicated, layout=None, index=0, block=None):
     if layout is not None:
         # ZeRO-3: the whole weights exist only inside this region
         dt = getattr(torch, cfg.dtype)
@@ -553,7 +600,8 @@ def _remat_block(p, x, positions, noise, cfg, kind, long_context, shared,
             shared = layout.whole(shared, "shared_attn", dt)
     x, _, aux = block_forward(p, x, cfg, kind=kind, positions=positions,
                               noise=noise, long_context=long_context,
-                              shared=shared, mesh=mesh, replicated=replicated)
+                              shared=shared, mesh=mesh, replicated=replicated,
+                              block=block)
     return x, aux
 
 

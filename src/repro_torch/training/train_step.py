@@ -32,27 +32,29 @@ host's step index, which the caller passes (the reference's loop folds
 the same index into its rng), so drawing never waits for the device.
 
 Across ranks (``mesh``, a ``launch/mesh.Mesh``): the batch is the global
-one, and each rank takes its rows of each microbatch
-(``data/pipeline.rank_rows``, data-major; the rows must divide evenly);
-gate noise is drawn for the global tokens and each rank takes its rows,
-so the routing is the reference's.  The CE is the global masked mean (its
-numerator and denominator all-reduced), the aux loss global already
+one, and each rank takes its token block of each microbatch
+(``launch/mesh.token_block``, ``data/pipeline.cut_batch``: the r-th
+contiguous block of the flattened tokens — whole rows when the rows divide
+over the ranks, else a chunk of one row's positions, its attention
+context-parallel over the ranks sharing the row; any other batch raises
+``ValueError``); gate noise is drawn for the global tokens and each rank
+takes the same flattened block, so the routing, the capacity drops and the
+balance statistics are the reference's.  The CE is the global masked mean
+(its numerator and denominator all-reduced), the aux loss global already
 (``core/balance``); each rank back-propagates that global loss into its
-own contributions (``alltoall.all_reduce_sum``).  The state is stored by
-a ``launch/shard.Layout`` (``layout``; by default today's: the experts
-over ``model``, every other leaf whole): a leaf that FSDP shards is
-gathered for use and its gradient arrives reduce-scattered from the
-gather's backward; every gradient is then summed over the axes its leaf
-is neither gathered nor computed sharded on (``Layout.reduce_axes``: a
-replicated leaf over the world, an expert leaf without FSDP over
-``data``), so every rank holds its block of the reference's gradients.
-``clip_by_global_norm`` sums each leaf's squares over the axes whose
-ranks hold disjoint blocks of it (``Layout.norm_axes``), counting every
-element once; AdamW runs on the blocks; the skip guard's ``ok`` is
-all-reduced with MIN, so every rank skips the same steps (a skipped step
-leaves every block's bits).  Nothing here reads a value back to the
-host.
-"""
+own contributions (``alltoall.all_reduce_sum``).  The state is stored by a
+``launch/shard.Layout`` (``layout``; by default today's: the experts over
+``model``, every other leaf whole): a leaf that FSDP shards is gathered
+for use and its gradient arrives reduce-scattered from the gather's
+backward; every gradient is then summed over the axes its leaf is neither
+gathered nor computed sharded on (``Layout.reduce_axes``: a replicated
+leaf over the world, an expert leaf without FSDP over ``data``), so every
+rank holds its block of the reference's gradients.
+``clip_by_global_norm`` sums each leaf's squares over the axes whose ranks
+hold disjoint blocks of it (``Layout.norm_axes``), counting every element
+once; AdamW runs on the blocks; the skip guard's ``ok`` is all-reduced
+with MIN, so every rank skips the same steps (a skipped step leaves every
+block's bits).  Nothing here reads a value back to the host."""
 from __future__ import annotations
 
 import math
@@ -67,9 +69,9 @@ from repro_torch import resolve_device, tree
 from repro_torch.core import faults as faults_mod
 from repro_torch.core.alltoall import all_reduce_sum
 from repro_torch.core.config import ModelConfig, TrainConfig
-from repro_torch.data.pipeline import rank_rows
+from repro_torch.data.pipeline import cut_batch
 from repro_torch.launch import shard
-from repro_torch.launch.mesh import rank_block, tree_paths
+from repro_torch.launch.mesh import token_block, tree_paths
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import (adamw_update, clip_by_global_norm,
                                      init_opt_state, make_schedule)
@@ -182,18 +184,19 @@ def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                    noise: Optional[List[torch.Tensor]] = None,
                    faults: Optional[faults_mod.FaultPlan] = None,
                    step: Optional[torch.Tensor] = None, mesh=None,
-                   layout=None):
+                   layout=None, block=None):
     """(loss, ce, aux, grads) of one batch: the forward (``remat``, the
     per-layer gate ``noise``), the chunked CE and the backward, with the
     loss multiplied by ``scale`` (when given) before the backward.  The
     ``train.activations`` and ``train.loss`` seams of ``faults`` fire at
     the device counter ``step``.  ``grads`` has ``params``' structure.
-    Under ``mesh`` ``batch`` holds this rank's rows, the losses are the
+    Under ``mesh`` ``batch`` holds this rank's token block ``block`` (a
+    ``launch/mesh.TokenBlock``; None: whole rows), the losses are the
     global ones and ``grads`` this rank's contributions to them (a leaf
     ``layout`` gathers: summed over the gather's groups, the rank's
     block)."""
     h, aux, _ = T.forward(params, batch["inputs"], cfg, remat=remat,
-                          noise=noise, mesh=mesh, layout=layout)
+                          noise=noise, mesh=mesh, layout=layout, block=block)
     h = faults_mod.apply_traced(faults, "train.activations", step, h)
     ce = chunked_ce_loss(params, cfg, h, batch["targets"],
                          batch["loss_mask"],
@@ -253,7 +256,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     ranks (the module docstring): ``state`` holds this rank's blocks of
     ``layout`` (``launch/shard.layout_for(cfg, mesh)``, without FSDP,
     unless given: the one ``init_train_state`` was given), and each
-    microbatch's rows must divide over the ranks."""
+    microbatch must cut into the ranks' token blocks
+    (``launch/mesh.token_block``: ``ValueError`` naming B, S and the mesh
+    otherwise)."""
     if mesh is not None and layout is None:
         layout = shard.layout_for(cfg, mesh, fsdp=False)
     sched = make_schedule(tcfg)
@@ -267,17 +272,15 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         mbs = tcfg.microbatches
         scale = None if static_scale else state.loss_scale
-        B = batch["inputs"].shape[0]
+        B, S = batch["inputs"].shape[:2]
         if B % mbs:
             raise ValueError(f"batch {B} is not divisible by "
                              f"microbatches={mbs}")
+        # this rank's token block of each microbatch (raises before any
+        # work when the microbatch does not cut over the ranks)
+        block = None if mesh is None else token_block(mesh, B // mbs, S)
         parts = [{k: v[i * (B // mbs):(i + 1) * (B // mbs)]
                   for k, v in batch.items()} for i in range(mbs)]
-        if mesh is not None and (B // mbs) % mesh.world:
-            raise ValueError(
-                f"batch {B} / microbatches {mbs} = {B // mbs} rows do not "
-                f"divide over the {mesh.world} ranks of mesh "
-                f"{mesh.describe()}")
         if noisy and noise is None:
             if step is None:
                 raise ValueError(
@@ -291,15 +294,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                 cfg, math.prod(mb["inputs"].shape[:2]), gen, dev)
                 for mb in parts]
         if mesh is not None:
-            # this rank's rows of each microbatch and of its noise
-            parts = [rank_rows(mb, mesh) for mb in parts]
+            # this rank's block of each microbatch and the same flattened
+            # block of its noise
+            parts = [cut_batch(mb, block) for mb in parts]
             if noise is not None:
-                rows = rank_block(mesh, math.prod(
-                    batch["inputs"].shape[:2]) // mbs)
-                noise = [[None if n is None else n[rows] for n in nz]
+                noise = [[None if n is None else n[block.flat] for n in nz]
                          for nz in noise]
         kw = dict(remat=tcfg.remat, faults=faults, step=state.step,
-                  mesh=mesh, layout=layout)
+                  mesh=mesh, layout=layout, block=block)
         loss, ce, aux, grads = loss_and_grads(
             state.params, parts[0], cfg, scale,
             noise=None if noise is None else noise[0], **kw)

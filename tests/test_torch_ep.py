@@ -4,8 +4,9 @@ reference's on the conftest's fake devices at the same mesh shape, the
 same numpy inputs (E=8 experts, top-2, capacity 1.0 so that ``sort`` and
 ``dense`` drop, 62 tokens so that 1x4 and 2x2 pad), f32.  Also the dense
 dispatch at one device, the grouped path at 1x4 against the port's own
-one-device layer, the collective count per layer and the α–β
-resolution at M = 2, 4, 8."""
+one-device layer, the collective count per layer, the α–β resolution at
+M = 2, 4, 8, and context-parallel attention at 1x2 against one
+process."""
 import dataclasses
 
 import jax
@@ -293,14 +294,16 @@ def test_resolution_at_model_sizes_matches_reference(M, dispatch, T_shard):
         tuning.set_tuning(*prev)
 
 
-def test_expert_tp_and_context_parallel_flash_raise_naming_roadmap():
+def test_expert_tp_identity_and_context_parallel_attention_runs():
     """Expert TP is ported: on one device (no mesh: a data axis of size 1)
     ``expert_tp_axis="data"`` is the identity, bitwise the layer without
     it, and an axis outside the mesh's raises ValueError (the layer under
-    TP across ranks: test_torch_expert_tp.py).  Still not ported: the
-    reference's context-parallel flash (attention given a mesh with a
-    model axis) raises naming ROADMAP.md."""
-    import types
+    TP across ranks: test_torch_expert_tp.py).  Context-parallel
+    attention is ported too: at 1x2 with one row (each rank 64 of its 128
+    positions, the row past q_chunk 32: the flash path), ``full_attention``
+    over the row group gives one process's output and gradients (f32,
+    within 1e-5 of each one's max; test_torch_cp.py holds it against the
+    reference)."""
     from repro_torch.models import attention
     cfg = tconfig.MoEConfig(**BASE)
     inputs = _inputs()
@@ -313,9 +316,32 @@ def test_expert_tp_and_context_parallel_flash_raise_naming_roadmap():
     with pytest.raises(ValueError, match="valid axis names"):
         moe.sharded_moe_apply(None, cfg, p, x, num_experts=E,
                               expert_tp_axis="pod")
-    acfg = tconfig.AttentionConfig(num_heads=2, num_kv_heads=2)
-    p = attention.init_attention(torch.Generator().manual_seed(0), acfg, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attention.full_attention(
-            p, torch.zeros(1, 8, D), acfg, positions=torch.arange(8),
-            mesh=types.SimpleNamespace(shape={"data": 1, "model": 2}))
+    heads = dict(num_heads=4, num_kv_heads=2, head_dim=8)
+    rng = np.random.default_rng(3)
+    att = {"params": {k: (rng.standard_normal(s) * 0.3).astype(np.float32)
+                      for k, s in (("wq", (D, 32)), ("wk", (D, 16)),
+                                   ("wv", (D, 16)), ("wo", (32, D)))},
+           "x": rng.standard_normal((1, 128, D)).astype(np.float32),
+           "gy": rng.standard_normal((1, 128, D)).astype(np.float32)}
+    cases = [("causal", heads, True, None, True)]
+    ranks = spawn(torch_ranks.cp_attention, 2, backend="gloo", threads=1,
+                  args=((1, 2), 1, att, cases, 32))
+    tp = {k: torch.from_numpy(v).requires_grad_(True)
+          for k, v in att["params"].items()}
+    tx = torch.from_numpy(att["x"]).requires_grad_(True)
+    ty, _ = attention.full_attention(
+        tp, tx, tconfig.AttentionConfig(**heads),
+        positions=torch.arange(128, dtype=torch.int32), q_chunk=32)
+    keys = sorted(tp)
+    want = torch.autograd.grad((ty * torch.from_numpy(att["gy"])).sum(),
+                               [tx] + [tp[k] for k in keys])
+    got_y = np.concatenate([r["causal"]["y"] for r in ranks], axis=1)
+    got_dx = np.concatenate([r["causal"]["dx"] for r in ranks], axis=1)
+    assert [r["block"] for r in ranks] == [(0, 1, 0, 64, 2), (0, 1, 64, 128,
+                                                              2)]
+    assert all(r["causal"]["gathers"] == 1 for r in ranks)
+    for got, w in [(got_y, ty), (got_dx, want[0])] + [
+            (sum(r["causal"]["grads"][k] for r in ranks), g)
+            for k, g in zip(keys, want[1:])]:
+        w = w.detach().numpy()
+        assert np.abs(got - w).max() <= 1e-5 * np.abs(w).max()

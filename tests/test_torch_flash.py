@@ -347,3 +347,76 @@ def test_short_sequences_keep_the_attend_semantics():
     err_attend = np.abs(attend - ref)
     assert (err_attend <= tol).all(), (err_attend / tol).max()
     assert np.abs(flash - ref).max() > 2 * err_attend.max()
+
+
+# ---------------------------------------------------------------------------
+# the chunked REPRO_FLASH=0 baseline
+# ---------------------------------------------------------------------------
+
+def _full_and_grads(jcfg, tcfg, jp, tp, jx, tx, S, q_chunk):
+    """(y, grads of sum(y²)/2 in x and the four projections) of the
+    reference's full_attention (jitted value_and_grad) and the port's."""
+    def f(p, x):
+        y, _ = jattn.full_attention(p, x, jcfg, positions=jnp.arange(S),
+                                    q_chunk=q_chunk)
+        return 0.5 * jnp.sum(y * y), y
+    (_, jy), (jgp, jgx) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True))(jp, jx)
+    leaves = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    x = tx.clone().requires_grad_()
+    y, _ = tattn.full_attention(leaves, x, tcfg, q_chunk=q_chunk,
+                                positions=torch.arange(S, dtype=torch.int32))
+    keys = sorted(leaves)
+    g = torch.autograd.grad(0.5 * (y * y).sum(), [x] + [leaves[k]
+                                                      for k in keys])
+    ref = [np.asarray(jy), np.asarray(jgx)] + [np.asarray(jgp[k])
+                                               for k in keys]
+    return ref, [t.detach().numpy() for t in (y, *g)]
+
+
+def test_chunked_baseline_matches_reference(monkeypatch):
+    """``REPRO_FLASH=0`` on both sides (the reference's
+    ``test_model_flash_path_matches_jnp_path`` shapes: GQA 4:2, head dim
+    16, d 64, one row of S=128, q_chunk 32): the port's chunked path —
+    each chunk of 32 queries through ``_attend`` against every key under
+    ``torch.utils.checkpoint`` — against the reference's, forward and
+    the gradients of x and the four projections, at the reference's rtol
+    1e-4 / atol 1e-5; the flash kernels are not called."""
+    jcfg, tcfg, jp, tp, jx, tx = _attn_inputs(128, "float32")
+    calls = []
+    fwd = F.flash_fwd
+    monkeypatch.setattr(F, "flash_fwd", lambda *a: calls.append(1) or fwd(*a))
+    monkeypatch.setenv("REPRO_FLASH", "0")
+    assert not tattn.use_flash()
+    ref, got = _full_and_grads(jcfg, tcfg, jp, tp, jx[:1], tx[:1], 128, 32)
+    assert not calls
+    for r, g in zip(ref, got, strict=True):
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-5)
+
+
+def test_flash_path_matches_the_chunked_path(monkeypatch):
+    """In the port, S=128 past q_chunk 32 (f32, two rows): the flash path
+    and the ``REPRO_FLASH=0`` chunked path give the same output and
+    gradients (rtol 1e-4, atol 1e-5: in f32 ``_attend``'s p rounding to
+    v's dtype is none); the chunked path refuses an S that q_chunk does
+    not divide, as the reference asserts."""
+    _, tcfg, _, tp, _, tx = _attn_inputs(128, "float32")
+
+    def run():
+        leaves = {k: v.clone().requires_grad_() for k, v in tp.items()}
+        x = tx.clone().requires_grad_()
+        y, _ = tattn.full_attention(leaves, x, tcfg, q_chunk=32,
+                                    positions=torch.arange(
+                                        128, dtype=torch.int32))
+        keys = sorted(leaves)
+        g = torch.autograd.grad(0.5 * (y * y).sum(),
+                                [x] + [leaves[k] for k in keys])
+        return [t.detach().numpy() for t in (y, *g)]
+    flash = run()
+    monkeypatch.setenv("REPRO_FLASH", "0")
+    chunked = run()
+    for a, b in zip(flash, chunked, strict=True):
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="q_chunk"):
+        tattn.full_attention(tp, tx[:, :120], tcfg, q_chunk=32,
+                             positions=torch.arange(120, dtype=torch.int32))

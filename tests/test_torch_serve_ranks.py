@@ -189,8 +189,9 @@ def test_decode_config_resolves_like_reference(shape, batch):
     jmesh = jmake_smoke_mesh(shape)
     tmesh = _FakeMesh(shape={"data": shape[0], "model": shape[1]},
                       world=shape[0] * shape[1])
-    jprev = jtuning.set_tuning(fabric=FABRIC)
-    prev = tuning.set_tuning(fabric=TFABRIC, flops=jtuning.NOMINAL_FLOPS)
+    jprev = jtuning.set_tuning(mode="auto", fabric=FABRIC)
+    prev = tuning.set_tuning(mode="auto", fabric=TFABRIC,
+                             flops=jtuning.NOMINAL_FLOPS)
     try:
         jr = jengine.resolve_decode_config(jc, jmesh, batch)
         tr = engine.resolve_decode_config(tc, batch, tmesh)

@@ -1,7 +1,8 @@
 """Rank bodies for the tests across ranks (``test_torch_alltoall.py``,
 ``test_torch_ep.py``, ``test_torch_ep_train.py``, ``test_torch_expert_tp.py``,
 ``test_torch_serve_ranks.py``, ``test_torch_fsdp.py``,
-``test_torch_ckpt_ranks.py``): each runs in a process that
+``test_torch_ckpt_ranks.py``, ``test_torch_cp.py``,
+``test_torch_cp_train.py``): each runs in a process that
 ``repro_torch.launch.mesh.spawn`` starts, over gloo on the CPU, and returns
 numpy arrays.  Imports no JAX: the spawned ranks load only the port."""
 from __future__ import annotations
@@ -502,3 +503,190 @@ def ckpt_resume_rank(rank, arch, init_params, dirs):
                                                     layout=st["layout"])})
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# context parallelism (test_torch_cp.py, test_torch_cp_train.py,
+# test_torch_ep.py): a batch with fewer rows than ranks, each row's
+# positions split over the ranks that share it
+# ---------------------------------------------------------------------------
+
+def jobs_rank(rank, jobs):
+    """Each job ``(key, name, args)`` — a function of this module called
+    as ``name(rank, *args)`` — in order on this rank: {key: result}."""
+    return {key: globals()[name](rank, *args) for key, name, args in jobs}
+
+
+def _f32_any(target):
+    """Make ``target.smoke_config`` (a configs module) give the f32
+    variant of any preset."""
+    base = target.smoke_config
+    target.smoke_config = lambda arch: base(arch).replace(dtype="float32")
+
+
+def cp_attention(rank, shape, B, inputs, cases, q_chunk):
+    """``full_attention`` on this rank's token block of ``inputs["x"][:B]``
+    at mesh ``shape`` (``launch/mesh.token_block``) for each case
+    ``(name, AttentionConfig fields, causal, window, flash)`` (``flash``
+    False: under ``REPRO_FLASH=0``, the chunked path): the block's y and
+    dx, this rank's contributions to the projections' gradients of
+    ``sum(y·gy)``, the row-group gathers of the forward, and the members
+    of each row group the mesh made."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.core.config import AttentionConfig
+    from repro_torch.launch import shard
+    from repro_torch.launch.mesh import cut_tokens, token_block
+    from repro_torch.models import attention
+    x = torch.from_numpy(inputs["x"][:B])
+    gy = torch.from_numpy(inputs["gy"][:B])
+    S = x.shape[1]
+    mesh = make_mesh(shape, device="cpu",
+                     rows=(cut_tokens(shape, 0, B, S).n,))
+    blk = token_block(mesh, B, S)
+    out = {"block": (blk.rows.start, blk.rows.stop, blk.seq.start,
+                     blk.seq.stop, blk.n),
+           "row_groups": {n: dist.get_process_group_ranks(g)
+                          for n, g in mesh.rows.items()}}
+    for name, fields, causal, window, flash in cases:
+        os.environ["REPRO_FLASH"] = "1" if flash else "0"
+        cfg = AttentionConfig(**fields)
+        p = {k: torch.from_numpy(v).requires_grad_(True)
+             for k, v in inputs["params"].items()}
+        xl = x[blk.rows, blk.seq].clone().requires_grad_(True)
+        shard.row_gathers = 0
+        y, _ = attention.full_attention(
+            p, xl, cfg, positions=blk.positions(), causal=causal,
+            window=window, q_chunk=q_chunk, block=blk)
+        gathers = shard.row_gathers
+        keys = sorted(p)
+        grads = torch.autograd.grad((y * gy[blk.rows, blk.seq]).sum(),
+                                    [xl] + [p[k] for k in keys])
+        del os.environ["REPRO_FLASH"]
+        out[name] = {"y": _np(y), "dx": _np(grads[0]), "gathers": gathers,
+                     "grads": {k: _np(g) for k, g in zip(keys, grads[1:])}}
+    return out
+
+
+def cp_train(rank, shape, arch, init_path, kw):
+    """``launch.train.run`` of ``arch``'s f32 smoke model at ``shape`` from
+    the reference's initial parameters (pickled at ``init_path``) with
+    the run keywords ``kw``: the history, the final state whole (rank 0,
+    the reference's checkpoint keys) and the row-group gathers a step."""
+    from repro_torch import configs, convert
+    from repro_torch.launch import shard, train
+    base = train.configs.smoke_config
+    _f32_any(train.configs)
+    try:
+        st = {}
+        shard.row_gathers = 0
+        state, hist = train.run(arch, smoke=True, device="cpu",
+                                mesh_shape=shape, log_every=1000,
+                                init_params=load_tree(init_path), stats=st,
+                                **kw)
+        gathers = shard.row_gathers / len(hist)
+        cfg = configs.smoke_config(arch)
+        if "moe" in kw:
+            import dataclasses as dc
+            cfg = cfg.replace(moe=dc.replace(cfg.moe, **kw["moe"]))
+        whole = convert.state_to_numpy(state, cfg, layout=st["layout"])
+    finally:
+        train.configs.smoke_config = base
+    return {"history": hist, "whole": whole, "gathers": gathers}
+
+
+def cp_banner(rank, shape, arch, kw):
+    """The resolved MoE knobs ``launch.train.run`` prints at ``shape`` for
+    the run keywords ``kw`` (rank 0's banner, from ``dispatch=`` to
+    ``remat=``; None elsewhere)."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.launch import train
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        train.run(arch, smoke=True, device="cpu", mesh_shape=shape,
+                  log_every=1000, **kw)
+    m = re.search(r"(dispatch=.*?)remat=", text.getvalue())
+    return None if rank else (m.group(1) if m else text.getvalue())
+
+
+def cp_moe_cut(rank, shape, x, gate_w, fields):
+    """The MoE layer's cut of a (B, S, d) batch at ``shape``: this rank's
+    token block flattened (and whether it is ``moe.rank_tokens``' block),
+    the routes and the sort plan's slots (-1: dropped) at the capacity of
+    ``fields``."""
+    from repro_torch.core import capacity, gating, layout
+    from repro_torch.launch.mesh import cut_tokens, token_block
+    xg = torch.from_numpy(x)
+    B, S, d = xg.shape
+    mesh = make_mesh(shape, device="cpu",
+                     rows=(cut_tokens(shape, 0, B, S).n,))
+    blk = token_block(mesh, B, S)
+    mine = xg[blk.rows, blk.seq].reshape(-1, d)
+    cfg = MoEConfig(**fields)
+    E = cfg.num_experts
+    gate = gating.route(cfg, gating.router_logits(cfg, mine,
+                                                  torch.from_numpy(gate_w)))
+    plan = layout.plan_sort(gate, E, capacity.expert_capacity(
+        cfg, mine.shape[0], E), drop_bucket=True)
+    return {"tokens": _np(mine),
+            "is_rank_tokens": torch.equal(mine, moe.rank_tokens(mesh, xg)[0]),
+            "flat": (blk.flat.start, blk.flat.stop),
+            "expert_index": gate.expert_index.numpy(),
+            "slot": plan.slot.numpy()}
+
+
+def cp_grads(rank, shape, arch, init_path, B, S):
+    """One f32 smoke batch (``SyntheticLM``, seed 0) of ``arch`` at
+    ``shape`` through ``train_step.loss_and_grads`` on this rank's token
+    block, from the reference's parameters: the loss and the gradients
+    summed over the ranks (rank 0, the reference's stacked tree)."""
+    import torch.distributed as dist
+
+    from repro_torch import configs, tree
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.data.pipeline import SyntheticLM, cut_batch
+    from repro_torch.launch.mesh import cut_tokens, token_block
+    from repro_torch.training import train_step as ts
+    mesh = make_mesh(shape, device="cpu",
+                     rows=(cut_tokens(shape, 0, B, S).n,))
+    cfg = configs.smoke_config(arch).replace(dtype="float32")
+    params = tree.map_(lambda t: t.requires_grad_(True),
+                       params_from_numpy(load_tree(init_path), cfg))
+    blk = token_block(mesh, B, S)
+    batch = cut_batch(SyntheticLM(cfg, B, S, device="cpu").next_batch(0),
+                      blk)
+    loss, _, _, grads = ts.loss_and_grads(params, batch, cfg, mesh=mesh,
+                                          block=blk)
+    leaves = tree.leaves(grads)
+    for g in leaves:
+        dist.all_reduce(g)
+    return {"loss": float(loss), "split": blk.n,
+            "grads": params_to_numpy(tree.unflatten(grads, leaves), cfg)
+            if rank == 0 else None}
+
+
+def cp_reduce_scatter(rank, shape, xs, dim, pieces):
+    """``launch/shard._reduce_scatter`` over the model group at ``shape``
+    of this rank's ``xs[rank]`` (f32 values exact in bf16), sent as bf16
+    and as f32 and summed in f32, in pieces of at most each of
+    ``pieces`` bytes (None: the module's own): {(dtype, piece): block}."""
+    from repro_torch.launch import shard
+    mesh = make_mesh(shape, device="cpu")
+    x = torch.from_numpy(xs[rank])
+    n = shape[1]
+    default, out = shard._PIECE_BYTES, {}
+    try:
+        for piece in pieces:
+            shard._PIECE_BYTES = default if piece is None else piece
+            for dt in (torch.bfloat16, torch.float32):
+                out[str(dt).split(".")[-1], piece] = shard._reduce_scatter(
+                    x.to(dt), mesh.model_group, n, dim, torch.float32
+                ).numpy()
+    finally:
+        shard._PIECE_BYTES = default
+    return out
