@@ -5,7 +5,11 @@
 
 Phases, in order; any failure ends the script with a non-zero exit:
 
-1. Setup: the card's name and power limit, TF32 off, the kernel build.
+1. Setup: the card's name and power limit, TF32 off, the kernel build;
+   beside the build, a process of its own compiles every
+   ``flex_attention`` yardstick of phases 2m, 2n and 2p once
+   (``warm_flex``), so that those phases find its kernels in the caches
+   under build/.
 2. Each hand-written kernel against its plain PyTorch version on the card,
    at the main paths' shapes and at edge cases, with stated tolerances:
    the gate (2a: exact, ties at k=2 and k=4, E=10 on the scalar path),
@@ -254,12 +258,18 @@ Phases, in order; any failure ends the script with a non-zero exit:
    the world and 2048 a rank, sort and grouped): card ranks against the
    same ranks on the CPU (1e-4 of each max, forward and backward, 4 / 5
    TP collectives), grouped against one process, kernels 3-6 on the
-   experts' f-slice views; the int8 and fp8 wire at 1x4, card against CPU
+   experts' stored f-slice; the int8 and fp8 wire at 1x4, card against CPU
    ranks within the reference's QWIRE_TOLS.  18e: ``dbrx-132b`` (2 of 40
    layers, published widths, bf16, grouped) served at 2x2 through
    ``launch.serve.run`` (batch 8, prompt 1024, 16 new tokens; prefill
    expert parallel, decode expert TP, the decode step eager), every plain
-   version made to raise: the tokens bitwise equal on all four ranks;
+   version made to raise, the state stored by the reference's serving rule
+   (each rank its 8 experts' half of f: the prefill gathers each block's
+   experts whole in f, the decode step computes on the stored slice), each
+   rank's stored bytes equal to ``launch/dryrun.count_pair``'s for the
+   same config and its expert bytes a quarter of the layer's, the
+   prefill's expert gathers counted: the tokens bitwise equal on all four
+   ranks;
    teacher-forced on one process's tokens (the parent, before the spawn,
    which also holds kernel 3 on the f-slice views at dbrx's shapes), the
    router logits within 2^-4 of each call's max, the routes that differ
@@ -267,7 +277,14 @@ Phases, in order; any failure ends the script with a non-zero exit:
    step's logits within 2^-4 of its largest |logit| and the greedy token
    equal wherever one process's top-2 margin clears that; the per-rank
    peak, the prefill and the eager decode ms a step (host-staged); rank
-   0's launches of kernels 1, 2, 3, 6 and 7.  18b also runs the paper's
+   0's launches of kernels 1, 2, 3, 6 and 7; then the same model stored
+   under FSDP (``Transformer(fsdp=True)``, what ``needs_fsdp(4e9)``
+   resolves for it: the dense leaves over data x model too), a prefill and
+   4 decode steps on one process's replayed routes: their logits bitwise
+   the stored-slice run's, its stored bytes the dry run's.  In the parent,
+   while the ranks run, ``python -m repro_torch.launch.dryrun --all`` and
+   ``--all --multi-pod`` (the CPU only, no JAX), their seconds printed.
+   18b also runs the paper's
    own ReLU experts (``grouped-relu``) at 1x4, the card replaying the CPU
    ranks' ReLU masks (``forced_relu_ffn``), at 1e-4.  18f: the paper
    model whole trained at 2x2 under FSDP (ZeRO-3, the state stored by the
@@ -324,6 +341,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 ARCH = "hetumoe-paper-16e"
@@ -1565,17 +1583,31 @@ def phase_flash_wide(torch, dev, errs):
         torch.cuda.empty_cache()
 
 
+def flex_compile_env(torch):
+    """The compile settings every ``flex_attention`` yardstick (and
+    ``warm_flex``) shares: the inductor and Triton caches under build/,
+    one compile thread, and a recompile limit above the yardsticks' count
+    of shapes (past Dynamo's default of 8 the call ran uncompiled, and ran
+    out of memory, in phase 2p)."""
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+    import torch._dynamo
+    cfg = torch._dynamo.config
+    cfg.recompile_limit = max(cfg.recompile_limit, FLEX_RECOMPILE_LIMIT)
+
+
+FLEX_RECOMPILE_LIMIT = 64
+
+
 def flex_yardstick(torch, q, k, v, scale, window, cap):
     """One call of ``torch.nn.attention.flex_attention`` computing the
     kernel's function on the same inputs (positions 0..S-1): the causal
     window as a block mask, the softcap as a score_mod, GQA in the call;
     compiled here, once, outside any timing.  Returns (call, seconds to
     compile) or (None, why not)."""
-    import os
-    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
-                     ("TRITON_CACHE_DIR", "triton")):
-        os.environ.setdefault(var, str(ROOT / "build" / sub))
-    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+    flex_compile_env(torch)
     try:
         from torch.nn.attention.flex_attention import (create_block_mask,
                                                        flex_attention)
@@ -1660,7 +1692,9 @@ def phase_windowed_flash(torch, dev, smi, errs, shapes=None, phase="2m",
                   f"version")
         if flex is None:
             print(f"    flex_attention does not run here: {built}")
-        else:
+        check(flex is not None, f"flex_attention, the yardstick at {name}, "
+                                f"did not run: {built}")
+        if flex is not None:
             print(f"    flex_attention compiled in {built:.1f} s")
             check(dist["flex_attention"]["o"]
                   <= 2 * dist["bf16-p plain"]["o"],
@@ -2002,10 +2036,7 @@ def flex_cp_yardstick(torch, memo, q, k, v, do, off, scale, window, cap):
         from torch.nn.attention.flex_attention import (create_block_mask,
                                                        flex_attention)
         if not memo:
-            for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
-                             ("TRITON_CACHE_DIR", "triton")):
-                os.environ.setdefault(var, str(ROOT / "build" / sub))
-            os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+            flex_compile_env(torch)
             at0, win = (torch.zeros((), dtype=torch.int32, device=q.device)
                         for _ in range(2))
 
@@ -2057,6 +2088,72 @@ def flex_cp_yardstick(torch, memo, q, k, v, do, off, scale, window, cap):
     except Exception as e:                     # noqa: BLE001 - reported
         return None, None, None, None, (f"{type(e).__name__}: "
                                         f"{str(e).splitlines()[0][:200]}")
+
+
+def warm_flex(torch):
+    """Compile every ``flex_attention`` yardstick of phases 2m, 2n and 2p
+    once at its shape and kind of inputs (the yardsticks' own calls, on
+    random bf16 inputs; nothing timed or checked), in a process of its
+    own that ``main`` starts beside the kernels' build: the phases'
+    compiles then find the generated kernels in the inductor and Triton
+    caches under build/ (a backward's compile ~38 → ~18 s on the H100
+    host), and the yardsticks' timings come after their compiles either
+    way."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+    for name, H, KV, d, window, cap in WINDOWED_FLASH + ZAMBA_FLASH_PREFILL:
+        B, S = WINDOWED_B, WINDOWED_S
+        flex_yardstick(torch, rnd(B, H, S, d), rnd(B, KV, S, d),
+                       rnd(B, KV, S, d), d ** -0.5, window, cap)
+        torch.cuda.empty_cache()
+    for name, H, KV, d, window, cap in WINDOWED_TRAIN:
+        B, S = WINDOWED_TRAIN_B, WINDOWED_TRAIN_S
+        flex_bwd_yardstick(torch, rnd(B, H, S, d), rnd(B, KV, S, d),
+                           rnd(B, KV, S, d), rnd(B, H, S, d), d ** -0.5,
+                           window, cap)
+        torch.cuda.empty_cache()
+    memo = {}
+    for name, H, KV, d, window, cap in CP_KINDS:
+        k, v = rnd(1, KV, CP_SK, d), rnd(1, KV, CP_SK, d)
+        for Sq, _, timed in CP_SHAPES:
+            for off in timed:
+                flex_cp_yardstick(torch, memo, rnd(1, H, Sq, d), k, v,
+                                  rnd(1, H, Sq, d), off, d ** -0.5, window,
+                                  cap)
+    print(f"warm_flex: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def start_flex_warm():
+    """:func:`warm_flex` in a new process on the card, its output in
+    build/flex_warm.log; returns (process, its log's path, start)."""
+    log = ROOT / "build" / "flex_warm.log"
+    log.parent.mkdir(parents=True, exist_ok=True)
+    code = ("import sys, torch; sys.path.insert(0, 'src'); import chip_smoke;"
+            " chip_smoke.flex_compile_env(torch); chip_smoke.warm_flex(torch)")
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                stdout=f, stderr=subprocess.STDOUT)
+    return proc, log, time.perf_counter()
+
+
+def finish_flex_warm(warm, timeout: float = 120.0) -> None:
+    """Wait for :func:`start_flex_warm`'s process (at most ``timeout``
+    seconds, then end it) and print how it went: it only fills caches, so
+    its failure fails nothing."""
+    proc, log, t0 = warm
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    tail = log.read_text(errors="replace").strip().splitlines()[-1:]
+    print(f"  flex_attention caches warmed beside the build: exit "
+          f"{proc.returncode} after {time.perf_counter() - t0:.1f} s "
+          f"({tail[0][:200] if tail else 'no output'})")
 
 
 def cp_timing_rows(torch, F, rows, bwd, H, KV, d, window, label, src, ref,
@@ -5764,6 +5861,10 @@ EP_QWIRE = (("int8", 5e-2, 1e-1), ("float8_e4m3fn", 1.5e-1, 3e-1))
 EP_SERVE = dict(arch="dbrx-132b", layers=2, batch=8, prompt_len=1024,
                 gen=16, mesh=(2, 2))
 EP_SERVE_BOUND = 2.0 ** -4
+# 18e's FSDP case: the same model stored under FSDP, a prefill and 4 decode
+# steps on the replayed routes (each step gathers the 1.23 GB embedding and
+# head over gloo: host staging, seconds a step)
+EP_SERVE_FSDP_STEPS = 5
 # 18f: the paper model whole trained at 2x2 under FSDP (ZeRO-3) through
 # launch.train.run(fsdp=True), grouped: 3 steps uninterrupted; 3 steps
 # saving at step 2 and cut at the top of step 2 (train.loop:raise@2), then
@@ -5920,8 +6021,10 @@ def ep_layer_run(torch, mesh, cfg, params, xl, gyl, valid, *, record=False,
     ``sharded_moe_apply`` on the card and then on the CPU over the same
     gloo group, forward and backward of ``sum(y·gy) + aux`` from the
     global ``params`` (this rank's experts cut here; ``tp`` the
-    ``expert_tp_axis``).  With relu (grouped) the CPU runs first and its
-    ReLU masks are replayed on the card (``forced_relu_ffn``).  Returns
+    ``expert_tp_axis``, under which the rank holds the f-slice of its
+    experts that serving stores, data index di of D the slice
+    ``[di·f/D, (di+1)·f/D)``).  With relu (grouped) the CPU runs first and
+    its ReLU masks are replayed on the card (``forced_relu_ffn``).  Returns
     the per-device results (outputs, gradients, launches, expert-TP
     collectives, ms) and, with ``record``, the card's grouped FFN and
     scatter-add inputs."""
@@ -5931,13 +6034,24 @@ def ep_layer_run(torch, mesh, cfg, params, xl, gyl, valid, *, record=False,
     E = cfg.num_experts
     n = E // mesh.shape["model"]
     m = mesh.model_index
+    D, di = mesh.shape["data"], mesh.data_index
     res, rec = {}, {}
     relu = act == "relu"
     masks = []
+
+    def share(k, v):
+        if k == "gate_w":
+            return v
+        v = v[m * n:(m + 1) * n]
+        if tp is None or D == 1:
+            return v
+        dim = 1 if k == "w_out" else 2
+        f = v.shape[dim] // D
+        return v.narrow(dim, di * f, f).contiguous()
     for dev in ("cpu", "cuda") if relu else ("cuda", "cpu"):
-        p = {k: (v if k == "gate_w" else v[m * n:(m + 1) * n]).to(
-            mesh.device if dev == "cuda" else "cpu").requires_grad_(True)
-            for k, v in params.items()}
+        p = {k: share(k, v).to(mesh.device if dev == "cuda" else "cpu"
+                               ).requires_grad_(True)
+             for k, v in params.items()}
         xr = xl.to(p["gate_w"].device).requires_grad_(True)
         ffn, sca = G.grouped_ffn, L.scatter_add_rows
         if relu and dev == "cpu":
@@ -6596,18 +6710,20 @@ def ep_tp_checks(torch, rank, ref_paths):
 
 
 def greedy_with_logits(torch, model, prompt, steps, forced=None,
-                       graph=None):
+                       graph=None, cache_len=None):
     """Greedy generation through the step builders, each step's logits
     (f32) kept: ``(tokens (B, S + steps), logits (steps, B, V))``; with
     ``forced`` (B, S + steps) the decode steps are fed its tokens
     (teacher forcing) instead of their own; ``graph`` as
-    ``engine.build_decode`` takes it."""
+    ``engine.build_decode`` takes it; caches of ``cache_len`` (default S +
+    steps)."""
     from repro_torch.serving import engine
     B, S = prompt.shape
+    cache_len = cache_len or S + steps
     out, logits = [prompt], []
     with torch.inference_mode():
-        prefill = engine.build_prefill(model, cache_len=S + steps, batch=B)
-        with engine.holding_decode(model, batch=B, cache_len=S + steps,
+        prefill = engine.build_prefill(model, cache_len=cache_len, batch=B)
+        with engine.holding_decode(model, batch=B, cache_len=cache_len,
                                    graph=graph) as step:
             step.reset()
             last, _ = prefill(prompt, step.caches)
@@ -6723,20 +6839,41 @@ def ep_serve_routes(torch, rank, one, calls):
     return dist, flips
 
 
+def ep_serve_stored(model, cfg, fsdp: bool) -> dict:
+    """A served model's stored bytes on this rank, of them the experts',
+    and ``launch/dryrun.count_pair``'s stored params for the same config,
+    mesh and layout (18e's decode shape)."""
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.launch import dryrun, shard
+    from repro_torch.launch.mesh import tree_paths
+    rec = dryrun.count_pair(
+        cfg, ShapeConfig("18e", EP_SERVE["prompt_len"] + EP_SERVE["gen"],
+                         EP_SERVE["batch"], "decode"),
+        model.layout.mesh_shape, fsdp=fsdp, expert_tp=True)
+    return dict(stored=model.stored_bytes(),
+                dry_run=rec["stored_bytes"]["params"],
+                experts=sum(t.numel() * t.element_size() for p, t in
+                            tree_paths(model.tree()) if shard.is_expert(p)),
+                layout=model.layout_key)
+
+
 def ep_serve_run(torch, rank, one_path):
     """18e on one rank (every plain version made to raise): dbrx-132b at
-    2x2, teacher-forced on one process's tokens, first with its own routes
-    (the router logits against one process's, the routes that differ),
-    then replaying one process's routes (each step's logits against that
-    process's, argmax agreement where its top-2 margin clears the bound);
-    then served greedy through ``launch.serve.run``; returns the
-    distances, the tokens, rank 0's launches, the times and the peak
-    memory."""
+    2x2, stored by the serving rule, teacher-forced on one process's
+    tokens, first with its own routes (the router logits against one
+    process's, the routes that differ), then replaying one process's
+    routes (each step's logits against that process's, argmax agreement
+    where its top-2 margin clears the bound); then served greedy through
+    ``launch.serve.run`` (the prefill's gathers counted); then the model
+    stored under FSDP, a prefill and ``EP_SERVE_FSDP_STEPS - 1`` decode
+    steps on the replayed routes; returns the distances, the tokens, rank
+    0's launches, the stored bytes against the dry run's, the times and
+    the peak memory."""
     import hashlib
 
     import numpy as np
     from repro_torch.kernels import topk_gate as K
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, shard
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.transformer import Transformer
     from repro_torch.serving import engine
@@ -6746,6 +6883,7 @@ def ep_serve_run(torch, rank, one_path):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = Transformer(cfg, mesh=mesh, seed=0)
+    stored = ep_serve_stored(model, cfg, False)
     forced = torch.from_numpy(one["tokens"])
     S = EP_SERVE["prompt_len"]
     ref = torch.from_numpy(one["logits"])
@@ -6756,10 +6894,9 @@ def ep_serve_run(torch, rank, one_path):
         _, free = greedy_with_logits(torch, model, forced[:, :S].cuda(),
                                      EP_SERVE["gen"], forced=forced)
         router_err, flips = ep_serve_routes(torch, rank, one, tape.calls)
-        K.fused_topk_gate = GateTape(fused, [
-            torch.from_numpy(one[f"gate_idx_{i}"][rank * x.shape[0]:(
-                rank + 1) * x.shape[0]]) for i, (x, _) in enumerate(
-                tape.calls)])
+        replayed = [torch.from_numpy(one[f"gate_idx_{i}"][rank * x.shape[0]:(
+            rank + 1) * x.shape[0]]) for i, (x, _) in enumerate(tape.calls)]
+        K.fused_topk_gate = GateTape(fused, replayed)
         _, logits = greedy_with_logits(torch, model, forced[:, :S].cuda(),
                                        EP_SERVE["gen"], forced=forced)
     finally:
@@ -6772,6 +6909,7 @@ def ep_serve_run(torch, rank, one_path):
     del model
     release(torch)
     reset_counts()
+    shard.gathers = 0
     stats = {}
     t0 = time.perf_counter()
     tokens = serve.run(EP_SERVE["arch"], smoke=False,
@@ -6781,6 +6919,29 @@ def ep_serve_run(torch, rank, one_path):
                        num_layers=EP_SERVE["layers"])
     wall = time.perf_counter() - t0
     counts = read_counts([k for k, _, _ in COUNTERS])
+    gathers, peak = shard.gathers, torch.cuda.max_memory_allocated()
+    # the FSDP case: the same weights stored under FSDP, the replayed routes
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    model = Transformer(cfg, mesh=mesh, seed=0, fsdp=True)
+    fsdp = ep_serve_stored(model, cfg, True)
+    shard.gathers = 0
+    try:
+        K.fused_topk_gate = GateTape(fused, replayed)
+        _, flogits = greedy_with_logits(
+            torch, model, forced[:, :S].cuda(), EP_SERVE_FSDP_STEPS,
+            forced=forced, cache_len=S + EP_SERVE["gen"])
+    finally:
+        K.fused_topk_gate = fused
+    fsdp.update(gathers=shard.gathers, s=time.perf_counter() - t1,
+                bitwise=bool(torch.equal(flogits,
+                                         logits[:EP_SERVE_FSDP_STEPS])),
+                max_abs_diff=float((flogits - logits[:EP_SERVE_FSDP_STEPS]
+                                    ).abs().max()),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    engine.clear_step_cache(model)
+    del model
+    release(torch)
     return dict(step_err=step_err, free_step_err=free_err,
                 router_err=max(router_err), route_flips=flips,
                 gate_calls=len(router_err),
@@ -6794,8 +6955,8 @@ def ep_serve_run(torch, rank, one_path):
                                               == forced[:, S:]).sum()),
                 counts=counts, prefill_s=stats["prefill_s"],
                 decode_ms=1e3 * stats["decode_s"] / stats["decode_steps"],
-                wall_s=wall, peak_gib=torch.cuda.max_memory_allocated()
-                / 2 ** 30)
+                wall_s=wall, peak_gib=peak / 2 ** 30, stored=stored,
+                gathers=gathers, fsdp=fsdp)
 
 
 def ep_rank(rank, refs):
@@ -6829,6 +6990,75 @@ def ep_rank(rank, refs):
     return out
 
 
+def live_cuda_tensors(torch, least: int = 1 << 26):
+    """The GiB this process has allocated on the card and its live CUDA
+    tensors of at least ``least`` bytes (by storage, largest first:
+    MiB, shape, dtype) — what earlier phases left alive."""
+    gc.collect()
+    seen, found = set(), []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # deprecated aliases' FutureWarning
+        for o in gc.get_objects():
+            try:
+                if not (isinstance(o, torch.Tensor) and o.is_cuda):
+                    continue
+                st = o.untyped_storage()
+                ptr, n = st.data_ptr(), st.nbytes()
+            except Exception:  # objects that refuse the probe (fake tensors)
+                continue
+            if ptr in seen or n < least:
+                continue
+            seen.add(ptr)
+            found.append((round(n / 2 ** 20, 1), tuple(o.shape),
+                          str(o.dtype)))
+    return (torch.cuda.memory_allocated() / 2 ** 30,
+            sorted(found, reverse=True))
+
+
+DRYRUN_ARGS = (("--all",), ("--all", "--multi-pod"))
+
+
+# ``python -m repro_torch.launch.dryrun ARGS`` that prints its own seconds
+DRYRUN_RUN = ("import runpy, sys, time; t = time.perf_counter(); "
+              "sys.argv = ['dryrun', *sys.argv[1:]]; "
+              "runpy.run_module('repro_torch.launch.dryrun', "
+              "run_name='__main__'); "
+              "print(f'seconds {time.perf_counter() - t:.3f}')")
+
+
+def start_dry_runs():
+    """``python -m repro_torch.launch.dryrun`` with each of
+    ``DRYRUN_ARGS``, on the CPU (no card), started now; returns the
+    processes."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return [(args, subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_RUN, *args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for args in DRYRUN_ARGS]
+
+
+def finish_dry_runs(runs) -> dict:
+    """Wait for :func:`start_dry_runs`' processes: each must exit 0 with
+    a line for every (preset, shape) pair; their own seconds."""
+    out = {}
+    for args, proc in runs:
+        text, err = proc.communicate(timeout=300)
+        lines = [ln for ln in text.splitlines() if ln.strip()]
+        secs = (float(lines.pop().split()[1]) if lines
+                and lines[-1].startswith("seconds ") else float("nan"))
+        key = " ".join(args)
+        out[key] = dict(rc=proc.returncode, pairs=len(lines),
+                        skipped=sum("SKIP:" in ln for ln in lines), s=secs)
+        print(f"  dryrun {key}: exit {proc.returncode}, {len(lines)} pairs "
+              f"({out[key]['skipped']} skipped), {out[key]['s']:.1f} s "
+              f"(the CPU only, beside the ranks)")
+        check(proc.returncode == 0 and len(lines) == 40,
+              f"dryrun {key}: exit {proc.returncode}, {len(lines)} lines: "
+              f"{err[-2000:]}")
+    return out
+
+
 def phase_ep(torch, smi):
     """Phase 18: expert parallelism with four ranks sharing the one card
     over gloo (``launch.mesh.spawn``, one spawn for the whole phase; NCCL
@@ -6849,6 +7079,10 @@ def phase_ep(torch, smi):
     B, S, steps = EP_TRAIN["batch"], EP_TRAIN["seq"], EP_TRAIN["steps"]
     world = 4
     out = {"label": ep_label(world), "card": smi}
+    held, tensors = live_cuda_tensors(torch)
+    print(f"  the parent holds {held:.2f} GiB of tensors from earlier "
+          f"phases; live tensors of 64 MiB or more {tensors[:12]}")
+    out["parent_held_gib"] = held
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
         refs = {k: str(pathlib.Path(tmp) / f"{k}.npz")
                 for k in ("prefill", "decode", "serve")}
@@ -6856,9 +7090,10 @@ def phase_ep(torch, smi):
         refs["cp"] = str(pathlib.Path(tmp) / "cp_blocks")
         for tokens, n_glob in EP_TP_TOKENS:
             ep_one_process_reference(torch, refs[tokens], n_glob)
-        _, one = train.run(ARCH, steps=1, batch=B, seq=S, smoke=False,
-                           seed=0, log_every=1, dispatch="grouped",
-                           device="cuda")
+        state, one = train.run(ARCH, steps=1, batch=B, seq=S, smoke=False,
+                               seed=0, log_every=1, dispatch="grouped",
+                               device="cuda")
+        del state                  # held through the ranks' run before
         release(torch)
         cp_one = cp_one_process_run(torch)
         cp_parent_s = cp_blocks_reference(torch, refs["cp"])
@@ -6874,6 +7109,7 @@ def phase_ep(torch, smi):
               f"--tune, --fabric), then 18e: {EP_SERVE}")
         release(torch)
         free, total = torch.cuda.mem_get_info()
+        out["parent_reserved_gib"] = torch.cuda.memory_reserved() / 2 ** 30
         print(f"  the parent holds {torch.cuda.memory_reserved() / 2 ** 30:.2f}"
               f" GiB of its allocator's; the card has {free / 2 ** 30:.2f} "
               f"of {total / 2 ** 30:.2f} GiB free for the ranks")
@@ -6882,10 +7118,12 @@ def phase_ep(torch, smi):
         # ranks' cached blocks leave no free segment of a large size
         alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
         os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        dry = start_dry_runs()
         try:
             ranks = spawn(ep_rank, world, backend="gloo", threads=2,
                           args=(refs,), timeout=900)
         finally:
+            out["dryrun"] = finish_dry_runs(dry)
             if alloc is None:
                 del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
             else:
@@ -7067,6 +7305,31 @@ def report_ep_serve(ranks, smi, world):
               f"process's {x['generated_eq_one_process']} of "
               f"{EP_SERVE['batch'] * EP_SERVE['gen']}")
     print(f"    rank 0 launches {r0['counts']}")
+    gib = 2 ** 30
+    moe_layers = EP_SERVE["layers"]
+    for r, x in enumerate(res):
+        st, fs = x["stored"], x["fsdp"]
+        print(f"    rank {r}: stored {st['stored'] / gib:.3f} GiB (experts "
+              f"{st['experts'] / gib:.3f}; the dry run counts "
+              f"{st['dry_run'] / gib:.3f}; layout (fsdp, expert_tp) "
+              f"{st['layout']}), {x['gathers']} expert gathers in the "
+              f"served prefill, peak {x['peak_gib']:.2f} GiB; under FSDP "
+              f"stored {fs['stored'] / gib:.3f} GiB (the dry run "
+              f"{fs['dry_run'] / gib:.3f}), {fs['gathers']} gathers over a "
+              f"prefill + {EP_SERVE_FSDP_STEPS - 1} decode steps in "
+              f"{fs['s']:.1f} s, peak {fs['peak_gib']:.2f} GiB, logits "
+              f"bitwise the stored-slice run's {fs['bitwise']} (max |diff| "
+              f"{fs['max_abs_diff']:.3e})")
+    check(all(x["stored"]["stored"] == x["stored"]["dry_run"]
+              and x["fsdp"]["stored"] == x["fsdp"]["dry_run"] for x in res),
+          f"18e: stored bytes a rank differ from the dry run's "
+          f"{[(x['stored'], x['fsdp']['stored']) for x in res]}")
+    check(all(x["gathers"] == 3 * moe_layers for x in res),
+          f"18e: the prefill gathered {[x['gathers'] for x in res]} leaves, "
+          f"not its 3 expert leaves in each of {moe_layers} blocks")
+    check(all(x["fsdp"]["bitwise"] for x in res),
+          f"18e: the FSDP case's logits are not the stored-slice run's "
+          f"{[x['fsdp']['max_abs_diff'] for x in res]}")
     check(all(x["tokens"] == r0["tokens"] for x in res),
           "18e: the ranks' tokens differ")
     check(len({x["logits_digest"] for x in res}) == 1,
@@ -7082,6 +7345,8 @@ def report_ep_serve(ranks, smi, world):
           f"18e: a kernel of the serving path was not launched on rank 0: "
           f"{r0['counts']}")
     return {k: v for k, v in r0.items() if k != "tokens"} | {
+        "stored": [x["stored"] for x in res],
+        "fsdp": [x["fsdp"] for x in res],
         "peak_gib": [x["peak_gib"] for x in res],
         "prefill_s": [x["prefill_s"] for x in res],
         "decode_ms": [x["decode_ms"] for x in res],
@@ -7166,6 +7431,11 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    # phases 2m, 2n and 2p compile flex_attention yardsticks: fill their
+    # caches in a process of its own while the kernels build, under the
+    # settings this process compiles with
+    flex_compile_env(torch)
+    warm = start_flex_warm() if phases in ("all", "kernels", "ep") else None
 
     smi = smi_line()
     dev = torch.device("cuda")
@@ -7247,6 +7517,7 @@ def main(argv=None) -> int:
     stamp("phase 2o")
     wide_rows += phase_flash_zamba2(torch, dev, smi, errs)
     stamp("phase 2p")
+    finish_flex_warm(warm)
     if phases == "kernels":
         phase_timings(torch, dev, smi)
         print(smi)

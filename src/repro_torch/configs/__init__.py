@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` → ModelConfig.
 
 All eleven of the reference's presets; asking for another raises
-``KeyError`` naming them.  ``smoke_config`` applies the reference's
-reductions (``repro/configs/__init__.py``).
+``KeyError`` naming them.  ``ASSIGNED`` lists the ten the dry run counts
+(``launch/dryrun.py``), in the reference's order.  ``smoke_config``
+applies the reference's reductions (``repro/configs/__init__.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,11 @@ from repro_torch.core.config import ModelConfig
 ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (
     _rwkv6, _danube, _yi, _llama4, _dbrx, _internvl, _zamba, _gemma2,
     _hubert, _starcoder, _paper)}
+
+# the ten presets the dry run covers, in the reference's order (the paper
+# model is the repo's own)
+ASSIGNED = [c.name for c in (_rwkv6, _danube, _yi, _llama4, _dbrx,
+                             _internvl, _zamba, _gemma2, _hubert, _starcoder)]
 
 
 def get_config(arch: str) -> ModelConfig:

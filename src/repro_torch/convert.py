@@ -178,16 +178,21 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
-                      mesh=None, *, fsdp: bool = False) -> Dict[str, Any]:
+                      mesh=None, *, fsdp: Optional[bool] = False,
+                      serving: bool = False) -> Dict[str, Any]:
     """The JAX parameter tree (numpy leaves) → the port's f32 tree; with
-    ``mesh`` (a ``launch/mesh.Mesh``) this rank's share by its layout
-    (``launch/shard.layout_for(cfg, mesh, fsdp)``): under ``fsdp=False``
-    each expert leaf (E, …) cut to the rank's E/M slice and the rest
-    whole, under ``fsdp=True`` every leaf as its spec says.  Raises
+    ``mesh`` (a ``launch/mesh.Mesh``) this rank's share by its layout: a
+    train state's (``launch/shard.layout_for(cfg, mesh, fsdp)``), or with
+    ``serving`` a served model's (``launch/shard.serve_layout_for``: the
+    experts' f over ``data`` under expert TP, what ``Transformer(cfg,
+    mesh=, fsdp=)`` stores).  Under ``fsdp=False`` each expert leaf (E, …)
+    is cut to the rank's E/M slice (and f-slice) and the rest kept whole,
+    under ``fsdp=True`` every leaf as its spec says.  Raises
     ``ValueError`` naming missing keys, unexpected keys and shape
     mismatches."""
-    return _params_from_numpy(tree, cfg,
-                              shard.layout_for(cfg, mesh, fsdp=fsdp))
+    layout = (shard.serve_layout_for(cfg, mesh, fsdp) if serving
+              else shard.layout_for(cfg, mesh, fsdp=fsdp))
+    return _params_from_numpy(tree, cfg, layout)
 
 
 def _params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,

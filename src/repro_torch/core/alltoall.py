@@ -29,11 +29,24 @@ Expert tensor parallelism (decode) runs two more collectives over the
 data group: the tiled all-gather (:func:`tp_all_gather`, its backward a
 reduce-scatter) and the tiled reduce-scatter (:func:`tp_reduce_scatter`,
 its backward an all-gather); ``tp_collectives`` counts them.
+
+``collectives`` logs every bulk collective a rank issues — each AllToAll
+stage (the payloads, the count matrices, the quantized wire's scales),
+the expert-TP all-gathers and reduce-scatters, and the ZeRO-3 and
+row-group gathers and reduce-scatters of ``launch/shard.py``, the
+serving all-gather of the MoE outputs and the trainer's gradient
+all-reduces — as a :class:`Collective`: its kind, the axis its group
+spans, the group's size, the dtype on the wire and the shape of the
+rank's input.  The scalar reductions (losses, balance statistics,
+norms, the skip guard) are not logged.  The log is off (None) until a
+caller sets it to a list.  ``launch/dryrun.py`` predicts the same log for
+a step from the plan alone.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+import math
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -43,13 +56,62 @@ from repro_torch.core.config import A2A_MODES
 exchanges = 0          # AllToAll collectives issued since the caller reset it
 
 
-def _a2a(x: torch.Tensor, group, pending: Optional[list] = None
-         ) -> torch.Tensor:
-    """One equal-split ``all_to_all_single`` over ``group`` along dim 0,
-    moving bytes.  With ``pending`` (a list) the call is issued
-    ``async_op=True`` and its work appended; the caller waits
-    (:func:`wait`) before reading the result."""
+class Collective(NamedTuple):
+    """One logged collective: ``kind`` (``all_to_all``, ``all_gather``,
+    ``reduce_scatter``, ``all_reduce``), the ``axis`` its group spans
+    (``model``, ``data``, ``inner``, ``outer``, ``row``, ``world``), the
+    group's size ``n``, the wire ``dtype`` (its torch name) and the
+    ``shape`` of this rank's input: for an all-gather the block it
+    contributes, for a reduce-scatter the whole tensor it reduces."""
+    kind: str
+    axis: str
+    n: int
+    dtype: str
+    shape: Tuple[int, ...]
+
+    @property
+    def payload_bytes(self) -> int:
+        """Bytes of the rank's input."""
+        return math.prod(self.shape) * DTYPE_BYTES[self.dtype]
+
+    @property
+    def wire_bytes(self) -> float:
+        """Bytes a rank sends (and receives) under the ring and pairwise
+        algorithms: the reference's ``parse_collectives`` costs, from the
+        input's size."""
+        b, n = self.payload_bytes, self.n
+        if self.kind == "all_gather":
+            return float(b * (n - 1))
+        if self.kind == "all_reduce":
+            return 2.0 * b * (n - 1) / n
+        return b * (n - 1) / n                # all_to_all, reduce_scatter
+
+
+DTYPE_BYTES = {"float64": 8, "float32": 4, "bfloat16": 2, "float16": 2,
+               "int64": 8, "int32": 4, "int16": 2, "int8": 1, "uint8": 1,
+               "bool": 1, "float8_e4m3fn": 1, "float8_e5m2": 1}
+# the log: None (off) until a caller sets it to a list
+collectives: Optional[List[Collective]] = None
+
+
+def record(kind: str, axis: str, n: int, dtype, shape) -> None:
+    """Log one collective in :data:`collectives` (when it is a list)."""
+    if collectives is not None:
+        collectives.append(Collective(kind, axis, int(n),
+                                       str(dtype).removeprefix("torch."),
+                                       tuple(int(s) for s in shape)))
+
+
+def _a2a(x: torch.Tensor, group, pending: Optional[list] = None,
+         axis: str = "model") -> torch.Tensor:
+    """One equal-split ``all_to_all_single`` over ``group`` (the ``axis``
+    of the log) along dim 0, moving bytes.  With ``pending`` (a list)
+    the call is issued ``async_op=True`` and its work appended; the
+    caller waits (:func:`wait`) before reading the result."""
     global exchanges
+    if collectives is not None:
+        record("all_to_all", axis, dist.get_world_size(group), x.dtype,
+               x.shape)
     x = x.contiguous()
     out = torch.empty_like(x)
     if x.numel():
@@ -76,6 +138,7 @@ class Route:
     groups: Tuple
     outer: int = 1
     inner: int = 1
+    axis: str = "model"      # a flat route's axis in the log
 
 
 def _run(x: torch.Tensor, route: Route, inverse: bool,
@@ -84,21 +147,21 @@ def _run(x: torch.Tensor, route: Route, inverse: bool,
     stage first, then the inner one.  ``pending`` (forward only) issues
     the last stage asynchronously."""
     if len(route.groups) == 1:
-        return _a2a(x, route.groups[0], pending)
+        return _a2a(x, route.groups[0], pending, route.axis)
     M, c = x.shape[0], x.shape[1:]
     o, i = route.outer, route.inner
     inner_g, outer_g = route.groups
     if not inverse:
         # [dest_o, dest_i] → [dest_i, dest_o]; stage A over the node
         y = x.reshape(o, i, *c).transpose(0, 1).contiguous()
-        y = _a2a(y, inner_g)                     # [src_i, dest_o]
+        y = _a2a(y, inner_g, axis="inner")       # [src_i, dest_o]
         # the layout transform: per-destination-node data contiguous
         y = y.transpose(0, 1).contiguous()       # [dest_o, src_i]
-        y = _a2a(y, outer_g, pending)            # [src_o, src_i]
+        y = _a2a(y, outer_g, pending, "outer")   # [src_o, src_i]
         return y.reshape(M, *c)
-    y = _a2a(x.reshape(o, i, *c), outer_g)       # undo stage B
+    y = _a2a(x.reshape(o, i, *c), outer_g, axis="outer")  # undo stage B
     y = y.transpose(0, 1).contiguous()           # [src_i, dest_o]
-    y = _a2a(y, inner_g)                         # undo stage A
+    y = _a2a(y, inner_g, axis="inner")           # undo stage A
     return y.transpose(0, 1).reshape(M, *c)
 
 
@@ -156,7 +219,8 @@ def _route(mesh, mode: str, inner: int, outer: Optional[int] = None
 def flat_all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     """Vanilla AllToAll over ``group`` (a model group; None = the world),
     differentiable."""
-    return _Exchange.apply(x, Route((group,)))
+    return _Exchange.apply(x, Route((group,), axis="model" if group
+                                    is not None else "world"))
 
 
 def hierarchical_all_to_all(x: torch.Tensor, mesh, *, inner: int,
@@ -349,10 +413,17 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
 tp_collectives = 0     # TP all-gathers and reduce-scatters since the reset
 
 
-def gather_rows(x: torch.Tensor, group, n: int) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, group, n: int,
+                axis: str = "world") -> torch.Tensor:
     """Every rank's ``x`` of the ``n``-rank ``group`` (None = the world)
     concatenated along dim 0 in group-rank order; the bytes cross (any
-    dtype crosses any backend).  Not differentiable."""
+    dtype crosses any backend).  Not differentiable.  Logged as an
+    all-gather over ``axis``."""
+    record("all_gather", axis, n, x.dtype, x.shape)
+    return _gather_raw(x, group, n)
+
+
+def _gather_raw(x: torch.Tensor, group, n: int) -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((n * x.shape[0], *x.shape[1:]))
     if x.numel():
@@ -365,7 +436,8 @@ def gather_rows(x: torch.Tensor, group, n: int) -> torch.Tensor:
 def _tp_gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     """Group rank r's ``x`` as block r of the output along ``dim``."""
     global tp_collectives
-    out = gather_rows(x.movedim(dim, 0), group, n)
+    record("all_gather", "data", n, x.dtype, x.shape)
+    out = _gather_raw(x.movedim(dim, 0), group, n)
     tp_collectives += 1
     return out.movedim(0, dim)
 
@@ -380,6 +452,7 @@ def _tp_reduce_scatter(x: torch.Tensor, group, n: int,
         raise ValueError(f"reduce-scatter: dim {dim} of {tuple(x.shape)} "
                          f"does not divide over {n} ranks")
     out = xm.new_empty((xm.shape[0] // n, *xm.shape[1:]))
+    record("reduce_scatter", "data", n, x.dtype, x.shape)
     if xm.numel():
         dist.reduce_scatter_tensor(out, xm, group=group)
     tp_collectives += 1

@@ -212,6 +212,23 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     learning_rate: float = 3e-4
     warmup_steps: int = 100

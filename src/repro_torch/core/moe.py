@@ -36,13 +36,14 @@ the rank's E/M experts.  The aux loss is a global masked mean over the
 world (``balance``); the load metrics are averaged over it.
 
 Expert tensor parallelism (``expert_tp_axis="data"``, the reference's
-decode-time layout): the rank of data index ``di`` of D computes with the
-f-slice ``[di·f/D, (di+1)·f/D)`` of its experts (views of ``w_up`` /
+decode-time layout): the rank of data index ``di`` of D holds and computes
+with the f-slice ``[di·f/D, (di+1)·f/D)`` of its experts (``w_up`` /
 ``w_gate``'s last dim and ``w_out``'s middle one, what the reference's
-``P(model, None, "data")`` gives that device), on the received rows of
-every rank of its data group (``alltoall.tp_all_gather``), and a
-reduce-scatter (``alltoall.tp_reduce_scatter``) hands each rank its rows
-back with the f-contraction summed.
+``P(model, None, "data")`` stores on that device: ``launch/shard.Layout``
+with ``expert_tp``), on the received rows of every rank of its data group
+(``alltoall.tp_all_gather``), and a reduce-scatter
+(``alltoall.tp_reduce_scatter``) hands each rank its rows back with the
+f-contraction summed.
 
 Serving keeps its activations whole on every rank:
 :func:`replicated_moe_apply` takes the global tokens, runs the layer on
@@ -50,7 +51,7 @@ the rank's block of them and all-gathers the outputs over the world.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -65,28 +66,29 @@ from repro_torch.kernels import grouped_ffn as gffn
 def init_moe_params(generator: torch.Generator, cfg: MoEConfig, d_model: int,
                     d_ff: int, num_experts: int, *, act: str = "swiglu",
                     dtype=torch.float32, device=None,
-                    experts: Optional[slice] = None
+                    cut: Optional[Callable[[str, torch.Tensor],
+                                           torch.Tensor]] = None
                     ) -> Dict[str, torch.Tensor]:
     """Router (f32) + expert weights in ``dtype``, drawn from
-    ``generator`` (each cast right after its draw).  ``experts`` keeps
-    only that slice of each expert leaf (a rank's E/M experts): the leaf
-    is drawn whole, so the values are one process's, and freed once its
-    slice is copied out."""
+    ``generator`` (each cast right after its draw).  ``cut(name, leaf)``
+    keeps a rank's block of each expert leaf (``launch/shard.Layout``):
+    the leaf is drawn whole, so the values are one process's, and freed
+    once its block is copied out."""
     d_ff = cfg.d_ff_expert or d_ff
 
     def randn(scale, *shape, dtype=dtype):
         return draw(generator, shape, scale, device=device, dtype=dtype)
 
-    def expert(scale, *shape):
+    def expert(name, scale, *shape):
         t = randn(scale, num_experts, *shape)
-        return t if experts is None else t[experts].clone()
+        return t if cut is None else cut(name, t)
 
     scale_in, scale_out = d_model ** -0.5, d_ff ** -0.5
     p = {"gate_w": randn(scale_in, d_model, num_experts, dtype=torch.float32),
-         "w_up": expert(scale_in, d_model, d_ff),
-         "w_out": expert(scale_out, d_ff, d_model)}
+         "w_up": expert("w_up", scale_in, d_model, d_ff),
+         "w_out": expert("w_out", scale_out, d_ff, d_model)}
     if act in ("swiglu", "geglu"):
-        p["w_gate"] = expert(scale_in, d_model, d_ff)
+        p["w_gate"] = expert("w_gate", scale_in, d_model, d_ff)
     return p
 
 
@@ -129,7 +131,7 @@ def moe_block_local(cfg: MoEConfig, params: Dict[str, torch.Tensor],
                                Dict[str, torch.Tensor]]:
     """x: (T, d) this rank's tokens → (y, aux_loss, metrics).  ``cfg`` must
     be resolved (no ``"auto"``); ``params`` hold the rank's E/M experts
-    (with ``expert_tp``, the rank's f-slice of them); ``mesh`` None is one
+    (with ``expert_tp``, its stored f-slice of them); ``mesh`` None is one
     device.  ``noise`` (T, E) and ``token_ids`` (T,) go to the gate
     (``gating.route``).
 
@@ -454,10 +456,11 @@ def sharded_moe_apply(mesh, cfg: MoEConfig, params: Dict[str, torch.Tensor],
     the ``hash`` gate, which raises ``ValueError`` without them.
 
     ``expert_tp_axis="data"`` runs expert TP over the data group (see the
-    module docstring): the rank computes with views of its experts'
-    f-slice, and f must divide over D (``ValueError`` otherwise).  At
-    data size 1 (and without a mesh) it is the identity.  Any other axis
-    raises the reference's ``ValueError`` naming the mesh's axes."""
+    module docstring): ``params`` hold the rank's stored f-slice of its
+    experts (``launch/shard.Layout(expert_tp=True)``, whose layout
+    refuses an f that does not divide over D).  At data size 1 (and
+    without a mesh) it is the identity.  Any other axis raises the
+    reference's ``ValueError`` naming the mesh's axes."""
     if expert_tp_axis is not None and expert_tp_axis != "data":
         # a typo'd axis must not silently disable expert TP
         raise ValueError(
@@ -469,8 +472,6 @@ def sharded_moe_apply(mesh, cfg: MoEConfig, params: Dict[str, torch.Tensor],
     M = 1 if mesh is None else mesh.shape["model"]
     D = 1 if mesh is None else mesh.shape["data"]
     tp = expert_tp_axis is not None and D > 1
-    if tp:
-        params = _f_slice(params, D, mesh.data_index)
     if token_ids is not None:
         token_ids = token_ids.reshape(-1)
     elif cfg.gate == "hash":
@@ -492,25 +493,6 @@ def sharded_moe_apply(mesh, cfg: MoEConfig, params: Dict[str, torch.Tensor],
 
 
 MESH_AXES = ("data", "model")
-
-
-def _f_slice(params: Dict[str, torch.Tensor], D: int, di: int
-             ) -> Dict[str, torch.Tensor]:
-    """``params`` with the expert leaves cut to data index ``di``'s f-slice
-    ``[di·f/D, (di+1)·f/D)``: views of ``w_up``/``w_gate``'s last dim and
-    ``w_out``'s middle one."""
-    f = params["w_up"].shape[-1]
-    if f % D:
-        raise ValueError(
-            f"expert TP: the expert FFN width f={f} does not divide over "
-            f"the data axis of size {D}")
-    n = f // D
-    cut = slice(di * n, (di + 1) * n)
-    out = dict(params, w_up=params["w_up"][..., cut],
-               w_out=params["w_out"][:, cut])
-    if "w_gate" in params:
-        out["w_gate"] = params["w_gate"][..., cut]
-    return out
 
 
 def replicated_moe_apply(mesh, cfg: MoEConfig,

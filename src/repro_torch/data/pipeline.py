@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import TokenBlock
 
 
@@ -80,3 +80,20 @@ def cut_batch(batch: Dict[str, torch.Tensor],
     if block is None:
         return batch
     return {k: v[block.rows, block.seq] for k, v in batch.items()}
+
+
+def make_batch_specs(cfg: ModelConfig, shape: ShapeConfig,
+                     dtype="bfloat16") -> Dict[str, torch.Tensor]:
+    """``meta`` tensors of one global batch (the dry run's stand-ins, no
+    storage): ``inputs`` (B, S) int32, or (B, S, d) in ``dtype`` for a
+    frontend config; ``targets`` (B, S) int32; ``loss_mask`` (B, S)
+    float32."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+    def meta(shp, d):
+        return torch.empty(shp, dtype=d, device="meta")
+    inputs = (meta((B, S, cfg.d_model), dt) if cfg.frontend is not None
+              else meta((B, S), torch.int32))
+    return {"inputs": inputs, "targets": meta((B, S), torch.int32),
+            "loss_mask": meta((B, S), torch.float32)}

@@ -53,8 +53,10 @@ a ``PartitionSpec``.  The port keeps one dict per layer where the
 reference stacks its blocks over super-blocks, so a port leaf's spec is
 the reference's for the same key without the scan dim.  How the port
 stores a train state by these specs, and gathers it for use, is
-``launch/shard.py``.  Production meshes come with a later slice
-(ROADMAP.md).
+``launch/shard.py``.  The production meshes
+(:func:`make_production_mesh`) are shapes too, with an optional ``pod``
+axis that batches shard over (:func:`dp_axes`, :func:`batch_shardings`)
+beside ``data``; :func:`cache_shardings` lays out the decode caches.
 """
 from __future__ import annotations
 
@@ -265,8 +267,28 @@ def make_smoke_mesh(shape: Tuple[int, ...] = (1, 1), *,
     return make_mesh(shape, backend=backend, device=device, rows=rows)
 
 
-def dp_axes(mesh: Optional[Mesh]) -> Tuple[str, ...]:
-    return () if mesh is None else ("data",)
+def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
+    """The reference's production mesh as a shape: ``{"data": 16,
+    "model": 16}`` (one pod of 256 chips), or ``{"pod": 2, "data": 16,
+    "model": 16}`` with ``multi_pod`` (512).  A shape, not a group: the
+    dry run (``launch/dryrun.py``) counts for it without any rank."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def _shape_of(mesh) -> Dict[str, int]:
+    """A mesh's shape: a :class:`Mesh`'s ``shape``, or the mapping
+    itself."""
+    return mesh.shape if isinstance(mesh, Mesh) else mesh
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    """The batch axes of ``mesh`` (a :class:`Mesh`, a shape mapping, or
+    None: none), ``pod`` then ``data``, as the mesh names them."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in _shape_of(mesh) if a in ("pod", "data"))
 
 
 # ---------------------------------------------------------------------------
@@ -435,6 +457,43 @@ def state_shardings(mesh_shape: Dict[str, int], state_shapes, *,
                                   fsdp=fsdp),
              "count": ()},
         **scalars)
+
+
+def batch_shardings(mesh_shape: Dict[str, int], batch_shapes):
+    """Specs for a batch tree (leaves with ``.shape``): the batch dim over
+    ``(pod, data)`` where it divides, everything else replicated."""
+    dp = dp_axes(mesh_shape)
+    return map_paths(lambda _, leaf: fit_spec(mesh_shape, (dp,), leaf.shape),
+                     batch_shapes)
+
+
+def cache_spec(mesh_shape: Dict[str, int], shape) -> Spec:
+    """The reference's decode-cache spec for one of the port's per-layer
+    cache leaves of ``shape`` (B, ...): the reference's leaf is the same
+    stacked over super-blocks, (NSB, B, ...), and this is its spec with
+    the leading NSB entry dropped.  The batch dim over ``(pod, data)``;
+    ONE inner dim over ``model`` where it divides, in the reference's
+    order of preference: the kv / ssm head (dim -2), the cache's sequence
+    or state dim (dim 1), the channel dim (dim -1).  A position (0-d)
+    replicates."""
+    n = len(shape)
+    if n == 0:
+        return ()
+    dims: List[Any] = [dp_axes(mesh_shape)] + [None] * (n - 1)
+    msize = mesh_shape.get("model", 1)
+    if msize > 1 and n >= 3:
+        for cand in (n - 2, 1, n - 1):
+            if shape[cand] % msize == 0:
+                dims[cand] = "model"
+                break
+    return fit_spec(mesh_shape, tuple(dims), shape)
+
+
+def cache_shardings(mesh_shape: Dict[str, int], cache_shapes):
+    """:func:`cache_spec` over a tree of the port's caches (one dict per
+    layer, ``models/transformer.init_cache``; leaves with ``.shape``)."""
+    return map_paths(lambda _, leaf: cache_spec(mesh_shape, leaf.shape),
+                     cache_shapes)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,11 +29,16 @@ Across ranks, one process per rank:
 runs under ``torchrun`` (``--backend nccl``, the default: one card per
 rank; ``--backend gloo`` lets several ranks share one card, or run on the
 CPU), or calls :func:`run` with ``mesh_shape=`` from ranks that
-``launch.mesh.spawn`` started.  Each rank holds its E/M experts and every
-other weight whole, every rank serves the same prompts (the activations
-and caches are replicated), each ``moe`` block splits its tokens over the
-ranks, and a decode step runs expert tensor parallelism over the data
-group (``REPRO_EXPERT_TP=0`` turns it off).  The decode step across ranks
+``launch.mesh.spawn`` started.  Each rank stores the model by the
+reference's serving rule (``models/transformer.Transformer(mesh=)``): its
+E/M experts, and under expert TP their f-slice over the data group, every
+other weight whole (``run(fsdp=True)``: sharded as the reference's
+``param_shardings(fsdp=True)``); every rank serves the same prompts (the
+activations and caches are replicated), the prefill gathers each block's
+experts whole in f inside the block, each ``moe`` block splits its tokens
+over the ranks, and a decode step runs expert tensor parallelism over the
+data group on the stored slice (``REPRO_EXPERT_TP=0`` stores the experts
+whole in f and turns it off).  The decode step across ranks
 is eager (``serving.engine.decode_graph``).  Rank 0 prints the banner
 (mesh, backend, the MoE knobs resolved for the prefill and the decode
 step, the decode mode) and the sample; every rank returns the same
@@ -53,7 +58,7 @@ import torch.distributed as dist
 from repro_torch import configs, resolve_device
 from repro_torch.core import tuning
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models.transformer import Transformer, decode_expert_tp_axis
+from repro_torch.models.transformer import Transformer
 from repro_torch.serving.engine import (_tokens_per_shard, clear_step_cache,
                                         decode_graph, generate,
                                         refuse_frontend, serve_config,
@@ -89,6 +94,8 @@ def _banner(cfg, mesh, dispatch, tmode, tfab, batch, prompt_len,
     mode = ("graph" if graph and model.device.type == "cuda" else
             "eager" if mesh is None else "eager (collectives across ranks)")
     parts = [where, f"device={model.device}"]
+    if mesh is not None:
+        parts.append(f"fsdp={model.layout_key[0]}")
     if cfg.moe is not None:
         prefill = _tokens_per_shard(mesh, batch * prompt_len)
         decode = _tokens_per_shard(mesh, batch)
@@ -97,7 +104,7 @@ def _banner(cfg, mesh, dispatch, tmode, tfab, batch, prompt_len,
                   f"tune={tmode} fabric={tfab}",
                   f"prefill: {_knobs(cfg, mesh, prefill)}",
                   f"decode: {_knobs(cfg, mesh, decode)} "
-                  f"expert_tp={decode_expert_tp_axis(mesh)}"]
+                  f"expert_tp={'data' if model.layout_key[1] else None}"]
     return " ".join(parts) + f" decode={mode}"
 
 
@@ -106,7 +113,8 @@ def run(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
         dispatch: Optional[str] = None, device=None,
         stats: Optional[dict] = None, repeat: int = 1, mesh_shape=(1, 1),
         tune: str = "auto", fabric=None,
-        num_layers: Optional[int] = None) -> torch.Tensor:
+        num_layers: Optional[int] = None,
+        fsdp: Optional[bool] = False) -> torch.Tensor:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens for ``gen``
     new tokens, ``repeat`` times; returns the (batch, prompt_len + gen)
     token ids of the last run.  ``stats`` (when given) receives the last
@@ -114,7 +122,9 @@ def run(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
     an initialized process group of D·M ranks, every one of which calls
     this alike; ``num_layers`` (no CLI flag, as the reference has none) serves
     the preset cut to that depth, as ``chip_smoke.py`` serves the presets
-    that do not fit one card."""
+    that do not fit one card.  ``fsdp`` (no CLI flag: the reference's
+    serve has none) stores the dense leaves sharded too
+    (``Transformer(fsdp=)``; None asks ``needs_fsdp``)."""
     cfg = configs.smoke_config(arch) if smoke else configs.get_config(arch)
     if num_layers is not None:
         cfg = cfg.replace(num_layers=num_layers)
@@ -126,7 +136,7 @@ def run(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
     lead = mesh is None or mesh.rank == 0
     dev = resolve_device(device) if mesh is None else mesh.device
     tmode, tfab = tuning.configure(tune, fabric, mesh=mesh)
-    model = Transformer(cfg, device=dev, seed=seed, mesh=mesh)
+    model = Transformer(cfg, device=dev, seed=seed, mesh=mesh, fsdp=fsdp)
     if lead:
         print(_banner(cfg, mesh, dispatch, tmode, tfab, batch, prompt_len,
                       model))

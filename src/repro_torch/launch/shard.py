@@ -10,6 +10,10 @@ is stored by, one entry per dim (``launch/mesh.fit_spec``'s form):
   exactly — dense weights over data × model, the experts' E over
   ``model`` and their d over ``data`` (ZeRO-3: a rank stores the bytes
   the reference stores on that device);
+* ``expert_tp=True`` (serving, the reference's decode layout): the
+  expert leaves' f over ``data`` as well, with or without FSDP — a rank
+  stores 1/(M·D) of each expert leaf; the prefill gathers f whole inside
+  each block, the decode step computes on the slice;
 * ``fsdp=False``: the expert leaves' E over ``model`` (expert
   parallelism), every other leaf whole.  The reference's ``model`` axis on
   dense dims (attention heads, the FFN hidden) is tensor parallelism, a
@@ -29,7 +33,9 @@ groups, cut to the rank's block.  :meth:`Layout.reduce_axes` names the
 axes a leaf's gradient must still be summed over (those it is neither
 gathered nor computed sharded on), :meth:`Layout.norm_axes` the axes
 whose ranks hold disjoint blocks of it (a global norm sums its squares
-over them, and over no axis it is replicated on).
+over them, and over no axis it is replicated on).  Every gather and
+reduce-scatter is logged in ``core/alltoall.collectives`` (when it is
+on), with the axis it crosses.
 
 The block arithmetic depends on the mesh's shape and the rank only, so a
 process with no group (a test, a one-process restore) can cut any rank's
@@ -66,20 +72,37 @@ def _axes(entry) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def f_dim(path: str) -> int:
+    """The expert FFN width's dim of the expert leaf at ``path``: the last
+    of ``w_up`` / ``w_gate`` (E, d, f), the middle of ``w_out`` (E, f,
+    d)."""
+    return 1 if path.split("/")[-1] == "w_out" else 2
+
+
 def storage_spec(path: str, spec: mesh_lib.Spec, fsdp: bool,
-                 mesh_shape: Dict[str, int]) -> mesh_lib.Spec:
+                 mesh_shape: Dict[str, int], expert_tp: bool = False,
+                 shape=None) -> mesh_lib.Spec:
     """The spec ``path`` is stored by, from ``spec``, its spec in
-    ``launch/mesh.param_shardings(fsdp=fsdp)`` (module docstring): with
-    FSDP that spec; without it the experts' E over ``model`` only.
-    Raises when an expert leaf's E does not divide over ``model``."""
+    ``launch/mesh.param_shardings(fsdp=fsdp, expert_tp=expert_tp)``
+    (module docstring): with FSDP that spec; without it an expert leaf's
+    spec (E over ``model``, and with ``expert_tp`` f over ``data``: the
+    reference's ``not (expert_tp and "/moe/" in key)``) and every other
+    leaf whole.  Raises when an expert leaf's E does not divide over
+    ``model``, or under ``expert_tp`` its f (of ``shape``) over
+    ``data``."""
     expert = is_expert(path)
     if expert and mesh_shape.get("model", 1) > 1 and spec[0] != "model":
         raise ValueError(f"{path}: its experts do not divide over "
                          f"model={mesh_shape['model']}")
+    D = mesh_shape.get("data", 1)
+    if expert and expert_tp and D > 1 and spec[f_dim(path)] != "data":
+        f = "?" if shape is None else shape[f_dim(path)]
+        raise ValueError(
+            f"{path}: expert TP: the expert FFN width f={f} does not divide "
+            f"over the data axis of size {D}")
     if fsdp:
         return spec
-    return tuple(s if expert and d == 0 else None
-                 for d, s in enumerate(spec))
+    return tuple(s if expert else None for s in spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,12 +110,15 @@ class Layout:
     """Rank ``rank``'s storage of a parameter tree on a mesh of shape
     ``mesh_shape`` (``{"data": D, "model": M}``): ``specs`` maps each
     leaf's path to its stored spec.  ``mesh`` (this rank's
-    ``launch/mesh.Mesh``) is needed for the collectives only."""
+    ``launch/mesh.Mesh``) is needed for the collectives only.
+    ``expert_tp``: the experts' f is stored over ``data`` (serving's
+    decode layout)."""
     mesh_shape: Dict[str, int]
     rank: int
     fsdp: bool
     specs: Dict[str, mesh_lib.Spec]
     mesh: Any = None
+    expert_tp: bool = False
 
     @property
     def world(self) -> int:
@@ -129,8 +155,13 @@ class Layout:
             return whole[b].clone()
         return whole[b]
 
-    def cut_tree(self, tree, prefix: str = ""):
-        return mesh_lib.map_paths(self.cut, tree, prefix)
+    def cut_tree(self, tree, prefix: str = "", *, experts: bool = True):
+        """:meth:`cut` over ``tree`` (the leaves under ``prefix``);
+        ``experts=False`` leaves the expert leaves as they are (cut
+        already)."""
+        return mesh_lib.map_paths(
+            lambda p, t: t if not experts and is_expert(p) else self.cut(
+                p, t), tree, prefix)
 
     # -- which axes a leaf crosses --------------------------------------
 
@@ -178,22 +209,25 @@ class Layout:
         return self.mesh.data_group if axes == ("data",) \
             else self.mesh.model_group
 
-    def _steps(self, axes) -> Tuple[Tuple[Any, int, int], ...]:
-        return tuple((self.group((a,)), self.mesh_shape[a], dim)
+    def _steps(self, axes) -> Tuple[Tuple[Any, int, int, str], ...]:
+        return tuple((self.group((a,)), self.mesh_shape[a], dim, a)
                      for a, dim in axes)
 
     # -- gathers ----------------------------------------------------------
 
-    def whole(self, tree, prefix: str = "", dtype=None):
+    def whole(self, tree, prefix: str = "", dtype=None, *,
+              experts: bool = True):
         """``tree`` (the leaves under ``prefix``) with every leaf gathered
         for use (:func:`gather`, differentiable), in ``dtype`` (the
         compute dtype; None: the stored one) unless the model uses the
         leaf in f32 (``transformer._F32_LEAVES``); a leaf stored whole is
-        returned as it is."""
+        returned as it is.  An expert leaf is gathered over ``data`` only
+        (its ``model`` is compute sharding); ``experts=False`` leaves the
+        expert leaves as stored (expert TP computes on its f-slice)."""
         def one(path, t):
             global gathers
             axes = self.gather_axes(path)
-            if not axes:
+            if not axes or (not experts and is_expert(path)):
                 return t
             gathers += len(axes)
             dt = (t.dtype if dtype is None
@@ -236,8 +270,10 @@ class Layout:
         return dataclasses.replace(self, rank=rank)
 
 
-def _all_gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
-    out = alltoall.gather_rows(x.movedim(dim, 0), group, n)
+def _all_gather(x: torch.Tensor, group, n: int, dim: int,
+                axis: str) -> torch.Tensor:
+    alltoall.record("all_gather", axis, n, x.dtype, x.shape)
+    out = alltoall._gather_raw(x.movedim(dim, 0), group, n)
     return out.movedim(0, dim).contiguous()
 
 
@@ -248,13 +284,14 @@ _PIECE_BYTES = 1 << 28
 
 
 def _reduce_scatter(x: torch.Tensor, group, n: int, dim: int,
-                    dtype) -> torch.Tensor:
+                    dtype, axis: str) -> torch.Tensor:
     """Block r (of ``n`` along ``dim``) of the sum over ``group`` of ``x``,
     in ``dtype``.  The blocks cross in ``x``'s own dtype (a bf16
     cotangent: half the bytes of an f32 one) and each rank sums the ``n``
     it receives in ``dtype``, in group-rank order — at n = 2 exactly the
     sum of the blocks cast first — a piece of at most ``_PIECE_BYTES``
-    at a time."""
+    at a time (logged as one reduce-scatter over ``axis``)."""
+    alltoall.record("reduce_scatter", axis, n, x.dtype, x.shape)
     xm = x.movedim(dim, 0)
     rows = xm.shape[0] // n
     blocks = xm.unflatten(0, (n, rows))
@@ -285,22 +322,22 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, x, steps, dtype):
         ctx.steps, ctx.dtype = steps, x.dtype
         x = x.to(dtype)
-        for group, n, dim in steps:
-            x = _all_gather(x, group, n, dim)
+        for group, n, dim, axis in steps:
+            x = _all_gather(x, group, n, dim, axis)
         return x
 
     @staticmethod
     def backward(ctx, g):
-        for group, n, dim in reversed(ctx.steps):
-            g = _reduce_scatter(g, group, n, dim, ctx.dtype)
+        for group, n, dim, axis in reversed(ctx.steps):
+            g = _reduce_scatter(g, group, n, dim, ctx.dtype, axis)
         return g, None, None
 
 
 def gather(x: torch.Tensor, steps, dtype=None) -> torch.Tensor:
     """``x`` cast to ``dtype`` (None: its own) and all-gathered over each
-    ``(group, n, dim)`` of ``steps`` in turn (group rank i's block i along
-    ``dim``), differentiable: the same values as gathering first and
-    casting after, with half the bytes for bf16."""
+    ``(group, n, dim, axis)`` of ``steps`` in turn (group rank i's block i
+    along ``dim``), differentiable: the same values as gathering first
+    and casting after, with half the bytes for bf16."""
     return _Gather.apply(x, steps, x.dtype if dtype is None else dtype)
 
 
@@ -312,26 +349,62 @@ def row_gather(x: torch.Tensor, block, dim: int = 1) -> torch.Tensor:
     ``row_gathers``."""
     global row_gathers
     row_gathers += 1
-    return gather(x, ((block.group, block.n, dim),))
+    return gather(x, ((block.group, block.n, dim, "row"),))
 
 
 def make_layout(shapes, mesh_shape: Dict[str, int], rank: int, *,
-                fsdp: bool, mesh=None) -> Layout:
+                fsdp: bool, mesh=None, expert_tp: bool = False) -> Layout:
     """The layout of a tree of ``shapes`` (leaves with ``.shape``): each
-    leaf's stored spec from its ``launch/mesh.param_shardings`` spec."""
-    rules = mesh_lib.param_shardings(mesh_shape, shapes, fsdp=fsdp)
-    specs = {p: storage_spec(p, spec, fsdp, mesh_shape)
+    leaf's stored spec from its ``launch/mesh.param_shardings(fsdp=,
+    expert_tp=)`` spec."""
+    rules = mesh_lib.param_shardings(mesh_shape, shapes, fsdp=fsdp,
+                                     expert_tp=expert_tp)
+    leaves = dict(mesh_lib.tree_paths(shapes))
+    specs = {p: storage_spec(p, spec, fsdp, mesh_shape, expert_tp,
+                             leaves[p].shape)
              for p, spec in mesh_lib.spec_paths(rules)}
-    return Layout(dict(mesh_shape), rank, fsdp, specs, mesh)
+    return Layout(dict(mesh_shape), rank, fsdp, specs, mesh,
+                  expert_tp=expert_tp)
 
 
-def layout_for(cfg, mesh, fsdp: Optional[bool] = None) -> Optional[Layout]:
+# the budget the reference's dry run sizes a served tree's FSDP by
+SERVE_FSDP_BUDGET = 4e9
+
+
+def layout_for(cfg, mesh, fsdp: Optional[bool] = None, *,
+               expert_tp: bool = False,
+               budget_bytes: float = 6e9) -> Optional[Layout]:
     """This rank's layout of ``cfg``'s parameters on ``mesh`` (None for no
-    mesh): ``fsdp=None`` asks the reference's ``needs_fsdp``."""
+    mesh): ``fsdp=None`` asks the reference's ``needs_fsdp`` at
+    ``budget_bytes`` (its default for a train state; serving's is
+    :data:`SERVE_FSDP_BUDGET`); ``expert_tp`` stores the experts' f over
+    ``data``."""
     if mesh is None:
         return None
     from repro_torch.convert import param_shapes
     shapes = param_shapes(cfg)
     if fsdp is None:
-        fsdp = mesh_lib.needs_fsdp(mesh.shape, shapes)
-    return make_layout(shapes, mesh.shape, mesh.rank, fsdp=fsdp, mesh=mesh)
+        fsdp = mesh_lib.needs_fsdp(mesh.shape, shapes,
+                                   budget_bytes=budget_bytes)
+    return make_layout(shapes, mesh.shape, mesh.rank, fsdp=fsdp, mesh=mesh,
+                       expert_tp=expert_tp)
+
+
+def serve_expert_tp(cfg, mesh) -> bool:
+    """Whether a served ``cfg`` stores its experts' f over ``data``: a
+    decode step runs expert TP on ``mesh`` (``REPRO_EXPERT_TP``, more
+    than one rank: ``transformer.decode_expert_tp_axis``) and the config
+    has a MoE layer."""
+    from repro_torch.models.transformer import decode_expert_tp_axis
+    return decode_expert_tp_axis(mesh) is not None and cfg.moe is not None
+
+
+def serve_layout_for(cfg, mesh, fsdp: Optional[bool] = False
+                     ) -> Optional[Layout]:
+    """This rank's layout of a served ``cfg`` on ``mesh`` (None for no
+    mesh), the reference's serving rule: ``expert_tp`` as
+    :func:`serve_expert_tp` says, the dense leaves whole unless ``fsdp``
+    (None: ``needs_fsdp`` at :data:`SERVE_FSDP_BUDGET`, as the
+    reference's dry run asks it of a served tree)."""
+    return layout_for(cfg, mesh, fsdp, expert_tp=serve_expert_tp(cfg, mesh),
+                      budget_bytes=SERVE_FSDP_BUDGET)

@@ -64,9 +64,13 @@ chunked CE (:func:`head_params`).  Serving
 (:class:`Transformer` with a mesh) keeps every activation and cache whole
 on every rank (``replicated``): embeddings, attention, norms and the head
 run on all rows everywhere, and each ``moe`` block splits its tokens over
-the ranks (``moe.replicated_moe_apply``).  A decode step's ``moe`` blocks
-run expert tensor parallelism over the data group
-(:func:`decode_expert_tp_axis`), as the reference's decode does.
+the ranks (``moe.replicated_moe_apply``).  A served model stores its
+tree by the reference's serving rule (``launch/shard.serve_layout_for``):
+under expert TP the experts' f over the data group, which the prefill
+gathers whole inside each block (:func:`gathered_block`) and a decode
+step's ``moe`` blocks compute on as stored — expert tensor parallelism
+over the data group (:func:`decode_expert_tp_axis`), as the reference's
+decode does.
 """
 from __future__ import annotations
 
@@ -99,17 +103,18 @@ EXPERT_LEAVES = ("w_up", "w_gate", "w_out")
 
 
 def use_expert_tp() -> bool:
-    """The expert-TP decode toggle: ``REPRO_EXPERT_TP`` (default ``"1"``);
-    ``"0"`` decodes without it (each rank's experts are whole already, so
-    nothing is gathered instead)."""
+    """The expert-TP decode toggle: ``REPRO_EXPERT_TP`` (default ``"1"``),
+    read when a served model is built; ``"0"`` stores the experts whole
+    in f and decodes without expert TP."""
     return os.environ.get("REPRO_EXPERT_TP", "1") == "1"
 
 
 def decode_expert_tp_axis(mesh) -> Optional[str]:
     """The axis a decode step's ``moe`` blocks shard the expert f dim over:
     ``"data"`` when :func:`use_expert_tp` and ``mesh`` has more than one
-    rank, else None (one device has no TP).  The one decision point for
-    the decode blocks and the step builders."""
+    rank, else None (one device has no TP).  The one decision point: a
+    served model's layout stores the experts' f-slice by it
+    (``launch/shard.serve_expert_tp``)."""
     if not use_expert_tp() or mesh is None or mesh.world == 1:
         return None
     return "data"
@@ -173,14 +178,15 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator, *,
                device=None, dtype=torch.float32,
-               experts: Optional[slice] = None) -> Dict[str, Any]:
+               cut_expert=None) -> Dict[str, Any]:
     """One block of ``kind``, drawn from ``generator`` in a fixed order:
     ln1, then attention, ln2 and the MLP, or the MoE layer and the shared
     experts' MLP; ``rwkv``: ln1, the time mix, ln2, the MLP; ``mamba``:
     ln1, the Mamba-2 block, and for ``mamba_sa`` then ``sa_ln`` and the
     LoRA (``sa_lora_b`` zero, as in the reference).  Each leaf is cast to
-    ``dtype`` right after its draw (the f32 leaves excepted); ``experts``
-    keeps that slice of each expert leaf (``moe.init_moe_params``)."""
+    ``dtype`` right after its draw (the f32 leaves excepted);
+    ``cut_expert(name, leaf)`` keeps a rank's block of each expert leaf
+    (``moe.init_moe_params``)."""
     d = cfg.d_model
     kw = dict(device=device, dtype=dtype)
     if kind == "rwkv":
@@ -205,7 +211,7 @@ def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator, *,
         f = m.d_ff_expert or cfg.d_ff
         blk["moe"] = moe_lib.init_moe_params(generator, m, d, f,
                                              m.num_experts, act=cfg.act,
-                                             experts=experts, **kw)
+                                             cut=cut_expert, **kw)
         if m.num_shared_experts:
             blk["shared_mlp"] = layers.init_mlp(
                 generator, d, f * m.num_shared_experts, cfg.act, **kw)
@@ -216,7 +222,6 @@ def init_block(cfg: ModelConfig, kind: str, generator: torch.Generator, *,
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device=None, dtype=torch.float32,
-                experts: Optional[slice] = None,
                 layout=None) -> Dict[str, Any]:
     """Random parameters in the port's tree layout, drawn in a fixed order
     from ``generator``, layer by layer (:func:`init_block`), then the
@@ -224,21 +229,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     frontend's) and zamba2's shared attention block (``mamba_sa``
     configs).  With ``dtype`` each leaf is cast right after its draw (the
     f32 leaves excepted): the same values as the f32 tree cast
-    afterwards, with one f32 leaf alive at a time.  ``experts`` keeps
-    that slice of each expert leaf (a rank's share: :func:`rank_experts`),
-    the values those of the whole draw.  ``layout`` (a
+    afterwards, with one f32 leaf alive at a time.  ``layout`` (a
     ``launch/shard.Layout``) keeps the rank's block of every leaf: each
-    layer (and the embedding, the head) is cut right after it is drawn
-    whole, so the values are those of the unsharded draw and the whole
-    model is never held."""
+    expert leaf right after its draw, every other leaf of a layer (and
+    the embedding, the head) right after the layer is drawn, so the
+    values are those of the unsharded draw and the whole model is never
+    held."""
     _check_supported(cfg)
     d = cfg.d_model
     kw = dict(device=device, dtype=dtype)
 
     def keep(path, t):
-        return t if layout is None else layout.cut_tree(t, path)
+        return t if layout is None else layout.cut_tree(t, path,
+                                                        experts=False)
+
+    def cut_expert(i):
+        if layout is None:
+            return None
+        return lambda name, t: layout.cut(f"blocks/{i}/moe/{name}", t)
     params = {"blocks": [keep(f"blocks/{i}", init_block(
-        cfg, kind, generator, experts=experts, **kw))
+        cfg, kind, generator, cut_expert=cut_expert(i), **kw))
         for i, kind in enumerate(layer_kinds(cfg))],
         "final_norm": torch.zeros((d,), device=device)}
     if cfg.frontend is None:
@@ -265,20 +275,6 @@ def expert_leaf_mask(params: Dict[str, Any]) -> Dict[str, Any]:
             if k in blk.get("moe", {}):
                 blk["moe"][k] = True
     return mask
-
-
-def rank_experts(cfg: ModelConfig, mesh) -> Optional[slice]:
-    """The experts ``[m·E/M, (m+1)·E/M)`` this rank holds (m its model
-    index); None without a mesh (all of them).  Raises when E does not
-    divide over M."""
-    if mesh is None or cfg.moe is None:
-        return None
-    M, m = mesh.shape["model"], mesh.model_index
-    if cfg.moe.num_experts % M:
-        raise ValueError(f"{cfg.moe.num_experts} experts do not divide over "
-                         f"model={M}")
-    n = cfg.moe.num_experts // M
-    return slice(m * n, (m + 1) * n)
 
 
 def untied_head(cfg: ModelConfig) -> bool:
@@ -369,7 +365,8 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                   decode: bool = False, long_context: bool = False,
                   noise: Optional[torch.Tensor] = None,
                   shared: Optional[Dict[str, Any]] = None, mesh=None,
-                  replicated: bool = False, block=None):
+                  replicated: bool = False, block=None,
+                  expert_tp: bool = False):
     """One ``kind`` block over its parameter dict ``p`` (see the module
     docstring), pre-norm residuals: attention over the kind's window
     (:func:`block_window`), then the MLP or the MoE layer plus the shared
@@ -377,8 +374,9 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     ``shared`` the tree's ``shared_attn`` (``mamba_sa``); ``mesh`` runs
     the MoE layer across its ranks: over the rank's own tokens, or with
     ``replicated`` (serving) over its block of the rows every rank holds
-    (``moe.replicated_moe_apply``); a decode step's runs expert TP
-    (:func:`decode_expert_tp_axis`).  ``block`` (a
+    (``moe.replicated_moe_apply``); with ``expert_tp`` (a served model
+    whose layout stores the experts' f-slice) a decode step's runs expert
+    TP over the data group on it.  ``block`` (a
     ``launch/mesh.TokenBlock``) splitting rows (``n > 1``): x is this
     rank's chunk of its rows, attention runs context-parallel over the
     row group, and a recurrent block (``rwkv``, ``mamba``, ``mamba_sa``)
@@ -409,7 +407,7 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     y, aux, _ = moe_fn(
         mesh, cfg.moe, p["moe"], h, num_experts=cfg.moe.num_experts,
         act=cfg.act, noise=noise,
-        expert_tp_axis=decode_expert_tp_axis(mesh) if decode else None)
+        expert_tp_axis="data" if expert_tp and decode else None)
     if "shared_mlp" in p:
         y = y + layers.apply_mlp(p["shared_mlp"], h, cfg.act)
     return x + y, cache, aux
@@ -551,6 +549,9 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     if remat != "none" and caches is not None:
         raise ValueError("remat recomputes blocks in a backward; a pass "
                          "that fills caches has none")
+    if caches is not None and layout is not None and torch.is_grad_enabled():
+        raise ValueError("a pass that fills caches over gathered weights "
+                         "runs without gradients (torch.inference_mode)")
     dtype = getattr(torch, cfg.dtype)
     if layout is not None and not layout.gathered:
         layout = None                 # every leaf is used as stored
@@ -573,12 +574,19 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     for i, (p, kind) in enumerate(zip(params["blocks"], layer_kinds(cfg),
                                       strict=True)):
         nz = None if noise is None else noise[i]
+        cache = None if caches is None else caches[i]
         if remat == "none" and layout is None:
             x, _, a = block_forward(
                 p, x, cfg, kind=kind, positions=positions, noise=nz,
-                cache=None if caches is None else caches[i],
-                long_context=long_context, shared=shared, mesh=mesh,
-                replicated=replicated, block=block)
+                cache=cache, long_context=long_context, shared=shared,
+                mesh=mesh, replicated=replicated, block=block)
+        elif layout is not None and not torch.is_grad_enabled():
+            # serving: the block's stored leaves gathered whole for it
+            # alone, freed when it returns
+            x, _, a = gathered_block(
+                layout, i, p, x, cfg, kind=kind, positions=positions,
+                noise=nz, cache=cache, long_context=long_context,
+                shared=shared, mesh=mesh, replicated=replicated)
         else:
             x, a = checkpoint(_remat_block, p, x, positions, nz, cfg, kind,
                               long_context, shared, mesh, replicated,
@@ -588,6 +596,19 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             aux = aux + a
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux, caches
+
+
+def gathered_block(layout, index: int, p, x, cfg: ModelConfig, *,
+                   experts: bool = True, **kw):
+    """:func:`block_forward` of layer ``index`` over its leaves gathered
+    whole by ``layout`` in the compute dtype (and zamba2's shared block),
+    the gathered copies alive only for the block; ``experts=False``
+    keeps the expert leaves as stored (a decode step's expert TP)."""
+    dt = getattr(torch, cfg.dtype)
+    p = layout.whole(p, f"blocks/{index}", dt, experts=experts)
+    if kw.get("shared") is not None:
+        kw["shared"] = layout.whole(kw["shared"], "shared_attn", dt)
+    return block_forward(p, x, cfg, **kw)
 
 
 def _remat_block(p, x, positions, noise, cfg, kind, long_context, shared,
@@ -658,39 +679,42 @@ class Transformer(nn.Module):
     that tree.
 
     With ``mesh`` (a ``launch/mesh.Mesh``; ``device`` defaults to the
-    mesh's) the model is this rank's: its experts are the rank's E/M
-    (drawn whole leaf by leaf and cut, so its values are one process's;
-    a given ``params`` must already be the rank's share, as
-    ``convert.params_from_numpy(..., mesh)`` gives it), every other leaf whole, and :meth:`forward` /
-    :meth:`decode_step` take the whole batch on every rank (module
+    mesh's) the model is this rank's share, stored by the reference's
+    serving rule (``launch/shard.serve_layout_for``, :attr:`layout`): the
+    experts' E over ``model`` and, when a decode step runs expert TP
+    (``REPRO_EXPERT_TP``, read here), their f over ``data``; the dense
+    leaves whole unless ``fsdp`` (None: ``needs_fsdp`` over the served
+    tree at the reference's 4e9 budget; an explicit value is honored).
+    Drawn weights are drawn whole leaf by leaf and cut, so their values
+    are one process's; a given ``params`` must already be the rank's
+    share (``convert.params_from_numpy(..., mesh, serving=True)``).
+    :meth:`forward` (the prefill) gathers each block's stored leaves
+    whole inside that block and frees them after it; :meth:`decode_step`
+    keeps the experts' f-slice (expert TP) and gathers only what
+    ``fsdp`` shards.  Both take the whole batch on every rank (module
     docstring: ``replicated``).  The step builders' keys hold the model,
-    and with it the mesh.
+    and with it the mesh and the layout.
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
-                 params: Optional[Dict[str, Any]] = None, mesh=None):
+                 params: Optional[Dict[str, Any]] = None, mesh=None,
+                 fsdp: Optional[bool] = False):
         super().__init__()
         _check_supported(cfg)
+        from repro_torch.launch import shard
         self.cfg = cfg
         self.mesh = mesh
         if mesh is not None and device is None:
             device = mesh.device
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
-        experts = rank_experts(cfg, mesh)
+        self.layout = shard.serve_layout_for(cfg, mesh, fsdp)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, gen, device=self.device,
-                                 dtype=self.dtype, experts=experts)
-        elif experts is not None:
-            n = experts.stop - experts.start
-            held = {blk["moe"]["w_up"].shape[0] for blk in params["blocks"]
-                    if "moe" in blk}
-            if held - {n}:
-                raise ValueError(
-                    f"Transformer(mesh={mesh.describe()}): params hold "
-                    f"{sorted(held)} experts a moe block, the rank's share "
-                    f"is {n} (convert.params_from_numpy(..., mesh))")
+                                 dtype=self.dtype, layout=self.layout)
+        elif self.layout is not None:
+            self._check_share(params)
         self.blocks = nn.ModuleList(
             Block(p, self.dtype, self.device) for p in params["blocks"])
         self.final_norm = _leaf("final_norm", params["final_norm"],
@@ -704,12 +728,44 @@ class Transformer(nn.Module):
                                   self.device)
                             if "shared_attn" in params else None)
 
+    def _check_share(self, params) -> None:
+        """Raise unless every leaf of ``params`` has the shape of this
+        rank's block by :attr:`layout`."""
+        from repro_torch.convert import param_shapes
+        from repro_torch.launch.mesh import tree_paths
+        whole = dict(tree_paths(param_shapes(self.cfg)))
+        bad = [f"{p}: {tuple(t.shape)} != "
+               f"{self.layout.block_shape(p, whole[p].shape)}"
+               for p, t in tree_paths(params)
+               if tuple(t.shape) != self.layout.block_shape(
+                   p, whole[p].shape)]
+        if bad:
+            raise ValueError(
+                f"Transformer(mesh={self.mesh.describe()}): params are not "
+                f"this rank's share (fsdp={self.layout.fsdp}, expert_tp="
+                f"{self.layout.expert_tp}): {bad[:4]} "
+                f"(convert.params_from_numpy(..., mesh, serving=True))")
+
+    @property
+    def layout_key(self) -> Tuple[bool, bool]:
+        """``(fsdp, expert_tp)`` of the stored layout ((False, False)
+        without a mesh): the step cache's keys carry it."""
+        if self.layout is None:
+            return False, False
+        return self.layout.fsdp, self.layout.expert_tp
+
+    def _gathering(self):
+        """The layout when it gathers any leaf for use, else None."""
+        return (self.layout if self.layout is not None
+                and self.layout.gathered else None)
+
     def _shared(self) -> Optional[Dict[str, Any]]:
         return None if self.shared_attn is None else self.shared_attn.tree()
 
     def tree(self) -> Dict[str, Any]:
         """The served weights as a parameter tree (the compute-dtype copy,
-        the f32 leaves f32), with the keys :func:`init_params` gives."""
+        the f32 leaves f32), with the keys :func:`init_params` gives: the
+        rank's stored blocks across ranks."""
         out = {"blocks": [blk.tree() for blk in self.blocks],
                "final_norm": self.final_norm}
         for name in ("embed", "lm_head"):
@@ -718,6 +774,11 @@ class Transformer(nn.Module):
         if self.shared_attn is not None:
             out["shared_attn"] = self._shared()
         return out
+
+    def stored_bytes(self) -> int:
+        """Bytes of this rank's stored weights."""
+        return sum(t.numel() * t.element_size()
+                   for t in tree.leaves(self.tree()))
 
     def init_caches(self, batch: int, cache_len: int, *,
                     long_context: bool = False) -> List[Dict[str, Any]]:
@@ -741,11 +802,12 @@ class Transformer(nn.Module):
         overrides the served config (e.g. its dispatch)."""
         return forward(self.tree(), tokens, cfg or self.cfg, caches=caches,
                        long_context=long_context, mesh=self.mesh,
-                       replicated=True)
+                       replicated=True, layout=self._gathering())
 
     def logits_from_hidden(self, h: torch.Tensor) -> torch.Tensor:
-        return logits_from_hidden({"embed": self.embed,
-                                   "lm_head": self.lm_head}, self.cfg, h)
+        return logits_from_hidden(
+            head_params({"embed": self.embed, "lm_head": self.lm_head},
+                        self.cfg, self._gathering()), self.cfg, h)
 
     def decode_step(self, token: torch.Tensor, caches,
                     cfg: Optional[ModelConfig] = None, *,
@@ -754,20 +816,30 @@ class Transformer(nn.Module):
         """One-token serve step: token (B, 1), or a frontend's (B, 1, d)
         embeddings → (logits (B, 1, V), caches), the caches updated in
         place.  ``noise``: a noisy gate's draws (:func:`decode_noise`),
-        drawn here when not given; the step reads nothing on the host."""
+        drawn here when not given; the step reads nothing on the host.
+        Across ranks the ``moe`` blocks run expert TP on the stored
+        f-slice when the layout stores one, and the leaves ``fsdp``
+        shards are gathered block by block."""
         cfg = cfg or self.cfg
-        x = embed_inputs({"embed": self.embed}, cfg, token, self.dtype)
+        layout = self._gathering()
+        tp = self.layout is not None and self.layout.expert_tp
+        x = embed_inputs({"embed": self.embed}, cfg, token, self.dtype,
+                         layout)
         if noise is None:
             noise = decode_noise(cfg, x.shape[0], x.device)
         shared = self._shared()
         for i, (blk, cache, kind) in enumerate(zip(
                 self.blocks, caches, layer_kinds(cfg), strict=True)):
-            x, _, _ = block_forward(blk.tree(), x, cfg, kind=kind,
-                                    cache=cache, decode=True,
-                                    long_context=long_context,
-                                    noise=None if noise is None else noise[i],
-                                    shared=shared, mesh=self.mesh,
-                                    replicated=True)
+            kw = dict(kind=kind, cache=cache, decode=True,
+                      long_context=long_context,
+                      noise=None if noise is None else noise[i],
+                      shared=shared, mesh=self.mesh, replicated=True,
+                      expert_tp=tp)
+            if layout is None:
+                x, _, _ = block_forward(blk.tree(), x, cfg, **kw)
+            else:
+                x, _, _ = gathered_block(layout, i, blk.tree(), x, cfg,
+                                         experts=not tp, **kw)
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         return self.logits_from_hidden(x), caches
 

@@ -22,10 +22,12 @@ from the builders below:
   nothing).
 
 Each builder returns the SAME object for the same cache key ``(kind,
-cfg, model, cache_len, batch, long_context)`` (a decode key adds
-``graph``, and an instance number past the first: see below): the
-reference's key, with the model in the place of the mesh — the model
-carries its mesh (``Transformer(mesh=)``), so the key holds it too.
+cfg, model, cache_len, batch, long_context, layout)`` (a decode key adds
+``graph`` before the layout, and an instance number past the first: see
+below): the reference's key, with the model in the place of the mesh —
+the model carries its mesh (``Transformer(mesh=)``), so the key holds it
+too — and ``layout`` the model's stored layout ``(fsdp, expert_tp)``
+(``Transformer.layout_key``).
 ``ModelConfig`` is a frozen dataclass, so the key holds the dispatch mode
 and every other knob.  The model is in the key because a CUDA graph binds
 addresses: a second model of the same config (``traffic.skew_router``'s
@@ -272,7 +274,8 @@ def build_prefill(model, cfg: Optional[ModelConfig] = None, *,
     """Cached prefill ``(tokens (B, S), caches) -> (last logits (B, 1, V),
     caches)``, ``caches`` (a decode step's) filled in place."""
     cfg = cfg or model.cfg
-    key = ("prefill", cfg, model, cache_len, batch, long_context)
+    key = ("prefill", cfg, model, cache_len, batch, long_context,
+           model.layout_key)
 
     def make():
         trace_counts[key] += 1
@@ -416,7 +419,8 @@ def build_decode(model, cfg: Optional[ModelConfig] = None, *, batch: int,
     caches."""
     graph = decode_graph(model, graph)
     cfg = resolve_decode_config(cfg or model.cfg, batch, model.mesh)
-    base = ("decode", cfg, model, cache_len, batch, long_context, graph)
+    base = ("decode", cfg, model, cache_len, batch, long_context, graph,
+            model.layout_key)
     for i in itertools.count():
         key = base + ((i,) if i else ())
         step = _cached(key, lambda: DecodeStep(
@@ -449,7 +453,8 @@ def build_slot_prefill(model, cfg: Optional[ModelConfig] = None, *,
     ``(prompt) -> (last logits (V,), caches)``.  :func:`put_slot`
     commits them; until then the served caches are untouched."""
     cfg = cfg or model.cfg
-    key = ("slot_prefill", cfg, model, cache_len, None, long_context)
+    key = ("slot_prefill", cfg, model, cache_len, None, long_context,
+           model.layout_key)
 
     def make():
         trace_counts[key] += 1

@@ -67,7 +67,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, tree
 from repro_torch.core import faults as faults_mod
-from repro_torch.core.alltoall import all_reduce_sum
+from repro_torch.core.alltoall import all_reduce_sum, record
 from repro_torch.core.config import ModelConfig, TrainConfig
 from repro_torch.data.pipeline import cut_batch
 from repro_torch.launch import shard
@@ -221,7 +221,8 @@ def noise_generator(tcfg: TrainConfig, step: int, device) -> torch.Generator:
 def _reduce_grads(grads, layout):
     """Sum each leaf's gradient over its ``layout.reduce_axes``: the
     leaves of one set of axes in one flat buffer, the sets in a fixed
-    order (every rank runs the same collectives)."""
+    order (every rank runs the same collectives), each all-reduce logged
+    (``core/alltoall.collectives``)."""
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
     paths = [p for p, _ in tree_paths(grads)]
     leaves = tree.leaves(grads)
@@ -234,6 +235,9 @@ def _reduce_grads(grads, layout):
     for axes in sorted(buckets):
         idx = buckets[axes]
         flat = _flatten_dense_tensors([leaves[i] for i in idx])
+        record("all_reduce", axes[0] if len(axes) == 1 else "world",
+               math.prod(layout.mesh_shape[a] for a in axes), flat.dtype,
+               flat.shape)
         dist.all_reduce(flat, group=layout.group(axes))
         for i, g in zip(idx, _unflatten_dense_tensors(
                 flat, [leaves[i] for i in idx]), strict=True):

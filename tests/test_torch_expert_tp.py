@@ -6,8 +6,6 @@ over 2 and 4 data ranks, 62 tokens so that 2x2, 4x1 and 2x4 pad), f32.
 Capacity 1.0 makes ``sort`` and ``dense`` drop, as the reference does at
 the same mesh; capacity 8.0 (``-cf8``) drops nothing, where grouped + TP ≡
 sort + TP ≡ the one-device layer without TP."""
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,8 +19,9 @@ from repro.core import tuning as jtuning
 from repro.launch.mesh import make_smoke_mesh
 from repro_torch.core import config as tconfig
 from repro_torch.core import moe
+from repro_torch.launch import shard
 from repro_torch.launch.mesh import spawn
-from test_torch_ep import FABRIC, TFABRIC, _close, _port_grads
+from test_torch_ep import FABRIC, TFABRIC, _close
 
 E, D, F, T = 8, 16, 24, 62
 BASE = dict(num_experts=E, top_k=2, gate="topk", capacity_factor=1.0,
@@ -118,6 +117,22 @@ def _assemble(ranks, key):
     return np.concatenate([r[key] for r in ranks])[:T]
 
 
+def _tp_grads(ranks, shape):
+    """gate_w summed over every rank; each expert leaf's gradient is its
+    stored block's (E/M experts, f/D of their width): concatenated over
+    the data ranks along f, then over the model columns along E."""
+    Dd, M = shape
+    out = {"gate_w": sum(r["grads"]["gate_w"] for r in ranks)}
+    for k in ranks[0]["grads"]:
+        if k == "gate_w":
+            continue
+        fdim = 1 if k == "w_out" else 2
+        out[k] = np.concatenate([np.concatenate(
+            [ranks[d * M + m]["grads"][k] for d in range(Dd)], axis=fdim)
+            for m in range(M)])
+    return out
+
+
 ALL = [(s, n) for s, cases in CASES.items() for n, _ in cases]
 IDS = [f"{s[0]}x{s[1]}-{n}" for s, n in ALL]
 
@@ -125,13 +140,14 @@ IDS = [f"{s[0]}x{s[1]}-{n}" for s, n in ALL]
 @pytest.mark.parametrize("shape,name", ALL, ids=IDS)
 def test_tp_layer_matches_reference(runs, shape, name):
     """y, aux, metrics and the gradients of x and of every leaf (gate_w
-    summed over the ranks; each expert leaf summed over its data ranks,
-    whose f-slices are disjoint) equal the reference's expert-TP layer on
-    the same mesh shape: f32 within 1e-5 of each output's max (the int8
-    wire within the reference's QWIRE budgets, normwise)."""
+    summed over the ranks; each expert leaf's f-slices, each the stored
+    block of one data rank, put together) equal the reference's
+    expert-TP layer on the same mesh shape: f32 within 1e-5 of each
+    output's max (the int8 wire within the reference's QWIRE budgets,
+    normwise)."""
     ranks, ref = runs[shape, name]
     y, dx = _assemble(ranks, "y"), _assemble(ranks, "dx")
-    grads = _port_grads(ranks, shape)
+    grads = _tp_grads(ranks, shape)
     if "int8" in name:
         rel = lambda a, b: np.linalg.norm(a - b) / np.linalg.norm(b)  # noqa
         assert rel(y, ref["y"]) < QWIRE[0]
@@ -177,7 +193,7 @@ def test_grouped_tp_equals_sort_tp_equals_no_tp(runs, shape):
     g, s = runs[shape, "grouped-cf8"][0], runs[shape, "sort-cf8"][0]
     for key in ("y", "dx"):
         _close(_assemble(g, key), _assemble(s, key), key)
-    gg, gs = _port_grads(g, shape), _port_grads(s, shape)
+    gg, gs = _tp_grads(g, shape), _tp_grads(s, shape)
     for k in gg:
         _close(gg[k], gs[k], k)
     cfg = tconfig.MoEConfig(**{**BASE, **CF8}, dispatch="grouped")
@@ -197,7 +213,9 @@ def test_grouped_tp_equals_sort_tp_equals_no_tp(runs, shape):
 def test_expert_tp_axis_and_width_are_checked():
     """An axis other than None or "data" raises the reference's ValueError
     naming the mesh's axes (a typo must not silently disable TP); an
-    expert width that does not divide over the data axis raises."""
+    expert width that does not divide over the data axis raises where
+    the experts' f-slice is stored (``launch/shard.make_layout`` with
+    ``expert_tp``)."""
     cfg = tconfig.MoEConfig(**BASE)
     inputs = _inputs()
     p = {k: torch.from_numpy(v) for k, v in inputs["params"].items()}
@@ -205,8 +223,8 @@ def test_expert_tp_axis_and_width_are_checked():
     with pytest.raises(ValueError, match="valid axis names"):
         moe.sharded_moe_apply(None, cfg, p, x, num_experts=E,
                               expert_tp_axis="model")
-    five = types.SimpleNamespace(shape={"data": 5, "model": 1}, world=5,
-                                 rank=0, data_index=0)
+    shapes = {"moe": {k: torch.empty(v.shape, device="meta")
+                      for k, v in inputs["params"].items()}}
     with pytest.raises(ValueError, match="does not divide over the data"):
-        moe.sharded_moe_apply(five, cfg, p, x, num_experts=E,
-                              expert_tp_axis="data")
+        shard.make_layout({"blocks": [shapes]}, {"data": 5, "model": 1}, 0,
+                          fsdp=False, expert_tp=True)

@@ -72,10 +72,25 @@ def layer_rank(rank, shape, inputs, cases, fabric, tp=None):
     """``sharded_moe_apply`` on this rank's tokens for every case
     ``(name, MoEConfig fields, act)``: y, aux, metrics, the exchanges (and
     expert-TP collectives) of the forward and this rank's gradients of
-    ``sum(y·gy) + aux``; ``tp`` is the ``expert_tp_axis``."""
+    ``sum(y·gy) + aux``; ``tp`` is the ``expert_tp_axis``, under which the
+    rank holds the f-slice of its experts that serving stores
+    (``launch/shard.Layout(expert_tp=True)``: data index ``di`` of D the
+    slice ``[di·f/D, (di+1)·f/D)``)."""
     tuning.set_tuning(fabric=fabric)
     mesh = make_mesh(shape, device="cpu")
     M, m = shape[1], mesh.model_index
+    D, di = shape[0], mesh.data_index
+
+    def share(k, v, n):
+        if k == "gate_w":
+            return v
+        v = v[m * n:(m + 1) * n]
+        if tp is None or D == 1:
+            return v
+        f = v.shape[1 if k == "w_out" else 2] // D
+        cut = slice(di * f, (di + 1) * f)
+        return np.ascontiguousarray(v[:, cut] if k == "w_out"
+                                    else v[..., cut])
     x = torch.from_numpy(inputs["x"])
     gy = torch.from_numpy(inputs["gy"])
     xl, valid, _, _ = moe.rank_tokens(mesh, x)
@@ -85,10 +100,9 @@ def layer_rank(rank, shape, inputs, cases, fabric, tp=None):
         cfg = MoEConfig(**fields)
         E = cfg.num_experts
         n = E // M
-        p = {k: torch.from_numpy(v if k == "gate_w"
-                                 else v[m * n:(m + 1) * n]).requires_grad_(
-            True) for k, v in inputs["params"].items()
-            if act in ("swiglu", "geglu") or k != "w_gate"}
+        p = {k: torch.from_numpy(share(k, v, n)).requires_grad_(True)
+             for k, v in inputs["params"].items()
+             if act in ("swiglu", "geglu") or k != "w_gate"}
         xr = xl.clone().requires_grad_(True)
         alltoall.exchanges = alltoall.tp_collectives = 0
         y, aux, met = moe.sharded_moe_apply(mesh, cfg, p, xr, num_experts=E,
@@ -332,17 +346,19 @@ def fsdp_skip_rank(rank, shape, arch, init_params):
     return {"skipped": skipped, "unchanged": unchanged}
 
 
-def _serve_model(shape, cfg, tree, dispatch):
+def _serve_model(shape, cfg, tree, dispatch, fsdp=False):
     """This rank's ``Transformer`` of the reference's parameter tree at
-    mesh ``shape`` (its experts cut by ``convert.params_from_numpy``)."""
+    mesh ``shape``, stored by the serving layout (its share cut by
+    ``convert.params_from_numpy(..., serving=True)``)."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.models.transformer import Transformer
     from repro_torch.serving.engine import serve_config
     mesh = make_smoke_mesh(shape, device="cpu")
     cfg = serve_config(cfg, dispatch=dispatch)
-    return Transformer(cfg, device="cpu", mesh=mesh,
-                       params=params_from_numpy(tree, cfg, mesh))
+    return Transformer(cfg, device="cpu", mesh=mesh, fsdp=fsdp,
+                       params=params_from_numpy(tree, cfg, mesh, fsdp=fsdp,
+                                                serving=True))
 
 
 def greedy_logits(model, prompt, steps):
@@ -371,8 +387,9 @@ def serve_rank(rank, shape, cfg, tree, prompts, steps, dispatches, slot_run,
                cli_argv):
     """Serving at mesh ``shape`` on this rank: per dispatch mode and prompt
     batch, ``generate``'s tokens, the same greedy run's logits
-    (:func:`greedy_logits`) and ``generate``'s tokens again under
-    ``REPRO_EXPERT_TP=0``; ``SlotServer`` over ``slot_run`` (its keyword
+    (:func:`greedy_logits`) and ``generate``'s tokens again from a model
+    built under ``REPRO_EXPERT_TP=0`` (experts stored whole in f, no
+    expert TP); ``SlotServer`` over ``slot_run`` (its keyword
     arguments and request specs ``(uid, prompt, max_new)``) with the first
     dispatch mode; then ``launch.serve.main(cli_argv)``'s printout."""
     import contextlib
@@ -385,15 +402,16 @@ def serve_rank(rank, shape, cfg, tree, prompts, steps, dispatches, slot_run,
     out = {}
     for dispatch in dispatches:
         model = _serve_model(shape, cfg, tree, dispatch)
+        os.environ["REPRO_EXPERT_TP"] = "0"
+        try:
+            whole_f = _serve_model(shape, cfg, tree, dispatch)
+        finally:
+            del os.environ["REPRO_EXPERT_TP"]
         for name, p in prompts.items():
             prompt = torch.from_numpy(p).long()
             toks = generate(model, prompt, steps=steps).numpy()
             ref_toks, logits = greedy_logits(model, prompt, steps)
-            os.environ["REPRO_EXPERT_TP"] = "0"
-            try:
-                no_tp = generate(model, prompt, steps=steps).numpy()
-            finally:
-                del os.environ["REPRO_EXPERT_TP"]
+            no_tp = generate(whole_f, prompt, steps=steps).numpy()
             out[dispatch, name] = dict(tokens=toks, loop_tokens=ref_toks,
                                        logits=logits, no_tp=no_tp)
         if dispatch == dispatches[0]:
@@ -410,6 +428,7 @@ def serve_rank(rank, shape, cfg, tree, prompts, steps, dispatches, slot_run,
             except ValueError as e:
                 out["graph_refusal"] = str(e)
         engine.clear_step_cache(model)
+        engine.clear_step_cache(whole_f)
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
         serve.main(cli_argv)
@@ -685,8 +704,146 @@ def cp_reduce_scatter(rank, shape, xs, dim, pieces):
             shard._PIECE_BYTES = default if piece is None else piece
             for dt in (torch.bfloat16, torch.float32):
                 out[str(dt).split(".")[-1], piece] = shard._reduce_scatter(
-                    x.to(dt), mesh.model_group, n, dim, torch.float32
-                ).numpy()
+                    x.to(dt), mesh.model_group, n, dim, torch.float32,
+                    "model").numpy()
     finally:
         shard._PIECE_BYTES = default
+    return out
+
+
+def _logged(fn):
+    """``fn()``'s result and the collectives it logged
+    (``core/alltoall.collectives``)."""
+    alltoall.collectives = []
+    try:
+        out = fn()
+        return out, list(alltoall.collectives)
+    finally:
+        alltoall.collectives = None
+
+
+def _served_run(model, prompt, steps):
+    """A greedy run through the step builders: tokens, each step's logits,
+    and the collectives of the prefill and of the first decode step."""
+    from repro_torch.serving import engine
+    B, S = prompt.shape
+    out, logits, logs = [prompt], [], {}
+    with torch.inference_mode():
+        prefill = engine.build_prefill(model, cache_len=S + steps, batch=B)
+        with engine.holding_decode(model, batch=B,
+                                   cache_len=S + steps) as step:
+            step.reset()
+            (last, _), logs["prefill"] = _logged(
+                lambda: prefill(prompt, step.caches))
+            for i in range(steps):
+                logits.append(last[:, -1].float().clone())
+                tok = last[:, -1].argmax(-1, keepdim=True)
+                out.append(tok)
+                if i + 1 < steps:
+                    last, log = _logged(lambda: step(tok, step_index=i))
+                    logs.setdefault("decode", log)
+    engine.clear_step_cache(model)
+    return dict(tokens=torch.cat(out, 1).numpy(),
+                logits=torch.stack(logits).numpy(), logs=logs)
+
+
+def _whole_f_views(model, tree, cfg, mesh):
+    """``model`` (stored under expert TP) with each expert leaf replaced
+    by a view of its f-slice into the rank's experts held whole in f —
+    the computation serving ran before the slice was stored."""
+    import os
+
+    from repro_torch.convert import params_from_numpy
+    os.environ["REPRO_EXPERT_TP"] = "0"
+    try:
+        whole = params_from_numpy(tree, cfg, mesh, serving=True)
+    finally:
+        del os.environ["REPRO_EXPERT_TP"]
+    D, di = mesh.shape["data"], mesh.data_index
+    for blk, p in zip(model.blocks, whole["blocks"], strict=True):
+        for k in ("w_up", "w_gate", "w_out"):
+            if k not in p.get("moe", {}):
+                continue
+            w = p["moe"][k].to(model.dtype)
+            f = w.shape[1 if k == "w_out" else 2] // D
+            cut = slice(di * f, (di + 1) * f)
+            view = w[:, cut] if k == "w_out" else w[..., cut]
+            blk.moe[k] = torch.nn.Parameter(view, requires_grad=False)
+    return model
+
+
+def serve_layout_rank(rank, init_path, cfg, prompt, steps, meshes,
+                      train_cells):
+    """The served state stored by the serving rule, on this rank, at each
+    mesh shape of ``meshes`` (all over the one world of four): per
+    ``fsdp`` the stored blocks and bytes and a greedy run's tokens,
+    logits and logged collectives (grouped; sort's collectives too);
+    ``REPRO_EXPERT_TP=0``'s run; the run on views of whole-f experts.
+    Then per train cell ``(shape, dispatch, fsdp, B, S)`` one train
+    step's logged collectives and its stored-state bytes."""
+    import dataclasses as dc
+    import os
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.config import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import shard
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving.engine import serve_config
+    from repro_torch.training import train_step as ts
+    tree = load_tree(init_path)
+    prompt = torch.from_numpy(prompt).long()
+    out = {}
+    for shape in meshes:
+        mesh = make_mesh(shape, device="cpu")
+        for dispatch in ("grouped", "sort"):
+            c = serve_config(cfg, dispatch=dispatch)
+            for fsdp in (False, True):
+                if dispatch == "sort" and fsdp:
+                    continue
+                model = Transformer(c, device="cpu", mesh=mesh, fsdp=fsdp,
+                                    params=params_from_numpy(
+                                        tree, c, mesh, fsdp=fsdp,
+                                        serving=True))
+                run = _served_run(model, prompt, steps)
+                if dispatch == "grouped":
+                    run["stored"] = {p: _np(t) for p, t in
+                                     shard.mesh_lib.tree_paths(model.tree())}
+                    run["stored_bytes"] = model.stored_bytes()
+                run["layout_key"] = model.layout_key
+                out[shape, dispatch, fsdp] = run
+        c = serve_config(cfg, dispatch="grouped")
+        os.environ["REPRO_EXPERT_TP"] = "0"
+        try:
+            whole = Transformer(c, device="cpu", mesh=mesh,
+                                params=params_from_numpy(tree, c, mesh,
+                                                         serving=True))
+            out[shape, "no_tp"] = _served_run(whole, prompt, steps)
+            out[shape, "no_tp"]["layout_key"] = whole.layout_key
+        finally:
+            del os.environ["REPRO_EXPERT_TP"]
+        model = Transformer(c, device="cpu", mesh=mesh,
+                            params=params_from_numpy(tree, c, mesh,
+                                                     serving=True))
+        out[shape, "views"] = _served_run(_whole_f_views(model, tree, c,
+                                                         mesh), prompt, steps)
+    for shape, dispatch, fsdp, B, S in train_cells:
+        tc = cfg.replace(moe=dc.replace(cfg.moe, dispatch=dispatch))
+        n = max(1, shape[0] * shape[1] // B)
+        mesh = make_mesh(shape, device="cpu", rows=(n,))
+        layout = shard.layout_for(tc, mesh, fsdp=fsdp)
+        tcfg = TrainConfig()
+        state = ts.init_train_state(tc, tcfg, device="cpu", mesh=mesh,
+                                    params=params_from_numpy(tree, tc, mesh,
+                                                             fsdp=fsdp),
+                                    layout=layout)
+        step = ts.make_train_step(tc, tcfg, mesh=mesh, layout=layout)
+        batch = SyntheticLM(tc, B, S, seed=0, device="cpu").next_batch(0)
+        (_, met), log = _logged(lambda: step(state, batch))
+        out["train", shape, dispatch, fsdp] = dict(
+            log=log, loss=float(met["loss"]),
+            state_bytes=sum(t.numel() * t.element_size() for t in
+                            tree_lib.leaves((state.params, state.opt))
+                            if t.dim() > 0))
     return out
