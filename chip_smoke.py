@@ -313,20 +313,32 @@ Phases, in order; any failure ends the script with a non-zero exit:
    launches of kernels 7-9 exactly the path's (the forward twice a layer
    and step under FSDP's recompute), the row-group gathers a step; the
    per-rank peak, stored bytes and step walls printed as host-staged.
+19. The graph-invariant linter on the card (``repro_torch.analysis.lint``,
+   ``--device cuda``'s one-device part): ``lint_cell`` over the ``r1``
+   cells (each forward and, grouped, its gradient recorded as an op graph
+   — aten ops, logged collectives, kernel calls — with every op-graph
+   rule run over it), the decode cells (the serving step-build
+   validation) and the probes at the paper model's published size (an
+   f32 train state's aliasing; two identical ``generate`` calls, each
+   decode key captured once as a CUDA graph).  Any finding fails the
+   phase.  The launch counters read around the backward of
+   ``grouped/r1/flat/P2``'s gradient, printed on a line of their own:
+   the forward grouped kernel does not launch there, dlhs and drhs do,
+   as often as the graph's backward calls them.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all ten kernels; the row-per-step gather, on no
 serving or training path, with the launches of its phase-5 run;
 ``launches_ep_serve``: rank 0's in 18e; ``launches_fsdp``: rank 0's in
-18f; ``launches_cp``: rank 0's in 18g-b; ``max_abs_err_cp``: 2n's
-context-parallel shapes), and
+18f; ``launches_cp``: rank 0's in 18g-b; ``launches_lint``: phase 19's;
+``max_abs_err_cp``: 2n's context-parallel shapes), and
 ``{"ok": true, "device": {...}}``.  ``--phases kernels`` runs phases 1, 2
 and 5 only, for work on a kernel, ``--phases trainer`` phases 1, 9-11
 and 14, ``--phases presets`` phases 1, 12 and 13, ``--phases
 frontends`` phases 1, 2g-2i, 2o, phase 5's rows at the frontend presets'
 shapes and 15, ``--phases serving`` phases 1, 3 and 16, ``--phases
-recurrent`` phases 1, 2p and 17, and ``--phases ep`` phases 1, 2 and 18;
-each ends with ``"ok": false``.  The script
+recurrent`` phases 1, 2p and 17, ``--phases ep`` phases 1, 2 and 18,
+and ``--phases lint`` phases 1 and 19; each ends with ``"ok": false``.  The script
 imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -483,19 +495,23 @@ class TimingRows(list):
     def add(self, name, source, replaces, kernel, plain, library, nbytes,
             flops, peak, shape, slow=False, library_graph=None, cold=False,
             **extra):
-        """``slow``: a kernel call of several ms, timed in fewer batches
-        of fewer calls, and a plain version of up to seconds a call,
-        timed in 3 single calls after one.  ``cold``: also the
+        """``slow``: a kernel call of several ms, timed in 5 batches of
+        3 calls after one (eager, and the same in CUDA-graph replays, for
+        the kernel and the library call), and a plain version of up to
+        seconds a call, timed in 3 single calls after one; otherwise the
+        plain version (10-50x the kernel, a yardstick and no check) in 5
+        batches of 2 calls after 2.  ``cold``: also the
         device-only times of the kernel and of the library call with the
         L2 flushed before each call (``graph_cold_ms``), for a byte-bound
         kernel whose caller finds its input cold."""
         torch = self.torch
-        kw = dict(batches=10, per_batch=3, warmup=2) if slow else {}
-        gkw = dict(reps=10, per_graph=3) if slow else {}
+        kw = dict(batches=5, per_batch=3, warmup=1) if slow else {}
+        gkw = dict(reps=5, per_graph=3) if slow else {}
         ms = time_ms(torch, kernel, **kw)
         dev_ms = graph_ms(torch, kernel, **gkw)
-        plain_ms = time_ms(torch, plain, **(dict(batches=3, per_batch=1,
-                                                 warmup=1) if slow else {}))
+        plain_ms = time_ms(torch, plain, **(
+            dict(batches=3, per_batch=1, warmup=1) if slow
+            else dict(batches=5, per_batch=2, warmup=2)))
         lib_ms = lib_dev_ms = None
         if library is not None:
             try:
@@ -7386,6 +7402,96 @@ def print_ptxas(report: str, most: int = 24) -> None:
                 print(f"    {e[0]}\n      " + "\n      ".join(e[1:]))
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the graph-invariant linter on the card
+# ---------------------------------------------------------------------------
+
+# the grad graph whose backward's launches phase 19 prints and checks
+LINT_GRAD = "grouped/r1/flat/P2"
+
+
+def phase_lint(torch, smi):
+    """Phase 19: ``repro_torch.analysis.lint`` on ``cuda``: ``lint_cell``
+    over the one-device (``r1``) cells — each forward and, grouped, its
+    gradient recorded as an op graph (aten ops, logged collectives and
+    kernel calls) and every op-graph rule run over it — the decode cells
+    (the serving step-build validation) and the probes at the paper
+    model's published size (an f32 train state's aliasing; two identical
+    ``generate`` calls, whose decode step is one captured CUDA graph: each
+    step-cache key built once).  Any finding fails the phase.  From the
+    launch counters read around the backward of ``LINT_GRAD``'s gradient:
+    the forward grouped kernel does not launch there, dlhs and drhs do.
+    Returns (every kernel's launches over the phase, results)."""
+    from repro_torch.analysis import lint
+
+    names = [k for k, _, _ in COUNTERS]
+    cells = [c for c in lint.matrix_cells()
+             if lint.parse_cell(c)["mesh"] == "r1" or c.startswith("decode/")]
+    out = {"card": smi, "cells": {}}
+    findings = []
+    reset_counts()
+    t0 = time.perf_counter()
+    for cell in cells:
+        graphs = {}
+        t = time.perf_counter()
+        found = lint.lint_cell(cell, device="cuda", graphs=graphs)
+        torch.cuda.synchronize()
+        findings += found
+        out["cells"][cell] = {
+            "s": time.perf_counter() - t, "findings": len(found),
+            "sites": {k: len(g.sites()) for k, g in graphs.items()},
+            "kernel_calls": {k: sum(s.kind == "kernel" for s in g.sites())
+                             for k, g in graphs.items()}}
+        if cell == LINT_GRAD:
+            grad = graphs[cell + ":grad"]
+        print(f"  19 {cell}: {len(found)} finding(s), "
+              f"{out['cells'][cell]['sites']} sites, "
+              f"{out['cells'][cell]['s']:.2f} s")
+        for f in found:
+            print(f"    [{f.level}] {f.rule} @ {f.location}: {f.message}")
+    bwd = {k: grad.launches["bwd"][f"{mod}.{attr}"]
+           for k, mod, attr in COUNTERS}
+    bwd_calls = {k: sum(1 for s in grad.sites("bwd") if s.op == k)
+                 for k in ("grouped_matmul", "grouped_matmul_t",
+                           "grouped_drhs")}
+    print(json.dumps({"lint_grad_bwd_launches": bwd,
+                      "cell": LINT_GRAD + ":grad",
+                      "bwd_kernel_calls": bwd_calls}))
+    check(bwd["grouped_matmul"] == 0 and bwd["grouped_matmul_t"] > 0
+          and bwd["grouped_drhs"] > 0,
+          f"19: the backward of {LINT_GRAD}'s gradient launched {bwd}: the "
+          f"forward grouped kernel must not launch there, dlhs and drhs "
+          f"must")
+    check(all(bwd[k] == n for k, n in bwd_calls.items()),
+          f"19: the backward's kernel calls {bwd_calls} are not its "
+          f"launches {bwd}")
+    out["cells_s"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    report = {}
+    probes = lint.lint_probes("cuda", arch=ARCH, smoke=False, report=report)
+    torch.cuda.synchronize()
+    out["probes_s"] = time.perf_counter() - t
+    counts = read_counts(names)
+    findings += probes
+    decode = [b for b in report["builds"] if b[0] == "decode"]
+    print(f"  19 probes ({ARCH} published size, a train state of "
+          f"{report['params'] / 1e6:.1f}M f32 parameters): {len(probes)} "
+          f"finding(s); step-cache builds {report['builds']}; "
+          f"{out['probes_s']:.1f} s")
+    check(decode and all(g is True and n == 1 for _, g, n in decode),
+          f"19: the probes' decode steps were not each captured once as "
+          f"a CUDA graph: {report['builds']}")
+    for f in findings:
+        print(f"  19 FINDING [{f.level}] {f.rule} @ {f.location} "
+              f"({f.config}): {f.message}")
+    check(not findings, f"19: the lint found {len(findings)} finding(s)")
+    out.update(findings=len(findings), launches=counts,
+               lint_grad_bwd_launches=bwd,
+               seconds=time.perf_counter() - t0)
+    release(torch)
+    return counts, out
+
+
 T_START = time.perf_counter()
 
 
@@ -7402,7 +7508,7 @@ def main(argv=None) -> int:
                                  "NVIDIA GPU (see the module docstring).")
     ap.add_argument("--phases", choices=("all", "kernels", "trainer",
                                          "presets", "frontends", "serving",
-                                         "recurrent", "ep"),
+                                         "recurrent", "ep", "lint"),
                     default="all",
                     help="'kernels': only the build, the kernel checks and "
                          "the kernel timings (phases 1, 2 and 5), for "
@@ -7417,8 +7523,9 @@ def main(argv=None) -> int:
                          "2p (kernels 7-9 at head dim 112) and phase 17 "
                          "(rwkv6-1.6b and zamba2-7b); 'ep': the build, "
                          "phase 2 and phase 18 (expert parallelism, ranks "
-                         "sharing the card over gloo); each ends with ok: "
-                         "false")
+                         "sharing the card over gloo); 'lint': the build "
+                         "and phase 19 (the graph-invariant linter on the "
+                         "card); each ends with ok: false")
     phases = ap.parse_args(argv).phases
     import torch
     if not torch.cuda.is_available():
@@ -7490,6 +7597,13 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"ok": False, "partial": "phases 1, 2p and 17 "
                                                   "only"}))
+        return 0
+    if phases == "lint":
+        lint_counts, lint_out = phase_lint(torch, smi)
+        stamp("phase 19")
+        print(json.dumps({"lint": lint_out}))
+        print(smi)
+        print(json.dumps({"ok": False, "partial": "phases 1 and 19 only"}))
         return 0
     if phases == "presets":
         print(json.dumps({"presets": phase_presets(torch, smi)[1]}))
@@ -7573,6 +7687,10 @@ def main(argv=None) -> int:
     ep_counts, ep = phase_ep(torch, smi)
     print(json.dumps({"ep": ep}))
     stamp("phase 18")
+    release(torch)
+    lint_counts, lint_out = phase_lint(torch, smi)
+    print(json.dumps({"lint": lint_out}))
+    stamp("phase 19")
     rows = (phase_timings(torch, dev, smi) + frontend_timings(torch, dev, smi)
             + preset_rows + wide_rows)
     stamp("phase 5")
@@ -7624,6 +7742,9 @@ def main(argv=None) -> int:
             # phase 18g-b: rank 0 of gemma2-9b's 2 steps at 2x2, rows split
             kernels[-1]["launches_cp"] = ep["18g"]["launches_rank0"][
                 r["name"]]
+        if lint_counts.get(r["name"]):
+            # phase 19: the lint's one-device cells and probes
+            kernels[-1]["launches_lint"] = lint_counts[r["name"]]
         if r["name"] + "_cp" in errs:
             # phase 2n: the context-parallel shapes (q positions offset)
             kernels[-1]["max_abs_err_cp"] = errs[r["name"] + "_cp"]
@@ -7670,6 +7791,7 @@ def main(argv=None) -> int:
                       "recurrent": recurrent,
                       "recurrent_launches": recurrent_counts,
                       "ep": ep, "ep_launches": ep_counts,
+                      "lint": lint_out, "lint_launches": lint_counts,
                       "timings": rows, "profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

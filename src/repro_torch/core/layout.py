@@ -38,7 +38,7 @@ from repro_torch.core.gating import GateOutput
 from repro_torch.kernels import layout_transform, ops
 
 # out[i] = src[idx[i]], zeros where idx < 0 — the gather kernel's wrapper
-take_rows = ops.gather_rows
+take_rows = layout_transform.gather_rows
 
 
 class DispatchPlan(NamedTuple):

@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
 
 NEG = -1e30            # the reference's mask value (flash_attention.py:37)
 # the head dims the CUDA kernels take (head_dim in csrc/flash_attention.cu)
@@ -251,6 +251,7 @@ def _launch(name: str, fn: str, q, k, tensors, outs, scale, causal, window,
     build.check(rc, name)
 
 
+@ops.logged("flash_fwd")
 def flash_fwd(q, k, v, q_pos, k_pos, scale: float, causal: bool,
               window: Optional[int], cap: Optional[float]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -279,6 +280,7 @@ def _check_bwd(name, q, k, v, do, lse, delta, q_pos, k_pos) -> None:
                          f"{tuple(q.shape[:3])}")
 
 
+@ops.logged("flash_dq")
 def flash_dq(q, k, v, do, lse, delta, q_pos, k_pos, scale: float,
              causal: bool, window: Optional[int], cap: Optional[float]
              ) -> torch.Tensor:
@@ -297,6 +299,7 @@ def flash_dq(q, k, v, do, lse, delta, q_pos, k_pos, scale: float,
     return dq
 
 
+@ops.logged("flash_dkv")
 def flash_dkv(q, k, v, do, lse, delta, q_pos, k_pos, scale: float,
               causal: bool, window: Optional[int], cap: Optional[float]
               ) -> Tuple[torch.Tensor, torch.Tensor]:

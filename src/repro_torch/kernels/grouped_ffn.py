@@ -34,7 +34,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
 
 MAX_EXPERTS = 1024     # GMM_MAX_E in csrc/grouped_ffn.cu
 launches = 0           # forward kernel launches since the caller last reset
@@ -164,6 +164,7 @@ def _launch(name: str, fn_bf16: str, fn_f32: str, a: torch.Tensor,
     build.check(rc, name)
 
 
+@ops.logged("grouped_matmul")
 def _grouped_matmul(lhs, rhs, offsets):
     global launches
     if not build.dispatch_device("grouped_matmul", lhs):
@@ -176,6 +177,7 @@ def _grouped_matmul(lhs, rhs, offsets):
     return out
 
 
+@ops.logged("grouped_matmul_t")
 def grouped_matmul_t(g: torch.Tensor, rhs: torch.Tensor,
                      offsets: torch.Tensor) -> torch.Tensor:
     """dlhs (M, K) with dlhs[seg_e] = g[seg_e] @ rhs[e]ᵀ; g (M, N), rhs
@@ -193,6 +195,7 @@ def grouped_matmul_t(g: torch.Tensor, rhs: torch.Tensor,
     return out
 
 
+@ops.logged("grouped_drhs")
 def grouped_drhs(lhs: torch.Tensor, g: torch.Tensor, offsets: torch.Tensor,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """drhs (E, K, N) with drhs[e] = lhs[seg_e]ᵀ @ g[seg_e], summed in f32;

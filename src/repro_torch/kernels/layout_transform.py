@@ -37,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
 
 launches = 0           # gather kernel launches since the caller last reset it
 scatter_launches = 0   # scatter-add kernel launches, likewise
@@ -68,6 +68,7 @@ def gather_rows_fanout_plain(src: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+@ops.logged("gather_rows")
 def _gather_rows(src: torch.Tensor, idx: torch.Tensor,
                  dest: Optional[torch.Tensor] = None) -> torch.Tensor:
     global launches
@@ -145,6 +146,7 @@ def gather_rows_rowstep_plain(src: torch.Tensor,
     return gather_rows_plain(src, idx)
 
 
+@ops.logged("gather_rows_rowstep")
 def gather_rows_rowstep(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out (M, d) with out[i] = src[idx[i]] (0 where idx[i] < 0); src (N, d)
     bfloat16 or float32, idx (M,) int32.  The seed's one-row-per-step
@@ -213,6 +215,7 @@ def scatter_add_rows_plain(g: torch.Tensor, idx: torch.Tensor,
     return acc.to(g.dtype)
 
 
+@ops.logged("scatter_add")
 def _scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
                       n: int) -> torch.Tensor:
     global scatter_launches

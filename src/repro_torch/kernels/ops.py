@@ -7,14 +7,65 @@ plain PyTorch version for a CPU tensor (``kernels/build.dispatch_device``).
 :func:`launch_counts` reads every wrapper's launch counter, and
 :func:`add_launch_counts` adds to them what a replayed CUDA graph
 launched without calling a wrapper (``serving/engine.py``).
+
+:data:`calls` logs every wrapper call on either route, kernel or plain
+version, as a :class:`KernelCall` — the wrapper's name and its tensor
+operands' dtypes and shapes.  It is off (None) until a caller sets it to
+a list (``analysis/graph.py`` does, to record what a program ran); the
+launch counters count on their own either way.  While a wrapper runs its
+name is on :data:`active`, so a recorder can place the plain version's
+aten ops under it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import (flash_attention, grouped_ffn,
+
+class KernelCall(NamedTuple):
+    """One wrapper call: its ``name`` (``topk_gate``, ``gather_rows``,
+    ``scatter_add``, ``grouped_matmul``, ``grouped_matmul_t``,
+    ``grouped_drhs``, ``flash_fwd``, ``flash_dq``, ``flash_dkv``,
+    ``gather_rows_rowstep``) and its tensor operands' ``dtypes`` (torch
+    names) and ``shapes``, in argument order."""
+    name: str
+    dtypes: Tuple[str, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+
+
+# the kernel-call log: None (off) until a caller sets it to a list
+calls: Optional[List[KernelCall]] = None
+# the wrappers running now, outermost first
+active: List[str] = []
+
+
+def logged(name: str) -> Callable:
+    """Decorator of a kernel wrapper: one :class:`KernelCall` in
+    :data:`calls` (when it is a list) per call, and ``name`` on
+    :data:`active` while the wrapper runs.  Defined before the kernel
+    modules are imported below, which decorate their wrappers with it."""
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if calls is not None:
+                ts = [a for a in (*args, *kwargs.values())
+                      if isinstance(a, torch.Tensor)]
+                calls.append(KernelCall(
+                    name, tuple(str(t.dtype).removeprefix("torch.")
+                                for t in ts),
+                    tuple(tuple(t.shape) for t in ts)))
+            active.append(name)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                active.pop()
+        return call
+    return wrap
+
+
+from repro_torch.kernels import (flash_attention, grouped_ffn,  # noqa: E402
                                  layout_transform, topk_gate)
 
 # (module, attribute) of every wrapper's launch counter
@@ -25,8 +76,6 @@ COUNTERS = ((topk_gate, "launches"), (layout_transform, "launches"),
             (flash_attention, "fwd_launches"),
             (flash_attention, "dq_launches"),
             (flash_attention, "dkv_launches"))
-
-gather_rows = layout_transform.gather_rows
 
 
 def topk_softmax_weights(logits: torch.Tensor, k: int):
@@ -59,7 +108,8 @@ def layout_dispatch(tokens: torch.Tensor, slot: torch.Tensor,
         inv = torch.full((EC + 1,), -1, dtype=torch.int32, device=slot.device)
         inv[torch.where(flat >= 0, flat, EC)] = tok
         inv = inv[:EC]
-    return gather_rows(tokens, inv.contiguous(), slot.contiguous())
+    return layout_transform.gather_rows(tokens, inv.contiguous(),
+                                        slot.contiguous())
 
 
 def layout_combine(buffer: torch.Tensor, slot: torch.Tensor,
@@ -67,7 +117,8 @@ def layout_combine(buffer: torch.Tensor, slot: torch.Tensor,
     """Inverse transform: gather rows back per (token, k), then the
     weighted sum, rounded once to the buffer's dtype."""
     S, K = slot.shape
-    rows = gather_rows(buffer, slot.reshape(-1).contiguous()).reshape(S, K, -1)
+    rows = layout_transform.gather_rows(
+        buffer, slot.reshape(-1).contiguous()).reshape(S, K, -1)
     w = (weight * (slot >= 0)).to(buffer.dtype)
     return (rows.float() * w.float()[..., None]).sum(dim=1).to(buffer.dtype)
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
 
 MAX_K = 8          # TOPK_MAX_K in csrc/topk_gate.cu
 MAX_E = 512        # TOPK_MAX_E
@@ -40,6 +40,7 @@ def topk_gate_plain(logits: torch.Tensor, k: int):
             rowmax, sumexp)
 
 
+@ops.logged("topk_gate")
 def fused_topk_gate(logits: torch.Tensor, k: int):
     """One pass: ``(vals (S,k) f32, idx (S,k) i32, rowmax (S,1),
     sumexp (S,1))`` from logits (S, E) f32."""

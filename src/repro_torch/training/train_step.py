@@ -131,6 +131,67 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, *,
                                               device=dev))
 
 
+def _leaf_paths(tree, prefix: str = ""):
+    """``(path, leaf)`` of a state tree, paths as the reference's
+    ``keystr`` writes them: ``.field`` of a NamedTuple, ``['key']`` of a
+    dict (keys sorted), ``[i]`` of a list or tuple."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for name in tree._fields:
+            yield from _leaf_paths(getattr(tree, name), f"{prefix}.{name}")
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], f"{prefix}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def _byte_range(t: torch.Tensor) -> Tuple[int, int]:
+    """The bytes ``[lo, hi)`` a tensor view spans in its storage."""
+    if t.numel() == 0:
+        return 0, 0
+    lo = t.storage_offset() * t.element_size()
+    span = sum((n - 1) * abs(s) for n, s in zip(t.shape, t.stride()))
+    return lo, lo + (span + 1) * t.element_size()
+
+
+def donation_alias_pairs(tree) -> list:
+    """Leaf paths of ``tree`` (a ``TrainState``, a cache tree: any nest
+    of NamedTuples, dicts, lists and tuples of tensors) whose storages
+    overlap — the reference's check of the train state it donates.
+
+    In the reference two leaves on one buffer make XLA's donation reject
+    the alias (or silently un-donate it).  The port donates nothing: a
+    step builds a new state.  Its hazard is an in-place write — the
+    decode step's static buffers, ``engine.put_slot``'s copies, a
+    restore into a shared storage: through an alias one write changes
+    two leaves.  So two leaves alias when their byte ranges in one
+    storage overlap (``untyped_storage().data_ptr()`` and each view's
+    offset and extent), not by object identity: two views of disjoint
+    halves of one storage do not alias, one storage seen through two
+    different tensor objects does.  This is the check the
+    ``donation-alias`` lint rule (``repro_torch.analysis``) runs.
+    Returns ``[(path_a, path_b), ...]`` for every aliased pair, the
+    first path in tree order (empty: no alias)."""
+    by_storage: Dict[Any, List[Tuple[str, int, int]]] = {}
+    for path, leaf in _leaf_paths(tree):
+        if not isinstance(leaf, torch.Tensor) or leaf.numel() == 0:
+            continue
+        if leaf.device.type == "meta":
+            key: Any = ("id", id(leaf))       # no storage to compare
+        else:
+            key = (leaf.device, leaf.untyped_storage().data_ptr())
+        by_storage.setdefault(key, []).append((path, *_byte_range(leaf)))
+    pairs = []
+    for views in by_storage.values():
+        for i, (a, lo_a, hi_a) in enumerate(views):
+            pairs += [(a, b) for b, lo_b, hi_b in views[i + 1:]
+                      if lo_a < hi_b and lo_b < hi_a]
+    return pairs
+
+
 def _auto_chunks(S: int, V: int) -> int:
     """The reference's CE chunk count: one chunk's logits stay ~2^25
     elements per batch row."""

@@ -16,6 +16,7 @@ import torch
 
 import torch_ranks
 from repro import configs as jconfigs
+from repro.core import tuning as jtuning
 from repro.core.config import TrainConfig as JTrainConfig
 from repro.launch import mesh as jmesh
 from repro.launch import train as jtrain
@@ -297,9 +298,13 @@ def reference(monkeypatch_module):
             return cfg.replace(dtype="float32", moe=dataclasses.replace(
                 cfg.moe, **_moe))
         monkeypatch_module.setattr(jconfigs, "smoke_config", f32)
-        state, hist = jtrain.run(ARCH, steps=STEPS, batch=BATCH, seq=SEQ,
-                                 smoke=True, microbatches=mb,
-                                 log_every=1000, tune="off")
+        prev = jtuning.set_tuning()
+        try:
+            state, hist = jtrain.run(ARCH, steps=STEPS, batch=BATCH,
+                                     seq=SEQ, smoke=True, microbatches=mb,
+                                     log_every=1000, tune="off")
+        finally:
+            jtuning.set_tuning(*prev)   # tune="off" is the process's mode
         flat = {k: np.asarray(v) for k, v in _flatten_state(state).items()}
         out[name] = (hist, flat)
     monkeypatch_module.setattr(jconfigs, "smoke_config", base)

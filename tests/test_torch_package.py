@@ -24,7 +24,8 @@ from repro_torch.models.transformer import Transformer
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "flash_ab.py", ROOT / "drhs_ab.py",
-    ROOT / "gate_gather_ab.py"]
+    ROOT / "gate_gather_ab.py"] + sorted((ROOT / "examples").glob(
+        "torch_*.py"))
 
 
 def _imported_roots(path):
@@ -83,6 +84,23 @@ def test_training_entry_points_raise_without_cuda(no_cuda):
         init_train_state(cfg, TrainConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SyntheticLM(cfg, 1, 8)
+
+
+def test_lint_and_examples_raise_without_cuda(no_cuda):
+    """The lint CLI and the examples' twins run on CUDA unless given
+    ``--device cpu``; without a GPU they raise before any work."""
+    from repro_torch.analysis import lint
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import torch_quickstart
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lint.main(["--config", "sort/r1/flat/P1", "--json", "/dev/null"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lint.lint_probes(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_quickstart.main([])
 
 
 def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):

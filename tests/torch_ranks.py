@@ -2,7 +2,8 @@
 ``test_torch_ep.py``, ``test_torch_ep_train.py``, ``test_torch_expert_tp.py``,
 ``test_torch_serve_ranks.py``, ``test_torch_fsdp.py``,
 ``test_torch_ckpt_ranks.py``, ``test_torch_cp.py``,
-``test_torch_cp_train.py``): each runs in a process that
+``test_torch_cp_train.py``, ``test_torch_serve_layout.py``,
+``test_torch_analysis.py``): each runs in a process that
 ``repro_torch.launch.mesh.spawn`` starts, over gloo on the CPU, and returns
 numpy arrays.  Imports no JAX: the spawned ranks load only the port."""
 from __future__ import annotations
@@ -847,3 +848,32 @@ def serve_layout_rank(rank, init_path, cfg, prompt, steps, meshes,
                             tree_lib.leaves((state.params, state.opt))
                             if t.dim() > 0))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the graph-invariant linter (test_torch_analysis.py): a job of the lint's
+# own ep4 spawn (repro_torch.analysis.lint.mesh_rank)
+# ---------------------------------------------------------------------------
+
+def lint_sequential_windows(mesh):
+    """PR 5's anti-pattern in eager form, recorded: two windows of this
+    rank's tokens exchanged and computed one after the other
+    (``sharded_moe_apply`` at ``overlap_chunks=1`` on each half), linted
+    against the ``overlap_chunks=2`` contract of the ep4 cells."""
+    from repro_torch.analysis import lint, trace_graph
+
+    spec = lint.parse_cell("grouped/ep4/flat/P1")
+    params, xl, valid = lint._inputs(spec, mesh, torch.device("cpu"))
+    cfg = lint._cell_cfg(spec)
+    half = xl.shape[0] // 2
+
+    def windows(p, v):
+        return [moe.sharded_moe_apply(mesh, cfg, p, v[i * half:(i + 1) * half],
+                                      num_experts=lint.E, act="swiglu",
+                                      valid=valid[i * half:(i + 1) * half])[0]
+                for i in range(2)]
+    return trace_graph(windows, params, xl, context={
+        "cfg": dataclasses.replace(cfg, overlap_chunks=2),
+        "model_size": mesh.shape["model"], "tokens_per_shard": xl.shape[0],
+        "d_model": lint.D_MODEL, "dtype": torch.bfloat16,
+        "direction": "fwd", "label": "sequential-windows"})
