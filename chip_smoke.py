@@ -262,7 +262,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ranks within the reference's QWIRE_TOLS.  18e: ``dbrx-132b`` (2 of 40
    layers, published widths, bf16, grouped) served at 2x2 through
    ``launch.serve.run`` (batch 8, prompt 1024, 16 new tokens; prefill
-   expert parallel, decode expert TP, the decode step eager), every plain
+   expert parallel, decode expert TP, the decode step eager) on the
+   reference's activation and cache layout (each data rank its 4 rows;
+   the prefill context-parallel over ``model``, 512 queries a rank against
+   the row's 1024 keys through kernel 7; each rank's caches its 4 of the
+   8 kv heads of its rows, the ``heads`` form: a quarter of one process's
+   cache bytes, equal to the dry run's ``caches``), every plain
    version made to raise, the state stored by the reference's serving rule
    (each rank its 8 experts' half of f: the prefill gathers each block's
    experts whole in f, the decode step computes on the stored slice), each
@@ -281,7 +286,16 @@ Phases, in order; any failure ends the script with a non-zero exit:
    under FSDP (``Transformer(fsdp=True)``, what ``needs_fsdp(4e9)``
    resolves for it: the dense leaves over data x model too), a prefill and
    4 decode steps on one process's replayed routes: their logits bitwise
-   the stored-slice run's, its stored bytes the dry run's.  In the parent,
+   the stored-slice run's, its stored bytes the dry run's.  18e-p, the
+   ``positions`` form: ``starcoder2-3b`` (its 2 kv heads do not divide
+   over 4 ranks, so the cache positions do; 4 of 30 layers, published
+   widths, bf16) at 1x4, batch 4 x 1024 + 16 (caches of 1040: 260
+   positions a rank), teacher-forced on one process's tokens (the parent,
+   before the spawn): each step's logits within 2^-4 of its largest
+   |logit|, the greedy token equal where one process's top-2 margin
+   clears that, ``generate``'s tokens bitwise equal on the ranks, the
+   cache bytes a rank the dry run's and a quarter of one process's, rank
+   0's launches of kernel 7.  In the parent,
    while the ranks run, ``python -m repro_torch.launch.dryrun --all`` and
    ``--all --multi-pod`` (the CPU only, no JAX), their seconds printed.
    18b also runs the paper's
@@ -5881,6 +5895,12 @@ EP_SERVE_BOUND = 2.0 ** -4
 # steps on the replayed routes (each step gathers the 1.23 GB embedding and
 # head over gloo: host staging, seconds a step)
 EP_SERVE_FSDP_STEPS = 5
+# 18e-p: the positions form of the served caches: starcoder2-3b's 2 kv
+# heads do not divide over 4 model ranks, its caches of 1040 positions do
+# (260 a rank); 4 of 30 layers at the published widths, bf16, held
+# teacher-forced against one process at EP_SERVE_BOUND
+EP_SERVE_P = dict(arch="starcoder2-3b", layers=4, batch=4, prompt_len=1024,
+                  gen=16, mesh=(1, 4))
 # 18f: the paper model whole trained at 2x2 under FSDP (ZeRO-3) through
 # launch.train.run(fsdp=True), grouped: 3 steps uninterrupted; 3 steps
 # saving at step 2 and cut at the top of step 2 (train.loop:raise@2), then
@@ -6726,13 +6746,15 @@ def ep_tp_checks(torch, rank, ref_paths):
 
 
 def greedy_with_logits(torch, model, prompt, steps, forced=None,
-                       graph=None, cache_len=None):
+                       graph=None, cache_len=None, info=None):
     """Greedy generation through the step builders, each step's logits
-    (f32) kept: ``(tokens (B, S + steps), logits (steps, B, V))``; with
-    ``forced`` (B, S + steps) the decode steps are fed its tokens
-    (teacher forcing) instead of their own; ``graph`` as
-    ``engine.build_decode`` takes it; caches of ``cache_len`` (default S +
-    steps)."""
+    (f32) kept: ``(tokens (B, S + steps), logits (steps, B, V))``, across
+    ranks each rank's rows gathered over ``data`` (``engine.whole_rows``,
+    as ``generate`` samples); with ``forced`` (B, S + steps) the decode
+    steps are fed its tokens (teacher forcing) instead of their own;
+    ``graph`` as ``engine.build_decode`` takes it; caches of ``cache_len``
+    (default S + steps); ``info`` (a dict) receives the bytes of the
+    caches this process holds."""
     from repro_torch.serving import engine
     B, S = prompt.shape
     cache_len = cache_len or S + steps
@@ -6742,10 +6764,16 @@ def greedy_with_logits(torch, model, prompt, steps, forced=None,
         with engine.holding_decode(model, batch=B, cache_len=cache_len,
                                    graph=graph) as step:
             step.reset()
+            if info is not None:
+                info["cache_bytes"] = sum(
+                    t.numel() * t.element_size()
+                    for t in engine._cache_leaves(step.caches))
             last, _ = prefill(prompt, step.caches)
             for i in range(steps):
-                logits.append(last[:, -1].float().cpu())
-                tok = last[:, -1].argmax(-1, keepdim=True)
+                logits.append(engine.whole_rows(
+                    model, last[:, -1].float(), B).cpu())
+                tok = engine.whole_rows(
+                    model, last[:, -1].argmax(-1, keepdim=True), B)
                 out.append(tok)
                 if i + 1 < steps:
                     feed = tok if forced is None else forced[
@@ -6855,22 +6883,28 @@ def ep_serve_routes(torch, rank, one, calls):
     return dist, flips
 
 
-def ep_serve_stored(model, cfg, fsdp: bool) -> dict:
+def ep_serve_stored(model, cfg, fsdp: bool, case=EP_SERVE) -> dict:
     """A served model's stored bytes on this rank, of them the experts',
-    and ``launch/dryrun.count_pair``'s stored params for the same config,
-    mesh and layout (18e's decode shape)."""
+    ``launch/dryrun.count_pair``'s stored params and caches for the same
+    config, mesh and layout (``case``'s decode shape), one process's cache
+    bytes and each layer's cache form."""
     from repro_torch.core.config import ShapeConfig
     from repro_torch.launch import dryrun, shard
     from repro_torch.launch.mesh import tree_paths
+    L = case["prompt_len"] + case["gen"]
     rec = dryrun.count_pair(
-        cfg, ShapeConfig("18e", EP_SERVE["prompt_len"] + EP_SERVE["gen"],
-                         EP_SERVE["batch"], "decode"),
-        model.layout.mesh_shape, fsdp=fsdp, expert_tp=True)
+        cfg, ShapeConfig("18e", L, case["batch"], "decode"),
+        model.layout.mesh_shape, fsdp=fsdp, expert_tp=model.layout_key[1],
+        rank=model.mesh.rank)
+    lay = model.cache_layout(case["batch"], L)
     return dict(stored=model.stored_bytes(),
                 dry_run=rec["stored_bytes"]["params"],
                 experts=sum(t.numel() * t.element_size() for p, t in
                             tree_paths(model.tree()) if shard.is_expert(p)),
-                layout=model.layout_key)
+                layout=model.layout_key,
+                caches_dry_run=rec["stored_bytes"]["caches"],
+                caches_one_process=lay.whole_bytes,
+                forms=sorted(set(lay.forms) - {None}))
 
 
 def ep_serve_run(torch, rank, one_path):
@@ -6905,10 +6939,12 @@ def ep_serve_run(torch, rank, one_path):
     ref = torch.from_numpy(one["logits"])
     scale = ref.abs().amax(dim=(1, 2))                   # per step
     fused = K.fused_topk_gate
+    info = {}
     try:
         K.fused_topk_gate = tape = GateTape(fused)
         _, free = greedy_with_logits(torch, model, forced[:, :S].cuda(),
-                                     EP_SERVE["gen"], forced=forced)
+                                     EP_SERVE["gen"], forced=forced,
+                                     info=info)
         router_err, flips = ep_serve_routes(torch, rank, one, tape.calls)
         replayed = [torch.from_numpy(one[f"gate_idx_{i}"][rank * x.shape[0]:(
             rank + 1) * x.shape[0]]) for i, (x, _) in enumerate(tape.calls)]
@@ -6921,6 +6957,7 @@ def ep_serve_run(torch, rank, one_path):
     step_err = ((logits - ref).abs().amax(dim=(1, 2)) / scale).tolist()
     clear = torch.from_numpy(one["margin"]) > EP_SERVE_BOUND * scale[:, None]
     agree = logits.argmax(-1) == ref.argmax(-1)
+    stored["caches"] = info["cache_bytes"]
     engine.clear_step_cache(model)
     del model
     release(torch)
@@ -6975,6 +7012,93 @@ def ep_serve_run(torch, rank, one_path):
                 gathers=gathers, fsdp=fsdp)
 
 
+def ep_serve_p_cfg():
+    """18e-p's config: the preset cut to ``EP_SERVE_P["layers"]``."""
+    from repro_torch import configs
+    return configs.get_config(EP_SERVE_P["arch"]).replace(
+        num_layers=EP_SERVE_P["layers"])
+
+
+def ep_serve_p_reference(torch, path):
+    """18e-p's one process on the card: greedy with each step's logits
+    (the eager decode step), saved for the ranks; returns its seconds."""
+    import numpy as np
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import engine
+    cfg = ep_serve_p_cfg()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", seed=0)
+    info = {}
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (EP_SERVE_P["batch"], EP_SERVE_P["prompt_len"]),
+                           generator=torch.Generator().manual_seed(0))
+    tokens, logits = greedy_with_logits(torch, model, prompt.cuda(),
+                                        EP_SERVE_P["gen"], graph=False,
+                                        info=info)
+    top2 = logits.topk(2, dim=-1).values
+    np.savez(path, tokens=tokens.numpy(), logits=logits.numpy(),
+             margin=(top2[..., 0] - top2[..., 1]).numpy(),
+             cache_bytes=info["cache_bytes"])
+    engine.clear_step_cache(model)
+    del model
+    release(torch)
+    return time.perf_counter() - t0
+
+
+def ep_serve_positions(torch, rank, one_path):
+    """18e-p on one rank: starcoder2-3b at 1x4 in the ``positions`` form,
+    teacher-forced on one process's tokens (each step's logits against
+    that process's, argmax agreement where its top-2 margin clears the
+    bound), then ``generate`` greedy (its tokens, the prefill and decode
+    times, rank 0's launches); the cache bytes a rank against the dry
+    run's and one process's."""
+    import hashlib
+
+    import numpy as np
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import engine
+    one = np.load(one_path)
+    cfg = ep_serve_p_cfg()
+    mesh = make_mesh(EP_SERVE_P["mesh"], backend="gloo")
+    model = Transformer(cfg, mesh=mesh, seed=0)
+    S, gen = EP_SERVE_P["prompt_len"], EP_SERVE_P["gen"]
+    forced = torch.from_numpy(one["tokens"])
+    ref = torch.from_numpy(one["logits"])
+    scale = ref.abs().amax(dim=(1, 2))
+    info = {}
+    _, logits = greedy_with_logits(torch, model, forced[:, :S].cuda(), gen,
+                                   forced=forced, info=info)
+    step_err = ((logits - ref).abs().amax(dim=(1, 2)) / scale).tolist()
+    clear = torch.from_numpy(one["margin"]) > EP_SERVE_BOUND * scale[:, None]
+    agree = logits.argmax(-1) == ref.argmax(-1)
+    stored = ep_serve_stored(model, cfg, False, EP_SERVE_P)
+    reset_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        tokens = engine.generate(model, forced[:, :S].cuda(), steps=gen,
+                                 stats=stats)
+    wall = time.perf_counter() - t0
+    counts = read_counts([k for k, _, _ in COUNTERS])
+    engine.clear_step_cache(model)
+    del model
+    release(torch)
+    return dict(step_err=step_err,
+                disagree_clear=int((~agree & clear).sum()),
+                near_ties=int((~clear).sum()),
+                logits_digest=hashlib.sha256(logits.numpy().tobytes()
+                                             ).hexdigest(),
+                tokens=tokens.cpu().numpy().tolist(),
+                generated_eq_one_process=int((tokens.cpu()[:, S:]
+                                              == forced[:, S:]).sum()),
+                cache_bytes=info["cache_bytes"],
+                one_cache_bytes=int(one["cache_bytes"]), stored=stored,
+                counts=counts, prefill_s=stats["prefill_s"],
+                decode_ms=1e3 * stats["decode_s"] / stats["decode_steps"],
+                wall_s=wall)
+
+
 def ep_rank(rank, refs):
     """Phase 18 on one of four ranks sharing the card over one gloo group:
     18a-b at meshes 1x4 and 2x2 (``ep_layer_checks``), 18d (expert TP and
@@ -6998,6 +7122,9 @@ def ep_rank(rank, refs):
     t0 = time.perf_counter()
     out["18e"] = ep_serve_run(torch, rank, refs["serve"])
     out["18e_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["18e-p"] = ep_serve_positions(torch, rank, refs["serve_p"])
+    out["18e-p_s"] = time.perf_counter() - t0
     release(torch)
     out["18g-a"] = ep_cp_blocks(torch, rank, refs["cp"])
     t0 = time.perf_counter()
@@ -7101,7 +7228,7 @@ def phase_ep(torch, smi):
     out["parent_held_gib"] = held
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
         refs = {k: str(pathlib.Path(tmp) / f"{k}.npz")
-                for k in ("prefill", "decode", "serve")}
+                for k in ("prefill", "decode", "serve", "serve_p")}
         refs["fsdp"] = str(pathlib.Path(tmp) / "fsdp_ckpt")
         refs["cp"] = str(pathlib.Path(tmp) / "cp_blocks")
         for tokens, n_glob in EP_TP_TOKENS:
@@ -7117,6 +7244,10 @@ def phase_ep(torch, smi):
         out["18e_kernel3_fslice_max_abs_err"] = ep_fslice_kernel3(torch)
         print(f"  18e one process ({EP_SERVE}): "
               f"{out['18e_one_process_s']:.1f} s")
+        out["18e-p_one_process_s"] = ep_serve_p_reference(torch,
+                                                          refs["serve_p"])
+        print(f"  18e-p one process ({EP_SERVE_P}): "
+              f"{out['18e-p_one_process_s']:.1f} s")
         print(f"phase 18: backend=gloo ranks={world} on 1 device: 18a-b at "
               f"meshes {EP_LAYER_MESHES}, 18d expert TP at {EP_TP_MESHES} "
               f"x {EP_TP_TOKENS} x {EP_TP_CASES} and the wire {EP_QWIRE} at "
@@ -7241,6 +7372,7 @@ def phase_ep(torch, smi):
                          profiled_rank0=prof)
     out["18d"] = report_ep_tp(ranks, smi, world)
     out["18e"] = report_ep_serve(ranks, smi, world)
+    out["18e-p"] = report_ep_serve_positions(ranks, smi, world)
     out["18f"] = report_ep_fsdp(ranks, smi, world, one[0]["loss"],
                                 fsdp_parent)
     out["18g"] = report_ep_cp(ranks, smi, world, cp_one, cp_parent_s)
@@ -7336,6 +7468,16 @@ def report_ep_serve(ranks, smi, world):
               f"{fs['s']:.1f} s, peak {fs['peak_gib']:.2f} GiB, logits "
               f"bitwise the stored-slice run's {fs['bitwise']} (max |diff| "
               f"{fs['max_abs_diff']:.3e})")
+    for r, x in enumerate(res):
+        st = x["stored"]
+        print(f"    rank {r}: caches {st['caches']} bytes a rank, forms "
+              f"{st['forms']} (the dry run counts {st['caches_dry_run']}; "
+              f"one process {st['caches_one_process']}: "
+              f"{st['caches_one_process'] / st['caches']:.3f}x)")
+    check(all(x["stored"]["caches"] == x["stored"]["caches_dry_run"]
+              and x["stored"]["forms"] == ["heads"] for x in res),
+          f"18e: the cache bytes a rank differ from the dry run's, or the "
+          f"form is not heads {[x['stored'] for x in res]}")
     check(all(x["stored"]["stored"] == x["stored"]["dry_run"]
               and x["fsdp"]["stored"] == x["fsdp"]["dry_run"] for x in res),
           f"18e: stored bytes a rank differ from the dry run's "
@@ -7367,6 +7509,53 @@ def report_ep_serve(ranks, smi, world):
         "prefill_s": [x["prefill_s"] for x in res],
         "decode_ms": [x["decode_ms"] for x in res],
         "launches_rank0": r0["counts"]}
+
+
+def report_ep_serve_positions(ranks, smi, world):
+    """18e-p's checks and printout: each step's teacher-forced logits
+    within ``EP_SERVE_BOUND`` of one process's, bitwise equal on the
+    ranks, the argmax equal past the margin, ``generate``'s tokens equal
+    on the ranks, the cache bytes a rank the dry run's and a quarter of
+    one process's key and value bytes, the positions form, kernel 7
+    launched on rank 0."""
+    res = [r["18e-p"] for r in ranks]
+    r0 = res[0]
+    print(f"  18e-p, {EP_SERVE_P} [{smi}; {ep_label(world)}: host-staged], "
+          f"{max(r['18e-p_s'] for r in ranks):.1f} s:")
+    for r, x in enumerate(res):
+        st = x["stored"]
+        print(f"    rank {r}: step err / max|logit| "
+              f"{[f'{e:.2e}' for e in x['step_err']]} (bound "
+              f"{EP_SERVE_BOUND}); argmax differs at {x['disagree_clear']} "
+              f"positions past the margin ({x['near_ties']} near-ties); "
+              f"generated tokens equal to one process's "
+              f"{x['generated_eq_one_process']} of "
+              f"{EP_SERVE_P['batch'] * EP_SERVE_P['gen']}; caches "
+              f"{x['cache_bytes']} bytes a rank, forms {st['forms']} (the "
+              f"dry run {st['caches_dry_run']}, one process "
+              f"{x['one_cache_bytes']}); prefill "
+              f"{1e3 * x['prefill_s']:.1f} ms, eager decode "
+              f"{x['decode_ms']:.1f} ms a step, {x['wall_s']:.1f} s whole")
+    print(f"    rank 0 launches {r0['counts']}")
+    # the 0-d positions (4 bytes a layer) replicate on every rank
+    pos = 4 * EP_SERVE_P["layers"]
+    check(all(x["cache_bytes"] == x["stored"]["caches_dry_run"]
+              and 4 * (x["cache_bytes"] - pos) == x["one_cache_bytes"] - pos
+              and x["stored"]["forms"] == ["positions"] for x in res),
+          f"18e-p: the cache bytes a rank are not the dry run's and a "
+          f"quarter of one process's {[x['stored'] for x in res]}")
+    check(all(e <= EP_SERVE_BOUND for x in res for e in x["step_err"]),
+          f"18e-p: teacher-forced logits past the bound {r0['step_err']}")
+    check(len({x["logits_digest"] for x in res}) == 1,
+          "18e-p: the ranks' teacher-forced logits differ")
+    check(all(x["disagree_clear"] == 0 for x in res),
+          "18e-p: a greedy token differs from one process's past the margin")
+    check(all(x["tokens"] == r0["tokens"] for x in res),
+          "18e-p: the ranks' tokens differ")
+    check(r0["counts"]["flash_fwd"] > 0,
+          f"18e-p: kernel 7 was not launched on rank 0: {r0['counts']}")
+    return {k: v for k, v in r0.items() if k != "tokens"} | {
+        "cache_bytes": [x["cache_bytes"] for x in res]}
 
 
 def print_ptxas(report: str, most: int = 24) -> None:

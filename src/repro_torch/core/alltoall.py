@@ -34,8 +34,11 @@ its backward an all-gather); ``tp_collectives`` counts them.
 stage (the payloads, the count matrices, the quantized wire's scales),
 the expert-TP all-gathers and reduce-scatters, and the ZeRO-3 and
 row-group gathers and reduce-scatters of ``launch/shard.py``, the
-serving all-gather of the MoE outputs and the trainer's gradient
-all-reduces — as a :class:`Collective`: its kind, the axis its group
+serving all-gathers (the MoE outputs over the group their tokens are
+duplicated on, a decode step's heads or partial softmax results over
+``model``, the sampled tokens over ``data``), the prefill's broadcast of
+the last position's hidden rows and the trainer's gradient all-reduces —
+as a :class:`Collective`: its kind, the axis its group
 spans, the group's size, the dtype on the wire and the shape of the
 rank's input.  The scalar reductions (losses, balance statistics,
 norms, the skip guard) are not logged.  The log is off (None) until a
@@ -58,9 +61,9 @@ exchanges = 0          # AllToAll collectives issued since the caller reset it
 
 class Collective(NamedTuple):
     """One logged collective: ``kind`` (``all_to_all``, ``all_gather``,
-    ``reduce_scatter``, ``all_reduce``), the ``axis`` its group spans
-    (``model``, ``data``, ``inner``, ``outer``, ``row``, ``world``), the
-    group's size ``n``, the wire ``dtype`` (its torch name) and the
+    ``reduce_scatter``, ``all_reduce``, ``broadcast``), the ``axis`` its
+    group spans (``model``, ``data``, ``inner``, ``outer``, ``row``,
+    ``world``), the group's size ``n``, the wire ``dtype`` (its torch name) and the
     ``shape`` of this rank's input: for an all-gather the block it
     contributes, for a reduce-scatter the whole tensor it reduces."""
     kind: str
@@ -80,6 +83,8 @@ class Collective(NamedTuple):
         algorithms: the reference's ``parse_collectives`` costs, from the
         input's size."""
         b, n = self.payload_bytes, self.n
+        if self.kind == "broadcast":
+            return float(b)
         if self.kind == "all_gather":
             return float(b * (n - 1))
         if self.kind == "all_reduce":
@@ -421,6 +426,48 @@ def gather_rows(x: torch.Tensor, group, n: int,
     all-gather over ``axis``."""
     record("all_gather", axis, n, x.dtype, x.shape)
     return _gather_raw(x, group, n)
+
+
+def gather_dim(x: torch.Tensor, group, n: int, dim: int,
+               axis: str) -> torch.Tensor:
+    """:func:`gather_rows` along ``dim``: group rank i's ``x`` as block i
+    of the output's ``dim``.  Not differentiable; logged over ``axis``
+    with ``x``'s shape."""
+    record("all_gather", axis, n, x.dtype, x.shape)
+    out = _gather_raw(x.movedim(dim, 0), group, n)
+    return out.movedim(0, dim).contiguous()
+
+
+def exchange_uneven(x: torch.Tensor, send_counts, recv_counts, group,
+                    axis: str) -> torch.Tensor:
+    """An all-to-all of ``x``'s rows (dim 0) over ``group`` (None: the
+    world) with ``send_counts[i]`` rows to group rank i and
+    ``recv_counts[i]`` from it, concatenated in group-rank order (the
+    bytes cross); not differentiable; logged over ``axis`` with ``x``'s
+    shape."""
+    record("all_to_all", axis, len(send_counts), x.dtype, x.shape)
+    x = x.contiguous()
+    row = x[0].numel() * x.element_size() if x.shape[0] else (
+        math.prod(x.shape[1:]) * x.element_size())
+    out = x.new_empty((sum(recv_counts), *x.shape[1:]))
+    dist.all_to_all_single(
+        out.view(torch.uint8).reshape(-1), x.view(torch.uint8).reshape(-1),
+        output_split_sizes=[c * row for c in recv_counts],
+        input_split_sizes=[c * row for c in send_counts], group=group)
+    return out
+
+
+def broadcast(x: torch.Tensor, group, src: int, n: int,
+              axis: str) -> torch.Tensor:
+    """``x`` of the rank whose global rank is ``src``, on every rank of
+    the ``n``-rank ``group`` (the bytes cross; not differentiable);
+    logged as a broadcast over ``axis``."""
+    record("broadcast", axis, n, x.dtype, x.shape)
+    x = x.contiguous()
+    flat = x.view(torch.uint8).reshape(-1)
+    if x.numel():
+        dist.broadcast(flat, src=src, group=group)
+    return flat.view(x.dtype).reshape(x.shape)
 
 
 def _gather_raw(x: torch.Tensor, group, n: int) -> torch.Tensor:

@@ -45,14 +45,28 @@ with ``expert_tp``), on the received rows of every rank of its data group
 (``alltoall.tp_reduce_scatter``) hands each rank its rows back with the
 f-contraction summed.
 
-Serving keeps its activations whole on every rank:
-:func:`replicated_moe_apply` takes the global tokens, runs the layer on
-the rank's block of them and all-gathers the outputs over the world.
+Serving holds each data rank's rows and, in the prefill, each model
+rank's chunk of their positions (``launch/mesh.serve_block``), while the
+reference's layer takes the r-th contiguous block of the flattened
+tokens on device r whatever the activations' layout.  So a served
+``moe`` block first brings its tokens to the reference's block
+(:func:`served_tokens`): they are that block already (``own``); or every
+rank of a group holds the group's blocks alike and
+:func:`replicated_moe_apply` cuts the rank's block and all-gathers the
+outputs over the group (``replicate``: a decode step's rows over
+``model``, or a batch whole on every rank); or a :class:`TokenRoute`
+exchanges them over the model group or the world, each token sent once
+to the rank whose block holds it and its output sent back to every rank
+that holds the token (``route``: a context-parallel prefill of more than
+one row a data rank, or rows whole over ``data``).  Each rank routes
+exactly the reference's tokens at any count.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -330,30 +344,49 @@ def _pad_to(x: torch.Tensor, mult: int):
     return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]), n
 
 
-def _rank_rows(mesh, rows: torch.Tensor) -> torch.Tensor:
+GROUPS = ("model", "data", "world")
+
+
+def _group(mesh, group: str):
+    """``(process group, size, this rank's index)`` of ``group`` (a name
+    of :data:`GROUPS`) on ``mesh`` (None: one device)."""
+    if group not in GROUPS:
+        raise ValueError(f"group={group!r} not in {GROUPS}")
+    if mesh is None:
+        return None, 1, 0
+    if group == "model":
+        return mesh.model_group, mesh.shape["model"], mesh.model_index
+    if group == "data":
+        return mesh.data_group, mesh.shape["data"], mesh.data_index
+    return None, mesh.world, mesh.rank
+
+
+def _rank_rows(mesh, rows: torch.Tensor,
+               group: str = "world") -> torch.Tensor:
     """This rank's block of ``rows`` (N, ...) padded with zeros to a
-    multiple of the world."""
-    world = 1 if mesh is None else mesh.world
-    rank = 0 if mesh is None else mesh.rank
-    rows = _pad_to(rows, world)[0]
-    n = rows.shape[0] // world
-    return rows[rank * n:(rank + 1) * n]
+    multiple of the ``group``'s size, in group-rank order."""
+    _, n_ranks, idx = _group(mesh, group)
+    rows = _pad_to(rows, n_ranks)[0]
+    n = rows.shape[0] // n_ranks
+    return rows[idx * n:(idx + 1) * n]
 
 
 def rank_tokens(mesh, x: torch.Tensor,
-                token_ids: Optional[torch.Tensor] = None):
-    """This rank's block of the global tokens ``x`` (..., d): the
-    flattened tokens padded to a multiple of the world (the reference's
-    ``_pad_to``) and cut into contiguous blocks in rank order.  Returns
-    ``(tokens (T_local, d), valid (T_local,), token_ids or None,
+                token_ids: Optional[torch.Tensor] = None,
+                group: str = "world"):
+    """This rank's block of the tokens ``x`` (..., d) that every rank of
+    ``group`` holds alike (the world's: the global tokens): the flattened
+    tokens padded to a multiple of the group's size (the reference's
+    ``_pad_to``) and cut into contiguous blocks in group-rank order.
+    Returns ``(tokens (T_local, d), valid (T_local,), token_ids or None,
     n_real)``."""
     toks = x.reshape(-1, x.shape[-1])
     n_real = toks.shape[0]
     valid = _rank_rows(mesh, torch.ones((n_real,), dtype=torch.bool,
-                                        device=x.device))
+                                        device=x.device), group)
     tid = (None if token_ids is None
-           else _rank_rows(mesh, token_ids.reshape(-1)))
-    return _rank_rows(mesh, toks), valid, tid, n_real
+           else _rank_rows(mesh, token_ids.reshape(-1), group))
+    return _rank_rows(mesh, toks, group), valid, tid, n_real
 
 
 def grouped_a2a_stages(cfg: MoEConfig, model_size: int) -> int:
@@ -501,18 +534,22 @@ def replicated_moe_apply(mesh, cfg: MoEConfig,
                          noise: Optional[torch.Tensor] = None,
                          token_ids: Optional[torch.Tensor] = None,
                          expert_tp_axis: Optional[str] = None,
+                         group: str = "world",
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     Dict[str, torch.Tensor]]:
-    """The MoE layer over activations that every rank holds whole
-    (serving): ``x`` (..., d) the global tokens, the same on every rank;
-    each rank runs :func:`sharded_moe_apply` on its block of them
-    (:func:`rank_tokens`: padded to the world, in rank order), so every
-    rank routes exactly the reference's tokens at any token count, and
-    the outputs are all-gathered over the world and the padding cut.
-    ``noise`` (the global (T, E) draw) and ``token_ids`` are cut the same
-    way.  Returns the same ``(y, aux, metrics)`` on every rank.  For
-    inference: the gather passes no gradient.  ``mesh`` None is
-    :func:`sharded_moe_apply` on one device."""
+    """The MoE layer over activations that every rank of ``group`` holds
+    alike (serving; ``group`` one of :data:`GROUPS`: ``model`` for a
+    decode step's rows, ``data`` for rows whole over ``data``, the world
+    for a block whole on every rank): ``x`` (..., d) those tokens; each
+    rank runs :func:`sharded_moe_apply` on its block of them
+    (:func:`rank_tokens`: padded to the group's size, in group-rank
+    order), so every token is routed once across the group at any token
+    count, and the outputs are all-gathered over the group and the
+    padding cut.  ``noise`` (the tokens' (T, E) draw) and ``token_ids``
+    are cut the same way.  Returns the same ``(y, aux, metrics)`` on
+    every rank of the group.  For inference: the gather passes no
+    gradient.  ``mesh`` None is :func:`sharded_moe_apply` on one
+    device."""
     if mesh is None:
         return sharded_moe_apply(None, cfg, params, x,
                                  num_experts=num_experts, act=act,
@@ -524,13 +561,189 @@ def replicated_moe_apply(mesh, cfg: MoEConfig,
             "gradient); a trainer runs sharded_moe_apply on each rank's "
             "own rows")
     lead, d = x.shape[:-1], x.shape[-1]
-    xl, valid, tid, n_real = rank_tokens(mesh, x, token_ids)
-    nl = None if noise is None else _rank_rows(mesh, noise)
+    pg, n, _ = _group(mesh, group)
+    xl, valid, tid, n_real = rank_tokens(mesh, x, token_ids, group)
+    nl = None if noise is None else _rank_rows(mesh, noise, group)
     yl, aux, metrics = sharded_moe_apply(
         mesh, cfg, params, xl, num_experts=num_experts, act=act, noise=nl,
         token_ids=tid, valid=valid, expert_tp_axis=expert_tp_axis)
-    y = alltoall.gather_rows(yl, None, mesh.world)
+    y = alltoall.gather_rows(yl, pg, n, axis=group)
     return y[:n_real].reshape(*lead, d), aux, metrics
+
+
+# ---------------------------------------------------------------------------
+# a served block's tokens → the reference's MoE block
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TokenRoute:
+    """The exchange of a served block's tokens into this rank's block of
+    the reference's MoE layer (the ``T`` flattened tokens ``[rank·T,
+    (rank+1)·T)``, the last blocks padded) and of the outputs back, over
+    ``axis`` (``model``: every token stays in its data rank's model
+    group; ``world``), as group index ``me`` of ``n``.  A token is sent
+    by the rank whose block holds it when that rank holds it too, else
+    by its lowest holder; its output goes back to every holder.
+    ``send_idx`` are the own tokens sent, in send order, ``recv_perm``
+    the received rows in block order, ``back_idx`` the block's rows sent
+    back in send order; the counts are per group rank.  ``dispatch`` /
+    ``back`` say whether any rank's tokens cross (all ranks agree: when
+    none cross the rows are only reordered here)."""
+    axis: str
+    n: int
+    me: int
+    T: int
+    n_real: int
+    send_idx: Tuple[int, ...]
+    send_counts: Tuple[int, ...]
+    recv_counts: Tuple[int, ...]
+    recv_perm: Tuple[int, ...]
+    back_idx: Tuple[int, ...]
+    back_send: Tuple[int, ...]
+    back_recv: Tuple[int, ...]
+    dispatch: bool
+    back: bool
+    group: Any = None
+
+    def valid(self, device) -> torch.Tensor:
+        """The block's mask of real tokens (T,)."""
+        return torch.arange(self.T, device=device) < self.n_real
+
+    def to_block(self, x: torch.Tensor) -> torch.Tensor:
+        """The block's rows (T, ...) of the own tokens ``x`` (n_own, ...),
+        zeros past the real ones."""
+        idx = torch.tensor(self.send_idx, dtype=torch.long, device=x.device)
+        buf = x[idx]
+        if self.dispatch:
+            buf = alltoall.exchange_uneven(buf, self.send_counts,
+                                           self.recv_counts, self.group,
+                                           self.axis)
+        perm = torch.tensor(self.recv_perm, dtype=torch.long,
+                            device=x.device)
+        out = x.new_zeros((self.T, *x.shape[1:]))
+        out[:self.n_real] = buf[perm]
+        return out
+
+    def from_block(self, y: torch.Tensor) -> torch.Tensor:
+        """The own tokens' rows of the block's outputs ``y`` (T, ...)."""
+        idx = torch.tensor(self.back_idx, dtype=torch.long, device=y.device)
+        out = y[idx]
+        if self.back:
+            out = alltoall.exchange_uneven(out, self.back_send,
+                                           self.back_recv, self.group,
+                                           self.axis)
+        return out
+
+
+def _holds(q_d, q_m, hd, hm):
+    """Whether rank (q_d, q_m) holds each token whose holders' data and
+    model indices are ``hd`` / ``hm`` (None: every rank of that axis)."""
+    ok = True
+    if hd is not None:
+        ok = ok & (hd == q_d)
+    if hm is not None:
+        ok = ok & (hm == q_m)
+    return ok
+
+
+def plan_route(shape, rank: int, B: int, S: int, rows_split: bool,
+               pos_split: bool) -> TokenRoute:
+    """The :class:`TokenRoute` of rank ``rank`` on a mesh of ``shape`` (D,
+    M) for a served (B, S) block layout: data rank d holds rows ``[d·b,
+    (d+1)·b)`` (b = B/D) when ``rows_split``, else all; model rank m
+    holds positions ``[m·L, (m+1)·L)`` (L = S/M) when ``pos_split``, else
+    all.  Index arithmetic on the host, the same on every rank (no
+    group attached)."""
+    D, M = (int(v) for v in shape)
+    W, N = D * M, B * S
+    T = -(-N // W)
+    f = np.arange(N)
+    hd = (f // S) // (B // D) if rows_split and D > 1 else None
+    hm = (f % S) // (S // M) if pos_split and M > 1 else None
+    dest = f // T
+    dest_holds = _holds(dest // M, dest % M, hd, hm)
+    dest_holds = np.broadcast_to(dest_holds, f.shape)
+    low = ((0 if hd is None else hd) * M + (0 if hm is None else hm))
+    sender = np.where(dest_holds, dest, low)
+    many = (hd is None and D > 1) or (hm is None and M > 1)
+    within = D == 1 or (hd is not None and bool(np.all(hd == dest // M)))
+    d, m = rank // M, rank % M
+    n = M if within else W
+
+    def gi(q):
+        return q % M if within else q
+    own = f[np.broadcast_to(_holds(d, m, hd, hm), f.shape)]
+    sends = sender[own] == rank
+    send_f = own[sends]
+    blk = f[rank * T:min((rank + 1) * T, N)]
+    order = np.lexsort((blk, gi(sender[blk])))
+    members = [d * M + i for i in range(M)] if within else list(range(W))
+    back_idx, back_send = [], []
+    for q in members:
+        held = np.nonzero(np.broadcast_to(
+            _holds(q // M, q % M, None if hd is None else hd[blk],
+                   None if hm is None else hm[blk]), blk.shape))[0]
+        back_idx.extend(held.tolist())
+        back_send.append(len(held))
+
+    def counts(q):
+        return tuple(np.bincount(gi(q), minlength=n).tolist())
+    return TokenRoute(
+        "model" if within else "world", n, gi(rank), T, len(blk),
+        tuple(np.nonzero(sends)[0].tolist()), counts(dest[send_f]),
+        counts(sender[blk]), tuple(np.argsort(order).tolist()),
+        tuple(back_idx), tuple(back_send), counts(dest[own]),
+        bool(np.any(sender != dest)), bool(np.any(~dest_holds)) or many)
+
+
+def served_tokens(shape, rank: int, B: int, S: int, rows_split: bool,
+                  pos_split: bool) -> Tuple[str, Any]:
+    """How a served block's tokens meet the reference's MoE blocks (module
+    docstring), on a mesh of ``shape`` (D, M): ``("own", None)`` — each
+    rank's tokens are its block, no padding; ``("replicate", group)`` —
+    every rank of ``group`` (``model``, ``data`` or ``world``) holds the
+    group's blocks alike, unpadded within it
+    (:func:`replicated_moe_apply`); else ``("route", TokenRoute)``."""
+    D, M = (int(v) for v in shape)
+    W = D * M
+    rows_split = rows_split and D > 1
+    pos_split = pos_split and M > 1
+    dup = [a for a, whole in (("data", D > 1 and not rows_split),
+                              ("model", M > 1 and not pos_split)) if whole]
+    T = -(-B * S // W)
+    if W == 1 or (not dup and B * S == W * T
+                  and (not pos_split or B // D == 1)):
+        return "own", None
+    if len(dup) == 2 or (dup and W == (D if dup == ["data"] else M)):
+        return "replicate", dup[0] if len(dup) == 1 else "world"
+    if dup == ["model"] and (B // D) * S == M * T:
+        return "replicate", "model"
+    return "route", plan_route(shape, rank, B, S, rows_split, pos_split)
+
+
+def routed_moe_apply(mesh, cfg: MoEConfig, params: Dict[str, torch.Tensor],
+                     x: torch.Tensor, route: TokenRoute, *,
+                     num_experts: int, act: str = "swiglu",
+                     noise: Optional[torch.Tensor] = None,
+                     token_ids: Optional[torch.Tensor] = None,
+                     expert_tp_axis: Optional[str] = None,
+                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                Dict[str, torch.Tensor]]:
+    """The MoE layer on a served block's own tokens ``x`` (..., d) through
+    ``route`` (its process group attached): the tokens (and ``noise``,
+    ``token_ids``, row for row) exchanged into the rank's reference
+    block, :func:`sharded_moe_apply` on it, the outputs exchanged back to
+    every rank that holds them.  For inference only."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    xb = route.to_block(x.reshape(-1, d))
+    nb = None if noise is None else route.to_block(noise)
+    tb = (None if token_ids is None
+          else route.to_block(token_ids.reshape(-1)))
+    yb, aux, metrics = sharded_moe_apply(
+        mesh, cfg, params, xb, num_experts=num_experts, act=act, noise=nb,
+        token_ids=tb, valid=route.valid(x.device),
+        expert_tp_axis=expert_tp_axis)
+    return route.from_block(yb).reshape(*lead, d), aux, metrics
 
 
 def moe_apply(cfg: MoEConfig, params: Dict[str, torch.Tensor],

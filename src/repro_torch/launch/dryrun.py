@@ -19,15 +19,22 @@ a shape (``launch/mesh.make_production_mesh``: 16x16, or 2x16x16 with
   dtype, the f32 leaves f32) by ``fsdp=needs_fsdp(4e9)`` and
   ``expert_tp`` for the decode step, as the reference's dry run stores
   it; the batch by ``batch_shardings``; a decode step's caches by the
-  reference's ``cache_shardings`` and, labelled as the port's, the
-  replicated caches the port keeps on every rank;
+  port's served cache layout (``launch/shard.cache_layout_for``): the
+  reference's ``cache_shardings`` for the attention caches, and for the
+  recurrent states the port's rows over ``data`` (the reference also
+  cuts them over ``model``);
 * **model FLOPs** (:func:`model_flops`, the reference's) and model FLOPs
   over chips;
 * **every bulk collective of one step**, from the port's plan (the
   exchanges of each ``moe`` layer at the capacity or grouped static
   bound in the payload dtype, the ZeRO-3 gathers and reduce-scatters,
   the gradient all-reduces, expert TP's gathers and reduce-scatters,
-  context parallelism's row gathers, serving's output all-gather): the
+  context parallelism's row gathers; serving's context-parallel prefill
+  — k and v gathered over the model group, the last position's hidden
+  rows broadcast from its last rank — a decode step's gathers of the
+  heads' outputs or of the partial softmax results over ``model``, the
+  MoE outputs' all-gather over the group whose ranks hold the same
+  tokens, and the sampled tokens' all-gather over ``data``): the
   same ``core/alltoall.Collective`` a rank logs when it runs the step
   (``tests/test_torch_serve_layout.py`` holds the two equal on gloo
   ranks), each with its count, its wire bytes a rank and whether its
@@ -58,12 +65,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch import configs, tree
+from repro_torch import configs
 from repro_torch.convert import param_shapes
 from repro_torch.core import capacity, gating, tuning
 from repro_torch.core.alltoall import DTYPE_BYTES, Collective
 from repro_torch.core.config import INPUT_SHAPES, ShapeConfig, TrainConfig
-from repro_torch.core.moe import grouped_a2a_stages
+from repro_torch.core.moe import grouped_a2a_stages, served_tokens
 from repro_torch.data.pipeline import make_batch_specs
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import shard
@@ -565,28 +572,72 @@ def train_plan(cfg, tcfg: TrainConfig, layout: shard.Layout, shapes,
     return step
 
 
+def _route_plan(plan: Plan, cfg, route, axes, dtype) -> None:
+    """A ``moe.TokenRoute``'s exchanges in a served ``moe`` block: the
+    tokens (and a noisy gate's draws) into the reference's block, the
+    outputs back."""
+    if route.dispatch:
+        sent = (len(route.send_idx), cfg.d_model)
+        plan.add("all_to_all", axes, dtype, sent, route.axis, route.n)
+        if T.noisy(cfg):
+            plan.add("all_to_all", axes, torch.float32,
+                     (sent[0], cfg.moe.num_experts), route.axis, route.n)
+    if route.back:
+        plan.add("all_to_all", axes, dtype,
+                 (len(route.back_idx), cfg.d_model), route.axis, route.n)
+
+
 def serve_plan(cfg, layout: Optional[shard.Layout], shapes, B: int, S: int,
-               *, decode: bool) -> Plan:
+               *, decode: bool, long_context: bool = False,
+               rank: int = 0) -> Plan:
     """The collectives of a served prefill of (B, S) tokens, or of one
-    decode step of B rows (``Transformer.forward`` / ``decode_step`` over
-    ``layout``): the embedding's and the head's gathers and each block's
-    (the decode step keeping the experts' stored f-slice under expert
-    TP), each ``moe`` layer's exchanges and the all-gather of its
-    outputs over the world."""
+    decode step of B rows over caches of S positions
+    (``Transformer.forward`` / ``decode_step`` over ``layout``), each
+    with its greedy token's all-gather over ``data``: the embedding's
+    and the head's gathers and each block's (the decode step keeping the
+    experts' stored f-slice under expert TP); in a prefill whose
+    positions split over ``model`` (``launch/mesh.serve_block``) each
+    block's row gather and the last hidden rows' broadcast; in a decode
+    step each attention cache's gather over ``model`` (its ``heads`` or
+    ``positions`` form, ``launch/shard.cache_layout_for``); each ``moe``
+    layer's exchanges, and the all-gather of its outputs over the group
+    whose ranks hold its tokens alike, or its token route's exchanges
+    (``moe.served_tokens``; the route's sizes are ``rank``'s)."""
     ms = layout.mesh_shape
-    world = layout.world
     dt = getattr(torch, cfg.dtype)
+    dp = mesh_lib.dp_axes(ms)
+    D = math.prod(ms[a] for a in dp)
+    M = ms.get("model", 1)
 
     def stored(path):
         return served_dtype(cfg, path)
     plan = Plan(ms)
     gathered = layout.gathered
     tp = decode and layout.expert_tp
+    split_rows = mesh_lib.fit_spec(ms, (dp,), (B,))[0] is not None
+    b = B // D if split_rows else B
+    split = not decode and M > 1 and S > 1 and S % M == 0
+    s_loc = 1 if decode else (S // M if split else S)
+    mode, how = served_tokens((D, M), rank, B, s_loc * (M if split else 1),
+                              split_rows, split)
+    all_axes = tuple(ms)
+    group_axes = {"model": ("model",), "data": dp, "world": all_axes}
+    if mode == "own":
+        tokens = b * s_loc
+    elif mode == "replicate":
+        rep_axes = group_axes[how]
+        tokens = -(-(b * s_loc) // math.prod(ms[a] for a in rep_axes))
+    else:
+        tokens = how.T
+    blk = mesh_lib.TokenBlock(slice(0, b), slice(0, s_loc), M if split
+                              else 1, S)
+    cuts = (shard.cache_layout_for(cfg, ms, B, S, long_context,
+                                   rank=rank).forms if decode else None)
     if gathered and cfg.frontend is None:
         plan.extend(gather_plan(layout, shapes, "embed", dt, stored)[0])
-    tokens = -(-(B * (1 if decode else S)) // world)
     moe_cfg = (None if cfg.moe is None
-               else _resolved_moe(cfg, ms["model"], tokens))
+               else _resolved_moe(cfg, M, tokens))
+    a_cfg = cfg.attention
     for i, kind in enumerate(T.layer_kinds(cfg)):
         if gathered:
             plan.extend(gather_plan(layout, shapes, f"blocks/{i}", dt,
@@ -594,15 +645,30 @@ def serve_plan(cfg, layout: Optional[shard.Layout], shapes, B: int, S: int,
             if "shared_attn" in shapes:
                 plan.extend(gather_plan(layout, shapes, "shared_attn", dt,
                                         stored)[0])
+        plan.extend(_row_plan(cfg, kind, blk, dt, ms)[0])
+        form = None if cuts is None else cuts[i]
+        if form == "heads" and M > 1:
+            plan.add("all_gather", ("model",), dt,
+                     (b, 1, a_cfg.num_heads // M, cfg.head_dim))
+        elif form == "positions" and M > 1:
+            plan.add("all_gather", ("model",), torch.float32,
+                     (b, a_cfg.num_heads, cfg.head_dim + 2))
         if kind == "moe":
             plan.extend(moe_plan(moe_cfg, tokens, cfg.d_model, dt, ms,
                                  tp=tp and ms["data"] > 1,
                                  backward=False)[0])
-            plan.add("all_gather", tuple(a for a in ms), dt,
-                     (tokens, cfg.d_model), "world")
+            if mode == "replicate":
+                plan.add("all_gather", rep_axes, dt, (tokens, cfg.d_model),
+                         how)
+            elif mode == "route":
+                _route_plan(plan, cfg, how, group_axes[how.axis], dt)
+    if split and cfg.has_decode:
+        plan.add("broadcast", ("model",), dt, (b, 1, cfg.d_model))
     if gathered:
         head = "lm_head" if T.untied_head(cfg) else "embed"
         plan.extend(gather_plan(layout, shapes, head, dt, stored)[0])
+    if D > 1 and split_rows and cfg.has_decode:
+        plan.add("all_gather", dp, torch.int64, (b, 1), "data")
     return plan
 
 
@@ -641,13 +707,15 @@ def count_pair(cfg, shape: ShapeConfig, mesh_shape: Dict[str, int], *,
                fsdp: Optional[bool] = None,
                expert_tp: Optional[bool] = None,
                tcfg: Optional[TrainConfig] = None,
-               long_context: bool = False) -> Dict[str, Any]:
+               long_context: bool = False, rank: int = 0) -> Dict[str, Any]:
     """The record of ``cfg`` at ``shape`` on a mesh of ``mesh_shape``
     (module docstring), from meta tensors only.  ``fsdp`` None asks
     ``needs_fsdp`` (a train state's budget, or serving's 4e9);
     ``expert_tp`` None is the reference's rule (a decode step of a MoE
     config, ``REPRO_EXPERT_TP``); ``tcfg`` the train config (default
-    :data:`DRYRUN_TCFG`)."""
+    :data:`DRYRUN_TCFG`); ``rank`` the rank counted (0: every rank's
+    stored bytes are the same; a served step's token route moves a
+    rank's own counts)."""
     shapes = param_shapes(cfg)
     B, S = shape.global_batch, shape.seq_len
     chips = math.prod(mesh_shape.values())
@@ -692,17 +760,13 @@ def count_pair(cfg, shape: ShapeConfig, mesh_shape: Dict[str, int], *,
                 mesh_shape, (mesh_lib.dp_axes(mesh_shape),), tok.shape),
             tok.shape, tok.dtype)
         if cfg.has_decode:
-            caches = cache_shapes(cfg, B, S, long_context=long_context)
-            stored["caches"] = _tree_bytes(
-                mesh_shape, mesh_lib.cache_shardings(mesh_shape, caches),
-                caches)
-            stored["caches_port_replicated"] = sum(
-                math.prod(t.shape) * t.element_size()
-                for t in tree.leaves(caches))
-        plan = serve_plan(cfg, layout, shapes, B, S, decode=decode)
+            stored["caches"] = shard.cache_layout_for(
+                cfg, mesh_shape, B, S, long_context, rank=rank,
+                decode=decode).bytes
+        plan = serve_plan(cfg, layout, shapes, B, S, decode=decode,
+                          long_context=long_context, rank=rank)
         rec.update(fsdp=fsdp, expert_tp=expert_tp)
-    stored["total"] = sum(v for k, v in stored.items()
-                          if k != "caches_port_replicated")
+    stored["total"] = sum(stored.values())
     rec["stored_bytes"] = stored
     mf = model_flops(cfg, shape)
     rec["model_flops"] = mf

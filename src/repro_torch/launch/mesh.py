@@ -30,7 +30,10 @@ Rank r holds the r-th contiguous block of the flattened (B·S) tokens of
 a training batch (:func:`token_block`): B/W whole rows when the world W
 divides B, else, when B divides W and n = W/B divides S, the chunk of S/n
 positions ``(r mod n)`` of row ``r // n``, attended context-parallel over
-its row group (``models/attention.full_attention``).
+its row group (``models/attention.full_attention``).  A served batch is
+cut as the reference's ``shard_act`` cuts it (:func:`serve_block`): data
+rank d's rows, and in the prefill model rank m's chunk of their
+positions, attended context-parallel over the model group.
 
 The backend is always the caller's: ``nccl`` on a host with one card per
 rank, ``gloo`` on the CPU (and on a card only where the caller names it,
@@ -563,6 +566,57 @@ def token_block(mesh: Optional[Mesh], B: int, S: int) -> TokenBlock:
                          f"ranks, and mesh {mesh.describe()} has no row "
                          f"groups of {blk.n} (make_mesh(rows=({blk.n},)))")
     return dataclasses.replace(blk, group=mesh.rows[blk.n])
+
+
+def served_rows(mesh, B: int) -> slice:
+    """The rows of a served batch of ``B`` this rank holds: its data
+    rank's block of B/D (the reference's ``batch → (pod, data)``), or all
+    ``B`` where ``fit_spec`` drops the data axis (B not divisible by D)."""
+    if mesh is None:
+        return slice(0, B)
+    shape = _shape_of(mesh)
+    if fit_spec(shape, (dp_axes(shape),), (B,))[0] is None:
+        return slice(0, B)
+    D = math.prod(shape[a] for a in dp_axes(shape))
+    b = B // D
+    d = mesh.data_index if isinstance(mesh, Mesh) else 0
+    return slice(d * b, (d + 1) * b)
+
+
+def serve_block(mesh: Optional[Mesh], B: int, S: int) -> TokenBlock:
+    """This rank's :class:`TokenBlock` of a served (B, S) batch, as the
+    reference's ``shard_act`` (``P(dp, sdim, None)``) and
+    ``_flash_path`` cut it: the rows :func:`served_rows` gives; when the
+    model axis M > 1 divides S (and S > 1), chunk m of S/M positions,
+    ``n = M`` and ``group`` the model group, over which attention gathers
+    k and v; else whole rows (every model rank alike, as the reference's
+    ``attention.py:170``).  The model group of data rank d is the row
+    group of M consecutive ranks ``make_mesh(rows=(M,))`` builds (chunk
+    index = model index); this is checked, not assumed."""
+    if mesh is None:
+        return TokenBlock(slice(0, B), slice(0, S), 1, S)
+    rows = served_rows(mesh, B)
+    M = mesh.shape["model"]
+    if M <= 1 or S <= 1 or S % M:
+        return TokenBlock(rows, slice(0, S), 1, S)
+    d, m = mesh.data_index, mesh.model_index
+    members = list(range(d * M, (d + 1) * M))
+    got = dist.get_process_group_ranks(mesh.model_group)
+    if list(got) != members or mesh.rank != members[m]:
+        raise AssertionError(
+            f"the model group of data rank {d} holds ranks {got}, not the "
+            f"row group {members} of M={M} consecutive ranks")
+    if M in mesh.rows:
+        row = mesh.rows[M]
+        row_ranks = (list(range(mesh.world)) if row is dist.group.WORLD
+                     else dist.get_process_group_ranks(row))
+        if list(row_ranks) != members:
+            raise AssertionError(f"row group {row_ranks} of rank "
+                                 f"{mesh.rank} is not the model group "
+                                 f"{members}")
+    L = S // M
+    return TokenBlock(rows, slice(m * L, (m + 1) * L), M, S,
+                      mesh.model_group)
 
 
 # ---------------------------------------------------------------------------

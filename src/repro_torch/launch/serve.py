@@ -33,16 +33,20 @@ CPU), or calls :func:`run` with ``mesh_shape=`` from ranks that
 reference's serving rule (``models/transformer.Transformer(mesh=)``): its
 E/M experts, and under expert TP their f-slice over the data group, every
 other weight whole (``run(fsdp=True)``: sharded as the reference's
-``param_shardings(fsdp=True)``); every rank serves the same prompts (the
-activations and caches are replicated), the prefill gathers each block's
-experts whole in f inside the block, each ``moe`` block splits its tokens
-over the ranks, and a decode step runs expert tensor parallelism over the
-data group on the stored slice (``REPRO_EXPERT_TP=0`` stores the experts
-whole in f and turns it off).  The decode step across ranks
-is eager (``serving.engine.decode_graph``).  Rank 0 prints the banner
-(mesh, backend, the MoE knobs resolved for the prefill and the decode
-step, the decode mode) and the sample; every rank returns the same
-tokens.  ``--tune`` and ``--fabric`` are ``launch/train.py``'s.
+``param_shardings(fsdp=True)``).  Every rank is given the same prompts
+and serves its data rank's rows of them, the prefill context-parallel
+over the model group (each rank its chunk of the positions), and stores
+its block of the caches by the reference's cache rule
+(``launch/shard.cache_layout_for``); the prefill gathers each block's
+experts whole in f inside the block, and a decode step runs expert
+tensor parallelism over the data group on the stored slice
+(``REPRO_EXPERT_TP=0`` stores the experts whole in f and turns it off).
+The decode step across ranks is eager
+(``serving.engine.decode_graph``).  Rank 0 prints the banner (mesh,
+backend, the MoE knobs resolved for the prefill and the decode step, the
+decode mode), the cache bytes a rank stores beside one process's, and
+the sample; every rank returns the same tokens.  ``--tune`` and
+``--fabric`` are ``launch/train.py``'s.
 """
 from __future__ import annotations
 
@@ -159,6 +163,10 @@ def run(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
                   f"{1e3 * st['prefill_s']:.3f} ms, decode "
                   f"{decode_ms:.3f} ms/step")
         times.append((1e3 * st["prefill_s"], decode_ms))
+    if mesh is not None and lead:
+        lay = model.cache_layout(batch, prompt_len + gen)
+        print(f"caches a rank: {lay.bytes} bytes (one process: "
+              f"{lay.whole_bytes}; forms {sorted(set(lay.forms) - {None})})")
     clear_step_cache(model)        # the model's last user: free its steps
     if repeat > 1 and lead:
         warm = times[1:]

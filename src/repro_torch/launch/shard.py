@@ -40,6 +40,15 @@ on), with the axis it crosses.
 The block arithmetic depends on the mesh's shape and the rank only, so a
 process with no group (a test, a one-process restore) can cut any rank's
 blocks; the collectives need the rank's ``launch/mesh.Mesh``.
+
+A served model's decode caches are stored by :func:`cache_layout_for`
+(a :class:`CacheLayout`): each attention cache leaf by the reference's
+``cache_spec`` — the rows over ``data``, then the kv heads (``heads``),
+else the cache's positions (``positions``), else its channels over
+``model`` — and each recurrent state by its rows over ``data`` only (its
+``model`` cut is not made yet: ROADMAP.md, Queue 1).  A ``channels``
+cut has no decode form and raises, naming the preset, the mesh and the
+cache's shape.
 """
 from __future__ import annotations
 
@@ -51,7 +60,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import alltoall
+from repro_torch.core.alltoall import DTYPE_BYTES
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models.attention import CacheCut
 from repro_torch.models.transformer import EXPERT_LEAVES, _F32_LEAVES
 
 # the gather order (the backward reduce-scatters in reverse)
@@ -270,13 +281,6 @@ class Layout:
         return dataclasses.replace(self, rank=rank)
 
 
-def _all_gather(x: torch.Tensor, group, n: int, dim: int,
-                axis: str) -> torch.Tensor:
-    alltoall.record("all_gather", axis, n, x.dtype, x.shape)
-    out = alltoall._gather_raw(x.movedim(dim, 0), group, n)
-    return out.movedim(0, dim).contiguous()
-
-
 # the most bytes of a rank's blocks that one exchange of a reduce-scatter
 # sends: a whole table's gradient crosses in pieces, not in a second
 # whole-size copy
@@ -323,7 +327,7 @@ class _Gather(torch.autograd.Function):
         ctx.steps, ctx.dtype = steps, x.dtype
         x = x.to(dtype)
         for group, n, dim, axis in steps:
-            x = _all_gather(x, group, n, dim, axis)
+            x = alltoall.gather_dim(x, group, n, dim, axis)
         return x
 
     @staticmethod
@@ -408,3 +412,143 @@ def serve_layout_for(cfg, mesh, fsdp: Optional[bool] = False
     reference's dry run asks it of a served tree)."""
     return layout_for(cfg, mesh, fsdp, expert_tp=serve_expert_tp(cfg, mesh),
                       budget_bytes=SERVE_FSDP_BUDGET)
+
+
+# ---------------------------------------------------------------------------
+# the served decode caches
+# ---------------------------------------------------------------------------
+
+# the dim of an attention cache leaf (B, L, KV, hd) each form cuts over model
+CACHE_FORMS = {2: "heads", 1: "positions", 3: "channels"}
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """A rank's storage of a served model's per-layer decode caches
+    (``models/transformer.init_cache``'s tree, paths ``{layer}/k``,
+    ``{layer}/sa/v``, ``{layer}/rwkv/s``, ...): ``layout`` holds each
+    leaf's spec and the block arithmetic, ``shapes`` the whole caches as
+    ``meta`` tensors, ``forms`` each layer's attention form (``heads``,
+    ``positions`` or ``whole``; None for a layer without an attention
+    cache), ``rows`` the rows of the ``batch`` the rank holds."""
+    layout: Layout
+    shapes: Any
+    forms: Tuple[Optional[str], ...]
+    rows: slice
+    batch: int
+
+    @property
+    def key(self) -> Tuple[Any, ...]:
+        """What a step cache's key holds of it: the forms, the rows and
+        the batch."""
+        return self.forms, (self.rows.start, self.rows.stop), self.batch
+
+    def leaves(self) -> List[Dict[str, Any]]:
+        """Per leaf: ``path``, the whole ``shape``, its ``spec``, this
+        rank's ``block`` (slices), ``block_shape`` and ``bytes``."""
+        out = []
+        for path, leaf in mesh_lib.tree_paths(self.shapes):
+            shp = self.layout.block_shape(path, leaf.shape)
+            out.append(dict(
+                path=path, shape=tuple(leaf.shape),
+                spec=self.layout.specs[path],
+                block=self.layout.block(path, leaf.shape), block_shape=shp,
+                bytes=math.prod(shp) * DTYPE_BYTES[
+                    str(leaf.dtype).removeprefix("torch.")]))
+        return out
+
+    @property
+    def bytes(self) -> int:
+        """Bytes of this rank's blocks of every cache leaf."""
+        return sum(leaf["bytes"] for leaf in self.leaves())
+
+    @property
+    def whole_bytes(self) -> int:
+        """Bytes of the whole caches (one process's)."""
+        return sum(math.prod(t.shape) * DTYPE_BYTES[
+            str(t.dtype).removeprefix("torch.")]
+            for _, t in mesh_lib.tree_paths(self.shapes))
+
+    def cut(self, layer: int) -> Optional[CacheCut]:
+        """Layer ``layer``'s attention :class:`CacheCut` (None: no attention
+        cache)."""
+        form = self.forms[layer]
+        if form is None:
+            return None
+        c = self.shapes[layer]
+        k = (c["sa"] if "sa" in c else c)["k"]
+        M = self.layout.mesh_shape.get("model", 1)
+        mesh = self.layout.mesh
+        if mesh is None or form == "whole":
+            return CacheCut("whole", length=k.shape[1])
+        return CacheCut(form, M, mesh.model_index, mesh.model_group,
+                        k.shape[1])
+
+    def cuts(self) -> List[Optional[CacheCut]]:
+        return [self.cut(i) for i in range(len(self.forms))]
+
+    def empty(self, device) -> List[Dict[str, Any]]:
+        """This rank's blocks of the caches, zeroed, on ``device``."""
+        return mesh_lib.map_paths(lambda p, t: torch.zeros(
+            self.layout.block_shape(p, t.shape), dtype=t.dtype,
+            device=device), self.shapes)
+
+
+def cache_spec_of(mesh_shape: Dict[str, int], path: str, shape):
+    """The spec a served cache leaf is stored by: an attention leaf's
+    ``launch/mesh.cache_spec``; a recurrent state's rows over the data
+    axes only."""
+    parts = path.split("/")
+    if len(parts) > 2 and parts[1] in ("rwkv", "mamba"):
+        return mesh_lib.fit_spec(mesh_shape, (mesh_lib.dp_axes(mesh_shape),),
+                                 shape) if shape else ()
+    return mesh_lib.cache_spec(mesh_shape, shape)
+
+
+def cache_layout_for(cfg, mesh, batch: int, cache_len: int,
+                     long_context: bool = False, *,
+                     rank: Optional[int] = None,
+                     decode: bool = True) -> Optional[CacheLayout]:
+    """This rank's :class:`CacheLayout` of ``cfg``'s decode caches of
+    ``batch`` rows and ``cache_len`` positions on ``mesh`` (a
+    ``launch/mesh.Mesh``, or a shape mapping counted as ``rank``, default
+    0); None without a mesh.  Raises ``ValueError`` for a ``channels``
+    cut (module docstring), unless ``decode`` is False (the dry run's
+    count of a prefill's caches, which no step decodes)."""
+    if mesh is None:
+        return None
+    from repro_torch.models import transformer as T
+    shape = mesh_lib._shape_of(mesh)
+    if rank is None:
+        rank = mesh.rank if isinstance(mesh, mesh_lib.Mesh) else 0
+    dt = getattr(torch, cfg.dtype)
+    shapes = [T.init_cache(cfg, kind, batch, cache_len,
+                           long_context=long_context, dtype=dt, device="meta")
+              for kind in T.layer_kinds(cfg)]
+    specs = {p: cache_spec_of(shape, p, tuple(t.shape))
+             for p, t in mesh_lib.tree_paths(shapes)}
+    forms = []
+    for i, (c, kind) in enumerate(zip(shapes, T.layer_kinds(cfg),
+                                      strict=True)):
+        a = T.attention_cache(c, kind)
+        if a is None:
+            forms.append(None)
+            continue
+        path = f"{i}/sa/k" if kind == "mamba_sa" else f"{i}/k"
+        dims = [d for d, e in enumerate(specs[path])
+                if "model" in (e if isinstance(e, tuple) else (e,))]
+        form = CACHE_FORMS[dims[0]] if dims else "whole"
+        if form == "channels" and decode:
+            raise ValueError(
+                f"{cfg.name}: on mesh {shape.get('data', 1)}x"
+                f"{shape.get('model', 1)} the attention cache {path} of shape "
+                f"{tuple(a['k'].shape)} is cut over model in its channels "
+                f"(neither its {a['k'].shape[2]} kv heads nor its "
+                f"{a['k'].shape[1]} positions divide over model="
+                f"{shape.get('model', 1)}); a decode step over a channel cut "
+                f"is not ported (ROADMAP.md, Queue 3)")
+        forms.append(form)
+    real = mesh if isinstance(mesh, mesh_lib.Mesh) else None
+    return CacheLayout(Layout(dict(shape), rank, False, specs, real), shapes,
+                       tuple(forms),
+                       mesh_lib.served_rows(real or shape, batch), batch)

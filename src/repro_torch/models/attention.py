@@ -25,11 +25,29 @@ reference's context-parallel ``_flash_path`` (q's sequence over
 ``model``, k and v gathered once), as a layout of the same function.
 The path is chosen by the whole row's length against ``q_chunk``, as
 the reference chooses by its global S.
+
+Served across ranks, a rank stores only its block of each decode cache
+(``launch/shard.cache_layout_for``, the reference's ``cache_shardings``):
+its rows, and over the ``model`` group one inner dim, described by a
+:class:`CacheCut`.  ``heads``: the rank's kv heads (GQA groups are
+contiguous, so kv heads ``[m·KV/M, (m+1)·KV/M)`` serve query heads
+``[m·H/M, (m+1)·H/M)``): a decode step computes q, k and v for those heads
+only, from column views of the whole ``wq``/``wk``/``wv``, attends over
+its cache slice, all-gathers the heads' outputs over ``model`` and
+applies the whole ``wo``.  ``positions``: the rank's W/M of the cache's
+slots: the slot's owner writes the new k/v, every rank attends over its
+slots and returns ``(o, row max, row sum)`` in f32, and the partial
+results are merged over ``model`` by the log-sum-exp rule.  ``whole``:
+no cut over ``model`` (one model rank, or no inner dim divides).  A
+channel cut (``channels``) has no decode form here and is refused where
+the layout is made.  :func:`fill_cache` writes the rank's block of a
+prefill's whole-row keys and values.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -119,14 +137,15 @@ def full_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                    q_chunk: int = 512, block=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Train/prefill pass over x (B, S, d) at ``positions`` (S,).  Returns
-    (y, kv) — kv, this rank's (B, S, KV, hd) keys and values, fills caches.
+    (y, kv) — kv, the (B, row, KV, hd) keys and values of this rank's
+    whole rows (gathered over the row group when ``block`` splits them),
+    fills caches.
     ``block`` (a ``launch/mesh.TokenBlock`` with ``n > 1``: x is this
     rank's chunk of its rows, ``positions`` the chunk's) attends over
     the whole rows, k and v gathered over the row group (module
     docstring)."""
     B, S, d = x.shape
     q, k, v = _qkv(params, x, cfg, positions[None, :])
-    kv = {"k": k, "v": v}
     k_pos = positions
     if block is not None and block.n > 1:
         from repro_torch.launch import shard
@@ -134,6 +153,7 @@ def full_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
         k, v = both[0], both[1]
         k_pos = torch.arange(block.S, dtype=positions.dtype,
                              device=positions.device)
+    kv = {"k": k, "v": v}
     row = k.shape[1]                       # the whole row's length
     scale = q.shape[-1] ** -0.5
     st = dict(causal=causal, window=window if window is not None
@@ -191,6 +211,24 @@ def _flash_path(q, k, v, q_pos, k_pos, *, causal, window, cap, scale):
 # on the host, so a CUDA graph can hold the step (serving/engine.py).
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class CacheCut:
+    """This rank's cut of one attention cache over the ``model`` group
+    (module docstring): ``form`` ``"heads"``, ``"positions"`` or
+    ``"whole"``; ``n`` the ranks of the group, ``index`` this rank's place
+    in it, ``group`` its process group (the collectives'), ``length`` the
+    whole cache's slots (a ring's W included)."""
+    form: str
+    n: int = 1
+    index: int = 0
+    group: Any = None
+    length: int = 0
+
+    @property
+    def cuts(self) -> bool:
+        return self.form != "whole" and self.n > 1
+
+
 def init_cache(cfg: AttentionConfig, batch: int, cache_len: int,
                d_model: int, dtype, device=None) -> Dict[str, object]:
     hd = cfg.head_dim or d_model // cfg.num_heads
@@ -200,58 +238,170 @@ def init_cache(cfg: AttentionConfig, batch: int, cache_len: int,
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def cache_length(cache: Dict[str, object],
+                 cut: Optional[CacheCut] = None) -> int:
+    """The slots of the whole cache ``cache`` is this rank's block of."""
+    if cut is not None and cut.cuts and cut.form == "positions":
+        return cut.length
+    return cache["k"].shape[1]
+
+
+def _cut_slice(cut: Optional[CacheCut], size: int) -> slice:
+    """This rank's block of ``size`` (kv heads or slots) under ``cut``."""
+    if cut is None or not cut.cuts:
+        return slice(0, size)
+    b = size // cut.n
+    return slice(cut.index * b, (cut.index + 1) * b)
+
+
 def fill_cache(cache: Dict[str, object], kv: Dict[str, torch.Tensor], *,
-               ring: bool = False) -> Dict[str, object]:
+               ring: bool = False,
+               cut: Optional[CacheCut] = None) -> Dict[str, object]:
     """Write a prefill's (B, S, KV, hd) keys/values into the cache.  A ring
     cache of W slots keeps position p at slot p % W, so that decode's slot
     arithmetic continues after a prefill of S >= W tokens, of which it
-    keeps the last W (the reference's ``fill_cache(ring=True)``)."""
+    keeps the last W (the reference's ``fill_cache(ring=True)``).  With
+    ``cut`` the cache is this rank's block and ``kv`` the whole rows':
+    the rank's kv heads of them, or its slots of the whole cache's image
+    (a ring's rolled first, then cut)."""
     S = kv["k"].shape[1]
-    W = cache["k"].shape[1]
+    W = cache_length(cache, cut)
+    if cut is not None and cut.cuts and cut.form == "heads":
+        heads = _cut_slice(cut, kv["k"].shape[2])
+        kv = {n: kv[n][:, :, heads] for n in ("k", "v")}
+    slots = (_cut_slice(cut, W) if cut is not None
+             and cut.form == "positions" else slice(0, W))
     if ring and S >= W:
         # row i of the last W holds position S - W + i, slot (S - W + i) % W
         for n in ("k", "v"):
-            cache[n].copy_(torch.roll(kv[n][:, S - W:], shifts=S % W, dims=1))
+            whole = torch.roll(kv[n][:, S - W:], shifts=S % W, dims=1)
+            cache[n].copy_(whole[:, slots])
         cache["pos"].fill_(S)
         return cache
     if S > W:
         raise ValueError(f"prefill of {S} tokens does not fit a cache of "
                          f"{W}")
-    cache["k"][:, :S] = kv["k"].to(cache["k"].dtype)
-    cache["v"][:, :S] = kv["v"].to(cache["v"].dtype)
+    lo, hi = slots.start, min(slots.stop, S)
+    if hi > lo:
+        cache["k"][:, :hi - lo] = kv["k"][:, lo:hi].to(cache["k"].dtype)
+        cache["v"][:, :hi - lo] = kv["v"][:, lo:hi].to(cache["v"].dtype)
     cache["pos"].fill_(S)
     return cache
 
 
+def _slot_positions(pos, idx, W: int, ring: bool):
+    """The position each slot ``idx`` of a cache of ``W`` slots holds at
+    decode position ``pos`` (-1: none yet)."""
+    if ring:
+        # slot s holds position pos - ((pos - s) mod W); negatives invalid
+        k_pos = pos - torch.remainder(pos - idx, W)
+        return torch.where(k_pos >= 0, k_pos, -1)
+    return torch.where(idx <= pos, idx, -1)
+
+
 def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
                      cache: Dict[str, object], cfg: AttentionConfig, *,
-                     ring: bool = False, window: Optional[int] = None
+                     ring: bool = False, window: Optional[int] = None,
+                     cut: Optional[CacheCut] = None
                      ) -> Tuple[torch.Tensor, Dict[str, object]]:
     """One-token decode.  x (B, 1, d).  ``ring=True``: the cache is a ring
     of W slots (its length the window), written at slot pos % W — W
     positions of memory at any sequence length.  The position is read on
     the device only: a linear cache that is full is the caller's to refuse
-    (the host mirrors of ``engine.generate`` and ``SlotServer``)."""
+    (the host mirrors of ``engine.generate`` and ``SlotServer``).
+    ``cut``: the cache is this rank's block over the ``model`` group, in
+    the ``heads`` form (q, k and v of the rank's heads, their outputs
+    all-gathered over ``model`` before the whole ``wo``) or the
+    ``positions`` form (module docstring)."""
     B, one, d = x.shape
     if one != 1:
         raise ValueError(f"decode_attention takes one token, got {one}")
+    heads = cut is not None and cut.cuts and cut.form == "heads"
+    if cut is not None and cut.cuts and not heads:
+        return _decode_positions(params, x, cache, cfg, ring, window, cut)
+    proj, acfg = _head_view(params, cfg, cut, d) if heads else (params, cfg)
     pos = cache["pos"]
     W = cache["k"].shape[1]
     pos_t = pos.reshape(1)
-    q, k_new, v_new = _qkv(params, x, cfg, pos_t[None, :])
+    q, k_new, v_new = _qkv(proj, x, acfg, pos_t[None, :])
     slot = (torch.remainder(pos_t, W) if ring else pos_t).long()
     cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
     cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
     idx = torch.arange(W, dtype=torch.int32, device=x.device)
-    if ring:
-        # slot s holds position pos - ((pos - s) mod W); negatives invalid
-        k_pos = pos - torch.remainder(pos - idx, W)
-        k_pos = torch.where(k_pos >= 0, k_pos, -1)
-    else:
-        k_pos = torch.where(idx <= pos, idx, -1)
+    k_pos = _slot_positions(pos, idx, W, ring)
     win = window if window is not None else cfg.window
     o = _attend(q, cache["k"], cache["v"], pos_t, k_pos, causal=True,
                 window=win, cap=cfg.attn_softcap, scale=q.shape[-1] ** -0.5)
+    if heads:
+        from repro_torch.core import alltoall
+        o = alltoall.gather_dim(o, cut.group, cut.n, 2, "model")
+    y = o.reshape(B, 1, -1).to(x.dtype) @ params["wo"].to(x.dtype)
+    pos.add_(1)
+    return y, cache
+
+
+def _head_view(params, cfg: AttentionConfig, cut: CacheCut, d: int):
+    """The ``heads`` form's projections: column views of the whole
+    ``wq``/``wk``/``wv`` for the rank's kv heads and their query heads
+    (GQA groups are contiguous), and the config of that many heads."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.head_dim or d // H
+    qh, kh = _cut_slice(cut, H), _cut_slice(cut, KV)
+    view = dict(params)
+    view["wq"] = params["wq"][:, qh.start * hd:qh.stop * hd]
+    view["wk"] = params["wk"][:, kh.start * hd:kh.stop * hd]
+    view["wv"] = params["wv"][:, kh.start * hd:kh.stop * hd]
+    return view, dataclasses.replace(cfg, num_heads=qh.stop - qh.start,
+                                     num_kv_heads=kh.stop - kh.start,
+                                     head_dim=hd)
+
+
+def _decode_positions(params, x, cache, cfg: AttentionConfig, ring, window,
+                      cut: CacheCut):
+    """The ``positions`` form: the slot's owner writes the new k/v (the
+    others write back what they hold, so no rank reads the position on
+    the host); each rank attends over its slots, the partial ``(o, row
+    max, row sum)`` in f32 all-gathered over the model group and merged
+    by the log-sum-exp rule."""
+    from repro_torch.core import alltoall
+    B, _, d = x.shape
+    W, Wl = cut.length, cache["k"].shape[1]
+    lo = cut.index * Wl
+    pos = cache["pos"]
+    pos_t = pos.reshape(1)
+    q, k_new, v_new = _qkv(params, x, cfg, pos_t[None, :])
+    slot = torch.remainder(pos_t, W) if ring else pos_t
+    local = (slot - lo).long()
+    mine = (local >= 0) & (local < Wl)
+    at = local.clamp(0, Wl - 1)
+    for n, new in (("k", k_new), ("v", v_new)):
+        old = cache[n].index_select(1, at)
+        cache[n].index_copy_(1, at, torch.where(
+            mine, new.to(cache[n].dtype), old))
+    idx = lo + torch.arange(Wl, dtype=torch.int32, device=x.device)
+    k_pos = _slot_positions(pos, idx, W, ring)
+    win = window if window is not None else cfg.window
+    H, hd = q.shape[2], q.shape[3]
+    KV = cache["k"].shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                     cache["k"].float()) * hd ** -0.5
+    if cfg.attn_softcap is not None:
+        s = _softcap(s, cfg.attn_softcap)
+    m = (k_pos >= 0) & (k_pos <= pos_t)
+    if win is not None:
+        m = m & (k_pos > pos_t - win)
+    s = torch.where(m, s, -1e30)
+    mx = s.amax(-1, keepdim=True)                          # (B,KV,G,1,1)
+    p = torch.where(m, torch.exp(s - mx), 0.0)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p, cache["v"].float())
+    part = torch.cat([o, mx, p.sum(-1, keepdim=True)], dim=-1)
+    parts = alltoall.gather_dim(part.reshape(B, H, hd + 2).contiguous(),
+                                cut.group, cut.n, 0, "model")
+    parts = parts.reshape(cut.n, B, H, hd + 2)
+    o_i, m_i, l_i = parts[..., :hd], parts[..., hd:hd + 1], parts[..., hd + 1:]
+    w = torch.exp(m_i - m_i.amax(0, keepdim=True))
+    o = (w * o_i).sum(0) / (w * l_i).sum(0)                # (B, H, hd)
     y = o.reshape(B, 1, -1).to(x.dtype) @ params["wo"].to(x.dtype)
     pos.add_(1)
     return y, cache

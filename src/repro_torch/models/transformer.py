@@ -60,11 +60,21 @@ start, inside a ``torch.utils.checkpoint`` region, so the whole weights
 live only while the block runs forward and again while it recomputes in
 the backward (whatever ``remat``); the embedding is gathered for its
 lookup (which keeps only the ids for its backward), the head once for the
-chunked CE (:func:`head_params`).  Serving
-(:class:`Transformer` with a mesh) keeps every activation and cache whole
-on every rank (``replicated``): embeddings, attention, norms and the head
-run on all rows everywhere, and each ``moe`` block splits its tokens over
-the ranks (``moe.replicated_moe_apply``).  A served model stores its
+chunked CE (:func:`head_params`).  Serving (:class:`Transformer` with a
+mesh) holds the reference's activation and cache layout: a rank's
+activations are its data rank's rows of the batch (whole where they do
+not divide over ``data``), and in the prefill its model rank's chunk of
+their positions (``launch/mesh.serve_block``: attention context-parallel
+over the model group, recurrent blocks over gathered whole rows); its
+caches are its blocks by ``launch/shard.cache_layout_for`` (attention:
+the kv heads or the positions over ``model``, ``models/attention``'s
+``CacheCut``; recurrent states: the rows).  A ``moe`` block routes the
+reference's block of the flattened tokens on every rank
+(``moe.served_tokens``): the rank's own tokens where they are that
+block, its cut of the tokens its group holds alike (a decode step's rows
+over ``model``, ``moe.replicated_moe_apply``), or tokens exchanged into
+the block and back (``moe.TokenRoute``: a context-parallel prefill of
+several rows).  A served model stores its
 tree by the reference's serving rule (``launch/shard.serve_layout_for``):
 under expert TP the experts' f over the data group, which the prefill
 gathers whole inside each block (:func:`gathered_block`) and a decode
@@ -74,6 +84,7 @@ decode does.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -142,9 +153,11 @@ def block_window(kind: str, cfg: ModelConfig,
     return cfg.attention.window
 
 
-def _is_ring(cache, window: Optional[int]) -> bool:
-    """A windowed layer's cache of the window's length is a ring."""
-    return window is not None and cache["k"].shape[1] == window
+def _is_ring(cache, window: Optional[int], cut=None) -> bool:
+    """A windowed layer's cache of the window's length is a ring (``cut``:
+    the cache is a rank's block of a whole cache of that length)."""
+    return (window is not None
+            and attn_lib.cache_length(cache, cut) == window)
 
 
 def attention_cache(cache, kind: str):
@@ -156,16 +169,20 @@ def attention_cache(cache, kind: str):
 
 
 def linear_capacity(cfg: ModelConfig, caches,
-                    long_context: bool = False) -> Optional[int]:
+                    long_context: bool = False,
+                    cuts=None) -> Optional[int]:
     """The positions ``caches`` hold before the shortest linear attention
     cache is full; None when every attention cache is a ring, which never
-    fills, or there is none (a recurrent state never fills)."""
+    fills, or there is none (a recurrent state never fills).  ``cuts``:
+    each layer's ``attention.CacheCut`` when the caches are a rank's
+    blocks."""
     lens = []
-    for c, kind in zip(caches, layer_kinds(cfg), strict=True):
+    cuts = cuts or [None] * len(caches)
+    for c, kind, cut in zip(caches, layer_kinds(cfg), cuts, strict=True):
         a = attention_cache(c, kind)
         if a is not None and not _is_ring(a, block_window(kind, cfg,
-                                                          long_context)):
-            lens.append(a["k"].shape[1])
+                                                          long_context), cut):
+            lens.append(attn_lib.cache_length(a, cut))
     return min(lens) if lens else None
 
 
@@ -344,19 +361,22 @@ def _write_state(cache: Dict[str, torch.Tensor],
 
 
 def _attention(p, h, cfg: ModelConfig, window, *, positions, cache,
-               decode: bool, causal: bool, block=None):
+               decode: bool, causal: bool, block=None, cut=None):
     """Attention over ``window``: a decode step into ``cache``, or a full
     pass that fills ``cache`` when given (context-parallel over ``block``'s
-    row group when it splits rows).  Returns (y, cache)."""
+    row group when it splits rows); ``cut`` (an ``attention.CacheCut``):
+    the cache is the rank's block over ``model``.  Returns (y, cache)."""
     if decode:
         return attn_lib.decode_attention(p, h, cache, cfg.attention,
-                                         ring=_is_ring(cache, window),
-                                         window=window)
+                                         ring=_is_ring(cache, window, cut),
+                                         window=window, cut=cut)
     a, kv = attn_lib.full_attention(p, h, cfg.attention, positions=positions,
                                     causal=causal, window=window,
                                     block=block)
     if cache is not None:
-        cache = attn_lib.fill_cache(cache, kv, ring=_is_ring(cache, window))
+        cache = attn_lib.fill_cache(cache, kv,
+                                    ring=_is_ring(cache, window, cut),
+                                    cut=cut)
     return a, cache
 
 
@@ -365,73 +385,85 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
                   decode: bool = False, long_context: bool = False,
                   noise: Optional[torch.Tensor] = None,
                   shared: Optional[Dict[str, Any]] = None, mesh=None,
-                  replicated: bool = False, block=None,
-                  expert_tp: bool = False):
+                  served=None, block=None,
+                  expert_tp: bool = False, cut=None):
     """One ``kind`` block over its parameter dict ``p`` (see the module
     docstring), pre-norm residuals: attention over the kind's window
     (:func:`block_window`), then the MLP or the MoE layer plus the shared
     experts' MLP (``moe``); ``noise`` is a MoE layer's gate draw;
     ``shared`` the tree's ``shared_attn`` (``mamba_sa``); ``mesh`` runs
     the MoE layer across its ranks: over the rank's own tokens, or with
-    ``replicated`` (serving) over its block of the rows every rank holds
-    (``moe.replicated_moe_apply``); with ``expert_tp`` (a served model
+    ``served`` (serving: ``moe.served_tokens``' answer) over its block of
+    the reference's tokens — a group name (``model``, ``data``,
+    ``world``) whose ranks hold them alike (``moe.replicated_moe_apply``),
+    or a ``moe.TokenRoute`` (``moe.routed_moe_apply``); with
+    ``expert_tp`` (a served model
     whose layout stores the experts' f-slice) a decode step's runs expert
     TP over the data group on it.  ``block`` (a
     ``launch/mesh.TokenBlock``) splitting rows (``n > 1``): x is this
     rank's chunk of its rows, attention runs context-parallel over the
     row group, and a recurrent block (``rwkv``, ``mamba``, ``mamba_sa``)
     gathers its input's whole rows over the group, runs them and keeps
-    its chunk (:func:`_whole_rows`).  Returns (x, cache, aux); a block
+    its chunk (:func:`_whole_rows`).  ``cut`` (an
+    ``attention.CacheCut``): the layer's attention cache is the rank's
+    block over ``model``.  Returns (x, cache, aux); a block
     without a MoE layer has no aux loss (None: the reference adds its
     zero)."""
     if kind in ("rwkv", "mamba", "mamba_sa") and block is not None \
             and block.n > 1:
         return _whole_rows(p, x, cfg, kind, block, cache, decode,
-                           long_context, shared)
+                           long_context, shared, cut)
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, cache, decode)
     if kind in ("mamba", "mamba_sa"):
         return _mamba_block(p, x, cfg, kind, cache, decode, positions,
-                            long_context, shared)
+                            long_context, shared, cut)
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = _attention(p["attn"], h, cfg,
                           block_window(kind, cfg, long_context),
                           positions=positions, cache=cache, decode=decode,
-                          causal=not cfg.encoder_only, block=block)
+                          causal=not cfg.encoder_only, block=block, cut=cut)
     x = x + a
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" not in p:
         return x + layers.apply_mlp(p["mlp"], h, cfg.act), cache, None
-    moe_fn = (moe_lib.replicated_moe_apply if replicated
-              else moe_lib.sharded_moe_apply)
-    y, aux, _ = moe_fn(
-        mesh, cfg.moe, p["moe"], h, num_experts=cfg.moe.num_experts,
-        act=cfg.act, noise=noise,
-        expert_tp_axis="data" if expert_tp and decode else None)
+    kw = dict(num_experts=cfg.moe.num_experts, act=cfg.act, noise=noise,
+              expert_tp_axis="data" if expert_tp and decode else None)
+    if isinstance(served, moe_lib.TokenRoute):
+        y, aux, _ = moe_lib.routed_moe_apply(mesh, cfg.moe, p["moe"], h,
+                                             served, **kw)
+    elif served is not None:
+        y, aux, _ = moe_lib.replicated_moe_apply(
+            mesh, cfg.moe, p["moe"], h, group=served, **kw)
+    else:
+        y, aux, _ = moe_lib.sharded_moe_apply(mesh, cfg.moe, p["moe"], h,
+                                              **kw)
     if "shared_mlp" in p:
         y = y + layers.apply_mlp(p["shared_mlp"], h, cfg.act)
     return x + y, cache, aux
 
 
 def _whole_rows(p, x, cfg: ModelConfig, kind: str, block, cache,
-                decode: bool, long_context: bool, shared):
+                decode: bool, long_context: bool, shared, cut=None):
     """A recurrent block over a split row: its input's chunks gathered over
     the row group into whole rows (``launch/shard.row_gather``: the
     gradient reduce-scattered back), the block run over them, this rank's
     chunk of the output kept — the gather XLA inserts for these blocks in
-    the reference (``shard_act``), not a parallel scan."""
-    if decode or cache is not None:
-        raise ValueError(f"a {kind} block over a split row runs training "
-                         f"passes only (no cache, no decode step)")
+    the reference (``shard_act``), not a parallel scan.  A prefill fills
+    ``cache`` from the whole rows: the state of the rank's rows, and
+    ``mamba_sa``'s attention cache cut by ``cut``."""
+    if decode:
+        raise ValueError(f"a {kind} block over a split row runs full "
+                         f"passes only (no decode step)")
     from repro_torch.launch import shard
     xw = shard.row_gather(x, block, dim=1)
     if kind == "rwkv":
-        y, _, _ = _rwkv_block(p, xw, cfg, None, False)
+        y, cache, _ = _rwkv_block(p, xw, cfg, cache, False)
     else:
         pos = torch.arange(block.S, dtype=torch.int32, device=x.device)
-        y, _, _ = _mamba_block(p, xw, cfg, kind, None, False, pos,
-                               long_context, shared)
-    return y[:, block.seq], None, None
+        y, cache, _ = _mamba_block(p, xw, cfg, kind, cache, False, pos,
+                                   long_context, shared, cut)
+    return y[:, block.seq], cache, None
 
 
 def _rwkv_block(p, x, cfg: ModelConfig, cache, decode: bool):
@@ -453,7 +485,7 @@ def _rwkv_block(p, x, cfg: ModelConfig, cache, decode: bool):
 
 
 def _mamba_block(p, x, cfg: ModelConfig, kind: str, cache, decode: bool,
-                 positions, long_context: bool, shared):
+                 positions, long_context: bool, shared, cut=None):
     """The Mamba-2 block over ln1; for ``mamba_sa`` then the shared
     attention block over ``sa_ln`` + the layer's LoRA + the shared
     ``ln``."""
@@ -476,7 +508,7 @@ def _mamba_block(p, x, cfg: ModelConfig, kind: str, cache, decode: bool,
                           block_window(kind, cfg, long_context),
                           positions=positions,
                           cache=None if cache is None else cache["sa"],
-                          decode=decode, causal=True)
+                          decode=decode, causal=True, cut=cut)
         x = x + a
     return x, cache, None
 
@@ -502,9 +534,9 @@ def noisy(cfg: ModelConfig) -> bool:
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             *, caches=None, remat: str = "none",
             noise: Optional[Sequence[torch.Tensor]] = None,
-            long_context: bool = False, mesh=None, replicated: bool = False,
-            layout=None, block=None
-            ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+            long_context: bool = False, mesh=None,
+            served=None, layout=None, block=None,
+            cuts=None) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """Full-sequence pass (training, prefill) over a parameter tree — the
     f32 masters, or a :class:`Transformer`'s compute-dtype copy — with
     every weight cast to ``cfg.dtype`` at its use, as the reference's
@@ -518,9 +550,11 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     positions they take and whose row group, when ranks share a row,
     every attending block attends over (context parallelism) and every
     recurrent block gathers its whole rows over; ``params`` hold the
-    rank's experts, and ``noise`` its rows of each layer's draw; with
-    ``replicated`` (serving) ``tokens`` and ``noise`` are the whole batch's
-    on every rank, and the ``moe`` blocks split the tokens.  ``layout`` (a
+    rank's experts, and ``noise`` its rows of each layer's draw;
+    ``served`` (serving) brings the ``moe`` blocks' tokens to the
+    reference's blocks (:func:`block_forward`).  ``cuts`` (serving across
+    ranks): each layer's
+    ``attention.CacheCut`` of its cache, the rank's block.  ``layout`` (a
     ``launch/shard.Layout``) says how ``params`` are stored across the
     ranks; when it gathers leaves (FSDP) every block runs in a
     ``torch.utils.checkpoint`` region that gathers its weights first
@@ -575,21 +609,23 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
                                       strict=True)):
         nz = None if noise is None else noise[i]
         cache = None if caches is None else caches[i]
+        cut = None if cuts is None else cuts[i]
         if remat == "none" and layout is None:
             x, _, a = block_forward(
                 p, x, cfg, kind=kind, positions=positions, noise=nz,
                 cache=cache, long_context=long_context, shared=shared,
-                mesh=mesh, replicated=replicated, block=block)
+                mesh=mesh, served=served, block=block, cut=cut)
         elif layout is not None and not torch.is_grad_enabled():
             # serving: the block's stored leaves gathered whole for it
             # alone, freed when it returns
             x, _, a = gathered_block(
                 layout, i, p, x, cfg, kind=kind, positions=positions,
                 noise=nz, cache=cache, long_context=long_context,
-                shared=shared, mesh=mesh, replicated=replicated)
+                shared=shared, mesh=mesh, served=served, block=block,
+                cut=cut)
         else:
             x, a = checkpoint(_remat_block, p, x, positions, nz, cfg, kind,
-                              long_context, shared, mesh, replicated,
+                              long_context, shared, mesh, served,
                               layout, i, block, use_reentrant=False,
                               preserve_rng_state=False)
         if a is not None:
@@ -612,7 +648,7 @@ def gathered_block(layout, index: int, p, x, cfg: ModelConfig, *,
 
 
 def _remat_block(p, x, positions, noise, cfg, kind, long_context, shared,
-                 mesh, replicated, layout=None, index=0, block=None):
+                 mesh, served, layout=None, index=0, block=None):
     if layout is not None:
         # ZeRO-3: the whole weights exist only inside this region
         dt = getattr(torch, cfg.dtype)
@@ -621,7 +657,7 @@ def _remat_block(p, x, positions, noise, cfg, kind, long_context, shared,
             shared = layout.whole(shared, "shared_attn", dt)
     x, _, aux = block_forward(p, x, cfg, kind=kind, positions=positions,
                               noise=noise, long_context=long_context,
-                              shared=shared, mesh=mesh, replicated=replicated,
+                              shared=shared, mesh=mesh, served=served,
                               block=block)
     return x, aux
 
@@ -665,6 +701,16 @@ class Block(nn.Module):
         return {k: one(k) for k in self.names}
 
 
+class ServedCaches(list):
+    """A rank's per-layer cache blocks (a list, as :func:`init_cache`'s
+    per layer) with the ``launch/shard.CacheLayout`` they are stored by
+    (``layout``): :meth:`Transformer.init_caches` with a mesh."""
+
+    def __init__(self, caches=(), layout=None):
+        super().__init__(caches)
+        self.layout = layout
+
+
 class Transformer(nn.Module):
     """The transformer for inference, on one device or across the ranks of
     a mesh.
@@ -691,9 +737,14 @@ class Transformer(nn.Module):
     :meth:`forward` (the prefill) gathers each block's stored leaves
     whole inside that block and frees them after it; :meth:`decode_step`
     keeps the experts' f-slice (expert TP) and gathers only what
-    ``fsdp`` shards.  Both take the whole batch on every rank (module
-    docstring: ``replicated``).  The step builders' keys hold the model,
-    and with it the mesh and the layout.
+    ``fsdp`` shards.  The activations and caches are the reference's
+    layout (module docstring): :meth:`forward` takes the whole batch on
+    every rank and runs the rank's block of it
+    (``launch/mesh.serve_block``), :meth:`init_caches` allocates the
+    rank's blocks (:meth:`cache_layout`), and :meth:`decode_step` runs the
+    rank's rows.
+    The step builders' keys hold the model, and with it the mesh and the
+    layout.
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
@@ -727,6 +778,7 @@ class Transformer(nn.Module):
         self.shared_attn = (Block(params["shared_attn"], self.dtype,
                                   self.device)
                             if "shared_attn" in params else None)
+        self._cache_layouts: Dict[tuple, Any] = {}
 
     def _check_share(self, params) -> None:
         """Raise unless every leaf of ``params`` has the shape of this
@@ -780,29 +832,113 @@ class Transformer(nn.Module):
         return sum(t.numel() * t.element_size()
                    for t in tree.leaves(self.tree()))
 
+    def cache_layout(self, batch: int, cache_len: int,
+                     long_context: bool = False):
+        """This rank's ``launch/shard.CacheLayout`` of caches of ``batch``
+        rows and ``cache_len`` positions (None without a mesh): raises
+        ``ValueError`` for a channel cut."""
+        if self.mesh is None:
+            return None
+        key = (batch, cache_len, long_context)
+        if key not in self._cache_layouts:
+            from repro_torch.launch import shard
+            self._cache_layouts[key] = shard.cache_layout_for(
+                self.cfg, self.mesh, batch, cache_len, long_context)
+        return self._cache_layouts[key]
+
+    def served_tokens(self, rows: slice, batch: int, seq: int,
+                      split: bool):
+        """How a ``moe`` block meets the reference's tokens for a served
+        block of ``rows`` of ``batch`` and ``seq`` positions a row, split
+        over ``model`` or not (``moe.served_tokens``; a route with its
+        process group attached); None on one device."""
+        if self.mesh is None:
+            return None
+        shape = (self.mesh.shape["data"], self.mesh.shape["model"])
+        mode, how = moe_lib.served_tokens(
+            shape, self.mesh.rank, batch, seq,
+            rows.stop - rows.start < batch, split)
+        if mode == "route":
+            return dataclasses.replace(how, group=(
+                self.mesh.model_group if how.axis == "model" else None))
+        return how
+
     def init_caches(self, batch: int, cache_len: int, *,
                     long_context: bool = False) -> List[Dict[str, Any]]:
         """One cache per layer (:func:`init_cache`): attention caches of
         ``min(cache_len, window)`` positions for a windowed layer (a ring
         when that is the window) and ``cache_len`` for the others, the
         recurrent states of ``rwkv`` and ``mamba`` layers; each position a
-        0-d int32 tensor on the device."""
+        0-d int32 tensor on the device.  With a mesh, this rank's blocks
+        of them (:meth:`cache_layout`)."""
+        layout = self.cache_layout(batch, cache_len, long_context)
+        if layout is not None:
+            return ServedCaches(layout.empty(self.device), layout)
         return [init_cache(self.cfg, kind, batch, cache_len,
                            long_context=long_context, dtype=self.dtype,
                            device=self.device)
                 for kind in layer_kinds(self.cfg)]
 
+    def _cache_layout_of(self, caches):
+        """The ``launch/shard.CacheLayout`` ``caches`` (a rank's blocks, from
+        :meth:`init_caches`) are stored by."""
+        lay = getattr(caches, "layout", None)
+        if lay is None:
+            raise ValueError(
+                f"on mesh {self.mesh.describe()} a served pass takes this "
+                f"rank's cache blocks from Transformer.init_caches")
+        return lay
+
     def forward(self, tokens: torch.Tensor, *, caches=None,
                 cfg: Optional[ModelConfig] = None,
-                long_context: bool = False
+                long_context: bool = False, last: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
         """Full-sequence pass (prefill).  tokens (B, S), or a frontend's
         (B, S, d) embeddings → (hidden (B,S,d), aux_loss, caches);
         ``caches`` from :meth:`init_caches` are filled in place.  ``cfg``
-        overrides the served config (e.g. its dispatch)."""
-        return forward(self.tree(), tokens, cfg or self.cfg, caches=caches,
-                       long_context=long_context, mesh=self.mesh,
-                       replicated=True, layout=self._gathering())
+        overrides the served config (e.g. its dispatch).  ``last``: the
+        hidden of each row's last position only, (B, 1, d).
+
+        With a mesh every rank passes the whole batch and runs its block
+        of it (``launch/mesh.serve_block``): the hidden returned is the block's
+        (its rows, its chunk of their positions); with ``last`` the rows'
+        last positions, broadcast over the model group from its last rank
+        (which holds them) when the positions are split."""
+        cfg = cfg or self.cfg
+        if self.mesh is None:
+            h, aux, caches = forward(self.tree(), tokens, cfg, caches=caches,
+                                     long_context=long_context)
+            return (h[:, -1:] if last else h), aux, caches
+        from repro_torch.launch.mesh import serve_block
+        B, S = tokens.shape[:2]
+        blk = serve_block(self.mesh, B, S)
+        noise = None
+        if noisy(cfg):
+            gen = torch.Generator(device=tokens.device).manual_seed(0)
+            whole = draw_gate_noise(cfg, B * S, gen, tokens.device)
+            noise = [None if n is None else n.reshape(B, S, -1)[
+                blk.rows, blk.seq].reshape(-1, n.shape[-1]) for n in whole]
+        cuts = None
+        if caches is not None:
+            lay = self._cache_layout_of(caches)
+            if lay.batch != B:
+                raise ValueError(f"caches of {lay.batch} rows for a batch "
+                                 f"of {B}")
+            cuts = lay.cuts()
+        h, aux, caches = forward(
+            self.tree(), tokens[blk.rows, blk.seq], cfg, caches=caches,
+            long_context=long_context, mesh=self.mesh,
+            served=self.served_tokens(blk.rows, B, S, blk.n > 1),
+            layout=self._gathering(), block=blk, cuts=cuts, noise=noise)
+        if not last:
+            return h, aux, caches
+        h = h[:, -1:]
+        if blk.n > 1:
+            from repro_torch.core import alltoall
+            M = self.mesh.shape["model"]
+            src = self.mesh.data_index * M + M - 1
+            h = alltoall.broadcast(h, self.mesh.model_group, src, M, "model")
+        return h, aux, caches
 
     def logits_from_hidden(self, h: torch.Tensor) -> torch.Tensor:
         return logits_from_hidden(
@@ -817,9 +953,13 @@ class Transformer(nn.Module):
         embeddings → (logits (B, 1, V), caches), the caches updated in
         place.  ``noise``: a noisy gate's draws (:func:`decode_noise`),
         drawn here when not given; the step reads nothing on the host.
-        Across ranks the ``moe`` blocks run expert TP on the stored
-        f-slice when the layout stores one, and the leaves ``fsdp``
-        shards are gathered block by block."""
+        Across ranks ``token`` is this rank's rows and ``caches`` its
+        blocks (:meth:`init_caches`); each attention layer attends over
+        the rank's cache block (its kv heads or its positions), the
+        ``moe`` blocks route the reference's tokens
+        (:meth:`served_tokens`) and run expert TP on the stored f-slice when
+        the layout stores one, and the leaves ``fsdp`` shards are gathered
+        block by block."""
         cfg = cfg or self.cfg
         layout = self._gathering()
         tp = self.layout is not None and self.layout.expert_tp
@@ -828,13 +968,18 @@ class Transformer(nn.Module):
         if noise is None:
             noise = decode_noise(cfg, x.shape[0], x.device)
         shared = self._shared()
+        cuts = served = None
+        if self.mesh is not None:
+            lay = self._cache_layout_of(caches)
+            cuts = lay.cuts()
+            served = self.served_tokens(lay.rows, lay.batch, 1, False)
         for i, (blk, cache, kind) in enumerate(zip(
                 self.blocks, caches, layer_kinds(cfg), strict=True)):
             kw = dict(kind=kind, cache=cache, decode=True,
                       long_context=long_context,
                       noise=None if noise is None else noise[i],
-                      shared=shared, mesh=self.mesh, replicated=True,
-                      expert_tp=tp)
+                      shared=shared, mesh=self.mesh, served=served,
+                      expert_tp=tp, cut=None if cuts is None else cuts[i])
             if layout is None:
                 x, _, _ = block_forward(blk.tree(), x, cfg, **kw)
             else:

@@ -27,7 +27,8 @@ cfg, model, cache_len, batch, long_context, layout)`` (a decode key adds
 below): the reference's key, with the model in the place of the mesh —
 the model carries its mesh (``Transformer(mesh=)``), so the key holds it
 too — and ``layout`` the model's stored layout ``(fsdp, expert_tp)``
-(``Transformer.layout_key``).
+(``Transformer.layout_key``) with, across ranks, the caches' layout
+(``launch/shard.CacheLayout.key``: each layer's form, the rank's rows).
 ``ModelConfig`` is a frozen dataclass, so the key holds the dispatch mode
 and every other knob.  The model is in the key because a CUDA graph binds
 addresses: a second model of the same config (``traffic.skew_router``'s
@@ -36,10 +37,14 @@ first model's weights.
 
 Across ranks (a model with a mesh) every rank runs the same host loop —
 the same prefills, decode steps, sampling and admission — so their
-collectives match in number and order; the greedy tokens come from
-logits that are bitwise equal on every rank (the activations are
-replicated and the ``moe`` outputs all-gathered), a temperature draw from
-a generator seeded equally on every rank.  The decode step across ranks
+collectives match in number and order.  A rank's steps run its data
+rank's rows (``launch/mesh.serve_block``, whole where the batch does not
+divide over ``data``) and take the whole batch's tokens, and return the
+logits of the rank's rows.  Greedy sampling takes each row's argmax on its data rank and
+all-gathers the tokens over ``data`` (:func:`whole_rows`); a temperature
+draw gathers the rows' logits over ``data`` and draws the whole batch
+from a generator seeded equally on every rank.  Either way every rank
+returns the same tokens.  The decode step across ranks
 is eager (``graph=False``): a gloo collective on CUDA tensors stages
 through the host and synchronises, which ``torch.cuda.graph`` cannot
 capture, and a step's expert-TP and AllToAll collectives are issued on
@@ -172,6 +177,26 @@ def serve_config(cfg: ModelConfig, *, dispatch: Optional[str] = None,
     return cfg.replace(moe=dataclasses.replace(cfg.moe, **kw))
 
 
+def _cache_key(model, batch: int, cache_len: int,
+               long_context: bool) -> tuple:
+    """The layout part of a step key: ``(fsdp, expert_tp)`` and, across
+    ranks, the caches' layout."""
+    lay = model.cache_layout(batch, cache_len, long_context)
+    return model.layout_key + (() if lay is None else (lay.key,))
+
+
+def whole_rows(model, x: torch.Tensor, batch: int) -> torch.Tensor:
+    """The whole batch's rows of ``x`` (this rank's rows of a ``batch``,
+    dim 0): all-gathered over the data group (logged) when the rows are
+    split over ``data``, else ``x``."""
+    mesh = model.mesh
+    if mesh is None or x.shape[0] == batch:
+        return x
+    from repro_torch.core import alltoall
+    return alltoall.gather_rows(x, mesh.data_group, mesh.shape["data"],
+                                axis="data")
+
+
 def _tokens_per_shard(mesh, batch: int) -> int:
     """A decode step's tokens a rank: ``batch`` single tokens padded to
     the world (``moe.rank_tokens``) and split over it."""
@@ -249,8 +274,9 @@ def make_prefill_step(cfg: ModelConfig, *, cache_len: int,
         caches = model.init_caches(tokens.shape[0], cache_len,
                                    long_context=long_context)
         h, _, caches = model.forward(tokens.to(model.device), caches=caches,
-                                     cfg=cfg, long_context=long_context)
-        return model.logits_from_hidden(h[:, -1:]), caches
+                                     cfg=cfg, long_context=long_context,
+                                     last=True)
+        return model.logits_from_hidden(h), caches
     return prefill
 
 
@@ -272,10 +298,12 @@ def build_prefill(model, cfg: Optional[ModelConfig] = None, *,
                   cache_len: int, batch: Optional[int] = None,
                   long_context: bool = False):
     """Cached prefill ``(tokens (B, S), caches) -> (last logits (B, 1, V),
-    caches)``, ``caches`` (a decode step's) filled in place."""
+    caches)``, ``caches`` (a decode step's) filled in place; across ranks
+    the logits of the rank's rows."""
     cfg = cfg or model.cfg
     key = ("prefill", cfg, model, cache_len, batch, long_context,
-           model.layout_key)
+           _cache_key(model, batch, cache_len, long_context)
+           if batch is not None else model.layout_key)
 
     def make():
         trace_counts[key] += 1
@@ -284,15 +312,18 @@ def build_prefill(model, cfg: Optional[ModelConfig] = None, *,
         def prefill(tokens, caches):
             h, _, caches = model.forward(tokens.to(model.device),
                                          caches=caches, cfg=cfg,
-                                         long_context=long_context)
-            return model.logits_from_hidden(h[:, -1:]), caches
+                                         long_context=long_context,
+                                         last=True)
+            return model.logits_from_hidden(h), caches
         return prefill
     return _cached(key, make)
 
 
 class DecodeStep:
     """One cached decode step over the caches it owns (see the module
-    docstring): ``step(token (B, 1), step_index=0) -> logits (B, 1, V)``.
+    docstring): ``step(token (B, 1), step_index=0) -> logits (B, 1, V)``;
+    across ranks the logits of the rank's rows (``rows``) of the whole
+    batch's tokens.
     ``graph`` is the captured ``torch.cuda.CUDAGraph`` (None: eager, on
     the CPU or when built with ``graph=False``), ``rise`` the launches a
     replay adds to the counters, ``calls`` the steps run (graph replays,
@@ -307,9 +338,18 @@ class DecodeStep:
         self.long_context = long_context
         self.caches = model.init_caches(batch, cache_len,
                                         long_context=long_context)
-        self.capacity = T.linear_capacity(cfg, self.caches, long_context)
-        self.token = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        lay = model.cache_layout(batch, cache_len, long_context)
+        self.batch = batch
+        self.rows = slice(0, batch) if lay is None else lay.rows
+        self.capacity = T.linear_capacity(
+            cfg, self.caches, long_context, None if lay is None
+            else lay.cuts())
+        n = self.rows.stop - self.rows.start
+        self.token = torch.zeros((n, 1), dtype=torch.long, device=dev)
         self.noise = T.decode_noise(cfg, batch, dev)
+        if self.noise is not None:
+            self.noise = [None if z is None else z[self.rows]
+                          for z in self.noise]
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.logits: Optional[torch.Tensor] = None
         self.rise: Dict[str, int] = {}
@@ -368,7 +408,7 @@ class DecodeStep:
     @torch.inference_mode()
     def __call__(self, token: torch.Tensor,
                  step_index: int = 0) -> torch.Tensor:
-        self.token.copy_(token)
+        self.token.copy_(token[self.rows])
         if self.graph is None:
             logits = self._run()
         else:
@@ -420,7 +460,7 @@ def build_decode(model, cfg: Optional[ModelConfig] = None, *, batch: int,
     graph = decode_graph(model, graph)
     cfg = resolve_decode_config(cfg or model.cfg, batch, model.mesh)
     base = ("decode", cfg, model, cache_len, batch, long_context, graph,
-            model.layout_key)
+            _cache_key(model, batch, cache_len, long_context))
     for i in itertools.count():
         key = base + ((i,) if i else ())
         step = _cached(key, lambda: DecodeStep(
@@ -451,10 +491,13 @@ def build_slot_prefill(model, cfg: Optional[ModelConfig] = None, *,
     """Cached per-slot prefill for ``SlotServer``: the full forward of a
     ``(1, S)`` prompt into fresh single-row caches of ``cache_len``;
     ``(prompt) -> (last logits (V,), caches)``.  :func:`put_slot`
-    commits them; until then the served caches are untouched."""
+    commits them; until then the served caches are untouched.  Across
+    ranks the row is whole on every rank, its positions split over
+    ``model`` when that divides them, and the logits the same on every
+    rank."""
     cfg = cfg or model.cfg
     key = ("slot_prefill", cfg, model, cache_len, None, long_context,
-           model.layout_key)
+           _cache_key(model, 1, cache_len, long_context))
 
     def make():
         trace_counts[key] += 1
@@ -463,8 +506,9 @@ def build_slot_prefill(model, cfg: Optional[ModelConfig] = None, *,
         def slot_prefill(prompt):
             sub = model.init_caches(1, cache_len, long_context=long_context)
             h, _, sub = model.forward(prompt.to(model.device), caches=sub,
-                                      cfg=cfg, long_context=long_context)
-            return model.logits_from_hidden(h[:, -1:])[0, -1], sub
+                                      cfg=cfg, long_context=long_context,
+                                      last=True)
+            return model.logits_from_hidden(h)[0, -1], sub
         return slot_prefill
     return _cached(key, make)
 
@@ -481,17 +525,22 @@ def _cache_leaves(caches):
 
 
 @torch.inference_mode()
-def put_slot(caches, sub, slot: int) -> None:
+def put_slot(caches, sub, slot: int, rows: Optional[slice] = None) -> None:
     """Copy single-row caches ``sub`` into row ``slot`` of ``caches`` in
     place — the attention keys and values and the recurrent states — and
     set the shared positions (the 0-d tensors) to theirs: the reference's
-    ``put`` in ``build_slot_prefill``."""
+    ``put`` in ``build_slot_prefill``.  ``rows`` (across ranks: the slots
+    ``caches`` hold, a ``DecodeStep.rows``): the row is written only where
+    the slot is held, at its local index; ``sub`` is cut over ``model`` as
+    ``caches`` are (the same inner dims cut alike)."""
+    rows = rows or slice(0, None)
+    held = rows.start <= slot and (rows.stop is None or slot < rows.stop)
     for full, one in zip(_cache_leaves(caches), _cache_leaves(sub),
                          strict=True):
         if full.ndim == 0:
             full.copy_(one)
-        else:
-            full[slot].copy_(one[0])
+        elif held:
+            full[slot - rows.start].copy_(one[0])
 
 
 # ---------------------------------------------------------------------------
@@ -551,15 +600,22 @@ def generate(model, prompt: torch.Tensor, *, steps: int,
             if stats is not None:
                 finite &= torch.isfinite(last).all()
             if temperature > 0:
-                probs = torch.softmax(last / temperature, dim=-1)
+                probs = torch.softmax(whole_rows(model, last, B) /
+                                      temperature, dim=-1)
                 tok = torch.multinomial(probs, 1, generator=generator)
             else:
-                tok = last.argmax(dim=-1, keepdim=True)
+                tok = whole_rows(model, last.argmax(dim=-1, keepdim=True), B)
             out.append(tok.to(prompt.dtype))
             if i + 1 < steps:
                 logits = step(tok, step_index=i)
         result = torch.cat(out, dim=1)
         if stats is not None:
+            if model.mesh is not None and model.mesh.world > 1:
+                # every rank reports the same: the scalar is not logged
+                flag = finite.to(torch.int32).reshape(1)
+                torch.distributed.all_reduce(
+                    flag, op=torch.distributed.ReduceOp.MIN)
+                finite = flag[0].bool()
             _sync(model.device)
             stats.update(prefill_s=t1 - t0,
                          decode_s=time.perf_counter() - t1,

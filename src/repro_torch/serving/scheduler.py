@@ -41,6 +41,14 @@ finiteness are read on the device and 2·slots values are copied; with an
 ambient fault plan the whole rows are pulled, so that
 ``serve.step_logits`` poisons what the reference's poisons.
 
+Across ranks the slots go over ``data`` when D divides them (each data
+rank decodes its slots' rows; ``engine.DecodeStep.rows``), else every
+rank holds all of them.  A slot prefill runs on every rank (its row whole
+everywhere, its positions over ``model`` when that divides them) and only
+the slot's owner stores it (``engine.put_slot``); every step gathers the
+slots' (finite, argmax) pairs over ``data`` (the whole rows, with a fault
+plan), so the host loop is the same on every rank.
+
 Fault-injection seams (``core/faults.py``): ``serve.prefill`` /
 ``serve.prefill_logits`` (indexed by request uid), ``serve.step_logits``
 (uid), ``serve.step`` (decode-step counter; ``stall`` simulates a slow
@@ -77,6 +85,22 @@ class Request:
     steps_used: int = 0              # decode steps consumed while active
 
 
+def _read_slots(model, logits: torch.Tensor, batch: int, slots: List[int],
+                site: str, uids: List[int]) -> List[Tuple[bool, int]]:
+    """:func:`_read_rows` of the ``slots``' rows of a decode step's (n, V)
+    logits of this rank's rows (of ``batch``): each row's (finite,
+    argmax) read on the device and gathered over ``data``
+    (``engine.whole_rows``), or with an ambient plan the rows themselves,
+    so that every rank reads every slot alike."""
+    if faults_mod.get_active() is not None:
+        return _read_rows(engine.whole_rows(model, logits, batch)[slots],
+                          site, uids)
+    both = torch.stack([torch.isfinite(logits).all(-1).long(),
+                        logits.argmax(-1)], dim=1)
+    both = engine.whole_rows(model, both, batch)[slots].cpu().tolist()
+    return [(bool(f), int(t)) for f, t in both]
+
+
 def _read_rows(rows: torch.Tensor, site: str,
                uids: List[int]) -> List[Tuple[bool, int]]:
     """(finite, argmax) of each row of (n, V) logits, row i under the
@@ -103,8 +127,8 @@ class SlotServer:
     reference's ``mesh=``) is served by one server per rank, every rank
     given the same requests in the same order: admission, prefills, the
     fault seams and every decode step run alike on all of them, so their
-    collectives match, and each reads the same tokens from logits that
-    are bitwise equal on every rank."""
+    collectives match, and each reads the same tokens (module
+    docstring)."""
 
     @torch.inference_mode()
     def __init__(self, model, *, slots: int, cache_len: int,
@@ -211,7 +235,7 @@ class SlotServer:
         except Exception as e:  # containment: poisoned request, not the server
             req.status, req.error, req.done = "failed", f"prefill:{e}", True
             return False
-        engine.put_slot(self._step.caches, sub, slot)
+        engine.put_slot(self._step.caches, sub, slot, self._step.rows)
         self._pos = int(req.prompt.shape[-1])
         self.tokens[slot, 0] = tok
         req.out.append(tok)
@@ -274,8 +298,9 @@ class SlotServer:
         self._decode_steps += 1
         self._pos += 1
         slots = list(self.active)
-        rows = _read_rows(logits[slots, -1], "serve.step_logits",
-                          [self.active[s].uid for s in slots])
+        rows = _read_slots(self.model, logits[:, -1], self.slots, slots,
+                           "serve.step_logits",
+                           [self.active[s].uid for s in slots])
         finished = []
         for s, (finite, tok) in zip(slots, rows):
             req = self.active[s]

@@ -237,8 +237,6 @@ def _ref_attention(B, name, cp):
     and the four projections, jitted; ``cp``: on the conftest's ``mesh8``
     (2x4), its context-parallel flash path (its chunked path under
     ``REPRO_FLASH=0``)."""
-    import os
-
     from repro.launch.mesh import make_smoke_mesh
     _, fields, causal, window, flash = next(c for c in ATTN_CASES
                                             if c[0] == name)
@@ -254,12 +252,9 @@ def _ref_attention(B, name, cp):
                                     causal=causal, window=window,
                                     q_chunk=Q_CHUNK, mesh=mesh)
         return jnp.sum(y * gy), y
-    os.environ["REPRO_FLASH"] = "1" if flash else "0"
-    try:
+    with torch_ranks.env("REPRO_FLASH", "1" if flash else "0"):
         (_, y), (gp, gx) = jax.jit(jax.value_and_grad(
             f, argnums=(0, 1), has_aux=True))(p, x)
-    finally:
-        del os.environ["REPRO_FLASH"]
     return (np.asarray(y), np.asarray(gx),
             {k: np.asarray(v) for k, v in gp.items()})
 

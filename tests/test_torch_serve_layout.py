@@ -40,8 +40,11 @@ from repro_torch.serving.engine import serve_config
 
 ARCH = "hetumoe-paper-16e"
 SERVE_MESHES = ((2, 2), (4, 1), (1, 4))
-STEPS = 4
-B, S = 3, 6                     # 3 rows pad to the world of 4
+STEPS = 6
+# 3 rows are whole over data at 2x2 and pad to the world of 4; caches of
+# S + STEPS = 12 positions: 2 kv heads over model=2 (heads), the positions
+# over model=4 (1x4)
+B, S = 3, 6
 PINNED = dict(gate="topk", top_k=2, a2a="flat", overlap_chunks=1,
               grouped_block_m=None, grouped_ep_bound_factor=None)
 # (mesh, dispatch, fsdp, B, S): at 1x4 two rows of 16 split over two
@@ -214,12 +217,13 @@ def test_stored_slice_matches_whole_f_views(served, mesh):
         assert (err <= 1e-6).all(), err
 
 
-def _serve_log(tc, mesh, dispatch, fsdp, expert_tp, decode):
+def _serve_log(tc, mesh, dispatch, fsdp, expert_tp, decode, rank=0):
     c = serve_config(tc, dispatch=dispatch)
     rec = dryrun.count_pair(
         c, ShapeConfig("t", S + STEPS if decode else S, B,
                        "decode" if decode else "prefill"),
-        {"data": mesh[0], "model": mesh[1]}, fsdp=fsdp, expert_tp=expert_tp)
+        {"data": mesh[0], "model": mesh[1]}, fsdp=fsdp, expert_tp=expert_tp,
+        rank=rank)
     return rec["plan"].log()
 
 
@@ -234,15 +238,18 @@ LOGS = [(m, d, f, p) for m in ((2, 2), (1, 4)) for d in ("grouped", "sort")
 def test_serving_collectives_equal_the_dry_run(served, mesh, dispatch, fsdp,
                                                phase):
     """A prefill's and a decode step's collectives on every rank (kind,
-    axis, group size, wire dtype, the rank's input shape, count) equal the
-    dry run's plan of them (``dryrun.serve_plan``): the experts' gathers
-    over ``data`` in the prefill, expert TP's on the stored slice in the
-    decode, FSDP's gathers of the dense leaves, the exchanges, the
-    outputs' all-gather."""
-    want = _serve_log(served["tc"], mesh, dispatch, fsdp, True,
-                      phase == "decode")
-    assert want
+    axis, group size, wire dtype, the rank's input shape, count), each
+    with its greedy tokens' gather over ``data``, equal the dry run's
+    plan of them for that rank (``dryrun.serve_plan``): the experts'
+    gathers over ``data`` in the prefill, expert TP's on the stored slice
+    in the decode, FSDP's gathers of the dense leaves, the exchanges, the
+    context-parallel prefill's k/v gathers and last-row broadcast, the
+    decode's heads or partial-softmax gathers over ``model``, the token
+    routes and the outputs' all-gathers."""
     for r, res in enumerate(served["ranks"]):
+        want = _serve_log(served["tc"], mesh, dispatch, fsdp, True,
+                          phase == "decode", r)
+        assert want
         got = collections.Counter(res[mesh, dispatch, fsdp]["logs"][phase])
         assert got == want, (r, got - want, want - got)
 
@@ -252,8 +259,9 @@ def test_whole_f_decode_collectives_equal_the_dry_run(served, mesh):
     """``REPRO_EXPERT_TP=0``: the experts stored whole in f, the decode
     step without expert TP — its collectives equal the dry run's for
     ``expert_tp=False``."""
-    want = _serve_log(served["tc"], mesh, "grouped", False, False, True)
-    for res in served["ranks"]:
+    for r, res in enumerate(served["ranks"]):
+        want = _serve_log(served["tc"], mesh, "grouped", False, False, True,
+                          r)
         assert collections.Counter(res[mesh, "no_tp"]["logs"]["decode"]) \
             == want
 

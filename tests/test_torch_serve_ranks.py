@@ -6,8 +6,10 @@ fake devices, the same weights (the reference's ``init_model`` through
 same seeded prompts.  The model: the paper preset's smoke config (2
 ``moe`` layers, d=128, 4 experts) with swiglu experts and a top-2 gate,
 f32, its tuned knobs pinned.  The prefill runs expert parallel, each
-decode step expert TP over the data group; the activations and caches are
-whole on every rank."""
+decode step expert TP over the data group; each data rank serves its
+rows (whole where 3 or 1 do not divide over data), the prefill
+context-parallel over ``model``, the caches stored by the reference's
+cache rule (``tests/test_torch_serve_cache.py``)."""
 import dataclasses
 import types
 
@@ -33,7 +35,10 @@ ARCH = "hetumoe-paper-16e"
 SHAPE = (2, 2)
 STEPS = 4
 S = 6                                   # prompt length
-BATCHES = {"b8": 8, "b3": 3, "b1": 1}   # 3 and 1 pad to the world of 4
+# 3 and 1 pad to the world of 4 (rows whole over data); 6 splits 3 rows a
+# data rank, which its 2 model ranks' decode blocks do not divide (a token
+# route over the world)
+BATCHES = {"b8": 8, "b3": 3, "b1": 1, "b6": 6}
 DISPATCHES = ("grouped", "sort")
 PINNED = dict(gate="topk", top_k=2, a2a="flat", overlap_chunks=1,
               grouped_block_m=None, grouped_ep_bound_factor=None)

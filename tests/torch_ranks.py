@@ -8,7 +8,9 @@
 numpy arrays.  Imports no JAX: the spawned ranks load only the port."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -16,6 +18,21 @@ import torch
 from repro_torch.core import alltoall, moe, tuning
 from repro_torch.core.config import MoEConfig
 from repro_torch.launch.mesh import make_mesh
+
+
+@contextlib.contextmanager
+def env(name, value):
+    """``os.environ[name] = value`` for the block; the value the process
+    had (or its absence) is put back after it."""
+    before = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = before
 
 
 def _np(t):
@@ -365,7 +382,9 @@ def _serve_model(shape, cfg, tree, dispatch, fsdp=False):
 def greedy_logits(model, prompt, steps):
     """Greedy generation through the step builders, recording the logits
     each token is read from: ``(tokens (B, S + steps), logits (steps, B,
-    V))``, the tokens those of ``engine.generate``."""
+    V))``, the tokens those of ``engine.generate`` (each rank's rows'
+    argmax gathered over ``data``, as ``generate`` samples; the logits
+    gathered the same way)."""
     from repro_torch.serving import engine
     B, S = prompt.shape
     out, logits = [prompt], []
@@ -376,8 +395,10 @@ def greedy_logits(model, prompt, steps):
             step.reset()
             last, _ = prefill(prompt, step.caches)
             for i in range(steps):
-                logits.append(last[:, -1].float().clone())
-                tok = last[:, -1].argmax(-1, keepdim=True)
+                logits.append(engine.whole_rows(
+                    model, last[:, -1].float().clone(), B))
+                tok = engine.whole_rows(
+                    model, last[:, -1].argmax(-1, keepdim=True), B)
                 out.append(tok)
                 if i + 1 < steps:
                     last = step(tok, step_index=i)
@@ -395,7 +416,6 @@ def serve_rank(rank, shape, cfg, tree, prompts, steps, dispatches, slot_run,
     dispatch mode; then ``launch.serve.main(cli_argv)``'s printout."""
     import contextlib
     import io
-    import os
 
     from repro_torch.launch import serve
     from repro_torch.serving import Request, SlotServer, engine, generate
@@ -403,11 +423,8 @@ def serve_rank(rank, shape, cfg, tree, prompts, steps, dispatches, slot_run,
     out = {}
     for dispatch in dispatches:
         model = _serve_model(shape, cfg, tree, dispatch)
-        os.environ["REPRO_EXPERT_TP"] = "0"
-        try:
+        with env("REPRO_EXPERT_TP", "0"):
             whole_f = _serve_model(shape, cfg, tree, dispatch)
-        finally:
-            del os.environ["REPRO_EXPERT_TP"]
         for name, p in prompts.items():
             prompt = torch.from_numpy(p).long()
             toks = generate(model, prompt, steps=steps).numpy()
@@ -552,8 +569,6 @@ def cp_attention(rank, shape, B, inputs, cases, q_chunk):
     dx, this rank's contributions to the projections' gradients of
     ``sum(y·gy)``, the row-group gathers of the forward, and the members
     of each row group the mesh made."""
-    import os
-
     import torch.distributed as dist
 
     from repro_torch.core.config import AttentionConfig
@@ -571,20 +586,19 @@ def cp_attention(rank, shape, B, inputs, cases, q_chunk):
            "row_groups": {n: dist.get_process_group_ranks(g)
                           for n, g in mesh.rows.items()}}
     for name, fields, causal, window, flash in cases:
-        os.environ["REPRO_FLASH"] = "1" if flash else "0"
         cfg = AttentionConfig(**fields)
         p = {k: torch.from_numpy(v).requires_grad_(True)
              for k, v in inputs["params"].items()}
         xl = x[blk.rows, blk.seq].clone().requires_grad_(True)
         shard.row_gathers = 0
-        y, _ = attention.full_attention(
-            p, xl, cfg, positions=blk.positions(), causal=causal,
-            window=window, q_chunk=q_chunk, block=blk)
-        gathers = shard.row_gathers
-        keys = sorted(p)
-        grads = torch.autograd.grad((y * gy[blk.rows, blk.seq]).sum(),
-                                    [xl] + [p[k] for k in keys])
-        del os.environ["REPRO_FLASH"]
+        with env("REPRO_FLASH", "1" if flash else "0"):
+            y, _ = attention.full_attention(
+                p, xl, cfg, positions=blk.positions(), causal=causal,
+                window=window, q_chunk=q_chunk, block=blk)
+            gathers = shard.row_gathers
+            keys = sorted(p)
+            grads = torch.autograd.grad((y * gy[blk.rows, blk.seq]).sum(),
+                                        [xl] + [p[k] for k in keys])
         out[name] = {"y": _np(y), "dx": _np(grads[0]), "gathers": gathers,
                      "grads": {k: _np(g) for k, g in zip(keys, grads[1:])}}
     return out
@@ -723,29 +737,46 @@ def _logged(fn):
         alltoall.collectives = None
 
 
-def _served_run(model, prompt, steps):
-    """A greedy run through the step builders: tokens, each step's logits,
-    and the collectives of the prefill and of the first decode step."""
+def _served_run(model, prompt, steps, keep_caches=False):
+    """A greedy run through the step builders: tokens, each step's logits
+    (each rank's rows gathered over ``data``, unlogged), and the
+    collectives of the prefill and of the first decode step, each with
+    its tokens' gather over ``data`` (``generate``'s sampling); with
+    ``keep_caches`` the caches (the rank's blocks) after the last step
+    and their bytes."""
     from repro_torch.serving import engine
     B, S = prompt.shape
     out, logits, logs = [prompt], [], {}
+
+    def sample(last):
+        return last, engine.whole_rows(
+            model, last[:, -1].argmax(-1, keepdim=True), B)
     with torch.inference_mode():
         prefill = engine.build_prefill(model, cache_len=S + steps, batch=B)
         with engine.holding_decode(model, batch=B,
                                    cache_len=S + steps) as step:
             step.reset()
-            (last, _), logs["prefill"] = _logged(
-                lambda: prefill(prompt, step.caches))
+            (last, tok), logs["prefill"] = _logged(
+                lambda: sample(prefill(prompt, step.caches)[0]))
             for i in range(steps):
-                logits.append(last[:, -1].float().clone())
-                tok = last[:, -1].argmax(-1, keepdim=True)
+                logits.append(engine.whole_rows(
+                    model, last[:, -1].float().clone(), B))
                 out.append(tok)
                 if i + 1 < steps:
-                    last, log = _logged(lambda: step(tok, step_index=i))
+                    (last, tok), log = _logged(
+                        lambda: sample(step(tok, step_index=i)))
                     logs.setdefault("decode", log)
+            run = dict(tokens=torch.cat(out, 1).numpy(),
+                       logits=torch.stack(logits).numpy(), logs=logs)
+            if keep_caches:
+                from repro_torch.launch.mesh import tree_paths
+                run["caches"] = {p: _np(t) for p, t in
+                                 tree_paths(list(step.caches))}
+                run["cache_bytes"] = sum(
+                    t.numel() * t.element_size()
+                    for _, t in tree_paths(list(step.caches)))
     engine.clear_step_cache(model)
-    return dict(tokens=torch.cat(out, 1).numpy(),
-                logits=torch.stack(logits).numpy(), logs=logs)
+    return run
 
 
 def _whole_f_views(model, tree, cfg, mesh):
@@ -755,11 +786,8 @@ def _whole_f_views(model, tree, cfg, mesh):
     import os
 
     from repro_torch.convert import params_from_numpy
-    os.environ["REPRO_EXPERT_TP"] = "0"
-    try:
+    with env("REPRO_EXPERT_TP", "0"):
         whole = params_from_numpy(tree, cfg, mesh, serving=True)
-    finally:
-        del os.environ["REPRO_EXPERT_TP"]
     D, di = mesh.shape["data"], mesh.data_index
     for blk, p in zip(model.blocks, whole["blocks"], strict=True):
         for k in ("w_up", "w_gate", "w_out"):
@@ -815,15 +843,12 @@ def serve_layout_rank(rank, init_path, cfg, prompt, steps, meshes,
                 run["layout_key"] = model.layout_key
                 out[shape, dispatch, fsdp] = run
         c = serve_config(cfg, dispatch="grouped")
-        os.environ["REPRO_EXPERT_TP"] = "0"
-        try:
+        with env("REPRO_EXPERT_TP", "0"):
             whole = Transformer(c, device="cpu", mesh=mesh,
                                 params=params_from_numpy(tree, c, mesh,
                                                          serving=True))
             out[shape, "no_tp"] = _served_run(whole, prompt, steps)
             out[shape, "no_tp"]["layout_key"] = whole.layout_key
-        finally:
-            del os.environ["REPRO_EXPERT_TP"]
         model = Transformer(c, device="cpu", mesh=mesh,
                             params=params_from_numpy(tree, c, mesh,
                                                      serving=True))
@@ -847,6 +872,50 @@ def serve_layout_rank(rank, init_path, cfg, prompt, steps, meshes,
             state_bytes=sum(t.numel() * t.element_size() for t in
                             tree_lib.leaves((state.params, state.opt))
                             if t.dim() > 0))
+    return out
+
+
+def slot_outputs(model, kw, specs):
+    """``SlotServer(model, **kw)`` over requests ``(uid, prompt, max_new)``:
+    each finished request's (uid, status, error, tokens, steps used)."""
+    from repro_torch.serving import Request, SlotServer
+    srv = SlotServer(model, **kw)
+    done = srv.run([Request(uid=u, prompt=torch.from_numpy(
+        p.astype(np.int64)), max_new=m) for u, p, m in specs])
+    return [(r.uid, r.status, r.error, [int(t) for t in r.out],
+             r.steps_used) for r in done]
+
+
+def serve_cache_rank(rank, shape, init_path, cells, steps, slot_run):
+    """The served caches stored by the reference's cache rule, on this rank
+    at mesh ``shape``: per cell ``(name, cfg, prompt)`` a greedy run's
+    tokens, logits, logged collectives, its caches after the last step
+    (this rank's blocks) and their bytes, ``generate``'s tokens,
+    ``SlotServer``'s outputs over ``slot_run`` (its keyword arguments and
+    request specs), and the message a channel cut raises (caches of 10
+    positions)."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import engine
+    tree = load_tree(init_path)
+    mesh = make_mesh(shape, device="cpu")
+    out = {}
+    for name, cfg, prompt in cells:
+        model = Transformer(cfg, device="cpu", mesh=mesh,
+                            params=params_from_numpy(tree, cfg, mesh,
+                                                     serving=True))
+        p = torch.from_numpy(prompt).long()
+        run = _served_run(model, p, steps, keep_caches=True)
+        run["generate"] = engine.generate(model, p, steps=steps).numpy()
+        kw, specs = slot_run[name]
+        run["slot"] = slot_outputs(model, kw, specs)
+        try:
+            model.init_caches(p.shape[0], 10)
+            run["channels"] = None
+        except ValueError as e:
+            run["channels"] = str(e)
+        engine.clear_step_cache(model)
+        out[name] = run
     return out
 
 
