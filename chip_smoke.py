@@ -286,16 +286,33 @@ Phases, in order; any failure ends the script with a non-zero exit:
    under FSDP (``Transformer(fsdp=True)``, what ``needs_fsdp(4e9)``
    resolves for it: the dense leaves over data x model too), a prefill and
    4 decode steps on one process's replayed routes: their logits bitwise
-   the stored-slice run's, its stored bytes the dry run's.  18e-p, the
-   ``positions`` form: ``starcoder2-3b`` (its 2 kv heads do not divide
-   over 4 ranks, so the cache positions do; 4 of 30 layers, published
-   widths, bf16) at 1x4, batch 4 x 1024 + 16 (caches of 1040: 260
-   positions a rank), teacher-forced on one process's tokens (the parent,
+   the stored-slice run's, its stored bytes the dry run's.  18e-p, 18e-r,
+   18e-z and 18e-c, every served cache by the reference's cache rule
+   (``EP_SERVE_STATES``): ``starcoder2-3b`` (4 of 30 layers) at 1x4 in
+   the ``positions`` form (its 2 kv heads do not divide over 4 ranks, its
+   caches of 1040 positions do: 260 a rank); ``rwkv6-1.6b`` (4
+   of 24 layers) at 1x4, each ``s`` cut in its key dim (16 of 64 columns
+   a rank, the time mix's output summed over ``model``); ``zamba2-7b``
+   (one mamba, mamba, mamba_sa period) at 2x2, Mamba's ``s`` cut in its
+   head dim (32 of 64), ``conv`` in its channels (3648 of 7296), the
+   shared attention in the ``heads`` form and its prefill context-
+   parallel through kernel 7 at d=112; ``starcoder2-3b`` (2 of 30) at 1x4
+   with caches of 1039 positions, which neither its 2 kv heads nor the
+   positions divide over 4: the ``channels`` form (32 of 128 a rank), the
+   partial scores summed over ``model``; each at published widths, bf16
+   weights and f32 states, batch 4 x 1024 + 16 (+ 15 for the 2-layer
+   starcoder2), teacher-forced on one process's tokens (the parent's,
    before the spawn): each step's logits within 2^-4 of its largest
    |logit|, the greedy token equal where one process's top-2 margin
-   clears that, ``generate``'s tokens bitwise equal on the ranks, the
-   cache bytes a rank the dry run's and a quarter of one process's, rank
-   0's launches of kernel 7.  In the parent,
+   clears that, every recurrent state leaf on rank 0 within 1e-3 of the
+   largest magnitude of its block of one process's state after the
+   prefill and after the last step within its leaf's bound
+   (``EP_STATE_LAST_BOUNDS``: bf16 activations on both sides), the
+   cache bytes a rank the dry run's and the case's, each case's forms,
+   ``generate``'s
+   tokens through ``launch.serve.run`` bitwise equal on the ranks, its
+   prefill and eager decode ms and rank 0's kernel 7 launches printed
+   (host-staged).  In the parent,
    while the ranks run, ``python -m repro_torch.launch.dryrun --all`` and
    ``--all --multi-pod`` (the CPU only, no JAX), their seconds printed.
    18b also runs the paper's
@@ -5895,12 +5912,37 @@ EP_SERVE_BOUND = 2.0 ** -4
 # steps on the replayed routes (each step gathers the 1.23 GB embedding and
 # head over gloo: host staging, seconds a step)
 EP_SERVE_FSDP_STEPS = 5
-# 18e-p: the positions form of the served caches: starcoder2-3b's 2 kv
-# heads do not divide over 4 model ranks, its caches of 1040 positions do
-# (260 a rank); 4 of 30 layers at the published widths, bf16, held
-# teacher-forced against one process at EP_SERVE_BOUND
-EP_SERVE_P = dict(arch="starcoder2-3b", layers=4, batch=4, prompt_len=1024,
-                  gen=16, mesh=(1, 4))
+# 18e-p, 18e-r, 18e-z, 18e-c: every served cache leaf by the reference's
+# cache rule, teacher-forced against one process at EP_SERVE_BOUND: each
+# case, its attention forms, its state leaves' cut dims
+# (launch/shard.CacheLayout) and the cache bytes a rank, reckoned from the
+# shapes.  18e-p: starcoder2-3b's 2 kv heads do not divide over 4 model
+# ranks, its caches of 1040 positions do (260 a rank: a quarter of one
+# process's keys and values, the 0-d positions whole); 18e-c: caches of
+# 1039 positions, so the channels (32 of 128 a rank)
+EP_SERVE_STATES = {
+    "18e-p": (dict(arch="starcoder2-3b", layers=4, batch=4, prompt_len=1024,
+                   gen=16, mesh=(1, 4)), ["positions"], [()], 4_259_856),
+    "18e-r": (dict(arch="rwkv6-1.6b", layers=4, batch=4, prompt_len=1024,
+                   gen=16, mesh=(1, 4)), [None], [(("s", 2),)], 2_228_224),
+    "18e-z": (dict(arch="zamba2-7b", layers=3, batch=4, prompt_len=1024,
+                   gen=16, mesh=(2, 2)), [None, "heads"],
+              [(("s", 2), ("conv", 2))], 20_677_136),
+    "18e-c": (dict(arch="starcoder2-3b", layers=2, batch=4,
+                   prompt_len=1024, gen=15, mesh=(1, 4)), ["channels"], [()],
+              2_127_880),
+}
+# a recurrent state leaf on rank 0 against its block of one process's, of
+# the block's largest magnitude (bf16 weights, f32 states).  After the
+# prefill every leaf at EP_STATE_BOUND (bitwise one process's on an H100,
+# PERF.md).  After the last step each leaf at its own bound: 15
+# teacher-forced steps of bf16 activations on both sides, where rwkv6's
+# sum over the model group rounds the bf16 hidden one ulp apart from one
+# process's here and there.  x_last is that bf16 hidden stored in f32, so
+# a few bf16 ulps (8.0e-3 on an H100); s and conv are f32 (rwkv6's s
+# 1.4e-3, zamba2's s and conv 0 on an H100)
+EP_STATE_BOUND = 1e-3
+EP_STATE_LAST_BOUNDS = {"s": 1e-2, "conv": 1e-2, "x_last": 2.0 ** -6}
 # 18f: the paper model whole trained at 2x2 under FSDP (ZeRO-3) through
 # launch.train.run(fsdp=True), grouped: 3 steps uninterrupted; 3 steps
 # saving at step 2 and cut at the top of step 2 (train.loop:raise@2), then
@@ -6746,7 +6788,7 @@ def ep_tp_checks(torch, rank, ref_paths):
 
 
 def greedy_with_logits(torch, model, prompt, steps, forced=None,
-                       graph=None, cache_len=None, info=None):
+                       graph=None, cache_len=None, info=None, states=None):
     """Greedy generation through the step builders, each step's logits
     (f32) kept: ``(tokens (B, S + steps), logits (steps, B, V))``, across
     ranks each rank's rows gathered over ``data`` (``engine.whole_rows``,
@@ -6754,7 +6796,9 @@ def greedy_with_logits(torch, model, prompt, steps, forced=None,
     steps are fed its tokens (teacher forcing) instead of their own;
     ``graph`` as ``engine.build_decode`` takes it; caches of ``cache_len``
     (default S + steps); ``info`` (a dict) receives the bytes of the
-    caches this process holds."""
+    caches this process holds; ``states`` (a dict) the recurrent state
+    leaves this process holds (:func:`served_states`) after the prefill
+    (``"prefill"``) and after the last step (``"last"``), on the host."""
     from repro_torch.serving import engine
     B, S = prompt.shape
     cache_len = cache_len or S + steps
@@ -6769,6 +6813,8 @@ def greedy_with_logits(torch, model, prompt, steps, forced=None,
                     t.numel() * t.element_size()
                     for t in engine._cache_leaves(step.caches))
             last, _ = prefill(prompt, step.caches)
+            if states is not None:
+                states["prefill"] = served_states(step.caches)
             for i in range(steps):
                 logits.append(engine.whole_rows(
                     model, last[:, -1].float(), B).cpu())
@@ -6779,7 +6825,18 @@ def greedy_with_logits(torch, model, prompt, steps, forced=None,
                     feed = tok if forced is None else forced[
                         :, S + i:S + i + 1].to(tok.device)
                     last = step(feed, step_index=i)
+            if states is not None:
+                states["last"] = served_states(step.caches)
     return torch.cat(out, 1).cpu(), torch.stack(logits)
+
+
+def served_states(caches):
+    """Every recurrent state leaf of per-layer caches (``rwkv`` and
+    ``mamba``: ``s``, ``x_last``, ``conv``; not the positions) by its
+    path, copied to the host."""
+    from repro_torch.launch.mesh import tree_paths
+    return {p: t.detach().cpu().clone() for p, t in tree_paths(list(caches))
+            if t.ndim and ("/rwkv/" in p or "/mamba/" in p)}
 
 
 def ep_serve_prompt(torch, cfg):
@@ -7012,83 +7069,119 @@ def ep_serve_run(torch, rank, one_path):
                 gathers=gathers, fsdp=fsdp)
 
 
-def ep_serve_p_cfg():
-    """18e-p's config: the preset cut to ``EP_SERVE_P["layers"]``."""
+def ep_state_cfg(case):
+    """An ``EP_SERVE_STATES`` case's config: the preset cut to its
+    ``layers``."""
     from repro_torch import configs
-    return configs.get_config(EP_SERVE_P["arch"]).replace(
-        num_layers=EP_SERVE_P["layers"])
+    return configs.get_config(case["arch"]).replace(
+        num_layers=case["layers"])
 
 
-def ep_serve_p_reference(torch, path):
-    """18e-p's one process on the card: greedy with each step's logits
-    (the eager decode step), saved for the ranks; returns its seconds."""
+def state_key(when: str, path: str) -> str:
+    """The npz key of a recurrent state leaf at ``path`` after ``when``."""
+    return f"{when}.{path.replace('/', '.')}"
+
+
+def state_bound(key: str) -> float:
+    """The bound of the state leaf ``state_key`` names: ``EP_STATE_BOUND``
+    after the prefill, the leaf's ``EP_STATE_LAST_BOUNDS`` after the last
+    step."""
+    if key.startswith("prefill."):
+        return EP_STATE_BOUND
+    return EP_STATE_LAST_BOUNDS[key.rsplit(".", 1)[1]]
+
+
+def ep_state_reference(torch, path, case):
+    """An ``EP_SERVE_STATES`` case's one process on the card: greedy over
+    ``launch.serve.run``'s prompts with each step's logits (the eager
+    decode step) and the recurrent states after the prefill and after
+    the last step, saved for the ranks; returns its seconds."""
     import numpy as np
     from repro_torch.models.transformer import Transformer
     from repro_torch.serving import engine
-    cfg = ep_serve_p_cfg()
+    cfg = ep_state_cfg(case)
     t0 = time.perf_counter()
     model = Transformer(cfg, device="cuda", seed=0)
-    info = {}
+    info, states = {}, {}
     prompt = torch.randint(0, cfg.vocab_size,
-                           (EP_SERVE_P["batch"], EP_SERVE_P["prompt_len"]),
+                           (case["batch"], case["prompt_len"]),
                            generator=torch.Generator().manual_seed(0))
     tokens, logits = greedy_with_logits(torch, model, prompt.cuda(),
-                                        EP_SERVE_P["gen"], graph=False,
-                                        info=info)
+                                        case["gen"], graph=False,
+                                        info=info, states=states)
     top2 = logits.topk(2, dim=-1).values
     np.savez(path, tokens=tokens.numpy(), logits=logits.numpy(),
              margin=(top2[..., 0] - top2[..., 1]).numpy(),
-             cache_bytes=info["cache_bytes"])
+             cache_bytes=info["cache_bytes"],
+             **{state_key(when, p): t.numpy()
+                for when, leaves in states.items()
+                for p, t in leaves.items()})
     engine.clear_step_cache(model)
     del model
     release(torch)
     return time.perf_counter() - t0
 
 
-def ep_serve_positions(torch, rank, one_path):
-    """18e-p on one rank: starcoder2-3b at 1x4 in the ``positions`` form,
-    teacher-forced on one process's tokens (each step's logits against
-    that process's, argmax agreement where its top-2 margin clears the
-    bound), then ``generate`` greedy (its tokens, the prefill and decode
-    times, rank 0's launches); the cache bytes a rank against the dry
-    run's and one process's."""
+def ep_serve_state(torch, rank, name, one_path):
+    """18e-p, 18e-r, 18e-z or 18e-c (``name``, ``EP_SERVE_STATES``) on one
+    rank: the case's model at its mesh, every cache leaf stored by the
+    reference's cache rule, teacher-forced on one process's tokens (each
+    step's logits against that process's, argmax agreement where its
+    top-2 margin clears the bound) and its recurrent states on this rank
+    against their blocks of one process's after the prefill and after
+    the last step; then served greedy through ``launch.serve.run`` (its
+    tokens, prefill and decode times, this rank's launches); the cache
+    bytes a rank against the dry run's, the forms and state cuts."""
     import hashlib
 
     import numpy as np
+    from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.transformer import Transformer
     from repro_torch.serving import engine
+    case = EP_SERVE_STATES[name][0]
     one = np.load(one_path)
-    cfg = ep_serve_p_cfg()
-    mesh = make_mesh(EP_SERVE_P["mesh"], backend="gloo")
+    cfg = ep_state_cfg(case)
+    mesh = make_mesh(case["mesh"], backend="gloo")
     model = Transformer(cfg, mesh=mesh, seed=0)
-    S, gen = EP_SERVE_P["prompt_len"], EP_SERVE_P["gen"]
+    S, gen = case["prompt_len"], case["gen"]
     forced = torch.from_numpy(one["tokens"])
     ref = torch.from_numpy(one["logits"])
     scale = ref.abs().amax(dim=(1, 2))
-    info = {}
+    info, states = {}, {}
     _, logits = greedy_with_logits(torch, model, forced[:, :S].cuda(), gen,
-                                   forced=forced, info=info)
+                                   forced=forced, info=info, states=states)
     step_err = ((logits - ref).abs().amax(dim=(1, 2)) / scale).tolist()
     clear = torch.from_numpy(one["margin"]) > EP_SERVE_BOUND * scale[:, None]
     agree = logits.argmax(-1) == ref.argmax(-1)
-    stored = ep_serve_stored(model, cfg, False, EP_SERVE_P)
+    stored = ep_serve_stored(model, cfg, False, case)
+    lay = model.cache_layout(case["batch"], S + gen)
+    state_err = {}
+    for when, leaves in states.items():
+        for path, t in leaves.items():
+            whole = torch.from_numpy(one[state_key(when, path)])
+            blk = whole[lay.layout.block(path, whole.shape)]
+            state_err[state_key(when, path)] = float(
+                (t.float() - blk).abs().max() / blk.abs().max())
+    engine.clear_step_cache(model)
+    del model
+    release(torch)
     reset_counts()
     stats = {}
     t0 = time.perf_counter()
-    with torch.inference_mode():
-        tokens = engine.generate(model, forced[:, :S].cuda(), steps=gen,
-                                 stats=stats)
+    tokens = serve.run(case["arch"], smoke=False, batch=case["batch"],
+                       prompt_len=S, gen=gen, mesh_shape=case["mesh"],
+                       stats=stats, num_layers=case["layers"])
     wall = time.perf_counter() - t0
     counts = read_counts([k for k, _, _ in COUNTERS])
-    engine.clear_step_cache(model)
-    del model
     release(torch)
     return dict(step_err=step_err,
                 disagree_clear=int((~agree & clear).sum()),
                 near_ties=int((~clear).sum()),
                 logits_digest=hashlib.sha256(logits.numpy().tobytes()
                                              ).hexdigest(),
+                state_err=state_err, forms=list(lay.forms),
+                dims=list(lay.dims),
                 tokens=tokens.cpu().numpy().tolist(),
                 generated_eq_one_process=int((tokens.cpu()[:, S:]
                                               == forced[:, S:]).sum()),
@@ -7122,9 +7215,10 @@ def ep_rank(rank, refs):
     t0 = time.perf_counter()
     out["18e"] = ep_serve_run(torch, rank, refs["serve"])
     out["18e_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out["18e-p"] = ep_serve_positions(torch, rank, refs["serve_p"])
-    out["18e-p_s"] = time.perf_counter() - t0
+    for name in EP_SERVE_STATES:
+        t0 = time.perf_counter()
+        out[name] = ep_serve_state(torch, rank, name, refs[name])
+        out[f"{name}_s"] = time.perf_counter() - t0
     release(torch)
     out["18g-a"] = ep_cp_blocks(torch, rank, refs["cp"])
     t0 = time.perf_counter()
@@ -7228,7 +7322,7 @@ def phase_ep(torch, smi):
     out["parent_held_gib"] = held
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
         refs = {k: str(pathlib.Path(tmp) / f"{k}.npz")
-                for k in ("prefill", "decode", "serve", "serve_p")}
+                for k in ("prefill", "decode", "serve", *EP_SERVE_STATES)}
         refs["fsdp"] = str(pathlib.Path(tmp) / "fsdp_ckpt")
         refs["cp"] = str(pathlib.Path(tmp) / "cp_blocks")
         for tokens, n_glob in EP_TP_TOKENS:
@@ -7244,10 +7338,11 @@ def phase_ep(torch, smi):
         out["18e_kernel3_fslice_max_abs_err"] = ep_fslice_kernel3(torch)
         print(f"  18e one process ({EP_SERVE}): "
               f"{out['18e_one_process_s']:.1f} s")
-        out["18e-p_one_process_s"] = ep_serve_p_reference(torch,
-                                                          refs["serve_p"])
-        print(f"  18e-p one process ({EP_SERVE_P}): "
-              f"{out['18e-p_one_process_s']:.1f} s")
+        for name, (case, *_) in EP_SERVE_STATES.items():
+            out[f"{name}_one_process_s"] = ep_state_reference(
+                torch, refs[name], case)
+            print(f"  {name} one process ({case}): "
+                  f"{out[f'{name}_one_process_s']:.1f} s")
         print(f"phase 18: backend=gloo ranks={world} on 1 device: 18a-b at "
               f"meshes {EP_LAYER_MESHES}, 18d expert TP at {EP_TP_MESHES} "
               f"x {EP_TP_TOKENS} x {EP_TP_CASES} and the wire {EP_QWIRE} at "
@@ -7372,7 +7467,8 @@ def phase_ep(torch, smi):
                          profiled_rank0=prof)
     out["18d"] = report_ep_tp(ranks, smi, world)
     out["18e"] = report_ep_serve(ranks, smi, world)
-    out["18e-p"] = report_ep_serve_positions(ranks, smi, world)
+    for name in EP_SERVE_STATES:
+        out[name] = report_ep_serve_state(ranks, smi, world, name)
     out["18f"] = report_ep_fsdp(ranks, smi, world, one[0]["loss"],
                                 fsdp_parent)
     out["18g"] = report_ep_cp(ranks, smi, world, cp_one, cp_parent_s)
@@ -7511,49 +7607,70 @@ def report_ep_serve(ranks, smi, world):
         "launches_rank0": r0["counts"]}
 
 
-def report_ep_serve_positions(ranks, smi, world):
-    """18e-p's checks and printout: each step's teacher-forced logits
-    within ``EP_SERVE_BOUND`` of one process's, bitwise equal on the
-    ranks, the argmax equal past the margin, ``generate``'s tokens equal
-    on the ranks, the cache bytes a rank the dry run's and a quarter of
-    one process's key and value bytes, the positions form, kernel 7
-    launched on rank 0."""
-    res = [r["18e-p"] for r in ranks]
+def report_ep_serve_state(ranks, smi, world, name):
+    """18e-p, 18e-r, 18e-z or 18e-c's checks and printout: each step's
+    teacher-forced logits within ``EP_SERVE_BOUND`` of one process's,
+    bitwise equal on the ranks, the argmax equal past the margin, rank
+    0's recurrent states within ``state_bound`` of their blocks of one
+    process's after the prefill and after the last step, ``generate``'s
+    tokens equal on the ranks, the cache bytes a rank the dry run's and
+    the case's, the case's forms and state cuts, kernel 7 launched on
+    rank 0 where the case attends."""
+    case, forms, dims, cache_bytes = EP_SERVE_STATES[name]
+    res = [r[name] for r in ranks]
     r0 = res[0]
-    print(f"  18e-p, {EP_SERVE_P} [{smi}; {ep_label(world)}: host-staged], "
-          f"{max(r['18e-p_s'] for r in ranks):.1f} s:")
+    print(f"  {name}, {case} [{smi}; {ep_label(world)}: host-staged], "
+          f"{max(r[f'{name}_s'] for r in ranks):.1f} s:")
     for r, x in enumerate(res):
-        st = x["stored"]
         print(f"    rank {r}: step err / max|logit| "
               f"{[f'{e:.2e}' for e in x['step_err']]} (bound "
               f"{EP_SERVE_BOUND}); argmax differs at {x['disagree_clear']} "
               f"positions past the margin ({x['near_ties']} near-ties); "
               f"generated tokens equal to one process's "
               f"{x['generated_eq_one_process']} of "
-              f"{EP_SERVE_P['batch'] * EP_SERVE_P['gen']}; caches "
-              f"{x['cache_bytes']} bytes a rank, forms {st['forms']} (the "
-              f"dry run {st['caches_dry_run']}, one process "
-              f"{x['one_cache_bytes']}); prefill "
+              f"{case['batch'] * case['gen']}; caches {x['cache_bytes']} "
+              f"bytes a rank (the dry run {x['stored']['caches_dry_run']}, "
+              f"one process {x['one_cache_bytes']}), forms "
+              f"{sorted(set(x['forms']), key=str)}, state cuts "
+              f"{sorted(set(x['dims']))}; prefill "
               f"{1e3 * x['prefill_s']:.1f} ms, eager decode "
               f"{x['decode_ms']:.1f} ms a step, {x['wall_s']:.1f} s whole")
-    print(f"    rank 0 launches {r0['counts']}")
-    # the 0-d positions (4 bytes a layer) replicate on every rank
-    pos = 4 * EP_SERVE_P["layers"]
-    check(all(x["cache_bytes"] == x["stored"]["caches_dry_run"]
-              and 4 * (x["cache_bytes"] - pos) == x["one_cache_bytes"] - pos
-              and x["stored"]["forms"] == ["positions"] for x in res),
-          f"18e-p: the cache bytes a rank are not the dry run's and a "
-          f"quarter of one process's {[x['stored'] for x in res]}")
+    worst = {}                 # (after, leaf) -> (its worst key, error)
+    for k, v in r0["state_err"].items():
+        at = (k.split(".", 1)[0], k.rsplit(".", 1)[1])
+        if v >= worst.get(at, ("", -1.0))[1]:
+            worst[at] = (k, v)
+    print(f"    rank 0: {len(r0['state_err'])} state leaves against one "
+          f"process's blocks, the largest error / max "
+          + ("; ".join(f"after the {when} {leaf} {v:.2e} ({k}; bound "
+                       f"{state_bound(k)})"
+                       for (when, leaf), (k, v) in sorted(worst.items()))
+             or "none")
+          + f"; kernel 7 launches {r0['counts']['flash_fwd']}; launches "
+          f"{r0['counts']}")
+    check(all(x["cache_bytes"] == x["stored"]["caches_dry_run"] == cache_bytes
+              and x["cache_bytes"] < x["one_cache_bytes"] for x in res),
+          f"{name}: the cache bytes a rank are not the dry run's and "
+          f"{cache_bytes} {[x['stored'] for x in res]}")
+    check(all(sorted(set(x["forms"]), key=str) == sorted(forms, key=str)
+              and sorted(set(x["dims"])) == sorted(dims) for x in res),
+          f"{name}: forms {r0['forms']} and state cuts {r0['dims']}, not "
+          f"{forms} and {dims}")
     check(all(e <= EP_SERVE_BOUND for x in res for e in x["step_err"]),
-          f"18e-p: teacher-forced logits past the bound {r0['step_err']}")
+          f"{name}: teacher-forced logits past the bound {r0['step_err']}")
     check(len({x["logits_digest"] for x in res}) == 1,
-          "18e-p: the ranks' teacher-forced logits differ")
+          f"{name}: the ranks' teacher-forced logits differ")
     check(all(x["disagree_clear"] == 0 for x in res),
-          "18e-p: a greedy token differs from one process's past the margin")
+          f"{name}: a greedy token differs from one process's past the "
+          f"margin")
     check(all(x["tokens"] == r0["tokens"] for x in res),
-          "18e-p: the ranks' tokens differ")
-    check(r0["counts"]["flash_fwd"] > 0,
-          f"18e-p: kernel 7 was not launched on rank 0: {r0['counts']}")
+          f"{name}: the ranks' tokens differ")
+    check((len(r0["state_err"]) > 0) == any(dims)
+          and all(v <= state_bound(k) for k, v in r0["state_err"].items()),
+          f"{name}: rank 0's states against one process's {r0['state_err']}")
+    if any(f is not None for f in forms):
+        check(r0["counts"]["flash_fwd"] > 0,
+              f"{name}: kernel 7 was not launched on rank 0: {r0['counts']}")
     return {k: v for k, v in r0.items() if k != "tokens"} | {
         "cache_bytes": [x["cache_bytes"] for x in res]}
 

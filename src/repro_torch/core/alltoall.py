@@ -36,7 +36,9 @@ the expert-TP all-gathers and reduce-scatters, and the ZeRO-3 and
 row-group gathers and reduce-scatters of ``launch/shard.py``, the
 serving all-gathers (the MoE outputs over the group their tokens are
 duplicated on, a decode step's heads or partial softmax results over
-``model``, the sampled tokens over ``data``), the prefill's broadcast of
+``model``, a decode step's recurrent outputs and attention channel
+blocks over ``model`` and the sums of their partial results there, the
+sampled tokens over ``data``), the prefill's broadcast of
 the last position's hidden rows and the trainer's gradient all-reduces —
 as a :class:`Collective`: its kind, the axis its group
 spans, the group's size, the dtype on the wire and the shape of the
@@ -436,6 +438,16 @@ def gather_dim(x: torch.Tensor, group, n: int, dim: int,
     record("all_gather", axis, n, x.dtype, x.shape)
     out = _gather_raw(x.movedim(dim, 0), group, n)
     return out.movedim(0, dim).contiguous()
+
+
+def sum_over(x: torch.Tensor, group, n: int, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over the ``n``-rank ``group`` on every rank (a
+    copy; ``x`` is not written).  Not differentiable; logged as an
+    all-reduce over ``axis`` with ``x``'s shape."""
+    record("all_reduce", axis, n, x.dtype, x.shape)
+    y = x.contiguous().clone()
+    dist.all_reduce(y, group=group)
+    return y
 
 
 def exchange_uneven(x: torch.Tensor, send_counts, recv_counts, group,

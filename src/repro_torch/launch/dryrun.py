@@ -19,10 +19,8 @@ a shape (``launch/mesh.make_production_mesh``: 16x16, or 2x16x16 with
   dtype, the f32 leaves f32) by ``fsdp=needs_fsdp(4e9)`` and
   ``expert_tp`` for the decode step, as the reference's dry run stores
   it; the batch by ``batch_shardings``; a decode step's caches by the
-  port's served cache layout (``launch/shard.cache_layout_for``): the
-  reference's ``cache_shardings`` for the attention caches, and for the
-  recurrent states the port's rows over ``data`` (the reference also
-  cuts them over ``model``);
+  served cache layout (``launch/shard.cache_layout_for``): the
+  reference's ``cache_shardings``, every leaf;
 * **model FLOPs** (:func:`model_flops`, the reference's) and model FLOPs
   over chips;
 * **every bulk collective of one step**, from the port's plan (the
@@ -31,8 +29,11 @@ a shape (``launch/mesh.make_production_mesh``: 16x16, or 2x16x16 with
   the gradient all-reduces, expert TP's gathers and reduce-scatters,
   context parallelism's row gathers; serving's context-parallel prefill
   — k and v gathered over the model group, the last position's hidden
-  rows broadcast from its last rank — a decode step's gathers of the
-  heads' outputs or of the partial softmax results over ``model``, the
+  rows broadcast from its last rank — a decode step's collectives over
+  ``model`` of each cache's cut: the gathers of the heads' outputs or
+  of the partial softmax results, the channel cut's score sums and
+  output gathers, each recurrent state's output sum or gather and
+  Mamba's conv gather; the
   MoE outputs' all-gather over the group whose ranks hold the same
   tokens, and the sampled tokens' all-gather over ``data``): the
   same ``core/alltoall.Collective`` a rank logs when it runs the step
@@ -587,6 +588,69 @@ def _route_plan(plan: Plan, cfg, route, axes, dtype) -> None:
                  (len(route.back_idx), cfg.d_model), route.axis, route.n)
 
 
+def _state_plan(plan: Plan, cfg, kind: str, dims, b: int, dt) -> None:
+    """A decode step's collectives over ``model`` of a recurrent layer whose
+    state leaves are cut in ``dims`` (``CacheLayout.dims``): RWKV's
+    output summed (key dim) or gathered (heads, value dim); Mamba's conv
+    output gathered on its channels, or its carry on its positions, and
+    its y gathered (heads, head dim) or summed (state dim)."""
+    M = plan.mesh_shape["model"]
+    f32 = torch.float32
+    dims = dict(dims)
+
+    def out(shape, dim):
+        """The rank's f32 output, summed over a cut contracted dim (None)
+        or gathered on its block of ``dim``."""
+        if dim is None:
+            plan.add("all_reduce", ("model",), f32, shape)
+        else:
+            plan.add("all_gather", ("model",), f32, tuple(
+                n // M if i == dim else n for i, n in enumerate(shape)))
+    if kind == "rwkv":
+        H, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+        if "s" in dims:
+            out((b, H, hd), {1: 1, 2: None, 3: 2}[dims["s"]])
+        return
+    d_in = cfg.ssm.expand * cfg.d_model
+    C = d_in + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+    K = cfg.ssm.conv_width
+    if dims.get("conv") == 2:
+        plan.add("all_gather", ("model",), dt, (b, 1, C // M))
+    elif dims.get("conv") == 1:
+        plan.add("all_gather", ("model",), f32, (b, (K - 1) // M, C))
+    if "s" in dims:
+        out((b, d_in // cfg.ssm.head_dim, cfg.ssm.head_dim),
+            {1: 1, 2: 2, 3: None}[dims["s"]])
+
+
+def _cache_plan(plan: Plan, cfg, caches, i: int, b: int, dt) -> None:
+    """Layer ``i``'s decode collectives over ``model`` by its caches' cut
+    (``caches``, a ``launch/shard.CacheLayout``): its state leaves'
+    (:func:`_state_plan`), then its attention cache's — the heads'
+    outputs gathered (``heads``), the partial softmax results gathered
+    (``positions``), or the partial scores summed and the outputs'
+    channel blocks gathered (``channels``)."""
+    M = plan.mesh_shape["model"]
+    kind = T.layer_kinds(cfg)[i]
+    if kind in ("rwkv", "mamba", "mamba_sa"):
+        _state_plan(plan, cfg, kind, caches.dims[i], b, dt)
+    form = caches.forms[i]
+    if form in (None, "whole"):
+        return
+    H, hd = cfg.attention.num_heads, cfg.head_dim
+    if form == "heads":
+        plan.add("all_gather", ("model",), dt, (b, 1, H // M, hd))
+    elif form == "positions":
+        plan.add("all_gather", ("model",), torch.float32, (b, H, hd + 2))
+    elif form == "channels":
+        c = caches.shapes[i]
+        k = (c["sa"] if "sa" in c else c)["k"]
+        KV, L = k.shape[2], k.shape[1]
+        plan.add("all_reduce", ("model",), torch.float32,
+                 (b, KV, H // KV, 1, L))
+        plan.add("all_gather", ("model",), dt, (b, 1, H, hd // M))
+
+
 def serve_plan(cfg, layout: Optional[shard.Layout], shapes, B: int, S: int,
                *, decode: bool, long_context: bool = False,
                rank: int = 0) -> Plan:
@@ -598,8 +662,8 @@ def serve_plan(cfg, layout: Optional[shard.Layout], shapes, B: int, S: int,
     experts' stored f-slice under expert TP); in a prefill whose
     positions split over ``model`` (``launch/mesh.serve_block``) each
     block's row gather and the last hidden rows' broadcast; in a decode
-    step each attention cache's gather over ``model`` (its ``heads`` or
-    ``positions`` form, ``launch/shard.cache_layout_for``); each ``moe``
+    step each cache's collectives over ``model`` by its cut
+    (``launch/shard.cache_layout_for``, :func:`_cache_plan`); each ``moe``
     layer's exchanges, and the all-gather of its outputs over the group
     whose ranks hold its tokens alike, or its token route's exchanges
     (``moe.served_tokens``; the route's sizes are ``rank``'s)."""
@@ -631,13 +695,12 @@ def serve_plan(cfg, layout: Optional[shard.Layout], shapes, B: int, S: int,
         tokens = how.T
     blk = mesh_lib.TokenBlock(slice(0, b), slice(0, s_loc), M if split
                               else 1, S)
-    cuts = (shard.cache_layout_for(cfg, ms, B, S, long_context,
-                                   rank=rank).forms if decode else None)
+    caches = (shard.cache_layout_for(cfg, ms, B, S, long_context,
+                                     rank=rank) if decode else None)
     if gathered and cfg.frontend is None:
         plan.extend(gather_plan(layout, shapes, "embed", dt, stored)[0])
     moe_cfg = (None if cfg.moe is None
                else _resolved_moe(cfg, M, tokens))
-    a_cfg = cfg.attention
     for i, kind in enumerate(T.layer_kinds(cfg)):
         if gathered:
             plan.extend(gather_plan(layout, shapes, f"blocks/{i}", dt,
@@ -646,13 +709,8 @@ def serve_plan(cfg, layout: Optional[shard.Layout], shapes, B: int, S: int,
                 plan.extend(gather_plan(layout, shapes, "shared_attn", dt,
                                         stored)[0])
         plan.extend(_row_plan(cfg, kind, blk, dt, ms)[0])
-        form = None if cuts is None else cuts[i]
-        if form == "heads" and M > 1:
-            plan.add("all_gather", ("model",), dt,
-                     (b, 1, a_cfg.num_heads // M, cfg.head_dim))
-        elif form == "positions" and M > 1:
-            plan.add("all_gather", ("model",), torch.float32,
-                     (b, a_cfg.num_heads, cfg.head_dim + 2))
+        if caches is not None and M > 1:
+            _cache_plan(plan, cfg, caches, i, b, dt)
         if kind == "moe":
             plan.extend(moe_plan(moe_cfg, tokens, cfg.d_model, dt, ms,
                                  tp=tp and ms["data"] > 1,
@@ -761,8 +819,7 @@ def count_pair(cfg, shape: ShapeConfig, mesh_shape: Dict[str, int], *,
             tok.shape, tok.dtype)
         if cfg.has_decode:
             stored["caches"] = shard.cache_layout_for(
-                cfg, mesh_shape, B, S, long_context, rank=rank,
-                decode=decode).bytes
+                cfg, mesh_shape, B, S, long_context, rank=rank).bytes
         plan = serve_plan(cfg, layout, shapes, B, S, decode=decode,
                           long_context=long_context, rank=rank)
         rec.update(fsdp=fsdp, expert_tp=expert_tp)

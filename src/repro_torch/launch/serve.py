@@ -166,7 +166,8 @@ def run(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
     if mesh is not None and lead:
         lay = model.cache_layout(batch, prompt_len + gen)
         print(f"caches a rank: {lay.bytes} bytes (one process: "
-              f"{lay.whole_bytes}; forms {sorted(set(lay.forms) - {None})})")
+              f"{lay.whole_bytes}; forms {sorted(set(lay.forms) - {None})}, "
+              f"state cuts {sorted(set(lay.dims) - {()})})")
     clear_step_cache(model)        # the model's last user: free its steps
     if repeat > 1 and lead:
         warm = times[1:]

@@ -42,13 +42,16 @@ process with no group (a test, a one-process restore) can cut any rank's
 blocks; the collectives need the rank's ``launch/mesh.Mesh``.
 
 A served model's decode caches are stored by :func:`cache_layout_for`
-(a :class:`CacheLayout`): each attention cache leaf by the reference's
-``cache_spec`` — the rows over ``data``, then the kv heads (``heads``),
-else the cache's positions (``positions``), else its channels over
-``model`` — and each recurrent state by its rows over ``data`` only (its
-``model`` cut is not made yet: ROADMAP.md, Queue 1).  A ``channels``
-cut has no decode form and raises, naming the preset, the mesh and the
-cache's shape.
+(a :class:`CacheLayout`): every leaf by the reference's ``cache_spec``
+(``cache_shardings``) — the rows over ``data``, then ONE inner dim over
+``model``: dim −2 where it divides, else dim 1, else the last.  An
+attention cache (B, L, KV, hd) is so cut in its kv heads (``heads``),
+else its positions (``positions``), else its channels (``channels``);
+RWKV's ``s`` (B, H, hd_k, hd_v) in its key dim, else its heads;
+Mamba's ``s`` (B, H, hd, N) in its head dim, else its heads, else its
+state dim, and its ``conv`` (B, K−1, C) in its K−1 positions, else its
+channels; ``x_last`` (B, d) by its rows only.  Each layer's cut is a
+``models/cache_cut.CacheCut`` that the decode functions read.
 """
 from __future__ import annotations
 
@@ -62,7 +65,7 @@ import torch.distributed as dist
 from repro_torch.core import alltoall
 from repro_torch.core.alltoall import DTYPE_BYTES
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models.attention import CacheCut
+from repro_torch.models.cache_cut import FORM_DIMS, CacheCut
 from repro_torch.models.transformer import EXPERT_LEAVES, _F32_LEAVES
 
 # the gather order (the backward reduce-scatters in reverse)
@@ -418,8 +421,10 @@ def serve_layout_for(cfg, mesh, fsdp: Optional[bool] = False
 # the served decode caches
 # ---------------------------------------------------------------------------
 
-# the dim of an attention cache leaf (B, L, KV, hd) each form cuts over model
-CACHE_FORMS = {2: "heads", 1: "positions", 3: "channels"}
+# the form of an attention cache cut over model in each dim
+CACHE_FORMS = {dim: form for form, dim in FORM_DIMS.items()}
+# the recurrent state leaves a decode step can take cut over model
+STATE_LEAVES = ("s", "conv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -427,21 +432,26 @@ class CacheLayout:
     """A rank's storage of a served model's per-layer decode caches
     (``models/transformer.init_cache``'s tree, paths ``{layer}/k``,
     ``{layer}/sa/v``, ``{layer}/rwkv/s``, ...): ``layout`` holds each
-    leaf's spec and the block arithmetic, ``shapes`` the whole caches as
-    ``meta`` tensors, ``forms`` each layer's attention form (``heads``,
-    ``positions`` or ``whole``; None for a layer without an attention
-    cache), ``rows`` the rows of the ``batch`` the rank holds."""
+    leaf's spec (``launch/mesh.cache_spec``, the reference's
+    ``cache_shardings``) and the block arithmetic, ``shapes`` the whole
+    caches as ``meta`` tensors, ``forms`` each layer's attention form
+    (``heads``, ``positions``, ``channels`` or ``whole``; None for a
+    layer without an attention cache), ``dims`` each layer's recurrent
+    state leaves cut over ``model`` with the dim each is cut in, ``rows``
+    the rows of the ``batch`` the rank holds."""
     layout: Layout
     shapes: Any
     forms: Tuple[Optional[str], ...]
+    dims: Tuple[Tuple[Tuple[str, int], ...], ...]
     rows: slice
     batch: int
 
     @property
     def key(self) -> Tuple[Any, ...]:
-        """What a step cache's key holds of it: the forms, the rows and
-        the batch."""
-        return self.forms, (self.rows.start, self.rows.stop), self.batch
+        """What a step cache's key holds of it: the forms, the state
+        cuts, the rows and the batch."""
+        return (self.forms, self.dims, (self.rows.start, self.rows.stop),
+                self.batch)
 
     def leaves(self) -> List[Dict[str, Any]]:
         """Per leaf: ``path``, the whole ``shape``, its ``spec``, this
@@ -469,22 +479,21 @@ class CacheLayout:
             str(t.dtype).removeprefix("torch.")]
             for _, t in mesh_lib.tree_paths(self.shapes))
 
-    def cut(self, layer: int) -> Optional[CacheCut]:
-        """Layer ``layer``'s attention :class:`CacheCut` (None: no attention
-        cache)."""
-        form = self.forms[layer]
-        if form is None:
-            return None
-        c = self.shapes[layer]
-        k = (c["sa"] if "sa" in c else c)["k"]
-        M = self.layout.mesh_shape.get("model", 1)
+    def cut(self, layer: int) -> CacheCut:
+        """Layer ``layer``'s :class:`CacheCut`: its attention cache's form
+        (``whole`` for a layer without one) and its states' cut dims."""
+        form = self.forms[layer] or "whole"
         mesh = self.layout.mesh
-        if mesh is None or form == "whole":
-            return CacheCut("whole", length=k.shape[1])
-        return CacheCut(form, M, mesh.model_index, mesh.model_group,
-                        k.shape[1])
+        c = self.shapes[layer]
+        a = c["sa"] if "sa" in c else c
+        length = a["k"].shape[1] if "k" in a else 0
+        if mesh is None:
+            return CacheCut("whole", length=length)
+        return CacheCut(form, self.layout.mesh_shape.get("model", 1),
+                        mesh.model_index, mesh.model_group, length,
+                        self.dims[layer])
 
-    def cuts(self) -> List[Optional[CacheCut]]:
+    def cuts(self) -> List[CacheCut]:
         return [self.cut(i) for i in range(len(self.forms))]
 
     def empty(self, device) -> List[Dict[str, Any]]:
@@ -494,27 +503,20 @@ class CacheLayout:
             device=device), self.shapes)
 
 
-def cache_spec_of(mesh_shape: Dict[str, int], path: str, shape):
-    """The spec a served cache leaf is stored by: an attention leaf's
-    ``launch/mesh.cache_spec``; a recurrent state's rows over the data
-    axes only."""
-    parts = path.split("/")
-    if len(parts) > 2 and parts[1] in ("rwkv", "mamba"):
-        return mesh_lib.fit_spec(mesh_shape, (mesh_lib.dp_axes(mesh_shape),),
-                                 shape) if shape else ()
-    return mesh_lib.cache_spec(mesh_shape, shape)
+def _model_dim(spec) -> Optional[int]:
+    """The dim ``spec`` cuts over ``model`` (None: none)."""
+    dims = [d for d, e in enumerate(spec) if "model" in _axes(e)]
+    return dims[0] if dims else None
 
 
 def cache_layout_for(cfg, mesh, batch: int, cache_len: int,
                      long_context: bool = False, *,
-                     rank: Optional[int] = None,
-                     decode: bool = True) -> Optional[CacheLayout]:
+                     rank: Optional[int] = None) -> Optional[CacheLayout]:
     """This rank's :class:`CacheLayout` of ``cfg``'s decode caches of
     ``batch`` rows and ``cache_len`` positions on ``mesh`` (a
     ``launch/mesh.Mesh``, or a shape mapping counted as ``rank``, default
-    0); None without a mesh.  Raises ``ValueError`` for a ``channels``
-    cut (module docstring), unless ``decode`` is False (the dry run's
-    count of a prefill's caches, which no step decodes)."""
+    0); None without a mesh.  Every leaf is stored by
+    ``launch/mesh.cache_spec`` (module docstring)."""
     if mesh is None:
         return None
     from repro_torch.models import transformer as T
@@ -522,33 +524,25 @@ def cache_layout_for(cfg, mesh, batch: int, cache_len: int,
     if rank is None:
         rank = mesh.rank if isinstance(mesh, mesh_lib.Mesh) else 0
     dt = getattr(torch, cfg.dtype)
+    kinds = T.layer_kinds(cfg)
     shapes = [T.init_cache(cfg, kind, batch, cache_len,
                            long_context=long_context, dtype=dt, device="meta")
-              for kind in T.layer_kinds(cfg)]
-    specs = {p: cache_spec_of(shape, p, tuple(t.shape))
+              for kind in kinds]
+    specs = {p: mesh_lib.cache_spec(shape, tuple(t.shape))
              for p, t in mesh_lib.tree_paths(shapes)}
-    forms = []
-    for i, (c, kind) in enumerate(zip(shapes, T.layer_kinds(cfg),
-                                      strict=True)):
-        a = T.attention_cache(c, kind)
-        if a is None:
+    forms, dims = [], []
+    for i, kind in enumerate(kinds):
+        if T.attention_cache(shapes[i], kind) is None:
             forms.append(None)
-            continue
-        path = f"{i}/sa/k" if kind == "mamba_sa" else f"{i}/k"
-        dims = [d for d, e in enumerate(specs[path])
-                if "model" in (e if isinstance(e, tuple) else (e,))]
-        form = CACHE_FORMS[dims[0]] if dims else "whole"
-        if form == "channels" and decode:
-            raise ValueError(
-                f"{cfg.name}: on mesh {shape.get('data', 1)}x"
-                f"{shape.get('model', 1)} the attention cache {path} of shape "
-                f"{tuple(a['k'].shape)} is cut over model in its channels "
-                f"(neither its {a['k'].shape[2]} kv heads nor its "
-                f"{a['k'].shape[1]} positions divide over model="
-                f"{shape.get('model', 1)}); a decode step over a channel cut "
-                f"is not ported (ROADMAP.md, Queue 3)")
-        forms.append(form)
+        else:
+            dim = _model_dim(specs[f"{i}/sa/k" if kind == "mamba_sa"
+                                   else f"{i}/k"])
+            forms.append("whole" if dim is None else CACHE_FORMS[dim])
+        state = f"{i}/{'rwkv' if kind == 'rwkv' else 'mamba'}"
+        cut = [(name, _model_dim(specs[f"{state}/{name}"]))
+               for name in STATE_LEAVES if f"{state}/{name}" in specs]
+        dims.append(tuple((name, d) for name, d in cut if d is not None))
     real = mesh if isinstance(mesh, mesh_lib.Mesh) else None
     return CacheLayout(Layout(dict(shape), rank, False, specs, real), shapes,
-                       tuple(forms),
+                       tuple(forms), tuple(dims),
                        mesh_lib.served_rows(real or shape, batch), batch)

@@ -29,7 +29,7 @@ the reference chooses by its global S.
 Served across ranks, a rank stores only its block of each decode cache
 (``launch/shard.cache_layout_for``, the reference's ``cache_shardings``):
 its rows, and over the ``model`` group one inner dim, described by a
-:class:`CacheCut`.  ``heads``: the rank's kv heads (GQA groups are
+``models/cache_cut.CacheCut``.  ``heads``: the rank's kv heads (GQA groups are
 contiguous, so kv heads ``[m·KV/M, (m+1)·KV/M)`` serve query heads
 ``[m·H/M, (m+1)·H/M)``): a decode step computes q, k and v for those heads
 only, from column views of the whole ``wq``/``wk``/``wv``, attends over
@@ -37,17 +37,22 @@ its cache slice, all-gathers the heads' outputs over ``model`` and
 applies the whole ``wo``.  ``positions``: the rank's W/M of the cache's
 slots: the slot's owner writes the new k/v, every rank attends over its
 slots and returns ``(o, row max, row sum)`` in f32, and the partial
-results are merged over ``model`` by the log-sum-exp rule.  ``whole``:
-no cut over ``model`` (one model rank, or no inner dim divides).  A
-channel cut (``channels``) has no decode form here and is refused where
-the layout is made.  :func:`fill_cache` writes the rank's block of a
-prefill's whole-row keys and values.
+results are merged over ``model`` by the log-sum-exp rule.
+``channels`` (neither the kv heads nor the slots divide): the rank's
+hd/M of each head's channels: q, k and v are computed whole (RoPE pairs
+channels across the head), every rank writes its channel block of the
+new k and v, the partial scores ``q_blk · k_blkᵀ`` are summed over
+``model`` in f32 before the scale, softcap, mask and softmax, and the
+rank's ``p · v_blk`` is all-gathered on hd before the whole ``wo``.
+``whole``: no cut over ``model`` (one model rank, or no inner dim
+divides).  :func:`fill_cache` writes the rank's block of a prefill's
+whole-row keys and values.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -55,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import draw
 from repro_torch.core.config import AttentionConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.cache_cut import CacheCut
 from repro_torch.models.layers import rms_norm, softcap as _softcap
 
 
@@ -110,14 +116,19 @@ def _qkv(params, x, cfg: AttentionConfig, positions):
 
 
 def _attend(q, k, v, q_pos, k_pos, *, causal: bool, window: Optional[int],
-            cap: Optional[float], scale: float):
+            cap: Optional[float], scale: float, partial=None):
     """q (B,Q,H,hd), k/v (B,S,KV,hd), positions (Q,)/(S,); k_pos < 0 marks
     an invalid slot.  GQA: head h reads kv head h // (H/KV).  Scores and
-    softmax in f32, the value product in v's dtype.  Returns (B,Q,H,hd)."""
+    softmax in f32, the value product in v's dtype.  ``partial``: q and k
+    are blocks of the head's channels, and ``partial`` sums their f32
+    scores over the blocks before the scale.  Returns (B,Q,H,hd)."""
     B, Q, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Q, KV, H // KV, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    if partial is not None:
+        s = partial(s)
+    s = s * scale
     if cap is not None:
         s = _softcap(s, cap)
     m = (k_pos >= 0)[None, :]
@@ -211,24 +222,6 @@ def _flash_path(q, k, v, q_pos, k_pos, *, causal, window, cap, scale):
 # on the host, so a CUDA graph can hold the step (serving/engine.py).
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
-class CacheCut:
-    """This rank's cut of one attention cache over the ``model`` group
-    (module docstring): ``form`` ``"heads"``, ``"positions"`` or
-    ``"whole"``; ``n`` the ranks of the group, ``index`` this rank's place
-    in it, ``group`` its process group (the collectives'), ``length`` the
-    whole cache's slots (a ring's W included)."""
-    form: str
-    n: int = 1
-    index: int = 0
-    group: Any = None
-    length: int = 0
-
-    @property
-    def cuts(self) -> bool:
-        return self.form != "whole" and self.n > 1
-
-
 def init_cache(cfg: AttentionConfig, batch: int, cache_len: int,
                d_model: int, dtype, device=None) -> Dict[str, object]:
     hd = cfg.head_dim or d_model // cfg.num_heads
@@ -262,13 +255,12 @@ def fill_cache(cache: Dict[str, object], kv: Dict[str, torch.Tensor], *,
     arithmetic continues after a prefill of S >= W tokens, of which it
     keeps the last W (the reference's ``fill_cache(ring=True)``).  With
     ``cut`` the cache is this rank's block and ``kv`` the whole rows':
-    the rank's kv heads of them, or its slots of the whole cache's image
-    (a ring's rolled first, then cut)."""
+    the rank's kv heads or channels of them, or its slots of the whole
+    cache's image (a ring's rolled first, then cut)."""
     S = kv["k"].shape[1]
     W = cache_length(cache, cut)
-    if cut is not None and cut.cuts and cut.form == "heads":
-        heads = _cut_slice(cut, kv["k"].shape[2])
-        kv = {n: kv[n][:, :, heads] for n in ("k", "v")}
+    if cut is not None and cut.block_dim is not None:
+        kv = {n: cut.take(kv[n], cut.block_dim) for n in ("k", "v")}
     slots = (_cut_slice(cut, W) if cut is not None
              and cut.form == "positions" else slice(0, W))
     if ring and S >= W:
@@ -311,19 +303,26 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     (the host mirrors of ``engine.generate`` and ``SlotServer``).
     ``cut``: the cache is this rank's block over the ``model`` group, in
     the ``heads`` form (q, k and v of the rank's heads, their outputs
-    all-gathered over ``model`` before the whole ``wo``) or the
-    ``positions`` form (module docstring)."""
+    all-gathered over ``model`` before the whole ``wo``), the
+    ``channels`` form (the partial scores summed over ``model``, the
+    outputs' channel blocks all-gathered) or the ``positions`` form
+    (module docstring)."""
     B, one, d = x.shape
     if one != 1:
         raise ValueError(f"decode_attention takes one token, got {one}")
-    heads = cut is not None and cut.cuts and cut.form == "heads"
-    if cut is not None and cut.cuts and not heads:
+    form = cut.form if cut is not None and cut.cuts else "whole"
+    if form == "positions":
         return _decode_positions(params, x, cache, cfg, ring, window, cut)
-    proj, acfg = _head_view(params, cfg, cut, d) if heads else (params, cfg)
+    proj, acfg = (_head_view(params, cfg, cut, d) if form == "heads"
+                  else (params, cfg))
     pos = cache["pos"]
     W = cache["k"].shape[1]
     pos_t = pos.reshape(1)
     q, k_new, v_new = _qkv(proj, x, acfg, pos_t[None, :])
+    scale = q.shape[-1] ** -0.5
+    if form == "channels":
+        q, k_new, v_new = (cut.take(t, cut.block_dim)
+                           for t in (q, k_new, v_new))
     slot = (torch.remainder(pos_t, W) if ring else pos_t).long()
     cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
     cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
@@ -331,10 +330,10 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     k_pos = _slot_positions(pos, idx, W, ring)
     win = window if window is not None else cfg.window
     o = _attend(q, cache["k"], cache["v"], pos_t, k_pos, causal=True,
-                window=win, cap=cfg.attn_softcap, scale=q.shape[-1] ** -0.5)
-    if heads:
-        from repro_torch.core import alltoall
-        o = alltoall.gather_dim(o, cut.group, cut.n, 2, "model")
+                window=win, cap=cfg.attn_softcap, scale=scale,
+                partial=cut.sum if form == "channels" else None)
+    if cut is not None and cut.block_dim is not None:
+        o = cut.gather(o, cut.block_dim)
     y = o.reshape(B, 1, -1).to(x.dtype) @ params["wo"].to(x.dtype)
     pos.add_(1)
     return y, cache

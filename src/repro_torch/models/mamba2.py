@@ -30,8 +30,11 @@ chunk.  The scan runs in f32; ``A_log``, ``D``,
 ``dt_bias`` and ``norm`` are used in f32 whatever the compute dtype.
 
 Used by zamba2 (``models/transformer.py``: ``mamba`` and ``mamba_sa``).
-The reference's ``_head_constraint`` is a sharding hint for a device mesh,
-which the one-device port does not have.
+The reference's ``_head_constraint`` is a sharding hint for a device mesh:
+the port's training runs each recurrent block over whole rows.  Served
+across ranks, a decode step runs on the rank's block of the state over
+the ``model`` group (:func:`mamba_decode_step`), as the reference's
+``cache_shardings`` stores it.
 """
 from __future__ import annotations
 
@@ -192,27 +195,80 @@ def init_mamba_state(cfg: SSMConfig, batch: int, d: int,
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _conv_step(p, xBC, conv, cut):
+    """The decode step's conv of the token's whole ``xBC`` (B, 1, C) over
+    ``conv``, the rank's block of the carry under ``cut``: cut in its
+    channels (dim 2), the rank's channels run on its block and their
+    outputs all-gathered; cut in its K-1 positions (dim 1), the carry
+    all-gathered first and the rank's block of the new one kept.
+    Returns (the whole output, the rank's block of the new carry)."""
+    dim = None if cut is None else cut.dim("conv")
+    if dim == 2:
+        out, new = _causal_conv(cut.take(xBC, 2), cut.take(p["conv_w"], 1),
+                                cut.take(p["conv_b"], 0), state=conv)
+        return cut.gather(out, 2), new
+    if dim == 1:
+        out, new = _causal_conv(xBC, p["conv_w"], p["conv_b"],
+                                state=cut.gather(conv, 1))
+        return out, cut.take(new, 1)
+    return _causal_conv(xBC, p["conv_w"], p["conv_b"], state=conv)
+
+
+def _ssm_heads(cut, s, x, Bm, Cm, dt, a, R: int):
+    """The state update and ``S C`` of the rank's heads (``s`` cut in dim
+    1), each head's B and C taken from its group ``h // R``: (y of the
+    rank's heads (B, H/M, hd), their new state)."""
+    heads = cut.take(torch.arange(x.shape[1], device=x.device), 0)
+    Bh, Ch = Bm[:, heads // R], Cm[:, heads // R]          # (B,H/M,N)
+    xdt = cut.take(x * dt[..., None], 1)
+    s_new = cut.take(a, 1)[..., None, None] * s + torch.einsum(
+        "bhp,bhn->bhpn", xdt, Bh)
+    return torch.einsum("bhpn,bhn->bhp", s_new, Ch), s_new
+
+
 def mamba_decode_step(p: Dict[str, torch.Tensor], u: torch.Tensor, state,
-                      cfg: SSMConfig, d: int
+                      cfg: SSMConfig, d: int, cut=None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One token.  u (B, 1, d) → (y (B, 1, d), the new state)."""
+    """One token.  u (B, 1, d) → (y (B, 1, d), the new state).  ``cut``
+    (an ``cache_cut.CacheCut`` whose ``dim("s")`` / ``dim("conv")`` are
+    set): the state is this rank's block over the ``model`` group
+    (:func:`_conv_step` for ``conv``); ``s`` cut in its heads (dim 1,
+    each head's B and C from its group), its head dim (2) or its state
+    dim (3).  The rank updates its block of ``s``; y is all-gathered on
+    the heads or the head dim, or, over a cut state dim (a contracted
+    dim), its partial sums are added over the group in f32 before
+    ``D x``."""
     B = u.shape[0]
     d_in, H, G, N = _dims(cfg, d)
     hd = cfg.head_dim
     R = H // G
     z, xBC, dt = _split_proj(p, u, cfg, d)
-    xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"],
-                                   state=state["conv"])
+    xBC, conv_state = _conv_step(p, xBC, state["conv"], cut)
     x = xBC[:, 0, :d_in].reshape(B, H, hd).float()
     Bm = xBC[:, 0, d_in:d_in + G * N].reshape(B, G, N).float()
     Cm = xBC[:, 0, d_in + G * N:].reshape(B, G, N).float()
     dt = F.softplus(dt[:, 0].float() + p["dt_bias"].float())    # (B,H)
     a = torch.exp(-torch.exp(p["A_log"].float())[None] * dt)
-    xdt = (x * dt[..., None]).reshape(B, G, R, hd)
-    s_new = a[..., None, None] * state["s"] + torch.einsum(
-        "bgrp,bgn->bgrpn", xdt, Bm).reshape(B, H, hd, N)
-    y = torch.einsum("bgrpn,bgn->bgrp", s_new.reshape(B, G, R, hd, N),
-                     Cm).reshape(B, H, hd) + p["D"].float()[None, :, None] * x
+    Dx = p["D"].float()[None, :, None] * x
+    dim = None if cut is None else cut.dim("s")
+    if dim == 1:
+        y, s_new = _ssm_heads(cut, state["s"], x, Bm, Cm, dt, a, R)
+        y = cut.gather(y + cut.take(Dx, 1), 1)
+    else:
+        if dim == 2:
+            x, Dx = cut.take(x, 2), cut.take(Dx, 2)
+        elif dim == 3:
+            Bm, Cm = cut.take(Bm, 2), cut.take(Cm, 2)
+        xdt = (x * dt[..., None]).reshape(B, G, R, -1)
+        s_new = a[..., None, None] * state["s"] + torch.einsum(
+            "bgrp,bgn->bgrpn", xdt, Bm).reshape(state["s"].shape)
+        y = torch.einsum("bgrpn,bgn->bgrp", s_new.reshape(
+            B, G, R, *s_new.shape[2:]), Cm).reshape(B, H, -1)
+        if dim == 3:
+            y = cut.sum(y)
+        y = y + Dx
+        if dim == 2:
+            y = cut.gather(y, 2)
     y = y.reshape(B, 1, d_in).to(u.dtype)
     y = rms_norm(y * F.silu(z), p["norm"])
     return y @ p["w_out"].to(u.dtype), {"s": s_new, "conv": conv_state,

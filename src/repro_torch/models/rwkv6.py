@@ -26,8 +26,11 @@ and the decay LoRA (``decay_a``, ``decay_b``, ``w0``), ``u`` and ``ln_x``
 are used in f32 whatever the compute dtype.
 
 Decode (:func:`rwkv_decode_step`) is the raw recurrence: O(1) time and
-memory per token.  Both return the new state; the caller writes it into
-its cache (``models/transformer.py``, in place).
+memory per token, on the whole state or, served across ranks, on the
+rank's block of it over the ``model`` group (the reference's
+``cache_shardings`` cuts the key dim where it divides).  Both return the
+new state; the caller writes it into its cache
+(``models/transformer.py``, in place).
 """
 from __future__ import annotations
 
@@ -176,21 +179,39 @@ def init_rwkv_state(cfg: RWKVConfig, batch: int, d: int,
 
 
 def rwkv_decode_step(p: Dict[str, torch.Tensor], x: torch.Tensor, state,
-                     cfg: RWKVConfig
+                     cfg: RWKVConfig, cut=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token.  x (B, 1, d); state {s (B, H, hd, hd), x_last (B, d)}
-    → (y (B, 1, d), the new state)."""
+    → (y (B, 1, d), the new state).  ``cut`` (an ``cache_cut.CacheCut``
+    whose ``dim("s")`` is set): ``s`` is this rank's block over the
+    ``model`` group, cut in its heads (dim 1), its key dim (2) or its
+    value dim (3).  The token's projections are whole; the rank takes
+    its block of them, updates its block of the state, and the output
+    meets the other ranks' before the group norm: all-gathered on the
+    heads or the value dim, or, over a cut key dim (a contracted dim),
+    the partial sums added over the group in f32."""
     B, one, d = x.shape
     H, hd = d // cfg.head_dim, cfg.head_dim
     x_prev = state["x_last"].to(x.dtype)[:, None]
     r, k, v, logw, g = _rkvwg(p, x, x_prev, H, hd)
     r, k, v = (a.float()[:, 0] for a in (r, k, v))              # (B,H,hd)
     w = torch.exp(logw[:, 0])
-    u = p["u"].float().reshape(H, hd)
+    u = p["u"].float().reshape(H, hd)[None]                     # (1,H,hd)
+    dim = None if cut is None else cut.dim("s")
+    if dim == 1:
+        r, k, v, w, u = (cut.take(a, 1) for a in (r, k, v, w, u))
+    elif dim == 2:
+        r, k, w, u = (cut.take(a, 2) for a in (r, k, w, u))
+    elif dim == 3:
+        v = cut.take(v, 2)
     S0 = state["s"]
     kv = torch.einsum("bhc,bhv->bhcv", k, v)
-    o = torch.einsum("bhc,bhcv->bhv", r, S0 + u[None, :, :, None] * kv)
+    o = torch.einsum("bhc,bhcv->bhv", r, S0 + u[..., None] * kv)
     s_new = w[..., None] * S0 + kv
+    if dim == 2:
+        o = cut.sum(o)
+    elif dim is not None:
+        o = cut.gather(o, dim - (dim == 3))
     o = _group_norm(o, p["ln_x"], H, hd)
     y = (o.reshape(B, 1, d).to(x.dtype) * g) @ p["wo"].to(x.dtype)
     return y, {"s": s_new, "x_last": x[:, 0].float()}

@@ -66,9 +66,11 @@ activations are its data rank's rows of the batch (whole where they do
 not divide over ``data``), and in the prefill its model rank's chunk of
 their positions (``launch/mesh.serve_block``: attention context-parallel
 over the model group, recurrent blocks over gathered whole rows); its
-caches are its blocks by ``launch/shard.cache_layout_for`` (attention:
-the kv heads or the positions over ``model``, ``models/attention``'s
-``CacheCut``; recurrent states: the rows).  A ``moe`` block routes the
+caches are its blocks by ``launch/shard.cache_layout_for``, the
+reference's ``cache_shardings``: its rows, and over ``model`` one inner
+dim of each leaf (an attention cache's kv heads, positions or channels;
+RWKV's key dim, Mamba's head dim and conv channels where they divide),
+described per layer by ``models/cache_cut.CacheCut``.  A ``moe`` block routes the
 reference's block of the flattened tokens on every rank
 (``moe.served_tokens``): the rank's own tokens where they are that
 block, its cut of the tokens its group holds alike (a decode step's rows
@@ -174,7 +176,7 @@ def linear_capacity(cfg: ModelConfig, caches,
     """The positions ``caches`` hold before the shortest linear attention
     cache is full; None when every attention cache is a ring, which never
     fills, or there is none (a recurrent state never fills).  ``cuts``:
-    each layer's ``attention.CacheCut`` when the caches are a rank's
+    each layer's ``cache_cut.CacheCut`` when the caches are a rank's
     blocks."""
     lens = []
     cuts = cuts or [None] * len(caches)
@@ -352,19 +354,23 @@ def init_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
 
 
 def _write_state(cache: Dict[str, torch.Tensor],
-                 new: Dict[str, torch.Tensor]) -> None:
+                 new: Dict[str, torch.Tensor], cut=None) -> None:
     """Copy a recurrent state into its cache's tensors, in place (the new
     tensors are never views of the cache's, so no copy reads what an
-    earlier one wrote)."""
+    earlier one wrote).  ``cut`` (an ``cache_cut.CacheCut``): the cache
+    is this rank's block over ``model`` and ``new`` a prefill's whole
+    state of the rank's rows, of which the block is written (a decode
+    step's new state is the block already: ``cut=None``)."""
     for name, t in new.items():
-        cache[name].copy_(t)
+        dim = None if cut is None else cut.dim(name)
+        cache[name].copy_(t if dim is None else cut.take(t, dim))
 
 
 def _attention(p, h, cfg: ModelConfig, window, *, positions, cache,
                decode: bool, causal: bool, block=None, cut=None):
     """Attention over ``window``: a decode step into ``cache``, or a full
     pass that fills ``cache`` when given (context-parallel over ``block``'s
-    row group when it splits rows); ``cut`` (an ``attention.CacheCut``):
+    row group when it splits rows); ``cut`` (an ``cache_cut.CacheCut``):
     the cache is the rank's block over ``model``.  Returns (y, cache)."""
     if decode:
         return attn_lib.decode_attention(p, h, cache, cfg.attention,
@@ -405,8 +411,8 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     row group, and a recurrent block (``rwkv``, ``mamba``, ``mamba_sa``)
     gathers its input's whole rows over the group, runs them and keeps
     its chunk (:func:`_whole_rows`).  ``cut`` (an
-    ``attention.CacheCut``): the layer's attention cache is the rank's
-    block over ``model``.  Returns (x, cache, aux); a block
+    ``cache_cut.CacheCut``): the layer's caches are the rank's blocks
+    over ``model`` (its attention cache's form, its states' dims).  Returns (x, cache, aux); a block
     without a MoE layer has no aux loss (None: the reference adds its
     zero)."""
     if kind in ("rwkv", "mamba", "mamba_sa") and block is not None \
@@ -414,7 +420,7 @@ def block_forward(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
         return _whole_rows(p, x, cfg, kind, block, cache, decode,
                            long_context, shared, cut)
     if kind == "rwkv":
-        return _rwkv_block(p, x, cfg, cache, decode)
+        return _rwkv_block(p, x, cfg, cache, decode, cut)
     if kind in ("mamba", "mamba_sa"):
         return _mamba_block(p, x, cfg, kind, cache, decode, positions,
                             long_context, shared, cut)
@@ -450,15 +456,15 @@ def _whole_rows(p, x, cfg: ModelConfig, kind: str, block, cache,
     gradient reduce-scattered back), the block run over them, this rank's
     chunk of the output kept — the gather XLA inserts for these blocks in
     the reference (``shard_act``), not a parallel scan.  A prefill fills
-    ``cache`` from the whole rows: the state of the rank's rows, and
-    ``mamba_sa``'s attention cache cut by ``cut``."""
+    ``cache`` from the whole rows: the rank's block by ``cut`` of the
+    state of its rows, and of ``mamba_sa``'s attention cache."""
     if decode:
         raise ValueError(f"a {kind} block over a split row runs full "
                          f"passes only (no decode step)")
     from repro_torch.launch import shard
     xw = shard.row_gather(x, block, dim=1)
     if kind == "rwkv":
-        y, cache, _ = _rwkv_block(p, xw, cfg, cache, False)
+        y, cache, _ = _rwkv_block(p, xw, cfg, cache, False, cut)
     else:
         pos = torch.arange(block.S, dtype=torch.int32, device=x.device)
         y, cache, _ = _mamba_block(p, xw, cfg, kind, cache, False, pos,
@@ -466,19 +472,21 @@ def _whole_rows(p, x, cfg: ModelConfig, kind: str, block, cache,
     return y[:, block.seq], cache, None
 
 
-def _rwkv_block(p, x, cfg: ModelConfig, cache, decode: bool):
+def _rwkv_block(p, x, cfg: ModelConfig, cache, decode: bool, cut=None):
     """The time mix over ln1, then ln2 and the MLP as the channel mix.
     The cache keeps the final state and ``x_last``, the last token's
-    normed input (what the next token's shift reads)."""
+    normed input (what the next token's shift reads); ``cut``: the
+    state is the rank's block over ``model``."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if decode:
         y, state = rwkv6.rwkv_decode_step(p["rwkv"], h, cache["rwkv"],
-                                          cfg.rwkv)
+                                          cfg.rwkv, cut)
         _write_state(cache["rwkv"], state)
     else:
         y, s = rwkv6.rwkv_time_mix(p["rwkv"], h, cfg.rwkv)
         if cache is not None:
-            _write_state(cache["rwkv"], {"s": s, "x_last": h[:, -1].float()})
+            _write_state(cache["rwkv"], {"s": s, "x_last": h[:, -1].float()},
+                         cut)
     x = x + y
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + layers.apply_mlp(p["mlp"], h, cfg.act), cache, None
@@ -488,17 +496,18 @@ def _mamba_block(p, x, cfg: ModelConfig, kind: str, cache, decode: bool,
                  positions, long_context: bool, shared, cut=None):
     """The Mamba-2 block over ln1; for ``mamba_sa`` then the shared
     attention block over ``sa_ln`` + the layer's LoRA + the shared
-    ``ln``."""
+    ``ln``.  ``cut``: the layer's caches are the rank's blocks over
+    ``model`` (the state's and the shared attention's)."""
     d = cfg.d_model
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if decode:
         y, state = mamba2.mamba_decode_step(p["mamba"], h, cache["mamba"],
-                                            cfg.ssm, d)
+                                            cfg.ssm, d, cut)
         _write_state(cache["mamba"], state)
     else:
         y, state = mamba2.mamba_forward(p["mamba"], h, cfg.ssm, d)
         if cache is not None:
-            _write_state(cache["mamba"], state)
+            _write_state(cache["mamba"], state, cut)
     x = x + y
     if kind == "mamba_sa":
         h = layers.rms_norm(x, p["sa_ln"], cfg.norm_eps)
@@ -554,7 +563,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     ``served`` (serving) brings the ``moe`` blocks' tokens to the
     reference's blocks (:func:`block_forward`).  ``cuts`` (serving across
     ranks): each layer's
-    ``attention.CacheCut`` of its cache, the rank's block.  ``layout`` (a
+    ``cache_cut.CacheCut`` of its cache, the rank's block.  ``layout`` (a
     ``launch/shard.Layout``) says how ``params`` are stored across the
     ranks; when it gathers leaves (FSDP) every block runs in a
     ``torch.utils.checkpoint`` region that gathers its weights first
@@ -835,8 +844,7 @@ class Transformer(nn.Module):
     def cache_layout(self, batch: int, cache_len: int,
                      long_context: bool = False):
         """This rank's ``launch/shard.CacheLayout`` of caches of ``batch``
-        rows and ``cache_len`` positions (None without a mesh): raises
-        ``ValueError`` for a channel cut."""
+        rows and ``cache_len`` positions (None without a mesh)."""
         if self.mesh is None:
             return None
         key = (batch, cache_len, long_context)
@@ -870,7 +878,8 @@ class Transformer(nn.Module):
         when that is the window) and ``cache_len`` for the others, the
         recurrent states of ``rwkv`` and ``mamba`` layers; each position a
         0-d int32 tensor on the device.  With a mesh, this rank's blocks
-        of them (:meth:`cache_layout`)."""
+        of them (:meth:`cache_layout`: the reference's ``cache_shardings``
+        for every leaf)."""
         layout = self.cache_layout(batch, cache_len, long_context)
         if layout is not None:
             return ServedCaches(layout.empty(self.device), layout)
@@ -955,8 +964,10 @@ class Transformer(nn.Module):
         drawn here when not given; the step reads nothing on the host.
         Across ranks ``token`` is this rank's rows and ``caches`` its
         blocks (:meth:`init_caches`); each attention layer attends over
-        the rank's cache block (its kv heads or its positions), the
-        ``moe`` blocks route the reference's tokens
+        the rank's cache block (its kv heads, positions or channels),
+        each recurrent layer steps the rank's block of its state (the
+        layer's ``cache_cut.CacheCut``), the ``moe`` blocks route the
+        reference's tokens
         (:meth:`served_tokens`) and run expert TP on the stored f-slice when
         the layout stores one, and the leaves ``fsdp`` shards are gathered
         block by block."""

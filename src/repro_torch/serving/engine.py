@@ -532,7 +532,9 @@ def put_slot(caches, sub, slot: int, rows: Optional[slice] = None) -> None:
     ``put`` in ``build_slot_prefill``.  ``rows`` (across ranks: the slots
     ``caches`` hold, a ``DecodeStep.rows``): the row is written only where
     the slot is held, at its local index; ``sub`` is cut over ``model`` as
-    ``caches`` are (the same inner dims cut alike)."""
+    ``caches`` are (the same inner dims cut alike: the slot prefill wrote
+    the rank's block of each attention cache and recurrent state of its
+    whole row), so every leaf's row is copied as it is."""
     rows = rows or slice(0, None)
     held = rows.start <= slot and (rows.stop is None or slot < rows.stop)
     for full, one in zip(_cache_leaves(caches), _cache_leaves(sub),

@@ -154,6 +154,51 @@ def test_input_specs_equal_the_references(ref, shape):
                         arch, s, path, spec[path], w.sharding.spec)
 
 
+class _ShapeMesh:
+    """A mesh's axis names and sizes, all the reference's cache rule reads
+    of it (no 256 devices are needed to count its blocks)."""
+
+    def __init__(self, shape):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+@pytest.mark.parametrize("s", ["decode_32k", "long_500k"])
+def test_recurrent_cache_bytes_are_the_references_rule(ref, monkeypatch,
+                                                       arch, s):
+    """At 16x16 the dry run's ``caches`` a rank equal the bytes a device
+    holds of the reference's stacked caches (``init_caches``) by its own
+    ``cache_shardings``: the recurrent states cut over ``model`` too
+    (RWKV's key dim, Mamba's head dim and conv channels), not by rows
+    only."""
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec
+    from repro.models import transformer as JT
+    monkeypatch.setattr(ref.mesh_lib, "NamedSharding",
+                        lambda mesh, spec: spec)
+    big = _ShapeMesh({"data": 16, "model": 16})
+    jc, tc = jconfigs.get_config(arch), configs.get_config(arch)
+    shape = tconfig.INPUT_SHAPES[s]
+    caches = jax.eval_shape(lambda: JT.init_caches(
+        jc, shape.global_batch, shape.seq_len,
+        long_context=s == "long_500k", dtype=jnp.dtype(jc.dtype)))
+    specs = ref.mesh_lib.cache_shardings(big, caches)
+    want = 0
+    for leaf, spec in zip(jax.tree.leaves(caches), jax.tree.leaves(
+            specs, is_leaf=lambda x: isinstance(x, PartitionSpec)),
+            strict=True):
+        n = math.prod(big.shape[a] for e in spec if e is not None
+                      for a in (e if isinstance(e, tuple) else (e,)))
+        want += math.prod(leaf.shape) // n * leaf.dtype.itemsize
+    rec = dryrun.count_pair(tc, shape, dict(big.shape), fsdp=False,
+                            long_context=s == "long_500k")
+    assert rec["stored_bytes"]["caches"] == want
+    rows = dryrun.count_pair(tc, shape, {"data": 16, "model": 1},
+                             fsdp=False, long_context=s == "long_500k")
+    assert want < rows["stored_bytes"]["caches"]
+
+
 def test_production_meshes():
     """The reference's production meshes as shapes: 16x16, and 2x16x16
     with the pod axis outermost, which batches shard over with data."""

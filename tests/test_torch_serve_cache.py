@@ -15,7 +15,8 @@ positions do (``positions``).  Each rank holds its data rank's rows,
 prefills its model rank's chunk of their positions (k and v gathered
 over the model group), and routes the reference's block of the tokens in
 every ``moe`` block.  With the grouped dispatch no token is dropped, so
-one process's tokens are the reference's at any mesh."""
+one process's tokens are the reference's at any mesh.  A run into caches
+of 10 positions puts the 1x4 caches in their channels (``channels``)."""
 import collections
 import dataclasses
 import pickle
@@ -132,6 +133,10 @@ def served(tmp_path_factory):
             keep_caches=True)
         one[name]["slot"] = torch_ranks.slot_outputs(model,
                                                      *slot_run[name])
+        one[name]["channels"] = torch_ranks._served_run(
+            model, torch.from_numpy(prompts[name][:, :torch_ranks
+                                                  .CHANNEL_PROMPT]).long(),
+            STEPS)
     return dict(ranks=ranks, ref=ref, one=one)
 
 
@@ -231,17 +236,24 @@ def test_slot_server_matches_one_process(served, mesh, cell):
 
 @pytest.mark.parametrize("mesh", MESHES, ids=["2x2", "1x4"])
 def test_a_channel_cut_raises_naming_it(served, mesh):
-    """Caches of 10 positions: at 2x2 the kv heads still divide; at 1x4
-    neither they nor the positions do, and ``init_caches`` raises the
-    named ``ValueError`` (the preset, the mesh, the cache's shape), as
-    ``launch/shard.cache_layout_for`` does without ranks."""
-    for res in served["ranks"][mesh]:
-        msg = res["ring"]["channels"]
-        if mesh == (2, 2):
-            assert msg is None
-            continue
-        assert "hetumoe-paper-16e-smoke" in msg and "mesh 1x4" in msg
-        assert "(4, 10, 2, 32)" in msg and "channels" in msg
+    """Caches of 10 positions (a 6-token prompt, 4 steps; the ``ring``
+    cell's window of 16 is longer, so they are linear): at 2x2 the kv
+    heads still divide; at 1x4 neither they nor the positions do, and the
+    (4, 10, 2, 32) caches are cut in their channels (8 of 32 a rank),
+    where a decode step once raised; served so, every rank's tokens
+    equal one process's and its logits are within 1e-5 of each step's
+    largest |logit| of one process's, as ``launch/shard.cache_layout_for``
+    lays them out without ranks."""
+    want = served["one"]["ring"]["channels"]
+    form = {(2, 2): "heads", (1, 4): "channels"}[mesh]
+    for r, res in enumerate(served["ranks"][mesh]):
+        got = res["ring"]["channels"]
+        assert got["forms"] == (form,) * 2, r
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        err = _rel(got["logits"], want["logits"], (1, 2))
+        assert (err <= TOL).all(), (r, err)
     tc = _cfgs(None)[1]
-    with pytest.raises(ValueError, match=r"mesh 1x4 .* \(4, 10, 2, 32\)"):
-        shard.cache_layout_for(tc, {"data": 1, "model": 4}, 4, 10)
+    lay = shard.cache_layout_for(tc, {"data": 1, "model": 4}, 4, 10)
+    assert lay.forms == ("channels",) * 2
+    assert [x["block_shape"] for x in lay.leaves()
+            if x["path"].endswith("/k")] == [(4, 10, 2, 8)] * 2

@@ -3,6 +3,7 @@
 ``test_torch_serve_ranks.py``, ``test_torch_fsdp.py``,
 ``test_torch_ckpt_ranks.py``, ``test_torch_cp.py``,
 ``test_torch_cp_train.py``, ``test_torch_serve_layout.py``,
+``test_torch_serve_cache.py``, ``test_torch_serve_state.py``,
 ``test_torch_analysis.py``): each runs in a process that
 ``repro_torch.launch.mesh.spawn`` starts, over gloo on the CPU, and returns
 numpy arrays.  Imports no JAX: the spawned ranks load only the port."""
@@ -737,13 +738,19 @@ def _logged(fn):
         alltoall.collectives = None
 
 
+def _cache_arrays(caches):
+    """Every leaf of per-layer caches by its path, as numpy arrays."""
+    from repro_torch.launch.mesh import tree_paths
+    return {p: _np(t) for p, t in tree_paths(list(caches))}
+
+
 def _served_run(model, prompt, steps, keep_caches=False):
     """A greedy run through the step builders: tokens, each step's logits
     (each rank's rows gathered over ``data``, unlogged), and the
     collectives of the prefill and of the first decode step, each with
     its tokens' gather over ``data`` (``generate``'s sampling); with
-    ``keep_caches`` the caches (the rank's blocks) after the last step
-    and their bytes."""
+    ``keep_caches`` the caches (the rank's blocks) after the prefill
+    and after the last step, and their bytes."""
     from repro_torch.serving import engine
     B, S = prompt.shape
     out, logits, logs = [prompt], [], {}
@@ -758,6 +765,7 @@ def _served_run(model, prompt, steps, keep_caches=False):
             step.reset()
             (last, tok), logs["prefill"] = _logged(
                 lambda: sample(prefill(prompt, step.caches)[0]))
+            prefilled = _cache_arrays(step.caches) if keep_caches else None
             for i in range(steps):
                 logits.append(engine.whole_rows(
                     model, last[:, -1].float().clone(), B))
@@ -769,12 +777,11 @@ def _served_run(model, prompt, steps, keep_caches=False):
             run = dict(tokens=torch.cat(out, 1).numpy(),
                        logits=torch.stack(logits).numpy(), logs=logs)
             if keep_caches:
-                from repro_torch.launch.mesh import tree_paths
-                run["caches"] = {p: _np(t) for p, t in
-                                 tree_paths(list(step.caches))}
+                run["caches"] = _cache_arrays(step.caches)
+                run["prefill_caches"] = prefilled
                 run["cache_bytes"] = sum(
                     t.numel() * t.element_size()
-                    for _, t in tree_paths(list(step.caches)))
+                    for t in engine._cache_leaves(step.caches))
     engine.clear_step_cache(model)
     return run
 
@@ -892,8 +899,9 @@ def serve_cache_rank(rank, shape, init_path, cells, steps, slot_run):
     tokens, logits, logged collectives, its caches after the last step
     (this rank's blocks) and their bytes, ``generate``'s tokens,
     ``SlotServer``'s outputs over ``slot_run`` (its keyword arguments and
-    request specs), and the message a channel cut raises (caches of 10
-    positions)."""
+    request specs), and a greedy run of the prompts' first
+    ``CHANNEL_PROMPT`` tokens into caches of 10 positions with the
+    caches' attention forms (``channels`` at 1x4)."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.models.transformer import Transformer
     from repro_torch.serving import engine
@@ -909,13 +917,130 @@ def serve_cache_rank(rank, shape, init_path, cells, steps, slot_run):
         run["generate"] = engine.generate(model, p, steps=steps).numpy()
         kw, specs = slot_run[name]
         run["slot"] = slot_outputs(model, kw, specs)
-        try:
-            model.init_caches(p.shape[0], 10)
-            run["channels"] = None
-        except ValueError as e:
-            run["channels"] = str(e)
+        short = p[:, :CHANNEL_PROMPT]
+        run["channels"] = _served_run(model, short, steps)
+        run["channels"]["forms"] = model.cache_layout(
+            p.shape[0], CHANNEL_PROMPT + steps).forms
         engine.clear_step_cache(model)
         out[name] = run
+    return out
+
+
+# the prompt of serve_cache_rank's channel-cut run: caches of 10 positions
+# with 4 steps, which neither 2 kv heads nor the positions divide over 4
+CHANNEL_PROMPT = 6
+
+
+def _state_model(mesh, cfg, path):
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.transformer import Transformer
+    tree = load_tree(path)
+    return Transformer(cfg, device="cpu", mesh=mesh,
+                       params=params_from_numpy(tree, cfg, mesh,
+                                                serving=True))
+
+
+def serve_state_rank(rank, shape, cells, steps, slot_run, forms):
+    """Every served cache stored by the reference's cache rule, on this
+    rank at mesh ``shape``: per cell ``(name, cfg, tree path, prompt)`` a
+    greedy run's tokens, logits, logged collectives and caches (this
+    rank's blocks, after the prefill and after the last step) and their
+    bytes, the caches' forms and state cuts, ``generate``'s tokens, and
+    for the cells of ``slot_run`` ``SlotServer``'s outputs; with
+    ``forms`` (a list of configs) each decode form's step on this rank's
+    block against the whole step (:func:`decode_forms`)."""
+    from repro_torch.serving import engine
+    mesh = make_mesh(shape, device="cpu")
+    out = {}
+    for name, cfg, path, prompt in cells:
+        model = _state_model(mesh, cfg, path)
+        p = torch.from_numpy(prompt).long()
+        B, S = p.shape
+        run = _served_run(model, p, steps, keep_caches=True)
+        lay = model.cache_layout(B, S + steps)
+        run["forms"], run["dims"] = lay.forms, lay.dims
+        run["generate"] = engine.generate(model, p, steps=steps).numpy()
+        if name in slot_run:
+            run["slot"] = slot_outputs(model, *slot_run[name])
+        engine.clear_step_cache(model)
+        out[name] = run
+    if forms:
+        out["forms"] = decode_forms(mesh, *forms)
+    return out
+
+
+def _cut(mesh, form="whole", length=0, **dims):
+    from repro_torch.models.cache_cut import CacheCut
+    return CacheCut(form, mesh.shape["model"], mesh.model_index,
+                    mesh.model_group, length, tuple(dims.items()))
+
+
+def _err(got, want):
+    """max|got − want| / max|want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def decode_forms(mesh, rwkv_cfg, ssm_cfg, attn_cfg, d, batch=3):
+    """Each decode form of a cut state or cache on this rank's block
+    against the whole step (the same seeded weights, state and token on
+    every rank): RWKV's ``s`` cut in dims 1-3, Mamba's ``s`` in dims
+    1-3 with its ``conv`` in its positions (1) or channels (2), and an
+    attention cache in the ``heads``, ``positions`` and ``channels``
+    forms, linear and ring.  Per form: the output's error and the new
+    state's (the written cache's) against the whole step's block, each
+    over the largest magnitude of the whole."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import mamba2, rwkv6
+    gen = torch.Generator().manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen)
+    x = rand(batch, 1, d)
+    out = {}
+    p = rwkv6.init_rwkv_block(gen, rwkv_cfg, d)
+    H = d // rwkv_cfg.head_dim
+    st = {"s": rand(batch, H, rwkv_cfg.head_dim, rwkv_cfg.head_dim),
+          "x_last": rand(batch, d)}
+    y, new = rwkv6.rwkv_decode_step(p, x, st, rwkv_cfg)
+    for dim in (1, 2, 3):
+        cut = _cut(mesh, s=dim)
+        yc, nc = rwkv6.rwkv_decode_step(
+            p, x, dict(st, s=cut.take(st["s"], dim)), rwkv_cfg, cut)
+        out[f"rwkv/s{dim}"] = (_err(yc, y),
+                               _err(nc["s"], cut.take(new["s"], dim)))
+    p = mamba2.init_mamba_block(gen, ssm_cfg, d)
+    p["conv_b"] = 0.2 * rand(*p["conv_b"].shape)
+    st = {k: rand(*v.shape) if v.ndim else v
+          for k, v in mamba2.init_mamba_state(ssm_cfg, batch, d).items()}
+    y, new = mamba2.mamba_decode_step(p, x, st, ssm_cfg, d)
+    for sd in (1, 2, 3):
+        for cd in (1, 2):
+            cut = _cut(mesh, s=sd, conv=cd)
+            blk = dict(st, s=cut.take(st["s"], sd),
+                       conv=cut.take(st["conv"], cd))
+            yc, nc = mamba2.mamba_decode_step(p, x, blk, ssm_cfg, d, cut)
+            out[f"mamba/s{sd}conv{cd}"] = (_err(yc, y), max(
+                _err(nc["s"], cut.take(new["s"], sd)),
+                _err(nc["conv"], cut.take(new["conv"], cd))))
+    p = A.init_attention(gen, attn_cfg, d)
+    hd = attn_cfg.head_dim
+    for ring in (False, True):
+        W = 12
+        kv = {n: rand(batch, W, attn_cfg.num_kv_heads, hd) for n in "kv"}
+        pos = 17 if ring else 7
+        whole = dict(kv, pos=torch.tensor(pos, dtype=torch.int32))
+        ref_cache = {n: t.clone() for n, t in whole.items()}
+        y, _ = A.decode_attention(p, x, ref_cache, attn_cfg, ring=ring,
+                                  window=W if ring else None)
+        for form, dim in (("heads", 2), ("positions", 1), ("channels", 3)):
+            cut = _cut(mesh, form, W)
+            blk = {n: cut.take(kv[n], dim).clone() for n in "kv"}
+            blk["pos"] = torch.tensor(pos, dtype=torch.int32)
+            yc, _ = A.decode_attention(p, x, blk, attn_cfg, ring=ring,
+                                       window=W if ring else None, cut=cut)
+            out[f"attention/{form}{'/ring' if ring else ''}"] = (
+                _err(yc, y), max(_err(blk[n], cut.take(ref_cache[n], dim))
+                                 for n in "kv"))
     return out
 
 
