@@ -54,7 +54,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
    layer in a prefill past 512 tokens, never in a decode step).  Then per
    cell, on the same prefilled caches, the graph step against the eager
    one (``decode_graph_vs_eager``): logits bitwise equal, wall and device
-   ms, idle share and launches a step of each.
+   ms, idle share and launches a step of each.  Then one eager decode
+   step (grouped, batch 8, caches of 1024 + 32) against the
+   executed-program analysis of the same step (``launch/dryrun
+   .execute_pair`` on fake ``cuda`` tensors, host time only): its
+   launches exactly the analysis's, its ``max_memory_allocated`` within
+   ``PEAK_REL`` + ``PEAK_ABS`` of the predicted ``peak_per_device_bytes``
+   (``decode_vs_analysis``).
 4. Card against CPU at full width: the same f32 weights, batch 1, prompts
    of 64 and 600 tokens (the flash path), prefill last-token logits from
    the card (kernels) and the CPU (plain versions), both dispatch modes.
@@ -75,7 +81,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
    cell (wall time, kernel time, the device's idle share, top kernels),
    and the host's waits for the device in a forward, which must be none;
    then one profiled train step per training cell, with its host waits
-   reported.
+   reported (6b); the grouped seq-1024 step is first analysed on the host
+   (``execute_pair`` on fake ``cuda`` tensors): the profiled step's
+   launches must equal the analysis's and its peak the predicted one
+   within the bound, and each port kernel's predicted bound is printed
+   beside its profiled device time with its share.
 7. Training at full width: ``hetumoe-paper-16e`` through
    ``repro_torch.launch.train.run`` (f32 masters, bf16 compute, batch 8,
    seeded weights and data, 2 warm-up + 8 timed AdamW steps) at seq 512
@@ -313,8 +323,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
    tokens through ``launch.serve.run`` bitwise equal on the ranks, its
    prefill and eager decode ms and rank 0's kernel 7 launches printed
    (host-staged).  In the parent,
-   while the ranks run, ``python -m repro_torch.launch.dryrun --all`` and
-   ``--all --multi-pod`` (the CPU only, no JAX), their seconds printed.
+   ``python -m repro_torch.launch.dryrun --all --jobs 2`` (every pair's
+   rank-0 step executed on fake tensors in two worker processes) and
+   ``--all --multi-pod`` (counted only; the CPU only, no JAX), started
+   after phase 1's build and awaited beside the ranks, their seconds
+   printed.
    18b also runs the paper's
    own ReLU experts (``grouped-relu``) at 1x4, the card replaying the CPU
    ranks' ReLU masks (``forced_relu_ffn``), at 1e-4.  18f: the paper
@@ -369,7 +382,9 @@ and 14, ``--phases presets`` phases 1, 12 and 13, ``--phases
 frontends`` phases 1, 2g-2i, 2o, phase 5's rows at the frontend presets'
 shapes and 15, ``--phases serving`` phases 1, 3 and 16, ``--phases
 recurrent`` phases 1, 2p and 17, ``--phases ep`` phases 1, 2 and 18,
-and ``--phases lint`` phases 1 and 19; each ends with ``"ok": false``.  The script
+``--phases lint`` phases 1 and 19, and ``--phases analysis`` phase 1,
+phase 3's eager decode step against the analysis and 6b; each ends with
+``"ok": false``.  The script
 imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -2523,7 +2538,8 @@ def phase_serve(torch, smi):
         results[cell]["graph_vs_eager"] = decode_graph_vs_eager(
             torch, smi, model, engine.serve_config(cfg, dispatch=mode),
             SERVE["batch"], prompt_len, f"{ARCH} {cell}")
-    engine.clear_step_cache(model)
+    results["decode_vs_analysis"] = decode_vs_analysis(
+        torch, smi, model, engine.serve_config(cfg, dispatch="grouped"))
     return totals, results
 
 
@@ -3212,12 +3228,145 @@ PORT_KERNEL_NAMES = ("topk_gate_kernel", "gather_rows_kernel",
                      "flash_")
 
 
+# the training cell whose step the executed-program analysis predicts
+ANALYSED_TRAIN = ("grouped", 1024)
+# the bound on |measured peak - predicted peak| of an analysed step: the
+# caching allocator rounds each block up and holds the cuBLAS workspaces,
+# which no op returns, and a kernel's own temporaries are not seen
+PEAK_REL, PEAK_ABS = 0.05, 64 * 2 ** 20
+# the launch counters under the names the kernel-call log gives them
+LOGGED_AS = {"scatter_add": "scatter_add_rows"}
+
+
+def port_wrapper(kernel: str):
+    """The wrapper (its launch counter's name) whose call launched the
+    profiled kernel ``kernel`` (its name without ``void`` and arguments),
+    or None for a kernel of no wrapper."""
+    if kernel.startswith("grouped_mm_"):
+        return ("grouped_matmul_t" if kernel.endswith("true>")
+                else "grouped_matmul")
+    for prefix, wrapper in (("topk_gate", "topk_gate"),
+                            ("gather_rowstep", "gather_rows_rowstep"),
+                            ("gather_rows", "gather_rows"),
+                            ("scatter_", "scatter_add_rows"),
+                            ("grouped_drhs", "grouped_drhs"),
+                            ("flash_fwd", "flash_fwd"),
+                            ("flash_dq", "flash_dq"),
+                            ("flash_dkv", "flash_dkv"),
+                            ("plan_nokey", "flash_dkv")):
+        if kernel.startswith(prefix):
+            return wrapper
+    return None
+
+
+def analysed(cfg, shape, **kw):
+    """``launch/dryrun.execute_pair`` of ``cfg`` at ``shape`` on one
+    device, on fake ``cuda`` tensors (host time only): the predicted
+    launches by counter name, the memory keys, each kernel's bound, and
+    the seconds it took."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    ran = dryrun.execute_pair(cfg, shape, {"data": 1, "model": 1},
+                              device="cuda", **kw)
+    kernels = {LOGGED_AS.get(k, k): v
+               for k, v in ran["op_analysis"]["kernels"].items()}
+    return dict(launches={k: kernels.get(k, {}).get("launches", 0)
+                          for k, _, _ in COUNTERS},
+                memory=ran["memory_analysis"], kernels=kernels,
+                host_s=time.perf_counter() - t0)
+
+
+def check_analysed(label, pred, counts, peak, before, args):
+    """The step's launches against the analysis's, exactly; the bytes of
+    its real arguments' storages (``args``) against the predicted
+    ``argument_bytes``, exactly; and its peak (``max_memory_allocated``
+    over the step) against the predicted ``peak_per_device_bytes`` within
+    ``PEAK_REL`` of it plus ``PEAK_ABS``, once what the card held beside
+    the arguments when the step started (``before`` less ``args``:
+    earlier phases' workspaces and leftovers, which no analysis of the
+    step sees) is taken out."""
+    ma = pred["memory"]
+    want = ma["peak_per_device_bytes"]
+    held = before - args
+    print(f"    analysis ({pred['host_s']:.2f} s on the host, fake cuda "
+          f"tensors): launches {pred['launches']}; measured {counts}; "
+          f"arguments predicted {ma['argument_bytes']} B, measured {args} "
+          f"B; peak predicted {want / 2 ** 30:.4f} GiB (temp "
+          f"{ma['temp_bytes'] / 2 ** 30:.4f}, output "
+          f"{ma['output_bytes'] / 2 ** 30:.4f}, alias "
+          f"{ma['alias_bytes'] / 2 ** 30:.4f}), measured "
+          f"{peak / 2 ** 30:.4f} GiB with {held / 2 ** 20:.1f} MiB held "
+          f"beside the arguments at the start: "
+          f"{(peak - held - want) / 2 ** 20:+.1f} MiB less that "
+          f"({(peak - want) / 2 ** 20:+.1f} MiB with it)")
+    check(counts == pred["launches"],
+          f"{label}: launches {counts} != the analysis's "
+          f"{pred['launches']}")
+    check(args == ma["argument_bytes"],
+          f"{label}: the arguments hold {args} B, the analysis "
+          f"{ma['argument_bytes']} B")
+    check(abs(peak - held - want) <= PEAK_REL * want + PEAK_ABS,
+          f"{label}: peak {peak} B less the {held} B held beside the "
+          f"arguments is not within {PEAK_REL:.0%} + {PEAK_ABS >> 20} MiB "
+          f"of the predicted {want} B")
+    return dict(predicted_launches=pred["launches"], launches=counts,
+                predicted_peak_bytes=want, peak_bytes=peak,
+                allocated_before_bytes=before, argument_bytes=args,
+                memory_analysis=ma, analysis_host_s=pred["host_s"])
+
+
+def decode_vs_analysis(torch, smi, model, cfg, B: int = 8,
+                       cache_len: int = 1024 + 32) -> dict:
+    """One eager decode step of ``model`` (``engine.build_decode(graph=
+    False)``, batch ``B`` over caches of ``cache_len``) with its sampled
+    token, against ``execute_pair``'s analysis of the same step: the
+    launches and argument bytes exactly, the peak within the bound
+    (``check_analysed``).  The step cache is cleared first, so the
+    caches and graphs of earlier steps are gone."""
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.launch.dryrun import storage_bytes
+    from repro_torch.serving import engine
+    pred = analysed(cfg, ShapeConfig("decode", cache_len, B, "decode"))
+    engine.clear_step_cache(model)
+    step = engine.build_decode(model, cfg, batch=B, cache_len=cache_len,
+                               graph=False)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        step(tok)                              # warm-up
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_counts()
+        logits = step(tok)
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+    counts = read_counts([k for k, _, _ in COUNTERS])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  [{smi}] eager decode step, batch {B}, caches of {cache_len}, "
+          f"against the executed-program analysis:")
+    out = check_analysed("eager decode step", pred, counts, peak, before,
+                         storage_bytes((model.tree(), tok, step.caches)))
+    check(bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all()),
+          "eager decode step: sampled ids out of range")
+    engine.clear_step_cache(model)
+    return out
+
+
 def phase_profile_train(torch, smi):
     """One profiled train step per phase-7 cell (``TRAIN_CELLS``, after a
     warm-up step): wall time (host clock to a synchronise), the
     device time of all kernels, the device's idle share, the top kernels
     and the port's own kernels, and the host's waits for the device inside
-    one more step (reported; the aim is none)."""
+    one more step (reported; the aim is none).  At ``ANALYSED_TRAIN`` the
+    step is first analysed on the host (``launch/dryrun.execute_pair`` on
+    fake ``cuda`` tensors): the profiled step's launches and argument
+    bytes must equal the analysis's and its peak (``max_memory_allocated``
+    after a reset of the peak statistics, less what the card held beside
+    the arguments) the predicted ``peak_per_device_bytes`` within
+    ``PEAK_REL`` + ``PEAK_ABS`` (``check_analysed``); each port kernel's
+    predicted bound is printed beside its profiled device time, with its
+    share of the bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
@@ -3226,6 +3375,8 @@ def phase_profile_train(torch, smi):
     from repro_torch.serving.engine import serve_config
     from repro_torch.training.train_step import (init_train_state,
                                                  make_train_step)
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.launch.dryrun import storage_bytes
     B = TRAIN["batch"]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     print("phase 6b: train step profile (torch.profiler; device ms = sum of "
@@ -3235,18 +3386,27 @@ def phase_profile_train(torch, smi):
         cfg = serve_config(configs.get_config(ARCH), dispatch=mode)
         tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=1,
                            total_steps=10)
+        pred = (analysed(cfg, ShapeConfig("train", S, B, "train"),
+                         tcfg=tcfg) if (mode, S) == ANALYSED_TRAIN else None)
         step = make_train_step(cfg, tcfg)
         state = init_train_state(cfg, tcfg, device="cuda")
         ds = SyntheticLM(cfg, B, S, seed=0, device="cuda")
         state, _ = step(state, ds.next_batch(0))
         batch = ds.next_batch(1)
         waits = host_waits(torch, lambda: step(state, batch))
+        gc.collect()
+        args = storage_bytes((state, batch))
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_counts()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             state, m = step(state, batch)
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_counts([k for k, _, _ in COUNTERS])
         dev_ms = _device_ms(prof, DeviceType)
         print(f"  [{smi}] {mode} seq {S} train step: wall {wall:.3f} ms, device "
               f"{dev_ms:.3f} ms, idle {1 - dev_ms / wall:.3f}, loss "
@@ -3276,6 +3436,26 @@ def phase_profile_train(torch, smi):
             wall_ms=wall, device_ms=dev_ms, host_waits=len(waits),
             wait_sites=sorted(set(waits)),
             port_kernels_ms={k: t for k, (t, _) in own.items()})
+        if pred is not None:
+            res = check_analysed(f"{mode} seq {S} train step", pred,
+                                 counts, peak, before, args)
+            by = {}
+            for e in kernels:
+                w = port_wrapper(e.key.removeprefix("void ").replace(
+                    "(anonymous namespace)::", "").split("(")[0])
+                if w is not None:
+                    by[w] = by.get(w, 0.0) + e.self_device_time_total / 1e3
+            res["bound_vs_device"] = {}
+            for w, k in sorted(pred["kernels"].items()):
+                b_ms, d_ms = 1e3 * k["bound_s"], by.get(w)
+                res["bound_vs_device"][w] = dict(
+                    launches=k["launches"], bound_ms=b_ms, device_ms=d_ms,
+                    share=None if not d_ms else b_ms / d_ms)
+                print(f"      {w}: predicted bound {b_ms:.4f} ms over "
+                      f"{k['launches']} launches, profiled device "
+                      + ("not measured" if d_ms is None else
+                         f"{d_ms:.4f} ms, {b_ms / d_ms:.3f} of the bound"))
+            out[f"{mode} seq {S} train step"]["analysis"] = res
         del state, step, batch
         torch.cuda.empty_cache()
     return out
@@ -7252,7 +7432,8 @@ def live_cuda_tensors(torch, least: int = 1 << 26):
             sorted(found, reverse=True))
 
 
-DRYRUN_ARGS = (("--all",), ("--all", "--multi-pod"))
+# 16x16 executes every pair: two worker processes beside the four ranks
+DRYRUN_ARGS = (("--all", "--jobs", "2"), ("--all", "--multi-pod"))
 
 
 # ``python -m repro_torch.launch.dryrun ARGS`` that prints its own seconds
@@ -7280,7 +7461,7 @@ def finish_dry_runs(runs) -> dict:
     a line for every (preset, shape) pair; their own seconds."""
     out = {}
     for args, proc in runs:
-        text, err = proc.communicate(timeout=300)
+        text, err = proc.communicate(timeout=600)
         lines = [ln for ln in text.splitlines() if ln.strip()]
         secs = (float(lines.pop().split()[1]) if lines
                 and lines[-1].startswith("seconds ") else float("nan"))
@@ -7296,7 +7477,7 @@ def finish_dry_runs(runs) -> dict:
     return out
 
 
-def phase_ep(torch, smi):
+def phase_ep(torch, smi, dry):
     """Phase 18: expert parallelism with four ranks sharing the one card
     over gloo (``launch.mesh.spawn``, one spawn for the whole phase; NCCL
     refuses two ranks on one device).  18a: flat ≡ hierarchical bitwise at
@@ -7306,8 +7487,9 @@ def phase_ep(torch, smi):
     at the receive side; 18c: the paper model whole trained at 1x4, sort
     (``--tune calibrate``) and grouped, against one process's first loss;
     18d-18g (``ep_rank``; the parent first takes each one-process
-    reference, 18g-b's by ``cp_one_process_run``).  Returns (rank 0's
-    launches in 18c, results)."""
+    reference, 18g-b's by ``cp_one_process_run``); ``dry`` the dry runs
+    ``main`` started (:func:`start_dry_runs`), awaited beside the ranks.
+    Returns (rank 0's launches in 18c, results)."""
     import tempfile
 
     from repro_torch.launch import train
@@ -7360,7 +7542,6 @@ def phase_ep(torch, smi):
         # ranks' cached blocks leave no free segment of a large size
         alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
         os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-        dry = start_dry_runs()
         try:
             ranks = spawn(ep_rank, world, backend="gloo", threads=2,
                           args=(refs,), timeout=900)
@@ -7814,7 +7995,8 @@ def main(argv=None) -> int:
                                  "NVIDIA GPU (see the module docstring).")
     ap.add_argument("--phases", choices=("all", "kernels", "trainer",
                                          "presets", "frontends", "serving",
-                                         "recurrent", "ep", "lint"),
+                                         "recurrent", "ep", "lint",
+                                         "analysis"),
                     default="all",
                     help="'kernels': only the build, the kernel checks and "
                          "the kernel timings (phases 1, 2 and 5), for "
@@ -7831,7 +8013,10 @@ def main(argv=None) -> int:
                          "phase 2 and phase 18 (expert parallelism, ranks "
                          "sharing the card over gloo); 'lint': the build "
                          "and phase 19 (the graph-invariant linter on the "
-                         "card); each ends with ok: false")
+                         "card); 'analysis': the build, phase 3's eager "
+                         "decode step against the executed-program "
+                         "analysis and phase 6b (its train step there); "
+                         "each ends with ok: false")
     phases = ap.parse_args(argv).phases
     import torch
     if not torch.cuda.is_available():
@@ -7863,6 +8048,10 @@ def main(argv=None) -> int:
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({build.build_info.get('library', 'already built')})")
     print_ptxas(build.build_info.get("ptxas", ""))
+    # phase 18's dry runs (the CPU only) run beside the card's phases from
+    # here, after the build's nvcc jobs: beside phase 18's ranks they would
+    # take their cores
+    dry = start_dry_runs() if phases in ("all", "ep") else None
 
     if phases == "trainer":
         print(json.dumps({"remat": phase_remat(torch, smi)}))
@@ -7911,6 +8100,22 @@ def main(argv=None) -> int:
         print(smi)
         print(json.dumps({"ok": False, "partial": "phases 1 and 19 only"}))
         return 0
+    if phases == "analysis":
+        from repro_torch import configs
+        from repro_torch.models.transformer import Transformer
+        from repro_torch.serving import engine
+        cfg = configs.get_config(ARCH)
+        model = Transformer(cfg, device="cuda", seed=0)
+        dec = decode_vs_analysis(torch, smi, model, engine.serve_config(
+            cfg, dispatch="grouped"))
+        del model
+        release(torch)
+        print(json.dumps({"decode_vs_analysis": dec,
+                          "profile_train": phase_profile_train(torch, smi)}))
+        print(smi)
+        print(json.dumps({"ok": False, "partial": "phases 1, 3 (the eager "
+                                                  "decode step) and 6b"}))
+        return 0
     if phases == "presets":
         print(json.dumps({"presets": phase_presets(torch, smi)[1]}))
         release(torch)
@@ -7945,7 +8150,7 @@ def main(argv=None) -> int:
         return 0
     if phases == "ep":
         release(torch)
-        ep_counts, ep = phase_ep(torch, smi)
+        ep_counts, ep = phase_ep(torch, smi, dry)
         stamp("phase 18")
         print(json.dumps({"ep": ep, "ep_launches": ep_counts}))
         print(smi)
@@ -7990,7 +8195,7 @@ def main(argv=None) -> int:
     print(json.dumps({"recurrent": recurrent}))
     stamp("phase 17")
     release(torch)
-    ep_counts, ep = phase_ep(torch, smi)
+    ep_counts, ep = phase_ep(torch, smi, dry)
     print(json.dumps({"ep": ep}))
     stamp("phase 18")
     release(torch)

@@ -40,8 +40,13 @@ class OpSite(NamedTuple):
     collective's kind, a kernel wrapper's name), its ``kind`` (``aten``,
     ``collective``, ``kernel``), its ``phase``, the kernel wrappers it ran
     inside (``stack``, outermost first), its operands' and results'
-    dtypes (torch names) and shapes, and for a collective the ``axis``
-    its group spans."""
+    dtypes (torch names) and shapes, for a collective the ``axis`` its
+    group spans and the group's size ``n``, for a kernel call or an aten
+    op its other arguments (``statics``: ``kernels/ops.KernelCall``'s, or
+    the op's non-tensor arguments, an einsum's equation among them), and
+    for an aten op whether it only aliased (``view``: every result shares
+    an operand's storage and the op is not in place — a view, or a
+    ``to`` / ``contiguous`` / ``reshape`` that had nothing to do)."""
     op: str
     kind: str
     phase: str
@@ -51,6 +56,9 @@ class OpSite(NamedTuple):
     out_dtypes: Tuple[str, ...] = ()
     out_shapes: Tuple[Tuple[int, ...], ...] = ()
     axis: str = ""
+    n: int = 0
+    statics: Tuple[Any, ...] = ()
+    view: bool = False
 
     @property
     def path(self) -> Tuple[str, ...]:
@@ -64,8 +72,33 @@ class OpSite(NamedTuple):
 
 def _meta(tree) -> Tuple[Tuple[str, ...], Tuple[Tuple[int, ...], ...]]:
     ts = [t for t in _pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
-    return (tuple(str(t.dtype).removeprefix("torch.") for t in ts),
-            tuple(tuple(t.shape) for t in ts))
+    return _dtypes(ts), tuple(tuple(t.shape) for t in ts)
+
+
+_NAMES: Dict[torch.dtype, str] = {}
+
+
+def _dtypes(ts) -> Tuple[str, ...]:
+    """The torch names of ``ts``' dtypes."""
+    out = []
+    for t in ts:
+        name = _NAMES.get(t.dtype)
+        if name is None:
+            name = _NAMES[t.dtype] = str(t.dtype).removeprefix("torch.")
+        out.append(name)
+    return tuple(out)
+
+
+# the non-tensor arguments a site keeps: plain values, which a graph
+# crossing from a rank to its parent can pickle (not a process group)
+_PLAIN = (str, int, float, bool, type(None), torch.dtype)
+
+
+def _storage(t: torch.Tensor) -> Optional[int]:
+    try:
+        return id(t.untyped_storage())
+    except (RuntimeError, NotImplementedError):
+        return None                 # a tensor without a storage
 
 
 class _Tap(list):
@@ -94,10 +127,23 @@ class _Recorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        leaves = _pytree.tree_leaves((args, kwargs) if kwargs else args)
+        ins = [t for t in leaves if isinstance(t, torch.Tensor)]
+        outs = ([out] if isinstance(out, torch.Tensor) else
+                [t for t in _pytree.tree_leaves(out)
+                 if isinstance(t, torch.Tensor)])
+        name = func.overloadpacket.__name__
+        view = False
+        if outs and ins and not name.endswith("_"):
+            src = {_storage(t) for t in ins} - {None}
+            view = all(_storage(t) in src for t in outs)
         self.sites.append(OpSite(
-            f"{func.namespace}.{func.overloadpacket.__name__}", "aten",
-            self.phase, tuple(ops.active), *_meta((args, kwargs)),
-            *_meta(out)))
+            f"{func.namespace}.{name}", "aten", self.phase,
+            tuple(ops.active), _dtypes(ins),
+            tuple(tuple(t.shape) for t in ins), _dtypes(outs),
+            tuple(tuple(t.shape) for t in outs),
+            statics=tuple(a for a in leaves if isinstance(a, _PLAIN)),
+            view=view))
         return out
 
     def collective(self, c: alltoall.Collective) -> None:
@@ -105,11 +151,12 @@ class _Recorder(TorchDispatchMode):
         self.sites.append(OpSite(
             c.kind, "collective", self.phase, tuple(ops.active), (c.dtype,),
             shapes, (c.dtype,) if c.kind == "all_to_all" else (),
-            shapes if c.kind == "all_to_all" else (), c.axis))
+            shapes if c.kind == "all_to_all" else (), c.axis, c.n))
 
     def kernel(self, call: ops.KernelCall) -> None:
         self.sites.append(OpSite(call.name, "kernel", self.phase,
-                                 tuple(ops.active), call.dtypes, call.shapes))
+                                 tuple(ops.active), call.dtypes, call.shapes,
+                                 statics=call.statics))
 
 
 class OpGraph:

@@ -483,11 +483,13 @@ def broadcast(x: torch.Tensor, group, src: int, n: int,
 
 
 def _gather_raw(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    # flattened before the byte view: a contiguous tensor whose trailing
+    # dims have size 1 may carry a last stride other than 1 (a moved dim)
     x = x.contiguous()
     out = x.new_empty((n * x.shape[0], *x.shape[1:]))
     if x.numel():
-        dist.all_gather_into_tensor(out.view(torch.uint8).reshape(-1),
-                                    x.view(torch.uint8).reshape(-1),
+        dist.all_gather_into_tensor(out.view(-1).view(torch.uint8),
+                                    x.view(-1).view(torch.uint8),
                                     group=group)
     return out
 

@@ -16,6 +16,13 @@ pointer and the stream are ``c_void_p``; every entry point returns
 
 Nothing here runs at import: the CPU tests import every module, and no
 ``nvcc`` is needed until a kernel is launched on a CUDA tensor.
+
+A ``FakeTensor`` (``torch._subclasses``: shape, dtype and device, no
+data) takes the card route on any device, and there the fake route: each
+wrapper allocates its outputs (and scratch) as the card route does and
+returns them without a launch, so its launch counter stays put
+(:func:`is_fake`).  ``launch/dryrun.execute_pair`` runs a rank's step so.
+No real tensor reaches that route.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import time
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("topk_gate.cu", "layout_transform.cu", "grouped_ffn.cu",
@@ -189,10 +197,18 @@ def reject_grad(kernel: str, *tensors: torch.Tensor) -> None:
             f"at its input (pass a detached tensor)")
 
 
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``FakeTensor``: the wrapper returns the outputs
+    it allocated instead of launching (the module docstring)."""
+    return isinstance(t, FakeTensor)
+
+
 def dispatch_device(kernel: str, t: torch.Tensor) -> bool:
-    """True to launch the CUDA kernel, False for the plain version — which
-    only a CPU tensor gets.  Any other device raises."""
-    if t.device.type == "cuda":
+    """True for the card route — the CUDA kernel, or for a ``FakeTensor``
+    on any device the fake route (:func:`is_fake`) — False for the plain
+    version, which only a real CPU tensor gets.  Any other device
+    raises."""
+    if t.device.type == "cuda" or is_fake(t):
         return True
     if t.device.type == "cpu":
         return False

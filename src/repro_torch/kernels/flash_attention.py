@@ -128,6 +128,27 @@ def visited_q_tiles(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
     return torch.stack(out, dim=1).to(torch.int8)
 
 
+def aligned_tiles(Sq: int, Sk: int, causal: bool, window: Optional[int],
+                  rows: int) -> int:
+    """The (group of ``rows`` queries, 64-key tile) pairs the kernels
+    visit when the queries hold the last ``Sq`` of ``Sk`` contiguous
+    positions, every key valid (a prefill or a training row): what
+    :func:`visited_k_tiles` (``rows`` = :data:`GROUP`) and the visited
+    entries of :func:`visited_q_tiles` (``rows`` = :data:`TILE`) count
+    on those positions, without their (Sq, Sk) mask.  A group sees the
+    tiles from the one holding its smallest position less the window
+    (plus one) to the one holding its largest (causal; else the last)."""
+    nk = -(-Sk // TILE)
+    off = Sk - Sq
+    n = 0
+    for q0 in range(0, Sq, rows):
+        lo, hi = off + q0, off + min(q0 + rows, Sq) - 1
+        t_hi = min(nk - 1, hi // TILE) if causal else nk - 1
+        t_lo = 0 if window is None else max(0, (lo - window + 1) // TILE)
+        n += max(0, t_hi - t_lo + 1)
+    return n
+
+
 def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
     """(B, H, S, d) → (B, KV, G, S, d) in f32: the query heads of one kv
     head side by side."""
@@ -208,6 +229,50 @@ def flash_dkv_plain(q, k, v, do, lse, delta, q_pos, k_pos, scale: float,
 # CPU tensor
 # ---------------------------------------------------------------------------
 
+def _cost(call: ops.KernelCall, q_like: int, kv_like: int, rows: int,
+          tile_products) -> ops.Cost:
+    """``q_like`` (B, H, Sq, d) and ``kv_like`` (B, KV, Sk, d) tensors
+    and ``rows`` f32 (B, H, Sq) rows read or written, and the positions;
+    the operations of the kernel's own products over the tiles it visits
+    (:func:`aligned_tiles`: a fake tensor holds no positions, so they
+    are taken contiguous, the queries the last Sq — exact for a prefill
+    or a training row, the most a context-parallel chunk visits),
+    ``tile_products(k_tiles, q_tiles, split)`` 64x64 products of 2·d
+    operations a pair, for each (b, h); ``split`` is 1 in bf16, whose
+    products of p and dS run twice (hi and lo), 0 in f32, whose k tiles
+    are visited by groups of 64 queries."""
+    (B, H, Sq, d), (_, KV, Sk, _) = call.shapes[:2]
+    _, causal, window, _ = call.statics
+    dt = call.dtypes[0]
+    size = ops.itemsize(dt)
+    nbytes = (q_like * B * H * Sq * d + kv_like * B * KV * Sk * d) * size \
+        + rows * B * H * Sq * 4 + (Sq + Sk) * 4
+    split = int(dt == "bfloat16")
+    group = GROUP if split else TILE
+    k_tiles = aligned_tiles(Sq, Sk, causal, window, group) * group / TILE
+    q_tiles = aligned_tiles(Sq, Sk, causal, window, TILE)
+    tile = 2 * B * H * TILE ** 2 * d
+    return ops.Cost(tile_products(k_tiles, q_tiles, split) * tile, nbytes,
+                    ops.peak_of(dt), True)
+
+
+def fwd_cost(call: ops.KernelCall) -> ops.Cost:
+    """q, o; k, v; lse; q kᵀ and P v a k tile."""
+    return _cost(call, 2, 2, 1, lambda kt, qt, split: (2 + split) * kt)
+
+
+def dq_cost(call: ops.KernelCall) -> ops.Cost:
+    """q, dO, dq; k, v; lse, Δ; q kᵀ, dO vᵀ and dS k a k tile."""
+    return _cost(call, 3, 2, 2, lambda kt, qt, split: (3 + split) * kt)
+
+
+def dkv_cost(call: ops.KernelCall) -> ops.Cost:
+    """q, dO; k, v, dk, dv; lse, Δ; K Qᵀ, V dOᵀ, Pᵀ dO and dSᵀ q a
+    visited q tile (no row lacks a key on contiguous positions)."""
+    return _cost(call, 2, 4, 2,
+                 lambda kt, qt, split: (4 + 2 * split) * qt)
+
+
 def _check(name, q, k, v, q_pos, k_pos, *extra) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: need q (B, H, Sq, d) and k, v (B, KV, Sk,"
@@ -251,7 +316,7 @@ def _launch(name: str, fn: str, q, k, tensors, outs, scale, causal, window,
     build.check(rc, name)
 
 
-@ops.logged("flash_fwd")
+@ops.logged("flash_fwd", fwd_cost)
 def flash_fwd(q, k, v, q_pos, k_pos, scale: float, causal: bool,
               window: Optional[int], cap: Optional[float]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -263,6 +328,8 @@ def flash_fwd(q, k, v, q_pos, k_pos, scale: float, causal: bool,
                                cap)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if build.is_fake(q):
+        return o, lse
     _launch("flash_fwd", "flash_fwd", q, k, (q, k, v, q_pos, k_pos),
             (o, lse), scale, causal, window, cap)
     fwd_launches += 1
@@ -280,7 +347,7 @@ def _check_bwd(name, q, k, v, do, lse, delta, q_pos, k_pos) -> None:
                          f"{tuple(q.shape[:3])}")
 
 
-@ops.logged("flash_dq")
+@ops.logged("flash_dq", dq_cost)
 def flash_dq(q, k, v, do, lse, delta, q_pos, k_pos, scale: float,
              causal: bool, window: Optional[int], cap: Optional[float]
              ) -> torch.Tensor:
@@ -292,6 +359,8 @@ def flash_dq(q, k, v, do, lse, delta, q_pos, k_pos, scale: float,
         return flash_dq_plain(q, k, v, do, lse, delta, q_pos, k_pos, scale,
                               causal, window, cap)
     dq = torch.empty_like(q)
+    if build.is_fake(q):
+        return dq
     _launch("flash_dq", "flash_dq", q, k,
             (q, k, v, do, lse, delta, q_pos, k_pos), (dq,), scale, causal,
             window, cap)
@@ -299,7 +368,7 @@ def flash_dq(q, k, v, do, lse, delta, q_pos, k_pos, scale: float,
     return dq
 
 
-@ops.logged("flash_dkv")
+@ops.logged("flash_dkv", dkv_cost)
 def flash_dkv(q, k, v, do, lse, delta, q_pos, k_pos, scale: float,
               causal: bool, window: Optional[int], cap: Optional[float]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -314,6 +383,8 @@ def flash_dkv(q, k, v, do, lse, delta, q_pos, k_pos, scale: float,
     # scratch: whether each 64-row q tile holds a row with no allowed key
     nokey = torch.empty(-(-q.shape[2] // TILE), dtype=torch.int32,
                         device=q.device)
+    if build.is_fake(q):
+        return dk, dv
     _launch("flash_dkv", "flash_dkv", q, k,
             (q, k, v, do, lse, delta, q_pos, k_pos), (dk, dv, nokey), scale,
             causal, window, cap)

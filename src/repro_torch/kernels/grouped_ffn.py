@@ -164,20 +164,61 @@ def _launch(name: str, fn_bf16: str, fn_f32: str, a: torch.Tensor,
     build.check(rc, name)
 
 
-@ops.logged("grouped_matmul")
+def _gmm_cost(M: int, K: int, N: int, E: int, dtype: str,
+              out_size: int) -> ops.Cost:
+    """2·M·K·N operations; the (M, ·) operand and ``offsets`` read, the
+    (E, K, N) weights read once each — every expert's, the most a call
+    can need (an empty segment's are not read; a fake tensor holds no
+    offsets) — and the output written (``out_size`` bytes)."""
+    size = ops.itemsize(dtype)
+    return ops.Cost(2 * M * K * N, M * K * size + E * K * N * size
+                    + (E + 1) * 4 + out_size, ops.peak_of(dtype), True)
+
+
+def matmul_cost(call: ops.KernelCall) -> ops.Cost:
+    """lhs (M, K) @ rhs[e] (K, N) → (M, N): :func:`_gmm_cost`."""
+    (M, K), (E, _, N) = call.shapes[:2]
+    dt = call.dtypes[0]
+    return _gmm_cost(M, K, N, E, dt, M * N * ops.itemsize(dt))
+
+
+def matmul_t_cost(call: ops.KernelCall) -> ops.Cost:
+    """g (M, N) @ rhs[e]ᵀ → (M, K): :func:`_gmm_cost` with g as the
+    operand."""
+    (M, N), (E, K, _) = call.shapes[:2]
+    dt = call.dtypes[0]
+    return _gmm_cost(M, N, K, E, dt, M * K * ops.itemsize(dt))
+
+
+def drhs_cost(call: ops.KernelCall) -> ops.Cost:
+    """lhs (M, K)ᵀ @ g (M, N) per segment → (E, K, N) in ``out_dtype``:
+    2·M·K·N operations, lhs, g and ``offsets`` read, the gradient
+    written."""
+    (M, K), (_, N), (E1,) = call.shapes[:3]
+    dt = call.dtypes[0]
+    out = call.statics[0] if call.statics else torch.float32
+    size = ops.itemsize(dt)
+    return ops.Cost(2 * M * K * N, M * (K + N) * size + E1 * 4
+                    + (E1 - 1) * K * N * out.itemsize, ops.peak_of(dt),
+                    True)
+
+
+@ops.logged("grouped_matmul", matmul_cost)
 def _grouped_matmul(lhs, rhs, offsets):
     global launches
     if not build.dispatch_device("grouped_matmul", lhs):
         return grouped_matmul_plain(lhs, rhs, offsets)
     (M, K), (E, _, N) = lhs.shape, rhs.shape
     out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
+    if build.is_fake(lhs):
+        return out
     _launch("grouped_matmul", "grouped_matmul_bf16", "grouped_matmul_f32",
             lhs, rhs, offsets, out, M, K, N, E, strided_rhs=True)
     launches += 1
     return out
 
 
-@ops.logged("grouped_matmul_t")
+@ops.logged("grouped_matmul_t", matmul_t_cost)
 def grouped_matmul_t(g: torch.Tensor, rhs: torch.Tensor,
                      offsets: torch.Tensor) -> torch.Tensor:
     """dlhs (M, K) with dlhs[seg_e] = g[seg_e] @ rhs[e]ᵀ; g (M, N), rhs
@@ -188,6 +229,8 @@ def grouped_matmul_t(g: torch.Tensor, rhs: torch.Tensor,
         return grouped_matmul_t_plain(g, rhs, offsets)
     M, (E, K, N) = g.shape[0], rhs.shape
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    if build.is_fake(g):
+        return out
     _launch("grouped_matmul_t", "grouped_matmul_t_bf16",
             "grouped_matmul_t_f32", g, rhs, offsets, out, M, K, N, E,
             strided_rhs=True)
@@ -195,7 +238,7 @@ def grouped_matmul_t(g: torch.Tensor, rhs: torch.Tensor,
     return out
 
 
-@ops.logged("grouped_drhs")
+@ops.logged("grouped_drhs", drhs_cost)
 def grouped_drhs(lhs: torch.Tensor, g: torch.Tensor, offsets: torch.Tensor,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """drhs (E, K, N) with drhs[e] = lhs[seg_e]ᵀ @ g[seg_e], summed in f32;
@@ -223,6 +266,8 @@ def grouped_drhs(lhs: torch.Tensor, g: torch.Tensor, offsets: torch.Tensor,
         return grouped_drhs_plain(lhs, g, offsets).to(out_dtype)
     (M, K), N, E = lhs.shape, g.shape[1], offsets.shape[0] - 1
     out = torch.empty((E, K, N), dtype=out_dtype, device=lhs.device)
+    if build.is_fake(lhs):
+        return out
     _launch("grouped_drhs", "grouped_drhs_bf16", "grouped_drhs_f32", lhs, g,
             offsets, out, M, K, N, E, int(out_dtype == torch.bfloat16))
     drhs_launches += 1

@@ -33,6 +33,7 @@ serving or training path.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -68,7 +69,18 @@ def gather_rows_fanout_plain(src: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-@ops.logged("gather_rows")
+def gather_cost(call: ops.KernelCall) -> ops.Cost:
+    """The gather form reads the M rows ``idx`` addresses and ``idx``, the
+    fan-out form the N source rows once and ``dest`` (N, K) besides;
+    both write the (M, d) output."""
+    (N, d), (M,) = call.shapes[:2]
+    row = d * ops.itemsize(call.dtypes[0])
+    read = (M * row if len(call.shapes) == 2
+            else N * row + math.prod(call.shapes[2]) * 4)
+    return ops.Cost(0, read + M * 4 + M * row, ops.F32_FLOPS)
+
+
+@ops.logged("gather_rows", gather_cost)
 def _gather_rows(src: torch.Tensor, idx: torch.Tensor,
                  dest: Optional[torch.Tensor] = None) -> torch.Tensor:
     global launches
@@ -82,6 +94,8 @@ def _gather_rows(src: torch.Tensor, idx: torch.Tensor,
     N, d = src.shape
     M = idx.shape[0]
     out = torch.empty((M, d), dtype=src.dtype, device=src.device)
+    if build.is_fake(src):
+        return out
     lib = build.load()
     if dest is None:
         rc = lib.gather_rows(build.ptr(src), build.ptr(idx), build.ptr(out),
@@ -146,7 +160,14 @@ def gather_rows_rowstep_plain(src: torch.Tensor,
     return gather_rows_plain(src, idx)
 
 
-@ops.logged("gather_rows_rowstep")
+def rowstep_cost(call: ops.KernelCall) -> ops.Cost:
+    """The M addressed rows and ``idx`` read, the (M, d) output written."""
+    (_, d), (M,) = call.shapes[:2]
+    return ops.Cost(0, 2 * M * d * ops.itemsize(call.dtypes[0]) + M * 4,
+                    ops.F32_FLOPS)
+
+
+@ops.logged("gather_rows_rowstep", rowstep_cost)
 def gather_rows_rowstep(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out (M, d) with out[i] = src[idx[i]] (0 where idx[i] < 0); src (N, d)
     bfloat16 or float32, idx (M,) int32.  The seed's one-row-per-step
@@ -172,6 +193,8 @@ def gather_rows_rowstep(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     N, d = src.shape
     M = idx.shape[0]
     out = torch.empty((M, d), dtype=src.dtype, device=src.device)
+    if build.is_fake(src):
+        return out
     rc = build.load().gather_rows_rowstep(
         build.ptr(src), build.ptr(idx), build.ptr(out), N, M, d,
         src.element_size(), build.stream(src))
@@ -215,7 +238,15 @@ def scatter_add_rows_plain(g: torch.Tensor, idx: torch.Tensor,
     return acc.to(g.dtype)
 
 
-@ops.logged("scatter_add")
+def scatter_cost(call: ops.KernelCall) -> ops.Cost:
+    """g (M, d) and ``idx`` read, the (n, d) output written; M·d f32 adds."""
+    (M, d), (n,) = call.shapes[0], call.statics
+    size = ops.itemsize(call.dtypes[0])
+    return ops.Cost(M * d, M * d * size + M * 4 + n * d * size,
+                    ops.F32_FLOPS)
+
+
+@ops.logged("scatter_add", scatter_cost)
 def _scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
                       n: int) -> torch.Tensor:
     global scatter_launches
@@ -236,6 +267,8 @@ def _scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
     M, d = g.shape
     out = torch.empty((n, d), dtype=g.dtype, device=g.device)
     scratch = torch.empty(2 * n + 1 + M, dtype=torch.int32, device=g.device)
+    if build.is_fake(g):
+        return out
     starts, cursor, slots = scratch.split([n + 1, n, M])
     rc = build.load().scatter_add_rows(
         build.ptr(g), build.ptr(idx), build.ptr(starts), build.ptr(cursor),

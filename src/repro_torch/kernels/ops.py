@@ -15,24 +15,74 @@ a list (``analysis/graph.py`` does, to record what a program ran); the
 launch counters count on their own either way.  While a wrapper runs its
 name is on :data:`active`, so a recorder can place the plain version's
 aten ops under it.
+
+Each wrapper names its cost with its name (``logged(name, cost=...)``,
+beside the wrapper): a function of the :class:`KernelCall` that gives the
+call's :class:`Cost` — its operations, the bytes it must move (each input
+read once, each output written once) and the card's peak rate for its
+operations, from the H100 SXM datasheet's figures below (not
+measurements).  :data:`COSTS` maps each wrapper's name to it;
+``launch/op_analysis.py`` sums them over a recorded run, and the bound of
+a call is :attr:`Cost.bound_s`.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+
+# the H100 SXM datasheet's rates (dense, no sparsity; a 700 W card)
+BF16_FLOPS = 989e12        # bf16 tensor-core FLOP/s
+F32_FLOPS = 67e12          # f32 FLOP/s outside the tensor cores
+HBM_BW = 3.35e12           # HBM3 bytes/s
 
 
 class KernelCall(NamedTuple):
     """One wrapper call: its ``name`` (``topk_gate``, ``gather_rows``,
     ``scatter_add``, ``grouped_matmul``, ``grouped_matmul_t``,
     ``grouped_drhs``, ``flash_fwd``, ``flash_dq``, ``flash_dkv``,
-    ``gather_rows_rowstep``) and its tensor operands' ``dtypes`` (torch
-    names) and ``shapes``, in argument order."""
+    ``gather_rows_rowstep``), its tensor operands' ``dtypes`` (torch
+    names) and ``shapes``, in argument order, and its other arguments'
+    values (``statics``: the positional ones in order, then the keyword
+    ones)."""
     name: str
     dtypes: Tuple[str, ...]
     shapes: Tuple[Tuple[int, ...], ...]
+    statics: Tuple[Any, ...] = ()
+
+
+class Cost(NamedTuple):
+    """One kernel call's work: ``flops`` operations (a product of two
+    numbers and its add count 2), ``bytes`` moved (each input read once,
+    each output written once), ``peak`` the card's rate for the
+    operations' type, and whether they are products (``matmul``: the
+    executed FLOPs a roofline sums, as the reference sums its dots)."""
+    flops: float
+    bytes: float
+    peak: float
+    matmul: bool = False
+
+    @property
+    def bound_s(self) -> float:
+        """The least time the card could take: the larger of the bytes
+        over :data:`HBM_BW` and the operations over ``peak``."""
+        return max(self.bytes / HBM_BW, self.flops / self.peak)
+
+
+def peak_of(dtype: str) -> float:
+    """The peak rate of products in ``dtype`` (a torch name): the tensor
+    cores' for bf16, FMAs' for f32 (the kernels keep f32 off TF32)."""
+    return BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+
+
+def itemsize(dtype: str) -> int:
+    """Bytes of one element of ``dtype`` (a torch name)."""
+    return getattr(torch, dtype).itemsize
+
+
+# each wrapper's cost function, by name (filled by :func:`logged`)
+COSTS: Dict[str, Callable[[KernelCall], Cost]] = {}
 
 
 # the kernel-call log: None (off) until a caller sets it to a list
@@ -41,21 +91,26 @@ calls: Optional[List[KernelCall]] = None
 active: List[str] = []
 
 
-def logged(name: str) -> Callable:
+def logged(name: str, cost: Callable[[KernelCall], Cost]) -> Callable:
     """Decorator of a kernel wrapper: one :class:`KernelCall` in
     :data:`calls` (when it is a list) per call, and ``name`` on
-    :data:`active` while the wrapper runs.  Defined before the kernel
+    :data:`active` while the wrapper runs; ``cost`` (the call's
+    :class:`Cost`) goes into :data:`COSTS`.  Defined before the kernel
     modules are imported below, which decorate their wrappers with it."""
+    COSTS[name] = cost
+
     def wrap(fn: Callable) -> Callable:
         @functools.wraps(fn)
         def call(*args, **kwargs):
             if calls is not None:
-                ts = [a for a in (*args, *kwargs.values())
-                      if isinstance(a, torch.Tensor)]
+                every = (*args, *kwargs.values())
+                ts = [a for a in every if isinstance(a, torch.Tensor)]
                 calls.append(KernelCall(
                     name, tuple(str(t.dtype).removeprefix("torch.")
                                 for t in ts),
-                    tuple(tuple(t.shape) for t in ts)))
+                    tuple(tuple(t.shape) for t in ts),
+                    tuple(a for a in every
+                          if not isinstance(a, torch.Tensor))))
             active.append(name)
             try:
                 return fn(*args, **kwargs)

@@ -40,7 +40,15 @@ def topk_gate_plain(logits: torch.Tensor, k: int):
             rowmax, sumexp)
 
 
-@ops.logged("topk_gate")
+def cost(call: ops.KernelCall) -> ops.Cost:
+    """logits (S, E) f32 read once; vals and idx (S, k), rowmax and sumexp
+    (S, 1) written; 4·S·E f32 operations (the max, the exp, the sum and
+    the argmax passes over the row)."""
+    (S, E), (k,) = call.shapes[0], call.statics
+    return ops.Cost(4 * S * E, S * E * 4 + S * (8 * k + 8), ops.F32_FLOPS)
+
+
+@ops.logged("topk_gate", cost)
 def fused_topk_gate(logits: torch.Tensor, k: int):
     """One pass: ``(vals (S,k) f32, idx (S,k) i32, rowmax (S,1),
     sumexp (S,1))`` from logits (S, E) f32."""
@@ -64,6 +72,8 @@ def fused_topk_gate(logits: torch.Tensor, k: int):
     idx = torch.empty((S, k), dtype=torch.int32, device=dev)
     rowmax = torch.empty((S, 1), dtype=torch.float32, device=dev)
     sumexp = torch.empty((S, 1), dtype=torch.float32, device=dev)
+    if build.is_fake(logits):
+        return vals, idx, rowmax, sumexp
     lib = build.load()
     rc = lib.topk_gate_f32(build.ptr(logits), build.ptr(vals), build.ptr(idx),
                            build.ptr(rowmax), build.ptr(sumexp), S, E, k,

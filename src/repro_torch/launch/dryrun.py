@@ -1,16 +1,17 @@
 """Dry run: what every (arch × shape) pair stores, computes and moves a
 rank at the production meshes — the port of ``repro/launch/dryrun.py``,
-counted from the port's own plans instead of a compiled program.
+counted from the port's own plans and from one rank's step run on fake
+tensors.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dbrx-132b \\
       --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
 
-Nothing is built or allocated and no device is used: every tree is
-``meta`` tensors (``convert.param_shapes``, ``data/pipeline
-.make_batch_specs``, ``models/transformer.init_cache``), and the mesh is
-a shape (``launch/mesh.make_production_mesh``: 16x16, or 2x16x16 with
-``--multi-pod``).  :func:`count_pair` gives one pair's record:
+Nothing is allocated and no device is used.  :func:`count_pair` counts
+from ``meta`` trees (``convert.param_shapes``, ``data/pipeline
+.make_batch_specs``, ``models/transformer.init_cache``) and the mesh's
+shape (``launch/mesh.make_production_mesh``: 16x16, or 2x16x16 with
+``--multi-pod``):
 
 * **stored bytes a rank**, by the port's own layout
   (``launch/shard.make_layout``): for training the train state by
@@ -36,19 +37,34 @@ a shape (``launch/mesh.make_production_mesh``: 16x16, or 2x16x16 with
   Mamba's conv gather; the
   MoE outputs' all-gather over the group whose ranks hold the same
   tokens, and the sampled tokens' all-gather over ``data``): the
-  same ``core/alltoall.Collective`` a rank logs when it runs the step
-  (``tests/test_torch_serve_layout.py`` holds the two equal on gloo
-  ranks), each with its count, its wire bytes a rank and whether its
+  same ``core/alltoall.Collective`` a rank logs when it runs the step,
+  each with its count, its wire bytes a rank and whether its
   group crosses a node of :data:`NODE` GPUs (rank r = d·M + m, the pods
   outermost).  ``"auto"`` MoE knobs resolve through ``core/tuning`` at
   the step's tokens a rank, as the trainer and the server resolve them.
 
-:func:`roofline` divides them by the H100 SXM datasheet's figures below
-— datasheet constants, not measurements of a card.  The reference's XLA
-``memory_analysis`` temporaries (the activation peak) and its
-``hlo_analysis`` (executed FLOPs and bytes of the compiled program) have
-no counterpart here: there is no compiled program to read.  The
-roofline's memory term is the stored bytes a rank read once, a floor.
+:func:`execute_pair` runs the step itself — the trainer's
+``make_train_step`` on the rank's sharded state, or the server's eager
+``build_prefill`` / ``build_decode(graph=False)`` on the served layout
+and caches, each with ``generate``'s sampled tokens — for one rank of
+the mesh, on fake tensors (``torch._subclasses.FakeTensorMode``: shapes
+and dtypes, no data; the kernel wrappers take their fake route,
+``kernels/build.is_fake``) over a fake process group of the mesh's
+world (``torch.testing``'s ``FakeStore`` and ``"fake"`` backend, one
+process), recorded by ``analysis/graph.trace_graph``.  From that run
+``launch/op_analysis.py`` gives the reference's ``memory_analysis``
+(the live bytes' high-water mark) and ``hlo_analysis`` (here
+``op_analysis``: executed FLOPs, HBM bytes per launched op, the largest
+units, the launches and the collectives, which must equal the plan's:
+an independent check of both).  :func:`run_pair` records both, and
+:func:`roofline` divides executed FLOPs and bytes a rank by the H100 SXM
+datasheet's figures below (datasheet constants, not measurements of a
+card), the wire bytes by NVLink's and the NIC's, and gives the useful
+fraction (model FLOPs over executed FLOPs).  The port's run-time mesh
+has no ``pod`` axis (``launch/mesh.Mesh`` is ``(data, model)``), so a
+``--multi-pod`` record holds the plan's counts and says why it was not
+executed (:data:`POD_REASON`); its roofline is the plan's (model FLOPs,
+stored bytes).
 
 Records go to ``experiments/dryrun_torch/`` at the repository root
 (ignored by git).
@@ -57,31 +73,37 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import sys
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
+from repro_torch import tree as tree_lib
+from repro_torch.analysis.graph import trace_graph
 from repro_torch.convert import param_shapes
-from repro_torch.core import capacity, gating, tuning
+from repro_torch.core import alltoall, capacity, gating, tuning
 from repro_torch.core.alltoall import DTYPE_BYTES, Collective
 from repro_torch.core.config import INPUT_SHAPES, ShapeConfig, TrainConfig
 from repro_torch.core.moe import grouped_a2a_stages, served_tokens
 from repro_torch.data.pipeline import make_batch_specs
+from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch import shard
+from repro_torch.launch import op_analysis, shard
 from repro_torch.models import transformer as T
 
 # ---------------------------------------------------------------------------
 # hardware constants: the NVIDIA H100 SXM datasheet (dense, no sparsity)
 # ---------------------------------------------------------------------------
-PEAK_FLOPS = 989e12          # bf16 tensor-core FLOP/s a GPU
-HBM_BW = 3.35e12             # HBM3 B/s a GPU
+PEAK_FLOPS = ops.BF16_FLOPS  # bf16 tensor-core FLOP/s a GPU
+HBM_BW = ops.HBM_BW          # HBM3 B/s a GPU
 NVLINK_BW = 450e9            # NVLink 4 B/s a direction a GPU, inside a node
 NIC_BW = 50e9                # one 400 Gb/s NIC a GPU, between nodes
 NODE = 8                     # GPUs a node (an HGX H100 board)
@@ -761,6 +783,26 @@ def collectives_record(plan: Plan, inner: int = 1) -> Dict[str, Any]:
 # one pair
 # ---------------------------------------------------------------------------
 
+def _choices(cfg, shape: ShapeConfig, mesh_shape: Dict[str, int],
+             fsdp: Optional[bool], expert_tp: Optional[bool]
+             ) -> Tuple[bool, bool]:
+    """``(fsdp, expert_tp)`` of a pair, each as given or by the
+    reference's rule: ``needs_fsdp`` at a train state's budget or at
+    serving's; expert TP for a MoE config's decode step
+    (``REPRO_EXPERT_TP``), never in training."""
+    if shape.mode == "train":
+        if fsdp is None:
+            fsdp = mesh_lib.needs_fsdp(mesh_shape, param_shapes(cfg))
+        return fsdp, False
+    if fsdp is None:
+        fsdp = mesh_lib.needs_fsdp(mesh_shape, param_shapes(cfg),
+                                   budget_bytes=shard.SERVE_FSDP_BUDGET)
+    if expert_tp is None:
+        expert_tp = (shape.mode == "decode" and cfg.moe is not None
+                     and T.use_expert_tp())
+    return fsdp, expert_tp
+
+
 def count_pair(cfg, shape: ShapeConfig, mesh_shape: Dict[str, int], *,
                fsdp: Optional[bool] = None,
                expert_tp: Optional[bool] = None,
@@ -779,10 +821,9 @@ def count_pair(cfg, shape: ShapeConfig, mesh_shape: Dict[str, int], *,
     chips = math.prod(mesh_shape.values())
     rec: Dict[str, Any] = {"mesh_shape": dict(mesh_shape), "chips": chips}
     stored: Dict[str, int] = {}
+    fsdp, expert_tp = _choices(cfg, shape, mesh_shape, fsdp, expert_tp)
     if shape.mode == "train":
         tcfg = tcfg or DRYRUN_TCFG
-        if fsdp is None:
-            fsdp = mesh_lib.needs_fsdp(mesh_shape, shapes)
         layout = shard.make_layout(shapes, mesh_shape, 0, fsdp=fsdp)
         stored["params"] = layout_bytes(layout, shapes,
                                         lambda p: torch.float32)
@@ -798,12 +839,6 @@ def count_pair(cfg, shape: ShapeConfig, mesh_shape: Dict[str, int], *,
                    optimizer_state_dtype=tcfg.optimizer_state_dtype)
     else:
         decode = shape.mode == "decode"
-        if fsdp is None:
-            fsdp = mesh_lib.needs_fsdp(mesh_shape, shapes,
-                                       budget_bytes=shard.SERVE_FSDP_BUDGET)
-        if expert_tp is None:
-            expert_tp = (decode and cfg.moe is not None
-                         and T.use_expert_tp())
         layout = shard.make_layout(shapes, mesh_shape, 0, fsdp=fsdp,
                                    expert_tp=expert_tp)
         stored["params"] = layout_bytes(layout, shapes,
@@ -835,20 +870,263 @@ def count_pair(cfg, shape: ShapeConfig, mesh_shape: Dict[str, int], *,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# one rank's step, executed on fake tensors
+# ---------------------------------------------------------------------------
+
+POD_REASON = ("the port's run-time mesh has no pod axis (launch/mesh.Mesh "
+              "is (data, model)): the plan is counted, the step not run")
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int):
+    """A fake default process group of ``world`` ranks as ``rank`` (no
+    group for one rank): ``torch.testing``'s ``FakeStore`` and ``"fake"``
+    backend, whose collectives return at once.  Refuses a process that
+    has a group already, and destroys the fake one on the way out and
+    puts back the ``sys.excepthook`` its init wrapped, so the process is
+    left as it was found (a later ``spawn`` of gloo ranks sees no
+    group)."""
+    if world == 1:
+        yield
+        return
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"execute_pair needs a process with no process group (it "
+            f"fakes a world of {world}); this one runs "
+            f"{dist.get_backend()} over {dist.get_world_size()} ranks")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    hook = sys.excepthook          # init_process_group wraps it
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        sys.excepthook = hook
+
+
+@contextlib.contextmanager
+def _expert_tp_env(on: bool):
+    """``REPRO_EXPERT_TP`` set to ``on`` while a served model is built,
+    put back after."""
+    old = os.environ.get("REPRO_EXPERT_TP")
+    os.environ["REPRO_EXPERT_TP"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_EXPERT_TP"]
+        else:
+            os.environ["REPRO_EXPERT_TP"] = old
+
+
+def _blocks(layout: Optional[shard.Layout], shapes, dtype_of, device):
+    """Empty tensors of each leaf's block (the whole leaf without a
+    layout) in ``dtype_of(path)``."""
+    return mesh_lib.map_paths(lambda p, t: torch.empty(
+        t.shape if layout is None else layout.block_shape(p, t.shape),
+        dtype=dtype_of(p), device=device), shapes)
+
+
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages of ``tree``'s tensors (a tree of
+    dicts, lists and tuples): what a step's arguments hold."""
+    seen = {}
+    for t in tree_lib.leaves(tree):
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[id(st)] = st.nbytes()
+    return sum(seen.values())
+
+
+def _train_run(cfg, tcfg, shape, mesh, device, fsdp):
+    """The trainer's step on the rank's state: ``(fn, args, parts,
+    None)``."""
+    from repro_torch.training import train_step as ts
+    shapes = param_shapes(cfg)
+    layout = shard.layout_for(cfg, mesh, fsdp)
+    params = _blocks(layout, shapes, lambda p: torch.float32, device)
+    state = ts.init_train_state(cfg, tcfg, params=params, device=device,
+                                mesh=mesh, layout=layout)
+    del params
+    specs = make_batch_specs(cfg, shape, dtype=cfg.dtype)
+    batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+             for k, v in specs.items()}
+    step = ts.make_train_step(cfg, tcfg, mesh=mesh, layout=layout)
+    parts = {"params": storage_bytes(state.params),
+             "opt": storage_bytes((state.opt["m"], state.opt["v"])),
+             "batch": storage_bytes(batch)}
+    return (lambda: step(state, batch, step=0)), (state, batch), parts, None
+
+
+def _serve_run(cfg, shape, mesh, device, fsdp, long_context):
+    """The server's eager prefill or decode step with ``generate``'s
+    sampled tokens, on the served layout and caches: ``(fn, args,
+    parts, model)``."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import engine
+    B, S = shape.global_batch, shape.seq_len
+    layout = shard.serve_layout_for(cfg, mesh, fsdp)
+    params = _blocks(layout, param_shapes(cfg), lambda p: torch.float32,
+                     device)
+    model = Transformer(cfg, device=device, mesh=mesh, fsdp=fsdp,
+                        params=params)
+    del params
+    dt = getattr(torch, cfg.dtype)
+    decode = shape.mode == "decode"
+    L = 1 if decode else S
+    tokens = (torch.zeros((B, L, cfg.d_model), dtype=dt, device=device)
+              if cfg.frontend is not None
+              else torch.zeros((B, L), dtype=torch.int32, device=device))
+
+    def sample(logits):
+        return engine.whole_rows(model, logits[:, -1].argmax(
+            -1, keepdim=True), B)
+    parts = {"params": storage_bytes(model.tree())}
+    if not cfg.has_decode:
+        @torch.inference_mode()
+        def encode():
+            h, _, _ = model.forward(tokens)
+            return model.logits_from_hidden(h)
+        return encode, (model.tree(), tokens), parts, model
+    if decode and cfg.frontend is not None:
+        # a frontend decodes through the API (the step builder takes ids)
+        caches = model.init_caches(B, S, long_context=long_context)
+        lay = model.cache_layout(B, S, long_context)
+        rows = slice(0, B) if lay is None else lay.rows
+
+        @torch.inference_mode()
+        def run():
+            logits, out = model.decode_step(tokens[rows], caches,
+                                            long_context=long_context)
+            return logits, out, sample(logits)
+    elif decode:
+        step = engine.build_decode(model, batch=B, cache_len=S,
+                                   long_context=long_context, graph=False)
+        caches = step.caches
+
+        def run():
+            logits = step(tokens)
+            return logits, caches, sample(logits)
+    else:
+        caches = model.init_caches(B, S, long_context=long_context)
+        prefill = engine.build_prefill(model, cache_len=S, batch=B,
+                                       long_context=long_context)
+
+        def run():
+            logits, out = prefill(tokens, caches)
+            return logits, out, sample(logits)
+    parts["caches"] = storage_bytes(list(caches))
+    return run, (model.tree(), tokens, caches), parts, model
+
+
+def execute_pair(cfg, shape: ShapeConfig, mesh_shape: Dict[str, int], *,
+                 rank: int = 0, fsdp: Optional[bool] = None,
+                 expert_tp: Optional[bool] = None,
+                 tcfg: Optional[TrainConfig] = None,
+                 long_context: bool = False,
+                 device="cpu") -> Dict[str, Any]:
+    """Rank ``rank``'s step of ``cfg`` at ``shape`` on a mesh of
+    ``mesh_shape`` (``{"data": D, "model": M}``), run once on fake
+    tensors on ``device`` (the module docstring), with the layout
+    choices :func:`count_pair` makes for the same arguments.  Returns
+    ``memory_analysis`` (``op_analysis.MemoryTracker``), ``op_analysis``
+    (``op_analysis.analyze``), ``collectives`` (the executed log's
+    record, :func:`collectives_record`), ``log`` (the logged collectives
+    in order), ``arguments`` (the step's argument bytes by part:
+    ``params``, ``opt``, ``batch`` — the global batch, which every rank
+    is given and cuts — or ``caches``) and ``seconds``.  A mesh with a
+    ``pod`` axis raises (:data:`POD_REASON`)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    if set(mesh_shape) != {"data", "model"}:
+        raise NotImplementedError(f"mesh {mesh_shape}: {POD_REASON}")
+    t0 = time.perf_counter()
+    D, M = mesh_shape["data"], mesh_shape["model"]
+    train = shape.mode == "train"
+    tcfg = tcfg or DRYRUN_TCFG
+    fsdp, expert_tp = _choices(cfg, shape, mesh_shape, fsdp, expert_tp)
+    held = {}
+    saved = alltoall.collectives
+    with fake_world(D * M, rank), _expert_tp_env(expert_tp):
+        mesh = None
+        if D * M > 1:
+            rows = ((mesh_lib.cut_tokens(
+                (D, M), rank, shape.global_batch // tcfg.microbatches,
+                shape.seq_len).n,) if train else ())
+            mesh = mesh_lib.make_mesh((D, M), device=device, rows=rows)
+        with FakeTensorMode():
+            if train:
+                fn, args, parts, model = _train_run(cfg, tcfg, shape, mesh,
+                                                    device, fsdp)
+            else:
+                fn, args, parts, model = _serve_run(cfg, shape, mesh, device,
+                                                    fsdp, long_context)
+
+            def run():
+                held["out"] = fn()
+                return held["out"]
+            alltoall.collectives = log = []
+            try:
+                with op_analysis.MemoryTracker(args) as tracker:
+                    graph = trace_graph(run)
+            finally:
+                alltoall.collectives = saved
+            memory = tracker.report(held.pop("out"))
+            if model is not None:
+                from repro_torch.serving import engine
+                engine.clear_step_cache(model)
+    ops_ = op_analysis.analyze(graph)
+    ops_["collectives"].pop("log")
+    inner = (cfg.moe.a2a_inner if cfg.moe is not None
+             and isinstance(cfg.moe.a2a_inner, int) else 1)
+    return {"memory_analysis": memory, "op_analysis": ops_,
+            "collectives": collectives_record(_plan_of(log, mesh_shape),
+                                              inner),
+            "log": log, "arguments": parts,
+            "seconds": time.perf_counter() - t0}
+
+
+def _plan_of(log: List[Collective], mesh_shape) -> Plan:
+    """A :class:`Plan` of logged collectives, each group's axes from its
+    label (the node test's input)."""
+    plan = Plan(mesh_shape)
+    axes = {"model": ("model",), "data": ("data",),
+            "world": tuple(mesh_shape)}
+    plan.ops = [(c, axes.get(c.axis, ("model",))) for c in log]
+    return plan
+
+
 def roofline(record: Dict[str, Any]) -> Dict[str, Any]:
-    """The three terms in seconds from the datasheet constants: model
-    FLOPs a chip over :data:`PEAK_FLOPS`, the stored bytes a rank read
-    once over :data:`HBM_BW` (a floor: no activations), the wire bytes a
-    rank over :data:`NVLINK_BW` inside a node and :data:`NIC_BW`
-    across."""
+    """The three terms in seconds from the datasheet constants, the
+    reference's: executed FLOPs a rank (``op_analysis``) over
+    :data:`PEAK_FLOPS`, executed HBM bytes a rank over :data:`HBM_BW`,
+    the wire bytes a rank over :data:`NVLINK_BW` inside a node and
+    :data:`NIC_BW` across; the executed FLOPs over all chips and the
+    useful fraction (model FLOPs over them).  A record without
+    ``op_analysis`` (not executed, :data:`POD_REASON`) takes model FLOPs
+    a chip and the stored bytes read once (a floor) instead, and says
+    so in ``basis``."""
     coll = record["collectives"]
     intra = coll["total_wire_bytes"] - coll["internode_wire_bytes"]
-    terms = {"compute_s": record["model_flops_per_chip"] / PEAK_FLOPS,
-             "memory_s": record["stored_bytes"]["total"] / HBM_BW,
-             "collective_s": intra / NVLINK_BW
-             + coll["internode_wire_bytes"] / NIC_BW}
+    ran = record.get("op_analysis")
+    out: Dict[str, Any] = {}
+    if ran is None:
+        terms = {"compute_s": record["model_flops_per_chip"] / PEAK_FLOPS,
+                 "memory_s": record["stored_bytes"]["total"] / HBM_BW}
+        out["basis"] = "plan: model FLOPs, stored bytes (not executed)"
+    else:
+        terms = {"compute_s": ran["flops"] / PEAK_FLOPS,
+                 "memory_s": ran["hbm_bytes"] / HBM_BW}
+        total = ran["flops"] * record["chips"]
+        out.update(basis="executed", executed_flops_total=total,
+                   useful_fraction=(record["model_flops"] / total
+                                    if total else 0.0))
+    terms["collective_s"] = (intra / NVLINK_BW
+                             + coll["internode_wire_bytes"] / NIC_BW)
     return {**terms, "dominant": max(terms, key=terms.get),
-            "step_time_bound_s": max(terms.values()),
+            "step_time_bound_s": max(terms.values()), **out,
+            "model_flops": record["model_flops"],
             "constants": "H100 SXM datasheet (not measured)"}
 
 
@@ -856,7 +1134,12 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
              a2a=None, dispatch=None, tag: str = "", save: bool = True,
              tcfg: TrainConfig = None) -> Dict[str, Any]:
     """The record of one (arch, shape) at the production mesh, or its skip
-    reason; saved under :data:`OUT_DIR` with ``save``."""
+    reason; saved under :data:`OUT_DIR` with ``save``.  The pair is
+    counted (:func:`count_pair`) and, at 16x16, executed
+    (:func:`execute_pair`): ``memory_analysis`` and ``op_analysis`` join
+    the record, and a step whose logged collectives differ from the
+    plan's raises.  A 2x16x16 record holds ``not_executed``
+    (:data:`POD_REASON`) in their place."""
     reason = eligible(arch, shape_name)
     mesh_name = "2x16x16" if multi_pod else "16x16"
     rec: Dict[str, Any] = {"arch": arch, "shape": shape_name,
@@ -871,14 +1154,30 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     shape = INPUT_SHAPES[shape_name]
     if shape.mode == "train" and tcfg is None:
         tcfg = DRYRUN_TCFG_GIANT if arch in GIANT else DRYRUN_TCFG
+    mesh_shape = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+    long_context = shape_name == "long_500k"
     t0 = time.perf_counter()
-    out = count_pair(cfg, shape, mesh_lib.make_production_mesh(
-        multi_pod=multi_pod), tcfg=tcfg,
-        long_context=shape_name == "long_500k")
-    out.pop("plan")
+    out = count_pair(cfg, shape, mesh_shape, tcfg=tcfg,
+                     long_context=long_context)
+    plan = out.pop("plan")
     rec.update(out)
-    rec["roofline"] = roofline(rec)
     rec["count_s"] = time.perf_counter() - t0
+    if multi_pod:
+        rec["not_executed"] = POD_REASON
+    else:
+        ran = execute_pair(cfg, shape, mesh_shape, fsdp=rec["fsdp"],
+                           expert_tp=rec["expert_tp"], tcfg=tcfg,
+                           long_context=long_context)
+        want, got = plan.log(), collections.Counter(ran["log"])
+        if got != want:
+            raise RuntimeError(
+                f"{arch} {shape_name}: the executed step's collectives differ "
+                f"from the plan's: only planned {dict(want - got)}, only "
+                f"executed {dict(got - want)}")
+        rec.update(memory_analysis=ran["memory_analysis"],
+                   op_analysis=ran["op_analysis"],
+                   execute_s=ran["seconds"])
+    rec["roofline"] = roofline(rec)
     if save:
         _save(rec, tag)
     return rec
@@ -897,6 +1196,38 @@ def _save(rec, tag=""):
         json.dump(rec, f, indent=1, default=float)
 
 
+def _pair_job(out_dir: str, arch: str, shape_name: str, kw: dict):
+    """:func:`run_pair` in a worker process, its record saved under
+    ``out_dir``."""
+    global OUT_DIR
+    OUT_DIR = out_dir
+    return run_pair(arch, shape_name, **kw)
+
+
+def _run_pairs(pairs, jobs: int, **kw) -> List[Dict[str, Any]]:
+    """Each pair's record, in order: in ``jobs`` worker processes (the
+    ``spawn`` start method) when there is more than one pair to execute,
+    else here.  A pair that fails raises here."""
+    if jobs <= 1 or len(pairs) == 1 or kw.get("multi_pod"):
+        return [run_pair(a, s, **kw) for a, s in pairs]
+    import concurrent.futures
+    import multiprocessing
+
+    # the job by this module's import name, which a worker can import
+    # also when this module runs as __main__
+    from repro_torch.launch import dryrun
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=jobs,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        # the train steps, the longest to run, go first, the deepest first
+        first = sorted(pairs, key=lambda p: (
+            INPUT_SHAPES[p[1]].mode != "train",
+            -configs.get_config(p[0]).num_layers))
+        futs = {p: pool.submit(dryrun._pair_job, OUT_DIR, *p, kw)
+                for p in first}
+        return [futs[p].result() for p in pairs]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -908,6 +1239,11 @@ def main(argv=None):
     ap.add_argument("--dispatch", default=None,
                     choices=[None, "sort", "dense"])
     ap.add_argument("--tag", default="")
+    ap.add_argument("--jobs", type=int,
+                    default=min(len(os.sched_getaffinity(0)), 8),
+                    help="worker processes that execute the pairs (default: "
+                         "the CPUs this process may run on, at most 8; each "
+                         "holds ~0.6 GB)")
     args = ap.parse_args(argv)
     if args.all:
         pairs = [(a, s) for a in configs.ASSIGNED for s in INPUT_SHAPES]
@@ -915,19 +1251,24 @@ def main(argv=None):
         if not (args.arch and args.shape):
             ap.error("give --arch and --shape, or --all")
         pairs = [(args.arch, args.shape)]
-    for a, s in pairs:
-        rec = run_pair(a, s, multi_pod=args.multi_pod, a2a=args.a2a,
-                       dispatch=args.dispatch, tag=args.tag)
+    recs = _run_pairs(pairs, args.jobs, multi_pod=args.multi_pod,
+                      a2a=args.a2a, dispatch=args.dispatch, tag=args.tag)
+    for (a, s), rec in zip(pairs, recs):
         if "skipped" in rec:
             print(f"{a:28s} {s:12s} SKIP: {rec['skipped']}")
             continue
         r, c = rec["roofline"], rec["collectives"]
+        ma = rec.get("memory_analysis")
+        peak = ("not executed" if ma is None else
+                f"{ma['peak_per_device_bytes'] / 2 ** 30:.2f}GiB")
         print(f"{a:28s} {s:12s} {rec['mesh']:8s} "
               f"compute={r['compute_s']:.3e}s memory={r['memory_s']:.3e}s "
               f"coll={r['collective_s']:.3e}s dom={r['dominant']:12s} "
               f"stored/rank={rec['stored_bytes']['total'] / 2 ** 30:.2f}GiB "
+              f"peak/rank={peak} "
               f"wire/rank={c['total_wire_bytes'] / 2 ** 30:.2f}GiB "
-              f"fsdp={rec['fsdp']} ({rec['count_s']:.2f}s)")
+              f"fsdp={rec['fsdp']} ({rec['count_s']:.2f}s count, "
+              f"{rec.get('execute_s', 0.0):.2f}s run)")
 
 
 if __name__ == "__main__":
